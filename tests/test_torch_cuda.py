@@ -1,0 +1,73 @@
+"""The CUDA kernel against its plain version on the card. These tests need
+an NVIDIA GPU with nvcc and skip elsewhere; run them on the card with
+
+    python -m pytest tests/test_torch_cuda.py -m requires_cuda -q
+"""
+import numpy as np
+import pytest
+import torch
+
+from tpulbm_torch.config import SimulationParams
+from tpulbm_torch.convert import state_from_numpy
+from tpulbm_torch.models import make_problem
+from tpulbm_torch.ops import step_cuda, step_torch
+from tpulbm_torch.stepper import make_chunk_fn
+
+pytestmark = pytest.mark.requires_cuda
+ONE_STEP_TOL = dict(rtol=5e-6, atol=1e-7)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA) and nvcc")
+    return torch.device("cuda", 0)
+
+
+def _perturbed_state(problem, seed):
+    # a state with structure at every edge and corner: the initial state
+    # times seeded noise, solid cells back at rest equilibrium
+    rng = np.random.default_rng(seed)
+    f = problem.initial_state() * rng.uniform(0.9, 1.1, (9,)
+                                             + problem.spatial_shape)
+    f[:, problem.solid] = problem.lattice.w[:, None]
+    return f.astype(np.float32)
+
+
+# ragged shapes (not multiples of the 32x8 block), a grid narrower than one
+# block, and a cylinder with solid cells on the inlet column and the bottom
+# wall row (the BCs must leave them to the obstacle pin)
+@pytest.mark.parametrize("kw", [
+    dict(nx=256, ny=64), dict(nx=100, ny=37), dict(nx=17, ny=5),
+    dict(nx=64, ny=32, cylinder_x=0.03, cylinder_y=0.06,
+         cylinder_radius=0.12)])
+def test_kernel_one_step_matches_plain(cuda, kw):
+    problem = make_problem(SimulationParams(tau=0.55, inlet_velocity=0.05,
+                                            **kw))
+    f = state_from_numpy(_perturbed_state(problem, kw["nx"]), problem, cuda)
+    kstep = step_cuda.make_local_step_cuda(problem, cuda)
+    before = step_cuda.collide_stream.launches
+    got = kstep(f, torch.empty_like(f))
+    assert step_cuda.collide_stream.launches == before + 1
+    want = step_torch.make_step_rolled(problem, cuda)(f)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **ONE_STEP_TOL)
+
+
+def test_kernel_chunk_counts_every_launch(cuda):
+    problem = make_problem(SimulationParams(nx=128, ny=64))
+    f = state_from_numpy(problem.initial_state(), problem, cuda)
+    before = step_cuda.collide_stream.launches
+    got = make_chunk_fn(problem, cuda, 25, backend="pallas")(f.clone())
+    assert step_cuda.collide_stream.launches == before + 25
+    want = make_chunk_fn(problem, cuda, 25, backend="jax")(f)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+
+
+def test_kernel_wrapper_refuses_mixed_devices(cuda):
+    problem = make_problem(SimulationParams(nx=64, ny=32))
+    kstep = step_cuda.make_local_step_cuda(problem, cuda)
+    f = torch.from_numpy(problem.initial_state())      # on the host
+    with pytest.raises(ValueError):
+        kstep(f, torch.empty_like(f))

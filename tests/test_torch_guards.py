@@ -1,0 +1,129 @@
+"""Guards of the port: it never imports jax, it never falls back from the
+GPU to the CPU, and the kernel wrapper checks its inputs before any
+launch."""
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+from tpulbm_torch.config import SimulationParams
+from tpulbm_torch.ops import step_cuda
+from tpulbm_torch.runner import Runner
+from tpulbm_torch.utils import cuda_build
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_runs_without_jax(tmp_path):
+    # a fresh interpreter: import every module of the port, run a 10-step
+    # chunk through the kernel module's CPU path and the CLI end to end
+    script = textwrap.dedent(f"""
+        import importlib, pkgutil, sys
+        import tpulbm_torch
+        for m in pkgutil.walk_packages(tpulbm_torch.__path__, "tpulbm_torch."):
+            importlib.import_module(m.name)
+        from tpulbm_torch.config import SimulationParams
+        from tpulbm_torch.convert import state_from_numpy
+        from tpulbm_torch.models import make_problem
+        from tpulbm_torch.stepper import make_chunk_fn
+        from tpulbm_torch.__main__ import main
+        problem = make_problem(SimulationParams(nx=48, ny=24))
+        f = state_from_numpy(problem.initial_state(), problem, "cpu")
+        f = make_chunk_fn(problem, "cpu", 10)(f)
+        assert bool(f.isfinite().all())
+        rc = main(["--cpu", "--nx", "64", "--ny", "32", "--num-timesteps",
+                   "40", "--output-frequency", "20", "--no-vtk",
+                   "--output-dir", {str(tmp_path)!r}])
+        assert rc == 0, rc
+        leaked = sorted(m for m in sys.modules
+                        if m == "jax" or m.startswith("jax."))
+        assert not leaked, leaked
+        print("JAX-FREE OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "JAX-FREE OK" in proc.stdout
+    for name in ("forces.csv", "velocity_field.csv", "simulation_params.csv"):
+        assert (tmp_path / name).exists()
+
+
+def test_runner_refuses_cuda_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    params = SimulationParams(nx=64, ny=32, output_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Runner(params, device="cuda")
+
+
+@pytest.mark.parametrize("override", [dict(precision="f64"),
+                                      dict(mesh_shape=(2, 1)),
+                                      dict(checkpoint_every=2),
+                                      dict(stats_from=0),
+                                      dict(probe_points=((0.5, 0.5),))])
+def test_runner_refuses_unported_options(tmp_path, override):
+    params = SimulationParams(nx=64, ny=32, num_timesteps=20,
+                              output_dir=str(tmp_path), **override)
+    with pytest.raises(NotImplementedError,
+                       match="float32" if "precision" in override
+                       else "ROADMAP"):
+        Runner(params, device="cpu")
+
+
+def _inputs(ny=6, nx=10):
+    f = torch.rand(9, ny, nx, dtype=torch.float32)
+    return f, torch.empty_like(f), torch.zeros(ny, nx, dtype=torch.uint8)
+
+
+def test_kernel_wrapper_accepts_valid_inputs():
+    step_cuda.check_inputs(*_inputs())
+
+
+@pytest.mark.parametrize("bad,exc", [
+    ("f64", TypeError), ("solid_bool", TypeError), ("q8", ValueError),
+    ("out_shape", ValueError), ("solid_shape", ValueError),
+    ("noncontig", ValueError), ("alias", ValueError), ("meta", ValueError)])
+def test_kernel_wrapper_rejects_bad_inputs(bad, exc):
+    f, out, solid = _inputs()
+    if bad == "f64":
+        f = f.double()
+    elif bad == "solid_bool":
+        solid = solid.bool()
+    elif bad == "q8":
+        f, out = f[:8].clone(), out[:8].clone()
+    elif bad == "out_shape":
+        out = out[:, :, :-1].clone()
+    elif bad == "solid_shape":
+        solid = solid[:-1].clone()
+    elif bad == "noncontig":
+        f = torch.rand(9, 10, 6).transpose(1, 2)
+    elif bad == "alias":
+        out = f
+    elif bad == "meta":
+        f, out, solid = (t.to("meta") for t in (f, out, solid))
+    with pytest.raises(exc):
+        step_cuda.check_inputs(f, out, solid)
+
+
+def test_kernel_wrapper_counts_only_kernel_launches():
+    # a CPU tensor runs the plain version: no kernel launch is counted
+    from tpulbm_torch.models import make_problem
+    problem = make_problem(SimulationParams(nx=40, ny=20))
+    step = step_cuda.make_local_step_cuda(problem, "cpu")
+    before = step_cuda.collide_stream.launches
+    f = torch.from_numpy(problem.initial_state())
+    out = step(f, torch.empty_like(f))
+    assert bool(out.isfinite().all())
+    assert step_cuda.collide_stream.launches == before
+
+
+def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(os.path, "exists", lambda p: not p.endswith("nvcc"))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        cuda_build.find_nvcc()

@@ -1,0 +1,78 @@
+"""The port's Problem against tpulbm's, byte for byte, and the state
+conversions between the two packages."""
+import numpy as np
+import pytest
+import torch
+
+from tpulbm.config import PRESETS
+from tpulbm.models import make_problem as jax_problem
+from tpulbm.utils import checkpoint
+from tpulbm_torch.convert import (load_tpulbm_checkpoint, state_from_numpy,
+                                  state_to_numpy)
+from tpulbm_torch.models import make_problem
+
+
+@pytest.mark.parametrize("preset", ["reference-default", "cylinder-small",
+                                    "re100", "re200"])
+@pytest.mark.parametrize("precision", ["f32", "f64"])
+def test_problem_arrays_match_tpulbm_bytewise(preset, precision):
+    params = PRESETS[preset].replace(precision=precision)
+    mine, ref = make_problem(params), jax_problem(params)
+    for got, want in ((mine.solid, ref.solid),
+                      (mine.ghost_ring_values(), ref.ghost_ring_values()),
+                      (mine.initial_state(), ref.initial_state())):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert got.tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("problem,item", [
+    ("poiseuille", "item 12"), ("cavity", "item 12"),
+    ("kolmogorov", "item 13"), ("rayleigh-benard", "item 17"),
+    ("cylinder3d", "item 16"), ("multiphase", "item 18")])
+def test_unported_problems_name_their_roadmap_item(problem, item):
+    with pytest.raises(NotImplementedError, match=item):
+        make_problem(PRESETS["cylinder-small"].replace(problem=problem))
+
+
+@pytest.mark.parametrize("override,item", [
+    (dict(collision="trt"), "item 11"), (dict(smagorinsky=0.1), "item 11"),
+    (dict(power_law_n=0.7), "item 11"),
+    (dict(obstacle_bc="bounce_back"), "item 12"),
+    (dict(zou_he_corners="clean"), "item 12"),
+    (dict(body_force=(1e-5, 0.0)), "item 12"),
+    (dict(obstacle_bc="bouzidi"), "item 14"), (dict(nz=16), "item 16")])
+def test_unported_options_name_their_roadmap_item(override, item):
+    with pytest.raises(NotImplementedError, match=item):
+        make_problem(PRESETS["cylinder-small"].replace(**override))
+
+
+def test_state_round_trip_and_checks():
+    params = PRESETS["cylinder-small"]
+    problem = make_problem(params)
+    f = problem.initial_state()
+    t = state_from_numpy(f, problem, "cpu")
+    assert t.dtype == torch.float32 and t.is_contiguous()
+    back = state_to_numpy(t)
+    assert back.tobytes() == f.tobytes()
+    with pytest.raises(TypeError):
+        state_from_numpy(f.astype(np.float64), problem, "cpu")
+    with pytest.raises(ValueError):
+        state_from_numpy(f[:, :, :-1], problem, "cpu")
+    with pytest.raises(ValueError):
+        state_to_numpy(t[:5])
+    with pytest.raises(TypeError):
+        state_to_numpy(t.to(torch.float16))
+
+
+def test_load_tpulbm_checkpoint(tmp_path):
+    params = PRESETS["cylinder-small"]
+    rng = np.random.default_rng(7)
+    f = (jax_problem(params).initial_state()
+         * rng.uniform(0.9, 1.1, size=(9, params.ny, params.nx))
+         ).astype(np.float32)
+    path = checkpoint.save(str(tmp_path), 420, f, params)
+    step, t = load_tpulbm_checkpoint(path, params, "cpu")
+    assert step == 420
+    assert state_to_numpy(t).tobytes() == f.tobytes()
+    with pytest.raises(ValueError, match="tau"):
+        load_tpulbm_checkpoint(path, params.replace(tau=0.7), "cpu")

@@ -1,0 +1,57 @@
+"""CLI entry point, on the same flags as tpulbm's main.py.
+
+    python -m tpulbm_torch --preset re200 --no-vtk
+    python -m tpulbm_torch --preset cylinder-small --cpu --num-timesteps 200
+
+Runs on the first CUDA device; --cpu runs the plain PyTorch version on the
+host instead (debugging). Flags of main.py that the port does not cover yet
+raise NotImplementedError.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def build_parser() -> argparse.ArgumentParser:
+    from .config import add_cli_args
+    parser = argparse.ArgumentParser(
+        prog="python -m tpulbm_torch",
+        description="tpulbm_torch — Lattice Boltzmann solver on PyTorch + "
+                    "CUDA")
+    add_cli_args(parser)
+    parser.add_argument("--cpu", action="store_true",
+                        help="run on the host CPU (plain PyTorch; debug)")
+    parser.add_argument("--cpu-devices", type=int, default=0,
+                        help="not ported (several devices)")
+    parser.add_argument("--profile-dir", type=str, default=None,
+                        help="write a torch.profiler trace here")
+    parser.add_argument("--no-resume", action="store_true",
+                        help="ignore existing checkpoints (the port writes "
+                             "none yet)")
+    parser.add_argument("--distributed", action="store_true",
+                        help="not ported (several hosts)")
+    return parser
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    # --mesh auto keeps params.mesh_shape at (1, 1): the port runs on one
+    # device; an explicit larger --mesh is refused by the Runner
+    if args.cpu_devices or args.distributed:
+        raise NotImplementedError(
+            "several devices are not ported to tpulbm_torch yet "
+            "(ROADMAP Queue 1 item 19)")
+    from .config import params_from_args
+    from .runner import Runner
+    from .utils.profiling import trace
+
+    params = params_from_args(args)
+    runner = Runner(params, device="cpu" if args.cpu else "cuda")
+    with trace(args.profile_dir):
+        result = runner.run()
+    return 0 if result.success else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,48 @@
+"""Carry state between tpulbm and the port.
+
+Both packages hold the populations as (Q, ny, nx) arrays in the same
+direction order and layout, so a tpulbm state moves over unchanged. A
+tpulbm single-device checkpoint (`tpulbm.utils.checkpoint.save`: one .npz
+with `f`, `step` and the params JSON) can be continued in the port.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tpulbm.utils import checkpoint
+
+from .config import SimulationParams
+from .models import make_problem
+from .models.base import Problem
+
+
+def state_from_numpy(f: np.ndarray, problem: Problem, device) -> torch.Tensor:
+    """A tpulbm state (Q, ny, nx) as a contiguous tensor on `device`;
+    raises unless its shape and dtype are the problem's."""
+    f = np.asarray(f)
+    want = (problem.lattice.Q,) + problem.spatial_shape
+    if f.shape != want:
+        raise ValueError(f"state shape {f.shape} != problem's {want}")
+    if f.dtype != np.dtype(problem.dtype):
+        raise TypeError(f"state dtype {f.dtype} != problem's "
+                        f"{np.dtype(problem.dtype)}")
+    return torch.from_numpy(np.ascontiguousarray(f)).to(device)
+
+
+def state_to_numpy(f: torch.Tensor) -> np.ndarray:
+    """A port state (9, ny, nx) f32/f64 tensor as a host NumPy array."""
+    if f.dim() != 3 or f.shape[0] != 9:
+        raise ValueError(f"state must be (9, ny, nx), got {tuple(f.shape)}")
+    if f.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"state dtype must be float32 or float64, "
+                        f"got {f.dtype}")
+    return f.detach().cpu().numpy()
+
+
+def load_tpulbm_checkpoint(path: str, params: SimulationParams,
+                           device) -> tuple[int, torch.Tensor]:
+    """(step, f) from a tpulbm single-device checkpoint; raises if it was
+    written with different physics than `params`."""
+    step, f = checkpoint.load(path, params)
+    return step, state_from_numpy(f, make_problem(params), device)

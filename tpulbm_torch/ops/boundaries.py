@@ -1,0 +1,108 @@
+"""Boundary conditions as masked per-population ("plane") updates.
+
+Port of tpulbm/ops/boundaries.py for the cylinder's BC stack. Every BC is a
+`torch.where` over coordinate masks on a mutable list of Q planes, applied
+in the reference order (bottom wall, top wall, inlet, outlet, obstacle), so
+the read-after-write chain at the corner cells carries over: the inlet's
+Zou-He reads f6 after the bottom wall rewrote it.
+
+D2Q9 index convention:
+    0:(0,0) 1:(1,0) 2:(0,1) 3:(-1,0) 4:(0,-1) 5:(1,1) 6:(-1,1) 7:(-1,-1) 8:(1,-1)
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..lattice import Lattice
+from ..models.base import Problem
+from .. import physics
+
+
+def _not_solid(mask, solid):
+    return mask if solid is None else mask & ~solid
+
+
+def apply_walls(lat: Lattice, planes: list, wall_mask, axis_component: int,
+                sign: int, solid) -> None:
+    """Bounce-back at a flat wall: every direction i whose velocity component
+    along `axis_component` has the given sign takes f_opposite(i). D2Q9
+    bottom (sign=+1 on y): f2<-f4, f5<-f7, f6<-f8; top (sign=-1):
+    f4<-f2, f7<-f5, f8<-f6."""
+    m = _not_solid(wall_mask, solid)
+    opp = lat.opposite
+    for i in range(lat.Q):
+        if int(np.sign(lat.c[i, axis_component])) == sign:
+            planes[i] = torch.where(m, planes[int(opp[i])], planes[i])
+
+
+def apply_zou_he_inlet(planes: list, inlet_mask, u_in: float, solid) -> None:
+    """Zou-He velocity inlet on the x=0 column.
+
+    rho_bc = (f0+f2+f4 + 2(f3+f6+f7)) / (1 - u_in)
+    f1 = f3 + 2/3 rho u;  f5 = f7 - (f2-f4)/2 + rho u/6;  f8 = f6 + (f2-f4)/2 + rho u/6
+    """
+    m = _not_solid(inlet_mask, solid)
+    p = planes
+    rho_bc = (p[0] + p[2] + p[4] + 2.0 * (p[3] + p[6] + p[7])) / (1.0 - u_in)
+    ru = rho_bc * u_in
+    half_trans = 0.5 * (p[2] - p[4])
+    planes[1] = torch.where(m, p[3] + (2.0 / 3.0) * ru, p[1])
+    new5 = p[7] - half_trans + (1.0 / 6.0) * ru
+    new8 = p[6] + half_trans + (1.0 / 6.0) * ru
+    planes[5] = torch.where(m, new5, p[5])
+    planes[8] = torch.where(m, new8, p[8])
+
+
+def apply_zou_he_outlet(planes: list, outlet_mask, solid) -> None:
+    """Zou-He pressure outlet (rho=1) on the x=nx-1 column.
+
+    u_out = -1 + (f0+f2+f4 + 2(f1+f5+f8)) / rho_out
+    f3 = f1 - 2/3 u; f6 = f8 - (f2-f4)/2 - u/6; f7 = f5 + (f2-f4)/2 - u/6
+    """
+    m = _not_solid(outlet_mask, solid)
+    p = planes
+    u_out = -1.0 + (p[0] + p[2] + p[4] + 2.0 * (p[1] + p[5] + p[8]))
+    half_trans = 0.5 * (p[2] - p[4])
+    new3 = p[1] - (2.0 / 3.0) * u_out
+    new6 = p[8] - half_trans - (1.0 / 6.0) * u_out
+    new7 = p[5] + half_trans - (1.0 / 6.0) * u_out
+    planes[3] = torch.where(m, new3, p[3])
+    planes[6] = torch.where(m, new6, p[6])
+    planes[7] = torch.where(m, new7, p[7])
+
+
+def apply_obstacle(lat: Lattice, planes: list, solid, rest: np.ndarray) -> None:
+    """Equilibrium obstacle (reference parity): pin solid cells to the rest
+    equilibrium w_i after every edge BC. The reference's collision skips
+    solids and its streaming reads cells that keep their initial rest
+    equilibrium, so fluid neighbours always pull w_i from the cylinder."""
+    if solid is None:
+        return
+    for i in range(lat.Q):
+        planes[i] = torch.where(solid, float(rest[i]), planes[i])
+
+
+def apply_all(problem: Problem, planes: list, coords: dict) -> list:
+    """Apply the cylinder's BC stack in reference order.
+
+    `coords` holds broadcastable global-coordinate tensors 'yy' (ny, 1) and
+    'xx' (1, nx), the extents 'ny' and 'nx', and 'solid' (bool mask or
+    None)."""
+    if problem.obstacle_bc != "equilibrium":
+        raise NotImplementedError(
+            f"obstacle_bc={problem.obstacle_bc!r} is not ported")
+    lat = problem.lattice
+    solid = coords.get("solid")
+    yy, xx = coords["yy"], coords["xx"]
+    ny, nx = coords["ny"], coords["nx"]
+    if problem.walls_y:
+        apply_walls(lat, planes, yy == 0, 1, +1, solid)
+        apply_walls(lat, planes, yy == ny - 1, 1, -1, solid)
+    if problem.inlet_zou_he:
+        apply_zou_he_inlet(planes, xx == 0, problem.init_u[0], solid)
+    if problem.outlet_zou_he:
+        apply_zou_he_outlet(planes, xx == nx - 1, solid)
+    apply_obstacle(lat, planes, solid,
+                   physics.rest_equilibrium(lat, problem.dtype))
+    return planes

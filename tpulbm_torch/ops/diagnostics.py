@@ -1,0 +1,51 @@
+"""On-device diagnostics: macroscopic fields, stability, max velocity.
+
+Port of tpulbm/ops/diagnostics.py (fields_fn, stability_fn,
+max_velocity_fn). Each builder returns a function of the state tensor whose
+result stays on the device until the caller fetches it.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import physics
+from ..models.base import Problem
+
+
+def _solid(problem: Problem, device):
+    return (None if problem.solid is None
+            else torch.as_tensor(problem.solid, device=device))
+
+
+def fields_fn(problem: Problem, device):
+    """f -> (rho, u) with the reference's solid-cell overrides: rho = 1 and
+    u = 0 at solid cells."""
+    lat = problem.lattice
+    solid = _solid(problem, device)
+
+    def fn(f: torch.Tensor):
+        rho, u = physics.moments(lat, f)
+        if solid is not None:
+            rho = torch.where(solid, 1.0, rho)
+            u = torch.where(solid[None], 0.0, u)
+        return rho, u
+
+    return fn
+
+
+def stability_fn(problem: Problem):
+    """f -> bool scalar tensor: every population finite and |f| < 1e5."""
+    def fn(f: torch.Tensor) -> torch.Tensor:
+        return physics.is_stable(f)
+    return fn
+
+
+def max_velocity_fn(problem: Problem, device):
+    """f -> max |u| (solid cells report u = 0)."""
+    lat = problem.lattice
+    solid = _solid(problem, device)
+
+    def fn(f: torch.Tensor) -> torch.Tensor:
+        return physics.max_velocity(lat, f, solid)
+
+    return fn

@@ -1,0 +1,80 @@
+"""Build and load the port's CUDA kernels at first use.
+
+Each kernel source under tpulbm_torch/csrc/ is compiled by nvcc into a
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds) and loaded with ctypes. Libraries land in build/tpulbm_torch/
+at the repository root, named by a hash of the source and the flags, so an
+edited source rebuilds and an unchanged one is reused. Clear the cache with
+`rm -rf build/tpulbm_torch`.
+
+Nothing is built when a module is imported; a missing nvcc or a failed
+build raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+SOURCE_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "tpulbm_torch"
+
+# -fmad=false keeps each multiply and add rounded on its own, as in the
+# plain PyTorch version the kernels are compared with.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+
+@dataclasses.dataclass(frozen=True)
+class Library:
+    lib: ctypes.CDLL
+    path: Path
+    build_seconds: float   # 0.0 when an existing build was reused
+    log: str               # nvcc's output, including ptxas's register report
+
+
+def find_nvcc() -> str:
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
+                           "PATH); the CUDA kernels are built at first use")
+    return nvcc
+
+
+@functools.cache
+def load(source: str) -> Library:
+    """Build (if needed) and load csrc/<source> as a shared library."""
+    src = SOURCE_DIR / source
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"{src.stem}_{digest}.so"
+    log_path = out.with_suffix(".log")
+    seconds = 0.0
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=600)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed on {src} (exit "
+                               f"{proc.returncode}):\n{log}")
+        log_path.write_text(log)
+        os.replace(tmp, out)  # atomic publish: concurrent builders race safely
+    log = log_path.read_text() if log_path.exists() else ""
+    return Library(ctypes.CDLL(str(out)), out, seconds, log)
