@@ -7,33 +7,57 @@ Needs one CUDA card and nvcc (CUDA_HOME or /usr/local/cuda). Phases, each
 printing its own line; any failure exits non-zero:
 
 1. the card: torch.cuda must see it; nvidia-smi's name and power limit;
-2. build: nvcc compiles tpulbm_torch/csrc/step_d2q9.cu (timed);
-3. kernel against plain at 2048x512 (re200): one step from the initial
-   state and one from a state the plain step advanced 500 steps, at
-   rtol 5e-6 / atol 1e-7; then 280 steps of each (max error printed and
-   bounded); then the port's Runner on a 64x32 cylinder through the
-   kernel and through the plain step;
+2. build: nvcc compiles tpulbm_torch/csrc/step_d2q9.cu and
+   step_d2q9_blocked.cu, both at once (timed; ptxas's registers, shared
+   memory and spills for each);
+3. kernels against plain at 2048x512 (re200): one step of the 1-step
+   kernel from the initial state and from a state the plain step advanced
+   500 steps, at rtol 5e-6 / atol 1e-7; 280 steps of each (max error
+   printed and bounded); the N-step kernel at N = 2, 3, 4 from the same
+   two states against N launches of the 1-step kernel (bitwise) and
+   against N plain steps (N times the one-step tolerance); 280 steps as
+   70 N=4 launches against 280 1-step launches (bitwise); then the port's
+   Runner on a 64x32 cylinder through the kernels and through the plain
+   step;
 4. the main path: tpulbm_torch.runner.Runner on re200 at 2048x512 f32,
-   2800 steps at output_frequency 140, no VTK; the kernel's launch count
-   must be 2800 and every artifact finite;
-5. timing: kernel and plain step at 2048x512, CUDA events, in turns
-   plain, kernel, kernel, plain.
+   2800 steps at output_frequency 140, no VTK: two super-chunks of 8
+   intervals, three 140-step chunks, a 139-step chunk and the last step.
+   Launch counts must be exactly 665 (N=4), 140 (1-step), 0 (N=2, N=3),
+   with 20 finite force rows; the loop's host fetches are printed;
+4b. resume: 1120 steps with checkpoint_every=8 (the checkpoint lands at
+   t = 1119), resumed to 2800: forces.csv and velocity_field.csv equal
+   the straight run's byte for byte;
+4c. the cascade's other depths through the Runner: 311 steps at
+   output_frequency 150 run two 150-step chunks at N=3 and a 10-step
+   chunk at N=2 (100 N=3, 5 N=2 and 1 1-step launches), and write the
+   same bytes as the same run with blocking off (TPULBM_NO_FUSED2);
+5. timing at 2048x512, CUDA events, in turns: the plain step, the 1-step
+   kernel and the N = 2, 3, 4 kernels, per step.
 
-The last two lines are a JSON line per kernel and the result line.
+Run directories go to build/chip_smoke/ (git-ignored; the final CSV has
+a million rows). The last two lines are a JSON line per kernel and the
+result line; a kernel's `launches` is its count in the run that drives
+it through the Runner: phase 4 for the 1-step and N=4 kernels, phase 4c
+for N=2 and N=3.
 """
 from __future__ import annotations
 
+import filecmp
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
-OUT_DIR = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke"
+OUT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
 ONE_STEP_TOL = dict(rtol=5e-6, atol=1e-7)
+DEPTHS = (2, 3, 4)
 # 280 steps of f32 rounding differences (1/rho multiplied vs divided, sum
 # order) from an impulsive start: a divergence bound, not a parity gate
 DRIFT_280_BOUND = 1e-4
@@ -53,10 +77,47 @@ def card_line() -> str:
 
 
 def kernel_chunk(step, f: torch.Tensor, n: int) -> torch.Tensor:
+    """n launches of `step` (one or N steps each) over ping-pong buffers."""
     spare = torch.empty_like(f)
     for _ in range(n):
         f, spare = step(f, spare), f
     return f
+
+
+def n_step_tol(n: int) -> dict:
+    """N steps against N plain steps: each step adds at most the one-step
+    rounding difference (1/rho multiplied in the kernel, divided in the
+    plain step), so the one-step tolerance scaled by N."""
+    return dict(rtol=n * ONE_STEP_TOL["rtol"], atol=n * ONE_STEP_TOL["atol"])
+
+
+def same_files(a: Path, b: Path, names) -> bool:
+    return all(filecmp.cmp(a / n, b / n, shallow=False) for n in names)
+
+
+def run_counted(params, dev):
+    """One Runner run with every launch count set to 0 just before it;
+    returns (result, counts read just after, wall seconds)."""
+    from tpulbm_torch.ops import step_cuda
+    from tpulbm_torch.runner import Runner
+
+    runner = Runner(params, device=dev, verbose=False)
+    step_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = runner.run()
+    wall = time.perf_counter() - t0
+    counts = {1: step_cuda.collide_stream.launches,
+              **step_cuda.collide_stream_blocked.launches}
+    require(result.success, f"run in {params.output_dir} failed")
+    return result, counts, wall
+
+
+def check_forces(path: Path, steps: list[int]) -> np.ndarray:
+    forces = np.loadtxt(path / "forces.csv", delimiter=",", skiprows=1)
+    require(forces.shape == (len(steps), 5), f"forces.csv {forces.shape}")
+    require(list(forces[:, 0].astype(int)) == steps, "forces.csv timesteps")
+    require(bool(np.isfinite(forces).all()), "forces.csv not finite")
+    return forces
 
 
 def plain_chunk(step, f: torch.Tensor, n: int) -> torch.Tensor:
@@ -125,14 +186,25 @@ def main() -> int:
     from tpulbm_torch.runner import Runner
     from tpulbm_torch.utils import cuda_build
 
-    # phase 2: build from the checkout's sources
-    lib = cuda_build.load("step_d2q9.cu")
-    ptxas = [ln.strip() for ln in lib.log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"build: {lib.path.name} in {lib.build_seconds:.2f} s "
-          f"({'; '.join(ptxas)})")
+    shutil.rmtree(OUT_DIR, ignore_errors=True)   # runs start from t = 0
 
-    # phase 3: kernel against plain at the main path's shape
+    # phase 2: build from the checkout's sources, one nvcc per source
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        libs = list(pool.map(cuda_build.load,
+                             ["step_d2q9.cu", "step_d2q9_blocked.cu"]))
+    print(f"build: both sources in {time.perf_counter() - t0:.2f} s")
+    for lib in libs:
+        ptxas = [ln.split(":", 1)[-1].strip() for ln in lib.log.splitlines()
+                 if "registers" in ln or "spill" in ln
+                 or "Compiling entry" in ln]
+        print(f"build: {lib.path.name} in {lib.build_seconds:.2f} s "
+              f"({'; '.join(ptxas)})")
+    smem = {n: step_cuda._blocked_library().tpulbm_d2q9_blocked_smem_bytes(n)
+            for n in DEPTHS}
+    print(f"build: N-step kernel dynamic shared memory per block {smem} B")
+
+    # phase 3: the kernels against plain at the main path's shape
     params = PRESETS["re200"].replace(precision="f32", enable_vtk=False)
     problem = make_problem(params)
     kstep = step_cuda.make_local_step_cuda(problem, dev)
@@ -160,6 +232,34 @@ def main() -> int:
             f"280-step drift {err_280} beyond {DRIFT_280_BOUND}")
     print(f"parity 280 steps: max abs err {err_280:.3e} "
           f"(bound {DRIFT_280_BOUND})")
+
+    bsteps = {n: step_cuda.make_local_step_cuda_blocked(problem, dev, n)
+              for n in DEPTHS}
+    err_plain = {}
+    for n in DEPTHS:
+        errs = []
+        for name, f in (("initial", f0), ("500 plain steps", f500)):
+            got = bsteps[n](f, torch.empty_like(f))
+            want = kernel_chunk(kstep, f.clone(), n)
+            want_plain = plain_chunk(pstep, f.clone(), n)
+            torch.cuda.synchronize()
+            diff = float((got - want).abs().max())
+            require(diff == 0.0 and torch.equal(got, want),
+                    f"N={n} from {name}: {diff} off N 1-step launches")
+            torch.testing.assert_close(got, want_plain, **n_step_tol(n))
+            errs.append(float((got - want_plain).abs().max()))
+        err_plain[n] = max(errs)
+        print(f"parity N={n}: max abs diff 0.0 against {n} 1-step launches "
+              f"from both states (bitwise); against {n} plain steps "
+              f"{errs[0]:.3e} / {errs[1]:.3e} (rtol {n_step_tol(n)['rtol']:.0e}"
+              f", atol {n_step_tol(n)['atol']:.0e})")
+    f4 = kernel_chunk(bsteps[4], f0.clone(), 70)
+    torch.cuda.synchronize()
+    diff_280 = float((f4 - fk).abs().max())
+    require(diff_280 == 0.0 and torch.equal(f4, fk),
+            f"70 N=4 launches {diff_280} off 280 1-step launches")
+    print("parity 280 steps: 70 N=4 launches equal 280 1-step launches "
+          "(max abs diff 0.0)")
     err_tiny = tiny_runner_agreement(dev)
     print(f"runner 64x32, kernel vs plain: forces max abs diff "
           f"{err_tiny:.3e} (rtol 1e-4, atol 5e-6)")
@@ -168,49 +268,93 @@ def main() -> int:
     run_dir = OUT_DIR / "re200"
     main_params = params.replace(num_timesteps=2800, output_frequency=140,
                                  output_dir=str(run_dir))
-    step_cuda.collide_stream.launches = 0
-    t0 = time.perf_counter()
-    result = Runner(main_params, device=dev).run()
-    wall = time.perf_counter() - t0
-    launches = step_cuda.collide_stream.launches
-    require(result.success, "main-path run failed")
-    require(launches == 2800, f"kernel launched {launches} times, not 2800")
-    forces = np.loadtxt(run_dir / "forces.csv", delimiter=",", skiprows=1)
-    require(forces.shape == (20, 5), f"forces.csv shape {forces.shape}")
-    require(list(forces[:, 0].astype(int)) == list(range(0, 2800, 140)),
-            "forces.csv timesteps")
-    require(bool(np.isfinite(forces).all()), "forces.csv not finite")
+    result, counts, wall = run_counted(main_params, dev)
+    require(counts == {1: 140, 2: 0, 3: 0, 4: 665},
+            f"launch counts {counts}, not 665 N=4, 140 1-step, 0 N=2/N=3")
+    forces = check_forces(run_dir, list(range(0, 2800, 140)))
     field = np.loadtxt(run_dir / "velocity_field.csv", delimiter=",",
                        skiprows=1)
     require(field.shape == (params.nx * params.ny, 6),
             f"velocity_field.csv shape {field.shape}")
     require(bool(np.isfinite(field).all()), "velocity_field.csv not finite")
     print(f"main path: re200 {params.nx}x{params.ny} f32, 2800 steps, "
-          f"{launches} kernel launches, {wall:.2f} s wall, runner "
+          f"launches {counts[4]} N=4 + {counts[1]} 1-step "
+          f"(N=2: {counts[2]}, N=3: {counts[3]}), {result.host_fetches} "
+          f"host fetches in the loop, {wall:.2f} s wall, runner "
           f"{result.mlups:.1f} MLUPS, final C_D {forces[-1, 3]:.6f}")
+    main_counts = counts
 
-    # phase 5: timing, in turns
-    n_kernel, n_plain = 2000, 500
-    times = {"plain": [], "kernel": []}
-    for which in ("plain", "kernel", "kernel", "plain"):
-        if which == "kernel":
-            times[which].append(ms_per_step(
-                lambda f, n: kernel_chunk(kstep, f, n), f0, n_kernel))
-        else:
-            times[which].append(ms_per_step(
-                lambda f, n: plain_chunk(pstep, f, n), f0, n_plain))
-    k_ms, p_ms = min(times["kernel"]), min(times["plain"])
+    # phase 4b: checkpoint at t = 1119, resume to 2800
+    res_dir = OUT_DIR / "re200_resumed"
+    first = main_params.replace(num_timesteps=1120, checkpoint_every=8,
+                                output_dir=str(res_dir))
+    require(Runner(first, device=dev, verbose=False).run().success,
+            "the 1120-step run failed")
+    ckpts = sorted(os.listdir(res_dir / "checkpoints"))
+    require(ckpts == ["ckpt_000001119.npz"], f"checkpoints {ckpts}")
+    resumed = Runner(first.replace(num_timesteps=2800), device=dev,
+                     verbose=False).run(resume=True)
+    require(resumed.success and resumed.final_step == 2800, "resume failed")
+    require(same_files(run_dir, res_dir, ["forces.csv",
+                                          "velocity_field.csv"]),
+            "the resumed run's artifacts differ from the straight run's")
+    print(f"resume: checkpoint {ckpts[0]}, resumed to 2800 in "
+          f"{resumed.wall_seconds:.2f} s; forces.csv and velocity_field.csv "
+          f"byte-identical to the straight run")
+
+    # phase 4c: N=3 and N=2 through the Runner, against blocking off
+    d23 = OUT_DIR / "re200_f150"
+    p23 = params.replace(num_timesteps=311, output_frequency=150,
+                         output_dir=str(d23))
+    _, counts23, _ = run_counted(p23, dev)
+    require(counts23 == {1: 1, 2: 5, 3: 100, 4: 0},
+            f"launch counts {counts23}, not 100 N=3, 5 N=2, 1 1-step")
+    check_forces(d23, [0, 150, 300])
+    d1 = OUT_DIR / "re200_f150_unblocked"
+    os.environ["TPULBM_NO_FUSED2"] = "1"
+    try:
+        require(Runner(p23.replace(output_dir=str(d1)), device=dev,
+                       verbose=False).run().success, "unblocked run failed")
+    finally:
+        del os.environ["TPULBM_NO_FUSED2"]
+    require(same_files(d23, d1, ["forces.csv", "velocity_field.csv"]),
+            "N=3/N=2 run differs from the same run with blocking off")
+    print(f"depths 3 and 2: 311 steps every 150, launches {counts23[3]} "
+          f"N=3 + {counts23[2]} N=2 + {counts23[1]} 1-step; artifacts "
+          f"byte-identical to the 1-step-only run")
+
+    # phase 5: timing, in turns; ms per step (one launch is N steps)
+    n_kernel, n_plain = 2400, 500
+    runs = {"plain": lambda f, n: plain_chunk(pstep, f, n),
+            1: lambda f, n: kernel_chunk(kstep, f, n)}
+    for n in DEPTHS:
+        runs[n] = lambda f, steps, n=n: kernel_chunk(bsteps[n], f, steps // n)
+    order = ["plain", 1, *DEPTHS]
+    times = {k: [] for k in order}
+    for which in order + order[::-1]:
+        steps = n_plain if which == "plain" else n_kernel
+        times[which].append(ms_per_step(runs[which], f0, steps))
+    ms = {k: min(v) for k, v in times.items()}
     cells = params.nx * params.ny
-    print(f"timing at {params.nx}x{params.ny} on {card}: kernel "
-          f"{k_ms:.5f} ms/step = {cells / k_ms / 1e3:.1f} MLUPS "
-          f"(runs {times['kernel']}), plain {p_ms:.5f} ms/step = "
-          f"{cells / p_ms / 1e3:.1f} MLUPS (runs {times['plain']})")
+    print(f"timing at {params.nx}x{params.ny} on {card}, ms/step (MLUPS): "
+          + "; ".join(f"{'plain' if k == 'plain' else f'N={k}'} "
+                      f"{ms[k]:.5f} ({cells / ms[k] / 1e3:.1f}, runs "
+                      f"{[round(v, 6) for v in times[k]]})" for k in order))
 
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "d2q9_collide_stream", "route": "cuda",
         "source": step_cuda.KERNEL_SOURCE, "replaces": step_cuda.REPLACES,
-        "launches": launches, "max_abs_err": max(err_init, err_500),
-        "ms": k_ms, "plain_ms": p_ms}]}))
+        "launches": main_counts[1], "max_abs_err": max(err_init, err_500),
+        "ms": ms[1], "plain_ms": ms["plain"]}]
+    for n in DEPTHS:
+        kernels.append({
+            "name": f"d2q9_collide_stream_n{n}", "route": "cuda",
+            "source": step_cuda.BLOCKED_SOURCE,
+            "replaces": step_cuda.BLOCKED_REPLACES[n],
+            "launches": (main_counts if n == 4 else counts23)[n],
+            "max_abs_err": err_plain[n], "ms": ms[n],
+            "plain_ms": ms["plain"]})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,8 @@
-"""The CUDA kernel against its plain version on the card. These tests need
-an NVIDIA GPU with nvcc and skip elsewhere; run them on the card with
+"""The CUDA kernels against their plain version, and the N-step kernel
+against N launches of the 1-step kernel, on the card. These tests need an
+NVIDIA GPU with nvcc and skip elsewhere; run them on the card with
 
-    python -m pytest tests/test_torch_cuda.py -m requires_cuda -q
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 import numpy as np
 import pytest
@@ -71,3 +72,43 @@ def test_kernel_wrapper_refuses_mixed_devices(cuda):
     f = torch.from_numpy(problem.initial_state())      # on the host
     with pytest.raises(ValueError):
         kstep(f, torch.empty_like(f))
+
+
+# ragged shapes, one smaller than the N-step kernel's 32x16 tile, and the
+# cylinder with solid cells on the inlet column and the bottom wall row
+@pytest.mark.parametrize("n_sub", step_cuda.BLOCKED_DEPTHS)
+@pytest.mark.parametrize("kw", [
+    dict(nx=256, ny=64), dict(nx=100, ny=37), dict(nx=17, ny=5),
+    dict(nx=20, ny=11),
+    dict(nx=64, ny=32, cylinder_x=0.03, cylinder_y=0.06,
+         cylinder_radius=0.12)])
+def test_blocked_kernel_equals_n_one_step_launches(cuda, kw, n_sub):
+    # bitwise: the two kernels share their per-cell code and rounding
+    problem = make_problem(SimulationParams(tau=0.55, inlet_velocity=0.05,
+                                            **kw))
+    f = state_from_numpy(_perturbed_state(problem, kw["nx"]), problem, cuda)
+    bstep = step_cuda.make_local_step_cuda_blocked(problem, cuda, n_sub)
+    kstep = step_cuda.make_local_step_cuda(problem, cuda)
+    before = dict(step_cuda.collide_stream_blocked.launches)
+    got = bstep(f, torch.empty_like(f))
+    assert step_cuda.collide_stream_blocked.launches[n_sub] == \
+        before[n_sub] + 1
+    want = f.clone()
+    for _ in range(n_sub):
+        want = kstep(want, torch.empty_like(want))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+def test_blocked_chunk_counts_every_launch(cuda):
+    problem = make_problem(SimulationParams(nx=128, ny=64))
+    f = state_from_numpy(problem.initial_state(), problem, cuda)
+    step_cuda.reset_launch_counts()
+    chunk = make_chunk_fn(problem, cuda, 28, backend="pallas")
+    got = chunk(f.clone())
+    assert chunk.substeps == 4
+    assert step_cuda.collide_stream_blocked.launches == {2: 0, 3: 0, 4: 7}
+    assert step_cuda.collide_stream.launches == 0
+    want = make_chunk_fn(problem, cuda, 28, backend="jax")(f)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)

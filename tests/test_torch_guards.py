@@ -19,7 +19,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_port_runs_without_jax(tmp_path):
     # a fresh interpreter: import every module of the port, run a 10-step
-    # chunk through the kernel module's CPU path and the CLI end to end
+    # chunk (N=2) and a super-chunk through the kernel modules' CPU path,
+    # and the CLI end to end, checkpointed and resumed
     script = textwrap.dedent(f"""
         import importlib, pkgutil, sys
         import tpulbm_torch
@@ -28,16 +29,20 @@ def test_port_runs_without_jax(tmp_path):
         from tpulbm_torch.config import SimulationParams
         from tpulbm_torch.convert import state_from_numpy
         from tpulbm_torch.models import make_problem
-        from tpulbm_torch.stepper import make_chunk_fn
+        from tpulbm_torch.stepper import make_chunk_fn, make_super_chunk_fn
         from tpulbm_torch.__main__ import main
         problem = make_problem(SimulationParams(nx=48, ny=24))
         f = state_from_numpy(problem.initial_state(), problem, "cpu")
-        f = make_chunk_fn(problem, "cpu", 10)(f)
-        assert bool(f.isfinite().all())
-        rc = main(["--cpu", "--nx", "64", "--ny", "32", "--num-timesteps",
-                   "40", "--output-frequency", "20", "--no-vtk",
-                   "--output-dir", {str(tmp_path)!r}])
-        assert rc == 0, rc
+        chunk = make_chunk_fn(problem, "cpu", 10)
+        assert chunk.substeps == 2
+        f = chunk(f)
+        f, diags = make_super_chunk_fn(problem, "cpu", 4, 2)(f)
+        assert bool(f.isfinite().all()) and bool(diags.isfinite().all())
+        cli = ["--cpu", "--nx", "64", "--ny", "32", "--output-frequency",
+               "20", "--no-vtk", "--checkpoint-every", "1",
+               "--output-dir", {str(tmp_path)!r}]
+        assert main(cli + ["--num-timesteps", "20"]) == 0
+        assert main(cli + ["--num-timesteps", "40"]) == 0
         leaked = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax."))
         assert not leaked, leaked
@@ -48,6 +53,7 @@ def test_port_runs_without_jax(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "JAX-FREE OK" in proc.stdout
+    assert "Resuming from" in proc.stdout
     for name in ("forces.csv", "velocity_field.csv", "simulation_params.csv"):
         assert (tmp_path / name).exists()
 
@@ -62,7 +68,6 @@ def test_runner_refuses_cuda_without_a_card(tmp_path):
 
 @pytest.mark.parametrize("override", [dict(precision="f64"),
                                       dict(mesh_shape=(2, 1)),
-                                      dict(checkpoint_every=2),
                                       dict(stats_from=0),
                                       dict(probe_points=((0.5, 0.5),))])
 def test_runner_refuses_unported_options(tmp_path, override):
@@ -72,6 +77,23 @@ def test_runner_refuses_unported_options(tmp_path, override):
                        match="float32" if "precision" in override
                        else "ROADMAP"):
         Runner(params, device="cpu")
+
+
+@pytest.mark.parametrize("no_resume", [True, False])
+def test_cli_no_resume_starts_from_zero(tmp_path, capsys, no_resume):
+    from tpulbm_torch.__main__ import main
+    cli = ["--cpu", "--nx", "48", "--ny", "24", "--output-frequency", "10",
+           "--no-vtk", "--checkpoint-every", "1", "--output-dir",
+           str(tmp_path)]
+    assert main(cli + ["--num-timesteps", "20"]) == 0
+    assert (tmp_path / "checkpoints" / "ckpt_000000020.npz").exists()
+    capsys.readouterr()
+    assert main(cli + ["--num-timesteps", "30"]
+                + (["--no-resume"] if no_resume else [])) == 0
+    out = capsys.readouterr().out
+    assert ("Resuming from" in out) == (not no_resume)
+    steps = 30 if no_resume else 10
+    assert f"over {steps} steps" in out
 
 
 def _inputs(ny=6, nx=10):

@@ -27,8 +27,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--profile-dir", type=str, default=None,
                         help="write a torch.profiler trace here")
     parser.add_argument("--no-resume", action="store_true",
-                        help="ignore existing checkpoints (the port writes "
-                             "none yet)")
+                        help="start from t=0 even if --checkpoint-every is "
+                             "set and a checkpoint exists")
     parser.add_argument("--distributed", action="store_true",
                         help="not ported (several hosts)")
     return parser
@@ -49,7 +49,7 @@ def main(argv=None) -> int:
     params = params_from_args(args)
     runner = Runner(params, device="cpu" if args.cpu else "cuda")
     with trace(args.profile_dir):
-        result = runner.run()
+        result = runner.run(resume=not args.no_resume)
     return 0 if result.success else 1
 
 

@@ -10,11 +10,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpulbm.utils import checkpoint
-
 from .config import SimulationParams
 from .models import make_problem
 from .models.base import Problem
+from .utils import checkpoint
 
 
 def state_from_numpy(f: np.ndarray, problem: Problem, device) -> torch.Tensor:

@@ -27,51 +27,23 @@
 // only the post-stream values of its own cell. So the TPU kernel's slab
 // ring, lane padding and VMEM sizing have no counterpart here.
 //
-// Rounding follows the plain version: the expression order below is the
-// reference's, and the library is built with -fmad=false so no multiply
-// and add are fused into one rounding.
+// The collision, the pull's ghost rule and the boundary sequence live in
+// d2q9_common.cuh, shared with the N-step kernel (step_d2q9_blocked.cu).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "d2q9_common.cuh"
+
 namespace {
 
-constexpr int kQ = 9;
+using tpulbm::kQ;
+using tpulbm::StepConsts;
+
 constexpr int kBX = 32;  // block width (cells along x): one warp per row
 constexpr int kBY = 8;   // block height (rows)
 constexpr int kTX = kBX + 2;
 constexpr int kTY = kBY + 2;
-
-struct StepConsts {
-  float inv_tau;         // 1 / tau
-  float u_in;            // inlet velocity
-  float one_minus_u_in;  // 1 - u_in, rounded once on the host
-  float eq_in[kQ];       // frozen ghost equilibrium(rho=1, u=(u_in, 0))
-  float w[kQ];           // lattice weights: the rest equilibrium of solids
-};
-
-// BGK relaxation of one cell's 9 populations, in place.
-__device__ __forceinline__ void collide_bgk(float* f, const StepConsts& k) {
-  float rho = f[0];
-#pragma unroll
-  for (int i = 1; i < kQ; ++i) rho = rho + f[i];
-  const float mx = f[1] - f[3] + f[5] - f[6] - f[7] + f[8];
-  const float my = f[2] - f[4] + f[5] + f[6] - f[7] - f[8];
-  const float inv_rho = 1.0f / rho;
-  const float ux = mx * inv_rho;
-  const float uy = my * inv_rho;
-  const float base = 1.0f - 1.5f * (ux * ux + uy * uy);
-  // c_i . u for i = 1..8, as exact +-adds
-  const float cu[kQ] = {0.0f, ux, uy, -ux, -uy,
-                        ux + uy, -ux + uy, -ux + -uy, ux + -uy};
-  f[0] = f[0] - k.inv_tau * (f[0] - k.w[0] * rho * base);
-#pragma unroll
-  for (int i = 1; i < kQ; ++i) {
-    const float feq =
-        k.w[i] * rho * (base + 3.0f * cu[i] + 4.5f * cu[i] * cu[i]);
-    f[i] = f[i] - k.inv_tau * (f[i] - feq);
-  }
-}
 
 __global__ void __launch_bounds__(kBX * kBY)
     d2q9_step_kernel(const float* __restrict__ f, float* __restrict__ out,
@@ -97,7 +69,7 @@ __global__ void __launch_bounds__(kBX * kBY)
     float v[kQ];
 #pragma unroll
     for (int i = 0; i < kQ; ++i) v[i] = f[i * plane + cell];
-    collide_bgk(v, k);
+    tpulbm::collide_bgk(v, k);
 #pragma unroll
     for (int i = 0; i < kQ; ++i) post[i][ly][lx] = v[i];
   }
@@ -107,65 +79,12 @@ __global__ void __launch_bounds__(kBX * kBY)
   const int y = y0 + ty;
   if (x >= nx || y >= ny) return;
 
-  // Pull f_i(x) = f_post_i(x - c_i) with the reference's ghost semantics:
-  // across a y edge (corners included) the frozen equilibrium, across an
-  // x edge zero.
-  auto pull = [&](int i, int cx, int cy) -> float {
-    const int sy = y - cy;
-    const int sx = x - cx;
-    if (sy < 0 || sy >= ny) return k.eq_in[i];
-    if (sx < 0 || sx >= nx) return 0.0f;
-    return post[i][ty + 1 - cy][tx + 1 - cx];
-  };
   float g[kQ];
-  g[0] = pull(0, 0, 0);
-  g[1] = pull(1, 1, 0);
-  g[2] = pull(2, 0, 1);
-  g[3] = pull(3, -1, 0);
-  g[4] = pull(4, 0, -1);
-  g[5] = pull(5, 1, 1);
-  g[6] = pull(6, -1, 1);
-  g[7] = pull(7, -1, -1);
-  g[8] = pull(8, 1, -1);
-
+  tpulbm::pull_d2q9(g, x, y, nx, ny, k, [&](int i, int cx, int cy) {
+    return post[i][ty + 1 - cy][tx + 1 - cx];
+  });
   const size_t cell = static_cast<size_t>(y) * nx + x;
-  if (solid[cell]) {
-    // equilibrium obstacle: solid cells are pinned to rest equilibrium
-#pragma unroll
-    for (int i = 0; i < kQ; ++i) g[i] = k.w[i];
-  } else {
-    // bounce-back walls, bottom then top
-    if (y == 0) {
-      g[2] = g[4];
-      g[5] = g[7];
-      g[6] = g[8];
-    }
-    if (y == ny - 1) {
-      g[4] = g[2];
-      g[7] = g[5];
-      g[8] = g[6];
-    }
-    // Zou-He velocity inlet at x = 0
-    if (x == 0) {
-      const float rho_bc =
-          (g[0] + g[2] + g[4] + 2.0f * (g[3] + g[6] + g[7])) /
-          k.one_minus_u_in;
-      const float ru = rho_bc * k.u_in;
-      const float ht = 0.5f * (g[2] - g[4]);
-      g[1] = g[3] + (2.0f / 3.0f) * ru;
-      g[5] = g[7] - ht + (1.0f / 6.0f) * ru;
-      g[8] = g[6] + ht + (1.0f / 6.0f) * ru;
-    }
-    // Zou-He pressure outlet (rho = 1) at x = nx - 1
-    if (x == nx - 1) {
-      const float u_out =
-          -1.0f + (g[0] + g[2] + g[4] + 2.0f * (g[1] + g[5] + g[8]));
-      const float ht = 0.5f * (g[2] - g[4]);
-      g[3] = g[1] - (2.0f / 3.0f) * u_out;
-      g[6] = g[8] - ht - (1.0f / 6.0f) * u_out;
-      g[7] = g[5] + ht - (1.0f / 6.0f) * u_out;
-    }
-  }
+  tpulbm::apply_boundaries(g, solid[cell] != 0, x, y, nx, ny, k);
 #pragma unroll
   for (int i = 0; i < kQ; ++i) out[i * plane + cell] = g[i];
 }
@@ -182,14 +101,8 @@ extern "C" int tpulbm_d2q9_step(const float* f, float* out,
                                 const float* w, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  StepConsts k;
-  k.inv_tau = inv_tau;
-  k.u_in = u_in;
-  k.one_minus_u_in = one_minus_u_in;
-  for (int i = 0; i < kQ; ++i) {
-    k.eq_in[i] = eq_in[i];
-    k.w[i] = w[i];
-  }
+  const StepConsts k =
+      tpulbm::make_consts(inv_tau, u_in, one_minus_u_in, eq_in, w);
   const dim3 block(kBX, kBY);
   const dim3 grid((nx + kBX - 1) / kBX, (ny + kBY - 1) / kBY);
   d2q9_step_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(

@@ -1,0 +1,217 @@
+// N fused D2Q9 timesteps per launch (temporal blocking) on an NVIDIA Hopper
+// GPU (sm_90a), float32, N = 2, 3 or 4. Each substep is the 1-step kernel's
+// sequence: BGK collide -> pull-stream -> ghost rule -> y walls -> Zou-He
+// inlet -> Zou-He outlet -> obstacle pin.
+//
+// Replaces tpulbm/ops/step_pallas.py::make_local_step_pallasN (the N-step
+// Pallas cascade, N = 3 and 4) and ::make_local_step_pallas2 (its 2-step
+// form), for the BGK collision and the equilibrium obstacle. Its plain
+// version is N applications of tpulbm_torch/ops/step_torch.py's step.
+//
+// What bounds it: one launch moves the 73 B per cell of one step through
+// device memory (read and write 9 f32, read the 1-byte solid mask) and
+// advances N steps, so device-memory traffic falls to 73/N B per cell per
+// step. Against it stand shared-memory traffic and redundant halo work: a
+// block loads its BX x BY output tile plus an N-cell halo and computes a
+// region that shrinks by one cell a side per substep, so the first
+// substep collides (BX+2N)(BY+2N)/(BX*BY) times the tile's cells: 1.88x
+// for the 32x16 tile at N=4 (2.5x for 32x8, 1.69x for 64x16).
+//
+// Design. The block (256 threads) loads the window's populations and solid
+// mask from device memory once, collides every in-domain cell, and keeps
+// the post-collision values in ONE shared buffer of 9 planes x
+// (BX+2N)(BY+2N) f32. Substep s (1 <= s < N) computes the cells at depth
+// >= s into the window: each thread pulls its cells from the buffer into
+// registers, applies the boundary sequence at the cell's global
+// coordinates, and collides; after a barrier it writes them back, and a
+// second barrier publishes them to the next substep. Substep N computes
+// the tile alone and stores it. A pull from y outside the domain (corners
+// included) reads the frozen equilibrium eq_in and one from x outside reads
+// zero at every substep, exactly the 1-step kernel's rule; out-of-domain
+// cells are never computed. 32x16 was the fastest tile of those timed on
+// an H100 at N=3 and 4 (32x8, 64x8, 32x16, 64x16, 128x8, 64x4); its window
+// takes 35,520 B of dynamic shared memory at N=4 (34,560 B of populations
+// and the mask), and a larger one above 48 KB asks for it with
+// cudaFuncSetAttribute.
+//
+// Every boundary condition of this configuration is cell-local, so the
+// TPU kernel's slab ring, DMA semaphores, ring inputs rb/rt/mrb/mrt and
+// slab-skip flags have no counterpart here.
+//
+// Bits. Collision, pull and boundary code come from d2q9_common.cuh, shared
+// with step_d2q9.cu, and both libraries are built with -fmad=false: one
+// launch gives the same bits as N launches of the 1-step kernel.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "d2q9_common.cuh"
+
+namespace {
+
+using tpulbm::kQ;
+using tpulbm::StepConsts;
+
+constexpr int kThreads = 256;
+constexpr int kBX = 32;  // output tile of one block (cells along x)
+constexpr int kBY = 16;  // and rows
+
+// The window a block holds: its tile plus an N-cell halo on every side.
+template <int N>
+struct Window {
+  static constexpr int kTX = kBX + 2 * N;
+  static constexpr int kTY = kBY + 2 * N;
+  static constexpr int kCells = kTX * kTY;
+  // 9 post-collision planes, then the solid mask (one byte per cell)
+  static constexpr size_t kSmemBytes = sizeof(float) * kQ * kCells + kCells;
+  // cells of the largest region a thread holds in registers (substep 1)
+  static constexpr int kPerThread =
+      ((kTX - 2) * (kTY - 2) + kThreads - 1) / kThreads;
+};
+
+template <int N>
+__global__ void __launch_bounds__(kThreads)
+    d2q9_blocked_kernel(const float* __restrict__ f, float* __restrict__ out,
+                        const uint8_t* __restrict__ solid, int nx, int ny,
+                        StepConsts k) {
+  using W = Window<N>;
+  constexpr int TX = W::kTX;
+  constexpr int TY = W::kTY;
+  extern __shared__ float smem[];
+  float* post = smem;  // [kQ][TY][TX]
+  uint8_t* mask = reinterpret_cast<uint8_t*>(smem + kQ * W::kCells);
+
+  const int tid = threadIdx.x;
+  const int x0 = blockIdx.x * kBX - N;  // global coordinates of window (0, 0)
+  const int y0 = blockIdx.y * kBY - N;
+  const size_t plane = static_cast<size_t>(nx) * ny;
+
+  // Load the window's in-domain cells once and collide them.
+  for (int c = tid; c < W::kCells; c += kThreads) {
+    const int ly = c / TX;
+    const int lx = c - ly * TX;
+    const int gx = x0 + lx;
+    const int gy = y0 + ly;
+    if (gx < 0 || gx >= nx || gy < 0 || gy >= ny) continue;
+    const size_t cell = static_cast<size_t>(gy) * nx + gx;
+    mask[c] = solid[cell];
+    float v[kQ];
+#pragma unroll
+    for (int i = 0; i < kQ; ++i) v[i] = f[i * plane + cell];
+    tpulbm::collide_bgk(v, k);
+#pragma unroll
+    for (int i = 0; i < kQ; ++i) post[i * W::kCells + c] = v[i];
+  }
+  __syncthreads();
+
+  // Substeps 1 .. N-1: the cells at depth >= s into the window, stepped
+  // and collided in registers, then written back in place.
+#pragma unroll
+  for (int s = 1; s < N; ++s) {
+    const int w = TX - 2 * s;
+    const int cells = w * (TY - 2 * s);
+    float g[W::kPerThread][kQ];
+    int at[W::kPerThread];  // window index of each held cell, -1 if none
+#pragma unroll
+    for (int j = 0; j < W::kPerThread; ++j) {
+      const int c = tid + j * kThreads;
+      at[j] = -1;
+      if (c >= cells) continue;
+      const int ly = s + c / w;
+      const int lx = s + c % w;
+      const int gx = x0 + lx;
+      const int gy = y0 + ly;
+      if (gx < 0 || gx >= nx || gy < 0 || gy >= ny) continue;
+      const int lc = ly * TX + lx;
+      at[j] = lc;
+      tpulbm::pull_d2q9(g[j], gx, gy, nx, ny, k, [&](int i, int cx, int cy) {
+        return post[i * W::kCells + lc - cy * TX - cx];
+      });
+      tpulbm::apply_boundaries(g[j], mask[lc] != 0, gx, gy, nx, ny, k);
+      tpulbm::collide_bgk(g[j], k);
+    }
+    __syncthreads();  // every pull of this substep has read the old values
+#pragma unroll
+    for (int j = 0; j < W::kPerThread; ++j) {
+      if (at[j] < 0) continue;
+#pragma unroll
+      for (int i = 0; i < kQ; ++i) post[i * W::kCells + at[j]] = g[j][i];
+    }
+    __syncthreads();
+  }
+
+  // Substep N: the tile alone, stored to device memory.
+  for (int c = tid; c < kBX * kBY; c += kThreads) {
+    const int ly = N + c / kBX;
+    const int lx = N + c % kBX;
+    const int gx = x0 + lx;
+    const int gy = y0 + ly;
+    if (gx >= nx || gy >= ny) continue;
+    const int lc = ly * TX + lx;
+    float g[kQ];
+    tpulbm::pull_d2q9(g, gx, gy, nx, ny, k, [&](int i, int cx, int cy) {
+      return post[i * W::kCells + lc - cy * TX - cx];
+    });
+    tpulbm::apply_boundaries(g, mask[lc] != 0, gx, gy, nx, ny, k);
+    const size_t cell = static_cast<size_t>(gy) * nx + gx;
+#pragma unroll
+    for (int i = 0; i < kQ; ++i) out[i * plane + cell] = g[i];
+  }
+}
+
+template <int N>
+cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
+                   int ny, const StepConsts& k, cudaStream_t stream) {
+  constexpr size_t smem = Window<N>::kSmemBytes;
+  if constexpr (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        d2q9_blocked_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((nx + kBX - 1) / kBX, (ny + kBY - 1) / kBY);
+  d2q9_blocked_kernel<N><<<grid, kThreads, smem, stream>>>(f, out, solid, nx,
+                                                           ny, k);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C interface, loaded with ctypes (tpulbm_torch/ops/step_cuda.py).
+// Launches n_sub steps on `stream` and returns cudaGetLastError() (a refused
+// launch never runs and a later synchronize would not report it); it
+// neither synchronizes nor allocates.
+extern "C" int tpulbm_d2q9_step_blocked(const float* f, float* out,
+                                        const uint8_t* solid, int nx, int ny,
+                                        int n_sub, float inv_tau, float u_in,
+                                        float one_minus_u_in,
+                                        const float* eq_in, const float* w,
+                                        int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const StepConsts k =
+      tpulbm::make_consts(inv_tau, u_in, one_minus_u_in, eq_in, w);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (n_sub) {
+    case 2: err = launch<2>(f, out, solid, nx, ny, k, s); break;
+    case 3: err = launch<3>(f, out, solid, nx, ny, k, s); break;
+    case 4: err = launch<4>(f, out, solid, nx, ny, k, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// Dynamic shared memory one block of depth n_sub takes, in bytes (-1 for
+// a depth the library does not hold).
+extern "C" int tpulbm_d2q9_blocked_smem_bytes(int n_sub) {
+  switch (n_sub) {
+    case 2: return static_cast<int>(Window<2>::kSmemBytes);
+    case 3: return static_cast<int>(Window<3>::kSmemBytes);
+    case 4: return static_cast<int>(Window<4>::kSmemBytes);
+    default: return -1;
+  }
+}
+
+extern "C" const char* tpulbm_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

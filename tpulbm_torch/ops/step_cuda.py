@@ -1,9 +1,12 @@
-"""The fused D2Q9 collide-stream step as a hand-written CUDA kernel.
+"""The fused D2Q9 collide-stream step as hand-written CUDA kernels.
 
-Port of tpulbm/ops/step_pallas.py::make_local_step_pallas. The kernel
-(csrc/step_d2q9.cu) is built with nvcc at first use and called through
-ctypes on PyTorch's current stream. Its plain version is
-ops/step_torch.py::make_step_rolled.
+Ports of tpulbm/ops/step_pallas.py:
+* make_local_step_pallas (one step per launch): csrc/step_d2q9.cu;
+* make_local_step_pallasN (N = 3, 4) and make_local_step_pallas2 (N = 2),
+  temporal blocking, N steps per launch: csrc/step_d2q9_blocked.cu.
+Each kernel is built with nvcc at first use and called through ctypes on
+PyTorch's current stream. Their plain version is
+ops/step_torch.py::make_step_rolled, once per step.
 
 Dispatch follows the tensor: for a CPU tensor the wrapper runs the plain
 version; for a CUDA tensor it launches the kernel or raises. There is no
@@ -23,6 +26,14 @@ from . import step_torch
 
 KERNEL_SOURCE = "tpulbm_torch/csrc/step_d2q9.cu"
 REPLACES = "tpulbm/ops/step_pallas.py:1093"   # make_local_step_pallas
+BLOCKED_SOURCE = "tpulbm_torch/csrc/step_d2q9_blocked.cu"
+# depth -> the Pallas function it replaces
+BLOCKED_REPLACES = {
+    2: "tpulbm/ops/step_pallas.py:1442",      # make_local_step_pallas2
+    3: "tpulbm/ops/step_pallas.py:1679",      # make_local_step_pallasN
+    4: "tpulbm/ops/step_pallas.py:1679",
+}
+BLOCKED_DEPTHS = tuple(BLOCKED_REPLACES)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,16 +79,43 @@ def check_inputs(f: torch.Tensor, out: torch.Tensor,
         raise ValueError("out must not alias f (the step is not in place)")
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = cuda_build.load("step_d2q9.cu").lib
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.tpulbm_d2q9_step.argtypes = [ptr, ptr, ptr, i32, i32, f32, f32, f32,
-                                     ptr, ptr, i32, ptr]
-    lib.tpulbm_d2q9_step.restype = i32
-    lib.tpulbm_cuda_error_string.argtypes = [i32]
+_PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _bind(source: str, fn: str, argtypes: list) -> ctypes.CDLL:
+    lib = cuda_build.load(source).lib
+    getattr(lib, fn).argtypes = argtypes
+    getattr(lib, fn).restype = _I32
+    lib.tpulbm_cuda_error_string.argtypes = [_I32]
     lib.tpulbm_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    return _bind("step_d2q9.cu", "tpulbm_d2q9_step",
+                 [_PTR, _PTR, _PTR, _I32, _I32, _F32, _F32, _F32, _PTR, _PTR,
+                  _I32, _PTR])
+
+
+@functools.cache
+def _blocked_library() -> ctypes.CDLL:
+    return _bind("step_d2q9_blocked.cu", "tpulbm_d2q9_step_blocked",
+                 [_PTR, _PTR, _PTR, _I32, _I32, _I32, _F32, _F32, _F32,
+                  _PTR, _PTR, _I32, _PTR])
+
+
+def _check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           + lib.tpulbm_cuda_error_string(rc).decode())
+
+
+def _consts_args(consts: StepConstants) -> tuple:
+    """inv_tau, u_in, 1 - u_in, eq_in, w as the launchers take them."""
+    farr = ctypes.c_float * 9
+    return (consts.inv_tau, consts.u_in, 1.0 - consts.u_in,
+            farr(*consts.eq_in), farr(*consts.w))
 
 
 def collide_stream(f: torch.Tensor, out: torch.Tensor, solid: torch.Tensor,
@@ -95,15 +133,11 @@ def collide_stream(f: torch.Tensor, out: torch.Tensor, solid: torch.Tensor,
         return out.copy_(plain(f))
     lib = _library()
     ny, nx = f.shape[1:]
-    farr = ctypes.c_float * 9
     stream = torch.cuda.current_stream(f.device).cuda_stream
     rc = lib.tpulbm_d2q9_step(
         f.data_ptr(), out.data_ptr(), solid.data_ptr(), nx, ny,
-        consts.inv_tau, consts.u_in, 1.0 - consts.u_in,
-        farr(*consts.eq_in), farr(*consts.w), f.device.index, stream)
-    if rc != 0:
-        raise RuntimeError("D2Q9 kernel launch failed: "
-                           + lib.tpulbm_cuda_error_string(rc).decode())
+        *_consts_args(consts), f.device.index, stream)
+    _check_launch(lib, rc, "D2Q9 kernel")
     collide_stream.launches += 1
     return out
 
@@ -112,21 +146,88 @@ def collide_stream(f: torch.Tensor, out: torch.Tensor, solid: torch.Tensor,
 collide_stream.launches = 0
 
 
-def make_local_step_cuda(problem: Problem, device):
-    """step(f, out) -> out: one timestep of `problem` through the kernel
-    (CUDA) or its plain version (CPU), on states living on `device`."""
+def check_depth(n_sub: int) -> None:
+    """Raise NotImplementedError for a blocking depth with no kernel."""
+    if n_sub not in BLOCKED_DEPTHS:
+        raise NotImplementedError(
+            f"temporal blocking at depth {n_sub} is not ported; the N-step "
+            f"kernel holds depths {BLOCKED_DEPTHS} (ROADMAP Queue 2 item 10, "
+            "deeper blocking)")
+
+
+def collide_stream_blocked(f: torch.Tensor, out: torch.Tensor,
+                           solid: torch.Tensor, consts: StepConstants,
+                           n_sub: int, plain=None) -> torch.Tensor:
+    """n_sub timesteps from f into out in one launch; returns out.
+
+    On a CUDA tensor: launches the N-step kernel on the current stream (no
+    synchronization) and raises if the launch is refused. On a CPU tensor:
+    runs `plain` (the plain version's step) n_sub times."""
+    check_depth(n_sub)
+    check_inputs(f, out, solid)
+    if f.device.type == "cpu":
+        if plain is None:
+            raise ValueError("a CPU tensor needs the plain step")
+        for _ in range(n_sub):
+            f = plain(f)
+        return out.copy_(f)
+    lib = _blocked_library()
+    ny, nx = f.shape[1:]
+    stream = torch.cuda.current_stream(f.device).cuda_stream
+    rc = lib.tpulbm_d2q9_step_blocked(
+        f.data_ptr(), out.data_ptr(), solid.data_ptr(), nx, ny, n_sub,
+        *_consts_args(consts), f.device.index, stream)
+    _check_launch(lib, rc, f"D2Q9 {n_sub}-step kernel")
+    collide_stream_blocked.launches[n_sub] += 1
+    return out
+
+
+# kernel launches per depth; CPU calls (the plain version) are not counted
+collide_stream_blocked.launches = dict.fromkeys(BLOCKED_DEPTHS, 0)
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    collide_stream.launches = 0
+    collide_stream_blocked.launches = dict.fromkeys(BLOCKED_DEPTHS, 0)
+
+
+def _kernel_operands(problem: Problem, device):
+    """(device, constants, solid mask, plain step or None) for a wrapper of
+    `problem` on `device`; raises for what the kernels do not cover."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     if problem.collision != "bgk" or problem.obstacle_bc != "equilibrium":
-        raise NotImplementedError("the D2Q9 kernel covers BGK with the "
+        raise NotImplementedError("the D2Q9 kernels cover BGK with the "
                                   "equilibrium obstacle only")
     consts = StepConstants.of(problem)
     solid = torch.as_tensor(problem.solid, device=device).to(torch.uint8)
     plain = (step_torch.make_step_rolled(problem, device)
              if device.type == "cpu" else None)
+    return device, consts, solid, plain
+
+
+def make_local_step_cuda(problem: Problem, device):
+    """step(f, out) -> out: one timestep of `problem` through the kernel
+    (CUDA) or its plain version (CPU), on states living on `device`."""
+    _, consts, solid, plain = _kernel_operands(problem, device)
 
     def step(f: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
         return collide_stream(f, out, solid, consts, plain)
+
+    return step
+
+
+def make_local_step_cuda_blocked(problem: Problem, device, n_sub: int):
+    """step(f, out) -> out: n_sub timesteps of `problem` in one launch of
+    the N-step kernel (CUDA) or n_sub plain steps (CPU). The counterpart of
+    make_local_step_pallasN (n_sub 3, 4) and make_local_step_pallas2
+    (n_sub 2); other depths raise NotImplementedError."""
+    check_depth(n_sub)
+    _, consts, solid, plain = _kernel_operands(problem, device)
+
+    def step(f: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+        return collide_stream_blocked(f, out, solid, consts, n_sub, plain)
 
     return step

@@ -2,18 +2,22 @@
 recording, diagnostics, VTK frames, the stability abort and the final
 artifacts.
 
-Port of tpulbm/runner.py (its per-interval path). Cadence parity with the
+Port of tpulbm/runner.py for one device. Cadence parity with the
 reference loop: forces are recorded at every t ≡ 0 (mod output_frequency),
 t = 0 included, from the post-collision state; max-velocity prints and VTK
-frames happen at those t > 0. Forces, max velocity and stability come back
-in one host fetch per output interval; NaN/Inf persist under LBM
-arithmetic, so a check per interval aborts as surely as one per step.
+frames happen at those t > 0. Forces, max velocity and stability stay on
+the device until the host fetches them: _SUPER_K output intervals per
+fetch on the fast path (stepper.make_super_chunk_fn), one per interval on
+the tail. NaN/Inf persist under LBM arithmetic, so a check per interval
+aborts as surely as one per step. Checkpoints are tpulbm's single-.npz
+format, written at chunk boundaries and resumed by run(resume=True).
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -24,9 +28,13 @@ from .geometry import solid_cell_count
 from .models import make_problem
 from .models.base import Problem
 from .ops import diagnostics, forces as forces_mod
-from .stepper import make_chunk_fn
+from .stepper import make_chunk_fn, make_super_chunk_fn
+from .utils import checkpoint as ckpt
 from .utils import io as io_mod
 from .utils.profiling import ThroughputMeter
+
+# output intervals batched per host round trip (tpulbm/runner.py:38)
+_SUPER_K = 8
 
 
 @dataclasses.dataclass
@@ -37,6 +45,7 @@ class RunResult:
     wall_seconds: float
     forces_path: str | None
     stats: dict | None = None
+    host_fetches: int = 0   # device-to-host round trips in the loop
 
 
 def check_runner_slice(params: SimulationParams) -> None:
@@ -49,10 +58,6 @@ def check_runner_slice(params: SimulationParams) -> None:
         raise NotImplementedError(
             f"mesh_shape={params.mesh_shape} is not ported to tpulbm_torch "
             "yet (ROADMAP Queue 1 item 19, several devices)")
-    if params.checkpoint_every:
-        raise NotImplementedError(
-            "checkpoints are not ported to tpulbm_torch yet (ROADMAP Queue 1 "
-            "item 8); convert.load_tpulbm_checkpoint reads tpulbm's")
     if params.stats_from >= 0 or params.probe_points:
         raise NotImplementedError(
             "statistics and probes are not ported to tpulbm_torch yet "
@@ -75,6 +80,14 @@ class Runner:
         self._fields = diagnostics.fields_fn(self.problem, device)
         self._stable = diagnostics.stability_fn(self.problem)
         self._max_vel = diagnostics.max_velocity_fn(self.problem, device)
+        self._super: dict[bool, object] = {}   # with_fields -> super-chunk fn
+        self._host_fetches = 0
+        # VTK frame formatting and writing run on a pool of writer threads
+        # (run() opens and closes it) so frames do not stall the device;
+        # the pending cap bounds the RAM held by queued frame copies
+        self._io_pool: ThreadPoolExecutor | None = None
+        self._io_futures: list = []
+        self._max_pending = 32
         os.makedirs(params.output_dir, exist_ok=True)
 
     def _print_banner(self) -> None:
@@ -100,42 +113,159 @@ class Runner:
                 self.problem, self.device, length, backend=self.params.backend)
         return self._chunk_cache[length]
 
+    def _fetch(self, x: torch.Tensor) -> np.ndarray:
+        """One device-to-host copy, counted."""
+        self._host_fetches += 1
+        return x.cpu().numpy()
+
     def _diag(self, f: torch.Tensor) -> np.ndarray:
         """[fx, fy, max |u|, stable] in ONE device-to-host fetch."""
         force = self._forces(f)
         packed = torch.cat([force, self._max_vel(f)[None],
                             self._stable(f)[None].to(force.dtype)])
-        return packed.cpu().numpy()
+        return self._fetch(packed)
 
     def _fetch_fields(self, f: torch.Tensor):
         rho, u = self._fields(f)
-        return rho.cpu().numpy(), u.cpu().numpy()
+        return self._fetch(rho), self._fetch(u)
 
-    def run(self) -> RunResult:
+    def _super_fn(self, with_fields: bool):
+        if with_fields not in self._super:
+            self._super[with_fields] = make_super_chunk_fn(
+                self.problem, self.device, self.params.output_frequency,
+                _SUPER_K, backend=self.params.backend,
+                with_fields=with_fields)
+        return self._super[with_fields]
+
+    def _drain_io(self) -> None:
+        """Wait for the queued VTK writes and surface their errors."""
+        for fut in self._io_futures:
+            fut.result()
+        self._io_futures = []
+
+    def _submit_frame(self, rho: np.ndarray, u: np.ndarray, t: int) -> None:
+        """Queue one VTK frame on the writer pool and surface any exception
+        of an already finished write."""
+        p = self.params
+        self._io_futures.append(self._io_pool.submit(
+            io_mod.write_vtk_timestep, u[0], u[1], rho, p, t, p.output_dir,
+            fmt=p.vtk_format))
+        pending = []
+        for fut in self._io_futures:
+            if fut.done():
+                fut.result()
+            else:
+                pending.append(fut)
+        self._io_futures = pending
+        while len(self._io_futures) > self._max_pending:
+            self._io_futures.pop(0).result()
+
+    def _save_ckpt(self, ckpt_dir: str, t: int, f: torch.Tensor) -> None:
+        """tpulbm's single-device checkpoint: one .npz of the state."""
+        ckpt.save(ckpt_dir, t, self._fetch(f), self.params)
+
+    def _resume_point(self) -> tuple[int, np.ndarray | None]:
+        """(start step, host state or None) from the newest checkpoint in
+        the run's checkpoint directory (tpulbm/runner.py:267-313, the
+        single-.npz kind)."""
+        p = self.params
+        latest = ckpt.latest(os.path.join(p.output_dir, p.checkpoint_dir))
+        if latest is None:
+            return 0, None
+        if os.path.isdir(latest):
+            raise NotImplementedError(
+                f"{latest} is a per-shard checkpoint directory; several "
+                "devices are not ported to tpulbm_torch yet (ROADMAP Queue 1 "
+                "item 19)")
+        try:
+            start_step, f0 = ckpt.load(latest, p)
+        except (OSError, KeyError, ValueError) as e:
+            raise RuntimeError(f"checkpoint load failed ({type(e).__name__}: "
+                               f"{e})") from e
+        if self.verbose:
+            print(f"  Resuming from {latest} at step {start_step}")
+        return start_step, f0
+
+    def run(self, resume: bool = True) -> RunResult:
+        """Step the problem to num_timesteps and write the artifacts. With
+        resume and checkpoint_every set, continue from the newest
+        checkpoint in output_dir/checkpoint_dir if there is one."""
         p = self.params
         problem = self.problem
         self._print_banner()
         t0_wall = time.perf_counter()
-        f = state_from_numpy(problem.initial_state(), problem, self.device)
+        self._host_fetches = 0
+        start_step, f0 = (self._resume_point()
+                          if resume and p.checkpoint_every else (0, None))
+        if f0 is None:
+            f0 = problem.initial_state()
+        f = state_from_numpy(f0, problem, self.device)
         forces_path = os.path.join(p.output_dir, "forces.csv")
-        force_writer = io_mod.ForceWriter(forces_path)
+        force_writer = io_mod.ForceWriter(forces_path, append=start_step > 0,
+                                          resume_step=start_step)
         meter = ThroughputMeter(p.num_cells, self.device)
         if self.verbose:
             print("Starting LBM simulation...")
 
-        t = 0
+        t = start_step
         success = True
         freq = p.output_frequency
+        ckpt_dir = os.path.join(p.output_dir, p.checkpoint_dir)
+        chunks_done = 0
+        last_ckpt = 0
         # The reference's final fields are the moments stored during its
         # LAST collision (of the state before the final step) with the final
         # step's BC overrides at the inlet/outlet columns. To reproduce its
         # velocity_field.csv, stop one step short, snapshot the fields, then
         # advance the last step.
-        t_fields = max(p.num_timesteps - 1, 0)
+        t_fields = max(p.num_timesteps - 1, start_step)
         fields_prev = None
+        self._io_pool = ThreadPoolExecutor(
+            max_workers=max(2, min(8, os.cpu_count() or 1)))
         try:
-            with meter.measure(p.num_timesteps):
+            with meter.measure(p.num_timesteps - start_step):
                 while t < p.num_timesteps:
+                    # Fast path: _SUPER_K output intervals per host fetch,
+                    # their diagnostics (and, in a VTK window, their fields)
+                    # stacked on the device. A window holds a frame when
+                    # its last one, t + (K-1)*freq, is due.
+                    vtk_window = (p.enable_vtk
+                                  and t + (_SUPER_K - 1) * freq
+                                  >= p.vtk_start_step)
+                    if t % freq == 0 and t + _SUPER_K * freq <= t_fields:
+                        fn = self._super_fn(vtk_window)
+                        f, flat = fn(f)
+                        d = fn.unpack(self._fetch(flat))
+                        aborted = False
+                        for j in range(_SUPER_K):
+                            tj = t + j * freq
+                            fv = d["forces"][j]
+                            cd, cl = forces_mod.force_coefficients(problem, fv)
+                            force_writer.record(tj, float(fv[0]),
+                                                float(fv[1]), cd, cl)
+                            if tj > 0 and self.verbose:
+                                print(f"Timestep {tj}: "
+                                      f"max_vel={float(d['max_vel'][j]):.6f}")
+                            if vtk_window and tj > 0 and tj >= p.vtk_start_step:
+                                # copies: a view would pin the whole window
+                                self._submit_frame(np.array(d["rho"][j]),
+                                                   np.array(d["u"][j]), tj)
+                            if not d["stable"][j]:
+                                print(f"Simulation unstable at timestep {tj}")
+                                success = False
+                                aborted = True
+                                break
+                        if aborted:
+                            break
+                        t += _SUPER_K * freq
+                        chunks_done += _SUPER_K
+                        if (p.checkpoint_every and
+                                chunks_done - last_ckpt >= p.checkpoint_every):
+                            self._save_ckpt(ckpt_dir, t, f)
+                            last_ckpt = chunks_done
+                        continue
+
+                    # the tail: one diagnostics fetch per output interval
                     if t % freq == 0:
                         fx, fy, mv, stable = self._diag(f)
                         cd, cl = forces_mod.force_coefficients(
@@ -146,9 +276,7 @@ class Runner:
                                 print(f"Timestep {t}: max_vel={float(mv):.6f}")
                             if p.enable_vtk and t >= p.vtk_start_step:
                                 rho_f, u_f = self._fetch_fields(f)
-                                io_mod.write_vtk_timestep(
-                                    u_f[0], u_f[1], rho_f, p, t, p.output_dir,
-                                    fmt=p.vtk_format)
+                                self._submit_frame(rho_f, u_f, t)
                         if not stable:
                             print(f"Simulation unstable at timestep {t}")
                             success = False
@@ -161,20 +289,32 @@ class Runner:
                         fields_prev = self._fetch_fields(f)
                     f = self._chunk_fn(n)(f)
                     t += n
+                    chunks_done += 1
+                    if (p.checkpoint_every and
+                            chunks_done - last_ckpt >= p.checkpoint_every):
+                        self._save_ckpt(ckpt_dir, t, f)
+                        last_ckpt = chunks_done
 
                 # final fence + stability check of the end state
-                if success and not bool(self._stable(f)):
+                if success and not self._fetch(self._stable(f)):
                     print(f"Simulation unstable at timestep {t}")
                     success = False
         finally:
             force_writer.close()
+            try:
+                self._drain_io()
+            finally:
+                self._io_pool.shutdown()
+                self._io_pool = None
+        fetches = self._host_fetches
 
         stats = self.write_final_results(f, fields_prev) if success else None
         wall = time.perf_counter() - t0_wall
         if self.verbose:
             print(f"\nThroughput: {meter.mlups:.1f} MLUPS over "
                   f"{meter.steps} steps ({wall:.1f}s wall total)")
-        return RunResult(success, t, meter.mlups, wall, forces_path, stats)
+        return RunResult(success, t, meter.mlups, wall, forces_path, stats,
+                         fetches)
 
     def write_final_results(self, f: torch.Tensor,
                             fields_prev=None) -> dict | None:

@@ -1,38 +1,67 @@
 """Chunked time stepping on one device.
 
-Port of tpulbm/parallel/sharded_step.py::make_chunk_fn for a single device:
-no mesh and no halo exchange. A chunk is a Python loop of step launches
-over two ping-pong buffers; PyTorch queues them asynchronously, so the host
-only waits where a caller reads a result.
+Port of tpulbm/parallel/sharded_step.py::make_chunk_fn and
+make_super_chunk_fn for a single device: no mesh and no halo exchange. A
+chunk is a Python loop of kernel launches over two ping-pong buffers;
+PyTorch queues them asynchronously, so the host only waits where a caller
+reads a result.
 """
 from __future__ import annotations
+
+import math
+import os
 
 import torch
 
 from .models.base import Problem
-from .ops import step_cuda, step_torch
+from .ops import diagnostics, forces as forces_mod, step_cuda, step_torch
+
+
+def choose_substeps(chunk_len: int) -> int:
+    """The temporal-blocking depth of a kernel chunk: sharded_step.py's
+    choice (:336-375) for one device. TPULBM_NO_FUSED2 turns blocking off
+    and TPULBM_SUBSTEPS forces a depth, as in tpulbm; otherwise the first
+    of 4, 3, 2 that divides chunk_len, else 1 (the 1-step kernel). tpulbm's
+    TPU-only conditions (slab count, VMEM fit) have no counterpart."""
+    if os.environ.get("TPULBM_NO_FUSED2"):
+        return 1
+    forced = os.environ.get("TPULBM_SUBSTEPS")
+    for n_sub in ([int(forced)] if forced else [4, 3, 2]):
+        if n_sub != 1 and chunk_len % n_sub == 0:
+            return n_sub
+    return 1
 
 
 def make_chunk_fn(problem: Problem, device, chunk_len: int,
                   backend: str = "pallas"):
     """fn(f) -> f advanced by chunk_len steps, on `device`.
 
-    backend="pallas": the CUDA kernel (its plain version for CPU tensors);
+    backend="pallas": the CUDA kernels (their plain version for CPU
+    tensors), chunk_len // N launches of the N-step kernel at the depth N
+    of choose_substeps, or chunk_len launches of the 1-step kernel at N=1;
     backend="jax": the plain PyTorch step, in f32 or f64.
+    fn.substeps is N (1 for the plain step), tpulbm's chunk.pallas_substeps.
     The input f is donated: its storage is reused as a ping-pong buffer.
     """
     if chunk_len < 1:
         raise ValueError(f"chunk_len must be >= 1, got {chunk_len}")
+    substeps = 1
     if backend == "pallas":
         if problem.params.precision != "f32":
             raise NotImplementedError(
                 "the CUDA kernel runs float32 only, as tpulbm's Pallas "
                 "kernels do; use backend='jax' for f64")
-        step = step_cuda.make_local_step_cuda(problem, device)
+        substeps = choose_substeps(chunk_len)
+        if substeps == 1:
+            step = step_cuda.make_local_step_cuda(problem, device)
+        else:
+            step = step_cuda.make_local_step_cuda_blocked(problem, device,
+                                                          substeps)
+        launches = chunk_len // substeps
 
         def chunk(f: torch.Tensor) -> torch.Tensor:
             spare = torch.empty_like(f)
-            for _ in range(chunk_len):
+            for _ in range(launches):
                 f, spare = step(f, spare), f
             return f
     elif backend == "jax":
@@ -44,4 +73,55 @@ def make_chunk_fn(problem: Problem, device, chunk_len: int,
             return f
     else:
         raise ValueError(f"unknown backend {backend!r}")
+    chunk.substeps = substeps
     return chunk
+
+
+def make_super_chunk_fn(problem: Problem, device, interval_len: int,
+                        n_intervals: int, backend: str = "pallas",
+                        with_fields: bool = False):
+    """fn(f) -> (f', diags): n_intervals chunks of interval_len steps with
+    the per-interval diagnostics left on the device, so a caller fetches
+    n_intervals output intervals with one device-to-host copy.
+
+    diags is ONE flat device tensor in f's dtype; fn.unpack(diags) splits it
+    (or a host copy of it) into forces (K, 2), max_vel (K,), stable (K,)
+    (1 or 0) and, with with_fields, rho (K, ny, nx) and u (K, 2, ny, nx):
+    each taken at an interval's starting state, the reference's output
+    cadence. Port of sharded_step.make_super_chunk_fn without with_stats.
+    """
+    chunk = make_chunk_fn(problem, device, interval_len, backend=backend)
+    force = forces_mod.forces_fn(problem, device)
+    max_vel = diagnostics.max_velocity_fn(problem, device)
+    stable = diagnostics.stability_fn(problem)
+    fields = diagnostics.fields_fn(problem, device) if with_fields else None
+    k = n_intervals
+    spatial = tuple(problem.spatial_shape)
+    cells = math.prod(spatial)
+    n_scalar = 4 * k                     # fx, fy, max |u|, stable
+    size = n_scalar + (3 * k * cells if with_fields else 0)
+
+    def unpack(flat) -> dict:
+        scalars = flat[:n_scalar].reshape(k, 4)
+        out = {"forces": scalars[:, :2], "max_vel": scalars[:, 2],
+               "stable": scalars[:, 3]}
+        if with_fields:
+            out["rho"] = flat[n_scalar:n_scalar + k * cells].reshape(
+                (k,) + spatial)
+            out["u"] = flat[n_scalar + k * cells:].reshape((k, 2) + spatial)
+        return out
+
+    def fn(f: torch.Tensor):
+        flat = torch.empty(size, dtype=f.dtype, device=f.device)
+        views = unpack(flat)
+        for j in range(k):
+            views["forces"][j] = force(f)
+            views["max_vel"][j] = max_vel(f)
+            views["stable"][j] = stable(f)
+            if fields is not None:
+                views["rho"][j], views["u"][j] = fields(f)
+            f = chunk(f)
+        return f, flat
+
+    fn.unpack = unpack
+    return fn

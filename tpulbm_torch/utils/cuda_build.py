@@ -3,9 +3,9 @@
 Each kernel source under tpulbm_torch/csrc/ is compiled by nvcc into a
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds) and loaded with ctypes. Libraries land in build/tpulbm_torch/
-at the repository root, named by a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one is reused. Clear the cache with
-`rm -rf build/tpulbm_torch`.
+at the repository root, named by a hash of the source, the shared headers
+(csrc/*.cuh) and the flags, so an edited source or header rebuilds and an
+unchanged one is reused. Clear the cache with `rm -rf build/tpulbm_torch`.
 
 Nothing is built when a module is imported; a missing nvcc or a failed
 build raises.
@@ -56,8 +56,10 @@ def find_nvcc() -> str:
 def load(source: str) -> Library:
     """Build (if needed) and load csrc/<source> as a shared library."""
     src = SOURCE_DIR / source
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(SOURCE_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     out = BUILD_DIR / f"{src.stem}_{digest}.so"
     log_path = out.with_suffix(".log")
     seconds = 0.0
