@@ -7,9 +7,10 @@ Needs one CUDA card and nvcc (CUDA_HOME or /usr/local/cuda). Phases, each
 printing its own line; any failure exits non-zero:
 
 1. the card: torch.cuda must see it; nvidia-smi's name and power limit;
-2. build: nvcc compiles tpulbm_torch/csrc/step_d2q9.cu and
-   step_d2q9_blocked.cu, both at once (timed; ptxas's registers, shared
-   memory and spills for each);
+2. build: nvcc compiles tpulbm_torch/csrc/step_d2q9.cu,
+   step_d2q9_blocked.cu and step_d3q19.cu, all at once (timed; ptxas's
+   registers, shared memory and spills for each, and the dynamic shared
+   memory the N-step and D3Q19 kernels ask for);
 3. kernels against plain at 2048x512 (re200): one step of the 1-step
    kernel from the initial state and from a state the plain step advanced
    500 steps, at rtol 5e-6 / atol 1e-7; 280 steps of each (max error
@@ -32,13 +33,26 @@ printing its own line; any failure exits non-zero:
    chunk at N=2 (100 N=3, 5 N=2 and 1 1-step launches), and write the
    same bytes as the same run with blocking off (TPULBM_NO_FUSED2);
 5. timing at 2048x512, CUDA events, in turns: the plain step, the 1-step
-   kernel and the N = 2, 3, 4 kernels, per step.
+   kernel and the N = 2, 3, 4 kernels, per step;
+6. D3Q19 parity at 256^3 (bench.py's d3q19 row: the sphere in a duct,
+   tau 0.6, U = 0.05): one kernel step against the plain 3-D step from the
+   initial state and from a state the plain step advanced 100 steps, at
+   rtol 5e-6 / atol 1e-7; 280 kernel steps against 280 plain steps (max
+   error bounded by 1e-4);
+7. the 3-D main path: the Runner at 256^3 f32, 2240 steps at
+   output_frequency 140, no VTK (one super-chunk of 8 intervals, then the
+   tail): exactly 2240 launches of the D3Q19 kernel and none of a D2Q9
+   kernel, 16 finite force rows, a finite fields3d.npz of (256, 256, 256)
+   arrays; host fetches, wall time and runner MLUPS printed;
+8. timing at 256^3, in turns: the plain 3-D step (30 steps a turn) and the
+   D3Q19 kernel (500 steps a turn), ms/step, MLUPS and the kernel's B/s
+   against 3.35 TB/s. The 3-D tensors are freed at the end.
 
 Run directories go to build/chip_smoke/ (git-ignored; the final CSV has
 a million rows). The last two lines are a JSON line per kernel and the
 result line; a kernel's `launches` is its count in the run that drives
 it through the Runner: phase 4 for the 1-step and N=4 kernels, phase 4c
-for N=2 and N=3.
+for N=2 and N=3, phase 7 for the D3Q19 kernel.
 """
 from __future__ import annotations
 
@@ -61,6 +75,12 @@ DEPTHS = (2, 3, 4)
 # 280 steps of f32 rounding differences (1/rho multiplied vs divided, sum
 # order) from an impulsive start: a divergence bound, not a parity gate
 DRIFT_280_BOUND = 1e-4
+# the 3-D cell's edge (bench.py's d3q19 row) and the bytes one D3Q19 step
+# must move: 19 f32 values per cell read and written once, plus the 1-byte
+# solid mask
+SPHERE_N = 256
+BYTES_3D = SPHERE_N ** 3 * (19 * 4 * 2 + 1)
+HBM_BYTES_PER_S = 3.35e12
 
 
 def require(cond: bool, msg: str) -> None:
@@ -107,7 +127,8 @@ def run_counted(params, dev):
     result = runner.run()
     wall = time.perf_counter() - t0
     counts = {1: step_cuda.collide_stream.launches,
-              **step_cuda.collide_stream_blocked.launches}
+              **step_cuda.collide_stream_blocked.launches,
+              "3d": step_cuda.collide_stream_3d.launches}
     require(result.success, f"run in {params.output_dir} failed")
     return result, counts, wall
 
@@ -168,6 +189,94 @@ def tiny_runner_agreement(dev) -> float:
     return float(np.abs(fk[:, 1:3] - fp[:, 1:3]).max())
 
 
+def sphere_phases(dev, card: str) -> dict:
+    """Phases 6-8: the D3Q19 kernel at 256^3 against the plain step, the
+    3-D main path through the Runner, and timing. Returns the kernel's
+    JSON entry."""
+    from tpulbm_torch.config import SimulationParams
+    from tpulbm_torch.convert import state_from_numpy
+    from tpulbm_torch.models import make_problem
+    from tpulbm_torch.ops import step_cuda, step_torch
+
+    # phase 6: parity at bench.py's d3q19 row
+    n = SPHERE_N
+    params = SimulationParams(problem="cylinder3d", nx=n, ny=n, nz=n,
+                              inlet_velocity=0.05, precision="f32",
+                              enable_vtk=False)
+    problem = make_problem(params)
+    kstep = step_cuda.make_local_step_cuda_3d(problem, dev)
+    pstep = step_torch.make_step_rolled(problem, dev)
+    f0 = state_from_numpy(problem.initial_state(), problem, dev)
+
+    def one_step_err(f: torch.Tensor) -> float:
+        got = kstep(f, torch.empty_like(f))
+        want = pstep(f)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **ONE_STEP_TOL)
+        return float((got - want).abs().max())
+
+    err_init = one_step_err(f0)
+    err_100 = one_step_err(plain_chunk(pstep, f0.clone(), 100))
+    print(f"3-D parity 1 step at {n}^3: max abs err {err_init:.3e} from the "
+          f"initial state, {err_100:.3e} after 100 plain steps (rtol 5e-6, "
+          f"atol 1e-7)")
+    fk = kernel_chunk(kstep, f0.clone(), 280)
+    fp = plain_chunk(pstep, f0.clone(), 280)
+    torch.cuda.synchronize()
+    err_280 = float((fk - fp).abs().max())
+    require(np.isfinite(err_280) and err_280 < DRIFT_280_BOUND,
+            f"3-D 280-step drift {err_280} beyond {DRIFT_280_BOUND}")
+    print(f"3-D parity 280 steps: max abs err {err_280:.3e} "
+          f"(bound {DRIFT_280_BOUND})")
+    del fk, fp
+    torch.cuda.empty_cache()
+
+    # phase 7: the 3-D main path, counted
+    run_dir = OUT_DIR / f"sphere{n}"
+    main_params = params.replace(num_timesteps=2240, output_frequency=140,
+                                 output_dir=str(run_dir))
+    result, counts, wall = run_counted(main_params, dev)
+    require(counts == {1: 0, 2: 0, 3: 0, 4: 0, "3d": 2240},
+            f"launch counts {counts}, not 2240 D3Q19 and 0 D2Q9")
+    forces = check_forces(run_dir, list(range(0, 2240, 140)))
+    with np.load(run_dir / "fields3d.npz") as fields:
+        for name in ("rho", "ux", "uy", "uz"):
+            require(fields[name].shape == (n, n, n),
+                    f"fields3d.npz {name} {fields[name].shape}")
+            require(bool(np.isfinite(fields[name]).all()),
+                    f"fields3d.npz {name} not finite")
+    print(f"3-D main path: sphere {n}^3 f32, 2240 steps, launches "
+          f"{counts['3d']} D3Q19 (D2Q9: {counts[1]} 1-step, N=2/3/4 "
+          f"{counts[2]}/{counts[3]}/{counts[4]}), {result.host_fetches} host "
+          f"fetches in the loop, {wall:.2f} s wall, runner "
+          f"{result.mlups:.1f} MLUPS, final C_D {forces[-1, 3]:.6f}")
+
+    # phase 8: timing in turns; the plain step is host-bound (~350
+    # launches a step), so 30 steps a turn
+    runs = {"plain": (lambda f, n: plain_chunk(pstep, f, n), 30),
+            "kernel": (lambda f, n: kernel_chunk(kstep, f, n), 500)}
+    times = {k: [] for k in runs}
+    for which in ["plain", "kernel", "kernel", "plain"]:
+        run, steps = runs[which]
+        times[which].append(ms_per_step(run, f0, steps))
+    ms = {k: min(v) for k, v in times.items()}
+    cells = n ** 3
+    bw = BYTES_3D / (ms["kernel"] * 1e-3)
+    print(f"3-D timing at {n}^3 on {card}, ms/step (MLUPS): plain "
+          f"{ms['plain']:.5f} ({cells / ms['plain'] / 1e3:.1f}, runs "
+          f"{[round(v, 6) for v in times['plain']]}); kernel "
+          f"{ms['kernel']:.5f} ({cells / ms['kernel'] / 1e3:.1f}, runs "
+          f"{[round(v, 6) for v in times['kernel']]}); kernel "
+          f"{bw / 1e9:.1f} GB/s, {100 * bw / HBM_BYTES_PER_S:.1f}% of "
+          f"3.35 TB/s")
+    del f0
+    torch.cuda.empty_cache()
+    return {"name": "d3q19_collide_stream", "route": "cuda",
+            "source": step_cuda.SOURCE_3D, "replaces": step_cuda.REPLACES_3D,
+            "launches": counts["3d"], "max_abs_err": max(err_init, err_100),
+            "ms": ms["kernel"], "plain_ms": ms["plain"]}
+
+
 def main() -> int:
     # phase 1: the card
     if not torch.cuda.is_available():
@@ -190,10 +299,11 @@ def main() -> int:
 
     # phase 2: build from the checkout's sources, one nvcc per source
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         libs = list(pool.map(cuda_build.load,
-                             ["step_d2q9.cu", "step_d2q9_blocked.cu"]))
-    print(f"build: both sources in {time.perf_counter() - t0:.2f} s")
+                             ["step_d2q9.cu", "step_d2q9_blocked.cu",
+                              "step_d3q19.cu"]))
+    print(f"build: three sources in {time.perf_counter() - t0:.2f} s")
     for lib in libs:
         ptxas = [ln.split(":", 1)[-1].strip() for ln in lib.log.splitlines()
                  if "registers" in ln or "spill" in ln
@@ -203,6 +313,8 @@ def main() -> int:
     smem = {n: step_cuda._blocked_library().tpulbm_d2q9_blocked_smem_bytes(n)
             for n in DEPTHS}
     print(f"build: N-step kernel dynamic shared memory per block {smem} B")
+    print(f"build: D3Q19 kernel dynamic shared memory per block "
+          f"{step_cuda._library_3d().tpulbm_d3q19_smem_bytes()} B")
 
     # phase 3: the kernels against plain at the main path's shape
     params = PRESETS["re200"].replace(precision="f32", enable_vtk=False)
@@ -269,8 +381,9 @@ def main() -> int:
     main_params = params.replace(num_timesteps=2800, output_frequency=140,
                                  output_dir=str(run_dir))
     result, counts, wall = run_counted(main_params, dev)
-    require(counts == {1: 140, 2: 0, 3: 0, 4: 665},
-            f"launch counts {counts}, not 665 N=4, 140 1-step, 0 N=2/N=3")
+    require(counts == {1: 140, 2: 0, 3: 0, 4: 665, "3d": 0},
+            f"launch counts {counts}, not 665 N=4, 140 1-step, 0 N=2/N=3 "
+            "and 0 D3Q19")
     forces = check_forces(run_dir, list(range(0, 2800, 140)))
     field = np.loadtxt(run_dir / "velocity_field.csv", delimiter=",",
                        skiprows=1)
@@ -307,7 +420,7 @@ def main() -> int:
     p23 = params.replace(num_timesteps=311, output_frequency=150,
                          output_dir=str(d23))
     _, counts23, _ = run_counted(p23, dev)
-    require(counts23 == {1: 1, 2: 5, 3: 100, 4: 0},
+    require(counts23 == {1: 1, 2: 5, 3: 100, 4: 0, "3d": 0},
             f"launch counts {counts23}, not 100 N=3, 5 N=2, 1 1-step")
     check_forces(d23, [0, 150, 300])
     d1 = OUT_DIR / "re200_f150_unblocked"
@@ -354,6 +467,7 @@ def main() -> int:
             "launches": (main_counts if n == 4 else counts23)[n],
             "max_abs_err": err_plain[n], "ms": ms[n],
             "plain_ms": ms["plain"]})
+    kernels.append(sphere_phases(dev, card))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
 """The CUDA kernels against their plain version, and the N-step kernel
-against N launches of the 1-step kernel, on the card. These tests need an
+against N launches of the 1-step kernel, on the card: D2Q9 and D3Q19. These tests need an
 NVIDIA GPU with nvcc and skip elsewhere; run them on the card with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -29,8 +29,8 @@ def _perturbed_state(problem, seed):
     # a state with structure at every edge and corner: the initial state
     # times seeded noise, solid cells back at rest equilibrium
     rng = np.random.default_rng(seed)
-    f = problem.initial_state() * rng.uniform(0.9, 1.1, (9,)
-                                             + problem.spatial_shape)
+    f = problem.initial_state() * rng.uniform(
+        0.9, 1.1, (problem.lattice.Q,) + problem.spatial_shape)
     f[:, problem.solid] = problem.lattice.w[:, None]
     return f.astype(np.float32)
 
@@ -109,6 +109,48 @@ def test_blocked_chunk_counts_every_launch(cuda):
     assert chunk.substeps == 4
     assert step_cuda.collide_stream_blocked.launches == {2: 0, 3: 0, 4: 7}
     assert step_cuda.collide_stream.launches == 0
+    want = make_chunk_fn(problem, cuda, 28, backend="jax")(f)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+
+
+# D3Q19: ragged grids, a grid smaller than one 32x4 tile, the sphere that
+# pierces the inlet plane, the one whose outlet neighbours are solid, and
+# bench.py's 256^3 cell
+@pytest.mark.parametrize("kw", [
+    dict(nx=33, ny=17, nz=9, cylinder_x=0.5, cylinder_radius=0.15),
+    dict(nx=20, ny=11, nz=5), dict(nx=7, ny=3, nz=2),
+    dict(nx=32, ny=32, nz=8, cylinder_y=0.5, cylinder_radius=0.2),
+    dict(nx=32, ny=32, nz=8, cylinder_x=0.9, cylinder_y=0.5,
+         cylinder_radius=0.2),
+    dict(nx=256, ny=256, nz=256)],
+    ids=["33x17x9", "20x11x5", "7x3x2", "inlet_piercing", "outlet_reaching",
+         "256cubed"])
+def test_kernel_3d_one_step_matches_plain(cuda, kw):
+    problem = make_problem(SimulationParams(problem="cylinder3d", tau=0.55,
+                                            inlet_velocity=0.05, **kw))
+    f = state_from_numpy(_perturbed_state(problem, kw["nx"]), problem, cuda)
+    kstep = step_cuda.make_local_step_cuda_3d(problem, cuda)
+    before = step_cuda.collide_stream_3d.launches
+    got = kstep(f, torch.empty_like(f))
+    assert step_cuda.collide_stream_3d.launches == before + 1
+    want = step_torch.make_step_rolled(problem, cuda)(f)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **ONE_STEP_TOL)
+
+
+def test_kernel_3d_chunk_counts_every_launch(cuda):
+    problem = make_problem(SimulationParams(problem="cylinder3d", nx=64,
+                                            ny=32, nz=24,
+                                            cylinder_radius=0.2))
+    f = state_from_numpy(problem.initial_state(), problem, cuda)
+    step_cuda.reset_launch_counts()
+    chunk = make_chunk_fn(problem, cuda, 28, backend="pallas")
+    got = chunk(f.clone())
+    assert chunk.substeps == 1
+    assert step_cuda.collide_stream_3d.launches == 28
+    assert step_cuda.collide_stream.launches == 0
+    assert step_cuda.collide_stream_blocked.launches == {2: 0, 3: 0, 4: 0}
     want = make_chunk_fn(problem, cuda, 28, backend="jax")(f)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)

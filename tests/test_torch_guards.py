@@ -20,7 +20,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_port_runs_without_jax(tmp_path):
     # a fresh interpreter: import every module of the port, run a 10-step
     # chunk (N=2) and a super-chunk through the kernel modules' CPU path,
-    # and the CLI end to end, checkpointed and resumed
+    # the CLI end to end, checkpointed and resumed, and a tiny 3-D run
     script = textwrap.dedent(f"""
         import importlib, pkgutil, sys
         import tpulbm_torch
@@ -43,6 +43,10 @@ def test_port_runs_without_jax(tmp_path):
                "--output-dir", {str(tmp_path)!r}]
         assert main(cli + ["--num-timesteps", "20"]) == 0
         assert main(cli + ["--num-timesteps", "40"]) == 0
+        assert main(["--cpu", "--problem", "cylinder3d", "--nx", "16",
+                     "--ny", "8", "--nz", "6", "--num-timesteps", "12",
+                     "--output-frequency", "4", "--no-vtk", "--output-dir",
+                     {str(tmp_path / "sphere")!r}]) == 0
         leaked = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax."))
         assert not leaked, leaked
@@ -56,6 +60,9 @@ def test_port_runs_without_jax(tmp_path):
     assert "Resuming from" in proc.stdout
     for name in ("forces.csv", "velocity_field.csv", "simulation_params.csv"):
         assert (tmp_path / name).exists()
+    for name in ("forces.csv", "fields3d.npz"):
+        assert (tmp_path / "sphere" / name).exists()
+    assert "Domain: 16×8×6" in proc.stdout
 
 
 def test_runner_refuses_cuda_without_a_card(tmp_path):

@@ -28,10 +28,21 @@ def test_problem_arrays_match_tpulbm_bytewise(preset, precision):
 @pytest.mark.parametrize("problem,item", [
     ("poiseuille", "item 12"), ("cavity", "item 12"),
     ("kolmogorov", "item 13"), ("rayleigh-benard", "item 17"),
-    ("cylinder3d", "item 16"), ("multiphase", "item 18")])
+    ("taylor-green", "item 13"), ("multiphase", "item 18")])
 def test_unported_problems_name_their_roadmap_item(problem, item):
     with pytest.raises(NotImplementedError, match=item):
         make_problem(PRESETS["cylinder-small"].replace(problem=problem))
+
+
+def test_cylinder3d_without_nz_raises_tpulbm_error():
+    params = PRESETS["cylinder-small"].replace(problem="cylinder3d")
+    with pytest.raises(ValueError, match="nz > 0"):
+        jax_problem(params)
+    with pytest.raises(ValueError, match="nz > 0"):
+        make_problem(params)
+
+
+_SPHERE = dict(problem="cylinder3d", nz=8)
 
 
 @pytest.mark.parametrize("override,item", [
@@ -40,7 +51,14 @@ def test_unported_problems_name_their_roadmap_item(problem, item):
     (dict(obstacle_bc="bounce_back"), "item 12"),
     (dict(zou_he_corners="clean"), "item 12"),
     (dict(body_force=(1e-5, 0.0)), "item 12"),
-    (dict(obstacle_bc="bouzidi"), "item 14"), (dict(nz=16), "item 16")])
+    (dict(obstacle_bc="bouzidi"), "item 14"), (dict(nz=16), "item 16"),
+    (dict(_SPHERE, lattice3d="d3q27"), "item 16"),
+    (dict(_SPHERE, collision="trt"), "item 11"),
+    (dict(_SPHERE, collision="regularized"), "item 11"),
+    (dict(_SPHERE, smagorinsky=0.1), "item 11"),
+    (dict(_SPHERE, obstacle_bc="bounce_back"), "item 12"),
+    (dict(_SPHERE, obstacle_bc="bouzidi"), "item 14"),
+    (dict(_SPHERE, body_force=(1e-5, 0.0, 0.0)), "item 12")])
 def test_unported_options_name_their_roadmap_item(override, item):
     with pytest.raises(NotImplementedError, match=item):
         make_problem(PRESETS["cylinder-small"].replace(**override))

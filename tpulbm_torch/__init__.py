@@ -1,15 +1,19 @@
 """tpulbm_torch — the PyTorch + CUDA port of tpulbm for NVIDIA Hopper GPUs.
 
 The port mirrors tpulbm's module names so each module's counterpart is easy
-to find. Plain tensor code is PyTorch; the fused collide-stream step is a
-hand-written CUDA kernel (csrc/step_d2q9.cu) built with nvcc at first use.
+to find. Plain tensor code is PyTorch; the fused collide-stream steps are
+hand-written CUDA kernels (csrc/*.cu) built with nvcc at first use.
 tpulbm's jax-free host modules (config, lattice, geometry, utils.io) are
 re-exported, not copied, so one SimulationParams type and one set of
 artifact writers serve both packages.
 
-Covered so far: the 2-D D2Q9 BGK cylinder main path on one device
-(Zou-He inlet/outlet, bounce-back y walls, equilibrium obstacle). Anything
-else raises NotImplementedError naming its ROADMAP item.
+Covered so far, on one device: the 2-D D2Q9 BGK cylinder main path
+(Zou-He inlet/outlet, bounce-back y walls, equilibrium obstacle) and the
+3-D D3Q19 BGK sphere in a duct (equilibrium inlet, zero-gradient outlet,
+bounce-back y and z walls, equilibrium obstacle). Anything else raises
+NotImplementedError naming its ROADMAP item.
 
     python -m tpulbm_torch --preset re200 --no-vtk
+    python -m tpulbm_torch --problem cylinder3d --nx 256 --ny 256 --nz 256 \\
+        --inlet-velocity 0.05 --no-vtk
 """

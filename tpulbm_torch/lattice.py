@@ -1,11 +1,12 @@
-"""Lattice descriptors: tpulbm's D2Q9, re-exported, plus tensor views."""
+"""Lattice descriptors: tpulbm's D2Q9 and D3Q19, re-exported, plus tensor
+views."""
 from __future__ import annotations
 
 import torch
 
-from tpulbm.lattice import D2Q9, Lattice
+from tpulbm.lattice import D2Q9, D3Q19, Lattice
 
-__all__ = ["D2Q9", "Lattice", "lattice_tensors"]
+__all__ = ["D2Q9", "D3Q19", "Lattice", "lattice_tensors"]
 
 
 def lattice_tensors(lat: Lattice, device, dtype=torch.float32):

@@ -1,10 +1,14 @@
-"""Problem builders. The port covers the 2-D D2Q9 BGK cylinder with the
-equilibrium obstacle; every other configuration raises NotImplementedError
-naming the ROADMAP item (Queue 1) that will port it."""
+"""Problem builders. The port covers the 2-D D2Q9 BGK cylinder and the 3-D
+D3Q19 BGK sphere in a duct, both with the equilibrium obstacle; every other
+configuration raises NotImplementedError naming the ROADMAP item (Queue 1)
+that will port it."""
 from .base import Problem
-from . import cylinder
+from . import cylinder, cylinder3d
 
 __all__ = ["Problem", "make_problem"]
+
+_BUILDERS = {"cylinder": cylinder.make_problem,
+             "cylinder3d": cylinder3d.make_problem}
 
 _PROBLEM_ITEMS = {
     "poiseuille": "Queue 1 item 12 (body force, cavity and BC variants)",
@@ -15,7 +19,6 @@ _PROBLEM_ITEMS = {
     "passive-scalar": "Queue 1 item 17 (thermal and passive scalar)",
     "rayleigh-benard": "Queue 1 item 17 (thermal and passive scalar)",
     "heated-cavity": "Queue 1 item 17 (thermal and passive scalar)",
-    "cylinder3d": "Queue 1 item 16 (3-D)",
     "multiphase": "Queue 1 item 18 (Shan-Chen multiphase)",
 }
 
@@ -26,14 +29,17 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 def check_slice(params) -> None:
-    """Raise NotImplementedError for physics outside the ported slice."""
+    """Raise NotImplementedError for physics outside the ported slices."""
     if params.problem in _PROBLEM_ITEMS:
         raise _not_ported(f"problem={params.problem!r}",
                           _PROBLEM_ITEMS[params.problem])
-    if params.problem != "cylinder":
+    if params.problem not in _BUILDERS:
         raise ValueError(f"unknown problem: {params.problem!r}")
-    if params.is_3d:
-        raise _not_ported("a 3-D cylinder (nz > 0)", "Queue 1 item 16 (3-D)")
+    three_d = "Queue 1 item 16 (3-D)"
+    if params.problem == "cylinder" and params.is_3d:
+        raise _not_ported("a 3-D cylinder (nz > 0)", three_d)
+    if params.problem == "cylinder3d" and params.lattice3d != "d3q19":
+        raise _not_ported(f"lattice3d={params.lattice3d!r}", three_d)
     ops = "Queue 1 item 11 (collision operators)"
     if params.collision != "bgk":
         raise _not_ported(f"collision={params.collision!r}", ops)
@@ -47,7 +53,8 @@ def check_slice(params) -> None:
                           "Queue 1 item 14 (Bouzidi curved walls)")
     if params.obstacle_bc != "equilibrium":
         raise _not_ported(f"obstacle_bc={params.obstacle_bc!r}", variants)
-    if params.zou_he_corners != "reference":
+    # tpulbm's 3-D model never reads zou_he_corners (no Zou-He there)
+    if params.problem == "cylinder" and params.zou_he_corners != "reference":
         raise _not_ported(f"zou_he_corners={params.zou_he_corners!r}",
                           variants)
     if params.body_force:
@@ -55,6 +62,6 @@ def check_slice(params) -> None:
 
 
 def make_problem(params) -> Problem:
-    """Build the Problem for params.problem (only "cylinder" is ported)."""
+    """Build the Problem for params.problem ("cylinder" or "cylinder3d")."""
     check_slice(params)
-    return cylinder.make_problem(params)
+    return _BUILDERS[params.problem](params)

@@ -1,7 +1,8 @@
 """Problem definition: lattice + geometry + boundary-condition layout.
 
-Port of tpulbm/models/base.py for the slice the port covers (uniform
-equilibrium start, optional solid mask). The initial state and the ghost
+Port of tpulbm/models/base.py for the slices the port covers (uniform
+equilibrium start, optional solid mask; the 2-D cylinder's and the 3-D
+sphere-in-duct's boundary layouts). The initial state and the ghost
 values are computed in NumPy on the host, exactly as tpulbm does, so both
 packages start from byte-identical arrays.
 """
@@ -19,7 +20,7 @@ from .. import physics
 @dataclasses.dataclass(frozen=True)
 class Problem:
     """Static description of one simulation setup. `solid` is a host bool
-    (ny, nx) mask, True on solid cells, or None."""
+    (*spatial) mask in ([z,] y, x) order, True on solid cells, or None."""
 
     params: SimulationParams
     lattice: Lattice
@@ -28,7 +29,10 @@ class Problem:
     init_u: tuple[float, ...] = (0.0, 0.0)
     inlet_zou_he: bool = False        # Zou-He velocity inlet at x = 0
     outlet_zou_he: bool = False       # Zou-He pressure outlet at x = nx-1
+    inlet_equilibrium: bool = False   # equilibrium inlet at x = 0 (3-D)
+    outlet_zero_grad: bool = False    # zero-gradient outlet at x = nx-1 (3-D)
     walls_y: bool = True              # bounce-back walls at y = 0 and ny-1
+    walls_z: bool = False             # bounce-back walls at z = 0 and nz-1
     obstacle_bc: str = "equilibrium"  # solid cells pinned to rest equilibrium
     collision: str = "bgk"
 

@@ -1,10 +1,13 @@
 """Boundary conditions as masked per-population ("plane") updates.
 
-Port of tpulbm/ops/boundaries.py for the cylinder's BC stack. Every BC is a
-`torch.where` over coordinate masks on a mutable list of Q planes, applied
-in the reference order (bottom wall, top wall, inlet, outlet, obstacle), so
-the read-after-write chain at the corner cells carries over: the inlet's
-Zou-He reads f6 after the bottom wall rewrote it.
+Port of tpulbm/ops/boundaries.py for the BC stacks of the 2-D cylinder and
+the 3-D sphere in a duct. Every BC is a `torch.where` over coordinate masks
+on a mutable list of Q planes, applied in the reference order (y walls, z
+walls, inlet, outlet, obstacle), so the read-after-write chains at edge and
+corner cells carry over: the inlet's Zou-He reads f6 after the bottom wall
+rewrote it, a z wall reads what a y wall rewrote, and the zero-gradient
+outlet copies its neighbour column after the walls and before the obstacle
+pin.
 
 D2Q9 index convention:
     0:(0,0) 1:(1,0) 2:(0,1) 3:(-1,0) 4:(0,-1) 5:(1,1) 6:(-1,1) 7:(-1,-1) 8:(1,-1)
@@ -72,6 +75,25 @@ def apply_zou_he_outlet(planes: list, outlet_mask, solid) -> None:
     planes[7] = torch.where(m, new7, p[7])
 
 
+def apply_equilibrium_inlet(lat: Lattice, planes: list, inlet_mask,
+                            eq_in: np.ndarray, solid) -> None:
+    """Equilibrium inlet on the x=0 plane (3-D model): every population takes
+    the frozen inlet equilibrium."""
+    m = _not_solid(inlet_mask, solid)
+    for i in range(lat.Q):
+        planes[i] = torch.where(m, float(eq_in[i]), planes[i])
+
+
+def apply_zero_gradient_outlet(lat: Lattice, planes: list, outlet_mask,
+                               solid) -> None:
+    """Zero-gradient outlet on the x=nx-1 plane (3-D model): every population
+    copies the x-1 neighbour as it stands at this point of the stack."""
+    m = _not_solid(outlet_mask, solid)
+    for i in range(lat.Q):
+        shifted = torch.roll(planes[i], 1, dims=-1)  # value from x-1
+        planes[i] = torch.where(m, shifted, planes[i])
+
+
 def apply_obstacle(lat: Lattice, planes: list, solid, rest: np.ndarray) -> None:
     """Equilibrium obstacle (reference parity): pin solid cells to the rest
     equilibrium w_i after every edge BC. The reference's collision skips
@@ -84,11 +106,11 @@ def apply_obstacle(lat: Lattice, planes: list, solid, rest: np.ndarray) -> None:
 
 
 def apply_all(problem: Problem, planes: list, coords: dict) -> list:
-    """Apply the cylinder's BC stack in reference order.
+    """Apply the problem's BC stack in reference order.
 
-    `coords` holds broadcastable global-coordinate tensors 'yy' (ny, 1) and
-    'xx' (1, nx), the extents 'ny' and 'nx', and 'solid' (bool mask or
-    None)."""
+    `coords` holds broadcastable global-coordinate tensors 'yy' and 'xx'
+    (and 'zz' in 3-D), the extents 'ny' and 'nx' (and 'nz'), and 'solid'
+    (bool mask or None)."""
     if problem.obstacle_bc != "equilibrium":
         raise NotImplementedError(
             f"obstacle_bc={problem.obstacle_bc!r} is not ported")
@@ -99,10 +121,19 @@ def apply_all(problem: Problem, planes: list, coords: dict) -> list:
     if problem.walls_y:
         apply_walls(lat, planes, yy == 0, 1, +1, solid)
         apply_walls(lat, planes, yy == ny - 1, 1, -1, solid)
+    if problem.walls_z:
+        zz, nz = coords["zz"], coords["nz"]
+        apply_walls(lat, planes, zz == 0, 2, +1, solid)
+        apply_walls(lat, planes, zz == nz - 1, 2, -1, solid)
     if problem.inlet_zou_he:
         apply_zou_he_inlet(planes, xx == 0, problem.init_u[0], solid)
+    if problem.inlet_equilibrium:
+        apply_equilibrium_inlet(lat, planes, xx == 0,
+                                problem.ghost_ring_values(), solid)
     if problem.outlet_zou_he:
         apply_zou_he_outlet(planes, xx == nx - 1, solid)
+    if problem.outlet_zero_grad:
+        apply_zero_gradient_outlet(lat, planes, xx == nx - 1, solid)
     apply_obstacle(lat, planes, solid,
                    physics.rest_equilibrium(lat, problem.dtype))
     return planes

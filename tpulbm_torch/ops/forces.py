@@ -31,7 +31,7 @@ def momentum_exchange(problem: Problem, f_post: torch.Tensor,
             if cid == 0:
                 continue
             # solid neighbour at x + c_i: roll solid by -c_i (array axes
-            # are (y, x), velocity components (x, y))
+            # are ([z,] y, x), velocity components (x, y[, z]))
             shifts = tuple(-int(c[i, k]) for k in range(lat.D))[::-1]
             solid_shift = torch.roll(solid, shifts, tuple(range(ndim)))
             # roll wraps; a solid cell at a domain edge must not pair with
@@ -51,12 +51,15 @@ def momentum_exchange(problem: Problem, f_post: torch.Tensor,
 
 def force_coefficients(problem: Problem,
                        force: np.ndarray) -> tuple[float, float]:
-    """C_D, C_L with the reference's normalization q = ½ ρ U² D per unit
-    span, D = 2 * int(cylinder_radius * ny) cells."""
+    """C_D, C_L from force[0] and force[1]. 2-D: the reference's
+    normalization q = ½ ρ U² D per unit span, D = 2 * int(cylinder_radius *
+    ny) cells. 3-D (sphere): q = ½ ρ U² π r², the frontal area, as in
+    tpulbm."""
     p = problem.params
     U = p.inlet_velocity
     r = float(p.get_cylinder_radius_cells())
-    q = 0.5 * 1.0 * U * U * (2.0 * r)
+    area = np.pi * r * r if problem.lattice.D == 3 else 2.0 * r
+    q = 0.5 * 1.0 * U * U * area
     if q <= 1e-12:
         return 0.0, 0.0
     return float(force[0] / q), float(force[1] / q)

@@ -1,9 +1,12 @@
-"""The fused D2Q9 collide-stream step as hand-written CUDA kernels.
+"""The fused collide-stream steps as hand-written CUDA kernels.
 
-Ports of tpulbm/ops/step_pallas.py:
+Ports of tpulbm/ops/step_pallas.py (D2Q9):
 * make_local_step_pallas (one step per launch): csrc/step_d2q9.cu;
 * make_local_step_pallasN (N = 3, 4) and make_local_step_pallas2 (N = 2),
   temporal blocking, N steps per launch: csrc/step_d2q9_blocked.cu.
+Port of tpulbm/ops/step_pallas3d.py (D3Q19):
+* make_local_step_pallas3d and make_local_step_pallas3d_tiled at n_sub=1
+  (one step per launch): csrc/step_d3q19.cu.
 Each kernel is built with nvcc at first use and called through ctypes on
 PyTorch's current stream. Their plain version is
 ops/step_torch.py::make_step_rolled, once per step.
@@ -34,6 +37,12 @@ BLOCKED_REPLACES = {
     4: "tpulbm/ops/step_pallas.py:1679",
 }
 BLOCKED_DEPTHS = tuple(BLOCKED_REPLACES)
+SOURCE_3D = "tpulbm_torch/csrc/step_d3q19.cu"
+REPLACES_3D = ("tpulbm/ops/step_pallas3d.py:370 (make_local_step_pallas3d), "
+               "tpulbm/ops/step_pallas3d.py:745 at n_sub=1 "
+               "(make_local_step_pallas3d_tiled)")
+# populations per cell -> the state's rank and layout, per kernel lattice
+_STATE_LAYOUT = {9: (3, "(9, ny, nx)"), 19: (4, "(19, nz, ny, nx)")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,18 +61,19 @@ class StepConstants:
                    w=tuple(float(v) for v in problem.lattice.w))
 
 
-def check_inputs(f: torch.Tensor, out: torch.Tensor,
-                 solid: torch.Tensor) -> None:
-    """Raise unless f and out are distinct contiguous float32 (9, ny, nx)
-    tensors and solid a contiguous uint8 (ny, nx) mask, all on one
-    device."""
+def check_inputs(f: torch.Tensor, out: torch.Tensor, solid: torch.Tensor,
+                 q: int = 9) -> None:
+    """Raise unless f and out are distinct contiguous float32 states of a
+    q-population lattice, (9, ny, nx) or (19, nz, ny, nx), and solid a
+    contiguous uint8 mask of their spatial shape, all on one device."""
+    rank, layout = _STATE_LAYOUT[q]
     if f.dtype != torch.float32 or out.dtype != torch.float32:
-        raise TypeError(f"the D2Q9 kernel takes float32 states, got "
+        raise TypeError(f"the kernels take float32 states, got "
                         f"{f.dtype} and {out.dtype}")
     if solid.dtype != torch.uint8:
         raise TypeError(f"solid mask must be uint8, got {solid.dtype}")
-    if f.dim() != 3 or f.shape[0] != 9:
-        raise ValueError(f"state must be (9, ny, nx), got {tuple(f.shape)}")
+    if f.dim() != rank or f.shape[0] != q:
+        raise ValueError(f"state must be {layout}, got {tuple(f.shape)}")
     if out.shape != f.shape or tuple(solid.shape) != tuple(f.shape[1:]):
         raise ValueError(f"shape mismatch: f {tuple(f.shape)}, out "
                          f"{tuple(out.shape)}, solid {tuple(solid.shape)}")
@@ -99,6 +109,16 @@ def _library() -> ctypes.CDLL:
 
 
 @functools.cache
+def _library_3d() -> ctypes.CDLL:
+    lib = _bind("step_d3q19.cu", "tpulbm_d3q19_step",
+                [_PTR, _PTR, _PTR, _I32, _I32, _I32, _F32, _PTR, _PTR, _I32,
+                 _PTR])
+    lib.tpulbm_d3q19_smem_bytes.argtypes = []
+    lib.tpulbm_d3q19_smem_bytes.restype = _I32
+    return lib
+
+
+@functools.cache
 def _blocked_library() -> ctypes.CDLL:
     return _bind("step_d2q9_blocked.cu", "tpulbm_d2q9_step_blocked",
                  [_PTR, _PTR, _PTR, _I32, _I32, _I32, _F32, _F32, _F32,
@@ -111,11 +131,14 @@ def _check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
                            + lib.tpulbm_cuda_error_string(rc).decode())
 
 
+def _floats(values: tuple) -> ctypes.Array:
+    return (ctypes.c_float * len(values))(*values)
+
+
 def _consts_args(consts: StepConstants) -> tuple:
-    """inv_tau, u_in, 1 - u_in, eq_in, w as the launchers take them."""
-    farr = ctypes.c_float * 9
+    """inv_tau, u_in, 1 - u_in, eq_in, w as the D2Q9 launchers take them."""
     return (consts.inv_tau, consts.u_in, 1.0 - consts.u_in,
-            farr(*consts.eq_in), farr(*consts.w))
+            _floats(consts.eq_in), _floats(consts.w))
 
 
 def collide_stream(f: torch.Tensor, out: torch.Tensor, solid: torch.Tensor,
@@ -186,10 +209,40 @@ def collide_stream_blocked(f: torch.Tensor, out: torch.Tensor,
 collide_stream_blocked.launches = dict.fromkeys(BLOCKED_DEPTHS, 0)
 
 
+def collide_stream_3d(f: torch.Tensor, out: torch.Tensor,
+                      solid: torch.Tensor, consts: StepConstants,
+                      plain=None) -> torch.Tensor:
+    """One D3Q19 timestep from f into out; returns out.
+
+    On a CUDA tensor: launches the kernel on the current stream (no
+    synchronization) and raises if the launch is refused. On a CPU tensor:
+    runs `plain` (the plain version's step for the same problem)."""
+    check_inputs(f, out, solid, q=19)
+    if f.device.type == "cpu":
+        if plain is None:
+            raise ValueError("a CPU tensor needs the plain step")
+        return out.copy_(plain(f))
+    lib = _library_3d()
+    nz, ny, nx = f.shape[1:]
+    stream = torch.cuda.current_stream(f.device).cuda_stream
+    rc = lib.tpulbm_d3q19_step(
+        f.data_ptr(), out.data_ptr(), solid.data_ptr(), nx, ny, nz,
+        consts.inv_tau, _floats(consts.eq_in), _floats(consts.w),
+        f.device.index, stream)
+    _check_launch(lib, rc, "D3Q19 kernel")
+    collide_stream_3d.launches += 1
+    return out
+
+
+# kernel launches; CPU calls (the plain version) are not counted
+collide_stream_3d.launches = 0
+
+
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
     collide_stream.launches = 0
     collide_stream_blocked.launches = dict.fromkeys(BLOCKED_DEPTHS, 0)
+    collide_stream_3d.launches = 0
 
 
 def _kernel_operands(problem: Problem, device):
@@ -199,7 +252,7 @@ def _kernel_operands(problem: Problem, device):
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     if problem.collision != "bgk" or problem.obstacle_bc != "equilibrium":
-        raise NotImplementedError("the D2Q9 kernels cover BGK with the "
+        raise NotImplementedError("the kernels cover BGK with the "
                                   "equilibrium obstacle only")
     consts = StepConstants.of(problem)
     solid = torch.as_tensor(problem.solid, device=device).to(torch.uint8)
@@ -229,5 +282,22 @@ def make_local_step_cuda_blocked(problem: Problem, device, n_sub: int):
 
     def step(f: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
         return collide_stream_blocked(f, out, solid, consts, n_sub, plain)
+
+    return step
+
+
+def make_local_step_cuda_3d(problem: Problem, device):
+    """step(f, out) -> out: one D3Q19 timestep of `problem` through the
+    kernel (CUDA) or its plain version (CPU), on (19, nz, ny, nx) states
+    living on `device`. The counterpart of make_local_step_pallas3d and of
+    make_local_step_pallas3d_tiled at n_sub=1, for the sphere in a duct:
+    y and z walls, equilibrium inlet, zero-gradient outlet."""
+    if problem.params.problem != "cylinder3d" or problem.lattice.Q != 19:
+        raise NotImplementedError("the D3Q19 kernel covers the sphere in a "
+                                  "duct (problem='cylinder3d') only")
+    _, consts, solid, plain = _kernel_operands(problem, device)
+
+    def step(f: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+        return collide_stream_3d(f, out, solid, consts, plain)
 
     return step

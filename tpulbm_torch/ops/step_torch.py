@@ -2,9 +2,10 @@
 plain version.
 
 Port of tpulbm/ops/step_jax.py::make_step_rolled with the BGK branch of
-_collide_block. Unpadded state (Q, ny, nx); streaming is a per-population
-`torch.roll` (pull scheme) followed by the ghost sanitize at the
-non-periodic edges, then the BC stack. Runs in f32 and f64.
+_collide_block, in 2-D (D2Q9) and 3-D (D3Q19). Unpadded state
+(Q, *spatial); streaming is a per-population `torch.roll` (pull scheme)
+followed by the ghost sanitize at the non-periodic edges, then the BC
+stack. Runs in f32 and f64.
 
 Step order parity with the reference loop: collision -> streaming ->
 boundary conditions.
@@ -31,52 +32,67 @@ def collide_block(problem: Problem, f: torch.Tensor) -> torch.Tensor:
 
 
 def coords(problem: Problem, device) -> dict:
-    """Broadcastable global coordinates, extents and the solid mask."""
-    ny, nx = problem.spatial_shape
-    solid = (None if problem.solid is None
-             else torch.as_tensor(problem.solid, device=device))
-    return {"yy": torch.arange(ny, device=device).reshape(ny, 1),
-            "xx": torch.arange(nx, device=device).reshape(1, nx),
-            "ny": ny, "nx": nx, "solid": solid}
+    """Broadcastable global coordinates ('zz', 'yy', 'xx' over the spatial
+    axes, 'zz' in 3-D only), the extents and the solid mask."""
+    shape = problem.spatial_shape
+    ndim = len(shape)
+    cd = {}
+    for d, (name, n) in enumerate(zip(("zz", "yy", "xx")[-ndim:], shape)):
+        bshape = [1] * ndim
+        bshape[d] = n
+        cd[name] = torch.arange(n, device=device).reshape(bshape)
+        cd["n" + name[0]] = n
+    cd["solid"] = (None if problem.solid is None
+                   else torch.as_tensor(problem.solid, device=device))
+    return cd
 
 
 def make_step_rolled(problem: Problem,
                      device) -> Callable[[torch.Tensor], torch.Tensor]:
-    """Oracle step on the unpadded state (Q, ny, nx) on `device`.
+    """Oracle step on the unpadded state (Q, *spatial) on `device`.
 
     Ghost semantics (the reference's, verified against its compiled code):
-    pulls that cross the x edges read ZERO (its east/west ghost columns are
-    overwritten every step by never-received halo buffers), pulls that
-    cross the y edges read the frozen initial equilibrium, and so do the
-    corner ghosts (a diagonal pull at a wall row that crosses a corner).
+    pulls whose source leaves only the x range read ZERO (its east/west
+    ghost columns are overwritten every step by never-received halo
+    buffers); pulls whose source leaves the y range, or the z range in 3-D,
+    read the frozen initial equilibrium, and so do the corner ghosts (a
+    diagonal pull at a wall that crosses a corner).
     """
-    if len(problem.spatial_shape) != 2:
-        raise NotImplementedError("3-D steps are not ported")
     lat = problem.lattice
     c = lat.c
     eq_ring = problem.ghost_ring_values()
     cd = coords(problem, device)
-    yy, xx = cd["yy"], cd["xx"]
-    ny, nx = cd["ny"], cd["nx"]
+    ndim = len(problem.spatial_shape)
+    xx, yy = cd["xx"], cd["yy"]
 
-    # per-direction edge masks, built once
-    sanitize = []
+    def leaves(coord, n, comp):
+        """Mask of cells whose pull source x - c leaves [0, n) on an axis."""
+        return (coord == 0) if comp > 0 else \
+            (coord == n - 1) if comp < 0 else None
+
+    def either(a, b):
+        return b if a is None else a if b is None else a | b
+
+    # per-direction edge masks and roll shifts, built once
+    plan = []
     for i in range(lat.Q):
-        cix, ciy = int(c[i, 0]), int(c[i, 1])
-        x_out = (xx == 0) if cix > 0 else (xx == nx - 1) if cix < 0 else None
-        y_out = (yy == 0) if ciy > 0 else (yy == ny - 1) if ciy < 0 else None
+        x_out = leaves(xx, cd["nx"], int(c[i, 0]))
+        y_out = leaves(yy, cd["ny"], int(c[i, 1]))
+        if ndim == 3:
+            y_out = either(y_out, leaves(cd["zz"], cd["nz"], int(c[i, 2])))
         only_x = None
         if x_out is not None:
             only_x = x_out if y_out is None else (x_out & ~y_out)
-        sanitize.append((only_x, y_out, float(eq_ring[i])))
+        # pull: f_new(x) = f_post(x - c_i) -> roll by +c_i per array axis
+        shifts = tuple(int(c[i, d]) for d in range(lat.D))[::-1]
+        plan.append((shifts, only_x, y_out, float(eq_ring[i])))
+    dims = tuple(range(ndim))
 
     def step(f: torch.Tensor) -> torch.Tensor:
         f_post = collide_block(problem, f)
         planes = []
-        for i in range(lat.Q):
-            # pull: f_new(x) = f_post(x - c_i) -> roll by +c_i per axis
-            plane = torch.roll(f_post[i], (int(c[i, 1]), int(c[i, 0])), (0, 1))
-            only_x, y_out, eq_i = sanitize[i]
+        for i, (shifts, only_x, y_out, eq_i) in enumerate(plan):
+            plane = torch.roll(f_post[i], shifts, dims)
             if only_x is not None:
                 plane = torch.where(only_x, 0.0, plane)
             if y_out is not None:

@@ -95,7 +95,7 @@ class Runner:
             return
         p = self.params
         print("Cylinder Flow LBM Parameters:")
-        print(f"  Domain: {p.nx}×{p.ny}")
+        print(f"  Domain: {p.nx}×{p.ny}" + (f"×{p.nz}" if p.is_3d else ""))
         print(f"  tau = {p.tau}, nu = {p.nu()}")
         print(f"  Inlet velocity = {p.inlet_velocity}")
         print(f"  Reynolds number = {p.reynolds()}")
@@ -120,7 +120,7 @@ class Runner:
 
     def _diag(self, f: torch.Tensor) -> np.ndarray:
         """[fx, fy, max |u|, stable] in ONE device-to-host fetch."""
-        force = self._forces(f)
+        force = self._forces(f)[:2]
         packed = torch.cat([force, self._max_vel(f)[None],
                             self._stable(f)[None].to(force.dtype)])
         return self._fetch(packed)
@@ -149,7 +149,7 @@ class Runner:
         p = self.params
         self._io_futures.append(self._io_pool.submit(
             io_mod.write_vtk_timestep, u[0], u[1], rho, p, t, p.output_dir,
-            fmt=p.vtk_format))
+            uz=u[2] if p.is_3d else None, fmt=p.vtk_format))
         pending = []
         for fut in self._io_futures:
             if fut.done():
@@ -318,20 +318,41 @@ class Runner:
 
     def write_final_results(self, f: torch.Tensor,
                             fields_prev=None) -> dict | None:
-        """velocity_field.csv, simulation_params.csv and the time-averaged
-        drag summary. With `fields_prev` (the fields one step before the
-        end), interior values come from the last collision and the inlet and
-        outlet columns from the final BC application, as in the reference."""
+        """The final artifacts (tpulbm/runner.py:624-707). 2-D:
+        velocity_field.csv, simulation_params.csv and the time-averaged drag
+        summary; 3-D: fields3d.npz and, with VTK on, a final frame. With
+        `fields_prev` (the fields one step before the end), interior values
+        come from the last collision and the inlet and outlet columns from
+        the final BC application, as in the reference."""
         p = self.params
+        problem = self.problem
         if self.verbose:
             print("\nGathering final results...")
         rho, u = self._fetch_fields(f)
         if fields_prev is not None:
             rho_prev, u_prev = fields_prev
-            for col in (0, p.nx - 1):   # Zou-He inlet and outlet columns
+            edge_cols = []
+            if problem.inlet_zou_he or problem.inlet_equilibrium:
+                edge_cols.append(0)
+            if problem.outlet_zou_he or problem.outlet_zero_grad:
+                edge_cols.append(p.nx - 1)
+            for col in edge_cols:
                 rho_prev[..., col] = rho[..., col]
                 u_prev[..., col] = u[..., col]
             rho, u = rho_prev, u_prev
+        if p.is_3d:
+            np.savez(os.path.join(p.output_dir, "fields3d.npz"),
+                     rho=rho, ux=u[0], uy=u[1], uz=u[2],
+                     params=np.frombuffer(p.to_json().encode(), np.uint8))
+            if p.enable_vtk:
+                io_mod.write_vtk_timestep(u[0], u[1], rho, p,
+                                          p.num_timesteps, p.output_dir,
+                                          uz=u[2], fmt=p.vtk_format)
+            if self.verbose:
+                print("Files written: fields3d.npz"
+                      + (", vtk_output/ (final frame)" if p.enable_vtk
+                         else ""))
+            return None
         io_mod.write_velocity_field(u[0], u[1], rho, p, p.output_dir)
         io_mod.write_simulation_params(u[0], u[1], p, p.output_dir)
         stats = io_mod.calculate_time_averaged_drag(

@@ -32,13 +32,27 @@ def choose_substeps(chunk_len: int) -> int:
     return 1
 
 
+def check_substeps_3d() -> None:
+    """3-D chunks run one step per launch: the counterpart of tpulbm's 3-D
+    dispatch with TPULBM_NO_FUSED2 (sharded_step.py:199-215). A depth
+    forced above 1 with TPULBM_SUBSTEPS raises: the 3-D N-cascade is not
+    ported."""
+    forced = os.environ.get("TPULBM_SUBSTEPS")
+    if (not os.environ.get("TPULBM_NO_FUSED2") and forced
+            and int(forced) > 1):
+        raise NotImplementedError(
+            f"TPULBM_SUBSTEPS={forced}: 3-D temporal blocking is not ported "
+            "to tpulbm_torch yet (ROADMAP Queue 2 item 11, 3-D N-cascade)")
+
+
 def make_chunk_fn(problem: Problem, device, chunk_len: int,
                   backend: str = "pallas"):
     """fn(f) -> f advanced by chunk_len steps, on `device`.
 
     backend="pallas": the CUDA kernels (their plain version for CPU
-    tensors), chunk_len // N launches of the N-step kernel at the depth N
-    of choose_substeps, or chunk_len launches of the 1-step kernel at N=1;
+    tensors). 2-D: chunk_len // N launches of the N-step kernel at the
+    depth N of choose_substeps, or chunk_len launches of the 1-step kernel
+    at N=1. 3-D: chunk_len launches of the D3Q19 kernel (check_substeps_3d);
     backend="jax": the plain PyTorch step, in f32 or f64.
     fn.substeps is N (1 for the plain step), tpulbm's chunk.pallas_substeps.
     The input f is donated: its storage is reused as a ping-pong buffer.
@@ -51,12 +65,15 @@ def make_chunk_fn(problem: Problem, device, chunk_len: int,
             raise NotImplementedError(
                 "the CUDA kernel runs float32 only, as tpulbm's Pallas "
                 "kernels do; use backend='jax' for f64")
-        substeps = choose_substeps(chunk_len)
-        if substeps == 1:
-            step = step_cuda.make_local_step_cuda(problem, device)
+        if problem.lattice.D == 3:
+            check_substeps_3d()
+            step = step_cuda.make_local_step_cuda_3d(problem, device)
         else:
-            step = step_cuda.make_local_step_cuda_blocked(problem, device,
-                                                          substeps)
+            substeps = choose_substeps(chunk_len)
+            step = (step_cuda.make_local_step_cuda(problem, device)
+                    if substeps == 1 else
+                    step_cuda.make_local_step_cuda_blocked(problem, device,
+                                                           substeps))
         launches = chunk_len // substeps
 
         def chunk(f: torch.Tensor) -> torch.Tensor:
@@ -85,10 +102,11 @@ def make_super_chunk_fn(problem: Problem, device, interval_len: int,
     n_intervals output intervals with one device-to-host copy.
 
     diags is ONE flat device tensor in f's dtype; fn.unpack(diags) splits it
-    (or a host copy of it) into forces (K, 2), max_vel (K,), stable (K,)
-    (1 or 0) and, with with_fields, rho (K, ny, nx) and u (K, 2, ny, nx):
-    each taken at an interval's starting state, the reference's output
-    cadence. Port of sharded_step.make_super_chunk_fn without with_stats.
+    (or a host copy of it) into forces (K, 2) (fx and fy, what forces.csv
+    records), max_vel (K,), stable (K,) (1 or 0) and, with with_fields,
+    rho (K, *spatial) and u (K, D, *spatial): each taken at an interval's
+    starting state, the reference's output cadence. Port of
+    sharded_step.make_super_chunk_fn without with_stats.
     """
     chunk = make_chunk_fn(problem, device, interval_len, backend=backend)
     force = forces_mod.forces_fn(problem, device)
@@ -97,9 +115,10 @@ def make_super_chunk_fn(problem: Problem, device, interval_len: int,
     fields = diagnostics.fields_fn(problem, device) if with_fields else None
     k = n_intervals
     spatial = tuple(problem.spatial_shape)
+    dims = problem.lattice.D
     cells = math.prod(spatial)
     n_scalar = 4 * k                     # fx, fy, max |u|, stable
-    size = n_scalar + (3 * k * cells if with_fields else 0)
+    size = n_scalar + ((1 + dims) * k * cells if with_fields else 0)
 
     def unpack(flat) -> dict:
         scalars = flat[:n_scalar].reshape(k, 4)
@@ -108,14 +127,15 @@ def make_super_chunk_fn(problem: Problem, device, interval_len: int,
         if with_fields:
             out["rho"] = flat[n_scalar:n_scalar + k * cells].reshape(
                 (k,) + spatial)
-            out["u"] = flat[n_scalar + k * cells:].reshape((k, 2) + spatial)
+            out["u"] = flat[n_scalar + k * cells:].reshape((k, dims)
+                                                           + spatial)
         return out
 
     def fn(f: torch.Tensor):
         flat = torch.empty(size, dtype=f.dtype, device=f.device)
         views = unpack(flat)
         for j in range(k):
-            views["forces"][j] = force(f)
+            views["forces"][j] = force(f)[:2]
             views["max_vel"][j] = max_vel(f)
             views["stable"][j] = stable(f)
             if fields is not None:
