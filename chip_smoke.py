@@ -46,13 +46,37 @@ printing its own line; any failure exits non-zero:
    arrays; host fetches, wall time and runner MLUPS printed;
 8. timing at 256^3, in turns: the plain 3-D step (30 steps a turn) and the
    D3Q19 kernel (500 steps a turn), ms/step, MLUPS and the kernel's B/s
-   against 3.35 TB/s. The 3-D tensors are freed at the end.
+   against 3.35 TB/s. The 3-D tensors are freed at the end;
+9. thermal parity (D2Q9 flow + D2Q5 temperature, Boussinesq): at bench.py's
+   thermal row (Rayleigh-Benard, Ra 1e4, tau 0.55, thermal_tau 0.5704,
+   2048x512, periodic x), the heated cavity at 96x96 and both problems at
+   a ragged 100x70: one kernel step against one plain thermal step from
+   the initial state and from a state the plain step advanced 500 steps,
+   at rtol 5e-6 / atol 1e-7, and 280 kernel steps against 280 plain steps
+   (max error bounded by 1e-4);
+10. the thermal main path: the Runner on that 2048x512 problem in f32,
+   2240 steps at output_frequency 140, no VTK: exactly 2240 launches of
+   the thermal kernel and none of a D2Q9 or D3Q19 kernel, 16 finite
+   nusselt.csv rows, a finite 1,048,576-row temperature_field.csv, no
+   forces.csv; host fetches, wall time, runner MLUPS and the final Nu;
+11. thermal physics through the Runner: the heated-cavity preset (96^2,
+   Ra 1e4, 120,000 steps) ends within 3% of de Vahl Davis's Nu = 2.243,
+   and the rayleigh-benard preset (128x64, Ra 1e4, 60,000 steps) ends
+   with 2 < Nu < 3 (convecting, not conductive, not running away);
+12. thermal timing at 2048x512, in turns: the plain thermal step and the
+   kernel, ms/step, MLUPS, GB/s and the share of 3.35 TB/s at 112 B/cell.
 
-Run directories go to build/chip_smoke/ (git-ignored; the final CSV has
+Run directories go to build/chip_smoke/ (git-ignored; the final CSVs have
 a million rows). The last two lines are a JSON line per kernel and the
 result line; a kernel's `launches` is its count in the run that drives
 it through the Runner: phase 4 for the 1-step and N=4 kernels, phase 4c
-for N=2 and N=3, phase 7 for the D3Q19 kernel.
+for N=2 and N=3, phase 7 for the D3Q19 kernel, phase 10 for the thermal
+kernel. A kernel's `bound_ms` is the least time the card could take for
+one step of its work at the shape it was timed at: the larger of the
+bytes a step must move (each population read once and written once, the
+solid mask read once) over 3.35 TB/s and its floating-point operations
+over the 67 TFLOP/s float32 peak; `library_ms` is null, as no single
+PyTorch call computes a lattice-Boltzmann step.
 """
 from __future__ import annotations
 
@@ -81,11 +105,32 @@ DRIFT_280_BOUND = 1e-4
 SPHERE_N = 256
 BYTES_3D = SPHERE_N ** 3 * (19 * 4 * 2 + 1)
 HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+# per cell and step: bytes a step must move (f32 populations read and
+# written once, plus the 1-byte solid mask where the kernel takes one) and
+# floating-point operations, counted from the plain version's expressions
+# (moments, equilibria, relaxation, source; boundary rows neglected)
+STEP_BYTES = {"d2q9": 9 * 4 * 2 + 1, "d3q19": 19 * 4 * 2 + 1,
+              "thermal": 14 * 4 * 2}
+STEP_FLOPS = {"d2q9": 115, "d3q19": 256, "thermal": 165}
+# bench.py's thermal row and the physics gates of tests/test_thermal*.py
+THERMAL_NX, THERMAL_NY = 2048, 512
+DE_VAHL_DAVIS_NU = 2.243
 
 
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+def bound(kind: str, cells: int, steps_per_launch: int = 1) -> dict:
+    """bound_ms and bound_by for one step of `kind` on `cells` cells; an
+    N-step launch moves the state once for N steps."""
+    t_bytes = cells * STEP_BYTES[kind] / steps_per_launch / HBM_BYTES_PER_S
+    t_ops = cells * STEP_FLOPS[kind] / F32_FLOPS_PER_S
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
 
 
 def card_line() -> str:
@@ -118,7 +163,7 @@ def same_files(a: Path, b: Path, names) -> bool:
 def run_counted(params, dev):
     """One Runner run with every launch count set to 0 just before it;
     returns (result, counts read just after, wall seconds)."""
-    from tpulbm_torch.ops import step_cuda
+    from tpulbm_torch.ops import step_cuda, step_thermal_cuda
     from tpulbm_torch.runner import Runner
 
     runner = Runner(params, device=dev, verbose=False)
@@ -128,7 +173,8 @@ def run_counted(params, dev):
     wall = time.perf_counter() - t0
     counts = {1: step_cuda.collide_stream.launches,
               **step_cuda.collide_stream_blocked.launches,
-              "3d": step_cuda.collide_stream_3d.launches}
+              "3d": step_cuda.collide_stream_3d.launches,
+              "thermal": step_thermal_cuda.collide_stream_thermal.launches}
     require(result.success, f"run in {params.output_dir} failed")
     return result, counts, wall
 
@@ -236,7 +282,7 @@ def sphere_phases(dev, card: str) -> dict:
     main_params = params.replace(num_timesteps=2240, output_frequency=140,
                                  output_dir=str(run_dir))
     result, counts, wall = run_counted(main_params, dev)
-    require(counts == {1: 0, 2: 0, 3: 0, 4: 0, "3d": 2240},
+    require(counts == {1: 0, 2: 0, 3: 0, 4: 0, "3d": 2240, "thermal": 0},
             f"launch counts {counts}, not 2240 D3Q19 and 0 D2Q9")
     forces = check_forces(run_dir, list(range(0, 2240, 140)))
     with np.load(run_dir / "fields3d.npz") as fields:
@@ -274,7 +320,148 @@ def sphere_phases(dev, card: str) -> dict:
     return {"name": "d3q19_collide_stream", "route": "cuda",
             "source": step_cuda.SOURCE_3D, "replaces": step_cuda.REPLACES_3D,
             "launches": counts["3d"], "max_abs_err": max(err_init, err_100),
-            "ms": ms["kernel"], "plain_ms": ms["plain"]}
+            "ms": ms["kernel"], "plain_ms": ms["plain"],
+            **bound("d3q19", cells)}
+
+
+def thermal_params(problem: str, nx: int, ny: int, **kw):
+    """bench.py's thermal row (Ra 1e4, tau 0.55, thermal_tau 0.5704) for
+    `problem` on an nx x ny grid, f32, no VTK."""
+    from tpulbm_torch.config import SimulationParams
+    return SimulationParams(problem=problem, nx=nx, ny=ny, tau=0.55,
+                            thermal_tau=0.5704, rayleigh=1e4,
+                            inlet_velocity=0.0, cylinder_radius=0.0,
+                            periodic_x=problem == "rayleigh-benard",
+                            precision="f32", enable_vtk=False, **kw)
+
+
+def thermal_parity(dev, name: str, nx: int, ny: int):
+    """Phase 9 on one grid: one kernel step against one plain step from the
+    initial state and after 500 plain steps, then 280 steps of each.
+    Returns (the larger one-step error, the kernel and plain steps and the
+    initial state)."""
+    from tpulbm_torch.convert import state_from_numpy
+    from tpulbm_torch.models import make_problem
+    from tpulbm_torch.ops import step_thermal, step_thermal_cuda
+
+    problem = make_problem(thermal_params(name, nx, ny))
+    kstep = step_thermal_cuda.make_local_step_thermal_cuda(problem, dev)
+    pstep = step_thermal.make_step_thermal(problem, dev)
+    s0 = state_from_numpy(problem.initial_state(), problem, dev)
+    errs = []
+    for s in (s0, plain_chunk(pstep, s0.clone(), 500)):
+        got = kstep(s, torch.empty_like(s))
+        want = pstep(s)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **ONE_STEP_TOL)
+        errs.append(float((got - want).abs().max()))
+    sk = kernel_chunk(kstep, s0.clone(), 280)
+    sp = plain_chunk(pstep, s0.clone(), 280)
+    torch.cuda.synchronize()
+    err_280 = float((sk - sp).abs().max())
+    require(np.isfinite(err_280) and err_280 < DRIFT_280_BOUND,
+            f"thermal {name} {nx}x{ny} 280-step drift {err_280} beyond "
+            f"{DRIFT_280_BOUND}")
+    print(f"thermal parity {name} {nx}x{ny}: 1 step max abs err "
+          f"{errs[0]:.3e} from the initial state, {errs[1]:.3e} after 500 "
+          f"plain steps (rtol 5e-6, atol 1e-7); 280 steps {err_280:.3e} "
+          f"(bound {DRIFT_280_BOUND})")
+    return max(errs), kstep, pstep, s0
+
+
+def final_nusselt(run_dir: Path, rows: list[int]) -> np.ndarray:
+    nu = np.loadtxt(run_dir / "nusselt.csv", delimiter=",", skiprows=1,
+                    ndmin=2)
+    require(nu.shape == (len(rows), 2), f"nusselt.csv {nu.shape}")
+    require(list(nu[:, 0].astype(int)) == rows, "nusselt.csv timesteps")
+    require(bool(np.isfinite(nu).all()), "nusselt.csv not finite")
+    require(not (run_dir / "forces.csv").exists(),
+            "a thermal run wrote forces.csv")
+    return nu
+
+
+def thermal_phases(dev, card: str) -> dict:
+    """Phases 9-12: the thermal kernel against the plain thermal step, the
+    thermal main path through the Runner, the physics gates and timing.
+    Returns the kernel's JSON entry."""
+    from tpulbm_torch.config import PRESETS
+    from tpulbm_torch.ops import step_thermal_cuda
+
+    # phase 9: parity at the main path's shape, the cavity's, a ragged one
+    err, kstep, pstep, s0 = thermal_parity(dev, "rayleigh-benard",
+                                           THERMAL_NX, THERMAL_NY)
+    for name, nx, ny in (("heated-cavity", 96, 96),
+                         ("rayleigh-benard", 100, 70),
+                         ("heated-cavity", 100, 70)):
+        thermal_parity(dev, name, nx, ny)
+
+    # phase 10: the thermal main path, counted
+    nx, ny = THERMAL_NX, THERMAL_NY
+    run_dir = OUT_DIR / "rayleigh_benard_2048x512"
+    params = thermal_params("rayleigh-benard", nx, ny, num_timesteps=2240,
+                            output_frequency=140, output_dir=str(run_dir))
+    result, counts, wall = run_counted(params, dev)
+    require(counts == {1: 0, 2: 0, 3: 0, 4: 0, "3d": 0, "thermal": 2240},
+            f"launch counts {counts}, not 2240 thermal and 0 D2Q9/D3Q19")
+    nu = final_nusselt(run_dir, list(range(0, 2240, 140)))
+    temp = np.loadtxt(run_dir / "temperature_field.csv", delimiter=",",
+                      skiprows=1)
+    require(temp.shape == (nx * ny, 3),
+            f"temperature_field.csv shape {temp.shape}")
+    require(bool(np.isfinite(temp).all()), "temperature_field.csv not finite")
+    print(f"thermal main path: rayleigh-benard {nx}x{ny} f32 Ra 1e4, 2240 "
+          f"steps, launches {counts['thermal']} thermal (D2Q9 {counts[1]} "
+          f"1-step, N=2/3/4 {counts[2]}/{counts[3]}/{counts[4]}; D3Q19 "
+          f"{counts['3d']}), {result.host_fetches} host fetches in the loop, "
+          f"{wall:.2f} s wall, runner {result.mlups:.1f} MLUPS, Nu at "
+          f"t=2100 {nu[-1, 1]:.6f}, final Nu {result.stats['nusselt']:.6f}")
+
+    # phase 11: the physics gates through the Runner (the presets' own
+    # depth and cadence)
+    gates = {"heated-cavity": lambda v: abs(v - DE_VAHL_DAVIS_NU)
+             / DE_VAHL_DAVIS_NU < 0.03,
+             "rayleigh-benard": lambda v: 2.0 < v < 3.0}
+    for name, gate in gates.items():
+        preset = PRESETS[name]
+        d = OUT_DIR / f"{name}_preset"
+        res, c, w = run_counted(preset.replace(output_dir=str(d)), dev)
+        final_nusselt(d, list(range(0, preset.num_timesteps,
+                                    preset.output_frequency)))
+        v = res.stats["nusselt"]
+        print(f"thermal physics: {name} preset {preset.nx}x{preset.ny}, "
+              f"{preset.num_timesteps} steps ({c['thermal']} thermal "
+              f"launches, {w:.2f} s wall, runner {res.mlups:.1f} MLUPS): "
+              f"final Nu {v:.6f}"
+              + (f" ({100 * (v / DE_VAHL_DAVIS_NU - 1):+.2f}% from de Vahl "
+                 f"Davis's {DE_VAHL_DAVIS_NU})" if name == "heated-cavity"
+                 else " (gate 2 < Nu < 3)"))
+        require(c["thermal"] == preset.num_timesteps and gate(v),
+                f"{name} preset: Nu {v}, {c['thermal']} launches")
+
+    # phase 12: timing in turns; the plain step is host-bound, so fewer
+    # steps a turn
+    runs = {"plain": (lambda f, n: plain_chunk(pstep, f, n), 200),
+            "kernel": (lambda f, n: kernel_chunk(kstep, f, n), 2400)}
+    times = {k: [] for k in runs}
+    for which in ["plain", "kernel", "kernel", "plain"]:
+        run, steps = runs[which]
+        times[which].append(ms_per_step(run, s0, steps))
+    ms = {k: min(v) for k, v in times.items()}
+    cells = nx * ny
+    bw = cells * STEP_BYTES["thermal"] / (ms["kernel"] * 1e-3)
+    print(f"thermal timing at {nx}x{ny} on {card}, ms/step (MLUPS): plain "
+          f"{ms['plain']:.5f} ({cells / ms['plain'] / 1e3:.1f}, runs "
+          f"{[round(v, 6) for v in times['plain']]}); kernel "
+          f"{ms['kernel']:.5f} ({cells / ms['kernel'] / 1e3:.1f}, runs "
+          f"{[round(v, 6) for v in times['kernel']]}); kernel "
+          f"{bw / 1e9:.1f} GB/s, {100 * bw / HBM_BYTES_PER_S:.1f}% of "
+          f"3.35 TB/s at {STEP_BYTES['thermal']} B/cell")
+    return {"name": "thermal_collide_stream", "route": "cuda",
+            "source": step_thermal_cuda.SOURCE,
+            "replaces": step_thermal_cuda.REPLACES,
+            "launches": counts["thermal"], "max_abs_err": err,
+            "ms": ms["kernel"], "plain_ms": ms["plain"],
+            **bound("thermal", cells)}
 
 
 def main() -> int:
@@ -283,7 +470,7 @@ def main() -> int:
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
         return 1
     card = card_line()
-    print(f"card: {card}")
+    print(card)
     dev = torch.device("cuda", 0)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
@@ -299,14 +486,15 @@ def main() -> int:
 
     # phase 2: build from the checkout's sources, one nvcc per source
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        libs = list(pool.map(cuda_build.load,
-                             ["step_d2q9.cu", "step_d2q9_blocked.cu",
-                              "step_d3q19.cu"]))
-    print(f"build: three sources in {time.perf_counter() - t0:.2f} s")
+    sources = ["step_d2q9.cu", "step_d2q9_blocked.cu", "step_d3q19.cu",
+               "step_thermal.cu"]
+    with ThreadPoolExecutor(len(sources)) as pool:
+        libs = list(pool.map(cuda_build.load, sources))
+    print(f"build: {len(sources)} sources in "
+          f"{time.perf_counter() - t0:.2f} s")
     for lib in libs:
         ptxas = [ln.split(":", 1)[-1].strip() for ln in lib.log.splitlines()
-                 if "registers" in ln or "spill" in ln
+                 if "registers" in ln or "spill" in ln or "smem" in ln
                  or "Compiling entry" in ln]
         print(f"build: {lib.path.name} in {lib.build_seconds:.2f} s "
               f"({'; '.join(ptxas)})")
@@ -381,9 +569,9 @@ def main() -> int:
     main_params = params.replace(num_timesteps=2800, output_frequency=140,
                                  output_dir=str(run_dir))
     result, counts, wall = run_counted(main_params, dev)
-    require(counts == {1: 140, 2: 0, 3: 0, 4: 665, "3d": 0},
-            f"launch counts {counts}, not 665 N=4, 140 1-step, 0 N=2/N=3 "
-            "and 0 D3Q19")
+    require(counts == {1: 140, 2: 0, 3: 0, 4: 665, "3d": 0, "thermal": 0},
+            f"launch counts {counts}, not 665 N=4, 140 1-step, 0 N=2/N=3, "
+            "0 D3Q19 and 0 thermal")
     forces = check_forces(run_dir, list(range(0, 2800, 140)))
     field = np.loadtxt(run_dir / "velocity_field.csv", delimiter=",",
                        skiprows=1)
@@ -420,7 +608,7 @@ def main() -> int:
     p23 = params.replace(num_timesteps=311, output_frequency=150,
                          output_dir=str(d23))
     _, counts23, _ = run_counted(p23, dev)
-    require(counts23 == {1: 1, 2: 5, 3: 100, 4: 0, "3d": 0},
+    require(counts23 == {1: 1, 2: 5, 3: 100, 4: 0, "3d": 0, "thermal": 0},
             f"launch counts {counts23}, not 100 N=3, 5 N=2, 1 1-step")
     check_forces(d23, [0, 150, 300])
     d1 = OUT_DIR / "re200_f150_unblocked"
@@ -458,7 +646,7 @@ def main() -> int:
         "name": "d2q9_collide_stream", "route": "cuda",
         "source": step_cuda.KERNEL_SOURCE, "replaces": step_cuda.REPLACES,
         "launches": main_counts[1], "max_abs_err": max(err_init, err_500),
-        "ms": ms[1], "plain_ms": ms["plain"]}]
+        "ms": ms[1], "plain_ms": ms["plain"], **bound("d2q9", cells)}]
     for n in DEPTHS:
         kernels.append({
             "name": f"d2q9_collide_stream_n{n}", "route": "cuda",
@@ -466,8 +654,10 @@ def main() -> int:
             "replaces": step_cuda.BLOCKED_REPLACES[n],
             "launches": (main_counts if n == 4 else counts23)[n],
             "max_abs_err": err_plain[n], "ms": ms[n],
-            "plain_ms": ms["plain"]})
+            "plain_ms": ms["plain"], **bound("d2q9", cells, n)})
     kernels.append(sphere_phases(dev, card))
+    kernels.append(thermal_phases(dev, card))
+    print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

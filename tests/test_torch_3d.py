@@ -50,11 +50,11 @@ from tpulbm_torch import physics as tphys
 from tpulbm_torch import stepper
 from tpulbm_torch.convert import state_from_numpy, state_to_numpy
 from tpulbm_torch.lattice import D3Q19
-from tpulbm_torch.models import make_problem
 from tpulbm_torch.ops import boundaries, diagnostics, forces, step_cuda
 from tpulbm_torch.ops.step_torch import coords, make_step_rolled
 from tpulbm_torch.runner import Runner
 from tpulbm_torch.utils import cuda_build
+from test_torch_compat import port_params, port_problem
 
 F64_TOL = dict(rtol=1e-12, atol=0.0)
 F32_TOL = dict(rtol=5e-6, atol=1e-7)
@@ -83,7 +83,7 @@ def _noisy_state(problem, seed):
 
 
 def test_geometries_touch_what_they_claim():
-    s = {g: make_problem(_params(g)).solid for g in GEOMETRIES}
+    s = {g: port_problem(_params(g)).solid for g in GEOMETRIES}
     assert s["sphere"].shape == (8, 16, 32) and s["sphere"].sum() == 1
     assert s["ragged"].shape == (9, 17, 33) and s["ragged"].sum() > 1
     assert s["inlet_piercing"][..., 0].any()
@@ -109,8 +109,11 @@ def test_velocity_table_in_the_kernel_source_is_d3q19():
 @pytest.mark.parametrize("geometry", GEOMETRIES)
 def test_problem_arrays_match_tpulbm_bytewise(geometry, precision):
     params = _params(geometry, precision=precision)
-    mine, ref = make_problem(params), jax_problem(params)
-    assert mine.lattice is ref.lattice
+    mine, ref = port_problem(params), jax_problem(params)
+    # the port's own copy of the lattice, equal to tpulbm's
+    lat = (mine.lattice.name, mine.lattice.velocities, mine.lattice.weights)
+    assert lat == (ref.lattice.name, ref.lattice.velocities,
+                   ref.lattice.weights)
     assert (mine.walls_y, mine.walls_z, mine.inlet_equilibrium,
             mine.outlet_zero_grad, mine.init_u) == \
         (ref.walls_y, ref.walls_z, ref.inlet_equilibrium,
@@ -125,7 +128,7 @@ def test_problem_arrays_match_tpulbm_bytewise(geometry, precision):
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 def test_physics_matches_tpulbm(dtype):
     tol = F64_TOL if dtype == np.float64 else F32_TOL
-    problem = make_problem(_params("ragged"))
+    problem = port_problem(_params("ragged"))
     f = _noisy_state(problem, 3).astype(dtype)
     ft, fj = torch.from_numpy(f), jnp.asarray(f)
     rho_t, u_t = tphys.moments(D3Q19, ft)
@@ -153,7 +156,7 @@ def test_boundary_stack_matches_tpulbm(geometry):
     # seeded random planes through the whole stack (y walls, z walls,
     # equilibrium inlet, zero-gradient outlet, obstacle pin), f64
     params = _params(geometry)
-    problem, jproblem = make_problem(params), jax_problem(params)
+    problem, jproblem = port_problem(params), jax_problem(params)
     f = _noisy_state(problem, 11)
     got = boundaries.apply_all(problem, list(torch.from_numpy(f)),
                                coords(problem, "cpu"))
@@ -168,7 +171,7 @@ def test_boundary_stack_matches_tpulbm(geometry):
 def test_plain_step_matches_jax_rolled_f64(geometry):
     params = _params(geometry)
     jstep = jax.jit(jax_step_rolled(jax_problem(params)))
-    problem = make_problem(params)
+    problem = port_problem(params)
     tstep = make_step_rolled(problem, "cpu")
     fj = problem.initial_state()
     ft = state_from_numpy(fj, problem, "cpu")
@@ -217,7 +220,7 @@ def _pallas3d_chunks(monkeypatch, params, kernel, chunk_len=4, n_chunks=2):
 
 
 def _port_chunks(params, chunk_len=4, n_chunks=2):
-    problem = make_problem(params)
+    problem = port_problem(params)
     chunk = stepper.make_chunk_fn(problem, "cpu", chunk_len)
     assert chunk.substeps == 1
     f = state_from_numpy(problem.initial_state(), problem, "cpu")
@@ -253,7 +256,7 @@ def test_full_plane_pallas_declines_x_edge_solids(geometry):
                                       "outlet_reaching"])
 def test_momentum_exchange_matches_tpulbm(geometry):
     params = _params(geometry)
-    problem, jproblem = make_problem(params), jax_problem(params)
+    problem, jproblem = port_problem(params), jax_problem(params)
     f = _noisy_state(problem, 5)
     got = forces.forces_fn(problem, "cpu")(torch.from_numpy(f))
     want = jforces.forces_fn(jproblem)(jnp.asarray(f))
@@ -267,7 +270,7 @@ def test_momentum_exchange_matches_tpulbm(geometry):
     SimulationParams(nx=64, ny=32, tau=0.6, inlet_velocity=0.05)],
     ids=["sphere", "piercing", "cylinder2d"])
 def test_force_coefficients_match_tpulbm(params):
-    problem, jproblem = make_problem(params), jax_problem(params)
+    problem, jproblem = port_problem(params), jax_problem(params)
     force = np.array([3e-3, -1e-3, 2e-4])[:problem.lattice.D]
     assert forces.force_coefficients(problem, force) == \
         jforces.force_coefficients(jproblem, force)
@@ -281,7 +284,7 @@ def test_force_coefficients_match_tpulbm(params):
 
 def test_diagnostics_match_tpulbm():
     params = _params("inlet_piercing")
-    problem, jproblem = make_problem(params), jax_problem(params)
+    problem, jproblem = port_problem(params), jax_problem(params)
     f = _noisy_state(problem, 9)
     ft, fj = torch.from_numpy(f), jnp.asarray(f)
     rho, u = diagnostics.fields_fn(problem, "cpu")(ft)
@@ -313,7 +316,7 @@ def test_3d_chunks_run_one_step_per_launch(monkeypatch, env, chunk_len):
         return real(*args, **kw)
 
     monkeypatch.setattr(step_cuda, "collide_stream_3d", spy)
-    problem = make_problem(_params(nx=8, ny=6, nz=4, precision="f32"))
+    problem = port_problem(_params(nx=8, ny=6, nz=4, precision="f32"))
     chunk = stepper.make_chunk_fn(problem, "cpu", chunk_len)
     assert chunk.substeps == 1
     f = state_from_numpy(problem.initial_state(), problem, "cpu")
@@ -328,19 +331,19 @@ def test_3d_chunks_run_one_step_per_launch(monkeypatch, env, chunk_len):
 @pytest.mark.parametrize("forced", ["2", "3", "4"])
 def test_3d_blocking_depth_is_refused(monkeypatch, forced):
     monkeypatch.setenv("TPULBM_SUBSTEPS", forced)
-    problem = make_problem(_params(precision="f32"))
+    problem = port_problem(_params(precision="f32"))
     with pytest.raises(NotImplementedError, match="Queue 2 item 11"):
         stepper.make_chunk_fn(problem, "cpu", 12)
 
 
 def test_3d_kernel_backend_refuses_f64():
     with pytest.raises(NotImplementedError, match="float32"):
-        stepper.make_chunk_fn(make_problem(_params()), "cpu", 4)
+        stepper.make_chunk_fn(port_problem(_params()), "cpu", 4)
 
 
 @pytest.mark.parametrize("with_fields", [False, True])
 def test_3d_super_chunk_matches_interval_diagnostics(with_fields):
-    problem = make_problem(_params("ragged", precision="f32"))
+    problem = port_problem(_params("ragged", precision="f32"))
     f0 = state_from_numpy(problem.initial_state(), problem, "cpu")
     fn = stepper.make_super_chunk_fn(problem, "cpu", 3, 4,
                                      with_fields=with_fields)
@@ -365,7 +368,7 @@ def test_3d_super_chunk_matches_interval_diagnostics(with_fields):
 
 
 def test_3d_wrapper_guards_and_counts():
-    problem = make_problem(_params(precision="f32"))
+    problem = port_problem(_params(precision="f32"))
     step = step_cuda.make_local_step_cuda_3d(problem, "cpu")
     f = torch.from_numpy(problem.initial_state())
     before = step_cuda.collide_stream_3d.launches
@@ -388,11 +391,11 @@ def test_3d_wrapper_guards_and_counts():
     assert step_cuda.collide_stream_3d.launches == 0
     with pytest.raises(NotImplementedError):
         step_cuda.make_local_step_cuda_3d(
-            make_problem(SimulationParams(nx=40, ny=20)), "cpu")
+            port_problem(SimulationParams(nx=40, ny=20)), "cpu")
 
 
 def test_state_round_trip_d3q19():
-    problem = make_problem(_params("ragged", precision="f32"))
+    problem = port_problem(_params("ragged", precision="f32"))
     f = _noisy_state(problem, 2)
     t = state_from_numpy(f, problem, "cpu")
     assert state_to_numpy(t).tobytes() == f.tobytes()
@@ -406,7 +409,7 @@ def test_cylinder3d_preset_builds():
     from tpulbm_torch.config import params_from_args
     params = params_from_args(build_parser().parse_args(
         ["--preset", "cylinder3d-small"]))
-    problem = make_problem(params)
+    problem = port_problem(params)
     assert problem.spatial_shape == (64, 64, 128)
     assert problem.solid.tobytes() == jax_problem(params).solid.tobytes()
 
@@ -464,7 +467,7 @@ def _assert_artifacts_close(got_dir, ref_dir, params):
 @pytest.mark.parametrize("backend", ["pallas", "jax"])
 def test_runner_artifacts_match_tpulbm(tmp_path, tpulbm_run, backend):
     params = _runner_params(tmp_path, backend=backend)
-    result = Runner(params, device="cpu", verbose=False).run()
+    result = Runner(port_params(params), device="cpu", verbose=False).run()
     assert result.success and result.final_step == 60
     assert result.stats is None          # no drag summary in 3-D
     # in the loop: 1 super-chunk fetch, 4 tail diagnostics and 4 VTK field
@@ -492,8 +495,8 @@ def test_3d_checkpoint_resumes_in_the_other_package(tmp_path, direction):
 
     def run(cls, params, **kw):
         if cls is Runner:
-            return Runner(params.replace(backend="pallas"), device="cpu",
-                          verbose=False).run(**kw)
+            return Runner(port_params(params.replace(backend="pallas")),
+                          device="cpu", verbose=False).run(**kw)
         return JaxRunner(params, verbose=False).run(**kw)
 
     base = dict(output_frequency=10, enable_vtk=False)

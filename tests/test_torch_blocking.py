@@ -32,9 +32,9 @@ from tpulbm.parallel.mesh import make_mesh
 from tpulbm.parallel.sharded_step import make_chunk_fn as jax_chunk_fn
 from tpulbm_torch import stepper
 from tpulbm_torch.convert import state_from_numpy
-from tpulbm_torch.models import make_problem
 from tpulbm_torch.ops import diagnostics, forces, step_cuda, step_torch
 from tpulbm_torch.runner import Runner
+from test_torch_compat import port_params, port_problem
 
 from test_torch_step import F32_TOL, _jax_pallas_chunks, _params, _port_chunks
 
@@ -55,7 +55,7 @@ def test_port_chunk_matches_pallas_cascade(monkeypatch, n_sub):
     monkeypatch.setattr(jax_step_pallas, "make_local_step_pallas2", spy)
     params = _params(nx=128, ny=64)
     chunk, ref = _jax_pallas_chunks(params, n_sub, 2)
-    port = stepper.make_chunk_fn(make_problem(params), "cpu", n_sub)
+    port = stepper.make_chunk_fn(port_problem(params), "cpu", n_sub)
     assert chunk.pallas_substeps == port.substeps == n_sub
     assert bool(built_2step) == (n_sub == 2)
     got = _port_chunks(params, n_sub, 2)
@@ -77,14 +77,14 @@ def test_depth_choice_matches_tpulbm(monkeypatch, env, chunk_len):
     mesh = make_mesh((1, 1), devices=jax.devices()[:1])
     ref = jax_chunk_fn(jax_problem(params), mesh, chunk_len,
                        backend="pallas")
-    port = stepper.make_chunk_fn(make_problem(params), "cpu", chunk_len)
+    port = stepper.make_chunk_fn(port_problem(params), "cpu", chunk_len)
     assert port.substeps == ref.pallas_substeps
     assert stepper.choose_substeps(chunk_len) == port.substeps
 
 
 def test_depth_above_four_is_refused(monkeypatch):
     monkeypatch.setenv("TPULBM_SUBSTEPS", "5")
-    problem = make_problem(_params())
+    problem = port_problem(_params())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         stepper.make_chunk_fn(problem, "cpu", 10)
     assert stepper.make_chunk_fn(problem, "cpu", 7).substeps == 1
@@ -114,7 +114,7 @@ def test_runner_main_path_schedule(monkeypatch, tmp_path):
                               num_timesteps=2800, output_frequency=140,
                               precision="f32", backend="pallas",
                               enable_vtk=False, output_dir=str(tmp_path))
-    result = Runner(params, device="cpu", verbose=False).run()
+    result = Runner(port_params(params), device="cpu", verbose=False).run()
     assert result.success and result.final_step == 2800
     assert dict(calls) == {4: 665, 1: 140}
     # 2 super-chunks, 4 per-interval diagnostics, the final fields (rho
@@ -127,7 +127,7 @@ def test_runner_main_path_schedule(monkeypatch, tmp_path):
 @pytest.mark.parametrize("with_fields", [False, True])
 def test_super_chunk_matches_interval_diagnostics(with_fields):
     params = _params(nx=48, ny=24)
-    problem = make_problem(params)
+    problem = port_problem(params)
     f0 = state_from_numpy(problem.initial_state(), problem, "cpu")
     fn = stepper.make_super_chunk_fn(problem, "cpu", 12, 3,
                                      with_fields=with_fields)
@@ -156,7 +156,7 @@ def test_super_chunk_matches_interval_diagnostics(with_fields):
 
 
 def _blocked_args(ny=6, nx=10):
-    problem = make_problem(_params(nx=nx, ny=ny))
+    problem = port_problem(_params(nx=nx, ny=ny))
     f = torch.rand(9, ny, nx, dtype=torch.float32)
     return (f, torch.empty_like(f), torch.zeros(ny, nx, dtype=torch.uint8),
             step_cuda.StepConstants.of(problem),
@@ -196,7 +196,7 @@ def test_blocked_wrapper_rejects_bad_inputs(bad, exc):
 @pytest.mark.parametrize("n_sub", step_cuda.BLOCKED_DEPTHS)
 def test_blocked_wrapper_counts_only_kernel_launches(n_sub):
     # a CPU tensor runs n_sub plain steps; no kernel launch is counted
-    problem = make_problem(_params(nx=40, ny=20))
+    problem = port_problem(_params(nx=40, ny=20))
     step = step_cuda.make_local_step_cuda_blocked(problem, "cpu", n_sub)
     plain = step_torch.make_step_rolled(problem, "cpu")
     before = dict(step_cuda.collide_stream_blocked.launches)

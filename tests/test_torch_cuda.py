@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain version, and the N-step kernel
-against N launches of the 1-step kernel, on the card: D2Q9 and D3Q19. These tests need an
+against N launches of the 1-step kernel, on the card: D2Q9, D3Q19 and the
+thermal D2Q9 + D2Q5 kernel. These tests need an
 NVIDIA GPU with nvcc and skip elsewhere; run them on the card with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -11,7 +12,8 @@ import torch
 from tpulbm_torch.config import SimulationParams
 from tpulbm_torch.convert import state_from_numpy
 from tpulbm_torch.models import make_problem
-from tpulbm_torch.ops import step_cuda, step_torch
+from tpulbm_torch.ops import (step_cuda, step_thermal, step_thermal_cuda,
+                              step_torch)
 from tpulbm_torch.stepper import make_chunk_fn
 
 pytestmark = pytest.mark.requires_cuda
@@ -152,5 +154,50 @@ def test_kernel_3d_chunk_counts_every_launch(cuda):
     assert step_cuda.collide_stream.launches == 0
     assert step_cuda.collide_stream_blocked.launches == {2: 0, 3: 0, 4: 0}
     want = make_chunk_fn(problem, cuda, 28, backend="jax")(f)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+
+
+# thermal: a grid smaller than one 32x8 tile, a ragged one, the heated
+# cavity's 96x96, a ragged 100x70 for both problems, and bench.py's
+# 2048x512 Rayleigh-Bénard cell
+def _thermal_params(problem, nx, ny):
+    return SimulationParams(problem=problem, nx=nx, ny=ny, tau=0.55,
+                            thermal_tau=0.5704, rayleigh=1e4,
+                            inlet_velocity=0.0, cylinder_radius=0.0,
+                            periodic_x=problem == "rayleigh-benard")
+
+
+@pytest.mark.parametrize("problem,nx,ny", [
+    ("rayleigh-benard", 7, 3), ("heated-cavity", 7, 3),
+    ("rayleigh-benard", 33, 9), ("heated-cavity", 96, 96),
+    ("rayleigh-benard", 100, 70), ("heated-cavity", 100, 70),
+    ("rayleigh-benard", 2048, 512)])
+def test_thermal_kernel_one_step_matches_plain(cuda, problem, nx, ny):
+    problem = make_problem(_thermal_params(problem, nx, ny))
+    rng = np.random.default_rng(nx)
+    s = (problem.initial_state()
+         * rng.uniform(0.9, 1.1, (problem.state_q, ny, nx))).astype(np.float32)
+    s = state_from_numpy(s, problem, cuda)
+    kstep = step_thermal_cuda.make_local_step_thermal_cuda(problem, cuda)
+    before = step_thermal_cuda.collide_stream_thermal.launches
+    got = kstep(s, torch.empty_like(s))
+    assert step_thermal_cuda.collide_stream_thermal.launches == before + 1
+    want = step_thermal.make_step_thermal(problem, cuda)(s)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **ONE_STEP_TOL)
+
+
+def test_thermal_chunk_counts_every_launch(cuda):
+    problem = make_problem(_thermal_params("heated-cavity", 48, 40))
+    s = state_from_numpy(problem.initial_state(), problem, cuda)
+    step_cuda.reset_launch_counts()
+    chunk = make_chunk_fn(problem, cuda, 28, backend="pallas")
+    got = chunk(s.clone())
+    assert chunk.substeps == 1
+    assert step_thermal_cuda.collide_stream_thermal.launches == 28
+    assert step_cuda.collide_stream.launches == 0
+    assert step_cuda.collide_stream_3d.launches == 0
+    want = make_chunk_fn(problem, cuda, 28, backend="jax")(s)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)

@@ -1,6 +1,7 @@
-"""Guards of the port: it never imports jax, it never falls back from the
-GPU to the CPU, and the kernel wrapper checks its inputs before any
-launch."""
+"""Guards of the port: it never imports jax or tpulbm, it never falls back
+from the GPU to the CPU, and the kernel wrapper checks its inputs before
+any launch."""
+import ast
 import os
 import subprocess
 import sys
@@ -20,7 +21,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_port_runs_without_jax(tmp_path):
     # a fresh interpreter: import every module of the port, run a 10-step
     # chunk (N=2) and a super-chunk through the kernel modules' CPU path,
-    # the CLI end to end, checkpointed and resumed, and a tiny 3-D run
+    # the CLI end to end, checkpointed and resumed, a tiny 3-D run and a
+    # tiny heated cavity; neither jax nor tpulbm may be loaded after it
     script = textwrap.dedent(f"""
         import importlib, pkgutil, sys
         import tpulbm_torch
@@ -47,8 +49,13 @@ def test_port_runs_without_jax(tmp_path):
                      "--ny", "8", "--nz", "6", "--num-timesteps", "12",
                      "--output-frequency", "4", "--no-vtk", "--output-dir",
                      {str(tmp_path / "sphere")!r}]) == 0
+        assert main(["--cpu", "--preset", "heated-cavity", "--nx", "12",
+                     "--ny", "10", "--num-timesteps", "12",
+                     "--output-frequency", "4", "--output-dir",
+                     {str(tmp_path / "cavity")!r}]) == 0
         leaked = sorted(m for m in sys.modules
-                        if m == "jax" or m.startswith("jax."))
+                        if m in ("jax", "tpulbm")
+                        or m.startswith(("jax.", "tpulbm.")))
         assert not leaked, leaked
         print("JAX-FREE OK")
     """)
@@ -63,6 +70,37 @@ def test_port_runs_without_jax(tmp_path):
     for name in ("forces.csv", "fields3d.npz"):
         assert (tmp_path / "sphere" / name).exists()
     assert "Domain: 16×8×6" in proc.stdout
+    for name in ("nusselt.csv", "temperature_field.csv",
+                 "velocity_field.csv"):
+        assert (tmp_path / "cavity" / name).exists(), name
+    assert not (tmp_path / "cavity" / "forces.csv").exists()
+
+
+def _port_sources():
+    pkg = os.path.join(REPO, "tpulbm_torch")
+    for root, _, files in os.walk(pkg):
+        yield from (os.path.join(root, f) for f in sorted(files)
+                    if f.endswith(".py"))
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_port_sources_import_neither_jax_nor_tpulbm():
+    # static: no import statement anywhere in the port or chip_smoke.py
+    # names jax or tpulbm (the run above sees only the paths it takes)
+    found = []
+    for path in _port_sources():
+        tree = ast.parse(open(path).read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            found += [(os.path.relpath(path, REPO), n) for n in names
+                      if n.split(".")[0] in ("jax", "tpulbm")]
+    assert not found, found
+    assert sum(1 for _ in _port_sources()) > 20
 
 
 def test_runner_refuses_cuda_without_a_card(tmp_path):

@@ -9,7 +9,7 @@ from tpulbm.models import make_problem as jax_problem
 from tpulbm.utils import checkpoint
 from tpulbm_torch.convert import (load_tpulbm_checkpoint, state_from_numpy,
                                   state_to_numpy)
-from tpulbm_torch.models import make_problem
+from test_torch_compat import port_params, port_problem
 
 
 @pytest.mark.parametrize("preset", ["reference-default", "cylinder-small",
@@ -17,7 +17,7 @@ from tpulbm_torch.models import make_problem
 @pytest.mark.parametrize("precision", ["f32", "f64"])
 def test_problem_arrays_match_tpulbm_bytewise(preset, precision):
     params = PRESETS[preset].replace(precision=precision)
-    mine, ref = make_problem(params), jax_problem(params)
+    mine, ref = port_problem(params), jax_problem(params)
     for got, want in ((mine.solid, ref.solid),
                       (mine.ghost_ring_values(), ref.ghost_ring_values()),
                       (mine.initial_state(), ref.initial_state())):
@@ -27,11 +27,11 @@ def test_problem_arrays_match_tpulbm_bytewise(preset, precision):
 
 @pytest.mark.parametrize("problem,item", [
     ("poiseuille", "item 12"), ("cavity", "item 12"),
-    ("kolmogorov", "item 13"), ("rayleigh-benard", "item 17"),
+    ("kolmogorov", "item 13"), ("passive-scalar", "item 13"),
     ("taylor-green", "item 13"), ("multiphase", "item 18")])
 def test_unported_problems_name_their_roadmap_item(problem, item):
     with pytest.raises(NotImplementedError, match=item):
-        make_problem(PRESETS["cylinder-small"].replace(problem=problem))
+        port_problem(PRESETS["cylinder-small"].replace(problem=problem))
 
 
 def test_cylinder3d_without_nz_raises_tpulbm_error():
@@ -39,7 +39,7 @@ def test_cylinder3d_without_nz_raises_tpulbm_error():
     with pytest.raises(ValueError, match="nz > 0"):
         jax_problem(params)
     with pytest.raises(ValueError, match="nz > 0"):
-        make_problem(params)
+        port_problem(params)
 
 
 _SPHERE = dict(problem="cylinder3d", nz=8)
@@ -61,12 +61,12 @@ _SPHERE = dict(problem="cylinder3d", nz=8)
     (dict(_SPHERE, body_force=(1e-5, 0.0, 0.0)), "item 12")])
 def test_unported_options_name_their_roadmap_item(override, item):
     with pytest.raises(NotImplementedError, match=item):
-        make_problem(PRESETS["cylinder-small"].replace(**override))
+        port_problem(PRESETS["cylinder-small"].replace(**override))
 
 
 def test_state_round_trip_and_checks():
     params = PRESETS["cylinder-small"]
-    problem = make_problem(params)
+    problem = port_problem(params)
     f = problem.initial_state()
     t = state_from_numpy(f, problem, "cpu")
     assert t.dtype == torch.float32 and t.is_contiguous()
@@ -89,8 +89,9 @@ def test_load_tpulbm_checkpoint(tmp_path):
          * rng.uniform(0.9, 1.1, size=(9, params.ny, params.nx))
          ).astype(np.float32)
     path = checkpoint.save(str(tmp_path), 420, f, params)
-    step, t = load_tpulbm_checkpoint(path, params, "cpu")
+    step, t = load_tpulbm_checkpoint(path, port_params(params), "cpu")
     assert step == 420
     assert state_to_numpy(t).tobytes() == f.tobytes()
     with pytest.raises(ValueError, match="tau"):
-        load_tpulbm_checkpoint(path, params.replace(tau=0.7), "cpu")
+        load_tpulbm_checkpoint(path, port_params(params.replace(tau=0.7)),
+                               "cpu")

@@ -16,6 +16,7 @@ import pytest
 from tpulbm.config import SimulationParams
 from tpulbm.runner import Runner as JaxRunner
 from tpulbm_torch.runner import Runner
+from test_torch_compat import port_params
 
 
 def tiny_params(tmp, **kw):
@@ -35,7 +36,7 @@ def _csv(path):
 @pytest.mark.parametrize("backend", ["pallas", "jax"])
 def test_runner_artifacts_match_tpulbm(tmp_path, backend):
     ref = JaxRunner(tiny_params(tmp_path / "ref"), verbose=False).run()
-    got = Runner(tiny_params(tmp_path / "port", backend=backend),
+    got = Runner(port_params(tiny_params(tmp_path / "port", backend=backend)),
                  device="cpu", verbose=False).run()
     assert ref.success and got.success
     assert got.final_step == ref.final_step == 60
@@ -71,7 +72,7 @@ def test_runner_aborts_on_instability(tmp_path):
     params = tiny_params(tmp_path, tau=0.501, inlet_velocity=0.3,
                          num_timesteps=2000, output_frequency=100,
                          backend="pallas")
-    result = Runner(params, device="cpu", verbose=False).run()
+    result = Runner(port_params(params), device="cpu", verbose=False).run()
     assert not result.success
     assert result.final_step < 2000
     assert not (tmp_path / "velocity_field.csv").exists()

@@ -27,10 +27,10 @@ from tpulbm.parallel.mesh import make_mesh
 from tpulbm.parallel.sharded_step import make_chunk_fn as jax_chunk_fn
 from tpulbm.parallel.sharded_step import shard_state
 from tpulbm_torch.convert import state_from_numpy, state_to_numpy
-from tpulbm_torch.models import make_problem
 from tpulbm_torch.ops.forces import forces_fn
 from tpulbm_torch.ops.step_torch import make_step_rolled
 from tpulbm_torch.stepper import make_chunk_fn
+from test_torch_compat import port_problem
 
 F32_TOL = dict(rtol=5e-6, atol=1e-7)
 
@@ -44,7 +44,7 @@ def _params(**kw):
 def test_plain_step_matches_jax_rolled_f64():
     params = _params(precision="f64")
     jstep = jax.jit(jax_step_rolled(jax_problem(params)))
-    problem = make_problem(params)
+    problem = port_problem(params)
     tstep = make_step_rolled(problem, "cpu")
     fj = problem.initial_state()
     ft = state_from_numpy(fj, problem, "cpu")
@@ -61,7 +61,7 @@ def test_plain_step_and_forces_match_numpy_oracle():
     # hold dynamically dead values, the port's the rest equilibrium)
     from test_step_oracle import Oracle
     params = _params(nx=48, ny=24, precision="f64")
-    problem = make_problem(params)
+    problem = port_problem(params)
     oracle = Oracle(params, problem.solid)
     step = make_step_rolled(problem, "cpu")
     force = forces_fn(problem, "cpu")
@@ -94,7 +94,7 @@ def _jax_pallas_chunks(params, chunk_len, n_chunks):
 
 
 def _port_chunks(params, chunk_len, n_chunks):
-    problem = make_problem(params)
+    problem = port_problem(params)
     chunk = make_chunk_fn(problem, "cpu", chunk_len, backend="pallas")
     f = state_from_numpy(problem.initial_state(), problem, "cpu")
     out = []
@@ -136,7 +136,7 @@ def test_kernel_module_matches_pallas_main_path_cascade(monkeypatch):
 
 def test_plain_backend_chunk_runs_f64():
     params = _params(precision="f64")
-    problem = make_problem(params)
+    problem = port_problem(params)
     f = state_from_numpy(problem.initial_state(), problem, "cpu")
     chunk = make_chunk_fn(problem, "cpu", 7, backend="jax")
     step = make_step_rolled(problem, "cpu")
@@ -147,6 +147,6 @@ def test_plain_backend_chunk_runs_f64():
 
 
 def test_kernel_backend_refuses_f64():
-    problem = make_problem(_params(precision="f64"))
+    problem = port_problem(_params(precision="f64"))
     with pytest.raises(NotImplementedError):
         make_chunk_fn(problem, "cpu", 5, backend="pallas")

@@ -2,18 +2,22 @@
 
 The port mirrors tpulbm's module names so each module's counterpart is easy
 to find. Plain tensor code is PyTorch; the fused collide-stream steps are
-hand-written CUDA kernels (csrc/*.cu) built with nvcc at first use.
-tpulbm's jax-free host modules (config, lattice, geometry, utils.io) are
-re-exported, not copied, so one SimulationParams type and one set of
-artifact writers serve both packages.
+hand-written CUDA kernels (csrc/*.cu) built with nvcc at first use. The
+port imports neither jax nor tpulbm: it keeps its own copies of tpulbm's
+host modules (config, lattice, geometry, utils.io, utils.checkpoint), held
+to the originals by tests/test_torch_compat.py, so parameters, checkpoints
+and artifacts move between the two packages unchanged.
 
 Covered so far, on one device: the 2-D D2Q9 BGK cylinder main path
-(Zou-He inlet/outlet, bounce-back y walls, equilibrium obstacle) and the
+(Zou-He inlet/outlet, bounce-back y walls, equilibrium obstacle), the
 3-D D3Q19 BGK sphere in a duct (equilibrium inlet, zero-gradient outlet,
-bounce-back y and z walls, equilibrium obstacle). Anything else raises
-NotImplementedError naming its ROADMAP item.
+bounce-back y and z walls, equilibrium obstacle), and the 2-D thermal
+problems (D2Q9 flow + D2Q5 temperature, Boussinesq): Rayleigh-Bénard and
+the side-heated cavity. Anything else raises NotImplementedError naming
+its ROADMAP item.
 
     python -m tpulbm_torch --preset re200 --no-vtk
     python -m tpulbm_torch --problem cylinder3d --nx 256 --ny 256 --nz 256 \\
         --inlet-velocity 0.05 --no-vtk
+    python -m tpulbm_torch --preset rayleigh-benard --nx 2048 --ny 512 --no-vtk
 """

@@ -5,6 +5,8 @@
     python -m tpulbm_torch --problem cylinder3d --nx 256 --ny 256 --nz 256 \\
         --inlet-velocity 0.05 --no-vtk
     python -m tpulbm_torch --preset cylinder3d-small --no-vtk
+    python -m tpulbm_torch --preset rayleigh-benard --nx 2048 --ny 512 --no-vtk
+    python -m tpulbm_torch --preset heated-cavity
 
 Runs on the first CUDA device; --cpu runs the plain PyTorch version on the
 host instead (debugging). Flags of main.py that the port does not cover yet

@@ -2,9 +2,11 @@
 
 Both packages hold the populations as (Q, *spatial) arrays in the same
 direction order and layout ((9, ny, nx) for D2Q9, (19, nz, ny, nx) for
-D3Q19), so a tpulbm state moves over unchanged. A
-tpulbm single-device checkpoint (`tpulbm.utils.checkpoint.save`: one .npz
-with `f`, `step` and the params JSON) can be continued in the port.
+D3Q19, and (14, ny, nx) for the thermal problems: the 9 D2Q9 planes
+stacked over the 5 D2Q5 planes), so a tpulbm state moves over unchanged.
+A tpulbm single-device checkpoint (tpulbm's checkpoint.save: one .npz with
+`f`, `step` and the params JSON) can be continued in the port, and one the
+port writes in tpulbm.
 """
 from __future__ import annotations
 
@@ -12,20 +14,20 @@ import numpy as np
 import torch
 
 from .config import SimulationParams
-from .lattice import D2Q9, D3Q19
+from .lattice import D2Q5, D2Q9, D3Q19
 from .models import make_problem
 from .models.base import Problem
 from .utils import checkpoint
 
-# Q -> number of spatial axes, for the lattices the port holds
-_SPATIAL_DIMS = {D2Q9.Q: D2Q9.D, D3Q19.Q: D3Q19.D}
+# planes of a state -> number of spatial axes, for the states the port holds
+_SPATIAL_DIMS = {D2Q9.Q: D2Q9.D, D3Q19.Q: D3Q19.D, D2Q9.Q + D2Q5.Q: 2}
 
 
 def state_from_numpy(f: np.ndarray, problem: Problem, device) -> torch.Tensor:
-    """A tpulbm state (Q, *spatial) as a contiguous tensor on `device`;
-    raises unless its shape and dtype are the problem's."""
+    """A tpulbm state (state_q, *spatial) as a contiguous tensor on
+    `device`; raises unless its shape and dtype are the problem's."""
     f = np.asarray(f)
-    want = (problem.lattice.Q,) + problem.spatial_shape
+    want = (problem.state_q,) + problem.spatial_shape
     if f.shape != want:
         raise ValueError(f"state shape {f.shape} != problem's {want}")
     if f.dtype != np.dtype(problem.dtype):
@@ -35,11 +37,11 @@ def state_from_numpy(f: np.ndarray, problem: Problem, device) -> torch.Tensor:
 
 
 def state_to_numpy(f: torch.Tensor) -> np.ndarray:
-    """A port state f32/f64 tensor, (9, ny, nx) or (19, nz, ny, nx), as a
-    host NumPy array."""
+    """A port state f32/f64 tensor, (9, ny, nx), (19, nz, ny, nx) or the
+    thermal (14, ny, nx), as a host NumPy array."""
     if f.dim() == 0 or f.dim() != 1 + _SPATIAL_DIMS.get(f.shape[0], -1):
-        raise ValueError(f"state must be (9, ny, nx) or (19, nz, ny, nx), "
-                         f"got {tuple(f.shape)}")
+        raise ValueError(f"state must be (9, ny, nx), (19, nz, ny, nx) or "
+                         f"(14, ny, nx), got {tuple(f.shape)}")
     if f.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"state dtype must be float32 or float64, "
                         f"got {f.dtype}")

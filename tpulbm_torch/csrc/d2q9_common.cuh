@@ -1,9 +1,10 @@
 // The per-cell parts of a D2Q9 timestep that every kernel of the port
-// shares, float32: BGK collision, the pull with the reference's ghost rule,
-// and the boundary sequence. step_d2q9.cu (one step per launch) and
-// step_d2q9_blocked.cu (N steps per launch) both build on these functions,
-// so that N launches of the first and one launch of the second run the same
-// operations in the same order and give the same bits.
+// shares, float32: moments and BGK collision, the pull with the reference's
+// ghost rule, and the boundary sequence. step_d2q9.cu (one step per launch)
+// and step_d2q9_blocked.cu (N steps per launch) both build on these
+// functions, so that N launches of the first and one launch of the second
+// run the same operations in the same order and give the same bits; the
+// thermal kernel (step_thermal.cu) reuses the moments and the relaxation.
 //
 // Rounding follows the plain version (tpulbm_torch/ops/step_torch.py): the
 // expression order below is the reference's, and the libraries are built
@@ -38,27 +39,41 @@ inline StepConsts make_consts(float inv_tau, float u_in, float one_minus_u_in,
   return k;
 }
 
-// BGK relaxation of one cell's 9 populations, in place.
-__device__ __forceinline__ void collide_bgk(float* f, const StepConsts& k) {
+// Density and velocity of one cell's 9 populations, u = m * (1/rho) as the
+// Pallas kernels compute it.
+struct Moments {
+  float rho, ux, uy;
+};
+
+__device__ __forceinline__ Moments moments_d2q9(const float* f) {
   float rho = f[0];
 #pragma unroll
   for (int i = 1; i < kQ; ++i) rho = rho + f[i];
   const float mx = f[1] - f[3] + f[5] - f[6] - f[7] + f[8];
   const float my = f[2] - f[4] + f[5] + f[6] - f[7] - f[8];
   const float inv_rho = 1.0f / rho;
-  const float ux = mx * inv_rho;
-  const float uy = my * inv_rho;
+  return {rho, mx * inv_rho, my * inv_rho};
+}
+
+// BGK relaxation of 9 populations toward equilibrium(m.rho, m.u), in place.
+__device__ __forceinline__ void relax_bgk(float* f, const Moments& m,
+                                          float inv_tau, const float* w) {
+  const float rho = m.rho, ux = m.ux, uy = m.uy;
   const float base = 1.0f - 1.5f * (ux * ux + uy * uy);
   // c_i . u for i = 1..8, as exact +-adds
   const float cu[kQ] = {0.0f, ux, uy, -ux, -uy,
                         ux + uy, -ux + uy, -ux + -uy, ux + -uy};
-  f[0] = f[0] - k.inv_tau * (f[0] - k.w[0] * rho * base);
+  f[0] = f[0] - inv_tau * (f[0] - w[0] * rho * base);
 #pragma unroll
   for (int i = 1; i < kQ; ++i) {
-    const float feq =
-        k.w[i] * rho * (base + 3.0f * cu[i] + 4.5f * cu[i] * cu[i]);
-    f[i] = f[i] - k.inv_tau * (f[i] - feq);
+    const float feq = w[i] * rho * (base + 3.0f * cu[i] + 4.5f * cu[i] * cu[i]);
+    f[i] = f[i] - inv_tau * (f[i] - feq);
   }
+}
+
+// BGK relaxation of one cell's 9 populations, in place.
+__device__ __forceinline__ void collide_bgk(float* f, const StepConsts& k) {
+  relax_bgk(f, moments_d2q9(f), k.inv_tau, k.w);
 }
 
 // Pull g_i(x, y) = f_post_i((x, y) - c_i) with the reference's ghost rule:

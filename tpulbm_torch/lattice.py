@@ -1,12 +1,105 @@
-"""Lattice descriptors: tpulbm's D2Q9 and D3Q19, re-exported, plus tensor
-views."""
+"""Lattice descriptors: the port's copy of tpulbm/lattice.py (D2Q9, D2Q5,
+D3Q19), plus tensor views.
+
+The direction order is tpulbm's (and its reference's), so every piece of
+boundary-condition algebra carries over index for index:
+
+    D2Q9:  0:( 0, 0)  1:( 1, 0)  2:( 0, 1)  3:(-1, 0)  4:( 0,-1)
+           5:( 1, 1)  6:(-1, 1)  7:(-1,-1)  8:( 1,-1)
+    D2Q5:  the first five D2Q9 directions (the thermal scalar's lattice)
+
+Constants live as NumPy arrays; the kernels take them as arguments.
+"""
 from __future__ import annotations
 
+import dataclasses
+from functools import cached_property
+
+import numpy as np
 import torch
 
-from tpulbm.lattice import D2Q9, D3Q19, Lattice
+__all__ = ["D2Q5", "D2Q9", "D3Q19", "Lattice", "lattice_tensors"]
 
-__all__ = ["D2Q9", "D3Q19", "Lattice", "lattice_tensors"]
+
+@dataclasses.dataclass(frozen=True)
+class Lattice:
+    """A DdQq lattice: velocity set, quadrature weights, and opposite map."""
+
+    name: str
+    D: int
+    velocities: tuple[tuple[int, ...], ...]  # (Q, D) integer lattice velocities
+    weights: tuple[float, ...]               # (Q,) quadrature weights
+
+    @property
+    def Q(self) -> int:
+        return len(self.velocities)
+
+    @cached_property
+    def c(self) -> np.ndarray:
+        """Velocity set as an int (Q, D) array."""
+        return np.asarray(self.velocities, dtype=np.int32)
+
+    @cached_property
+    def w(self) -> np.ndarray:
+        """Weights as a float64 (Q,) array."""
+        return np.asarray(self.weights, dtype=np.float64)
+
+    @cached_property
+    def opposite(self) -> np.ndarray:
+        """opposite[i] = index j with c[j] == -c[i] (derived, not
+        hard-coded; D2Q9 gives {0,3,4,1,2,7,8,5,6})."""
+        c = self.c
+        opp = np.empty(self.Q, dtype=np.int32)
+        for i in range(self.Q):
+            matches = np.where((c == -c[i]).all(axis=1))[0]
+            if len(matches) != 1:
+                raise ValueError(f"lattice {self.name}: no unique opposite for dir {i}")
+            opp[i] = matches[0]
+        return opp
+
+    @property
+    def cs2(self) -> float:
+        """Lattice speed of sound squared (1/3 for the standard lattices here)."""
+        return 1.0 / 3.0
+
+
+D2Q9 = Lattice(
+    name="D2Q9",
+    D=2,
+    velocities=(
+        (0, 0),
+        (1, 0), (0, 1), (-1, 0), (0, -1),
+        (1, 1), (-1, 1), (-1, -1), (1, -1),
+    ),
+    weights=(
+        4.0 / 9.0,
+        1.0 / 9.0, 1.0 / 9.0, 1.0 / 9.0, 1.0 / 9.0,
+        1.0 / 36.0, 1.0 / 36.0, 1.0 / 36.0, 1.0 / 36.0,
+    ),
+)
+
+# D2Q5: the advection-diffusion lattice of the thermal (double-population)
+# models, in D2Q9's first-five direction order
+D2Q5 = Lattice(
+    name="D2Q5",
+    D=2,
+    velocities=((0, 0), (1, 0), (0, 1), (-1, 0), (0, -1)),
+    weights=(1.0 / 3.0, 1.0 / 6.0, 1.0 / 6.0, 1.0 / 6.0, 1.0 / 6.0),
+)
+
+# D3Q19: rest, 6 axis-aligned, 12 face-diagonal
+_D3Q19_AXIS = ((1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1), (0, 0, -1))
+_D3Q19_DIAG = (
+    (1, 1, 0), (-1, -1, 0), (1, -1, 0), (-1, 1, 0),
+    (1, 0, 1), (-1, 0, -1), (1, 0, -1), (-1, 0, 1),
+    (0, 1, 1), (0, -1, -1), (0, 1, -1), (0, -1, 1),
+)
+D3Q19 = Lattice(
+    name="D3Q19",
+    D=3,
+    velocities=((0, 0, 0),) + _D3Q19_AXIS + _D3Q19_DIAG,
+    weights=(1.0 / 3.0,) + (1.0 / 18.0,) * 6 + (1.0 / 36.0,) * 12,
+)
 
 
 def lattice_tensors(lat: Lattice, device, dtype=torch.float32):

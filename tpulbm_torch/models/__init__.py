@@ -1,14 +1,18 @@
-"""Problem builders. The port covers the 2-D D2Q9 BGK cylinder and the 3-D
-D3Q19 BGK sphere in a duct, both with the equilibrium obstacle; every other
-configuration raises NotImplementedError naming the ROADMAP item (Queue 1)
-that will port it."""
+"""Problem builders. The port covers the 2-D D2Q9 BGK cylinder, the 3-D
+D3Q19 BGK sphere in a duct (both with the equilibrium obstacle), and the
+2-D thermal problems (Rayleigh-Bénard and the side-heated cavity, BGK);
+every other configuration raises NotImplementedError naming the ROADMAP
+item (Queue 1) that will port it."""
 from .base import Problem
-from . import cylinder, cylinder3d
+from . import cylinder, cylinder3d, rayleigh_benard
 
 __all__ = ["Problem", "make_problem"]
 
 _BUILDERS = {"cylinder": cylinder.make_problem,
-             "cylinder3d": cylinder3d.make_problem}
+             "cylinder3d": cylinder3d.make_problem,
+             "rayleigh-benard": rayleigh_benard.make_problem,
+             "heated-cavity": rayleigh_benard.make_problem}
+_THERMAL = ("rayleigh-benard", "heated-cavity")
 
 _PROBLEM_ITEMS = {
     "poiseuille": "Queue 1 item 12 (body force, cavity and BC variants)",
@@ -16,9 +20,8 @@ _PROBLEM_ITEMS = {
     "taylor-green": "Queue 1 item 13 (periodic boxes and Kolmogorov)",
     "shear-layer": "Queue 1 item 13 (periodic boxes and Kolmogorov)",
     "kolmogorov": "Queue 1 item 13 (periodic boxes and Kolmogorov)",
-    "passive-scalar": "Queue 1 item 17 (thermal and passive scalar)",
-    "rayleigh-benard": "Queue 1 item 17 (thermal and passive scalar)",
-    "heated-cavity": "Queue 1 item 17 (thermal and passive scalar)",
+    "passive-scalar": "Queue 1 item 13 (periodic boxes and Kolmogorov: the "
+                      "passive scalar rides periodic2d's Taylor-Green fields)",
     "multiphase": "Queue 1 item 18 (Shan-Chen multiphase)",
 }
 
@@ -44,9 +47,15 @@ def check_slice(params) -> None:
     if params.collision != "bgk":
         raise _not_ported(f"collision={params.collision!r}", ops)
     if params.smagorinsky:
-        raise _not_ported("the Smagorinsky LES closure", ops)
+        raise _not_ported("the Smagorinsky LES closure"
+                          + (" of the thermal step"
+                             if params.problem in _THERMAL else ""), ops)
     if params.power_law_n != 1.0:
         raise _not_ported("power-law rheology", ops)
+    if params.problem in _THERMAL and tuple(params.mesh_shape) != (1, 1):
+        raise _not_ported(f"the thermal step on mesh_shape="
+                          f"{params.mesh_shape}",
+                          "Queue 1 item 19 (several devices)")
     variants = "Queue 1 item 12 (body force, cavity and BC variants)"
     if params.obstacle_bc == "bouzidi":
         raise _not_ported("obstacle_bc='bouzidi'",
@@ -62,6 +71,7 @@ def check_slice(params) -> None:
 
 
 def make_problem(params) -> Problem:
-    """Build the Problem for params.problem ("cylinder" or "cylinder3d")."""
+    """Build the Problem for params.problem ("cylinder", "cylinder3d",
+    "rayleigh-benard" or "heated-cavity")."""
     check_slice(params)
     return _BUILDERS[params.problem](params)

@@ -2,9 +2,10 @@
 
 Port of tpulbm/models/base.py for the slices the port covers (uniform
 equilibrium start, optional solid mask; the 2-D cylinder's and the 3-D
-sphere-in-duct's boundary layouts). The initial state and the ghost
-values are computed in NumPy on the host, exactly as tpulbm does, so both
-packages start from byte-identical arrays.
+sphere-in-duct's boundary layouts; the thermal double-population
+problems). The initial state and the ghost values are computed in NumPy on
+the host, exactly as tpulbm does, so both packages start from
+byte-identical arrays.
 """
 from __future__ import annotations
 
@@ -15,6 +16,37 @@ import numpy as np
 from ..config import SimulationParams
 from ..lattice import Lattice
 from .. import physics
+
+
+@dataclasses.dataclass(frozen=True)
+class ThermalConfig:
+    """Double-population thermal coupling (Boussinesq). A second lattice
+    (D2Q5) carries temperature as a scalar advected by the flow; the flow
+    feels the buoyancy force buoyancy · (T − t_ref) along buoyancy_axis.
+
+    State layout: the scalar populations g are stacked under the flow
+    populations f in one (Q_f + Q_g, ny, nx) array; only the collision and
+    the wall rules treat the two plane groups differently.
+    """
+    lattice: Lattice          # the scalar's lattice (D2Q5)
+    tau_g: float              # thermal relaxation time; alpha = (tau_g-1/2)/3
+    t_bottom: float = 1.0     # fixed wall temperatures (hot plate below)
+    t_top: float = 0.0
+    buoyancy: float = 0.0     # beta·g product (Boussinesq)
+    perturb: float = 1e-3     # seed-mode amplitude (×ΔT) of the initial T
+    # 1 = +y (Rayleigh-Bénard: gravity opposes the wall gradient); 0 = +x
+    # (the side-heated cavity, rotated so that its hot and cold walls are
+    # the y walls and its adiabatic walls the x walls)
+    buoyancy_axis: int = 1
+
+    @property
+    def t_ref(self) -> float:
+        return 0.5 * (self.t_bottom + self.t_top)
+
+    @property
+    def alpha(self) -> float:
+        """Thermal diffusivity in lattice units."""
+        return (self.tau_g - 0.5) / 3.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,8 +65,19 @@ class Problem:
     outlet_zero_grad: bool = False    # zero-gradient outlet at x = nx-1 (3-D)
     walls_y: bool = True              # bounce-back walls at y = 0 and ny-1
     walls_z: bool = False             # bounce-back walls at z = 0 and nz-1
+    walls_x: bool = False             # bounce-back walls at x = 0 and nx-1
+    periodic_x: bool = False
+    periodic_y: bool = False          # fully periodic box (walls_y off)
     obstacle_bc: str = "equilibrium"  # solid cells pinned to rest equilibrium
     collision: str = "bgk"
+    thermal: ThermalConfig | None = None  # double-population thermal coupling
+
+    @property
+    def state_q(self) -> int:
+        """Leading (plane) extent of the state: Q_f, plus Q_g when a
+        thermal scalar is stacked underneath."""
+        return self.lattice.Q + (self.thermal.lattice.Q if self.thermal
+                                 else 0)
 
     @property
     def spatial_shape(self) -> tuple[int, ...]:
@@ -46,21 +89,45 @@ class Problem:
         return np.float64 if self.params.precision == "f64" else np.float32
 
     def ghost_ring_values(self) -> np.ndarray:
-        """(Q,) values held by out-of-domain ghost cells: equilibrium(rho=1,
-        u=init_u), frozen for the whole run (the reference never updates
-        its physical-edge ghosts)."""
-        return physics.uniform_equilibrium(
+        """(state_q,) values held by out-of-domain ghost cells:
+        equilibrium(rho=1, u=init_u), frozen for the whole run (the
+        reference never updates its physical-edge ghosts). Thermal
+        problems append w_g · t_ref for the scalar planes (the thermal
+        steps read their own per-wall ghost rows instead)."""
+        ring = physics.uniform_equilibrium(
             self.lattice, self.init_rho, self.init_u, dtype=self.dtype)
+        if self.thermal is not None:
+            ring = np.concatenate(
+                [ring, (self.thermal.lattice.w
+                        * self.thermal.t_ref).astype(self.dtype)])
+        return ring
 
     def initial_state(self) -> np.ndarray:
-        """(Q, *spatial) initial populations: uniform equilibrium(1, init_u),
-        solid cells at rest equilibrium."""
+        """(state_q, *spatial) initial populations: uniform
+        equilibrium(1, init_u), solid cells at rest equilibrium. Thermal
+        problems stack the scalar's equilibrium underneath, at the
+        conductive profile plus a cos·sin seed mode."""
         Q = self.lattice.Q
-        feq = self.ghost_ring_values()
+        feq = self.ghost_ring_values()[:Q]
         f = np.broadcast_to(
             feq.reshape((Q,) + (1,) * len(self.spatial_shape)),
             (Q,) + self.spatial_shape).copy()
         if self.solid is not None:
             rest = physics.rest_equilibrium(self.lattice, self.dtype)
             f[:, self.solid] = rest[:, None]
-        return f
+        if self.thermal is None:
+            return f
+        th = self.thermal
+        ny, nx = self.spatial_shape
+        # conductive profile between the wall nodes (height ny-1 cells),
+        # seeded with one cos(kx)·sin(pi y/H) mode at amplitude
+        # perturb·ΔT so that the onset is deterministic
+        y = np.arange(ny, dtype=np.float64)[:, None] / max(ny - 1, 1)
+        x = np.arange(nx, dtype=np.float64)[None, :]
+        dt_wall = th.t_bottom - th.t_top
+        T = th.t_bottom - dt_wall * y
+        T = T + th.perturb * dt_wall * np.cos(2.0 * np.pi * x / nx) \
+            * np.sin(np.pi * y)
+        lg = th.lattice
+        g = (lg.w.reshape((lg.Q, 1, 1)) * T[None]).astype(self.dtype)
+        return np.concatenate([f, g], axis=0)

@@ -1,13 +1,13 @@
 """Boundary conditions as masked per-population ("plane") updates.
 
 Port of tpulbm/ops/boundaries.py for the BC stacks of the 2-D cylinder and
-the 3-D sphere in a duct. Every BC is a `torch.where` over coordinate masks
-on a mutable list of Q planes, applied in the reference order (y walls, z
-walls, inlet, outlet, obstacle), so the read-after-write chains at edge and
-corner cells carry over: the inlet's Zou-He reads f6 after the bottom wall
-rewrote it, a z wall reads what a y wall rewrote, and the zero-gradient
-outlet copies its neighbour column after the walls and before the obstacle
-pin.
+the 3-D sphere in a duct, and the thermal scalar's Dirichlet wall. Every
+BC is a `torch.where` over coordinate masks on a mutable list of Q planes,
+applied in the reference order (y walls, z walls, inlet, outlet,
+obstacle), so the read-after-write chains at edge and corner cells carry
+over: the inlet's Zou-He reads f6 after the bottom wall rewrote it, a z
+wall reads what a y wall rewrote, and the zero-gradient outlet copies its
+neighbour column after the walls and before the obstacle pin.
 
 D2Q9 index convention:
     0:(0,0) 1:(1,0) 2:(0,1) 3:(-1,0) 4:(0,-1) 5:(1,1) 6:(-1,1) 7:(-1,-1) 8:(1,-1)
@@ -37,6 +37,27 @@ def apply_walls(lat: Lattice, planes: list, wall_mask, axis_component: int,
     for i in range(lat.Q):
         if int(np.sign(lat.c[i, axis_component])) == sign:
             planes[i] = torch.where(m, planes[int(opp[i])], planes[i])
+
+
+def apply_thermal_wall(lat_g: Lattice, planes_g: list, wall_mask,
+                       axis_component: int, sign: int, t_wall: float,
+                       solid) -> None:
+    """Fixed-temperature (Dirichlet) wall for the thermal scalar:
+    anti-bounce-back. Every direction i pointing into the domain (the sign
+    of its `axis_component` velocity is `sign`) takes
+
+        g_i <- (w_i + w_opp(i)) · T_wall − g_opp(i)
+
+    from the planes as they stand on entry, so that the half-link
+    temperature between g_i and g_opp is T_wall."""
+    m = _not_solid(wall_mask, solid)
+    opp = lat_g.opposite
+    snap = list(planes_g)
+    for i in range(lat_g.Q):
+        if int(np.sign(lat_g.c[i, axis_component])) == sign:
+            val = (float(lat_g.w[i] + lat_g.w[int(opp[i])]) * t_wall
+                   - snap[int(opp[i])])
+            planes_g[i] = torch.where(m, val, planes_g[i])
 
 
 def apply_zou_he_inlet(planes: list, inlet_mask, u_in: float, solid) -> None:

@@ -1,8 +1,11 @@
-"""On-device diagnostics: macroscopic fields, stability, max velocity.
+"""On-device diagnostics: macroscopic fields, stability, max velocity, and
+the thermal problems' temperature and Nusselt number.
 
 Port of tpulbm/ops/diagnostics.py (fields_fn, stability_fn,
 max_velocity_fn). Each builder returns a function of the state tensor whose
-result stays on the device until the caller fetches it.
+result stays on the device until the caller fetches it. The moments are
+taken of f[:lattice.Q]: a thermal state stacks its 5 temperature planes
+under the 9 flow planes, and they must not enter rho.
 """
 from __future__ import annotations
 
@@ -10,6 +13,7 @@ import torch
 
 from .. import physics
 from ..models.base import Problem
+from . import step_thermal
 
 
 def _solid(problem: Problem, device):
@@ -24,7 +28,7 @@ def fields_fn(problem: Problem, device):
     solid = _solid(problem, device)
 
     def fn(f: torch.Tensor):
-        rho, u = physics.moments(lat, f)
+        rho, u = physics.moments(lat, f[:lat.Q])
         if solid is not None:
             rho = torch.where(solid, 1.0, rho)
             u = torch.where(solid[None], 0.0, u)
@@ -46,6 +50,20 @@ def max_velocity_fn(problem: Problem, device):
     solid = _solid(problem, device)
 
     def fn(f: torch.Tensor) -> torch.Tensor:
-        return physics.max_velocity(lat, f, solid)
+        return physics.max_velocity(lat, f[:lat.Q], solid)
 
+    return fn
+
+
+def temperature_fn(problem: Problem):
+    """s -> the temperature field (ny, nx) of a thermal state."""
+    def fn(s: torch.Tensor) -> torch.Tensor:
+        return step_thermal.temperature(problem, s)
+    return fn
+
+
+def nusselt_fn(problem: Problem):
+    """s -> the instantaneous Nusselt number (0-d) of a thermal state."""
+    def fn(s: torch.Tensor) -> torch.Tensor:
+        return step_thermal.nusselt(problem, s)
     return fn

@@ -1,0 +1,174 @@
+"""The plain PyTorch thermal (double-population) step: the oracle of the
+thermal slice and the plain version of the CUDA kernel
+csrc/step_thermal.cu.
+
+Port of tpulbm/ops/step_thermal.py (collide_thermal, make_step_thermal,
+temperature, nusselt). One step of the coupled Boussinesq system on the
+stacked state s = [f (9 planes); g (5 planes)], (14, ny, nx):
+
+  1. moments: rho, u from f; T = Σ g
+  2. collide f: BGK toward equilibrium(rho, u), plus the buoyancy source
+     3 w_i c_i,axis · buoyancy·(T − t_ref) on the buoyancy axis
+  3. collide g: BGK toward w_i T (1 + 3 c·u) at rate 1/tau_g
+  4. pull-stream every plane with torch.roll (x wraps; y pulls across a
+     wall read frozen ghost rows: rest equilibrium for f, w_i·T_wall for g)
+  5. boundaries, in tpulbm's order: with x walls (the cavity), every plane
+     with c_x != 0 at an edge column takes the node's own post-collision
+     opposite; then the y walls: inward f planes take the node's own
+     post-collision opposite (full-way bounce-back), inward g planes
+     (w_i + w_opp)·T_wall − g_opp against the just-streamed opposite
+     (boundaries.apply_thermal_wall).
+
+Runs in f32 and f64; every expression keeps tpulbm's operation order.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+from .. import physics
+from ..models.base import Problem
+from ..models.rayleigh_benard import effective_height
+from . import boundaries
+
+
+def _thermal_parts(problem: Problem):
+    lat, th = problem.lattice, problem.thermal
+    if th is None:
+        raise ValueError("the thermal step needs problem.thermal")
+    return lat, th.lattice, th
+
+
+def collide_thermal(problem: Problem, s: torch.Tensor) -> torch.Tensor:
+    """Post-collision stacked state (pointwise)."""
+    lat, lg, th = _thermal_parts(problem)
+    Qf = lat.Q
+    f, g = s[:Qf], s[Qf:]
+    inv_tau = 1.0 / problem.params.tau
+    rho, u = physics.moments(lat, f)
+    T = torch.sum(g, dim=0)
+    feq = physics.equilibrium(lat, rho, u)
+    f_post = f - inv_tau * (f - feq)
+    if th.buoyancy:
+        fy = th.buoyancy * (T - th.t_ref)
+        ca = lat.c[:, th.buoyancy_axis]
+        planes = []
+        for i in range(Qf):
+            cia = int(ca[i])
+            if cia == 0:
+                planes.append(f_post[i])
+            else:
+                planes.append(f_post[i]
+                              + (3.0 * float(lat.w[i]) * cia) * fy)
+        f_post = torch.stack(planes)
+    geq = physics.thermal_equilibrium(lg, T, u)
+    g_post = g - (1.0 / th.tau_g) * (g - geq)
+    return torch.cat([f_post, g_post], dim=0)
+
+
+def ghost_rows(problem: Problem) -> tuple[np.ndarray, np.ndarray]:
+    """(bottom, top): the frozen ghost value of each of the 14 planes
+    pulled through the y walls: rest equilibrium for f (resting walls),
+    w_i·T_wall for g."""
+    lat, lg, th = _thermal_parts(problem)
+    dt = problem.dtype
+    f_ghost = physics.rest_equilibrium(lat, dt)
+    bottom = np.concatenate([f_ghost, (lg.w * th.t_bottom).astype(dt)])
+    top = np.concatenate([f_ghost, (lg.w * th.t_top).astype(dt)])
+    return bottom, top
+
+
+def check_geometry(problem: Problem) -> None:
+    """Raise NotImplementedError for thermal layouts the port lacks."""
+    if not problem.periodic_x and not problem.walls_x:
+        raise NotImplementedError("thermal models are periodic in x or "
+                                  "x-walled (side-heated cavity)")
+    if not problem.walls_y:
+        raise NotImplementedError(
+            "a thermal scalar without y walls (the periodic passive "
+            "scalar) is not ported to tpulbm_torch yet (ROADMAP Queue 1 "
+            "item 13)")
+
+
+def make_step_thermal(problem: Problem,
+                      device) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Oracle step on the stacked state (14, ny, nx) on `device`."""
+    lat, lg, th = _thermal_parts(problem)
+    check_geometry(problem)
+    Qf, Qs = lat.Q, problem.state_q
+    ny, nx = problem.spatial_shape
+    c_all = np.concatenate([lat.c, lg.c], axis=0)
+    opp_all = np.concatenate([lat.opposite, Qf + lg.opposite])
+    ghost_bottom, ghost_top = ghost_rows(problem)
+    yy = torch.arange(ny, device=device)[:, None]
+    xx = torch.arange(nx, device=device)[None, :]
+    walls_x = problem.walls_x
+
+    def step(s: torch.Tensor) -> torch.Tensor:
+        s_post = collide_thermal(problem, s)
+        planes = []
+        for i in range(Qs):
+            cix, ciy = int(c_all[i, 0]), int(c_all[i, 1])
+            plane = torch.roll(s_post[i], (ciy, cix), (0, 1))
+            # pulls that crossed a wall read the frozen ghost row
+            if ciy > 0:
+                plane = torch.where(yy == 0, float(ghost_bottom[i]), plane)
+            elif ciy < 0:
+                plane = torch.where(yy == ny - 1, float(ghost_top[i]), plane)
+            planes.append(plane)
+        f_planes, g_planes = planes[:Qf], planes[Qf:]
+        if walls_x:
+            # adiabatic no-slip x walls: f and g both take the node's own
+            # post-collision opposite (zero momentum and heat flux)
+            for i in range(Qs):
+                cix = int(c_all[i, 0])
+                tgt, k = (f_planes, i) if i < Qf else (g_planes, i - Qf)
+                if cix > 0:
+                    tgt[k] = torch.where(xx == 0, s_post[int(opp_all[i])],
+                                         tgt[k])
+                elif cix < 0:
+                    tgt[k] = torch.where(xx == nx - 1,
+                                         s_post[int(opp_all[i])], tgt[k])
+        # no-slip y walls for f: full-way bounce-back with the node's own
+        # post-collision outward values (exact wall mass)
+        opp = lat.opposite
+        for i in range(Qf):
+            ciy = int(lat.c[i, 1])
+            if ciy > 0:
+                f_planes[i] = torch.where(yy == 0, s_post[int(opp[i])],
+                                          f_planes[i])
+            elif ciy < 0:
+                f_planes[i] = torch.where(yy == ny - 1, s_post[int(opp[i])],
+                                          f_planes[i])
+        # fixed-T walls for g: the heat flux through them is the Nusselt
+        # number
+        boundaries.apply_thermal_wall(lg, g_planes, yy == 0, 1, +1,
+                                      th.t_bottom, None)
+        boundaries.apply_thermal_wall(lg, g_planes, yy == ny - 1, 1, -1,
+                                      th.t_top, None)
+        return torch.stack(f_planes + g_planes)
+
+    return step
+
+
+def temperature(problem: Problem, s: torch.Tensor) -> torch.Tensor:
+    """T field (ny, nx) from the stacked state."""
+    return torch.sum(s[problem.lattice.Q:], dim=0)
+
+
+def nusselt(problem: Problem, s: torch.Tensor) -> torch.Tensor:
+    """Instantaneous Nusselt number, a 0-d tensor: the mean vertical heat
+    flux over the conductive flux,
+
+        Nu = 1 + <u_y T> · H / (alpha ΔT)
+
+    (1 in the conductive state, above 1 once convection sets in)."""
+    lat, lg, th = _thermal_parts(problem)
+    _, u = physics.moments(lat, s[:lat.Q])
+    T = temperature(problem, s)
+    h = effective_height(problem.params)
+    dt_wall = th.t_bottom - th.t_top
+    adv = torch.mean(u[1] * T)
+    return 1.0 + adv * h / (th.alpha * dt_wall)

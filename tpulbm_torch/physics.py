@@ -1,6 +1,7 @@
 """Pointwise physics on tensors: moments, equilibrium, BGK collision.
 
-Port of tpulbm/physics.py (the BGK subset). `f` is (Q, *spatial) in SoA
+Port of tpulbm/physics.py (the BGK subset and the thermal scalar's
+equilibrium). `f` is (Q, *spatial) in SoA
 layout, x minor. Every expression keeps tpulbm's operation order so the
 f64 results agree to round-off.
 
@@ -66,6 +67,29 @@ def collide(lat: Lattice, f: torch.Tensor, inv_tau: float) -> torch.Tensor:
     rho, u = moments(lat, f)
     feq = equilibrium(lat, rho, u)
     return f - inv_tau * (f - feq)
+
+
+def thermal_equilibrium(lat_g: Lattice, T: torch.Tensor,
+                        u: torch.Tensor) -> torch.Tensor:
+    """Advection-diffusion equilibrium of the scalar carried by the flow:
+    g_eq_i = w_i T (1 + 3 c_i·u), linear in u (tpulbm physics.py:740-761).
+    c·u as exact ±adds, as in equilibrium()."""
+    c = lat_g.c
+    planes = []
+    for i in range(lat_g.Q):
+        cu = None
+        for d in range(lat_g.D):
+            cid = int(c[i, d])
+            if cid == 0:
+                continue
+            term = u[d] if cid > 0 else -u[d]
+            cu = term if cu is None else cu + term
+        w = float(lat_g.w[i])
+        if cu is None:
+            planes.append(w * T)
+        else:
+            planes.append(w * T * (1.0 + 3.0 * cu))
+    return torch.stack(planes)
 
 
 def rest_equilibrium(lat: Lattice, dtype=np.float64) -> np.ndarray:

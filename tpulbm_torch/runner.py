@@ -1,16 +1,17 @@
 """Run orchestration on one device: banners, chunked time stepping, force
-recording, diagnostics, VTK frames, the stability abort and the final
-artifacts.
+and Nusselt recording, diagnostics, VTK frames, the stability abort and the
+final artifacts.
 
 Port of tpulbm/runner.py for one device. Cadence parity with the
-reference loop: forces are recorded at every t ≡ 0 (mod output_frequency),
-t = 0 included, from the post-collision state; max-velocity prints and VTK
-frames happen at those t > 0. Forces, max velocity and stability stay on
-the device until the host fetches them: _SUPER_K output intervals per
-fetch on the fast path (stepper.make_super_chunk_fn), one per interval on
-the tail. NaN/Inf persist under LBM arithmetic, so a check per interval
-aborts as surely as one per step. Checkpoints are tpulbm's single-.npz
-format, written at chunk boundaries and resumed by run(resume=True).
+reference loop: forces (problems with an obstacle) and the Nusselt number
+(thermal problems) are recorded at every t ≡ 0 (mod output_frequency),
+t = 0 included, forces from the post-collision state; max-velocity prints
+and VTK frames happen at those t > 0. These diagnostics stay on the device
+until the host fetches them: _SUPER_K output intervals per fetch on the
+fast path (stepper.make_super_chunk_fn), one per interval on the tail.
+NaN/Inf persist under LBM arithmetic, so a check per interval aborts as
+surely as one per step. Checkpoints are tpulbm's single-.npz format,
+written at chunk boundaries and resumed by run(resume=True).
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from .convert import state_from_numpy
 from .geometry import solid_cell_count
 from .models import make_problem
 from .models.base import Problem
+from .models.rayleigh_benard import effective_height
 from .ops import diagnostics, forces as forces_mod
 from .stepper import make_chunk_fn, make_super_chunk_fn
 from .utils import checkpoint as ckpt
@@ -76,7 +78,13 @@ class Runner:
         self.verbose = verbose
         self.problem: Problem = make_problem(params)
         self._chunk_cache: dict[int, object] = {}
-        self._forces = forces_mod.forces_fn(self.problem, device)
+        self._forces = (forces_mod.forces_fn(self.problem, device)
+                        if self.problem.solid is not None else None)
+        thermal = self.problem.thermal is not None
+        self._nusselt = (diagnostics.nusselt_fn(self.problem) if thermal
+                         else None)
+        self._temp = (diagnostics.temperature_fn(self.problem) if thermal
+                      else None)
         self._fields = diagnostics.fields_fn(self.problem, device)
         self._stable = diagnostics.stability_fn(self.problem)
         self._max_vel = diagnostics.max_velocity_fn(self.problem, device)
@@ -94,7 +102,8 @@ class Runner:
         if not self.verbose:
             return
         p = self.params
-        print("Cylinder Flow LBM Parameters:")
+        print("Cylinder Flow LBM Parameters:" if p.problem.startswith("cylinder")
+              else f"{p.problem} LBM Parameters:")
         print(f"  Domain: {p.nx}×{p.ny}" + (f"×{p.nz}" if p.is_3d else ""))
         print(f"  tau = {p.tau}, nu = {p.nu()}")
         print(f"  Inlet velocity = {p.inlet_velocity}")
@@ -103,9 +112,11 @@ class Runner:
                 if self.device.type == "cuda" else "host CPU")
         print(f"  Device: {self.device} ({name}), precision {p.precision}, "
               f"backend {p.backend}")
-        print(f"  Cylinder: center=({p.get_cylinder_x()},{p.get_cylinder_y()}), "
-              f"radius={p.get_cylinder_radius_cells()} cells")
-        print(f"  Solid cells: {solid_cell_count(self.problem.solid)}")
+        if self.problem.solid is not None:
+            print(f"  Cylinder: center=({p.get_cylinder_x()},"
+                  f"{p.get_cylinder_y()}), "
+                  f"radius={p.get_cylinder_radius_cells()} cells")
+            print(f"  Solid cells: {solid_cell_count(self.problem.solid)}")
 
     def _chunk_fn(self, length: int):
         if length not in self._chunk_cache:
@@ -119,15 +130,22 @@ class Runner:
         return x.cpu().numpy()
 
     def _diag(self, f: torch.Tensor) -> np.ndarray:
-        """[fx, fy, max |u|, stable] in ONE device-to-host fetch."""
-        force = self._forces(f)[:2]
-        packed = torch.cat([force, self._max_vel(f)[None],
-                            self._stable(f)[None].to(force.dtype)])
-        return self._fetch(packed)
+        """[fx, fy, max |u|, stable] (and Nu for a thermal problem) in ONE
+        device-to-host fetch; the force is 0 without an obstacle."""
+        force = (self._forces(f)[:2] if self._forces is not None
+                 else f.new_zeros(2))
+        parts = [force, self._max_vel(f)[None],
+                 self._stable(f)[None].to(force.dtype)]
+        if self._nusselt is not None:
+            parts.append(self._nusselt(f)[None])
+        return self._fetch(torch.cat(parts))
 
     def _fetch_fields(self, f: torch.Tensor):
         rho, u = self._fields(f)
         return self._fetch(rho), self._fetch(u)
+
+    def _fetch_temp(self, f: torch.Tensor) -> np.ndarray | None:
+        return None if self._temp is None else self._fetch(self._temp(f))
 
     def _super_fn(self, with_fields: bool):
         if with_fields not in self._super:
@@ -143,13 +161,15 @@ class Runner:
             fut.result()
         self._io_futures = []
 
-    def _submit_frame(self, rho: np.ndarray, u: np.ndarray, t: int) -> None:
-        """Queue one VTK frame on the writer pool and surface any exception
-        of an already finished write."""
+    def _submit_frame(self, rho: np.ndarray, u: np.ndarray, t: int,
+                      temp: np.ndarray | None = None) -> None:
+        """Queue one VTK frame (with a temperature block for a thermal
+        problem) on the writer pool and surface any exception of an
+        already finished write."""
         p = self.params
         self._io_futures.append(self._io_pool.submit(
             io_mod.write_vtk_timestep, u[0], u[1], rho, p, t, p.output_dir,
-            uz=u[2] if p.is_3d else None, fmt=p.vtk_format))
+            uz=u[2] if p.is_3d else None, fmt=p.vtk_format, temp=temp))
         pending = []
         for fut in self._io_futures:
             if fut.done():
@@ -200,9 +220,15 @@ class Runner:
         if f0 is None:
             f0 = problem.initial_state()
         f = state_from_numpy(f0, problem, self.device)
-        forces_path = os.path.join(p.output_dir, "forces.csv")
-        force_writer = io_mod.ForceWriter(forces_path, append=start_step > 0,
-                                          resume_step=start_step)
+        force_writer = forces_path = nu_writer = None
+        if self._forces is not None:
+            forces_path = os.path.join(p.output_dir, "forces.csv")
+            force_writer = io_mod.ForceWriter(
+                forces_path, append=start_step > 0, resume_step=start_step)
+        if self._nusselt is not None:
+            nu_writer = io_mod.NusseltWriter(
+                os.path.join(p.output_dir, "nusselt.csv"),
+                append=start_step > 0, resume_step=start_step)
         meter = ThroughputMeter(p.num_cells, self.device)
         if self.verbose:
             print("Starting LBM simulation...")
@@ -239,17 +265,24 @@ class Runner:
                         aborted = False
                         for j in range(_SUPER_K):
                             tj = t + j * freq
-                            fv = d["forces"][j]
-                            cd, cl = forces_mod.force_coefficients(problem, fv)
-                            force_writer.record(tj, float(fv[0]),
-                                                float(fv[1]), cd, cl)
+                            if force_writer is not None:
+                                fv = d["forces"][j]
+                                cd, cl = forces_mod.force_coefficients(
+                                    problem, fv)
+                                force_writer.record(tj, float(fv[0]),
+                                                    float(fv[1]), cd, cl)
+                            if nu_writer is not None:
+                                nu_writer.record(tj,
+                                                 float(d["nusselt"][j]))
                             if tj > 0 and self.verbose:
                                 print(f"Timestep {tj}: "
                                       f"max_vel={float(d['max_vel'][j]):.6f}")
                             if vtk_window and tj > 0 and tj >= p.vtk_start_step:
                                 # copies: a view would pin the whole window
-                                self._submit_frame(np.array(d["rho"][j]),
-                                                   np.array(d["u"][j]), tj)
+                                self._submit_frame(
+                                    np.array(d["rho"][j]), np.array(d["u"][j]),
+                                    tj, np.array(d["temp"][j])
+                                    if "temp" in d else None)
                             if not d["stable"][j]:
                                 print(f"Simulation unstable at timestep {tj}")
                                 success = False
@@ -267,16 +300,22 @@ class Runner:
 
                     # the tail: one diagnostics fetch per output interval
                     if t % freq == 0:
-                        fx, fy, mv, stable = self._diag(f)
-                        cd, cl = forces_mod.force_coefficients(
-                            problem, np.array([fx, fy]))
-                        force_writer.record(t, float(fx), float(fy), cd, cl)
+                        dv = self._diag(f)
+                        fx, fy, mv, stable = dv[:4]
+                        if force_writer is not None:
+                            cd, cl = forces_mod.force_coefficients(
+                                problem, np.array([fx, fy]))
+                            force_writer.record(t, float(fx), float(fy), cd,
+                                                cl)
+                        if nu_writer is not None:
+                            nu_writer.record(t, float(dv[4]))
                         if t > 0:
                             if self.verbose:
                                 print(f"Timestep {t}: max_vel={float(mv):.6f}")
                             if p.enable_vtk and t >= p.vtk_start_step:
                                 rho_f, u_f = self._fetch_fields(f)
-                                self._submit_frame(rho_f, u_f, t)
+                                self._submit_frame(rho_f, u_f, t,
+                                                   self._fetch_temp(f))
                         if not stable:
                             print(f"Simulation unstable at timestep {t}")
                             success = False
@@ -300,7 +339,9 @@ class Runner:
                     print(f"Simulation unstable at timestep {t}")
                     success = False
         finally:
-            force_writer.close()
+            for writer in (force_writer, nu_writer):
+                if writer is not None:
+                    writer.close()
             try:
                 self._drain_io()
             finally:
@@ -318,9 +359,11 @@ class Runner:
 
     def write_final_results(self, f: torch.Tensor,
                             fields_prev=None) -> dict | None:
-        """The final artifacts (tpulbm/runner.py:624-707). 2-D:
-        velocity_field.csv, simulation_params.csv and the time-averaged drag
-        summary; 3-D: fields3d.npz and, with VTK on, a final frame. With
+        """The final artifacts (tpulbm/runner.py:636-706). 2-D:
+        velocity_field.csv, simulation_params.csv and, with an obstacle,
+        the time-averaged drag summary; thermal: temperature_field.csv and
+        the final Nusselt number; 3-D: fields3d.npz and, with VTK on, a
+        final frame. With
         `fields_prev` (the fields one step before the end), interior values
         come from the last collision and the inlet and outlet columns from
         the final BC application, as in the reference."""
@@ -355,9 +398,25 @@ class Runner:
             return None
         io_mod.write_velocity_field(u[0], u[1], rho, p, p.output_dir)
         io_mod.write_simulation_params(u[0], u[1], p, p.output_dir)
-        stats = io_mod.calculate_time_averaged_drag(
-            os.path.join(p.output_dir, "forces.csv"), verbose=self.verbose)
+        written = ["velocity_field.csv", "simulation_params.csv"]
+        stats = None
+        if problem.thermal is not None:
+            th = problem.thermal
+            T = self._fetch_temp(f)
+            io_mod.write_temperature_field(T, p, p.output_dir)
+            written += ["nusselt.csv", "temperature_field.csv"]
+            # Nu from the host fields, as tpulbm computes it: u of the
+            # reported fields, T of the final state
+            nu = 1.0 + (np.mean(u[1] * T) * effective_height(p)
+                        / (th.alpha * (th.t_bottom - th.t_top)))
+            stats = {"nusselt": float(nu)}
+            if self.verbose:
+                print(f"Nusselt number = {nu:.4f}")
+        if problem.solid is not None:
+            stats = io_mod.calculate_time_averaged_drag(
+                os.path.join(p.output_dir, "forces.csv"),
+                verbose=self.verbose)
+            written.append("forces.csv")
         if self.verbose:
-            print("Files written: velocity_field.csv, simulation_params.csv, "
-                  "forces.csv")
+            print("Files written: " + ", ".join(written))
         return stats

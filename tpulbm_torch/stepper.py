@@ -14,7 +14,8 @@ import os
 import torch
 
 from .models.base import Problem
-from .ops import diagnostics, forces as forces_mod, step_cuda, step_torch
+from .ops import (diagnostics, forces as forces_mod, step_cuda,
+                  step_thermal, step_thermal_cuda, step_torch)
 
 
 def choose_substeps(chunk_len: int) -> int:
@@ -52,8 +53,11 @@ def make_chunk_fn(problem: Problem, device, chunk_len: int,
     backend="pallas": the CUDA kernels (their plain version for CPU
     tensors). 2-D: chunk_len // N launches of the N-step kernel at the
     depth N of choose_substeps, or chunk_len launches of the 1-step kernel
-    at N=1. 3-D: chunk_len launches of the D3Q19 kernel (check_substeps_3d);
-    backend="jax": the plain PyTorch step, in f32 or f64.
+    at N=1. 3-D: chunk_len launches of the D3Q19 kernel (check_substeps_3d).
+    Thermal: chunk_len launches of the thermal kernel, one step each, as
+    tpulbm's body_thermal_pallas scans its 1-step kernel
+    (TPULBM_SUBSTEPS does not apply). backend="jax": the plain PyTorch
+    step, in f32 or f64.
     fn.substeps is N (1 for the plain step), tpulbm's chunk.pallas_substeps.
     The input f is donated: its storage is reused as a ping-pong buffer.
     """
@@ -65,7 +69,10 @@ def make_chunk_fn(problem: Problem, device, chunk_len: int,
             raise NotImplementedError(
                 "the CUDA kernel runs float32 only, as tpulbm's Pallas "
                 "kernels do; use backend='jax' for f64")
-        if problem.lattice.D == 3:
+        if problem.thermal is not None:
+            step = step_thermal_cuda.make_local_step_thermal_cuda(problem,
+                                                                  device)
+        elif problem.lattice.D == 3:
             check_substeps_3d()
             step = step_cuda.make_local_step_cuda_3d(problem, device)
         else:
@@ -82,7 +89,10 @@ def make_chunk_fn(problem: Problem, device, chunk_len: int,
                 f, spare = step(f, spare), f
             return f
     elif backend == "jax":
-        step_plain = step_torch.make_step_rolled(problem, torch.device(device))
+        device = torch.device(device)
+        step_plain = (step_thermal.make_step_thermal(problem, device)
+                      if problem.thermal is not None
+                      else step_torch.make_step_rolled(problem, device))
 
         def chunk(f: torch.Tensor) -> torch.Tensor:
             for _ in range(chunk_len):
@@ -103,43 +113,65 @@ def make_super_chunk_fn(problem: Problem, device, interval_len: int,
 
     diags is ONE flat device tensor in f's dtype; fn.unpack(diags) splits it
     (or a host copy of it) into forces (K, 2) (fx and fy, what forces.csv
-    records), max_vel (K,), stable (K,) (1 or 0) and, with with_fields,
-    rho (K, *spatial) and u (K, D, *spatial): each taken at an interval's
-    starting state, the reference's output cadence. Port of
-    sharded_step.make_super_chunk_fn without with_stats.
+    records; zeros without an obstacle), max_vel (K,), stable (K,) (1 or 0),
+    for thermal problems nusselt (K,), and, with with_fields, rho
+    (K, *spatial), u (K, D, *spatial) and, thermal, temp (K, *spatial):
+    each taken at an interval's starting state, the reference's output
+    cadence. Port of sharded_step.make_super_chunk_fn without with_stats;
+    the Nusselt number rides the same round trip as there.
     """
     chunk = make_chunk_fn(problem, device, interval_len, backend=backend)
-    force = forces_mod.forces_fn(problem, device)
+    force = (forces_mod.forces_fn(problem, device)
+             if problem.solid is not None else None)
     max_vel = diagnostics.max_velocity_fn(problem, device)
     stable = diagnostics.stability_fn(problem)
     fields = diagnostics.fields_fn(problem, device) if with_fields else None
+    thermal = problem.thermal is not None
+    nusselt = diagnostics.nusselt_fn(problem) if thermal else None
+    temp = (diagnostics.temperature_fn(problem)
+            if thermal and with_fields else None)
     k = n_intervals
     spatial = tuple(problem.spatial_shape)
     dims = problem.lattice.D
     cells = math.prod(spatial)
-    n_scalar = 4 * k                     # fx, fy, max |u|, stable
-    size = n_scalar + ((1 + dims) * k * cells if with_fields else 0)
+    per = 5 if thermal else 4            # fx, fy, max |u|, stable[, Nu]
+    n_scalar = per * k
+    n_fields = (1 + dims + (1 if thermal else 0)) * k * cells
+    size = n_scalar + (n_fields if with_fields else 0)
 
     def unpack(flat) -> dict:
-        scalars = flat[:n_scalar].reshape(k, 4)
+        scalars = flat[:n_scalar].reshape(k, per)
         out = {"forces": scalars[:, :2], "max_vel": scalars[:, 2],
                "stable": scalars[:, 3]}
+        if thermal:
+            out["nusselt"] = scalars[:, 4]
         if with_fields:
-            out["rho"] = flat[n_scalar:n_scalar + k * cells].reshape(
-                (k,) + spatial)
-            out["u"] = flat[n_scalar + k * cells:].reshape((k, dims)
-                                                           + spatial)
+            at = n_scalar
+            out["rho"] = flat[at:at + k * cells].reshape((k,) + spatial)
+            at += k * cells
+            out["u"] = flat[at:at + dims * k * cells].reshape(
+                (k, dims) + spatial)
+            at += dims * k * cells
+            if thermal:
+                out["temp"] = flat[at:at + k * cells].reshape((k,) + spatial)
         return out
 
     def fn(f: torch.Tensor):
         flat = torch.empty(size, dtype=f.dtype, device=f.device)
         views = unpack(flat)
         for j in range(k):
-            views["forces"][j] = force(f)[:2]
+            if force is None:
+                views["forces"][j] = 0.0
+            else:
+                views["forces"][j] = force(f)[:2]
             views["max_vel"][j] = max_vel(f)
             views["stable"][j] = stable(f)
+            if nusselt is not None:
+                views["nusselt"][j] = nusselt(f)
             if fields is not None:
                 views["rho"][j], views["u"][j] = fields(f)
+            if temp is not None:
+                views["temp"][j] = temp(f)
             f = chunk(f)
         return f, flat
 
