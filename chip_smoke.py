@@ -8,9 +8,10 @@ printing its own line; any failure exits non-zero:
 
 1. the card: torch.cuda must see it; nvidia-smi's name and power limit;
 2. build: nvcc compiles tpulbm_torch/csrc/step_d2q9.cu,
-   step_d2q9_blocked.cu and step_d3q19.cu, all at once (timed; ptxas's
-   registers, shared memory and spills for each, and the dynamic shared
-   memory the N-step and D3Q19 kernels ask for);
+   step_d2q9_blocked.cu, step_d3q19.cu, step_thermal.cu and
+   step_multiphase.cu, all at once (timed; ptxas's registers, shared
+   memory and spills for each, and the dynamic shared memory the N-step
+   and D3Q19 kernels ask for);
 3. kernels against plain at 2048x512 (re200): one step of the 1-step
    kernel from the initial state and from a state the plain step advanced
    500 steps, at rtol 5e-6 / atol 1e-7; 280 steps of each (max error
@@ -64,19 +65,43 @@ printing its own line; any failure exits non-zero:
    and the rayleigh-benard preset (128x64, Ra 1e4, 60,000 steps) ends
    with 2 < Nu < 3 (convecting, not conductive, not running away);
 12. thermal timing at 2048x512, in turns: the plain thermal step and the
-   kernel, ms/step, MLUPS, GB/s and the share of 3.35 TB/s at 112 B/cell.
+   kernel, ms/step, MLUPS, GB/s and the share of 3.35 TB/s at 112 B/cell;
+13. multiphase parity (Shan-Chen, D2Q9): at bench.py's multiphase row (a
+   droplet of radius 0.15 ny, g -5, tau 1.0, 2048x512, periodic x), the
+   64x32 band with a wetting wall (wall rho 1.6) and droplets at a ragged
+   7x3 and 100x70: one kernel step against one plain step from the
+   initial state and after 500 plain steps, at rtol 5e-6 / atol 1e-7;
+   280 steps at 2048x512 (max error bounded by 1e-4);
+14. the multiphase main path: the Runner on that droplet in f32, 2240
+   steps at output_frequency 140, no VTK: exactly 2240 launches of the
+   multiphase kernel and none of another kernel, no forces.csv, a finite
+   1,048,576-row velocity_field.csv holding the physical velocity
+   u + F/(2 rho) of the state 2239 kernel steps on (not the bare
+   moments), total mass within 1e-5 of t = 0 once the float32 weights'
+   known excess (2^-27 a step, MP_WEIGHT_EXCESS) is taken off, and within
+   1e-6 of the plain step's; host fetches, wall time and runner MLUPS;
+15. multiphase physics, the kernel in f32 at tests/test_multiphase.py's
+   sizes and thresholds: phase separation (the 64x32 band, 2000 steps,
+   rho_max/rho_min > 5, a flat liquid interior), the Laplace law (80x80
+   droplets of radius 0.12 and 0.20 ny, 6000 steps each, dP > 0,
+   R2 > R1 > 3, sigma from the two within 20%), wettability (96x48,
+   4000 steps at wall rho 1.6, 1.0, 0.16: the spread width orders
+   strictly);
+16. multiphase timing at 2048x512, in turns: the plain step and the
+   kernel, ms/step, MLUPS, GB/s and the share of its bound at 72 B/cell.
 
 Run directories go to build/chip_smoke/ (git-ignored; the final CSVs have
 a million rows). The last two lines are a JSON line per kernel and the
 result line; a kernel's `launches` is its count in the run that drives
 it through the Runner: phase 4 for the 1-step and N=4 kernels, phase 4c
 for N=2 and N=3, phase 7 for the D3Q19 kernel, phase 10 for the thermal
-kernel. A kernel's `bound_ms` is the least time the card could take for
-one step of its work at the shape it was timed at: the larger of the
-bytes a step must move (each population read once and written once, the
-solid mask read once) over 3.35 TB/s and its floating-point operations
-over the 67 TFLOP/s float32 peak; `library_ms` is null, as no single
-PyTorch call computes a lattice-Boltzmann step.
+kernel, phase 14 for the multiphase kernel. A kernel's `bound_ms` is the
+least time the card could take for one step of its work at the shape it
+was timed at: the larger of the bytes a step must move (each population
+read once and written once, the solid mask read once) over 3.35 TB/s and
+its floating-point operations over the 67 TFLOP/s float32 peak;
+`library_ms` is null, as no single PyTorch call computes a
+lattice-Boltzmann step.
 """
 from __future__ import annotations
 
@@ -111,11 +136,36 @@ F32_FLOPS_PER_S = 67e12
 # floating-point operations, counted from the plain version's expressions
 # (moments, equilibria, relaxation, source; boundary rows neglected)
 STEP_BYTES = {"d2q9": 9 * 4 * 2 + 1, "d3q19": 19 * 4 * 2 + 1,
-              "thermal": 14 * 4 * 2}
-STEP_FLOPS = {"d2q9": 115, "d3q19": 256, "thermal": 165}
+              "thermal": 14 * 4 * 2, "multiphase": 9 * 4 * 2}
+# multiphase: ρ, m and ψ (8 + 10 + 5, expf counted as one operation), the
+# ψ-stencil force (25), the shifted velocity (8) and the BGK relaxation (94)
+STEP_FLOPS = {"d2q9": 115, "d3q19": 256, "thermal": 165, "multiphase": 150}
 # bench.py's thermal row and the physics gates of tests/test_thermal*.py
 THERMAL_NX, THERMAL_NY = 2048, 512
 DE_VAHL_DAVIS_NU = 2.243
+# bench.py's multiphase row (the droplet) and tests/test_multiphase.py's
+# physics gates
+MP_NX, MP_NY = 2048, 512
+# Mass: the walls and the pull conserve it exactly, but the nine float32
+# weights sum to 1 + 2^-27, so at tau = 1 (where a cell's post-collision
+# populations are its equilibrium) every step scales the mass by 1 + 2^-27:
+# +1.67e-5 over 2239 steps from that term alone, which the plain float32
+# step (and tpulbm's float32 tiers) share. The gate holds the relative
+# drift from t = 0, less `steps` times that term, within MP_MASS_TOL, and
+# the kernel's mass within MP_MASS_VS_PLAIN of the plain step's after the
+# same steps.
+MP_WEIGHT_EXCESS = float(np.array([4 / 9] + [1 / 9] * 4 + [1 / 36] * 4,
+                                  np.float32).astype(np.float64).sum() - 1)
+MP_MASS_TOL = 1e-5
+MP_MASS_VS_PLAIN = 1e-6
+
+
+def mass_gate(drift: float, steps: int) -> tuple[bool, str]:
+    """(passed, text) of the multiphase mass gate after `steps` steps."""
+    excess = drift - steps * MP_WEIGHT_EXCESS
+    return abs(excess) < MP_MASS_TOL, (
+        f"mass drift {drift:.3e} from t = 0, {excess:.3e} beyond the float32 "
+        f"weights' {steps} x {MP_WEIGHT_EXCESS:.3e} (gate {MP_MASS_TOL})")
 
 
 def require(cond: bool, msg: str) -> None:
@@ -163,20 +213,43 @@ def same_files(a: Path, b: Path, names) -> bool:
 def run_counted(params, dev):
     """One Runner run with every launch count set to 0 just before it;
     returns (result, counts read just after, wall seconds)."""
-    from tpulbm_torch.ops import step_cuda, step_thermal_cuda
     from tpulbm_torch.runner import Runner
 
     runner = Runner(params, device=dev, verbose=False)
-    step_cuda.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     result = runner.run()
     wall = time.perf_counter() - t0
-    counts = {1: step_cuda.collide_stream.launches,
-              **step_cuda.collide_stream_blocked.launches,
-              "3d": step_cuda.collide_stream_3d.launches,
-              "thermal": step_thermal_cuda.collide_stream_thermal.launches}
+    counts = read_counts()
     require(result.success, f"run in {params.output_dir} failed")
     return result, counts, wall
+
+
+def reset_counts() -> None:
+    from tpulbm_torch.ops import step_cuda
+    step_cuda.reset_launch_counts()
+
+
+def read_counts() -> dict:
+    """Every kernel's launch count: 1 (D2Q9 1-step), 2-4 (N-step), "3d",
+    "thermal", "multiphase"."""
+    from tpulbm_torch.ops import (step_cuda, step_multiphase_cuda,
+                                  step_thermal_cuda)
+    return {1: step_cuda.collide_stream.launches,
+            **step_cuda.collide_stream_blocked.launches,
+            "3d": step_cuda.collide_stream_3d.launches,
+            "thermal": step_thermal_cuda.collide_stream_thermal.launches,
+            "multiphase":
+                step_multiphase_cuda.collide_stream_multiphase.launches}
+
+
+def only(kind, n: int) -> dict:
+    """The launch counts of a run that launched `kind` n times and no
+    other kernel."""
+    counts = {1: 0, 2: 0, 3: 0, 4: 0, "3d": 0, "thermal": 0,
+              "multiphase": 0}
+    counts[kind] = n
+    return counts
 
 
 def check_forces(path: Path, steps: list[int]) -> np.ndarray:
@@ -282,8 +355,8 @@ def sphere_phases(dev, card: str) -> dict:
     main_params = params.replace(num_timesteps=2240, output_frequency=140,
                                  output_dir=str(run_dir))
     result, counts, wall = run_counted(main_params, dev)
-    require(counts == {1: 0, 2: 0, 3: 0, 4: 0, "3d": 2240, "thermal": 0},
-            f"launch counts {counts}, not 2240 D3Q19 and 0 D2Q9")
+    require(counts == only("3d", 2240),
+            f"launch counts {counts}, not 2240 D3Q19 and 0 others")
     forces = check_forces(run_dir, list(range(0, 2240, 140)))
     with np.load(run_dir / "fields3d.npz") as fields:
         for name in ("rho", "ux", "uy", "uz"):
@@ -401,8 +474,8 @@ def thermal_phases(dev, card: str) -> dict:
     params = thermal_params("rayleigh-benard", nx, ny, num_timesteps=2240,
                             output_frequency=140, output_dir=str(run_dir))
     result, counts, wall = run_counted(params, dev)
-    require(counts == {1: 0, 2: 0, 3: 0, 4: 0, "3d": 0, "thermal": 2240},
-            f"launch counts {counts}, not 2240 thermal and 0 D2Q9/D3Q19")
+    require(counts == only("thermal", 2240),
+            f"launch counts {counts}, not 2240 thermal and 0 others")
     nu = final_nusselt(run_dir, list(range(0, 2240, 140)))
     temp = np.loadtxt(run_dir / "temperature_field.csv", delimiter=",",
                       skiprows=1)
@@ -464,6 +537,234 @@ def thermal_phases(dev, card: str) -> dict:
             **bound("thermal", cells)}
 
 
+def mp_params(nx: int, ny: int, **kw):
+    """bench.py's multiphase row (g -5, tau 1.0, a droplet of radius
+    0.15 ny at the centre) on an nx x ny grid, f32, no VTK; kw overrides."""
+    from tpulbm_torch.config import SimulationParams
+    d = dict(problem="multiphase", nx=nx, ny=ny, tau=1.0, shan_chen_g=-5.0,
+             inlet_velocity=0.0, cylinder_radius=0.15, cylinder_x=0.5,
+             cylinder_y=0.5, precision="f32", enable_vtk=False)
+    d.update(kw)
+    return SimulationParams(**d)
+
+
+def mp_parity(dev, label: str, params):
+    """Phase 13 on one grid: one kernel step against one plain multiphase
+    step from the initial state and after 500 plain steps. Returns (the
+    larger error, the problem, the kernel and plain steps, the initial
+    state)."""
+    from tpulbm_torch.convert import state_from_numpy
+    from tpulbm_torch.models import make_problem
+    from tpulbm_torch.ops import step_multiphase, step_multiphase_cuda
+
+    problem = make_problem(params)
+    kstep = step_multiphase_cuda.make_local_step_multiphase_cuda(problem, dev)
+    pstep = step_multiphase.make_step_multiphase(problem, dev)
+    f0 = state_from_numpy(problem.initial_state(), problem, dev)
+    errs = []
+    for f in (f0, plain_chunk(pstep, f0.clone(), 500)):
+        got = kstep(f, torch.empty_like(f))
+        want = pstep(f)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **ONE_STEP_TOL)
+        errs.append(float((got - want).abs().max()))
+    print(f"multiphase parity {label} {params.nx}x{params.ny}: 1 step max "
+          f"abs err {errs[0]:.3e} from the initial state, {errs[1]:.3e} "
+          f"after 500 plain steps (rtol 5e-6, atol 1e-7)")
+    return max(errs), problem, kstep, pstep, f0
+
+
+def mp_run(dev, params, steps: int) -> tuple[np.ndarray, float, int]:
+    """`steps` steps of a multiphase problem from its initial state through
+    the kernel, as the Runner's chunks make them. Returns (rho summed in
+    float64, relative mass drift, kernel launches)."""
+    from tpulbm_torch.convert import state_from_numpy
+    from tpulbm_torch.models import make_problem
+    from tpulbm_torch.stepper import make_chunk_fn
+
+    problem = make_problem(params)
+    f = state_from_numpy(problem.initial_state(), problem, dev)
+    mass0 = float(f.double().sum())
+    reset_counts()
+    f = make_chunk_fn(problem, dev, steps, backend="pallas")(f)
+    launches = read_counts()["multiphase"]
+    rho = f.double().sum(0)
+    require(bool(torch.isfinite(rho).all()), "multiphase run not finite")
+    drift = (float(rho.sum()) - mass0) / mass0
+    return rho.cpu().numpy(), drift, launches
+
+
+def mp_physics(dev) -> None:
+    """Phase 15: tests/test_multiphase.py's physics gates with the kernel
+    in f32 at its sizes and thresholds."""
+    from tpulbm_torch import physics
+
+    # phase separation: the 64x32 band, 2000 steps
+    rho, drift, n = mp_run(dev, mp_params(64, 32, cylinder_radius=0.0), 2000)
+    ratio = rho.max() / rho.min()
+    liq = rho[rho.shape[0] // 2][28:36]
+    flat = liq.std() / liq.mean()
+    mass_ok, mass_text = mass_gate(drift, n)
+    print(f"multiphase physics: band 64x32, 2000 steps ({n} launches): "
+          f"rho_max/rho_min {ratio:.6f} (gate > 5), liquid interior "
+          f"std/mean {flat:.3e} (gate < 0.01), {mass_text}")
+    require(n == 2000 and ratio > 5.0 and flat < 0.01 and mass_ok,
+            "phase separation gate failed")
+
+    # the Laplace law: ΔP = σ/R from two droplet radii
+    def laplace(frac: float, n_xy: int = 80, steps: int = 6000):
+        rho, _, n = mp_run(dev, mp_params(n_xy, n_xy, cylinder_radius=frac),
+                           steps)
+        require(n == steps, f"Laplace run: {n} launches")
+        P = physics.shan_chen_pressure(torch.from_numpy(rho), -5.0).numpy()
+        c = n_xy // 2
+        p_in = P[c - 1:c + 2, c - 1:c + 2].mean()
+        # far field at mid-height near the periodic x edges (the phantom
+        # rho = 1 walls wet partially, so corners overestimate it)
+        p_out = np.concatenate([P[c - 1:c + 2, 1:4].ravel(),
+                                P[c - 1:c + 2, -4:-1].ravel()]).mean()
+        cut = 0.5 * (rho.max() + rho.min())
+        return p_in - p_out, float(np.sqrt((rho > cut).sum() / np.pi))
+
+    (dp1, r1), (dp2, r2) = laplace(0.12), laplace(0.20)
+    s1, s2 = dp1 * r1, dp2 * r2
+    spread = abs(s1 - s2) / max(s1, s2)
+    print(f"multiphase physics: Laplace law 80x80, 6000 steps each: R1 "
+          f"{r1:.4f} dP1 {dp1:.6e} sigma1 {s1:.6e}; R2 {r2:.4f} dP2 "
+          f"{dp2:.6e} sigma2 {s2:.6e}; sigma spread {100 * spread:.2f}% "
+          f"(gate 20%)")
+    require(dp1 > 0 and dp2 > 0 and r2 > r1 > 3.0 and spread < 0.20,
+            "Laplace-law gate failed")
+
+    # wettability: the spread width one row off the wall orders with the
+    # wall density
+    widths = {}
+    for wall in (1.6, 1.0, 0.16):
+        rho, _, n = mp_run(dev, mp_params(96, 48, cylinder_radius=0.25,
+                                          cylinder_y=0.0, mp_wall_rho=wall),
+                           4000)
+        require(n == 4000, f"wettability run: {n} launches")
+        cut = 0.5 * (rho.max() + rho.min())
+        widths[wall] = int((rho[1] > cut).sum())
+    print(f"multiphase physics: wettability 96x48, 4000 steps each: spread "
+          f"width at wall rho 1.6 / 1.0 / 0.16: {widths[1.6]} / "
+          f"{widths[1.0]} / {widths[0.16]} (gate strictly decreasing)")
+    require(widths[1.6] > widths[1.0] > widths[0.16],
+            "wettability gate failed")
+
+
+def multiphase_phases(dev, card: str) -> dict:
+    """Phases 13-16: the multiphase kernel against the plain step, the
+    multiphase main path through the Runner, the physics gates and
+    timing. Returns the kernel's JSON entry."""
+    from tpulbm_torch import physics
+    from tpulbm_torch.ops import diagnostics, step_multiphase_cuda
+
+    # phase 13: parity at the main path's shape, the band with a wetting
+    # wall, two ragged grids; 280 steps at the main path's shape
+    t_phases = time.perf_counter()
+    nx, ny = MP_NX, MP_NY
+    err, problem, kstep, pstep, f0 = mp_parity(dev, "droplet",
+                                               mp_params(nx, ny))
+    for label, p in (("band, wall rho 1.6",
+                      mp_params(64, 32, cylinder_radius=0.0,
+                                mp_wall_rho=1.6)),
+                     ("droplet", mp_params(7, 3, cylinder_radius=0.3)),
+                     ("droplet", mp_params(100, 70))):
+        err = max(err, mp_parity(dev, label, p)[0])
+    fk = kernel_chunk(kstep, f0.clone(), 280)
+    fp = plain_chunk(pstep, f0.clone(), 280)
+    torch.cuda.synchronize()
+    err_280 = float((fk - fp).abs().max())
+    require(np.isfinite(err_280) and err_280 < DRIFT_280_BOUND,
+            f"multiphase 280-step drift {err_280} beyond {DRIFT_280_BOUND}")
+    print(f"multiphase parity 280 steps at {nx}x{ny}: max abs err "
+          f"{err_280:.3e} (bound {DRIFT_280_BOUND})")
+    del fk, fp
+
+    # phase 14: the multiphase main path, counted
+    run_dir = OUT_DIR / "multiphase_2048x512"
+    params = mp_params(nx, ny, num_timesteps=2240, output_frequency=140,
+                       output_dir=str(run_dir))
+    result, counts, wall = run_counted(params, dev)
+    require(counts == only("multiphase", 2240),
+            f"launch counts {counts}, not 2240 multiphase and 0 others")
+    require(not (run_dir / "forces.csv").exists(),
+            "a multiphase run wrote forces.csv")
+    field = np.loadtxt(run_dir / "velocity_field.csv", delimiter=",",
+                       skiprows=1)
+    require(field.shape == (nx * ny, 6),
+            f"velocity_field.csv shape {field.shape}")
+    require(bool(np.isfinite(field).all()), "velocity_field.csv not finite")
+    # the file holds the fields one step before the end: the physical
+    # velocity u + F/(2 rho) of the state after 2239 kernel steps (the
+    # same launches as the Runner's, so the same bits), to the CSV's 8
+    # decimals, and not the bare moments
+    f_end = kernel_chunk(kstep, f0.clone(), 2239)
+    rho_p, u_p = diagnostics.fields_fn(problem, dev)(f_end)
+    want = np.stack([u_p[0].cpu().numpy().ravel(),
+                     u_p[1].cpu().numpy().ravel(),
+                     rho_p.cpu().numpy().ravel()], axis=1)
+    csv_err = float(np.abs(field[:, 2:5] - want).max())
+    require(csv_err < 1e-8, f"velocity_field.csv {csv_err} off the "
+            "physical velocity")
+    _, u_bare = physics.moments(problem.lattice, f_end)
+    shift = float(np.abs(field[:, 2] - u_bare[0].cpu().numpy().ravel())
+                  .max())
+    require(shift > 1e-6, f"velocity_field.csv carries the bare moments "
+            f"(max |u - u_bare| {shift})")
+    mass0 = float(f0.double().sum())
+    mass = float(field[:, 4].sum())
+    mass_plain = float(plain_chunk(pstep, f0.clone(), 2239).double().sum())
+    mass_ok, mass_text = mass_gate((mass - mass0) / mass0, 2239)
+    vs_plain = abs(mass - mass_plain) / mass0
+    require(mass_ok and vs_plain < MP_MASS_VS_PLAIN,
+            f"{mass_text}; {vs_plain} off the plain step's")
+    print(f"multiphase main path: droplet {nx}x{ny} f32, 2240 steps, "
+          f"launches {counts['multiphase']} multiphase (others: "
+          f"{sum(counts.values()) - counts['multiphase']}), "
+          f"{result.host_fetches} host fetches in the loop, {wall:.2f} s "
+          f"wall, runner {result.mlups:.1f} MLUPS; velocity_field.csv "
+          f"{csv_err:.3e} off the physical velocity (max |F/(2 rho)| "
+          f"{shift:.3e}); {mass_text}, {vs_plain:.3e} off the plain "
+          f"step's after 2239 steps (gate {MP_MASS_VS_PLAIN})")
+    del f_end, u_bare
+
+    # phase 15: the physics gates
+    t0 = time.perf_counter()
+    mp_physics(dev)
+    print(f"multiphase physics: gates passed in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # phase 16: timing in turns; the plain step is host-bound
+    runs = {"plain": (lambda f, n: plain_chunk(pstep, f, n), 200),
+            "kernel": (lambda f, n: kernel_chunk(kstep, f, n), 2400)}
+    times = {k: [] for k in runs}
+    for which in ["plain", "kernel", "kernel", "plain"]:
+        run, steps = runs[which]
+        times[which].append(ms_per_step(run, f0, steps))
+    ms = {k: min(v) for k, v in times.items()}
+    cells = nx * ny
+    b = bound("multiphase", cells)
+    bw = cells * STEP_BYTES["multiphase"] / (ms["kernel"] * 1e-3)
+    print(f"multiphase timing at {nx}x{ny} on {card}, ms/step (MLUPS): "
+          f"plain {ms['plain']:.5f} ({cells / ms['plain'] / 1e3:.1f}, runs "
+          f"{[round(v, 6) for v in times['plain']]}); kernel "
+          f"{ms['kernel']:.5f} ({cells / ms['kernel'] / 1e3:.1f}, runs "
+          f"{[round(v, 6) for v in times['kernel']]}); kernel "
+          f"{bw / 1e9:.1f} GB/s, {100 * b['bound_ms'] / ms['kernel']:.1f}% "
+          f"of its bound {b['bound_ms']:.5f} ms at "
+          f"{STEP_BYTES['multiphase']} B/cell")
+    del f0
+    torch.cuda.empty_cache()
+    print(f"multiphase phases 13-16: {time.perf_counter() - t_phases:.2f} s")
+    return {"name": "multiphase_collide_stream", "route": "cuda",
+            "source": step_multiphase_cuda.SOURCE,
+            "replaces": step_multiphase_cuda.REPLACES,
+            "launches": counts["multiphase"], "max_abs_err": err,
+            "ms": ms["kernel"], "plain_ms": ms["plain"], **b}
+
+
 def main() -> int:
     # phase 1: the card
     if not torch.cuda.is_available():
@@ -487,7 +788,7 @@ def main() -> int:
     # phase 2: build from the checkout's sources, one nvcc per source
     t0 = time.perf_counter()
     sources = ["step_d2q9.cu", "step_d2q9_blocked.cu", "step_d3q19.cu",
-               "step_thermal.cu"]
+               "step_thermal.cu", "step_multiphase.cu"]
     with ThreadPoolExecutor(len(sources)) as pool:
         libs = list(pool.map(cuda_build.load, sources))
     print(f"build: {len(sources)} sources in "
@@ -569,9 +870,9 @@ def main() -> int:
     main_params = params.replace(num_timesteps=2800, output_frequency=140,
                                  output_dir=str(run_dir))
     result, counts, wall = run_counted(main_params, dev)
-    require(counts == {1: 140, 2: 0, 3: 0, 4: 665, "3d": 0, "thermal": 0},
-            f"launch counts {counts}, not 665 N=4, 140 1-step, 0 N=2/N=3, "
-            "0 D3Q19 and 0 thermal")
+    require(counts == {**only(4, 665), 1: 140},
+            f"launch counts {counts}, not 665 N=4, 140 1-step and 0 "
+            "others")
     forces = check_forces(run_dir, list(range(0, 2800, 140)))
     field = np.loadtxt(run_dir / "velocity_field.csv", delimiter=",",
                        skiprows=1)
@@ -608,7 +909,7 @@ def main() -> int:
     p23 = params.replace(num_timesteps=311, output_frequency=150,
                          output_dir=str(d23))
     _, counts23, _ = run_counted(p23, dev)
-    require(counts23 == {1: 1, 2: 5, 3: 100, 4: 0, "3d": 0, "thermal": 0},
+    require(counts23 == {**only(3, 100), 1: 1, 2: 5},
             f"launch counts {counts23}, not 100 N=3, 5 N=2, 1 1-step")
     check_forces(d23, [0, 150, 300])
     d1 = OUT_DIR / "re200_f150_unblocked"
@@ -657,6 +958,7 @@ def main() -> int:
             "plain_ms": ms["plain"], **bound("d2q9", cells, n)})
     kernels.append(sphere_phases(dev, card))
     kernels.append(thermal_phases(dev, card))
+    kernels.append(multiphase_phases(dev, card))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain version, and the N-step kernel
-against N launches of the 1-step kernel, on the card: D2Q9, D3Q19 and the
-thermal D2Q9 + D2Q5 kernel. These tests need an
-NVIDIA GPU with nvcc and skip elsewhere; run them on the card with
+against N launches of the 1-step kernel, on the card: D2Q9, D3Q19, the
+thermal D2Q9 + D2Q5 kernel and the Shan-Chen multiphase kernel. These
+tests need an NVIDIA GPU with nvcc and skip elsewhere; run them on the
+card with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
@@ -12,8 +13,9 @@ import torch
 from tpulbm_torch.config import SimulationParams
 from tpulbm_torch.convert import state_from_numpy
 from tpulbm_torch.models import make_problem
-from tpulbm_torch.ops import (step_cuda, step_thermal, step_thermal_cuda,
-                              step_torch)
+from tpulbm_torch.ops import (step_cuda, step_multiphase,
+                              step_multiphase_cuda, step_thermal,
+                              step_thermal_cuda, step_torch)
 from tpulbm_torch.stepper import make_chunk_fn
 
 pytestmark = pytest.mark.requires_cuda
@@ -199,5 +201,55 @@ def test_thermal_chunk_counts_every_launch(cuda):
     assert step_cuda.collide_stream.launches == 0
     assert step_cuda.collide_stream_3d.launches == 0
     want = make_chunk_fn(problem, cuda, 28, backend="jax")(s)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+
+
+# Shan-Chen multiphase: grids smaller than one 32x8 tile (where x wraps
+# across the tile more than once), ragged ones, the band with a wetting
+# wall, a repelling wall, and bench.py's 2048x512 droplet
+def _multiphase_params(nx, ny, **kw):
+    d = dict(problem="multiphase", nx=nx, ny=ny, tau=1.0, shan_chen_g=-5.0,
+             inlet_velocity=0.0, cylinder_radius=0.15, cylinder_x=0.5,
+             cylinder_y=0.5)
+    d.update(kw)
+    return SimulationParams(**d)
+
+
+@pytest.mark.parametrize("nx,ny,kw", [
+    (7, 3, {}), (5, 1, dict(cylinder_radius=0.0)), (33, 9, {}),
+    (64, 32, dict(cylinder_radius=0.0, mp_wall_rho=1.6)),
+    (100, 70, dict(mp_wall_rho=0.16)), (96, 48, dict(cylinder_y=0.0)),
+    (2048, 512, {})])
+def test_multiphase_kernel_one_step_matches_plain(cuda, nx, ny, kw):
+    problem = make_problem(_multiphase_params(nx, ny, **kw))
+    rng = np.random.default_rng(nx)
+    f = (problem.initial_state()
+         * rng.uniform(0.9, 1.1, (9, ny, nx))).astype(np.float32)
+    kstep = step_multiphase_cuda.make_local_step_multiphase_cuda(problem,
+                                                                 cuda)
+    pstep = step_multiphase.make_step_multiphase(problem, cuda)
+    for f in (state_from_numpy(problem.initial_state(), problem, cuda),
+              state_from_numpy(f, problem, cuda)):
+        before = step_multiphase_cuda.collide_stream_multiphase.launches
+        got = kstep(f, torch.empty_like(f))
+        assert step_multiphase_cuda.collide_stream_multiphase.launches == \
+            before + 1
+        want = pstep(f)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **ONE_STEP_TOL)
+
+
+def test_multiphase_chunk_counts_every_launch(cuda):
+    problem = make_problem(_multiphase_params(80, 40))
+    f = state_from_numpy(problem.initial_state(), problem, cuda)
+    step_cuda.reset_launch_counts()
+    chunk = make_chunk_fn(problem, cuda, 28, backend="pallas")
+    got = chunk(f.clone())
+    assert chunk.substeps == 1
+    assert step_multiphase_cuda.collide_stream_multiphase.launches == 28
+    assert step_cuda.collide_stream.launches == 0
+    assert step_thermal_cuda.collide_stream_thermal.launches == 0
+    want = make_chunk_fn(problem, cuda, 28, backend="jax")(f)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)

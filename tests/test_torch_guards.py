@@ -21,8 +21,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_port_runs_without_jax(tmp_path):
     # a fresh interpreter: import every module of the port, run a 10-step
     # chunk (N=2) and a super-chunk through the kernel modules' CPU path,
-    # the CLI end to end, checkpointed and resumed, a tiny 3-D run and a
-    # tiny heated cavity; neither jax nor tpulbm may be loaded after it
+    # the CLI end to end, checkpointed and resumed, a tiny 3-D run, a
+    # tiny heated cavity and a tiny multiphase band; neither jax nor tpulbm
+    # may be loaded after it
     script = textwrap.dedent(f"""
         import importlib, pkgutil, sys
         import tpulbm_torch
@@ -53,6 +54,11 @@ def test_port_runs_without_jax(tmp_path):
                      "--ny", "10", "--num-timesteps", "12",
                      "--output-frequency", "4", "--output-dir",
                      {str(tmp_path / "cavity")!r}]) == 0
+        assert main(["--cpu", "--problem", "multiphase", "--shan-chen-g",
+                     "-5", "--nx", "16", "--ny", "8", "--tau", "1.0",
+                     "--inlet-velocity", "0", "--num-timesteps", "12",
+                     "--output-frequency", "4", "--no-vtk", "--output-dir",
+                     {str(tmp_path / "multiphase")!r}]) == 0
         leaked = sorted(m for m in sys.modules
                         if m in ("jax", "tpulbm")
                         or m.startswith(("jax.", "tpulbm.")))
@@ -74,6 +80,8 @@ def test_port_runs_without_jax(tmp_path):
                  "velocity_field.csv"):
         assert (tmp_path / "cavity" / name).exists(), name
     assert not (tmp_path / "cavity" / "forces.csv").exists()
+    assert (tmp_path / "multiphase" / "velocity_field.csv").exists()
+    assert not (tmp_path / "multiphase" / "forces.csv").exists()
 
 
 def _port_sources():

@@ -28,7 +28,7 @@ def test_problem_arrays_match_tpulbm_bytewise(preset, precision):
 @pytest.mark.parametrize("problem,item", [
     ("poiseuille", "item 12"), ("cavity", "item 12"),
     ("kolmogorov", "item 13"), ("passive-scalar", "item 13"),
-    ("taylor-green", "item 13"), ("multiphase", "item 18")])
+    ("taylor-green", "item 13"), ("shear-layer", "item 13")])
 def test_unported_problems_name_their_roadmap_item(problem, item):
     with pytest.raises(NotImplementedError, match=item):
         port_problem(PRESETS["cylinder-small"].replace(problem=problem))

@@ -7,6 +7,10 @@
     python -m tpulbm_torch --preset cylinder3d-small --no-vtk
     python -m tpulbm_torch --preset rayleigh-benard --nx 2048 --ny 512 --no-vtk
     python -m tpulbm_torch --preset heated-cavity
+    python -m tpulbm_torch --problem multiphase --shan-chen-g -5 --nx 2048 \\
+        --ny 512 --tau 1.0 --inlet-velocity 0 --cylinder-radius 0.15 \\
+        --cylinder-x 0.5 --cylinder-y 0.5 --num-timesteps 2240 \\
+        --output-frequency 140 --no-vtk
 
 Runs on the first CUDA device; --cpu runs the plain PyTorch version on the
 host instead (debugging). Flags of main.py that the port does not cover yet

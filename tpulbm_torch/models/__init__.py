@@ -1,17 +1,19 @@
 """Problem builders. The port covers the 2-D D2Q9 BGK cylinder, the 3-D
-D3Q19 BGK sphere in a duct (both with the equilibrium obstacle), and the
-2-D thermal problems (Rayleigh-Bénard and the side-heated cavity, BGK);
-every other configuration raises NotImplementedError naming the ROADMAP
-item (Queue 1) that will port it."""
+D3Q19 BGK sphere in a duct (both with the equilibrium obstacle), the 2-D
+thermal problems (Rayleigh-Bénard and the side-heated cavity, BGK) and the
+Shan-Chen multiphase channel (droplet or band, BGK); every other
+configuration raises NotImplementedError naming the ROADMAP item (Queue 1)
+that will port it."""
 from .base import Problem
-from . import cylinder, cylinder3d, rayleigh_benard
+from . import cylinder, cylinder3d, multiphase, rayleigh_benard
 
 __all__ = ["Problem", "make_problem"]
 
 _BUILDERS = {"cylinder": cylinder.make_problem,
              "cylinder3d": cylinder3d.make_problem,
              "rayleigh-benard": rayleigh_benard.make_problem,
-             "heated-cavity": rayleigh_benard.make_problem}
+             "heated-cavity": rayleigh_benard.make_problem,
+             "multiphase": multiphase.make_problem}
 _THERMAL = ("rayleigh-benard", "heated-cavity")
 
 _PROBLEM_ITEMS = {
@@ -22,7 +24,6 @@ _PROBLEM_ITEMS = {
     "kolmogorov": "Queue 1 item 13 (periodic boxes and Kolmogorov)",
     "passive-scalar": "Queue 1 item 13 (periodic boxes and Kolmogorov: the "
                       "passive scalar rides periodic2d's Taylor-Green fields)",
-    "multiphase": "Queue 1 item 18 (Shan-Chen multiphase)",
 }
 
 
@@ -52,8 +53,10 @@ def check_slice(params) -> None:
                              if params.problem in _THERMAL else ""), ops)
     if params.power_law_n != 1.0:
         raise _not_ported("power-law rheology", ops)
-    if params.problem in _THERMAL and tuple(params.mesh_shape) != (1, 1):
-        raise _not_ported(f"the thermal step on mesh_shape="
+    if (params.problem in _THERMAL + ("multiphase",)
+            and tuple(params.mesh_shape) != (1, 1)):
+        kind = "multiphase" if params.problem == "multiphase" else "thermal"
+        raise _not_ported(f"the {kind} step on mesh_shape="
                           f"{params.mesh_shape}",
                           "Queue 1 item 19 (several devices)")
     variants = "Queue 1 item 12 (body force, cavity and BC variants)"
@@ -72,6 +75,6 @@ def check_slice(params) -> None:
 
 def make_problem(params) -> Problem:
     """Build the Problem for params.problem ("cylinder", "cylinder3d",
-    "rayleigh-benard" or "heated-cavity")."""
+    "rayleigh-benard", "heated-cavity" or "multiphase")."""
     check_slice(params)
     return _BUILDERS[params.problem](params)

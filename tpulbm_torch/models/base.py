@@ -3,9 +3,9 @@
 Port of tpulbm/models/base.py for the slices the port covers (uniform
 equilibrium start, optional solid mask; the 2-D cylinder's and the 3-D
 sphere-in-duct's boundary layouts; the thermal double-population
-problems). The initial state and the ghost values are computed in NumPy on
-the host, exactly as tpulbm does, so both packages start from
-byte-identical arrays.
+problems; the Shan-Chen multiphase channel's rho-map start). The initial
+state and the ghost values are computed in NumPy on the host, exactly as
+tpulbm does, so both packages start from byte-identical arrays.
 """
 from __future__ import annotations
 
@@ -71,6 +71,8 @@ class Problem:
     obstacle_bc: str = "equilibrium"  # solid cells pinned to rest equilibrium
     collision: str = "bgk"
     thermal: ThermalConfig | None = None  # double-population thermal coupling
+    shan_chen: tuple = ()             # (g, rho0): Shan-Chen multiphase
+    init_rho_map: np.ndarray | None = None  # initial rho per cell (u = 0)
 
     @property
     def state_q(self) -> int:
@@ -106,8 +108,14 @@ class Problem:
         """(state_q, *spatial) initial populations: uniform
         equilibrium(1, init_u), solid cells at rest equilibrium. Thermal
         problems stack the scalar's equilibrium underneath, at the
-        conductive profile plus a cos·sin seed mode."""
+        conductive profile plus a cos·sin seed mode. A rho map (the
+        multiphase droplet or band) starts at feq_i = w_i rho(x), u = 0."""
         Q = self.lattice.Q
+        if self.init_rho_map is not None:
+            w = self.lattice.w.astype(self.dtype)
+            f = (w.reshape((Q,) + (1,) * len(self.spatial_shape))
+                 * np.asarray(self.init_rho_map, self.dtype)[None])
+            return np.ascontiguousarray(f)
         feq = self.ghost_ring_values()[:Q]
         f = np.broadcast_to(
             feq.reshape((Q,) + (1,) * len(self.spatial_shape)),

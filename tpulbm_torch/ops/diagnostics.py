@@ -2,7 +2,8 @@
 the thermal problems' temperature and Nusselt number.
 
 Port of tpulbm/ops/diagnostics.py (fields_fn, stability_fn,
-max_velocity_fn). Each builder returns a function of the state tensor whose
+max_velocity_fn; max |u| takes the bare moments for every problem, as in
+tpulbm). Each *_fn returns a function of the state tensor whose
 result stays on the device until the caller fetches it. The moments are
 taken of f[:lattice.Q]: a thermal state stacks its 5 temperature planes
 under the 9 flow planes, and they must not enter rho.
@@ -13,7 +14,7 @@ import torch
 
 from .. import physics
 from ..models.base import Problem
-from . import step_thermal
+from . import step_multiphase, step_thermal
 
 
 def _solid(problem: Problem, device):
@@ -23,12 +24,17 @@ def _solid(problem: Problem, device):
 
 def fields_fn(problem: Problem, device):
     """f -> (rho, u) with the reference's solid-cell overrides: rho = 1 and
-    u = 0 at solid cells."""
+    u = 0 at solid cells. For Shan-Chen multiphase, u is the
+    half-step-corrected u + F/(2rho) (step_multiphase.physical_velocity):
+    bare moments would be off by F/(2rho) at every interface cell."""
     lat = problem.lattice
     solid = _solid(problem, device)
 
     def fn(f: torch.Tensor):
-        rho, u = physics.moments(lat, f[:lat.Q])
+        if problem.shan_chen:
+            rho, u = step_multiphase.physical_velocity(problem, f)
+        else:
+            rho, u = physics.moments(lat, f[:lat.Q])
         if solid is not None:
             rho = torch.where(solid, 1.0, rho)
             u = torch.where(solid[None], 0.0, u)

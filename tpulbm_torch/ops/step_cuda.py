@@ -7,9 +7,10 @@ Ports of tpulbm/ops/step_pallas.py (D2Q9):
 Port of tpulbm/ops/step_pallas3d.py (D3Q19):
 * make_local_step_pallas3d and make_local_step_pallas3d_tiled at n_sub=1
   (one step per launch): csrc/step_d3q19.cu.
-The thermal kernel's wrapper is ops/step_thermal_cuda.py, on the same
-build and binding helpers. Each kernel is built with nvcc at first use and
-called through ctypes on PyTorch's current stream. Their plain version is
+The thermal and multiphase kernels' wrappers are ops/step_thermal_cuda.py
+and ops/step_multiphase_cuda.py, on the same build and binding helpers.
+Each kernel is built with nvcc at first use and called through ctypes on
+PyTorch's current stream. Their plain version is
 ops/step_torch.py::make_step_rolled, once per step.
 
 Dispatch follows the tensor: for a CPU tensor the wrapper runs the plain
@@ -240,13 +241,15 @@ collide_stream_3d.launches = 0
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel's launch count to 0, the thermal kernel's
-    (ops/step_thermal_cuda.py) included."""
-    from . import step_thermal_cuda
+    """Set every kernel's launch count to 0, the thermal and multiphase
+    kernels' (ops/step_thermal_cuda.py, ops/step_multiphase_cuda.py)
+    included."""
+    from . import step_multiphase_cuda, step_thermal_cuda
     collide_stream.launches = 0
     collide_stream_blocked.launches = dict.fromkeys(BLOCKED_DEPTHS, 0)
     collide_stream_3d.launches = 0
     step_thermal_cuda.collide_stream_thermal.launches = 0
+    step_multiphase_cuda.collide_stream_multiphase.launches = 0
 
 
 def _kernel_operands(problem: Problem, device):

@@ -1,7 +1,7 @@
 """Pointwise physics on tensors: moments, equilibrium, BGK collision.
 
-Port of tpulbm/physics.py (the BGK subset and the thermal scalar's
-equilibrium). `f` is (Q, *spatial) in SoA
+Port of tpulbm/physics.py (the BGK subset, the thermal scalar's
+equilibrium and the Shan-Chen pieces). `f` is (Q, *spatial) in SoA
 layout, x minor. Every expression keeps tpulbm's operation order so the
 f64 results agree to round-off.
 
@@ -90,6 +90,33 @@ def thermal_equilibrium(lat_g: Lattice, T: torch.Tensor,
         else:
             planes.append(w * T * (1.0 + 3.0 * cu))
     return torch.stack(planes)
+
+
+def shan_chen_psi(rho: torch.Tensor, rho0: float = 1.0) -> torch.Tensor:
+    """Shan-Chen pseudopotential ψ(ρ) = ρ0 (1 − e^(−ρ/ρ0)) (tpulbm
+    physics.py:710-715), bounded, so the interaction saturates in the
+    liquid."""
+    return rho0 * (1.0 - torch.exp(-rho / rho0))
+
+
+def shan_chen_pressure(rho: torch.Tensor, g: float,
+                       rho0: float = 1.0) -> torch.Tensor:
+    """Bulk equation of state P = ρ cs² + (g cs²/2) ψ(ρ)² of the
+    pseudopotential fluid (cs² = 1/3): what the Laplace-law gate evaluates
+    inside and outside a droplet."""
+    psi = shan_chen_psi(rho, rho0)
+    return rho / 3.0 + (g / 6.0) * psi * psi
+
+
+def collide_shan_chen(lat: Lattice, f: torch.Tensor, inv_tau: float,
+                      F: torch.Tensor) -> torch.Tensor:
+    """BGK with the Shan-Chen velocity-shift forcing: relax toward
+    equilibrium(ρ, u + τ F / ρ). F: (D, *spatial), from the step's ψ
+    neighbour sums."""
+    rho, u = moments(lat, f)
+    u_eq = u + (1.0 / inv_tau) * F / rho
+    feq = equilibrium(lat, rho, u_eq)
+    return f - inv_tau * (f - feq)
 
 
 def rest_equilibrium(lat: Lattice, dtype=np.float64) -> np.ndarray:

@@ -15,7 +15,8 @@ import torch
 
 from .models.base import Problem
 from .ops import (diagnostics, forces as forces_mod, step_cuda,
-                  step_thermal, step_thermal_cuda, step_torch)
+                  step_multiphase, step_multiphase_cuda, step_thermal,
+                  step_thermal_cuda, step_torch)
 
 
 def choose_substeps(chunk_len: int) -> int:
@@ -56,8 +57,9 @@ def make_chunk_fn(problem: Problem, device, chunk_len: int,
     at N=1. 3-D: chunk_len launches of the D3Q19 kernel (check_substeps_3d).
     Thermal: chunk_len launches of the thermal kernel, one step each, as
     tpulbm's body_thermal_pallas scans its 1-step kernel
-    (TPULBM_SUBSTEPS does not apply). backend="jax": the plain PyTorch
-    step, in f32 or f64.
+    (TPULBM_SUBSTEPS does not apply). Shan-Chen multiphase: chunk_len
+    launches of the multiphase kernel, as tpulbm's body_multiphase_pallas
+    (the same). backend="jax": the plain PyTorch step, in f32 or f64.
     fn.substeps is N (1 for the plain step), tpulbm's chunk.pallas_substeps.
     The input f is donated: its storage is reused as a ping-pong buffer.
     """
@@ -72,6 +74,9 @@ def make_chunk_fn(problem: Problem, device, chunk_len: int,
         if problem.thermal is not None:
             step = step_thermal_cuda.make_local_step_thermal_cuda(problem,
                                                                   device)
+        elif problem.shan_chen:
+            step = step_multiphase_cuda.make_local_step_multiphase_cuda(
+                problem, device)
         elif problem.lattice.D == 3:
             check_substeps_3d()
             step = step_cuda.make_local_step_cuda_3d(problem, device)
@@ -90,9 +95,12 @@ def make_chunk_fn(problem: Problem, device, chunk_len: int,
             return f
     elif backend == "jax":
         device = torch.device(device)
-        step_plain = (step_thermal.make_step_thermal(problem, device)
-                      if problem.thermal is not None
-                      else step_torch.make_step_rolled(problem, device))
+        if problem.thermal is not None:
+            step_plain = step_thermal.make_step_thermal(problem, device)
+        elif problem.shan_chen:
+            step_plain = step_multiphase.make_step_multiphase(problem, device)
+        else:
+            step_plain = step_torch.make_step_rolled(problem, device)
 
         def chunk(f: torch.Tensor) -> torch.Tensor:
             for _ in range(chunk_len):

@@ -28,7 +28,8 @@ import torch
 # the port's kernels, by a part of their mangled names
 PORT_KERNELS = {"thermal_step_kernel": "thermal", "d2q9_step_kernel":
                 "d2q9 1-step", "d2q9_blocked_kernel": "d2q9 N-step",
-                "d3q19_step_kernel": "d3q19"}
+                "d3q19_step_kernel": "d3q19",
+                "multiphase_step_kernel": "multiphase"}
 
 
 def _group(event: dict) -> str:
