@@ -8,10 +8,10 @@ printing its own line; any failure exits non-zero:
 
 1. the card: torch.cuda must see it; nvidia-smi's name and power limit;
 2. build: nvcc compiles tpulbm_torch/csrc/step_d2q9.cu,
-   step_d2q9_blocked.cu, step_d3q19.cu, step_thermal.cu and
-   step_multiphase.cu, all at once (timed; ptxas's registers, shared
-   memory and spills for each, and the dynamic shared memory the N-step
-   and D3Q19 kernels ask for);
+   step_d2q9_blocked.cu, step_d3q19.cu, step_d3q19_blocked.cu,
+   step_thermal.cu and step_multiphase.cu, all at once (timed; ptxas's
+   registers, shared memory and spills for each, and the dynamic shared
+   memory the N-step and D3Q19 kernels ask for);
 3. kernels against plain at 2048x512 (re200): one step of the 1-step
    kernel from the initial state and from a state the plain step advanced
    500 steps, at rtol 5e-6 / atol 1e-7; 280 steps of each (max error
@@ -40,14 +40,23 @@ printing its own line; any failure exits non-zero:
    initial state and from a state the plain step advanced 100 steps, at
    rtol 5e-6 / atol 1e-7; 280 kernel steps against 280 plain steps (max
    error bounded by 1e-4);
+6b. the N-step D3Q19 kernel at 256^3, N = 2 and 3, from the same two
+   states: bitwise against N launches of the 1-step kernel and against N
+   plain steps at N times the one-step tolerance; 280 steps as tpulbm's
+   plan [(3, 92), (2, 2)] bitwise against 280 1-step launches;
 7. the 3-D main path: the Runner at 256^3 f32, 2240 steps at
-   output_frequency 140, no VTK (one super-chunk of 8 intervals, then the
-   tail): exactly 2240 launches of the D3Q19 kernel and none of a D2Q9
-   kernel, 16 finite force rows, a finite fields3d.npz of (256, 256, 256)
-   arrays; host fetches, wall time and runner MLUPS printed;
-8. timing at 256^3, in turns: the plain 3-D step (30 steps a turn) and the
-   D3Q19 kernel (500 steps a turn), ms/step, MLUPS and the kernel's B/s
-   against 3.35 TB/s. The 3-D tensors are freed at the end;
+   output_frequency 140, no VTK (one super-chunk of 8 intervals, seven
+   140-step chunks, a 139-step chunk and the last step), through tpulbm's
+   plan: exactly 735 N=3, 17 N=2 and 1 one-step D3Q19 launches and none
+   of another kernel, 16 finite force rows, a finite fields3d.npz of
+   (256, 256, 256) arrays; host fetches, wall time and runner MLUPS
+   printed; forces.csv and fields3d.npz within the artifact tolerance
+   (tests/test_torch_3d.py's) of the same run with blocking off
+   (TPULBM_NO_FUSED2: 2240 one-step launches);
+8. timing at 256^3, in turns: the plain 3-D step (30 steps a turn), the
+   1-step D3Q19 kernel and the N = 2, 3 kernels (500-501 steps a turn),
+   ms/step, MLUPS, GB/s and the share of each kernel's bound. The 3-D
+   tensors are freed at the end;
 9. thermal parity (D2Q9 flow + D2Q5 temperature, Boussinesq): at bench.py's
    thermal row (Rayleigh-Benard, Ra 1e4, tau 0.55, thermal_tau 0.5704,
    2048x512, periodic x), the heated cavity at 96x96 and both problems at
@@ -94,7 +103,7 @@ Run directories go to build/chip_smoke/ (git-ignored; the final CSVs have
 a million rows). The last two lines are a JSON line per kernel and the
 result line; a kernel's `launches` is its count in the run that drives
 it through the Runner: phase 4 for the 1-step and N=4 kernels, phase 4c
-for N=2 and N=3, phase 7 for the D3Q19 kernel, phase 10 for the thermal
+for N=2 and N=3, phase 7 for the D3Q19 kernels, phase 10 for the thermal
 kernel, phase 14 for the multiphase kernel. A kernel's `bound_ms` is the
 least time the card could take for one step of its work at the shape it
 was timed at: the larger of the bytes a step must move (each population
@@ -121,6 +130,11 @@ import torch
 OUT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
 ONE_STEP_TOL = dict(rtol=5e-6, atol=1e-7)
 DEPTHS = (2, 3, 4)
+DEPTHS_3D = (2, 3)
+# tests/test_torch_3d.py's gates on a 3-D run's artifacts: forces (C_D and
+# C_L scaled by the dynamic pressure) and the final fields
+FORCES_TOL = dict(rtol=1e-4, atol=5e-6)
+FIELDS_TOL = dict(rtol=1e-5, atol=5e-6)
 # 280 steps of f32 rounding differences (1/rho multiplied vs divided, sum
 # order) from an impulsive start: a divergence bound, not a parity gate
 DRIFT_280_BOUND = 1e-4
@@ -231,13 +245,16 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
-    """Every kernel's launch count: 1 (D2Q9 1-step), 2-4 (N-step), "3d",
-    "thermal", "multiphase"."""
+    """Every kernel's launch count: 1 (D2Q9 1-step), 2-4 (N-step), "3d"
+    (D3Q19 1-step), "3d2" and "3d3" (D3Q19 N-step), "thermal",
+    "multiphase"."""
     from tpulbm_torch.ops import (step_cuda, step_multiphase_cuda,
                                   step_thermal_cuda)
     return {1: step_cuda.collide_stream.launches,
             **step_cuda.collide_stream_blocked.launches,
             "3d": step_cuda.collide_stream_3d.launches,
+            **{f"3d{n}": step_cuda.collide_stream_3d_blocked.launches[n]
+               for n in DEPTHS_3D},
             "thermal": step_thermal_cuda.collide_stream_thermal.launches,
             "multiphase":
                 step_multiphase_cuda.collide_stream_multiphase.launches}
@@ -246,8 +263,8 @@ def read_counts() -> dict:
 def only(kind, n: int) -> dict:
     """The launch counts of a run that launched `kind` n times and no
     other kernel."""
-    counts = {1: 0, 2: 0, 3: 0, 4: 0, "3d": 0, "thermal": 0,
-              "multiphase": 0}
+    counts = {1: 0, 2: 0, 3: 0, 4: 0, "3d": 0, "3d2": 0, "3d3": 0,
+              "thermal": 0, "multiphase": 0}
     counts[kind] = n
     return counts
 
@@ -308,14 +325,15 @@ def tiny_runner_agreement(dev) -> float:
     return float(np.abs(fk[:, 1:3] - fp[:, 1:3]).max())
 
 
-def sphere_phases(dev, card: str) -> dict:
-    """Phases 6-8: the D3Q19 kernel at 256^3 against the plain step, the
-    3-D main path through the Runner, and timing. Returns the kernel's
-    JSON entry."""
+def sphere_phases(dev, card: str) -> list[dict]:
+    """Phases 6-8: the D3Q19 kernels at 256^3 against the plain step and
+    each other, the 3-D main path through the Runner, and timing. Returns
+    the kernels' JSON entries."""
     from tpulbm_torch.config import SimulationParams
     from tpulbm_torch.convert import state_from_numpy
     from tpulbm_torch.models import make_problem
     from tpulbm_torch.ops import step_cuda, step_torch
+    from tpulbm_torch.stepper import make_chunk_fn
 
     # phase 6: parity at bench.py's d3q19 row
     n = SPHERE_N
@@ -326,6 +344,7 @@ def sphere_phases(dev, card: str) -> dict:
     kstep = step_cuda.make_local_step_cuda_3d(problem, dev)
     pstep = step_torch.make_step_rolled(problem, dev)
     f0 = state_from_numpy(problem.initial_state(), problem, dev)
+    f100 = plain_chunk(pstep, f0.clone(), 100)
 
     def one_step_err(f: torch.Tensor) -> float:
         got = kstep(f, torch.empty_like(f))
@@ -335,7 +354,7 @@ def sphere_phases(dev, card: str) -> dict:
         return float((got - want).abs().max())
 
     err_init = one_step_err(f0)
-    err_100 = one_step_err(plain_chunk(pstep, f0.clone(), 100))
+    err_100 = one_step_err(f100)
     print(f"3-D parity 1 step at {n}^3: max abs err {err_init:.3e} from the "
           f"initial state, {err_100:.3e} after 100 plain steps (rtol 5e-6, "
           f"atol 1e-7)")
@@ -347,16 +366,52 @@ def sphere_phases(dev, card: str) -> dict:
             f"3-D 280-step drift {err_280} beyond {DRIFT_280_BOUND}")
     print(f"3-D parity 280 steps: max abs err {err_280:.3e} "
           f"(bound {DRIFT_280_BOUND})")
-    del fk, fp
+    del fp
+
+    # phase 6b: the N-step kernel against N 1-step launches and N plain
+    # steps, then 280 steps as tpulbm's plan against 280 1-step launches
+    bsteps = {d: step_cuda.make_local_step_cuda_3d_blocked(problem, dev, d)
+              for d in DEPTHS_3D}
+    err_plain = {}
+    for d in DEPTHS_3D:
+        errs = []
+        for name, f in (("initial", f0), ("100 plain steps", f100)):
+            got = bsteps[d](f, torch.empty_like(f))
+            want = kernel_chunk(kstep, f.clone(), d)
+            want_plain = plain_chunk(pstep, f.clone(), d)
+            torch.cuda.synchronize()
+            diff = float((got - want).abs().max())
+            require(diff == 0.0 and torch.equal(got, want),
+                    f"3-D N={d} from {name}: {diff} off {d} 1-step launches")
+            torch.testing.assert_close(got, want_plain, **n_step_tol(d))
+            errs.append(float((got - want_plain).abs().max()))
+        err_plain[d] = max(errs)
+        print(f"3-D parity N={d}: max abs diff 0.0 against {d} 1-step "
+              f"launches from both states (bitwise); against {d} plain steps "
+              f"{errs[0]:.3e} / {errs[1]:.3e} (rtol "
+              f"{n_step_tol(d)['rtol']:.0e}, atol {n_step_tol(d)['atol']:.0e})")
+    del got, want, want_plain, f100
+    chunk = make_chunk_fn(problem, dev, 280)
+    require(chunk.plan == [(3, 92), (2, 2)], f"280-step plan {chunk.plan}")
+    fb = chunk(f0.clone())
+    torch.cuda.synchronize()
+    diff_280 = float((fb - fk).abs().max())
+    require(diff_280 == 0.0 and torch.equal(fb, fk),
+            f"280 steps as {chunk.plan}: {diff_280} off 280 1-step launches")
+    print(f"3-D parity 280 steps: the plan {chunk.plan} equals 280 1-step "
+          f"launches (max abs diff 0.0)")
+    del fk, fb
     torch.cuda.empty_cache()
 
-    # phase 7: the 3-D main path, counted
+    # phase 7: the 3-D main path through tpulbm's plan, counted, then the
+    # same run with blocking off
     run_dir = OUT_DIR / f"sphere{n}"
     main_params = params.replace(num_timesteps=2240, output_frequency=140,
                                  output_dir=str(run_dir))
     result, counts, wall = run_counted(main_params, dev)
-    require(counts == only("3d", 2240),
-            f"launch counts {counts}, not 2240 D3Q19 and 0 others")
+    require(counts == {**only("3d3", 735), "3d2": 17, "3d": 1},
+            f"launch counts {counts}, not 735 N=3, 17 N=2, 1 one-step "
+            "D3Q19 and 0 others")
     forces = check_forces(run_dir, list(range(0, 2240, 140)))
     with np.load(run_dir / "fields3d.npz") as fields:
         for name in ("rho", "ux", "uy", "uz"):
@@ -365,36 +420,84 @@ def sphere_phases(dev, card: str) -> dict:
             require(bool(np.isfinite(fields[name]).all()),
                     f"fields3d.npz {name} not finite")
     print(f"3-D main path: sphere {n}^3 f32, 2240 steps, launches "
-          f"{counts['3d']} D3Q19 (D2Q9: {counts[1]} 1-step, N=2/3/4 "
+          f"{counts['3d3']} N=3 + {counts['3d2']} N=2 + {counts['3d']} "
+          f"one-step D3Q19 (D2Q9: {counts[1]} 1-step, N=2/3/4 "
           f"{counts[2]}/{counts[3]}/{counts[4]}), {result.host_fetches} host "
           f"fetches in the loop, {wall:.2f} s wall, runner "
           f"{result.mlups:.1f} MLUPS, final C_D {forces[-1, 3]:.6f}")
+    d1 = OUT_DIR / f"sphere{n}_unblocked"
+    os.environ["TPULBM_NO_FUSED2"] = "1"
+    try:
+        res1, counts1, wall1 = run_counted(
+            main_params.replace(output_dir=str(d1)), dev)
+    finally:
+        del os.environ["TPULBM_NO_FUSED2"]
+    require(counts1 == only("3d", 2240),
+            f"unblocked launch counts {counts1}, not 2240 one-step D3Q19")
+    forces1 = check_forces(d1, list(range(0, 2240, 140)))
+    np.testing.assert_array_equal(forces[:, 0], forces1[:, 0])
+    np.testing.assert_allclose(forces[:, 1:3], forces1[:, 1:3], **FORCES_TOL)
+    q = 0.5 * params.inlet_velocity ** 2 * np.pi \
+        * params.get_cylinder_radius_cells() ** 2
+    np.testing.assert_allclose(forces[:, 3:5], forces1[:, 3:5],
+                               rtol=FORCES_TOL["rtol"],
+                               atol=FORCES_TOL["atol"] / q)
+    field_diff = 0.0
+    with np.load(run_dir / "fields3d.npz") as a, \
+            np.load(d1 / "fields3d.npz") as b:
+        for name in ("rho", "ux", "uy", "uz"):
+            np.testing.assert_allclose(a[name], b[name], err_msg=name,
+                                       **FIELDS_TOL)
+            field_diff = max(field_diff,
+                             float(np.abs(a[name] - b[name]).max()))
+    same = same_files(run_dir, d1, ["forces.csv"])
+    print(f"3-D main path with blocking off: {counts1['3d']} one-step "
+          f"launches, {wall1:.2f} s wall, runner {res1.mlups:.1f} MLUPS; "
+          f"forces max abs diff {float(np.abs(forces - forces1).max()):.3e}"
+          f" (forces.csv byte-identical: {same}), fields3d.npz max abs diff "
+          f"{field_diff:.3e} (rtol 1e-5, atol 5e-6)")
 
     # phase 8: timing in turns; the plain step is host-bound (~350
-    # launches a step), so 30 steps a turn
-    runs = {"plain": (lambda f, n: plain_chunk(pstep, f, n), 30),
-            "kernel": (lambda f, n: kernel_chunk(kstep, f, n), 500)}
-    times = {k: [] for k in runs}
-    for which in ["plain", "kernel", "kernel", "plain"]:
+    # launches a step), so 30 steps a turn; ms per step (a launch is N)
+    runs = {"plain": (lambda f, m: plain_chunk(pstep, f, m), 30),
+            1: (lambda f, m: kernel_chunk(kstep, f, m), 500)}
+    for d in DEPTHS_3D:
+        runs[d] = (lambda f, m, d=d: kernel_chunk(bsteps[d], f, m // d),
+                   500 // d * d)
+    order = ["plain", 1, *DEPTHS_3D]
+    times = {k: [] for k in order}
+    for which in order + order[::-1]:
         run, steps = runs[which]
         times[which].append(ms_per_step(run, f0, steps))
     ms = {k: min(v) for k, v in times.items()}
     cells = n ** 3
-    bw = BYTES_3D / (ms["kernel"] * 1e-3)
+    b = {d: bound("d3q19", cells, d) for d in (1, *DEPTHS_3D)}
     print(f"3-D timing at {n}^3 on {card}, ms/step (MLUPS): plain "
           f"{ms['plain']:.5f} ({cells / ms['plain'] / 1e3:.1f}, runs "
-          f"{[round(v, 6) for v in times['plain']]}); kernel "
-          f"{ms['kernel']:.5f} ({cells / ms['kernel'] / 1e3:.1f}, runs "
-          f"{[round(v, 6) for v in times['kernel']]}); kernel "
-          f"{bw / 1e9:.1f} GB/s, {100 * bw / HBM_BYTES_PER_S:.1f}% of "
-          f"3.35 TB/s")
+          f"{[round(v, 6) for v in times['plain']]}); "
+          + "; ".join(
+              f"{'1-step' if d == 1 else f'N={d}'} {ms[d]:.5f} "
+              f"({cells / ms[d] / 1e3:.1f}, runs "
+              f"{[round(v, 6) for v in times[d]]}), "
+              f"{BYTES_3D / d / (ms[d] * 1e-3) / 1e9:.1f} GB/s, "
+              f"{100 * b[d]['bound_ms'] / ms[d]:.1f}% of its bound "
+              f"{b[d]['bound_ms']:.5f} ms" for d in (1, *DEPTHS_3D)))
     del f0
     torch.cuda.empty_cache()
-    return {"name": "d3q19_collide_stream", "route": "cuda",
-            "source": step_cuda.SOURCE_3D, "replaces": step_cuda.REPLACES_3D,
-            "launches": counts["3d"], "max_abs_err": max(err_init, err_100),
-            "ms": ms["kernel"], "plain_ms": ms["plain"],
-            **bound("d3q19", cells)}
+    entries = [{"name": "d3q19_collide_stream", "route": "cuda",
+                "source": step_cuda.SOURCE_3D,
+                "replaces": step_cuda.REPLACES_3D,
+                "launches": counts["3d"],
+                "max_abs_err": max(err_init, err_100),
+                "ms": ms[1], "plain_ms": ms["plain"], **b[1]}]
+    for d in DEPTHS_3D:
+        entries.append({
+            "name": f"d3q19_collide_stream_n{d}", "route": "cuda",
+            "source": step_cuda.SOURCE_3D_BLOCKED,
+            "replaces": step_cuda.REPLACES_3D_BLOCKED,
+            "launches": counts[f"3d{d}"], "max_abs_err": err_plain[d],
+            "ms": ms[d], "plain_ms": ms["plain"], **b[d]})
+    return entries
 
 
 def thermal_params(problem: str, nx: int, ny: int, **kw):
@@ -788,7 +891,8 @@ def main() -> int:
     # phase 2: build from the checkout's sources, one nvcc per source
     t0 = time.perf_counter()
     sources = ["step_d2q9.cu", "step_d2q9_blocked.cu", "step_d3q19.cu",
-               "step_thermal.cu", "step_multiphase.cu"]
+               "step_d3q19_blocked.cu", "step_thermal.cu",
+               "step_multiphase.cu"]
     with ThreadPoolExecutor(len(sources)) as pool:
         libs = list(pool.map(cuda_build.load, sources))
     print(f"build: {len(sources)} sources in "
@@ -802,8 +906,11 @@ def main() -> int:
     smem = {n: step_cuda._blocked_library().tpulbm_d2q9_blocked_smem_bytes(n)
             for n in DEPTHS}
     print(f"build: N-step kernel dynamic shared memory per block {smem} B")
+    smem3 = {n: step_cuda._blocked_library_3d()
+             .tpulbm_d3q19_blocked_smem_bytes(n) for n in DEPTHS_3D}
     print(f"build: D3Q19 kernel dynamic shared memory per block "
-          f"{step_cuda._library_3d().tpulbm_d3q19_smem_bytes()} B")
+          f"{step_cuda._library_3d().tpulbm_d3q19_smem_bytes()} B, N-step "
+          f"D3Q19 kernel {smem3} B")
 
     # phase 3: the kernels against plain at the main path's shape
     params = PRESETS["re200"].replace(precision="f32", enable_vtk=False)
@@ -956,7 +1063,7 @@ def main() -> int:
             "launches": (main_counts if n == 4 else counts23)[n],
             "max_abs_err": err_plain[n], "ms": ms[n],
             "plain_ms": ms["plain"], **bound("d2q9", cells, n)})
-    kernels.append(sphere_phases(dev, card))
+    kernels.extend(sphere_phases(dev, card))
     kernels.append(thermal_phases(dev, card))
     kernels.append(multiphase_phases(dev, card))
     print(card)

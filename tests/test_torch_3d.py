@@ -20,8 +20,9 @@ cells. Inputs are tpulbm's initial states or NumPy noise from a seed.
 * the Runner's artifacts against tpulbm's Runner (forces rtol 1e-4 / atol
   5e-6, fields rtol 1e-5 / atol 5e-6: tests/test_torch_runner.py's gates
   and their reason), through the super-chunk path and the tail;
-* checkpoints both ways between the packages; the stepper's depth and the
-  guards of the 3-D slice.
+* checkpoints both ways between the packages; the stepper's plan and the
+  guards of the 3-D slice (tpulbm's blocked cascade:
+  tests/test_torch_3d_blocking.py).
 """
 import json
 import os
@@ -93,7 +94,11 @@ def test_geometries_touch_what_they_claim():
 
 
 def test_velocity_table_in_the_kernel_source_is_d3q19():
-    src = (cuda_build.SOURCE_DIR / "step_d3q19.cu").read_text()
+    # the table lives in the header both D3Q19 kernels include
+    for kernel in ("step_d3q19.cu", "step_d3q19_blocked.cu"):
+        assert '#include "d3q19_common.cuh"' in \
+            (cuda_build.SOURCE_DIR / kernel).read_text()
+    src = (cuda_build.SOURCE_DIR / "d3q19_common.cuh").read_text()
     rows = re.findall(r"^\s*X\((\d+), (-?\d), (-?\d), (-?\d), (\d+)\)", src,
                       flags=re.M)
     table = np.array(rows, dtype=int)
@@ -300,39 +305,53 @@ def test_diagnostics_match_tpulbm():
 
 # ---- stepper, wrapper and guards --------------------------------------
 
+# tpulbm's one-device plan (sharded_step.py:32-49, :175-198) by chunk
+# length: depth 3 leads, a depth-2 tail takes the remainder, and a chunk too
+# short for either runs the 1-step kernel
+BLOCKED_PLAN = {1: [(1, 1)], 3: [(3, 1)], 4: [(2, 2)], 6: [(3, 2)],
+                140: [(3, 46), (2, 1)]}
+
+
 @pytest.mark.parametrize("env", [{}, {"TPULBM_NO_FUSED2": "1"},
                                  {"TPULBM_NO_FUSED2": "1",
                                   "TPULBM_SUBSTEPS": "3"}],
                          ids=["default", "no_fused2", "no_fused2_substeps3"])
 @pytest.mark.parametrize("chunk_len", [1, 3, 4, 6, 140])
 def test_3d_chunks_run_one_step_per_launch(monkeypatch, env, chunk_len):
+    # a chunk runs tpulbm's plan, each launch its depth's steps (one step
+    # per launch with blocking off), and equals chunk_len plain steps
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     calls = []
-    real = step_cuda.collide_stream_3d
+    for name in ("collide_stream_3d", "collide_stream_3d_blocked"):
+        real = getattr(step_cuda, name)
 
-    def spy(*args, **kw):
-        calls.append(True)
-        return real(*args, **kw)
+        def spy(*args, _real=real, _name=name, **kw):
+            calls.append(args[4] if _name.endswith("blocked") else 1)
+            return _real(*args, **kw)
 
-    monkeypatch.setattr(step_cuda, "collide_stream_3d", spy)
+        monkeypatch.setattr(step_cuda, name, spy)
     problem = port_problem(_params(nx=8, ny=6, nz=4, precision="f32"))
     chunk = stepper.make_chunk_fn(problem, "cpu", chunk_len)
-    assert chunk.substeps == 1
+    plan = ([(1, chunk_len)] if env else BLOCKED_PLAN[chunk_len])
+    assert chunk.plan == plan
+    assert chunk.substeps == plan[0][0]
+    assert chunk.pallas3d_depths == (
+        None if plan == [(1, chunk_len)] else [d for d, _ in plan])
     f = state_from_numpy(problem.initial_state(), problem, "cpu")
     want = f.clone()
     plain = make_step_rolled(problem, "cpu")
     for _ in range(chunk_len):
         want = plain(want)
     assert torch.equal(chunk(f), want)
-    assert len(calls) == chunk_len
+    assert calls == [d for d, n in plan for _ in range(n)]
 
 
-@pytest.mark.parametrize("forced", ["2", "3", "4"])
+@pytest.mark.parametrize("forced", ["4", "5", "8"])
 def test_3d_blocking_depth_is_refused(monkeypatch, forced):
     monkeypatch.setenv("TPULBM_SUBSTEPS", forced)
     problem = port_problem(_params(precision="f32"))
-    with pytest.raises(NotImplementedError, match="Queue 2 item 11"):
+    with pytest.raises(NotImplementedError, match="Queue 2 item 12"):
         stepper.make_chunk_fn(problem, "cpu", 12)
 
 

@@ -1,6 +1,7 @@
-"""The CUDA kernels against their plain version, and the N-step kernel
-against N launches of the 1-step kernel, on the card: D2Q9, D3Q19, the
-thermal D2Q9 + D2Q5 kernel and the Shan-Chen multiphase kernel. These
+"""The CUDA kernels against their plain version, and the N-step kernels
+against N launches of the 1-step kernels, on the card: D2Q9, D3Q19 (one
+step and N steps), the thermal D2Q9 + D2Q5 kernel and the Shan-Chen
+multiphase kernel. These
 tests need an NVIDIA GPU with nvcc and skip elsewhere; run them on the
 card with
 
@@ -151,13 +152,72 @@ def test_kernel_3d_chunk_counts_every_launch(cuda):
     step_cuda.reset_launch_counts()
     chunk = make_chunk_fn(problem, cuda, 28, backend="pallas")
     got = chunk(f.clone())
-    assert chunk.substeps == 1
-    assert step_cuda.collide_stream_3d.launches == 28
+    # tpulbm's plan for 28 steps: 8 N=3 launches, then 2 N=2
+    assert chunk.plan == [(3, 8), (2, 2)]
+    assert step_cuda.collide_stream_3d_blocked.launches == {2: 2, 3: 8}
+    assert step_cuda.collide_stream_3d.launches == 0
     assert step_cuda.collide_stream.launches == 0
     assert step_cuda.collide_stream_blocked.launches == {2: 0, 3: 0, 4: 0}
     want = make_chunk_fn(problem, cuda, 28, backend="jax")(f)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+
+
+# the N-step D3Q19 kernel: tpulbm's 3-D test grid, the ragged grid, the
+# spheres that pierce the inlet and reach the outlet, a grid at nz = N + 1
+# (the shallowest the plan takes) and one of two z-chunks
+@pytest.mark.parametrize("n_sub", step_cuda.BLOCKED_DEPTHS_3D)
+@pytest.mark.parametrize("kw", [
+    dict(nx=32, ny=16, nz=8),
+    dict(nx=33, ny=17, nz=9, cylinder_x=0.5, cylinder_radius=0.15),
+    dict(nx=32, ny=32, nz=8, cylinder_y=0.5, cylinder_radius=0.2),
+    dict(nx=32, ny=32, nz=8, cylinder_x=0.9, cylinder_y=0.5,
+         cylinder_radius=0.2),
+    dict(nx=20, ny=11, nz=None),
+    dict(nx=40, ny=9, nz=70, cylinder_y=0.5, cylinder_radius=0.3)],
+    ids=["sphere", "33x17x9", "inlet_piercing", "outlet_reaching",
+         "nz_n_plus_1", "two_z_chunks"])
+def test_blocked_kernel_3d_equals_n_one_step_launches(cuda, kw, n_sub):
+    # bitwise: the two kernels share their per-cell code and rounding
+    kw = dict(kw, nz=kw["nz"] or n_sub + 1)
+    problem = make_problem(SimulationParams(problem="cylinder3d", tau=0.55,
+                                            inlet_velocity=0.05, **kw))
+    f = state_from_numpy(_perturbed_state(problem, kw["nx"]), problem, cuda)
+    bstep = step_cuda.make_local_step_cuda_3d_blocked(problem, cuda, n_sub)
+    kstep = step_cuda.make_local_step_cuda_3d(problem, cuda)
+    before = dict(step_cuda.collide_stream_3d_blocked.launches)
+    got = bstep(f, torch.empty_like(f))
+    assert step_cuda.collide_stream_3d_blocked.launches == {
+        **before, n_sub: before[n_sub] + 1}
+    want = f.clone()
+    for _ in range(n_sub):
+        want = kstep(want, torch.empty_like(want))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+def test_blocked_kernel_3d_refuses(cuda):
+    problem = make_problem(SimulationParams(problem="cylinder3d", nx=32,
+                                            ny=16, nz=8))
+    bstep = step_cuda.make_local_step_cuda_3d_blocked(problem, cuda, 3)
+    host = torch.from_numpy(problem.initial_state())
+    with pytest.raises(ValueError):            # a host tensor
+        bstep(host, torch.empty_like(host))
+    # a depth the library does not hold: the launch is refused, not run
+    f = state_from_numpy(problem.initial_state(), problem, cuda)
+    out = torch.empty_like(f)
+    solid = torch.as_tensor(problem.solid, device=cuda).to(torch.uint8)
+    consts = step_cuda.StepConstants.of(problem)
+    lib = step_cuda._blocked_library_3d()
+    rc = lib.tpulbm_d3q19_step_blocked(
+        f.data_ptr(), out.data_ptr(), solid.data_ptr(), 32, 16, 8, 4,
+        consts.inv_tau, step_cuda._floats(consts.eq_in),
+        step_cuda._floats(consts.w), 0,
+        torch.cuda.current_stream(cuda).cuda_stream)
+    assert rc != 0
+    with pytest.raises(RuntimeError, match="launch failed"):
+        step_cuda._check_launch(lib, rc, "D3Q19 4-step kernel")
+    assert lib.tpulbm_d3q19_blocked_smem_bytes(4) == -1
 
 
 # thermal: a grid smaller than one 32x8 tile, a ragged one, the heated

@@ -1,0 +1,397 @@
+// N fused D3Q19 timesteps per launch (temporal blocking) on an NVIDIA Hopper
+// GPU (sm_90a), float32, N = 2 or 3. Each substep is the 1-step kernel's
+// sequence (step_d3q19.cu): BGK collide -> pull-stream with the ghost rule
+// -> y walls -> z walls -> equilibrium inlet -> zero-gradient outlet ->
+// obstacle pin. The flow past a sphere in a duct (problem "cylinder3d").
+//
+// Replaces tpulbm/ops/step_pallas3d.py::make_local_step_pallas3d_tiled
+// (:745) at n_sub = 2 and 3, the y-tiled z-plane cascade that tpulbm's
+// one-device 3-D dispatch runs by default (parallel/sharded_step.py:175-198),
+// for the BGK collision and the equilibrium obstacle. Its plain version is
+// N applications of tpulbm_torch/ops/step_torch.py's step.
+//
+// What bounds it: a launch moves the 153 B per cell of one step through
+// device memory (read and write 19 f32, read the 1-byte mask) and advances
+// N steps, so device-memory traffic falls to 153/N B per cell and step:
+// 0.383 ms (N=2) and 0.255 ms (N=3) per step at 256^3 over 3.35 TB/s.
+// Against it stand shared memory and redundant work: every substep but the
+// last collides a tile widened by the substeps still to come.
+//
+// Design: the 1-step kernel's z-march, N stages deep. A block owns a
+// 32 x kBY (x, y) column and marches z over kZChunk output planes. Stage
+// k < N holds the state after k substeps, collided, in a ring of planes
+// over the tile widened by N - k cells in x and y (trapezoid validity);
+// march step m loads and collides plane m (stage 0), then stage k computes
+// plane m - k from stage k-1's ring (pull, boundary sequence, collide) and
+// stage N pulls plane m - N from stage N-1's ring, runs the boundary
+// sequence in registers and stores it. One barrier follows each of the
+// stages 0 .. N-1. Cells outside the domain are never computed or read:
+// the ghost rule replaces them at every substep, so x validity and the
+// z ghost planes need no extra storage. The mask is read at every stage
+// from device memory (one byte a cell, cached), so solid cells in the
+// widened tiles are pinned at every substep.
+//
+// Shared memory is the design problem. A ring keeps each population only
+// as long as a pull still needs it: those with cz = -1 are pulled from
+// plane z+1 in the march step that writes them (one plane), cz = 0 from
+// plane z one step later (two planes), cz = +1 from plane z-1 two steps
+// later (three planes): 5 + 2*9 + 3*5 = 38 floats a cell instead of 3*19.
+// The mask of the last N+2 z-planes over stage 0's cells is kept beside
+// the rings, so no stage after the first reads device memory for it. Of the
+// tilings timed on an H100 at 256^3 (tile heights 2, 4, 8 with z-marches
+// of 32, 64, 128; utils/tile_sweep.py, PERF.md), 32 x 8 over 64 planes was
+// the fastest at both depths: 119,072 B at N=2 and 200,868 B at N=3, one
+// block of 256 threads per SM.
+//
+// The zero-gradient outlet reads x = nx-2 (step_cell in d3q19_common.cuh),
+// which needs x = nx-3 .. nx-1 of the ring at every stage. The x tiles are
+// right-aligned as in the 1-step kernel, so the block that holds nx-1
+// holds that neighbourhood at every stage; the ragged tile is the leftmost
+// one, masked. Population-plane offsets are 64-bit.
+//
+// Bits. Collision, pull and boundary code come from d3q19_common.cuh,
+// shared with step_d3q19.cu, and both libraries are built with -fmad=false:
+// one launch gives the same bits as N launches of the 1-step kernel.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "d3q19_common.cuh"
+
+namespace {
+
+using tpulbm3d::Consts;
+using tpulbm3d::kQ;
+
+constexpr int kBX = 32;          // tile width: one warp per row
+constexpr int kBY = 8;           // tile height
+constexpr int kZChunk = 64;      // output z-planes a block marches over
+constexpr size_t kMaxBlockSmem = 232448;  // what a block may take on sm_90
+
+// cz of population i, from the table
+__host__ __device__ constexpr int cz_of(int i) {
+#define TPULBM_CZ_CASE(i_, cx, cy, cz, o) \
+  if (i == (i_)) return (cz);
+  TPULBM_D3Q19(TPULBM_CZ_CASE)
+#undef TPULBM_CZ_CASE
+  return 0;
+}
+
+// A ring keeps population class c = cz + 1 in c + 1 slots of class_size(c)
+// planes each (a plane: one population over the ring's cells): class 0
+// (pulled from z+1) one slot, class 1 (from z) two, class 2 (from z-1)
+// three, the slot of z-plane q being (q + 6) % (c + 1).
+__host__ __device__ constexpr int class_size(int c) { return c == 1 ? 9 : 5; }
+__host__ __device__ constexpr int class_base(int c) {
+  return c == 0   ? 0
+         : c == 1 ? class_size(0)
+                  : class_size(0) + 2 * class_size(1);
+}
+constexpr int kRingFloats =
+    class_size(0) + 2 * class_size(1) + 3 * class_size(2);
+
+// i's position among the populations of its class
+__host__ __device__ constexpr int rank_in_class(int i) {
+  int n = 0;
+  for (int j = 0; j < i; ++j) n += cz_of(j) == cz_of(i) ? 1 : 0;
+  return n;
+}
+
+// Population I's class and its plane in slot 0, as constants.
+template <int I>
+struct RingPop {
+  static constexpr int kClass = cz_of(I) + 1;
+  static constexpr int kFirst = class_base(kClass) + rank_in_class(I);
+};
+
+// Every population of a z-plane on its own ring plane, inside the ring.
+constexpr bool ring_planes_distinct() {
+  for (int q = 0; q < 6; ++q) {
+    for (int a = 0; a < kQ; ++a) {
+      const int c = cz_of(a) + 1;
+      const int pa = class_base(c) + rank_in_class(a) +
+                     (q % (c + 1)) * class_size(c);
+      if (pa < 0 || pa >= kRingFloats) return false;
+      for (int b = 0; b < a; ++b) {
+        const int cb = cz_of(b) + 1;
+        if (pa == class_base(cb) + rank_in_class(b) +
+                      (q % (cb + 1)) * class_size(cb)) {
+          return false;
+        }
+      }
+    }
+  }
+  return true;
+}
+static_assert(kRingFloats == 38, "5 + 2 * 9 + 3 * 5 floats a cell");
+static_assert(ring_planes_distinct(), "ring planes overlap");
+
+// The offsets, in floats, of the class-1 and class-2 slots that hold
+// z-plane q (q >= -1) in a ring of C cells; class 0 has one slot.
+struct Slots {
+  int c1, c2;
+};
+template <int C>
+__device__ __forceinline__ Slots slots_of(int q) {
+  return {((q + 6) % 2) * class_size(1) * C,
+          ((q + 6) % 3) * class_size(2) * C};
+}
+
+// The float offset of population I of the z-plane whose slots are s.
+template <int I, int C>
+__device__ __forceinline__ int ring_at(const Slots& s) {
+  constexpr int c = RingPop<I>::kClass;
+  return RingPop<I>::kFirst * C + (c == 0 ? 0 : c == 1 ? s.c1 : s.c2);
+}
+
+template <int N>
+struct Tile {
+  static_assert(N >= 2, "one step per launch is step_d3q19.cu");
+  static constexpr int kThreads = kBX * kBY;
+  // stage k < N covers the tile widened by N - k cells
+  __host__ __device__ static constexpr int width(int k) {
+    return kBX + 2 * (N - k);
+  }
+  __host__ __device__ static constexpr int height(int k) {
+    return kBY + 2 * (N - k);
+  }
+  __host__ __device__ static constexpr int cells(int k) {
+    return width(k) * height(k);
+  }
+  __host__ __device__ static constexpr int ring_offset(int k) {
+    return k == 0 ? 0 : ring_offset(k - 1) + kRingFloats * cells(k - 1);
+  }
+  // after the rings: the masks of z-planes m-N-1 .. m over stage 0's cells
+  // (stage N reads plane m-N while stage 0 of the next march step, after
+  // no barrier, writes plane m+1)
+  static constexpr int kMaskSlots = N + 2;
+  static constexpr int kMaskOffset = ring_offset(N);
+  static constexpr size_t kSmemBytes =
+      sizeof(float) * kMaskOffset + kMaskSlots * cells(0);
+  static_assert(kSmemBytes <= kMaxBlockSmem, "rings exceed a block's 227 KB");
+};
+
+// Store one cell's collided populations at cell `at` of a ring of C cells,
+// in the slots s of their z-plane.
+template <int C>
+__device__ __forceinline__ void store_ring(float* ring, const Slots& s, int at,
+                                           const float* v) {
+#define TPULBM_STORE(i, cx, cy, cz, o) ring[ring_at<i, C>(s) + at] = v[i];
+  TPULBM_D3Q19(TPULBM_STORE)
+#undef TPULBM_STORE
+}
+
+// What every stage of a block shares.
+struct March {
+  int nx, ny, nz;
+  int x0, y0, z0, z1;  // the output tile's origin, its z-planes [z0, z1)
+  Consts k;
+};
+
+// Stage K (0 < K < N) at march step m: plane m - K of the state after K
+// substeps over the tile widened by N - K, pulled from stage K-1's ring,
+// stepped and collided into stage K's ring; then the barrier.
+template <int N, int K>
+__device__ __forceinline__ void inner_stages(float* smem, const March& g,
+                                             int m) {
+  if constexpr (K < N) {
+    using T = Tile<N>;
+    constexpr int W = T::width(K);
+    constexpr int C = T::cells(K);
+    constexpr int Ws = T::width(K - 1);
+    constexpr int Cs = T::cells(K - 1);
+    constexpr int W0 = T::width(0);
+    const float* src = smem + T::ring_offset(K - 1);
+    float* dst = smem + T::ring_offset(K);
+    const int p = m - K;
+    const uint8_t* mask = reinterpret_cast<const uint8_t*>(
+                              smem + T::kMaskOffset) +
+                          (p % T::kMaskSlots) * T::cells(0);
+    const int lo = g.z0 - (N - K) > 0 ? g.z0 - (N - K) : 0;
+    const int hi = g.z1 + (N - K) < g.nz ? g.z1 + (N - K) : g.nz;
+    if (p >= lo && p < hi) {
+      const Slots rd = {slots_of<Cs>(p).c1, slots_of<Cs>(p - 1).c2};
+      const Slots wr = slots_of<C>(p);
+      // each thread steps J cells: every pull before any store, so that
+      // the loads of all J cells are in flight together
+      constexpr int J = (C + T::kThreads - 1) / T::kThreads;
+      float v[J][kQ];
+      bool in[J];
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int t = threadIdx.x + j * T::kThreads;
+        const int ly = t / W;
+        const int lx = t - ly * W;
+        const int x = g.x0 - (N - K) + lx;
+        const int y = g.y0 - (N - K) + ly;
+        in[j] = t < C && x >= 0 && x < g.nx && y >= 0 && y < g.ny;
+        if (in[j]) {
+          const int at = (ly + 1) * Ws + lx + 1;     // this cell in stage K-1
+          const int at0 = (ly + K) * W0 + lx + K;    // and in stage 0
+          tpulbm3d::step_cell(
+              v[j], [&](int ox) { return mask[at0 + ox] != 0; }, x, y, p,
+              g.nx, g.ny, g.nz, g.k, [&](auto i, int ox, int oy, int oz) {
+                return src[ring_at<decltype(i)::value, Cs>(rd) + at +
+                           oy * Ws + ox];
+              });
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        if (in[j]) {
+          tpulbm3d::collide_bgk(v[j], g.k);
+          store_ring<C>(dst, wr, threadIdx.x + j * T::kThreads, v[j]);
+        }
+      }
+    }
+    __syncthreads();
+    inner_stages<N, K + 1>(smem, g, m);
+  }
+}
+
+template <int N>
+__global__ void __launch_bounds__(kBX * kBY)
+    d3q19_blocked_kernel(const float* __restrict__ f, float* __restrict__ out,
+                         const uint8_t* __restrict__ solid, int nx, int ny,
+                         int nz, Consts k) {
+  using T = Tile<N>;
+  extern __shared__ float smem[];  // the rings of stages 0 .. N-1, the mask
+
+  March g;
+  g.nx = nx;
+  g.ny = ny;
+  g.nz = nz;
+  g.x0 = nx - kBX * (static_cast<int>(blockIdx.x) + 1);  // right-aligned
+  g.y0 = static_cast<int>(blockIdx.y) * kBY;
+  g.z0 = static_cast<int>(blockIdx.z) * kZChunk;
+  g.z1 = g.z0 + kZChunk < nz ? g.z0 + kZChunk : nz;
+  g.k = k;
+  const size_t plane = static_cast<size_t>(nx) * ny;
+  const size_t pop = plane * nz;  // cells per population plane
+  const int tid = threadIdx.x;
+  uint8_t* mask = reinterpret_cast<uint8_t*>(smem + T::kMaskOffset);
+
+  // the output cell of this thread
+  const int tx = tid % kBX;
+  const int ty = tid / kBX;
+  const int x = g.x0 + tx;
+  const int y = g.y0 + ty;
+  const bool active = x >= 0 && y < ny;
+  constexpr int W0 = T::width(0);
+  constexpr int C0 = T::cells(0);
+  constexpr int W_last = T::width(N - 1);
+  constexpr int C_last = T::cells(N - 1);
+  // stage 0's cells of each thread: all their loads are issued before any
+  // is used, so a thread keeps J cells' loads in flight
+  constexpr int J = (C0 + T::kThreads - 1) / T::kThreads;
+  const float* last = smem + T::ring_offset(N - 1);
+
+  for (int m = g.z0 - N; m < g.z1 + N; ++m) {
+    // stage 0: load plane m over the tile widened by N, keep its mask,
+    // collide and keep the populations
+    if (m >= 0 && m < nz) {
+      const Slots wr = slots_of<C0>(m);
+      uint8_t* mask_m = mask + (m % T::kMaskSlots) * C0;
+      float v[J][kQ];
+      bool in[J];
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int t = tid + j * T::kThreads;
+        const int ly = t / W0;
+        const int lx = t - ly * W0;
+        const int gx = g.x0 - N + lx;
+        const int gy = g.y0 - N + ly;
+        in[j] = t < C0 && gx >= 0 && gx < nx && gy >= 0 && gy < ny;
+        if (in[j]) {
+          const size_t cell = static_cast<size_t>(m) * plane +
+                              static_cast<size_t>(gy) * nx + gx;
+          mask_m[t] = solid[cell];
+#pragma unroll
+          for (int i = 0; i < kQ; ++i) v[j][i] = f[i * pop + cell];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        if (in[j]) {
+          tpulbm3d::collide_bgk(v[j], k);
+          store_ring<C0>(smem, wr, tid + j * T::kThreads, v[j]);
+        }
+      }
+    }
+    __syncthreads();
+    inner_stages<N, 1>(smem, g, m);
+    // stage N: plane m - N of the tile, stored
+    const int p = m - N;
+    if (active && p >= g.z0 && p < g.z1) {
+      const size_t cell = static_cast<size_t>(p) * plane +
+                          static_cast<size_t>(y) * nx + x;
+      const Slots rd = {slots_of<C_last>(p).c1, slots_of<C_last>(p - 1).c2};
+      const uint8_t* mask_p = mask + (p % T::kMaskSlots) * C0;
+      const int at = (ty + 1) * W_last + tx + 1;
+      const int at0 = (ty + N) * W0 + tx + N;
+      float v[kQ];
+      tpulbm3d::step_cell(
+          v, [&](int ox) { return mask_p[at0 + ox] != 0; }, x, y, p, nx, ny,
+          nz, k, [&](auto i, int ox, int oy, int oz) {
+            return last[ring_at<decltype(i)::value, C_last>(rd) + at +
+                        oy * W_last + ox];
+          });
+#pragma unroll
+      for (int i = 0; i < kQ; ++i) out[i * pop + cell] = v[i];
+    }
+  }
+}
+
+template <int N>
+cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
+                   int ny, int nz, const Consts& k, cudaStream_t stream) {
+  constexpr size_t smem = Tile<N>::kSmemBytes;
+  if constexpr (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        d3q19_blocked_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((nx + kBX - 1) / kBX, (ny + kBY - 1) / kBY,
+                  (nz + kZChunk - 1) / kZChunk);
+  d3q19_blocked_kernel<N><<<grid, Tile<N>::kThreads, smem, stream>>>(
+      f, out, solid, nx, ny, nz, k);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C interface, loaded with ctypes (tpulbm_torch/ops/step_cuda.py).
+// Launches n_sub steps on `stream` and returns cudaGetLastError() (a refused
+// launch never runs and a later synchronize would not report it); it
+// neither synchronizes nor allocates.
+extern "C" int tpulbm_d3q19_step_blocked(const float* f, float* out,
+                                         const uint8_t* solid, int nx, int ny,
+                                         int nz, int n_sub, float inv_tau,
+                                         const float* eq_in, const float* w,
+                                         int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Consts k = tpulbm3d::make_consts(inv_tau, eq_in, w);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (n_sub) {
+    case 2: err = launch<2>(f, out, solid, nx, ny, nz, k, s); break;
+    case 3: err = launch<3>(f, out, solid, nx, ny, nz, k, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// Dynamic shared memory one block of depth n_sub takes, in bytes (-1 for
+// a depth the library does not hold).
+extern "C" int tpulbm_d3q19_blocked_smem_bytes(int n_sub) {
+  switch (n_sub) {
+    case 2: return static_cast<int>(Tile<2>::kSmemBytes);
+    case 3: return static_cast<int>(Tile<3>::kSmemBytes);
+    default: return -1;
+  }
+}
+
+extern "C" const char* tpulbm_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

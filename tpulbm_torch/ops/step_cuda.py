@@ -6,7 +6,9 @@ Ports of tpulbm/ops/step_pallas.py (D2Q9):
   temporal blocking, N steps per launch: csrc/step_d2q9_blocked.cu.
 Port of tpulbm/ops/step_pallas3d.py (D3Q19):
 * make_local_step_pallas3d and make_local_step_pallas3d_tiled at n_sub=1
-  (one step per launch): csrc/step_d3q19.cu.
+  (one step per launch): csrc/step_d3q19.cu;
+* make_local_step_pallas3d_tiled at n_sub 2 and 3 (temporal blocking, N
+  steps per launch): csrc/step_d3q19_blocked.cu.
 The thermal and multiphase kernels' wrappers are ops/step_thermal_cuda.py
 and ops/step_multiphase_cuda.py, on the same build and binding helpers.
 Each kernel is built with nvcc at first use and called through ctypes on
@@ -43,6 +45,9 @@ SOURCE_3D = "tpulbm_torch/csrc/step_d3q19.cu"
 REPLACES_3D = ("tpulbm/ops/step_pallas3d.py:370 (make_local_step_pallas3d), "
                "tpulbm/ops/step_pallas3d.py:745 at n_sub=1 "
                "(make_local_step_pallas3d_tiled)")
+SOURCE_3D_BLOCKED = "tpulbm_torch/csrc/step_d3q19_blocked.cu"
+REPLACES_3D_BLOCKED = "tpulbm/ops/step_pallas3d.py:745 at n_sub 2, 3"
+BLOCKED_DEPTHS_3D = (2, 3)
 # populations per cell -> the state's rank and layout, per kernel lattice
 _STATE_LAYOUT = {9: (3, "(9, ny, nx)"), 19: (4, "(19, nz, ny, nx)")}
 
@@ -117,6 +122,16 @@ def _library_3d() -> ctypes.CDLL:
                  _PTR])
     lib.tpulbm_d3q19_smem_bytes.argtypes = []
     lib.tpulbm_d3q19_smem_bytes.restype = _I32
+    return lib
+
+
+@functools.cache
+def _blocked_library_3d() -> ctypes.CDLL:
+    lib = _bind("step_d3q19_blocked.cu", "tpulbm_d3q19_step_blocked",
+                [_PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _F32, _PTR, _PTR,
+                 _I32, _PTR])
+    lib.tpulbm_d3q19_blocked_smem_bytes.argtypes = [_I32]
+    lib.tpulbm_d3q19_blocked_smem_bytes.restype = _I32
     return lib
 
 
@@ -240,6 +255,47 @@ def collide_stream_3d(f: torch.Tensor, out: torch.Tensor,
 collide_stream_3d.launches = 0
 
 
+def check_depth_3d(n_sub: int) -> None:
+    """Raise NotImplementedError for a 3-D blocking depth with no kernel."""
+    if n_sub not in BLOCKED_DEPTHS_3D:
+        raise NotImplementedError(
+            f"3-D temporal blocking at depth {n_sub} is not ported; the "
+            f"N-step D3Q19 kernel holds depths {BLOCKED_DEPTHS_3D} (ROADMAP "
+            "Queue 2 item 12, 3-D deeper blocking)")
+
+
+def collide_stream_3d_blocked(f: torch.Tensor, out: torch.Tensor,
+                              solid: torch.Tensor, consts: StepConstants,
+                              n_sub: int, plain=None) -> torch.Tensor:
+    """n_sub D3Q19 timesteps from f into out in one launch; returns out.
+
+    On a CUDA tensor: launches the N-step kernel on the current stream (no
+    synchronization) and raises if the launch is refused. On a CPU tensor:
+    runs `plain` (the plain version's step) n_sub times."""
+    check_depth_3d(n_sub)
+    check_inputs(f, out, solid, q=19)
+    if f.device.type == "cpu":
+        if plain is None:
+            raise ValueError("a CPU tensor needs the plain step")
+        for _ in range(n_sub):
+            f = plain(f)
+        return out.copy_(f)
+    lib = _blocked_library_3d()
+    nz, ny, nx = f.shape[1:]
+    stream = torch.cuda.current_stream(f.device).cuda_stream
+    rc = lib.tpulbm_d3q19_step_blocked(
+        f.data_ptr(), out.data_ptr(), solid.data_ptr(), nx, ny, nz, n_sub,
+        consts.inv_tau, _floats(consts.eq_in), _floats(consts.w),
+        f.device.index, stream)
+    _check_launch(lib, rc, f"D3Q19 {n_sub}-step kernel")
+    collide_stream_3d_blocked.launches[n_sub] += 1
+    return out
+
+
+# kernel launches per depth; CPU calls (the plain version) are not counted
+collide_stream_3d_blocked.launches = dict.fromkeys(BLOCKED_DEPTHS_3D, 0)
+
+
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0, the thermal and multiphase
     kernels' (ops/step_thermal_cuda.py, ops/step_multiphase_cuda.py)
@@ -248,6 +304,7 @@ def reset_launch_counts() -> None:
     collide_stream.launches = 0
     collide_stream_blocked.launches = dict.fromkeys(BLOCKED_DEPTHS, 0)
     collide_stream_3d.launches = 0
+    collide_stream_3d_blocked.launches = dict.fromkeys(BLOCKED_DEPTHS_3D, 0)
     step_thermal_cuda.collide_stream_thermal.launches = 0
     step_multiphase_cuda.collide_stream_multiphase.launches = 0
 
@@ -299,12 +356,30 @@ def make_local_step_cuda_3d(problem: Problem, device):
     living on `device`. The counterpart of make_local_step_pallas3d and of
     make_local_step_pallas3d_tiled at n_sub=1, for the sphere in a duct:
     y and z walls, equilibrium inlet, zero-gradient outlet."""
-    if problem.params.problem != "cylinder3d" or problem.lattice.Q != 19:
-        raise NotImplementedError("the D3Q19 kernel covers the sphere in a "
-                                  "duct (problem='cylinder3d') only")
-    _, consts, solid, plain = _kernel_operands(problem, device)
+    _, consts, solid, plain = _kernel_operands_3d(problem, device)
 
     def step(f: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
         return collide_stream_3d(f, out, solid, consts, plain)
 
     return step
+
+
+def make_local_step_cuda_3d_blocked(problem: Problem, device, n_sub: int):
+    """step(f, out) -> out: n_sub D3Q19 timesteps of `problem` in one
+    launch of the N-step kernel (CUDA) or n_sub plain steps (CPU). The
+    counterpart of make_local_step_pallas3d_tiled at n_sub 2 and 3, for the
+    sphere in a duct; other depths raise NotImplementedError."""
+    check_depth_3d(n_sub)
+    _, consts, solid, plain = _kernel_operands_3d(problem, device)
+
+    def step(f: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+        return collide_stream_3d_blocked(f, out, solid, consts, n_sub, plain)
+
+    return step
+
+
+def _kernel_operands_3d(problem: Problem, device):
+    if problem.params.problem != "cylinder3d" or problem.lattice.Q != 19:
+        raise NotImplementedError("the D3Q19 kernels cover the sphere in a "
+                                  "duct (problem='cylinder3d') only")
+    return _kernel_operands(problem, device)

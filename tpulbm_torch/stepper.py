@@ -34,17 +34,52 @@ def choose_substeps(chunk_len: int) -> int:
     return 1
 
 
-def check_substeps_3d() -> None:
-    """3-D chunks run one step per launch: the counterpart of tpulbm's 3-D
-    dispatch with TPULBM_NO_FUSED2 (sharded_step.py:199-215). A depth
-    forced above 1 with TPULBM_SUBSTEPS raises: the 3-D N-cascade is not
-    ported."""
+def blocking_split(chunk_len: int, n_sub: int):
+    """sharded_step.py's _blocking_split (:32-49), verbatim: chunk_len as
+    [(depth, iters), ...] segments led by depth n_sub with a shallower
+    tail (140 -> [(3, 46), (2, 1)]), or None when n_sub cannot lead."""
+    if n_sub == 3:
+        k2 = (0, 2, 1)[chunk_len % 3]
+        k3 = (chunk_len - 2 * k2) // 3
+        if k3 < 1:
+            return None
+        return [(3, k3)] + ([(2, k2)] if k2 else [])
+    if n_sub == 2:
+        k2, k1 = divmod(chunk_len, 2)
+        if k2 < 1:
+            return None
+        return [(2, k2)] + ([(1, k1)] if k1 else [])
+    return [(n_sub, chunk_len // n_sub)] if chunk_len % n_sub == 0 else None
+
+
+def plan_3d(chunk_len: int, nz: int):
+    """tpulbm's one-device 3-D plan (sharded_step.py:145-227): the blocked
+    segments [(depth, iters), ...] of a D3Q19 chunk, or None where tpulbm
+    takes its full-plane 1-step kernel. TPULBM_NO_FUSED2 turns blocking off;
+    TPULBM_SUBSTEPS=n > 1 that divides chunk_len gives [(n, chunk_len//n)]
+    and one that does not gives None; otherwise the first of the depth-3
+    and depth-2 splits whose depths all pass. A depth passes where the
+    tiled builder's device-independent condition nz >= depth + 1 (:860)
+    holds. tpulbm's TPU-only conditions have no counterpart: the VMEM tile
+    search, depth <= halo height, nx % 128, and tile_height >= 4 *
+    halo_height (:190-192). A forced depth above 3 raises
+    NotImplementedError: the N-step kernel holds depths 2 and 3."""
+    if os.environ.get("TPULBM_NO_FUSED2"):
+        return None
     forced = os.environ.get("TPULBM_SUBSTEPS")
-    if (not os.environ.get("TPULBM_NO_FUSED2") and forced
-            and int(forced) > 1):
-        raise NotImplementedError(
-            f"TPULBM_SUBSTEPS={forced}: 3-D temporal blocking is not ported "
-            "to tpulbm_torch yet (ROADMAP Queue 2 item 11, 3-D N-cascade)")
+    if forced:
+        n = int(forced)
+        if n > 1:
+            step_cuda.check_depth_3d(n)
+        splits = ([blocking_split(chunk_len, n)]
+                  if n > 1 and chunk_len % n == 0 else [])
+    else:
+        splits = [s for s in (blocking_split(chunk_len, n) for n in (3, 2))
+                  if s is not None]
+    for split in splits:
+        if all(nz >= depth + 1 for depth, _ in split):
+            return split
+    return None
 
 
 def make_chunk_fn(problem: Problem, device, chunk_len: int,
@@ -54,47 +89,65 @@ def make_chunk_fn(problem: Problem, device, chunk_len: int,
     backend="pallas": the CUDA kernels (their plain version for CPU
     tensors). 2-D: chunk_len // N launches of the N-step kernel at the
     depth N of choose_substeps, or chunk_len launches of the 1-step kernel
-    at N=1. 3-D: chunk_len launches of the D3Q19 kernel (check_substeps_3d).
+    at N=1. 3-D: tpulbm's plan (plan_3d), each segment's launches in order:
+    the N-step D3Q19 kernel at depths 2 and 3, the 1-step D3Q19 kernel at
+    depth 1 and for the whole chunk where there is no plan.
     Thermal: chunk_len launches of the thermal kernel, one step each, as
     tpulbm's body_thermal_pallas scans its 1-step kernel
     (TPULBM_SUBSTEPS does not apply). Shan-Chen multiphase: chunk_len
     launches of the multiphase kernel, as tpulbm's body_multiphase_pallas
     (the same). backend="jax": the plain PyTorch step, in f32 or f64.
-    fn.substeps is N (1 for the plain step), tpulbm's chunk.pallas_substeps.
+    fn.plan is the launches as [(depth, launches), ...]; fn.substeps the
+    first segment's depth (1 for the plain step), tpulbm's
+    chunk.pallas_substeps in 2-D; fn.pallas3d_depths tpulbm's attribute of
+    the same name: the plan's depths, None where no 3-D plan runs.
     The input f is donated: its storage is reused as a ping-pong buffer.
     """
     if chunk_len < 1:
         raise ValueError(f"chunk_len must be >= 1, got {chunk_len}")
-    substeps = 1
+    pallas3d_depths = None
     if backend == "pallas":
         if problem.params.precision != "f32":
             raise NotImplementedError(
                 "the CUDA kernel runs float32 only, as tpulbm's Pallas "
                 "kernels do; use backend='jax' for f64")
         if problem.thermal is not None:
-            step = step_thermal_cuda.make_local_step_thermal_cuda(problem,
-                                                                  device)
+            plan = [(1, chunk_len)]
+            steps = [step_thermal_cuda.make_local_step_thermal_cuda(
+                problem, device)]
         elif problem.shan_chen:
-            step = step_multiphase_cuda.make_local_step_multiphase_cuda(
-                problem, device)
+            plan = [(1, chunk_len)]
+            steps = [step_multiphase_cuda.make_local_step_multiphase_cuda(
+                problem, device)]
         elif problem.lattice.D == 3:
-            check_substeps_3d()
-            step = step_cuda.make_local_step_cuda_3d(problem, device)
+            plan = plan_3d(chunk_len, problem.spatial_shape[0])
+            if plan is None:
+                plan = [(1, chunk_len)]
+            else:
+                pallas3d_depths = [depth for depth, _ in plan]
+            steps = [step_cuda.make_local_step_cuda_3d(problem, device)
+                     if depth == 1 else
+                     step_cuda.make_local_step_cuda_3d_blocked(problem, device,
+                                                               depth)
+                     for depth, _ in plan]
         else:
-            substeps = choose_substeps(chunk_len)
-            step = (step_cuda.make_local_step_cuda(problem, device)
-                    if substeps == 1 else
-                    step_cuda.make_local_step_cuda_blocked(problem, device,
-                                                           substeps))
-        launches = chunk_len // substeps
+            n_sub = choose_substeps(chunk_len)
+            plan = [(n_sub, chunk_len // n_sub)]
+            steps = [step_cuda.make_local_step_cuda(problem, device)
+                     if n_sub == 1 else
+                     step_cuda.make_local_step_cuda_blocked(problem, device,
+                                                            n_sub)]
+        segments = [(step, n) for step, (_, n) in zip(steps, plan)]
 
         def chunk(f: torch.Tensor) -> torch.Tensor:
             spare = torch.empty_like(f)
-            for _ in range(launches):
-                f, spare = step(f, spare), f
+            for step, n in segments:
+                for _ in range(n):
+                    f, spare = step(f, spare), f
             return f
     elif backend == "jax":
         device = torch.device(device)
+        plan = [(1, chunk_len)]
         if problem.thermal is not None:
             step_plain = step_thermal.make_step_thermal(problem, device)
         elif problem.shan_chen:
@@ -108,7 +161,9 @@ def make_chunk_fn(problem: Problem, device, chunk_len: int,
             return f
     else:
         raise ValueError(f"unknown backend {backend!r}")
-    chunk.substeps = substeps
+    chunk.plan = plan
+    chunk.substeps = plan[0][0]
+    chunk.pallas3d_depths = pallas3d_depths
     return chunk
 
 

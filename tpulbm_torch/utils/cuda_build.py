@@ -2,10 +2,11 @@
 
 Each kernel source under tpulbm_torch/csrc/ is compiled by nvcc into a
 shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds) and loaded with ctypes. Libraries land in build/tpulbm_torch/
-at the repository root, named by a hash of the source, the shared headers
-(csrc/*.cuh) and the flags, so an edited source or header rebuilds and an
-unchanged one is reused. Clear the cache with `rm -rf build/tpulbm_torch`.
+takes seconds) and loaded with ctypes. Libraries land in build_dir(), named
+by a hash of the source, the shared headers (csrc/*.cuh) and the flags, so
+an edited source or header rebuilds and an unchanged one is reused. In a
+source checkout that is build/tpulbm_torch/ at its root (clear it with
+`rm -rf build/tpulbm_torch`).
 
 Nothing is built when a module is imported; a missing nvcc or a failed
 build raises.
@@ -24,7 +25,6 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE_DIR = _PKG / "csrc"
-BUILD_DIR = _PKG.parent / "build" / "tpulbm_torch"
 
 # -fmad=false keeps each multiply and add rounded on its own, as in the
 # plain PyTorch version the kernels are compared with.
@@ -39,6 +39,22 @@ class Library:
     path: Path
     build_seconds: float   # 0.0 when an existing build was reused
     log: str               # nvcc's output, including ptxas's register report
+
+
+def build_dir() -> Path:
+    """Where built libraries go: TPULBM_TORCH_BUILD_DIR if it is set; else
+    build/tpulbm_torch/ at the root of a source checkout (the package's
+    parent holds pyproject.toml; git ignores build/); else, for an installed
+    package, the user cache ($XDG_CACHE_HOME/tpulbm_torch or
+    ~/.cache/tpulbm_torch), never beside the package."""
+    env = os.environ.get("TPULBM_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    if (_PKG.parent / "pyproject.toml").is_file():
+        return _PKG.parent / "build" / "tpulbm_torch"
+    cache = (os.environ.get("XDG_CACHE_HOME")
+             or os.path.join(os.path.expanduser("~"), ".cache"))
+    return Path(cache) / "tpulbm_torch"
 
 
 def find_nvcc() -> str:
@@ -60,23 +76,31 @@ def load(source: str) -> Library:
     for header in sorted(SOURCE_DIR.glob("*.cuh")):
         h.update(header.read_bytes())
     digest = h.hexdigest()[:16]
-    out = BUILD_DIR / f"{src.stem}_{digest}.so"
+    out = build_dir() / f"{src.stem}_{digest}.so"
     log_path = out.with_suffix(".log")
     seconds = 0.0
     if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=600)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed on {src} (exit "
-                               f"{proc.returncode}):\n{log}")
-        log_path.write_text(log)
-        os.replace(tmp, out)  # atomic publish: concurrent builders race safely
+        seconds = compile_library(src, out)
     log = log_path.read_text() if log_path.exists() else ""
     return Library(ctypes.CDLL(str(out)), out, seconds, log)
+
+
+def compile_library(src: Path, out: Path) -> float:
+    """nvcc src (its #includes found beside it or in csrc/) into the shared
+    library `out`, with nvcc's output in out.with_suffix(".log"); returns
+    the seconds it took. Raises if nvcc is missing or fails."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(SOURCE_DIR), "-o", str(tmp),
+           str(src)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed on {src} (exit "
+                           f"{proc.returncode}):\n{log}")
+    out.with_suffix(".log").write_text(log)
+    os.replace(tmp, out)  # atomic publish: concurrent builders race safely
+    return seconds

@@ -2,9 +2,10 @@
 
 csrc/fastio.cpp (the port's copy of tpulbm's native/fastio.cpp) formats
 VTK frames and velocity_field.csv. It is built with g++ into
-build/tpulbm_torch/ at the repository root, next to the kernels, named by
-a hash of the source. Without g++, or with TPULBM_NO_NATIVE=1, the writers
-in utils/io.py take their NumPy path, which writes the same bytes.
+cuda_build.build_dir(), next to the kernels, named by a hash of the
+source. Without g++, without the source or a writable build directory, or
+with TPULBM_NO_NATIVE=1, the writers in utils/io.py take their NumPy path,
+which writes the same bytes.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import subprocess
 
 import numpy as np
 
-from .cuda_build import BUILD_DIR, SOURCE_DIR
+from .cuda_build import SOURCE_DIR, build_dir
 
 _SOURCE = SOURCE_DIR / "fastio.cpp"
 _GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
@@ -59,19 +60,24 @@ class NativeIO:
 
 @functools.cache
 def _load() -> NativeIO | None:
-    digest = hashlib.sha256(_SOURCE.read_bytes()
+    try:
+        source = _SOURCE.read_bytes()
+    except OSError:
+        return None
+    digest = hashlib.sha256(source
                             + " ".join(_GXX_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"fastio_{digest}.so"
+    so = build_dir() / f"fastio_{digest}.so"
     if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         try:
+            so.parent.mkdir(parents=True, exist_ok=True)
             subprocess.run(["g++", *_GXX_FLAGS, str(_SOURCE), "-o", str(tmp)],
                            check=True, capture_output=True, timeout=120)
+            # atomic publish: concurrent builders race safely
+            os.replace(tmp, so)
         except (OSError, subprocess.SubprocessError):
             tmp.unlink(missing_ok=True)
             return None
-        os.replace(tmp, so)  # atomic publish: concurrent builders race safely
     try:
         return NativeIO(ctypes.CDLL(str(so)))
     except OSError:
@@ -79,9 +85,9 @@ def _load() -> NativeIO | None:
 
 
 def get_native_io() -> NativeIO | None:
-    """The native writer, built at first use; None without g++ or with
-    TPULBM_NO_NATIVE set (the callers then write the same bytes in
-    NumPy)."""
+    """The native writer, built at first use; None without g++, without
+    its source, or with TPULBM_NO_NATIVE set (the callers then write the
+    same bytes in NumPy)."""
     if os.environ.get("TPULBM_NO_NATIVE"):
         return None
     return _load()
