@@ -9,9 +9,11 @@ printing its own line; any failure exits non-zero:
 1. the card: torch.cuda must see it; nvidia-smi's name and power limit;
 2. build: nvcc compiles tpulbm_torch/csrc/step_d2q9.cu,
    step_d2q9_blocked.cu, step_d3q19.cu, step_d3q19_blocked.cu,
-   step_thermal.cu and step_multiphase.cu, all at once (timed; ptxas's
-   registers, shared memory and spills for each, and the dynamic shared
-   memory the N-step and D3Q19 kernels ask for);
+   step_thermal.cu and step_multiphase.cu, and the two D2Q9 sources once
+   more for each other collision mode (TRT, MRT, regularized, KBC,
+   Smagorinsky, power law), all at once (timed; ptxas's registers, shared
+   memory and spills for each instantiation, and the dynamic shared memory
+   the N-step and D3Q19 kernels ask for);
 3. kernels against plain at 2048x512 (re200): one step of the 1-step
    kernel from the initial state and from a state the plain step advanced
    500 steps, at rtol 5e-6 / atol 1e-7; 280 steps of each (max error
@@ -97,14 +99,42 @@ printing its own line; any failure exits non-zero:
    4000 steps at wall rho 1.6, 1.0, 0.16: the spread width orders
    strictly);
 16. multiphase timing at 2048x512, in turns: the plain step and the
-   kernel, ms/step, MLUPS, GB/s and the share of its bound at 72 B/cell.
+   kernel, ms/step, MLUPS, GB/s and the share of its bound at 72 B/cell;
+17. the 2-D operators at the re200 preset, 2048x512, with the kernel
+   ladder's flags (OPERATORS: TRT with the clean Zou-He corners, MRT with
+   e=1.857, regularized, KBC, Smagorinsky 0.17, power law n 0.7), each
+   through its own build of the D2Q9 kernels: one 1-step kernel step
+   against one plain step from the initial state and after 500 plain
+   steps, at rtol 5e-6 / atol 1e-7 (the power law at rtol 1e-4, tpulbm's
+   _PLAW_RTOL; KBC, where that fails, at max|d|/max|f| < 3e-5, tpulbm's
+   KBC gate, and the line says which held); 280 kernel steps against 280
+   plain steps (bounded by 1e-4); the N-step kernel at N = 2, 3, 4
+   bitwise against N 1-step launches from both states;
+18. each operator's main path: the Runner at 2048x512 f32, 2240 steps
+   every 140, no VTK: exactly 525 N=4 and 140 1-step launches, all of the
+   operator's libraries, and none of another kernel; 16 finite force rows
+   and a finite velocity field; wall time, runner MLUPS, host fetches and
+   the final C_D printed; phase 4c's 311-step run (100 N=3, 5 N=2, 1
+   1-step launches), byte-identical to the run with blocking off; then the
+   64x32 Runner through the kernel and the plain step, as in phase 3;
+19. tpulbm's operator gates through the kernels in f32: the LES headline
+   (256x64, tau 0.503, U 0.1, 4000 steps: BGK blows up, Smagorinsky 0.17
+   stays finite) and the MRT boundary-feedback gate (256x64, tau 0.5768,
+   2000 steps: finite, max|u| < 0.25; tpulbm runs it in f64);
+20. each operator's timing at 2048x512, in turns: the plain step, the
+   1-step kernel and the N = 2, 3, 4 kernels, ms/step, MLUPS and the share
+   of each kernel's bound (MODE_FLOPS counts each collision's
+   operations). The phases' total time is printed.
 
 Run directories go to build/chip_smoke/ (git-ignored; the final CSVs have
 a million rows). The last two lines are a JSON line per kernel and the
 result line; a kernel's `launches` is its count in the run that drives
 it through the Runner: phase 4 for the 1-step and N=4 kernels, phase 4c
 for N=2 and N=3, phase 7 for the D3Q19 kernels, phase 10 for the thermal
-kernel, phase 14 for the multiphase kernel. A kernel's `bound_ms` is the
+kernel, phase 14 for the multiphase kernel, phase 18 for each operator's
+kernels (named d2q9_collide_stream[op] and d2q9_collide_stream_nN[op]:
+the 1-step and N=4 launches from its main path, N=2 and N=3 from its
+311-step run). A kernel's `bound_ms` is the
 least time the card could take for one step of its work at the shape it
 was timed at: the larger of the bytes a step must move (each population
 read once and written once, the solid mask read once) over 3.35 TB/s and
@@ -117,6 +147,7 @@ from __future__ import annotations
 import filecmp
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -154,6 +185,32 @@ STEP_BYTES = {"d2q9": 9 * 4 * 2 + 1, "d3q19": 19 * 4 * 2 + 1,
 # multiphase: ρ, m and ψ (8 + 10 + 5, expf counted as one operation), the
 # ψ-stencil force (25), the shifted velocity (8) and the BGK relaxation (94)
 STEP_FLOPS = {"d2q9": 115, "d3q19": 256, "thermal": 165, "multiphase": 150}
+# the D2Q9 kernels under the other collisions (csrc/d2q9_common.cuh), per
+# cell, counted from the kernel's expressions as above (a division, sqrtf,
+# expf or logf counts one operation, min and max one each): TRT's closed
+# form; MRT at rank 2, the rank of the ladder's rates (the kernel also runs
+# the zero-padded ranks 3-4, 70 more); regularized; KBC; Smagorinsky; the
+# power law's 8 Newton steps (16 operations each, 2 of them transcendental)
+MODE_FLOPS = {"trt": 163, "mrt": 185, "regularized": 182, "kbc": 313,
+              "smagorinsky": 143, "power_law": 272}
+for _mode, _flops in MODE_FLOPS.items():
+    STEP_BYTES[f"d2q9_{_mode}"] = STEP_BYTES["d2q9"]
+    STEP_FLOPS[f"d2q9_{_mode}"] = _flops
+# the 2-D operators of the kernel ladder's cells (the D2Q9 cylinder at the
+# re200 preset, runs/bench_ladder_r05.jsonl) with their flags
+OPERATORS = {
+    "trt": dict(collision="trt", zou_he_corners="clean"),
+    "mrt": dict(collision="mrt", mrt_rates=(("e", 1.857),)),
+    "regularized": dict(collision="regularized"),
+    "kbc": dict(collision="kbc"),
+    "les": dict(smagorinsky=0.17),
+    "power_law": dict(power_law_n=0.7),
+}
+# tpulbm's power-law gate (tests/test_power_law.py's _PLAW_RTOL: a Newton
+# solve on expf and logf) and KBC's (tests/test_kbc.py: max|d|/max|f|),
+# the latter used only where the one-step tolerance does not hold
+PLAW_TOL = dict(rtol=1e-4, atol=1e-7)
+KBC_REL_TOL = 3e-5
 # bench.py's thermal row and the physics gates of tests/test_thermal*.py
 THERMAL_NX, THERMAL_NY = 2048, 512
 DE_VAHL_DAVIS_NU = 2.243
@@ -203,6 +260,33 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(log: str) -> str:
+    """Registers, spill stores and static shared memory of each kernel
+    instantiation in a library's ptxas report, as 'kernel<template args>:
+    64 regs, 0 B spills'."""
+    out, name, spill = [], "?", "?"
+    for ln in log.splitlines():
+        if "Compiling entry" in ln:
+            # the mangled name: a length, then that many characters
+            base = "?"
+            for m in re.finditer(r"(?=(\d+)[A-Za-z_])", ln):
+                start = m.start() + len(m.group(1))
+                ident = ln[start:start + int(m.group(1))]
+                if ident.endswith("_kernel"):
+                    base = ident
+                    break
+            args = re.findall(r"L[ib](\d+)E", ln)
+            name = base + (f"<{','.join(args)}>" if args else "")
+        elif "spill stores" in ln:
+            spill = ln.split("bytes spill stores")[0].split(",")[-1].strip()
+        elif "Used" in ln and "registers" in ln:
+            regs = ln.split("Used")[1].split("registers")[0].strip()
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out.append(f"{name}: {regs} regs, {spill} B spills"
+                       + (f", {smem.group(1)} B smem" if smem else ""))
+    return "; ".join(out) or log.strip()[-300:]
 
 
 def kernel_chunk(step, f: torch.Tensor, n: int) -> torch.Tensor:
@@ -297,22 +381,25 @@ def ms_per_step(run, f: torch.Tensor, n: int) -> float:
     return t0.elapsed_time(t1) / n
 
 
-def tiny_runner_agreement(dev) -> float:
+def tiny_runner_agreement(dev, label: str = "", fields_rtol: float = 1e-5,
+                          **overrides) -> float:
     """The port's Runner through the kernel and through the plain step on
-    a 64x32 cylinder, 60 steps: forces and final fields within rtol 1e-4 /
-    atol 5e-6 and rtol 1e-5 / atol 5e-6. The atol covers near-zero values
-    (uy ~ 1e-7) after 60 steps of f32 rounding differences between the
-    kernel (1/rho multiplied) and the plain step (divided)."""
+    a 64x32 cylinder (SimulationParams `overrides` on top), 60 steps:
+    forces and final fields within rtol 1e-4 / atol 5e-6 and fields_rtol /
+    atol 5e-6. The atol covers near-zero values (uy ~ 1e-7) after 60 steps
+    of f32 rounding differences between the kernel (1/rho multiplied) and
+    the plain step (divided)."""
     from tpulbm_torch.config import SimulationParams
     from tpulbm_torch.runner import Runner
 
     out = {}
     for backend in ("pallas", "jax"):
-        d = OUT_DIR / f"tiny_{backend}"
+        d = OUT_DIR / f"tiny{label}_{backend}"
         p = SimulationParams(nx=64, ny=32, tau=0.6, inlet_velocity=0.05,
                              num_timesteps=60, output_frequency=20,
                              precision="f32", backend=backend,
-                             enable_vtk=False, output_dir=str(d))
+                             enable_vtk=False, output_dir=str(d),
+                             **overrides)
         require(Runner(p, device=dev, verbose=False).run().success,
                 f"tiny run ({backend}) failed")
         out[backend] = (np.loadtxt(d / "forces.csv", delimiter=",",
@@ -321,7 +408,7 @@ def tiny_runner_agreement(dev) -> float:
                                    skiprows=1))
     (fk, vk), (fp, vp) = out["pallas"], out["jax"]
     np.testing.assert_allclose(fk[:, 1:3], fp[:, 1:3], rtol=1e-4, atol=5e-6)
-    np.testing.assert_allclose(vk, vp, rtol=1e-5, atol=5e-6)
+    np.testing.assert_allclose(vk, vp, rtol=fields_rtol, atol=5e-6)
     return float(np.abs(fk[:, 1:3] - fp[:, 1:3]).max())
 
 
@@ -867,6 +954,246 @@ def multiphase_phases(dev, card: str) -> dict:
             "launches": counts["multiphase"], "max_abs_err": err,
             "ms": ms["kernel"], "plain_ms": ms["plain"], **b}
 
+def close_or_relative(got: torch.Tensor, want: torch.Tensor, tol: dict,
+                      relative: bool) -> str:
+    """Hold got to want at tol; where that fails and `relative` is set (KBC),
+    at max|d|/max|f| < KBC_REL_TOL instead. Returns which held."""
+    try:
+        torch.testing.assert_close(got, want, **tol)
+        return f"rtol {tol['rtol']:.0e} / atol {tol['atol']:.0e}"
+    except AssertionError:
+        if not relative:
+            raise
+    rel = float((got - want).abs().max() / want.abs().max())
+    require(rel < KBC_REL_TOL, f"max|d|/max|f| {rel} beyond {KBC_REL_TOL}")
+    return f"max|d|/max|f| {rel:.3e} < {KBC_REL_TOL}"
+
+
+def operator_parity(dev, op: str):
+    """Phase 17 for one operator at 2048x512: one 1-step kernel step
+    against one plain step from the initial state and after 500 plain
+    steps; 280 kernel steps against 280 plain steps; the N-step kernel at
+    N = 2, 3, 4 bitwise against N 1-step launches and within N times the
+    one-step tolerance of N plain steps, from both states. Returns (the
+    params, the collision mode, the kernel steps by depth, the plain step,
+    the initial state, the errors against the plain step by depth)."""
+    from tpulbm_torch.config import PRESETS
+    from tpulbm_torch.convert import state_from_numpy
+    from tpulbm_torch.models import make_problem
+    from tpulbm_torch.ops import step_cuda, step_torch
+
+    params = PRESETS["re200"].replace(precision="f32", enable_vtk=False,
+                                      **OPERATORS[op])
+    problem = make_problem(params)
+    tol = PLAW_TOL if op == "power_law" else ONE_STEP_TOL
+    relative = op == "kbc"
+    steps = {1: step_cuda.make_local_step_cuda(problem, dev)}
+    for n in DEPTHS:
+        steps[n] = step_cuda.make_local_step_cuda_blocked(problem, dev, n)
+    pstep = step_torch.make_step_rolled(problem, dev)
+    f0 = state_from_numpy(problem.initial_state(), problem, dev)
+    f500 = plain_chunk(pstep, f0.clone(), 500)
+    errs, held = [], []
+    for f in (f0, f500):
+        got = steps[1](f, torch.empty_like(f))
+        want = pstep(f)
+        torch.cuda.synchronize()
+        held.append(close_or_relative(got, want, tol, relative))
+        errs.append(float((got - want).abs().max()))
+    fk = kernel_chunk(steps[1], f0.clone(), 280)
+    fp = plain_chunk(pstep, f0.clone(), 280)
+    torch.cuda.synchronize()
+    err_280 = float((fk - fp).abs().max())
+    require(np.isfinite(err_280) and err_280 < DRIFT_280_BOUND,
+            f"{op}: 280-step drift {err_280} beyond {DRIFT_280_BOUND}")
+    del fk, fp
+    err_n = {}
+    for n in DEPTHS:
+        errs_n = []
+        for name, f in (("initial", f0), ("500 plain steps", f500)):
+            got = steps[n](f, torch.empty_like(f))
+            want = kernel_chunk(steps[1], f.clone(), n)
+            want_plain = plain_chunk(pstep, f.clone(), n)
+            torch.cuda.synchronize()
+            require(torch.equal(got, want),
+                    f"{op} N={n} from {name}: "
+                    f"{float((got - want).abs().max())} off {n} 1-step "
+                    "launches")
+            close_or_relative(got, want_plain,
+                              dict(rtol=n * tol["rtol"], atol=n * tol["atol"]),
+                              relative)
+            errs_n.append(float((got - want_plain).abs().max()))
+        err_n[n] = max(errs_n)
+    mode = step_torch.collision_mode(problem)
+    print(f"operator parity {op} ({mode}, "
+          f"{OPERATORS[op]}) at {params.nx}x{params.ny}: 1 step max abs err "
+          f"{errs[0]:.3e} from the initial state ({held[0]} held), "
+          f"{errs[1]:.3e} after 500 plain steps ({held[1]} held); 280 steps "
+          f"{err_280:.3e} (bound {DRIFT_280_BOUND}); N=2/3/4 bitwise against "
+          f"N 1-step launches from both states, against N plain steps "
+          + "/".join(f"{err_n[n]:.3e}" for n in DEPTHS))
+    return params, mode, steps, pstep, f0, {1: max(errs), **err_n}
+
+
+def operator_main_path(dev, op: str, params, mode: str) -> dict:
+    """Phase 18 for one operator: the Runner at 2048x512, 2240 steps every
+    140, no VTK, counted: exactly 525 N=4 and 140 1-step launches of the
+    operator's libraries and none of another kernel; 16 finite force rows
+    and a finite velocity field. Then phase 4c's 311-step run (100 N=3, 5
+    N=2, 1 1-step launches), byte-identical to the same run with blocking
+    off. Returns the launch counts by depth: 1-step and N=4 from the
+    first run, N=2 and N=3 from the second."""
+    from tpulbm_torch.ops import step_cuda
+    from tpulbm_torch.runner import Runner
+
+    run_dir = OUT_DIR / f"re200_{op}"
+    result, counts, wall = run_counted(
+        params.replace(num_timesteps=2240, output_frequency=140,
+                       output_dir=str(run_dir)), dev)
+    by_mode = (step_cuda.collide_stream.launches_by_mode[mode],
+               step_cuda.collide_stream_blocked.launches_by_mode[mode][4])
+    require(counts == {**only(4, 525), 1: 140} and by_mode == (140, 525),
+            f"{op}: launch counts {counts} ({by_mode} of {mode}), not 525 "
+            "N=4, 140 1-step and 0 others")
+    forces = check_forces(run_dir, list(range(0, 2240, 140)))
+    # the 1M-row field, checked as text: every row there and no nan or inf
+    text = (run_dir / "velocity_field.csv").read_bytes().lower()
+    require(text.count(b"\n") == params.nx * params.ny + 1
+            and b"nan" not in text and b"inf" not in text,
+            f"{op}: velocity_field.csv not a finite {params.nx * params.ny}"
+            "-row field")
+    print(f"operator main path {op}: re200 {params.nx}x{params.ny} f32, 2240 "
+          f"steps, launches {counts[4]} N=4 + {counts[1]} 1-step of {mode} "
+          f"(N=2: {counts[2]}, N=3: {counts[3]}), {result.host_fetches} host "
+          f"fetches in the loop, {wall:.2f} s wall, runner "
+          f"{result.mlups:.1f} MLUPS, final C_D {forces[-1, 3]:.6f}")
+    # phase 4c's run for the other depths: 311 steps every 150, against
+    # the same run with blocking off
+    d23 = OUT_DIR / f"re200_f150_{op}"
+    p23 = params.replace(num_timesteps=311, output_frequency=150,
+                         output_dir=str(d23))
+    _, counts23, _ = run_counted(p23, dev)
+    by_mode = (step_cuda.collide_stream.launches_by_mode[mode],
+               *(step_cuda.collide_stream_blocked.launches_by_mode[mode][n]
+                 for n in (2, 3)))
+    require(counts23 == {**only(3, 100), 1: 1, 2: 5}
+            and by_mode == (1, 5, 100),
+            f"{op}: launch counts {counts23} ({by_mode} of {mode}), not 100 "
+            "N=3, 5 N=2, 1 1-step")
+    d1 = OUT_DIR / f"re200_f150_{op}_unblocked"
+    os.environ["TPULBM_NO_FUSED2"] = "1"
+    try:
+        require(Runner(p23.replace(output_dir=str(d1)), device=dev,
+                       verbose=False).run().success, "unblocked run failed")
+    finally:
+        del os.environ["TPULBM_NO_FUSED2"]
+    require(same_files(d23, d1, ["forces.csv", "velocity_field.csv"]),
+            f"{op}: the N=3/N=2 run differs from the 1-step-only run")
+    print(f"operator depths 3 and 2 {op}: 311 steps every 150, launches "
+          f"{counts23[3]} N=3 + {counts23[2]} N=2 + {counts23[1]} 1-step; "
+          "artifacts byte-identical to the 1-step-only run")
+    return {1: counts[1], 2: counts23[2], 3: counts23[3], 4: counts[4]}
+
+
+def operator_gates(dev) -> None:
+    """Phase 19: tpulbm's LES headline (tests/test_les.py: a 256x64
+    cylinder at tau 0.503, U 0.1, 4000 steps, where BGK blows up and
+    Smagorinsky Cs 0.17 stays finite) and its MRT boundary-feedback gate
+    (tests/test_mrt.py: 256x64, tau 0.5768, default rates, 2000 steps,
+    finite with max|u| < 0.25; tpulbm runs it in f64, this in f32),
+    through the kernels (the N=4 kernel, chunk lengths divide by 4)."""
+    from tpulbm_torch import physics
+    from tpulbm_torch.config import SimulationParams
+    from tpulbm_torch.convert import state_from_numpy
+    from tpulbm_torch.models import make_problem
+    from tpulbm_torch.stepper import make_chunk_fn
+
+    def run(steps: int, **kw) -> torch.Tensor:
+        problem = make_problem(SimulationParams(nx=256, ny=64,
+                                                precision="f32", **kw))
+        f = state_from_numpy(problem.initial_state(), problem, dev)
+        chunk = make_chunk_fn(problem, dev, steps)
+        require(chunk.plan == [(4, steps // 4)], f"gate plan {chunk.plan}")
+        f = chunk(f)
+        torch.cuda.synchronize()
+        return problem, f
+
+    les = {}
+    for cs in (0.0, 0.17):
+        _, f = run(4000, tau=0.503, inlet_velocity=0.1, smagorinsky=cs)
+        les[cs] = bool(physics.is_stable(f))
+    print(f"operator gates: LES 256x64 tau 0.503 U 0.1, 4000 steps: BGK "
+          f"stable {les[0.0]} (gate False), Smagorinsky 0.17 stable "
+          f"{les[0.17]} (gate True)")
+    require(not les[0.0] and les[0.17], "LES gate failed")
+    problem, f = run(2000, tau=0.5768, inlet_velocity=0.05, cylinder_x=0.2,
+                     cylinder_y=0.5, cylinder_radius=0.05, collision="mrt")
+    stable = bool(physics.is_stable(f))
+    _, u = physics.moments(problem.lattice, f)
+    max_u = float(torch.sqrt(u[0] ** 2 + u[1] ** 2).max())
+    print(f"operator gates: MRT 256x64 tau 0.5768 (default rates, f32), "
+          f"2000 steps: stable {stable}, max|u| {max_u:.6f} (gate < 0.25)")
+    require(stable and max_u < 0.25, "MRT gate failed")
+
+
+def operator_phases(dev, card: str) -> list[dict]:
+    """Phases 17-20: each 2-D operator's D2Q9 kernels against the plain
+    step at 2048x512, its main path through the Runner (and a 64x32 Runner
+    through the kernel and the plain step), tpulbm's LES and MRT gates,
+    and timing. Returns the kernels' JSON entries."""
+    from tpulbm_torch.ops import step_cuda
+
+    t_phases = time.perf_counter()
+    entries = []
+    for op in OPERATORS:
+        params, mode, steps, pstep, f0, errs = operator_parity(dev, op)
+        counts = operator_main_path(dev, op, params, mode)
+        err_tiny = tiny_runner_agreement(
+            dev, f"_{op}", 1e-4 if op == "power_law" else 1e-5,
+            **OPERATORS[op])
+        print(f"operator runner {op} 64x32, kernel vs plain: forces max abs "
+              f"diff {err_tiny:.3e} (rtol 1e-4, atol 5e-6)")
+        # phase 20: timing in turns, ms per step (one launch is N steps)
+        runs = {"plain": (lambda f, n: plain_chunk(pstep, f, n), 100)}
+        for n in (1, *DEPTHS):
+            runs[n] = (lambda f, m, n=n: kernel_chunk(steps[n], f, m // n),
+                       2400)
+        order = ["plain", 1, *DEPTHS]
+        times = {k: [] for k in order}
+        for which in order + order[::-1]:
+            run, n = runs[which]
+            times[which].append(ms_per_step(run, f0, n))
+        ms = {k: min(v) for k, v in times.items()}
+        cells = params.nx * params.ny
+        kind = f"d2q9_{mode}"
+        b = {n: bound(kind, cells, n) for n in (1, *DEPTHS)}
+        print(f"operator timing {op} at {params.nx}x{params.ny} on {card}, "
+              f"ms/step (MLUPS): plain {ms['plain']:.5f} "
+              f"({cells / ms['plain'] / 1e3:.1f}); "
+              + "; ".join(
+                  f"{'1-step' if n == 1 else f'N={n}'} {ms[n]:.5f} "
+                  f"({cells / ms[n] / 1e3:.1f}, runs "
+                  f"{[round(v, 6) for v in times[n]]}), "
+                  f"{100 * b[n]['bound_ms'] / ms[n]:.1f}% of "
+                  f"{b[n]['bound_ms']:.5f} ({b[n]['bound_by']})"
+                  for n in (1, *DEPTHS)))
+        for n in (1, *DEPTHS):
+            entries.append({
+                "name": f"d2q9_collide_stream{'' if n == 1 else f'_n{n}'}"
+                        f"[{op}]",
+                "route": "cuda",
+                "source": (step_cuda.KERNEL_SOURCE if n == 1
+                           else step_cuda.BLOCKED_SOURCE),
+                "replaces": (step_cuda.REPLACES if n == 1
+                             else step_cuda.BLOCKED_REPLACES[n]),
+                "launches": counts[n], "max_abs_err": errs[n], "ms": ms[n],
+                "plain_ms": ms["plain"], **b[n]})
+        del steps, pstep, f0
+        torch.cuda.empty_cache()
+    operator_gates(dev)
+    print(f"operator phases 17-20: {time.perf_counter() - t_phases:.2f} s")
+    return entries
+
 
 def main() -> int:
     # phase 1: the card
@@ -888,21 +1215,27 @@ def main() -> int:
 
     shutil.rmtree(OUT_DIR, ignore_errors=True)   # runs start from t = 0
 
-    # phase 2: build from the checkout's sources, one nvcc per source
+    # phase 2: build from the checkout's sources, one nvcc per source and
+    # D2Q9 collision mode, all started together
     t0 = time.perf_counter()
     sources = ["step_d2q9.cu", "step_d2q9_blocked.cu", "step_d3q19.cu",
                "step_d3q19_blocked.cu", "step_thermal.cu",
                "step_multiphase.cu"]
-    with ThreadPoolExecutor(len(sources)) as pool:
+    modes = [(src, mode) for mode in step_cuda.COLLISION_MODES[1:]
+             for src in ("step_d2q9.cu", "step_d2q9_blocked.cu")]
+    with ThreadPoolExecutor(len(sources) + len(modes)) as pool:
         libs = list(pool.map(cuda_build.load, sources))
-    print(f"build: {len(sources)} sources in "
-          f"{time.perf_counter() - t0:.2f} s")
+        mode_libs = list(pool.map(
+            lambda j: cuda_build.load(j[0], step_cuda.mode_defines(j[1])),
+            modes))
+    print(f"build: {len(sources)} sources and {len(modes)} collision-mode "
+          f"builds of the D2Q9 sources in {time.perf_counter() - t0:.2f} s")
     for lib in libs:
-        ptxas = [ln.split(":", 1)[-1].strip() for ln in lib.log.splitlines()
-                 if "registers" in ln or "spill" in ln or "smem" in ln
-                 or "Compiling entry" in ln]
         print(f"build: {lib.path.name} in {lib.build_seconds:.2f} s "
-              f"({'; '.join(ptxas)})")
+              f"({ptxas_summary(lib.log)})")
+    for (src, mode), lib in zip(modes, mode_libs):
+        print(f"build: {src} [{mode}] in {lib.build_seconds:.2f} s "
+              f"({ptxas_summary(lib.log)})")
     smem = {n: step_cuda._blocked_library().tpulbm_d2q9_blocked_smem_bytes(n)
             for n in DEPTHS}
     print(f"build: N-step kernel dynamic shared memory per block {smem} B")
@@ -1066,6 +1399,7 @@ def main() -> int:
     kernels.extend(sphere_phases(dev, card))
     kernels.append(thermal_phases(dev, card))
     kernels.append(multiphase_phases(dev, card))
+    kernels.extend(operator_phases(dev, card))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

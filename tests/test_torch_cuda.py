@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain version, and the N-step kernels
-against N launches of the 1-step kernels, on the card: D2Q9, D3Q19 (one
-step and N steps), the thermal D2Q9 + D2Q5 kernel and the Shan-Chen
-multiphase kernel. These
+against N launches of the 1-step kernels, on the card: D2Q9 (under every
+collision, with either Zou-He corner rule), D3Q19 (one step and N steps),
+the thermal D2Q9 + D2Q5 kernel and the Shan-Chen multiphase kernel. These
 tests need an NVIDIA GPU with nvcc and skip elsewhere; run them on the
 card with
 
@@ -117,6 +117,54 @@ def test_blocked_chunk_counts_every_launch(cuda):
     want = make_chunk_fn(problem, cuda, 28, backend="jax")(f)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+
+
+# the D2Q9 kernels under each other collision, with the clean corners, on
+# grids whose top inlet corner sits on a tile's first row (ny - 1 a
+# multiple of the 8- and 16-row tiles, where the corner's inward neighbour
+# needs the shifted tiling), a ragged one, and one narrower than a tile
+OPERATORS = {
+    "trt": dict(collision="trt"),
+    "mrt": dict(collision="mrt", mrt_rates=(("e", 1.857),)),
+    "regularized": dict(collision="regularized"),
+    "kbc": dict(collision="kbc"),
+    "les": dict(smagorinsky=0.17),
+    "power_law": dict(power_law_n=0.7),
+    "bgk": dict(),
+}
+
+
+@pytest.mark.parametrize("shape", [(64, 17), (100, 33), (45, 20), (17, 9)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("op", list(OPERATORS))
+def test_operator_kernels_match_plain_and_each_other(cuda, op, shape):
+    nx, ny = shape
+    problem = make_problem(SimulationParams(
+        nx=nx, ny=ny, tau=0.55, inlet_velocity=0.05, zou_he_corners="clean",
+        **OPERATORS[op]))
+    mode = step_torch.collision_mode(problem)
+    f = state_from_numpy(_perturbed_state(problem, nx), problem, cuda)
+    kstep = step_cuda.make_local_step_cuda(problem, cuda)
+    before = step_cuda.collide_stream.launches_by_mode[mode]
+    got = kstep(f, torch.empty_like(f))
+    assert step_cuda.collide_stream.launches_by_mode[mode] == before + 1
+    want = step_torch.make_step_rolled(problem, cuda)(f)
+    torch.cuda.synchronize()
+    if op == "kbc":   # tpulbm's KBC gate: its entropic ratio amplifies
+        assert float((got - want).abs().max() / want.abs().max()) < 3e-5
+    else:
+        torch.testing.assert_close(
+            got, want, **(dict(rtol=1e-4, atol=1e-7) if op == "power_law"
+                          else ONE_STEP_TOL))
+    for n_sub in step_cuda.BLOCKED_DEPTHS:
+        bstep = step_cuda.make_local_step_cuda_blocked(problem, cuda, n_sub)
+        got = bstep(f, torch.empty_like(f))
+        want = f.clone()
+        for _ in range(n_sub):
+            want = kstep(want, torch.empty_like(want))
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (n_sub,
+                                        float((got - want).abs().max()))
 
 
 # D3Q19: ragged grids, a grid smaller than one 32x4 tile, the sphere that

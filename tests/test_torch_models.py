@@ -1,5 +1,7 @@
 """The port's Problem against tpulbm's, byte for byte, and the state
 conversions between the two packages."""
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -46,10 +48,7 @@ _SPHERE = dict(problem="cylinder3d", nz=8)
 
 
 @pytest.mark.parametrize("override,item", [
-    (dict(collision="trt"), "item 11"), (dict(smagorinsky=0.1), "item 11"),
-    (dict(power_law_n=0.7), "item 11"),
     (dict(obstacle_bc="bounce_back"), "item 12"),
-    (dict(zou_he_corners="clean"), "item 12"),
     (dict(body_force=(1e-5, 0.0)), "item 12"),
     (dict(obstacle_bc="bouzidi"), "item 14"), (dict(nz=16), "item 16"),
     (dict(_SPHERE, lattice3d="d3q27"), "item 16"),
@@ -58,10 +57,26 @@ _SPHERE = dict(problem="cylinder3d", nz=8)
     (dict(_SPHERE, smagorinsky=0.1), "item 11"),
     (dict(_SPHERE, obstacle_bc="bounce_back"), "item 12"),
     (dict(_SPHERE, obstacle_bc="bouzidi"), "item 14"),
-    (dict(_SPHERE, body_force=(1e-5, 0.0, 0.0)), "item 12")])
+    (dict(_SPHERE, body_force=(1e-5, 0.0, 0.0)), "item 12"),
+    (dict(_SPHERE, collision="mrt"), "item 11 (collision operators, 3-D)"),
+    (dict(_SPHERE, power_law_n=0.7), "item 11 (collision operators, 3-D)")])
 def test_unported_options_name_their_roadmap_item(override, item):
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match=re.escape(item)):
         port_problem(PRESETS["cylinder-small"].replace(**override))
+
+
+# the 2-D cylinder's operators and corner rule, once refused: the Problem
+# carries tpulbm's fields
+@pytest.mark.parametrize("override", [
+    dict(collision="trt"), dict(smagorinsky=0.1), dict(power_law_n=0.7),
+    dict(zou_he_corners="clean")])
+def test_cylinder_operator_fields_match_tpulbm(override):
+    params = PRESETS["cylinder-small"].replace(**override)
+    mine, ref = port_problem(params), jax_problem(params)
+    for name in ("collision", "clean_corners", "trt_magic", "mrt_rates",
+                 "smagorinsky", "power_law"):
+        assert getattr(mine, name) == getattr(ref, name), name
+    assert mine.initial_state().tobytes() == ref.initial_state().tobytes()
 
 
 def test_state_round_trip_and_checks():

@@ -1,22 +1,71 @@
 // The per-cell parts of a D2Q9 timestep that every kernel of the port
-// shares, float32: moments and BGK collision, the pull with the reference's
-// ghost rule, and the boundary sequence. step_d2q9.cu (one step per launch)
-// and step_d2q9_blocked.cu (N steps per launch) both build on these
-// functions, so that N launches of the first and one launch of the second
-// run the same operations in the same order and give the same bits; the
-// thermal kernel (step_thermal.cu) reuses the moments and the relaxation.
+// shares, float32: moments and the collisions, the pull with the
+// reference's ghost rule, and the boundary sequence. step_d2q9.cu (one step
+// per launch) and step_d2q9_blocked.cu (N steps per launch) both build on
+// these functions, so that N launches of the first and one launch of the
+// second run the same operations in the same order and give the same bits;
+// the thermal and multiphase kernels (step_thermal.cu, step_multiphase.cu)
+// reuse the moments and the BGK relaxation.
 //
-// Rounding follows the plain version (tpulbm_torch/ops/step_torch.py): the
-// expression order below is the reference's, and the libraries are built
-// with -fmad=false so no multiply and add are fused into one rounding.
+// Rounding: the BGK relaxation follows the plain version
+// (tpulbm_torch/ops/step_torch.py); the other collisions follow the
+// arithmetic of tpulbm's Pallas kernel (tpulbm/ops/step_pallas.py:170-415)
+// where it differs from the plain version's, so kernel and plain version
+// agree at float32 rounding, not bitwise. The libraries are built with
+// -fmad=false, so no multiply and add are fused into one rounding, and
+// without fast math, so sqrtf, expf, logf and division stay IEEE.
+//
+// The collision is fixed when a library is built: -DTPULBM_COLLISION=<mode>
+// (ops/step_cuda.py builds one library per mode), BGK when it is unset.
 
 #pragma once
 
 #include <stdint.h>
+#include <string.h>
+
+#ifndef TPULBM_COLLISION
+#define TPULBM_COLLISION 0
+#endif
 
 namespace tpulbm {
 
 constexpr int kQ = 9;
+
+// The collision modes, in the order ops/step_cuda.py's COLLISION_MODES
+// lists them.
+enum Collision : int {
+  kBGK = 0,
+  kTRT = 1,
+  kMRT = 2,
+  kRegularized = 3,
+  kKBC = 4,
+  kSmagorinsky = 5,
+  kPowerLaw = 6,
+};
+constexpr int kMode = TPULBM_COLLISION;
+static_assert(kMode >= kBGK && kMode <= kPowerLaw, "unknown collision mode");
+
+// MRT's rank-r correction, zero-padded to the largest D2Q9 rank (e, eps,
+// qx, qy: the non-conserved, non-shear moments)
+constexpr int kMrtRank = 4;
+constexpr int kPowerLawIters = 8;  // tpulbm physics.PLAW_ITERS
+
+// The collisions' coefficients, computed on the host in double precision
+// as tpulbm's _physics_cfg_fields computes them and rounded once to float
+// (ops/step_cuda.py::mode_floats writes them in this order). A mode reads
+// only its own.
+struct ModeConsts {
+  float trt_hp, trt_hm;        // TRT: 0.5/tau and 0.5·ω⁻
+  float mrt_u[kQ][kMrtRank];   // MRT: U (Q x r) and V (r x Q)
+  float mrt_v[kMrtRank][kQ];
+  float reg_keep;              // regularized: 1 - 1/tau, and the shell
+  float reg_a[kQ], reg_b[kQ], reg_g[kQ];  // weights of Pi_xx, Pi_yy, Pi_xy
+  float kbc_sp[kQ], kbc_sn[kQ];            // KBC: shear and higher parts
+  float kbc_ht[kQ], kbc_hqx[kQ], kbc_hqy[kQ], kbc_ha[kQ];
+  float kbc_inv_beta, kbc_two_minus_inv_beta, kbc_beta, kbc_two_beta;
+  float smag_tau0, smag_tau0_sq, smag_coef;  // Smagorinsky: 18 Cs^2
+  float plaw_nm1, plaw_log3k, plaw_lam_lo, plaw_lam_hi;  // power law
+};
 
 struct StepConsts {
   float inv_tau;         // 1 / tau
@@ -24,10 +73,16 @@ struct StepConsts {
   float one_minus_u_in;  // 1 - u_in, rounded once on the host
   float eq_in[kQ];       // frozen ghost equilibrium(rho=1, u=(u_in, 0))
   float w[kQ];           // lattice weights: the rest equilibrium of solids
+  ModeConsts m;
 };
 
+constexpr int kModeFloats = sizeof(ModeConsts) / sizeof(float);
+static_assert(sizeof(ModeConsts) == kModeFloats * sizeof(float),
+              "ModeConsts holds floats only");
+
 inline StepConsts make_consts(float inv_tau, float u_in, float one_minus_u_in,
-                              const float* eq_in, const float* w) {
+                              const float* eq_in, const float* w,
+                              const float* mode) {
   StepConsts k;
   k.inv_tau = inv_tau;
   k.u_in = u_in;
@@ -36,6 +91,7 @@ inline StepConsts make_consts(float inv_tau, float u_in, float one_minus_u_in,
     k.eq_in[i] = eq_in[i];
     k.w[i] = w[i];
   }
+  memcpy(&k.m, mode, sizeof(ModeConsts));
   return k;
 }
 
@@ -71,15 +127,199 @@ __device__ __forceinline__ void relax_bgk(float* f, const Moments& m,
   }
 }
 
-// BGK relaxation of one cell's 9 populations, in place.
-__device__ __forceinline__ void collide_bgk(float* f, const StepConsts& k) {
-  relax_bgk(f, moments_d2q9(f), k.inv_tau, k.w);
+// The non-equilibrium parts dev_i = f_i - feq_i, with feq as relax_bgk
+// computes it, and the equilibria themselves.
+__device__ __forceinline__ void deviations(const float* f, const Moments& m,
+                                           const float* w, float* feq,
+                                           float* dev) {
+  const float rho = m.rho, ux = m.ux, uy = m.uy;
+  const float base = 1.0f - 1.5f * (ux * ux + uy * uy);
+  const float cu[kQ] = {0.0f, ux, uy, -ux, -uy,
+                        ux + uy, -ux + uy, -ux + -uy, ux + -uy};
+  feq[0] = w[0] * rho * base;
+#pragma unroll
+  for (int i = 1; i < kQ; ++i)
+    feq[i] = w[i] * rho * (base + 3.0f * cu[i] + 4.5f * cu[i] * cu[i]);
+#pragma unroll
+  for (int i = 0; i < kQ; ++i) dev[i] = f[i] - feq[i];
+}
+
+// The non-equilibrium momentum flux Pi_ab = sum_i c_ia c_ib dev_i.
+struct Stress {
+  float xx, yy, xy;
+};
+
+__device__ __forceinline__ Stress stress(const float* d) {
+  return {d[1] + d[3] + d[5] + d[6] + d[7] + d[8],
+          d[2] + d[4] + d[5] + d[6] + d[7] + d[8],
+          d[5] - d[6] + d[7] - d[8]};
+}
+
+// TRT in the Pallas kernel's closed form: feq_i ± feq_opp(i) is
+// 2 w rho (base + 4.5 cu²) and 6 w rho cu.
+__device__ __forceinline__ void collide_trt(float* f, const StepConsts& k) {
+  constexpr int opp[kQ] = {0, 3, 4, 1, 2, 7, 8, 5, 6};
+  const Moments m = moments_d2q9(f);
+  const float rho = m.rho, ux = m.ux, uy = m.uy;
+  const float base = 1.0f - 1.5f * (ux * ux + uy * uy);
+  const float cu[kQ] = {0.0f, ux, uy, -ux, -uy,
+                        ux + uy, -ux + uy, -ux + -uy, ux + -uy};
+  float out[kQ];
+  out[0] = f[0] - k.inv_tau * (f[0] - k.w[0] * rho * base);
+#pragma unroll
+  for (int i = 1; i < kQ; ++i) {
+    const float wr = k.w[i] * rho;
+    const float fo = f[opp[i]];
+    const float even = (f[i] + fo) - 2.0f * wr * (base + 4.5f * cu[i] * cu[i]);
+    const float odd = (f[i] - fo) - 6.0f * wr * cu[i];
+    out[i] = f[i] - k.m.trt_hp * even - k.m.trt_hm * odd;
+  }
+#pragma unroll
+  for (int i = 0; i < kQ; ++i) f[i] = out[i];
+}
+
+// MRT in rank-r form: f - dev/tau - sum_r U[:,r] (V[r] . dev). The padded
+// ranks and the structural zeros Pallas skips add 0·x, which leaves every
+// finite value as it is.
+__device__ __forceinline__ void collide_mrt(float* f, const StepConsts& k) {
+  float feq[kQ], dev[kQ];
+  deviations(f, moments_d2q9(f), k.w, feq, dev);
+  float t[kMrtRank];
+#pragma unroll
+  for (int r = 0; r < kMrtRank; ++r) {
+    t[r] = k.m.mrt_v[r][0] * dev[0];
+#pragma unroll
+    for (int j = 1; j < kQ; ++j) t[r] = t[r] + k.m.mrt_v[r][j] * dev[j];
+  }
+#pragma unroll
+  for (int i = 0; i < kQ; ++i) {
+    float fp = f[i] - k.inv_tau * dev[i];
+#pragma unroll
+    for (int r = 0; r < kMrtRank; ++r) fp = fp - k.m.mrt_u[i][r] * t[r];
+    f[i] = fp;
+  }
+}
+
+// Regularized BGK: the deviation replaced by its second-order Hermite
+// projection (9/2) w_i Q_i:Pi before relaxing.
+__device__ __forceinline__ void collide_regularized(float* f,
+                                                    const StepConsts& k) {
+  float feq[kQ], dev[kQ];
+  deviations(f, moments_d2q9(f), k.w, feq, dev);
+  const Stress p = stress(dev);
+#pragma unroll
+  for (int i = 0; i < kQ; ++i) {
+    const float proj = k.m.reg_a[i] * p.xx + k.m.reg_b[i] * p.yy +
+                       k.m.reg_g[i] * p.xy;
+    f[i] = (f[i] - dev[i]) + k.m.reg_keep * proj;
+  }
+}
+
+// KBC: shear part at 2 beta = 1/tau, higher part at beta·gamma, with the
+// entropic gamma = 1/beta - (2 - 1/beta) <ds|dh> / (<dh|dh> + 1e-10). The
+// sums keep the Pallas kernel's order: the ratio amplifies rounding.
+__device__ __forceinline__ void collide_kbc(float* f, const StepConsts& k) {
+  float feq[kQ], dev[kQ];
+  deviations(f, moments_d2q9(f), k.w, feq, dev);
+  const Stress p = stress(dev);
+  const float dn = p.xx - p.yy;
+  const float dt = p.xx + p.yy;
+  const float dqx = dev[5] - dev[6] - dev[7] + dev[8];  // sum c_x c_y² dev
+  const float dqy = dev[5] + dev[6] - dev[7] - dev[8];  // sum c_x² c_y dev
+  const float da = dev[5] + dev[6] + dev[7] + dev[8];   // sum c_x² c_y² dev
+  float ds[kQ], dh[kQ];
+  float sh = 0.0f, hh = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kQ; ++i) {
+    ds[i] = k.m.kbc_sp[i] * p.xy + k.m.kbc_sn[i] * dn;
+    dh[i] = k.m.kbc_ht[i] * dt + k.m.kbc_hqx[i] * dqx +
+            k.m.kbc_hqy[i] * dqy + k.m.kbc_ha[i] * da;
+    const float ife = 1.0f / feq[i];
+    const float t1 = ds[i] * dh[i] * ife;
+    const float t2 = dh[i] * dh[i] * ife;
+    sh = i == 0 ? t1 : sh + t1;
+    hh = i == 0 ? t2 : hh + t2;
+  }
+  const float gamma =
+      k.m.kbc_inv_beta - k.m.kbc_two_minus_inv_beta * sh / (hh + 1e-10f);
+  const float bg = k.m.kbc_beta * gamma;
+#pragma unroll
+  for (int i = 0; i < kQ; ++i)
+    f[i] = f[i] - k.m.kbc_two_beta * ds[i] - bg * dh[i];
+}
+
+// BGK at the per-cell Smagorinsky rate
+// 1/tau_eff = 2 / (tau0 + sqrt(tau0² + 18 Cs² Q̄ / rho)),
+// Q̄ = sqrt(2 (Pi_xx² + Pi_yy² + 2 Pi_xy²)).
+__device__ __forceinline__ void collide_smagorinsky(float* f,
+                                                    const StepConsts& k) {
+  const Moments m = moments_d2q9(f);
+  float feq[kQ], dev[kQ];
+  deviations(f, m, k.w, feq, dev);
+  const Stress p = stress(dev);
+  const float inv_rho = 1.0f / m.rho;
+  const float qbar = sqrtf(2.0f * (p.xx * p.xx + p.yy * p.yy +
+                                   2.0f * (p.xy * p.xy)));
+  const float inv_t =
+      2.0f / (k.m.smag_tau0 +
+              sqrtf(k.m.smag_tau0_sq + k.m.smag_coef * qbar * inv_rho));
+#pragma unroll
+  for (int i = 0; i < kQ; ++i) f[i] = f[i] - inv_t * dev[i];
+}
+
+// BGK at the per-cell power-law rate: kPowerLawIters Newton steps on
+// lam = log(tau - 1/2) of lam + (n-1) log tau - log 3k - (n-1) log gfac,
+// gfac = 1.5 Q̄ / rho (floored at 1e-12), Q̄ summed as
+// Pi_xx² + 2 Pi_xy² + Pi_yy², each step clamped to [lam_lo, lam_hi].
+__device__ __forceinline__ void collide_power_law(float* f,
+                                                  const StepConsts& k) {
+  const Moments m = moments_d2q9(f);
+  float feq[kQ], dev[kQ];
+  deviations(f, m, k.w, feq, dev);
+  const Stress p = stress(dev);
+  const float inv_rho = 1.0f / m.rho;
+  const float qbar = sqrtf(2.0f * (p.xx * p.xx + 2.0f * (p.xy * p.xy) +
+                                   p.yy * p.yy));
+  const float nm1 = k.m.plaw_nm1;
+  const float gl = logf(fmaxf(1.5f * qbar * inv_rho, 1e-12f));
+  float lam = 0.0f;
+#pragma unroll 1
+  for (int it = 0; it < kPowerLawIters; ++it) {
+    const float tau = 0.5f + expf(lam);
+    const float r = lam + nm1 * logf(tau) - k.m.plaw_log3k - nm1 * gl;
+    const float rp = 1.0f + nm1 * (tau - 0.5f) / tau;
+    lam = fminf(fmaxf(lam - r / rp, k.m.plaw_lam_lo), k.m.plaw_lam_hi);
+  }
+  const float inv_t = 1.0f / (0.5f + expf(lam));
+#pragma unroll
+  for (int i = 0; i < kQ; ++i) f[i] = f[i] - inv_t * dev[i];
+}
+
+// One cell's collision in the library's mode, in place. The BGK case is
+// the relaxation every earlier build of these kernels ran.
+__device__ __forceinline__ void collide(float* f, const StepConsts& k) {
+  if constexpr (kMode == kBGK) {
+    relax_bgk(f, moments_d2q9(f), k.inv_tau, k.w);
+  } else if constexpr (kMode == kTRT) {
+    collide_trt(f, k);
+  } else if constexpr (kMode == kMRT) {
+    collide_mrt(f, k);
+  } else if constexpr (kMode == kRegularized) {
+    collide_regularized(f, k);
+  } else if constexpr (kMode == kKBC) {
+    collide_kbc(f, k);
+  } else if constexpr (kMode == kSmagorinsky) {
+    collide_smagorinsky(f, k);
+  } else {
+    collide_power_law(f, k);
+  }
 }
 
 // Pull g_i(x, y) = f_post_i((x, y) - c_i) with the reference's ghost rule:
 // a source across a y edge (corners included) gives the frozen equilibrium,
 // one across an x edge gives zero, and an in-domain source gives
-// post(i, cx, cy), the post-collision value the caller keeps for it.
+// post(i, dx, dy), the post-collision value of population i at
+// (x + dx, y + dy) that the caller keeps.
 template <class Post>
 __device__ __forceinline__ void pull_d2q9(float* g, int x, int y, int nx,
                                           int ny, const StepConsts& k,
@@ -89,7 +329,7 @@ __device__ __forceinline__ void pull_d2q9(float* g, int x, int y, int nx,
     const int sx = x - cx;
     if (sy < 0 || sy >= ny) return k.eq_in[i];
     if (sx < 0 || sx >= nx) return 0.0f;
-    return post(i, cx, cy);
+    return post(i, -cx, -cy);
   };
   g[0] = pull(0, 0, 0);
   g[1] = pull(1, 1, 0);
@@ -102,18 +342,11 @@ __device__ __forceinline__ void pull_d2q9(float* g, int x, int y, int nx,
   g[8] = pull(8, 1, -1);
 }
 
-// The boundary sequence on one cell's post-stream populations, in place:
-// bounce-back walls (bottom, then top) -> Zou-He inlet -> Zou-He outlet, or
-// the obstacle pin on a solid cell. Every rule reads only this cell.
-__device__ __forceinline__ void apply_boundaries(float* g, bool solid, int x,
-                                                 int y, int nx, int ny,
-                                                 const StepConsts& k) {
-  if (solid) {
-    // equilibrium obstacle: solid cells are pinned to rest equilibrium
-#pragma unroll
-    for (int i = 0; i < kQ; ++i) g[i] = k.w[i];
-    return;
-  }
+// The edge rules on one fluid cell's post-stream populations, in place:
+// bounce-back walls (bottom, then top) -> Zou-He inlet -> Zou-He outlet.
+// Every rule reads only this cell.
+__device__ __forceinline__ void apply_edges(float* g, int x, int y, int nx,
+                                            int ny, const StepConsts& k) {
   if (y == 0) {
     g[2] = g[4];
     g[5] = g[7];
@@ -143,6 +376,92 @@ __device__ __forceinline__ void apply_boundaries(float* g, bool solid, int x,
     g[6] = g[8] - ht - (1.0f / 6.0f) * u_out;
     g[7] = g[5] + ht - (1.0f / 6.0f) * u_out;
   }
+}
+
+// One corner node of the clean closure: the wall-tangential unknowns X
+// (along x), Y (along y) and D (the inward diagonal) bounce back from
+// their opposites and the diagonal pair P0, P1 takes the density residual
+// 0.5 (rho* - g0) - (g_opp(X) + g_opp(Y) + g_opp(D)), summed as the Pallas
+// kernel sums it.
+template <int X, int Y, int D, int P0, int P1>
+__device__ __forceinline__ void close_corner(float* g, float rho_star) {
+  constexpr int opp[kQ] = {0, 3, 4, 1, 2, 7, 8, 5, 6};
+  const float resid =
+      0.5f * (rho_star - g[0]) - (g[opp[X]] + g[opp[Y]] + g[opp[D]]);
+  g[X] = g[opp[X]];
+  g[Y] = g[opp[Y]];
+  g[D] = g[opp[D]];
+  g[P0] = resid;
+  g[P1] = resid;
+}
+
+// The clean Zou-He corner closure (tpulbm ops/boundaries.py:163-200,
+// step_pallas.py:672-704) at a fluid wall∩inlet/outlet cell, after its edge
+// rules. At the inlet corners rho* is the density of the node one row
+// inward on the same column after ITS pull, walls and inlet, which this
+// thread recomputes from post() (so the caller must hold the post-collision
+// values two rows inward) and solid_at(dx, dy), the solid flag at
+// (x + dx, y + dy). At the outlet corners rho* = 1.
+template <class Post, class SolidAt>
+__device__ __forceinline__ void apply_corner(float* g, int x, int y, int nx,
+                                             int ny, const StepConsts& k,
+                                             const Post& post,
+                                             const SolidAt& solid_at) {
+  const bool bottom = y == 0;
+  const bool inlet = x == 0;
+  float rho_star = 1.0f;
+  if (inlet) {
+    const int dy = ny == 1 ? 0 : bottom ? 1 : -1;
+    float h[kQ];
+    pull_d2q9(h, x, y + dy, nx, ny, k, [&](int i, int sx, int sy) {
+      return post(i, sx, sy + dy);
+    });
+    if (!solid_at(0, dy)) apply_edges(h, x, y + dy, nx, ny, k);
+    rho_star = h[0];
+#pragma unroll
+    for (int i = 1; i < kQ; ++i) rho_star = rho_star + h[i];
+  }
+  if (inlet && bottom) {
+    close_corner<1, 2, 5, 6, 8>(g, rho_star);
+  } else if (bottom) {
+    close_corner<3, 2, 6, 5, 7>(g, rho_star);
+  } else if (inlet) {
+    close_corner<1, 4, 8, 5, 7>(g, rho_star);
+  } else {
+    close_corner<3, 4, 7, 6, 8>(g, rho_star);
+  }
+}
+
+// The boundary sequence on one cell's post-stream populations, in place:
+// the edge rules, then (kCorners) the clean corners, or the obstacle pin on
+// a solid cell. post and solid_at as for apply_corner. The kernels are
+// built with and without the corners, so that a run without them carries
+// no trace of their code.
+template <bool kCorners, class Post, class SolidAt>
+__device__ __forceinline__ void apply_boundaries(float* g, bool solid, int x,
+                                                 int y, int nx, int ny,
+                                                 const StepConsts& k,
+                                                 const Post& post,
+                                                 const SolidAt& solid_at) {
+  if (solid) {
+    // equilibrium obstacle: solid cells are pinned to rest equilibrium
+#pragma unroll
+    for (int i = 0; i < kQ; ++i) g[i] = k.w[i];
+    return;
+  }
+  apply_edges(g, x, y, nx, ny, k);
+  if constexpr (kCorners) {
+    if ((x == 0 || x == nx - 1) && (y == 0 || y == ny - 1))
+      apply_corner(g, x, y, nx, ny, k, post, solid_at);
+  }
+}
+
+// Rows the tiling of a kernel with kBY-row tiles starts below y = 0: one
+// with the clean corners when the inlet's top corner would sit on a tile's
+// first row, where its inward neighbour's pull would reach past the rows
+// the tile holds; else zero. Any offset gives the same bits.
+inline int tile_row_shift(int ny, int kBY, bool corners) {
+  return corners && ny > 1 && (ny - 1) % kBY == 0 ? 1 : 0;
 }
 
 }  // namespace tpulbm

@@ -1,31 +1,37 @@
 // One fused D2Q9 timestep on an NVIDIA Hopper GPU (sm_90a), float32:
-// BGK collide -> pull-stream -> ghost sanitize -> y walls -> Zou-He inlet
-// -> Zou-He outlet -> obstacle pin.
+// collide -> pull-stream -> ghost sanitize -> y walls -> Zou-He inlet ->
+// Zou-He outlet -> clean Zou-He corners (optional) -> obstacle pin.
 //
 // Replaces tpulbm/ops/step_pallas.py::make_local_step_pallas (the fused
-// 1-step Pallas TPU kernel), for the BGK collision and the equilibrium
-// obstacle. Its plain version is tpulbm_torch/ops/step_torch.py.
+// 1-step Pallas TPU kernel) for the equilibrium obstacle, under each of its
+// collisions (BGK, TRT, MRT, regularized, KBC, Smagorinsky, power law: one
+// library per collision, d2q9_common.cuh) and with either corner rule. Its
+// plain version is tpulbm_torch/ops/step_torch.py.
 //
 // Layout: f is SoA (9, ny, nx) float32 with x fastest, one plane per
 // population. One thread owns one cell, x fastest, so each plane is read
 // and written with coalesced accesses. Any nx and ny run: the ragged
 // blocks at the right and top edges are masked, no padding is needed.
 //
-// What bounds it: device-memory traffic. A step has to read and write the
-// 9 populations of every cell once, 72 B per cell (plus 1 B of solid mask),
-// against about 200 floating-point operations per cell. That is far below
-// the card's ratio of compute to bandwidth, so the kernel is written to
-// touch each population once in device memory: a block loads its tile and
-// a one-cell halo, collides every loaded cell once in registers, keeps the
-// post-collision values in shared memory for the pull, and applies every
-// boundary condition in registers before the single store. The halo cells
-// are re-read by the neighbouring blocks (mostly from L2) and collided
-// there again; that recomputation is cheap next to a second pass through
-// device memory.
+// What bounds it: device-memory traffic for BGK. A step has to read and
+// write the 9 populations of every cell once, 72 B per cell (plus 1 B of
+// solid mask), against about 115 floating-point operations per cell under
+// BGK and up to a few hundred under KBC or the power law's Newton solve.
+// The kernel is written to touch each population once in device memory: a
+// block loads its tile and a one-cell halo, collides every loaded cell once
+// in registers, keeps the post-collision values in shared memory for the
+// pull, and applies every boundary condition in registers before the single
+// store. The halo cells are re-read by the neighbouring blocks (mostly from
+// L2) and collided there again.
 //
-// Every boundary condition of this configuration is cell-local: it reads
-// only the post-stream values of its own cell. So the TPU kernel's slab
-// ring, lane padding and VMEM sizing have no counterpart here.
+// Every boundary condition but one reads only the post-stream values of
+// its own cell, so the TPU kernel's slab ring, lane padding and VMEM sizing
+// have no counterpart here. The exception is the clean corners' inlet
+// rule, which needs the density of the node one row inward after its own
+// pull and inlet: the corner thread recomputes that pull from the shared
+// tile, which holds the two rows it reaches when the tiling starts one row
+// lower wherever the top inlet corner would sit on a tile's first row
+// (tpulbm::tile_row_shift).
 //
 // The collision, the pull's ghost rule and the boundary sequence live in
 // d2q9_common.cuh, shared with the N-step kernel (step_d2q9_blocked.cu).
@@ -45,16 +51,17 @@ constexpr int kBY = 8;   // block height (rows)
 constexpr int kTX = kBX + 2;
 constexpr int kTY = kBY + 2;
 
+template <bool kCorners>
 __global__ void __launch_bounds__(kBX * kBY)
     d2q9_step_kernel(const float* __restrict__ f, float* __restrict__ out,
                      const uint8_t* __restrict__ solid, int nx, int ny,
-                     StepConsts k) {
+                     int y_shift, StepConsts k) {
   __shared__ float post[kQ][kTY][kTX];  // post-collision tile + halo
 
   const int tx = threadIdx.x;
   const int ty = threadIdx.y;
   const int x0 = blockIdx.x * kBX;
-  const int y0 = blockIdx.y * kBY;
+  const int y0 = blockIdx.y * kBY - y_shift;
   const size_t plane = static_cast<size_t>(nx) * ny;
 
   // Load and collide the tile and its in-domain halo. Halo cells outside
@@ -69,7 +76,7 @@ __global__ void __launch_bounds__(kBX * kBY)
     float v[kQ];
 #pragma unroll
     for (int i = 0; i < kQ; ++i) v[i] = f[i * plane + cell];
-    tpulbm::collide_bgk(v, k);
+    tpulbm::collide(v, k);
 #pragma unroll
     for (int i = 0; i < kQ; ++i) post[i][ly][lx] = v[i];
   }
@@ -77,14 +84,20 @@ __global__ void __launch_bounds__(kBX * kBY)
 
   const int x = x0 + tx;
   const int y = y0 + ty;
-  if (x >= nx || y >= ny) return;
+  if (x >= nx || y < 0 || y >= ny) return;
 
+  // post-collision value of population i and solid flag at (x+dx, y+dy)
+  auto post_at = [&](int i, int dx, int dy) {
+    return post[i][ty + 1 + dy][tx + 1 + dx];
+  };
+  auto solid_at = [&](int dx, int dy) {
+    return solid[static_cast<size_t>(y + dy) * nx + x + dx] != 0;
+  };
   float g[kQ];
-  tpulbm::pull_d2q9(g, x, y, nx, ny, k, [&](int i, int cx, int cy) {
-    return post[i][ty + 1 - cy][tx + 1 - cx];
-  });
+  tpulbm::pull_d2q9(g, x, y, nx, ny, k, post_at);
   const size_t cell = static_cast<size_t>(y) * nx + x;
-  tpulbm::apply_boundaries(g, solid[cell] != 0, x, y, nx, ny, k);
+  tpulbm::apply_boundaries<kCorners>(g, solid[cell] != 0, x, y, nx, ny, k,
+                                     post_at, solid_at);
 #pragma unroll
   for (int i = 0; i < kQ; ++i) out[i * plane + cell] = g[i];
 }
@@ -98,17 +111,29 @@ extern "C" int tpulbm_d2q9_step(const float* f, float* out,
                                 const uint8_t* solid, int nx, int ny,
                                 float inv_tau, float u_in,
                                 float one_minus_u_in, const float* eq_in,
-                                const float* w, int device, void* stream) {
+                                const float* w, int clean_corners,
+                                const float* mode, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const StepConsts k =
-      tpulbm::make_consts(inv_tau, u_in, one_minus_u_in, eq_in, w);
+  const StepConsts k = tpulbm::make_consts(inv_tau, u_in, one_minus_u_in,
+                                           eq_in, w, mode);
+  const int y_shift = tpulbm::tile_row_shift(ny, kBY, clean_corners != 0);
   const dim3 block(kBX, kBY);
-  const dim3 grid((nx + kBX - 1) / kBX, (ny + kBY - 1) / kBY);
-  d2q9_step_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      f, out, solid, nx, ny, k);
+  const dim3 grid((nx + kBX - 1) / kBX, (ny + y_shift + kBY - 1) / kBY);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (clean_corners)
+    d2q9_step_kernel<true><<<grid, block, 0, s>>>(f, out, solid, nx, ny,
+                                                  y_shift, k);
+  else
+    d2q9_step_kernel<false><<<grid, block, 0, s>>>(f, out, solid, nx, ny,
+                                                   y_shift, k);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The library's collision mode (tpulbm::Collision) and the floats of its
+// mode coefficients, which the caller's array must hold.
+extern "C" int tpulbm_d2q9_mode() { return tpulbm::kMode; }
+extern "C" int tpulbm_d2q9_mode_floats() { return tpulbm::kModeFloats; }
 
 extern "C" const char* tpulbm_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -1,12 +1,13 @@
 // N fused D2Q9 timesteps per launch (temporal blocking) on an NVIDIA Hopper
 // GPU (sm_90a), float32, N = 2, 3 or 4. Each substep is the 1-step kernel's
-// sequence: BGK collide -> pull-stream -> ghost rule -> y walls -> Zou-He
-// inlet -> Zou-He outlet -> obstacle pin.
+// sequence: collide -> pull-stream -> ghost rule -> y walls -> Zou-He inlet
+// -> Zou-He outlet -> clean Zou-He corners (optional) -> obstacle pin.
 //
 // Replaces tpulbm/ops/step_pallas.py::make_local_step_pallasN (the N-step
 // Pallas cascade, N = 3 and 4) and ::make_local_step_pallas2 (its 2-step
-// form), for the BGK collision and the equilibrium obstacle. Its plain
-// version is N applications of tpulbm_torch/ops/step_torch.py's step.
+// form) for the equilibrium obstacle, under each of their collisions (one
+// library per collision, d2q9_common.cuh) and with either corner rule. Its
+// plain version is N applications of tpulbm_torch/ops/step_torch.py's step.
 //
 // What bounds it: one launch moves the 73 B per cell of one step through
 // device memory (read and write 9 f32, read the 1-byte solid mask) and
@@ -34,9 +35,17 @@
 // and the mask), and a larger one above 48 KB asks for it with
 // cudaFuncSetAttribute.
 //
-// Every boundary condition of this configuration is cell-local, so the
-// TPU kernel's slab ring, DMA semaphores, ring inputs rb/rt/mrb/mrt and
-// slab-skip flags have no counterpart here.
+// Every boundary condition but the clean corners' inlet rule is
+// cell-local, so the TPU kernel's slab ring, DMA semaphores, ring inputs
+// rb/rt/mrb/mrt and slab-skip flags have no counterpart here. The inlet
+// corner recomputes the pull, walls and inlet of the node one row inward
+// from the buffer, so it reads sources two rows inward. The inlet column
+// and the bottom row sit N cells into the only window that holds them, and
+// the top row at least N rows in, so those sources hold the previous
+// substep's values wherever a corner is computed, except at substep N when
+// the top inlet corner is the tile's first row: its sources then sit at
+// depth N-2, one row short. The tiling then starts one row lower
+// (tpulbm::tile_row_shift), which leaves every cell's bits as they are.
 //
 // Bits. Collision, pull and boundary code come from d2q9_common.cuh, shared
 // with step_d2q9.cu, and both libraries are built with -fmad=false: one
@@ -69,11 +78,11 @@ struct Window {
       ((kTX - 2) * (kTY - 2) + kThreads - 1) / kThreads;
 };
 
-template <int N>
+template <int N, bool kCorners>
 __global__ void __launch_bounds__(kThreads)
     d2q9_blocked_kernel(const float* __restrict__ f, float* __restrict__ out,
                         const uint8_t* __restrict__ solid, int nx, int ny,
-                        StepConsts k) {
+                        int y_shift, StepConsts k) {
   using W = Window<N>;
   constexpr int TX = W::kTX;
   constexpr int TY = W::kTY;
@@ -83,7 +92,7 @@ __global__ void __launch_bounds__(kThreads)
 
   const int tid = threadIdx.x;
   const int x0 = blockIdx.x * kBX - N;  // global coordinates of window (0, 0)
-  const int y0 = blockIdx.y * kBY - N;
+  const int y0 = blockIdx.y * kBY - N - y_shift;
   const size_t plane = static_cast<size_t>(nx) * ny;
 
   // Load the window's in-domain cells once and collide them.
@@ -98,7 +107,7 @@ __global__ void __launch_bounds__(kThreads)
     float v[kQ];
 #pragma unroll
     for (int i = 0; i < kQ; ++i) v[i] = f[i * plane + cell];
-    tpulbm::collide_bgk(v, k);
+    tpulbm::collide(v, k);
 #pragma unroll
     for (int i = 0; i < kQ; ++i) post[i * W::kCells + c] = v[i];
   }
@@ -124,11 +133,16 @@ __global__ void __launch_bounds__(kThreads)
       if (gx < 0 || gx >= nx || gy < 0 || gy >= ny) continue;
       const int lc = ly * TX + lx;
       at[j] = lc;
-      tpulbm::pull_d2q9(g[j], gx, gy, nx, ny, k, [&](int i, int cx, int cy) {
-        return post[i * W::kCells + lc - cy * TX - cx];
-      });
-      tpulbm::apply_boundaries(g[j], mask[lc] != 0, gx, gy, nx, ny, k);
-      tpulbm::collide_bgk(g[j], k);
+      auto post_at = [&](int i, int dx, int dy) {
+        return post[i * W::kCells + lc + dy * TX + dx];
+      };
+      auto solid_at = [&](int dx, int dy) {
+        return mask[lc + dy * TX + dx] != 0;
+      };
+      tpulbm::pull_d2q9(g[j], gx, gy, nx, ny, k, post_at);
+      tpulbm::apply_boundaries<kCorners>(g[j], mask[lc] != 0, gx, gy, nx,
+                                         ny, k, post_at, solid_at);
+      tpulbm::collide(g[j], k);
     }
     __syncthreads();  // every pull of this substep has read the old values
 #pragma unroll
@@ -146,33 +160,47 @@ __global__ void __launch_bounds__(kThreads)
     const int lx = N + c % kBX;
     const int gx = x0 + lx;
     const int gy = y0 + ly;
-    if (gx >= nx || gy >= ny) continue;
+    if (gx >= nx || gy < 0 || gy >= ny) continue;
     const int lc = ly * TX + lx;
+    auto post_at = [&](int i, int dx, int dy) {
+      return post[i * W::kCells + lc + dy * TX + dx];
+    };
+    auto solid_at = [&](int dx, int dy) {
+      return mask[lc + dy * TX + dx] != 0;
+    };
     float g[kQ];
-    tpulbm::pull_d2q9(g, gx, gy, nx, ny, k, [&](int i, int cx, int cy) {
-      return post[i * W::kCells + lc - cy * TX - cx];
-    });
-    tpulbm::apply_boundaries(g, mask[lc] != 0, gx, gy, nx, ny, k);
+    tpulbm::pull_d2q9(g, gx, gy, nx, ny, k, post_at);
+    tpulbm::apply_boundaries<kCorners>(g, mask[lc] != 0, gx, gy, nx, ny, k,
+                                       post_at, solid_at);
     const size_t cell = static_cast<size_t>(gy) * nx + gx;
 #pragma unroll
     for (int i = 0; i < kQ; ++i) out[i * plane + cell] = g[i];
   }
 }
 
-template <int N>
+template <int N, bool kCorners>
 cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
                    int ny, const StepConsts& k, cudaStream_t stream) {
+  const int y_shift = tpulbm::tile_row_shift(ny, kBY, kCorners);
   constexpr size_t smem = Window<N>::kSmemBytes;
   if constexpr (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        d2q9_blocked_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        d2q9_blocked_kernel<N, kCorners>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid((nx + kBX - 1) / kBX, (ny + kBY - 1) / kBY);
-  d2q9_blocked_kernel<N><<<grid, kThreads, smem, stream>>>(f, out, solid, nx,
-                                                           ny, k);
+  const dim3 grid((nx + kBX - 1) / kBX, (ny + y_shift + kBY - 1) / kBY);
+  d2q9_blocked_kernel<N, kCorners><<<grid, kThreads, smem, stream>>>(
+      f, out, solid, nx, ny, y_shift, k);
   return cudaGetLastError();
+}
+
+template <int N>
+cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
+                   int ny, bool corners, const StepConsts& k,
+                   cudaStream_t stream) {
+  return corners ? launch<N, true>(f, out, solid, nx, ny, k, stream)
+                 : launch<N, false>(f, out, solid, nx, ny, k, stream);
 }
 
 }  // namespace
@@ -186,16 +214,18 @@ extern "C" int tpulbm_d2q9_step_blocked(const float* f, float* out,
                                         int n_sub, float inv_tau, float u_in,
                                         float one_minus_u_in,
                                         const float* eq_in, const float* w,
+                                        int clean_corners, const float* mode,
                                         int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const StepConsts k =
-      tpulbm::make_consts(inv_tau, u_in, one_minus_u_in, eq_in, w);
+  const StepConsts k = tpulbm::make_consts(inv_tau, u_in, one_minus_u_in,
+                                           eq_in, w, mode);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool c = clean_corners != 0;
   switch (n_sub) {
-    case 2: err = launch<2>(f, out, solid, nx, ny, k, s); break;
-    case 3: err = launch<3>(f, out, solid, nx, ny, k, s); break;
-    case 4: err = launch<4>(f, out, solid, nx, ny, k, s); break;
+    case 2: err = launch<2>(f, out, solid, nx, ny, c, k, s); break;
+    case 3: err = launch<3>(f, out, solid, nx, ny, c, k, s); break;
+    case 4: err = launch<4>(f, out, solid, nx, ny, c, k, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
@@ -211,6 +241,11 @@ extern "C" int tpulbm_d2q9_blocked_smem_bytes(int n_sub) {
     default: return -1;
   }
 }
+
+// The library's collision mode (tpulbm::Collision) and the floats of its
+// mode coefficients, which the caller's array must hold.
+extern "C" int tpulbm_d2q9_mode() { return tpulbm::kMode; }
+extern "C" int tpulbm_d2q9_mode_floats() { return tpulbm::kModeFloats; }
 
 extern "C" const char* tpulbm_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

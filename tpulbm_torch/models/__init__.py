@@ -1,9 +1,11 @@
-"""Problem builders. The port covers the 2-D D2Q9 BGK cylinder, the 3-D
-D3Q19 BGK sphere in a duct (both with the equilibrium obstacle), the 2-D
-thermal problems (Rayleigh-Bénard and the side-heated cavity, BGK) and the
-Shan-Chen multiphase channel (droplet or band, BGK); every other
-configuration raises NotImplementedError naming the ROADMAP item (Queue 1)
-that will port it."""
+"""Problem builders. The port covers the 2-D D2Q9 cylinder under every
+collision operator (BGK, TRT, MRT, regularized, KBC, Smagorinsky, power
+law) with either Zou-He corner rule, the 3-D D3Q19 BGK sphere in a duct
+(both with the equilibrium obstacle), the 2-D thermal problems
+(Rayleigh-Bénard and the side-heated cavity, BGK) and the Shan-Chen
+multiphase channel (droplet or band, BGK); every other configuration
+raises NotImplementedError naming the ROADMAP item (Queue 1) that will
+port it."""
 from .base import Problem
 from . import cylinder, cylinder3d, multiphase, rayleigh_benard
 
@@ -44,15 +46,20 @@ def check_slice(params) -> None:
         raise _not_ported("a 3-D cylinder (nz > 0)", three_d)
     if params.problem == "cylinder3d" and params.lattice3d != "d3q19":
         raise _not_ported(f"lattice3d={params.lattice3d!r}", three_d)
-    ops = "Queue 1 item 11 (collision operators)"
-    if params.collision != "bgk":
-        raise _not_ported(f"collision={params.collision!r}", ops)
-    if params.smagorinsky:
-        raise _not_ported("the Smagorinsky LES closure"
-                          + (" of the thermal step"
-                             if params.problem in _THERMAL else ""), ops)
-    if params.power_law_n != 1.0:
-        raise _not_ported("power-law rheology", ops)
+    # the 2-D cylinder runs every collision operator and the clean corners;
+    # the other problems run BGK
+    if params.problem != "cylinder":
+        ops = ("Queue 1 item 11 (collision operators, 3-D)"
+               if params.problem == "cylinder3d"
+               else "Queue 1 item 11 (collision operators)")
+        if params.collision != "bgk":
+            raise _not_ported(f"collision={params.collision!r}", ops)
+        if params.smagorinsky:
+            raise _not_ported("the Smagorinsky LES closure"
+                              + (" of the thermal step"
+                                 if params.problem in _THERMAL else ""), ops)
+        if params.power_law_n != 1.0:
+            raise _not_ported("power-law rheology", ops)
     if (params.problem in _THERMAL + ("multiphase",)
             and tuple(params.mesh_shape) != (1, 1)):
         kind = "multiphase" if params.problem == "multiphase" else "thermal"
@@ -65,10 +72,6 @@ def check_slice(params) -> None:
                           "Queue 1 item 14 (Bouzidi curved walls)")
     if params.obstacle_bc != "equilibrium":
         raise _not_ported(f"obstacle_bc={params.obstacle_bc!r}", variants)
-    # tpulbm's 3-D model never reads zou_he_corners (no Zou-He there)
-    if params.problem == "cylinder" and params.zou_he_corners != "reference":
-        raise _not_ported(f"zou_he_corners={params.zou_he_corners!r}",
-                          variants)
     if params.body_force:
         raise _not_ported("a body force", variants)
 

@@ -69,7 +69,13 @@ class Problem:
     periodic_x: bool = False
     periodic_y: bool = False          # fully periodic box (walls_y off)
     obstacle_bc: str = "equilibrium"  # solid cells pinned to rest equilibrium
+    # "bgk" | "trt" | "mrt" | "regularized" | "kbc" (physics.collide_*)
     collision: str = "bgk"
+    clean_corners: bool = False       # Zou-He corner closure (2-D; opt-in)
+    trt_magic: float = 3.0 / 16.0
+    mrt_rates: tuple = ()             # ((moment, rate), ...) ghost overrides
+    smagorinsky: float = 0.0          # LES Cs (physics.smagorinsky_inv_tau)
+    power_law: tuple = ()             # (k, n) (physics.power_law_inv_tau)
     thermal: ThermalConfig | None = None  # double-population thermal coupling
     shan_chen: tuple = ()             # (g, rho0): Shan-Chen multiphase
     init_rho_map: np.ndarray | None = None  # initial rho per cell (u = 0)

@@ -24,4 +24,9 @@ def make_problem(params: SimulationParams) -> Problem:
         walls_y=True,
         obstacle_bc=params.obstacle_bc,
         collision=params.collision,
+        smagorinsky=params.smagorinsky,
+        power_law=params.power_law() or (),
+        trt_magic=params.trt_magic,
+        mrt_rates=params.mrt_rates,
+        clean_corners=params.zou_he_corners == "clean",
     )

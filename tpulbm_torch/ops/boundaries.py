@@ -3,8 +3,9 @@
 Port of tpulbm/ops/boundaries.py for the BC stacks of the 2-D cylinder and
 the 3-D sphere in a duct, and the thermal scalar's Dirichlet wall. Every
 BC is a `torch.where` over coordinate masks on a mutable list of Q planes,
-applied in the reference order (y walls, z walls, inlet, outlet,
-obstacle), so the read-after-write chains at edge and corner cells carry
+applied in the reference order (y walls, z walls, inlet, outlet, the
+optional clean Zou-He corners, obstacle), so the read-after-write chains
+at edge and corner cells carry
 over: the inlet's Zou-He reads f6 after the bottom wall rewrote it, a z
 wall reads what a y wall rewrote, and the zero-gradient outlet copies its
 neighbour column after the walls and before the obstacle pin.
@@ -115,6 +116,43 @@ def apply_zero_gradient_outlet(lat: Lattice, planes: list, outlet_mask,
         planes[i] = torch.where(m, shifted, planes[i])
 
 
+def apply_zou_he_corners(planes: list, yy, xx, ny: int, nx: int,
+                         solid) -> None:
+    """Clean corner closure (Zou & He 1997 corner nodes) at the four
+    wall∩inlet/outlet cells, the opt-in alternative to the reference's
+    emergent corner chain (zou_he_corners="clean").
+
+    Each corner enforces u = v = 0: the three wall-tangential unknowns
+    bounce back and the remaining diagonal pair splits the density residual
+    equally. rho* is the density of the node one row inward on the same
+    column at the inlet corners (after the inlet's update, before the
+    corners') and the outlet's fixed rho = 1 at the outlet corners."""
+    p = planes
+    rho = sum(p)
+    rho_above = torch.roll(rho, -1, dims=-2)   # value at y+1
+    rho_below = torch.roll(rho, 1, dims=-2)    # value at y-1
+
+    def set_corner(mask, assigns, pair, rho_star):
+        m = _not_solid(mask, solid)
+        known = sum(p[i] for i in ([0] + [src for _, src in assigns]))
+        resid = 0.5 * (rho_star - p[0]) - (known - p[0])
+        for dst, src in assigns:
+            planes[dst] = torch.where(m, p[src], planes[dst])
+        for i in pair:
+            planes[i] = torch.where(m, resid, planes[i])
+
+    bl = (yy == 0) & (xx == 0)
+    br = (yy == 0) & (xx == nx - 1)
+    tl = (yy == ny - 1) & (xx == 0)
+    tr = (yy == ny - 1) & (xx == nx - 1)
+    # (dst <- src) bounce-backs; the leftover diagonal pair gets the residual
+    one = torch.ones((), dtype=rho.dtype, device=rho.device)
+    set_corner(bl, [(1, 3), (2, 4), (5, 7)], (6, 8), rho_above)
+    set_corner(br, [(3, 1), (2, 4), (6, 8)], (5, 7), one)
+    set_corner(tl, [(1, 3), (4, 2), (8, 6)], (5, 7), rho_below)
+    set_corner(tr, [(3, 1), (4, 2), (7, 5)], (6, 8), one)
+
+
 def apply_obstacle(lat: Lattice, planes: list, solid, rest: np.ndarray) -> None:
     """Equilibrium obstacle (reference parity): pin solid cells to the rest
     equilibrium w_i after every edge BC. The reference's collision skips
@@ -155,6 +193,8 @@ def apply_all(problem: Problem, planes: list, coords: dict) -> list:
         apply_zou_he_outlet(planes, xx == nx - 1, solid)
     if problem.outlet_zero_grad:
         apply_zero_gradient_outlet(lat, planes, xx == nx - 1, solid)
+    if problem.clean_corners and lat.D == 2:
+        apply_zou_he_corners(planes, yy, xx, ny, nx, solid)
     apply_obstacle(lat, planes, solid,
                    physics.rest_equilibrium(lat, problem.dtype))
     return planes

@@ -4,6 +4,10 @@ Ports of tpulbm/ops/step_pallas.py (D2Q9):
 * make_local_step_pallas (one step per launch): csrc/step_d2q9.cu;
 * make_local_step_pallasN (N = 3, 4) and make_local_step_pallas2 (N = 2),
   temporal blocking, N steps per launch: csrc/step_d2q9_blocked.cu.
+Both hold every collision of tpulbm's D2Q9 kernels (COLLISION_MODES, one
+library per mode, built with -DTPULBM_COLLISION) and the clean Zou-He
+corners; the mode's coefficients are computed here on the host, as
+tpulbm's _physics_cfg_fields computes them.
 Port of tpulbm/ops/step_pallas3d.py (D3Q19):
 * make_local_step_pallas3d and make_local_step_pallas3d_tiled at n_sub=1
   (one step per launch): csrc/step_d3q19.cu;
@@ -25,8 +29,10 @@ import ctypes
 import dataclasses
 import functools
 
+import numpy as np
 import torch
 
+from .. import physics
 from ..models.base import Problem
 from ..utils import cuda_build
 from . import step_torch
@@ -50,22 +56,99 @@ REPLACES_3D_BLOCKED = "tpulbm/ops/step_pallas3d.py:745 at n_sub 2, 3"
 BLOCKED_DEPTHS_3D = (2, 3)
 # populations per cell -> the state's rank and layout, per kernel lattice
 _STATE_LAYOUT = {9: (3, "(9, ny, nx)"), 19: (4, "(19, nz, ny, nx)")}
+# the collisions of the D2Q9 kernels, in the order of d2q9_common.cuh's
+# tpulbm::Collision; step_torch.collision_mode names a problem's
+COLLISION_MODES = ("bgk", "trt", "mrt", "regularized", "kbc", "smagorinsky",
+                   "power_law")
+MRT_RANK = 4               # d2q9_common.cuh kMrtRank: U, V zero-padded
+_Q = 9
+# floats of d2q9_common.cuh's ModeConsts: TRT, MRT's U and V, regularized,
+# KBC, Smagorinsky, power law
+MODE_FLOATS = 2 + 2 * _Q * MRT_RANK + (1 + 3 * _Q) + (6 * _Q + 4) + 3 + 4
+
+
+def mode_floats(problem: Problem) -> tuple[float, ...]:
+    """The D2Q9 kernels' mode coefficients for `problem`, in the order of
+    d2q9_common.cuh's ModeConsts, each computed in double precision as
+    tpulbm's _physics_cfg_fields and Pallas branches compute it
+    (step_pallas.py:183-396, 919-934); the kernel rounds them to float.
+    Every mode's block is there; the ones the problem does not run are
+    zero."""
+    lat = problem.lattice
+    inv_tau = 1.0 / problem.params.tau
+    mode = step_torch.collision_mode(problem)
+    z = np.zeros
+    trt, mrt_u, mrt_v = z(2), z((_Q, MRT_RANK)), z((MRT_RANK, _Q))
+    reg, kbc, smag, plaw = z(1 + 3 * _Q), z(6 * _Q + 4), z(3), z(4)
+    if mode == "trt":
+        trt[:] = (0.5 * inv_tau,
+                  0.5 * physics.omega_minus_trt(inv_tau, problem.trt_magic))
+    elif mode == "mrt":
+        U, V = physics.mrt_rank_correction(
+            lat, inv_tau, overrides=dict(problem.mrt_rates) or None)
+        r = V.shape[0]
+        if r > MRT_RANK:
+            raise ValueError(f"MRT rank {r} exceeds the kernels' {MRT_RANK}")
+        mrt_u[:, :r], mrt_v[:r] = U, V
+    elif mode == "regularized":
+        c = lat.c
+        reg[0] = 1.0 - inv_tau
+        reg[1:] = np.concatenate([
+            [4.5 * lat.w[i] * (c[i, 0] * c[i, 0] - 1.0 / 3.0)
+             for i in range(_Q)],
+            [4.5 * lat.w[i] * (c[i, 1] * c[i, 1] - 1.0 / 3.0)
+             for i in range(_Q)],
+            [9.0 * lat.w[i] * c[i, 0] * c[i, 1] for i in range(_Q)]])
+    elif mode == "kbc":
+        beta = 0.5 * inv_tau
+        kbc[:] = np.concatenate([*physics.kbc_coeffs(lat),
+                                 [1.0 / beta, 2.0 - 1.0 / beta, beta,
+                                  2.0 * beta]])
+    elif mode == "smagorinsky":
+        tau0, cs = 1.0 / inv_tau, problem.smagorinsky
+        smag[:] = (tau0, tau0 * tau0, 18.0 * cs * cs)
+    elif mode == "power_law":
+        k, n = problem.power_law
+        plaw[:] = (float(n) - 1.0, np.log(3.0 * k),
+                   np.log(physics.PLAW_TAU_MIN - 0.5),
+                   np.log(physics.PLAW_TAU_MAX - 0.5))
+    return tuple(float(v) for v in np.concatenate(
+        [trt, mrt_u.ravel(), mrt_v.ravel(), reg, kbc, smag, plaw]))
 
 
 @dataclasses.dataclass(frozen=True)
 class StepConstants:
-    """The physics constants the kernel takes as arguments."""
+    """The physics constants the kernel takes as arguments; `mode` picks
+    the D2Q9 library (COLLISION_MODES) and `modes` are its coefficients
+    (mode_floats). The D3Q19 kernels read inv_tau, eq_in and w."""
     inv_tau: float
     u_in: float
     eq_in: tuple[float, ...]   # frozen ghost equilibrium per direction
     w: tuple[float, ...]       # weights: the solid cells' rest equilibrium
+    mode: str = "bgk"
+    clean_corners: bool = False
+    modes: tuple[float, ...] = ()
+
+    @functools.cached_property
+    def d2q9_args(self) -> tuple:
+        """inv_tau, u_in, 1 - u_in, eq_in, w, clean_corners and the mode
+        coefficients as the D2Q9 launchers take them, built once: a
+        launch's host time is on the critical path of the 1-step kernel
+        (≈ 37 µs a step at 2048x512)."""
+        return (self.inv_tau, self.u_in, 1.0 - self.u_in,
+                _floats(self.eq_in), _floats(self.w), int(self.clean_corners),
+                _floats(self.modes))
 
     @classmethod
     def of(cls, problem: Problem) -> "StepConstants":
+        two_d = problem.lattice.Q == _Q
         return cls(inv_tau=1.0 / problem.params.tau,
                    u_in=float(problem.init_u[0]),
                    eq_in=tuple(float(v) for v in problem.ghost_ring_values()),
-                   w=tuple(float(v) for v in problem.lattice.w))
+                   w=tuple(float(v) for v in problem.lattice.w),
+                   mode=step_torch.collision_mode(problem),
+                   clean_corners=bool(problem.clean_corners),
+                   modes=mode_floats(problem) if two_d else ())
 
 
 def check_inputs(f: torch.Tensor, out: torch.Tensor, solid: torch.Tensor,
@@ -99,8 +182,9 @@ def check_inputs(f: torch.Tensor, out: torch.Tensor, solid: torch.Tensor,
 _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def _bind(source: str, fn: str, argtypes: list) -> ctypes.CDLL:
-    lib = cuda_build.load(source).lib
+def _bind(source: str, fn: str, argtypes: list,
+          defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    lib = cuda_build.load(source, defines).lib
     getattr(lib, fn).argtypes = argtypes
     getattr(lib, fn).restype = _I32
     lib.tpulbm_cuda_error_string.argtypes = [_I32]
@@ -108,11 +192,31 @@ def _bind(source: str, fn: str, argtypes: list) -> ctypes.CDLL:
     return lib
 
 
+def _bind_d2q9(source: str, fn: str, argtypes: list,
+               mode: str) -> ctypes.CDLL:
+    """The D2Q9 library of `source` built for collision `mode`; raises
+    unless it holds that mode and takes MODE_FLOATS coefficients."""
+    lib = _bind(source, fn, argtypes, mode_defines(mode))
+    held = (COLLISION_MODES[lib.tpulbm_d2q9_mode()],
+            lib.tpulbm_d2q9_mode_floats())
+    if held != (mode, MODE_FLOATS):
+        raise RuntimeError(f"{source} built for {mode!r} holds {held}, not "
+                           f"({mode!r}, {MODE_FLOATS})")
+    return lib
+
+
+def mode_defines(mode: str) -> tuple[str, ...]:
+    """nvcc's defines for a D2Q9 library of collision `mode`; none for BGK,
+    whose library builds as it always has."""
+    index = COLLISION_MODES.index(mode)
+    return (f"-DTPULBM_COLLISION={index}",) if index else ()
+
+
 @functools.cache
-def _library() -> ctypes.CDLL:
-    return _bind("step_d2q9.cu", "tpulbm_d2q9_step",
-                 [_PTR, _PTR, _PTR, _I32, _I32, _F32, _F32, _F32, _PTR, _PTR,
-                  _I32, _PTR])
+def _library(mode: str = "bgk") -> ctypes.CDLL:
+    return _bind_d2q9("step_d2q9.cu", "tpulbm_d2q9_step",
+                      [_PTR, _PTR, _PTR, _I32, _I32, _F32, _F32, _F32, _PTR,
+                       _PTR, _I32, _PTR, _I32, _PTR], mode)
 
 
 @functools.cache
@@ -136,10 +240,10 @@ def _blocked_library_3d() -> ctypes.CDLL:
 
 
 @functools.cache
-def _blocked_library() -> ctypes.CDLL:
-    return _bind("step_d2q9_blocked.cu", "tpulbm_d2q9_step_blocked",
-                 [_PTR, _PTR, _PTR, _I32, _I32, _I32, _F32, _F32, _F32,
-                  _PTR, _PTR, _I32, _PTR])
+def _blocked_library(mode: str = "bgk") -> ctypes.CDLL:
+    return _bind_d2q9("step_d2q9_blocked.cu", "tpulbm_d2q9_step_blocked",
+                      [_PTR, _PTR, _PTR, _I32, _I32, _I32, _F32, _F32, _F32,
+                       _PTR, _PTR, _I32, _PTR, _I32, _PTR], mode)
 
 
 def _check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
@@ -150,12 +254,6 @@ def _check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
 
 def _floats(values: tuple) -> ctypes.Array:
     return (ctypes.c_float * len(values))(*values)
-
-
-def _consts_args(consts: StepConstants) -> tuple:
-    """inv_tau, u_in, 1 - u_in, eq_in, w as the D2Q9 launchers take them."""
-    return (consts.inv_tau, consts.u_in, 1.0 - consts.u_in,
-            _floats(consts.eq_in), _floats(consts.w))
 
 
 def collide_stream(f: torch.Tensor, out: torch.Tensor, solid: torch.Tensor,
@@ -171,19 +269,22 @@ def collide_stream(f: torch.Tensor, out: torch.Tensor, solid: torch.Tensor,
         if plain is None:
             raise ValueError("a CPU tensor needs the plain step")
         return out.copy_(plain(f))
-    lib = _library()
+    lib = _library(consts.mode)
     ny, nx = f.shape[1:]
     stream = torch.cuda.current_stream(f.device).cuda_stream
     rc = lib.tpulbm_d2q9_step(
         f.data_ptr(), out.data_ptr(), solid.data_ptr(), nx, ny,
-        *_consts_args(consts), f.device.index, stream)
-    _check_launch(lib, rc, "D2Q9 kernel")
+        *consts.d2q9_args, f.device.index, stream)
+    _check_launch(lib, rc, f"D2Q9 kernel ({consts.mode})")
     collide_stream.launches += 1
+    collide_stream.launches_by_mode[consts.mode] += 1
     return out
 
 
-# kernel launches; CPU calls (the plain version) are not counted
+# kernel launches, all modes and per mode; CPU calls (the plain version)
+# are not counted
 collide_stream.launches = 0
+collide_stream.launches_by_mode = dict.fromkeys(COLLISION_MODES, 0)
 
 
 def check_depth(n_sub: int) -> None:
@@ -211,19 +312,26 @@ def collide_stream_blocked(f: torch.Tensor, out: torch.Tensor,
         for _ in range(n_sub):
             f = plain(f)
         return out.copy_(f)
-    lib = _blocked_library()
+    lib = _blocked_library(consts.mode)
     ny, nx = f.shape[1:]
     stream = torch.cuda.current_stream(f.device).cuda_stream
     rc = lib.tpulbm_d2q9_step_blocked(
         f.data_ptr(), out.data_ptr(), solid.data_ptr(), nx, ny, n_sub,
-        *_consts_args(consts), f.device.index, stream)
-    _check_launch(lib, rc, f"D2Q9 {n_sub}-step kernel")
+        *consts.d2q9_args, f.device.index, stream)
+    _check_launch(lib, rc, f"D2Q9 {n_sub}-step kernel ({consts.mode})")
     collide_stream_blocked.launches[n_sub] += 1
+    collide_stream_blocked.launches_by_mode[consts.mode][n_sub] += 1
     return out
 
 
-# kernel launches per depth; CPU calls (the plain version) are not counted
+def _blocked_counts() -> dict:
+    return {mode: dict.fromkeys(BLOCKED_DEPTHS, 0) for mode in COLLISION_MODES}
+
+
+# kernel launches per depth, all modes and per mode; CPU calls (the plain
+# version) are not counted
 collide_stream_blocked.launches = dict.fromkeys(BLOCKED_DEPTHS, 0)
+collide_stream_blocked.launches_by_mode = _blocked_counts()
 
 
 def collide_stream_3d(f: torch.Tensor, out: torch.Tensor,
@@ -302,22 +410,30 @@ def reset_launch_counts() -> None:
     included."""
     from . import step_multiphase_cuda, step_thermal_cuda
     collide_stream.launches = 0
+    collide_stream.launches_by_mode = dict.fromkeys(COLLISION_MODES, 0)
     collide_stream_blocked.launches = dict.fromkeys(BLOCKED_DEPTHS, 0)
+    collide_stream_blocked.launches_by_mode = _blocked_counts()
     collide_stream_3d.launches = 0
     collide_stream_3d_blocked.launches = dict.fromkeys(BLOCKED_DEPTHS_3D, 0)
     step_thermal_cuda.collide_stream_thermal.launches = 0
     step_multiphase_cuda.collide_stream_multiphase.launches = 0
 
 
-def _kernel_operands(problem: Problem, device):
+def _kernel_operands(problem: Problem, device, two_d: bool = True):
     """(device, constants, solid mask, plain step or None) for a wrapper of
-    `problem` on `device`; raises for what the kernels do not cover."""
+    `problem` on `device`; raises for what the kernels do not cover: the
+    D2Q9 kernels run every collision with the equilibrium obstacle, the
+    D3Q19 kernels (two_d False) BGK only."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    if problem.collision != "bgk" or problem.obstacle_bc != "equilibrium":
-        raise NotImplementedError("the kernels cover BGK with the "
-                                  "equilibrium obstacle only")
+    if problem.obstacle_bc != "equilibrium":
+        raise NotImplementedError("the kernels cover the equilibrium "
+                                  "obstacle only")
+    if not two_d and step_torch.collision_mode(problem) != "bgk":
+        raise NotImplementedError("the D3Q19 kernels cover BGK only (ROADMAP "
+                                  "Queue 1 item 11, collision operators, "
+                                  "3-D)")
     consts = StepConstants.of(problem)
     solid = torch.as_tensor(problem.solid, device=device).to(torch.uint8)
     plain = (step_torch.make_step_rolled(problem, device)
@@ -382,4 +498,4 @@ def _kernel_operands_3d(problem: Problem, device):
     if problem.params.problem != "cylinder3d" or problem.lattice.Q != 19:
         raise NotImplementedError("the D3Q19 kernels cover the sphere in a "
                                   "duct (problem='cylinder3d') only")
-    return _kernel_operands(problem, device)
+    return _kernel_operands(problem, device, two_d=False)

@@ -1,8 +1,9 @@
 """The plain PyTorch timestep: the port's oracle and the CUDA kernel's
 plain version.
 
-Port of tpulbm/ops/step_jax.py::make_step_rolled with the BGK branch of
-_collide_block, in 2-D (D2Q9) and 3-D (D3Q19). Unpadded state
+Port of tpulbm/ops/step_jax.py::make_step_rolled with _collide_block's
+collisions (without the body force and the bounce-back obstacle), in 2-D
+(D2Q9) and 3-D (D3Q19). Unpadded state
 (Q, *spatial); streaming is a per-population `torch.roll` (pull scheme)
 followed by the ghost sanitize at the non-periodic edges, then the BC
 stack. Runs in f32 and f64.
@@ -21,14 +22,43 @@ from ..models.base import Problem
 from . import boundaries
 
 
+def collision_mode(problem: Problem) -> str:
+    """The collision a step of `problem` runs, in tpulbm's order of
+    precedence (step_jax.py:_collide_block): trt, mrt, regularized and kbc
+    by name, then the power law before Smagorinsky, then BGK."""
+    if problem.collision in ("trt", "mrt", "regularized", "kbc"):
+        return problem.collision
+    if problem.collision != "bgk":
+        raise ValueError(f"unknown collision {problem.collision!r}")
+    if problem.power_law:
+        return "power_law"
+    if problem.smagorinsky:
+        return "smagorinsky"
+    return "bgk"
+
+
 def collide_block(problem: Problem, f: torch.Tensor) -> torch.Tensor:
     """Post-collision populations. With obstacle_bc="equilibrium" solid
-    cells hold the rest equilibrium, an exact BGK fixed point, so they need
-    no special case here (apply_obstacle re-pins them every step)."""
-    if problem.collision != "bgk":
-        raise NotImplementedError(
-            f"collision={problem.collision!r} is not ported")
-    return physics.collide(problem.lattice, f, 1.0 / problem.params.tau)
+    cells are re-pinned to the rest equilibrium by apply_obstacle every
+    step, so they need no special case here."""
+    lat = problem.lattice
+    inv_tau = 1.0 / problem.params.tau
+    mode = collision_mode(problem)
+    if mode == "trt":
+        return physics.collide_trt(lat, f, inv_tau, magic=problem.trt_magic)
+    if mode == "mrt":
+        return physics.collide_mrt(lat, f, inv_tau,
+                                   overrides=dict(problem.mrt_rates) or None)
+    if mode == "regularized":
+        return physics.collide_regularized(lat, f, inv_tau)
+    if mode == "kbc":
+        return physics.collide_kbc(lat, f, inv_tau)
+    if mode == "power_law":
+        return physics.collide_power_law(lat, f, *problem.power_law)
+    if mode == "smagorinsky":
+        return physics.collide_smagorinsky(lat, f, inv_tau,
+                                           problem.smagorinsky)
+    return physics.collide(lat, f, inv_tau)
 
 
 def coords(problem: Problem, device) -> dict:

@@ -2,9 +2,11 @@
 
 Each kernel source under tpulbm_torch/csrc/ is compiled by nvcc into a
 shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds) and loaded with ctypes. Libraries land in build_dir(), named
-by a hash of the source, the shared headers (csrc/*.cuh) and the flags, so
-an edited source or header rebuilds and an unchanged one is reused. In a
+takes seconds) and loaded with ctypes; a source may be built several times
+with different defines (the D2Q9 kernels, once per collision mode).
+Libraries land in build_dir(), named by the source, its defines and a hash
+of the source, the shared headers (csrc/*.cuh) and the flags, so an edited
+source or header rebuilds and an unchanged one is reused. In a
 source checkout that is build/tpulbm_torch/ at its root (clear it with
 `rm -rf build/tpulbm_torch`).
 
@@ -69,30 +71,35 @@ def find_nvcc() -> str:
 
 
 @functools.cache
-def load(source: str) -> Library:
-    """Build (if needed) and load csrc/<source> as a shared library."""
+def load(source: str, defines: tuple[str, ...] = ()) -> Library:
+    """Build (if needed) and load csrc/<source> as a shared library, with
+    nvcc's `defines` (e.g. ("-DTPULBM_COLLISION=4",))."""
     src = SOURCE_DIR / source
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    flags = NVCC_FLAGS + tuple(defines)
+    h = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
     for header in sorted(SOURCE_DIR.glob("*.cuh")):
         h.update(header.read_bytes())
     digest = h.hexdigest()[:16]
-    out = build_dir() / f"{src.stem}_{digest}.so"
+    tag = "".join("_" + d.rsplit("=", 1)[-1] for d in defines)
+    out = build_dir() / f"{src.stem}{tag}_{digest}.so"
     log_path = out.with_suffix(".log")
     seconds = 0.0
     if not out.exists():
-        seconds = compile_library(src, out)
+        seconds = compile_library(src, out, defines)
     log = log_path.read_text() if log_path.exists() else ""
     return Library(ctypes.CDLL(str(out)), out, seconds, log)
 
 
-def compile_library(src: Path, out: Path) -> float:
-    """nvcc src (its #includes found beside it or in csrc/) into the shared
-    library `out`, with nvcc's output in out.with_suffix(".log"); returns
-    the seconds it took. Raises if nvcc is missing or fails."""
+def compile_library(src: Path, out: Path,
+                    defines: tuple[str, ...] = ()) -> float:
+    """nvcc src (its #includes found beside it or in csrc/) with `defines`
+    into the shared library `out`, with nvcc's output in
+    out.with_suffix(".log"); returns the seconds it took. Raises if nvcc is
+    missing or fails."""
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(SOURCE_DIR), "-o", str(tmp),
-           str(src)]
+    cmd = [find_nvcc(), *NVCC_FLAGS, *defines, "-I", str(SOURCE_DIR), "-o",
+           str(tmp), str(src)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     seconds = time.perf_counter() - t0
