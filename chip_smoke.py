@@ -9,11 +9,12 @@ printing its own line; any failure exits non-zero:
 1. the card: torch.cuda must see it; nvidia-smi's name and power limit;
 2. build: nvcc compiles tpulbm_torch/csrc/step_d2q9.cu,
    step_d2q9_blocked.cu, step_d3q19.cu, step_d3q19_blocked.cu,
-   step_thermal.cu and step_multiphase.cu, and the two D2Q9 sources once
-   more for each other collision mode (TRT, MRT, regularized, KBC,
-   Smagorinsky, power law), all at once (timed; ptxas's registers, shared
-   memory and spills for each instantiation, and the dynamic shared memory
-   the N-step and D3Q19 kernels ask for);
+   step_thermal.cu and step_multiphase.cu, the two D2Q9 sources once more
+   for each other collision mode (TRT, MRT, regularized, KBC, Smagorinsky,
+   power law), the two D3Q19 sources for each but KBC, and the thermal
+   source for the Smagorinsky closure, all at once (timed; ptxas's
+   registers, shared memory and spills for each instantiation, and the
+   dynamic shared memory the N-step and D3Q19 kernels ask for);
 3. kernels against plain at 2048x512 (re200): one step of the 1-step
    kernel from the initial state and from a state the plain step advanced
    500 steps, at rtol 5e-6 / atol 1e-7; 280 steps of each (max error
@@ -124,7 +125,30 @@ printing its own line; any failure exits non-zero:
 20. each operator's timing at 2048x512, in turns: the plain step, the
    1-step kernel and the N = 2, 3, 4 kernels, ms/step, MLUPS and the share
    of each kernel's bound (MODE_FLOPS counts each collision's
-   operations). The phases' total time is printed.
+   operations). The phases' total time is printed;
+21. the sphere's operators at 256^3 (bench.py's d3q19 row; OPERATORS_3D:
+   TRT, MRT at D3Q19's default rates, regularized, Smagorinsky 0.17, power
+   law n 0.7), each through its own build of both D3Q19 kernels: one
+   1-step kernel step against one plain step from the initial state and
+   from the state its 1-step kernel advanced 100 steps (the power law at
+   rtol 1e-4); N = 2, 3 bitwise against N 1-step launches from both
+   states; 280 kernel steps against 280 plain steps at 128^3 (bounded by
+   1e-4); tpulbm's own 3-D gate of the operator (GATES_3D), the kernels
+   against the plain step;
+22. each operator's 3-D main path: the Runner at 256^3 f32, 2240 steps
+   every 140, no VTK: exactly 735 N=3, 17 N=2 and 1 one-step launches of
+   that operator's libraries and none of another kernel, 16 finite force
+   rows and a finite fields3d.npz; wall time, runner MLUPS, host fetches
+   and the final C_D;
+23. each operator's timing at 256^3, in turns: the plain step, the 1-step
+   kernel and the N = 2, 3 kernels, ms/step, MLUPS and the share of each
+   kernel's bound (MODE_FLOPS_3D). The phases' total time is printed;
+24. the thermal step's Smagorinsky closure (Cs 0.17) at the 2048x512
+   Rayleigh-Bénard row through the thermal kernel's LES build: one step
+   against the plain LES step from both states, 280 steps; tpulbm's LES
+   gate of the thermal kernel (32x32, Ra 5000, 12 steps, rtol 2e-5 / atol
+   1e-6); the Runner (exactly 2240 launches of the LES build, 16 finite
+   nusselt.csv rows, the final Nu); timing against the plain step.
 
 Run directories go to build/chip_smoke/ (git-ignored; the final CSVs have
 a million rows). The last two lines are a JSON line per kernel and the
@@ -134,7 +158,10 @@ for N=2 and N=3, phase 7 for the D3Q19 kernels, phase 10 for the thermal
 kernel, phase 14 for the multiphase kernel, phase 18 for each operator's
 kernels (named d2q9_collide_stream[op] and d2q9_collide_stream_nN[op]:
 the 1-step and N=4 launches from its main path, N=2 and N=3 from its
-311-step run). A kernel's `bound_ms` is the
+311-step run), phase 22 for each 3-D operator's
+(d3q19_collide_stream[op], d3q19_collide_stream_nN[op]) and phase 24 for
+the thermal LES build (thermal_collide_stream[smagorinsky]). A kernel's
+`bound_ms` is the
 least time the card could take for one step of its work at the shape it
 was timed at: the larger of the bytes a step must move (each population
 read once and written once, the solid mask read once) over 3.35 TB/s and
@@ -206,14 +233,69 @@ OPERATORS = {
     "les": dict(smagorinsky=0.17),
     "power_law": dict(power_law_n=0.7),
 }
+# the D3Q19 kernels under tpulbm's 3-D collisions (csrc/d3q19_common.cuh),
+# per cell, counted from the kernel's expressions as above: the moments,
+# c.u and the equilibria (199 of BGK's 256) or the deviations (218), then
+# TRT's closed form; MRT's rank-10 U/V (dense: the zero-padded and zero
+# entries count); regularized (the six Pi_ab, the projection); Smagorinsky;
+# the power law's 8 Newton steps (16 operations each)
+MODE_FLOPS_3D = {"trt": 382, "mrt": 1006, "regularized": 526,
+                 "smagorinsky": 320, "power_law": 449}
+for _mode, _flops in MODE_FLOPS_3D.items():
+    STEP_BYTES[f"d3q19_{_mode}"] = STEP_BYTES["d3q19"]
+    STEP_FLOPS[f"d3q19_{_mode}"] = _flops
+# the sphere's operators at bench.py's d3q19 row: TRT (magic 3/16), MRT
+# (D3Q19's default ghost rates, rank 10), regularized, Smagorinsky 0.17,
+# the power law at n 0.7 (k = nu)
+OPERATORS_3D = {
+    "trt": dict(collision="trt"),
+    "mrt": dict(collision="mrt"),
+    "regularized": dict(collision="regularized"),
+    "les": dict(smagorinsky=0.17),
+    "power_law": dict(power_law_n=0.7),
+}
+# tpulbm's own 3-D pallas-vs-jax gate of each operator: grid, tau and steps
+# (tests/test_3d.py, test_mrt.py:240-255, test_regularized.py:118-130,
+# test_les.py:108-116, test_power_law.py:193-202 at k 0.02), here the
+# port's kernels against its plain step
+GATES_3D = {
+    "trt": (dict(nx=32, ny=16, nz=8, tau=0.6), 8),
+    "mrt": (dict(nx=32, ny=16, nz=8, tau=0.6), 3),
+    "regularized": (dict(nx=64, ny=16, nz=16, tau=0.6), 12),
+    "les": (dict(nx=128, ny=16, nz=16, tau=0.55), 4),
+    "power_law": (dict(nx=128, ny=16, nz=16, tau=0.55, power_law_k=0.02), 4),
+}
+# the 280-step drift of the 3-D operators runs at 128^3: the plain MRT and
+# power-law steps are too slow at 256^3 for the script's time
+DRIFT_N_3D = 128
 # tpulbm's power-law gate (tests/test_power_law.py's _PLAW_RTOL: a Newton
 # solve on expf and logf) and KBC's (tests/test_kbc.py: max|d|/max|f|),
 # the latter used only where the one-step tolerance does not hold
 PLAW_TOL = dict(rtol=1e-4, atol=1e-7)
 KBC_REL_TOL = 3e-5
+# From rest, and from a flow near it, every closure's rate rounds to 1/tau
+# in float32, so a kernel that skipped its closure would still meet the
+# plain step there. Phases 21 and 24 also step a perturbed state (the card
+# tests' seeded +-10% noise on the initial state, solid cells back at rest
+# equilibrium) and require the BGK library's step there to miss the
+# operator's plain step by SEPARATION times the parity tolerance (32^3 and
+# 128x64 CPU runs of the plain steps: 580x for Smagorinsky, 830x for the
+# power law, 1060x for the thermal closure, 10^4x for TRT, MRT and
+# regularized; below 1x from the initial state).
+PERTURB_SEED = 7
+SEPARATION = 100
 # bench.py's thermal row and the physics gates of tests/test_thermal*.py
 THERMAL_NX, THERMAL_NY = 2048, 512
 DE_VAHL_DAVIS_NU = 2.243
+# the thermal step's Smagorinsky closure (Cs), and tpulbm's LES gate of the
+# thermal kernel (tests/test_thermal.py:262-288, the `les` case)
+THERMAL_CS = 0.17
+THERMAL_LES_TOL = dict(rtol=2e-5, atol=1e-6)
+# thermal LES: the BGK thermal step's operations (the deviations and the
+# relaxation cost what BGK's relaxation costs) and the closure's Pi, Q̄ and
+# rate, 27 more
+STEP_BYTES["thermal_smagorinsky"] = STEP_BYTES["thermal"]
+STEP_FLOPS["thermal_smagorinsky"] = STEP_FLOPS["thermal"] + 27
 # bench.py's multiphase row (the droplet) and tests/test_multiphase.py's
 # physics gates
 MP_NX, MP_NY = 2048, 512
@@ -287,6 +369,33 @@ def ptxas_summary(log: str) -> str:
             out.append(f"{name}: {regs} regs, {spill} B spills"
                        + (f", {smem.group(1)} B smem" if smem else ""))
     return "; ".join(out) or log.strip()[-300:]
+
+
+def perturbed(problem, f: torch.Tensor) -> torch.Tensor:
+    """f times seeded uniform noise in [0.9, 1.1), drawn on f's device,
+    with the solid cells (if any) back at rest equilibrium."""
+    gen = torch.Generator(device=f.device).manual_seed(PERTURB_SEED)
+    out = f * (0.9 + 0.2 * torch.rand(f.shape, generator=gen,
+                                      device=f.device, dtype=f.dtype))
+    if problem.solid is not None:
+        solid = torch.as_tensor(problem.solid, device=f.device)
+        w = torch.as_tensor(problem.lattice.w, dtype=f.dtype, device=f.device)
+        out = torch.where(solid, w.view(-1, *[1] * solid.ndim), out)
+    return out
+
+
+def separation(label: str, bgk: torch.Tensor, want: torch.Tensor,
+               tol: dict) -> float:
+    """How many times the tolerance `tol` the BGK library's step `bgk`
+    misses an operator's plain step `want` (at the worst cell); raises
+    below SEPARATION."""
+    sep = float(((bgk - want).abs()
+                 / (tol["atol"] + tol["rtol"] * want.abs())).max())
+    require(sep > SEPARATION,
+            f"{label}: on the perturbed state the BGK library's step lies "
+            f"{sep:.1f}x the tolerance from the plain step, not "
+            f"{SEPARATION}x")
+    return sep
 
 
 def kernel_chunk(step, f: torch.Tensor, n: int) -> torch.Tensor:
@@ -367,8 +476,8 @@ def plain_chunk(step, f: torch.Tensor, n: int) -> torch.Tensor:
     return f
 
 
-def ms_per_step(run, f: torch.Tensor, n: int) -> float:
-    run(f.clone(), 20)                       # warm-up
+def ms_per_step(run, f: torch.Tensor, n: int, warm: int = 20) -> float:
+    run(f.clone(), warm)                     # warm-up
     g = f.clone()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
@@ -598,16 +707,16 @@ def thermal_params(problem: str, nx: int, ny: int, **kw):
                             precision="f32", enable_vtk=False, **kw)
 
 
-def thermal_parity(dev, name: str, nx: int, ny: int):
-    """Phase 9 on one grid: one kernel step against one plain step from the
-    initial state and after 500 plain steps, then 280 steps of each.
-    Returns (the larger one-step error, the kernel and plain steps and the
-    initial state)."""
+def thermal_parity(dev, name: str, nx: int, ny: int, **kw):
+    """Phase 9 (24 with the closure's Cs in kw) on one grid: one kernel
+    step against one plain step from the initial state and after 500 plain
+    steps, then 280 steps of each. Returns (the larger one-step error, the
+    kernel and plain steps and the initial state)."""
     from tpulbm_torch.convert import state_from_numpy
     from tpulbm_torch.models import make_problem
     from tpulbm_torch.ops import step_thermal, step_thermal_cuda
 
-    problem = make_problem(thermal_params(name, nx, ny))
+    problem = make_problem(thermal_params(name, nx, ny, **kw))
     kstep = step_thermal_cuda.make_local_step_thermal_cuda(problem, dev)
     pstep = step_thermal.make_step_thermal(problem, dev)
     s0 = state_from_numpy(problem.initial_state(), problem, dev)
@@ -625,7 +734,8 @@ def thermal_parity(dev, name: str, nx: int, ny: int):
     require(np.isfinite(err_280) and err_280 < DRIFT_280_BOUND,
             f"thermal {name} {nx}x{ny} 280-step drift {err_280} beyond "
             f"{DRIFT_280_BOUND}")
-    print(f"thermal parity {name} {nx}x{ny}: 1 step max abs err "
+    print(f"thermal parity {name} {nx}x{ny}{f' {kw}' if kw else ''}: 1 step "
+          f"max abs err "
           f"{errs[0]:.3e} from the initial state, {errs[1]:.3e} after 500 "
           f"plain steps (rtol 5e-6, atol 1e-7); 280 steps {err_280:.3e} "
           f"(bound {DRIFT_280_BOUND})")
@@ -1195,6 +1305,277 @@ def operator_phases(dev, card: str) -> list[dict]:
     return entries
 
 
+def sphere_operator_parity(dev, op: str):
+    """Phase 21 for one operator: at 256^3, one 1-step kernel step against
+    one plain step from the initial state, from the state the operator's
+    own 1-step kernel advanced 100 steps and from the perturbed state (the
+    power law at tpulbm's rtol 1e-4), with the BGK library's step at least
+    SEPARATION tolerances off on the last; the N = 2, 3 kernels bitwise
+    against N 1-step launches from all three; 280 kernel steps against 280
+    plain steps at
+    128^3 (bounded by 1e-4); tpulbm's own 3-D gate of the operator, the
+    kernels (the chunk's plan) against the plain step. Returns (the params,
+    the collision mode, the kernel steps by depth, the initial state, the
+    larger one-step error)."""
+    from tpulbm_torch.config import SimulationParams
+    from tpulbm_torch.convert import state_from_numpy
+    from tpulbm_torch.models import make_problem
+    from tpulbm_torch.ops import step_cuda, step_torch
+    from tpulbm_torch.stepper import make_chunk_fn
+
+    def build(n: int, **kw):
+        d = dict(problem="cylinder3d", nx=n, ny=n, nz=n, inlet_velocity=0.05,
+                 precision="f32", enable_vtk=False)
+        d.update(OPERATORS_3D[op], **kw)
+        params = SimulationParams(**d)
+        return params, make_problem(params)
+
+    tol = PLAW_TOL if op == "power_law" else ONE_STEP_TOL
+    params, problem = build(SPHERE_N)
+    mode = step_torch.collision_mode(problem)
+    steps = {1: step_cuda.make_local_step_cuda_3d(problem, dev)}
+    for d in DEPTHS_3D:
+        steps[d] = step_cuda.make_local_step_cuda_3d_blocked(problem, dev, d)
+    pstep = step_torch.make_step_rolled(problem, dev)
+    bgk = step_cuda.make_local_step_cuda_3d(make_problem(params.replace(
+        collision="bgk", smagorinsky=0.0, power_law_n=1.0)), dev)
+    f0 = state_from_numpy(problem.initial_state(), problem, dev)
+    f100 = kernel_chunk(steps[1], f0.clone(), 100)
+    fp = perturbed(problem, f0)
+    errs = []
+    for f in (f0, f100, fp):
+        got = steps[1](f, torch.empty_like(f))
+        want = pstep(f)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **tol)
+        errs.append(float((got - want).abs().max()))
+        if f is fp:
+            sep = separation(f"3-D {op}", bgk(f, torch.empty_like(f)), want,
+                             tol)
+        for d in DEPTHS_3D:
+            got = steps[d](f, torch.empty_like(f))
+            want = kernel_chunk(steps[1], f.clone(), d)
+            torch.cuda.synchronize()
+            require(torch.equal(got, want),
+                    f"3-D {op} N={d}: {float((got - want).abs().max())} off "
+                    f"{d} 1-step launches")
+    del f100, fp, got, want
+    # 280 steps at 128^3
+    _, small = build(DRIFT_N_3D)
+    s0 = state_from_numpy(small.initial_state(), small, dev)
+    sk = kernel_chunk(step_cuda.make_local_step_cuda_3d(small, dev),
+                      s0.clone(), 280)
+    sp = plain_chunk(step_torch.make_step_rolled(small, dev), s0, 280)
+    torch.cuda.synchronize()
+    err_280 = float((sk - sp).abs().max())
+    require(np.isfinite(err_280) and err_280 < DRIFT_280_BOUND,
+            f"3-D {op}: 280-step drift {err_280} beyond {DRIFT_280_BOUND}")
+    del s0, sk, sp
+    # tpulbm's gate grid
+    grid, n_gate = GATES_3D[op]
+    gp = SimulationParams(problem="cylinder3d", inlet_velocity=0.05,
+                          precision="f32", **OPERATORS_3D[op], **grid)
+    gate = make_problem(gp)
+    g0 = state_from_numpy(gate.initial_state(), gate, dev)
+    kchunk = make_chunk_fn(gate, dev, n_gate, backend="pallas")
+    got = kchunk(g0.clone())
+    want = make_chunk_fn(gate, dev, n_gate, backend="jax")(g0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **tol)
+    err_gate = float((got - want).abs().max())
+    print(f"3-D operator parity {op} ({mode}, {OPERATORS_3D[op]}) at "
+          f"{SPHERE_N}^3: 1 step max abs err {errs[0]:.3e} from the initial "
+          f"state, {errs[1]:.3e} after 100 kernel steps, {errs[2]:.3e} on "
+          f"the perturbed state (rtol {tol['rtol']:.0e}, atol "
+          f"{tol['atol']:.0e}), where the BGK library misses the plain step "
+          f"by {sep:.0f}x the tolerance (gate > {SEPARATION}x); N=2/3 "
+          f"bitwise against N 1-step launches from all three; 280 steps at "
+          f"{DRIFT_N_3D}^3 {err_280:.3e} (bound {DRIFT_280_BOUND}); tpulbm's "
+          f"gate {gp.nx}x{gp.ny}x{gp.nz} tau {gp.tau}, {n_gate} steps as "
+          f"{kchunk.plan}: {err_gate:.3e}")
+    return params, mode, steps, f0, max(errs)
+
+
+def sphere_operator_main_path(dev, op: str, params, mode: str) -> dict:
+    """Phase 22 for one operator: the Runner at 256^3 f32, 2240 steps every
+    140, no VTK, counted: exactly 735 N=3, 17 N=2 and 1 one-step launches,
+    all of the operator's libraries, and none of another kernel; 16 finite
+    force rows and a finite fields3d.npz. Returns the launches by depth."""
+    from tpulbm_torch.ops import step_cuda
+
+    n = SPHERE_N
+    run_dir = OUT_DIR / f"sphere{n}_{op}"
+    result, counts, wall = run_counted(
+        params.replace(num_timesteps=2240, output_frequency=140,
+                       output_dir=str(run_dir)), dev)
+    by_mode = (step_cuda.collide_stream_3d.launches_by_mode[mode],
+               *(step_cuda.collide_stream_3d_blocked.launches_by_mode[mode][d]
+                 for d in DEPTHS_3D))
+    require(counts == {**only("3d3", 735), "3d2": 17, "3d": 1}
+            and by_mode == (1, 17, 735),
+            f"3-D {op}: launch counts {counts} ({by_mode} of {mode}), not "
+            "735 N=3, 17 N=2, 1 one-step and 0 others")
+    forces = check_forces(run_dir, list(range(0, 2240, 140)))
+    with np.load(run_dir / "fields3d.npz") as fields:
+        for name in ("rho", "ux", "uy", "uz"):
+            require(fields[name].shape == (n, n, n)
+                    and bool(np.isfinite(fields[name]).all()),
+                    f"3-D {op}: fields3d.npz {name} not a finite {n}^3 field")
+    print(f"3-D operator main path {op}: sphere {n}^3 f32, 2240 steps, "
+          f"launches {counts['3d3']} N=3 + {counts['3d2']} N=2 + "
+          f"{counts['3d']} one-step of {mode}, {result.host_fetches} host "
+          f"fetches in the loop, {wall:.2f} s wall, runner "
+          f"{result.mlups:.1f} MLUPS, final C_D {forces[-1, 3]:.6f}")
+    return {1: counts["3d"], 2: counts["3d2"], 3: counts["3d3"]}
+
+
+def sphere_operator_phases(dev, card: str) -> list[dict]:
+    """Phases 21-23: each 3-D operator's D3Q19 kernels against the plain
+    step and each other at 256^3 (and tpulbm's gate grids), its main path
+    through the Runner, and timing. Returns the kernels' JSON entries."""
+    from tpulbm_torch.models import make_problem
+    from tpulbm_torch.ops import step_cuda, step_torch
+
+    t_phases = time.perf_counter()
+    entries = []
+    for op in OPERATORS_3D:
+        params, mode, steps, f0, err = sphere_operator_parity(dev, op)
+        counts = sphere_operator_main_path(dev, op, params, mode)
+        # phase 23: timing in turns at 256^3, ms per step (one launch is N
+        # steps); the plain step (host-bound, 100-400 ms a step) 4 steps a
+        # turn after 2
+        pstep = step_torch.make_step_rolled(make_problem(params), dev)
+        runs = {"plain": (lambda f, m: plain_chunk(pstep, f, m), 4, 2)}
+        for n in (1, *DEPTHS_3D):
+            runs[n] = (lambda f, m, n=n: kernel_chunk(steps[n], f, m // n),
+                       150, 20)
+        order = ["plain", 1, *DEPTHS_3D]
+        times = {k: [] for k in order}
+        for which in order + order[::-1]:
+            run, m, warm = runs[which]
+            times[which].append(ms_per_step(run, f0, m, warm))
+        ms = {k: min(v) for k, v in times.items()}
+        cells = SPHERE_N ** 3
+        kind = f"d3q19_{mode}"
+        b = {n: bound(kind, cells, n) for n in (1, *DEPTHS_3D)}
+        print(f"3-D operator timing {op} at {SPHERE_N}^3 on {card}, ms/step "
+              f"(MLUPS): "
+              + "; ".join(
+                  f"{'1-step' if n == 1 else f'N={n}'} {ms[n]:.5f} "
+                  f"({cells / ms[n] / 1e3:.1f}, runs "
+                  f"{[round(v, 6) for v in times[n]]}), "
+                  f"{100 * b[n]['bound_ms'] / ms[n]:.1f}% of "
+                  f"{b[n]['bound_ms']:.5f} ({b[n]['bound_by']})"
+                  for n in (1, *DEPTHS_3D))
+              + f"; plain {ms['plain']:.5f} (runs "
+              f"{[round(v, 6) for v in times['plain']]})")
+        for n in (1, *DEPTHS_3D):
+            entries.append({
+                "name": f"d3q19_collide_stream{'' if n == 1 else f'_n{n}'}"
+                        f"[{op}]",
+                "route": "cuda",
+                "source": (step_cuda.SOURCE_3D if n == 1
+                           else step_cuda.SOURCE_3D_BLOCKED),
+                "replaces": (step_cuda.REPLACES_3D if n == 1
+                             else step_cuda.REPLACES_3D_BLOCKED),
+                "launches": counts[n], "max_abs_err": err, "ms": ms[n],
+                "plain_ms": ms["plain"], **b[n]})
+        del steps, f0, pstep
+        torch.cuda.empty_cache()
+    print(f"3-D operator phases 21-23: {time.perf_counter() - t_phases:.2f} s")
+    return entries
+
+
+def thermal_les_phases(dev, card: str) -> dict:
+    """Phase 24: the thermal kernel's LES build (Cs 0.17) at the 2048x512
+    Rayleigh-Bénard row against the plain LES step (one step from both
+    states and from the perturbed state, where the BGK build's step must
+    lie SEPARATION tolerances off; 280 steps), tpulbm's LES gate of the
+    thermal kernel, the
+    Runner (exactly 2240 launches of the LES build), and timing. Returns
+    the kernel's JSON entry."""
+    from tpulbm_torch.convert import state_from_numpy
+    from tpulbm_torch.models import make_problem
+    from tpulbm_torch.ops import step_thermal_cuda
+    from tpulbm_torch.stepper import make_chunk_fn
+
+    t_phase = time.perf_counter()
+    nx, ny = THERMAL_NX, THERMAL_NY
+    err, kstep, pstep, s0 = thermal_parity(dev, "rayleigh-benard", nx, ny,
+                                           smagorinsky=THERMAL_CS)
+    # the perturbed state: the LES build against the plain LES step, and
+    # the BGK build's step off it
+    les = make_problem(thermal_params("rayleigh-benard", nx, ny,
+                                      smagorinsky=THERMAL_CS))
+    bgk = step_thermal_cuda.make_local_step_thermal_cuda(
+        make_problem(thermal_params("rayleigh-benard", nx, ny)), dev)
+    sp = perturbed(les, s0)
+    got = kstep(sp, torch.empty_like(sp))
+    want = pstep(sp)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **ONE_STEP_TOL)
+    err_p = float((got - want).abs().max())
+    sep = separation("thermal LES", bgk(sp, torch.empty_like(sp)), want,
+                     ONE_STEP_TOL)
+    err = max(err, err_p)
+    print(f"thermal LES parity {nx}x{ny} on the perturbed state: 1 step max "
+          f"abs err {err_p:.3e} (rtol 5e-6, atol 1e-7); the BGK build misses "
+          f"the plain LES step by {sep:.0f}x the tolerance (gate > "
+          f"{SEPARATION}x)")
+    del sp, got, want
+    # tpulbm's gate: 32x32, Ra 5000, 12 steps, the kernel against the plain
+    # step
+    gate = make_problem(thermal_params("rayleigh-benard", 32, 32,
+                                       smagorinsky=THERMAL_CS).replace(
+                                           rayleigh=5000.0))
+    g0 = state_from_numpy(gate.initial_state(), gate, dev)
+    got = make_chunk_fn(gate, dev, 12, backend="pallas")(g0.clone())
+    want = make_chunk_fn(gate, dev, 12, backend="jax")(g0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **THERMAL_LES_TOL)
+    print(f"thermal LES gate 32x32 Ra 5000, 12 steps: kernel vs plain max "
+          f"abs err {float((got - want).abs().max()):.3e} (rtol 2e-5, atol "
+          f"1e-6)")
+    run_dir = OUT_DIR / "rayleigh_benard_2048x512_les"
+    params = thermal_params("rayleigh-benard", nx, ny, smagorinsky=THERMAL_CS,
+                            num_timesteps=2240, output_frequency=140,
+                            output_dir=str(run_dir))
+    result, counts, wall = run_counted(params, dev)
+    by_mode = step_thermal_cuda.collide_stream_thermal.launches_by_mode
+    require(counts == only("thermal", 2240)
+            and by_mode == {"bgk": 0, "smagorinsky": 2240},
+            f"thermal LES: launch counts {counts} ({by_mode}), not 2240 of "
+            "the LES build and 0 others")
+    final_nusselt(run_dir, list(range(0, 2240, 140)))
+    print(f"thermal LES main path: rayleigh-benard {nx}x{ny} f32 Ra 1e4 Cs "
+          f"{THERMAL_CS}, 2240 steps, launches {by_mode['smagorinsky']} of "
+          f"the LES build, {result.host_fetches} host fetches in the loop, "
+          f"{wall:.2f} s wall, runner {result.mlups:.1f} MLUPS, final Nu "
+          f"{result.stats['nusselt']:.6f}")
+    runs = {"plain": (lambda f, n: plain_chunk(pstep, f, n), 200),
+            "kernel": (lambda f, n: kernel_chunk(kstep, f, n), 2400)}
+    times = {k: [] for k in runs}
+    for which in ["plain", "kernel", "kernel", "plain"]:
+        run, steps = runs[which]
+        times[which].append(ms_per_step(run, s0, steps))
+    ms = {k: min(v) for k, v in times.items()}
+    cells = nx * ny
+    b = bound("thermal_smagorinsky", cells)
+    print(f"thermal LES timing at {nx}x{ny} on {card}, ms/step (MLUPS): "
+          f"plain {ms['plain']:.5f} ({cells / ms['plain'] / 1e3:.1f}, runs "
+          f"{[round(v, 6) for v in times['plain']]}); kernel "
+          f"{ms['kernel']:.5f} ({cells / ms['kernel'] / 1e3:.1f}, runs "
+          f"{[round(v, 6) for v in times['kernel']]}), "
+          f"{100 * b['bound_ms'] / ms['kernel']:.1f}% of its bound "
+          f"{b['bound_ms']:.5f} ms ({b['bound_by']})")
+    print(f"thermal LES phase 24: {time.perf_counter() - t_phase:.2f} s")
+    return {"name": "thermal_collide_stream[smagorinsky]", "route": "cuda",
+            "source": step_thermal_cuda.SOURCE,
+            "replaces": step_thermal_cuda.REPLACES,
+            "launches": by_mode["smagorinsky"], "max_abs_err": err,
+            "ms": ms["kernel"], "plain_ms": ms["plain"], **b}
+
+
 def main() -> int:
     # phase 1: the card
     if not torch.cuda.is_available():
@@ -1223,13 +1604,19 @@ def main() -> int:
                "step_multiphase.cu"]
     modes = [(src, mode) for mode in step_cuda.COLLISION_MODES[1:]
              for src in ("step_d2q9.cu", "step_d2q9_blocked.cu")]
+    modes += [(src, mode) for mode in step_cuda.COLLISION_MODES_3D[1:]
+              for src in ("step_d3q19.cu", "step_d3q19_blocked.cu")]
+    modes += [("step_thermal.cu", "smagorinsky")]
     with ThreadPoolExecutor(len(sources) + len(modes)) as pool:
-        libs = list(pool.map(cuda_build.load, sources))
-        mode_libs = list(pool.map(
-            lambda j: cuda_build.load(j[0], step_cuda.mode_defines(j[1])),
-            modes))
+        lib_jobs = [pool.submit(cuda_build.load, src) for src in sources]
+        mode_jobs = [pool.submit(cuda_build.load, src,
+                                 step_cuda.mode_defines(mode))
+                     for src, mode in modes]
+        libs = [job.result() for job in lib_jobs]
+        mode_libs = [job.result() for job in mode_jobs]
     print(f"build: {len(sources)} sources and {len(modes)} collision-mode "
-          f"builds of the D2Q9 sources in {time.perf_counter() - t0:.2f} s")
+          f"builds (D2Q9, D3Q19, thermal) in "
+          f"{time.perf_counter() - t0:.2f} s")
     for lib in libs:
         print(f"build: {lib.path.name} in {lib.build_seconds:.2f} s "
               f"({ptxas_summary(lib.log)})")
@@ -1400,6 +1787,8 @@ def main() -> int:
     kernels.append(thermal_phases(dev, card))
     kernels.append(multiphase_phases(dev, card))
     kernels.extend(operator_phases(dev, card))
+    kernels.extend(sphere_operator_phases(dev, card))
+    kernels.append(thermal_les_phases(dev, card))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain version, and the N-step kernels
 against N launches of the 1-step kernels, on the card: D2Q9 (under every
-collision, with either Zou-He corner rule), D3Q19 (one step and N steps),
-the thermal D2Q9 + D2Q5 kernel and the Shan-Chen multiphase kernel. These
+collision, with either Zou-He corner rule), D3Q19 (one step and N steps,
+under every collision tpulbm runs in 3-D), the thermal D2Q9 + D2Q5 kernel
+(BGK and the Smagorinsky closure) and the Shan-Chen multiphase kernel. These
 tests need an NVIDIA GPU with nvcc and skip elsewhere; run them on the
 card with
 
@@ -259,13 +260,99 @@ def test_blocked_kernel_3d_refuses(cuda):
     lib = step_cuda._blocked_library_3d()
     rc = lib.tpulbm_d3q19_step_blocked(
         f.data_ptr(), out.data_ptr(), solid.data_ptr(), 32, 16, 8, 4,
-        consts.inv_tau, step_cuda._floats(consts.eq_in),
-        step_cuda._floats(consts.w), 0,
-        torch.cuda.current_stream(cuda).cuda_stream)
+        *consts.d3q19_args, 0, torch.cuda.current_stream(cuda).cuda_stream)
     assert rc != 0
     with pytest.raises(RuntimeError, match="launch failed"):
         step_cuda._check_launch(lib, rc, "D3Q19 4-step kernel")
     assert lib.tpulbm_d3q19_blocked_smem_bytes(4) == -1
+
+
+# D3Q19 under tpulbm's 3-D collisions: each operator's 1-step kernel
+# against the plain step (the power law at tpulbm's rtol 1e-4) and its
+# N-step kernel bitwise against N 1-step launches, on ragged grids, one
+# smaller than a tile, the sphere whose outlet neighbours are solid, and
+# tpulbm's own 3-D gate grid of the operator (tests/test_3d.py,
+# test_mrt.py, test_regularized.py, test_les.py, test_power_law.py)
+OPERATORS_3D = {
+    "trt": (dict(collision="trt"), dict(nx=32, ny=16, nz=8, tau=0.6)),
+    "mrt": (dict(collision="mrt"), dict(nx=32, ny=16, nz=8, tau=0.6)),
+    "regularized": (dict(collision="regularized"),
+                    dict(nx=64, ny=16, nz=16, tau=0.6)),
+    "les": (dict(smagorinsky=0.17), dict(nx=128, ny=16, nz=16, tau=0.55)),
+    "power_law": (dict(power_law_n=0.7, power_law_k=0.02),
+                  dict(nx=128, ny=16, nz=16, tau=0.55)),
+    "bgk": (dict(), dict(nx=32, ny=16, nz=8, tau=0.6)),
+}
+GRIDS_3D = {
+    "33x17x9": dict(nx=33, ny=17, nz=9, cylinder_x=0.5, cylinder_radius=0.15,
+                    tau=0.55),
+    "7x3x4": dict(nx=7, ny=3, nz=4, tau=0.55),
+    "outlet_reaching": dict(nx=32, ny=32, nz=8, cylinder_x=0.9,
+                            cylinder_y=0.5, cylinder_radius=0.2, tau=0.55),
+    "gate": None,
+}
+
+
+@pytest.mark.parametrize("grid", GRIDS_3D)
+@pytest.mark.parametrize("op", OPERATORS_3D)
+def test_operator_3d_kernels_match_plain_and_each_other(cuda, op, grid):
+    kw, gate = OPERATORS_3D[op]
+    problem = make_problem(SimulationParams(
+        problem="cylinder3d", inlet_velocity=0.05, **kw,
+        **(GRIDS_3D[grid] or gate)))
+    mode = step_torch.collision_mode(problem)
+    f = state_from_numpy(_perturbed_state(problem, problem.params.nx),
+                         problem, cuda)
+    kstep = step_cuda.make_local_step_cuda_3d(problem, cuda)
+    before = step_cuda.collide_stream_3d.launches_by_mode[mode]
+    got = kstep(f, torch.empty_like(f))
+    assert step_cuda.collide_stream_3d.launches_by_mode[mode] == before + 1
+    want = step_torch.make_step_rolled(problem, cuda)(f)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got, want, **(dict(rtol=1e-4, atol=1e-7) if op == "power_law"
+                      else ONE_STEP_TOL))
+    for n_sub in step_cuda.BLOCKED_DEPTHS_3D:
+        bstep = step_cuda.make_local_step_cuda_3d_blocked(problem, cuda,
+                                                          n_sub)
+        before = step_cuda.collide_stream_3d_blocked.launches_by_mode[mode][
+            n_sub]
+        got = bstep(f, torch.empty_like(f))
+        assert step_cuda.collide_stream_3d_blocked.launches_by_mode[mode][
+            n_sub] == before + 1
+        want = f.clone()
+        for _ in range(n_sub):
+            want = kstep(want, torch.empty_like(want))
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (n_sub,
+                                        float((got - want).abs().max()))
+
+
+def test_bgk_libraries_launch_path_is_unchanged(cuda):
+    # BGK's libraries are built with no define, report mode 0, take the
+    # zero coefficients, and count their launches as BGK's
+    from tpulbm_torch.utils import cuda_build
+    problem = make_problem(SimulationParams(problem="cylinder3d", nx=32,
+                                            ny=16, nz=8))
+    consts = step_cuda.StepConstants.of(problem)
+    assert consts.mode == "bgk" and not any(consts.modes)
+    assert len(consts.modes) == step_cuda.MODE_FLOATS_3D
+    for source, lib in (("step_d3q19.cu", step_cuda._library_3d()),
+                        ("step_d3q19_blocked.cu",
+                         step_cuda._blocked_library_3d()),
+                        ("step_thermal.cu", step_thermal_cuda._library())):
+        assert lib._name == str(cuda_build.load(source).path)
+    for lib in (step_cuda._library_3d(), step_cuda._blocked_library_3d(),
+                step_thermal_cuda._library()):
+        assert lib.tpulbm_collision_mode() == 0
+    step_cuda.reset_launch_counts()
+    f = state_from_numpy(problem.initial_state(), problem, cuda)
+    make_chunk_fn(problem, cuda, 7, backend="pallas")(f)
+    assert step_cuda.collide_stream_3d_blocked.launches_by_mode["bgk"] == {
+        2: 2, 3: 1}
+    assert sum(sum(d.values()) for m, d in
+               step_cuda.collide_stream_3d_blocked.launches_by_mode.items()
+               if m != "bgk") == 0
 
 
 # thermal: a grid smaller than one 32x8 tile, a ragged one, the heated
@@ -296,6 +383,33 @@ def test_thermal_kernel_one_step_matches_plain(cuda, problem, nx, ny):
     want = step_thermal.make_step_thermal(problem, cuda)(s)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, **ONE_STEP_TOL)
+
+
+# the thermal kernel's LES build (Cs 0.17) against the plain LES step, on
+# the grids above and tpulbm's own LES gate grid (32x32, Ra 5000)
+@pytest.mark.parametrize("problem,nx,ny", [
+    ("rayleigh-benard", 7, 3), ("heated-cavity", 33, 9),
+    ("rayleigh-benard", 32, 32), ("heated-cavity", 96, 96),
+    ("rayleigh-benard", 2048, 512)])
+def test_thermal_les_kernel_one_step_matches_plain(cuda, problem, nx, ny):
+    problem = make_problem(_thermal_params(problem, nx, ny).replace(
+        smagorinsky=0.17))
+    rng = np.random.default_rng(nx)
+    s = (problem.initial_state()
+         * rng.uniform(0.9, 1.1, (problem.state_q, ny, nx))).astype(np.float32)
+    s = state_from_numpy(s, problem, cuda)
+    kstep = step_thermal_cuda.make_local_step_thermal_cuda(problem, cuda)
+    before = dict(step_thermal_cuda.collide_stream_thermal.launches_by_mode)
+    got = kstep(s, torch.empty_like(s))
+    assert step_thermal_cuda.collide_stream_thermal.launches_by_mode == {
+        **before, "smagorinsky": before["smagorinsky"] + 1}
+    want = step_thermal.make_step_thermal(problem, cuda)(s)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **ONE_STEP_TOL)
+    # the closure moves the result off BGK's
+    bgk = step_thermal_cuda.make_local_step_thermal_cuda(
+        make_problem(_thermal_params(problem.params.problem, nx, ny)), cuda)
+    assert not torch.equal(bgk(s, torch.empty_like(s)), got)
 
 
 def test_thermal_chunk_counts_every_launch(cuda):

@@ -7,10 +7,13 @@ import pytest
 import torch
 
 from tpulbm.config import PRESETS
+from tpulbm.config import validate_params as jax_validate
 from tpulbm.models import make_problem as jax_problem
 from tpulbm.utils import checkpoint
+from tpulbm_torch.config import validate_params
 from tpulbm_torch.convert import (load_tpulbm_checkpoint, state_from_numpy,
                                   state_to_numpy)
+from tpulbm_torch.models import make_problem
 from test_torch_compat import port_params, port_problem
 
 
@@ -52,17 +55,25 @@ _SPHERE = dict(problem="cylinder3d", nz=8)
     (dict(body_force=(1e-5, 0.0)), "item 12"),
     (dict(obstacle_bc="bouzidi"), "item 14"), (dict(nz=16), "item 16"),
     (dict(_SPHERE, lattice3d="d3q27"), "item 16"),
-    (dict(_SPHERE, collision="trt"), "item 11"),
-    (dict(_SPHERE, collision="regularized"), "item 11"),
-    (dict(_SPHERE, smagorinsky=0.1), "item 11"),
     (dict(_SPHERE, obstacle_bc="bounce_back"), "item 12"),
     (dict(_SPHERE, obstacle_bc="bouzidi"), "item 14"),
-    (dict(_SPHERE, body_force=(1e-5, 0.0, 0.0)), "item 12"),
-    (dict(_SPHERE, collision="mrt"), "item 11 (collision operators, 3-D)"),
-    (dict(_SPHERE, power_law_n=0.7), "item 11 (collision operators, 3-D)")])
+    (dict(_SPHERE, body_force=(1e-5, 0.0, 0.0)), "item 12")])
 def test_unported_options_name_their_roadmap_item(override, item):
     with pytest.raises(NotImplementedError, match=re.escape(item)):
         port_problem(PRESETS["cylinder-small"].replace(**override))
+
+
+# the sphere's operators, once refused: the Problem carries tpulbm's fields
+@pytest.mark.parametrize("override", [
+    dict(collision="trt"), dict(collision="regularized"),
+    dict(smagorinsky=0.1), dict(collision="mrt"), dict(power_law_n=0.7)])
+def test_sphere_operator_fields_match_tpulbm(override):
+    params = PRESETS["cylinder-small"].replace(**_SPHERE, **override)
+    mine, ref = port_problem(params), jax_problem(params)
+    for name in ("collision", "trt_magic", "mrt_rates", "smagorinsky",
+                 "power_law"):
+        assert getattr(mine, name) == getattr(ref, name), name
+    assert mine.initial_state().tobytes() == ref.initial_state().tobytes()
 
 
 # the 2-D cylinder's operators and corner rule, once refused: the Problem
@@ -77,6 +88,39 @@ def test_cylinder_operator_fields_match_tpulbm(override):
                  "smagorinsky", "power_law"):
         assert getattr(mine, name) == getattr(ref, name), name
     assert mine.initial_state().tobytes() == ref.initial_state().tobytes()
+
+
+@pytest.mark.parametrize("override", [
+    dict(collision="trt"), dict(smagorinsky=0.17), dict(power_law_n=0.7)])
+def test_multiphase_operators_raise_tpulbm_error(override):
+    params = PRESETS["cylinder-small"].replace(
+        problem="multiphase", shan_chen_g=-5.0, tau=1.0, **override)
+    with pytest.raises(ValueError, match="BGK-only"):
+        port_problem(params)
+
+
+# the collision combinations tpulbm refuses: the port's validate_params and
+# its problem builders share one check and give tpulbm's own message
+_RB = dict(problem="rayleigh-benard", thermal_tau=0.5704, rayleigh=1e4,
+           inlet_velocity=0.0, cylinder_radius=0.0)
+
+
+@pytest.mark.parametrize("override", [
+    dict(_SPHERE, collision="kbc"), dict(_RB, collision="trt"),
+    dict(_RB, power_law_n=0.7), dict(collision="trt", smagorinsky=0.1),
+    dict(collision="mrt", power_law_n=0.7),
+    dict(smagorinsky=0.1, power_law_n=0.7),
+    dict(problem="multiphase", shan_chen_g=-5.0, tau=1.0, collision="trt")],
+    ids=["kbc_3d", "thermal_trt", "thermal_power_law", "les_trt",
+         "power_law_mrt", "les_and_power_law", "multiphase_trt"])
+def test_refused_collisions_give_tpulbms_message(override):
+    params = PRESETS["cylinder-small"].replace(**override)
+    with pytest.raises(ValueError) as want:
+        jax_validate(params)
+    for check in (validate_params, make_problem):
+        with pytest.raises(ValueError) as got:
+            check(port_params(params))
+        assert str(got.value) == str(want.value), check.__name__
 
 
 def test_state_round_trip_and_checks():

@@ -35,6 +35,7 @@ from tpulbm.parallel.sharded_step import shard_state
 from tpulbm.runner import Runner as JaxRunner
 from tpulbm_torch import physics as tphys
 from tpulbm_torch import stepper
+from tpulbm_torch.config import check_collision
 from tpulbm_torch.convert import state_from_numpy, state_to_numpy
 from tpulbm_torch.lattice import D2Q5, D2Q9
 from tpulbm_torch.ops import boundaries, step_cuda, step_thermal
@@ -93,12 +94,25 @@ def test_problem_arrays_match_tpulbm_bytewise(preset, grid, precision):
 
 @pytest.mark.parametrize("override,item", [
     (dict(problem="passive-scalar"), "item 13"),
-    (dict(smagorinsky=0.17), "item 11"),
     (dict(mesh_shape=(2, 1)), "item 19")],
-    ids=["passive-scalar", "thermal-les", "thermal-mesh"])
+    ids=["passive-scalar", "thermal-mesh"])
 def test_unported_thermal_options_name_their_roadmap_item(override, item):
     with pytest.raises(NotImplementedError, match=item):
         port_problem(_params(**override))
+
+
+# the LES closure of the thermal step, once refused: the Problem carries
+# tpulbm's field; the other operators stay refused, as tpulbm refuses them
+@pytest.mark.parametrize("problem", PROBLEMS)
+def test_thermal_les_fields_match_tpulbm(problem):
+    params = _params(problem, smagorinsky=0.17)
+    mine, ref = port_problem(params), jax_problem(params)
+    assert (mine.collision, mine.smagorinsky, mine.power_law) == \
+        (ref.collision, ref.smagorinsky, ref.power_law) == ("bgk", 0.17, ())
+    assert mine.initial_state().tobytes() == ref.initial_state().tobytes()
+    for bad in (dict(collision="trt"), dict(power_law_n=0.7)):
+        with pytest.raises(ValueError, match="thermal"):
+            port_problem(_params(problem, **bad))
 
 
 def test_rayleigh_benard_in_3d_raises_tpulbm_error():
@@ -180,6 +194,81 @@ def test_kernel_chunk_matches_tpulbm_pallas_interpret(problem):
         s, t = jchunk(s, solid), chunk(t)
     np.testing.assert_allclose(t.numpy(), np.asarray(jax.device_get(s)),
                                **PALLAS_TOL)
+
+
+# ---- the Smagorinsky closure of the thermal step ----------------------
+
+@pytest.mark.parametrize("problem,nx,ny", [
+    ("rayleigh-benard", 32, 32), ("heated-cavity", 40, 24)])
+def test_les_plain_step_matches_tpulbm_f64(problem, nx, ny):
+    # Cs 0.17 at tau 0.55: the closure's per-cell rate, then the buoyancy
+    # source (tpulbm/ops/step_thermal.py:52-56), 60 steps
+    params = _params(problem, nx=nx, ny=ny, smagorinsky=0.17)
+    mine, ref = port_problem(params), jax_problem(params)
+    s0 = _noisy_state(mine, nx * ny)
+    np.testing.assert_allclose(
+        step_thermal.collide_thermal(mine, torch.from_numpy(s0)).numpy(),
+        np.asarray(jthermal.collide_thermal(ref, jax.numpy.asarray(s0))),
+        **F64_TOL)
+    jstep = jax.jit(jthermal.make_step_thermal(ref))
+    step = step_thermal.make_step_thermal(mine, "cpu")
+    want, got = jax.numpy.asarray(s0), torch.from_numpy(s0)
+    for _ in range(60):
+        want, got = jstep(want), step(got)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F64_TOL)
+    # the closure moves the result: BGK's step is not the LES step
+    bgk = step_thermal.make_step_thermal(port_problem(_params(
+        problem, nx=nx, ny=ny)), "cpu")(torch.from_numpy(s0))
+    assert not torch.allclose(bgk, step(torch.from_numpy(s0)), rtol=1e-9,
+                              atol=0.0)
+
+
+@pytest.mark.parametrize("problem", PROBLEMS)
+def test_les_kernel_chunk_matches_tpulbm_pallas_interpret(problem):
+    # tpulbm's own LES gate of the thermal kernel (tests/test_thermal.py,
+    # the `les` case: 32x32, Ra 5000, Cs 0.17, 12 steps, rtol 2e-5 / atol
+    # 1e-6), the kernel module against the Pallas kernel
+    params = _params(problem, precision="f32", smagorinsky=0.17)
+    mine, ref = port_problem(params), jax_problem(params)
+    mesh = make_mesh((1, 1), devices=jax.devices()[:1])
+    jchunk = jax_chunk_fn(ref, mesh, 6, backend="pallas")
+    s, solid = shard_state(mesh, ref.initial_state(),
+                           np.zeros(ref.spatial_shape, bool))
+    chunk = stepper.make_chunk_fn(mine, "cpu", 6, backend="pallas")
+    assert chunk.plan == [(1, 6)]     # one step per launch, as under BGK
+    t = state_from_numpy(mine.initial_state(), mine, "cpu")
+    for _ in range(2):
+        s, t = jchunk(s, solid), chunk(t)
+    np.testing.assert_allclose(t.numpy(), np.asarray(jax.device_get(s)),
+                               **PALLAS_TOL)
+
+
+def test_les_kernel_constants_and_library_mode():
+    les = port_problem(_params(precision="f32", smagorinsky=0.17))
+    consts = step_thermal_cuda.ThermalConstants.of(les)
+    tau0 = 1.0 / (1.0 / 0.55)
+    assert consts.mode == "smagorinsky"
+    assert consts.scalars[4:] == (tau0, tau0 * tau0, 18.0 * 0.17 * 0.17)
+    bgk = step_thermal_cuda.ThermalConstants.of(port_problem(_params(
+        precision="f32")))
+    assert bgk.mode == "bgk" and bgk.scalars[4:] == (0.0, 0.0, 0.0)
+    assert bgk.scalars[:4] == consts.scalars[:4]
+    assert step_thermal_cuda.MODES == ("bgk", "smagorinsky")
+    assert step_cuda.mode_defines("smagorinsky") == ("-DTPULBM_COLLISION=5",)
+    src = (cuda_build.SOURCE_DIR / "step_thermal.cu").read_text()
+    assert "tpulbm::kMode == tpulbm::kSmagorinsky" in src
+    # on the CPU the wrapper runs the plain LES step and counts no launch
+    step_cuda.reset_launch_counts()
+    step = step_thermal_cuda.make_local_step_thermal_cuda(les, "cpu")
+    s = torch.from_numpy(les.initial_state())
+    assert torch.equal(step(s, torch.empty_like(s)),
+                       step_thermal.make_step_thermal(les, "cpu")(s))
+    assert step_thermal_cuda.collide_stream_thermal.launches_by_mode == {
+        "bgk": 0, "smagorinsky": 0}
+    # the other collisions are refused before a Problem is built, by the
+    # check that validate_params shares
+    with pytest.raises(ValueError, match="thermal"):
+        check_collision(les.params.replace(collision="trt"))
 
 
 def test_thermal_chunk_ignores_forced_depth(monkeypatch):
@@ -305,6 +394,9 @@ RUNNER_CASES = {
     # Nu is held at atol 1e-4.
     "f32": (dict(precision="f32", backend="pallas"),
             dict(rtol=1e-5, atol=5e-6), dict(rtol=0.0, atol=1e-4)),
+    # the same under the Smagorinsky closure, Cs 0.17
+    "les_f32": (dict(precision="f32", backend="pallas", smagorinsky=0.17),
+                dict(rtol=1e-5, atol=5e-6), dict(rtol=0.0, atol=1e-4)),
 }
 
 

@@ -425,6 +425,51 @@ def params_from_args(args: argparse.Namespace) -> SimulationParams:
     return params
 
 
+def check_collision(params: SimulationParams) -> None:
+    """Reject the collision combinations tpulbm refuses: KBC in 3-D; a
+    thermal problem (a thermal_tau, or a thermal problem name) under
+    anything but BGK, with or without the Smagorinsky closure; the closure
+    or the power law off BGK, or both at once; the power law with a
+    thermal scalar; multiphase under anything but plain BGK.
+    validate_params and the problem builders (models.check_slice) both
+    call it."""
+    thermal = bool(params.thermal_tau) or params.problem in (
+        "rayleigh-benard", "heated-cavity")
+    if params.collision == "kbc" and params.is_3d:
+        raise ValueError(
+            "the KBC entropic operator is implemented for D2Q9 (2-D) "
+            "only; use collision='regularized' for stabilized 3-D runs")
+    if thermal and params.collision != "bgk":
+        raise ValueError(
+            "thermal (double-population) problems implement collision="
+            f"'bgk' (+ --smagorinsky) only, got {params.collision!r}; "
+            "the scalar coupling is not wired into the other operators")
+    if params.smagorinsky and params.collision != "bgk":
+        raise ValueError(
+            "the Smagorinsky closure is implemented for collision="
+            f"'bgk' only (got {params.collision!r}); TRT/MRT would "
+            "need their own per-cell rate plumbing")
+    if params.power_law_n != 1.0:
+        if params.collision != "bgk":
+            raise ValueError(
+                "power-law rheology is implemented for collision='bgk' "
+                f"only (got {params.collision!r})")
+        if params.smagorinsky:
+            raise ValueError(
+                "power-law rheology and the Smagorinsky closure both set "
+                "a per-cell relaxation rate; enable at most one")
+        if thermal:
+            raise ValueError(
+                "power-law rheology is not wired into the thermal "
+                "(rayleigh-benard) kernels")
+    if params.problem == "multiphase" and (
+            params.collision != "bgk" or params.smagorinsky
+            or params.power_law_n != 1.0 or params.thermal_tau):
+        raise ValueError(
+            "multiphase v1 is BGK-only (no TRT/MRT/LES/power-law/"
+            "thermal combination)")
+
+
 def validate_params(params: SimulationParams) -> None:
     """Reject option combinations that would silently no-op.
 
@@ -450,40 +495,13 @@ def validate_params(params: SimulationParams) -> None:
         raise ValueError(
             "--mrt-rates only applies to collision='mrt', not "
             f"{params.collision!r}")
-    if params.collision == "kbc" and params.is_3d:
+    if params.smagorinsky < 0:
         raise ValueError(
-            "the KBC entropic operator is implemented for D2Q9 (2-D) "
-            "only; use collision='regularized' for stabilized 3-D runs")
-    if params.thermal_tau and params.collision != "bgk":
+            f"smagorinsky (Cs) must be >= 0, got {params.smagorinsky}")
+    if params.power_law_n <= 0:
         raise ValueError(
-            "thermal (double-population) problems implement collision="
-            f"'bgk' (+ --smagorinsky) only, got {params.collision!r}; "
-            "the scalar coupling is not wired into the other operators")
-    if params.smagorinsky:
-        if params.smagorinsky < 0:
-            raise ValueError(
-                f"smagorinsky (Cs) must be >= 0, got {params.smagorinsky}")
-        if params.collision != "bgk":
-            raise ValueError(
-                "the Smagorinsky closure is implemented for collision="
-                f"'bgk' only (got {params.collision!r}); TRT/MRT would "
-                "need their own per-cell rate plumbing")
-    if params.power_law_n != 1.0:
-        if params.power_law_n <= 0:
-            raise ValueError(
-                f"power_law_n must be > 0, got {params.power_law_n}")
-        if params.collision != "bgk":
-            raise ValueError(
-                "power-law rheology is implemented for collision='bgk' "
-                f"only (got {params.collision!r})")
-        if params.smagorinsky:
-            raise ValueError(
-                "power-law rheology and the Smagorinsky closure both set "
-                "a per-cell relaxation rate; enable at most one")
-        if params.thermal_tau:
-            raise ValueError(
-                "power-law rheology is not wired into the thermal "
-                "(rayleigh-benard) kernels")
+            f"power_law_n must be > 0, got {params.power_law_n}")
+    check_collision(params)
     if params.power_law_k < 0:
         raise ValueError(
             f"power_law_k must be >= 0, got {params.power_law_k}")
@@ -496,11 +514,6 @@ def validate_params(params: SimulationParams) -> None:
         if not params.shan_chen_g:
             raise ValueError("the multiphase problem needs --shan-chen-g "
                              "(g < -4 separates phases)")
-        if params.collision != "bgk" or params.smagorinsky \
-                or params.power_law_n != 1.0 or params.thermal_tau:
-            raise ValueError(
-                "multiphase v1 is BGK-only (no TRT/MRT/LES/power-law/"
-                "thermal combination)")
     elif params.shan_chen_g:
         raise ValueError(
             f"shan_chen_g only applies to problem='multiphase', not "

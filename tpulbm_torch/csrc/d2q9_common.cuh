@@ -5,7 +5,7 @@
 // these functions, so that N launches of the first and one launch of the
 // second run the same operations in the same order and give the same bits;
 // the thermal and multiphase kernels (step_thermal.cu, step_multiphase.cu)
-// reuse the moments and the BGK relaxation.
+// reuse the moments and the BGK and Smagorinsky relaxations.
 //
 // Rounding: the BGK relaxation follows the plain version
 // (tpulbm_torch/ops/step_torch.py); the other collisions follow the
@@ -15,40 +15,22 @@
 // -fmad=false, so no multiply and add are fused into one rounding, and
 // without fast math, so sqrtf, expf, logf and division stay IEEE.
 //
-// The collision is fixed when a library is built: -DTPULBM_COLLISION=<mode>
-// (ops/step_cuda.py builds one library per mode), BGK when it is unset.
+// The collision is fixed when a library is built (collision_modes.cuh).
 
 #pragma once
 
 #include <stdint.h>
 #include <string.h>
 
-#ifndef TPULBM_COLLISION
-#define TPULBM_COLLISION 0
-#endif
+#include "collision_modes.cuh"
 
 namespace tpulbm {
 
 constexpr int kQ = 9;
 
-// The collision modes, in the order ops/step_cuda.py's COLLISION_MODES
-// lists them.
-enum Collision : int {
-  kBGK = 0,
-  kTRT = 1,
-  kMRT = 2,
-  kRegularized = 3,
-  kKBC = 4,
-  kSmagorinsky = 5,
-  kPowerLaw = 6,
-};
-constexpr int kMode = TPULBM_COLLISION;
-static_assert(kMode >= kBGK && kMode <= kPowerLaw, "unknown collision mode");
-
 // MRT's rank-r correction, zero-padded to the largest D2Q9 rank (e, eps,
 // qx, qy: the non-conserved, non-shear moments)
 constexpr int kMrtRank = 4;
-constexpr int kPowerLawIters = 8;  // tpulbm physics.PLAW_ITERS
 
 // The collisions' coefficients, computed on the host in double precision
 // as tpulbm's _physics_cfg_fields computes them and rounded once to float
@@ -248,49 +230,42 @@ __device__ __forceinline__ void collide_kbc(float* f, const StepConsts& k) {
     f[i] = f[i] - k.m.kbc_two_beta * ds[i] - bg * dh[i];
 }
 
-// BGK at the per-cell Smagorinsky rate
-// 1/tau_eff = 2 / (tau0 + sqrt(tau0² + 18 Cs² Q̄ / rho)),
-// Q̄ = sqrt(2 (Pi_xx² + Pi_yy² + 2 Pi_xy²)).
-__device__ __forceinline__ void collide_smagorinsky(float* f,
-                                                    const StepConsts& k) {
-  const Moments m = moments_d2q9(f);
+// BGK of 9 populations at the per-cell Smagorinsky rate of
+// smagorinsky_inv_tau, Q̄ = sqrt(2 (Pi_xx² + Pi_yy² + 2 Pi_xy²)), in place;
+// the thermal kernel's LES build relaxes its flow planes with it too.
+__device__ __forceinline__ void relax_smagorinsky(float* f, const Moments& m,
+                                                  const float* w, float tau0,
+                                                  float tau0_sq, float coef) {
   float feq[kQ], dev[kQ];
-  deviations(f, m, k.w, feq, dev);
+  deviations(f, m, w, feq, dev);
   const Stress p = stress(dev);
-  const float inv_rho = 1.0f / m.rho;
   const float qbar = sqrtf(2.0f * (p.xx * p.xx + p.yy * p.yy +
                                    2.0f * (p.xy * p.xy)));
-  const float inv_t =
-      2.0f / (k.m.smag_tau0 +
-              sqrtf(k.m.smag_tau0_sq + k.m.smag_coef * qbar * inv_rho));
+  const float inv_t = smagorinsky_inv_tau(qbar, 1.0f / m.rho, tau0, tau0_sq,
+                                          coef);
 #pragma unroll
   for (int i = 0; i < kQ; ++i) f[i] = f[i] - inv_t * dev[i];
 }
 
-// BGK at the per-cell power-law rate: kPowerLawIters Newton steps on
-// lam = log(tau - 1/2) of lam + (n-1) log tau - log 3k - (n-1) log gfac,
-// gfac = 1.5 Q̄ / rho (floored at 1e-12), Q̄ summed as
-// Pi_xx² + 2 Pi_xy² + Pi_yy², each step clamped to [lam_lo, lam_hi].
+__device__ __forceinline__ void collide_smagorinsky(float* f,
+                                                    const StepConsts& k) {
+  relax_smagorinsky(f, moments_d2q9(f), k.w, k.m.smag_tau0, k.m.smag_tau0_sq,
+                    k.m.smag_coef);
+}
+
+// BGK at the per-cell power-law rate of power_law_inv_tau, Q̄ summed as
+// Pi_xx² + 2 Pi_xy² + Pi_yy².
 __device__ __forceinline__ void collide_power_law(float* f,
                                                   const StepConsts& k) {
   const Moments m = moments_d2q9(f);
   float feq[kQ], dev[kQ];
   deviations(f, m, k.w, feq, dev);
   const Stress p = stress(dev);
-  const float inv_rho = 1.0f / m.rho;
   const float qbar = sqrtf(2.0f * (p.xx * p.xx + 2.0f * (p.xy * p.xy) +
                                    p.yy * p.yy));
-  const float nm1 = k.m.plaw_nm1;
-  const float gl = logf(fmaxf(1.5f * qbar * inv_rho, 1e-12f));
-  float lam = 0.0f;
-#pragma unroll 1
-  for (int it = 0; it < kPowerLawIters; ++it) {
-    const float tau = 0.5f + expf(lam);
-    const float r = lam + nm1 * logf(tau) - k.m.plaw_log3k - nm1 * gl;
-    const float rp = 1.0f + nm1 * (tau - 0.5f) / tau;
-    lam = fminf(fmaxf(lam - r / rp, k.m.plaw_lam_lo), k.m.plaw_lam_hi);
-  }
-  const float inv_t = 1.0f / (0.5f + expf(lam));
+  const float inv_t = power_law_inv_tau(
+      1.5f * qbar * (1.0f / m.rho), k.m.plaw_nm1, k.m.plaw_log3k,
+      k.m.plaw_lam_lo, k.m.plaw_lam_hi);
 #pragma unroll
   for (int i = 0; i < kQ; ++i) f[i] = f[i] - inv_t * dev[i];
 }

@@ -1,18 +1,32 @@
 // The per-cell parts of a D3Q19 timestep that the port's 3-D kernels share,
-// float32: BGK collision, the pull with the reference's ghost rule, and the
-// boundary sequence of the sphere in a duct. step_d3q19.cu (one step per
-// launch) and step_d3q19_blocked.cu (N steps per launch) both build on these
-// functions, so that N launches of the first and one launch of the second
-// run the same operations in the same order and give the same bits.
+// float32: the collisions, the pull with the reference's ghost rule, and
+// the boundary sequence of the sphere in a duct. step_d3q19.cu (one step
+// per launch) and step_d3q19_blocked.cu (N steps per launch) both build on
+// these functions, so that N launches of the first and one launch of the
+// second run the same operations in the same order and give the same bits,
+// under every collision.
 //
-// Rounding follows the plain version (tpulbm_torch/ops/step_torch.py):
-// directions are summed in order, u = m * (1/rho) as tpulbm's
-// _collide_planes_core does, and the libraries are built with -fmad=false so
-// no multiply and add share one rounding.
+// Rounding: the BGK relaxation follows the plain version
+// (tpulbm_torch/ops/step_torch.py); the other collisions follow the
+// arithmetic of tpulbm's Pallas kernels
+// (tpulbm/ops/step_pallas3d.py::_collide_planes_core :140-358): MRT in
+// rank-r form, TRT in its closed form, the six Pi_ab summed over the
+// velocity table, so kernel and plain version agree at float32 rounding,
+// not bitwise. Directions are summed in order, u = m * (1/rho), and the
+// libraries are built with -fmad=false, so no multiply and add share one
+// rounding, and without fast math, so sqrtf, expf, logf and division stay
+// IEEE.
+//
+// The collision is fixed when a library is built (collision_modes.cuh):
+// BGK, TRT, MRT, regularized, Smagorinsky or the power law. tpulbm has no
+// 3-D KBC.
 
 #pragma once
 
 #include <stdint.h>
+#include <string.h>
+
+#include "collision_modes.cuh"
 
 // The D3Q19 velocity set in tpulbm.lattice.D3Q19's order:
 // X(index, cx, cy, cz, opposite). tests/test_torch_3d.py parses this table
@@ -49,6 +63,13 @@
 namespace tpulbm3d {
 
 constexpr int kQ = 19;
+using tpulbm::kMode;
+static_assert(kMode != tpulbm::kKBC, "tpulbm's KBC operator is 2-D only");
+
+// MRT's rank-r correction, zero-padded to the largest D3Q19 rank: only the
+// ten ghost moments (e, eps, qx, qy, qz, pixx, piww, mx, my, mz) can relax
+// at another rate than 1/tau
+constexpr int kMrtRank = 10;
 
 // Population index I as a type, so that a pull's callee sees it as a
 // constant expression: Pop<I>::value.
@@ -57,24 +78,51 @@ struct Pop {
   static constexpr int value = I;
 };
 
+// The collisions' coefficients, computed on the host in double precision
+// as tpulbm's 3-D builders compute them (step_pallas3d.py:408-434) and
+// rounded once to float (ops/step_cuda.py::mode_floats_3d writes them in
+// this order). A mode reads only its own, with compile-time indices, so
+// they stay in the parameter space.
+struct ModeConsts {
+  float trt_hp, trt_hm;             // TRT: 0.5/tau and 0.5·ω⁻
+  float mrt_u[kQ][kMrtRank];        // MRT: U (Q x r) and V (r x Q)
+  float mrt_v[kMrtRank][kQ];
+  float reg_keep;                   // regularized: 1 - 1/tau, and the shell
+  float reg_diag[3][kQ];            // 4.5 w_i (c_ia² - 1/3), a = x, y, z
+  float reg_off[3][kQ];             // 9 w_i c_ia c_ib, ab = xy, xz, yz
+  float smag_tau0, smag_tau0_sq, smag_coef;  // Smagorinsky: 18 Cs^2
+  float plaw_nm1, plaw_log3k, plaw_lam_lo, plaw_lam_hi;  // power law
+};
+
+constexpr int kModeFloats = sizeof(ModeConsts) / sizeof(float);
+static_assert(sizeof(ModeConsts) == kModeFloats * sizeof(float),
+              "ModeConsts holds floats only");
+
 struct Consts {
   float inv_tau;    // 1 / tau
   float eq_in[kQ];  // frozen ghost and inlet equilibrium(rho=1, u=(U,0,0))
   float w[kQ];      // lattice weights: the rest equilibrium of solids
+  ModeConsts m;
 };
 
-inline Consts make_consts(float inv_tau, const float* eq_in, const float* w) {
+inline Consts make_consts(float inv_tau, const float* eq_in, const float* w,
+                          const float* mode) {
   Consts k;
   k.inv_tau = inv_tau;
   for (int i = 0; i < kQ; ++i) {
     k.eq_in[i] = eq_in[i];
     k.w[i] = w[i];
   }
+  memcpy(&k.m, mode, sizeof(ModeConsts));
   return k;
 }
 
-// BGK relaxation of one cell's 19 populations, in place.
-__device__ __forceinline__ void collide_bgk(float* f, const Consts& k) {
+// Density and velocity of one cell's 19 populations.
+struct Moments {
+  float rho, inv_rho, ux, uy, uz;
+};
+
+__device__ __forceinline__ Moments moments_d3q19(const float* f) {
   float rho = f[0];
 #pragma unroll
   for (int i = 1; i < kQ; ++i) rho = rho + f[i];
@@ -86,23 +134,182 @@ __device__ __forceinline__ void collide_bgk(float* f, const Consts& k) {
   TPULBM_D3Q19(TPULBM_MOMENT)
 #undef TPULBM_MOMENT
   const float inv_rho = 1.0f / rho;
-  const float ux = mx * inv_rho;
-  const float uy = my * inv_rho;
-  const float uz = mz * inv_rho;
-  const float base = 1.0f - 1.5f * (ux * ux + uy * uy + uz * uz);
+  return {rho, inv_rho, mx * inv_rho, my * inv_rho, mz * inv_rho};
+}
+
+__device__ __forceinline__ float base_of(const Moments& m) {
+  return 1.0f - 1.5f * (m.ux * m.ux + m.uy * m.uy + m.uz * m.uz);
+}
+
+// c_i . u as exact +-adds, for the population of the X-macro row in scope
+#define TPULBM_CU(cu, cx, cy, cz, m) \
+  float cu = 0.0f;                   \
+  TPULBM_SIGNED_ADD(cu, cx, m.ux)    \
+  TPULBM_SIGNED_ADD(cu, cy, m.uy)    \
+  TPULBM_SIGNED_ADD(cu, cz, m.uz)
+
+// BGK relaxation of one cell's 19 populations, in place.
+__device__ __forceinline__ void collide_bgk(float* f, const Consts& k) {
+  const Moments m = moments_d3q19(f);
+  const float rho = m.rho;
+  const float base = base_of(m);
   f[0] = f[0] - k.inv_tau * (f[0] - k.w[0] * rho * base);
 #define TPULBM_RELAX(i, cx, cy, cz, o)                               \
   if ((i) > 0) {                                                     \
-    float cu = 0.0f;                                                 \
-    TPULBM_SIGNED_ADD(cu, cx, ux)                                    \
-    TPULBM_SIGNED_ADD(cu, cy, uy)                                    \
-    TPULBM_SIGNED_ADD(cu, cz, uz)                                    \
+    TPULBM_CU(cu, cx, cy, cz, m)                                     \
     const float feq =                                                \
         k.w[i] * rho * (base + 3.0f * cu + 4.5f * cu * cu);          \
     f[i] = f[i] - k.inv_tau * (f[i] - feq);                          \
   }
   TPULBM_D3Q19(TPULBM_RELAX)
 #undef TPULBM_RELAX
+}
+
+// The non-equilibrium parts dev_i = f_i - feq_i, feq as collide_bgk and
+// the Pallas kernel compute it.
+__device__ __forceinline__ void deviations(const float* f, const Moments& m,
+                                           const float* w, float* dev) {
+  const float base = base_of(m);
+  dev[0] = f[0] - w[0] * m.rho * base;
+#define TPULBM_DEV(i, cx, cy, cz, o)                                      \
+  if ((i) > 0) {                                                          \
+    TPULBM_CU(cu, cx, cy, cz, m)                                          \
+    dev[i] = f[i] - w[i] * m.rho * (base + 3.0f * cu + 4.5f * cu * cu);   \
+  }
+  TPULBM_D3Q19(TPULBM_DEV)
+#undef TPULBM_DEV
+}
+
+// The non-equilibrium momentum flux Pi_ab = sum_i c_ia c_ib dev_i, each
+// summed over i in order.
+struct Stress {
+  float xx, xy, xz, yy, yz, zz;
+};
+
+__device__ __forceinline__ Stress stress(const float* d) {
+  Stress p = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+#define TPULBM_PI(i, cx, cy, cz, o)          \
+  TPULBM_SIGNED_ADD(p.xx, (cx) * (cx), d[i]) \
+  TPULBM_SIGNED_ADD(p.xy, (cx) * (cy), d[i]) \
+  TPULBM_SIGNED_ADD(p.xz, (cx) * (cz), d[i]) \
+  TPULBM_SIGNED_ADD(p.yy, (cy) * (cy), d[i]) \
+  TPULBM_SIGNED_ADD(p.yz, (cy) * (cz), d[i]) \
+  TPULBM_SIGNED_ADD(p.zz, (cz) * (cz), d[i])
+  TPULBM_D3Q19(TPULBM_PI)
+#undef TPULBM_PI
+  return p;
+}
+
+// Q̄ = sqrt(2 Σ_ab w_ab Pi_ab²), off-diagonal pairs twice, summed over
+// (a, b) = xx, xy, xz, yy, yz, zz as the Pallas kernel sums it.
+__device__ __forceinline__ float stress_norm(const Stress& p) {
+  return sqrtf(2.0f * (p.xx * p.xx + 2.0f * (p.xy * p.xy) +
+                       2.0f * (p.xz * p.xz) + p.yy * p.yy +
+                       2.0f * (p.yz * p.yz) + p.zz * p.zz));
+}
+
+// TRT in the Pallas kernel's closed form: feq_i ± feq_opp(i) is
+// 2 w rho (base + 4.5 cu²) and 6 w rho cu.
+__device__ __forceinline__ void collide_trt(float* f, const Consts& k) {
+  const Moments m = moments_d3q19(f);
+  const float rho = m.rho;
+  const float base = base_of(m);
+  float out[kQ];
+  out[0] = f[0] - k.inv_tau * (f[0] - k.w[0] * rho * base);
+#define TPULBM_TRT(i, cx, cy, cz, o)                                        \
+  if ((i) > 0) {                                                            \
+    TPULBM_CU(cu, cx, cy, cz, m)                                            \
+    const float wr = k.w[i] * rho;                                          \
+    const float even = (f[i] + f[o]) - 2.0f * wr * (base + 4.5f * cu * cu); \
+    const float odd = (f[i] - f[o]) - 6.0f * wr * cu;                       \
+    out[i] = f[i] - k.m.trt_hp * even - k.m.trt_hm * odd;                   \
+  }
+  TPULBM_D3Q19(TPULBM_TRT)
+#undef TPULBM_TRT
+#pragma unroll
+  for (int i = 0; i < kQ; ++i) f[i] = out[i];
+}
+
+// MRT in rank-r form: f - dev/tau - sum_r U[:,r] (V[r] . dev). The padded
+// ranks and the zeros Pallas skips add 0·x, which leaves every finite value
+// as it is.
+__device__ __forceinline__ void collide_mrt(float* f, const Consts& k) {
+  float dev[kQ];
+  deviations(f, moments_d3q19(f), k.w, dev);
+  float t[kMrtRank];
+#pragma unroll
+  for (int r = 0; r < kMrtRank; ++r) {
+    t[r] = k.m.mrt_v[r][0] * dev[0];
+#pragma unroll
+    for (int j = 1; j < kQ; ++j) t[r] = t[r] + k.m.mrt_v[r][j] * dev[j];
+  }
+#pragma unroll
+  for (int i = 0; i < kQ; ++i) {
+    float fp = f[i] - k.inv_tau * dev[i];
+#pragma unroll
+    for (int r = 0; r < kMrtRank; ++r) fp = fp - k.m.mrt_u[i][r] * t[r];
+    f[i] = fp;
+  }
+}
+
+// Regularized BGK: the deviation replaced by its second-order Hermite
+// projection (9/2) w_i Q_i:Pi before relaxing.
+__device__ __forceinline__ void collide_regularized(float* f,
+                                                    const Consts& k) {
+  float dev[kQ];
+  deviations(f, moments_d3q19(f), k.w, dev);
+  const Stress p = stress(dev);
+#pragma unroll
+  for (int i = 0; i < kQ; ++i) {
+    const float proj = k.m.reg_diag[0][i] * p.xx + k.m.reg_diag[1][i] * p.yy +
+                       k.m.reg_diag[2][i] * p.zz + k.m.reg_off[0][i] * p.xy +
+                       k.m.reg_off[1][i] * p.xz + k.m.reg_off[2][i] * p.yz;
+    f[i] = (f[i] - dev[i]) + k.m.reg_keep * proj;
+  }
+}
+
+// BGK at the per-cell Smagorinsky rate (tpulbm::smagorinsky_inv_tau).
+__device__ __forceinline__ void collide_smagorinsky(float* f,
+                                                    const Consts& k) {
+  const Moments m = moments_d3q19(f);
+  float dev[kQ];
+  deviations(f, m, k.w, dev);
+  const float inv_t =
+      tpulbm::smagorinsky_inv_tau(stress_norm(stress(dev)), m.inv_rho,
+                                  k.m.smag_tau0, k.m.smag_tau0_sq,
+                                  k.m.smag_coef);
+#pragma unroll
+  for (int i = 0; i < kQ; ++i) f[i] = f[i] - inv_t * dev[i];
+}
+
+// BGK at the per-cell power-law rate (tpulbm::power_law_inv_tau).
+__device__ __forceinline__ void collide_power_law(float* f, const Consts& k) {
+  const Moments m = moments_d3q19(f);
+  float dev[kQ];
+  deviations(f, m, k.w, dev);
+  const float inv_t = tpulbm::power_law_inv_tau(
+      1.5f * stress_norm(stress(dev)) * m.inv_rho, k.m.plaw_nm1,
+      k.m.plaw_log3k, k.m.plaw_lam_lo, k.m.plaw_lam_hi);
+#pragma unroll
+  for (int i = 0; i < kQ; ++i) f[i] = f[i] - inv_t * dev[i];
+}
+
+// One cell's collision in the library's mode, in place. The BGK case is
+// the relaxation every earlier build of these kernels ran.
+__device__ __forceinline__ void collide(float* f, const Consts& k) {
+  if constexpr (kMode == tpulbm::kBGK) {
+    collide_bgk(f, k);
+  } else if constexpr (kMode == tpulbm::kTRT) {
+    collide_trt(f, k);
+  } else if constexpr (kMode == tpulbm::kMRT) {
+    collide_mrt(f, k);
+  } else if constexpr (kMode == tpulbm::kRegularized) {
+    collide_regularized(f, k);
+  } else if constexpr (kMode == tpulbm::kSmagorinsky) {
+    collide_smagorinsky(f, k);
+  } else {
+    collide_power_law(f, k);
+  }
 }
 
 // Pull g_i(x, y, z) = f_post_i((x, y, z) - c_i) with the reference's ghost

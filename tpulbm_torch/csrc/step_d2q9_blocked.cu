@@ -242,10 +242,9 @@ extern "C" int tpulbm_d2q9_blocked_smem_bytes(int n_sub) {
   }
 }
 
-// The library's collision mode (tpulbm::Collision) and the floats of its
-// mode coefficients, which the caller's array must hold.
-extern "C" int tpulbm_d2q9_mode() { return tpulbm::kMode; }
-extern "C" int tpulbm_d2q9_mode_floats() { return tpulbm::kModeFloats; }
+// The floats of the library's mode coefficients, which the caller's array
+// must hold (its mode: collision_modes.cuh's tpulbm_collision_mode).
+extern "C" int tpulbm_mode_floats() { return tpulbm::kModeFloats; }
 
 extern "C" const char* tpulbm_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -1,12 +1,14 @@
 // One fused D3Q19 timestep on an NVIDIA Hopper GPU (sm_90a), float32:
-// BGK collide -> pull-stream -> ghost sanitize -> y walls -> z walls ->
+// collide -> pull-stream -> ghost sanitize -> y walls -> z walls ->
 // equilibrium inlet -> zero-gradient outlet -> obstacle pin. The flow past
 // a sphere in a duct (problem "cylinder3d").
 //
 // Replaces tpulbm/ops/step_pallas3d.py::make_local_step_pallas3d (:370, the
 // full-plane 1-step Pallas TPU kernel) and ::make_local_step_pallas3d_tiled
-// (:745) at n_sub=1 (its y-tiled 1-step form), for the BGK collision and
-// the equilibrium obstacle. Both compute one step of
+// (:745) at n_sub=1 (its y-tiled 1-step form), for the equilibrium
+// obstacle and each collision of _collide_planes_core (BGK, TRT, MRT,
+// regularized, Smagorinsky, power law; one library per collision, built
+// with -DTPULBM_COLLISION). Both compute one step of
 // tpulbm/ops/step_jax.py::make_step_rolled; so does this kernel, cell by
 // cell. Its plain version is tpulbm_torch/ops/step_torch.py.
 //
@@ -17,9 +19,10 @@
 //
 // What bounds it: device-memory traffic. A step reads and writes the 19
 // populations of every cell once and reads a 1-byte mask, 153 B per cell,
-// against about 300 floating-point operations per cell; at 256^3 that is
-// 2.57 GB per step, 0.766 ms at 3.35 TB/s. So each population should cross
-// device memory once each way.
+// against about 260 floating-point operations per cell under BGK (MRT,
+// the heaviest, about 1,000); at 256^3 that is 2.57 GB per step, 0.766 ms
+// at 3.35 TB/s. So each population should cross device memory once each
+// way.
 //
 // Design: a block owns a 32 x kBY (x, y) column of cells and marches
 // along z over kZChunk planes. A ring of three collided planes (z-1, z,
@@ -74,7 +77,7 @@ __device__ __forceinline__ int ring_index(int i, int ly, int lx) {
 __global__ void __launch_bounds__(kBX * kBY)
     d3q19_step_kernel(const float* __restrict__ f, float* __restrict__ out,
                       const uint8_t* __restrict__ solid, int nx, int ny,
-                      int nz, Consts k) {
+                      int nz, const __grid_constant__ Consts k) {
   extern __shared__ float ring[];  // 3 collided planes (tile + halo)
 
   const int tx = threadIdx.x;
@@ -103,7 +106,7 @@ __global__ void __launch_bounds__(kBX * kBY)
       float v[kQ];
 #pragma unroll
       for (int i = 0; i < kQ; ++i) v[i] = f[i * pop + cell];
-      tpulbm3d::collide_bgk(v, k);
+      tpulbm3d::collide(v, k);
 #pragma unroll
       for (int i = 0; i < kQ; ++i) r[ring_index(i, ly, lx)] = v[i];
     }
@@ -153,14 +156,15 @@ __global__ void __launch_bounds__(kBX * kBY)
 extern "C" int tpulbm_d3q19_step(const float* f, float* out,
                                  const uint8_t* solid, int nx, int ny, int nz,
                                  float inv_tau, const float* eq_in,
-                                 const float* w, int device, void* stream) {
+                                 const float* w, const float* mode,
+                                 int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(d3q19_step_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kRingBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Consts k = tpulbm3d::make_consts(inv_tau, eq_in, w);
+  const Consts k = tpulbm3d::make_consts(inv_tau, eq_in, w, mode);
   const dim3 block(kBX, kBY);
   const dim3 grid((nx + kBX - 1) / kBX, (ny + kBY - 1) / kBY,
                   (nz + kZChunk - 1) / kZChunk);
@@ -172,6 +176,10 @@ extern "C" int tpulbm_d3q19_step(const float* f, float* out,
 
 // The dynamic shared memory a block of the kernel takes, in bytes.
 extern "C" int tpulbm_d3q19_smem_bytes() { return kRingBytes; }
+
+// The floats of the library's mode coefficients, which the caller's array
+// must hold (its mode: collision_modes.cuh's tpulbm_collision_mode).
+extern "C" int tpulbm_mode_floats() { return tpulbm3d::kModeFloats; }
 
 extern "C" const char* tpulbm_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

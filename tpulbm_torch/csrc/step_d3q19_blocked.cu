@@ -1,13 +1,15 @@
 // N fused D3Q19 timesteps per launch (temporal blocking) on an NVIDIA Hopper
 // GPU (sm_90a), float32, N = 2 or 3. Each substep is the 1-step kernel's
-// sequence (step_d3q19.cu): BGK collide -> pull-stream with the ghost rule
-// -> y walls -> z walls -> equilibrium inlet -> zero-gradient outlet ->
+// sequence (step_d3q19.cu): collide -> pull-stream with the ghost rule ->
+// y walls -> z walls -> equilibrium inlet -> zero-gradient outlet ->
 // obstacle pin. The flow past a sphere in a duct (problem "cylinder3d").
 //
 // Replaces tpulbm/ops/step_pallas3d.py::make_local_step_pallas3d_tiled
 // (:745) at n_sub = 2 and 3, the y-tiled z-plane cascade that tpulbm's
 // one-device 3-D dispatch runs by default (parallel/sharded_step.py:175-198),
-// for the BGK collision and the equilibrium obstacle. Its plain version is
+// for the equilibrium obstacle and each collision of its
+// _collide_planes_core (one library per collision, -DTPULBM_COLLISION, as
+// step_d3q19.cu). Its plain version is
 // N applications of tpulbm_torch/ops/step_torch.py's step.
 //
 // What bounds it: a launch moves the 153 B per cell of one step through
@@ -181,11 +183,11 @@ __device__ __forceinline__ void store_ring(float* ring, const Slots& s, int at,
 #undef TPULBM_STORE
 }
 
-// What every stage of a block shares.
+// What every stage of a block shares, beside the constants (read where
+// they lie, in the kernel's parameters).
 struct March {
   int nx, ny, nz;
   int x0, y0, z0, z1;  // the output tile's origin, its z-planes [z0, z1)
-  Consts k;
 };
 
 // Stage K (0 < K < N) at march step m: plane m - K of the state after K
@@ -193,7 +195,7 @@ struct March {
 // stepped and collided into stage K's ring; then the barrier.
 template <int N, int K>
 __device__ __forceinline__ void inner_stages(float* smem, const March& g,
-                                             int m) {
+                                             const Consts& k, int m) {
   if constexpr (K < N) {
     using T = Tile<N>;
     constexpr int W = T::width(K);
@@ -230,7 +232,7 @@ __device__ __forceinline__ void inner_stages(float* smem, const March& g,
           const int at0 = (ly + K) * W0 + lx + K;    // and in stage 0
           tpulbm3d::step_cell(
               v[j], [&](int ox) { return mask[at0 + ox] != 0; }, x, y, p,
-              g.nx, g.ny, g.nz, g.k, [&](auto i, int ox, int oy, int oz) {
+              g.nx, g.ny, g.nz, k, [&](auto i, int ox, int oy, int oz) {
                 return src[ring_at<decltype(i)::value, Cs>(rd) + at +
                            oy * Ws + ox];
               });
@@ -239,13 +241,13 @@ __device__ __forceinline__ void inner_stages(float* smem, const March& g,
 #pragma unroll
       for (int j = 0; j < J; ++j) {
         if (in[j]) {
-          tpulbm3d::collide_bgk(v[j], g.k);
+          tpulbm3d::collide(v[j], k);
           store_ring<C>(dst, wr, threadIdx.x + j * T::kThreads, v[j]);
         }
       }
     }
     __syncthreads();
-    inner_stages<N, K + 1>(smem, g, m);
+    inner_stages<N, K + 1>(smem, g, k, m);
   }
 }
 
@@ -253,7 +255,7 @@ template <int N>
 __global__ void __launch_bounds__(kBX * kBY)
     d3q19_blocked_kernel(const float* __restrict__ f, float* __restrict__ out,
                          const uint8_t* __restrict__ solid, int nx, int ny,
-                         int nz, Consts k) {
+                         int nz, const __grid_constant__ Consts k) {
   using T = Tile<N>;
   extern __shared__ float smem[];  // the rings of stages 0 .. N-1, the mask
 
@@ -265,7 +267,6 @@ __global__ void __launch_bounds__(kBX * kBY)
   g.y0 = static_cast<int>(blockIdx.y) * kBY;
   g.z0 = static_cast<int>(blockIdx.z) * kZChunk;
   g.z1 = g.z0 + kZChunk < nz ? g.z0 + kZChunk : nz;
-  g.k = k;
   const size_t plane = static_cast<size_t>(nx) * ny;
   const size_t pop = plane * nz;  // cells per population plane
   const int tid = threadIdx.x;
@@ -313,13 +314,13 @@ __global__ void __launch_bounds__(kBX * kBY)
 #pragma unroll
       for (int j = 0; j < J; ++j) {
         if (in[j]) {
-          tpulbm3d::collide_bgk(v[j], k);
+          tpulbm3d::collide(v[j], k);
           store_ring<C0>(smem, wr, tid + j * T::kThreads, v[j]);
         }
       }
     }
     __syncthreads();
-    inner_stages<N, 1>(smem, g, m);
+    inner_stages<N, 1>(smem, g, k, m);
     // stage N: plane m - N of the tile, stored
     const int p = m - N;
     if (active && p >= g.z0 && p < g.z1) {
@@ -369,10 +370,11 @@ extern "C" int tpulbm_d3q19_step_blocked(const float* f, float* out,
                                          const uint8_t* solid, int nx, int ny,
                                          int nz, int n_sub, float inv_tau,
                                          const float* eq_in, const float* w,
-                                         int device, void* stream) {
+                                         const float* mode, int device,
+                                         void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Consts k = tpulbm3d::make_consts(inv_tau, eq_in, w);
+  const Consts k = tpulbm3d::make_consts(inv_tau, eq_in, w, mode);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_sub) {
     case 2: err = launch<2>(f, out, solid, nx, ny, nz, k, s); break;
@@ -391,6 +393,10 @@ extern "C" int tpulbm_d3q19_blocked_smem_bytes(int n_sub) {
     default: return -1;
   }
 }
+
+// The floats of the library's mode coefficients, which the caller's array
+// must hold (its mode: collision_modes.cuh's tpulbm_collision_mode).
+extern "C" int tpulbm_mode_floats() { return tpulbm3d::kModeFloats; }
 
 extern "C" const char* tpulbm_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -6,7 +6,10 @@
 //
 // Replaces tpulbm/ops/step_thermal_pallas.py::make_local_step_thermal_pallas
 // (:147, the fused 1-step thermal Pallas TPU kernel) on one full-width
-// device, for BGK. Both compute one step of
+// device, for BGK and, built with -DTPULBM_COLLISION=5, its Smagorinsky
+// LES branch (_collide_thermal_rows :100-124: the flow planes relax at the
+// per-cell rate, then the buoyancy source; g as under BGK). Both compute
+// one step of
 // tpulbm/ops/step_thermal.py::make_step_thermal; so does this kernel, cell
 // by cell. Its plain version is tpulbm_torch/ops/step_thermal.py.
 //
@@ -88,6 +91,9 @@ struct ThermalConsts {
   float inv_tau_g;          // 1 / tau_g
   float buoyancy;           // beta g; 0 turns the source off
   float t_ref;              // (T_bottom + T_top) / 2
+  float smag_tau0;          // Smagorinsky (the LES build): tau0, tau0²
+  float smag_tau0_sq;
+  float smag_coef;          // 18 Cs²
   float w[kQs];             // D2Q9 weights, then D2Q5 weights
   float w3[kQf];            // 3 w_i: the buoyancy source per unit force
   float ghost_bottom[kQs];  // frozen ghost value below y = 0, per plane
@@ -105,15 +111,24 @@ __device__ __forceinline__ int wrap(int v, int n) {
   return v < 0 ? v + n : v;
 }
 
+static_assert(tpulbm::kMode == tpulbm::kBGK ||
+                  tpulbm::kMode == tpulbm::kSmagorinsky,
+              "the thermal kernel runs BGK or the Smagorinsky closure");
+
 // Thermal collision of one cell's 14 populations, in place (tpulbm's
-// _collide_thermal_rows for BGK).
+// _collide_thermal_rows).
 __device__ __forceinline__ void collide_thermal(float* v,
                                                 const ThermalConsts& k) {
   const tpulbm::Moments m = tpulbm::moments_d2q9(v);
   float T = v[kQf];
 #pragma unroll
   for (int i = kQf + 1; i < kQs; ++i) T = T + v[i];
-  tpulbm::relax_bgk(v, m, k.inv_tau, k.w);
+  if constexpr (tpulbm::kMode == tpulbm::kSmagorinsky) {
+    tpulbm::relax_smagorinsky(v, m, k.w, k.smag_tau0, k.smag_tau0_sq,
+                              k.smag_coef);
+  } else {
+    tpulbm::relax_bgk(v, m, k.inv_tau, k.w);
+  }
   if (k.buoyancy != 0.0f) {
     // f_i += 3 w_i c_i,axis * buoyancy (T - t_ref), c_i,axis = +-1 or 0
     const float fy = k.buoyancy * (T - k.t_ref);
@@ -221,7 +236,8 @@ __global__ void __launch_bounds__(kBX * kBY)
 // Plain C interface, loaded with ctypes (tpulbm_torch/ops/step_thermal_cuda.py).
 // Launches one step of the (14, ny, nx) state `s` into `out` on `stream` and
 // returns cudaGetLastError(): it neither synchronizes nor allocates.
-// scalars = {1/tau, 1/tau_g, buoyancy, t_ref}; w (14), w3 (9),
+// scalars = {1/tau, 1/tau_g, buoyancy, t_ref, tau0, tau0², 18 Cs²} (the
+// last three read by the LES build only); w (14), w3 (9),
 // ghost_bottom (14), ghost_top (14), wall_bottom (5), wall_top (5) as in
 // ThermalConsts.
 extern "C" int tpulbm_thermal_step(const float* s, float* out, int nx, int ny,
@@ -239,6 +255,9 @@ extern "C" int tpulbm_thermal_step(const float* s, float* out, int nx, int ny,
   k.inv_tau_g = scalars[1];
   k.buoyancy = scalars[2];
   k.t_ref = scalars[3];
+  k.smag_tau0 = scalars[4];
+  k.smag_tau0_sq = scalars[5];
+  k.smag_coef = scalars[6];
   for (int i = 0; i < kQs; ++i) {
     k.w[i] = w[i];
     k.ghost_bottom[i] = ghost_bottom[i];

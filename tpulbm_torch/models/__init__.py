@@ -1,11 +1,13 @@
 """Problem builders. The port covers the 2-D D2Q9 cylinder under every
 collision operator (BGK, TRT, MRT, regularized, KBC, Smagorinsky, power
-law) with either Zou-He corner rule, the 3-D D3Q19 BGK sphere in a duct
-(both with the equilibrium obstacle), the 2-D thermal problems
-(Rayleigh-Bénard and the side-heated cavity, BGK) and the Shan-Chen
-multiphase channel (droplet or band, BGK); every other configuration
-raises NotImplementedError naming the ROADMAP item (Queue 1) that will
-port it."""
+law) with either Zou-He corner rule, the 3-D D3Q19 sphere in a duct under
+each of those but KBC (both with the equilibrium obstacle), the 2-D
+thermal problems (Rayleigh-Bénard and the side-heated cavity, BGK or the
+Smagorinsky closure) and the Shan-Chen multiphase channel (droplet or
+band, BGK); every other configuration raises NotImplementedError naming
+the ROADMAP item (Queue 1) that will port it, and the combinations tpulbm
+itself refuses (KBC in 3-D) raise its ValueError."""
+from ..config import check_collision
 from .base import Problem
 from . import cylinder, cylinder3d, multiphase, rayleigh_benard
 
@@ -35,7 +37,8 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 def check_slice(params) -> None:
-    """Raise NotImplementedError for physics outside the ported slices."""
+    """Raise NotImplementedError for physics outside the ported slices,
+    and tpulbm's ValueError for the combinations tpulbm refuses."""
     if params.problem in _PROBLEM_ITEMS:
         raise _not_ported(f"problem={params.problem!r}",
                           _PROBLEM_ITEMS[params.problem])
@@ -46,20 +49,10 @@ def check_slice(params) -> None:
         raise _not_ported("a 3-D cylinder (nz > 0)", three_d)
     if params.problem == "cylinder3d" and params.lattice3d != "d3q19":
         raise _not_ported(f"lattice3d={params.lattice3d!r}", three_d)
-    # the 2-D cylinder runs every collision operator and the clean corners;
-    # the other problems run BGK
-    if params.problem != "cylinder":
-        ops = ("Queue 1 item 11 (collision operators, 3-D)"
-               if params.problem == "cylinder3d"
-               else "Queue 1 item 11 (collision operators)")
-        if params.collision != "bgk":
-            raise _not_ported(f"collision={params.collision!r}", ops)
-        if params.smagorinsky:
-            raise _not_ported("the Smagorinsky LES closure"
-                              + (" of the thermal step"
-                                 if params.problem in _THERMAL else ""), ops)
-        if params.power_law_n != 1.0:
-            raise _not_ported("power-law rheology", ops)
+    # the cylinders run every collision operator tpulbm runs for them, the
+    # thermal problems BGK and the Smagorinsky closure, multiphase BGK:
+    # the rest raise tpulbm's own errors
+    check_collision(params)
     if (params.problem in _THERMAL + ("multiphase",)
             and tuple(params.mesh_shape) != (1, 1)):
         kind = "multiphase" if params.problem == "multiphase" else "thermal"

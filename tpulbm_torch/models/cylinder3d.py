@@ -1,8 +1,10 @@
 """3-D flow past a sphere in a duct (D3Q19).
 
 Equilibrium inlet at x = 0, zero-gradient outlet at x = nx-1, bounce-back
-walls in y and z, a voxel sphere. Port of tpulbm/models/cylinder3d.py for
-the D3Q19 lattice and the voxel obstacle modes.
+walls in y and z, a voxel sphere, under any collision tpulbm runs in 3-D
+(BGK, TRT, MRT, regularized, Smagorinsky, power law). Port of
+tpulbm/models/cylinder3d.py for the D3Q19 lattice and the voxel obstacle
+modes.
 """
 from __future__ import annotations
 
@@ -27,4 +29,8 @@ def make_problem(params: SimulationParams) -> Problem:
         walls_z=True,
         obstacle_bc=params.obstacle_bc,
         collision=params.collision,
+        smagorinsky=params.smagorinsky,
+        power_law=params.power_law() or (),
+        trt_magic=params.trt_magic,
+        mrt_rates=params.mrt_rates,
     )

@@ -67,5 +67,6 @@ def make_problem(params: SimulationParams) -> Problem:
         walls_x=cavity,
         periodic_x=not cavity,
         collision=params.collision,
+        smagorinsky=params.smagorinsky,
         thermal=thermal,
     )

@@ -13,6 +13,9 @@ Port of tpulbm/ops/step_pallas3d.py (D3Q19):
   (one step per launch): csrc/step_d3q19.cu;
 * make_local_step_pallas3d_tiled at n_sub 2 and 3 (temporal blocking, N
   steps per launch): csrc/step_d3q19_blocked.cu.
+Both hold every collision of tpulbm's 3-D kernels (COLLISION_MODES_3D: all
+but KBC, which tpulbm runs in 2-D only), one library per mode; the mode's
+coefficients are computed here as tpulbm's 3-D builders compute them.
 The thermal and multiphase kernels' wrappers are ops/step_thermal_cuda.py
 and ops/step_multiphase_cuda.py, on the same build and binding helpers.
 Each kernel is built with nvcc at first use and called through ctypes on
@@ -28,6 +31,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import itertools
 
 import numpy as np
 import torch
@@ -65,21 +69,34 @@ _Q = 9
 # floats of d2q9_common.cuh's ModeConsts: TRT, MRT's U and V, regularized,
 # KBC, Smagorinsky, power law
 MODE_FLOATS = 2 + 2 * _Q * MRT_RANK + (1 + 3 * _Q) + (6 * _Q + 4) + 3 + 4
+# the collisions of the D3Q19 kernels (tpulbm has no 3-D KBC)
+COLLISION_MODES_3D = tuple(m for m in COLLISION_MODES if m != "kbc")
+MRT_RANK_3D = 10           # d3q19_common.cuh kMrtRank: the ten ghost moments
+_Q3 = 19
+# floats of d3q19_common.cuh's ModeConsts: TRT, MRT's U and V, regularized
+# (1 - 1/tau and the six Pi_ab weights a population), Smagorinsky, power law
+MODE_FLOATS_3D = 2 + 2 * _Q3 * MRT_RANK_3D + (1 + 6 * _Q3) + 3 + 4
 
 
 def mode_floats(problem: Problem) -> tuple[float, ...]:
-    """The D2Q9 kernels' mode coefficients for `problem`, in the order of
-    d2q9_common.cuh's ModeConsts, each computed in double precision as
-    tpulbm's _physics_cfg_fields and Pallas branches compute it
-    (step_pallas.py:183-396, 919-934); the kernel rounds them to float.
-    Every mode's block is there; the ones the problem does not run are
-    zero."""
+    """The kernels' mode coefficients for `problem`, in the order of the
+    ModeConsts of d2q9_common.cuh (D2Q9) or d3q19_common.cuh (D3Q19), each
+    computed in double precision as tpulbm's builders compute it (2-D:
+    _physics_cfg_fields and the Pallas branches, step_pallas.py:183-396,
+    919-934; 3-D: step_pallas3d.py:160-321, 408-434, 912-964); the kernel
+    rounds them to float. Every mode's block is there (KBC's in 2-D only,
+    as tpulbm's); the ones the problem does not run are zero."""
     lat = problem.lattice
+    q, d = lat.Q, lat.D
+    rank = MRT_RANK if d == 2 else MRT_RANK_3D
     inv_tau = 1.0 / problem.params.tau
     mode = step_torch.collision_mode(problem)
+    # the Pi_ab of the regularized projection: the diagonal, then a < b
+    pairs = [(a, a) for a in range(d)] + list(
+        itertools.combinations(range(d), 2))
     z = np.zeros
-    trt, mrt_u, mrt_v = z(2), z((_Q, MRT_RANK)), z((MRT_RANK, _Q))
-    reg, kbc, smag, plaw = z(1 + 3 * _Q), z(6 * _Q + 4), z(3), z(4)
+    trt, mrt_u, mrt_v = z(2), z((q, rank)), z((rank, q))
+    reg, kbc, smag, plaw = z(1 + len(pairs) * q), z(6 * q + 4), z(3), z(4)
     if mode == "trt":
         trt[:] = (0.5 * inv_tau,
                   0.5 * physics.omega_minus_trt(inv_tau, problem.trt_magic))
@@ -87,20 +104,18 @@ def mode_floats(problem: Problem) -> tuple[float, ...]:
         U, V = physics.mrt_rank_correction(
             lat, inv_tau, overrides=dict(problem.mrt_rates) or None)
         r = V.shape[0]
-        if r > MRT_RANK:
-            raise ValueError(f"MRT rank {r} exceeds the kernels' {MRT_RANK}")
+        if r > rank:
+            raise ValueError(f"MRT rank {r} exceeds the kernels' {rank}")
         mrt_u[:, :r], mrt_v[:r] = U, V
     elif mode == "regularized":
-        c = lat.c
+        c, w = lat.c, lat.w
         reg[0] = 1.0 - inv_tau
         reg[1:] = np.concatenate([
-            [4.5 * lat.w[i] * (c[i, 0] * c[i, 0] - 1.0 / 3.0)
-             for i in range(_Q)],
-            [4.5 * lat.w[i] * (c[i, 1] * c[i, 1] - 1.0 / 3.0)
-             for i in range(_Q)],
-            [9.0 * lat.w[i] * c[i, 0] * c[i, 1] for i in range(_Q)]])
+            [4.5 * w[i] * (c[i, a] * c[i, a] - 1.0 / 3.0) if a == b
+             else 9.0 * w[i] * c[i, a] * c[i, b] for i in range(q)]
+            for a, b in pairs])
     elif mode == "kbc":
-        beta = 0.5 * inv_tau
+        beta = 0.5 * inv_tau     # kbc_coeffs raises off D2Q9, as tpulbm's
         kbc[:] = np.concatenate([*physics.kbc_coeffs(lat),
                                  [1.0 / beta, 2.0 - 1.0 / beta, beta,
                                   2.0 * beta]])
@@ -112,15 +127,16 @@ def mode_floats(problem: Problem) -> tuple[float, ...]:
         plaw[:] = (float(n) - 1.0, np.log(3.0 * k),
                    np.log(physics.PLAW_TAU_MIN - 0.5),
                    np.log(physics.PLAW_TAU_MAX - 0.5))
-    return tuple(float(v) for v in np.concatenate(
-        [trt, mrt_u.ravel(), mrt_v.ravel(), reg, kbc, smag, plaw]))
+    blocks = [trt, mrt_u.ravel(), mrt_v.ravel(), reg,
+              *([kbc] if d == 2 else []), smag, plaw]
+    return tuple(float(v) for v in np.concatenate(blocks))
 
 
 @dataclasses.dataclass(frozen=True)
 class StepConstants:
     """The physics constants the kernel takes as arguments; `mode` picks
-    the D2Q9 library (COLLISION_MODES) and `modes` are its coefficients
-    (mode_floats). The D3Q19 kernels read inv_tau, eq_in and w."""
+    the library (COLLISION_MODES) and `modes` are its coefficients
+    (mode_floats). The D3Q19 kernels read inv_tau, eq_in, w and those."""
     inv_tau: float
     u_in: float
     eq_in: tuple[float, ...]   # frozen ghost equilibrium per direction
@@ -139,16 +155,22 @@ class StepConstants:
                 _floats(self.eq_in), _floats(self.w), int(self.clean_corners),
                 _floats(self.modes))
 
+    @functools.cached_property
+    def d3q19_args(self) -> tuple:
+        """inv_tau, eq_in, w and the mode coefficients as the D3Q19
+        launchers take them, built once."""
+        return (self.inv_tau, _floats(self.eq_in), _floats(self.w),
+                _floats(self.modes))
+
     @classmethod
     def of(cls, problem: Problem) -> "StepConstants":
-        two_d = problem.lattice.Q == _Q
         return cls(inv_tau=1.0 / problem.params.tau,
                    u_in=float(problem.init_u[0]),
                    eq_in=tuple(float(v) for v in problem.ghost_ring_values()),
                    w=tuple(float(v) for v in problem.lattice.w),
                    mode=step_torch.collision_mode(problem),
                    clean_corners=bool(problem.clean_corners),
-                   modes=mode_floats(problem) if two_d else ())
+                   modes=mode_floats(problem))
 
 
 def check_inputs(f: torch.Tensor, out: torch.Tensor, solid: torch.Tensor,
@@ -182,31 +204,28 @@ def check_inputs(f: torch.Tensor, out: torch.Tensor, solid: torch.Tensor,
 _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def _bind(source: str, fn: str, argtypes: list,
-          defines: tuple[str, ...] = ()) -> ctypes.CDLL:
-    lib = cuda_build.load(source, defines).lib
+def _bind(source: str, fn: str, argtypes: list, mode: str | None = None,
+          n_floats: int | None = None) -> ctypes.CDLL:
+    """The library of `source` with its launcher `fn` typed. Given a
+    collision `mode`, the library is built for it and raises unless it
+    holds that mode (tpulbm_collision_mode) and, given `n_floats`, takes
+    that many mode coefficients (tpulbm_mode_floats)."""
+    lib = cuda_build.load(source, mode_defines(mode) if mode else ()).lib
     getattr(lib, fn).argtypes = argtypes
     getattr(lib, fn).restype = _I32
     lib.tpulbm_cuda_error_string.argtypes = [_I32]
     lib.tpulbm_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _bind_d2q9(source: str, fn: str, argtypes: list,
-               mode: str) -> ctypes.CDLL:
-    """The D2Q9 library of `source` built for collision `mode`; raises
-    unless it holds that mode and takes MODE_FLOATS coefficients."""
-    lib = _bind(source, fn, argtypes, mode_defines(mode))
-    held = (COLLISION_MODES[lib.tpulbm_d2q9_mode()],
-            lib.tpulbm_d2q9_mode_floats())
-    if held != (mode, MODE_FLOATS):
-        raise RuntimeError(f"{source} built for {mode!r} holds {held}, not "
-                           f"({mode!r}, {MODE_FLOATS})")
+    if mode is not None:
+        held = (COLLISION_MODES[lib.tpulbm_collision_mode()],
+                lib.tpulbm_mode_floats() if n_floats is not None else None)
+        if held != (mode, n_floats):
+            raise RuntimeError(f"{source} built for {mode!r} holds {held}, "
+                               f"not ({mode!r}, {n_floats})")
     return lib
 
 
 def mode_defines(mode: str) -> tuple[str, ...]:
-    """nvcc's defines for a D2Q9 library of collision `mode`; none for BGK,
+    """nvcc's defines for a library of collision `mode`; none for BGK,
     whose library builds as it always has."""
     index = COLLISION_MODES.index(mode)
     return (f"-DTPULBM_COLLISION={index}",) if index else ()
@@ -214,26 +233,26 @@ def mode_defines(mode: str) -> tuple[str, ...]:
 
 @functools.cache
 def _library(mode: str = "bgk") -> ctypes.CDLL:
-    return _bind_d2q9("step_d2q9.cu", "tpulbm_d2q9_step",
-                      [_PTR, _PTR, _PTR, _I32, _I32, _F32, _F32, _F32, _PTR,
-                       _PTR, _I32, _PTR, _I32, _PTR], mode)
+    return _bind("step_d2q9.cu", "tpulbm_d2q9_step",
+                 [_PTR, _PTR, _PTR, _I32, _I32, _F32, _F32, _F32, _PTR, _PTR,
+                  _I32, _PTR, _I32, _PTR], mode, MODE_FLOATS)
 
 
 @functools.cache
-def _library_3d() -> ctypes.CDLL:
+def _library_3d(mode: str = "bgk") -> ctypes.CDLL:
     lib = _bind("step_d3q19.cu", "tpulbm_d3q19_step",
-                [_PTR, _PTR, _PTR, _I32, _I32, _I32, _F32, _PTR, _PTR, _I32,
-                 _PTR])
+                [_PTR, _PTR, _PTR, _I32, _I32, _I32, _F32, _PTR, _PTR, _PTR,
+                 _I32, _PTR], mode, MODE_FLOATS_3D)
     lib.tpulbm_d3q19_smem_bytes.argtypes = []
     lib.tpulbm_d3q19_smem_bytes.restype = _I32
     return lib
 
 
 @functools.cache
-def _blocked_library_3d() -> ctypes.CDLL:
+def _blocked_library_3d(mode: str = "bgk") -> ctypes.CDLL:
     lib = _bind("step_d3q19_blocked.cu", "tpulbm_d3q19_step_blocked",
                 [_PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _F32, _PTR, _PTR,
-                 _I32, _PTR])
+                 _PTR, _I32, _PTR], mode, MODE_FLOATS_3D)
     lib.tpulbm_d3q19_blocked_smem_bytes.argtypes = [_I32]
     lib.tpulbm_d3q19_blocked_smem_bytes.restype = _I32
     return lib
@@ -241,9 +260,9 @@ def _blocked_library_3d() -> ctypes.CDLL:
 
 @functools.cache
 def _blocked_library(mode: str = "bgk") -> ctypes.CDLL:
-    return _bind_d2q9("step_d2q9_blocked.cu", "tpulbm_d2q9_step_blocked",
-                      [_PTR, _PTR, _PTR, _I32, _I32, _I32, _F32, _F32, _F32,
-                       _PTR, _PTR, _I32, _PTR, _I32, _PTR], mode)
+    return _bind("step_d2q9_blocked.cu", "tpulbm_d2q9_step_blocked",
+                 [_PTR, _PTR, _PTR, _I32, _I32, _I32, _F32, _F32, _F32, _PTR,
+                  _PTR, _I32, _PTR, _I32, _PTR], mode, MODE_FLOATS)
 
 
 def _check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
@@ -276,15 +295,34 @@ def collide_stream(f: torch.Tensor, out: torch.Tensor, solid: torch.Tensor,
         f.data_ptr(), out.data_ptr(), solid.data_ptr(), nx, ny,
         *consts.d2q9_args, f.device.index, stream)
     _check_launch(lib, rc, f"D2Q9 kernel ({consts.mode})")
-    collide_stream.launches += 1
-    collide_stream.launches_by_mode[consts.mode] += 1
+    _count(collide_stream, consts.mode)
     return out
 
 
-# kernel launches, all modes and per mode; CPU calls (the plain version)
-# are not counted
-collide_stream.launches = 0
-collide_stream.launches_by_mode = dict.fromkeys(COLLISION_MODES, 0)
+def _zero_counts(wrapper, modes: tuple, depths: tuple | None = None) -> None:
+    """Set a kernel wrapper's launch counts to 0: launches_by_mode, per
+    collision mode (and per depth for an N-step wrapper), and launches,
+    their sum over the modes. After that only _count changes them, so the
+    two cannot drift apart. CPU calls (the plain version) are not
+    counted."""
+    def zero():
+        return 0 if depths is None else dict.fromkeys(depths, 0)
+    wrapper.launches = zero()
+    wrapper.launches_by_mode = {mode: zero() for mode in modes}
+
+
+def _count(wrapper, mode: str, n_sub: int | None = None) -> None:
+    """Count one launch of `wrapper`'s kernel in `mode` (at depth n_sub
+    for an N-step wrapper)."""
+    if n_sub is None:
+        wrapper.launches += 1
+        wrapper.launches_by_mode[mode] += 1
+    else:
+        wrapper.launches[n_sub] += 1
+        wrapper.launches_by_mode[mode][n_sub] += 1
+
+
+_zero_counts(collide_stream, COLLISION_MODES)
 
 
 def check_depth(n_sub: int) -> None:
@@ -319,19 +357,11 @@ def collide_stream_blocked(f: torch.Tensor, out: torch.Tensor,
         f.data_ptr(), out.data_ptr(), solid.data_ptr(), nx, ny, n_sub,
         *consts.d2q9_args, f.device.index, stream)
     _check_launch(lib, rc, f"D2Q9 {n_sub}-step kernel ({consts.mode})")
-    collide_stream_blocked.launches[n_sub] += 1
-    collide_stream_blocked.launches_by_mode[consts.mode][n_sub] += 1
+    _count(collide_stream_blocked, consts.mode, n_sub)
     return out
 
 
-def _blocked_counts() -> dict:
-    return {mode: dict.fromkeys(BLOCKED_DEPTHS, 0) for mode in COLLISION_MODES}
-
-
-# kernel launches per depth, all modes and per mode; CPU calls (the plain
-# version) are not counted
-collide_stream_blocked.launches = dict.fromkeys(BLOCKED_DEPTHS, 0)
-collide_stream_blocked.launches_by_mode = _blocked_counts()
+_zero_counts(collide_stream_blocked, COLLISION_MODES, BLOCKED_DEPTHS)
 
 
 def collide_stream_3d(f: torch.Tensor, out: torch.Tensor,
@@ -347,20 +377,18 @@ def collide_stream_3d(f: torch.Tensor, out: torch.Tensor,
         if plain is None:
             raise ValueError("a CPU tensor needs the plain step")
         return out.copy_(plain(f))
-    lib = _library_3d()
+    lib = _library_3d(consts.mode)
     nz, ny, nx = f.shape[1:]
     stream = torch.cuda.current_stream(f.device).cuda_stream
     rc = lib.tpulbm_d3q19_step(
         f.data_ptr(), out.data_ptr(), solid.data_ptr(), nx, ny, nz,
-        consts.inv_tau, _floats(consts.eq_in), _floats(consts.w),
-        f.device.index, stream)
-    _check_launch(lib, rc, "D3Q19 kernel")
-    collide_stream_3d.launches += 1
+        *consts.d3q19_args, f.device.index, stream)
+    _check_launch(lib, rc, f"D3Q19 kernel ({consts.mode})")
+    _count(collide_stream_3d, consts.mode)
     return out
 
 
-# kernel launches; CPU calls (the plain version) are not counted
-collide_stream_3d.launches = 0
+_zero_counts(collide_stream_3d, COLLISION_MODES_3D)
 
 
 def check_depth_3d(n_sub: int) -> None:
@@ -388,20 +416,19 @@ def collide_stream_3d_blocked(f: torch.Tensor, out: torch.Tensor,
         for _ in range(n_sub):
             f = plain(f)
         return out.copy_(f)
-    lib = _blocked_library_3d()
+    lib = _blocked_library_3d(consts.mode)
     nz, ny, nx = f.shape[1:]
     stream = torch.cuda.current_stream(f.device).cuda_stream
     rc = lib.tpulbm_d3q19_step_blocked(
         f.data_ptr(), out.data_ptr(), solid.data_ptr(), nx, ny, nz, n_sub,
-        consts.inv_tau, _floats(consts.eq_in), _floats(consts.w),
-        f.device.index, stream)
-    _check_launch(lib, rc, f"D3Q19 {n_sub}-step kernel")
-    collide_stream_3d_blocked.launches[n_sub] += 1
+        *consts.d3q19_args, f.device.index, stream)
+    _check_launch(lib, rc, f"D3Q19 {n_sub}-step kernel ({consts.mode})")
+    _count(collide_stream_3d_blocked, consts.mode, n_sub)
     return out
 
 
-# kernel launches per depth; CPU calls (the plain version) are not counted
-collide_stream_3d_blocked.launches = dict.fromkeys(BLOCKED_DEPTHS_3D, 0)
+_zero_counts(collide_stream_3d_blocked, COLLISION_MODES_3D,
+             BLOCKED_DEPTHS_3D)
 
 
 def reset_launch_counts() -> None:
@@ -409,31 +436,27 @@ def reset_launch_counts() -> None:
     kernels' (ops/step_thermal_cuda.py, ops/step_multiphase_cuda.py)
     included."""
     from . import step_multiphase_cuda, step_thermal_cuda
-    collide_stream.launches = 0
-    collide_stream.launches_by_mode = dict.fromkeys(COLLISION_MODES, 0)
-    collide_stream_blocked.launches = dict.fromkeys(BLOCKED_DEPTHS, 0)
-    collide_stream_blocked.launches_by_mode = _blocked_counts()
-    collide_stream_3d.launches = 0
-    collide_stream_3d_blocked.launches = dict.fromkeys(BLOCKED_DEPTHS_3D, 0)
-    step_thermal_cuda.collide_stream_thermal.launches = 0
+    _zero_counts(collide_stream, COLLISION_MODES)
+    _zero_counts(collide_stream_blocked, COLLISION_MODES, BLOCKED_DEPTHS)
+    _zero_counts(collide_stream_3d, COLLISION_MODES_3D)
+    _zero_counts(collide_stream_3d_blocked, COLLISION_MODES_3D,
+                 BLOCKED_DEPTHS_3D)
+    _zero_counts(step_thermal_cuda.collide_stream_thermal,
+                 step_thermal_cuda.MODES)
     step_multiphase_cuda.collide_stream_multiphase.launches = 0
 
 
-def _kernel_operands(problem: Problem, device, two_d: bool = True):
+def _kernel_operands(problem: Problem, device):
     """(device, constants, solid mask, plain step or None) for a wrapper of
-    `problem` on `device`; raises for what the kernels do not cover: the
-    D2Q9 kernels run every collision with the equilibrium obstacle, the
-    D3Q19 kernels (two_d False) BGK only."""
+    `problem` on `device`; raises for what the kernels do not cover: they
+    run with the equilibrium obstacle, the D2Q9 kernels every collision,
+    the D3Q19 kernels every one but KBC, as tpulbm's."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     if problem.obstacle_bc != "equilibrium":
         raise NotImplementedError("the kernels cover the equilibrium "
                                   "obstacle only")
-    if not two_d and step_torch.collision_mode(problem) != "bgk":
-        raise NotImplementedError("the D3Q19 kernels cover BGK only (ROADMAP "
-                                  "Queue 1 item 11, collision operators, "
-                                  "3-D)")
     consts = StepConstants.of(problem)
     solid = torch.as_tensor(problem.solid, device=device).to(torch.uint8)
     plain = (step_torch.make_step_rolled(problem, device)
@@ -498,4 +521,4 @@ def _kernel_operands_3d(problem: Problem, device):
     if problem.params.problem != "cylinder3d" or problem.lattice.Q != 19:
         raise NotImplementedError("the D3Q19 kernels cover the sphere in a "
                                   "duct (problem='cylinder3d') only")
-    return _kernel_operands(problem, device, two_d=False)
+    return _kernel_operands(problem, device)

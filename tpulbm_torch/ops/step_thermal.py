@@ -7,8 +7,9 @@ temperature, nusselt). One step of the coupled Boussinesq system on the
 stacked state s = [f (9 planes); g (5 planes)], (14, ny, nx):
 
   1. moments: rho, u from f; T = Σ g
-  2. collide f: BGK toward equilibrium(rho, u), plus the buoyancy source
-     3 w_i c_i,axis · buoyancy·(T − t_ref) on the buoyancy axis
+  2. collide f: BGK toward equilibrium(rho, u), at the per-cell rate of the
+     Smagorinsky closure where problem.smagorinsky > 0, plus the buoyancy
+     source 3 w_i c_i,axis · buoyancy·(T − t_ref) on the buoyancy axis
   3. collide g: BGK toward w_i T (1 + 3 c·u) at rate 1/tau_g
   4. pull-stream every plane with torch.roll (x wraps; y pulls across a
      wall read frozen ghost rows: rest equilibrium for f, w_i·T_wall for g)
@@ -50,7 +51,13 @@ def collide_thermal(problem: Problem, s: torch.Tensor) -> torch.Tensor:
     rho, u = physics.moments(lat, f)
     T = torch.sum(g, dim=0)
     feq = physics.equilibrium(lat, rho, u)
-    f_post = f - inv_tau * (f - feq)
+    if problem.smagorinsky:
+        devs = f - feq
+        inv_t = physics.smagorinsky_inv_tau(lat, 1.0 / rho, devs, inv_tau,
+                                            problem.smagorinsky)
+        f_post = f - inv_t[None] * devs
+    else:
+        f_post = f - inv_tau * (f - feq)
     if th.buoyancy:
         fy = th.buoyancy * (T - th.t_ref)
         ca = lat.c[:, th.buoyancy_axis]

@@ -1,9 +1,10 @@
 """The fused thermal collide-stream step as a hand-written CUDA kernel.
 
 Port of tpulbm/ops/step_thermal_pallas.py::make_local_step_thermal_pallas
-(one step per launch, BGK, one full-width device): csrc/step_thermal.cu.
-The kernel is built with nvcc at first use and called through ctypes on
-PyTorch's current stream. Its plain version is
+(one step per launch, one full-width device): csrc/step_thermal.cu, built
+once for BGK and once for its Smagorinsky LES branch (MODES,
+-DTPULBM_COLLISION=5). The kernel is built with nvcc at first use and
+called through ctypes on PyTorch's current stream. Its plain version is
 ops/step_thermal.py::make_step_thermal.
 
 Dispatch follows the tensor: for a CPU tensor the wrapper runs the plain
@@ -20,18 +21,25 @@ import numpy as np
 import torch
 
 from ..models.base import Problem
-from . import step_cuda, step_thermal
+from . import step_cuda, step_thermal, step_torch
 
 SOURCE = "tpulbm_torch/csrc/step_thermal.cu"
 REPLACES = "tpulbm/ops/step_thermal_pallas.py:147"  # make_local_step_thermal_pallas
 Q_STATE = 14   # 9 D2Q9 planes, then 5 D2Q5 planes
+# the collisions of the thermal kernel, as tpulbm's: BGK and the
+# Smagorinsky closure (step_cuda.COLLISION_MODES names their defines)
+MODES = ("bgk", "smagorinsky")
 
 
 @dataclasses.dataclass(frozen=True)
 class ThermalConstants:
     """The physics constants the kernel takes as arguments, each rounded to
-    float32 once on the host from tpulbm's float64 values."""
-    scalars: tuple[float, ...]       # 1/tau, 1/tau_g, buoyancy, t_ref
+    float32 once on the host from tpulbm's float64 values; `mode` picks
+    the library (MODES)."""
+    # 1/tau, 1/tau_g, buoyancy, t_ref, then the Smagorinsky closure's
+    # tau0, tau0² and 18 Cs² as tpulbm's Pallas kernel computes them (zero
+    # under BGK)
+    scalars: tuple[float, ...]
     w: tuple[float, ...]             # D2Q9 weights, then D2Q5 weights
     w3: tuple[float, ...]            # 3 w_i: buoyancy source per unit force
     ghost_bottom: tuple[float, ...]  # frozen ghost row below y = 0
@@ -43,15 +51,21 @@ class ThermalConstants:
     # the bottom and top rows are walls (the Pallas kernel's flags[0:2]);
     # without them a pull across y wraps (the passive scalar, not ported)
     walls_y: bool
+    mode: str = "bgk"
 
     @classmethod
     def of(cls, problem: Problem) -> "ThermalConstants":
         lat, lg, th = step_thermal._thermal_parts(problem)
         bottom, top = step_thermal.ghost_rows(problem)
         wsum = lg.w + lg.w[lg.opposite]
+        mode = step_torch.collision_mode(problem)
+        inv_tau = 1.0 / problem.params.tau
+        tau0, cs = 1.0 / inv_tau, float(problem.smagorinsky)
+        smag = ((tau0, tau0 * tau0, 18.0 * cs * cs) if mode == "smagorinsky"
+                else (0.0, 0.0, 0.0))
         return cls(
-            scalars=(1.0 / problem.params.tau, 1.0 / th.tau_g,
-                     float(th.buoyancy), float(th.t_ref)),
+            scalars=(inv_tau, 1.0 / th.tau_g, float(th.buoyancy),
+                     float(th.t_ref), *smag),
             w=tuple(float(v) for v in np.concatenate([lat.w, lg.w])),
             w3=tuple(3.0 * float(v) for v in lat.w),
             ghost_bottom=tuple(float(v) for v in bottom),
@@ -59,7 +73,7 @@ class ThermalConstants:
             wall_bottom=tuple(float(v) * th.t_bottom for v in wsum),
             wall_top=tuple(float(v) * th.t_top for v in wsum),
             baxis=int(th.buoyancy_axis), walls_x=bool(problem.walls_x),
-            walls_y=bool(problem.walls_y))
+            walls_y=bool(problem.walls_y), mode=mode)
 
     @functools.cached_property
     def arrays(self) -> tuple:
@@ -97,10 +111,11 @@ _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
+def _library(mode: str = "bgk") -> ctypes.CDLL:
+    """The thermal library built for `mode`; raises unless it holds it."""
     return step_cuda._bind("step_thermal.cu", "tpulbm_thermal_step",
                            [_PTR, _PTR, _I32, _I32] + [_PTR] * 7
-                           + [_I32] * 5 + [_PTR])
+                           + [_I32] * 5 + [_PTR], mode)
 
 
 def collide_stream_thermal(s: torch.Tensor, out: torch.Tensor,
@@ -116,33 +131,30 @@ def collide_stream_thermal(s: torch.Tensor, out: torch.Tensor,
         if plain is None:
             raise ValueError("a CPU tensor needs the plain step")
         return out.copy_(plain(s))
-    lib = _library()
+    lib = _library(consts.mode)
     ny, nx = s.shape[1:]
     stream = torch.cuda.current_stream(s.device).cuda_stream
     rc = lib.tpulbm_thermal_step(
         s.data_ptr(), out.data_ptr(), nx, ny, *consts.arrays, consts.baxis,
         int(consts.walls_y), int(consts.walls_y), int(consts.walls_x),
         s.device.index, stream)
-    step_cuda._check_launch(lib, rc, "thermal kernel")
-    collide_stream_thermal.launches += 1
+    step_cuda._check_launch(lib, rc, f"thermal kernel ({consts.mode})")
+    step_cuda._count(collide_stream_thermal, consts.mode)
     return out
 
 
-# kernel launches; CPU calls (the plain version) are not counted
-collide_stream_thermal.launches = 0
+step_cuda._zero_counts(collide_stream_thermal, MODES)
 
 
 def make_local_step_thermal_cuda(problem: Problem, device):
     """step(s, out) -> out: one timestep of a thermal problem
-    (Rayleigh-Bénard or the side-heated cavity, BGK) through the kernel
-    (CUDA) or its plain version (CPU), on (14, ny, nx) states living on
-    `device`. The counterpart of make_local_step_thermal_pallas on one
-    full-width device."""
+    (Rayleigh-Bénard or the side-heated cavity, BGK or the Smagorinsky
+    closure) through the kernel (CUDA) or its plain version (CPU), on
+    (14, ny, nx) states living on `device`. The counterpart of
+    make_local_step_thermal_pallas on one full-width device."""
     if problem.thermal is None or problem.state_q != Q_STATE:
         raise NotImplementedError("the thermal kernel covers the D2Q9 + "
                                   "D2Q5 thermal problems only")
-    if problem.collision != "bgk":
-        raise NotImplementedError("the thermal kernel covers BGK only")
     step_thermal.check_geometry(problem)
     device = torch.device(device)
     consts = ThermalConstants.of(problem)

@@ -11,9 +11,11 @@ time and runner MLUPS without the profiler's overhead) and once under
 torch.profiler (CPU and CUDA activity). It prints one JSON line: both
 runs' wall time and MLUPS, the device window of the profiled run (from
 its first device event to its last), the time and count of each of the
-port's kernels by name, of the other kernels (the diagnostics' plain
-PyTorch kernels), of copies and of sets, and the device's idle time, the
-window less the union of all device events.
+port's kernels by name (every collision's library of a kernel under its
+name: the run's collision is the line's `collision`), of the other
+kernels (the diagnostics' plain PyTorch kernels), of copies and of sets,
+and the device's idle time, the window less the union of all device
+events.
 """
 from __future__ import annotations
 
@@ -98,6 +100,8 @@ def device_breakdown(trace_path: str) -> dict:
 def main(argv=None) -> int:
     from ..__main__ import build_parser
     from ..config import params_from_args
+    from ..models import make_problem
+    from ..ops.step_torch import collision_mode
     from ..runner import Runner
 
     if not torch.cuda.is_available():
@@ -121,6 +125,7 @@ def main(argv=None) -> int:
         out = device_breakdown(path)
     out.update({
         "device": torch.cuda.get_device_name(0),
+        "collision": collision_mode(make_problem(params)),
         "cells": params.num_cells, "steps": params.num_timesteps,
         "wall_s": runs[1].wall_seconds, "mlups": runs[1].mlups,
         "host_fetches": runs[1].host_fetches,
