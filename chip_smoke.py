@@ -37,7 +37,8 @@ printing its own line; any failure exits non-zero:
    chunk at N=2 (100 N=3, 5 N=2 and 1 1-step launches), and write the
    same bytes as the same run with blocking off (TPULBM_NO_FUSED2);
 5. timing at 2048x512, CUDA events, in turns: the plain step, the 1-step
-   kernel and the N = 2, 3, 4 kernels, per step;
+   kernel and the N = 2, 3, 4 kernels, per step, and the N=4 time against
+   the 0.01940 ms/step it took before the domains (RE200_N4_BEFORE_MS);
 6. D3Q19 parity at 256^3 (bench.py's d3q19 row: the sphere in a duct,
    tau 0.6, U = 0.05): one kernel step against the plain 3-D step from the
    initial state and from a state the plain step advanced 100 steps, at
@@ -148,7 +149,46 @@ printing its own line; any failure exits non-zero:
    against the plain LES step from both states, 280 steps; tpulbm's LES
    gate of the thermal kernel (32x32, Ra 5000, 12 steps, rtol 2e-5 / atol
    1e-6); the Runner (exactly 2240 launches of the LES build, 16 finite
-   nusselt.csv rows, the final Nu); timing against the plain step.
+   nusselt.csv rows, the final Nu); timing against the plain step;
+25. the kernels' new domains, source and obstacle rule in 2-D, each
+   through its own library (step_cuda.build_defines): the body-forced
+   channel at 2048x512 (tau 0.8, F = (1.53e-7, 0), u_max 0.0499) under
+   each D2Q9 collision, the lid-driven cavity at 1024^2 (Re 1000, U 0.1,
+   tau 0.8069), the re200 cylinder with the bounce-back obstacle and with
+   the channel's force: one 1-step kernel step against one plain step
+   from the initial state, after 500 plain steps and from the seeded
+   perturbed state (rtol 5e-6 / atol 1e-7; the cavity 2e-5 / 5e-7,
+   tpulbm's cavity gate; the power law rtol 1e-4). On the perturbed state
+   the cylinder's library of the same collision (the obstacle domain, the
+   equilibrium obstacle, no source) must miss the plain step by more than
+   SEPARATION tolerances where the domain or the obstacle rule differs;
+   where the library has the source, one step at F = 1e-2
+   (SOURCE_CHECK_FORCE) must meet the plain step and the same domain's
+   library built without the source must miss it by SEPARATION
+   tolerances. N = 2, 3, 4 bitwise against N 1-step launches from each
+   state; 280 steps within 1e-4. The channel's TRT, regularized, KBC and
+   Smagorinsky builds from the perturbed state at N = 4 only;
+26. their main paths: the Runner, 2240 steps every 140, no VTK: exactly
+   525 N=4 and 140 1-step launches of the cell's own library and none of
+   another kernel, a finite 1M-row field (forces.csv only with the
+   obstacle); the cavity's total mass at t = 2240 (its checkpoint) within
+   1e-6 of the start; the channel's 311-step run every 150 (100 N=3, 5
+   N=2, 1 1-step launches); host fetches, wall time and runner MLUPS;
+27. the duct at 256^3 (tau 0.8, F for u_max 0.05 by analytic_profile_duct)
+   under each D3Q19 collision, the sphere at 256^3 with the bounce-back
+   obstacle and with the channel's force: phase 25's checks (100 kernel
+   steps for the advanced state, N = 2, 3; 280 steps at 128^3; the duct's
+   other collisions from the perturbed state only);
+28. their main paths at 256^3: exactly 735 N=3, 17 N=2 and 1 one-step
+   launches of the cell's own library, then
+   tpulbm's physics gates through the kernels in f32: Poiseuille (32x32,
+   RMSE < 0.005 and < 2% of u_max), the power-law channel (16x24, n 0.5
+   and 1.5, < 4%), Ghia at Re 100 (64^2, 30000 steps, nine bounds) and the
+   duct's Fourier series (8x17x17, < 2%);
+29. timing of each new library against its plain step, in turns: ms/step,
+   MLUPS and the share of the bound (72 B a cell in 2-D and 152 in 3-D
+   where the kernel reads no mask; the source's adds counted). Each
+   phase group's time is printed.
 
 Run directories go to build/chip_smoke/ (git-ignored; the final CSVs have
 a million rows). The last two lines are a JSON line per kernel and the
@@ -160,7 +200,11 @@ kernels (named d2q9_collide_stream[op] and d2q9_collide_stream_nN[op]:
 the 1-step and N=4 launches from its main path, N=2 and N=3 from its
 311-step run), phase 22 for each 3-D operator's
 (d3q19_collide_stream[op], d3q19_collide_stream_nN[op]) and phase 24 for
-the thermal LES build (thermal_collide_stream[smagorinsky]). A kernel's
+the thermal LES build (thermal_collide_stream[smagorinsky]), phases 26 and 28
+for each new library (d2q9_collide_stream[<library>],
+d2q9_collide_stream_n4[<library>], the channel's N=2 and N=3 from its
+311-step run; d3q19_collide_stream[<library>] and _nN: StepConstants.library
+names the library, e.g. "mrt+channel+source"). A kernel's
 `bound_ms` is the
 least time the card could take for one step of its work at the shape it
 was timed at: the larger of the bytes a step must move (each population
@@ -171,6 +215,7 @@ lattice-Boltzmann step.
 """
 from __future__ import annotations
 
+import dataclasses
 import filecmp
 import json
 import os
@@ -196,6 +241,9 @@ FIELDS_TOL = dict(rtol=1e-5, atol=5e-6)
 # 280 steps of f32 rounding differences (1/rho multiplied vs divided, sum
 # order) from an impulsive start: a divergence bound, not a parity gate
 DRIFT_280_BOUND = 1e-4
+# the re200 N=4 BGK kernel's time before the domains (PERF.md §6, row 2)
+# on an NVIDIA H100 80GB HBM3 at 700 W: the cylinder's libraries keep it
+RE200_N4_BEFORE_MS = 0.01940
 # the 3-D cell's edge (bench.py's d3q19 row) and the bytes one D3Q19 step
 # must move: 19 f32 values per cell read and written once, plus the 1-byte
 # solid mask
@@ -329,8 +377,15 @@ def require(cond: bool, msg: str) -> None:
 def bound(kind: str, cells: int, steps_per_launch: int = 1) -> dict:
     """bound_ms and bound_by for one step of `kind` on `cells` cells; an
     N-step launch moves the state once for N steps."""
-    t_bytes = cells * STEP_BYTES[kind] / steps_per_launch / HBM_BYTES_PER_S
-    t_ops = cells * STEP_FLOPS[kind] / F32_FLOPS_PER_S
+    return bound_of(STEP_BYTES[kind], STEP_FLOPS[kind], cells,
+                    steps_per_launch)
+
+
+def bound_of(step_bytes: int, step_flops: int, cells: int,
+             steps_per_launch: int = 1) -> dict:
+    """bound() for a step of `step_bytes` and `step_flops` a cell."""
+    t_bytes = cells * step_bytes / steps_per_launch / HBM_BYTES_PER_S
+    t_ops = cells * step_flops / F32_FLOPS_PER_S
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None}
@@ -386,13 +441,14 @@ def perturbed(problem, f: torch.Tensor) -> torch.Tensor:
 
 def separation(label: str, bgk: torch.Tensor, want: torch.Tensor,
                tol: dict) -> float:
-    """How many times the tolerance `tol` the BGK library's step `bgk`
-    misses an operator's plain step `want` (at the worst cell); raises
-    below SEPARATION."""
+    """How many times the tolerance `tol` another library's step `bgk` (the
+    BGK library's, the obstacle domain's, the one without the source)
+    misses a plain step `want` (at the worst cell); raises below
+    SEPARATION."""
     sep = float(((bgk - want).abs()
                  / (tol["atol"] + tol["rtol"] * want.abs())).max())
     require(sep > SEPARATION,
-            f"{label}: on the perturbed state the BGK library's step lies "
+            f"{label}: on the perturbed state the other library's step lies "
             f"{sep:.1f}x the tolerance from the plain step, not "
             f"{SEPARATION}x")
     return sep
@@ -443,12 +499,14 @@ def read_counts() -> dict:
     "multiphase"."""
     from tpulbm_torch.ops import (step_cuda, step_multiphase_cuda,
                                   step_thermal_cuda)
-    return {1: step_cuda.collide_stream.launches,
-            **step_cuda.collide_stream_blocked.launches,
-            "3d": step_cuda.collide_stream_3d.launches,
-            **{f"3d{n}": step_cuda.collide_stream_3d_blocked.launches[n]
+    return {1: step_cuda.launches(step_cuda.collide_stream),
+            **step_cuda.launches(step_cuda.collide_stream_blocked),
+            "3d": step_cuda.launches(step_cuda.collide_stream_3d),
+            **{f"3d{n}": step_cuda.launches(
+                step_cuda.collide_stream_3d_blocked)[n]
                for n in DEPTHS_3D},
-            "thermal": step_thermal_cuda.collide_stream_thermal.launches,
+            "thermal": step_cuda.launches(
+                step_thermal_cuda.collide_stream_thermal),
             "multiphase":
                 step_multiphase_cuda.collide_stream_multiphase.launches}
 
@@ -1160,8 +1218,9 @@ def operator_main_path(dev, op: str, params, mode: str) -> dict:
     result, counts, wall = run_counted(
         params.replace(num_timesteps=2240, output_frequency=140,
                        output_dir=str(run_dir)), dev)
-    by_mode = (step_cuda.collide_stream.launches_by_mode[mode],
-               step_cuda.collide_stream_blocked.launches_by_mode[mode][4])
+    one = step_cuda.launches_by_mode(step_cuda.collide_stream)
+    blocked = step_cuda.launches_by_mode(step_cuda.collide_stream_blocked)
+    by_mode = (one[mode], blocked[mode][4])
     require(counts == {**only(4, 525), 1: 140} and by_mode == (140, 525),
             f"{op}: launch counts {counts} ({by_mode} of {mode}), not 525 "
             "N=4, 140 1-step and 0 others")
@@ -1183,9 +1242,9 @@ def operator_main_path(dev, op: str, params, mode: str) -> dict:
     p23 = params.replace(num_timesteps=311, output_frequency=150,
                          output_dir=str(d23))
     _, counts23, _ = run_counted(p23, dev)
-    by_mode = (step_cuda.collide_stream.launches_by_mode[mode],
-               *(step_cuda.collide_stream_blocked.launches_by_mode[mode][n]
-                 for n in (2, 3)))
+    one = step_cuda.launches_by_mode(step_cuda.collide_stream)
+    blocked = step_cuda.launches_by_mode(step_cuda.collide_stream_blocked)
+    by_mode = (one[mode], *(blocked[mode][n] for n in (2, 3)))
     require(counts23 == {**only(3, 100), 1: 1, 2: 5}
             and by_mode == (1, 5, 100),
             f"{op}: launch counts {counts23} ({by_mode} of {mode}), not 100 "
@@ -1408,9 +1467,9 @@ def sphere_operator_main_path(dev, op: str, params, mode: str) -> dict:
     result, counts, wall = run_counted(
         params.replace(num_timesteps=2240, output_frequency=140,
                        output_dir=str(run_dir)), dev)
-    by_mode = (step_cuda.collide_stream_3d.launches_by_mode[mode],
-               *(step_cuda.collide_stream_3d_blocked.launches_by_mode[mode][d]
-                 for d in DEPTHS_3D))
+    one = step_cuda.launches_by_mode(step_cuda.collide_stream_3d)
+    blocked = step_cuda.launches_by_mode(step_cuda.collide_stream_3d_blocked)
+    by_mode = (one[mode], *(blocked[mode][d] for d in DEPTHS_3D))
     require(counts == {**only("3d3", 735), "3d2": 17, "3d": 1}
             and by_mode == (1, 17, 735),
             f"3-D {op}: launch counts {counts} ({by_mode} of {mode}), not "
@@ -1496,7 +1555,7 @@ def thermal_les_phases(dev, card: str) -> dict:
     the kernel's JSON entry."""
     from tpulbm_torch.convert import state_from_numpy
     from tpulbm_torch.models import make_problem
-    from tpulbm_torch.ops import step_thermal_cuda
+    from tpulbm_torch.ops import step_cuda, step_thermal_cuda
     from tpulbm_torch.stepper import make_chunk_fn
 
     t_phase = time.perf_counter()
@@ -1541,7 +1600,8 @@ def thermal_les_phases(dev, card: str) -> dict:
                             num_timesteps=2240, output_frequency=140,
                             output_dir=str(run_dir))
     result, counts, wall = run_counted(params, dev)
-    by_mode = step_thermal_cuda.collide_stream_thermal.launches_by_mode
+    by_mode = step_cuda.launches_by_mode(
+        step_thermal_cuda.collide_stream_thermal)
     require(counts == only("thermal", 2240)
             and by_mode == {"bgk": 0, "smagorinsky": 2240},
             f"thermal LES: launch counts {counts} ({by_mode}), not 2240 of "
@@ -1576,6 +1636,575 @@ def thermal_les_phases(dev, card: str) -> dict:
             "ms": ms["kernel"], "plain_ms": ms["plain"], **b}
 
 
+# ---- phases 25-29: the channel, the cavity, the bounce-back obstacle and
+# ---- the duct (the kernels' domains, source and obstacle rule)
+
+# the channel's force: u_max = F (ny-1)^2 / (8 nu) = 0.04994 at 2048x512,
+# tau 0.8 (nu 0.1)
+CHANNEL_FORCE = 1.53e-7
+# the duct's peak speed (analytic_profile_duct) sets its force
+DUCT_U_MAX = 0.05
+# the cavity: Re 1000 at U 0.1 on 1024^2, tau = 3 U (n-1) / Re + 1/2
+CAVITY_N, CAVITY_RE, CAVITY_U = 1024, 1000.0, 0.1
+# tests/test_cavity.py's pallas-vs-jax gate (its corner residual cancels
+# terms of ~0.5 down to ~1e-5)
+CAVITY_TOL = dict(rtol=2e-5, atol=5e-7)
+CAVITY_MASS_TOL = 1e-6
+# the 2-D collisions with the ladder's flags where they need them, and the
+# 3-D ones (OPERATORS, OPERATORS_3D), by their collision mode
+CHANNEL_OPS = {"bgk": {}, "mrt": dict(collision="mrt"),
+               "power_law": dict(power_law_n=0.7),
+               "trt": dict(collision="trt"),
+               "regularized": dict(collision="regularized"),
+               "kbc": dict(collision="kbc"),
+               "smagorinsky": dict(smagorinsky=0.17)}
+# the channel's collisions held in full (every state, N = 2, 3, 4, 280
+# steps); the rest from the perturbed state at N = 4
+CHANNEL_FULL = ("bgk", "mrt", "power_law")
+DUCT_OPS = {op: kw for op, kw in CHANNEL_OPS.items() if op != "kbc"}
+# the cylinder and the sphere under a body force: the channel's force
+OBSTACLE_FORCE = CHANNEL_FORCE
+# At the cells' forces the source 3 w_i c_i.F is below the one-step
+# tolerance, so a library that dropped it would pass there. The source's
+# own check steps each forced cell at this force along x, where an axis
+# population's source (F/3 in 2-D, F/6 in 3-D) is over 250 power-law
+# tolerances and over 4000 of the others; a library built without the
+# source must miss the plain step there by SEPARATION tolerances.
+SOURCE_CHECK_FORCE = 1e-2
+
+
+def new_builds():
+    """(source, mode, variant) of every library the phases 25-29 build:
+    each D2Q9 collision in the channel with the source (and its 1-step
+    library without, for the source's check), the cavity, the bounce-back
+    cylinder and the cylinder with the source under BGK; each D3Q19
+    collision in the duct likewise, the bounce-back sphere and the sphere
+    with the source under BGK."""
+    from tpulbm_torch.ops import step_cuda
+    from tpulbm_torch.ops.step_cuda import BOUNCE_BACK, SOURCE
+    channel = step_cuda.DOMAINS.index("channel")
+    cavity = step_cuda.DOMAINS.index("cavity")
+    duct = step_cuda.DOMAINS_3D.index("duct")
+    d2 = ("step_d2q9.cu", "step_d2q9_blocked.cu")
+    d3 = ("step_d3q19.cu", "step_d3q19_blocked.cu")
+    builds = [(src, mode, channel | SOURCE)
+              for mode in step_cuda.COLLISION_MODES for src in d2]
+    builds += [(d2[0], mode, channel) for mode in step_cuda.COLLISION_MODES]
+    builds += [(src, "bgk", v) for v in (cavity, BOUNCE_BACK, SOURCE)
+               for src in d2]
+    builds += [(src, mode, duct | SOURCE)
+               for mode in step_cuda.COLLISION_MODES_3D for src in d3]
+    builds += [(d3[0], mode, duct) for mode in step_cuda.COLLISION_MODES_3D]
+    builds += [(src, "bgk", v) for v in (BOUNCE_BACK, SOURCE) for src in d3]
+    return builds
+
+
+def channel_params(nx=2048, ny=512, **kw):
+    from tpulbm_torch.config import SimulationParams
+    d = dict(problem="poiseuille", nx=nx, ny=ny, tau=0.8, inlet_velocity=0.0,
+             body_force=(CHANNEL_FORCE, 0.0), precision="f32",
+             enable_vtk=False)
+    d.update(kw)
+    return SimulationParams(**d)
+
+
+def cavity_params(n=CAVITY_N, re=CAVITY_RE, u=CAVITY_U, **kw):
+    from tpulbm_torch.config import SimulationParams
+    from tpulbm_torch.models.cavity import tau_for_cavity_reynolds
+    return SimulationParams(problem="cavity", nx=n, ny=n, inlet_velocity=u,
+                            tau=tau_for_cavity_reynolds(re, u, n),
+                            cylinder_radius=0.0, precision="f32",
+                            enable_vtk=False, **kw)
+
+
+def duct_params(n=SPHERE_N, **kw):
+    from tpulbm_torch.config import SimulationParams
+    from tpulbm_torch.models.poiseuille import analytic_profile_duct
+    d = dict(problem="poiseuille", nx=n, ny=n, nz=n, tau=0.8,
+             inlet_velocity=0.0, precision="f32", enable_vtk=False)
+    d.update(kw)
+    unit = analytic_profile_duct(SimulationParams(
+        **{**d, "body_force": (1.0, 0.0, 0.0)}))
+    d.setdefault("body_force", (DUCT_U_MAX / float(unit.max()), 0.0, 0.0))
+    return SimulationParams(**d)
+
+
+def duct_at(params, n: int):
+    """The duct of `params`' collision at n^3 (its force for u_max 0.05)."""
+    return duct_params(n, **{k: getattr(params, k) for k in (
+        "collision", "power_law_n", "smagorinsky")})
+
+
+def obstacle_params(three_d: bool, **kw):
+    """re200 or the 256^3 sphere (bench.py's d3q19 row), f32, no VTK, with
+    SimulationParams `kw` (obstacle_bc, body_force)."""
+    from tpulbm_torch.config import PRESETS, SimulationParams
+    if three_d:
+        return SimulationParams(problem="cylinder3d", nx=SPHERE_N,
+                                ny=SPHERE_N, nz=SPHERE_N, inlet_velocity=0.05,
+                                precision="f32", enable_vtk=False, **kw)
+    return PRESETS["re200"].replace(precision="f32", enable_vtk=False, **kw)
+
+
+class Cell:
+    """One new domain's problem on the card: its kernel steps by depth, the
+    plain step, the constants and the separation library's step."""
+
+    def __init__(self, dev, label: str, params):
+        from tpulbm_torch.convert import state_from_numpy
+        from tpulbm_torch.models import make_problem
+        from tpulbm_torch.ops import step_cuda, step_torch
+
+        self.label, self.params = label, params
+        self.problem = make_problem(params)
+        self.three_d = self.problem.lattice.D == 3
+        self.consts = step_cuda.StepConstants.of(self.problem)
+        self.library = self.consts.library
+        if self.three_d:
+            self.depths = (1, *DEPTHS_3D)
+            make1 = step_cuda.make_local_step_cuda_3d
+            makeN = step_cuda.make_local_step_cuda_3d_blocked
+            launch = step_cuda.collide_stream_3d
+        else:
+            self.depths = (1, *DEPTHS)
+            make1 = step_cuda.make_local_step_cuda
+            makeN = step_cuda.make_local_step_cuda_blocked
+            launch = step_cuda.collide_stream
+        self.make1, self.launch = make1, launch
+        self.steps = {1: make1(self.problem, dev)}
+        for d in self.depths[1:]:
+            self.steps[d] = makeN(self.problem, dev, d)
+        self.pstep = step_torch.make_step_rolled(self.problem, dev)
+        # the obstacle domain's library of the same collision, with the
+        # equilibrium obstacle and no source: the build every earlier slice
+        # ran, which the new edge code must be seen to change
+        base = dataclasses.replace(self.consts, variant=0, src=(),
+                                   lid=(0.0, 0.0))
+        self.solid = (torch.zeros(self.problem.spatial_shape,
+                                  dtype=torch.uint8, device=dev)
+                      if self.problem.solid is None else
+                      torch.as_tensor(self.problem.solid, device=dev)
+                      .to(torch.uint8))
+        self.base = lambda f, out: launch(f, out, self.solid, base)
+        mode = self.consts.mode
+        self.tol = (CAVITY_TOL if params.problem == "cavity" else
+                    PLAW_TOL if mode == "power_law" else ONE_STEP_TOL)
+        self.relative = mode == "kbc"
+        self.f0 = state_from_numpy(self.problem.initial_state(), self.problem,
+                                   dev)
+
+    def bound(self, steps_per_launch: int) -> dict:
+        """bound() of one step of the cell's library: the populations read
+        and written once, the mask where the obstacle domain's kernel reads
+        it; the collision's operations (BGK's where bounce-back solids skip
+        it, an upper bound) and one add a population for the source."""
+        from tpulbm_torch.ops import step_cuda
+        lat = "d3q19" if self.three_d else "d2q9"
+        mode = self.consts.mode
+        q, v = self.problem.lattice.Q, self.consts.variant
+        mask = not v & step_cuda.DOMAIN_BITS
+        flops = STEP_FLOPS[lat if mode == "bgk" else f"{lat}_{mode}"]
+        return bound_of(q * 4 * 2 + int(mask),
+                        flops + (q if v & step_cuda.SOURCE else 0),
+                        int(np.prod(self.problem.spatial_shape)),
+                        steps_per_launch)
+
+
+def source_check(cell: Cell, f: torch.Tensor) -> tuple[float, float]:
+    """The body force's source on the card: at SOURCE_CHECK_FORCE along x,
+    one step of the cell's 1-step library from f against the plain step
+    (at the cell's tolerance), and one of the same domain's library built
+    without the source, which must miss the plain step by more than
+    SEPARATION tolerances. Returns (the library's error, the separation)."""
+    from tpulbm_torch.models import make_problem
+    from tpulbm_torch.ops import step_cuda, step_torch
+    force = (SOURCE_CHECK_FORCE,) + (0.0,) * (cell.problem.lattice.D - 1)
+    big = make_problem(cell.params.replace(body_force=force))
+    consts = step_cuda.StepConstants.of(big)
+    require(consts.library == cell.library, f"{cell.label}: the check's "
+            f"library {consts.library}, not {cell.library}")
+    bare = dataclasses.replace(consts, src=(),
+                               variant=consts.variant & ~step_cuda.SOURCE)
+    got = cell.make1(big, f.device)(f, torch.empty_like(f))
+    want = step_torch.make_step_rolled(big, f.device)(f)
+    without = cell.launch(f, torch.empty_like(f), cell.solid, bare)
+    torch.cuda.synchronize()
+    close_or_relative(got, want, cell.tol, cell.relative)
+    sep = separation(f"{cell.label}, {bare.library} at F {SOURCE_CHECK_FORCE}",
+                     without, want, cell.tol)
+    return float((got - want).abs().max()), sep
+
+
+def cell_parity(cell: Cell, full: bool) -> float:
+    """Phase 25 (2-D) or 27 (3-D) on one cell: one 1-step kernel step
+    against one plain step from the perturbed state (and, `full`, from the
+    initial state and an advanced one: 500 plain steps in 2-D, 100 kernel
+    steps in 3-D), where the obstacle domain's library of the same
+    collision must miss the plain step by more than SEPARATION tolerances
+    if the cell's domain or obstacle rule differs from it, and the source
+    must show (source_check) if the cell's library has one;
+    the N-step kernels bitwise against N 1-step launches from each state;
+    with `full`, 280 kernel steps against 280 plain steps (3-D at
+    DRIFT_N_3D^3). Returns the larger one-step error."""
+    from tpulbm_torch.ops.step_cuda import SOURCE
+    s1 = cell.steps[1]
+    fp = perturbed(cell.problem, cell.f0)
+    states = [("perturbed", fp)]
+    if full:
+        adv = (kernel_chunk(s1, cell.f0.clone(), 100) if cell.three_d
+               else plain_chunk(cell.pstep, cell.f0.clone(), 500))
+        states = [("initial", cell.f0), ("advanced", adv)] + states
+    errs, held, seps = [], [], []
+    for name, f in states:
+        got = s1(f, torch.empty_like(f))
+        want = cell.pstep(f)
+        torch.cuda.synchronize()
+        held.append(close_or_relative(got, want, cell.tol, cell.relative))
+        errs.append(float((got - want).abs().max()))
+        if name == "perturbed" and cell.consts.variant & ~SOURCE:
+            # a domain or obstacle rule beyond the cylinder's
+            sep = separation(cell.label, cell.base(f, torch.empty_like(f)),
+                             want, cell.tol)
+            seps.append(f"the obstacle domain's {cell.consts.mode} library "
+                        f"misses the plain step on the perturbed state by "
+                        f"{sep:.0f}x the tolerance")
+        if name == "perturbed" and cell.consts.variant & SOURCE:
+            err_src, sep = source_check(cell, f)
+            errs.append(err_src)
+            seps.append(f"at F = {SOURCE_CHECK_FORCE} from the perturbed "
+                        f"state 1 step max abs err {err_src:.3e} and the "
+                        f"library without the source {sep:.0f}x the "
+                        f"tolerance off")
+        for d in (cell.depths[1:] if full else cell.depths[-1:]):
+            gotn = cell.steps[d](f, torch.empty_like(f))
+            wantn = kernel_chunk(s1, f.clone(), d)
+            torch.cuda.synchronize()
+            require(torch.equal(gotn, wantn),
+                    f"{cell.label} N={d} from the {name} state: "
+                    f"{float((gotn - wantn).abs().max())} off {d} 1-step "
+                    "launches")
+    del states, got, want, gotn, wantn, fp
+    torch.cuda.empty_cache()
+    drift = ""
+    if full:
+        if cell.three_d:
+            from tpulbm_torch.convert import state_from_numpy
+            from tpulbm_torch.models import make_problem
+            from tpulbm_torch.ops import step_cuda, step_torch
+            n = DRIFT_N_3D
+            small = make_problem(
+                duct_at(cell.params, n) if cell.params.problem == "poiseuille"
+                else cell.params.replace(nx=n, ny=n, nz=n))
+            s0 = state_from_numpy(small.initial_state(), small, cell.f0.device)
+            sk = kernel_chunk(step_cuda.make_local_step_cuda_3d(
+                small, cell.f0.device), s0.clone(), 280)
+            sp = plain_chunk(step_torch.make_step_rolled(
+                small, cell.f0.device), s0, 280)
+        else:
+            sk = kernel_chunk(s1, cell.f0.clone(), 280)
+            sp = plain_chunk(cell.pstep, cell.f0.clone(), 280)
+        torch.cuda.synchronize()
+        err_280 = float((sk - sp).abs().max())
+        require(np.isfinite(err_280) and err_280 < DRIFT_280_BOUND,
+                f"{cell.label}: 280-step drift {err_280} beyond "
+                f"{DRIFT_280_BOUND}")
+        drift = (f"; 280 steps{f' at {DRIFT_N_3D}^3' if cell.three_d else ''}"
+                 f" {err_280:.3e} (bound {DRIFT_280_BOUND})")
+        del sk, sp
+    shape = "x".join(str(v) for v in cell.problem.spatial_shape[::-1])
+    names = (["initial", "advanced"] if full else []) + ["perturbed"]
+    print(f"domain parity {cell.label} [{cell.library}] {shape}: 1 step max "
+          f"abs err "
+          + ", ".join(f"{e:.3e} ({n})" for e, n in zip(errs, names))
+          + f" ({held[-1]} held); " + "; ".join(seps)
+          + f" (gate > {SEPARATION}x); N="
+          + "/".join(str(d) for d in (cell.depths[1:] if full
+                                      else cell.depths[-1:]))
+          + " bitwise against N 1-step launches" + drift)
+    torch.cuda.empty_cache()
+    return max(errs)
+
+
+def cell_main_path(dev, cell: Cell, run_dir: Path,
+                   mass: bool = False) -> dict:
+    """Phase 26 (2-D) or 28 (3-D) on one cell: the Runner for 2240 steps
+    every 140, no VTK, counted: exactly the one-device plan's launches
+    (2-D 525 N=4 and 140 1-step, 3-D 735 N=3, 17 N=2 and 1 one-step), every
+    one from the cell's own library, and none of another kernel; a finite
+    field; with `mass` (the closed cavity) a final checkpoint whose total
+    mass lies within CAVITY_MASS_TOL of the start. Returns the launches by
+    depth."""
+    from tpulbm_torch.ops import step_cuda
+    params = cell.params.replace(
+        num_timesteps=2240, output_frequency=140, output_dir=str(run_dir),
+        checkpoint_every=17 if mass else 0)
+    result, counts, wall = run_counted(params, dev)
+    lib = cell.library
+    if cell.three_d:
+        want = {**only("3d3", 735), "3d2": 17, "3d": 1}
+        by_lib = (step_cuda.collide_stream_3d.launches_by_library,
+                  step_cuda.collide_stream_3d_blocked.launches_by_library)
+        ok = by_lib == ({lib: 1}, {lib: {2: 17, 3: 735}})
+        launches = {1: counts["3d"], 2: counts["3d2"], 3: counts["3d3"]}
+    else:
+        want = {**only(4, 525), 1: 140}
+        by_lib = (step_cuda.collide_stream.launches_by_library,
+                  step_cuda.collide_stream_blocked.launches_by_library)
+        ok = by_lib == ({lib: 140}, {lib: {2: 0, 3: 0, 4: 525}})
+        launches = {1: counts[1], 4: counts[4]}
+    require(counts == want and ok,
+            f"{cell.label}: launch counts {counts} {by_lib}, not {want} all "
+            f"of {lib}")
+    if params.is_3d:
+        with np.load(run_dir / "fields3d.npz") as fields:
+            require(all(bool(np.isfinite(fields[k]).all())
+                        for k in ("rho", "ux", "uy", "uz")),
+                    f"{cell.label}: fields3d.npz not finite")
+    else:
+        text = (run_dir / "velocity_field.csv").read_bytes().lower()
+        require(text.count(b"\n") == params.nx * params.ny + 1
+                and b"nan" not in text and b"inf" not in text,
+                f"{cell.label}: velocity_field.csv not a finite field")
+    extra = ""
+    if cell.problem.solid is not None:
+        forces = check_forces(run_dir, list(range(0, 2240, 140)))
+        extra = f", final C_D {forces[-1, 3]:.6f}"
+    else:
+        require(not (run_dir / "forces.csv").exists(),
+                f"{cell.label}: forces.csv without an obstacle")
+    if mass:
+        ckpts = sorted(os.listdir(run_dir / "checkpoints"))
+        require(ckpts[-1] == "ckpt_000002240.npz", f"checkpoints {ckpts}")
+        with np.load(run_dir / "checkpoints" / ckpts[-1]) as z:
+            m = float(np.sum(z["f"], dtype=np.float64))
+        m0 = float(params.nx * params.ny)
+        require(abs(m / m0 - 1.0) < CAVITY_MASS_TOL,
+                f"cavity mass {m} against {m0}")
+        extra += (f", total mass {m:.3f} against {m0:.0f} at the start "
+                  f"(relative {m / m0 - 1.0:.3e}, gate {CAVITY_MASS_TOL})")
+    shape = (params.nx, params.ny) + ((params.nz,) if params.is_3d else ())
+    print(f"domain main path {cell.label}: {params.problem} "
+          + "x".join(str(v) for v in shape)
+          + f" f32, 2240 steps, launches "
+          + " + ".join(f"{n} {'1-step' if d == 1 else f'N={d}'}"
+                       for d, n in sorted(launches.items(), reverse=True))
+          + f" of {lib} and 0 others, {result.host_fetches} host fetches in "
+          f"the loop, {wall:.2f} s wall, runner {result.mlups:.1f} MLUPS"
+          + extra)
+    return launches
+
+
+def cell_timing(cell: Cell, card: str, depths=None) -> dict:
+    """Phase 29 on one cell: the plain step, the 1-step kernel and the
+    N-step kernels in turns, ms per step (an N-step launch counts N), the
+    lower of two turns; MLUPS and the share of each kernel's bound."""
+    depths = depths or cell.depths
+    big = cell.three_d
+    runs = {"plain": (lambda f, m: plain_chunk(cell.pstep, f, m),
+                      4 if big else 100, 2 if big else 20)}
+    for d in depths:
+        runs[d] = (lambda f, m, d=d: kernel_chunk(cell.steps[d], f, m // d),
+                   150 if big else 2400, 20)
+    order = ["plain", *depths]
+    times = {k: [] for k in order}
+    for which in order + order[::-1]:
+        run, m, warm = runs[which]
+        times[which].append(ms_per_step(run, cell.f0, m, warm))
+    ms = {k: min(v) for k, v in times.items()}
+    cells = int(np.prod(cell.problem.spatial_shape))
+    b = {d: cell.bound(d) for d in depths}
+    print(f"domain timing {cell.label} [{cell.library}] on {card}, ms/step "
+          f"(MLUPS): plain {ms['plain']:.5f} "
+          f"({cells / ms['plain'] / 1e3:.1f}); "
+          + "; ".join(f"{'1-step' if d == 1 else f'N={d}'} {ms[d]:.5f} "
+                      f"({cells / ms[d] / 1e3:.1f}, runs "
+                      f"{[round(v, 6) for v in times[d]]}), "
+                      f"{100 * b[d]['bound_ms'] / ms[d]:.1f}% of "
+                      f"{b[d]['bound_ms']:.5f} ({b[d]['bound_by']})"
+                      for d in depths))
+    return ms, b
+
+
+def cell_entries(cell: Cell, launches: dict, err: float, ms: dict,
+                 b: dict) -> list[dict]:
+    from tpulbm_torch.ops import step_cuda
+    out = []
+    for d in sorted(launches):
+        if cell.three_d:
+            source = step_cuda.SOURCE_3D if d == 1 else \
+                step_cuda.SOURCE_3D_BLOCKED
+            replaces = step_cuda.REPLACES_3D if d == 1 else \
+                step_cuda.REPLACES_3D_BLOCKED
+            base = "d3q19_collide_stream"
+        else:
+            source = step_cuda.KERNEL_SOURCE if d == 1 else \
+                step_cuda.BLOCKED_SOURCE
+            replaces = step_cuda.REPLACES if d == 1 else \
+                step_cuda.BLOCKED_REPLACES[d]
+            base = "d2q9_collide_stream"
+        out.append({"name": f"{base}{'' if d == 1 else f'_n{d}'}"
+                            f"[{cell.library}]",
+                    "route": "cuda", "source": source, "replaces": replaces,
+                    "launches": launches[d], "max_abs_err": err, "ms": ms[d],
+                    "plain_ms": ms["plain"], **b[d]})
+    return out
+
+
+def domain_gates(dev) -> None:
+    """tpulbm's physics gates through the kernels in f32: the Poiseuille
+    parabola (tests/test_poiseuille.py: 32x32, tau 0.8, F 2e-6, 12000
+    steps, RMSE < 0.005 and < 2% of u_max), the power-law channel
+    (tests/test_power_law.py:144-160: 16x24, n 0.5 and 1.5, RMSE < 4% of
+    u_max), Ghia at Re 100 (tests/test_cavity.py:196-225: 64^2, 30000
+    steps, the centreline extrema and the primary vortex) and the duct's
+    Fourier series (tests/test_duct3d.py:33-51: 8x17x17, 6000 steps, RMSE
+    < 2% of u_max)."""
+    from tpulbm_torch import physics
+    from tpulbm_torch.convert import state_from_numpy
+    from tpulbm_torch.models import make_problem
+    from tpulbm_torch.models import poiseuille
+    from tpulbm_torch.stepper import make_chunk_fn
+
+    def run(params, steps):
+        problem = make_problem(params)
+        f = state_from_numpy(problem.initial_state(), problem, dev)
+        f = make_chunk_fn(problem, dev, steps)(f)
+        torch.cuda.synchronize()
+        require(bool(physics.is_stable(f)), f"gate {params.problem} unstable")
+        _, u = physics.moments(problem.lattice, f)
+        return problem, u.double().cpu().numpy()
+
+    t0 = time.perf_counter()
+    params = channel_params(nx=32, ny=32, body_force=(2e-6, 0.0))
+    _, u = run(params, 12000)
+    prof, ana = u[0][:, 0], poiseuille.analytic_profile(params)
+    rmse = float(np.sqrt(np.mean((prof - ana) ** 2)))
+    xinv = float(np.abs(u[0] - u[0][:, :1]).max())
+    require(rmse < 0.005 and rmse / ana.max() < 0.02 and xinv < 1e-6,
+            f"Poiseuille gate: RMSE {rmse}, u_max {ana.max()}, x-variation "
+            f"{xinv}")
+    print(f"domain gate Poiseuille 32x32 f32, 12000 steps: RMSE {rmse:.3e} "
+          f"(gate 0.005), {100 * rmse / ana.max():.3f}% of u_max "
+          f"{ana.max():.5f} (gate 2%), x-variation {xinv:.1e}")
+    for n, k, force, steps in ((0.5, 4.04e-3, 2.84e-5, 12000),
+                               (1.5, 1.67, 3.16e-5, 16000)):
+        params = channel_params(nx=16, ny=24, body_force=(force, 0.0),
+                                power_law_n=n, power_law_k=k)
+        _, u = run(params, steps)
+        prof = u[0][:, 0]
+        ana = poiseuille.analytic_profile_power_law(params)
+        rel = float(np.sqrt(np.mean((prof - ana) ** 2)) / ana.max())
+        sym = float(np.abs(prof - prof[::-1]).max() / ana.max())
+        require(0.01 < ana.max() < 0.05 and rel < 0.04,
+                f"power-law gate n {n}: RMSE {rel} of u_max {ana.max()}")
+        print(f"domain gate power-law channel 16x24 n {n} f32, {steps} "
+              f"steps: RMSE {100 * rel:.3f}% of u_max {ana.max():.5f} (gate "
+              f"4%), asymmetry {sym:.1e} of u_max")
+    n, U = 64, 0.1
+    params = cavity_params(n=n, re=100.0, u=U)
+    _, u = run(params, 30000)
+    ux, uy = u
+    L = n - 1.0
+    ucl = 0.5 * (ux[:, n // 2 - 1] + ux[:, n // 2]) / U
+    vcl = 0.5 * (uy[n // 2 - 1, :] + uy[n // 2, :]) / U
+    k, kmax, kmin = int(np.argmin(ucl)), int(np.argmax(vcl)), \
+        int(np.argmin(vcl))
+    psi = np.cumsum(ux, axis=0)
+    iy, ix = np.unravel_index(np.argmax(np.abs(psi)), psi.shape)
+    checks = [-0.24 < ucl[k] < -0.17, 0.35 < k / L < 0.55, ucl[-1] > 0.7,
+              0.14 < vcl[kmax] < 0.21, -0.28 < vcl[kmin] < -0.21,
+              0.15 < kmax / L < 0.32, 0.72 < kmin / L < 0.90,
+              0.6 < iy / L < 0.85, 0.5 < ix / L < 0.75]
+    require(all(checks), f"Ghia gate: {checks}")
+    print(f"domain gate Ghia Re 100 64^2 f32, 30000 steps: u_min "
+          f"{ucl[k]:.4f} U at y/L {k / L:.3f}, v_max {vcl[kmax]:.4f} U at "
+          f"x/L {kmax / L:.3f}, v_min {vcl[kmin]:.4f} U at x/L "
+          f"{kmin / L:.3f}, vortex at ({ix / L:.3f}, {iy / L:.3f}); all nine "
+          "of tests/test_cavity.py's bounds held")
+    params = duct_params(nx=8, ny=17, nz=17, body_force=(2e-6, 0.0, 0.0))
+    _, u = run(params, 6000)
+    prof = u[0][:, :, 0]
+    ana = poiseuille.analytic_profile_duct(params)
+    rel = float(np.sqrt(np.mean((prof - ana) ** 2)) / ana.max())
+    require(rel < 0.02, f"duct gate: RMSE {rel} of u_max")
+    print(f"domain gate duct 8x17x17 f32, 6000 steps: RMSE {100 * rel:.3f}% "
+          f"of u_max {ana.max():.3e} (gate 2%)")
+    print(f"domain gates: {time.perf_counter() - t0:.2f} s")
+
+
+def domain_phases(dev, card: str) -> list[dict]:
+    """Phases 25-29: the kernels' new domains, source and obstacle rule.
+    25: 2-D parity (the channel under BGK, MRT and the power law in full,
+    its other collisions from the perturbed state; the cavity; the re200
+    cylinder with the bounce-back obstacle and with a body force); 26:
+    their main paths through the Runner (and the channel's N=3/N=2 run);
+    27-28: the duct (BGK in full, the others from the perturbed state),
+    the bounce-back sphere and the forced sphere, each Runner at 256^3;
+    tpulbm's physics gates; 29: timing. Returns the kernels' JSON
+    entries."""
+    from tpulbm_torch.ops import step_cuda
+    entries = []
+    t_all = time.perf_counter()
+    # 2-D
+    t0 = time.perf_counter()
+    cells2 = [("channel " + op, channel_params(**kw), op in CHANNEL_FULL)
+              for op, kw in CHANNEL_OPS.items()]
+    cells2 += [("cavity", cavity_params(), True),
+               ("cylinder bounce-back",
+                obstacle_params(False, obstacle_bc="bounce_back"), True),
+               ("cylinder source",
+                obstacle_params(False, body_force=(OBSTACLE_FORCE, 0.0)),
+                True)]
+    for label, params, full in cells2:
+        cell = Cell(dev, label, params)
+        err = cell_parity(cell, full)
+        run_dir = OUT_DIR / ("domain_" + label.replace(" ", "_"))
+        launches = cell_main_path(dev, cell, run_dir,
+                                  mass=params.problem == "cavity")
+        if label == "channel bgk":
+            # the other depths through the Runner: 311 steps every 150
+            d23 = OUT_DIR / "domain_channel_f150"
+            _, c23, _ = run_counted(params.replace(
+                num_timesteps=311, output_frequency=150,
+                output_dir=str(d23)), dev)
+            by = step_cuda.collide_stream_blocked.launches_by_library
+            require(c23 == {**only(3, 100), 1: 1, 2: 5}
+                    and by == {cell.library: {2: 5, 3: 100, 4: 0}},
+                    f"channel depths 3 and 2: {c23} {by}")
+            launches.update({2: c23[2], 3: c23[3]})
+            print(f"domain depths 3 and 2 channel: 311 steps every 150, "
+                  f"launches {c23[3]} N=3 + {c23[2]} N=2 + {c23[1]} 1-step "
+                  f"of {cell.library}")
+        ms, b = cell_timing(cell, card, tuple(sorted(launches)))
+        entries += cell_entries(cell, launches, err, ms, b)
+        del cell
+        torch.cuda.empty_cache()
+    print(f"domain phases 25-26 (2-D): {time.perf_counter() - t0:.2f} s")
+    # 3-D
+    t0 = time.perf_counter()
+    cells3 = [("duct " + op, duct_params(**kw), op == "bgk")
+              for op, kw in DUCT_OPS.items()]
+    cells3 += [("sphere bounce-back",
+                obstacle_params(True, obstacle_bc="bounce_back"), True),
+               ("sphere source",
+                obstacle_params(True, body_force=(OBSTACLE_FORCE, 0.0, 0.0)),
+                True)]
+    for label, params, full in cells3:
+        cell = Cell(dev, label, params)
+        err = cell_parity(cell, full)
+        run_dir = OUT_DIR / ("domain_" + label.replace(" ", "_"))
+        launches = cell_main_path(dev, cell, run_dir)
+        shutil.rmtree(run_dir)      # its 256^3 fields, checked
+        ms, b = cell_timing(cell, card)
+        entries += cell_entries(cell, launches, err, ms, b)
+        del cell
+        torch.cuda.empty_cache()
+    print(f"domain phases 27-28 (3-D): {time.perf_counter() - t0:.2f} s")
+    domain_gates(dev)
+    print(f"domain phases 25-29: {time.perf_counter() - t_all:.2f} s")
+    return entries
+
+
 def main() -> int:
     # phase 1: the card
     if not torch.cuda.is_available():
@@ -1607,22 +2236,31 @@ def main() -> int:
     modes += [(src, mode) for mode in step_cuda.COLLISION_MODES_3D[1:]
               for src in ("step_d3q19.cu", "step_d3q19_blocked.cu")]
     modes += [("step_thermal.cu", "smagorinsky")]
-    with ThreadPoolExecutor(len(sources) + len(modes)) as pool:
+    # and the domain, source and obstacle builds of phases 25-29
+    builds = new_builds()
+    with ThreadPoolExecutor(len(sources) + len(modes) + len(builds)) as pool:
         lib_jobs = [pool.submit(cuda_build.load, src) for src in sources]
         mode_jobs = [pool.submit(cuda_build.load, src,
                                  step_cuda.mode_defines(mode))
                      for src, mode in modes]
+        build_jobs = [pool.submit(cuda_build.load, src,
+                                  step_cuda.build_defines(mode, variant))
+                      for src, mode, variant in builds]
         libs = [job.result() for job in lib_jobs]
         mode_libs = [job.result() for job in mode_jobs]
-    print(f"build: {len(sources)} sources and {len(modes)} collision-mode "
-          f"builds (D2Q9, D3Q19, thermal) in "
-          f"{time.perf_counter() - t0:.2f} s")
+        build_libs = [job.result() for job in build_jobs]
+    print(f"build: {len(sources)} sources, {len(modes)} collision-mode "
+          f"builds (D2Q9, D3Q19, thermal) and {len(builds)} domain, source "
+          f"and obstacle builds in {time.perf_counter() - t0:.2f} s")
     for lib in libs:
         print(f"build: {lib.path.name} in {lib.build_seconds:.2f} s "
               f"({ptxas_summary(lib.log)})")
     for (src, mode), lib in zip(modes, mode_libs):
         print(f"build: {src} [{mode}] in {lib.build_seconds:.2f} s "
               f"({ptxas_summary(lib.log)})")
+    for (src, mode, variant), lib in zip(builds, build_libs):
+        print(f"build: {src} {step_cuda.build_defines(mode, variant)} in "
+              f"{lib.build_seconds:.2f} s ({ptxas_summary(lib.log)})")
     smem = {n: step_cuda._blocked_library().tpulbm_d2q9_blocked_smem_bytes(n)
             for n in DEPTHS}
     print(f"build: N-step kernel dynamic shared memory per block {smem} B")
@@ -1769,6 +2407,10 @@ def main() -> int:
           + "; ".join(f"{'plain' if k == 'plain' else f'N={k}'} "
                       f"{ms[k]:.5f} ({cells / ms[k] / 1e3:.1f}, runs "
                       f"{[round(v, 6) for v in times[k]]})" for k in order))
+    print(f"timing: the cylinder's BGK N=4 kernel {ms[4]:.5f} ms/step, "
+          f"{100 * (ms[4] / RE200_N4_BEFORE_MS - 1):+.2f}% against "
+          f"{RE200_N4_BEFORE_MS} ms/step before the domains (PERF.md §6, "
+          "row 2; NVIDIA H100 80GB HBM3, 700.00 W)")
 
     kernels = [{
         "name": "d2q9_collide_stream", "route": "cuda",
@@ -1789,6 +2431,7 @@ def main() -> int:
     kernels.extend(operator_phases(dev, card))
     kernels.extend(sphere_operator_phases(dev, card))
     kernels.append(thermal_les_phases(dev, card))
+    kernels.extend(domain_phases(dev, card))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -390,10 +390,10 @@ def test_3d_wrapper_guards_and_counts():
     problem = port_problem(_params(precision="f32"))
     step = step_cuda.make_local_step_cuda_3d(problem, "cpu")
     f = torch.from_numpy(problem.initial_state())
-    before = step_cuda.collide_stream_3d.launches
+    before = step_cuda.launches(step_cuda.collide_stream_3d)
     out = step(f, torch.empty_like(f))
     assert torch.equal(out, make_step_rolled(problem, "cpu")(f))
-    assert step_cuda.collide_stream_3d.launches == before   # CPU: no launch
+    assert step_cuda.launches(step_cuda.collide_stream_3d) == before  # CPU
     solid = torch.zeros(problem.spatial_shape, dtype=torch.uint8)
     step_cuda.check_inputs(f, torch.empty_like(f), solid, q=19)
     for bad_f, exc in ((f[:9], ValueError), (f[:, 0], ValueError),
@@ -407,7 +407,7 @@ def test_3d_wrapper_guards_and_counts():
         step_cuda.check_inputs(f, torch.empty_like(f), solid[:-1].clone(),
                                q=19)
     step_cuda.reset_launch_counts()
-    assert step_cuda.collide_stream_3d.launches == 0
+    assert step_cuda.launches(step_cuda.collide_stream_3d) == 0
     with pytest.raises(NotImplementedError):
         step_cuda.make_local_step_cuda_3d(
             port_problem(SimulationParams(nx=40, ny=20)), "cpu")

@@ -165,10 +165,12 @@ def test_3d_blocked_wrapper_guards_and_counts():
             want = plain(want)
         assert torch.equal(step(f, torch.empty_like(f)), want)
     # CPU calls run the plain version and are not counted
-    assert step_cuda.collide_stream_3d_blocked.launches == {2: 0, 3: 0}
-    step_cuda.collide_stream_3d_blocked.launches[3] = 5
+    wrapper = step_cuda.collide_stream_3d_blocked
+    assert step_cuda.launches(wrapper) == {2: 0, 3: 0}
+    step_cuda._count(wrapper, "bgk", 3)
+    assert step_cuda.launches(wrapper) == {2: 0, 3: 1}
     step_cuda.reset_launch_counts()
-    assert step_cuda.collide_stream_3d_blocked.launches == {2: 0, 3: 0}
+    assert step_cuda.launches(wrapper) == {2: 0, 3: 0}
     for n_sub in (1, 4, 8):
         with pytest.raises(NotImplementedError, match="Queue 2 item 12"):
             step_cuda.make_local_step_cuda_3d_blocked(problem, "cpu", n_sub)

@@ -199,13 +199,13 @@ def test_blocked_wrapper_counts_only_kernel_launches(n_sub):
     problem = port_problem(_params(nx=40, ny=20))
     step = step_cuda.make_local_step_cuda_blocked(problem, "cpu", n_sub)
     plain = step_torch.make_step_rolled(problem, "cpu")
-    before = dict(step_cuda.collide_stream_blocked.launches)
-    ones = step_cuda.collide_stream.launches
+    before = step_cuda.launches(step_cuda.collide_stream_blocked)
+    ones = step_cuda.launches(step_cuda.collide_stream)
     f = state_from_numpy(problem.initial_state(), problem, "cpu")
     got = step(f, torch.empty_like(f))
     want = f
     for _ in range(n_sub):
         want = plain(want)
     torch.testing.assert_close(got, want, rtol=0.0, atol=0.0)
-    assert step_cuda.collide_stream_blocked.launches == before
-    assert step_cuda.collide_stream.launches == ones
+    assert step_cuda.launches(step_cuda.collide_stream_blocked) == before
+    assert step_cuda.launches(step_cuda.collide_stream) == ones

@@ -228,9 +228,16 @@ def test_power_law_solver_matches_tpulbm_f64():
 
 
 def test_collisions_refuse_a_body_force():
-    f = torch.from_numpy(_populations(D2Q9, 3))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tphys.collide_kbc(D2Q9, f, 1.8, force=(1e-5, 0.0))
+    # once refused (ROADMAP item 12): every collision now adds the body
+    # force's source after relaxing, as tpulbm's do
+    f = _populations(D2Q9, 3)
+    force = (1e-5, -2e-6)
+    for name in ("collide_kbc", "collide_regularized", "collide"):
+        got = getattr(tphys, name)(D2Q9, torch.from_numpy(f), 1.8,
+                                   force=force)
+        want = getattr(jphys, name)(JD2Q9, jax.numpy.asarray(f), 1.8,
+                                    force=force)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **F64_TOL)
 
 
 # ---- the plain step against tpulbm's oracle step, f64 -------------------

@@ -8,6 +8,8 @@ card with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -53,9 +55,9 @@ def test_kernel_one_step_matches_plain(cuda, kw):
                                             **kw))
     f = state_from_numpy(_perturbed_state(problem, kw["nx"]), problem, cuda)
     kstep = step_cuda.make_local_step_cuda(problem, cuda)
-    before = step_cuda.collide_stream.launches
+    before = step_cuda.launches(step_cuda.collide_stream)
     got = kstep(f, torch.empty_like(f))
-    assert step_cuda.collide_stream.launches == before + 1
+    assert step_cuda.launches(step_cuda.collide_stream) == before + 1
     want = step_torch.make_step_rolled(problem, cuda)(f)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, **ONE_STEP_TOL)
@@ -64,9 +66,9 @@ def test_kernel_one_step_matches_plain(cuda, kw):
 def test_kernel_chunk_counts_every_launch(cuda):
     problem = make_problem(SimulationParams(nx=128, ny=64))
     f = state_from_numpy(problem.initial_state(), problem, cuda)
-    before = step_cuda.collide_stream.launches
+    before = step_cuda.launches(step_cuda.collide_stream)
     got = make_chunk_fn(problem, cuda, 25, backend="pallas")(f.clone())
-    assert step_cuda.collide_stream.launches == before + 25
+    assert step_cuda.launches(step_cuda.collide_stream) == before + 25
     want = make_chunk_fn(problem, cuda, 25, backend="jax")(f)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
@@ -95,9 +97,9 @@ def test_blocked_kernel_equals_n_one_step_launches(cuda, kw, n_sub):
     f = state_from_numpy(_perturbed_state(problem, kw["nx"]), problem, cuda)
     bstep = step_cuda.make_local_step_cuda_blocked(problem, cuda, n_sub)
     kstep = step_cuda.make_local_step_cuda(problem, cuda)
-    before = dict(step_cuda.collide_stream_blocked.launches)
+    before = dict(step_cuda.launches(step_cuda.collide_stream_blocked))
     got = bstep(f, torch.empty_like(f))
-    assert step_cuda.collide_stream_blocked.launches[n_sub] == \
+    assert step_cuda.launches(step_cuda.collide_stream_blocked)[n_sub] == \
         before[n_sub] + 1
     want = f.clone()
     for _ in range(n_sub):
@@ -113,8 +115,9 @@ def test_blocked_chunk_counts_every_launch(cuda):
     chunk = make_chunk_fn(problem, cuda, 28, backend="pallas")
     got = chunk(f.clone())
     assert chunk.substeps == 4
-    assert step_cuda.collide_stream_blocked.launches == {2: 0, 3: 0, 4: 7}
-    assert step_cuda.collide_stream.launches == 0
+    assert step_cuda.launches(step_cuda.collide_stream_blocked) == {
+        2: 0, 3: 0, 4: 7}
+    assert step_cuda.launches(step_cuda.collide_stream) == 0
     want = make_chunk_fn(problem, cuda, 28, backend="jax")(f)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
@@ -146,9 +149,10 @@ def test_operator_kernels_match_plain_and_each_other(cuda, op, shape):
     mode = step_torch.collision_mode(problem)
     f = state_from_numpy(_perturbed_state(problem, nx), problem, cuda)
     kstep = step_cuda.make_local_step_cuda(problem, cuda)
-    before = step_cuda.collide_stream.launches_by_mode[mode]
+    before = step_cuda.launches_by_mode(step_cuda.collide_stream)[mode]
     got = kstep(f, torch.empty_like(f))
-    assert step_cuda.collide_stream.launches_by_mode[mode] == before + 1
+    assert step_cuda.launches_by_mode(
+        step_cuda.collide_stream)[mode] == before + 1
     want = step_torch.make_step_rolled(problem, cuda)(f)
     torch.cuda.synchronize()
     if op == "kbc":   # tpulbm's KBC gate: its entropic ratio amplifies
@@ -185,9 +189,9 @@ def test_kernel_3d_one_step_matches_plain(cuda, kw):
                                             inlet_velocity=0.05, **kw))
     f = state_from_numpy(_perturbed_state(problem, kw["nx"]), problem, cuda)
     kstep = step_cuda.make_local_step_cuda_3d(problem, cuda)
-    before = step_cuda.collide_stream_3d.launches
+    before = step_cuda.launches(step_cuda.collide_stream_3d)
     got = kstep(f, torch.empty_like(f))
-    assert step_cuda.collide_stream_3d.launches == before + 1
+    assert step_cuda.launches(step_cuda.collide_stream_3d) == before + 1
     want = step_torch.make_step_rolled(problem, cuda)(f)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, **ONE_STEP_TOL)
@@ -203,10 +207,12 @@ def test_kernel_3d_chunk_counts_every_launch(cuda):
     got = chunk(f.clone())
     # tpulbm's plan for 28 steps: 8 N=3 launches, then 2 N=2
     assert chunk.plan == [(3, 8), (2, 2)]
-    assert step_cuda.collide_stream_3d_blocked.launches == {2: 2, 3: 8}
-    assert step_cuda.collide_stream_3d.launches == 0
-    assert step_cuda.collide_stream.launches == 0
-    assert step_cuda.collide_stream_blocked.launches == {2: 0, 3: 0, 4: 0}
+    assert step_cuda.launches(step_cuda.collide_stream_3d_blocked) == {
+        2: 2, 3: 8}
+    assert step_cuda.launches(step_cuda.collide_stream_3d) == 0
+    assert step_cuda.launches(step_cuda.collide_stream) == 0
+    assert step_cuda.launches(step_cuda.collide_stream_blocked) == {
+        2: 0, 3: 0, 4: 0}
     want = make_chunk_fn(problem, cuda, 28, backend="jax")(f)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
@@ -234,9 +240,9 @@ def test_blocked_kernel_3d_equals_n_one_step_launches(cuda, kw, n_sub):
     f = state_from_numpy(_perturbed_state(problem, kw["nx"]), problem, cuda)
     bstep = step_cuda.make_local_step_cuda_3d_blocked(problem, cuda, n_sub)
     kstep = step_cuda.make_local_step_cuda_3d(problem, cuda)
-    before = dict(step_cuda.collide_stream_3d_blocked.launches)
+    before = dict(step_cuda.launches(step_cuda.collide_stream_3d_blocked))
     got = bstep(f, torch.empty_like(f))
-    assert step_cuda.collide_stream_3d_blocked.launches == {
+    assert step_cuda.launches(step_cuda.collide_stream_3d_blocked) == {
         **before, n_sub: before[n_sub] + 1}
     want = f.clone()
     for _ in range(n_sub):
@@ -304,9 +310,10 @@ def test_operator_3d_kernels_match_plain_and_each_other(cuda, op, grid):
     f = state_from_numpy(_perturbed_state(problem, problem.params.nx),
                          problem, cuda)
     kstep = step_cuda.make_local_step_cuda_3d(problem, cuda)
-    before = step_cuda.collide_stream_3d.launches_by_mode[mode]
+    before = step_cuda.launches_by_mode(step_cuda.collide_stream_3d)[mode]
     got = kstep(f, torch.empty_like(f))
-    assert step_cuda.collide_stream_3d.launches_by_mode[mode] == before + 1
+    assert step_cuda.launches_by_mode(
+        step_cuda.collide_stream_3d)[mode] == before + 1
     want = step_torch.make_step_rolled(problem, cuda)(f)
     torch.cuda.synchronize()
     torch.testing.assert_close(
@@ -315,11 +322,11 @@ def test_operator_3d_kernels_match_plain_and_each_other(cuda, op, grid):
     for n_sub in step_cuda.BLOCKED_DEPTHS_3D:
         bstep = step_cuda.make_local_step_cuda_3d_blocked(problem, cuda,
                                                           n_sub)
-        before = step_cuda.collide_stream_3d_blocked.launches_by_mode[mode][
-            n_sub]
+        by_mode = functools.partial(step_cuda.launches_by_mode,
+                                    step_cuda.collide_stream_3d_blocked)
+        before = by_mode()[mode][n_sub]
         got = bstep(f, torch.empty_like(f))
-        assert step_cuda.collide_stream_3d_blocked.launches_by_mode[mode][
-            n_sub] == before + 1
+        assert by_mode()[mode][n_sub] == before + 1
         want = f.clone()
         for _ in range(n_sub):
             want = kstep(want, torch.empty_like(want))
@@ -348,10 +355,9 @@ def test_bgk_libraries_launch_path_is_unchanged(cuda):
     step_cuda.reset_launch_counts()
     f = state_from_numpy(problem.initial_state(), problem, cuda)
     make_chunk_fn(problem, cuda, 7, backend="pallas")(f)
-    assert step_cuda.collide_stream_3d_blocked.launches_by_mode["bgk"] == {
-        2: 2, 3: 1}
-    assert sum(sum(d.values()) for m, d in
-               step_cuda.collide_stream_3d_blocked.launches_by_mode.items()
+    by_mode = step_cuda.launches_by_mode(step_cuda.collide_stream_3d_blocked)
+    assert by_mode["bgk"] == {2: 2, 3: 1}
+    assert sum(sum(d.values()) for m, d in by_mode.items()
                if m != "bgk") == 0
 
 
@@ -377,9 +383,10 @@ def test_thermal_kernel_one_step_matches_plain(cuda, problem, nx, ny):
          * rng.uniform(0.9, 1.1, (problem.state_q, ny, nx))).astype(np.float32)
     s = state_from_numpy(s, problem, cuda)
     kstep = step_thermal_cuda.make_local_step_thermal_cuda(problem, cuda)
-    before = step_thermal_cuda.collide_stream_thermal.launches
+    before = step_cuda.launches(step_thermal_cuda.collide_stream_thermal)
     got = kstep(s, torch.empty_like(s))
-    assert step_thermal_cuda.collide_stream_thermal.launches == before + 1
+    assert step_cuda.launches(
+        step_thermal_cuda.collide_stream_thermal) == before + 1
     want = step_thermal.make_step_thermal(problem, cuda)(s)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, **ONE_STEP_TOL)
@@ -399,9 +406,11 @@ def test_thermal_les_kernel_one_step_matches_plain(cuda, problem, nx, ny):
          * rng.uniform(0.9, 1.1, (problem.state_q, ny, nx))).astype(np.float32)
     s = state_from_numpy(s, problem, cuda)
     kstep = step_thermal_cuda.make_local_step_thermal_cuda(problem, cuda)
-    before = dict(step_thermal_cuda.collide_stream_thermal.launches_by_mode)
+    before = step_cuda.launches_by_mode(
+        step_thermal_cuda.collide_stream_thermal)
     got = kstep(s, torch.empty_like(s))
-    assert step_thermal_cuda.collide_stream_thermal.launches_by_mode == {
+    assert step_cuda.launches_by_mode(
+        step_thermal_cuda.collide_stream_thermal) == {
         **before, "smagorinsky": before["smagorinsky"] + 1}
     want = step_thermal.make_step_thermal(problem, cuda)(s)
     torch.cuda.synchronize()
@@ -419,9 +428,9 @@ def test_thermal_chunk_counts_every_launch(cuda):
     chunk = make_chunk_fn(problem, cuda, 28, backend="pallas")
     got = chunk(s.clone())
     assert chunk.substeps == 1
-    assert step_thermal_cuda.collide_stream_thermal.launches == 28
-    assert step_cuda.collide_stream.launches == 0
-    assert step_cuda.collide_stream_3d.launches == 0
+    assert step_cuda.launches(step_thermal_cuda.collide_stream_thermal) == 28
+    assert step_cuda.launches(step_cuda.collide_stream) == 0
+    assert step_cuda.launches(step_cuda.collide_stream_3d) == 0
     want = make_chunk_fn(problem, cuda, 28, backend="jax")(s)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
@@ -470,8 +479,8 @@ def test_multiphase_chunk_counts_every_launch(cuda):
     got = chunk(f.clone())
     assert chunk.substeps == 1
     assert step_multiphase_cuda.collide_stream_multiphase.launches == 28
-    assert step_cuda.collide_stream.launches == 0
-    assert step_thermal_cuda.collide_stream_thermal.launches == 0
+    assert step_cuda.launches(step_cuda.collide_stream) == 0
+    assert step_cuda.launches(step_thermal_cuda.collide_stream_thermal) == 0
     want = make_chunk_fn(problem, cuda, 28, backend="jax")(f)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)

@@ -189,11 +189,11 @@ def test_kernel_wrapper_counts_only_kernel_launches():
     from tpulbm_torch.models import make_problem
     problem = make_problem(SimulationParams(nx=40, ny=20))
     step = step_cuda.make_local_step_cuda(problem, "cpu")
-    before = step_cuda.collide_stream.launches
+    before = step_cuda.launches(step_cuda.collide_stream)
     f = torch.from_numpy(problem.initial_state())
     out = step(f, torch.empty_like(f))
     assert bool(out.isfinite().all())
-    assert step_cuda.collide_stream.launches == before
+    assert step_cuda.launches(step_cuda.collide_stream) == before
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -31,7 +31,6 @@ def test_problem_arrays_match_tpulbm_bytewise(preset, precision):
 
 
 @pytest.mark.parametrize("problem,item", [
-    ("poiseuille", "item 12"), ("cavity", "item 12"),
     ("kolmogorov", "item 13"), ("passive-scalar", "item 13"),
     ("taylor-green", "item 13"), ("shear-layer", "item 13")])
 def test_unported_problems_name_their_roadmap_item(problem, item):
@@ -51,16 +50,36 @@ _SPHERE = dict(problem="cylinder3d", nz=8)
 
 
 @pytest.mark.parametrize("override,item", [
-    (dict(obstacle_bc="bounce_back"), "item 12"),
-    (dict(body_force=(1e-5, 0.0)), "item 12"),
     (dict(obstacle_bc="bouzidi"), "item 14"), (dict(nz=16), "item 16"),
     (dict(_SPHERE, lattice3d="d3q27"), "item 16"),
-    (dict(_SPHERE, obstacle_bc="bounce_back"), "item 12"),
-    (dict(_SPHERE, obstacle_bc="bouzidi"), "item 14"),
-    (dict(_SPHERE, body_force=(1e-5, 0.0, 0.0)), "item 12")])
+    (dict(problem="poiseuille", nz=8, lattice3d="d3q27"), "item 16"),
+    (dict(_SPHERE, obstacle_bc="bouzidi"), "item 14")])
 def test_unported_options_name_their_roadmap_item(override, item):
     with pytest.raises(NotImplementedError, match=re.escape(item)):
         port_problem(PRESETS["cylinder-small"].replace(**override))
+
+
+# the problems and options once refused with ROADMAP item 12: the Problem
+# carries tpulbm's fields and initial state
+@pytest.mark.parametrize("override", [
+    dict(problem="poiseuille"), dict(problem="cavity", nx=64, ny=64),
+    dict(obstacle_bc="bounce_back"), dict(body_force=(1e-5, 0.0)),
+    dict(_SPHERE, obstacle_bc="bounce_back"),
+    dict(_SPHERE, body_force=(1e-5, 0.0, 0.0))],
+    ids=["poiseuille", "cavity", "bounce_back", "body_force",
+         "sphere_bounce_back", "sphere_body_force"])
+def test_item12_problems_match_tpulbm(override):
+    params = PRESETS["cylinder-small"].replace(**override)
+    mine, ref = port_problem(params), jax_problem(params)
+    for name in ("obstacle_bc", "body_force", "walls_x", "walls_y",
+                 "walls_z", "lid_u", "closed_box", "periodic_x",
+                 "inlet_zou_he", "outlet_zou_he", "inlet_equilibrium",
+                 "outlet_zero_grad", "init_u", "collision"):
+        assert getattr(mine, name) == getattr(ref, name), name
+    assert (mine.solid is None) == (ref.solid is None)
+    if ref.solid is not None:
+        assert mine.solid.tobytes() == ref.solid.tobytes()
+    assert mine.initial_state().tobytes() == ref.initial_state().tobytes()
 
 
 # the sphere's operators, once refused: the Problem carries tpulbm's fields

@@ -263,8 +263,9 @@ def test_les_kernel_constants_and_library_mode():
     s = torch.from_numpy(les.initial_state())
     assert torch.equal(step(s, torch.empty_like(s)),
                        step_thermal.make_step_thermal(les, "cpu")(s))
-    assert step_thermal_cuda.collide_stream_thermal.launches_by_mode == {
-        "bgk": 0, "smagorinsky": 0}
+    assert step_cuda.launches_by_mode(
+        step_thermal_cuda.collide_stream_thermal) == {"bgk": 0,
+                                                      "smagorinsky": 0}
     # the other collisions are refused before a Problem is built, by the
     # check that validate_params shares
     with pytest.raises(ValueError, match="thermal"):
@@ -299,10 +300,13 @@ def test_kernel_wrapper_on_cpu_counts_no_launch():
     s = torch.from_numpy(problem.initial_state())
     out = step(s, torch.empty_like(s))
     assert bool(out.isfinite().all())
-    assert step_thermal_cuda.collide_stream_thermal.launches == 0
-    step_thermal_cuda.collide_stream_thermal.launches = 5
+    wrapper = step_thermal_cuda.collide_stream_thermal
+    assert step_cuda.launches(wrapper) == 0
+    step_cuda._count(wrapper, "smagorinsky")
+    assert step_cuda.launches_by_mode(wrapper) == {"bgk": 0,
+                                                   "smagorinsky": 1}
     step_cuda.reset_launch_counts()
-    assert step_thermal_cuda.collide_stream_thermal.launches == 0
+    assert step_cuda.launches(wrapper) == 0
 
 
 @pytest.mark.parametrize("bad,exc", [

@@ -1,17 +1,38 @@
-// The collision modes of the port's kernels and the per-cell relaxation
-// rates that the D2Q9 (d2q9_common.cuh) and D3Q19 (d3q19_common.cuh)
-// collisions share: the Smagorinsky closed form and the power law's
-// log-space Newton solve, in the arithmetic of tpulbm's Pallas kernels
-// (tpulbm/physics.py::power_law_inv_tau_from_gfac, the closed forms of
-// step_pallas.py and step_pallas3d.py).
+// The collision modes and domains of the port's kernels, and the per-cell
+// relaxation rates that the D2Q9 (d2q9_common.cuh) and D3Q19
+// (d3q19_common.cuh) collisions share: the Smagorinsky closed form and the
+// power law's log-space Newton solve, in the arithmetic of tpulbm's Pallas
+// kernels (tpulbm/physics.py::power_law_inv_tau_from_gfac, the closed forms
+// of step_pallas.py and step_pallas3d.py).
 //
-// The collision is fixed when a library is built: -DTPULBM_COLLISION=<mode>
-// (ops/step_cuda.py builds one library per mode), BGK when it is unset.
+// Each is fixed when a library is built (ops/step_cuda.py builds one
+// library per combination a run asks for):
+// * -DTPULBM_COLLISION=<mode>, BGK when it is unset;
+// * -DTPULBM_DOMAIN=<domain>, the boundary layout: the obstacle domain when
+//   it is unset (the 2-D cylinder: y walls, Zou-He inlet and outlet; the
+//   3-D sphere: y and z walls, equilibrium inlet, zero-gradient outlet),
+//   1 the channel (periodic x, y walls; in 3-D the duct, y and z walls),
+//   2 the cavity (x and y walls, the moving lid, the corner closure; 2-D);
+// * -DTPULBM_SOURCE=1: the body force's source added after every
+//   collision;
+// * -DTPULBM_BOUNCE_BACK=1: the bounce-back obstacle (solid cells skip the
+//   collision and store their pulled populations reversed) instead of the
+//   equilibrium pin; the obstacle domain only.
+// A library built with none of them is the one every earlier build ran.
 
 #pragma once
 
 #ifndef TPULBM_COLLISION
 #define TPULBM_COLLISION 0
+#endif
+#ifndef TPULBM_DOMAIN
+#define TPULBM_DOMAIN 0
+#endif
+#ifndef TPULBM_SOURCE
+#define TPULBM_SOURCE 0
+#endif
+#ifndef TPULBM_BOUNCE_BACK
+#define TPULBM_BOUNCE_BACK 0
 #endif
 
 namespace tpulbm {
@@ -29,6 +50,21 @@ enum Collision : int {
 };
 constexpr int kMode = TPULBM_COLLISION;
 static_assert(kMode >= kBGK && kMode <= kPowerLaw, "unknown collision mode");
+
+// The domains, in the order ops/step_cuda.py's DOMAINS lists them.
+enum Domain : int {
+  kObstacle = 0,  // inlet, outlet and a voxel obstacle
+  kChannel = 1,   // periodic x, no obstacle
+  kCavity = 2,    // closed box with a moving lid, no obstacle
+};
+constexpr int kDomain = TPULBM_DOMAIN;
+static_assert(kDomain >= kObstacle && kDomain <= kCavity, "unknown domain");
+constexpr bool kPeriodicX = kDomain == kChannel;
+constexpr bool kHasObstacle = kDomain == kObstacle;
+constexpr bool kSource = TPULBM_SOURCE != 0;
+constexpr bool kBounceBack = TPULBM_BOUNCE_BACK != 0;
+static_assert(!kBounceBack || kHasObstacle,
+              "the bounce-back obstacle needs the obstacle domain");
 
 constexpr int kPowerLawIters = 8;  // tpulbm physics.PLAW_ITERS
 
@@ -64,3 +100,10 @@ __device__ __forceinline__ float power_law_inv_tau(float gfac, float nm1,
 // The collision mode the library was built for (tpulbm::Collision);
 // ops/step_cuda.py checks it when it binds a library built for a mode.
 extern "C" int tpulbm_collision_mode() { return tpulbm::kMode; }
+
+// The rest of the build: the domain, then 4 with the source and 8 with the
+// bounce-back obstacle; ops/step_cuda.py checks it too.
+extern "C" int tpulbm_build_variant() {
+  return tpulbm::kDomain | (tpulbm::kSource ? 4 : 0) |
+         (tpulbm::kBounceBack ? 8 : 0);
+}

@@ -1,10 +1,11 @@
 // The per-cell parts of a D2Q9 timestep that every kernel of the port
-// shares, float32: moments and the collisions, the pull with the
-// reference's ghost rule, and the boundary sequence. step_d2q9.cu (one step
-// per launch) and step_d2q9_blocked.cu (N steps per launch) both build on
-// these functions, so that N launches of the first and one launch of the
-// second run the same operations in the same order and give the same bits;
-// the thermal and multiphase kernels (step_thermal.cu, step_multiphase.cu)
+// shares, float32: moments and the collisions with the body force's
+// source, the pull with the reference's ghost rule (or a periodic x), and
+// the boundary sequence of each domain. step_d2q9.cu (one step per launch)
+// and step_d2q9_blocked.cu (N steps per launch) both build on these
+// functions, so that N launches of the first and one launch of the second
+// run the same operations in the same order and give the same bits; the
+// thermal and multiphase kernels (step_thermal.cu, step_multiphase.cu)
 // reuse the moments and the BGK and Smagorinsky relaxations.
 //
 // Rounding: the BGK relaxation follows the plain version
@@ -15,7 +16,8 @@
 // -fmad=false, so no multiply and add are fused into one rounding, and
 // without fast math, so sqrtf, expf, logf and division stay IEEE.
 //
-// The collision is fixed when a library is built (collision_modes.cuh).
+// The collision, the domain, the source and the obstacle rule are fixed
+// when a library is built (collision_modes.cuh).
 
 #pragma once
 
@@ -56,6 +58,8 @@ struct StepConsts {
   float eq_in[kQ];       // frozen ghost equilibrium(rho=1, u=(u_in, 0))
   float w[kQ];           // lattice weights: the rest equilibrium of solids
   ModeConsts m;
+  float src[kQ];         // body-force source 3 w_i (c_i . F) (kSource)
+  float lid7, lid8;      // the lid's 6 w_i (c_i . u_lid) for i = 7, 8
 };
 
 constexpr int kModeFloats = sizeof(ModeConsts) / sizeof(float);
@@ -64,7 +68,8 @@ static_assert(sizeof(ModeConsts) == kModeFloats * sizeof(float),
 
 inline StepConsts make_consts(float inv_tau, float u_in, float one_minus_u_in,
                               const float* eq_in, const float* w,
-                              const float* mode) {
+                              const float* mode, const float* src, float lid7,
+                              float lid8) {
   StepConsts k;
   k.inv_tau = inv_tau;
   k.u_in = u_in;
@@ -72,7 +77,10 @@ inline StepConsts make_consts(float inv_tau, float u_in, float one_minus_u_in,
   for (int i = 0; i < kQ; ++i) {
     k.eq_in[i] = eq_in[i];
     k.w[i] = w[i];
+    k.src[i] = src[i];
   }
+  k.lid7 = lid7;
+  k.lid8 = lid8;
   memcpy(&k.m, mode, sizeof(ModeConsts));
   return k;
 }
@@ -290,10 +298,28 @@ __device__ __forceinline__ void collide(float* f, const StepConsts& k) {
   }
 }
 
+// One cell's collision with what the build adds to it, in place: nothing
+// on a solid cell under the bounce-back obstacle (it keeps its
+// populations), else the collision and, with kSource, the source. Under the
+// equilibrium obstacle solid cells collide like fluid ones: the pin
+// replaces them after the stream.
+__device__ __forceinline__ void collide_cell(float* f, const StepConsts& k,
+                                             bool solid) {
+  if constexpr (kBounceBack) {
+    if (solid) return;
+  }
+  collide(f, k);
+  if constexpr (kSource) {
+#pragma unroll
+    for (int i = 0; i < kQ; ++i) f[i] = f[i] + k.src[i];
+  }
+}
+
 // Pull g_i(x, y) = f_post_i((x, y) - c_i) with the reference's ghost rule:
 // a source across a y edge (corners included) gives the frozen equilibrium,
-// one across an x edge gives zero, and an in-domain source gives
-// post(i, dx, dy), the post-collision value of population i at
+// one across an x edge gives zero (in the channel the x axis wraps, and the
+// caller's post returns the wrapped neighbour), and an in-domain source
+// gives post(i, dx, dy), the post-collision value of population i at
 // (x + dx, y + dy) that the caller keeps.
 template <class Post>
 __device__ __forceinline__ void pull_d2q9(float* g, int x, int y, int nx,
@@ -303,7 +329,7 @@ __device__ __forceinline__ void pull_d2q9(float* g, int x, int y, int nx,
     const int sy = y - cy;
     const int sx = x - cx;
     if (sy < 0 || sy >= ny) return k.eq_in[i];
-    if (sx < 0 || sx >= nx) return 0.0f;
+    if (!kPeriodicX && (sx < 0 || sx >= nx)) return 0.0f;
     return post(i, -cx, -cy);
   };
   g[0] = pull(0, 0, 0);
@@ -317,11 +343,8 @@ __device__ __forceinline__ void pull_d2q9(float* g, int x, int y, int nx,
   g[8] = pull(8, 1, -1);
 }
 
-// The edge rules on one fluid cell's post-stream populations, in place:
-// bounce-back walls (bottom, then top) -> Zou-He inlet -> Zou-He outlet.
-// Every rule reads only this cell.
-__device__ __forceinline__ void apply_edges(float* g, int x, int y, int nx,
-                                            int ny, const StepConsts& k) {
+// Bounce-back y walls on one cell, bottom then top.
+__device__ __forceinline__ void walls_y(float* g, int y, int ny) {
   if (y == 0) {
     g[2] = g[4];
     g[5] = g[7];
@@ -332,6 +355,14 @@ __device__ __forceinline__ void apply_edges(float* g, int x, int y, int nx,
     g[7] = g[5];
     g[8] = g[6];
   }
+}
+
+// The edge rules of the obstacle domain on one fluid cell's post-stream
+// populations, in place: bounce-back walls (bottom, then top) -> Zou-He
+// inlet -> Zou-He outlet. Every rule reads only this cell.
+__device__ __forceinline__ void apply_edges(float* g, int x, int y, int nx,
+                                            int ny, const StepConsts& k) {
+  walls_y(g, y, ny);
   // Zou-He velocity inlet at x = 0
   if (x == 0) {
     const float rho_bc =
@@ -407,36 +438,129 @@ __device__ __forceinline__ void apply_corner(float* g, int x, int y, int nx,
   }
 }
 
-// The boundary sequence on one cell's post-stream populations, in place:
-// the edge rules, then (kCorners) the clean corners, or the obstacle pin on
-// a solid cell. post and solid_at as for apply_corner. The kernels are
-// built with and without the corners, so that a run without them carries
-// no trace of their code.
+// The cavity's walls on one cell, in place, in tpulbm's order: the bottom
+// wall; the top wall moving at u_lid, f_i <- f_opp(i) + 6 w_i rho_w
+// (c_i . u_lid) with rho_w = sum_{c_y = 0} f + 2 sum_{c_y > 0} f in index
+// order (the known populations); then the side walls, left and right.
+__device__ __forceinline__ void cavity_walls(float* g, int x, int y, int nx,
+                                             int ny, const StepConsts& k) {
+  if (y == 0) {
+    g[2] = g[4];
+    g[5] = g[7];
+    g[6] = g[8];
+  }
+  if (y == ny - 1) {
+    float rho_w = g[0] + g[1];
+    rho_w = rho_w + 2.0f * g[2];
+    rho_w = rho_w + g[3];
+    rho_w = rho_w + 2.0f * g[5];
+    rho_w = rho_w + 2.0f * g[6];
+    g[4] = g[2];
+    g[7] = g[5] + k.lid7 * rho_w;
+    g[8] = g[6] + k.lid8 * rho_w;
+  }
+  if (x == 0) {
+    g[1] = g[3];
+    g[5] = g[7];
+    g[8] = g[6];
+  }
+  if (x == nx - 1) {
+    g[3] = g[1];
+    g[6] = g[8];
+    g[7] = g[5];
+  }
+}
+
+// The cavity's corner closure (tpulbm ops/boundaries.py:203-246,
+// step_pallas.py:598-641) at a wall∩wall cell, after its walls: rho* is the
+// density of the diagonally inward neighbour after its pull (an interior
+// cell when nx, ny >= 3: no ghost rule, no wall), which this thread
+// recomputes from post(), so the caller must hold the post-collision values
+// two cells inward in x and y; its populations are summed in index order.
+template <class Post>
+__device__ __forceinline__ void cavity_corner(float* g, int x, int y, int nx,
+                                              int ny, const StepConsts& k,
+                                              const Post& post) {
+  const int dx = x == 0 ? 1 : -1;
+  const int dy = y == 0 ? 1 : -1;
+  float h[kQ];
+  pull_d2q9(h, x + dx, y + dy, nx, ny, k, [&](int i, int sx, int sy) {
+    return post(i, sx + dx, sy + dy);
+  });
+  float rho_star = h[0];
+#pragma unroll
+  for (int i = 1; i < kQ; ++i) rho_star = rho_star + h[i];
+  if (dy > 0 && dx > 0) {
+    close_corner<1, 2, 5, 6, 8>(g, rho_star);
+  } else if (dy > 0) {
+    close_corner<3, 2, 6, 5, 7>(g, rho_star);
+  } else if (dx > 0) {
+    close_corner<1, 4, 8, 5, 7>(g, rho_star);
+  } else {
+    close_corner<3, 4, 7, 6, 8>(g, rho_star);
+  }
+}
+
+// The boundary sequence of the library's domain on one cell's post-stream
+// populations, in place. The obstacle domain: on a solid cell the obstacle
+// rule (the pin to rest equilibrium, or under kBounceBack the pulled
+// populations reversed), else the edge rules, then (kCorners) the clean
+// corners. The channel: the y walls. The cavity: its walls, then the corner
+// closure. post and solid_at as for apply_corner; solid is false outside
+// the obstacle domain. The kernels are built with and without the clean
+// corners, so that a run without them carries no trace of their code.
 template <bool kCorners, class Post, class SolidAt>
 __device__ __forceinline__ void apply_boundaries(float* g, bool solid, int x,
                                                  int y, int nx, int ny,
                                                  const StepConsts& k,
                                                  const Post& post,
                                                  const SolidAt& solid_at) {
-  if (solid) {
-    // equilibrium obstacle: solid cells are pinned to rest equilibrium
-#pragma unroll
-    for (int i = 0; i < kQ; ++i) g[i] = k.w[i];
-    return;
-  }
-  apply_edges(g, x, y, nx, ny, k);
-  if constexpr (kCorners) {
+  if constexpr (kDomain == kChannel) {
+    walls_y(g, y, ny);
+  } else if constexpr (kDomain == kCavity) {
+    cavity_walls(g, x, y, nx, ny, k);
     if ((x == 0 || x == nx - 1) && (y == 0 || y == ny - 1))
-      apply_corner(g, x, y, nx, ny, k, post, solid_at);
+      cavity_corner(g, x, y, nx, ny, k, post);
+  } else {
+    if (solid) {
+      if constexpr (kBounceBack) {
+        constexpr int opp[kQ] = {0, 3, 4, 1, 2, 7, 8, 5, 6};
+        float r[kQ];
+#pragma unroll
+        for (int i = 0; i < kQ; ++i) r[i] = g[opp[i]];
+#pragma unroll
+        for (int i = 0; i < kQ; ++i) g[i] = r[i];
+      } else {
+        // equilibrium obstacle: solid cells are pinned to rest equilibrium
+#pragma unroll
+        for (int i = 0; i < kQ; ++i) g[i] = k.w[i];
+      }
+      return;
+    }
+    apply_edges(g, x, y, nx, ny, k);
+    if constexpr (kCorners) {
+      if ((x == 0 || x == nx - 1) && (y == 0 || y == ny - 1))
+        apply_corner(g, x, y, nx, ny, k, post, solid_at);
+    }
   }
 }
 
 // Rows the tiling of a kernel with kBY-row tiles starts below y = 0: one
-// with the clean corners when the inlet's top corner would sit on a tile's
-// first row, where its inward neighbour's pull would reach past the rows
-// the tile holds; else zero. Any offset gives the same bits.
+// when a corner rule reads two rows inward (the clean corners at the inlet,
+// the cavity's corners) and the top corner would sit on a tile's first row,
+// where that read would reach past the rows the tile holds; else zero.
+// Any offset gives the same bits.
 inline int tile_row_shift(int ny, int kBY, bool corners) {
   return corners && ny > 1 && (ny - 1) % kBY == 0 ? 1 : 0;
+}
+
+// Columns the tiling starts left of x = 0, for the same reason: one in the
+// cavity when its right corners would sit on a tile's first column. Other
+// domains' tiles start at x = 0 (kColShift false), so their kernels carry
+// neither the shift nor the test for x < 0 it brings.
+constexpr bool kColShift = kDomain == kCavity;
+inline int tile_col_shift(int nx, int kBX) {
+  return kColShift && nx > 1 && (nx - 1) % kBX == 0 ? 1 : 0;
 }
 
 }  // namespace tpulbm

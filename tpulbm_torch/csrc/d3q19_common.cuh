@@ -1,10 +1,12 @@
 // The per-cell parts of a D3Q19 timestep that the port's 3-D kernels share,
-// float32: the collisions, the pull with the reference's ghost rule, and
-// the boundary sequence of the sphere in a duct. step_d3q19.cu (one step
-// per launch) and step_d3q19_blocked.cu (N steps per launch) both build on
-// these functions, so that N launches of the first and one launch of the
-// second run the same operations in the same order and give the same bits,
-// under every collision.
+// float32: the collisions with the body force's source, the pull with the
+// reference's ghost rule (or a periodic x), and the boundary sequences of
+// the sphere in a duct (the obstacle domain) and of the periodic duct (the
+// channel domain). step_d3q19.cu (one step per launch) and
+// step_d3q19_blocked.cu (N steps per launch) both build on these
+// functions, so that N launches of the first and one launch of the second
+// run the same operations in the same order and give the same bits, under
+// every collision.
 //
 // Rounding: the BGK relaxation follows the plain version
 // (tpulbm_torch/ops/step_torch.py); the other collisions follow the
@@ -18,8 +20,8 @@
 // IEEE.
 //
 // The collision is fixed when a library is built (collision_modes.cuh):
-// BGK, TRT, MRT, regularized, Smagorinsky or the power law. tpulbm has no
-// 3-D KBC.
+// BGK, TRT, MRT, regularized, Smagorinsky or the power law (tpulbm has no
+// 3-D KBC); so are the domain, the source and the obstacle rule.
 
 #pragma once
 
@@ -63,8 +65,12 @@
 namespace tpulbm3d {
 
 constexpr int kQ = 19;
+using tpulbm::kBounceBack;
+using tpulbm::kHasObstacle;
 using tpulbm::kMode;
+using tpulbm::kPeriodicX;
 static_assert(kMode != tpulbm::kKBC, "tpulbm's KBC operator is 2-D only");
+static_assert(tpulbm::kDomain != tpulbm::kCavity, "the cavity is 2-D");
 
 // MRT's rank-r correction, zero-padded to the largest D3Q19 rank: only the
 // ten ghost moments (e, eps, qx, qy, qz, pixx, piww, mx, my, mz) can relax
@@ -103,15 +109,18 @@ struct Consts {
   float eq_in[kQ];  // frozen ghost and inlet equilibrium(rho=1, u=(U,0,0))
   float w[kQ];      // lattice weights: the rest equilibrium of solids
   ModeConsts m;
+  float src[kQ];    // body-force source 3 w_i (c_i . F) (kSource)
 };
 
+// src may be null: no source (zeros).
 inline Consts make_consts(float inv_tau, const float* eq_in, const float* w,
-                          const float* mode) {
+                          const float* mode, const float* src = nullptr) {
   Consts k;
   k.inv_tau = inv_tau;
   for (int i = 0; i < kQ; ++i) {
     k.eq_in[i] = eq_in[i];
     k.w[i] = w[i];
+    k.src[i] = src ? src[i] : 0.0f;
   }
   memcpy(&k.m, mode, sizeof(ModeConsts));
   return k;
@@ -312,16 +321,33 @@ __device__ __forceinline__ void collide(float* f, const Consts& k) {
   }
 }
 
+// One cell's collision with what the build adds to it, in place: nothing
+// on a solid cell under the bounce-back obstacle (it keeps its
+// populations), else the collision and, with kSource, the source.
+__device__ __forceinline__ void collide_cell(float* f, const Consts& k,
+                                             bool solid) {
+  if constexpr (kBounceBack) {
+    if (solid) return;
+  }
+  collide(f, k);
+  if constexpr (tpulbm::kSource) {
+#pragma unroll
+    for (int i = 0; i < kQ; ++i) f[i] = f[i] + k.src[i];
+  }
+}
+
 // Pull g_i(x, y, z) = f_post_i((x, y, z) - c_i) with the reference's ghost
 // rule: a source across a y or z edge gives the frozen equilibrium, one
-// across only an x edge gives zero, and an in-domain source gives
-// post(Pop<i>(), ox, oy, oz), the collided value the caller keeps at offset
-// (ox, oy, oz) = -c_i from (x, y, z).
+// across only an x edge gives zero (in the duct the x axis wraps, and the
+// caller's post returns the wrapped neighbour), and an in-domain source
+// gives post(Pop<i>(), ox, oy, oz), the collided value the caller keeps at
+// offset (ox, oy, oz) = -c_i from (x, y, z).
 template <class Post>
 __device__ __forceinline__ void pull_d3q19(float* g, int x, int y, int z,
                                            int nx, int ny, int nz,
                                            const Consts& k, const Post& post) {
-  if (x > 0 && x < nx - 1 && y > 0 && y < ny - 1 && z > 0 && z < nz - 1) {
+  if ((kPeriodicX || (x > 0 && x < nx - 1)) && y > 0 && y < ny - 1 &&
+      z > 0 && z < nz - 1) {
     // every source lies in the domain: the same values, no edge tests
 #define TPULBM_PULL_IN(i, cx, cy, cz, o) \
   g[i] = post(Pop<i>(), -(cx), -(cy), -(cz));
@@ -334,7 +360,7 @@ __device__ __forceinline__ void pull_d3q19(float* g, int x, int y, int z,
     const int sx = x - (cx), sy = y - (cy), sz = z - (cz);                 \
     if (sy < 0 || sy >= ny || sz < 0 || sz >= nz) {                        \
       g[i] = k.eq_in[i];                                                   \
-    } else if (sx < 0 || sx >= nx) {                                       \
+    } else if (!kPeriodicX && (sx < 0 || sx >= nx)) {                      \
       g[i] = 0.0f;                                                         \
     } else {                                                               \
       g[i] = post(Pop<i>(), -(cx), -(cy), -(cz));                          \
@@ -347,7 +373,8 @@ __device__ __forceinline__ void pull_d3q19(float* g, int x, int y, int z,
 // The part of the boundary sequence that precedes the outlet, on the
 // post-stream populations of a fluid cell at (x, y, z), in place:
 // bounce-back y walls (bottom, then top), z walls (bottom, then top), each
-// reading what the one before wrote, then the equilibrium inlet at x = 0.
+// reading what the one before wrote, then (the obstacle domain) the
+// equilibrium inlet at x = 0.
 __device__ __forceinline__ void walls_and_inlet(float* g, int x, int y, int z,
                                                 int ny, int nz,
                                                 const Consts& k) {
@@ -366,7 +393,7 @@ __device__ __forceinline__ void walls_and_inlet(float* g, int x, int y, int z,
 #undef TPULBM_WALL_Z0
 #undef TPULBM_WALL_Z1
 #undef TPULBM_WALL
-  if (x == 0) {
+  if (kHasObstacle && x == 0) {
 #pragma unroll
     for (int i = 0; i < kQ; ++i) g[i] = k.eq_in[i];
   }
@@ -374,22 +401,38 @@ __device__ __forceinline__ void walls_and_inlet(float* g, int x, int y, int z,
 
 // One cell's populations after a whole step (tpulbm's stored state:
 // post-BC, pre-collision) at (x, y, z); solid_at(ox) tells whether the cell
-// at offset ox along x is solid. A solid cell is pinned to rest equilibrium
-// (the equilibrium obstacle); a fluid cell pulls, then the walls and the
-// inlet apply. The zero-gradient outlet is not cell-local: a fluid cell at
-// x = nx-1 takes every population of x = nx-2 as it stands after the stream
-// and the walls, before the obstacle pin, even when nx-2 is solid (the
-// walls skip solids), so its pull is that of nx-2 (of x itself when
-// nx == 1, as a roll does). post(Pop<i>(), ox, oy, oz) reads the collided
-// value at offset (ox, oy, oz) from (x, y, z).
+// at offset ox along x is solid (read in the obstacle domain only). In the
+// duct a cell pulls, then the walls apply. In the obstacle domain a solid
+// cell is pinned to rest equilibrium (the equilibrium obstacle) or stores
+// its pulled populations reversed (the bounce-back obstacle); a fluid cell
+// pulls, then the walls and the inlet apply. The zero-gradient outlet is
+// not cell-local: a fluid cell at x = nx-1 takes every population of
+// x = nx-2 as it stands after the stream and the walls, before the
+// obstacle, even when nx-2 is solid (the walls skip solids), so its pull
+// is that of nx-2 (of x itself when nx == 1, as a roll does).
+// post(Pop<i>(), ox, oy, oz) reads the collided value at offset
+// (ox, oy, oz) from (x, y, z).
 template <class Solid, class Post>
 __device__ __forceinline__ void step_cell(float* g, const Solid& solid_at,
                                           int x, int y, int z, int nx, int ny,
                                           int nz, const Consts& k,
                                           const Post& post) {
+  if constexpr (!kHasObstacle) {
+    pull_d3q19(g, x, y, z, nx, ny, nz, k, post);
+    walls_and_inlet(g, x, y, z, ny, nz, k);
+    return;
+  }
   if (solid_at(0)) {
+    if constexpr (kBounceBack) {
+      float r[kQ];
+      pull_d3q19(r, x, y, z, nx, ny, nz, k, post);
+#define TPULBM_REVERSE(i, cx, cy, cz, o) g[i] = r[o];
+      TPULBM_D3Q19(TPULBM_REVERSE)
+#undef TPULBM_REVERSE
+    } else {
 #pragma unroll
-    for (int i = 0; i < kQ; ++i) g[i] = k.w[i];
+      for (int i = 0; i < kQ; ++i) g[i] = k.w[i];
+    }
     return;
   }
   const int dx = (x == nx - 1 && nx > 1) ? 1 : 0;

@@ -1,12 +1,17 @@
 // One fused D2Q9 timestep on an NVIDIA Hopper GPU (sm_90a), float32:
-// collide -> pull-stream -> ghost sanitize -> y walls -> Zou-He inlet ->
-// Zou-He outlet -> clean Zou-He corners (optional) -> obstacle pin.
+// collide (+ body-force source) -> pull-stream -> ghost sanitize -> the
+// domain's boundary sequence. The obstacle domain (the cylinder): y walls
+// -> Zou-He inlet -> Zou-He outlet -> clean Zou-He corners (optional) ->
+// obstacle (pin or bounce-back). The channel: periodic x, y walls. The
+// cavity: bottom wall -> moving lid -> side walls -> corner closure.
 //
 // Replaces tpulbm/ops/step_pallas.py::make_local_step_pallas (the fused
-// 1-step Pallas TPU kernel) for the equilibrium obstacle, under each of its
-// collisions (BGK, TRT, MRT, regularized, KBC, Smagorinsky, power law: one
-// library per collision, d2q9_common.cuh) and with either corner rule. Its
-// plain version is tpulbm_torch/ops/step_torch.py.
+// 1-step Pallas TPU kernel) with its src, periodic_x, walls_x, lid_u and
+// bounce_back modes, under each of its collisions (BGK, TRT, MRT,
+// regularized, KBC, Smagorinsky, power law) and with either corner rule:
+// one library per collision, domain, source and obstacle rule
+// (collision_modes.cuh, d2q9_common.cuh). Its plain version is
+// tpulbm_torch/ops/step_torch.py.
 //
 // Layout: f is SoA (9, ny, nx) float32 with x fastest, one plane per
 // population. One thread owns one cell, x fastest, so each plane is read
@@ -24,14 +29,18 @@
 // store. The halo cells are re-read by the neighbouring blocks (mostly from
 // L2) and collided there again.
 //
-// Every boundary condition but one reads only the post-stream values of
+// Every boundary condition but two reads only the post-stream values of
 // its own cell, so the TPU kernel's slab ring, lane padding and VMEM sizing
-// have no counterpart here. The exception is the clean corners' inlet
+// have no counterpart here. The exceptions are the clean corners' inlet
 // rule, which needs the density of the node one row inward after its own
-// pull and inlet: the corner thread recomputes that pull from the shared
-// tile, which holds the two rows it reaches when the tiling starts one row
-// lower wherever the top inlet corner would sit on a tile's first row
-// (tpulbm::tile_row_shift).
+// pull and inlet, and the cavity's corners, which need that of the
+// diagonally inward node after its pull: the corner thread recomputes that
+// pull from the shared tile, which holds the two rows (and columns) it
+// reaches when the tiling starts one row lower (one column further left)
+// wherever a top (right) corner would sit on a tile's first row (column)
+// (tpulbm::tile_row_shift, tile_col_shift). In the channel the tile's halo
+// columns at x = -1 and x = nx are loaded from x = nx-1 and x = 0, so the
+// pull wraps with no test of its own.
 //
 // The collision, the pull's ghost rule and the boundary sequence live in
 // d2q9_common.cuh, shared with the N-step kernel (step_d2q9_blocked.cu).
@@ -55,28 +64,34 @@ template <bool kCorners>
 __global__ void __launch_bounds__(kBX * kBY)
     d2q9_step_kernel(const float* __restrict__ f, float* __restrict__ out,
                      const uint8_t* __restrict__ solid, int nx, int ny,
-                     int y_shift, StepConsts k) {
+                     int x_shift, int y_shift, StepConsts k) {
   __shared__ float post[kQ][kTY][kTX];  // post-collision tile + halo
 
   const int tx = threadIdx.x;
   const int ty = threadIdx.y;
-  const int x0 = blockIdx.x * kBX;
+  const int x0 = blockIdx.x * kBX - (tpulbm::kColShift ? x_shift : 0);
   const int y0 = blockIdx.y * kBY - y_shift;
   const size_t plane = static_cast<size_t>(nx) * ny;
 
-  // Load and collide the tile and its in-domain halo. Halo cells outside
-  // the domain are never read below: the ghost rules replace them.
+  // Load and collide the tile and its in-domain halo (in the channel the
+  // halo columns x = -1 and x = nx wrap). Halo cells outside the domain are
+  // never read below: the ghost rules replace them.
   for (int t = ty * kBX + tx; t < kTX * kTY; t += kBX * kBY) {
     const int ly = t / kTX;
     const int lx = t - ly * kTX;
-    const int gx = x0 + lx - 1;
+    int gx = x0 + lx - 1;
     const int gy = y0 + ly - 1;
-    if (gx < 0 || gx >= nx || gy < 0 || gy >= ny) continue;
+    if constexpr (tpulbm::kPeriodicX) {
+      if (gx < -1 || gx > nx || gy < 0 || gy >= ny) continue;
+      gx = gx < 0 ? nx - 1 : gx >= nx ? 0 : gx;
+    } else {
+      if (gx < 0 || gx >= nx || gy < 0 || gy >= ny) continue;
+    }
     const size_t cell = static_cast<size_t>(gy) * nx + gx;
     float v[kQ];
 #pragma unroll
     for (int i = 0; i < kQ; ++i) v[i] = f[i * plane + cell];
-    tpulbm::collide(v, k);
+    tpulbm::collide_cell(v, k, tpulbm::kBounceBack && solid[cell] != 0);
 #pragma unroll
     for (int i = 0; i < kQ; ++i) post[i][ly][lx] = v[i];
   }
@@ -84,7 +99,7 @@ __global__ void __launch_bounds__(kBX * kBY)
 
   const int x = x0 + tx;
   const int y = y0 + ty;
-  if (x >= nx || y < 0 || y >= ny) return;
+  if ((tpulbm::kColShift && x < 0) || x >= nx || y < 0 || y >= ny) return;
 
   // post-collision value of population i and solid flag at (x+dx, y+dy)
   auto post_at = [&](int i, int dx, int dy) {
@@ -96,8 +111,9 @@ __global__ void __launch_bounds__(kBX * kBY)
   float g[kQ];
   tpulbm::pull_d2q9(g, x, y, nx, ny, k, post_at);
   const size_t cell = static_cast<size_t>(y) * nx + x;
-  tpulbm::apply_boundaries<kCorners>(g, solid[cell] != 0, x, y, nx, ny, k,
-                                     post_at, solid_at);
+  tpulbm::apply_boundaries<kCorners>(
+      g, tpulbm::kHasObstacle && solid[cell] != 0, x, y, nx, ny, k, post_at,
+      solid_at);
 #pragma unroll
   for (int i = 0; i < kQ; ++i) out[i * plane + cell] = g[i];
 }
@@ -107,26 +123,33 @@ __global__ void __launch_bounds__(kBX * kBY)
 // Plain C interface, loaded with ctypes (tpulbm_torch/ops/step_cuda.py).
 // Launches one step on `stream` and returns cudaGetLastError(): it neither
 // synchronizes nor allocates.
+// The clean corners belong to the obstacle domain; elsewhere the launcher
+// takes clean_corners = 0.
 extern "C" int tpulbm_d2q9_step(const float* f, float* out,
                                 const uint8_t* solid, int nx, int ny,
                                 float inv_tau, float u_in,
                                 float one_minus_u_in, const float* eq_in,
                                 const float* w, int clean_corners,
-                                const float* mode, int device, void* stream) {
+                                const float* mode, const float* src,
+                                float lid7, float lid8, int device,
+                                void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const StepConsts k = tpulbm::make_consts(inv_tau, u_in, one_minus_u_in,
-                                           eq_in, w, mode);
-  const int y_shift = tpulbm::tile_row_shift(ny, kBY, clean_corners != 0);
+                                           eq_in, w, mode, src, lid7, lid8);
+  const int y_shift = tpulbm::tile_row_shift(
+      ny, kBY, clean_corners != 0 || tpulbm::kDomain == tpulbm::kCavity);
+  const int x_shift = tpulbm::tile_col_shift(nx, kBX);
   const dim3 block(kBX, kBY);
-  const dim3 grid((nx + kBX - 1) / kBX, (ny + y_shift + kBY - 1) / kBY);
+  const dim3 grid((nx + x_shift + kBX - 1) / kBX,
+                  (ny + y_shift + kBY - 1) / kBY);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (clean_corners)
     d2q9_step_kernel<true><<<grid, block, 0, s>>>(f, out, solid, nx, ny,
-                                                  y_shift, k);
+                                                  x_shift, y_shift, k);
   else
     d2q9_step_kernel<false><<<grid, block, 0, s>>>(f, out, solid, nx, ny,
-                                                   y_shift, k);
+                                                   x_shift, y_shift, k);
   return static_cast<int>(cudaGetLastError());
 }
 

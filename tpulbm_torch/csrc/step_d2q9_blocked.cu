@@ -1,12 +1,15 @@
 // N fused D2Q9 timesteps per launch (temporal blocking) on an NVIDIA Hopper
 // GPU (sm_90a), float32, N = 2, 3 or 4. Each substep is the 1-step kernel's
-// sequence: collide -> pull-stream -> ghost rule -> y walls -> Zou-He inlet
-// -> Zou-He outlet -> clean Zou-He corners (optional) -> obstacle pin.
+// sequence (step_d2q9.cu): collide (+ source) -> pull-stream -> ghost rule
+// -> the domain's boundary sequence (the cylinder's walls, Zou-He inlet and
+// outlet, clean corners and obstacle; the channel's periodic x and walls;
+// the cavity's walls, lid and corners).
 //
 // Replaces tpulbm/ops/step_pallas.py::make_local_step_pallasN (the N-step
 // Pallas cascade, N = 3 and 4) and ::make_local_step_pallas2 (its 2-step
-// form) for the equilibrium obstacle, under each of their collisions (one
-// library per collision, d2q9_common.cuh) and with either corner rule. Its
+// form) with their src, periodic_x, walls_x, lid_u and bounce_back modes,
+// under each of their collisions and with either corner rule (one library
+// per collision, domain, source and obstacle rule; d2q9_common.cuh). Its
 // plain version is N applications of tpulbm_torch/ops/step_torch.py's step.
 //
 // What bounds it: one launch moves the 73 B per cell of one step through
@@ -35,17 +38,25 @@
 // and the mask), and a larger one above 48 KB asks for it with
 // cudaFuncSetAttribute.
 //
-// Every boundary condition but the clean corners' inlet rule is
-// cell-local, so the TPU kernel's slab ring, DMA semaphores, ring inputs
-// rb/rt/mrb/mrt and slab-skip flags have no counterpart here. The inlet
-// corner recomputes the pull, walls and inlet of the node one row inward
-// from the buffer, so it reads sources two rows inward. The inlet column
-// and the bottom row sit N cells into the only window that holds them, and
-// the top row at least N rows in, so those sources hold the previous
-// substep's values wherever a corner is computed, except at substep N when
-// the top inlet corner is the tile's first row: its sources then sit at
-// depth N-2, one row short. The tiling then starts one row lower
-// (tpulbm::tile_row_shift), which leaves every cell's bits as they are.
+// Every boundary condition but the clean corners' inlet rule and the
+// cavity's corners is cell-local, so the TPU kernel's slab ring, DMA
+// semaphores, ring inputs rb/rt/mrb/mrt and slab-skip flags have no
+// counterpart here. A corner recomputes the pull of its inward neighbour
+// (one row inward at the inlet, diagonally inward in the cavity) from the
+// buffer, so it reads sources two rows (and columns) inward. The left
+// column and the bottom row sit N cells into the only window that holds
+// them, and the top row and the right column at least N cells in, so
+// those sources hold the previous substep's values wherever a corner is
+// computed, except at substep N when a top (right) corner is the tile's
+// first row (column): its sources then sit at depth N-2, one cell short.
+// The tiling then starts one row lower (one column further left;
+// tpulbm::tile_row_shift, tile_col_shift), which leaves every cell's bits
+// as they are.
+//
+// In the channel the window's x-halo wraps: a window cell at gx < 0 or
+// gx >= nx holds cell gx mod nx, loaded from there and stepped like every
+// other window cell (the channel's rules do not depend on x), so the
+// trapezoid of valid cells is that of an interior block.
 //
 // Bits. Collision, pull and boundary code come from d2q9_common.cuh, shared
 // with step_d2q9.cu, and both libraries are built with -fmad=false: one
@@ -78,11 +89,25 @@ struct Window {
       ((kTX - 2) * (kTY - 2) + kThreads - 1) / kThreads;
 };
 
+// Whether the window cell at global (gx, gy) is stepped: a cell of the
+// domain, or in the channel any cell of a domain row, gx then taken mod nx
+// (the cell it holds).
+__device__ __forceinline__ bool window_cell(int& gx, int gy, int nx,
+                                            int ny) {
+  if constexpr (tpulbm::kPeriodicX) {
+    gx %= nx;
+    if (gx < 0) gx += nx;
+    return gy >= 0 && gy < ny;
+  } else {
+    return !(gx < 0 || gx >= nx || gy < 0 || gy >= ny);
+  }
+}
+
 template <int N, bool kCorners>
 __global__ void __launch_bounds__(kThreads)
     d2q9_blocked_kernel(const float* __restrict__ f, float* __restrict__ out,
                         const uint8_t* __restrict__ solid, int nx, int ny,
-                        int y_shift, StepConsts k) {
+                        int x_shift, int y_shift, StepConsts k) {
   using W = Window<N>;
   constexpr int TX = W::kTX;
   constexpr int TY = W::kTY;
@@ -91,7 +116,8 @@ __global__ void __launch_bounds__(kThreads)
   uint8_t* mask = reinterpret_cast<uint8_t*>(smem + kQ * W::kCells);
 
   const int tid = threadIdx.x;
-  const int x0 = blockIdx.x * kBX - N;  // global coordinates of window (0, 0)
+  // global coordinates of window (0, 0)
+  const int x0 = blockIdx.x * kBX - N - (tpulbm::kColShift ? x_shift : 0);
   const int y0 = blockIdx.y * kBY - N - y_shift;
   const size_t plane = static_cast<size_t>(nx) * ny;
 
@@ -99,15 +125,15 @@ __global__ void __launch_bounds__(kThreads)
   for (int c = tid; c < W::kCells; c += kThreads) {
     const int ly = c / TX;
     const int lx = c - ly * TX;
-    const int gx = x0 + lx;
+    int gx = x0 + lx;
     const int gy = y0 + ly;
-    if (gx < 0 || gx >= nx || gy < 0 || gy >= ny) continue;
+    if (!window_cell(gx, gy, nx, ny)) continue;
     const size_t cell = static_cast<size_t>(gy) * nx + gx;
-    mask[c] = solid[cell];
+    if constexpr (tpulbm::kHasObstacle) mask[c] = solid[cell];
     float v[kQ];
 #pragma unroll
     for (int i = 0; i < kQ; ++i) v[i] = f[i * plane + cell];
-    tpulbm::collide(v, k);
+    tpulbm::collide_cell(v, k, tpulbm::kBounceBack && mask[c] != 0);
 #pragma unroll
     for (int i = 0; i < kQ; ++i) post[i * W::kCells + c] = v[i];
   }
@@ -128,9 +154,9 @@ __global__ void __launch_bounds__(kThreads)
       if (c >= cells) continue;
       const int ly = s + c / w;
       const int lx = s + c % w;
-      const int gx = x0 + lx;
+      int gx = x0 + lx;
       const int gy = y0 + ly;
-      if (gx < 0 || gx >= nx || gy < 0 || gy >= ny) continue;
+      if (!window_cell(gx, gy, nx, ny)) continue;
       const int lc = ly * TX + lx;
       at[j] = lc;
       auto post_at = [&](int i, int dx, int dy) {
@@ -139,10 +165,11 @@ __global__ void __launch_bounds__(kThreads)
       auto solid_at = [&](int dx, int dy) {
         return mask[lc + dy * TX + dx] != 0;
       };
+      const bool is_solid = tpulbm::kHasObstacle && mask[lc] != 0;
       tpulbm::pull_d2q9(g[j], gx, gy, nx, ny, k, post_at);
-      tpulbm::apply_boundaries<kCorners>(g[j], mask[lc] != 0, gx, gy, nx,
-                                         ny, k, post_at, solid_at);
-      tpulbm::collide(g[j], k);
+      tpulbm::apply_boundaries<kCorners>(g[j], is_solid, gx, gy, nx, ny, k,
+                                         post_at, solid_at);
+      tpulbm::collide_cell(g[j], k, tpulbm::kBounceBack && is_solid);
     }
     __syncthreads();  // every pull of this substep has read the old values
 #pragma unroll
@@ -160,7 +187,8 @@ __global__ void __launch_bounds__(kThreads)
     const int lx = N + c % kBX;
     const int gx = x0 + lx;
     const int gy = y0 + ly;
-    if (gx >= nx || gy < 0 || gy >= ny) continue;
+    if ((tpulbm::kColShift && gx < 0) || gx >= nx || gy < 0 || gy >= ny)
+      continue;
     const int lc = ly * TX + lx;
     auto post_at = [&](int i, int dx, int dy) {
       return post[i * W::kCells + lc + dy * TX + dx];
@@ -170,8 +198,9 @@ __global__ void __launch_bounds__(kThreads)
     };
     float g[kQ];
     tpulbm::pull_d2q9(g, gx, gy, nx, ny, k, post_at);
-    tpulbm::apply_boundaries<kCorners>(g, mask[lc] != 0, gx, gy, nx, ny, k,
-                                       post_at, solid_at);
+    tpulbm::apply_boundaries<kCorners>(
+        g, tpulbm::kHasObstacle && mask[lc] != 0, gx, gy, nx, ny, k, post_at,
+        solid_at);
     const size_t cell = static_cast<size_t>(gy) * nx + gx;
 #pragma unroll
     for (int i = 0; i < kQ; ++i) out[i * plane + cell] = g[i];
@@ -181,7 +210,9 @@ __global__ void __launch_bounds__(kThreads)
 template <int N, bool kCorners>
 cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
                    int ny, const StepConsts& k, cudaStream_t stream) {
-  const int y_shift = tpulbm::tile_row_shift(ny, kBY, kCorners);
+  const int y_shift = tpulbm::tile_row_shift(
+      ny, kBY, kCorners || tpulbm::kDomain == tpulbm::kCavity);
+  const int x_shift = tpulbm::tile_col_shift(nx, kBX);
   constexpr size_t smem = Window<N>::kSmemBytes;
   if constexpr (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -189,9 +220,10 @@ cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid((nx + kBX - 1) / kBX, (ny + y_shift + kBY - 1) / kBY);
+  const dim3 grid((nx + x_shift + kBX - 1) / kBX,
+                  (ny + y_shift + kBY - 1) / kBY);
   d2q9_blocked_kernel<N, kCorners><<<grid, kThreads, smem, stream>>>(
-      f, out, solid, nx, ny, y_shift, k);
+      f, out, solid, nx, ny, x_shift, y_shift, k);
   return cudaGetLastError();
 }
 
@@ -208,18 +240,21 @@ cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
 // Plain C interface, loaded with ctypes (tpulbm_torch/ops/step_cuda.py).
 // Launches n_sub steps on `stream` and returns cudaGetLastError() (a refused
 // launch never runs and a later synchronize would not report it); it
-// neither synchronizes nor allocates.
+// neither synchronizes nor allocates. The clean corners belong to the
+// obstacle domain; elsewhere the launcher takes clean_corners = 0.
 extern "C" int tpulbm_d2q9_step_blocked(const float* f, float* out,
                                         const uint8_t* solid, int nx, int ny,
                                         int n_sub, float inv_tau, float u_in,
                                         float one_minus_u_in,
                                         const float* eq_in, const float* w,
                                         int clean_corners, const float* mode,
-                                        int device, void* stream) {
+                                        const float* src, float lid7,
+                                        float lid8, int device,
+                                        void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const StepConsts k = tpulbm::make_consts(inv_tau, u_in, one_minus_u_in,
-                                           eq_in, w, mode);
+                                           eq_in, w, mode, src, lid7, lid8);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool c = clean_corners != 0;
   switch (n_sub) {

@@ -1,14 +1,17 @@
 // One fused D3Q19 timestep on an NVIDIA Hopper GPU (sm_90a), float32:
-// collide -> pull-stream -> ghost sanitize -> y walls -> z walls ->
-// equilibrium inlet -> zero-gradient outlet -> obstacle pin. The flow past
-// a sphere in a duct (problem "cylinder3d").
+// collide (+ body-force source) -> pull-stream -> ghost sanitize -> y
+// walls -> z walls, then for the flow past a sphere in a duct (problem
+// "cylinder3d", the obstacle domain) -> equilibrium inlet -> zero-gradient
+// outlet -> obstacle (pin or bounce-back); the Poiseuille duct (problem
+// "poiseuille" with nz > 0, the channel domain) has a periodic x instead.
 //
 // Replaces tpulbm/ops/step_pallas3d.py::make_local_step_pallas3d (:370, the
 // full-plane 1-step Pallas TPU kernel) and ::make_local_step_pallas3d_tiled
-// (:745) at n_sub=1 (its y-tiled 1-step form), for the equilibrium
-// obstacle and each collision of _collide_planes_core (BGK, TRT, MRT,
-// regularized, Smagorinsky, power law; one library per collision, built
-// with -DTPULBM_COLLISION). Both compute one step of
+// (:745) at n_sub=1 (its y-tiled 1-step form), with their src and
+// bounce_back modes and the tiled builder's periodic x (the duct), under
+// each collision of _collide_planes_core (BGK, TRT, MRT, regularized,
+// Smagorinsky, power law): one library per collision, domain, source and
+// obstacle rule (collision_modes.cuh). Both compute one step of
 // tpulbm/ops/step_jax.py::make_step_rolled; so does this kernel, cell by
 // cell. Its plain version is tpulbm_torch/ops/step_torch.py.
 //
@@ -42,7 +45,9 @@
 // are therefore aligned to the right edge (block 0 holds x = nx-32 ..
 // nx-1), so nx-2 and its whole x neighbourhood lie inside the block that
 // holds nx-1 and no extra halo column is needed; the ragged tile is the
-// leftmost one, masked.
+// leftmost one, masked. In the duct the halo columns x = -1 and x = nx are
+// loaded from x = nx-1 and x = 0, so the pull wraps with no test of its
+// own.
 //
 // The collision, the pull and the boundary sequence live in
 // d3q19_common.cuh, shared with the N-step kernel (step_d3q19_blocked.cu);
@@ -98,15 +103,21 @@ __global__ void __launch_bounds__(kBX * kBY)
     for (int t = tid; t < kTX * kTY; t += kBX * kBY) {
       const int ly = t / kTX;
       const int lx = t - ly * kTX;
-      const int gx = x0 + lx - 1;
+      int gx = x0 + lx - 1;
       const int gy = y0 + ly - 1;
-      if (gx < 0 || gx >= nx || gy < 0 || gy >= ny) continue;
+      if constexpr (tpulbm3d::kPeriodicX) {
+        if (gx < -1 || gx > nx || gy < 0 || gy >= ny) continue;
+        gx = gx < 0 ? nx - 1 : gx >= nx ? 0 : gx;
+      } else {
+        if (gx < 0 || gx >= nx || gy < 0 || gy >= ny) continue;
+      }
       const size_t cell = static_cast<size_t>(z) * plane +
                           static_cast<size_t>(gy) * nx + gx;
       float v[kQ];
 #pragma unroll
       for (int i = 0; i < kQ; ++i) v[i] = f[i * pop + cell];
-      tpulbm3d::collide(v, k);
+      tpulbm3d::collide_cell(v, k,
+                             tpulbm3d::kBounceBack && solid[cell] != 0);
 #pragma unroll
       for (int i = 0; i < kQ; ++i) r[ring_index(i, ly, lx)] = v[i];
     }
@@ -157,14 +168,14 @@ extern "C" int tpulbm_d3q19_step(const float* f, float* out,
                                  const uint8_t* solid, int nx, int ny, int nz,
                                  float inv_tau, const float* eq_in,
                                  const float* w, const float* mode,
-                                 int device, void* stream) {
+                                 const float* src, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(d3q19_step_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kRingBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Consts k = tpulbm3d::make_consts(inv_tau, eq_in, w, mode);
+  const Consts k = tpulbm3d::make_consts(inv_tau, eq_in, w, mode, src);
   const dim3 block(kBX, kBY);
   const dim3 grid((nx + kBX - 1) / kBX, (ny + kBY - 1) / kBY,
                   (nz + kZChunk - 1) / kZChunk);

@@ -1,16 +1,17 @@
 // N fused D3Q19 timesteps per launch (temporal blocking) on an NVIDIA Hopper
 // GPU (sm_90a), float32, N = 2 or 3. Each substep is the 1-step kernel's
-// sequence (step_d3q19.cu): collide -> pull-stream with the ghost rule ->
-// y walls -> z walls -> equilibrium inlet -> zero-gradient outlet ->
-// obstacle pin. The flow past a sphere in a duct (problem "cylinder3d").
+// sequence (step_d3q19.cu): collide (+ source) -> pull-stream with the
+// ghost rule -> y walls -> z walls, then for the sphere in a duct ->
+// equilibrium inlet -> zero-gradient outlet -> obstacle (pin or
+// bounce-back); the Poiseuille duct has a periodic x instead.
 //
 // Replaces tpulbm/ops/step_pallas3d.py::make_local_step_pallas3d_tiled
 // (:745) at n_sub = 2 and 3, the y-tiled z-plane cascade that tpulbm's
 // one-device 3-D dispatch runs by default (parallel/sharded_step.py:175-198),
-// for the equilibrium obstacle and each collision of its
-// _collide_planes_core (one library per collision, -DTPULBM_COLLISION, as
-// step_d3q19.cu). Its plain version is
-// N applications of tpulbm_torch/ops/step_torch.py's step.
+// with its src, bounce_back and periodic-x modes, under each collision of
+// its _collide_planes_core (one library per collision, domain, source and
+// obstacle rule, as step_d3q19.cu). Its plain version is N applications of
+// tpulbm_torch/ops/step_torch.py's step.
 //
 // What bounds it: a launch moves the 153 B per cell of one step through
 // device memory (read and write 19 f32, read the 1-byte mask) and advances
@@ -49,7 +50,11 @@
 // which needs x = nx-3 .. nx-1 of the ring at every stage. The x tiles are
 // right-aligned as in the 1-step kernel, so the block that holds nx-1
 // holds that neighbourhood at every stage; the ragged tile is the leftmost
-// one, masked. Population-plane offsets are 64-bit.
+// one, masked. Population-plane offsets are 64-bit. In the duct the
+// widened tiles' x-halo wraps: a cell at x < 0 or x >= nx holds cell
+// x mod nx, loaded from there and stepped like every other cell (the
+// duct's rules do not depend on x), so the trapezoid of valid cells is that
+// of an interior block.
 //
 // Bits. Collision, pull and boundary code come from d3q19_common.cuh,
 // shared with step_d3q19.cu, and both libraries are built with -fmad=false:
@@ -183,6 +188,19 @@ __device__ __forceinline__ void store_ring(float* ring, const Slots& s, int at,
 #undef TPULBM_STORE
 }
 
+// Whether a widened tile's cell at global (x, y) is stepped: a cell of the
+// domain, or in the duct any cell of a domain row, x then taken mod nx (the
+// cell it holds).
+__device__ __forceinline__ bool tile_cell(int& x, int y, int nx, int ny) {
+  if constexpr (tpulbm3d::kPeriodicX) {
+    x %= nx;
+    if (x < 0) x += nx;
+    return y >= 0 && y < ny;
+  } else {
+    return x >= 0 && x < nx && y >= 0 && y < ny;
+  }
+}
+
 // What every stage of a block shares, beside the constants (read where
 // they lie, in the kernel's parameters).
 struct March {
@@ -218,18 +236,20 @@ __device__ __forceinline__ void inner_stages(float* smem, const March& g,
       // the loads of all J cells are in flight together
       constexpr int J = (C + T::kThreads - 1) / T::kThreads;
       float v[J][kQ];
-      bool in[J];
+      bool in[J], solid[J];
 #pragma unroll
       for (int j = 0; j < J; ++j) {
         const int t = threadIdx.x + j * T::kThreads;
         const int ly = t / W;
         const int lx = t - ly * W;
-        const int x = g.x0 - (N - K) + lx;
+        int x = g.x0 - (N - K) + lx;
         const int y = g.y0 - (N - K) + ly;
-        in[j] = t < C && x >= 0 && x < g.nx && y >= 0 && y < g.ny;
+        in[j] = t < C && tile_cell(x, y, g.nx, g.ny);
+        solid[j] = false;
         if (in[j]) {
           const int at = (ly + 1) * Ws + lx + 1;     // this cell in stage K-1
           const int at0 = (ly + K) * W0 + lx + K;    // and in stage 0
+          if constexpr (tpulbm3d::kBounceBack) solid[j] = mask[at0] != 0;
           tpulbm3d::step_cell(
               v[j], [&](int ox) { return mask[at0 + ox] != 0; }, x, y, p,
               g.nx, g.ny, g.nz, k, [&](auto i, int ox, int oy, int oz) {
@@ -241,7 +261,7 @@ __device__ __forceinline__ void inner_stages(float* smem, const March& g,
 #pragma unroll
       for (int j = 0; j < J; ++j) {
         if (in[j]) {
-          tpulbm3d::collide(v[j], k);
+          tpulbm3d::collide_cell(v[j], k, solid[j]);
           store_ring<C>(dst, wr, threadIdx.x + j * T::kThreads, v[j]);
         }
       }
@@ -300,13 +320,13 @@ __global__ void __launch_bounds__(kBX * kBY)
         const int t = tid + j * T::kThreads;
         const int ly = t / W0;
         const int lx = t - ly * W0;
-        const int gx = g.x0 - N + lx;
+        int gx = g.x0 - N + lx;
         const int gy = g.y0 - N + ly;
-        in[j] = t < C0 && gx >= 0 && gx < nx && gy >= 0 && gy < ny;
+        in[j] = t < C0 && tile_cell(gx, gy, nx, ny);
         if (in[j]) {
           const size_t cell = static_cast<size_t>(m) * plane +
                               static_cast<size_t>(gy) * nx + gx;
-          mask_m[t] = solid[cell];
+          if constexpr (tpulbm3d::kHasObstacle) mask_m[t] = solid[cell];
 #pragma unroll
           for (int i = 0; i < kQ; ++i) v[j][i] = f[i * pop + cell];
         }
@@ -314,7 +334,9 @@ __global__ void __launch_bounds__(kBX * kBY)
 #pragma unroll
       for (int j = 0; j < J; ++j) {
         if (in[j]) {
-          tpulbm3d::collide(v[j], k);
+          tpulbm3d::collide_cell(
+              v[j], k,
+              tpulbm3d::kBounceBack && mask_m[tid + j * T::kThreads] != 0);
           store_ring<C0>(smem, wr, tid + j * T::kThreads, v[j]);
         }
       }
@@ -370,11 +392,11 @@ extern "C" int tpulbm_d3q19_step_blocked(const float* f, float* out,
                                          const uint8_t* solid, int nx, int ny,
                                          int nz, int n_sub, float inv_tau,
                                          const float* eq_in, const float* w,
-                                         const float* mode, int device,
-                                         void* stream) {
+                                         const float* mode, const float* src,
+                                         int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Consts k = tpulbm3d::make_consts(inv_tau, eq_in, w, mode);
+  const Consts k = tpulbm3d::make_consts(inv_tau, eq_in, w, mode, src);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_sub) {
     case 2: err = launch<2>(f, out, solid, nx, ny, nz, k, s); break;

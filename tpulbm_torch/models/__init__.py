@@ -1,19 +1,25 @@
 """Problem builders. The port covers the 2-D D2Q9 cylinder under every
 collision operator (BGK, TRT, MRT, regularized, KBC, Smagorinsky, power
-law) with either Zou-He corner rule, the 3-D D3Q19 sphere in a duct under
-each of those but KBC (both with the equilibrium obstacle), the 2-D
-thermal problems (Rayleigh-Bénard and the side-heated cavity, BGK or the
-Smagorinsky closure) and the Shan-Chen multiphase channel (droplet or
-band, BGK); every other configuration raises NotImplementedError naming
-the ROADMAP item (Queue 1) that will port it, and the combinations tpulbm
-itself refuses (KBC in 3-D) raise its ValueError."""
+law) with either Zou-He corner rule, the body-forced Poiseuille channel
+and the lid-driven cavity under the same operators, the 3-D D3Q19 sphere
+in a duct and the 3-D Poiseuille duct under each of those but KBC, the
+equilibrium or the bounce-back obstacle and a uniform body force on any of
+them, the 2-D thermal problems (Rayleigh-Bénard and the side-heated
+cavity, BGK or the Smagorinsky closure) and the Shan-Chen multiphase
+channel (droplet or band, BGK); every other configuration raises
+NotImplementedError naming the ROADMAP item (Queue 1) that will port it,
+and the combinations tpulbm itself refuses (KBC in 3-D, a 3-D cavity)
+raise its ValueError."""
 from ..config import check_collision
 from .base import Problem
-from . import cylinder, cylinder3d, multiphase, rayleigh_benard
+from . import (cavity, cylinder, cylinder3d, multiphase, poiseuille,
+               rayleigh_benard)
 
 __all__ = ["Problem", "make_problem"]
 
 _BUILDERS = {"cylinder": cylinder.make_problem,
+             "poiseuille": poiseuille.make_problem,
+             "cavity": cavity.make_problem,
              "cylinder3d": cylinder3d.make_problem,
              "rayleigh-benard": rayleigh_benard.make_problem,
              "heated-cavity": rayleigh_benard.make_problem,
@@ -21,8 +27,6 @@ _BUILDERS = {"cylinder": cylinder.make_problem,
 _THERMAL = ("rayleigh-benard", "heated-cavity")
 
 _PROBLEM_ITEMS = {
-    "poiseuille": "Queue 1 item 12 (body force, cavity and BC variants)",
-    "cavity": "Queue 1 item 12 (body force, cavity and BC variants)",
     "taylor-green": "Queue 1 item 13 (periodic boxes and Kolmogorov)",
     "shear-layer": "Queue 1 item 13 (periodic boxes and Kolmogorov)",
     "kolmogorov": "Queue 1 item 13 (periodic boxes and Kolmogorov)",
@@ -47,11 +51,13 @@ def check_slice(params) -> None:
     three_d = "Queue 1 item 16 (3-D)"
     if params.problem == "cylinder" and params.is_3d:
         raise _not_ported("a 3-D cylinder (nz > 0)", three_d)
-    if params.problem == "cylinder3d" and params.lattice3d != "d3q19":
+    if (params.problem in ("cylinder3d", "poiseuille") and params.is_3d
+            and params.lattice3d != "d3q19"):
         raise _not_ported(f"lattice3d={params.lattice3d!r}", three_d)
-    # the cylinders run every collision operator tpulbm runs for them, the
-    # thermal problems BGK and the Smagorinsky closure, multiphase BGK:
-    # the rest raise tpulbm's own errors
+    # the cylinders, the channel, the cavity and the duct run every
+    # collision operator tpulbm runs for them, the thermal problems BGK and
+    # the Smagorinsky closure, multiphase BGK: the rest raise tpulbm's own
+    # errors
     check_collision(params)
     if (params.problem in _THERMAL + ("multiphase",)
             and tuple(params.mesh_shape) != (1, 1)):
@@ -59,18 +65,14 @@ def check_slice(params) -> None:
         raise _not_ported(f"the {kind} step on mesh_shape="
                           f"{params.mesh_shape}",
                           "Queue 1 item 19 (several devices)")
-    variants = "Queue 1 item 12 (body force, cavity and BC variants)"
     if params.obstacle_bc == "bouzidi":
         raise _not_ported("obstacle_bc='bouzidi'",
                           "Queue 1 item 14 (Bouzidi curved walls)")
-    if params.obstacle_bc != "equilibrium":
-        raise _not_ported(f"obstacle_bc={params.obstacle_bc!r}", variants)
-    if params.body_force:
-        raise _not_ported("a body force", variants)
 
 
 def make_problem(params) -> Problem:
-    """Build the Problem for params.problem ("cylinder", "cylinder3d",
-    "rayleigh-benard", "heated-cavity" or "multiphase")."""
+    """Build the Problem for params.problem ("cylinder", "poiseuille",
+    "cavity", "cylinder3d", "rayleigh-benard", "heated-cavity" or
+    "multiphase")."""
     check_slice(params)
     return _BUILDERS[params.problem](params)

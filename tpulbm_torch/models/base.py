@@ -1,9 +1,10 @@
 """Problem definition: lattice + geometry + boundary-condition layout.
 
 Port of tpulbm/models/base.py for the slices the port covers (uniform
-equilibrium start, optional solid mask; the 2-D cylinder's and the 3-D
-sphere-in-duct's boundary layouts; the thermal double-population
-problems; the Shan-Chen multiphase channel's rho-map start). The initial
+equilibrium start, optional solid mask; the boundary layouts of the 2-D
+cylinder, the body-forced channel, the lid-driven cavity, the 3-D sphere
+in a duct and the 3-D duct; the thermal double-population problems; the
+Shan-Chen multiphase channel's rho-map start). The initial
 state and the ghost values are computed in NumPy on the host, exactly as
 tpulbm does, so both packages start from byte-identical arrays.
 """
@@ -66,9 +67,15 @@ class Problem:
     walls_y: bool = True              # bounce-back walls at y = 0 and ny-1
     walls_z: bool = False             # bounce-back walls at z = 0 and nz-1
     walls_x: bool = False             # bounce-back walls at x = 0 and nx-1
+    lid_u: float = 0.0                # moving-lid speed (+x) at the top wall
+    closed_box: bool = False          # no open BCs: the Runner pins the mass
     periodic_x: bool = False
     periodic_y: bool = False          # fully periodic box (walls_y off)
-    obstacle_bc: str = "equilibrium"  # solid cells pinned to rest equilibrium
+    body_force: tuple[float, ...] = ()  # uniform force, added after collision
+    # "equilibrium" (solids pinned to rest equilibrium) or "bounce_back"
+    # (solids skip the collision and store their streamed populations
+    # reversed)
+    obstacle_bc: str = "equilibrium"
     # "bgk" | "trt" | "mrt" | "regularized" | "kbc" (physics.collide_*)
     collision: str = "bgk"
     clean_corners: bool = False       # Zou-He corner closure (2-D; opt-in)

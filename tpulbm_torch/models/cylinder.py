@@ -2,7 +2,9 @@
 
 Channel with bounce-back walls at the bottom and top, a Zou-He velocity
 inlet on the left, a Zou-He pressure outlet on the right and a solid
-cylinder. Port of tpulbm/models/cylinder.py for the voxel obstacle modes.
+cylinder (the equilibrium or the bounce-back obstacle), with an optional
+uniform body force. Port of tpulbm/models/cylinder.py for the voxel
+obstacle modes.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ def make_problem(params: SimulationParams) -> Problem:
         inlet_zou_he=True,
         outlet_zou_he=True,
         walls_y=True,
+        body_force=tuple(params.body_force),
         obstacle_bc=params.obstacle_bc,
         collision=params.collision,
         smagorinsky=params.smagorinsky,

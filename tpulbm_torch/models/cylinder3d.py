@@ -2,9 +2,10 @@
 
 Equilibrium inlet at x = 0, zero-gradient outlet at x = nx-1, bounce-back
 walls in y and z, a voxel sphere, under any collision tpulbm runs in 3-D
-(BGK, TRT, MRT, regularized, Smagorinsky, power law). Port of
-tpulbm/models/cylinder3d.py for the D3Q19 lattice and the voxel obstacle
-modes.
+(BGK, TRT, MRT, regularized, Smagorinsky, power law), with the
+equilibrium or the bounce-back obstacle and an optional uniform body
+force. Port of tpulbm/models/cylinder3d.py for the D3Q19 lattice and the
+voxel obstacle modes.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ def make_problem(params: SimulationParams) -> Problem:
         outlet_zero_grad=True,
         walls_y=True,
         walls_z=True,
+        body_force=tuple(params.body_force),
         obstacle_bc=params.obstacle_bc,
         collision=params.collision,
         smagorinsky=params.smagorinsky,

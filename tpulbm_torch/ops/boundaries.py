@@ -1,14 +1,15 @@
 """Boundary conditions as masked per-population ("plane") updates.
 
-Port of tpulbm/ops/boundaries.py for the BC stacks of the 2-D cylinder and
-the 3-D sphere in a duct, and the thermal scalar's Dirichlet wall. Every
-BC is a `torch.where` over coordinate masks on a mutable list of Q planes,
-applied in the reference order (y walls, z walls, inlet, outlet, the
-optional clean Zou-He corners, obstacle), so the read-after-write chains
-at edge and corner cells carry
+Port of tpulbm/ops/boundaries.py for the BC stacks of the 2-D cylinder,
+the body-forced channel, the lid-driven cavity, the 3-D sphere in a duct
+and the 3-D duct, and the thermal scalar's Dirichlet wall. Every BC is a
+`torch.where` over coordinate masks on a mutable list of Q planes, applied
+in the reference order (y walls with the moving lid, z walls, x walls with
+the cavity corners, inlet, outlet, the optional clean Zou-He corners,
+obstacle), so the read-after-write chains at edge and corner cells carry
 over: the inlet's Zou-He reads f6 after the bottom wall rewrote it, a z
 wall reads what a y wall rewrote, and the zero-gradient outlet copies its
-neighbour column after the walls and before the obstacle pin.
+neighbour column after the walls and before the obstacle.
 
 D2Q9 index convention:
     0:(0,0) 1:(1,0) 2:(0,1) 3:(-1,0) 4:(0,-1) 5:(1,1) 6:(-1,1) 7:(-1,-1) 8:(1,-1)
@@ -38,6 +39,36 @@ def apply_walls(lat: Lattice, planes: list, wall_mask, axis_component: int,
     for i in range(lat.Q):
         if int(np.sign(lat.c[i, axis_component])) == sign:
             planes[i] = torch.where(m, planes[int(opp[i])], planes[i])
+
+
+def apply_moving_wall(lat: Lattice, planes: list, wall_mask,
+                      axis_component: int, sign: int,
+                      u_wall: tuple[float, ...], solid) -> None:
+    """Bounce-back at a flat wall moving tangentially with u_wall (the
+    cavity's lid): every direction i pointing into the domain takes
+    f_opp(i) + 6 w_i rho_w (c_i·u_wall), with the wall density rho_w from
+    the known populations only, Σ_{c·n=0} f + 2 Σ_{outgoing} f (summed in
+    index order), so that the closed box stays degree-1 homogeneous in f.
+    With u_wall = 0 this is apply_walls."""
+    m = _not_solid(wall_mask, solid)
+    opp = lat.opposite
+    rho_w = None
+    for i in range(lat.Q):
+        s = int(np.sign(lat.c[i, axis_component]))
+        if s == sign:
+            continue                      # unknown inward population
+        term = planes[i] if s == 0 else 2.0 * planes[i]
+        rho_w = term if rho_w is None else rho_w + term
+    uw = np.zeros(lat.D)
+    uw[:len(u_wall)] = u_wall
+    snap = list(planes)
+    for i in range(lat.Q):
+        if int(np.sign(lat.c[i, axis_component])) == sign:
+            cu = float(lat.c[i].astype(np.float64) @ uw)
+            val = snap[int(opp[i])]
+            if cu:
+                val = val + (6.0 * float(lat.w[i]) * cu) * rho_w
+            planes[i] = torch.where(m, val, planes[i])
 
 
 def apply_thermal_wall(lat_g: Lattice, planes_g: list, wall_mask,
@@ -127,41 +158,88 @@ def apply_zou_he_corners(planes: list, yy, xx, ny: int, nx: int,
     equally. rho* is the density of the node one row inward on the same
     column at the inlet corners (after the inlet's update, before the
     corners') and the outlet's fixed rho = 1 at the outlet corners."""
-    p = planes
+    p = list(planes)
     rho = sum(p)
     rho_above = torch.roll(rho, -1, dims=-2)   # value at y+1
     rho_below = torch.roll(rho, 1, dims=-2)    # value at y-1
-
-    def set_corner(mask, assigns, pair, rho_star):
-        m = _not_solid(mask, solid)
-        known = sum(p[i] for i in ([0] + [src for _, src in assigns]))
-        resid = 0.5 * (rho_star - p[0]) - (known - p[0])
-        for dst, src in assigns:
-            planes[dst] = torch.where(m, p[src], planes[dst])
-        for i in pair:
-            planes[i] = torch.where(m, resid, planes[i])
-
     bl = (yy == 0) & (xx == 0)
     br = (yy == 0) & (xx == nx - 1)
     tl = (yy == ny - 1) & (xx == 0)
     tr = (yy == ny - 1) & (xx == nx - 1)
     # (dst <- src) bounce-backs; the leftover diagonal pair gets the residual
     one = torch.ones((), dtype=rho.dtype, device=rho.device)
-    set_corner(bl, [(1, 3), (2, 4), (5, 7)], (6, 8), rho_above)
-    set_corner(br, [(3, 1), (2, 4), (6, 8)], (5, 7), one)
-    set_corner(tl, [(1, 3), (4, 2), (8, 6)], (5, 7), rho_below)
-    set_corner(tr, [(3, 1), (4, 2), (7, 5)], (6, 8), one)
+    _set_corner(planes, p, bl, [(1, 3), (2, 4), (5, 7)], (6, 8), rho_above,
+                solid)
+    _set_corner(planes, p, br, [(3, 1), (2, 4), (6, 8)], (5, 7), one, solid)
+    _set_corner(planes, p, tl, [(1, 3), (4, 2), (8, 6)], (5, 7), rho_below,
+                solid)
+    _set_corner(planes, p, tr, [(3, 1), (4, 2), (7, 5)], (6, 8), one, solid)
 
 
-def apply_obstacle(lat: Lattice, planes: list, solid, rest: np.ndarray) -> None:
-    """Equilibrium obstacle (reference parity): pin solid cells to the rest
-    equilibrium w_i after every edge BC. The reference's collision skips
-    solids and its streaming reads cells that keep their initial rest
-    equilibrium, so fluid neighbours always pull w_i from the cylinder."""
+def _set_corner(planes: list, p: list, mask, assigns, pair, rho_star,
+                solid) -> None:
+    """One corner node of a closure: the (dst <- src) bounce-backs, and the
+    diagonal pair takes the residual 0.5 (rho* - p0) - (known - p0)."""
+    m = _not_solid(mask, solid)
+    known = sum(p[i] for i in ([0] + [src for _, src in assigns]))
+    resid = 0.5 * (rho_star - p[0]) - (known - p[0])
+    for dst, src in assigns:
+        planes[dst] = torch.where(m, p[src], planes[dst])
+    for i in pair:
+        planes[i] = torch.where(m, resid, planes[i])
+
+
+def apply_cavity_corners(planes: list, yy, xx, ny: int, nx: int,
+                         solid) -> None:
+    """Corner closure of a wall-bounded box (the cavity), after the wall
+    passes: at a wall∩wall corner the two edge-diagonal populations are
+    mutually unknown, so the plain reflections would copy ghost values into
+    each other and drain the box. The three unknowns with known opposites
+    bounce back and the diagonal pair splits the density residual against
+    rho* of the diagonally inward neighbour, as the Zou-He corner nodes do;
+    the rest state is a fixed point. The lid's momentum term is not applied
+    at the top corners."""
+    p = list(planes)
+    rho = sum(p)
+    # diagonally inward neighbour's density per corner
+    rho_ne = torch.roll(rho, (-1, -1), dims=(-2, -1))   # value at (y+1, x+1)
+    rho_nw = torch.roll(rho, (-1, 1), dims=(-2, -1))    # value at (y+1, x-1)
+    rho_se = torch.roll(rho, (1, -1), dims=(-2, -1))    # value at (y-1, x+1)
+    rho_sw = torch.roll(rho, (1, 1), dims=(-2, -1))     # value at (y-1, x-1)
+    bl = (yy == 0) & (xx == 0)
+    br = (yy == 0) & (xx == nx - 1)
+    tl = (yy == ny - 1) & (xx == 0)
+    tr = (yy == ny - 1) & (xx == nx - 1)
+    _set_corner(planes, p, bl, [(1, 3), (2, 4), (5, 7)], (6, 8), rho_ne, solid)
+    _set_corner(planes, p, br, [(3, 1), (2, 4), (6, 8)], (5, 7), rho_nw, solid)
+    _set_corner(planes, p, tl, [(1, 3), (4, 2), (8, 6)], (5, 7), rho_se, solid)
+    _set_corner(planes, p, tr, [(3, 1), (4, 2), (7, 5)], (6, 8), rho_sw, solid)
+
+
+def apply_obstacle(lat: Lattice, planes: list, solid, mode: str,
+                   rest: np.ndarray) -> None:
+    """The obstacle rule at solid cells, after every edge BC.
+
+    "equilibrium" (reference parity): pin solid cells to the rest
+    equilibrium w_i. The reference's collision skips solids and its
+    streaming reads cells that keep their initial rest equilibrium, so
+    fluid neighbours always pull w_i from the cylinder.
+
+    "bounce_back" (full-way): solid cells store the populations streamed in
+    this step, reversed; the collision skips them (collide_block), so the
+    next step's pull hands them back to the fluid."""
     if solid is None:
         return
-    for i in range(lat.Q):
-        planes[i] = torch.where(solid, float(rest[i]), planes[i])
+    if mode == "equilibrium":
+        for i in range(lat.Q):
+            planes[i] = torch.where(solid, float(rest[i]), planes[i])
+    elif mode == "bounce_back":
+        snapshot = list(planes)
+        for i in range(lat.Q):
+            planes[i] = torch.where(solid, snapshot[int(lat.opposite[i])],
+                                    planes[i])
+    else:
+        raise ValueError(f"unknown obstacle_bc mode: {mode}")
 
 
 def apply_all(problem: Problem, planes: list, coords: dict) -> list:
@@ -170,20 +248,26 @@ def apply_all(problem: Problem, planes: list, coords: dict) -> list:
     `coords` holds broadcastable global-coordinate tensors 'yy' and 'xx'
     (and 'zz' in 3-D), the extents 'ny' and 'nx' (and 'nz'), and 'solid'
     (bool mask or None)."""
-    if problem.obstacle_bc != "equilibrium":
-        raise NotImplementedError(
-            f"obstacle_bc={problem.obstacle_bc!r} is not ported")
     lat = problem.lattice
     solid = coords.get("solid")
     yy, xx = coords["yy"], coords["xx"]
     ny, nx = coords["ny"], coords["nx"]
     if problem.walls_y:
         apply_walls(lat, planes, yy == 0, 1, +1, solid)
-        apply_walls(lat, planes, yy == ny - 1, 1, -1, solid)
-    if problem.walls_z:
+        if problem.lid_u:
+            apply_moving_wall(lat, planes, yy == ny - 1, 1, -1,
+                              (problem.lid_u,), solid)
+        else:
+            apply_walls(lat, planes, yy == ny - 1, 1, -1, solid)
+    if problem.walls_z and lat.D == 3:
         zz, nz = coords["zz"], coords["nz"]
         apply_walls(lat, planes, zz == 0, 2, +1, solid)
         apply_walls(lat, planes, zz == nz - 1, 2, -1, solid)
+    if problem.walls_x:
+        apply_walls(lat, planes, xx == 0, 0, +1, solid)
+        apply_walls(lat, planes, xx == nx - 1, 0, -1, solid)
+        if problem.walls_y and lat.D == 2:
+            apply_cavity_corners(planes, yy, xx, ny, nx, solid)
     if problem.inlet_zou_he:
         apply_zou_he_inlet(planes, xx == 0, problem.init_u[0], solid)
     if problem.inlet_equilibrium:
@@ -195,6 +279,6 @@ def apply_all(problem: Problem, planes: list, coords: dict) -> list:
         apply_zero_gradient_outlet(lat, planes, xx == nx - 1, solid)
     if problem.clean_corners and lat.D == 2:
         apply_zou_he_corners(planes, yy, xx, ny, nx, solid)
-    apply_obstacle(lat, planes, solid,
+    apply_obstacle(lat, planes, solid, problem.obstacle_bc,
                    physics.rest_equilibrium(lat, problem.dtype))
     return planes

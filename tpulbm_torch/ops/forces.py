@@ -5,7 +5,8 @@ Port of tpulbm/ops/forces.py for the voxel obstacle:
     F = Σ_i 2 c_i Σ_x f_post_i(x) · fluid(x) · solid(x + c_i)
 
 on the post-collision populations (the reference records forces after
-collision, before streaming).
+collision, before streaming); under the bounce-back obstacle the solid
+cells skip that collision, as in the step.
 """
 from __future__ import annotations
 
@@ -16,34 +17,47 @@ from ..models.base import Problem
 from . import step_torch
 
 
-def momentum_exchange(problem: Problem, f_post: torch.Tensor,
-                      solid: torch.Tensor) -> torch.Tensor:
-    """Force vector (D,) on the obstacle from post-collision populations."""
+def shifted_masks(problem: Problem, solid: torch.Tensor) -> list:
+    """[(i, fluid(x) & solid(x + c_i))] for the moving directions i: the
+    links the momentum exchange sums over. A solid cell at a domain edge
+    must not pair with fluid on the opposite edge, so the rolled mask is
+    cleared there, except along a periodic x axis, where the wrap is a real
+    neighbour."""
     lat = problem.lattice
-    c = lat.c
-    ndim = f_post.dim() - 1
+    ndim = solid.dim()
     fluid = ~solid
+    masks = []
+    for i in range(1, lat.Q):
+        # solid neighbour at x + c_i: roll solid by -c_i (array axes are
+        # ([z,] y, x), velocity components (x, y[, z]))
+        shifts = tuple(-int(lat.c[i, k]) for k in range(lat.D))[::-1]
+        solid_shift = torch.roll(solid, shifts, tuple(range(ndim)))
+        for axis, s in enumerate(shifts):
+            if s == 0 or (axis == ndim - 1 and problem.periodic_x):
+                continue
+            idx = [slice(None)] * ndim
+            idx[axis] = 0 if s > 0 else -1
+            solid_shift[tuple(idx)] = False
+        masks.append((i, fluid & solid_shift))
+    return masks
+
+
+def momentum_exchange(problem: Problem, f_post: torch.Tensor,
+                      solid: torch.Tensor, masks: list | None = None
+                      ) -> torch.Tensor:
+    """Force vector (D,) on the obstacle from post-collision populations;
+    `masks` are shifted_masks(problem, solid), built here if not given."""
+    lat = problem.lattice
+    if masks is None:
+        masks = shifted_masks(problem, solid)
     comps = []
     for d in range(lat.D):
         total = torch.zeros((), dtype=f_post.dtype, device=f_post.device)
-        for i in range(1, lat.Q):
-            cid = int(c[i, d])
+        for i, link in masks:
+            cid = int(lat.c[i, d])
             if cid == 0:
                 continue
-            # solid neighbour at x + c_i: roll solid by -c_i (array axes
-            # are ([z,] y, x), velocity components (x, y[, z]))
-            shifts = tuple(-int(c[i, k]) for k in range(lat.D))[::-1]
-            solid_shift = torch.roll(solid, shifts, tuple(range(ndim)))
-            # roll wraps; a solid cell at a domain edge must not pair with
-            # fluid on the opposite edge
-            for axis, s in enumerate(shifts):
-                if s == 0:
-                    continue
-                idx = [slice(None)] * ndim
-                idx[axis] = 0 if s > 0 else -1
-                solid_shift[tuple(idx)] = False
-            contrib = torch.sum(torch.where(fluid & solid_shift, f_post[i],
-                                            0.0))
+            contrib = torch.sum(torch.where(link, f_post[i], 0.0))
             total = total + 2.0 * cid * contrib
         comps.append(total)
     return torch.stack(comps)
@@ -66,12 +80,15 @@ def force_coefficients(problem: Problem,
 
 
 def forces_fn(problem: Problem, device):
-    """f -> force vector (D,) on `device`: collide, then momentum exchange
-    (the reference's call point: post-collision, pre-streaming)."""
+    """f -> force vector (D,) on `device`: collide (solid cells skip it
+    under the bounce-back obstacle, as in the step), then momentum exchange
+    (the reference's call point: post-collision, pre-streaming). The link
+    masks are built once here, not at every call."""
     solid = torch.as_tensor(problem.solid, device=device)
+    masks = shifted_masks(problem, solid)
 
     def fn(f: torch.Tensor) -> torch.Tensor:
-        return momentum_exchange(problem, step_torch.collide_block(problem, f),
-                                 solid)
+        f_post = step_torch.collide_block(problem, f, solid)
+        return momentum_exchange(problem, f_post, solid, masks)
 
     return fn

@@ -4,9 +4,10 @@ Ports of tpulbm/ops/step_pallas.py (D2Q9):
 * make_local_step_pallas (one step per launch): csrc/step_d2q9.cu;
 * make_local_step_pallasN (N = 3, 4) and make_local_step_pallas2 (N = 2),
   temporal blocking, N steps per launch: csrc/step_d2q9_blocked.cu.
-Both hold every collision of tpulbm's D2Q9 kernels (COLLISION_MODES, one
-library per mode, built with -DTPULBM_COLLISION) and the clean Zou-He
-corners; the mode's coefficients are computed here on the host, as
+Both hold every collision of tpulbm's D2Q9 kernels (COLLISION_MODES), the
+clean Zou-He corners, the body-force source, the bounce-back obstacle and
+three domains (DOMAINS: the cylinder, the periodic channel, the lid-driven
+cavity); the mode's coefficients are computed here on the host, as
 tpulbm's _physics_cfg_fields computes them.
 Port of tpulbm/ops/step_pallas3d.py (D3Q19):
 * make_local_step_pallas3d and make_local_step_pallas3d_tiled at n_sub=1
@@ -14,8 +15,14 @@ Port of tpulbm/ops/step_pallas3d.py (D3Q19):
 * make_local_step_pallas3d_tiled at n_sub 2 and 3 (temporal blocking, N
   steps per launch): csrc/step_d3q19_blocked.cu.
 Both hold every collision of tpulbm's 3-D kernels (COLLISION_MODES_3D: all
-but KBC, which tpulbm runs in 2-D only), one library per mode; the mode's
-coefficients are computed here as tpulbm's 3-D builders compute them.
+but KBC, which tpulbm runs in 2-D only), the source, the bounce-back
+obstacle and two domains (DOMAINS_3D: the sphere in a duct, the periodic
+duct); the mode's coefficients are computed here as tpulbm's 3-D builders
+compute them.
+A library is built for one collision, domain, source and obstacle rule
+(build_defines; the cylinder's BGK library with the equilibrium obstacle
+and no force takes no define and is the one every earlier build ran), at
+its first use.
 The thermal and multiphase kernels' wrappers are ops/step_thermal_cuda.py
 and ops/step_multiphase_cuda.py, on the same build and binding helpers.
 Each kernel is built with nvcc at first use and called through ctypes on
@@ -71,6 +78,20 @@ _Q = 9
 MODE_FLOATS = 2 + 2 * _Q * MRT_RANK + (1 + 3 * _Q) + (6 * _Q + 4) + 3 + 4
 # the collisions of the D3Q19 kernels (tpulbm has no 3-D KBC)
 COLLISION_MODES_3D = tuple(m for m in COLLISION_MODES if m != "kbc")
+# the kernels' domains (collision_modes.cuh's tpulbm::Domain, its index):
+# 2-D the cylinder (Zou-He inlet and outlet, y walls, a voxel obstacle),
+# the Poiseuille channel (periodic x, y walls) and the lid-driven cavity;
+# 3-D the sphere in a duct (equilibrium inlet, zero-gradient outlet, y and
+# z walls, a voxel obstacle) and the Poiseuille duct (periodic x)
+DOMAINS = ("cylinder", "channel", "cavity")
+DOMAINS_3D = ("sphere", "duct")
+# the bits of a library's variant (collision_modes.cuh's
+# tpulbm_build_variant): the domain's index in DOMAINS or DOMAINS_3D, the
+# body-force source and the bounce-back obstacle; 0 is the cylinder's (or
+# the sphere's) library with the equilibrium obstacle and no force
+DOMAIN_BITS = 3
+SOURCE = 4
+BOUNCE_BACK = 8
 MRT_RANK_3D = 10           # d3q19_common.cuh kMrtRank: the ten ghost moments
 _Q3 = 19
 # floats of d3q19_common.cuh's ModeConsts: TRT, MRT's U and V, regularized
@@ -132,11 +153,57 @@ def mode_floats(problem: Problem) -> tuple[float, ...]:
     return tuple(float(v) for v in np.concatenate(blocks))
 
 
+def kernel_domain(problem: Problem) -> int:
+    """The kernels' domain for `problem`'s boundary layout, an index of
+    DOMAINS (D2Q9) or DOMAINS_3D (D3Q19); raises NotImplementedError for a
+    layout no kernel holds."""
+    p = problem
+    d3 = p.lattice.D == 3
+    walls = p.walls_y and (p.walls_z or not d3) and not p.periodic_y
+    inlet, outlet = ((p.inlet_equilibrium, p.outlet_zero_grad) if d3
+                     else (p.inlet_zou_he, p.outlet_zou_he))
+    obstacle = p.solid is not None and bool(np.any(p.solid))
+    if walls and inlet and outlet and not (p.periodic_x or p.walls_x
+                                           or p.lid_u):
+        return 0
+    if walls and not (inlet or outlet or obstacle or p.clean_corners):
+        if p.periodic_x and not (p.walls_x or p.lid_u):
+            return 1
+        if not d3 and p.walls_x and not p.periodic_x:
+            return 2
+    raise NotImplementedError(
+        f"no kernel holds the boundary layout of problem "
+        f"{p.params.problem!r} (the kernels' domains: {DOMAINS} in 2-D, "
+        f"{DOMAINS_3D} in 3-D)")
+
+
+def variant_defines(variant: int) -> tuple[str, ...]:
+    """nvcc's defines for a library's domain (variant & DOMAIN_BITS),
+    SOURCE and BOUNCE_BACK; () for 0."""
+    defines = []
+    if variant & DOMAIN_BITS:
+        defines.append(f"-DTPULBM_DOMAIN={variant & DOMAIN_BITS}")
+    if variant & SOURCE:
+        defines.append("-DTPULBM_SOURCE=1")
+    if variant & BOUNCE_BACK:
+        defines.append("-DTPULBM_BOUNCE_BACK=1")
+    return tuple(defines)
+
+
+def build_defines(mode: str, variant: int = 0) -> tuple[str, ...]:
+    """nvcc's defines for a library of collision `mode` and `variant`."""
+    return mode_defines(mode) + variant_defines(variant)
+
+
 @dataclasses.dataclass(frozen=True)
 class StepConstants:
-    """The physics constants the kernel takes as arguments; `mode` picks
-    the library (COLLISION_MODES) and `modes` are its coefficients
-    (mode_floats). The D3Q19 kernels read inv_tau, eq_in, w and those."""
+    """The physics constants the kernel takes as arguments. `mode` and
+    `variant` pick the library: the collision (COLLISION_MODES) and the
+    domain, the source and the obstacle rule (variant_defines); `modes`
+    are the collision's coefficients (mode_floats), `src` the body force's
+    source per direction (zeros without one) and `lid` the moving lid's
+    6 w_i (c_i·u_lid) for i = 7, 8 (the cavity). The D3Q19 kernels read
+    inv_tau, eq_in, w, modes and src."""
     inv_tau: float
     u_in: float
     eq_in: tuple[float, ...]   # frozen ghost equilibrium per direction
@@ -144,33 +211,71 @@ class StepConstants:
     mode: str = "bgk"
     clean_corners: bool = False
     modes: tuple[float, ...] = ()
+    variant: int = 0
+    src: tuple[float, ...] = ()
+    lid: tuple[float, float] = (0.0, 0.0)
+
+    @property
+    def library(self) -> str:
+        """The library's name in the launch counts: the collision, then the
+        domain, "source" and "bounce_back" where the build has them, as
+        "mrt+channel+source"."""
+        domains = DOMAINS if len(self.w) == 9 else DOMAINS_3D
+        parts = [self.mode]
+        if self.variant & DOMAIN_BITS:
+            parts.append(domains[self.variant & DOMAIN_BITS])
+        if self.variant & SOURCE:
+            parts.append("source")
+        if self.variant & BOUNCE_BACK:
+            parts.append("bounce_back")
+        return "+".join(parts)
+
+    def _src(self) -> ctypes.Array:
+        return _floats(self.src or (0.0,) * len(self.w))
 
     @functools.cached_property
     def d2q9_args(self) -> tuple:
-        """inv_tau, u_in, 1 - u_in, eq_in, w, clean_corners and the mode
-        coefficients as the D2Q9 launchers take them, built once: a
-        launch's host time is on the critical path of the 1-step kernel
-        (≈ 37 µs a step at 2048x512)."""
+        """inv_tau, u_in, 1 - u_in, eq_in, w, clean_corners, the mode
+        coefficients, the source and the lid as the D2Q9 launchers take
+        them, built once: a launch's host time is on the critical path of
+        the 1-step kernel (≈ 37 µs a step at 2048x512)."""
         return (self.inv_tau, self.u_in, 1.0 - self.u_in,
                 _floats(self.eq_in), _floats(self.w), int(self.clean_corners),
-                _floats(self.modes))
+                _floats(self.modes), self._src(), *self.lid)
 
     @functools.cached_property
     def d3q19_args(self) -> tuple:
-        """inv_tau, eq_in, w and the mode coefficients as the D3Q19
-        launchers take them, built once."""
+        """inv_tau, eq_in, w, the mode coefficients and the source as the
+        D3Q19 launchers take them, built once."""
         return (self.inv_tau, _floats(self.eq_in), _floats(self.w),
-                _floats(self.modes))
+                _floats(self.modes), self._src())
 
     @classmethod
     def of(cls, problem: Problem) -> "StepConstants":
+        lat = problem.lattice
+        domain = kernel_domain(problem)
+        bounce = domain == 0 and problem.obstacle_bc == "bounce_back"
+        force = problem.body_force
+        variant = (domain | (SOURCE if force else 0)
+                   | (BOUNCE_BACK if bounce else 0))
+        src = (tuple(float(v) for v in physics.force_source(lat, force))
+               if force else ())
+        lid = (0.0, 0.0)
+        if problem.lid_u:
+            # tpulbm's apply_moving_wall coefficients for the top wall's
+            # inward diagonals
+            uw = np.array([problem.lid_u, 0.0])
+            lid = tuple(6.0 * float(lat.w[i])
+                        * float(lat.c[i].astype(np.float64) @ uw)
+                        for i in (7, 8))
         return cls(inv_tau=1.0 / problem.params.tau,
                    u_in=float(problem.init_u[0]),
                    eq_in=tuple(float(v) for v in problem.ghost_ring_values()),
-                   w=tuple(float(v) for v in problem.lattice.w),
+                   w=tuple(float(v) for v in lat.w),
                    mode=step_torch.collision_mode(problem),
                    clean_corners=bool(problem.clean_corners),
-                   modes=mode_floats(problem))
+                   modes=mode_floats(problem), variant=variant, src=src,
+                   lid=lid)
 
 
 def check_inputs(f: torch.Tensor, out: torch.Tensor, solid: torch.Tensor,
@@ -205,12 +310,17 @@ _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def _bind(source: str, fn: str, argtypes: list, mode: str | None = None,
-          n_floats: int | None = None) -> ctypes.CDLL:
+          n_floats: int | None = None,
+          variant: int | None = None) -> ctypes.CDLL:
     """The library of `source` with its launcher `fn` typed. Given a
     collision `mode`, the library is built for it and raises unless it
     holds that mode (tpulbm_collision_mode) and, given `n_floats`, takes
-    that many mode coefficients (tpulbm_mode_floats)."""
-    lib = cuda_build.load(source, mode_defines(mode) if mode else ()).lib
+    that many mode coefficients (tpulbm_mode_floats); given a `variant`,
+    it is built for that domain, source and obstacle rule and raises unless
+    it holds them (tpulbm_build_variant)."""
+    defines = ((mode_defines(mode) if mode else ())
+               + (variant_defines(variant) if variant else ()))
+    lib = cuda_build.load(source, defines).lib
     getattr(lib, fn).argtypes = argtypes
     getattr(lib, fn).restype = _I32
     lib.tpulbm_cuda_error_string.argtypes = [_I32]
@@ -221,6 +331,9 @@ def _bind(source: str, fn: str, argtypes: list, mode: str | None = None,
         if held != (mode, n_floats):
             raise RuntimeError(f"{source} built for {mode!r} holds {held}, "
                                f"not ({mode!r}, {n_floats})")
+    if variant is not None and lib.tpulbm_build_variant() != variant:
+        raise RuntimeError(f"{source} built for variant {variant} holds "
+                           f"{lib.tpulbm_build_variant()}")
     return lib
 
 
@@ -232,37 +345,39 @@ def mode_defines(mode: str) -> tuple[str, ...]:
 
 
 @functools.cache
-def _library(mode: str = "bgk") -> ctypes.CDLL:
+def _library(mode: str = "bgk", variant: int = 0) -> ctypes.CDLL:
     return _bind("step_d2q9.cu", "tpulbm_d2q9_step",
                  [_PTR, _PTR, _PTR, _I32, _I32, _F32, _F32, _F32, _PTR, _PTR,
-                  _I32, _PTR, _I32, _PTR], mode, MODE_FLOATS)
+                  _I32, _PTR, _PTR, _F32, _F32, _I32, _PTR], mode,
+                 MODE_FLOATS, variant)
 
 
 @functools.cache
-def _library_3d(mode: str = "bgk") -> ctypes.CDLL:
+def _library_3d(mode: str = "bgk", variant: int = 0) -> ctypes.CDLL:
     lib = _bind("step_d3q19.cu", "tpulbm_d3q19_step",
                 [_PTR, _PTR, _PTR, _I32, _I32, _I32, _F32, _PTR, _PTR, _PTR,
-                 _I32, _PTR], mode, MODE_FLOATS_3D)
+                 _PTR, _I32, _PTR], mode, MODE_FLOATS_3D, variant)
     lib.tpulbm_d3q19_smem_bytes.argtypes = []
     lib.tpulbm_d3q19_smem_bytes.restype = _I32
     return lib
 
 
 @functools.cache
-def _blocked_library_3d(mode: str = "bgk") -> ctypes.CDLL:
+def _blocked_library_3d(mode: str = "bgk", variant: int = 0) -> ctypes.CDLL:
     lib = _bind("step_d3q19_blocked.cu", "tpulbm_d3q19_step_blocked",
                 [_PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _F32, _PTR, _PTR,
-                 _PTR, _I32, _PTR], mode, MODE_FLOATS_3D)
+                 _PTR, _PTR, _I32, _PTR], mode, MODE_FLOATS_3D, variant)
     lib.tpulbm_d3q19_blocked_smem_bytes.argtypes = [_I32]
     lib.tpulbm_d3q19_blocked_smem_bytes.restype = _I32
     return lib
 
 
 @functools.cache
-def _blocked_library(mode: str = "bgk") -> ctypes.CDLL:
+def _blocked_library(mode: str = "bgk", variant: int = 0) -> ctypes.CDLL:
     return _bind("step_d2q9_blocked.cu", "tpulbm_d2q9_step_blocked",
                  [_PTR, _PTR, _PTR, _I32, _I32, _I32, _F32, _F32, _F32, _PTR,
-                  _PTR, _I32, _PTR, _I32, _PTR], mode, MODE_FLOATS)
+                  _PTR, _I32, _PTR, _PTR, _F32, _F32, _I32, _PTR], mode,
+                 MODE_FLOATS, variant)
 
 
 def _check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
@@ -288,38 +403,62 @@ def collide_stream(f: torch.Tensor, out: torch.Tensor, solid: torch.Tensor,
         if plain is None:
             raise ValueError("a CPU tensor needs the plain step")
         return out.copy_(plain(f))
-    lib = _library(consts.mode)
+    lib = _library(consts.mode, consts.variant)
     ny, nx = f.shape[1:]
     stream = torch.cuda.current_stream(f.device).cuda_stream
     rc = lib.tpulbm_d2q9_step(
         f.data_ptr(), out.data_ptr(), solid.data_ptr(), nx, ny,
         *consts.d2q9_args, f.device.index, stream)
-    _check_launch(lib, rc, f"D2Q9 kernel ({consts.mode})")
-    _count(collide_stream, consts.mode)
+    _check_launch(lib, rc, f"D2Q9 kernel ({consts.library})")
+    _count(collide_stream, consts.library)
     return out
 
 
 def _zero_counts(wrapper, modes: tuple, depths: tuple | None = None) -> None:
-    """Set a kernel wrapper's launch counts to 0: launches_by_mode, per
-    collision mode (and per depth for an N-step wrapper), and launches,
-    their sum over the modes. After that only _count changes them, so the
-    two cannot drift apart. CPU calls (the plain version) are not
-    counted."""
-    def zero():
-        return 0 if depths is None else dict.fromkeys(depths, 0)
-    wrapper.launches = zero()
-    wrapper.launches_by_mode = {mode: zero() for mode in modes}
+    """Set a kernel wrapper's launch counts to 0. Its one count is
+    launches_by_library: per library launched (StepConstants.library, whose
+    first part is the collision mode; the mode itself for a wrapper with
+    one library per mode), an int, or a dict per depth (`depths`) for an
+    N-step wrapper. launches() and launches_by_mode() sum it over
+    libraries. CPU calls (the plain version) are not counted."""
+    wrapper.modes, wrapper.depths = modes, depths
+    wrapper.launches_by_library = {}
 
 
-def _count(wrapper, mode: str, n_sub: int | None = None) -> None:
-    """Count one launch of `wrapper`'s kernel in `mode` (at depth n_sub
-    for an N-step wrapper)."""
+def _count(wrapper, library: str, n_sub: int | None = None) -> None:
+    """Count one launch of `wrapper`'s kernel from `library`, at depth
+    n_sub for an N-step wrapper."""
+    by_library = wrapper.launches_by_library
     if n_sub is None:
-        wrapper.launches += 1
-        wrapper.launches_by_mode[mode] += 1
+        by_library[library] = by_library.get(library, 0) + 1
     else:
-        wrapper.launches[n_sub] += 1
-        wrapper.launches_by_mode[mode][n_sub] += 1
+        by_library.setdefault(library, dict.fromkeys(wrapper.depths, 0))
+        by_library[library][n_sub] += 1
+
+
+def launches_by_mode(wrapper) -> dict:
+    """`wrapper`'s launches per collision mode it holds (0 where none), each
+    summed over the mode's libraries; per depth for an N-step wrapper."""
+    depths = wrapper.depths
+    out = {mode: 0 if depths is None else dict.fromkeys(depths, 0)
+           for mode in wrapper.modes}
+    for library, n in wrapper.launches_by_library.items():
+        mode = library.split("+")[0]
+        if depths is None:
+            out[mode] += n
+        else:
+            for d in depths:
+                out[mode][d] += n[d]
+    return out
+
+
+def launches(wrapper):
+    """`wrapper`'s launches summed over its libraries; per depth for an
+    N-step wrapper."""
+    by_mode = launches_by_mode(wrapper).values()
+    if wrapper.depths is None:
+        return sum(by_mode)
+    return {d: sum(n[d] for n in by_mode) for d in wrapper.depths}
 
 
 _zero_counts(collide_stream, COLLISION_MODES)
@@ -350,14 +489,14 @@ def collide_stream_blocked(f: torch.Tensor, out: torch.Tensor,
         for _ in range(n_sub):
             f = plain(f)
         return out.copy_(f)
-    lib = _blocked_library(consts.mode)
+    lib = _blocked_library(consts.mode, consts.variant)
     ny, nx = f.shape[1:]
     stream = torch.cuda.current_stream(f.device).cuda_stream
     rc = lib.tpulbm_d2q9_step_blocked(
         f.data_ptr(), out.data_ptr(), solid.data_ptr(), nx, ny, n_sub,
         *consts.d2q9_args, f.device.index, stream)
-    _check_launch(lib, rc, f"D2Q9 {n_sub}-step kernel ({consts.mode})")
-    _count(collide_stream_blocked, consts.mode, n_sub)
+    _check_launch(lib, rc, f"D2Q9 {n_sub}-step kernel ({consts.library})")
+    _count(collide_stream_blocked, consts.library, n_sub)
     return out
 
 
@@ -377,14 +516,14 @@ def collide_stream_3d(f: torch.Tensor, out: torch.Tensor,
         if plain is None:
             raise ValueError("a CPU tensor needs the plain step")
         return out.copy_(plain(f))
-    lib = _library_3d(consts.mode)
+    lib = _library_3d(consts.mode, consts.variant)
     nz, ny, nx = f.shape[1:]
     stream = torch.cuda.current_stream(f.device).cuda_stream
     rc = lib.tpulbm_d3q19_step(
         f.data_ptr(), out.data_ptr(), solid.data_ptr(), nx, ny, nz,
         *consts.d3q19_args, f.device.index, stream)
-    _check_launch(lib, rc, f"D3Q19 kernel ({consts.mode})")
-    _count(collide_stream_3d, consts.mode)
+    _check_launch(lib, rc, f"D3Q19 kernel ({consts.library})")
+    _count(collide_stream_3d, consts.library)
     return out
 
 
@@ -416,14 +555,14 @@ def collide_stream_3d_blocked(f: torch.Tensor, out: torch.Tensor,
         for _ in range(n_sub):
             f = plain(f)
         return out.copy_(f)
-    lib = _blocked_library_3d(consts.mode)
+    lib = _blocked_library_3d(consts.mode, consts.variant)
     nz, ny, nx = f.shape[1:]
     stream = torch.cuda.current_stream(f.device).cuda_stream
     rc = lib.tpulbm_d3q19_step_blocked(
         f.data_ptr(), out.data_ptr(), solid.data_ptr(), nx, ny, nz, n_sub,
         *consts.d3q19_args, f.device.index, stream)
-    _check_launch(lib, rc, f"D3Q19 {n_sub}-step kernel ({consts.mode})")
-    _count(collide_stream_3d_blocked, consts.mode, n_sub)
+    _check_launch(lib, rc, f"D3Q19 {n_sub}-step kernel ({consts.library})")
+    _count(collide_stream_3d_blocked, consts.library, n_sub)
     return out
 
 
@@ -446,19 +585,38 @@ def reset_launch_counts() -> None:
     step_multiphase_cuda.collide_stream_multiphase.launches = 0
 
 
-def _kernel_operands(problem: Problem, device):
+def _kernel_operands(problem: Problem, device, q: int = 9):
     """(device, constants, solid mask, plain step or None) for a wrapper of
-    `problem` on `device`; raises for what the kernels do not cover: they
-    run with the equilibrium obstacle, the D2Q9 kernels every collision,
-    the D3Q19 kernels every one but KBC, as tpulbm's."""
+    `problem` on `device` with a q-population kernel; raises for what the
+    kernels do not cover: they run the equilibrium and the bounce-back
+    obstacles, the D2Q9 kernels every collision, the D3Q19 kernels every
+    one but KBC, as tpulbm's, in the domains of DOMAINS and DOMAINS_3D. A
+    problem without an obstacle takes a zero mask, which those domains'
+    kernels do not read."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    if problem.obstacle_bc != "equilibrium":
-        raise NotImplementedError("the kernels cover the equilibrium "
-                                  "obstacle only")
+    if problem.lattice.Q != q or problem.thermal is not None \
+            or problem.shan_chen:
+        takes = ("problems 'cylinder', 'poiseuille' and 'cavity' in 2-D"
+                 if q == 9 else "the sphere in a duct (problem "
+                 "'cylinder3d') and the Poiseuille duct (problem "
+                 "'poiseuille', nz > 0)")
+        raise NotImplementedError(
+            f"the {'D2Q9' if q == 9 else 'D3Q19'} kernels take {takes}, "
+            f"not problem {problem.params.problem!r} on "
+            f"{problem.lattice.name}")
+    if problem.obstacle_bc not in ("equilibrium", "bounce_back"):
+        raise NotImplementedError(f"the kernels do not hold obstacle_bc="
+                                  f"{problem.obstacle_bc!r}")
     consts = StepConstants.of(problem)
-    solid = torch.as_tensor(problem.solid, device=device).to(torch.uint8)
+    if (q == 9 and DOMAINS[consts.variant & DOMAIN_BITS] == "cavity"
+            and min(problem.spatial_shape) < 3):
+        raise ValueError("the cavity kernels take nx = ny >= 3 (the corner "
+                         "closure reads an interior neighbour)")
+    solid = (torch.zeros(problem.spatial_shape, dtype=torch.uint8,
+                         device=device) if problem.solid is None else
+             torch.as_tensor(problem.solid, device=device).to(torch.uint8))
     plain = (step_torch.make_step_rolled(problem, device)
              if device.type == "cpu" else None)
     return device, consts, solid, plain
@@ -493,8 +651,9 @@ def make_local_step_cuda_3d(problem: Problem, device):
     """step(f, out) -> out: one D3Q19 timestep of `problem` through the
     kernel (CUDA) or its plain version (CPU), on (19, nz, ny, nx) states
     living on `device`. The counterpart of make_local_step_pallas3d and of
-    make_local_step_pallas3d_tiled at n_sub=1, for the sphere in a duct:
-    y and z walls, equilibrium inlet, zero-gradient outlet."""
+    make_local_step_pallas3d_tiled at n_sub=1, for the sphere in a duct
+    (y and z walls, equilibrium inlet, zero-gradient outlet) and the
+    periodic duct."""
     _, consts, solid, plain = _kernel_operands_3d(problem, device)
 
     def step(f: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
@@ -507,7 +666,8 @@ def make_local_step_cuda_3d_blocked(problem: Problem, device, n_sub: int):
     """step(f, out) -> out: n_sub D3Q19 timesteps of `problem` in one
     launch of the N-step kernel (CUDA) or n_sub plain steps (CPU). The
     counterpart of make_local_step_pallas3d_tiled at n_sub 2 and 3, for the
-    sphere in a duct; other depths raise NotImplementedError."""
+    sphere in a duct and the periodic duct; other depths raise
+    NotImplementedError."""
     check_depth_3d(n_sub)
     _, consts, solid, plain = _kernel_operands_3d(problem, device)
 
@@ -518,7 +678,4 @@ def make_local_step_cuda_3d_blocked(problem: Problem, device, n_sub: int):
 
 
 def _kernel_operands_3d(problem: Problem, device):
-    if problem.params.problem != "cylinder3d" or problem.lattice.Q != 19:
-        raise NotImplementedError("the D3Q19 kernels cover the sphere in a "
-                                  "duct (problem='cylinder3d') only")
-    return _kernel_operands(problem, device)
+    return _kernel_operands(problem, device, q=19)

@@ -2,11 +2,11 @@
 plain version.
 
 Port of tpulbm/ops/step_jax.py::make_step_rolled with _collide_block's
-collisions (without the body force and the bounce-back obstacle), in 2-D
-(D2Q9) and 3-D (D3Q19). Unpadded state
-(Q, *spatial); streaming is a per-population `torch.roll` (pull scheme)
-followed by the ghost sanitize at the non-periodic edges, then the BC
-stack. Runs in f32 and f64.
+collisions, the uniform body force and the bounce-back obstacle, in 2-D
+(D2Q9) and 3-D (D3Q19). Unpadded state (Q, *spatial); streaming is a
+per-population `torch.roll` (pull scheme) followed by the ghost sanitize
+at the non-periodic edges (x is left to wrap under periodic_x), then the
+BC stack. Runs in f32 and f64.
 
 Step order parity with the reference loop: collision -> streaming ->
 boundary conditions.
@@ -37,28 +37,39 @@ def collision_mode(problem: Problem) -> str:
     return "bgk"
 
 
-def collide_block(problem: Problem, f: torch.Tensor) -> torch.Tensor:
-    """Post-collision populations. With obstacle_bc="equilibrium" solid
-    cells are re-pinned to the rest equilibrium by apply_obstacle every
-    step, so they need no special case here."""
+def _collide(problem: Problem, f: torch.Tensor) -> torch.Tensor:
     lat = problem.lattice
     inv_tau = 1.0 / problem.params.tau
+    force = problem.body_force
     mode = collision_mode(problem)
     if mode == "trt":
-        return physics.collide_trt(lat, f, inv_tau, magic=problem.trt_magic)
+        return physics.collide_trt(lat, f, inv_tau, force, problem.trt_magic)
     if mode == "mrt":
-        return physics.collide_mrt(lat, f, inv_tau,
+        return physics.collide_mrt(lat, f, inv_tau, force,
                                    overrides=dict(problem.mrt_rates) or None)
     if mode == "regularized":
-        return physics.collide_regularized(lat, f, inv_tau)
+        return physics.collide_regularized(lat, f, inv_tau, force)
     if mode == "kbc":
-        return physics.collide_kbc(lat, f, inv_tau)
+        return physics.collide_kbc(lat, f, inv_tau, force)
     if mode == "power_law":
-        return physics.collide_power_law(lat, f, *problem.power_law)
+        return physics.collide_power_law(lat, f, *problem.power_law, force)
     if mode == "smagorinsky":
         return physics.collide_smagorinsky(lat, f, inv_tau,
-                                           problem.smagorinsky)
-    return physics.collide(lat, f, inv_tau)
+                                           problem.smagorinsky, force)
+    return physics.collide(lat, f, inv_tau, force)
+
+
+def collide_block(problem: Problem, f: torch.Tensor,
+                  solid: torch.Tensor | None = None) -> torch.Tensor:
+    """Post-collision populations, the body force's source included. With
+    obstacle_bc="equilibrium" solid cells are re-pinned to the rest
+    equilibrium by apply_obstacle every step, so they need no special case
+    here; with "bounce_back" and a `solid` mask they skip the collision
+    (tpulbm's step_jax._collide_block) and keep their populations."""
+    f_post = _collide(problem, f)
+    if solid is not None and problem.obstacle_bc == "bounce_back":
+        f_post = torch.where(solid[None], f, f_post)
+    return f_post
 
 
 def coords(problem: Problem, device) -> dict:
@@ -86,7 +97,8 @@ def make_step_rolled(problem: Problem,
     ghost columns are overwritten every step by never-received halo
     buffers); pulls whose source leaves the y range, or the z range in 3-D,
     read the frozen initial equilibrium, and so do the corner ghosts (a
-    diagonal pull at a wall that crosses a corner).
+    diagonal pull at a wall that crosses a corner). Under periodic_x the x
+    pulls wrap.
     """
     lat = problem.lattice
     c = lat.c
@@ -106,7 +118,8 @@ def make_step_rolled(problem: Problem,
     # per-direction edge masks and roll shifts, built once
     plan = []
     for i in range(lat.Q):
-        x_out = leaves(xx, cd["nx"], int(c[i, 0]))
+        x_out = (None if problem.periodic_x
+                 else leaves(xx, cd["nx"], int(c[i, 0])))
         y_out = leaves(yy, cd["ny"], int(c[i, 1]))
         if ndim == 3:
             y_out = either(y_out, leaves(cd["zz"], cd["nz"], int(c[i, 2])))
@@ -119,7 +132,7 @@ def make_step_rolled(problem: Problem,
     dims = tuple(range(ndim))
 
     def step(f: torch.Tensor) -> torch.Tensor:
-        f_post = collide_block(problem, f)
+        f_post = collide_block(problem, f, cd["solid"])
         planes = []
         for i, (shifts, only_x, y_out, eq_i) in enumerate(plan):
             plane = torch.roll(f_post[i], shifts, dims)

@@ -14,9 +14,9 @@ three decimal digits), the trap tpulbm met as bfloat16 passes on a TPU.
 The host-side parts (the equilibria that set the initial state and the
 frozen ghost values, the MRT basis and its rank-r correction, the KBC
 coefficient vectors) are NumPy, copied from tpulbm line for line so that
-their arrays equal tpulbm's bit for bit. A body force is not ported yet
-(ROADMAP Queue 1 item 12): the collisions keep tpulbm's `force` argument
-and refuse a non-empty one.
+their arrays equal tpulbm's bit for bit. A uniform body force F enters
+every collision as tpulbm's does: the source 3 w_i (c_i·F), computed on
+the host in double precision, is added after the relaxation.
 """
 from __future__ import annotations
 
@@ -68,18 +68,40 @@ def equilibrium(lat: Lattice, rho: torch.Tensor,
     return torch.stack(planes)
 
 
-def collide(lat: Lattice, f: torch.Tensor, inv_tau: float) -> torch.Tensor:
-    """BGK relaxation: f_post = f - (1/tau) (f - f_eq)."""
+def force_source(lat: Lattice, force: tuple[float, ...]) -> np.ndarray:
+    """(Q,) float64 source S_i = 3 w_i (c_i·F) of a uniform body force F:
+    added after the relaxation it injects exactly the momentum F a step
+    (Σ_i c_i S_i = F)."""
+    c = lat.c.astype(np.float64)
+    return np.asarray(3.0 * lat.w * (c @ np.asarray(force, np.float64)))
+
+
+def _add_source(lat: Lattice, f_post: torch.Tensor,
+                force: tuple[float, ...]) -> torch.Tensor:
+    """f_post plus the body-force source, rounded to f_post's dtype; f_post
+    itself without a force."""
+    if not force:
+        return f_post
+    src = torch.as_tensor(force_source(lat, force), dtype=f_post.dtype,
+                          device=f_post.device)
+    return f_post + src.reshape((lat.Q,) + (1,) * (f_post.dim() - 1))
+
+
+def equilibrium_with_force(lat: Lattice, rho: torch.Tensor, u: torch.Tensor,
+                           force: tuple[float, ...]) -> torch.Tensor:
+    """Equilibrium plus 3 w_i (c_i·F), the forced equilibrium of tpulbm's
+    physics.py (the reference's literal formula; the collisions add the
+    source after relaxing instead)."""
+    return _add_source(lat, equilibrium(lat, rho, u), force)
+
+
+def collide(lat: Lattice, f: torch.Tensor, inv_tau: float,
+            force: tuple[float, ...] = ()) -> torch.Tensor:
+    """BGK relaxation: f_post = f - (1/tau) (f - f_eq), plus the source of
+    a body force."""
     rho, u = moments(lat, f)
     feq = equilibrium(lat, rho, u)
-    return f - inv_tau * (f - feq)
-
-
-def _no_force(force) -> None:
-    if force:
-        raise NotImplementedError(
-            "a body force is not ported to tpulbm_torch yet (ROADMAP Queue 1 "
-            "item 12 (body force, cavity and BC variants))")
+    return _add_source(lat, f - inv_tau * (f - feq), force)
 
 
 def _plane_sum(coeffs, planes):
@@ -115,7 +137,6 @@ def collide_trt(lat: Lattice, f: torch.Tensor, inv_tau: float,
 
     At tau → 1/2 with the Zou-He inlet and outlet it needs the clean
     corners (Problem.clean_corners), as in tpulbm."""
-    _no_force(force)
     rho, u = moments(lat, f)
     feq = equilibrium(lat, rho, u)
     opp = torch.as_tensor(lat.opposite, dtype=torch.int64, device=f.device)
@@ -123,9 +144,9 @@ def collide_trt(lat: Lattice, f: torch.Tensor, inv_tau: float,
     feq_o = feq[opp]
     half_p = 0.5 * inv_tau
     half_m = 0.5 * omega_minus_trt(inv_tau, magic)
-    return (f
-            - half_p * ((f + f_o) - (feq + feq_o))
-            - half_m * ((f - f_o) - (feq - feq_o)))
+    return _add_source(lat, (f
+                             - half_p * ((f + f_o) - (feq + feq_o))
+                             - half_m * ((f - f_o) - (feq - feq_o))), force)
 
 
 def collide_regularized(lat: Lattice, f: torch.Tensor, inv_tau: float,
@@ -136,7 +157,6 @@ def collide_regularized(lat: Lattice, f: torch.Tensor, inv_tau: float,
         Π^neq_αβ = Σ_i c_iα c_iβ (f_i − feq_i)
         fneq_reg_i = (9/2) w_i Q_iαβ Π^neq_αβ,  Q_i = c_i c_i − I/3
         f_post = feq + (1 − 1/τ) fneq_reg."""
-    _no_force(force)
     rho, u = moments(lat, f)
     feq = equilibrium(lat, rho, u)
     fneq = f - feq
@@ -156,7 +176,7 @@ def collide_regularized(lat: Lattice, f: torch.Tensor, inv_tau: float,
         wq = torch.as_tensor(4.5 * lat.w * coeff, dtype=f.dtype,
                              device=f.device).reshape(wshape)
         proj = proj + wq * pi_ab[None]
-    return feq + (1.0 - inv_tau) * proj
+    return _add_source(lat, feq + (1.0 - inv_tau) * proj, force)
 
 
 def kbc_projectors(lat: Lattice) -> tuple[np.ndarray, np.ndarray]:
@@ -216,7 +236,6 @@ def collide_kbc(lat: Lattice, f: torch.Tensor, inv_tau: float,
     λ is tpulbm's Tikhonov floor (1e-10 in f32, 1e-20 in f64): without it
     the ratio amplifies rounding noise whenever Δh is noise and Δs is not.
     The projector contractions are sums over the planes."""
-    _no_force(force)
     rho, u = moments(lat, f)
     feq = equilibrium(lat, rho, u)
     dneq = f - feq
@@ -235,7 +254,8 @@ def collide_kbc(lat: Lattice, f: torch.Tensor, inv_tau: float,
     beta = 0.5 * inv_tau
     lam = 1e-20 if f.dtype == torch.float64 else 1e-10
     gamma = 1.0 / beta - (2.0 - 1.0 / beta) * sh / (hh + lam)
-    return f - (2.0 * beta) * ds - (beta * gamma)[None] * dh
+    return _add_source(lat, f - (2.0 * beta) * ds - (beta * gamma)[None] * dh,
+                       force)
 
 
 def _mrt_basis(lat: Lattice) -> tuple[np.ndarray, tuple[str, ...]]:
@@ -371,7 +391,6 @@ def collide_mrt(lat: Lattice, f: torch.Tensor, inv_tau: float,
     R = mrt_relax_matrix: shear stresses relax at 1/tau (BGK's viscosity),
     conserved moments not at all, ghost moments at their own rates. The
     per-plane loop skips R's zeros, as tpulbm's does."""
-    _no_force(force)
     R = mrt_relax_matrix(lat, inv_tau, overrides)
     rho, u = moments(lat, f)
     feq = equilibrium(lat, rho, u)
@@ -386,7 +405,7 @@ def collide_mrt(lat: Lattice, f: torch.Tensor, inv_tau: float,
             term = rij * d[j]
             acc = term if acc is None else acc + term
         planes.append(f[i] if acc is None else f[i] - acc)
-    return torch.stack(planes)
+    return _add_source(lat, torch.stack(planes), force)
 
 
 def _stress_norm_sq(lat: Lattice, devs):
@@ -464,12 +483,11 @@ def power_law_inv_tau(lat: Lattice, inv_rho: torch.Tensor, devs,
 def collide_power_law(lat: Lattice, f: torch.Tensor, k: float, n: float,
                       force: tuple[float, ...] = ()) -> torch.Tensor:
     """BGK with the per-cell power-law rate of power_law_inv_tau."""
-    _no_force(force)
     rho, u = moments(lat, f)
     feq = equilibrium(lat, rho, u)
     devs = f - feq
     inv_t = power_law_inv_tau(lat, 1.0 / rho, devs, k, n)
-    return f - inv_t[None] * devs
+    return _add_source(lat, f - inv_t[None] * devs, force)
 
 
 def collide_smagorinsky(lat: Lattice, f: torch.Tensor, inv_tau: float,
@@ -477,12 +495,11 @@ def collide_smagorinsky(lat: Lattice, f: torch.Tensor, inv_tau: float,
                         force: tuple[float, ...] = ()) -> torch.Tensor:
     """BGK with the per-cell rate of smagorinsky_inv_tau; Cs = 0 (or zero
     shear) is BGK."""
-    _no_force(force)
     rho, u = moments(lat, f)
     feq = equilibrium(lat, rho, u)
     devs = f - feq
     inv_t = smagorinsky_inv_tau(lat, 1.0 / rho, devs, inv_tau, cs)
-    return f - inv_t[None] * devs
+    return _add_source(lat, f - inv_t[None] * devs, force)
 
 
 def thermal_equilibrium(lat_g: Lattice, T: torch.Tensor,

@@ -89,6 +89,13 @@ class Runner:
         self._stable = diagnostics.stability_fn(self.problem)
         self._max_vel = diagnostics.max_velocity_fn(self.problem, device)
         self._super: dict[bool, object] = {}   # with_fields -> super-chunk fn
+        # A closed box (the cavity) has no open boundary to absorb the
+        # walls' O(gradient) mass drift; the step is degree-1 homogeneous
+        # in f, so rescaling the total mass to its start value after every
+        # chunk and super-chunk (as tpulbm's Runner does) only pins the
+        # density scale. On the device, no host round trip.
+        self._mass0 = (float(np.prod(self.problem.spatial_shape))
+                       if self.problem.closed_box else None)
         self._host_fetches = 0
         # VTK frame formatting and writing run on a pool of writer threads
         # (run() opens and closes it) so frames do not stall the device;
@@ -123,6 +130,13 @@ class Runner:
             self._chunk_cache[length] = make_chunk_fn(
                 self.problem, self.device, length, backend=self.params.backend)
         return self._chunk_cache[length]
+
+    def _renorm(self, f: torch.Tensor) -> torch.Tensor:
+        """f with its total mass rescaled to the closed box's start value
+        (f itself for an open problem)."""
+        if self._mass0 is None:
+            return f
+        return f * (self._mass0 / torch.sum(f))
 
     def _fetch(self, x: torch.Tensor) -> np.ndarray:
         """One device-to-host copy, counted."""
@@ -261,6 +275,7 @@ class Runner:
                     if t % freq == 0 and t + _SUPER_K * freq <= t_fields:
                         fn = self._super_fn(vtk_window)
                         f, flat = fn(f)
+                        f = self._renorm(f)
                         d = fn.unpack(self._fetch(flat))
                         aborted = False
                         for j in range(_SUPER_K):
@@ -326,7 +341,7 @@ class Runner:
                         n = min(n, t_fields - t)
                     elif t == t_fields:
                         fields_prev = self._fetch_fields(f)
-                    f = self._chunk_fn(n)(f)
+                    f = self._renorm(self._chunk_fn(n)(f))
                     t += n
                     chunks_done += 1
                     if (p.checkpoint_every and
