@@ -188,7 +188,37 @@ printing its own line; any failure exits non-zero:
 29. timing of each new library against its plain step, in turns: ms/step,
    MLUPS and the share of the bound (72 B a cell in 2-D and 152 in 3-D
    where the kernel reads no mask; the source's adds counted). Each
-   phase group's time is printed.
+   phase group's time is printed;
+30. the mesh of shards (tpulbm_torch/parallel/, several shards on this one
+   card): the ring builds of both D2Q9 sources (-DTPULBM_RINGS=1, built in
+   phase 2, ptxas's report printed) on a (1,1) mesh at re200, 1-step and
+   N = 2, 3, 4, with and without x rings, from the initial and the
+   perturbed state, bitwise equal to today's builds;
+31. one launch per shard at re200 on (4,1) (ring rows), (1,4) and (2,2)
+   (x rings too, corners from the diagonal shards) at N = 1-4, and the
+   overlap mode's three ranged launches a shard on (4,1) at N = 1 and 4,
+   from the initial and the perturbed state: each shard against its plain
+   ring step (ops/step_rings_torch.py) at N times the one-step tolerance,
+   the mesh bitwise equal to the one-device kernel; on the perturbed state
+   rings of the frozen equilibrium on the shard edges must miss the plain
+   step by SEPARATION tolerances;
+32. 280 steps of re200 on each mesh and in the overlap mode on (4,1), and
+   40-42 steps at the other depths (TPULBM_NO_FUSED2, TPULBM_SUBSTEPS), each
+   counted (the launches per library, depth and shard the chunk plan
+   gives, none of another kernel) and bitwise equal to the one-device
+   chunk at the same depth;
+33. the main path: the Runner on scale-8m (4096x2048, BASELINE config 4)
+   on a 2x2 mesh, devices=[cuda:0]*4, 2000 steps at output_frequency 500,
+   no VTK: exactly the launches per library, depth and shard that the
+   chunk plan gives for the Runner's chunks (375 N=4 and 500 1-step a
+   shard), none of another kernel; host fetches, wall time and runner
+   MLUPS; forces.csv and velocity_field.csv within rtol 1e-4 / atol 5e-6
+   of the one-device run's;
+34. timing, in turns: the ring builds against today's at re200 on (1,1)
+   (1-step, N = 2, 3, 4), and one shard's launch at scale-8m's shapes
+   (2x2 with x rings at N = 1-4, 4x1 with ring rows at N = 1, 2, 4, the
+   overlap mode's three ranged launches at N = 1 and 4) against its plain
+   ring step, with the bound (73/N B a cell and the rings' bytes).
 
 Run directories go to build/chip_smoke/ (git-ignored; the final CSVs have
 a million rows). The last two lines are a JSON line per kernel and the
@@ -204,7 +234,10 @@ the thermal LES build (thermal_collide_stream[smagorinsky]), phases 26 and 28
 for each new library (d2q9_collide_stream[<library>],
 d2q9_collide_stream_n4[<library>], the channel's N=2 and N=3 from its
 311-step run; d3q19_collide_stream[<library>] and _nN: StepConstants.library
-names the library, e.g. "mrt+channel+source"). A kernel's
+names the library, e.g. "mrt+channel+source"), and phases 32-33 for the
+ring builds (d2q9_rings_<mode>[_nN], <mode> the chunk's: "tiled" with x
+rings, "rows" without, "overlap" ranged; the tiled 1-step and N=4
+launches from the main path, the rest from phase 32's runs). A kernel's
 `bound_ms` is the
 least time the card could take for one step of its work at the shape it
 was timed at: the larger of the bytes a step must move (each population
@@ -241,9 +274,10 @@ FIELDS_TOL = dict(rtol=1e-5, atol=5e-6)
 # 280 steps of f32 rounding differences (1/rho multiplied vs divided, sum
 # order) from an impulsive start: a divergence bound, not a parity gate
 DRIFT_280_BOUND = 1e-4
-# the re200 N=4 BGK kernel's time before the domains (PERF.md §6, row 2)
-# on an NVIDIA H100 80GB HBM3 at 700 W: the cylinder's libraries keep it
-RE200_N4_BEFORE_MS = 0.01940
+# the re200 N=4 BGK kernel's time before the ring builds (PERF.md §6,
+# row 2: the last call of PR 9) on an NVIDIA H100 80GB HBM3 at 700 W: the
+# cylinder's libraries keep it
+RE200_N4_BEFORE_MS = 0.01895
 # the 3-D cell's edge (bench.py's d3q19 row) and the bytes one D3Q19 step
 # must move: 19 f32 values per cell read and written once, plus the 1-byte
 # solid mask
@@ -2205,6 +2239,470 @@ def domain_phases(dev, card: str) -> list[dict]:
     return entries
 
 
+# ---- phases 30-34: the 2-D flow on a mesh of shards (the ring builds)
+
+# the meshes of phases 31-32 at re200 and the main path's: scale-8m
+# (4096x2048, BASELINE config 4) on 2x2, four shards on one card
+MESH_SHAPES = ((4, 1), (1, 4), (2, 2))
+MAIN_MESH = (2, 2)
+# the rings each launch reads beside the block: rb, rt (depth N, nxl + 2N
+# wide) and rl, rr (nyl x N), 9 f32 each, read once
+RING_BYTES = 9 * 4
+
+
+def mesh_builds():
+    """(source, mode, variant) of the ring libraries the mesh phases run:
+    both D2Q9 sources built with -DTPULBM_RINGS=1 for the BGK cylinder."""
+    from tpulbm_torch.ops import step_cuda
+    return [(src, "bgk", step_cuda.RINGS)
+            for src in ("step_d2q9.cu", "step_d2q9_blocked.cu")]
+
+
+def card_mesh(shape, dev):
+    """A mesh of `shape` with every shard on the one card `dev`."""
+    from tpulbm_torch.parallel.mesh import make_mesh
+    return make_mesh(shape, devices=[dev] * (shape[0] * shape[1]))
+
+
+def ring_counts() -> dict:
+    """The ring wrapper's launches per (library, depth, shard)."""
+    from tpulbm_torch.ops import step_cuda
+    return step_cuda.launches_by_shard(step_cuda.collide_stream_rings)
+
+
+def with_env(env: dict, fn):
+    """fn() under the environment variables `env` (tpulbm's dispatch
+    switches), restored after."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return fn()
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+class MeshCase:
+    """One mesh of a problem on the card: its shards' geometry at a depth
+    (x rings or not), their kernel launches and their plain ring steps."""
+
+    def __init__(self, problem, shape, dev, depth: int, x_rings: bool):
+        from tpulbm_torch.ops import step_cuda, step_rings_torch
+        from tpulbm_torch.parallel import halo, sharded_step
+        self.problem, self.shape, self.depth = problem, shape, depth
+        self.x_rings = x_rings
+        self.mesh = card_mesh(shape, dev)
+        self.local = self.mesh.local_shape(problem.spatial_shape)
+        self.consts = step_cuda.kernel_constants(problem)
+        solid = (np.zeros(problem.spatial_shape, bool)
+                 if problem.solid is None else problem.solid)
+        masks = halo.pad_mask(sharded_step.shard_mask(self.mesh, solid),
+                              periodic_x=problem.periodic_x, depth=depth)
+        self.shards, self.plains = {}, {}
+        for iy, ix in self.mesh.shards():
+            o = sharded_step.origin(self.mesh, self.local, iy, ix)
+            self.shards[iy, ix] = step_cuda.Shard(
+                (iy, ix), o, self.local, problem.spatial_shape, depth,
+                x_rings, masks[iy][ix].to(torch.uint8).contiguous())
+            self.plains[iy, ix] = step_rings_torch.make_ring_step(
+                problem, o, self.local, depth,
+                masks[iy][ix] if problem.solid is not None else None, dev)
+
+    def split(self, f: torch.Tensor):
+        from tpulbm_torch.parallel import sharded_step
+        return sharded_step.split(self.mesh, f)
+
+    def rings(self, blocks):
+        from tpulbm_torch.parallel import halo
+        return halo.exchange(blocks, eq_ring=self.problem.ghost_ring_values(),
+                             depth=self.depth,
+                             periodic_x=self.problem.periodic_x,
+                             x_rings=self.x_rings)
+
+    def launch(self, block, out, rings, idx, rows=None):
+        from tpulbm_torch.ops import step_cuda
+        return step_cuda.collide_stream_rings(
+            block, out, rings, self.shards[idx], self.consts, self.depth,
+            rows=rows)
+
+    def step_all(self, blocks, rings=None, ranged: bool = False):
+        """One launch of every shard (three ranged ones with `ranged`)."""
+        rings = self.rings(blocks) if rings is None else rings
+        nyl, e = self.local[0], self.depth + 1
+        outs = []
+        for iy, row in enumerate(blocks):
+            orow = []
+            for ix, b in enumerate(row):
+                out = torch.empty_like(b)
+                if ranged:
+                    self.launch(b, out, (None,) * 4, (iy, ix),
+                                rows=(e, nyl - e))
+                    self.launch(b, out, rings[iy][ix], (iy, ix), rows=(0, e))
+                    self.launch(b, out, rings[iy][ix], (iy, ix),
+                                rows=(nyl - e, nyl))
+                else:
+                    self.launch(b, out, rings[iy][ix], (iy, ix))
+                orow.append(out)
+            outs.append(orow)
+        return outs
+
+
+def gather(blocks) -> torch.Tensor:
+    from tpulbm_torch.parallel import sharded_step
+    return sharded_step.gather(blocks)
+
+
+def ring_parity(problem, f, shape, dev, depth, x_rings, one_device,
+                ranged=False, sep_check=False) -> tuple[float, str]:
+    """Phase 31 on one mesh, depth and state: every shard's launch against
+    its plain ring step (the N-step tolerance), the gathered result bitwise
+    against the one-device kernel's; with sep_check, rings of the frozen
+    equilibrium on the shard edges must miss the plain step by SEPARATION
+    tolerances. Returns (max error, separation text)."""
+    from tpulbm_torch.parallel import halo
+    case = MeshCase(problem, shape, dev, depth, x_rings)
+    blocks = case.split(f)
+    rings = case.rings(blocks)
+    got = case.step_all(blocks, rings, ranged=ranged)
+    tol = n_step_tol(depth)
+    err = 0.0
+    for idx, plain in case.plains.items():
+        rb, rt, rl, rr = rings[idx[0]][idx[1]]
+        want = plain(blocks[idx[0]][idx[1]], rb, rt, rl, rr)
+        torch.testing.assert_close(got[idx[0]][idx[1]], want, **tol)
+        err = max(err, float((got[idx[0]][idx[1]] - want).abs().max()))
+    one = one_device(f)
+    whole = gather(got)
+    torch.cuda.synchronize()
+    require(torch.equal(whole, one),
+            f"mesh {shape} N={depth}: {float((whole - one).abs().max())} off "
+            "the one-device kernel")
+    text = ""
+    if sep_check:
+        eq = problem.ghost_ring_values()
+        flat = [[tuple(None if r is None else halo._eq_block(eq, r, r.shape)
+                       for r in rs) for rs in row] for row in rings]
+        bad = case.step_all(blocks, flat, ranged=ranged)
+        sep = 0.0
+        for idx, plain in case.plains.items():
+            rb, rt, rl, rr = rings[idx[0]][idx[1]]
+            want = plain(blocks[idx[0]][idx[1]], rb, rt, rl, rr)
+            d = bad[idx[0]][idx[1]] - want
+            sep = max(sep, float((d.abs() / (tol["atol"] + tol["rtol"]
+                                             * want.abs())).max()))
+        require(sep > SEPARATION, f"mesh {shape} N={depth}: equilibrium "
+                f"rings only {sep:.1f}x the tolerance off")
+        text = f", equilibrium rings {sep:.0f}x the tolerance off"
+    del case, blocks, rings, got, whole
+    torch.cuda.empty_cache()
+    return err, text
+
+
+def mesh_plan_launches(problem, mesh, lengths) -> dict:
+    """The launches per (library, depth, shard) of chunks of `lengths`
+    steps on `mesh`, from the chunk plan (sharded_step.plan)."""
+    from tpulbm_torch.ops import step_cuda
+    from tpulbm_torch.parallel import sharded_step
+    lib = step_cuda.kernel_constants(problem).library
+    want: dict = {}
+    for n in lengths:
+        mode, depth = sharded_step.plan(problem, mesh, n)
+        per = n // depth * (3 if mode == "overlap" else 1)
+        for idx in mesh.shards():
+            key = (lib, depth, idx)
+            want[key] = want.get(key, 0) + per
+    return want
+
+
+def runner_chunks(params) -> list[int]:
+    """The chunk lengths the Runner's loop steps for `params` when no
+    super-chunk fits (runner.py's tail: an interval at a time, the last
+    one stopped a step short for the final fields)."""
+    t, out, freq = 0, [], params.output_frequency
+    t_fields = params.num_timesteps - 1
+    while t < params.num_timesteps:
+        n = min(freq - t % freq, params.num_timesteps - t)
+        if t < t_fields:
+            n = min(n, t_fields - t)
+        out.append(n)
+        t += n
+    return out
+
+
+def mesh_phases(dev, card: str) -> list[dict]:
+    """Phases 30-34: the ring builds on the card. Returns their kernels'
+    JSON entries."""
+    from tpulbm_torch.config import PRESETS
+    from tpulbm_torch.convert import state_from_numpy
+    from tpulbm_torch.models import make_problem
+    from tpulbm_torch.ops import step_cuda
+    from tpulbm_torch.parallel import sharded_step
+    from tpulbm_torch.runner import Runner
+    from tpulbm_torch.utils import cuda_build
+
+    t_all = time.perf_counter()
+    for (src, mode, variant) in mesh_builds():
+        lib = cuda_build.load(src, step_cuda.build_defines(mode, variant))
+        print(f"build: {src} {step_cuda.build_defines(mode, variant)} "
+              f"(the ring build) in {lib.build_seconds:.2f} s "
+              f"({ptxas_summary(lib.log)})")
+
+    # phase 30: the ring builds on a (1,1) mesh against today's builds
+    t0 = time.perf_counter()
+    params = PRESETS["re200"].replace(precision="f32", enable_vtk=False)
+    problem = make_problem(params)
+    f0 = state_from_numpy(problem.initial_state(), problem, dev)
+    fp = perturbed(problem, f0)
+    one = {1: step_cuda.make_local_step_cuda(problem, dev)}
+    for n in DEPTHS:
+        one[n] = step_cuda.make_local_step_cuda_blocked(problem, dev, n)
+    for depth in (1, *DEPTHS):
+        for x_rings in (False, True):
+            case = MeshCase(problem, (1, 1), dev, depth, x_rings)
+            for f in (f0, fp):
+                got = gather(case.step_all(case.split(f)))
+                want = one[depth](f, torch.empty_like(f))
+                torch.cuda.synchronize()
+                require(torch.equal(got, want),
+                        f"(1,1) ring build N={depth} x_rings={x_rings}: "
+                        f"{float((got - want).abs().max())} off today's")
+    print(f"mesh (1,1): the ring builds at re200, 1-step and N=2,3,4, with "
+          f"and without x rings, from the initial and the perturbed state: "
+          f"bitwise equal to today's builds ({time.perf_counter() - t0:.2f}"
+          f" s)")
+
+    # phase 31: one launch per shard on each mesh against the plain ring
+    # step, bitwise against one device, the ranged launches, separation
+    t0 = time.perf_counter()
+    for shape in MESH_SHAPES:
+        x_rings = shape[1] != 1
+        for depth in (1, *DEPTHS):
+            for name, f in (("initial", f0), ("perturbed", fp)):
+                err, sep = ring_parity(
+                    problem, f, shape, dev, depth, x_rings,
+                    lambda g, d=depth: one[d](g, torch.empty_like(g)),
+                    sep_check=name == "perturbed")
+                print(f"mesh {shape} N={depth} from the {name} state: every "
+                      f"shard within {err:.3e} of its plain ring step "
+                      f"(rtol {n_step_tol(depth)['rtol']:.0e}, atol "
+                      f"{n_step_tol(depth)['atol']:.0e}), the mesh bitwise "
+                      f"equal to one device{sep}")
+    for depth in (1, 4):
+        for name, f in (("initial", f0), ("perturbed", fp)):
+            err, sep = ring_parity(
+                problem, f, (4, 1), dev, depth, False,
+                lambda g, d=depth: one[d](g, torch.empty_like(g)),
+                ranged=True, sep_check=name == "perturbed")
+            print(f"mesh (4, 1) ranged N={depth} (interior, bottom, top) "
+                  f"from the {name} state: within {err:.3e} of the plain "
+                  f"ring step, bitwise equal to one device{sep}")
+    print(f"mesh parity: {time.perf_counter() - t0:.2f} s")
+
+    # phase 32: 280 steps (and 40-42 at the other depths) on each mesh and
+    # mode, counted, bitwise against the one-device chunk
+    t0 = time.perf_counter()
+    runs = [((4, 1), {}, 280, "rows"), ((1, 4), {}, 280, "tiled"),
+            ((2, 2), {}, 280, "tiled"),
+            ((4, 1), {"TPULBM_HALO_OVERLAP": "1"}, 280, "overlap"),
+            ((4, 1), {"TPULBM_NO_FUSED2": "1"}, 40, "rows"),
+            ((4, 1), {"TPULBM_SUBSTEPS": "2"}, 40, "rows"),
+            ((4, 1), {"TPULBM_HALO_OVERLAP": "1", "TPULBM_NO_FUSED2": "1"},
+             40, "overlap"),
+            ((2, 2), {"TPULBM_NO_FUSED2": "1"}, 42, "tiled"),
+            ((2, 2), {"TPULBM_SUBSTEPS": "2"}, 42, "tiled"),
+            ((2, 2), {"TPULBM_SUBSTEPS": "3"}, 42, "tiled")]
+    launches = {}
+    for shape, env, steps, kind in runs:
+        mesh = card_mesh(shape, dev)
+
+        def run_both(mesh=mesh, steps=steps):
+            chunk = sharded_step.make_chunk_fn(problem, mesh, steps)
+            ref = step_cuda_chunk(problem, dev, steps)
+            blocks = sharded_step.split(mesh, f0)
+            want = ref(f0.clone())
+            reset_counts()
+            got = chunk(blocks)
+            torch.cuda.synchronize()
+            return chunk, got, want, ring_counts(), read_counts()
+
+        chunk, got, want, counts, others = with_env(env, run_both)
+        whole = gather(got)
+        same = torch.equal(whole, want)
+        require(same, f"mesh {shape} {env}: {steps} steps "
+                f"{float((whole - want).abs().max())} off one device")
+        plan = with_env(env, lambda mesh=mesh, steps=steps:
+                        mesh_plan_launches(problem, mesh, [steps]))
+        require(counts == plan and others == only(1, 0)
+                and chunk.mode == kind,
+                f"mesh {shape} {env}: {chunk.mode} launches {counts} "
+                f"{others}, not {kind} {plan}")
+        depth = chunk.substeps
+        launches[kind, depth] = sum(counts.values())
+        print(f"mesh {shape} {env or ''} {steps} steps: {chunk.mode} at "
+              f"N={depth}, {sum(counts.values())} ring launches "
+              f"({len(counts)} shards x {steps // depth * (3 if chunk.mode == 'overlap' else 1)}),"
+              f" bitwise equal to the one-device chunk")
+    print(f"mesh runs: {time.perf_counter() - t0:.2f} s")
+
+    # phase 33: the main path, scale-8m on 2x2 through the Runner
+    t0 = time.perf_counter()
+    p8 = PRESETS["scale-8m"].replace(precision="f32", enable_vtk=False)
+    problem8 = make_problem(p8)
+    mesh8 = card_mesh(MAIN_MESH, dev)
+    d_mesh = OUT_DIR / "scale8m_2x2"
+    d_one = OUT_DIR / "scale8m_1x1"
+    pm = p8.replace(mesh_shape=MAIN_MESH, output_dir=str(d_mesh))
+    runner = Runner(pm, devices=[dev] * 4, verbose=False)
+    reset_counts()
+    t1 = time.perf_counter()
+    result = runner.run()
+    wall = time.perf_counter() - t1
+    counts, others = ring_counts(), read_counts()
+    require(result.success, "the scale-8m mesh run failed")
+    chunks = runner_chunks(pm)
+    plan = mesh_plan_launches(problem8, mesh8, chunks)
+    require(counts == plan and others == only(1, 0),
+            f"scale-8m 2x2: launches {counts} {others}, not {plan}")
+    main_launches = {}
+    for (lib, depth, idx), n in counts.items():
+        main_launches[depth] = main_launches.get(depth, 0) + n
+    one_run = Runner(p8.replace(output_dir=str(d_one)), device=dev,
+                     verbose=False).run()
+    require(one_run.success, "the scale-8m one-device run failed")
+    steps_all = list(range(0, p8.num_timesteps, p8.output_frequency))
+    fm, fo = check_forces(d_mesh, steps_all), check_forces(d_one, steps_all)
+    np.testing.assert_allclose(fm[:, 1:3], fo[:, 1:3], **FORCES_TOL)
+    vm = np.loadtxt(d_mesh / "velocity_field.csv", delimiter=",",
+                    skiprows=1, dtype=np.float64)
+    vo = np.loadtxt(d_one / "velocity_field.csv", delimiter=",",
+                    skiprows=1, dtype=np.float64)
+    require(vm.shape == (p8.nx * p8.ny, 6), f"velocity field {vm.shape}")
+    np.testing.assert_allclose(vm, vo, rtol=1e-4, atol=5e-6)
+    dv = float(np.abs(vm - vo).max())
+    del vm, vo
+    print(f"main path: scale-8m {p8.nx}x{p8.ny} f32 on a 2x2 mesh of "
+          f"{p8.ny // 2}x{p8.nx // 2} shards on one card, 2000 steps every "
+          f"500 (chunks {chunks}): launches per library, depth and shard "
+          + ", ".join(f"{lib} N={d} {idx}: {n}" for (lib, d, idx), n in
+                      sorted(counts.items()))
+          + f" (from the chunk plan), 0 of another kernel; "
+          f"{result.host_fetches} host fetches in the loop, {wall:.2f} s "
+          f"wall, runner {result.mlups:.1f} MLUPS (one device "
+          f"{one_run.mlups:.1f}); forces.csv within rtol 1e-4 / atol 5e-6 "
+          f"(max diff {float(np.abs(fm[:, 1:3] - fo[:, 1:3]).max()):.3e}) "
+          f"and velocity_field.csv (max diff {dv:.3e}) of the one-device "
+          f"run ({time.perf_counter() - t0:.2f} s)")
+
+    # phase 34: timing, CUDA events, in turns
+    t0 = time.perf_counter()
+    order = ["today", "rings"]
+    for depth in (1, *DEPTHS):
+        case = MeshCase(problem, (1, 1), dev, depth, False)
+        rings = case.rings(case.split(f0))
+        runs_ = {"today": lambda f, m, d=depth: kernel_chunk(one[d], f, m // d),
+                 "rings": lambda f, m, case=case, rings=rings: kernel_chunk(
+                     lambda g, o: case.launch(g, o, rings[0][0], (0, 0)),
+                     f, m // case.depth)}
+        times = {k: [] for k in order}
+        for which in order + order[::-1]:
+            times[which].append(ms_per_step(runs_[which], f0, 2400))
+        ms = {k: min(v) for k, v in times.items()}
+        print(f"timing (1,1) re200 N={depth} on {card}: today's build "
+              f"{ms['today']:.5f} ms/step, the ring build {ms['rings']:.5f} "
+              f"({100 * (ms['rings'] / ms['today'] - 1):+.2f}%)")
+    f8 = state_from_numpy(problem8.initial_state(), problem8, dev)
+    fp8 = perturbed(problem8, f8)
+    entries = []
+    timed = [("tiled", (2, 2), 1), ("tiled", (2, 2), 2), ("tiled", (2, 2), 3),
+             ("tiled", (2, 2), 4), ("rows", (4, 1), 1), ("rows", (4, 1), 2),
+             ("rows", (4, 1), 4), ("overlap", (4, 1), 1),
+             ("overlap", (4, 1), 4)]
+    for kind, shape, depth in timed:
+        case = MeshCase(problem8, shape, dev, depth, kind == "tiled")
+        # every shard's launch (the overlap mode's three) from the
+        # perturbed state against its plain ring step at this shape: the
+        # line's max_abs_err
+        pblocks = case.split(fp8)
+        prings = case.rings(pblocks)
+        got = case.step_all(pblocks, prings, ranged=kind == "overlap")
+        tol = n_step_tol(depth)
+        err = 0.0
+        for (iy, ix), plain in case.plains.items():
+            want = plain(pblocks[iy][ix], *prings[iy][ix])
+            torch.testing.assert_close(got[iy][ix], want, **tol)
+            err = max(err, float((got[iy][ix] - want).abs().max()))
+        del pblocks, prings, got, want
+        blocks = case.split(f8)
+        rings = case.rings(blocks)
+        b, r = blocks[0][0], rings[0][0]
+        nyl, nxl = case.local
+        e = depth + 1
+
+        def launch_one(g, o, case=case, r=r, kind=kind, nyl=nyl, e=e):
+            if kind == "overlap":
+                case.launch(g, o, (None,) * 4, (0, 0), rows=(e, nyl - e))
+                case.launch(g, o, r, (0, 0), rows=(0, e))
+                case.launch(g, o, r, (0, 0), rows=(nyl - e, nyl))
+                return o
+            return case.launch(g, o, r, (0, 0))
+
+        plain = case.plains[0, 0]
+        runs_ = {"plain": lambda g, m, plain=plain, r=r: [
+                     plain(g, *r) for _ in range(m // depth)][-1],
+                 "kernel": lambda g, m, depth=depth, fn=launch_one:
+                     kernel_chunk(fn, g, m // depth)}
+        times = {"plain": [], "kernel": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            m = 4 * depth if which == "plain" else 1200
+            times[which].append(ms_per_step(runs_[which], b, m,
+                                            warm=depth if which == "plain"
+                                            else 20))
+        ms = {k: min(v) for k, v in times.items()}
+        cells = nyl * nxl
+        hx = depth if kind == "tiled" else 0
+        ring_bytes = RING_BYTES * 2 * depth * (nxl + 2 * hx) + \
+            (RING_BYTES * 2 * nyl * depth if kind == "tiled" else 0)
+        bnd = bound_of(STEP_BYTES["d2q9"], STEP_FLOPS["d2q9"], cells, depth)
+        bnd["bound_ms"] += 1e3 * ring_bytes / depth / HBM_BYTES_PER_S
+        print(f"scale-8m mesh {shape} {kind} N={depth}: every shard within "
+              f"{err:.3e} of its plain ring step from the perturbed state "
+              f"(rtol {tol['rtol']:.0e}, atol {tol['atol']:.0e})")
+        print(f"timing scale-8m shard {nyl}x{nxl} ({kind}, mesh {shape}) "
+              f"N={depth} on {card}: kernel {ms['kernel']:.5f} ms/step "
+              f"({cells / ms['kernel'] / 1e3:.1f} MLUPS, "
+              f"{100 * bnd['bound_ms'] / ms['kernel']:.1f}% of its "
+              f"{bnd['bound_ms']:.5f} ms bound), plain ring step "
+              f"{ms['plain']:.5f} ms/step")
+        n_launch = launches.get((kind, depth))
+        if kind == "tiled" and depth in main_launches:
+            n_launch = main_launches[depth]
+        if n_launch:
+            entries.append({
+                "name": f"d2q9_rings_{kind}" + (f"_n{depth}" if depth > 1
+                                                else ""),
+                "route": "cuda",
+                "source": (step_cuda.KERNEL_SOURCE if depth == 1
+                           else step_cuda.BLOCKED_SOURCE),
+                "replaces": step_cuda.rings_replaces(kind, depth),
+                "launches": n_launch, "max_abs_err": err,
+                "ms": ms["kernel"], "plain_ms": ms["plain"], **bnd})
+        del case, blocks, rings, b, r
+        torch.cuda.empty_cache()
+    print(f"mesh timing: {time.perf_counter() - t0:.2f} s; mesh phases "
+          f"{time.perf_counter() - t_all:.2f} s")
+    return entries
+
+
+def step_cuda_chunk(problem, dev, steps: int):
+    """The one-device kernel chunk of `steps` steps (stepper.make_chunk_fn)
+    under the current environment."""
+    from tpulbm_torch.stepper import make_chunk_fn
+    return make_chunk_fn(problem, dev, steps)
+
+
 def main() -> int:
     # phase 1: the card
     if not torch.cuda.is_available():
@@ -2236,8 +2734,9 @@ def main() -> int:
     modes += [(src, mode) for mode in step_cuda.COLLISION_MODES_3D[1:]
               for src in ("step_d3q19.cu", "step_d3q19_blocked.cu")]
     modes += [("step_thermal.cu", "smagorinsky")]
-    # and the domain, source and obstacle builds of phases 25-29
-    builds = new_builds()
+    # and the domain, source and obstacle builds of phases 25-29, the ring
+    # builds of phases 30-34
+    builds = new_builds() + mesh_builds()
     with ThreadPoolExecutor(len(sources) + len(modes) + len(builds)) as pool:
         lib_jobs = [pool.submit(cuda_build.load, src) for src in sources]
         mode_jobs = [pool.submit(cuda_build.load, src,
@@ -2250,8 +2749,8 @@ def main() -> int:
         mode_libs = [job.result() for job in mode_jobs]
         build_libs = [job.result() for job in build_jobs]
     print(f"build: {len(sources)} sources, {len(modes)} collision-mode "
-          f"builds (D2Q9, D3Q19, thermal) and {len(builds)} domain, source "
-          f"and obstacle builds in {time.perf_counter() - t0:.2f} s")
+          f"builds (D2Q9, D3Q19, thermal) and {len(builds)} domain, source, "
+          f"obstacle and ring builds in {time.perf_counter() - t0:.2f} s")
     for lib in libs:
         print(f"build: {lib.path.name} in {lib.build_seconds:.2f} s "
               f"({ptxas_summary(lib.log)})")
@@ -2409,8 +2908,8 @@ def main() -> int:
                       f"{[round(v, 6) for v in times[k]]})" for k in order))
     print(f"timing: the cylinder's BGK N=4 kernel {ms[4]:.5f} ms/step, "
           f"{100 * (ms[4] / RE200_N4_BEFORE_MS - 1):+.2f}% against "
-          f"{RE200_N4_BEFORE_MS} ms/step before the domains (PERF.md §6, "
-          "row 2; NVIDIA H100 80GB HBM3, 700.00 W)")
+          f"{RE200_N4_BEFORE_MS} ms/step before the ring builds (PERF.md "
+          "§6, row 2; NVIDIA H100 80GB HBM3, 700.00 W)")
 
     kernels = [{
         "name": "d2q9_collide_stream", "route": "cuda",
@@ -2432,6 +2931,7 @@ def main() -> int:
     kernels.extend(sphere_operator_phases(dev, card))
     kernels.append(thermal_les_phases(dev, card))
     kernels.extend(domain_phases(dev, card))
+    kernels.extend(mesh_phases(dev, card))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -484,3 +484,40 @@ def test_multiphase_chunk_counts_every_launch(cuda):
     want = make_chunk_fn(problem, cuda, 28, backend="jax")(f)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+
+
+# the ring builds (a shard of a mesh, parallel/sharded_step.py) on ragged
+# shards of every domain: each mode and depth bitwise equal to the
+# one-device kernel, the ranged launches included, counted per shard
+@pytest.mark.parametrize("kw", [
+    dict(nx=100, ny=36, tau=0.55, inlet_velocity=0.05, cylinder_x=0.5,
+         cylinder_y=0.5, zou_he_corners="clean", obstacle_bc="bounce_back"),
+    dict(problem="poiseuille", nx=72, ny=36, tau=0.8, inlet_velocity=0.0,
+         body_force=(1e-4, 1e-5)),
+    dict(problem="cavity", nx=66, ny=66, tau=0.6, inlet_velocity=0.1,
+         cylinder_radius=0.0)])
+@pytest.mark.parametrize("shape,env", [
+    ((2, 2), {}), ((3, 1), {}), ((1, 2), {"TPULBM_NO_FUSED2": "1"}),
+    ((3, 1), {"TPULBM_HALO_OVERLAP": "1"}),
+    ((1, 1), {"TPULBM_FORCE_TILED": "1", "TPULBM_SUBSTEPS": "2"})])
+def test_ring_kernels_equal_one_device(cuda, monkeypatch, kw, shape, env):
+    from tpulbm_torch.parallel import sharded_step
+    from tpulbm_torch.parallel.mesh import make_mesh
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    problem = make_problem(SimulationParams(precision="f32", **kw))
+    rng = np.random.default_rng(3)
+    f0 = problem.initial_state() * rng.uniform(
+        0.9, 1.1, (problem.lattice.Q,) + problem.spatial_shape)
+    f = state_from_numpy(f0.astype(np.float32), problem, cuda)
+    mesh = make_mesh(shape, devices=[cuda] * (shape[0] * shape[1]))
+    chunk = sharded_step.make_chunk_fn(problem, mesh, 12)
+    want = make_chunk_fn(problem, cuda, 12)(f.clone())
+    step_cuda.reset_launch_counts()
+    got = sharded_step.gather(chunk(sharded_step.split(mesh, f)))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    per = 12 // chunk.substeps * (3 if chunk.mode == "overlap" else 1)
+    assert step_cuda.launches_by_shard(step_cuda.collide_stream_rings) == {
+        (step_cuda.kernel_constants(problem).library, chunk.substeps, idx):
+        per for idx in mesh.shards()}

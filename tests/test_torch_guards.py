@@ -120,7 +120,8 @@ def test_runner_refuses_cuda_without_a_card(tmp_path):
 
 
 @pytest.mark.parametrize("override", [dict(precision="f64"),
-                                      dict(mesh_shape=(2, 1)),
+                                      dict(mesh_shape=(2, 1),
+                                           problem="cylinder3d", nz=16),
                                       dict(stats_from=0),
                                       dict(probe_points=((0.5, 0.5),))])
 def test_runner_refuses_unported_options(tmp_path, override):

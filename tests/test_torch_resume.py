@@ -130,11 +130,12 @@ def test_checkpoint_rejects_mismatched_params(tmp_path):
 
 
 def test_per_shard_checkpoint_directory_is_refused(tmp_path):
+    # a (2, 2) mesh's per-shard checkpoint does not line up with a (1, 1)
+    # run's one block: refused, as tpulbm's load_sharded refuses it
     p = tiny_params(tmp_path, checkpoint_every=1)
-    shard_dir = tmp_path / "checkpoints" / "ckpt_000000040"
-    shard_dir.mkdir(parents=True)
-    (shard_dir / "manifest.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 19"):
+    blocks = [[np.zeros((9, 16, 32), np.float32)] * 2] * 2
+    ckpt.save_sharded(str(tmp_path / "checkpoints"), 40, blocks, p)
+    with pytest.raises(RuntimeError, match="incompatible mesh"):
         Runner(p, device="cpu", verbose=False).run(resume=True)
 
 

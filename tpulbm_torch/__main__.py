@@ -13,8 +13,14 @@
         --output-frequency 140 --no-vtk
 
 Runs on the first CUDA device; --cpu runs the plain PyTorch version on the
-host instead (debugging). Flags of main.py that the port does not cover yet
-raise NotImplementedError.
+host instead (debugging). --mesh NYxNX runs the 2-D flows on a mesh of
+shards, one per visible card (--mesh auto chooses the shape for
+torch.cuda.device_count() cards); with --cpu the shards run on the host,
+--cpu-devices N of them for --mesh auto. Flags of main.py that the port
+does not cover yet raise NotImplementedError.
+
+    python -m tpulbm_torch --preset scale-8m --mesh 2x2 --no-vtk
+    python -m tpulbm_torch --preset cylinder-small --cpu --mesh 2x2
 """
 from __future__ import annotations
 
@@ -32,7 +38,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--cpu", action="store_true",
                         help="run on the host CPU (plain PyTorch; debug)")
     parser.add_argument("--cpu-devices", type=int, default=0,
-                        help="not ported (several devices)")
+                        help="with --cpu: the number of host shards "
+                             "--mesh auto divides the grid into")
     parser.add_argument("--profile-dir", type=str, default=None,
                         help="write a torch.profiler trace here")
     parser.add_argument("--no-resume", action="store_true",
@@ -45,17 +52,34 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    # --mesh auto keeps params.mesh_shape at (1, 1): the port runs on one
-    # device; an explicit larger --mesh is refused by the Runner
-    if args.cpu_devices or args.distributed:
+    if args.distributed:
         raise NotImplementedError(
-            "several devices are not ported to tpulbm_torch yet "
-            "(ROADMAP Queue 1 item 19)")
+            "several hosts are not ported to tpulbm_torch yet (ROADMAP "
+            "Queue 1 item 19, multi-host on torch.distributed)")
+    if args.cpu_devices and not args.cpu:
+        raise ValueError("--cpu-devices counts host shards; it needs --cpu")
+    import torch
+
     from .config import params_from_args
+    from .parallel.mesh import choose_decomposition
     from .runner import Runner
     from .utils.profiling import trace
 
     params = params_from_args(args)
+    if args.mesh == "auto":
+        # tpulbm's main.py:59-70: the 3-D kernels shard y only, every 2-D
+        # decomposition runs the kernels, so the reference's chooser
+        n_dev = (max(args.cpu_devices, 1) if args.cpu
+                 else torch.cuda.device_count())
+        if n_dev < 1:
+            raise RuntimeError("--mesh auto found no CUDA device (use --cpu "
+                               "for the host)")
+        if params.is_3d and params.backend == "pallas" \
+                and params.ny % n_dev == 0:
+            params = params.replace(mesh_shape=(n_dev, 1))
+        else:
+            params = params.replace(mesh_shape=choose_decomposition(
+                n_dev, params.nx, params.ny))
     runner = Runner(params, device="cpu" if args.cpu else "cuda")
     with trace(args.profile_dir):
         result = runner.run(resume=not args.no_resume)

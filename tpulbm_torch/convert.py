@@ -7,7 +7,9 @@ and (14, ny, nx) for the thermal problems: the 9 D2Q9 planes stacked over
 the 5 D2Q5 planes), so a tpulbm state moves over unchanged.
 A tpulbm single-device checkpoint (tpulbm's checkpoint.save: one .npz with
 `f`, `step` and the params JSON) can be continued in the port, and one the
-port writes in tpulbm.
+port writes in tpulbm. A sharded state (a mesh of several shards) is the
+(my, mx) grid of local blocks in tpulbm's shard order, row by row:
+split_state and gather_state carry a global state into and out of one.
 """
 from __future__ import annotations
 
@@ -37,6 +39,20 @@ def state_from_numpy(f: np.ndarray, problem: Problem, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(f)).to(device)
 
 
+def state_from_numpy_block(block: np.ndarray, problem: Problem,
+                           device) -> torch.Tensor:
+    """One shard's host block (state_q, nyl, nxl) as a contiguous tensor on
+    `device`; raises unless its planes and dtype are the problem's."""
+    block = np.asarray(block)
+    if block.ndim != 3 or block.shape[0] != problem.state_q:
+        raise ValueError(f"block shape {block.shape} is not a "
+                         f"({problem.state_q}, nyl, nxl) block")
+    if block.dtype != np.dtype(problem.dtype):
+        raise TypeError(f"block dtype {block.dtype} != problem's "
+                        f"{np.dtype(problem.dtype)}")
+    return torch.from_numpy(np.ascontiguousarray(block)).to(device)
+
+
 def state_to_numpy(f: torch.Tensor) -> np.ndarray:
     """A port state f32/f64 tensor, (9, ny, nx), (19, nz, ny, nx) or the
     thermal (14, ny, nx), as a host NumPy array."""
@@ -55,3 +71,19 @@ def load_tpulbm_checkpoint(path: str, params: SimulationParams,
     written with different physics than `params`."""
     step, f = checkpoint.load(path, params)
     return step, state_from_numpy(f, make_problem(params), device)
+
+
+def split_state(f: np.ndarray, problem: Problem, mesh) -> list:
+    """A tpulbm global state (state_q, ny, nx) as the sharded state of
+    `mesh` (parallel/mesh.Mesh): block (iy, ix) a contiguous tensor on
+    mesh.device(iy, ix); raises unless its shape and dtype are the
+    problem's."""
+    from .parallel.sharded_step import shard_state
+    return shard_state(mesh, state_from_numpy(f, problem, "cpu"))[0]
+
+
+def gather_state(shards: list) -> np.ndarray:
+    """The global host state (Q, ny, nx) of a sharded state."""
+    return np.concatenate([np.concatenate([state_to_numpy(b) for b in row],
+                                          axis=-1) for row in shards],
+                          axis=-2)

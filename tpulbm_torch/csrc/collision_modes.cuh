@@ -18,6 +18,9 @@
 // * -DTPULBM_BOUNCE_BACK=1: the bounce-back obstacle (solid cells skip the
 //   collision and store their pulled populations reversed) instead of the
 //   equilibrium pin; the obstacle domain only.
+// * -DTPULBM_RINGS=1: the D2Q9 kernels step one shard of a mesh, whose
+//   cells outside its block come from the rings its neighbours sent
+//   (d2q9_common.cuh's Shard), over a range of its rows.
 // A library built with none of them is the one every earlier build ran.
 
 #pragma once
@@ -33,6 +36,9 @@
 #endif
 #ifndef TPULBM_BOUNCE_BACK
 #define TPULBM_BOUNCE_BACK 0
+#endif
+#ifndef TPULBM_RINGS
+#define TPULBM_RINGS 0
 #endif
 
 namespace tpulbm {
@@ -65,6 +71,7 @@ constexpr bool kSource = TPULBM_SOURCE != 0;
 constexpr bool kBounceBack = TPULBM_BOUNCE_BACK != 0;
 static_assert(!kBounceBack || kHasObstacle,
               "the bounce-back obstacle needs the obstacle domain");
+constexpr bool kRings = TPULBM_RINGS != 0;
 
 constexpr int kPowerLawIters = 8;  // tpulbm physics.PLAW_ITERS
 
@@ -101,9 +108,10 @@ __device__ __forceinline__ float power_law_inv_tau(float gfac, float nm1,
 // ops/step_cuda.py checks it when it binds a library built for a mode.
 extern "C" int tpulbm_collision_mode() { return tpulbm::kMode; }
 
-// The rest of the build: the domain, then 4 with the source and 8 with the
-// bounce-back obstacle; ops/step_cuda.py checks it too.
+// The rest of the build: the domain, then 4 with the source, 8 with the
+// bounce-back obstacle and 16 with the rings; ops/step_cuda.py checks it
+// too.
 extern "C" int tpulbm_build_variant() {
   return tpulbm::kDomain | (tpulbm::kSource ? 4 : 0) |
-         (tpulbm::kBounceBack ? 8 : 0);
+         (tpulbm::kBounceBack ? 8 : 0) | (tpulbm::kRings ? 16 : 0);
 }

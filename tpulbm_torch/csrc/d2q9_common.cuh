@@ -545,6 +545,103 @@ __device__ __forceinline__ void apply_boundaries(float* g, bool solid, int x,
   }
 }
 
+// One shard of a mesh (the rings builds, kRings): the block of rows
+// [y0, y0 + nyl) and columns [x0, x0 + nxl) of the global nx x ny grid, and
+// the rings its neighbours sent, each `depth` cells deep: rb and rt the rows
+// below and above the block, (9, depth, nxl + 2 hx), extended across the
+// x rings so that they carry the diagonal neighbours' corners (tpulbm's
+// ring_rows_ext); rl and rr the columns left and right of it, (9, nyl, hx).
+// hx is depth where the mesh cuts x and 0 where the block spans every
+// column: there the channel's x wraps inside the block, as on one device.
+// mask is the solid mask of the block and its rings, padded by depth on
+// every side. A launch writes the rows [r0, r1) of the block.
+//
+// The kernels keep working in global coordinates: a window cell at global
+// (gx, gy) is stepped where it is a cell of the domain, exactly as on one
+// device, so the ghost rule, the walls, the inlet, the outlet and the
+// corners act only at the domain's own edges; find() says where the
+// window cell's populations live, in the block or in a ring, and locate()
+// points at them there. A cell more than depth + 1 rows from the rows the
+// launch writes (a corner rule reads one row further than a pull), or
+// beyond the rings, is never loaded: no cell that the launch writes depends
+// on it, and a ranged launch whose rows keep depth + 1 rows clear of an
+// edge of the block reads no ring there.
+struct Shard {
+  const float* f;
+  const float* rb;
+  const float* rt;
+  const float* rl;
+  const float* rr;
+  const uint8_t* mask;
+  int nxl, nyl, x0, y0, hx, depth, r0, r1;
+
+  // Whether the window cell at global (gx, gy) is a cell of the domain
+  // that this launch reads; if so (lx, ly) are its coordinates in the
+  // block (negative or past nxl, nyl in a ring) and gx is taken mod nx
+  // in the channel.
+  __device__ __forceinline__ bool find(int& gx, int gy, int nx, int ny,
+                                       int& lx, int& ly) const {
+    if (gy < 0 || gy >= ny) return false;
+    ly = gy - y0;
+    if (ly < r0 - depth - 1 || ly < -depth || ly >= r1 + depth + 1 ||
+        ly >= nyl + depth)
+      return false;
+    if (!kPeriodicX && (gx < 0 || gx >= nx)) return false;
+    if (hx == 0) {
+      if constexpr (kPeriodicX) {
+        gx %= nx;
+        if (gx < 0) gx += nx;
+      }
+      lx = gx - x0;
+      return true;
+    }
+    lx = gx - x0;
+    if (lx < -hx || lx >= nxl + hx) return false;
+    if constexpr (kPeriodicX) {
+      gx %= nx;
+      if (gx < 0) gx += nx;
+    }
+    return true;
+  }
+
+  // Population 0 of the cell at block coordinates (lx, ly) that find()
+  // returned, in the block or the ring that holds it; population i lies
+  // i * stride floats further.
+  __device__ __forceinline__ const float* locate(int lx, int ly,
+                                                 size_t& stride) const {
+    const size_t wr = static_cast<size_t>(nxl) + 2 * hx;
+    if (ly < 0) {
+      stride = depth * wr;
+      return rb + (depth + ly) * wr + lx + hx;
+    }
+    if (ly >= nyl) {
+      stride = depth * wr;
+      return rt + (ly - nyl) * wr + lx + hx;
+    }
+    if (lx < 0) {
+      stride = static_cast<size_t>(nyl) * hx;
+      return rl + static_cast<size_t>(ly) * hx + hx + lx;
+    }
+    if (lx >= nxl) {
+      stride = static_cast<size_t>(nyl) * hx;
+      return rr + static_cast<size_t>(ly) * hx + lx - nxl;
+    }
+    stride = static_cast<size_t>(nyl) * nxl;
+    return f + static_cast<size_t>(ly) * nxl + lx;
+  }
+
+  // The solid flag of the cell at block coordinates (lx, ly).
+  __device__ __forceinline__ bool solid(int lx, int ly) const {
+    return mask[static_cast<size_t>(ly + depth) * (nxl + 2 * depth) + lx +
+                depth] != 0;
+  }
+
+  // Whether the launch writes the cell at block coordinates (lx, ly).
+  __device__ __forceinline__ bool writes(int lx, int ly) const {
+    return lx >= 0 && lx < nxl && ly >= r0 && ly < r1;
+  }
+};
+
 // Rows the tiling of a kernel with kBY-row tiles starts below y = 0: one
 // when a corner rule reads two rows inward (the clean corners at the inlet,
 // the cavity's corners) and the top corner would sit on a tile's first row,

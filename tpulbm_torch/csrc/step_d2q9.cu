@@ -44,6 +44,17 @@
 //
 // The collision, the pull's ghost rule and the boundary sequence live in
 // d2q9_common.cuh, shared with the N-step kernel (step_d2q9_blocked.cu).
+//
+// Built with -DTPULBM_RINGS=1 the kernel steps one shard of a mesh
+// (tpulbm_d2q9_step_rings): the block and the one-cell rings its
+// neighbours sent (tpulbm::Shard), into a range of the block's rows. That
+// build replaces make_local_step_pallas with its ring inputs (rb, rt, the
+// mask rings, the physical-edge flags), make_local_step_pallas_ranged (the
+// row range) and make_local_step_tiled at depth 1 (the x rings). The tile
+// keeps global coordinates, so every rule acts only at the domain's own
+// edges, and a tile cell outside the block is loaded from its ring; the
+// bits are those of the one-device build. The rings add 2 (nxl + 2 hx +
+// hx nyl) x 36 B a launch to the 73 B a cell.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,13 +75,20 @@ template <bool kCorners>
 __global__ void __launch_bounds__(kBX * kBY)
     d2q9_step_kernel(const float* __restrict__ f, float* __restrict__ out,
                      const uint8_t* __restrict__ solid, int nx, int ny,
-                     int x_shift, int y_shift, StepConsts k) {
+                     int x_shift, int y_shift, StepConsts k,
+                     tpulbm::Shard sh) {
   __shared__ float post[kQ][kTY][kTX];  // post-collision tile + halo
 
   const int tx = threadIdx.x;
   const int ty = threadIdx.y;
-  const int x0 = blockIdx.x * kBX - (tpulbm::kColShift ? x_shift : 0);
-  const int y0 = blockIdx.y * kBY - y_shift;
+  int x0, y0;  // global coordinates of the tile's first cell
+  if constexpr (tpulbm::kRings) {
+    x0 = sh.x0 + blockIdx.x * kBX - (tpulbm::kColShift ? x_shift : 0);
+    y0 = sh.y0 + sh.r0 + blockIdx.y * kBY - y_shift;
+  } else {
+    x0 = blockIdx.x * kBX - (tpulbm::kColShift ? x_shift : 0);
+    y0 = blockIdx.y * kBY - y_shift;
+  }
   const size_t plane = static_cast<size_t>(nx) * ny;
 
   // Load and collide the tile and its in-domain halo (in the channel the
@@ -81,17 +99,29 @@ __global__ void __launch_bounds__(kBX * kBY)
     const int lx = t - ly * kTX;
     int gx = x0 + lx - 1;
     const int gy = y0 + ly - 1;
-    if constexpr (tpulbm::kPeriodicX) {
-      if (gx < -1 || gx > nx || gy < 0 || gy >= ny) continue;
-      gx = gx < 0 ? nx - 1 : gx >= nx ? 0 : gx;
-    } else {
-      if (gx < 0 || gx >= nx || gy < 0 || gy >= ny) continue;
-    }
-    const size_t cell = static_cast<size_t>(gy) * nx + gx;
     float v[kQ];
+    bool skip;  // solid under the bounce-back obstacle: no collision
+    if constexpr (tpulbm::kRings) {
+      int bx, by;
+      if (!sh.find(gx, gy, nx, ny, bx, by)) continue;
+      size_t stride;
+      const float* src = sh.locate(bx, by, stride);
 #pragma unroll
-    for (int i = 0; i < kQ; ++i) v[i] = f[i * plane + cell];
-    tpulbm::collide_cell(v, k, tpulbm::kBounceBack && solid[cell] != 0);
+      for (int i = 0; i < kQ; ++i) v[i] = src[i * stride];
+      skip = tpulbm::kBounceBack && sh.solid(bx, by);
+    } else {
+      if constexpr (tpulbm::kPeriodicX) {
+        if (gx < -1 || gx > nx || gy < 0 || gy >= ny) continue;
+        gx = gx < 0 ? nx - 1 : gx >= nx ? 0 : gx;
+      } else {
+        if (gx < 0 || gx >= nx || gy < 0 || gy >= ny) continue;
+      }
+      const size_t cell = static_cast<size_t>(gy) * nx + gx;
+#pragma unroll
+      for (int i = 0; i < kQ; ++i) v[i] = f[i * plane + cell];
+      skip = tpulbm::kBounceBack && solid[cell] != 0;
+    }
+    tpulbm::collide_cell(v, k, skip);
 #pragma unroll
     for (int i = 0; i < kQ; ++i) post[i][ly][lx] = v[i];
   }
@@ -99,32 +129,60 @@ __global__ void __launch_bounds__(kBX * kBY)
 
   const int x = x0 + tx;
   const int y = y0 + ty;
-  if ((tpulbm::kColShift && x < 0) || x >= nx || y < 0 || y >= ny) return;
-
-  // post-collision value of population i and solid flag at (x+dx, y+dy)
+  // post-collision value of population i at (x+dx, y+dy)
   auto post_at = [&](int i, int dx, int dy) {
     return post[i][ty + 1 + dy][tx + 1 + dx];
   };
-  auto solid_at = [&](int dx, int dy) {
-    return solid[static_cast<size_t>(y + dy) * nx + x + dx] != 0;
-  };
   float g[kQ];
-  tpulbm::pull_d2q9(g, x, y, nx, ny, k, post_at);
-  const size_t cell = static_cast<size_t>(y) * nx + x;
-  tpulbm::apply_boundaries<kCorners>(
-      g, tpulbm::kHasObstacle && solid[cell] != 0, x, y, nx, ny, k, post_at,
-      solid_at);
+  if constexpr (tpulbm::kRings) {
+    const int bx = x - sh.x0;
+    const int by = y - sh.y0;
+    if (!sh.writes(bx, by)) return;
+    auto solid_at = [&](int dx, int dy) { return sh.solid(bx + dx, by + dy); };
+    tpulbm::pull_d2q9(g, x, y, nx, ny, k, post_at);
+    tpulbm::apply_boundaries<kCorners>(
+        g, tpulbm::kHasObstacle && sh.solid(bx, by), x, y, nx, ny, k, post_at,
+        solid_at);
+    const size_t cell = static_cast<size_t>(by) * sh.nxl + bx;
+    const size_t block = static_cast<size_t>(sh.nxl) * sh.nyl;
 #pragma unroll
-  for (int i = 0; i < kQ; ++i) out[i * plane + cell] = g[i];
+    for (int i = 0; i < kQ; ++i) out[i * block + cell] = g[i];
+  } else {
+    if ((tpulbm::kColShift && x < 0) || x >= nx || y < 0 || y >= ny) return;
+    auto solid_at = [&](int dx, int dy) {
+      return solid[static_cast<size_t>(y + dy) * nx + x + dx] != 0;
+    };
+    tpulbm::pull_d2q9(g, x, y, nx, ny, k, post_at);
+    const size_t cell = static_cast<size_t>(y) * nx + x;
+    tpulbm::apply_boundaries<kCorners>(
+        g, tpulbm::kHasObstacle && solid[cell] != 0, x, y, nx, ny, k,
+        post_at, solid_at);
+#pragma unroll
+    for (int i = 0; i < kQ; ++i) out[i * plane + cell] = g[i];
+  }
+}
+
+template <bool kCorners>
+cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
+                   int ny, int tiles_x, int tiles_y, int x_shift, int y_shift,
+                   const StepConsts& k, const tpulbm::Shard& sh,
+                   cudaStream_t stream) {
+  const dim3 block(kBX, kBY);
+  const dim3 grid((tiles_x + x_shift + kBX - 1) / kBX,
+                  (tiles_y + y_shift + kBY - 1) / kBY);
+  d2q9_step_kernel<kCorners><<<grid, block, 0, stream>>>(
+      f, out, solid, nx, ny, x_shift, y_shift, k, sh);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C interface, loaded with ctypes (tpulbm_torch/ops/step_cuda.py).
-// Launches one step on `stream` and returns cudaGetLastError(): it neither
-// synchronizes nor allocates.
+// Each launcher launches one step on `stream` and returns
+// cudaGetLastError(): it neither synchronizes nor allocates.
 // The clean corners belong to the obstacle domain; elsewhere the launcher
 // takes clean_corners = 0.
+#if !TPULBM_RINGS
 extern "C" int tpulbm_d2q9_step(const float* f, float* out,
                                 const uint8_t* solid, int nx, int ny,
                                 float inv_tau, float u_in,
@@ -140,18 +198,49 @@ extern "C" int tpulbm_d2q9_step(const float* f, float* out,
   const int y_shift = tpulbm::tile_row_shift(
       ny, kBY, clean_corners != 0 || tpulbm::kDomain == tpulbm::kCavity);
   const int x_shift = tpulbm::tile_col_shift(nx, kBX);
-  const dim3 block(kBX, kBY);
-  const dim3 grid((nx + x_shift + kBX - 1) / kBX,
-                  (ny + y_shift + kBY - 1) / kBY);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (clean_corners)
-    d2q9_step_kernel<true><<<grid, block, 0, s>>>(f, out, solid, nx, ny,
-                                                  x_shift, y_shift, k);
-  else
-    d2q9_step_kernel<false><<<grid, block, 0, s>>>(f, out, solid, nx, ny,
-                                                   x_shift, y_shift, k);
-  return static_cast<int>(cudaGetLastError());
+  const tpulbm::Shard none{};
+  err = clean_corners
+            ? launch<true>(f, out, solid, nx, ny, nx, ny, x_shift, y_shift, k,
+                           none, s)
+            : launch<false>(f, out, solid, nx, ny, nx, ny, x_shift, y_shift,
+                            k, none, s);
+  return static_cast<int>(err);
 }
+#else
+// One step of the shard (nxl x nyl at global x0, y0 of the nx x ny grid)
+// from f and its rings (depth 1; hx 0 or 1, as tpulbm::Shard describes
+// them) into rows [r0, r1) of out; the other rows of out are left as they
+// are. mask is the shard's solid mask padded by one cell.
+extern "C" int tpulbm_d2q9_step_rings(
+    const float* f, float* out, const uint8_t* mask, const float* rb,
+    const float* rt, const float* rl, const float* rr, int nx, int ny,
+    int nxl, int nyl, int x0, int y0, int hx, int r0, int r1, float inv_tau,
+    float u_in, float one_minus_u_in, const float* eq_in, const float* w,
+    int clean_corners, const float* mode, const float* src, float lid7,
+    float lid8, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (r0 < 0 || r1 > nyl || r0 >= r1) return cudaErrorInvalidValue;
+  const StepConsts k = tpulbm::make_consts(inv_tau, u_in, one_minus_u_in,
+                                           eq_in, w, mode, src, lid7, lid8);
+  const tpulbm::Shard sh{f, rb, rt, rl, rr, mask, nxl, nyl,
+                         x0, y0, hx, 1, r0, r1};
+  // the tiling's shifts, counted in the rows and columns this launch
+  // writes: a top corner must not sit on a tile's first row (a right one
+  // on its first column), wherever the block lies in the grid
+  const int y_shift = tpulbm::tile_row_shift(
+      r1 - r0, kBY, clean_corners != 0 || tpulbm::kDomain == tpulbm::kCavity);
+  const int x_shift = tpulbm::tile_col_shift(nxl, kBX);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = clean_corners
+            ? launch<true>(f, out, nullptr, nx, ny, nxl, r1 - r0, x_shift,
+                           y_shift, k, sh, s)
+            : launch<false>(f, out, nullptr, nx, ny, nxl, r1 - r0, x_shift,
+                            y_shift, k, sh, s);
+  return static_cast<int>(err);
+}
+#endif
 
 // The floats of the library's mode coefficients, which the caller's array
 // must hold (its mode: collision_modes.cuh's tpulbm_collision_mode).

@@ -61,6 +61,19 @@
 // Bits. Collision, pull and boundary code come from d2q9_common.cuh, shared
 // with step_d2q9.cu, and both libraries are built with -fmad=false: one
 // launch gives the same bits as N launches of the 1-step kernel.
+//
+// Built with -DTPULBM_RINGS=1 the kernel steps one shard of a mesh
+// (tpulbm_d2q9_step_blocked_rings) from its block and the rings its
+// neighbours sent, N cells deep (tpulbm::Shard), into a range of the
+// block's rows: it replaces make_local_step_pallasN (ranged=True too) and
+// make_local_step_pallas2 with their ring inputs, and make_local_step_tiled
+// at N = 2-4 (the x rings, the extended ring rows carrying the diagonal
+// neighbours' corners). The window keeps global coordinates and loads a
+// cell outside the block from its ring; a window cell the launch does not
+// hold (outside the domain or beyond the rings) is marked kNotHeld in the
+// mask and never stepped, so the trapezoid and the bits are the
+// one-device build's. The rings add 2 N (nxl + 2 hx + hx nyl) x 36 B a
+// launch to the 73/N B a cell and step.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -89,6 +102,11 @@ struct Window {
       ((kTX - 2) * (kTY - 2) + kThreads - 1) / kThreads;
 };
 
+// The mask byte of a window cell the rings builds do not hold (find():
+// outside the domain or beyond the rings); a held cell's byte is its solid
+// flag, 0 or 1.
+constexpr uint8_t kNotHeld = 2;
+
 // Whether the window cell at global (gx, gy) is stepped: a cell of the
 // domain, or in the channel any cell of a domain row, gx then taken mod nx
 // (the cell it holds).
@@ -107,7 +125,8 @@ template <int N, bool kCorners>
 __global__ void __launch_bounds__(kThreads)
     d2q9_blocked_kernel(const float* __restrict__ f, float* __restrict__ out,
                         const uint8_t* __restrict__ solid, int nx, int ny,
-                        int x_shift, int y_shift, StepConsts k) {
+                        int x_shift, int y_shift, StepConsts k,
+                        tpulbm::Shard sh) {
   using W = Window<N>;
   constexpr int TX = W::kTX;
   constexpr int TY = W::kTY;
@@ -117,8 +136,14 @@ __global__ void __launch_bounds__(kThreads)
 
   const int tid = threadIdx.x;
   // global coordinates of window (0, 0)
-  const int x0 = blockIdx.x * kBX - N - (tpulbm::kColShift ? x_shift : 0);
-  const int y0 = blockIdx.y * kBY - N - y_shift;
+  int x0, y0;
+  if constexpr (tpulbm::kRings) {
+    x0 = sh.x0 + blockIdx.x * kBX - N - (tpulbm::kColShift ? x_shift : 0);
+    y0 = sh.y0 + sh.r0 + blockIdx.y * kBY - N - y_shift;
+  } else {
+    x0 = blockIdx.x * kBX - N - (tpulbm::kColShift ? x_shift : 0);
+    y0 = blockIdx.y * kBY - N - y_shift;
+  }
   const size_t plane = static_cast<size_t>(nx) * ny;
 
   // Load the window's in-domain cells once and collide them.
@@ -127,12 +152,25 @@ __global__ void __launch_bounds__(kThreads)
     const int lx = c - ly * TX;
     int gx = x0 + lx;
     const int gy = y0 + ly;
-    if (!window_cell(gx, gy, nx, ny)) continue;
-    const size_t cell = static_cast<size_t>(gy) * nx + gx;
-    if constexpr (tpulbm::kHasObstacle) mask[c] = solid[cell];
     float v[kQ];
+    if constexpr (tpulbm::kRings) {
+      int bx, by;
+      if (!sh.find(gx, gy, nx, ny, bx, by)) {
+        mask[c] = kNotHeld;
+        continue;
+      }
+      mask[c] = tpulbm::kHasObstacle && sh.solid(bx, by);
+      size_t stride;
+      const float* src = sh.locate(bx, by, stride);
 #pragma unroll
-    for (int i = 0; i < kQ; ++i) v[i] = f[i * plane + cell];
+      for (int i = 0; i < kQ; ++i) v[i] = src[i * stride];
+    } else {
+      if (!window_cell(gx, gy, nx, ny)) continue;
+      const size_t cell = static_cast<size_t>(gy) * nx + gx;
+      if constexpr (tpulbm::kHasObstacle) mask[c] = solid[cell];
+#pragma unroll
+      for (int i = 0; i < kQ; ++i) v[i] = f[i * plane + cell];
+    }
     tpulbm::collide_cell(v, k, tpulbm::kBounceBack && mask[c] != 0);
 #pragma unroll
     for (int i = 0; i < kQ; ++i) post[i * W::kCells + c] = v[i];
@@ -156,7 +194,13 @@ __global__ void __launch_bounds__(kThreads)
       const int lx = s + c % w;
       int gx = x0 + lx;
       const int gy = y0 + ly;
-      if (!window_cell(gx, gy, nx, ny)) continue;
+      if constexpr (tpulbm::kRings) {
+        // a held cell's x needs no wrap here: in the channel, the only
+        // domain that wraps, no rule reads x
+        if (mask[ly * TX + lx] == kNotHeld) continue;
+      } else {
+        if (!window_cell(gx, gy, nx, ny)) continue;
+      }
       const int lc = ly * TX + lx;
       at[j] = lc;
       auto post_at = [&](int i, int dx, int dy) {
@@ -187,8 +231,12 @@ __global__ void __launch_bounds__(kThreads)
     const int lx = N + c % kBX;
     const int gx = x0 + lx;
     const int gy = y0 + ly;
-    if ((tpulbm::kColShift && gx < 0) || gx >= nx || gy < 0 || gy >= ny)
-      continue;
+    if constexpr (tpulbm::kRings) {
+      if (!sh.writes(gx - sh.x0, gy - sh.y0)) continue;
+    } else {
+      if ((tpulbm::kColShift && gx < 0) || gx >= nx || gy < 0 || gy >= ny)
+        continue;
+    }
     const int lc = ly * TX + lx;
     auto post_at = [&](int i, int dx, int dy) {
       return post[i * W::kCells + lc + dy * TX + dx];
@@ -201,18 +249,25 @@ __global__ void __launch_bounds__(kThreads)
     tpulbm::apply_boundaries<kCorners>(
         g, tpulbm::kHasObstacle && mask[lc] != 0, gx, gy, nx, ny, k, post_at,
         solid_at);
-    const size_t cell = static_cast<size_t>(gy) * nx + gx;
+    if constexpr (tpulbm::kRings) {
+      const size_t cell =
+          static_cast<size_t>(gy - sh.y0) * sh.nxl + (gx - sh.x0);
+      const size_t block = static_cast<size_t>(sh.nxl) * sh.nyl;
 #pragma unroll
-    for (int i = 0; i < kQ; ++i) out[i * plane + cell] = g[i];
+      for (int i = 0; i < kQ; ++i) out[i * block + cell] = g[i];
+    } else {
+      const size_t cell = static_cast<size_t>(gy) * nx + gx;
+#pragma unroll
+      for (int i = 0; i < kQ; ++i) out[i * plane + cell] = g[i];
+    }
   }
 }
 
 template <int N, bool kCorners>
 cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
-                   int ny, const StepConsts& k, cudaStream_t stream) {
-  const int y_shift = tpulbm::tile_row_shift(
-      ny, kBY, kCorners || tpulbm::kDomain == tpulbm::kCavity);
-  const int x_shift = tpulbm::tile_col_shift(nx, kBX);
+                   int ny, int tiles_x, int tiles_y, int x_shift, int y_shift,
+                   const StepConsts& k, const tpulbm::Shard& sh,
+                   cudaStream_t stream) {
   constexpr size_t smem = Window<N>::kSmemBytes;
   if constexpr (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -220,28 +275,45 @@ cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid((nx + x_shift + kBX - 1) / kBX,
-                  (ny + y_shift + kBY - 1) / kBY);
+  const dim3 grid((tiles_x + x_shift + kBX - 1) / kBX,
+                  (tiles_y + y_shift + kBY - 1) / kBY);
   d2q9_blocked_kernel<N, kCorners><<<grid, kThreads, smem, stream>>>(
-      f, out, solid, nx, ny, x_shift, y_shift, k);
+      f, out, solid, nx, ny, x_shift, y_shift, k, sh);
   return cudaGetLastError();
 }
 
-template <int N>
+// n_sub steps over the tiles_x x tiles_y cells the launch writes, the
+// tiling shifted as tpulbm::tile_row_shift and tile_col_shift say for them.
 cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
-                   int ny, bool corners, const StepConsts& k,
+                   int ny, int tiles_x, int tiles_y, int n_sub, bool corners,
+                   const StepConsts& k, const tpulbm::Shard& sh,
                    cudaStream_t stream) {
-  return corners ? launch<N, true>(f, out, solid, nx, ny, k, stream)
-                 : launch<N, false>(f, out, solid, nx, ny, k, stream);
+  const int y_shift = tpulbm::tile_row_shift(
+      tiles_y, kBY, corners || tpulbm::kDomain == tpulbm::kCavity);
+  const int x_shift = tpulbm::tile_col_shift(tiles_x, kBX);
+#define TPULBM_LAUNCH(N)                                                    \
+  (corners ? launch<N, true>(f, out, solid, nx, ny, tiles_x, tiles_y,       \
+                             x_shift, y_shift, k, sh, stream)               \
+           : launch<N, false>(f, out, solid, nx, ny, tiles_x, tiles_y,      \
+                              x_shift, y_shift, k, sh, stream))
+  switch (n_sub) {
+    case 2: return TPULBM_LAUNCH(2);
+    case 3: return TPULBM_LAUNCH(3);
+    case 4: return TPULBM_LAUNCH(4);
+    default: return cudaErrorInvalidValue;
+  }
+#undef TPULBM_LAUNCH
 }
 
 }  // namespace
 
 // Plain C interface, loaded with ctypes (tpulbm_torch/ops/step_cuda.py).
-// Launches n_sub steps on `stream` and returns cudaGetLastError() (a refused
-// launch never runs and a later synchronize would not report it); it
-// neither synchronizes nor allocates. The clean corners belong to the
-// obstacle domain; elsewhere the launcher takes clean_corners = 0.
+// Each launcher launches n_sub steps on `stream` and returns
+// cudaGetLastError() (a refused launch never runs and a later synchronize
+// would not report it); it neither synchronizes nor allocates. The clean
+// corners belong to the obstacle domain; elsewhere the launcher takes
+// clean_corners = 0.
+#if !TPULBM_RINGS
 extern "C" int tpulbm_d2q9_step_blocked(const float* f, float* out,
                                         const uint8_t* solid, int nx, int ny,
                                         int n_sub, float inv_tau, float u_in,
@@ -255,16 +327,34 @@ extern "C" int tpulbm_d2q9_step_blocked(const float* f, float* out,
   if (err != cudaSuccess) return static_cast<int>(err);
   const StepConsts k = tpulbm::make_consts(inv_tau, u_in, one_minus_u_in,
                                            eq_in, w, mode, src, lid7, lid8);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool c = clean_corners != 0;
-  switch (n_sub) {
-    case 2: err = launch<2>(f, out, solid, nx, ny, c, k, s); break;
-    case 3: err = launch<3>(f, out, solid, nx, ny, c, k, s); break;
-    case 4: err = launch<4>(f, out, solid, nx, ny, c, k, s); break;
-    default: err = cudaErrorInvalidValue;
-  }
+  err = launch(f, out, solid, nx, ny, nx, ny, n_sub, clean_corners != 0, k,
+               tpulbm::Shard{}, static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }
+#else
+// n_sub steps of the shard (nxl x nyl at global x0, y0 of the nx x ny
+// grid) from f and its rings (depth n_sub; hx 0 or n_sub, as tpulbm::Shard
+// describes them) into rows [r0, r1) of out; the other rows of out are left
+// as they are. mask is the shard's solid mask padded by n_sub cells.
+extern "C" int tpulbm_d2q9_step_blocked_rings(
+    const float* f, float* out, const uint8_t* mask, const float* rb,
+    const float* rt, const float* rl, const float* rr, int nx, int ny,
+    int nxl, int nyl, int x0, int y0, int hx, int r0, int r1, int n_sub,
+    float inv_tau, float u_in, float one_minus_u_in, const float* eq_in,
+    const float* w, int clean_corners, const float* mode, const float* src,
+    float lid7, float lid8, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (r0 < 0 || r1 > nyl || r0 >= r1) return cudaErrorInvalidValue;
+  const StepConsts k = tpulbm::make_consts(inv_tau, u_in, one_minus_u_in,
+                                           eq_in, w, mode, src, lid7, lid8);
+  const tpulbm::Shard sh{f, rb, rt, rl, rr, mask, nxl, nyl,
+                         x0, y0, hx, n_sub, r0, r1};
+  err = launch(f, out, nullptr, nx, ny, nxl, r1 - r0, n_sub,
+               clean_corners != 0, k, sh, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err);
+}
+#endif
 
 // Dynamic shared memory one block of depth n_sub takes, in bytes (-1 for
 // a depth the library does not hold).

@@ -59,12 +59,18 @@ def check_slice(params) -> None:
     # the Smagorinsky closure, multiphase BGK: the rest raise tpulbm's own
     # errors
     check_collision(params)
-    if (params.problem in _THERMAL + ("multiphase",)
-            and tuple(params.mesh_shape) != (1, 1)):
-        kind = "multiphase" if params.problem == "multiphase" else "thermal"
-        raise _not_ported(f"the {kind} step on mesh_shape="
-                          f"{params.mesh_shape}",
-                          "Queue 1 item 19 (several devices)")
+    if tuple(params.mesh_shape) != (1, 1):
+        if params.problem in _THERMAL + ("multiphase",):
+            kind = ("multiphase" if params.problem == "multiphase"
+                    else "thermal")
+            raise _not_ported(f"the {kind} step on mesh_shape="
+                              f"{params.mesh_shape}",
+                              "Queue 1 item 19 (several devices: thermal "
+                              "x_halo, multiphase rings)")
+        if params.is_3d:
+            raise _not_ported(f"a 3-D problem on mesh_shape="
+                              f"{params.mesh_shape}",
+                              "Queue 1 item 19 (several devices: 3-D meshes)")
     if params.obstacle_bc == "bouzidi":
         raise _not_ported("obstacle_bc='bouzidi'",
                           "Queue 1 item 14 (Bouzidi curved walls)")

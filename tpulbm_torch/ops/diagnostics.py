@@ -17,18 +17,21 @@ from ..models.base import Problem
 from . import step_multiphase, step_thermal
 
 
-def _solid(problem: Problem, device):
-    return (None if problem.solid is None
-            else torch.as_tensor(problem.solid, device=device))
+def _solid(problem: Problem, device, solid=None):
+    """`solid` (a shard's mask on a mesh), else the problem's on `device`
+    (None without an obstacle)."""
+    if solid is not None or problem.solid is None:
+        return solid
+    return torch.as_tensor(problem.solid, device=device)
 
 
-def fields_fn(problem: Problem, device):
+def fields_fn(problem: Problem, device, solid=None):
     """f -> (rho, u) with the reference's solid-cell overrides: rho = 1 and
-    u = 0 at solid cells. For Shan-Chen multiphase, u is the
+    u = 0 at solid cells (of `solid`, a shard's mask, where given). For Shan-Chen multiphase, u is the
     half-step-corrected u + F/(2rho) (step_multiphase.physical_velocity):
     bare moments would be off by F/(2rho) at every interface cell."""
     lat = problem.lattice
-    solid = _solid(problem, device)
+    solid = _solid(problem, device, solid)
 
     def fn(f: torch.Tensor):
         if problem.shan_chen:
@@ -50,10 +53,10 @@ def stability_fn(problem: Problem):
     return fn
 
 
-def max_velocity_fn(problem: Problem, device):
-    """f -> max |u| (solid cells report u = 0)."""
+def max_velocity_fn(problem: Problem, device, solid=None):
+    """f -> max |u| (solid cells report u = 0; `solid` as in fields_fn)."""
     lat = problem.lattice
-    solid = _solid(problem, device)
+    solid = _solid(problem, device, solid)
 
     def fn(f: torch.Tensor) -> torch.Tensor:
         return physics.max_velocity(lat, f[:lat.Q], solid)

@@ -43,24 +43,32 @@ def shifted_masks(problem: Problem, solid: torch.Tensor) -> list:
 
 
 def momentum_exchange(problem: Problem, f_post: torch.Tensor,
-                      solid: torch.Tensor, masks: list | None = None
-                      ) -> torch.Tensor:
+                      solid: torch.Tensor, masks: list | None = None,
+                      dtype: torch.dtype | None = None) -> torch.Tensor:
     """Force vector (D,) on the obstacle from post-collision populations;
-    `masks` are shifted_masks(problem, solid), built here if not given."""
+    `masks` are shifted_masks(problem, solid), built here if not given.
+    The sums run in float64 and the vector comes back in `dtype` (default
+    f_post's): a
+    float32 sum over a large obstacle's links rounds by the order of its
+    terms (at 4096x2048 the lift of the symmetric start came out 1e-5 and
+    -2e-6 from two orders), so a mesh's sum over its shards
+    (parallel/sharded_step.Diagnostics) meets one device's only in
+    float64."""
     lat = problem.lattice
     if masks is None:
         masks = shifted_masks(problem, solid)
     comps = []
     for d in range(lat.D):
-        total = torch.zeros((), dtype=f_post.dtype, device=f_post.device)
+        total = torch.zeros((), dtype=torch.float64, device=f_post.device)
         for i, link in masks:
             cid = int(lat.c[i, d])
             if cid == 0:
                 continue
-            contrib = torch.sum(torch.where(link, f_post[i], 0.0))
+            contrib = torch.sum(torch.where(link, f_post[i], 0.0),
+                                dtype=torch.float64)
             total = total + 2.0 * cid * contrib
         comps.append(total)
-    return torch.stack(comps)
+    return torch.stack(comps).to(dtype or f_post.dtype)
 
 
 def force_coefficients(problem: Problem,
@@ -79,16 +87,21 @@ def force_coefficients(problem: Problem,
     return float(force[0] / q), float(force[1] / q)
 
 
-def forces_fn(problem: Problem, device):
+def forces_fn(problem: Problem, device, solid=None, masks=None,
+              dtype=None):
     """f -> force vector (D,) on `device`: collide (solid cells skip it
     under the bounce-back obstacle, as in the step), then momentum exchange
     (the reference's call point: post-collision, pre-streaming). The link
-    masks are built once here, not at every call."""
-    solid = torch.as_tensor(problem.solid, device=device)
-    masks = shifted_masks(problem, solid)
+    masks are built once here, not at every call. On a mesh, `solid` and
+    `masks` are a shard's cut of the global ones and `dtype` float64, the
+    partial sums a mesh adds up (parallel/sharded_step.Diagnostics)."""
+    if solid is None:
+        solid = torch.as_tensor(problem.solid, device=device)
+    if masks is None:
+        masks = shifted_masks(problem, solid)
 
     def fn(f: torch.Tensor) -> torch.Tensor:
         f_post = step_torch.collide_block(problem, f, solid)
-        return momentum_exchange(problem, f_post, solid, masks)
+        return momentum_exchange(problem, f_post, solid, masks, dtype=dtype)
 
     return fn

@@ -23,6 +23,14 @@ A library is built for one collision, domain, source and obstacle rule
 (build_defines; the cylinder's BGK library with the equilibrium obstacle
 and no force takes no define and is the one every earlier build ran), at
 its first use.
+Both D2Q9 sources also build with rings (-DTPULBM_RINGS=1), for one shard
+of a mesh (parallel/sharded_step.py): collide_stream_rings steps a shard's
+block from the rings its neighbours sent, over a range of its rows. That
+build of step_d2q9.cu serves make_local_step_pallas with its ring inputs,
+make_local_step_pallas_ranged and make_local_step_tiled at depth 1; that
+of step_d2q9_blocked.cu make_local_step_pallasN (ranged too) and
+make_local_step_pallas2 with their ring inputs and make_local_step_tiled
+at depths 2-4. Its plain version is ops/step_rings_torch.py.
 The thermal and multiphase kernels' wrappers are ops/step_thermal_cuda.py
 and ops/step_multiphase_cuda.py, on the same build and binding helpers.
 Each kernel is built with nvcc at first use and called through ctypes on
@@ -65,6 +73,29 @@ REPLACES_3D = ("tpulbm/ops/step_pallas3d.py:370 (make_local_step_pallas3d), "
 SOURCE_3D_BLOCKED = "tpulbm_torch/csrc/step_d3q19_blocked.cu"
 REPLACES_3D_BLOCKED = "tpulbm/ops/step_pallas3d.py:745 at n_sub 2, 3"
 BLOCKED_DEPTHS_3D = (2, 3)
+# the Pallas functions the ring builds replace, by the chunk's mode
+# (parallel/sharded_step.plan) and depth
+_RINGS_REPLACES = {
+    ("rows", 1): "tpulbm/ops/step_pallas.py:1093",    # make_local_step_pallas
+    ("rows", 2): "tpulbm/ops/step_pallas.py:1442",    # make_local_step_pallas2
+    ("rows", 3): "tpulbm/ops/step_pallas.py:1679",    # make_local_step_pallasN
+    ("rows", 4): "tpulbm/ops/step_pallas.py:1679",
+    ("overlap", 1): "tpulbm/ops/step_pallas.py:1254",  # ..._pallas_ranged
+    ("overlap", 2): "tpulbm/ops/step_pallas.py:1679",  # pallasN ranged=True
+    ("overlap", 3): "tpulbm/ops/step_pallas.py:1679",
+    ("overlap", 4): "tpulbm/ops/step_pallas.py:1679",
+}
+
+
+def rings_replaces(mode: str, depth: int) -> str:
+    """file:line of the Pallas function a ring launch in `mode` ("rows",
+    "overlap", "tiled") at `depth` replaces."""
+    if mode == "tiled":
+        return "tpulbm/ops/step_pallas_tiled.py:103"  # make_local_step_tiled
+    return _RINGS_REPLACES[mode, depth]
+
+
+RINGS_DEPTHS = (1,) + BLOCKED_DEPTHS
 # populations per cell -> the state's rank and layout, per kernel lattice
 _STATE_LAYOUT = {9: (3, "(9, ny, nx)"), 19: (4, "(19, nz, ny, nx)")}
 # the collisions of the D2Q9 kernels, in the order of d2q9_common.cuh's
@@ -92,6 +123,7 @@ DOMAINS_3D = ("sphere", "duct")
 DOMAIN_BITS = 3
 SOURCE = 4
 BOUNCE_BACK = 8
+RINGS = 16      # a D2Q9 library built for one shard of a mesh
 MRT_RANK_3D = 10           # d3q19_common.cuh kMrtRank: the ten ghost moments
 _Q3 = 19
 # floats of d3q19_common.cuh's ModeConsts: TRT, MRT's U and V, regularized
@@ -179,7 +211,7 @@ def kernel_domain(problem: Problem) -> int:
 
 def variant_defines(variant: int) -> tuple[str, ...]:
     """nvcc's defines for a library's domain (variant & DOMAIN_BITS),
-    SOURCE and BOUNCE_BACK; () for 0."""
+    SOURCE, BOUNCE_BACK and RINGS; () for 0."""
     defines = []
     if variant & DOMAIN_BITS:
         defines.append(f"-DTPULBM_DOMAIN={variant & DOMAIN_BITS}")
@@ -187,6 +219,8 @@ def variant_defines(variant: int) -> tuple[str, ...]:
         defines.append("-DTPULBM_SOURCE=1")
     if variant & BOUNCE_BACK:
         defines.append("-DTPULBM_BOUNCE_BACK=1")
+    if variant & RINGS:
+        defines.append("-DTPULBM_RINGS=1")
     return tuple(defines)
 
 
@@ -278,28 +312,33 @@ class StepConstants:
                    lid=lid)
 
 
-def check_inputs(f: torch.Tensor, out: torch.Tensor, solid: torch.Tensor,
-                 q: int = 9) -> None:
+def check_inputs(f: torch.Tensor, out: torch.Tensor,
+                 solid: torch.Tensor | None, q: int = 9) -> None:
     """Raise unless f and out are distinct contiguous float32 states of a
-    q-population lattice, (9, ny, nx) or (19, nz, ny, nx), and solid a
-    contiguous uint8 mask of their spatial shape, all on one device."""
+    q-population lattice, (9, ny, nx) or (19, nz, ny, nx), and solid (None
+    for a shard, whose padded mask check_shard checks) a contiguous uint8
+    mask of their spatial shape, all on one device."""
     rank, layout = _STATE_LAYOUT[q]
     if f.dtype != torch.float32 or out.dtype != torch.float32:
         raise TypeError(f"the kernels take float32 states, got "
                         f"{f.dtype} and {out.dtype}")
-    if solid.dtype != torch.uint8:
+    if solid is not None and solid.dtype != torch.uint8:
         raise TypeError(f"solid mask must be uint8, got {solid.dtype}")
     if f.dim() != rank or f.shape[0] != q:
         raise ValueError(f"state must be {layout}, got {tuple(f.shape)}")
-    if out.shape != f.shape or tuple(solid.shape) != tuple(f.shape[1:]):
+    if out.shape != f.shape or (solid is not None and tuple(solid.shape)
+                                != tuple(f.shape[1:])):
         raise ValueError(f"shape mismatch: f {tuple(f.shape)}, out "
-                         f"{tuple(out.shape)}, solid {tuple(solid.shape)}")
+                         f"{tuple(out.shape)}, solid "
+                         f"{None if solid is None else tuple(solid.shape)}")
     if not (f.is_contiguous() and out.is_contiguous()
-            and solid.is_contiguous()):
+            and (solid is None or solid.is_contiguous())):
         raise ValueError("f, out and solid must be contiguous")
-    if not f.device == out.device == solid.device:
+    if not f.device == out.device == (f.device if solid is None
+                                      else solid.device):
         raise ValueError(f"f, out and solid must share a device, got "
-                         f"{f.device}, {out.device}, {solid.device}")
+                         f"{f.device}, {out.device}, "
+                         f"{None if solid is None else solid.device}")
     if f.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {f.device}")
     if out.data_ptr() == f.data_ptr():
@@ -380,6 +419,27 @@ def _blocked_library(mode: str = "bgk", variant: int = 0) -> ctypes.CDLL:
                  MODE_FLOATS, variant)
 
 
+_RINGS_ARGS = [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32,
+               _I32, _I32, _I32, _I32, _I32, _I32]
+_CONSTS_ARGS = [_F32, _F32, _F32, _PTR, _PTR, _I32, _PTR, _PTR, _F32, _F32,
+                _I32, _PTR]
+
+
+@functools.cache
+def _rings_library(mode: str = "bgk", variant: int = 0) -> ctypes.CDLL:
+    return _bind("step_d2q9.cu", "tpulbm_d2q9_step_rings",
+                 _RINGS_ARGS + _CONSTS_ARGS, mode, MODE_FLOATS,
+                 variant | RINGS)
+
+
+@functools.cache
+def _rings_blocked_library(mode: str = "bgk",
+                           variant: int = 0) -> ctypes.CDLL:
+    return _bind("step_d2q9_blocked.cu", "tpulbm_d2q9_step_blocked_rings",
+                 _RINGS_ARGS + [_I32] + _CONSTS_ARGS, mode, MODE_FLOATS,
+                 variant | RINGS)
+
+
 def _check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: "
@@ -419,26 +479,38 @@ def _zero_counts(wrapper, modes: tuple, depths: tuple | None = None) -> None:
     launches_by_library: per library launched (StepConstants.library, whose
     first part is the collision mode; the mode itself for a wrapper with
     one library per mode), an int, or a dict per depth (`depths`) for an
-    N-step wrapper. launches() and launches_by_mode() sum it over
-    libraries. CPU calls (the plain version) are not counted."""
+    N-step wrapper, whose counts are dicts per shard (iy, ix) for the ring
+    wrapper. launches() and launches_by_mode() sum it over libraries (and
+    shards). CPU calls (the plain version) are not counted."""
     wrapper.modes, wrapper.depths = modes, depths
     wrapper.launches_by_library = {}
 
 
-def _count(wrapper, library: str, n_sub: int | None = None) -> None:
+def _count(wrapper, library: str, n_sub: int | None = None,
+           shard: tuple[int, int] | None = None) -> None:
     """Count one launch of `wrapper`'s kernel from `library`, at depth
-    n_sub for an N-step wrapper."""
+    n_sub for an N-step wrapper, on `shard` for the ring wrapper."""
     by_library = wrapper.launches_by_library
     if n_sub is None:
         by_library[library] = by_library.get(library, 0) + 1
-    else:
+    elif shard is None:
         by_library.setdefault(library, dict.fromkeys(wrapper.depths, 0))
         by_library[library][n_sub] += 1
+    else:
+        per_depth = by_library.setdefault(
+            library, {d: {} for d in wrapper.depths})[n_sub]
+        per_depth[shard] = per_depth.get(shard, 0) + 1
+
+
+def _total(n) -> int:
+    """A count, or the sum of a dict of counts per shard."""
+    return sum(n.values()) if isinstance(n, dict) else n
 
 
 def launches_by_mode(wrapper) -> dict:
     """`wrapper`'s launches per collision mode it holds (0 where none), each
-    summed over the mode's libraries; per depth for an N-step wrapper."""
+    summed over the mode's libraries (and shards); per depth for an N-step
+    wrapper."""
     depths = wrapper.depths
     out = {mode: 0 if depths is None else dict.fromkeys(depths, 0)
            for mode in wrapper.modes}
@@ -448,7 +520,7 @@ def launches_by_mode(wrapper) -> dict:
             out[mode] += n
         else:
             for d in depths:
-                out[mode][d] += n[d]
+                out[mode][d] += _total(n[d])
     return out
 
 
@@ -459,6 +531,15 @@ def launches(wrapper):
     if wrapper.depths is None:
         return sum(by_mode)
     return {d: sum(n[d] for n in by_mode) for d in wrapper.depths}
+
+
+def launches_by_shard(wrapper) -> dict:
+    """The ring wrapper's launches per (library, depth, shard), zeros
+    left out."""
+    return {(library, d, shard): n
+            for library, per_depth in wrapper.launches_by_library.items()
+            for d, per_shard in per_depth.items()
+            for shard, n in per_shard.items() if n}
 
 
 _zero_counts(collide_stream, COLLISION_MODES)
@@ -501,6 +582,138 @@ def collide_stream_blocked(f: torch.Tensor, out: torch.Tensor,
 
 
 _zero_counts(collide_stream_blocked, COLLISION_MODES, BLOCKED_DEPTHS)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Shard:
+    """One shard of a mesh as the ring kernels take it: its place `index`
+    (iy, ix) in the mesh, the global (y, x) `origin` of its block of
+    `local_shape` (nyl, nxl) in the global `grid` (ny, nx), the `depth` of
+    its rings, whether it takes x rings (`x_rings`: the mesh cuts x, or
+    TPULBM_FORCE_TILED; else its block spans every column) and `mask`, its
+    uint8 solid mask padded by `depth` on every side (halo.pad_mask)."""
+    index: tuple[int, int]
+    origin: tuple[int, int]
+    local_shape: tuple[int, int]
+    grid: tuple[int, int]
+    depth: int
+    x_rings: bool
+    mask: torch.Tensor
+
+
+def _check_ring(name: str, t, shape: tuple, f: torch.Tensor) -> None:
+    if t is None:
+        raise ValueError(f"ring {name} is missing")
+    if (t.dtype != torch.float32 or tuple(t.shape) != shape
+            or not t.is_contiguous() or t.device != f.device):
+        raise ValueError(f"ring {name} must be a contiguous float32 {shape} "
+                         f"on {f.device}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")
+
+
+def check_shard(f: torch.Tensor, out: torch.Tensor, rings: tuple,
+                shard: Shard, n_sub: int, rows: tuple[int, int]) -> None:
+    """Raise unless f, out, the rings (rb, rt, rl, rr), the shard and the
+    row range fit together: the checks before any pointer is passed."""
+    nyl, nxl = shard.local_shape
+    ny, nx = shard.grid
+    depth = shard.depth
+    check_inputs(f, out, None)
+    if tuple(f.shape[1:]) != (nyl, nxl):
+        raise ValueError(f"state {tuple(f.shape)} is not the shard's block "
+                         f"{shard.local_shape}")
+    if n_sub != depth or depth not in RINGS_DEPTHS:
+        raise ValueError(f"depth {n_sub} with rings {depth} deep (the ring "
+                         f"kernels hold depths {RINGS_DEPTHS})")
+    if min(nyl, nxl) < max(depth, 3):
+        raise ValueError(f"a shard needs at least max({depth}, 3) rows and "
+                         f"columns, got {shard.local_shape}")
+    r0, r1 = rows
+    if not 0 <= r0 < r1 <= nyl:
+        raise ValueError(f"row range {rows} outside [0, {nyl})")
+    hx = depth if shard.x_rings else 0
+    if not shard.x_rings and (shard.origin[1] != 0 or nxl != nx):
+        raise ValueError("a shard without x rings must span every column")
+    mask = shard.mask
+    if (mask.dtype != torch.uint8 or not mask.is_contiguous()
+            or tuple(mask.shape) != (nyl + 2 * depth, nxl + 2 * depth)
+            or mask.device != f.device):
+        raise ValueError(f"shard mask must be contiguous uint8 "
+                         f"{(nyl + 2 * depth, nxl + 2 * depth)} on "
+                         f"{f.device}")
+    rb, rt, rl, rr = rings
+    width = nxl + 2 * hx
+    # a launch reads rows [r0 - depth - 1, r1 + depth + 1) (csrc's Shard)
+    if rb is not None or r0 <= depth:
+        _check_ring("rb", rb, (9, depth, width), f)
+    if rt is not None or r1 >= nyl - depth:
+        _check_ring("rt", rt, (9, depth, width), f)
+    if shard.x_rings:
+        _check_ring("rl", rl, (9, nyl, depth), f)
+        _check_ring("rr", rr, (9, nyl, depth), f)
+    elif rl is not None or rr is not None:
+        raise ValueError("x rings given to a shard that spans every column")
+    if not (0 <= shard.origin[0] <= ny - nyl
+            and 0 <= shard.origin[1] <= nx - nxl):
+        raise ValueError(f"shard origin {shard.origin} outside the grid")
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def collide_stream_rings(f: torch.Tensor, out: torch.Tensor, rings: tuple,
+                         shard: Shard, consts: StepConstants, n_sub: int,
+                         rows: tuple[int, int] | None = None,
+                         plain=None) -> torch.Tensor:
+    """n_sub timesteps of one shard from its block f and its rings
+    (rb, rt, rl, rr; shard.depth = n_sub cells deep) into the rows
+    [r0, r1) of out (every row when `rows` is None; the other rows of out
+    are left as they are); returns out. A ring the rows do not reach may
+    be None (the interior range of the overlap mode reads none).
+
+    On a CUDA tensor: launches the rings build of the 1-step kernel
+    (n_sub 1) or of the N-step kernel on the current stream (no
+    synchronization) and raises if the launch is refused. On a CPU tensor:
+    runs `plain` (step_rings_torch.make_ring_step for the shard)."""
+    nyl = shard.local_shape[0]
+    rows = (0, nyl) if rows is None else tuple(rows)
+    check_shard(f, out, rings, shard, n_sub, rows)
+    r0, r1 = rows
+    rb, rt, rl, rr = rings
+    if f.device.type == "cpu":
+        if plain is None:
+            raise ValueError("a CPU tensor needs the plain step")
+        width = shard.local_shape[1] + (2 * n_sub if shard.x_rings else 0)
+        blank = f.new_zeros((9, n_sub, width))
+        new = plain(f, blank if rb is None else rb,
+                    blank if rt is None else rt, rl, rr)
+        out[:, r0:r1] = new[:, r0:r1]
+        return out
+    ny, nx = shard.grid
+    y0, x0 = shard.origin
+    nxl = shard.local_shape[1]
+    hx = n_sub if shard.x_rings else 0
+    geometry = (nx, ny, nxl, nyl, x0, y0, hx, r0, r1)
+    stream = torch.cuda.current_stream(f.device).cuda_stream
+    ptrs = (f.data_ptr(), out.data_ptr(), shard.mask.data_ptr(), _ptr(rb),
+            _ptr(rt), _ptr(rl), _ptr(rr))
+    if n_sub == 1:
+        lib = _rings_library(consts.mode, consts.variant)
+        rc = lib.tpulbm_d2q9_step_rings(*ptrs, *geometry, *consts.d2q9_args,
+                                        f.device.index, stream)
+    else:
+        lib = _rings_blocked_library(consts.mode, consts.variant)
+        rc = lib.tpulbm_d2q9_step_blocked_rings(
+            *ptrs, *geometry, n_sub, *consts.d2q9_args, f.device.index,
+            stream)
+    _check_launch(lib, rc, f"D2Q9 {n_sub}-step ring kernel "
+                           f"({consts.library}, shard {shard.index})")
+    _count(collide_stream_rings, consts.library, n_sub, shard.index)
+    return out
+
+
+_zero_counts(collide_stream_rings, COLLISION_MODES, RINGS_DEPTHS)
 
 
 def collide_stream_3d(f: torch.Tensor, out: torch.Tensor,
@@ -577,6 +790,7 @@ def reset_launch_counts() -> None:
     from . import step_multiphase_cuda, step_thermal_cuda
     _zero_counts(collide_stream, COLLISION_MODES)
     _zero_counts(collide_stream_blocked, COLLISION_MODES, BLOCKED_DEPTHS)
+    _zero_counts(collide_stream_rings, COLLISION_MODES, RINGS_DEPTHS)
     _zero_counts(collide_stream_3d, COLLISION_MODES_3D)
     _zero_counts(collide_stream_3d_blocked, COLLISION_MODES_3D,
                  BLOCKED_DEPTHS_3D)
@@ -585,17 +799,11 @@ def reset_launch_counts() -> None:
     step_multiphase_cuda.collide_stream_multiphase.launches = 0
 
 
-def _kernel_operands(problem: Problem, device, q: int = 9):
-    """(device, constants, solid mask, plain step or None) for a wrapper of
-    `problem` on `device` with a q-population kernel; raises for what the
+def kernel_constants(problem: Problem, q: int = 9) -> StepConstants:
+    """The constants of `problem`'s kernel library; raises for what the
     kernels do not cover: they run the equilibrium and the bounce-back
     obstacles, the D2Q9 kernels every collision, the D3Q19 kernels every
-    one but KBC, as tpulbm's, in the domains of DOMAINS and DOMAINS_3D. A
-    problem without an obstacle takes a zero mask, which those domains'
-    kernels do not read."""
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
+    one but KBC, as tpulbm's, in the domains of DOMAINS and DOMAINS_3D."""
     if problem.lattice.Q != q or problem.thermal is not None \
             or problem.shan_chen:
         takes = ("problems 'cylinder', 'poiseuille' and 'cavity' in 2-D"
@@ -614,6 +822,18 @@ def _kernel_operands(problem: Problem, device, q: int = 9):
             and min(problem.spatial_shape) < 3):
         raise ValueError("the cavity kernels take nx = ny >= 3 (the corner "
                          "closure reads an interior neighbour)")
+    return consts
+
+
+def _kernel_operands(problem: Problem, device, q: int = 9):
+    """(device, constants, solid mask, plain step or None) for a wrapper of
+    `problem` on `device` with a q-population kernel (kernel_constants). A
+    problem without an obstacle takes a zero mask, which those domains'
+    kernels do not read."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    consts = kernel_constants(problem, q)
     solid = (torch.zeros(problem.spatial_shape, dtype=torch.uint8,
                          device=device) if problem.solid is None else
              torch.as_tensor(problem.solid, device=device).to(torch.uint8))

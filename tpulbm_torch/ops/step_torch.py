@@ -88,8 +88,8 @@ def coords(problem: Problem, device) -> dict:
     return cd
 
 
-def make_step_rolled(problem: Problem,
-                     device) -> Callable[[torch.Tensor], torch.Tensor]:
+def make_step_rolled(problem: Problem, device, cd: dict | None = None
+                     ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Oracle step on the unpadded state (Q, *spatial) on `device`.
 
     Ghost semantics (the reference's, verified against its compiled code):
@@ -99,11 +99,17 @@ def make_step_rolled(problem: Problem,
     read the frozen initial equilibrium, and so do the corner ghosts (a
     diagonal pull at a wall that crosses a corner). Under periodic_x the x
     pulls wrap.
+
+    cd: the coordinate dict of a block other than the whole grid (as
+    `coords` gives it, its 'yy' and 'xx' the block's global coordinates;
+    ops/step_rings_torch.py's padded shard), so every edge rule keys on
+    the domain's own edges; the roll then wraps the block's own edge,
+    which leaves its outermost cells wrong.
     """
     lat = problem.lattice
     c = lat.c
     eq_ring = problem.ghost_ring_values()
-    cd = coords(problem, device)
+    cd = coords(problem, device) if cd is None else cd
     ndim = len(problem.spatial_shape)
     xx, yy = cd["xx"], cd["yy"]
 

@@ -1,17 +1,21 @@
-"""Run orchestration on one device: banners, chunked time stepping, force
-and Nusselt recording, diagnostics, VTK frames, the stability abort and the
-final artifacts.
+"""Run orchestration: banners, chunked time stepping, force and Nusselt
+recording, diagnostics, VTK frames, the stability abort and the final
+artifacts, on one device or on a mesh of shards.
 
-Port of tpulbm/runner.py for one device. Cadence parity with the
+Port of tpulbm/runner.py. Cadence parity with the
 reference loop: forces (problems with an obstacle) and the Nusselt number
 (thermal problems) are recorded at every t ≡ 0 (mod output_frequency),
 t = 0 included, forces from the post-collision state; max-velocity prints
 and VTK frames happen at those t > 0. These diagnostics stay on the device
 until the host fetches them: _SUPER_K output intervals per fetch on the
-fast path (stepper.make_super_chunk_fn), one per interval on the tail.
+fast path (parallel/sharded_step.make_super_chunk_fn, stepper's on one
+device), one per interval on the tail.
 NaN/Inf persist under LBM arithmetic, so a check per interval aborts as
 surely as one per step. Checkpoints are tpulbm's single-.npz format,
-written at chunk boundaries and resumed by run(resume=True).
+written at chunk boundaries and resumed by run(resume=True); a mesh of
+several shards (params.mesh_shape, parallel/) writes tpulbm's per-shard
+directories and resumes either kind, and its artifacts are gathered to the
+host once per write, the counterpart of tpulbm's rank-0 I/O.
 """
 from __future__ import annotations
 
@@ -24,13 +28,14 @@ import numpy as np
 import torch
 
 from .config import SimulationParams
-from .convert import state_from_numpy
+from .convert import split_state, state_from_numpy_block
 from .geometry import solid_cell_count
 from .models import make_problem
 from .models.base import Problem
 from .models.rayleigh_benard import effective_height
-from .ops import diagnostics, forces as forces_mod
-from .stepper import make_chunk_fn, make_super_chunk_fn
+from .ops import forces as forces_mod
+from .parallel import sharded_step
+from .parallel.mesh import Mesh, make_mesh, visible_devices
 from .utils import checkpoint as ckpt
 from .utils import io as io_mod
 from .utils.profiling import ThroughputMeter
@@ -56,38 +61,49 @@ def check_runner_slice(params: SimulationParams) -> None:
         raise NotImplementedError(
             "the CUDA kernel (--backend pallas) runs float32 only, as "
             "tpulbm's Pallas kernels do; use --backend jax for f64")
-    if tuple(params.mesh_shape) != (1, 1):
-        raise NotImplementedError(
-            f"mesh_shape={params.mesh_shape} is not ported to tpulbm_torch "
-            "yet (ROADMAP Queue 1 item 19, several devices)")
     if params.stats_from >= 0 or params.probe_points:
         raise NotImplementedError(
             "statistics and probes are not ported to tpulbm_torch yet "
             "(ROADMAP Queue 1 item 15)")
 
 
+def runner_mesh(params: SimulationParams, device="cuda",
+                devices=None) -> Mesh:
+    """The mesh of a run: params.mesh_shape over `devices` (one per shard
+    in row-by-row order, a device may repeat: four shards on one card),
+    else over the first my*mx visible cards (an explicit mesh larger than
+    the visible cards raises, as tpulbm's make_mesh does), or over the host
+    CPU where `device` asks for it."""
+    n = params.mesh_shape[0] * params.mesh_shape[1]
+    if devices is None:
+        device = torch.device(device)
+        if device.type == "cpu":
+            devices = [device] * n
+        elif n == 1:
+            devices = [device]
+        else:
+            devices = visible_devices()[:n]
+    return make_mesh(tuple(params.mesh_shape), devices=list(devices))
+
+
 class Runner:
     def __init__(self, params: SimulationParams, device="cuda",
-                 verbose: bool = True):
+                 verbose: bool = True, devices=None):
         device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
+        if (devices is None and device.type == "cuda"
+                and not torch.cuda.is_available()):
             raise RuntimeError("device='cuda' but torch finds no CUDA device")
         check_runner_slice(params)
         self.params = params
-        self.device = device
         self.verbose = verbose
         self.problem: Problem = make_problem(params)
+        self.mesh = runner_mesh(params, device, devices)
+        sharded_step.check_mesh_problem(self.problem, self.mesh)
+        # the state is the mesh's grid of blocks, one block on (1,1), where
+        # the sharded stepper and diagnostics are the one-device ones
+        self.device = self.mesh.device(0, 0)
+        self._diagnostics = sharded_step.Diagnostics(self.problem, self.mesh)
         self._chunk_cache: dict[int, object] = {}
-        self._forces = (forces_mod.forces_fn(self.problem, device)
-                        if self.problem.solid is not None else None)
-        thermal = self.problem.thermal is not None
-        self._nusselt = (diagnostics.nusselt_fn(self.problem) if thermal
-                         else None)
-        self._temp = (diagnostics.temperature_fn(self.problem) if thermal
-                      else None)
-        self._fields = diagnostics.fields_fn(self.problem, device)
-        self._stable = diagnostics.stability_fn(self.problem)
-        self._max_vel = diagnostics.max_velocity_fn(self.problem, device)
         self._super: dict[bool, object] = {}   # with_fields -> super-chunk fn
         # A closed box (the cavity) has no open boundary to absorb the
         # walls' O(gradient) mass drift; the step is degree-1 homogeneous
@@ -117,8 +133,15 @@ class Runner:
         print(f"  Reynolds number = {p.reynolds()}")
         name = (torch.cuda.get_device_name(self.device)
                 if self.device.type == "cuda" else "host CPU")
-        print(f"  Device: {self.device} ({name}), precision {p.precision}, "
-              f"backend {p.backend}")
+        if self.mesh.size > 1:
+            my, mx = self.mesh.shape
+            devs = sorted({str(d) for row in self.mesh.devices for d in row})
+            print(f"  Device mesh: {my}×{mx} ({', '.join(devs)}; {name}), "
+                  f"local block {p.ny // my}×{p.nx // mx}, precision "
+                  f"{p.precision}, backend {p.backend}")
+        else:
+            print(f"  Device: {self.device} ({name}), precision "
+                  f"{p.precision}, backend {p.backend}")
         if self.problem.solid is not None:
             print(f"  Cylinder: center=({p.get_cylinder_x()},"
                   f"{p.get_cylinder_y()}), "
@@ -127,44 +150,40 @@ class Runner:
 
     def _chunk_fn(self, length: int):
         if length not in self._chunk_cache:
-            self._chunk_cache[length] = make_chunk_fn(
-                self.problem, self.device, length, backend=self.params.backend)
+            self._chunk_cache[length] = sharded_step.make_chunk_fn(
+                self.problem, self.mesh, length, backend=self.params.backend)
         return self._chunk_cache[length]
 
-    def _renorm(self, f: torch.Tensor) -> torch.Tensor:
-        """f with its total mass rescaled to the closed box's start value
-        (f itself for an open problem)."""
+    def _renorm(self, f):
+        """f with its total mass, summed over the shards, rescaled to the
+        closed box's start value (f itself for an open problem)."""
         if self._mass0 is None:
             return f
-        return f * (self._mass0 / torch.sum(f))
+        scale = self._mass0 / self._diagnostics.mass(f)
+        return [[b * scale.to(b.device) for b in row] for row in f]
 
     def _fetch(self, x: torch.Tensor) -> np.ndarray:
         """One device-to-host copy, counted."""
         self._host_fetches += 1
         return x.cpu().numpy()
 
-    def _diag(self, f: torch.Tensor) -> np.ndarray:
+    def _diag(self, f) -> np.ndarray:
         """[fx, fy, max |u|, stable] (and Nu for a thermal problem) in ONE
         device-to-host fetch; the force is 0 without an obstacle."""
-        force = (self._forces(f)[:2] if self._forces is not None
-                 else f.new_zeros(2))
-        parts = [force, self._max_vel(f)[None],
-                 self._stable(f)[None].to(force.dtype)]
-        if self._nusselt is not None:
-            parts.append(self._nusselt(f)[None])
-        return self._fetch(torch.cat(parts))
+        return self._fetch(self._diagnostics.sample(f))
 
-    def _fetch_fields(self, f: torch.Tensor):
-        rho, u = self._fields(f)
+    def _fetch_fields(self, f):
+        rho, u = self._diagnostics.fields(f)
         return self._fetch(rho), self._fetch(u)
 
-    def _fetch_temp(self, f: torch.Tensor) -> np.ndarray | None:
-        return None if self._temp is None else self._fetch(self._temp(f))
+    def _fetch_temp(self, f) -> np.ndarray | None:
+        temp = self._diagnostics.temperature(f)
+        return None if temp is None else self._fetch(temp)
 
     def _super_fn(self, with_fields: bool):
         if with_fields not in self._super:
-            self._super[with_fields] = make_super_chunk_fn(
-                self.problem, self.device, self.params.output_frequency,
+            self._super[with_fields] = sharded_step.make_super_chunk_fn(
+                self.problem, self.mesh, self.params.output_frequency,
                 _SUPER_K, backend=self.params.backend,
                 with_fields=with_fields)
         return self._super[with_fields]
@@ -194,31 +213,54 @@ class Runner:
         while len(self._io_futures) > self._max_pending:
             self._io_futures.pop(0).result()
 
-    def _save_ckpt(self, ckpt_dir: str, t: int, f: torch.Tensor) -> None:
-        """tpulbm's single-device checkpoint: one .npz of the state."""
-        ckpt.save(ckpt_dir, t, self._fetch(f), self.params)
+    def _save_ckpt(self, ckpt_dir: str, t: int, f) -> None:
+        """tpulbm's checkpoint: one .npz of the state on one device, a
+        per-shard directory on a mesh of several (tpulbm/runner.py:228-241)."""
+        if self.mesh.size > 1:
+            ckpt.save_sharded(ckpt_dir, t, [[self._fetch(b) for b in row]
+                                            for row in f], self.params)
+        else:
+            ckpt.save(ckpt_dir, t, self._fetch(f[0][0]), self.params)
 
-    def _resume_point(self) -> tuple[int, np.ndarray | None]:
-        """(start step, host state or None) from the newest checkpoint in
-        the run's checkpoint directory (tpulbm/runner.py:267-313, the
-        single-.npz kind)."""
+    def _resume_point(self):
+        """(start step, state or None) from the newest checkpoint in the
+        run's checkpoint directory (tpulbm/runner.py:264-337): a single
+        .npz (a host state, sharded on a mesh) or a per-shard directory
+        (host blocks, read on a mesh whose blocks line up with the saved
+        ones, as tpulbm reads it)."""
         p = self.params
         latest = ckpt.latest(os.path.join(p.output_dir, p.checkpoint_dir))
         if latest is None:
             return 0, None
-        if os.path.isdir(latest):
-            raise NotImplementedError(
-                f"{latest} is a per-shard checkpoint directory; several "
-                "devices are not ported to tpulbm_torch yet (ROADMAP Queue 1 "
-                "item 19)")
         try:
-            start_step, f0 = ckpt.load(latest, p)
+            if os.path.isdir(latest):
+                start_step, f0 = ckpt.load_sharded(latest, self.mesh.shape,
+                                                   p)
+            else:
+                start_step, f0 = ckpt.load(latest, p)
         except (OSError, KeyError, ValueError) as e:
             raise RuntimeError(f"checkpoint load failed ({type(e).__name__}: "
                                f"{e})") from e
         if self.verbose:
             print(f"  Resuming from {latest} at step {start_step}")
         return start_step, f0
+
+    def _initial(self, f0):
+        """The run's device state, the mesh's grid of blocks, from a host
+        state (a global array, or a grid of host blocks from a per-shard
+        checkpoint), or the initial state where f0 is None (on a mesh of
+        several shards built on each shard's device)."""
+        problem = self.problem
+        if isinstance(f0, list):
+            return [[state_from_numpy_block(b, problem,
+                                            self.mesh.device(iy, ix))
+                     for ix, b in enumerate(row)]
+                    for iy, row in enumerate(f0)]
+        if f0 is None and self.mesh.size > 1:
+            return sharded_step.shard_initial_state(problem, self.mesh)[0]
+        if f0 is None:
+            f0 = problem.initial_state()
+        return split_state(f0, problem, self.mesh)
 
     def run(self, resume: bool = True) -> RunResult:
         """Step the problem to num_timesteps and write the artifacts. With
@@ -231,15 +273,13 @@ class Runner:
         self._host_fetches = 0
         start_step, f0 = (self._resume_point()
                           if resume and p.checkpoint_every else (0, None))
-        if f0 is None:
-            f0 = problem.initial_state()
-        f = state_from_numpy(f0, problem, self.device)
+        f = self._initial(f0)
         force_writer = forces_path = nu_writer = None
-        if self._forces is not None:
+        if problem.solid is not None:
             forces_path = os.path.join(p.output_dir, "forces.csv")
             force_writer = io_mod.ForceWriter(
                 forces_path, append=start_step > 0, resume_step=start_step)
-        if self._nusselt is not None:
+        if problem.thermal is not None:
             nu_writer = io_mod.NusseltWriter(
                 os.path.join(p.output_dir, "nusselt.csv"),
                 append=start_step > 0, resume_step=start_step)
@@ -350,7 +390,7 @@ class Runner:
                         last_ckpt = chunks_done
 
                 # final fence + stability check of the end state
-                if success and not self._fetch(self._stable(f)):
+                if success and not self._fetch(self._diagnostics.stable(f)):
                     print(f"Simulation unstable at timestep {t}")
                     success = False
         finally:
@@ -372,8 +412,7 @@ class Runner:
         return RunResult(success, t, meter.mlups, wall, forces_path, stats,
                          fetches)
 
-    def write_final_results(self, f: torch.Tensor,
-                            fields_prev=None) -> dict | None:
+    def write_final_results(self, f, fields_prev=None) -> dict | None:
         """The final artifacts (tpulbm/runner.py:636-706). 2-D:
         velocity_field.csv, simulation_params.csv and, with an obstacle,
         the time-averaged drag summary; thermal: temperature_field.csv and

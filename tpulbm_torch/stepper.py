@@ -193,31 +193,8 @@ def make_super_chunk_fn(problem: Problem, device, interval_len: int,
     nusselt = diagnostics.nusselt_fn(problem) if thermal else None
     temp = (diagnostics.temperature_fn(problem)
             if thermal and with_fields else None)
+    size, unpack = super_layout(problem, n_intervals, with_fields)
     k = n_intervals
-    spatial = tuple(problem.spatial_shape)
-    dims = problem.lattice.D
-    cells = math.prod(spatial)
-    per = 5 if thermal else 4            # fx, fy, max |u|, stable[, Nu]
-    n_scalar = per * k
-    n_fields = (1 + dims + (1 if thermal else 0)) * k * cells
-    size = n_scalar + (n_fields if with_fields else 0)
-
-    def unpack(flat) -> dict:
-        scalars = flat[:n_scalar].reshape(k, per)
-        out = {"forces": scalars[:, :2], "max_vel": scalars[:, 2],
-               "stable": scalars[:, 3]}
-        if thermal:
-            out["nusselt"] = scalars[:, 4]
-        if with_fields:
-            at = n_scalar
-            out["rho"] = flat[at:at + k * cells].reshape((k,) + spatial)
-            at += k * cells
-            out["u"] = flat[at:at + dims * k * cells].reshape(
-                (k, dims) + spatial)
-            at += dims * k * cells
-            if thermal:
-                out["temp"] = flat[at:at + k * cells].reshape((k,) + spatial)
-        return out
 
     def fn(f: torch.Tensor):
         flat = torch.empty(size, dtype=f.dtype, device=f.device)
@@ -240,3 +217,37 @@ def make_super_chunk_fn(problem: Problem, device, interval_len: int,
 
     fn.unpack = unpack
     return fn
+
+
+def super_layout(problem: Problem, k: int, with_fields: bool):
+    """(size, unpack) of a super-chunk's flat diagnostics tensor for k
+    intervals: per interval fx, fy, max |u|, stable (and Nu for a thermal
+    problem), then, with with_fields, rho, u (and temp) of every
+    interval; unpack(flat) gives the views by name."""
+    spatial = tuple(problem.spatial_shape)
+    dims = problem.lattice.D
+    cells = math.prod(spatial)
+    thermal = problem.thermal is not None
+    per = 5 if thermal else 4            # fx, fy, max |u|, stable[, Nu]
+    n_scalar = per * k
+    n_fields = (1 + dims + (1 if thermal else 0)) * k * cells
+    size = n_scalar + (n_fields if with_fields else 0)
+
+    def unpack(flat) -> dict:
+        scalars = flat[:n_scalar].reshape(k, per)
+        out = {"forces": scalars[:, :2], "max_vel": scalars[:, 2],
+               "stable": scalars[:, 3]}
+        if thermal:
+            out["nusselt"] = scalars[:, 4]
+        if with_fields:
+            at = n_scalar
+            out["rho"] = flat[at:at + k * cells].reshape((k,) + spatial)
+            at += k * cells
+            out["u"] = flat[at:at + dims * k * cells].reshape(
+                (k, dims) + spatial)
+            at += dims * k * cells
+            if thermal:
+                out["temp"] = flat[at:at + k * cells].reshape((k,) + spatial)
+        return out
+
+    return size, unpack

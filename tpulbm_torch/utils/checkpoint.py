@@ -4,21 +4,27 @@ by either package resumes in the other.
 
 One .npz holds the state `f` ((Q, *spatial), or the stacked (14, ny, nx)
 thermal state), the step and the params JSON; `load` refuses one written
-with other physics. tpulbm's per-shard checkpoint directories (several
-devices) are found by `latest` so that the Runner can refuse them by name;
-reading them is not ported (ROADMAP Queue 1 item 19).
+with other physics. A run on a mesh of several shards writes tpulbm's
+per-shard directory instead (save_sharded, load_sharded): ckpt_<step>/
+holds proc_00000.npz, one array per shard under "shard_0_<y0>_<x0>" (the
+offsets of its block on each axis), and manifest.json, written last, whose
+presence publishes the checkpoint. One process drives every shard, so it
+writes the one file tpulbm's process 0 writes for a one-host run.
 """
 from __future__ import annotations
 
 import glob
+import json
 import os
 import re
+import shutil
 
 import numpy as np
 
 from ..config import SimulationParams
 
-__all__ = ["latest", "load", "save"]
+__all__ = ["check_manifest", "latest", "load", "load_sharded", "save",
+           "save_sharded"]
 
 _PAT = re.compile(r"ckpt_(\d+)\.npz$")
 _PAT_DIR = re.compile(r"ckpt_(\d+)$")
@@ -84,3 +90,103 @@ def load(path: str, params: SimulationParams | None = None):
     if params is not None:
         _check_params(path, saved, params)
     return step, f
+
+
+def _shard_key(offsets) -> str:
+    """tpulbm's key of one shard: its block's offset on each axis."""
+    return "shard_" + "_".join(str(int(o)) for o in offsets)
+
+
+def save_sharded(ckpt_dir: str, step: int, shards: list,
+                 params: SimulationParams, keep: int = 3) -> str:
+    """Write ckpt_<step>/ from a sharded state: `shards` the (my, mx) grid
+    of host blocks (Q, nyl, nxl), shard (iy, ix) at rows iy*nyl and columns
+    ix*nxl; keep the newest `keep` checkpoints of either kind."""
+    path = os.path.join(ckpt_dir, f"ckpt_{step:09d}")
+    os.makedirs(path, exist_ok=True)
+    fname = "proc_00000.npz"
+    arrays = {}
+    for iy, row in enumerate(shards):
+        for ix, block in enumerate(row):
+            block = np.asarray(block)
+            q, nyl, nxl = block.shape
+            arrays[_shard_key((0, iy * nyl, ix * nxl))] = block
+    q = shards[0][0].shape[0]
+    shape = [q, sum(np.shape(r[0])[1] for r in shards),
+             sum(np.shape(b)[2] for b in shards[0])]
+    fpath = os.path.join(path, fname)
+    tmp = fpath + ".tmp"
+    with open(tmp, "wb") as fh:
+        np.savez(fh, **arrays)
+    os.replace(tmp, fpath)
+    manifest = {"step": int(step), "params": params.to_dict(),
+                "global_shape": shape,
+                "dtype": str(np.asarray(shards[0][0]).dtype),
+                "files": {key: fname for key in arrays}}
+    mtmp = os.path.join(path, "manifest.json.tmp0")
+    with open(mtmp, "w") as fh:
+        json.dump(manifest, fh, indent=1)
+    os.replace(mtmp, os.path.join(path, "manifest.json"))
+    cands = []
+    for p in glob.glob(os.path.join(ckpt_dir, "ckpt_*")):
+        m = _PAT.search(p) or _PAT_DIR.search(p)
+        if m:
+            cands.append((int(m.group(1)), p))
+    for _, old in sorted(cands)[:-keep]:
+        shutil.rmtree(old) if os.path.isdir(old) else os.remove(old)
+    return path
+
+
+def check_manifest(path: str, params: SimulationParams | None = None) -> int:
+    """The step of a per-shard checkpoint directory; with `params`, raises
+    ValueError if it was written with other physics."""
+    with open(os.path.join(path, "manifest.json")) as fh:
+        manifest = json.load(fh)
+    if params is not None:
+        _check_params(path, SimulationParams.from_dict(manifest["params"]),
+                      params)
+    return int(manifest["step"])
+
+
+def load_sharded(path: str, mesh_shape: tuple[int, int],
+                 params: SimulationParams | None = None):
+    """(step, grid of host blocks) from a per-shard checkpoint directory,
+    cut for a (my, mx) mesh: the blocks must line up with the saved ones
+    (tpulbm's rule), else ValueError. With `params`, raises ValueError if
+    it was written with other physics."""
+    with open(os.path.join(path, "manifest.json")) as fh:
+        manifest = json.load(fh)
+    if params is not None:
+        _check_params(path, SimulationParams.from_dict(manifest["params"]),
+                      params)
+    q, ny, nx = manifest["global_shape"][-3:]
+    my, mx = mesh_shape
+    if ny % my or nx % mx:
+        raise ValueError(f"grid {nx}x{ny} not divisible by mesh {mesh_shape}")
+    nyl, nxl = ny // my, nx // mx
+    files = manifest["files"]
+    grid, opened = [], {}
+    try:
+        for iy in range(my):
+            row = []
+            for ix in range(mx):
+                key = _shard_key((0, iy * nyl, ix * nxl))
+                if key not in files:
+                    raise ValueError(
+                        f"checkpoint {path} has no shard at offsets {key!r} "
+                        f"— it was saved with an incompatible mesh (saved "
+                        f"files: {sorted(files)[:4]}…)")
+                fname = files[key]
+                if fname not in opened:
+                    opened[fname] = np.load(os.path.join(path, fname))
+                block = opened[fname][key]
+                if block.shape != (q, nyl, nxl):
+                    raise ValueError(f"shard {key} of {path} is "
+                                     f"{block.shape}, not {(q, nyl, nxl)}: "
+                                     "it was saved with an incompatible mesh")
+                row.append(block)
+            grid.append(row)
+    finally:
+        for data in opened.values():
+            data.close()
+    return int(manifest["step"]), grid

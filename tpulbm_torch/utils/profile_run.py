@@ -5,17 +5,23 @@
         --no-vtk
 
 Takes the flags of `python -m tpulbm_torch` and runs on the first CUDA
-device (without one it exits non-zero). The configuration runs three
-times: once to warm up (kernel builds, allocator), once unprofiled (wall
-time and runner MLUPS without the profiler's overhead) and once under
-torch.profiler (CPU and CUDA activity). It prints one JSON line: both
-runs' wall time and MLUPS, the device window of the profiled run (from
+device (without one it exits non-zero); with --mesh NYxNX and --one-card
+every shard of the mesh runs on that card (Runner(devices=[cuda:0] * n)):
+
+    python -m tpulbm_torch.utils.profile_run --preset scale-8m \\
+        --mesh 2x2 --one-card --no-vtk
+
+The configuration runs three times: once to warm up (kernel builds,
+allocator), once unprofiled (wall time and runner MLUPS without the
+profiler's overhead) and once under torch.profiler (CPU and CUDA
+activity). It prints one JSON line: both runs' wall time and MLUPS, the device window of the profiled run (from
 its first device event to its last), the time and count of each of the
 port's kernels by name (every collision's library of a kernel under its
 name: the run's collision is the line's `collision`), of the other
 kernels (the diagnostics' plain PyTorch kernels), of copies and of sets,
-and the device's idle time, the window less the union of all device
-events.
+the device's idle time, the window less the union of all device events,
+and the host's time and count of each CUDA runtime call (a synchronize,
+or a copy from pageable memory, is where the host waits for the card).
 """
 from __future__ import annotations
 
@@ -69,9 +75,9 @@ def device_breakdown(trace_path: str) -> dict:
     loop's window, from the first launch of a port kernel to the end of
     the last, with its idle time."""
     with open(trace_path) as fh:
-        events = [e for e in json.load(fh)["traceEvents"]
-                  if e.get("ph") == "X"
-                  and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        trace = [e for e in json.load(fh)["traceEvents"] if e.get("ph") == "X"]
+    events = [e for e in trace
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     if not events:
         raise RuntimeError("the trace holds no device events")
     groups: dict[str, dict] = {}
@@ -85,7 +91,13 @@ def device_breakdown(trace_path: str) -> dict:
         g = groups.setdefault(name, {"ms": 0.0, "count": 0})
         g["ms"] += float(e["dur"]) / 1e3
         g["count"] += 1
-    out = {"groups": groups}
+    runtime: dict[str, dict] = {}
+    for e in trace:
+        if e.get("cat") in ("cuda_runtime", "cuda_driver"):
+            r = runtime.setdefault(e.get("name", "?"), {"ms": 0.0, "count": 0})
+            r["ms"] += float(e.get("dur", 0.0)) / 1e3
+            r["count"] += 1
+    out = {"groups": groups, "runtime": runtime}
     windows = {"window": spans}
     if port:
         windows["loop"] = port
@@ -107,17 +119,27 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_run: torch finds no CUDA device", file=sys.stderr)
         return 1
-    params = params_from_args(build_parser().parse_args(argv))
+    parser = build_parser()
+    parser.add_argument("--one-card", action="store_true",
+                        help="run every shard of --mesh on the first card")
+    args = parser.parse_args(argv)
+    params = params_from_args(args)
+    n = params.mesh_shape[0] * params.mesh_shape[1]
+    devices = [torch.device("cuda", 0)] * n if args.one_card else None
+
+    def runner():
+        return Runner(params, device="cuda", verbose=False, devices=devices)
+
     runs = []
     for _ in range(2):                           # warm-up, then unprofiled
-        result = Runner(params, device="cuda", verbose=False).run()
+        result = runner().run()
         if not result.success:
             return 1
         runs.append(result)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        profiled = Runner(params, device="cuda", verbose=False).run()
+        profiled = runner().run()
     torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
@@ -126,6 +148,7 @@ def main(argv=None) -> int:
     out.update({
         "device": torch.cuda.get_device_name(0),
         "collision": collision_mode(make_problem(params)),
+        "mesh": list(params.mesh_shape), "one_card": args.one_card,
         "cells": params.num_cells, "steps": params.num_timesteps,
         "wall_s": runs[1].wall_seconds, "mlups": runs[1].mlups,
         "host_fetches": runs[1].host_fetches,
