@@ -218,7 +218,48 @@ printing its own line; any failure exits non-zero:
    (1-step, N = 2, 3, 4), and one shard's launch at scale-8m's shapes
    (2x2 with x rings at N = 1-4, 4x1 with ring rows at N = 1, 2, 4, the
    overlap mode's three ranged launches at N = 1 and 4) against its plain
-   ring step, with the bound (73/N B a cell and the rings' bytes).
+   ring step, with the bound (73/N B a cell and the rings' bytes);
+35. the periodic box (-DTPULBM_DOMAIN=3: x and y wrap, no walls) and the
+   force profile (-DTPULBM_FORCE=1, a table of the source per coordinate),
+   built in phase 2: Taylor-Green at 2048x512 (bench.py's --periodic row,
+   tau 0.8, u0 0.04) under each D2Q9 collision and Kolmogorov (its
+   --kolmogorov row: n 4, tau 0.8, u0 0.05, F0 = 1.2e-5) under BGK and
+   MRT and with its force turned along x: one 1-step kernel step against
+   the plain step from the perturbed state (BGK also from the initial
+   state, after 500 plain steps, and 280 steps), where the cylinder's
+   library of the same collision must miss by SEPARATION tolerances; the
+   force profile at F0 = 1e-2 (SOURCE_CHECK_FORCE) along y and along x
+   against the plain step, the box's library without the profile
+   SEPARATION tolerances off; N = 2, 3, 4 (N = 4 for the other
+   collisions) bitwise against N 1-step launches;
+36. Taylor-Green's and Kolmogorov's main paths through the Runner, 2240
+   steps every 140: exactly 525 N=4 and 140 1-step launches of the box's
+   library (bgk+box, bgk+box+force) and none of another kernel, a finite
+   field; the flow's mass after 2240 kernel steps between the start and
+   the float32 weights' e/tau a step (box_mass_gate, 1e-6 either way);
+   Taylor-Green's 311-step run every 150 (100 N=3, 5 N=2, 1 1-step);
+37. both on (2,2), (4,1), (1,4) with every shard on the card: one launch a
+   shard at N = 1 and 4 from the perturbed state against its plain ring
+   step and bitwise against one device (the rings wrap in y; equilibrium
+   rings SEPARATION tolerances off), 280 steps counted and bitwise
+   against the one-device chunk, the Runner on 2x2 (560 steps every 140)
+   counted, its velocity_field.csv byte-identical to one device's;
+38. the passive scalar through the thermal kernel with its wall flags off
+   (step_thermal.cu unchanged): one step against the plain thermal step
+   at 2048x512, at rest and stirred (u0 0.04, thermal_tau 0.5704), from
+   the initial, an advanced and the perturbed state; 280 steps; the
+   Runner, 2240 steps every 140: exactly 2240 thermal launches, 16 finite
+   falling rows of scalar_variance.csv in tpulbm's layout, no
+   nusselt.csv; the flow's and the scalar's mass after 2240 kernel steps
+   (D2Q5's weights sum to 1 + 2^-25); timing;
+39. tpulbm's periodic gates through the kernels in f32: Taylor-Green's
+   nu within 0.5%, Kolmogorov's fixed point within 1.5% and spin-up
+   within 2%, the scalar's diffusion rate within 1e-3, advection's
+   phase, stirring at least halving the variance, the shear-layer preset
+   finite under regularized;
+40. timing of the box's libraries (plain, 1-step, N = 2-4) and of one
+   shard's ring launch of the 2x2 mesh at N = 1 and 4, with the bound (72
+   B a cell: the box reads no mask; the profile's adds counted).
 
 Run directories go to build/chip_smoke/ (git-ignored; the final CSVs have
 a million rows). The last two lines are a JSON line per kernel and the
@@ -234,10 +275,14 @@ the thermal LES build (thermal_collide_stream[smagorinsky]), phases 26 and 28
 for each new library (d2q9_collide_stream[<library>],
 d2q9_collide_stream_n4[<library>], the channel's N=2 and N=3 from its
 311-step run; d3q19_collide_stream[<library>] and _nN: StepConstants.library
-names the library, e.g. "mrt+channel+source"), and phases 32-33 for the
+names the library, e.g. "mrt+channel+source"), phases 32-33 for the
 ring builds (d2q9_rings_<mode>[_nN], <mode> the chunk's: "tiled" with x
 rings, "rows" without, "overlap" ranged; the tiled 1-step and N=4
-launches from the main path, the rest from phase 32's runs). A kernel's
+launches from the main path, the rest from phase 32's runs), phase 36 for
+the box's libraries (d2q9_collide_stream[bgk+box], ...[bgk+box+force]),
+phase 37's 2x2 Runner for their ring builds
+(d2q9_rings_tiled[_n4][bgk+box...]) and phase 38 for the scalar
+(thermal_collide_stream[passive_scalar]). A kernel's
 `bound_ms` is the
 least time the card could take for one step of its work at the shape it
 was timed at: the larger of the bytes a step must move (each population
@@ -1784,13 +1829,14 @@ class Cell:
     """One new domain's problem on the card: its kernel steps by depth, the
     plain step, the constants and the separation library's step."""
 
-    def __init__(self, dev, label: str, params):
+    def __init__(self, dev, label: str, params, problem=None):
         from tpulbm_torch.convert import state_from_numpy
         from tpulbm_torch.models import make_problem
         from tpulbm_torch.ops import step_cuda, step_torch
 
         self.label, self.params = label, params
-        self.problem = make_problem(params)
+        # `problem`: one that params alone do not give (a force along x)
+        self.problem = make_problem(params) if problem is None else problem
         self.three_d = self.problem.lattice.D == 3
         self.consts = step_cuda.StepConstants.of(self.problem)
         self.library = self.consts.library
@@ -1813,7 +1859,8 @@ class Cell:
         # equilibrium obstacle and no source: the build every earlier slice
         # ran, which the new edge code must be seen to change
         base = dataclasses.replace(self.consts, variant=0, src=(),
-                                   lid=(0.0, 0.0))
+                                   lid=(0.0, 0.0), force_table=(),
+                                   force_axis=-1)
         self.solid = (torch.zeros(self.problem.spatial_shape,
                                   dtype=torch.uint8, device=dev)
                       if self.problem.solid is None else
@@ -1831,7 +1878,8 @@ class Cell:
         """bound() of one step of the cell's library: the populations read
         and written once, the mask where the obstacle domain's kernel reads
         it; the collision's operations (BGK's where bounce-back solids skip
-        it, an upper bound) and one add a population for the source."""
+        it, an upper bound) and one add a population for the source and
+        one for the force profile."""
         from tpulbm_torch.ops import step_cuda
         lat = "d3q19" if self.three_d else "d2q9"
         mode = self.consts.mode
@@ -1839,7 +1887,8 @@ class Cell:
         mask = not v & step_cuda.DOMAIN_BITS
         flops = STEP_FLOPS[lat if mode == "bgk" else f"{lat}_{mode}"]
         return bound_of(q * 4 * 2 + int(mask),
-                        flops + (q if v & step_cuda.SOURCE else 0),
+                        flops + (q if v & step_cuda.SOURCE else 0)
+                        + (q if v & step_cuda.FORCE else 0),
                         int(np.prod(self.problem.spatial_shape)),
                         steps_per_launch)
 
@@ -1869,6 +1918,39 @@ def source_check(cell: Cell, f: torch.Tensor) -> tuple[float, float]:
     return float((got - want).abs().max()), sep
 
 
+def force_check(cell: Cell, f: torch.Tensor, axis: str) -> tuple[float,
+                                                                  float]:
+    """The force profile on the card: the cell's problem with Kolmogorov's
+    profile at F0 = SOURCE_CHECK_FORCE along `axis` (y: F_x = F0 cos(κy),
+    x: F_y = F0 cos(κx), tpulbm's tests/test_kolmogorov.py:239), one step
+    of the cell's 1-step library from f against the plain step, and one of
+    the same domain's library built without the profile, which must miss
+    the plain step by more than SEPARATION tolerances. Returns (the
+    library's error, the separation)."""
+    from tpulbm_torch.models.base import ForceProfile
+    from tpulbm_torch.ops import step_cuda, step_torch
+    ny, nx = cell.problem.spatial_shape
+    k = 2.0 * np.pi * cell.params.kolmogorov_n / (ny if axis == "y" else nx)
+    f0 = SOURCE_CHECK_FORCE
+    fn = ((lambda c: (f0 * torch.cos(k * c), 0.0)) if axis == "y"
+          else (lambda c: (0.0, f0 * torch.cos(k * c))))
+    big = dataclasses.replace(cell.problem,
+                              force_profile=ForceProfile(axis, fn))
+    consts = step_cuda.StepConstants.of(big)
+    require(consts.library == cell.library, f"{cell.label}: the check's "
+            f"library {consts.library}, not {cell.library}")
+    bare = dataclasses.replace(consts, force_table=(), force_axis=-1,
+                               variant=consts.variant & ~step_cuda.FORCE)
+    got = cell.launch(f, torch.empty_like(f), cell.solid, consts)
+    want = step_torch.make_step_rolled(big, f.device)(f)
+    without = cell.launch(f, torch.empty_like(f), cell.solid, bare)
+    torch.cuda.synchronize()
+    close_or_relative(got, want, cell.tol, cell.relative)
+    sep = separation(f"{cell.label}, {bare.library} with the profile along "
+                     f"{axis} at F0 {f0}", without, want, cell.tol)
+    return float((got - want).abs().max()), sep
+
+
 def cell_parity(cell: Cell, full: bool) -> float:
     """Phase 25 (2-D) or 27 (3-D) on one cell: one 1-step kernel step
     against one plain step from the perturbed state (and, `full`, from the
@@ -1880,7 +1962,7 @@ def cell_parity(cell: Cell, full: bool) -> float:
     the N-step kernels bitwise against N 1-step launches from each state;
     with `full`, 280 kernel steps against 280 plain steps (3-D at
     DRIFT_N_3D^3). Returns the larger one-step error."""
-    from tpulbm_torch.ops.step_cuda import SOURCE
+    from tpulbm_torch.ops.step_cuda import FORCE, SOURCE
     s1 = cell.steps[1]
     fp = perturbed(cell.problem, cell.f0)
     states = [("perturbed", fp)]
@@ -1895,7 +1977,7 @@ def cell_parity(cell: Cell, full: bool) -> float:
         torch.cuda.synchronize()
         held.append(close_or_relative(got, want, cell.tol, cell.relative))
         errs.append(float((got - want).abs().max()))
-        if name == "perturbed" and cell.consts.variant & ~SOURCE:
+        if name == "perturbed" and cell.consts.variant & ~(SOURCE | FORCE):
             # a domain or obstacle rule beyond the cylinder's
             sep = separation(cell.label, cell.base(f, torch.empty_like(f)),
                              want, cell.tol)
@@ -1909,6 +1991,15 @@ def cell_parity(cell: Cell, full: bool) -> float:
                         f"state 1 step max abs err {err_src:.3e} and the "
                         f"library without the source {sep:.0f}x the "
                         f"tolerance off")
+        if name == "perturbed" and cell.consts.variant & FORCE:
+            for axis in ("y", "x"):
+                err_f, sep = force_check(cell, f, axis)
+                errs.append(err_f)
+                seps.append(f"the force profile along {axis} at F0 = "
+                            f"{SOURCE_CHECK_FORCE} from the perturbed state "
+                            f"1 step max abs err {err_f:.3e} and the box's "
+                            f"library without it {sep:.0f}x the tolerance "
+                            "off")
         for d in (cell.depths[1:] if full else cell.depths[-1:]):
             gotn = cell.steps[d](f, torch.empty_like(f))
             wantn = kernel_chunk(s1, f.clone(), d)
@@ -2300,7 +2391,8 @@ class MeshCase:
         solid = (np.zeros(problem.spatial_shape, bool)
                  if problem.solid is None else problem.solid)
         masks = halo.pad_mask(sharded_step.shard_mask(self.mesh, solid),
-                              periodic_x=problem.periodic_x, depth=depth)
+                              periodic_x=problem.periodic_x,
+                              periodic_y=problem.periodic_y, depth=depth)
         self.shards, self.plains = {}, {}
         for iy, ix in self.mesh.shards():
             o = sharded_step.origin(self.mesh, self.local, iy, ix)
@@ -2320,6 +2412,7 @@ class MeshCase:
         return halo.exchange(blocks, eq_ring=self.problem.ghost_ring_values(),
                              depth=self.depth,
                              periodic_x=self.problem.periodic_x,
+                             periodic_y=self.problem.periodic_y,
                              x_rings=self.x_rings)
 
     def launch(self, block, out, rings, idx, rows=None):
@@ -2696,6 +2789,547 @@ def mesh_phases(dev, card: str) -> list[dict]:
     return entries
 
 
+# ---- phases 35-40: the periodic boxes, Kolmogorov forcing, the passive
+# scalar
+
+# bench.py's --periodic, --kolmogorov and thermal rows at the main path's
+# width: Taylor-Green (tau 0.8, u0 0.04), Kolmogorov (n 4, tau 0.8,
+# u0 0.05: F0 = u0 nu kappa^2 = 1.2e-5), the passive scalar stirred by
+# the Taylor-Green flow (u0 0.04, thermal_tau 0.5704)
+BOX_NX, BOX_NY = 2048, 512
+# Mass in a closed box: the pull and the sources conserve it, but every
+# collision relaxes toward equilibria whose float32 weights sum to 1 + e
+# times the cell's density as float32 sums it: e = 2^-27 for D2Q9
+# (MP_WEIGHT_EXCESS) and 2^-25 for D2Q5 (1/3 + 4/6 rounded), so a step
+# adds at most about e/tau of the flow's mass and e/tau_g of the
+# scalar's (2.1e-5 and 1.2e-4 over 2240 steps at tau 0.8 and 0.5704).
+# How much of it shows depends on how the density's own rounding falls
+# (none at rest, where the float32 density sums to 1 exactly; 0.65-1.06
+# of it in CPU runs of the plain step at 64x32): the gate holds the drift
+# from t = 0 between -BOX_MASS_TOL and BOX_MASS_SPAN times that term plus
+# BOX_MASS_TOL, so a lost or doubled seam row (1/ny of the mass a step)
+# fails it by orders of magnitude.
+D2Q5_WEIGHT_EXCESS = float(np.array([1 / 3] + [1 / 6] * 4, np.float32)
+                           .astype(np.float64).sum() - 1)
+BOX_MASS_TOL = 1e-6
+BOX_MASS_SPAN = 1.25
+
+
+def box_params(name: str, nx: int = BOX_NX, ny: int = BOX_NY, **kw):
+    """One of the periodic problems at bench.py's rows, f32, no VTK."""
+    from tpulbm_torch.config import SimulationParams
+    d = dict(problem=name, nx=nx, ny=ny, tau=0.8,
+             inlet_velocity=0.05 if name == "kolmogorov" else 0.04,
+             kolmogorov_n=4, periodic_x=True, cylinder_radius=0.0,
+             precision="f32", enable_vtk=False)
+    if name == "passive-scalar":
+        d["thermal_tau"] = 0.5704
+    d.update(kw)
+    return SimulationParams(**d)
+
+
+def x_force_problem(params):
+    """Kolmogorov's problem with its force turned along x, F_y = F0
+    cos(kappa x) (tpulbm's tests/test_kolmogorov.py:239)."""
+    from tpulbm_torch.models import make_problem
+    from tpulbm_torch.models.base import ForceProfile
+    from tpulbm_torch.models.periodic2d import kolmogorov_f0
+    kx = 2.0 * np.pi * params.kolmogorov_n / params.nx
+    f0 = kolmogorov_f0(params)
+    return dataclasses.replace(
+        make_problem(params), force_profile=ForceProfile(
+            "x", lambda x: (0.0, f0 * torch.cos(kx * x))))
+
+
+def box_mass_gate(label: str, m: float, m0: float, steps: int,
+                  excess: float, tau: float) -> str:
+    """Raise unless the mass m after `steps` steps lies between m0 and the
+    most the float32 weights' term can add (BOX_MASS_SPAN times it),
+    within BOX_MASS_TOL of m0 either way."""
+    drift = m / m0 - 1.0
+    term = (1.0 + excess / tau) ** steps - 1.0
+    require(-BOX_MASS_TOL < drift < BOX_MASS_SPAN * term + BOX_MASS_TOL,
+            f"{label}: mass drift {drift:.3e} outside [-{BOX_MASS_TOL}, "
+            f"{BOX_MASS_SPAN} x {term:.3e} + {BOX_MASS_TOL}] (the float32 "
+            "weights' term)")
+    return (f"{label} mass drift {drift:.3e} from t = 0, "
+            f"{drift / term:.3f} of the float32 weights' {term:.3e} (gate "
+            f"-{BOX_MASS_TOL} to {BOX_MASS_SPAN}x it + {BOX_MASS_TOL})")
+
+
+def box_mass(problem, dev, steps: int = 2240) -> str:
+    """The mass gates after `steps` steps of the kernels' chunk (the Runner's
+    depth, 140 steps a chunk) from the initial state: the flow's and, with
+    a scalar, the scalar's (box_mass_gate)."""
+    from tpulbm_torch.convert import state_from_numpy
+    from tpulbm_torch.stepper import make_chunk_fn
+    f0 = state_from_numpy(problem.initial_state(), problem, dev)
+    chunk = make_chunk_fn(problem, dev, 140)
+    f = f0.clone()
+    for _ in range(steps // 140):
+        f = chunk(f)
+    q = problem.lattice.Q
+    sums = [(float(torch.sum(f[:q], dtype=torch.float64)),
+             float(torch.sum(f0[:q], dtype=torch.float64)))]
+    if problem.thermal is not None:
+        sums.append((float(torch.sum(f[q:], dtype=torch.float64)),
+                     float(torch.sum(f0[q:], dtype=torch.float64))))
+    text = [box_mass_gate("flow", *sums[0], steps, MP_WEIGHT_EXCESS,
+                          problem.params.tau)]
+    if problem.thermal is not None:
+        text.append(box_mass_gate("scalar", *sums[1], steps,
+                                  D2Q5_WEIGHT_EXCESS, problem.thermal.tau_g))
+    return "; ".join(text)
+
+
+def box_main_path(dev, cell: Cell, run_dir: Path) -> dict:
+    """Phase 36 on a box cell: cell_main_path (2240 steps every 140,
+    exactly 525 N=4 and 140 1-step launches of the cell's library), then
+    the mass gates after the same 2240 kernel steps."""
+    launches = cell_main_path(dev, cell, run_dir)
+    print(f"box mass {cell.label} after 2240 kernel steps: "
+          + box_mass(cell.problem, dev))
+    return launches
+
+
+def box_mesh(dev, problem, f0) -> dict:
+    """Phase 37 on one problem: one launch a shard on (2,2), (4,1), (1,4)
+    at N = 1 and 4 from the perturbed state against the plain ring step
+    and bitwise against one device, equilibrium rings > SEPARATION
+    tolerances off; 280 steps on each mesh, counted, bitwise against the
+    one-device chunk; the Runner on 2x2 (devices=[cuda:0]*4), 560 steps
+    every 140, counted, its artifacts byte-identical to one device's.
+    Returns the ring launches of that run by depth."""
+    from tpulbm_torch.ops import step_cuda
+    from tpulbm_torch.parallel import sharded_step
+    from tpulbm_torch.runner import Runner
+    label = problem.params.problem
+    one = {1: step_cuda.make_local_step_cuda(problem, dev),
+           4: step_cuda.make_local_step_cuda_blocked(problem, dev, 4)}
+    fp = perturbed(problem, f0)
+    for shape in MESH_SHAPES:
+        for depth in (1, 4):
+            err, sep = ring_parity(
+                problem, fp, shape, dev, depth, shape[1] != 1,
+                lambda g, d=depth: one[d](g, torch.empty_like(g)),
+                sep_check=True)
+            print(f"box mesh {label} {shape} N={depth} from the perturbed "
+                  f"state: every shard within {err:.3e} of its plain ring "
+                  f"step, the mesh bitwise equal to one device{sep}")
+        mesh = card_mesh(shape, dev)
+        chunk = sharded_step.make_chunk_fn(problem, mesh, 280)
+        want = step_cuda_chunk(problem, dev, 280)(fp.clone())
+        reset_counts()
+        got = gather(chunk(sharded_step.split(mesh, fp)))
+        torch.cuda.synchronize()
+        counts = ring_counts()
+        plan = mesh_plan_launches(problem, mesh, [280])
+        require(torch.equal(got, want) and counts == plan,
+                f"box mesh {label} {shape}: 280 steps "
+                f"{float((got - want).abs().max())} off one device, "
+                f"launches {counts} not {plan}")
+        print(f"box mesh {label} {shape} 280 steps: {chunk.mode} at "
+              f"N={chunk.substeps}, {sum(counts.values())} ring launches, "
+              "bitwise equal to the one-device chunk")
+        del got, want
+    params = problem.params.replace(num_timesteps=560, output_frequency=140)
+    d_mesh = OUT_DIR / f"box_{label}_2x2"
+    d_one = OUT_DIR / f"box_{label}_1x1"
+    pm = params.replace(mesh_shape=MAIN_MESH, output_dir=str(d_mesh))
+    runner = Runner(pm, devices=[dev] * 4, verbose=False)
+    reset_counts()
+    result = runner.run()
+    counts, others = ring_counts(), read_counts()
+    plan = mesh_plan_launches(problem, card_mesh(MAIN_MESH, dev),
+                              runner_chunks(pm))
+    require(result.success and counts == plan and others == only(1, 0),
+            f"box mesh runner {label}: launches {counts} {others}, not "
+            f"{plan}")
+    require(Runner(params.replace(output_dir=str(d_one)), device=dev,
+                   verbose=False).run().success, "one-device run failed")
+    require(same_files(d_mesh, d_one, ["velocity_field.csv"]),
+            f"box mesh runner {label}: velocity_field.csv differs from one "
+            "device's")
+    by_depth = {}
+    for (_, depth, _), n in counts.items():
+        by_depth[depth] = by_depth.get(depth, 0) + n
+    print(f"box mesh runner {label} {params.nx}x{params.ny} on 2x2 (one "
+          f"card), 560 steps every 140: ring launches "
+          + ", ".join(f"N={d}: {n}" for d, n in sorted(by_depth.items()))
+          + f" (the chunk plan's), 0 of another kernel, velocity_field.csv "
+          f"byte-identical to one device's, runner {result.mlups:.1f} MLUPS")
+    return by_depth
+
+
+def box_ring_timing(problem, dev, card: str, depth: int, fp):
+    """One shard's ring launch of the 2x2 mesh (x rings) at `depth`
+    against its plain ring step, in turns, from the perturbed state fp,
+    every shard's launch held against its plain ring step first. Returns
+    (max error, {kernel, plain} ms, bound)."""
+    case = MeshCase(problem, MAIN_MESH, dev, depth, True)
+    blocks = case.split(fp)
+    rings = case.rings(blocks)
+    got = case.step_all(blocks, rings)
+    err = 0.0
+    for (iy, ix), plain in case.plains.items():
+        want = plain(blocks[iy][ix], *rings[iy][ix])
+        torch.testing.assert_close(got[iy][ix], want, **n_step_tol(depth))
+        err = max(err, float((got[iy][ix] - want).abs().max()))
+    b, r = blocks[0][0], rings[0][0]
+    plain = case.plains[0, 0]
+    runs_ = {"plain": lambda g, m: [plain(g, *r) for _ in range(m // depth)
+                                    ][-1],
+             "kernel": lambda g, m: kernel_chunk(
+                 lambda x, o: case.launch(x, o, r, (0, 0)), g, m // depth)}
+    times = {"plain": [], "kernel": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        m = 4 * depth if which == "plain" else 1200
+        times[which].append(ms_per_step(runs_[which], b, m,
+                                        warm=depth if which == "plain"
+                                        else 20))
+    ms = {k: min(v) for k, v in times.items()}
+    nyl, nxl = case.local
+    ring_bytes = RING_BYTES * 2 * depth * (nxl + 2 * depth) + \
+        RING_BYTES * 2 * nyl * depth
+    flops = STEP_FLOPS["d2q9"] + (9 if problem.force_profile else 0)
+    bnd = bound_of(9 * 4 * 2, flops, nyl * nxl, depth)
+    bnd["bound_ms"] += 1e3 * ring_bytes / depth / HBM_BYTES_PER_S
+    print(f"timing box shard {nyl}x{nxl} ({problem.params.problem}, 2x2, "
+          f"x rings) N={depth} on {card}: kernel {ms['kernel']:.5f} ms/step "
+          f"({nyl * nxl / ms['kernel'] / 1e3:.1f} MLUPS, "
+          f"{100 * bnd['bound_ms'] / ms['kernel']:.1f}% of its "
+          f"{bnd['bound_ms']:.5f} ms bound), plain ring step "
+          f"{ms['plain']:.5f} ms/step; every shard within {err:.3e} of its "
+          "plain ring step from the perturbed state")
+    return err, ms, bnd
+
+
+def scalar_phases(dev, card: str) -> dict:
+    """Phase 38: the passive scalar through the thermal kernel (wall flags
+    off): one step against the plain thermal step at 2048x512 from the
+    initial state, after 500 plain steps and from the perturbed state, at
+    rest and stirred; 280 steps; the Runner, 2240 steps every 140: exactly
+    2240 thermal launches, a finite scalar_variance.csv in tpulbm's layout
+    and no nusselt.csv, the flow's and the scalar's mass after the float32
+    weights' terms; timing. Returns the kernel's JSON entry."""
+    from tpulbm_torch.convert import state_from_numpy
+    from tpulbm_torch.models import make_problem
+    from tpulbm_torch.ops import step_thermal, step_thermal_cuda
+    errs = []
+    for u0 in (0.0, 0.04):
+        problem = make_problem(box_params("passive-scalar",
+                                          inlet_velocity=u0))
+        kstep = step_thermal_cuda.make_local_step_thermal_cuda(problem, dev)
+        pstep = step_thermal.make_step_thermal(problem, dev)
+        s0 = state_from_numpy(problem.initial_state(), problem, dev)
+        states = [("initial", s0),
+                  ("500 plain steps", plain_chunk(pstep, s0.clone(), 500)),
+                  ("perturbed", perturbed(problem, s0))]
+        line = []
+        for name, s in states:
+            got = kstep(s, torch.empty_like(s))
+            want = pstep(s)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, **ONE_STEP_TOL)
+            errs.append(float((got - want).abs().max()))
+            line.append(f"{errs[-1]:.3e} ({name})")
+        sk = kernel_chunk(kstep, s0.clone(), 280)
+        sp = plain_chunk(pstep, s0.clone(), 280)
+        torch.cuda.synchronize()
+        err_280 = float((sk - sp).abs().max())
+        require(np.isfinite(err_280) and err_280 < DRIFT_280_BOUND,
+                f"scalar u0 {u0}: 280-step drift {err_280}")
+        print(f"scalar parity {BOX_NX}x{BOX_NY} u0 {u0}: 1 step max abs err "
+              + ", ".join(line) + f" (rtol 5e-6, atol 1e-7); 280 steps "
+              f"{err_280:.3e} (bound {DRIFT_280_BOUND})")
+        del states, sk, sp
+    run_dir = OUT_DIR / "passive_scalar_2048x512"
+    params = box_params("passive-scalar", num_timesteps=2240,
+                        output_frequency=140, output_dir=str(run_dir))
+    result, counts, wall = run_counted(params, dev)
+    require(counts == only("thermal", 2240),
+            f"scalar launch counts {counts}, not 2240 thermal and 0 others")
+    text = (run_dir / "scalar_variance.csv").read_text().splitlines()
+    require(text[0] == "timestep,scalar_variance" and len(text) == 17
+            and all(re.fullmatch(r"\d+,\d\.\d{8}e[-+]\d\d", ln)
+                    for ln in text[1:]),
+            f"scalar_variance.csv: {text[:3]}")
+    var = np.array([float(ln.split(",")[1]) for ln in text[1:]])
+    require(bool(np.isfinite(var).all()) and bool(np.all(np.diff(var) < 0)),
+            f"scalar variance not finite and falling: {var}")
+    require(not (run_dir / "nusselt.csv").exists()
+            and not (run_dir / "forces.csv").exists(),
+            "the scalar wrote nusselt.csv or forces.csv")
+    problem = make_problem(params)
+    mass = box_mass(problem, dev)
+    print(f"scalar main path: passive-scalar {BOX_NX}x{BOX_NY} f32 (u0 0.04, "
+          f"thermal_tau 0.5704), 2240 steps, launches {counts['thermal']} "
+          f"thermal and 0 others, {result.host_fetches} host fetches in the "
+          f"loop, {wall:.2f} s wall, runner {result.mlups:.1f} MLUPS; "
+          f"scalar_variance.csv 16 finite falling rows ({var[0]:.6e} to "
+          f"{var[-1]:.6e}), final stat {result.stats['scalar_variance']:.6e},"
+          f" no nusselt.csv; {mass}")
+    kstep = step_thermal_cuda.make_local_step_thermal_cuda(problem, dev)
+    pstep = step_thermal.make_step_thermal(problem, dev)
+    s0 = state_from_numpy(problem.initial_state(), problem, dev)
+    runs = {"plain": (lambda f, n: plain_chunk(pstep, f, n), 200),
+            "kernel": (lambda f, n: kernel_chunk(kstep, f, n), 2400)}
+    times = {k: [] for k in runs}
+    for which in ["plain", "kernel", "kernel", "plain"]:
+        run, steps = runs[which]
+        times[which].append(ms_per_step(run, s0, steps))
+    ms = {k: min(v) for k, v in times.items()}
+    cells = BOX_NX * BOX_NY
+    b = bound("thermal", cells)
+    print(f"scalar timing at {BOX_NX}x{BOX_NY} on {card}, ms/step (MLUPS): "
+          f"plain "
+          f"{ms['plain']:.5f} ({cells / ms['plain'] / 1e3:.1f}); kernel "
+          f"{ms['kernel']:.5f} ({cells / ms['kernel'] / 1e3:.1f}, runs "
+          f"{[round(v, 6) for v in times['kernel']]}), "
+          f"{100 * b['bound_ms'] / ms['kernel']:.1f}% of {b['bound_ms']:.5f}"
+          f" ({b['bound_by']})")
+    return {"name": "thermal_collide_stream[passive_scalar]",
+            "route": "cuda", "source": step_thermal_cuda.SOURCE,
+            "replaces": step_thermal_cuda.REPLACES,
+            "launches": counts["thermal"], "max_abs_err": max(errs),
+            "ms": ms["kernel"], "plain_ms": ms["plain"], **b}
+
+
+def box_gates(dev) -> None:
+    """Phase 39: tpulbm's physics gates through the kernels in f32, at its
+    sizes and thresholds: Taylor-Green's energy decay recovers nu within
+    0.5% (tests/test_periodic.py:55-74: 64^2, 12 x 150 steps); Kolmogorov's
+    laminar profile a fixed point within 1.5% and its spin-up from rest
+    the linear solution within 2% (tests/test_kolmogorov.py:42-88: 32^2,
+    n 1, u0 0.01); the scalar's pure diffusion at the exact rate within
+    1e-3, uniform advection's phase within 2e-3 and amplitude within
+    5e-3, stirring at least halving the variance against diffusion
+    (tests/test_passive_scalar.py:41-111); the shear-layer preset (128^2,
+    Re 30,000, regularized, 12,000 steps) finite through the Runner."""
+    from tpulbm_torch import physics
+    from tpulbm_torch.convert import state_from_numpy
+    from tpulbm_torch.lattice import D2Q9
+    from tpulbm_torch.models import make_problem
+    from tpulbm_torch.models.periodic2d import kolmogorov_kappa
+    from tpulbm_torch.ops import step_thermal
+    from tpulbm_torch.config import PRESETS
+    from tpulbm_torch.stepper import make_chunk_fn
+
+    t0 = time.perf_counter()
+
+    def start(problem):
+        return state_from_numpy(problem.initial_state(), problem, dev)
+
+    def advance(problem, f, steps):
+        out = make_chunk_fn(problem, dev, steps)(f)
+        torch.cuda.synchronize()
+        require(bool(physics.is_stable(out)),
+                f"gate {problem.params.problem} unstable")
+        return out
+
+    # Taylor-Green viscosity
+    params = box_params("taylor-green", 64, 64)
+    pr = make_problem(params)
+    f = start(pr)
+    e, ts = [], []
+    for k in range(12):
+        f = advance(pr, f, 150)
+        rho, u = physics.moments(D2Q9, f.double())
+        e.append(float(torch.sum(rho * (u[0] ** 2 + u[1] ** 2))))
+        ts.append((k + 1) * 150.0)
+    slope = np.polyfit(np.asarray(ts), np.log(np.asarray(e)), 1)[0]
+    nu_eff = -slope / (2.0 * 2.0 * (2.0 * np.pi / 64.0) ** 2)
+    rel = nu_eff / params.nu() - 1.0
+    require(abs(rel) < 0.005, f"Taylor-Green nu {nu_eff} ({rel})")
+    print(f"box gate Taylor-Green 64^2 f32, 1800 steps: nu_eff {nu_eff:.6f}"
+          f" against {params.nu():.6f} ({100 * rel:+.3f}%, gate 0.5%)")
+
+    # Kolmogorov: the laminar fixed point, the spin-up from rest
+    params = box_params("kolmogorov", 32, 32, kolmogorov_n=1,
+                        inlet_velocity=0.01)
+    pr = make_problem(params)
+    u0, kappa = params.inlet_velocity, kolmogorov_kappa(params)
+    y = np.arange(32, dtype=np.float64)[:, None]
+    _, u = physics.moments(D2Q9, advance(pr, start(pr), 1000).double())
+    u = u.cpu().numpy()
+    err = float(np.max(np.abs(u[0] - u0 * np.cos(kappa * y))) / u0)
+    trans = float(np.max(np.abs(u[1])) / u0)
+    require(err < 0.015 and trans < 0.005,
+            f"Kolmogorov fixed point: {err}, transverse {trans}")
+    rest = (np.ones((32, 32)), np.zeros((2, 32, 32)))
+    pr = dataclasses.replace(pr, init_fields=rest)
+    f, t, spin = start(pr), 0, []
+    for t_target in (200, 600):
+        f = advance(pr, f, t_target - t)
+        t = t_target
+        _, u = physics.moments(D2Q9, f.double())
+        a = 2.0 * float(np.mean(u[0].cpu().numpy() * np.cos(kappa * y)))
+        a_exp = u0 * (1.0 - np.exp(-params.nu() * kappa * kappa * t))
+        spin.append(a / a_exp - 1.0)
+        require(abs(spin[-1]) < 0.02, f"Kolmogorov spin-up at {t}: {a}, "
+                f"{a_exp}")
+    print(f"box gate Kolmogorov 32^2 f32: the laminar profile after 1000 "
+          f"steps within {100 * err:.3f}% of u0 (gate 1.5%), transverse "
+          f"{100 * trans:.4f}% (gate 0.5%); spin-up from rest at t = 200, "
+          f"600: {100 * spin[0]:+.3f}%, {100 * spin[1]:+.3f}% (gate 2%)")
+
+    # the passive scalar
+    def amp_phase(problem, s):
+        row = step_thermal.temperature(problem, s.double()).mean(
+            dim=0).cpu().numpy()
+        co = np.fft.rfft(row)[1]
+        return 2.0 * np.abs(co) / row.shape[0], np.angle(co)
+
+    base = dict(nx=64, ny=32, tau=0.8, thermal_tau=0.8, inlet_velocity=0.0)
+    params = box_params("passive-scalar", **base)
+    pr = make_problem(params)
+    s = start(pr)
+    a0, p0 = amp_phase(pr, s)
+    q = 2.0 * np.pi / 64
+    a1, _ = amp_phase(pr, advance(pr, s, 800))
+    diff = a1 / a0 / np.exp(-pr.thermal.alpha * q * q * 800) - 1.0
+    require(abs(diff) < 1e-3, f"pure diffusion {diff}")
+    u = np.zeros((2, 32, 64))
+    u[0] = 0.02
+    pr = dataclasses.replace(pr, init_fields=(np.ones((32, 64)), u))
+    s = start(pr)
+    a0, p0 = amp_phase(pr, s)
+    a1, p1 = amp_phase(pr, advance(pr, s, 500))
+    dphase = (p1 - p0 + np.pi) % (2.0 * np.pi) - np.pi
+    damp = a1 / a0 / np.exp(-pr.thermal.alpha * q * q * 500) - 1.0
+    require(abs(dphase + q * 0.02 * 500) < 2e-3 and abs(damp) < 5e-3,
+            f"advection phase {dphase}, amplitude {damp}")
+
+    def final_var(u0):
+        p = make_problem(box_params("passive-scalar", 64, 64, tau=0.55,
+                                    thermal_tau=0.55, inlet_velocity=u0))
+        return float(step_thermal.scalar_variance(
+            p, advance(p, start(p), 4000).double()))
+
+    v_stir, v_still = final_var(0.08), final_var(0.0)
+    require(v_stir < 0.5 * v_still, f"stirring {v_stir} against {v_still}")
+    print(f"box gate passive scalar f32: pure diffusion 64x32, 800 steps, "
+          f"{diff:+.3e} from exp(-alpha q^2 t) (gate 1e-3); uniform "
+          f"advection 500 steps, phase {dphase:.6f} against "
+          f"{-q * 0.02 * 500:.6f} (gate 2e-3), amplitude {damp:+.3e} (gate "
+          f"5e-3); stirring 64^2, 4000 steps: variance {v_stir:.4e} against "
+          f"{v_still:.4e} at rest (gate < 0.5x)")
+
+    # the shear-layer preset under the regularized operator
+    preset = PRESETS["shear-layer"]
+    d = OUT_DIR / "shear_layer_preset"
+    res, c, w = run_counted(preset.replace(output_dir=str(d)), dev)
+    text = (d / "velocity_field.csv").read_bytes().lower()
+    require(text.count(b"\n") == preset.nx * preset.ny + 1
+            and b"nan" not in text and b"inf" not in text,
+            "shear-layer preset: velocity_field.csv not finite")
+    print(f"box gate shear-layer preset 128^2 (Re 30,000, regularized), "
+          f"{preset.num_timesteps} steps: {c[4]} N=4 launches, finite "
+          f"velocity field, {w:.2f} s wall")
+    print(f"box gates: {time.perf_counter() - t0:.2f} s")
+
+
+def box_builds():
+    """(source, mode, variant) of the libraries phases 35-40 run: both
+    D2Q9 sources in the box under every collision, with the force profile
+    under BGK and MRT, and the box's ring builds with and without it."""
+    from tpulbm_torch.ops import step_cuda
+    from tpulbm_torch.ops.step_cuda import FORCE, RINGS
+    box = step_cuda.DOMAINS.index("box")
+    d2 = ("step_d2q9.cu", "step_d2q9_blocked.cu")
+    builds = [(src, mode, box) for mode in step_cuda.COLLISION_MODES
+              for src in d2]
+    builds += [(src, mode, box | FORCE) for mode in ("bgk", "mrt")
+               for src in d2]
+    builds += [(src, "bgk", box | v | RINGS) for v in (0, FORCE)
+               for src in d2]
+    return builds
+
+
+def box_phases(dev, card: str) -> list[dict]:
+    """Phases 35-40: the periodic boxes, Kolmogorov's force profile and the
+    passive scalar. 35: one step of every box library against the plain
+    step from the perturbed state (Taylor-Green under each collision,
+    Kolmogorov under BGK and MRT; BGK from the initial and an advanced
+    state too, and 280 steps), the cylinder's library > SEPARATION
+    tolerances off, the force profile along y and x at F0 = 1e-2 against
+    the box's library without it, N-step bitwise; 36: Taylor-Green and
+    Kolmogorov through the Runner (525 N=4 + 140 1-step launches, the
+    closed box's mass), Taylor-Green's N=3/N=2 run; 37: the meshes; 38:
+    the passive scalar; 39: tpulbm's gates; 40: timing. Returns the
+    kernels' JSON entries."""
+    from tpulbm_torch.ops import step_cuda
+    t_all = time.perf_counter()
+    entries = []
+    t0 = time.perf_counter()
+    kol = box_params("kolmogorov")
+    cells = [("taylor-green " + op, box_params("taylor-green", **kw),
+              None, op == "bgk") for op, kw in CHANNEL_OPS.items()]
+    cells += [("kolmogorov bgk", kol, None, True),
+              ("kolmogorov x-force", kol, x_force_problem(kol), False),
+              ("kolmogorov mrt", box_params("kolmogorov", collision="mrt"),
+               None, False)]
+    main = {}
+    for label, params, problem, full in cells:
+        cell = Cell(dev, label, params, problem)
+        err = cell_parity(cell, full)
+        if label in ("taylor-green bgk", "kolmogorov bgk"):
+            main[label] = (cell, err)
+        else:
+            del cell
+        torch.cuda.empty_cache()
+    print(f"box parity (phase 35): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    launches = {}
+    for label, (cell, err) in main.items():
+        run_dir = OUT_DIR / ("box_" + label.replace(" ", "_"))
+        launches[label] = box_main_path(dev, cell, run_dir)
+    cell = main["taylor-green bgk"][0]
+    d23 = OUT_DIR / "box_taylor_green_f150"
+    _, c23, _ = run_counted(cell.params.replace(
+        num_timesteps=311, output_frequency=150, output_dir=str(d23)), dev)
+    by = step_cuda.collide_stream_blocked.launches_by_library
+    require(c23 == {**only(3, 100), 1: 1, 2: 5}
+            and by == {cell.library: {2: 5, 3: 100, 4: 0}},
+            f"box depths 3 and 2: {c23} {by}")
+    launches["taylor-green bgk"].update({2: c23[2], 3: c23[3]})
+    print(f"box depths 3 and 2 taylor-green: 311 steps every 150, launches "
+          f"{c23[3]} N=3 + {c23[2]} N=2 + {c23[1]} 1-step of {cell.library}"
+          f" ({time.perf_counter() - t0:.2f} s for phase 36)")
+    t0 = time.perf_counter()
+    ring_launches = {}
+    for label, (cell, err) in main.items():
+        ring_launches[label] = box_mesh(dev, cell.problem, cell.f0)
+        torch.cuda.empty_cache()
+    print(f"box meshes (phase 37): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    entries.append(scalar_phases(dev, card))
+    print(f"box scalar (phase 38): {time.perf_counter() - t0:.2f} s")
+    box_gates(dev)
+    t0 = time.perf_counter()
+    for label, (cell, err) in main.items():
+        ms, b = cell_timing(cell, card, tuple(sorted(launches[label])))
+        entries += cell_entries(cell, launches[label], err, ms, b)
+        fp = perturbed(cell.problem, cell.f0)
+        for depth in (1, 4):
+            rerr, rms, rb = box_ring_timing(cell.problem, dev, card, depth,
+                                            fp)
+            entries.append({
+                "name": f"d2q9_rings_tiled{'' if depth == 1 else '_n4'}"
+                        f"[{cell.library}]",
+                "route": "cuda",
+                "source": (step_cuda.KERNEL_SOURCE if depth == 1
+                           else step_cuda.BLOCKED_SOURCE),
+                "replaces": step_cuda.rings_replaces("tiled", depth),
+                "launches": ring_launches[label][depth],
+                "max_abs_err": rerr, "ms": rms["kernel"],
+                "plain_ms": rms["plain"], **rb})
+        torch.cuda.empty_cache()
+    print(f"box timing (phase 40): {time.perf_counter() - t0:.2f} s; box "
+          f"phases {time.perf_counter() - t_all:.2f} s")
+    return entries
+
+
 def step_cuda_chunk(problem, dev, steps: int):
     """The one-device kernel chunk of `steps` steps (stepper.make_chunk_fn)
     under the current environment."""
@@ -2735,8 +3369,8 @@ def main() -> int:
               for src in ("step_d3q19.cu", "step_d3q19_blocked.cu")]
     modes += [("step_thermal.cu", "smagorinsky")]
     # and the domain, source and obstacle builds of phases 25-29, the ring
-    # builds of phases 30-34
-    builds = new_builds() + mesh_builds()
+    # builds of phases 30-34, the box's of phases 35-40
+    builds = new_builds() + mesh_builds() + box_builds()
     with ThreadPoolExecutor(len(sources) + len(modes) + len(builds)) as pool:
         lib_jobs = [pool.submit(cuda_build.load, src) for src in sources]
         mode_jobs = [pool.submit(cuda_build.load, src,
@@ -2932,6 +3566,7 @@ def main() -> int:
     kernels.append(thermal_les_phases(dev, card))
     kernels.extend(domain_phases(dev, card))
     kernels.extend(mesh_phases(dev, card))
+    kernels.extend(box_phases(dev, card))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -521,3 +521,156 @@ def test_ring_kernels_equal_one_device(cuda, monkeypatch, kw, shape, env):
     assert step_cuda.launches_by_shard(step_cuda.collide_stream_rings) == {
         (step_cuda.kernel_constants(problem).library, chunk.substeps, idx):
         per for idx in mesh.shards()}
+
+
+# the periodic box (both axes wrap) and the force profile: Taylor-Green,
+# the shear layer, Kolmogorov's force along y and a force along x
+# (tpulbm's tests/test_kolmogorov.py:239), on a grid smaller than one tile
+# (x and y wrap across it more than once), a ragged one and the main
+# path's 2048x512, from a ±10% perturbed state; each library against the
+# plain step, and its N-step build bitwise against N 1-step launches
+def _box_problem(problem, nx, ny, x_force=False, **kw):
+    import dataclasses
+    from tpulbm_torch.models.base import ForceProfile
+    from tpulbm_torch.models.periodic2d import kolmogorov_f0
+    params = SimulationParams(problem=problem, nx=nx, ny=ny, tau=0.8,
+                              inlet_velocity=0.05, kolmogorov_n=4,
+                              periodic_x=True, cylinder_radius=0.0, **kw)
+    out = make_problem(params)
+    if x_force:
+        kx, f0 = 2.0 * np.pi * 2 / nx, kolmogorov_f0(params)
+        out = dataclasses.replace(out, force_profile=ForceProfile(
+            "x", lambda x: (0.0, f0 * torch.cos(kx * x))))
+    return out
+
+
+def _noisy(problem, seed):
+    # the initial state times seeded noise in 0.9-1.1 (no solid cells)
+    f = problem.initial_state()
+    rng = np.random.default_rng(seed)
+    return (f * rng.uniform(0.9, 1.1, f.shape)).astype(np.float32)
+
+
+BOX_CASES = {
+    "taylor-green": ("taylor-green", {}), "kolmogorov": ("kolmogorov", {}),
+    "x-force": ("kolmogorov", dict(x_force=True)),
+    "shear-regularized": ("shear-layer", dict(collision="regularized")),
+    "kolmogorov-mrt": ("kolmogorov", dict(collision="mrt")),
+    "kolmogorov-kbc": ("kolmogorov", dict(collision="kbc")),
+    "kolmogorov-power-law": ("kolmogorov", dict(power_law_n=0.7)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BOX_CASES))
+@pytest.mark.parametrize("nx,ny", [(7, 3), (37, 21), (2048, 512)])
+def test_box_kernels_match_plain_and_each_other(cuda, case, nx, ny):
+    name, kw = BOX_CASES[case]
+    problem = _box_problem(name, nx, ny, **kw)
+    f = state_from_numpy(_noisy(problem, nx), problem, cuda)
+    k1 = step_cuda.make_local_step_cuda(problem, cuda)
+    consts = step_cuda.kernel_constants(problem)
+    step_cuda.reset_launch_counts()
+    got = k1(f, torch.empty_like(f))
+    assert step_cuda.collide_stream.launches_by_library == {
+        consts.library: 1}
+    want = step_torch.make_step_rolled(problem, cuda)(f)
+    torch.cuda.synchronize()
+    tol = (dict(rtol=1e-4, atol=1e-7) if "power" in case else ONE_STEP_TOL)
+    if "kbc" in case:   # tpulbm's KBC gate where the one-step one misses
+        assert float((got - want).abs().max()) < 3e-5 * float(want.abs().max())
+    else:
+        torch.testing.assert_close(got, want, **tol)
+    for n_sub in (2, 3, 4):
+        kn = step_cuda.make_local_step_cuda_blocked(problem, cuda, n_sub)
+        gotn = kn(f, torch.empty_like(f))
+        wantn = f.clone()
+        for _ in range(n_sub):
+            wantn = k1(wantn, torch.empty_like(wantn))
+        torch.cuda.synchronize()
+        assert torch.equal(gotn, wantn), (n_sub, float(
+            (gotn - wantn).abs().max()))
+
+
+@pytest.mark.parametrize("axis", ["x", "y"])
+def test_force_profile_acts_in_the_kernel(cuda, axis):
+    # at F = 1e-2 the source is far above the tolerance: the box's library
+    # without the profile must miss the plain step by > 100 tolerances
+    import dataclasses
+    from tpulbm_torch.models.base import ForceProfile
+    problem = _box_problem("kolmogorov", 256, 64)
+    k = 2.0 * np.pi / 64
+    comps = ((lambda c: (1e-2 * torch.cos(k * c), 0.0)) if axis == "y"
+             else (lambda c: (0.0, 1e-2 * torch.cos(k * c))))
+    problem = dataclasses.replace(problem,
+                                  force_profile=ForceProfile(axis, comps))
+    f = state_from_numpy(_noisy(problem, 5), problem, cuda)
+    consts = step_cuda.kernel_constants(problem)
+    solid = torch.zeros(problem.spatial_shape, dtype=torch.uint8,
+                        device=cuda)
+    got = step_cuda.collide_stream(f, torch.empty_like(f), solid, consts)
+    bare = dataclasses.replace(consts, variant=consts.variant
+                               & ~step_cuda.FORCE, force_axis=-1,
+                               force_table=())
+    without = step_cuda.collide_stream(f, torch.empty_like(f), solid, bare)
+    want = step_torch.make_step_rolled(problem, cuda)(f)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **ONE_STEP_TOL)
+    sep = ((without - want).abs()
+           / (ONE_STEP_TOL["atol"] + ONE_STEP_TOL["rtol"] * want.abs())).max()
+    assert float(sep) > 100
+
+
+# the box's ring builds: every mode, depth and shard bitwise equal to one
+# device, rings wrapping in y (the corners of the 2x2 mesh from the
+# diagonal shard across both seams); under TPULBM_HALO_OVERLAP the ranged
+# N-step kernel takes a force profile, and where the 1-step ranged kernel
+# would run a force takes the full-width kernels, as in tpulbm
+@pytest.mark.parametrize("case", ["taylor-green", "kolmogorov", "x-force"])
+@pytest.mark.parametrize("shape,env", [
+    ((2, 2), {}), ((3, 1), {}), ((1, 2), {"TPULBM_NO_FUSED2": "1"}),
+    ((3, 1), {"TPULBM_HALO_OVERLAP": "1"}),
+    ((3, 1), {"TPULBM_HALO_OVERLAP": "1", "TPULBM_NO_FUSED2": "1"}),
+    ((1, 1), {"TPULBM_FORCE_TILED": "1", "TPULBM_SUBSTEPS": "2"})])
+def test_box_ring_kernels_equal_one_device(cuda, monkeypatch, case, shape,
+                                           env):
+    from tpulbm_torch.parallel import sharded_step
+    from tpulbm_torch.parallel.mesh import make_mesh
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    name, kw = BOX_CASES[case]
+    problem = _box_problem(name, 96, 48, **kw)
+    f = state_from_numpy(_noisy(problem, 3), problem, cuda)
+    mesh = make_mesh(shape, devices=[cuda] * (shape[0] * shape[1]))
+    chunk = sharded_step.make_chunk_fn(problem, mesh, 12)
+    want = make_chunk_fn(problem, cuda, 12)(f.clone())
+    step_cuda.reset_launch_counts()
+    got = sharded_step.gather(chunk(sharded_step.split(mesh, f)))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if env.get("TPULBM_HALO_OVERLAP"):
+        assert chunk.mode == ("rows" if case != "taylor-green"
+                              and chunk.substeps == 1 else "overlap")
+    per = 12 // chunk.substeps * (3 if chunk.mode == "overlap" else 1)
+    assert step_cuda.launches_by_shard(step_cuda.collide_stream_rings) == {
+        (step_cuda.kernel_constants(problem).library, chunk.substeps, idx):
+        per for idx in mesh.shards()}
+
+
+# the periodic passive scalar through the thermal kernel with its wall
+# flags off (no source change): stirred and at rest, a grid smaller than
+# one tile, a ragged one and 2048x512
+@pytest.mark.parametrize("u0", [0.0, 0.04])
+@pytest.mark.parametrize("nx,ny", [(7, 3), (33, 9), (2048, 512)])
+def test_passive_scalar_kernel_matches_plain(cuda, u0, nx, ny):
+    problem = make_problem(SimulationParams(
+        problem="passive-scalar", nx=nx, ny=ny, tau=0.8, thermal_tau=0.5704,
+        inlet_velocity=u0, periodic_x=True, cylinder_radius=0.0))
+    s = state_from_numpy(_noisy(problem, nx), problem, cuda)
+    kstep = step_thermal_cuda.make_local_step_thermal_cuda(problem, cuda)
+    before = step_cuda.launches(step_thermal_cuda.collide_stream_thermal)
+    got = kstep(s, torch.empty_like(s))
+    assert step_cuda.launches(
+        step_thermal_cuda.collide_stream_thermal) == before + 1
+    want = step_thermal.make_step_thermal(problem, cuda)(s)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **ONE_STEP_TOL)

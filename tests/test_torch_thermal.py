@@ -93,7 +93,7 @@ def test_problem_arrays_match_tpulbm_bytewise(preset, grid, precision):
 
 
 @pytest.mark.parametrize("override,item", [
-    (dict(problem="passive-scalar"), "item 13"),
+    (dict(problem="passive-scalar", mesh_shape=(2, 1)), "item 19"),
     (dict(mesh_shape=(2, 1)), "item 19")],
     ids=["passive-scalar", "thermal-mesh"])
 def test_unported_thermal_options_name_their_roadmap_item(override, item):

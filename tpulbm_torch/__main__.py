@@ -11,6 +11,10 @@
         --ny 512 --tau 1.0 --inlet-velocity 0 --cylinder-radius 0.15 \\
         --cylinder-x 0.5 --cylinder-y 0.5 --num-timesteps 2240 \\
         --output-frequency 140 --no-vtk
+    python -m tpulbm_torch --preset taylor-green --no-vtk
+    python -m tpulbm_torch --preset kolmogorov --stats-from -1 --no-vtk
+    python -m tpulbm_torch --problem passive-scalar --thermal-tau 0.6 \\
+        --tau 0.8 --inlet-velocity 0.04 --cylinder-radius 0 --no-vtk
 
 Runs on the first CUDA device; --cpu runs the plain PyTorch version on the
 host instead (debugging). --mesh NYxNX runs the 2-D flows on a mesh of

@@ -2,9 +2,12 @@
 
 Both packages hold the populations as (Q, *spatial) arrays in the same
 direction order and layout ((9, ny, nx) for D2Q9: the cylinder, the
-channel, the cavity; (19, nz, ny, nx) for D3Q19: the sphere and the duct;
-and (14, ny, nx) for the thermal problems: the 9 D2Q9 planes stacked over
-the 5 D2Q5 planes), so a tpulbm state moves over unchanged.
+channel, the cavity, the periodic boxes; (19, nz, ny, nx) for D3Q19: the
+sphere and the duct; and (14, ny, nx) for the thermal problems and the
+passive scalar: the 9 D2Q9 planes stacked over the 5 D2Q5 planes), so a
+tpulbm state moves over unchanged. The params carry all the physics: the
+port's Problem, Kolmogorov's force profile included, is built from them
+(models.make_problem), never taken from tpulbm's callables.
 A tpulbm single-device checkpoint (tpulbm's checkpoint.save: one .npz with
 `f`, `step` and the params JSON) can be continued in the port, and one the
 port writes in tpulbm. A sharded state (a mesh of several shards) is the

@@ -12,9 +12,12 @@
 //   it is unset (the 2-D cylinder: y walls, Zou-He inlet and outlet; the
 //   3-D sphere: y and z walls, equilibrium inlet, zero-gradient outlet),
 //   1 the channel (periodic x, y walls; in 3-D the duct, y and z walls),
-//   2 the cavity (x and y walls, the moving lid, the corner closure; 2-D);
+//   2 the cavity (x and y walls, the moving lid, the corner closure; 2-D),
+//   3 the periodic box (periodic x and y, no walls; 2-D);
 // * -DTPULBM_SOURCE=1: the body force's source added after every
 //   collision;
+// * -DTPULBM_FORCE=1: the force profile's source, a table of S_i per
+//   coordinate along one axis (Kolmogorov's), added after that (2-D);
 // * -DTPULBM_BOUNCE_BACK=1: the bounce-back obstacle (solid cells skip the
 //   collision and store their pulled populations reversed) instead of the
 //   equilibrium pin; the obstacle domain only.
@@ -33,6 +36,9 @@
 #endif
 #ifndef TPULBM_SOURCE
 #define TPULBM_SOURCE 0
+#endif
+#ifndef TPULBM_FORCE
+#define TPULBM_FORCE 0
 #endif
 #ifndef TPULBM_BOUNCE_BACK
 #define TPULBM_BOUNCE_BACK 0
@@ -62,12 +68,15 @@ enum Domain : int {
   kObstacle = 0,  // inlet, outlet and a voxel obstacle
   kChannel = 1,   // periodic x, no obstacle
   kCavity = 2,    // closed box with a moving lid, no obstacle
+  kBox = 3,       // periodic x and y, no walls, no obstacle
 };
 constexpr int kDomain = TPULBM_DOMAIN;
-static_assert(kDomain >= kObstacle && kDomain <= kCavity, "unknown domain");
-constexpr bool kPeriodicX = kDomain == kChannel;
+static_assert(kDomain >= kObstacle && kDomain <= kBox, "unknown domain");
+constexpr bool kPeriodicX = kDomain == kChannel || kDomain == kBox;
+constexpr bool kPeriodicY = kDomain == kBox;
 constexpr bool kHasObstacle = kDomain == kObstacle;
 constexpr bool kSource = TPULBM_SOURCE != 0;
+constexpr bool kForce = TPULBM_FORCE != 0;
 constexpr bool kBounceBack = TPULBM_BOUNCE_BACK != 0;
 static_assert(!kBounceBack || kHasObstacle,
               "the bounce-back obstacle needs the obstacle domain");
@@ -109,9 +118,10 @@ __device__ __forceinline__ float power_law_inv_tau(float gfac, float nm1,
 extern "C" int tpulbm_collision_mode() { return tpulbm::kMode; }
 
 // The rest of the build: the domain, then 4 with the source, 8 with the
-// bounce-back obstacle and 16 with the rings; ops/step_cuda.py checks it
-// too.
+// bounce-back obstacle, 16 with the rings and 32 with the force profile;
+// ops/step_cuda.py checks it too.
 extern "C" int tpulbm_build_variant() {
   return tpulbm::kDomain | (tpulbm::kSource ? 4 : 0) |
-         (tpulbm::kBounceBack ? 8 : 0) | (tpulbm::kRings ? 16 : 0);
+         (tpulbm::kBounceBack ? 8 : 0) | (tpulbm::kRings ? 16 : 0) |
+         (tpulbm::kForce ? 32 : 0);
 }

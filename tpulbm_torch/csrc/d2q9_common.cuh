@@ -1,7 +1,8 @@
 // The per-cell parts of a D2Q9 timestep that every kernel of the port
 // shares, float32: moments and the collisions with the body force's
-// source, the pull with the reference's ghost rule (or a periodic x), and
-// the boundary sequence of each domain. step_d2q9.cu (one step per launch)
+// source and the force profile's, the pull with the reference's ghost rule
+// (or a periodic x, or periodic x and y), and the boundary sequence of
+// each domain. step_d2q9.cu (one step per launch)
 // and step_d2q9_blocked.cu (N steps per launch) both build on these
 // functions, so that N launches of the first and one launch of the second
 // run the same operations in the same order and give the same bits; the
@@ -300,11 +301,15 @@ __device__ __forceinline__ void collide(float* f, const StepConsts& k) {
 
 // One cell's collision with what the build adds to it, in place: nothing
 // on a solid cell under the bounce-back obstacle (it keeps its
-// populations), else the collision and, with kSource, the source. Under the
+// populations), else the collision, with kSource the source and with
+// kForce the force profile's source at the cell, prof[i * stride] for
+// population i (the caller's staged table, ForceTable). Under the
 // equilibrium obstacle solid cells collide like fluid ones: the pin
 // replaces them after the stream.
 __device__ __forceinline__ void collide_cell(float* f, const StepConsts& k,
-                                             bool solid) {
+                                             bool solid,
+                                             const float* prof = nullptr,
+                                             int stride = 0) {
   if constexpr (kBounceBack) {
     if (solid) return;
   }
@@ -313,14 +318,43 @@ __device__ __forceinline__ void collide_cell(float* f, const StepConsts& k,
 #pragma unroll
     for (int i = 0; i < kQ; ++i) f[i] = f[i] + k.src[i];
   }
+  if constexpr (kForce) {
+#pragma unroll
+    for (int i = 0; i < kQ; ++i) f[i] = f[i] + prof[i * stride];
+  }
 }
+
+// The force profile (kForce): `table` is the (9, n) source
+// S_i(c) = 3 w_i (c_i . F(c)) at the coordinates c = 0 .. n-1 along `axis`
+// (0 x, n = nx; 1 y, n = ny), computed on the host as the plain version
+// computes it. A kernel stages the entries of its window's rows (axis 1)
+// or columns (axis 0) in shared memory once per block: `stage` fills
+// dst[i * len + t] with the entry of window position t at global
+// coordinate start + t, taken mod n, so every window, halo or ring cell
+// adds the source of the cell that owns it and N launches of one step
+// give the bits of one N-step launch.
+struct ForceTable {
+  const float* table;
+  int axis;
+
+  __device__ __forceinline__ void stage(float* dst, int len, int start,
+                                        int n, int tid,
+                                        int threads) const {
+    for (int t = tid; t < len; t += threads) {
+      int c = (start + t) % n;
+      if (c < 0) c += n;
+#pragma unroll
+      for (int i = 0; i < kQ; ++i) dst[i * len + t] = table[i * n + c];
+    }
+  }
+};
 
 // Pull g_i(x, y) = f_post_i((x, y) - c_i) with the reference's ghost rule:
 // a source across a y edge (corners included) gives the frozen equilibrium,
-// one across an x edge gives zero (in the channel the x axis wraps, and the
-// caller's post returns the wrapped neighbour), and an in-domain source
-// gives post(i, dx, dy), the post-collision value of population i at
-// (x + dx, y + dy) that the caller keeps.
+// one across an x edge gives zero (in the channel the x axis wraps, in the
+// box both axes, and the caller's post returns the wrapped neighbour), and
+// an in-domain source gives post(i, dx, dy), the post-collision value of
+// population i at (x + dx, y + dy) that the caller keeps.
 template <class Post>
 __device__ __forceinline__ void pull_d2q9(float* g, int x, int y, int nx,
                                           int ny, const StepConsts& k,
@@ -328,7 +362,7 @@ __device__ __forceinline__ void pull_d2q9(float* g, int x, int y, int nx,
   auto pull = [&](int i, int cx, int cy) -> float {
     const int sy = y - cy;
     const int sx = x - cx;
-    if (sy < 0 || sy >= ny) return k.eq_in[i];
+    if (!kPeriodicY && (sy < 0 || sy >= ny)) return k.eq_in[i];
     if (!kPeriodicX && (sx < 0 || sx >= nx)) return 0.0f;
     return post(i, -cx, -cy);
   };
@@ -506,16 +540,19 @@ __device__ __forceinline__ void cavity_corner(float* g, int x, int y, int nx,
 // rule (the pin to rest equilibrium, or under kBounceBack the pulled
 // populations reversed), else the edge rules, then (kCorners) the clean
 // corners. The channel: the y walls. The cavity: its walls, then the corner
-// closure. post and solid_at as for apply_corner; solid is false outside
-// the obstacle domain. The kernels are built with and without the clean
-// corners, so that a run without them carries no trace of their code.
+// closure. The box: nothing. post and solid_at as for apply_corner; solid
+// is false outside the obstacle domain. The kernels are built with and
+// without the clean corners, so that a run without them carries no trace
+// of their code.
 template <bool kCorners, class Post, class SolidAt>
 __device__ __forceinline__ void apply_boundaries(float* g, bool solid, int x,
                                                  int y, int nx, int ny,
                                                  const StepConsts& k,
                                                  const Post& post,
                                                  const SolidAt& solid_at) {
-  if constexpr (kDomain == kChannel) {
+  if constexpr (kDomain == kBox) {
+    return;
+  } else if constexpr (kDomain == kChannel) {
     walls_y(g, y, ny);
   } else if constexpr (kDomain == kCavity) {
     cavity_walls(g, x, y, nx, ny, k);
@@ -553,6 +590,8 @@ __device__ __forceinline__ void apply_boundaries(float* g, bool solid, int x,
 // ring_rows_ext); rl and rr the columns left and right of it, (9, nyl, hx).
 // hx is depth where the mesh cuts x and 0 where the block spans every
 // column: there the channel's x wraps inside the block, as on one device.
+// In the box y never wraps inside the block: the rows around it come from
+// rb and rt, which carry the wrapped neighbours' rows.
 // mask is the solid mask of the block and its rings, padded by depth on
 // every side. A launch writes the rows [r0, r1) of the block.
 //
@@ -576,12 +615,12 @@ struct Shard {
   int nxl, nyl, x0, y0, hx, depth, r0, r1;
 
   // Whether the window cell at global (gx, gy) is a cell of the domain
-  // that this launch reads; if so (lx, ly) are its coordinates in the
-  // block (negative or past nxl, nyl in a ring) and gx is taken mod nx
-  // in the channel.
+  // that this launch reads (in the box every row is); if so (lx, ly) are
+  // its coordinates in the block (negative or past nxl, nyl in a ring)
+  // and gx is taken mod nx in the channel and the box.
   __device__ __forceinline__ bool find(int& gx, int gy, int nx, int ny,
                                        int& lx, int& ly) const {
-    if (gy < 0 || gy >= ny) return false;
+    if (!kPeriodicY && (gy < 0 || gy >= ny)) return false;
     ly = gy - y0;
     if (ly < r0 - depth - 1 || ly < -depth || ly >= r1 + depth + 1 ||
         ly >= nyl + depth)

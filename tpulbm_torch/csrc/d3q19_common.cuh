@@ -71,6 +71,8 @@ using tpulbm::kMode;
 using tpulbm::kPeriodicX;
 static_assert(kMode != tpulbm::kKBC, "tpulbm's KBC operator is 2-D only");
 static_assert(tpulbm::kDomain != tpulbm::kCavity, "the cavity is 2-D");
+static_assert(tpulbm::kDomain != tpulbm::kBox && !tpulbm::kForce,
+              "the 3-D periodic box and force profile are not ported");
 
 // MRT's rank-r correction, zero-padded to the largest D3Q19 rank: only the
 // ten ghost moments (e, eps, qx, qy, qz, pixx, piww, mx, my, mz) can relax

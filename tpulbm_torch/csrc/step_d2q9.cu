@@ -3,15 +3,16 @@
 // domain's boundary sequence. The obstacle domain (the cylinder): y walls
 // -> Zou-He inlet -> Zou-He outlet -> clean Zou-He corners (optional) ->
 // obstacle (pin or bounce-back). The channel: periodic x, y walls. The
-// cavity: bottom wall -> moving lid -> side walls -> corner closure.
+// cavity: bottom wall -> moving lid -> side walls -> corner closure. The
+// box: periodic x and y, no walls.
 //
 // Replaces tpulbm/ops/step_pallas.py::make_local_step_pallas (the fused
-// 1-step Pallas TPU kernel) with its src, periodic_x, walls_x, lid_u and
-// bounce_back modes, under each of its collisions (BGK, TRT, MRT,
-// regularized, KBC, Smagorinsky, power law) and with either corner rule:
-// one library per collision, domain, source and obstacle rule
-// (collision_modes.cuh, d2q9_common.cuh). Its plain version is
-// tpulbm_torch/ops/step_torch.py.
+// 1-step Pallas TPU kernel) with its src, force_fn, periodic_x, periodic
+// y, walls_x, lid_u and bounce_back modes, under each of its collisions
+// (BGK, TRT, MRT, regularized, KBC, Smagorinsky, power law) and with
+// either corner rule: one library per collision, domain, source, force
+// profile and obstacle rule (collision_modes.cuh, d2q9_common.cuh). Its
+// plain version is tpulbm_torch/ops/step_torch.py.
 //
 // Layout: f is SoA (9, ny, nx) float32 with x fastest, one plane per
 // population. One thread owns one cell, x fastest, so each plane is read
@@ -40,7 +41,15 @@
 // wherever a top (right) corner would sit on a tile's first row (column)
 // (tpulbm::tile_row_shift, tile_col_shift). In the channel the tile's halo
 // columns at x = -1 and x = nx are loaded from x = nx-1 and x = 0, so the
-// pull wraps with no test of its own.
+// pull wraps with no test of its own; in the box the halo rows at y = -1
+// and y = ny too, from y = ny-1 and y = 0.
+//
+// The force profile (-DTPULBM_FORCE=1, Kolmogorov's cos(ky) along y or a
+// force along x): a block stages its tile's and halo's entries of the
+// (9, n) table once in shared memory (tpulbm::ForceTable), at the
+// coordinate of the cell that owns each, and every collision adds them.
+// The table is n x 36 B, read from L2 by every block: no force field
+// travels through device memory.
 //
 // The collision, the pull's ghost rule and the boundary sequence live in
 // d2q9_common.cuh, shared with the N-step kernel (step_d2q9_blocked.cu).
@@ -76,8 +85,10 @@ __global__ void __launch_bounds__(kBX * kBY)
     d2q9_step_kernel(const float* __restrict__ f, float* __restrict__ out,
                      const uint8_t* __restrict__ solid, int nx, int ny,
                      int x_shift, int y_shift, StepConsts k,
-                     tpulbm::Shard sh) {
+                     tpulbm::Shard sh, tpulbm::ForceTable force) {
   __shared__ float post[kQ][kTY][kTX];  // post-collision tile + halo
+  // the force profile's entries of the tile's columns or rows (kForce)
+  __shared__ float prof[tpulbm::kForce ? kQ * kTX : 1];
 
   const int tx = threadIdx.x;
   const int ty = threadIdx.y;
@@ -90,15 +101,22 @@ __global__ void __launch_bounds__(kBX * kBY)
     y0 = blockIdx.y * kBY - y_shift;
   }
   const size_t plane = static_cast<size_t>(nx) * ny;
+  const int flen = force.axis == 0 ? kTX : kTY;
+  if constexpr (tpulbm::kForce) {
+    force.stage(prof, flen, (force.axis == 0 ? x0 : y0) - 1,
+                force.axis == 0 ? nx : ny, ty * kBX + tx, kBX * kBY);
+    __syncthreads();
+  }
 
   // Load and collide the tile and its in-domain halo (in the channel the
-  // halo columns x = -1 and x = nx wrap). Halo cells outside the domain are
-  // never read below: the ghost rules replace them.
+  // halo columns x = -1 and x = nx wrap, in the box the rows y = -1 and
+  // y = ny too). Halo cells outside the domain are never read below: the
+  // ghost rules replace them.
   for (int t = ty * kBX + tx; t < kTX * kTY; t += kBX * kBY) {
     const int ly = t / kTX;
     const int lx = t - ly * kTX;
     int gx = x0 + lx - 1;
-    const int gy = y0 + ly - 1;
+    int gy = y0 + ly - 1;
     float v[kQ];
     bool skip;  // solid under the bounce-back obstacle: no collision
     if constexpr (tpulbm::kRings) {
@@ -110,7 +128,11 @@ __global__ void __launch_bounds__(kBX * kBY)
       for (int i = 0; i < kQ; ++i) v[i] = src[i * stride];
       skip = tpulbm::kBounceBack && sh.solid(bx, by);
     } else {
-      if constexpr (tpulbm::kPeriodicX) {
+      if constexpr (tpulbm::kPeriodicY) {
+        if (gx < -1 || gx > nx || gy < -1 || gy > ny) continue;
+        gx = gx < 0 ? nx - 1 : gx >= nx ? 0 : gx;
+        gy = gy < 0 ? ny - 1 : gy >= ny ? 0 : gy;
+      } else if constexpr (tpulbm::kPeriodicX) {
         if (gx < -1 || gx > nx || gy < 0 || gy >= ny) continue;
         gx = gx < 0 ? nx - 1 : gx >= nx ? 0 : gx;
       } else {
@@ -121,7 +143,8 @@ __global__ void __launch_bounds__(kBX * kBY)
       for (int i = 0; i < kQ; ++i) v[i] = f[i * plane + cell];
       skip = tpulbm::kBounceBack && solid[cell] != 0;
     }
-    tpulbm::collide_cell(v, k, skip);
+    tpulbm::collide_cell(v, k, skip, prof + (force.axis == 0 ? lx : ly),
+                         flen);
 #pragma unroll
     for (int i = 0; i < kQ; ++i) post[i][ly][lx] = v[i];
   }
@@ -166,12 +189,12 @@ template <bool kCorners>
 cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
                    int ny, int tiles_x, int tiles_y, int x_shift, int y_shift,
                    const StepConsts& k, const tpulbm::Shard& sh,
-                   cudaStream_t stream) {
+                   const tpulbm::ForceTable& force, cudaStream_t stream) {
   const dim3 block(kBX, kBY);
   const dim3 grid((tiles_x + x_shift + kBX - 1) / kBX,
                   (tiles_y + y_shift + kBY - 1) / kBY);
   d2q9_step_kernel<kCorners><<<grid, block, 0, stream>>>(
-      f, out, solid, nx, ny, x_shift, y_shift, k, sh);
+      f, out, solid, nx, ny, x_shift, y_shift, k, sh, force);
   return cudaGetLastError();
 }
 
@@ -181,7 +204,9 @@ cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
 // Each launcher launches one step on `stream` and returns
 // cudaGetLastError(): it neither synchronizes nor allocates.
 // The clean corners belong to the obstacle domain; elsewhere the launcher
-// takes clean_corners = 0.
+// takes clean_corners = 0. force_table is the force profile's (9, n) device
+// table along force_axis (tpulbm::ForceTable), read by the kForce build
+// only (elsewhere null).
 #if !TPULBM_RINGS
 extern "C" int tpulbm_d2q9_step(const float* f, float* out,
                                 const uint8_t* solid, int nx, int ny,
@@ -189,7 +214,8 @@ extern "C" int tpulbm_d2q9_step(const float* f, float* out,
                                 float one_minus_u_in, const float* eq_in,
                                 const float* w, int clean_corners,
                                 const float* mode, const float* src,
-                                float lid7, float lid8, int device,
+                                float lid7, float lid8, int force_axis,
+                                const float* force_table, int device,
                                 void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -200,11 +226,12 @@ extern "C" int tpulbm_d2q9_step(const float* f, float* out,
   const int x_shift = tpulbm::tile_col_shift(nx, kBX);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const tpulbm::Shard none{};
+  const tpulbm::ForceTable force{force_table, force_axis};
   err = clean_corners
             ? launch<true>(f, out, solid, nx, ny, nx, ny, x_shift, y_shift, k,
-                           none, s)
+                           none, force, s)
             : launch<false>(f, out, solid, nx, ny, nx, ny, x_shift, y_shift,
-                            k, none, s);
+                            k, none, force, s);
   return static_cast<int>(err);
 }
 #else
@@ -218,7 +245,8 @@ extern "C" int tpulbm_d2q9_step_rings(
     int nxl, int nyl, int x0, int y0, int hx, int r0, int r1, float inv_tau,
     float u_in, float one_minus_u_in, const float* eq_in, const float* w,
     int clean_corners, const float* mode, const float* src, float lid7,
-    float lid8, int device, void* stream) {
+    float lid8, int force_axis, const float* force_table, int device,
+    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (r0 < 0 || r1 > nyl || r0 >= r1) return cudaErrorInvalidValue;
@@ -233,11 +261,12 @@ extern "C" int tpulbm_d2q9_step_rings(
       r1 - r0, kBY, clean_corners != 0 || tpulbm::kDomain == tpulbm::kCavity);
   const int x_shift = tpulbm::tile_col_shift(nxl, kBX);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const tpulbm::ForceTable force{force_table, force_axis};
   err = clean_corners
             ? launch<true>(f, out, nullptr, nx, ny, nxl, r1 - r0, x_shift,
-                           y_shift, k, sh, s)
+                           y_shift, k, sh, force, s)
             : launch<false>(f, out, nullptr, nx, ny, nxl, r1 - r0, x_shift,
-                            y_shift, k, sh, s);
+                            y_shift, k, sh, force, s);
   return static_cast<int>(err);
 }
 #endif

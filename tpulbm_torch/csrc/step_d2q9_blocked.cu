@@ -1,16 +1,18 @@
 // N fused D2Q9 timesteps per launch (temporal blocking) on an NVIDIA Hopper
 // GPU (sm_90a), float32, N = 2, 3 or 4. Each substep is the 1-step kernel's
-// sequence (step_d2q9.cu): collide (+ source) -> pull-stream -> ghost rule
-// -> the domain's boundary sequence (the cylinder's walls, Zou-He inlet and
-// outlet, clean corners and obstacle; the channel's periodic x and walls;
-// the cavity's walls, lid and corners).
+// sequence (step_d2q9.cu): collide (+ source, + force profile) ->
+// pull-stream -> ghost rule -> the domain's boundary sequence (the
+// cylinder's walls, Zou-He inlet and outlet, clean corners and obstacle;
+// the channel's periodic x and walls; the cavity's walls, lid and corners;
+// the box's periodic x and y).
 //
 // Replaces tpulbm/ops/step_pallas.py::make_local_step_pallasN (the N-step
 // Pallas cascade, N = 3 and 4) and ::make_local_step_pallas2 (its 2-step
-// form) with their src, periodic_x, walls_x, lid_u and bounce_back modes,
-// under each of their collisions and with either corner rule (one library
-// per collision, domain, source and obstacle rule; d2q9_common.cuh). Its
-// plain version is N applications of tpulbm_torch/ops/step_torch.py's step.
+// form) with their src, force_fn, periodic_x, periodic y, walls_x, lid_u
+// and bounce_back modes, under each of their collisions and with either
+// corner rule (one library per collision, domain, source, force profile
+// and obstacle rule; d2q9_common.cuh). Its plain version is N applications
+// of tpulbm_torch/ops/step_torch.py's step.
 //
 // What bounds it: one launch moves the 73 B per cell of one step through
 // device memory (read and write 9 f32, read the 1-byte solid mask) and
@@ -56,7 +58,15 @@
 // In the channel the window's x-halo wraps: a window cell at gx < 0 or
 // gx >= nx holds cell gx mod nx, loaded from there and stepped like every
 // other window cell (the channel's rules do not depend on x), so the
-// trapezoid of valid cells is that of an interior block.
+// trapezoid of valid cells is that of an interior block. In the box the
+// y-halo wraps as well.
+//
+// The force profile (-DTPULBM_FORCE=1): the block stages the entries of
+// its window's columns (a force along x) or rows (along y) once, after the
+// populations in shared memory, each at the coordinate of the cell that
+// owns it (tpulbm::ForceTable), and every collision of every substep adds
+// them: a window cell adds what the cell it holds adds on one device, so
+// one launch keeps the bits of N 1-step launches.
 //
 // Bits. Collision, pull and boundary code come from d2q9_common.cuh, shared
 // with step_d2q9.cu, and both libraries are built with -fmad=false: one
@@ -95,8 +105,13 @@ struct Window {
   static constexpr int kTX = kBX + 2 * N;
   static constexpr int kTY = kBY + 2 * N;
   static constexpr int kCells = kTX * kTY;
-  // 9 post-collision planes, then the solid mask (one byte per cell)
-  static constexpr size_t kSmemBytes = sizeof(float) * kQ * kCells + kCells;
+  // the force profile's entries (kForce): one per window column or row
+  static constexpr int kProf = tpulbm::kForce ? kQ * (kTX > kTY ? kTX : kTY)
+                                              : 0;
+  // 9 post-collision planes, the force profile's entries, then the solid
+  // mask (one byte per cell)
+  static constexpr size_t kSmemBytes =
+      sizeof(float) * (kQ * kCells + kProf) + kCells;
   // cells of the largest region a thread holds in registers (substep 1)
   static constexpr int kPerThread =
       ((kTX - 2) * (kTY - 2) + kThreads - 1) / kThreads;
@@ -109,10 +124,17 @@ constexpr uint8_t kNotHeld = 2;
 
 // Whether the window cell at global (gx, gy) is stepped: a cell of the
 // domain, or in the channel any cell of a domain row, gx then taken mod nx
-// (the cell it holds).
-__device__ __forceinline__ bool window_cell(int& gx, int gy, int nx,
+// (the cell it holds), or in the box any cell, gx and gy taken mod nx and
+// ny.
+__device__ __forceinline__ bool window_cell(int& gx, int& gy, int nx,
                                             int ny) {
-  if constexpr (tpulbm::kPeriodicX) {
+  if constexpr (tpulbm::kPeriodicY) {
+    gx %= nx;
+    if (gx < 0) gx += nx;
+    gy %= ny;
+    if (gy < 0) gy += ny;
+    return true;
+  } else if constexpr (tpulbm::kPeriodicX) {
     gx %= nx;
     if (gx < 0) gx += nx;
     return gy >= 0 && gy < ny;
@@ -126,13 +148,15 @@ __global__ void __launch_bounds__(kThreads)
     d2q9_blocked_kernel(const float* __restrict__ f, float* __restrict__ out,
                         const uint8_t* __restrict__ solid, int nx, int ny,
                         int x_shift, int y_shift, StepConsts k,
-                        tpulbm::Shard sh) {
+                        tpulbm::Shard sh, tpulbm::ForceTable force) {
   using W = Window<N>;
   constexpr int TX = W::kTX;
   constexpr int TY = W::kTY;
   extern __shared__ float smem[];
   float* post = smem;  // [kQ][TY][TX]
-  uint8_t* mask = reinterpret_cast<uint8_t*>(smem + kQ * W::kCells);
+  float* prof = smem + kQ * W::kCells;  // [kQ][TX or TY] (kForce)
+  uint8_t* mask =
+      reinterpret_cast<uint8_t*>(smem + kQ * W::kCells + W::kProf);
 
   const int tid = threadIdx.x;
   // global coordinates of window (0, 0)
@@ -145,13 +169,23 @@ __global__ void __launch_bounds__(kThreads)
     y0 = blockIdx.y * kBY - N - y_shift;
   }
   const size_t plane = static_cast<size_t>(nx) * ny;
+  const int flen = force.axis == 0 ? TX : TY;
+  // the force profile's entry of the window cell (lx, ly), population 0
+  auto prof_at = [&](int lx, int ly) {
+    return prof + (force.axis == 0 ? lx : ly);
+  };
+  if constexpr (tpulbm::kForce) {
+    force.stage(prof, flen, force.axis == 0 ? x0 : y0,
+                force.axis == 0 ? nx : ny, tid, kThreads);
+    __syncthreads();
+  }
 
   // Load the window's in-domain cells once and collide them.
   for (int c = tid; c < W::kCells; c += kThreads) {
     const int ly = c / TX;
     const int lx = c - ly * TX;
     int gx = x0 + lx;
-    const int gy = y0 + ly;
+    int gy = y0 + ly;
     float v[kQ];
     if constexpr (tpulbm::kRings) {
       int bx, by;
@@ -171,7 +205,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int i = 0; i < kQ; ++i) v[i] = f[i * plane + cell];
     }
-    tpulbm::collide_cell(v, k, tpulbm::kBounceBack && mask[c] != 0);
+    tpulbm::collide_cell(v, k, tpulbm::kBounceBack && mask[c] != 0,
+                         prof_at(lx, ly), flen);
 #pragma unroll
     for (int i = 0; i < kQ; ++i) post[i * W::kCells + c] = v[i];
   }
@@ -193,10 +228,11 @@ __global__ void __launch_bounds__(kThreads)
       const int ly = s + c / w;
       const int lx = s + c % w;
       int gx = x0 + lx;
-      const int gy = y0 + ly;
+      int gy = y0 + ly;
       if constexpr (tpulbm::kRings) {
-        // a held cell's x needs no wrap here: in the channel, the only
-        // domain that wraps, no rule reads x
+        // a held cell's x and y need no wrap here: in the channel and the
+        // box, the domains that wrap, no rule reads them (the force
+        // profile's entry was staged at the owner's coordinate)
         if (mask[ly * TX + lx] == kNotHeld) continue;
       } else {
         if (!window_cell(gx, gy, nx, ny)) continue;
@@ -213,7 +249,8 @@ __global__ void __launch_bounds__(kThreads)
       tpulbm::pull_d2q9(g[j], gx, gy, nx, ny, k, post_at);
       tpulbm::apply_boundaries<kCorners>(g[j], is_solid, gx, gy, nx, ny, k,
                                          post_at, solid_at);
-      tpulbm::collide_cell(g[j], k, tpulbm::kBounceBack && is_solid);
+      tpulbm::collide_cell(g[j], k, tpulbm::kBounceBack && is_solid,
+                           prof_at(lx, ly), flen);
     }
     __syncthreads();  // every pull of this substep has read the old values
 #pragma unroll
@@ -267,7 +304,7 @@ template <int N, bool kCorners>
 cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
                    int ny, int tiles_x, int tiles_y, int x_shift, int y_shift,
                    const StepConsts& k, const tpulbm::Shard& sh,
-                   cudaStream_t stream) {
+                   const tpulbm::ForceTable& force, cudaStream_t stream) {
   constexpr size_t smem = Window<N>::kSmemBytes;
   if constexpr (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -278,7 +315,7 @@ cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
   const dim3 grid((tiles_x + x_shift + kBX - 1) / kBX,
                   (tiles_y + y_shift + kBY - 1) / kBY);
   d2q9_blocked_kernel<N, kCorners><<<grid, kThreads, smem, stream>>>(
-      f, out, solid, nx, ny, x_shift, y_shift, k, sh);
+      f, out, solid, nx, ny, x_shift, y_shift, k, sh, force);
   return cudaGetLastError();
 }
 
@@ -287,15 +324,15 @@ cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
 cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
                    int ny, int tiles_x, int tiles_y, int n_sub, bool corners,
                    const StepConsts& k, const tpulbm::Shard& sh,
-                   cudaStream_t stream) {
+                   const tpulbm::ForceTable& force, cudaStream_t stream) {
   const int y_shift = tpulbm::tile_row_shift(
       tiles_y, kBY, corners || tpulbm::kDomain == tpulbm::kCavity);
   const int x_shift = tpulbm::tile_col_shift(tiles_x, kBX);
 #define TPULBM_LAUNCH(N)                                                    \
   (corners ? launch<N, true>(f, out, solid, nx, ny, tiles_x, tiles_y,       \
-                             x_shift, y_shift, k, sh, stream)               \
+                             x_shift, y_shift, k, sh, force, stream)        \
            : launch<N, false>(f, out, solid, nx, ny, tiles_x, tiles_y,      \
-                              x_shift, y_shift, k, sh, stream))
+                              x_shift, y_shift, k, sh, force, stream))
   switch (n_sub) {
     case 2: return TPULBM_LAUNCH(2);
     case 3: return TPULBM_LAUNCH(3);
@@ -312,7 +349,8 @@ cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
 // cudaGetLastError() (a refused launch never runs and a later synchronize
 // would not report it); it neither synchronizes nor allocates. The clean
 // corners belong to the obstacle domain; elsewhere the launcher takes
-// clean_corners = 0.
+// clean_corners = 0. force_axis and force_table: the force profile
+// (tpulbm::ForceTable), read by the kForce build only.
 #if !TPULBM_RINGS
 extern "C" int tpulbm_d2q9_step_blocked(const float* f, float* out,
                                         const uint8_t* solid, int nx, int ny,
@@ -321,14 +359,16 @@ extern "C" int tpulbm_d2q9_step_blocked(const float* f, float* out,
                                         const float* eq_in, const float* w,
                                         int clean_corners, const float* mode,
                                         const float* src, float lid7,
-                                        float lid8, int device,
+                                        float lid8, int force_axis,
+                                        const float* force_table, int device,
                                         void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const StepConsts k = tpulbm::make_consts(inv_tau, u_in, one_minus_u_in,
                                            eq_in, w, mode, src, lid7, lid8);
   err = launch(f, out, solid, nx, ny, nx, ny, n_sub, clean_corners != 0, k,
-               tpulbm::Shard{}, static_cast<cudaStream_t>(stream));
+               tpulbm::Shard{}, tpulbm::ForceTable{force_table, force_axis},
+               static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }
 #else
@@ -342,7 +382,8 @@ extern "C" int tpulbm_d2q9_step_blocked_rings(
     int nxl, int nyl, int x0, int y0, int hx, int r0, int r1, int n_sub,
     float inv_tau, float u_in, float one_minus_u_in, const float* eq_in,
     const float* w, int clean_corners, const float* mode, const float* src,
-    float lid7, float lid8, int device, void* stream) {
+    float lid7, float lid8, int force_axis, const float* force_table,
+    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (r0 < 0 || r1 > nyl || r0 >= r1) return cudaErrorInvalidValue;
@@ -351,7 +392,9 @@ extern "C" int tpulbm_d2q9_step_blocked_rings(
   const tpulbm::Shard sh{f, rb, rt, rl, rr, mask, nxl, nyl,
                          x0, y0, hx, n_sub, r0, r1};
   err = launch(f, out, nullptr, nx, ny, nxl, r1 - r0, n_sub,
-               clean_corners != 0, k, sh, static_cast<cudaStream_t>(stream));
+               clean_corners != 0, k, sh,
+               tpulbm::ForceTable{force_table, force_axis},
+               static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }
 #endif

@@ -5,15 +5,18 @@ and the lid-driven cavity under the same operators, the 3-D D3Q19 sphere
 in a duct and the 3-D Poiseuille duct under each of those but KBC, the
 equilibrium or the bounce-back obstacle and a uniform body force on any of
 them, the 2-D thermal problems (Rayleigh-Bénard and the side-heated
-cavity, BGK or the Smagorinsky closure) and the Shan-Chen multiphase
-channel (droplet or band, BGK); every other configuration raises
+cavity, BGK or the Smagorinsky closure), the Shan-Chen multiphase
+channel (droplet or band, BGK) and the fully periodic 2-D boxes
+(Taylor-Green, the shear layer and Kolmogorov under every D2Q9
+collision, the passive scalar under the thermal step's); every other
+configuration raises
 NotImplementedError naming the ROADMAP item (Queue 1) that will port it,
 and the combinations tpulbm itself refuses (KBC in 3-D, a 3-D cavity)
 raise its ValueError."""
 from ..config import check_collision
 from .base import Problem
-from . import (cavity, cylinder, cylinder3d, multiphase, poiseuille,
-               rayleigh_benard)
+from . import (cavity, cylinder, cylinder3d, multiphase, periodic2d,
+               poiseuille, rayleigh_benard)
 
 __all__ = ["Problem", "make_problem"]
 
@@ -23,16 +26,9 @@ _BUILDERS = {"cylinder": cylinder.make_problem,
              "cylinder3d": cylinder3d.make_problem,
              "rayleigh-benard": rayleigh_benard.make_problem,
              "heated-cavity": rayleigh_benard.make_problem,
-             "multiphase": multiphase.make_problem}
-_THERMAL = ("rayleigh-benard", "heated-cavity")
-
-_PROBLEM_ITEMS = {
-    "taylor-green": "Queue 1 item 13 (periodic boxes and Kolmogorov)",
-    "shear-layer": "Queue 1 item 13 (periodic boxes and Kolmogorov)",
-    "kolmogorov": "Queue 1 item 13 (periodic boxes and Kolmogorov)",
-    "passive-scalar": "Queue 1 item 13 (periodic boxes and Kolmogorov: the "
-                      "passive scalar rides periodic2d's Taylor-Green fields)",
-}
+             "multiphase": multiphase.make_problem,
+             **dict.fromkeys(periodic2d.PROBLEMS, periodic2d.make_problem)}
+_THERMAL = ("rayleigh-benard", "heated-cavity", "passive-scalar")
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -43,9 +39,6 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 def check_slice(params) -> None:
     """Raise NotImplementedError for physics outside the ported slices,
     and tpulbm's ValueError for the combinations tpulbm refuses."""
-    if params.problem in _PROBLEM_ITEMS:
-        raise _not_ported(f"problem={params.problem!r}",
-                          _PROBLEM_ITEMS[params.problem])
     if params.problem not in _BUILDERS:
         raise ValueError(f"unknown problem: {params.problem!r}")
     three_d = "Queue 1 item 16 (3-D)"
@@ -54,6 +47,8 @@ def check_slice(params) -> None:
     if (params.problem in ("cylinder3d", "poiseuille") and params.is_3d
             and params.lattice3d != "d3q19"):
         raise _not_ported(f"lattice3d={params.lattice3d!r}", three_d)
+    if params.problem in periodic2d.PROBLEMS:
+        periodic2d.check_2d(params)
     # the cylinders, the channel, the cavity and the duct run every
     # collision operator tpulbm runs for them, the thermal problems BGK and
     # the Smagorinsky closure, multiphase BGK: the rest raise tpulbm's own
@@ -78,7 +73,8 @@ def check_slice(params) -> None:
 
 def make_problem(params) -> Problem:
     """Build the Problem for params.problem ("cylinder", "poiseuille",
-    "cavity", "cylinder3d", "rayleigh-benard", "heated-cavity" or
-    "multiphase")."""
+    "cavity", "cylinder3d", "rayleigh-benard", "heated-cavity",
+    "multiphase", "taylor-green", "shear-layer", "kolmogorov" or
+    "passive-scalar")."""
     check_slice(params)
     return _BUILDERS[params.problem](params)

@@ -4,15 +4,19 @@ Port of tpulbm/models/base.py for the slices the port covers (uniform
 equilibrium start, optional solid mask; the boundary layouts of the 2-D
 cylinder, the body-forced channel, the lid-driven cavity, the 3-D sphere
 in a duct and the 3-D duct; the thermal double-population problems; the
-Shan-Chen multiphase channel's rho-map start). The initial
-state and the ghost values are computed in NumPy on the host, exactly as
-tpulbm does, so both packages start from byte-identical arrays.
+Shan-Chen multiphase channel's rho-map start; the fully periodic 2-D boxes'
+equilibrium at an analytic (rho, u) field, the passive scalar's analytic
+T field and Kolmogorov's force profile). The initial state and the ghost
+values are computed in NumPy on the host, exactly as tpulbm does, so both
+packages start from byte-identical arrays.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import numpy as np
+import torch
 
 from ..config import SimulationParams
 from ..lattice import Lattice
@@ -50,6 +54,54 @@ class ThermalConfig:
         return (self.tau_g - 0.5) / 3.0
 
 
+_AXES = ("x", "y")
+
+
+@dataclasses.dataclass(frozen=True)
+class ForceProfile:
+    """A body force that varies along one axis: the port's form of tpulbm's
+    Problem.force_fn, which a CUDA kernel cannot trace. `fn` maps the
+    global coordinates along `axis` ("x" or "y"), a 1-D tensor in the
+    state's dtype, to the force's components (Fx, Fy), each a tensor of
+    that shape or a float. Each cell, halo and window cells included,
+    takes the force at the coordinate of the cell that owns it (taken
+    mod the extent), so a shard or an N-step launch adds the bits one
+    device adds. Every force_fn of tpulbm depends on one coordinate;
+    a force of several raises, and a force along z is 3-D (item 16)."""
+    axis: str
+    fn: Callable
+
+    def __post_init__(self):
+        if self.axis == "z":
+            raise NotImplementedError(
+                "a force along z (3-D Kolmogorov) is not ported to "
+                "tpulbm_torch yet (ROADMAP Queue 1 item 16, 3-D)")
+        if self.axis not in _AXES:
+            raise NotImplementedError(
+                f"a force varying along {self.axis!r}: the port's forces "
+                "vary along one axis, 'x' or 'y' (the kernels read one "
+                "table per coordinate)")
+
+    @property
+    def index(self) -> int:
+        """The axis as the kernels number it: 0 for x, 1 for y."""
+        return _AXES.index(self.axis)
+
+    def table(self, lattice: Lattice, n: int, dtype: torch.dtype,
+              device) -> torch.Tensor:
+        """(Q, n) source S_i(c) = 3 w_i (c_i·F(c)) at the coordinates
+        c = 0 .. n-1, in `dtype`: tpulbm's _add_force_field arithmetic
+        (step_jax.py:77-98), evaluated once per coordinate."""
+        coord = torch.arange(n, dtype=dtype, device=device)
+        comps = [torch.broadcast_to(torch.as_tensor(v, dtype=dtype,
+                                                    device=device), (n,))
+                 for v in self.fn(coord)]
+        cu = torch.as_tensor(lattice.c, dtype=dtype, device=device) @ \
+            torch.stack(comps)
+        w = torch.as_tensor(3.0 * lattice.w, dtype=dtype, device=device)
+        return w[:, None] * cu
+
+
 @dataclasses.dataclass(frozen=True)
 class Problem:
     """Static description of one simulation setup. `solid` is a host bool
@@ -72,6 +124,9 @@ class Problem:
     periodic_x: bool = False
     periodic_y: bool = False          # fully periodic box (walls_y off)
     body_force: tuple[float, ...] = ()  # uniform force, added after collision
+    # a force varying along one axis (Kolmogorov), added after the
+    # collision and the uniform force's source
+    force_profile: ForceProfile | None = None
     # "equilibrium" (solids pinned to rest equilibrium) or "bounce_back"
     # (solids skip the collision and store their streamed populations
     # reversed)
@@ -86,6 +141,12 @@ class Problem:
     thermal: ThermalConfig | None = None  # double-population thermal coupling
     shan_chen: tuple = ()             # (g, rho0): Shan-Chen multiphase
     init_rho_map: np.ndarray | None = None  # initial rho per cell (u = 0)
+    # (rho (*spatial), u (D, *spatial)): an equilibrium start at an
+    # analytic field (the periodic boxes); overrides init_rho and init_u
+    init_fields: tuple | None = None
+    # the scalar's start T (*spatial) with init_fields (the passive
+    # scalar); None: uniform t_ref
+    init_T: object = None
 
     @property
     def state_q(self) -> int:
@@ -122,8 +183,12 @@ class Problem:
         equilibrium(1, init_u), solid cells at rest equilibrium. Thermal
         problems stack the scalar's equilibrium underneath, at the
         conductive profile plus a cos·sin seed mode. A rho map (the
-        multiphase droplet or band) starts at feq_i = w_i rho(x), u = 0."""
+        multiphase droplet or band) starts at feq_i = w_i rho(x), u = 0.
+        init_fields starts at the equilibrium of an analytic (rho, u), the
+        scalar (if any) at w_i T (1 + 3 c_i·u) with T = init_T."""
         Q = self.lattice.Q
+        if self.init_fields is not None:
+            return self._state_from_fields()
         if self.init_rho_map is not None:
             w = self.lattice.w.astype(self.dtype)
             f = (w.reshape((Q,) + (1,) * len(self.spatial_shape))
@@ -152,3 +217,29 @@ class Problem:
         lg = th.lattice
         g = (lg.w.reshape((lg.Q, 1, 1)) * T[None]).astype(self.dtype)
         return np.concatenate([f, g], axis=0)
+
+    def _state_from_fields(self) -> np.ndarray:
+        """tpulbm's init_fields start (base.py:154-190), in float64 NumPy
+        and rounded once: f_i = w_i rho (1 + 3 c·u + 4.5 (c·u)² - 1.5 u²),
+        and under it the scalar g_i = w_i T (1 + 3 c_i·u)."""
+        Q = self.lattice.Q
+        rho0, u0 = self.init_fields
+        rho0 = np.asarray(rho0, np.float64)
+        u0 = np.asarray(u0, np.float64)
+        c = self.lattice.c.astype(np.float64)
+        w = self.lattice.w.astype(np.float64)
+        cu = np.tensordot(c, u0, axes=(1, 0))
+        u2 = np.sum(u0 * u0, axis=0)
+        wq = w.reshape((Q,) + (1,) * u2.ndim)
+        f = wq * rho0[None] * (1.0 + 3.0 * cu + 4.5 * cu * cu
+                               - 1.5 * u2[None])
+        if self.thermal is not None:
+            th = self.thermal
+            lg = th.lattice
+            T = (np.full(self.spatial_shape, th.t_ref, np.float64)
+                 if self.init_T is None
+                 else np.asarray(self.init_T, np.float64))
+            cu_g = np.tensordot(lg.c.astype(np.float64), u0, axes=(1, 0))
+            wg = lg.w.reshape((lg.Q,) + (1,) * T.ndim)
+            f = np.concatenate([f, wg * T[None] * (1.0 + 3.0 * cu_g)], axis=0)
+        return f.astype(self.dtype)

@@ -1,5 +1,6 @@
 """On-device diagnostics: macroscopic fields, stability, max velocity, and
-the thermal problems' temperature and Nusselt number.
+the thermal problems' temperature and Nusselt number (the passive
+scalar's variance).
 
 Port of tpulbm/ops/diagnostics.py (fields_fn, stability_fn,
 max_velocity_fn; max |u| takes the bare moments for every problem, as in
@@ -72,7 +73,12 @@ def temperature_fn(problem: Problem):
 
 
 def nusselt_fn(problem: Problem):
-    """s -> the instantaneous Nusselt number (0-d) of a thermal state."""
+    """s -> the thermal trace's value (0-d) of a thermal state: the
+    instantaneous Nusselt number between y walls, the scalar variance of
+    the periodic passive scalar (tpulbm's Nu slot)."""
+    trace = (step_thermal.nusselt if problem.walls_y
+             else step_thermal.scalar_variance)
+
     def fn(s: torch.Tensor) -> torch.Tensor:
-        return step_thermal.nusselt(problem, s)
+        return trace(problem, s)
     return fn

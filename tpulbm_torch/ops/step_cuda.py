@@ -5,10 +5,12 @@ Ports of tpulbm/ops/step_pallas.py (D2Q9):
 * make_local_step_pallasN (N = 3, 4) and make_local_step_pallas2 (N = 2),
   temporal blocking, N steps per launch: csrc/step_d2q9_blocked.cu.
 Both hold every collision of tpulbm's D2Q9 kernels (COLLISION_MODES), the
-clean Zou-He corners, the body-force source, the bounce-back obstacle and
-three domains (DOMAINS: the cylinder, the periodic channel, the lid-driven
-cavity); the mode's coefficients are computed here on the host, as
-tpulbm's _physics_cfg_fields computes them.
+clean Zou-He corners, the body-force source, the force profile (tpulbm's
+force_fn along one axis: a table of its source per coordinate), the
+bounce-back obstacle and four domains (DOMAINS: the cylinder, the periodic
+channel, the lid-driven cavity, the periodic box); the mode's
+coefficients are computed here on the host, as tpulbm's
+_physics_cfg_fields computes them.
 Port of tpulbm/ops/step_pallas3d.py (D3Q19):
 * make_local_step_pallas3d and make_local_step_pallas3d_tiled at n_sub=1
   (one step per launch): csrc/step_d3q19.cu;
@@ -19,10 +21,10 @@ but KBC, which tpulbm runs in 2-D only), the source, the bounce-back
 obstacle and two domains (DOMAINS_3D: the sphere in a duct, the periodic
 duct); the mode's coefficients are computed here as tpulbm's 3-D builders
 compute them.
-A library is built for one collision, domain, source and obstacle rule
-(build_defines; the cylinder's BGK library with the equilibrium obstacle
-and no force takes no define and is the one every earlier build ran), at
-its first use.
+A library is built for one collision, domain, source, force profile and
+obstacle rule (build_defines; the cylinder's BGK library with the
+equilibrium obstacle and no force takes no define and is the one every
+earlier build ran), at its first use.
 Both D2Q9 sources also build with rings (-DTPULBM_RINGS=1), for one shard
 of a mesh (parallel/sharded_step.py): collide_stream_rings steps a shard's
 block from the rings its neighbours sent, over a range of its rows. That
@@ -111,19 +113,23 @@ MODE_FLOATS = 2 + 2 * _Q * MRT_RANK + (1 + 3 * _Q) + (6 * _Q + 4) + 3 + 4
 COLLISION_MODES_3D = tuple(m for m in COLLISION_MODES if m != "kbc")
 # the kernels' domains (collision_modes.cuh's tpulbm::Domain, its index):
 # 2-D the cylinder (Zou-He inlet and outlet, y walls, a voxel obstacle),
-# the Poiseuille channel (periodic x, y walls) and the lid-driven cavity;
-# 3-D the sphere in a duct (equilibrium inlet, zero-gradient outlet, y and
-# z walls, a voxel obstacle) and the Poiseuille duct (periodic x)
-DOMAINS = ("cylinder", "channel", "cavity")
+# the Poiseuille channel (periodic x, y walls), the lid-driven cavity and
+# the periodic box (periodic x and y: Taylor-Green, the shear layer,
+# Kolmogorov); 3-D the sphere in a duct (equilibrium inlet, zero-gradient
+# outlet, y and z walls, a voxel obstacle) and the Poiseuille duct
+# (periodic x)
+DOMAINS = ("cylinder", "channel", "cavity", "box")
 DOMAINS_3D = ("sphere", "duct")
 # the bits of a library's variant (collision_modes.cuh's
 # tpulbm_build_variant): the domain's index in DOMAINS or DOMAINS_3D, the
-# body-force source and the bounce-back obstacle; 0 is the cylinder's (or
-# the sphere's) library with the equilibrium obstacle and no force
+# body-force source, the bounce-back obstacle and the force profile; 0 is
+# the cylinder's (or the sphere's) library with the equilibrium obstacle
+# and no force
 DOMAIN_BITS = 3
 SOURCE = 4
 BOUNCE_BACK = 8
 RINGS = 16      # a D2Q9 library built for one shard of a mesh
+FORCE = 32      # the force profile's table (D2Q9)
 MRT_RANK_3D = 10           # d3q19_common.cuh kMrtRank: the ten ghost moments
 _Q3 = 19
 # floats of d3q19_common.cuh's ModeConsts: TRT, MRT's U and V, regularized
@@ -195,6 +201,10 @@ def kernel_domain(problem: Problem) -> int:
     inlet, outlet = ((p.inlet_equilibrium, p.outlet_zero_grad) if d3
                      else (p.inlet_zou_he, p.outlet_zou_he))
     obstacle = p.solid is not None and bool(np.any(p.solid))
+    if (not d3 and p.periodic_x and p.periodic_y and not p.walls_y
+            and not (inlet or outlet or obstacle or p.walls_x or p.lid_u
+                     or p.clean_corners)):
+        return 3
     if walls and inlet and outlet and not (p.periodic_x or p.walls_x
                                            or p.lid_u):
         return 0
@@ -211,12 +221,14 @@ def kernel_domain(problem: Problem) -> int:
 
 def variant_defines(variant: int) -> tuple[str, ...]:
     """nvcc's defines for a library's domain (variant & DOMAIN_BITS),
-    SOURCE, BOUNCE_BACK and RINGS; () for 0."""
+    SOURCE, FORCE, BOUNCE_BACK and RINGS; () for 0."""
     defines = []
     if variant & DOMAIN_BITS:
         defines.append(f"-DTPULBM_DOMAIN={variant & DOMAIN_BITS}")
     if variant & SOURCE:
         defines.append("-DTPULBM_SOURCE=1")
+    if variant & FORCE:
+        defines.append("-DTPULBM_FORCE=1")
     if variant & BOUNCE_BACK:
         defines.append("-DTPULBM_BOUNCE_BACK=1")
     if variant & RINGS:
@@ -233,11 +245,15 @@ def build_defines(mode: str, variant: int = 0) -> tuple[str, ...]:
 class StepConstants:
     """The physics constants the kernel takes as arguments. `mode` and
     `variant` pick the library: the collision (COLLISION_MODES) and the
-    domain, the source and the obstacle rule (variant_defines); `modes`
-    are the collision's coefficients (mode_floats), `src` the body force's
-    source per direction (zeros without one) and `lid` the moving lid's
-    6 w_i (c_i·u_lid) for i = 7, 8 (the cavity). The D3Q19 kernels read
-    inv_tau, eq_in, w, modes and src."""
+    domain, the source, the force profile and the obstacle rule
+    (variant_defines); `modes` are the collision's coefficients
+    (mode_floats), `src` the body force's source per direction (zeros
+    without one), `lid` the moving lid's 6 w_i (c_i·u_lid) for i = 7, 8
+    (the cavity), `force_axis` the force profile's axis (0 x, 1 y; -1
+    without one) and `force_table` its (9, n) source per coordinate
+    (ForceProfile.table in float32, row by row), which a launch reads from
+    a copy on the state's device. The D3Q19 kernels read inv_tau, eq_in,
+    w, modes and src."""
     inv_tau: float
     u_in: float
     eq_in: tuple[float, ...]   # frozen ghost equilibrium per direction
@@ -248,21 +264,52 @@ class StepConstants:
     variant: int = 0
     src: tuple[float, ...] = ()
     lid: tuple[float, float] = (0.0, 0.0)
+    force_axis: int = -1
+    force_table: tuple[float, ...] = ()
 
     @property
     def library(self) -> str:
         """The library's name in the launch counts: the collision, then the
-        domain, "source" and "bounce_back" where the build has them, as
-        "mrt+channel+source"."""
+        domain, "source", "force" and "bounce_back" where the build has
+        them, as "mrt+channel+source" or "bgk+box+force"."""
         domains = DOMAINS if len(self.w) == 9 else DOMAINS_3D
         parts = [self.mode]
         if self.variant & DOMAIN_BITS:
             parts.append(domains[self.variant & DOMAIN_BITS])
         if self.variant & SOURCE:
             parts.append("source")
+        if self.variant & FORCE:
+            parts.append("force")
         if self.variant & BOUNCE_BACK:
             parts.append("bounce_back")
         return "+".join(parts)
+
+    @functools.cached_property
+    def _force_tables(self) -> dict:
+        return {}
+
+    def force_args(self, device: torch.device,
+                   grid: tuple[int, int]) -> tuple[int, int | None]:
+        """(force_axis, the table's device pointer or None) as the D2Q9
+        launchers take them for a launch on the global `grid` (ny, nx);
+        the table is copied to `device` once and kept. Raises unless a
+        library built with the profile gets a table of the grid's extent
+        along its axis, and one built without it none."""
+        if bool(self.variant & FORCE) != bool(self.force_table):
+            raise ValueError(f"library {self.library} and a force table of "
+                             f"{len(self.force_table)} floats")
+        if not self.force_table:
+            return self.force_axis, None
+        n = grid[::-1][self.force_axis]
+        if len(self.force_table) != _Q * n:
+            raise ValueError(f"the force table holds {len(self.force_table)}"
+                             f" floats, not 9 x {n} for the grid {grid}")
+        table = self._force_tables.get(device)
+        if table is None:
+            table = torch.tensor(self.force_table, dtype=torch.float32,
+                                 device=device)
+            self._force_tables[device] = table
+        return self.force_axis, table.data_ptr()
 
     def _src(self) -> ctypes.Array:
         return _floats(self.src or (0.0,) * len(self.w))
@@ -290,8 +337,16 @@ class StepConstants:
         domain = kernel_domain(problem)
         bounce = domain == 0 and problem.obstacle_bc == "bounce_back"
         force = problem.body_force
+        prof = problem.force_profile
         variant = (domain | (SOURCE if force else 0)
-                   | (BOUNCE_BACK if bounce else 0))
+                   | (BOUNCE_BACK if bounce else 0)
+                   | (FORCE if prof is not None else 0))
+        force_axis, force_table = -1, ()
+        if prof is not None:
+            n = problem.spatial_shape[::-1][prof.index]
+            force_axis = prof.index
+            force_table = tuple(prof.table(lat, n, torch.float32, "cpu")
+                                .reshape(-1).tolist())
         src = (tuple(float(v) for v in physics.force_source(lat, force))
                if force else ())
         lid = (0.0, 0.0)
@@ -309,7 +364,7 @@ class StepConstants:
                    mode=step_torch.collision_mode(problem),
                    clean_corners=bool(problem.clean_corners),
                    modes=mode_floats(problem), variant=variant, src=src,
-                   lid=lid)
+                   lid=lid, force_axis=force_axis, force_table=force_table)
 
 
 def check_inputs(f: torch.Tensor, out: torch.Tensor,
@@ -387,8 +442,8 @@ def mode_defines(mode: str) -> tuple[str, ...]:
 def _library(mode: str = "bgk", variant: int = 0) -> ctypes.CDLL:
     return _bind("step_d2q9.cu", "tpulbm_d2q9_step",
                  [_PTR, _PTR, _PTR, _I32, _I32, _F32, _F32, _F32, _PTR, _PTR,
-                  _I32, _PTR, _PTR, _F32, _F32, _I32, _PTR], mode,
-                 MODE_FLOATS, variant)
+                  _I32, _PTR, _PTR, _F32, _F32, _I32, _PTR, _I32, _PTR],
+                 mode, MODE_FLOATS, variant)
 
 
 @functools.cache
@@ -415,14 +470,14 @@ def _blocked_library_3d(mode: str = "bgk", variant: int = 0) -> ctypes.CDLL:
 def _blocked_library(mode: str = "bgk", variant: int = 0) -> ctypes.CDLL:
     return _bind("step_d2q9_blocked.cu", "tpulbm_d2q9_step_blocked",
                  [_PTR, _PTR, _PTR, _I32, _I32, _I32, _F32, _F32, _F32, _PTR,
-                  _PTR, _I32, _PTR, _PTR, _F32, _F32, _I32, _PTR], mode,
-                 MODE_FLOATS, variant)
+                  _PTR, _I32, _PTR, _PTR, _F32, _F32, _I32, _PTR, _I32,
+                  _PTR], mode, MODE_FLOATS, variant)
 
 
 _RINGS_ARGS = [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32,
                _I32, _I32, _I32, _I32, _I32, _I32]
 _CONSTS_ARGS = [_F32, _F32, _F32, _PTR, _PTR, _I32, _PTR, _PTR, _F32, _F32,
-                _I32, _PTR]
+                _I32, _PTR, _I32, _PTR]
 
 
 @functools.cache
@@ -468,7 +523,8 @@ def collide_stream(f: torch.Tensor, out: torch.Tensor, solid: torch.Tensor,
     stream = torch.cuda.current_stream(f.device).cuda_stream
     rc = lib.tpulbm_d2q9_step(
         f.data_ptr(), out.data_ptr(), solid.data_ptr(), nx, ny,
-        *consts.d2q9_args, f.device.index, stream)
+        *consts.d2q9_args, *consts.force_args(f.device, (ny, nx)),
+        f.device.index, stream)
     _check_launch(lib, rc, f"D2Q9 kernel ({consts.library})")
     _count(collide_stream, consts.library)
     return out
@@ -575,7 +631,8 @@ def collide_stream_blocked(f: torch.Tensor, out: torch.Tensor,
     stream = torch.cuda.current_stream(f.device).cuda_stream
     rc = lib.tpulbm_d2q9_step_blocked(
         f.data_ptr(), out.data_ptr(), solid.data_ptr(), nx, ny, n_sub,
-        *consts.d2q9_args, f.device.index, stream)
+        *consts.d2q9_args, *consts.force_args(f.device, (ny, nx)),
+        f.device.index, stream)
     _check_launch(lib, rc, f"D2Q9 {n_sub}-step kernel ({consts.library})")
     _count(collide_stream_blocked, consts.library, n_sub)
     return out
@@ -701,12 +758,13 @@ def collide_stream_rings(f: torch.Tensor, out: torch.Tensor, rings: tuple,
     if n_sub == 1:
         lib = _rings_library(consts.mode, consts.variant)
         rc = lib.tpulbm_d2q9_step_rings(*ptrs, *geometry, *consts.d2q9_args,
+                                        *consts.force_args(f.device, (ny, nx)),
                                         f.device.index, stream)
     else:
         lib = _rings_blocked_library(consts.mode, consts.variant)
         rc = lib.tpulbm_d2q9_step_blocked_rings(
-            *ptrs, *geometry, n_sub, *consts.d2q9_args, f.device.index,
-            stream)
+            *ptrs, *geometry, n_sub, *consts.d2q9_args,
+            *consts.force_args(f.device, (ny, nx)), f.device.index, stream)
     _check_launch(lib, rc, f"D2Q9 {n_sub}-step ring kernel "
                            f"({consts.library}, shard {shard.index})")
     _count(collide_stream_rings, consts.library, n_sub, shard.index)
@@ -802,11 +860,13 @@ def reset_launch_counts() -> None:
 def kernel_constants(problem: Problem, q: int = 9) -> StepConstants:
     """The constants of `problem`'s kernel library; raises for what the
     kernels do not cover: they run the equilibrium and the bounce-back
-    obstacles, the D2Q9 kernels every collision, the D3Q19 kernels every
-    one but KBC, as tpulbm's, in the domains of DOMAINS and DOMAINS_3D."""
+    obstacles, the D2Q9 kernels every collision and the force profile,
+    the D3Q19 kernels every collision but KBC, as tpulbm's, in the domains
+    of DOMAINS and DOMAINS_3D."""
     if problem.lattice.Q != q or problem.thermal is not None \
             or problem.shan_chen:
-        takes = ("problems 'cylinder', 'poiseuille' and 'cavity' in 2-D"
+        takes = ("problems 'cylinder', 'poiseuille', 'cavity', "
+                 "'taylor-green', 'shear-layer' and 'kolmogorov' in 2-D"
                  if q == 9 else "the sphere in a duct (problem "
                  "'cylinder3d') and the Poiseuille duct (problem "
                  "'poiseuille', nz > 0)")
@@ -817,6 +877,10 @@ def kernel_constants(problem: Problem, q: int = 9) -> StepConstants:
     if problem.obstacle_bc not in ("equilibrium", "bounce_back"):
         raise NotImplementedError(f"the kernels do not hold obstacle_bc="
                                   f"{problem.obstacle_bc!r}")
+    if q == 19 and problem.force_profile is not None:
+        raise NotImplementedError(
+            "a force profile in the D3Q19 kernels (3-D Kolmogorov) is not "
+            "ported to tpulbm_torch yet (ROADMAP Queue 1 item 16, 3-D)")
     consts = StepConstants.of(problem)
     if (q == 9 and DOMAINS[consts.variant & DOMAIN_BITS] == "cavity"
             and min(problem.spatial_shape) < 3):

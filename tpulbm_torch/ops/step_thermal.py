@@ -3,8 +3,8 @@ thermal slice and the plain version of the CUDA kernel
 csrc/step_thermal.cu.
 
 Port of tpulbm/ops/step_thermal.py (collide_thermal, make_step_thermal,
-temperature, nusselt). One step of the coupled Boussinesq system on the
-stacked state s = [f (9 planes); g (5 planes)], (14, ny, nx):
+temperature, nusselt, scalar_variance). One step of the coupled Boussinesq
+system on the stacked state s = [f (9 planes); g (5 planes)], (14, ny, nx):
 
   1. moments: rho, u from f; T = Σ g
   2. collide f: BGK toward equilibrium(rho, u), at the per-cell rate of the
@@ -20,7 +20,9 @@ stacked state s = [f (9 planes); g (5 planes)], (14, ny, nx):
      (w_i + w_opp)·T_wall − g_opp against the just-streamed opposite
      (boundaries.apply_thermal_wall).
 
-Runs in f32 and f64; every expression keeps tpulbm's operation order.
+Without y walls (the passive scalar: walls_y off, periodic_y) every pull
+wraps and steps 4's ghost rows and 5's wall rules are skipped. Runs in f32
+and f64; every expression keeps tpulbm's operation order.
 """
 from __future__ import annotations
 
@@ -88,15 +90,15 @@ def ghost_rows(problem: Problem) -> tuple[np.ndarray, np.ndarray]:
 
 
 def check_geometry(problem: Problem) -> None:
-    """Raise NotImplementedError for thermal layouts the port lacks."""
+    """Raise tpulbm's NotImplementedError for the thermal layouts it
+    refuses: x neither periodic nor walled, y neither walled nor
+    periodic."""
     if not problem.periodic_x and not problem.walls_x:
         raise NotImplementedError("thermal models are periodic in x or "
                                   "x-walled (side-heated cavity)")
-    if not problem.walls_y:
-        raise NotImplementedError(
-            "a thermal scalar without y walls (the periodic passive "
-            "scalar) is not ported to tpulbm_torch yet (ROADMAP Queue 1 "
-            "item 13)")
+    if not problem.walls_y and not problem.periodic_y:
+        raise NotImplementedError("thermal models need y walls or "
+                                  "periodic_y")
 
 
 def make_step_thermal(problem: Problem,
@@ -111,7 +113,7 @@ def make_step_thermal(problem: Problem,
     ghost_bottom, ghost_top = ghost_rows(problem)
     yy = torch.arange(ny, device=device)[:, None]
     xx = torch.arange(nx, device=device)[None, :]
-    walls_x = problem.walls_x
+    walls_x, walls_y = problem.walls_x, problem.walls_y
 
     def step(s: torch.Tensor) -> torch.Tensor:
         s_post = collide_thermal(problem, s)
@@ -120,9 +122,9 @@ def make_step_thermal(problem: Problem,
             cix, ciy = int(c_all[i, 0]), int(c_all[i, 1])
             plane = torch.roll(s_post[i], (ciy, cix), (0, 1))
             # pulls that crossed a wall read the frozen ghost row
-            if ciy > 0:
+            if walls_y and ciy > 0:
                 plane = torch.where(yy == 0, float(ghost_bottom[i]), plane)
-            elif ciy < 0:
+            elif walls_y and ciy < 0:
                 plane = torch.where(yy == ny - 1, float(ghost_top[i]), plane)
             planes.append(plane)
         f_planes, g_planes = planes[:Qf], planes[Qf:]
@@ -138,6 +140,8 @@ def make_step_thermal(problem: Problem,
                 elif cix < 0:
                     tgt[k] = torch.where(xx == nx - 1,
                                          s_post[int(opp_all[i])], tgt[k])
+        if not walls_y:
+            return torch.stack(f_planes + g_planes)
         # no-slip y walls for f: full-way bounce-back with the node's own
         # post-collision outward values (exact wall mass)
         opp = lat.opposite
@@ -163,6 +167,14 @@ def make_step_thermal(problem: Problem,
 def temperature(problem: Problem, s: torch.Tensor) -> torch.Tensor:
     """T field (ny, nx) from the stacked state."""
     return torch.sum(s[problem.lattice.Q:], dim=0)
+
+
+def scalar_variance(problem: Problem, s: torch.Tensor) -> torch.Tensor:
+    """The scalar's variance <(T - <T>)²>, a 0-d tensor: the periodic
+    passive scalar's mixing measure, which diffusion destroys and stirring
+    speeds up (its trace takes the Nusselt number's place)."""
+    T = temperature(problem, s)
+    return torch.mean((T - torch.mean(T)) ** 2)
 
 
 def nusselt(problem: Problem, s: torch.Tensor) -> torch.Tensor:

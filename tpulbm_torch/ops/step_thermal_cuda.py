@@ -3,9 +3,12 @@
 Port of tpulbm/ops/step_thermal_pallas.py::make_local_step_thermal_pallas
 (one step per launch, one full-width device): csrc/step_thermal.cu, built
 once for BGK and once for its Smagorinsky LES branch (MODES,
--DTPULBM_COLLISION=5). The kernel is built with nvcc at first use and
-called through ctypes on PyTorch's current stream. Its plain version is
-ops/step_thermal.py::make_step_thermal.
+-DTPULBM_COLLISION=5). Rayleigh-Bénard and the heated cavity pass the wall
+flags on; the periodic passive scalar (no y walls, buoyancy 0) passes them
+off, and the kernel, which loads its tile at wrapped coordinates, wraps y
+too, as the Pallas kernel does with flags[0:2] off. The kernel is built
+with nvcc at first use and called through ctypes on PyTorch's current
+stream. Its plain version is ops/step_thermal.py::make_step_thermal.
 
 Dispatch follows the tensor: for a CPU tensor the wrapper runs the plain
 version; for a CUDA tensor it launches the kernel or raises. There is no
@@ -49,7 +52,7 @@ class ThermalConstants:
     baxis: int                       # buoyancy axis: 1 = y, 0 = x
     walls_x: bool                    # adiabatic no-slip x walls (cavity)
     # the bottom and top rows are walls (the Pallas kernel's flags[0:2]);
-    # without them a pull across y wraps (the passive scalar, not ported)
+    # without them a pull across y wraps (the passive scalar)
     walls_y: bool
     mode: str = "bgk"
 
@@ -149,9 +152,10 @@ step_cuda._zero_counts(collide_stream_thermal, MODES)
 def make_local_step_thermal_cuda(problem: Problem, device):
     """step(s, out) -> out: one timestep of a thermal problem
     (Rayleigh-Bénard or the side-heated cavity, BGK or the Smagorinsky
-    closure) through the kernel (CUDA) or its plain version (CPU), on
-    (14, ny, nx) states living on `device`. The counterpart of
-    make_local_step_thermal_pallas on one full-width device."""
+    closure; the periodic passive scalar) through the kernel (CUDA) or its
+    plain version (CPU), on (14, ny, nx) states living on `device`. The
+    counterpart of make_local_step_thermal_pallas on one full-width
+    device."""
     if problem.thermal is None or problem.state_q != Q_STATE:
         raise NotImplementedError("the thermal kernel covers the D2Q9 + "
                                   "D2Q5 thermal problems only")

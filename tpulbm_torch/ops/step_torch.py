@@ -2,11 +2,12 @@
 plain version.
 
 Port of tpulbm/ops/step_jax.py::make_step_rolled with _collide_block's
-collisions, the uniform body force and the bounce-back obstacle, in 2-D
-(D2Q9) and 3-D (D3Q19). Unpadded state (Q, *spatial); streaming is a
-per-population `torch.roll` (pull scheme) followed by the ghost sanitize
-at the non-periodic edges (x is left to wrap under periodic_x), then the
-BC stack. Runs in f32 and f64.
+collisions, the uniform body force, the force profile (_add_force_field)
+and the bounce-back obstacle, in 2-D (D2Q9) and 3-D (D3Q19). Unpadded
+state (Q, *spatial); streaming is a per-population `torch.roll` (pull
+scheme) followed by the ghost sanitize at the non-periodic edges (x is
+left to wrap under periodic_x, y under periodic_y), then the BC stack.
+Runs in f32 and f64.
 
 Step order parity with the reference loop: collision -> streaming ->
 boundary conditions.
@@ -15,6 +16,7 @@ from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
 from .. import physics
@@ -60,16 +62,39 @@ def _collide(problem: Problem, f: torch.Tensor) -> torch.Tensor:
 
 
 def collide_block(problem: Problem, f: torch.Tensor,
-                  solid: torch.Tensor | None = None) -> torch.Tensor:
+                  solid: torch.Tensor | None = None,
+                  source: torch.Tensor | None = None) -> torch.Tensor:
     """Post-collision populations, the body force's source included. With
     obstacle_bc="equilibrium" solid cells are re-pinned to the rest
     equilibrium by apply_obstacle every step, so they need no special case
     here; with "bounce_back" and a `solid` mask they skip the collision
-    (tpulbm's step_jax._collide_block) and keep their populations."""
+    (tpulbm's step_jax._collide_block) and keep their populations.
+    `source` (force_source) is the force profile's, added after, on every
+    cell (tpulbm's _add_force_field)."""
     f_post = _collide(problem, f)
     if solid is not None and problem.obstacle_bc == "bounce_back":
         f_post = torch.where(solid[None], f, f_post)
+    if source is not None:
+        f_post = f_post + source
     return f_post
+
+
+def force_source(problem: Problem, cd: dict, dtype: torch.dtype,
+                 device) -> torch.Tensor | None:
+    """The force profile's source S_i at every cell of the block whose
+    coordinates `cd` holds (coords' dict), broadcastable against its
+    state: each cell takes the value at the coordinate of the cell that
+    owns it, its own taken mod the extent (a halo cell of a periodic axis
+    takes its owner's). None without a profile."""
+    prof = problem.force_profile
+    if prof is None:
+        return None
+    name = ("xx", "yy")[prof.index]
+    n = cd["n" + name[0]]
+    table = prof.table(problem.lattice, n, dtype, device)
+    coord = cd[name]
+    return table[:, coord.reshape(-1) % n].reshape(
+        (problem.lattice.Q,) + tuple(coord.shape))
 
 
 def coords(problem: Problem, device) -> dict:
@@ -126,7 +151,8 @@ def make_step_rolled(problem: Problem, device, cd: dict | None = None
     for i in range(lat.Q):
         x_out = (None if problem.periodic_x
                  else leaves(xx, cd["nx"], int(c[i, 0])))
-        y_out = leaves(yy, cd["ny"], int(c[i, 1]))
+        y_out = (None if problem.periodic_y
+                 else leaves(yy, cd["ny"], int(c[i, 1])))
         if ndim == 3:
             y_out = either(y_out, leaves(cd["zz"], cd["nz"], int(c[i, 2])))
         only_x = None
@@ -136,9 +162,11 @@ def make_step_rolled(problem: Problem, device, cd: dict | None = None
         shifts = tuple(int(c[i, d]) for d in range(lat.D))[::-1]
         plan.append((shifts, only_x, y_out, float(eq_ring[i])))
     dims = tuple(range(ndim))
+    dtype = torch.float64 if problem.dtype == np.float64 else torch.float32
+    source = force_source(problem, cd, dtype, device)
 
     def step(f: torch.Tensor) -> torch.Tensor:
-        f_post = collide_block(problem, f, cd["solid"])
+        f_post = collide_block(problem, f, cd["solid"], source)
         planes = []
         for i, (shifts, only_x, y_out, eq_i) in enumerate(plan):
             plane = torch.roll(f_post[i], shifts, dims)

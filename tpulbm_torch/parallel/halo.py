@@ -152,27 +152,31 @@ def ring_rows_ext(shards: Grid, cols: Grid, *, eq_ring: np.ndarray,
 
 
 def exchange(shards: Grid, *, eq_ring: np.ndarray, depth: int,
-             periodic_x: bool, x_rings: bool) -> Grid:
+             periodic_x: bool, x_rings: bool,
+             periodic_y: bool = False) -> Grid:
     """The rings of every shard for a launch at `depth`: grid of
     (rb, rt, rl, rr). x_rings: ring_cols then ring_rows_ext (rb and rt
     nxl + 2 depth wide); else ring_rows (nxl wide) and no x rings (None),
-    for blocks that span every column."""
+    for blocks that span every column. periodic_y wraps the ring rows."""
     if not x_rings:
-        rows = ring_rows(shards, eq_ring=eq_ring, depth=depth)
+        rows = ring_rows(shards, eq_ring=eq_ring, depth=depth,
+                         periodic_y=periodic_y)
         return [[(rb, rt, None, None) for rb, rt in r] for r in rows]
     cols = ring_cols(shards, eq_ring=eq_ring, depth=depth,
                      periodic_x=periodic_x)
-    rows = ring_rows_ext(shards, cols, eq_ring=eq_ring, depth=depth)
+    rows = ring_rows_ext(shards, cols, eq_ring=eq_ring, depth=depth,
+                         periodic_y=periodic_y)
     return [[rows[iy][ix] + cols[iy][ix] for ix in range(len(cols[iy]))]
             for iy in range(len(cols))]
 
 
 def pad_block(shards: Grid, *, eq_ring: np.ndarray, depth: int,
-              periodic_x: bool) -> Grid:
+              periodic_x: bool, periodic_y: bool = False) -> Grid:
     """Every shard with its rings around it, (Q, nyl + 2 depth,
     nxl + 2 depth): the block a depth-`depth` step of a shard reads."""
     rings = exchange(shards, eq_ring=eq_ring, depth=depth,
-                     periodic_x=periodic_x, x_rings=True)
+                     periodic_x=periodic_x, x_rings=True,
+                     periodic_y=periodic_y)
     return [[torch.cat([rb, torch.cat([rl, shards[iy][ix], rr], dim=-1),
                         rt], dim=-2)
              for ix, (rb, rt, rl, rr) in enumerate(row)]
@@ -189,14 +193,15 @@ def make_padded(f_local: torch.Tensor, eq_ring: np.ndarray) -> torch.Tensor:
 
 
 def refresh_ring_2d(fpads: Grid, *, eq_ring: np.ndarray,
-                    periodic_x: bool) -> Grid:
+                    periodic_x: bool, periodic_y: bool = False) -> Grid:
     """Refresh, in place, the 1-wide ring of every padded local block
     (Q, nyl + 2, nxl + 2) of the grid: x columns first, then the rows
     across the full padded width (the corners carry the diagonal
     neighbours' data); returns the grid."""
     centers = [[fp[:, 1:-1, 1:-1] for fp in row] for row in fpads]
     rings = exchange(centers, eq_ring=eq_ring, depth=1,
-                     periodic_x=periodic_x, x_rings=True)
+                     periodic_x=periodic_x, x_rings=True,
+                     periodic_y=periodic_y)
     for row, ring_row in zip(fpads, rings):
         for fp, (rb, rt, rl, rr) in zip(row, ring_row):
             fp[:, 1:-1, 0:1] = rl
@@ -206,12 +211,13 @@ def refresh_ring_2d(fpads: Grid, *, eq_ring: np.ndarray,
     return fpads
 
 
-def pad_mask(solids: Grid, *, periodic_x: bool, depth: int = 1) -> Grid:
+def pad_mask(solids: Grid, *, periodic_x: bool, depth: int = 1,
+             periodic_y: bool = False) -> Grid:
     """Every shard's bool solid mask padded by `depth` with its
     neighbours' mask values (fluid, False, past physical edges): the
     bounce-back obstacle needs it, as a shard skips the collision on halo
     cells its neighbour holds solid."""
     planes = [[s.to(torch.float32)[None] for s in row] for row in solids]
     padded = pad_block(planes, eq_ring=np.zeros(1, np.float32), depth=depth,
-                       periodic_x=periodic_x)
+                       periodic_x=periodic_x, periodic_y=periodic_y)
     return [[p[0] > 0.5 for p in row] for row in padded]

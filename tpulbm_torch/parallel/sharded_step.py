@@ -2,8 +2,10 @@
 
 Port of tpulbm/parallel/sharded_step.py, the generic 2-D part: the D2Q9
 single-phase problems (the cylinder with either obstacle rule and corner
-rule, the periodic channel, the cavity) under every collision the D2Q9
-kernels hold. A sharded state is the (my, mx) grid of local blocks
+rule, the periodic channel, the cavity, the periodic boxes with or without
+Kolmogorov's force profile) under every collision the D2Q9 kernels hold.
+Under a periodic y the ring rows wrap (tpulbm's ring_kw) and no shard owns
+a physical y edge. A sharded state is the (my, mx) grid of local blocks
 (Q, nyl, nxl), shard (iy, ix) on mesh.device(iy, ix) (parallel/mesh.py);
 one process drives every shard, as `shard_map` does. Each launch's rings
 come from parallel/halo.py and each shard steps through the ring builds of
@@ -15,7 +17,8 @@ The dispatch is tpulbm's (:228-393):
   interior launch that reads no ring plus two edge launches that read the
   exchanged rings (the ranged N-step kernel, tpulbm's body_pallas_overlapN,
   at the first N of 4, 3, 2 that divides the chunk; else the ranged 1-step
-  kernel, body_pallas_overlap);
+  kernel, body_pallas_overlap, which tpulbm builds without force_fn: a
+  force profile then takes the full-width kernels below);
 * a mesh that does not cut x: the full-width kernels with ring rows
   (body_pallas, rows 1-3);
 * a mesh that cuts x, or TPULBM_FORCE_TILED: the x rings too (the x-tiled
@@ -59,10 +62,6 @@ def check_mesh_problem(problem: Problem, mesh: Mesh) -> None:
             f"the {'thermal' if problem.thermal else 'multiphase'} step on "
             f"mesh {mesh.shape} is not ported to tpulbm_torch yet (ROADMAP "
             "Queue 1 item 19, several devices)")
-    if problem.periodic_y:
-        raise NotImplementedError(
-            "fully periodic boxes are not ported to tpulbm_torch yet "
-            "(ROADMAP Queue 1 item 13)")
 
 
 def origin(mesh: Mesh, local_shape: tuple[int, int], iy: int,
@@ -107,7 +106,10 @@ def shard_initial_state(problem: Problem, mesh: Mesh):
     """The sharded initial state, each block built on its own device (the
     uniform equilibrium and the solid cells' rest equilibrium, as
     problem.initial_state() has them), and the sharded solid mask or None:
-    only the mask crosses from the host."""
+    only the mask crosses from the host. A start at an analytic field
+    (init_fields: the periodic boxes) is built on the host and cut."""
+    if problem.init_fields is not None:
+        return split(mesh, problem.initial_state()), None
     local = mesh.local_shape(problem.spatial_shape)
     q = problem.lattice.Q
     feq = problem.ghost_ring_values()[:q]
@@ -172,7 +174,9 @@ def plan(problem: Problem, mesh: Mesh, chunk_len: int) -> tuple[str, int]:
                 if (n >= 2 and chunk_len % n == 0 and _fits(local, n)
                         and local[0] >= 3 * (n + 1)):
                     return "overlap", n
-        if local[0] >= 3 * 2:
+        # tpulbm builds its 1-step ranged kernel without force_fn
+        # (step_pallas.py:1276-1277) and takes the full-width kernels
+        if local[0] >= 3 * 2 and problem.force_profile is None:
             return "overlap", 1
     mode = "tiled" if x_sharded else "rows"
     if not no_fused:
@@ -211,8 +215,7 @@ def make_chunk_fn(problem: Problem, mesh: Mesh, chunk_len: int,
                    or os.environ.get("TPULBM_HALO_OVERLAP"))
     if mesh.size == 1 and (backend == "jax" or not forced_path
                            or problem.lattice.D != 2 or problem.thermal
-                           is not None or problem.shan_chen
-                           or problem.periodic_y):
+                           is not None or problem.shan_chen):
         one = stepper.make_chunk_fn(problem, mesh.device(0, 0), chunk_len,
                                     backend=backend)
 
@@ -238,7 +241,8 @@ def _plain_chunk(problem: Problem, mesh: Mesh, chunk_len: int):
     eq_ring = problem.ghost_ring_values()
     has_solid = problem.solid is not None
     pads = (halo.pad_mask(_solid_grid(problem, mesh),
-                          periodic_x=problem.periodic_x)
+                          periodic_x=problem.periodic_x,
+                          periodic_y=problem.periodic_y)
             if has_solid else None)
     steps = [[step_rings_torch.make_step_padded(
         problem, tuple(o - 1 for o in origin(mesh, local, iy, ix)),
@@ -251,7 +255,8 @@ def _plain_chunk(problem: Problem, mesh: Mesh, chunk_len: int):
                  for row in shards]
         for _ in range(chunk_len):
             halo.refresh_ring_2d(fpads, eq_ring=eq_ring,
-                                 periodic_x=problem.periodic_x)
+                                 periodic_x=problem.periodic_x,
+                                 periodic_y=problem.periodic_y)
             fpads = [[step(fp) for step, fp in zip(srow, frow)]
                      for srow, frow in zip(steps, fpads)]
         return [[fp[:, 1:-1, 1:-1].contiguous() for fp in row]
@@ -276,7 +281,8 @@ def _kernel_chunk(problem: Problem, mesh: Mesh, chunk_len: int):
     consts = step_cuda.kernel_constants(problem)
     has_solid = problem.solid is not None
     masks = halo.pad_mask(_solid_grid(problem, mesh),
-                          periodic_x=problem.periodic_x, depth=depth)
+                          periodic_x=problem.periodic_x,
+                          periodic_y=problem.periodic_y, depth=depth)
     shards_geo, plains = [], []
     for iy in range(mesh.shape[0]):
         geo_row, plain_row = [], []
@@ -298,7 +304,8 @@ def _kernel_chunk(problem: Problem, mesh: Mesh, chunk_len: int):
 
     def exchange(cur: Grid) -> Grid:
         return halo.exchange(cur, eq_ring=eq_ring, depth=depth,
-                             periodic_x=problem.periodic_x, x_rings=x_rings)
+                             periodic_x=problem.periodic_x,
+                             periodic_y=problem.periodic_y, x_rings=x_rings)
 
     def launch(cur, out, rings, iy, ix, rows=None):
         step_cuda.collide_stream_rings(

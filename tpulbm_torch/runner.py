@@ -1,6 +1,6 @@
 """Run orchestration: banners, chunked time stepping, force and Nusselt
-recording, diagnostics, VTK frames, the stability abort and the final
-artifacts, on one device or on a mesh of shards.
+(or scalar variance) recording, diagnostics, VTK frames, the stability
+abort and the final artifacts, on one device or on a mesh of shards.
 
 Port of tpulbm/runner.py. Cadence parity with the
 reference loop: forces (problems with an obstacle) and the Nusselt number
@@ -280,9 +280,14 @@ class Runner:
             force_writer = io_mod.ForceWriter(
                 forces_path, append=start_step > 0, resume_step=start_step)
         if problem.thermal is not None:
+            # between y walls the Nusselt trace; the periodic passive
+            # scalar's variance rides its slot (tpulbm/runner.py:385-393)
+            trace = ({} if problem.walls_y else
+                     dict(header="timestep,scalar_variance\n", fmt="{:.8e}"))
             nu_writer = io_mod.NusseltWriter(
-                os.path.join(p.output_dir, "nusselt.csv"),
-                append=start_step > 0, resume_step=start_step)
+                os.path.join(p.output_dir, "nusselt.csv" if problem.walls_y
+                             else "scalar_variance.csv"),
+                append=start_step > 0, resume_step=start_step, **trace)
         meter = ThroughputMeter(p.num_cells, self.device)
         if self.verbose:
             print("Starting LBM simulation...")
@@ -416,11 +421,11 @@ class Runner:
         """The final artifacts (tpulbm/runner.py:636-706). 2-D:
         velocity_field.csv, simulation_params.csv and, with an obstacle,
         the time-averaged drag summary; thermal: temperature_field.csv and
-        the final Nusselt number; 3-D: fields3d.npz and, with VTK on, a
-        final frame. With
-        `fields_prev` (the fields one step before the end), interior values
-        come from the last collision and the inlet and outlet columns from
-        the final BC application, as in the reference."""
+        the final Nusselt number (the passive scalar: its variance); 3-D:
+        fields3d.npz and, with VTK on, a final frame. With `fields_prev`
+        (the fields one step before the end), interior values come from
+        the last collision and the inlet and outlet columns from the final
+        BC application, as in the reference."""
         p = self.params
         problem = self.problem
         if self.verbose:
@@ -454,7 +459,7 @@ class Runner:
         io_mod.write_simulation_params(u[0], u[1], p, p.output_dir)
         written = ["velocity_field.csv", "simulation_params.csv"]
         stats = None
-        if problem.thermal is not None:
+        if problem.thermal is not None and problem.walls_y:
             th = problem.thermal
             T = self._fetch_temp(f)
             io_mod.write_temperature_field(T, p, p.output_dir)
@@ -466,6 +471,14 @@ class Runner:
             stats = {"nusselt": float(nu)}
             if self.verbose:
                 print(f"Nusselt number = {nu:.4f}")
+        elif problem.thermal is not None:
+            T = self._fetch_temp(f)
+            io_mod.write_temperature_field(T, p, p.output_dir)
+            written += ["scalar_variance.csv", "temperature_field.csv"]
+            var = float(np.mean((T - T.mean()) ** 2))
+            stats = {"scalar_variance": var}
+            if self.verbose:
+                print(f"Scalar variance = {var:.6e}")
         if problem.solid is not None:
             stats = io_mod.calculate_time_averaged_drag(
                 os.path.join(p.output_dir, "forces.csv"),

@@ -70,17 +70,22 @@ class ForceWriter:
 
 class NusseltWriter:
     """Streaming nusselt.csv writer for thermal runs (the Nu(t) trace);
-    the same resume contract as ForceWriter."""
+    the same resume contract as ForceWriter. `header` and `fmt` serve the
+    periodic passive scalar's variance trace (scalar_variance.csv), as in
+    tpulbm."""
 
     HEADER = "timestep,nusselt\n"
 
     def __init__(self, path: str, append: bool = False,
-                 resume_step: int | None = None):
+                 resume_step: int | None = None, header: str | None = None,
+                 fmt: str = "{:.8f}"):
         self.path = path
-        self._fh = _open_series(path, self.HEADER, append, resume_step)
+        self._fmt = fmt
+        self._fh = _open_series(path, header or self.HEADER, append,
+                                resume_step)
 
     def record(self, timestep: int, nu: float) -> None:
-        self._fh.write(f"{timestep},{nu:.8f}\n")
+        self._fh.write(f"{timestep},{self._fmt.format(nu)}\n")
         if timestep % 10000 == 0:
             self._fh.flush()
 
