@@ -136,11 +136,11 @@ printing its own line; any failure exits non-zero:
    states; 280 kernel steps against 280 plain steps at 128^3 (bounded by
    1e-4); tpulbm's own 3-D gate of the operator (GATES_3D), the kernels
    against the plain step;
-22. each operator's 3-D main path: the Runner at 256^3 f32, 2240 steps
-   every 140, no VTK: exactly 735 N=3, 17 N=2 and 1 one-step launches of
-   that operator's libraries and none of another kernel, 16 finite force
-   rows and a finite fields3d.npz; wall time, runner MLUPS, host fetches
-   and the final C_D;
+22. each operator's 3-D main path: the Runner at 256^3 f32, its depth
+   cut to 280 steps every 140 (CUT_3D_STEPS), no VTK: exactly 91 N=3, 3
+   N=2 and 1 one-step launches of that operator's libraries and none of
+   another kernel, 2 finite force rows and a finite fields3d.npz; wall
+   time, runner MLUPS, host fetches and the final C_D;
 23. each operator's timing at 256^3, in turns: the plain step, the 1-step
    kernel and the N = 2, 3 kernels, ms/step, MLUPS and the share of each
    kernel's bound (MODE_FLOPS_3D). The phases' total time is printed;
@@ -179,8 +179,8 @@ printing its own line; any failure exits non-zero:
    obstacle and with the channel's force: phase 25's checks (100 kernel
    steps for the advanced state, N = 2, 3; 280 steps at 128^3; the duct's
    other collisions from the perturbed state only);
-28. their main paths at 256^3: exactly 735 N=3, 17 N=2 and 1 one-step
-   launches of the cell's own library, then
+28. their main paths at 256^3, cut to 280 steps every 140: exactly 91
+   N=3, 3 N=2 and 1 one-step launches of the cell's own library, then
    tpulbm's physics gates through the kernels in f32: Poiseuille (32x32,
    RMSE < 0.005 and < 2% of u_max), the power-law channel (16x24, n 0.5
    and 1.5, < 4%), Ghia at Re 100 (64^2, 30000 steps, nine bounds) and the
@@ -259,7 +259,40 @@ printing its own line; any failure exits non-zero:
    finite under regularized;
 40. timing of the box's libraries (plain, 1-step, N = 2-4) and of one
    shard's ring launch of the 2x2 mesh at N = 1 and 4, with the bound (72
-   B a cell: the box reads no mask; the profile's adds counted).
+   B a cell: the box reads no mask; the profile's adds counted);
+41. the Bouzidi curved wall (-DTPULBM_BOUZIDI=1, built in phase 2: both
+   D2Q9 sources under each D2Q9 collision, both D3Q19 sources under each
+   D3Q19 collision, the BGK ring builds): the re200 cylinder with
+   obstacle_bc="bouzidi" (bench.py's bouzidi row) under each D2Q9
+   collision with the ladder's flags, and spinning under BGK (surface
+   speed = the inlet speed): one 1-step kernel step against the plain
+   step from the initial state, after 500 plain steps (BGK) and from the
+   perturbed state, where the library without the rewrite (the
+   equilibrium obstacle's) must miss by SEPARATION tolerances; N = 2, 3,
+   4 bitwise against N 1-step launches; 280 steps;
+42. their Runners, 2240 steps every 140: exactly 525 N=4 and 140 1-step
+   launches of the library (bgk+bouzidi, ...); BGK's 311-step run every
+   150 (100 N=3, 5 N=2, 1 1-step); a 64x32 Runner through the kernels
+   against the plain step, still and spinning;
+43. the still cylinder on meshes, every shard on the card: one launch a
+   shard from the perturbed state on (2,1) at N=4, (1,2) and (2,2) at
+   depth 1 (tpulbm's depth for it on a mesh that cuts x) and (4,1) in the
+   overlap mode, against the plain ring step and bitwise against one
+   device; on (2,1) the equilibrium rings and a link table whose rings
+   read -1 SEPARATION tolerances off; 280 steps on each, counted and
+   bitwise against one device; the Runner on each (2240 steps every 140),
+   its forces.csv and velocity_field.csv byte-identical to one device's;
+44. the sphere at 256^3 (bench.py's bouzidi3d row: radius 0.23, x = y =
+   0.5) under each D3Q19 collision: parity from the perturbed state with
+   N=3 bitwise (BGK in full: from the initial state, after 100 kernel
+   steps, N = 2, 3, 280 steps at 128^3, the Runner's 735 N=3, 17 N=2 and
+   1 one-step launches; the others a 280-step Runner, the depth cut);
+   tpulbm's Magnus gate through the kernels (200x50, 4000 steps: the lift
+   flips with the spin, the drag symmetric);
+45. timing of each Bouzidi library (plain, 1-step, the main path's
+   depths) and of one shard's ring launch on (2,1) at N=4 and (1,2) at
+   depth 1, with the bound counting the link table's bytes at the cells
+   that have a cut link.
 
 Run directories go to build/chip_smoke/ (git-ignored; the final CSVs have
 a million rows). The last two lines are a JSON line per kernel and the
@@ -281,8 +314,14 @@ rings, "rows" without, "overlap" ranged; the tiled 1-step and N=4
 launches from the main path, the rest from phase 32's runs), phase 36 for
 the box's libraries (d2q9_collide_stream[bgk+box], ...[bgk+box+force]),
 phase 37's 2x2 Runner for their ring builds
-(d2q9_rings_tiled[_n4][bgk+box...]) and phase 38 for the scalar
-(thermal_collide_stream[passive_scalar]). A kernel's
+(d2q9_rings_tiled[_n4][bgk+box...]), phase 38 for the scalar
+(thermal_collide_stream[passive_scalar]), phase 42 for the Bouzidi
+libraries (d2q9_collide_stream[_nN][<op>+bouzidi], the spinning
+cylinder's d2q9_collide_stream[_n4]_spinning[bgk+bouzidi]), phase 43's
+280-step runs for their ring builds (d2q9_rings_rows_n4[bgk+bouzidi], counting
+the overlap mode's ranged launches, and d2q9_rings_tiled[bgk+bouzidi])
+and phase 44 for the sphere's (d3q19_collide_stream[_nN][<op>+bouzidi]).
+A kernel's
 `bound_ms` is the
 least time the card could take for one step of its work at the shape it
 was timed at: the larger of the bytes a step must move (each population
@@ -395,6 +434,14 @@ GATES_3D = {
 # the 280-step drift of the 3-D operators runs at 128^3: the plain MRT and
 # power-law steps are too slow at 256^3 for the script's time
 DRIFT_N_3D = 128
+# The 3-D Runners of phases 22, 28 and 44 (the Bouzidi sphere's other
+# collisions): their depth cut to 280 steps every 140 to keep the script
+# near half its time limit, the 3-D main path (phase 7) and the Bouzidi
+# sphere's (phase 44, BGK) staying at 2240; tpulbm's plan gives these
+# launches a run (depth: launches) for the Runner's chunks 140 x 15, 139,
+# 1 and 140, 139, 1
+CUT_3D_STEPS = 280
+LAUNCHES_3D = {2240: {3: 735, 2: 17, 1: 1}, 280: {3: 91, 2: 3, 1: 1}}
 # tpulbm's power-law gate (tests/test_power_law.py's _PLAW_RTOL: a Newton
 # solve on expf and logf) and KBC's (tests/test_kbc.py: max|d|/max|f|),
 # the latter used only where the one-step tolerance does not hold
@@ -1535,31 +1582,33 @@ def sphere_operator_parity(dev, op: str):
 
 
 def sphere_operator_main_path(dev, op: str, params, mode: str) -> dict:
-    """Phase 22 for one operator: the Runner at 256^3 f32, 2240 steps every
-    140, no VTK, counted: exactly 735 N=3, 17 N=2 and 1 one-step launches,
-    all of the operator's libraries, and none of another kernel; 16 finite
-    force rows and a finite fields3d.npz. Returns the launches by depth."""
+    """Phase 22 for one operator: the Runner at 256^3 f32, CUT_3D_STEPS
+    steps every 140, no VTK, counted: exactly tpulbm's plan's launches
+    (LAUNCHES_3D), all of the operator's libraries, and none of another
+    kernel; finite force rows and a finite fields3d.npz. Returns the
+    launches by depth."""
     from tpulbm_torch.ops import step_cuda
 
     n = SPHERE_N
     run_dir = OUT_DIR / f"sphere{n}_{op}"
+    steps, want = CUT_3D_STEPS, LAUNCHES_3D[CUT_3D_STEPS]
     result, counts, wall = run_counted(
-        params.replace(num_timesteps=2240, output_frequency=140,
+        params.replace(num_timesteps=steps, output_frequency=140,
                        output_dir=str(run_dir)), dev)
     one = step_cuda.launches_by_mode(step_cuda.collide_stream_3d)
     blocked = step_cuda.launches_by_mode(step_cuda.collide_stream_3d_blocked)
     by_mode = (one[mode], *(blocked[mode][d] for d in DEPTHS_3D))
-    require(counts == {**only("3d3", 735), "3d2": 17, "3d": 1}
-            and by_mode == (1, 17, 735),
+    require(counts == {**only("3d3", want[3]), "3d2": want[2], "3d": want[1]}
+            and by_mode == (want[1], want[2], want[3]),
             f"3-D {op}: launch counts {counts} ({by_mode} of {mode}), not "
-            "735 N=3, 17 N=2, 1 one-step and 0 others")
-    forces = check_forces(run_dir, list(range(0, 2240, 140)))
+            f"{want} by depth and 0 others")
+    forces = check_forces(run_dir, list(range(0, steps, 140)))
     with np.load(run_dir / "fields3d.npz") as fields:
         for name in ("rho", "ux", "uy", "uz"):
             require(fields[name].shape == (n, n, n)
                     and bool(np.isfinite(fields[name]).all()),
                     f"3-D {op}: fields3d.npz {name} not a finite {n}^3 field")
-    print(f"3-D operator main path {op}: sphere {n}^3 f32, 2240 steps, "
+    print(f"3-D operator main path {op}: sphere {n}^3 f32, {steps} steps, "
           f"launches {counts['3d3']} N=3 + {counts['3d2']} N=2 + "
           f"{counts['3d']} one-step of {mode}, {result.host_fetches} host "
           f"fetches in the loop, {wall:.2f} s wall, runner "
@@ -1951,7 +2000,7 @@ def force_check(cell: Cell, f: torch.Tensor, axis: str) -> tuple[float,
     return float((got - want).abs().max()), sep
 
 
-def cell_parity(cell: Cell, full: bool) -> float:
+def cell_parity(cell: Cell, full: bool, advanced: bool = True) -> float:
     """Phase 25 (2-D) or 27 (3-D) on one cell: one 1-step kernel step
     against one plain step from the perturbed state (and, `full`, from the
     initial state and an advanced one: 500 plain steps in 2-D, 100 kernel
@@ -1961,15 +2010,19 @@ def cell_parity(cell: Cell, full: bool) -> float:
     must show (source_check) if the cell's library has one;
     the N-step kernels bitwise against N 1-step launches from each state;
     with `full`, 280 kernel steps against 280 plain steps (3-D at
-    DRIFT_N_3D^3). Returns the larger one-step error."""
+    DRIFT_N_3D^3); without `advanced`, no advanced state. Returns the
+    larger one-step error."""
     from tpulbm_torch.ops.step_cuda import FORCE, SOURCE
     s1 = cell.steps[1]
     fp = perturbed(cell.problem, cell.f0)
     states = [("perturbed", fp)]
-    if full:
+    if full and advanced:
         adv = (kernel_chunk(s1, cell.f0.clone(), 100) if cell.three_d
                else plain_chunk(cell.pstep, cell.f0.clone(), 500))
         states = [("initial", cell.f0), ("advanced", adv)] + states
+    elif full:
+        states = [("initial", cell.f0)] + states
+    names = [name for name, _ in states]
     errs, held, seps = [], [], []
     for name, f in states:
         got = s1(f, torch.empty_like(f))
@@ -2037,7 +2090,6 @@ def cell_parity(cell: Cell, full: bool) -> float:
                  f" {err_280:.3e} (bound {DRIFT_280_BOUND})")
         del sk, sp
     shape = "x".join(str(v) for v in cell.problem.spatial_shape[::-1])
-    names = (["initial", "advanced"] if full else []) + ["perturbed"]
     print(f"domain parity {cell.label} [{cell.library}] {shape}: 1 step max "
           f"abs err "
           + ", ".join(f"{e:.3e} ({n})" for e, n in zip(errs, names))
@@ -2050,26 +2102,28 @@ def cell_parity(cell: Cell, full: bool) -> float:
     return max(errs)
 
 
-def cell_main_path(dev, cell: Cell, run_dir: Path,
-                   mass: bool = False) -> dict:
+def cell_main_path(dev, cell: Cell, run_dir: Path, mass: bool = False,
+                   steps: int = 2240) -> dict:
     """Phase 26 (2-D) or 28 (3-D) on one cell: the Runner for 2240 steps
-    every 140, no VTK, counted: exactly the one-device plan's launches
-    (2-D 525 N=4 and 140 1-step, 3-D 735 N=3, 17 N=2 and 1 one-step), every
-    one from the cell's own library, and none of another kernel; a finite
-    field; with `mass` (the closed cavity) a final checkpoint whose total
-    mass lies within CAVITY_MASS_TOL of the start. Returns the launches by
-    depth."""
+    (3-D: `steps`, 2240 or CUT_3D_STEPS) every 140, no VTK, counted:
+    exactly the one-device plan's launches (2-D 525 N=4 and 140 1-step,
+    3-D LAUNCHES_3D), every one from the cell's own library, and none of
+    another kernel; a finite field; with `mass` (the closed cavity) a final
+    checkpoint whose total mass lies within CAVITY_MASS_TOL of the start.
+    Returns the launches by depth."""
     from tpulbm_torch.ops import step_cuda
+    steps = steps if cell.three_d else 2240
     params = cell.params.replace(
-        num_timesteps=2240, output_frequency=140, output_dir=str(run_dir),
+        num_timesteps=steps, output_frequency=140, output_dir=str(run_dir),
         checkpoint_every=17 if mass else 0)
     result, counts, wall = run_counted(params, dev)
     lib = cell.library
     if cell.three_d:
-        want = {**only("3d3", 735), "3d2": 17, "3d": 1}
+        n3 = LAUNCHES_3D[steps]
+        want = {**only("3d3", n3[3]), "3d2": n3[2], "3d": n3[1]}
         by_lib = (step_cuda.collide_stream_3d.launches_by_library,
                   step_cuda.collide_stream_3d_blocked.launches_by_library)
-        ok = by_lib == ({lib: 1}, {lib: {2: 17, 3: 735}})
+        ok = by_lib == ({lib: n3[1]}, {lib: {2: n3[2], 3: n3[3]}})
         launches = {1: counts["3d"], 2: counts["3d2"], 3: counts["3d3"]}
     else:
         want = {**only(4, 525), 1: 140}
@@ -2092,7 +2146,7 @@ def cell_main_path(dev, cell: Cell, run_dir: Path,
                 f"{cell.label}: velocity_field.csv not a finite field")
     extra = ""
     if cell.problem.solid is not None:
-        forces = check_forces(run_dir, list(range(0, 2240, 140)))
+        forces = check_forces(run_dir, list(range(0, steps, 140)))
         extra = f", final C_D {forces[-1, 3]:.6f}"
     else:
         require(not (run_dir / "forces.csv").exists(),
@@ -2110,7 +2164,7 @@ def cell_main_path(dev, cell: Cell, run_dir: Path,
     shape = (params.nx, params.ny) + ((params.nz,) if params.is_3d else ())
     print(f"domain main path {cell.label}: {params.problem} "
           + "x".join(str(v) for v in shape)
-          + f" f32, 2240 steps, launches "
+          + f" f32, {steps} steps, launches "
           + " + ".join(f"{n} {'1-step' if d == 1 else f'N={d}'}"
                        for d, n in sorted(launches.items(), reverse=True))
           + f" of {lib} and 0 others, {result.host_fetches} host fetches in "
@@ -2318,7 +2372,7 @@ def domain_phases(dev, card: str) -> list[dict]:
         cell = Cell(dev, label, params)
         err = cell_parity(cell, full)
         run_dir = OUT_DIR / ("domain_" + label.replace(" ", "_"))
-        launches = cell_main_path(dev, cell, run_dir)
+        launches = cell_main_path(dev, cell, run_dir, steps=CUT_3D_STEPS)
         shutil.rmtree(run_dir)      # its 256^3 fields, checked
         ms, b = cell_timing(cell, card)
         entries += cell_entries(cell, launches, err, ms, b)
@@ -2393,12 +2447,12 @@ class MeshCase:
         masks = halo.pad_mask(sharded_step.shard_mask(self.mesh, solid),
                               periodic_x=problem.periodic_x,
                               periodic_y=problem.periodic_y, depth=depth)
+        grid = sharded_step.kernel_shards(problem, self.mesh, depth, x_rings,
+                                          masks)
         self.shards, self.plains = {}, {}
         for iy, ix in self.mesh.shards():
             o = sharded_step.origin(self.mesh, self.local, iy, ix)
-            self.shards[iy, ix] = step_cuda.Shard(
-                (iy, ix), o, self.local, problem.spatial_shape, depth,
-                x_rings, masks[iy][ix].to(torch.uint8).contiguous())
+            self.shards[iy, ix] = grid[iy][ix]
             self.plains[iy, ix] = step_rings_torch.make_ring_step(
                 problem, o, self.local, depth,
                 masks[iy][ix] if problem.solid is not None else None, dev)
@@ -3330,6 +3384,422 @@ def box_phases(dev, card: str) -> list[dict]:
     return entries
 
 
+# ---- phases 41-45: the Bouzidi curved wall, still and spinning, on the
+# ---- cylinder, the sphere and meshes of shards
+
+# bench.py's bouzidi3d row: the sphere at 256^3 with a fractional radius,
+# centred in x and y (bench.py:104-114)
+BZ_SPHERE = dict(cylinder_radius=0.23, cylinder_x=0.5, cylinder_y=0.5)
+# the collisions of the Bouzidi cells, by mode, with the kernel ladder's
+# flags (OPERATORS, OPERATORS_3D)
+BZ_OPS = {"bgk": {}, "trt": OPERATORS["trt"], "mrt": OPERATORS["mrt"],
+          "regularized": OPERATORS["regularized"], "kbc": OPERATORS["kbc"],
+          "smagorinsky": OPERATORS["les"],
+          "power_law": OPERATORS["power_law"]}
+BZ_OPS_3D = {"bgk": {}, **{("smagorinsky" if k == "les" else k): v
+                           for k, v in OPERATORS_3D.items()}}
+# tpulbm's Magnus gate (tests/test_bouzidi.py:473-503): 200x50, tau 0.62,
+# U 0.05, radius 0.08 at x 0.25, the surface speed equal to U, 4000 steps
+MAGNUS = dict(nx=200, ny=50, tau=0.62, inlet_velocity=0.05,
+              cylinder_radius=0.08, cylinder_x=0.25, precision="f32",
+              obstacle_bc="bouzidi")
+
+
+def bz_builds():
+    """(source, mode, variant) of the Bouzidi libraries: both D2Q9 sources
+    under every D2Q9 collision, both D3Q19 sources under every D3Q19
+    collision, and both D2Q9 ring builds under BGK."""
+    from tpulbm_torch.ops import step_cuda
+    bz = step_cuda.BOUZIDI
+    d2 = ("step_d2q9.cu", "step_d2q9_blocked.cu")
+    d3 = ("step_d3q19.cu", "step_d3q19_blocked.cu")
+    builds = [(src, mode, bz) for mode in step_cuda.COLLISION_MODES
+              for src in d2]
+    builds += [(src, mode, bz) for mode in step_cuda.COLLISION_MODES_3D
+               for src in d3]
+    builds += [(src, "bgk", bz | step_cuda.RINGS) for src in d2]
+    return builds
+
+
+def bz_params(three_d: bool, op: str = "bgk", spin: bool = False):
+    """The Bouzidi cylinder at re200 (bench.py's bouzidi row) or the sphere
+    at 256^3 (its bouzidi3d row) under collision `op`; `spin`: the
+    cylinder spinning at a surface speed equal to the inlet speed."""
+    if three_d:
+        return obstacle_params(True, obstacle_bc="bouzidi", **BZ_SPHERE,
+                               **BZ_OPS_3D[op])
+    params = obstacle_params(False, obstacle_bc="bouzidi", **BZ_OPS[op])
+    if spin:
+        params = params.replace(cylinder_omega=params.inlet_velocity / float(
+            params.get_cylinder_radius_cells()))
+    return params
+
+
+def bz_link_bytes(problem) -> float:
+    """Bytes of the link table a step reads, averaged over the cells: the
+    Q-1 q entries (and Q-1 wall scalars when the wall moves) of every cell
+    with a cut link, float32."""
+    from tpulbm_torch.ops import bouzidi
+    table = bouzidi.link_tables(problem)
+    q = problem.lattice.Q
+    links = int(bouzidi.link_cells(table, q).sum())
+    planes = (q - 1) * (2 if table.shape[0] == 2 * q else 1)
+    return links * planes * 4 / float(np.prod(problem.spatial_shape))
+
+
+def bz_entries(cell, launches: dict, err: float, ms: dict, b: dict) -> list:
+    """cell_entries of a Bouzidi cell, with the Pallas functions tpulbm's
+    Bouzidi dispatch runs: the N-step cascade at N = 2 too
+    (make_local_step_pallas2 refuses it), the tiled 3-D kernel at depth 1
+    (the full-plane one does not take the table)."""
+    from tpulbm_torch.ops import step_cuda
+    out = cell_entries(cell, launches, err, ms, b)
+    for e in out:
+        if "_n2[" in e["name"] and not cell.three_d:
+            e["replaces"] = step_cuda.BLOCKED_REPLACES[3]
+        if cell.three_d and e["source"] == step_cuda.SOURCE_3D:
+            e["replaces"] = "tpulbm/ops/step_pallas3d.py:745 at n_sub=1"
+    return out
+
+
+class BzCell(Cell):
+    """A Bouzidi cell: Cell, whose bound counts the link table's bytes."""
+
+    def bound(self, steps_per_launch: int) -> dict:
+        lat = "d3q19" if self.three_d else "d2q9"
+        mode = self.consts.mode
+        flops = STEP_FLOPS[lat if mode == "bgk" else f"{lat}_{mode}"]
+        q = self.problem.lattice.Q
+        return bound_of(q * 4 * 2 + 1 + bz_link_bytes(self.problem), flops,
+                        int(np.prod(self.problem.spatial_shape)),
+                        steps_per_launch)
+
+
+def bz_mesh_phase(dev, f0, problem) -> dict:
+    """Phase 43: the Bouzidi cylinder (re200, still) on meshes of shards on
+    the one card. From the perturbed state: every shard's ring launch
+    against its plain ring step, the gathered result bitwise against one
+    device, on (2,1) at N=4 (rows), (1,2) and (2,2) at depth 1 (tiled: the
+    depth tpulbm takes for it) and (4,1) in the overlap mode at N=4; on
+    (2,1) the equilibrium rings and a table whose rings read -1 (the
+    neighbours' links dropped) must miss the plain step by SEPARATION
+    tolerances. Then 280 steps on each mesh and mode, counted and bitwise
+    against one device, and the Runner on each mesh (2240 steps every 140):
+    its forces.csv and velocity_field.csv byte for byte those of the
+    one-device run, its launches depth 1 on (1,2) and (2,2). Returns the
+    ring launches by (mode, depth)."""
+    from tpulbm_torch.ops import step_cuda
+    from tpulbm_torch.parallel import sharded_step
+    from tpulbm_torch.runner import Runner
+    t0 = time.perf_counter()
+    fp = perturbed(problem, f0)
+    one = {1: step_cuda.make_local_step_cuda(problem, dev),
+           4: step_cuda.make_local_step_cuda_blocked(problem, dev, 4)}
+    errs = []
+    for shape, depth, x_rings, ranged in (((2, 1), 4, False, False),
+                                          ((1, 2), 1, True, False),
+                                          ((2, 2), 1, True, False),
+                                          ((4, 1), 4, False, True)):
+        err, text = ring_parity(problem, fp, shape, dev, depth, x_rings,
+                                lambda f, d=depth: one[d](
+                                    f, torch.empty_like(f)),
+                                ranged=ranged, sep_check=shape == (2, 1))
+        errs.append(err)
+        print(f"bouzidi mesh parity {shape} N={depth}"
+              f"{' overlap' if ranged else ''}: every shard within "
+              f"{err:.3e} of its plain ring step, bitwise one device{text}")
+    # the table's rings: -1 past the block, the link bits cleared there
+    case = MeshCase(problem, (2, 1), dev, 4, False)
+    blocks = case.split(fp)
+    rings = case.rings(blocks)
+    tol, sep = n_step_tol(4), 0.0
+    for idx, shard in case.shards.items():
+        d = shard.depth
+        inner = torch.zeros_like(shard.mask, dtype=torch.bool)
+        inner[d:-d, d:-d] = True
+        links = torch.where(inner[None] | (torch.arange(
+            shard.links.shape[0], device=dev) >= 9)[:, None, None],
+            shard.links, -1.0).contiguous()
+        mask = torch.where(inner, shard.mask,
+                           shard.mask & step_cuda.SOLID_BIT).contiguous()
+        bad = dataclasses.replace(shard, links=links, mask=mask)
+        out = torch.empty_like(blocks[idx[0]][idx[1]])
+        step_cuda.collide_stream_rings(blocks[idx[0]][idx[1]], out,
+                                       rings[idx[0]][idx[1]], bad,
+                                       case.consts, 4)
+        want = case.plains[idx](blocks[idx[0]][idx[1]],
+                                *rings[idx[0]][idx[1]])
+        sep = max(sep, float(((out - want).abs() / (
+            tol["atol"] + tol["rtol"] * want.abs())).max()))
+    require(sep > SEPARATION, f"bouzidi (2,1) N=4: a table without its "
+            f"rings only {sep:.1f}x the tolerance off")
+    print(f"bouzidi mesh (2,1) N=4: the table's rings at -1 {sep:.0f}x the "
+          "tolerance off the plain ring step")
+    del case, blocks, rings
+    launches = {}
+    for shape, env, kind in (((2, 1), {}, "rows"), ((1, 2), {}, "tiled"),
+                             ((2, 2), {}, "tiled"),
+                             ((4, 1), {"TPULBM_HALO_OVERLAP": "1"},
+                              "overlap")):
+        mesh = card_mesh(shape, dev)
+
+        def run_both(mesh=mesh):
+            chunk = sharded_step.make_chunk_fn(problem, mesh, 280)
+            want = step_cuda_chunk(problem, dev, 280)(fp.clone())
+            blocks = sharded_step.split(mesh, fp)
+            reset_counts()
+            got = chunk(blocks)
+            torch.cuda.synchronize()
+            return chunk, got, want, ring_counts(), read_counts()
+
+        chunk, got, want, counts, others = with_env(env, run_both)
+        require(torch.equal(gather(got), want),
+                f"bouzidi mesh {shape} {env}: 280 steps off one device")
+        plan = with_env(env, lambda mesh=mesh: mesh_plan_launches(
+            problem, mesh, [280]))
+        require(counts == plan and others == only(1, 0)
+                and chunk.mode == kind
+                and (kind == "tiled") == (chunk.substeps == 1),
+                f"bouzidi mesh {shape} {env}: {chunk.mode} N="
+                f"{chunk.substeps} launches {counts}, not {kind} {plan}")
+        launches[kind, chunk.substeps] = (launches.get(
+            (kind, chunk.substeps), 0) + sum(counts.values()))
+        print(f"bouzidi mesh {shape} {env or ''} 280 steps: {chunk.mode} at "
+              f"N={chunk.substeps}, {sum(counts.values())} ring launches, "
+              "bitwise one device")
+        del got, want
+    # the Runner on each mesh against the one-device run (phase 42's)
+    d_one = OUT_DIR / "bouzidi_bgk"
+    for shape, env in (((2, 1), {}), ((1, 2), {}), ((2, 2), {}),
+                       ((4, 1), {"TPULBM_HALO_OVERLAP": "1"})):
+        d = OUT_DIR / (f"bouzidi_mesh_{shape[0]}x{shape[1]}"
+                       + ("_ov" if env else ""))
+        pm = bz_params(False).replace(
+            num_timesteps=2240, output_frequency=140, output_dir=str(d),
+            mesh_shape=shape)
+
+        def run(pm=pm, shape=shape):
+            runner = Runner(pm, devices=[dev] * (shape[0] * shape[1]),
+                            verbose=False)
+            reset_counts()
+            t1 = time.perf_counter()
+            result = runner.run()
+            return result, time.perf_counter() - t1, ring_counts()
+
+        result, wall, counts = with_env(env, run)
+        require(result.success, f"bouzidi mesh {shape} run failed")
+        depths = sorted({dd for (_, dd, _) in counts})
+        require(shape[1] == 1 or depths == [1],
+                f"bouzidi mesh {shape}: depths {depths}, not 1")
+        require(same_files(d, d_one, ("forces.csv", "velocity_field.csv")),
+                f"bouzidi mesh {shape} {env}: artifacts differ from one "
+                "device")
+        print(f"bouzidi mesh Runner {shape} {env or ''}: 2240 steps every "
+              f"140, ring launches at N={depths} {sum(counts.values())}, "
+              f"forces.csv and velocity_field.csv byte-identical to one "
+              f"device; {wall:.2f} s wall, runner {result.mlups:.1f} MLUPS")
+    print(f"bouzidi mesh phases: {time.perf_counter() - t0:.2f} s")
+    return {"launches": launches, "err": max(errs)}
+
+
+def bz_ring_timing(problem, dev, card: str, f0) -> list[dict]:
+    """Phase 45's ring part: one shard's ring launch of the Bouzidi builds,
+    (2,1) at N=4 (rows, row 2) and (1,2) at depth 1 (tiled, row 5), ms per
+    step, CUDA events, against its plain ring step."""
+    from tpulbm_torch.ops import step_cuda
+    out = []
+    for shape, depth, x_rings in (((2, 1), 4, False), ((1, 2), 1, True)):
+        case = MeshCase(problem, shape, dev, depth, x_rings)
+        blocks = case.split(perturbed(problem, f0))
+        rings = case.rings(blocks)
+        b0 = blocks[0][0]
+        plain = case.plains[0, 0]
+        got = case.launch(b0, torch.empty_like(b0), rings[0][0], (0, 0))
+        want = plain(b0, *rings[0][0])
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+
+        def kern(f, m, case=case, rings=rings):
+            return kernel_chunk(lambda g, o: case.launch(
+                g, o, rings[0][0], (0, 0)), f, m // depth)
+
+        def pl(f, m, plain=plain, rings=rings):
+            for _ in range(m // depth):
+                f = plain(f, *rings[0][0])
+            return f
+
+        times = {"k": [], "p": []}
+        for which in ("k", "p", "p", "k"):
+            run, m = (kern, 2400) if which == "k" else (pl, 20 * depth)
+            times[which].append(ms_per_step(run, b0, m, 8))
+        ms, pms = min(times["k"]), min(times["p"])
+        cells = int(np.prod(case.local))
+        b = bound_of(9 * 4 * 2 + 1 + bz_link_bytes(problem), 115, cells,
+                     depth)
+        mode = "rows" if not x_rings else "tiled"
+        print(f"bouzidi ring timing {shape} N={depth} ({mode}) shard (0,0) "
+              f"on {card}: {ms:.5f} ms/step (plain {pms:.5f}), "
+              f"{100 * b['bound_ms'] / ms:.1f}% of {b['bound_ms']:.5f}")
+        out.append({"mode": mode, "depth": depth, "ms": ms, "plain_ms": pms,
+                    "err": err, **b})
+        del case, blocks, rings
+    return out
+
+
+def bz_magnus(dev) -> None:
+    """Phase 44: tpulbm's Magnus gate through the kernels in f32 (4000
+    steps, make_chunk_fn): the lift nonzero, flipping with the spin,
+    antisymmetric within 20%, the drag symmetric within 10%."""
+    from tpulbm_torch.config import SimulationParams
+    from tpulbm_torch.convert import state_from_numpy
+    from tpulbm_torch.models import make_problem
+    from tpulbm_torch.ops import forces
+    from tpulbm_torch.stepper import make_chunk_fn
+
+    def run(omega):
+        problem = make_problem(SimulationParams(**MAGNUS,
+                                                cylinder_omega=omega))
+        f = state_from_numpy(problem.initial_state(), problem, dev)
+        f = make_chunk_fn(problem, dev, 4000)(f)
+        force = forces.forces_fn(problem, dev)(f)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(f).all()), "Magnus run not finite")
+        return forces.force_coefficients(problem,
+                                         force.double().cpu().numpy())
+
+    om = MAGNUS["inlet_velocity"] / (MAGNUS["cylinder_radius"]
+                                     * MAGNUS["ny"])
+    (cd_p, cl_p), (cd_m, cl_m) = run(+om), run(-om)
+    ok = (abs(cl_p) > 0.1 and cl_p * cl_m < 0
+          and abs(cl_p + cl_m) < 0.2 * abs(cl_p - cl_m)
+          and abs(cd_p - cd_m) < 0.1 * (cd_p + cd_m))
+    require(ok, f"Magnus gate: C_D {cd_p}, {cd_m}, C_L {cl_p}, {cl_m}")
+    print(f"bouzidi gate Magnus 200x50 f32, 4000 steps through the kernels: "
+          f"C_L {cl_p:+.4f} / {cl_m:+.4f} at omega +-{om:.6f}, C_D "
+          f"{cd_p:.4f} / {cd_m:.4f}; tests/test_bouzidi.py's four bounds "
+          "held")
+
+
+def bouzidi_phases(dev, card: str) -> list[dict]:
+    """Phases 41-45, the Bouzidi curved wall through its libraries (built in
+    phase 2, or here at first use). 41: the cylinder at re200 under each
+    D2Q9 collision, still (and under BGK spinning): parity from the
+    perturbed state, where the library without the rewrite (the
+    equilibrium obstacle's) must miss the plain step by SEPARATION
+    tolerances, from the initial and an advanced state, N = 2, 3, 4
+    bitwise, 280 steps; 42: its Runner (525 N=4 + 140 1-step launches; BGK
+    also 311 steps every 150 for N=3 and N=2) and a 64x32 Runner, kernel
+    against plain, still and spinning; 43: the meshes (bz_mesh_phase); 44:
+    the sphere at 256^3 under each D3Q19 collision (BGK in full with its
+    Runner, the others from the perturbed state with a Runner of
+    CUT_3D_STEPS) and tpulbm's Magnus gate; 45: timing. Returns the
+    kernels' JSON entries."""
+    from tpulbm_torch.models import make_problem
+    from tpulbm_torch.ops import bouzidi, step_cuda
+    from tpulbm_torch.utils import cuda_build
+    t_all = time.perf_counter()
+    for (src, mode, variant) in bz_builds():
+        lib = cuda_build.load(src, step_cuda.build_defines(mode, variant))
+        print(f"build: {src} {step_cuda.build_defines(mode, variant)} in "
+              f"{lib.build_seconds:.2f} s ({ptxas_summary(lib.log)})")
+    smem3 = {n: step_cuda._blocked_library_3d("bgk", step_cuda.BOUZIDI)
+             .tpulbm_d3q19_blocked_smem_bytes(n) for n in DEPTHS_3D}
+    print(f"build: the Bouzidi N-step D3Q19 kernel's dynamic shared memory "
+          f"per block {smem3} B")
+    entries = []
+    t0 = time.perf_counter()
+    cells2 = [("bouzidi " + op, bz_params(False, op)) for op in BZ_OPS]
+    cells2.insert(1, ("bouzidi spin bgk", bz_params(False, spin=True)))
+    mesh = ring_t = None
+    for label, params in cells2:
+        cell = BzCell(dev, label, params)
+        # BGK's from an advanced state too; every library 280 steps
+        err = cell_parity(cell, True, advanced=label.endswith("bgk"))
+        run_dir = OUT_DIR / label.replace(" ", "_")
+        launches = cell_main_path(dev, cell, run_dir)
+        depths = (1, 4)
+        if label == "bouzidi bgk":
+            _, c23, _ = run_counted(params.replace(
+                num_timesteps=311, output_frequency=150,
+                output_dir=str(OUT_DIR / "bouzidi_f150")), dev)
+            by = step_cuda.collide_stream_blocked.launches_by_library
+            require(c23 == {**only(3, 100), 1: 1, 2: 5}
+                    and by == {cell.library: {2: 5, 3: 100, 4: 0}},
+                    f"bouzidi depths 3 and 2: {c23} {by}")
+            launches.update({2: c23[2], 3: c23[3]})
+            depths = cell.depths
+            print(f"bouzidi depths 3 and 2: 311 steps every 150, launches "
+                  f"{c23[3]} N=3 + {c23[2]} N=2 + {c23[1]} 1-step of "
+                  f"{cell.library}")
+            for extra in ({}, {"cylinder_omega": 0.02}):
+                e = tiny_runner_agreement(
+                    dev, "_bz" + ("_spin" if extra else ""),
+                    obstacle_bc="bouzidi", **extra)
+                print(f"bouzidi tiny Runner {extra or 'still'}: kernel "
+                      f"against plain, forces within {e:.3e}")
+            mesh = bz_mesh_phase(dev, cell.f0, cell.problem)
+            ring_t = bz_ring_timing(cell.problem, dev, card, cell.f0)
+        ms, b = cell_timing(cell, card, depths)
+        new = bz_entries(cell, launches, err, ms, b)
+        if "spin" in label:
+            # the same library, its wall moving: its own entries
+            for e in new:
+                e["name"] = e["name"].replace("[", "_spinning[", 1)
+        entries += new
+        del cell
+        torch.cuda.empty_cache()
+    print(f"bouzidi phases 41-43 (2-D): {time.perf_counter() - t0:.2f} s")
+    lib = step_cuda.StepConstants.of(make_problem(bz_params(False))).library
+    for r in ring_t:
+        n = sum(v for (mode, d), v in mesh["launches"].items()
+                if d == r["depth"])
+        entries.append({
+            "name": f"d2q9_rings_{r['mode']}"
+                    + ("" if r["depth"] == 1 else f"_n{r['depth']}")
+                    + f"[{lib}]",
+            "route": "cuda",
+            "source": (step_cuda.KERNEL_SOURCE if r["depth"] == 1
+                       else step_cuda.BLOCKED_SOURCE),
+            "replaces": step_cuda.rings_replaces(r["mode"], r["depth"]),
+            "launches": n, "max_abs_err": max(r["err"], mesh["err"]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None})
+    # 3-D; the sphere's link table built once on the host, timed
+    t0 = time.perf_counter()
+    sphere = make_problem(bz_params(True))
+    table = bouzidi.link_tables(sphere)
+    links = bouzidi.link_cells(table, sphere.lattice.Q)
+    print(f"bouzidi link table of the sphere at 256^3: {int(links.sum())} "
+          f"cells with a cut link ({int((table >= 0).sum())} links), "
+          f"{table.shape[0]} planes, {table.nbytes / 1e6:.1f} MB, built on "
+          f"the host in {time.perf_counter() - t0:.2f} s")
+    del table, links
+    for op in BZ_OPS_3D:
+        problem = sphere
+        if op != "bgk":
+            # the same geometry: its table, not a second bisection
+            problem = make_problem(bz_params(True, op))
+            object.__setattr__(problem, "_bouzidi_tables",
+                               bouzidi.link_tables(sphere))
+        cell = BzCell(dev, "bouzidi sphere " + op, bz_params(True, op),
+                      problem=problem)
+        full = op == "bgk"
+        err = cell_parity(cell, full)
+        run_dir = OUT_DIR / ("bouzidi_sphere_" + op)
+        launches = cell_main_path(dev, cell, run_dir,
+                                  steps=2240 if full else CUT_3D_STEPS)
+        shutil.rmtree(run_dir)
+        ms, b = cell_timing(cell, card)
+        entries += bz_entries(cell, launches, err, ms, b)
+        del cell
+        torch.cuda.empty_cache()
+    print(f"bouzidi phase 44 (3-D): {time.perf_counter() - t0:.2f} s")
+    bz_magnus(dev)
+    print(f"bouzidi phases 41-45: {time.perf_counter() - t_all:.2f} s")
+    return entries
+
+
 def step_cuda_chunk(problem, dev, steps: int):
     """The one-device kernel chunk of `steps` steps (stepper.make_chunk_fn)
     under the current environment."""
@@ -3369,8 +3839,9 @@ def main() -> int:
               for src in ("step_d3q19.cu", "step_d3q19_blocked.cu")]
     modes += [("step_thermal.cu", "smagorinsky")]
     # and the domain, source and obstacle builds of phases 25-29, the ring
-    # builds of phases 30-34, the box's of phases 35-40
-    builds = new_builds() + mesh_builds() + box_builds()
+    # builds of phases 30-34, the box's of phases 35-40, the Bouzidi ones
+    # of phases 41-45
+    builds = new_builds() + mesh_builds() + box_builds() + bz_builds()
     with ThreadPoolExecutor(len(sources) + len(modes) + len(builds)) as pool:
         lib_jobs = [pool.submit(cuda_build.load, src) for src in sources]
         mode_jobs = [pool.submit(cuda_build.load, src,
@@ -3567,6 +4038,7 @@ def main() -> int:
     kernels.extend(domain_phases(dev, card))
     kernels.extend(mesh_phases(dev, card))
     kernels.extend(box_phases(dev, card))
+    kernels.extend(bouzidi_phases(dev, card))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -266,7 +266,8 @@ def test_blocked_kernel_3d_refuses(cuda):
     lib = step_cuda._blocked_library_3d()
     rc = lib.tpulbm_d3q19_step_blocked(
         f.data_ptr(), out.data_ptr(), solid.data_ptr(), 32, 16, 8, 4,
-        *consts.d3q19_args, 0, torch.cuda.current_stream(cuda).cuda_stream)
+        *consts.d3q19_args, None, 0, 0,
+        torch.cuda.current_stream(cuda).cuda_stream)
     assert rc != 0
     with pytest.raises(RuntimeError, match="launch failed"):
         step_cuda._check_launch(lib, rc, "D3Q19 4-step kernel")
@@ -674,3 +675,108 @@ def test_passive_scalar_kernel_matches_plain(cuda, u0, nx, ny):
     want = step_thermal.make_step_thermal(problem, cuda)(s)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, **ONE_STEP_TOL)
+
+
+# ---- the Bouzidi curved wall (still and spinning) ------------------------
+
+def _bz_problem(nx, ny, nz=0, **kw):
+    if nz:
+        return make_problem(SimulationParams(
+            problem="cylinder3d", nx=nx, ny=ny, nz=nz, tau=0.6,
+            inlet_velocity=0.05, cylinder_radius=0.23, cylinder_x=0.5,
+            cylinder_y=0.5, obstacle_bc="bouzidi", **kw))
+    return make_problem(SimulationParams(nx=nx, ny=ny, tau=0.55,
+                                         inlet_velocity=0.05,
+                                         obstacle_bc="bouzidi", **kw))
+
+
+# the cylinder across ny/2 at a ragged shape, near the inlet corners (its
+# cut links next to the clean corners' rows), spinning; under every D2Q9
+# collision the perturbed state, the N-step launches bitwise
+@pytest.mark.parametrize("op", list(OPERATORS))
+@pytest.mark.parametrize("kw", [
+    dict(nx=100, ny=64, cylinder_radius=0.2),
+    dict(nx=64, ny=40, cylinder_x=0.05, cylinder_y=0.12,
+         cylinder_radius=0.1, zou_he_corners="clean"),
+    dict(nx=96, ny=48, cylinder_radius=0.15, cylinder_omega=0.01)],
+    ids=["ragged", "corner", "spinning"])
+def test_bouzidi_kernels_match_plain_and_each_other(cuda, op, kw):
+    problem = _bz_problem(**{**kw, **OPERATORS[op]})
+    consts = step_cuda.kernel_constants(problem)
+    assert consts.library == f"{consts.mode}+bouzidi"
+    f = state_from_numpy(_perturbed_state(problem, 3), problem, cuda)
+    got = step_cuda.make_local_step_cuda(problem, cuda)(f, torch.empty_like(f))
+    want = step_torch.make_step_rolled(problem, cuda)(f)
+    tol = dict(rtol=1e-4, atol=1e-7) if op == "power_law" else ONE_STEP_TOL
+    if op == "kbc":
+        rel = float((got - want).abs().max() / want.abs().max())
+        assert rel < 3e-5
+    else:
+        torch.testing.assert_close(got, want, **tol)
+    # the library without the rewrite misses by many tolerances
+    bare = functools.partial(step_cuda.collide_stream, solid=torch.as_tensor(
+        problem.solid, device=cuda).to(torch.uint8))
+    import dataclasses
+    eq = bare(f, torch.empty_like(f), consts=dataclasses.replace(
+        consts, variant=0))
+    assert float(((eq - want).abs() / (1e-7 + 5e-6 * want.abs())).max()) > 100
+    one = step_cuda.make_local_step_cuda(problem, cuda)
+    for n in step_cuda.BLOCKED_DEPTHS:
+        g = f.clone()
+        for _ in range(n):
+            g = one(g, torch.empty_like(g))
+        got_n = step_cuda.make_local_step_cuda_blocked(problem, cuda, n)(
+            f, torch.empty_like(f))
+        assert torch.equal(got_n, g), n
+
+
+@pytest.mark.parametrize("spin", [0.0, 0.01], ids=["still", "spinning"])
+@pytest.mark.parametrize("op", ["bgk", "mrt", "power_law"])
+def test_bouzidi_3d_kernels_match_plain_and_each_other(cuda, op, spin):
+    problem = _bz_problem(48, 24, 24, **OPERATORS_3D[op][0])
+    if spin:   # a spinning sphere: the moving-wall block of the table
+        import dataclasses
+        problem = dataclasses.replace(
+            problem, obstacle_velocity=lambda p: np.stack(
+                [-spin * (p[..., 1] - 12.0), spin * (p[..., 0] - 24.0),
+                 np.zeros_like(p[..., 0])], axis=-1))
+    f = state_from_numpy(_perturbed_state(problem, 4), problem, cuda)
+    one = step_cuda.make_local_step_cuda_3d(problem, cuda)
+    got = one(f, torch.empty_like(f))
+    want = step_torch.make_step_rolled(problem, cuda)(f)
+    tol = dict(rtol=1e-4, atol=1e-7) if op == "power_law" else ONE_STEP_TOL
+    torch.testing.assert_close(got, want, **tol)
+    for n in step_cuda.BLOCKED_DEPTHS_3D:
+        g = f.clone()
+        for _ in range(n):
+            g = one(g, torch.empty_like(g))
+        got_n = step_cuda.make_local_step_cuda_3d_blocked(problem, cuda, n)(
+            f, torch.empty_like(f))
+        assert torch.equal(got_n, g), n
+
+
+@pytest.mark.parametrize("shape,env", [
+    ((2, 1), {}), ((1, 2), {}), ((2, 2), {}),
+    ((4, 1), {"TPULBM_HALO_OVERLAP": "1"})],
+    ids=["rows", "x-cut", "2x2", "overlap"])
+def test_bouzidi_ring_kernels_equal_one_device(cuda, monkeypatch, shape,
+                                               env):
+    from tpulbm_torch.parallel import sharded_step
+    from tpulbm_torch.parallel.mesh import make_mesh
+    for k in ("TPULBM_HALO_OVERLAP", "TPULBM_SUBSTEPS", "TPULBM_NO_FUSED2"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    problem = _bz_problem(128, 64, cylinder_radius=0.2, cylinder_x=0.5,
+                          cylinder_omega=0.01)
+    f = state_from_numpy(_perturbed_state(problem, 6), problem, cuda)
+    mesh = make_mesh(shape, devices=[cuda] * (shape[0] * shape[1]))
+    chunk = sharded_step.make_chunk_fn(problem, mesh, 24)
+    got = sharded_step.gather(chunk(sharded_step.split(mesh, f)))
+    want = make_chunk_fn(problem, cuda, 24)(f.clone())
+    assert torch.equal(got, want)
+    assert chunk.substeps == (1 if shape[1] > 1 else 4)
+    diag = sharded_step.Diagnostics(problem, mesh)
+    from tpulbm_torch.ops import forces
+    assert torch.equal(diag.force(sharded_step.split(mesh, want)),
+                       forces.forces_fn(problem, cuda)(want))

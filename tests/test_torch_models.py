@@ -61,13 +61,34 @@ _SPHERE = dict(problem="cylinder3d", nz=8)
 
 
 @pytest.mark.parametrize("override,item", [
-    (dict(obstacle_bc="bouzidi"), "item 14"), (dict(nz=16), "item 16"),
+    (dict(nz=16), "item 16"),
     (dict(_SPHERE, lattice3d="d3q27"), "item 16"),
-    (dict(problem="poiseuille", nz=8, lattice3d="d3q27"), "item 16"),
-    (dict(_SPHERE, obstacle_bc="bouzidi"), "item 14")])
+    (dict(problem="poiseuille", nz=8, lattice3d="d3q27"), "item 16")])
 def test_unported_options_name_their_roadmap_item(override, item):
     with pytest.raises(NotImplementedError, match=re.escape(item)):
         port_problem(PRESETS["cylinder-small"].replace(**override))
+
+
+# the Bouzidi obstacle, once refused with item 14: the Problem carries
+# tpulbm's fields, and its analytic surface (and the spinning cylinder's
+# wall velocity) the values of tpulbm's at the same points
+@pytest.mark.parametrize("override", [
+    dict(obstacle_bc="bouzidi"), dict(_SPHERE, obstacle_bc="bouzidi"),
+    dict(obstacle_bc="bouzidi", cylinder_omega=0.01)],
+    ids=["cylinder", "sphere", "spinning"])
+def test_bouzidi_problems_match_tpulbm(override):
+    params = PRESETS["cylinder-small"].replace(**override)
+    mine, ref = port_problem(params), jax_problem(params)
+    assert mine.obstacle_bc == ref.obstacle_bc == "bouzidi"
+    assert mine.solid.tobytes() == ref.solid.tobytes()
+    assert mine.initial_state().tobytes() == ref.initial_state().tobytes()
+    pts = np.random.default_rng(3).uniform(
+        0.0, 16.0, (50, mine.lattice.D))
+    assert mine.obstacle_sdf(pts).tobytes() == ref.obstacle_sdf(pts).tobytes()
+    assert (mine.obstacle_velocity is None) == (ref.obstacle_velocity is None)
+    if ref.obstacle_velocity is not None:
+        assert (mine.obstacle_velocity(pts).tobytes()
+                == ref.obstacle_velocity(pts).tobytes())
 
 
 # the problems and options once refused with ROADMAP item 12: the Problem

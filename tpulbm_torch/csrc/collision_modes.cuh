@@ -21,6 +21,9 @@
 // * -DTPULBM_BOUNCE_BACK=1: the bounce-back obstacle (solid cells skip the
 //   collision and store their pulled populations reversed) instead of the
 //   equilibrium pin; the obstacle domain only.
+// * -DTPULBM_BOUZIDI=1: the Bouzidi curved-wall obstacle (the cut links of
+//   the cells the mask marks with kLinkBit rewritten from the link table,
+//   then the equilibrium pin of the solid cells); the obstacle domain only.
 // * -DTPULBM_RINGS=1: the D2Q9 kernels step one shard of a mesh, whose
 //   cells outside its block come from the rings its neighbours sent
 //   (d2q9_common.cuh's Shard), over a range of its rows.
@@ -46,6 +49,12 @@
 #ifndef TPULBM_RINGS
 #define TPULBM_RINGS 0
 #endif
+#ifndef TPULBM_BOUZIDI
+#define TPULBM_BOUZIDI 0
+#endif
+
+#include <stddef.h>
+#include <stdint.h>
 
 namespace tpulbm {
 
@@ -81,6 +90,41 @@ constexpr bool kBounceBack = TPULBM_BOUNCE_BACK != 0;
 static_assert(!kBounceBack || kHasObstacle,
               "the bounce-back obstacle needs the obstacle domain");
 constexpr bool kRings = TPULBM_RINGS != 0;
+constexpr bool kBouzidi = TPULBM_BOUZIDI != 0;
+static_assert(!kBouzidi || (kHasObstacle && !kBounceBack),
+              "the Bouzidi obstacle needs the obstacle domain, and is not "
+              "the bounce-back one");
+
+// The bits of a cell's byte in the uint8 mask the kernels read: solid, and
+// (kBouzidi) at least one cut link, so that a kernel reads the link table
+// only at the cells that have one (ops/step_cuda.py::kernel_mask).
+constexpr uint8_t kSolidBit = 1;
+constexpr uint8_t kLinkBit = 4;
+
+__device__ __forceinline__ bool is_solid(uint8_t m) {
+  return (m & kSolidBit) != 0;
+}
+
+// The Bouzidi link table (kBouzidi; ops/bouzidi.py::link_tables): q, float32
+// planes of `plane` cells, Q of them, then (moving != 0, a spinning wall)
+// Q more of the moving-wall scalars w_j (c_j . u_w). A one-device launch
+// reads the whole grid's table at a cell's index in the state; a shard's
+// launch reads its block's cut padded as its mask (bouzidi.table_block).
+struct Links {
+  const float* q;
+  size_t plane;
+  int moving;
+};
+
+// Whether a launcher's link table fits the build of a q-population
+// lattice: the kBouzidi build takes q or 2q planes, every other build none.
+inline bool links_fit(const float* links, int planes, int q) {
+  if constexpr (kBouzidi) {
+    return links != nullptr && (planes == q || planes == 2 * q);
+  } else {
+    return links == nullptr && planes == 0;
+  }
+}
 
 constexpr int kPowerLawIters = 8;  // tpulbm physics.PLAW_ITERS
 
@@ -118,10 +162,10 @@ __device__ __forceinline__ float power_law_inv_tau(float gfac, float nm1,
 extern "C" int tpulbm_collision_mode() { return tpulbm::kMode; }
 
 // The rest of the build: the domain, then 4 with the source, 8 with the
-// bounce-back obstacle, 16 with the rings and 32 with the force profile;
-// ops/step_cuda.py checks it too.
+// bounce-back obstacle, 16 with the rings, 32 with the force profile and
+// 64 with the Bouzidi obstacle; ops/step_cuda.py checks it too.
 extern "C" int tpulbm_build_variant() {
   return tpulbm::kDomain | (tpulbm::kSource ? 4 : 0) |
          (tpulbm::kBounceBack ? 8 : 0) | (tpulbm::kRings ? 16 : 0) |
-         (tpulbm::kForce ? 32 : 0);
+         (tpulbm::kForce ? 32 : 0) | (tpulbm::kBouzidi ? 64 : 0);
 }

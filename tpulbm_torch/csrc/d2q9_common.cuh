@@ -535,21 +535,60 @@ __device__ __forceinline__ void cavity_corner(float* g, int x, int y, int nx,
   }
 }
 
+// The Bouzidi rewrite (kBouzidi) of one fluid cell's cut links, in place,
+// after its edge rules: tpulbm's apply_bouzidi (ops/bouzidi.py:186-223)
+// at one cell, in its arithmetic and order. q points at the cell's entry
+// of the link table's plane 0 (planes `plane` floats apart, the moving
+// wall's scalars Q planes after q's), post(i, 0, 0) is the cell's own
+// post-collision population i. Direction j is cut where q_j >= 0:
+//   q_j < 1/2:  g_j = 2 q_j f̂_i + (1 - 2 q_j) g_i  (+ 6 tw_j)
+//   q_j >= 1/2: g_j = inv2q f̂_i + (1 - inv2q) f̂_j  (+ (6 inv2q) tw_j),
+// inv2q = 1 / (2 max(q_j, 1/2)), i = opp(j), g_i as it stood on entry (a
+// copy, so a cell cut along both j and opp(j) reads the values of before
+// the rewrite).
+template <class Post>
+__device__ __forceinline__ void apply_bouzidi(float* g, const float* q,
+                                              size_t plane, bool moving,
+                                              const Post& post) {
+  constexpr int opp[kQ] = {0, 3, 4, 1, 2, 7, 8, 5, 6};
+  float snap[kQ];
+#pragma unroll
+  for (int i = 0; i < kQ; ++i) snap[i] = g[i];
+#pragma unroll
+  for (int j = 1; j < kQ; ++j) {
+    const float qj = q[j * plane];
+    if (!(qj >= 0.0f)) continue;
+    const int i = opp[j];
+    const float fi = post(i, 0, 0);
+    float v;
+    if (qj < 0.5f) {
+      v = 2.0f * qj * fi + (1.0f - 2.0f * qj) * snap[i];
+      if (moving) v = v + 6.0f * q[(kQ + j) * plane];
+    } else {
+      const float inv2q = 1.0f / (2.0f * fmaxf(qj, 0.5f));
+      v = inv2q * fi + (1.0f - inv2q) * post(j, 0, 0);
+      if (moving) v = v + (6.0f * inv2q) * q[(kQ + j) * plane];
+    }
+    g[j] = v;
+  }
+}
+
 // The boundary sequence of the library's domain on one cell's post-stream
 // populations, in place. The obstacle domain: on a solid cell the obstacle
 // rule (the pin to rest equilibrium, or under kBounceBack the pulled
 // populations reversed), else the edge rules, then (kCorners) the clean
-// corners. The channel: the y walls. The cavity: its walls, then the corner
-// closure. The box: nothing. post and solid_at as for apply_corner; solid
-// is false outside the obstacle domain. The kernels are built with and
-// without the clean corners, so that a run without them carries no trace
-// of their code.
+// corners, then (kBouzidi) the rewrite of the cell's cut links, where
+// `link` (the cell's entry of the link table's plane 0) is not null. The
+// channel: the y walls. The cavity: its walls, then the corner closure.
+// The box: nothing. post and solid_at as for apply_corner; solid is false
+// outside the obstacle domain. The kernels are built with and without the
+// clean corners, so that a run without them carries no trace of their
+// code.
 template <bool kCorners, class Post, class SolidAt>
-__device__ __forceinline__ void apply_boundaries(float* g, bool solid, int x,
-                                                 int y, int nx, int ny,
-                                                 const StepConsts& k,
-                                                 const Post& post,
-                                                 const SolidAt& solid_at) {
+__device__ __forceinline__ void apply_boundaries(
+    float* g, bool solid, int x, int y, int nx, int ny, const StepConsts& k,
+    const Post& post, const SolidAt& solid_at, const float* link = nullptr,
+    const Links& links = Links{}) {
   if constexpr (kDomain == kBox) {
     return;
   } else if constexpr (kDomain == kChannel) {
@@ -579,6 +618,10 @@ __device__ __forceinline__ void apply_boundaries(float* g, bool solid, int x,
       if ((x == 0 || x == nx - 1) && (y == 0 || y == ny - 1))
         apply_corner(g, x, y, nx, ny, k, post, solid_at);
     }
+    if constexpr (kBouzidi) {
+      if (link != nullptr)
+        apply_bouzidi(g, link, links.plane, links.moving != 0, post);
+    }
   }
 }
 
@@ -593,7 +636,9 @@ __device__ __forceinline__ void apply_boundaries(float* g, bool solid, int x,
 // In the box y never wraps inside the block: the rows around it come from
 // rb and rt, which carry the wrapped neighbours' rows.
 // mask is the solid mask of the block and its rings, padded by depth on
-// every side. A launch writes the rows [r0, r1) of the block.
+// every side (a byte per cell: kSolidBit, and kLinkBit under kBouzidi,
+// whose link table the launch reads padded the same way). A launch writes
+// the rows [r0, r1) of the block.
 //
 // The kernels keep working in global coordinates: a window cell at global
 // (gx, gy) is stepped where it is a cell of the domain, exactly as on one
@@ -669,10 +714,19 @@ struct Shard {
     return f + static_cast<size_t>(ly) * nxl + lx;
   }
 
-  // The solid flag of the cell at block coordinates (lx, ly).
+  // The index of the cell at block coordinates (lx, ly) in the mask and
+  // in the link table (both padded by depth on every side).
+  __device__ __forceinline__ size_t padded(int lx, int ly) const {
+    return static_cast<size_t>(ly + depth) * (nxl + 2 * depth) + lx + depth;
+  }
+
+  // The mask byte and the solid flag of the cell at block coordinates
+  // (lx, ly).
+  __device__ __forceinline__ uint8_t mask_byte(int lx, int ly) const {
+    return mask[padded(lx, ly)];
+  }
   __device__ __forceinline__ bool solid(int lx, int ly) const {
-    return mask[static_cast<size_t>(ly + depth) * (nxl + 2 * depth) + lx +
-                depth] != 0;
+    return is_solid(mask_byte(lx, ly));
   }
 
   // Whether the launch writes the cell at block coordinates (lx, ly).

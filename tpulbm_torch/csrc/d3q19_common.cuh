@@ -65,7 +65,9 @@
 namespace tpulbm3d {
 
 constexpr int kQ = 19;
+using tpulbm::is_solid;
 using tpulbm::kBounceBack;
+using tpulbm::kBouzidi;
 using tpulbm::kHasObstacle;
 using tpulbm::kMode;
 using tpulbm::kPeriodicX;
@@ -444,6 +446,41 @@ __device__ __forceinline__ void step_cell(float* g, const Solid& solid_at,
                return post(i, ox - dx, oy, oz);
              });
   if (dx == 0 || !solid_at(-dx)) walls_and_inlet(g, xs, y, z, ny, nz, k);
+}
+
+// The Bouzidi rewrite (kBouzidi) of one fluid cell's cut links, in place,
+// after its whole boundary sequence (step_cell): tpulbm's apply_bouzidi
+// (ops/bouzidi.py:186-223) at one cell, in its arithmetic and order, as
+// d2q9_common.cuh's. q points at the cell's entry of the link table's
+// plane 0 (planes `plane` floats apart, the moving wall's scalars Q planes
+// after q's); own(Pop<i>()) is the cell's own post-collision population i.
+// g_opp(j) is read as it stood on entry.
+template <class Own>
+__device__ __forceinline__ void apply_bouzidi(float* g, const float* q,
+                                              size_t plane, bool moving,
+                                              const Own& own) {
+  float snap[kQ];
+#pragma unroll
+  for (int i = 0; i < kQ; ++i) snap[i] = g[i];
+#define TPULBM_BZ(j, cx, cy, cz, o)                                       \
+  if ((j) != 0) {                                                         \
+    const float qj = q[(j) * plane];                                      \
+    if (qj >= 0.0f) {                                                     \
+      const float fi = own(Pop<o>());                                     \
+      float v;                                                            \
+      if (qj < 0.5f) {                                                    \
+        v = 2.0f * qj * fi + (1.0f - 2.0f * qj) * snap[o];                \
+        if (moving) v = v + 6.0f * q[(kQ + (j)) * plane];                 \
+      } else {                                                            \
+        const float inv2q = 1.0f / (2.0f * fmaxf(qj, 0.5f));              \
+        v = inv2q * fi + (1.0f - inv2q) * own(Pop<j>());                  \
+        if (moving) v = v + (6.0f * inv2q) * q[(kQ + (j)) * plane];       \
+      }                                                                   \
+      g[j] = v;                                                           \
+    }                                                                     \
+  }
+  TPULBM_D3Q19(TPULBM_BZ)
+#undef TPULBM_BZ
 }
 
 }  // namespace tpulbm3d

@@ -44,6 +44,16 @@
 // pull wraps with no test of its own; in the box the halo rows at y = -1
 // and y = ny too, from y = ny-1 and y = 0.
 //
+// The Bouzidi obstacle (-DTPULBM_BOUZIDI=1, tpulbm's `bz` mode: its
+// _bz_rewrite, step_pallas.py:769-792): every term of the cut-link rewrite
+// sits at the boundary cell (its own post-collision values, in the shared
+// tile, and its pulled values), so after the edge rules a cell whose mask
+// byte carries kLinkBit reads its entries of the link table from device
+// memory at its own index and rewrites its cut links (apply_bouzidi in
+// d2q9_common.cuh); the TPU kernel's q-table slab DMA has no counterpart.
+// A step reads the table only at those cells: 32 B each (64 B spinning),
+// a few hundred cells around a cylinder.
+//
 // The force profile (-DTPULBM_FORCE=1, Kolmogorov's cos(ky) along y or a
 // force along x): a block stages its tile's and halo's entries of the
 // (9, n) table once in shared memory (tpulbm::ForceTable), at the
@@ -85,7 +95,8 @@ __global__ void __launch_bounds__(kBX * kBY)
     d2q9_step_kernel(const float* __restrict__ f, float* __restrict__ out,
                      const uint8_t* __restrict__ solid, int nx, int ny,
                      int x_shift, int y_shift, StepConsts k,
-                     tpulbm::Shard sh, tpulbm::ForceTable force) {
+                     tpulbm::Shard sh, tpulbm::ForceTable force,
+                     tpulbm::Links links) {
   __shared__ float post[kQ][kTY][kTX];  // post-collision tile + halo
   // the force profile's entries of the tile's columns or rows (kForce)
   __shared__ float prof[tpulbm::kForce ? kQ * kTX : 1];
@@ -141,7 +152,7 @@ __global__ void __launch_bounds__(kBX * kBY)
       const size_t cell = static_cast<size_t>(gy) * nx + gx;
 #pragma unroll
       for (int i = 0; i < kQ; ++i) v[i] = f[i * plane + cell];
-      skip = tpulbm::kBounceBack && solid[cell] != 0;
+      skip = tpulbm::kBounceBack && tpulbm::is_solid(solid[cell]);
     }
     tpulbm::collide_cell(v, k, skip, prof + (force.axis == 0 ? lx : ly),
                          flen);
@@ -163,9 +174,12 @@ __global__ void __launch_bounds__(kBX * kBY)
     if (!sh.writes(bx, by)) return;
     auto solid_at = [&](int dx, int dy) { return sh.solid(bx + dx, by + dy); };
     tpulbm::pull_d2q9(g, x, y, nx, ny, k, post_at);
-    tpulbm::apply_boundaries<kCorners>(
-        g, tpulbm::kHasObstacle && sh.solid(bx, by), x, y, nx, ny, k, post_at,
-        solid_at);
+    const uint8_t m = tpulbm::kHasObstacle ? sh.mask_byte(bx, by) : 0;
+    const float* link = tpulbm::kBouzidi && (m & tpulbm::kLinkBit)
+                            ? links.q + sh.padded(bx, by)
+                            : nullptr;
+    tpulbm::apply_boundaries<kCorners>(g, tpulbm::is_solid(m), x, y, nx, ny,
+                                       k, post_at, solid_at, link, links);
     const size_t cell = static_cast<size_t>(by) * sh.nxl + bx;
     const size_t block = static_cast<size_t>(sh.nxl) * sh.nyl;
 #pragma unroll
@@ -173,13 +187,15 @@ __global__ void __launch_bounds__(kBX * kBY)
   } else {
     if ((tpulbm::kColShift && x < 0) || x >= nx || y < 0 || y >= ny) return;
     auto solid_at = [&](int dx, int dy) {
-      return solid[static_cast<size_t>(y + dy) * nx + x + dx] != 0;
+      return tpulbm::is_solid(solid[static_cast<size_t>(y + dy) * nx + x + dx]);
     };
     tpulbm::pull_d2q9(g, x, y, nx, ny, k, post_at);
     const size_t cell = static_cast<size_t>(y) * nx + x;
-    tpulbm::apply_boundaries<kCorners>(
-        g, tpulbm::kHasObstacle && solid[cell] != 0, x, y, nx, ny, k,
-        post_at, solid_at);
+    const uint8_t m = tpulbm::kHasObstacle ? solid[cell] : 0;
+    const float* link =
+        tpulbm::kBouzidi && (m & tpulbm::kLinkBit) ? links.q + cell : nullptr;
+    tpulbm::apply_boundaries<kCorners>(g, tpulbm::is_solid(m), x, y, nx, ny,
+                                       k, post_at, solid_at, link, links);
 #pragma unroll
     for (int i = 0; i < kQ; ++i) out[i * plane + cell] = g[i];
   }
@@ -189,12 +205,13 @@ template <bool kCorners>
 cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
                    int ny, int tiles_x, int tiles_y, int x_shift, int y_shift,
                    const StepConsts& k, const tpulbm::Shard& sh,
-                   const tpulbm::ForceTable& force, cudaStream_t stream) {
+                   const tpulbm::ForceTable& force,
+                   const tpulbm::Links& links, cudaStream_t stream) {
   const dim3 block(kBX, kBY);
   const dim3 grid((tiles_x + x_shift + kBX - 1) / kBX,
                   (tiles_y + y_shift + kBY - 1) / kBY);
   d2q9_step_kernel<kCorners><<<grid, block, 0, stream>>>(
-      f, out, solid, nx, ny, x_shift, y_shift, k, sh, force);
+      f, out, solid, nx, ny, x_shift, y_shift, k, sh, force, links);
   return cudaGetLastError();
 }
 
@@ -206,7 +223,9 @@ cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
 // The clean corners belong to the obstacle domain; elsewhere the launcher
 // takes clean_corners = 0. force_table is the force profile's (9, n) device
 // table along force_axis (tpulbm::ForceTable), read by the kForce build
-// only (elsewhere null).
+// only (elsewhere null). links and link_planes: the Bouzidi link table
+// (tpulbm::Links) and its planes, 9 (a still wall) or 18 (a moving one),
+// read by the kBouzidi build only (elsewhere null and 0).
 #if !TPULBM_RINGS
 extern "C" int tpulbm_d2q9_step(const float* f, float* out,
                                 const uint8_t* solid, int nx, int ny,
@@ -215,10 +234,13 @@ extern "C" int tpulbm_d2q9_step(const float* f, float* out,
                                 const float* w, int clean_corners,
                                 const float* mode, const float* src,
                                 float lid7, float lid8, int force_axis,
-                                const float* force_table, int device,
-                                void* stream) {
+                                const float* force_table, const float* links,
+                                int link_planes, int device, void* stream) {
+  if (!tpulbm::links_fit(links, link_planes, kQ)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const tpulbm::Links lk{links, static_cast<size_t>(nx) * ny,
+                         link_planes == 2 * kQ};
   const StepConsts k = tpulbm::make_consts(inv_tau, u_in, one_minus_u_in,
                                            eq_in, w, mode, src, lid7, lid8);
   const int y_shift = tpulbm::tile_row_shift(
@@ -229,27 +251,31 @@ extern "C" int tpulbm_d2q9_step(const float* f, float* out,
   const tpulbm::ForceTable force{force_table, force_axis};
   err = clean_corners
             ? launch<true>(f, out, solid, nx, ny, nx, ny, x_shift, y_shift, k,
-                           none, force, s)
+                           none, force, lk, s)
             : launch<false>(f, out, solid, nx, ny, nx, ny, x_shift, y_shift,
-                            k, none, force, s);
+                            k, none, force, lk, s);
   return static_cast<int>(err);
 }
 #else
 // One step of the shard (nxl x nyl at global x0, y0 of the nx x ny grid)
 // from f and its rings (depth 1; hx 0 or 1, as tpulbm::Shard describes
 // them) into rows [r0, r1) of out; the other rows of out are left as they
-// are. mask is the shard's solid mask padded by one cell.
+// are. mask is the shard's solid mask padded by one cell, and links its
+// cut of the link table padded the same way.
 extern "C" int tpulbm_d2q9_step_rings(
     const float* f, float* out, const uint8_t* mask, const float* rb,
     const float* rt, const float* rl, const float* rr, int nx, int ny,
     int nxl, int nyl, int x0, int y0, int hx, int r0, int r1, float inv_tau,
     float u_in, float one_minus_u_in, const float* eq_in, const float* w,
     int clean_corners, const float* mode, const float* src, float lid7,
-    float lid8, int force_axis, const float* force_table, int device,
-    void* stream) {
+    float lid8, int force_axis, const float* force_table, const float* links,
+    int link_planes, int device, void* stream) {
+  if (!tpulbm::links_fit(links, link_planes, kQ)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (r0 < 0 || r1 > nyl || r0 >= r1) return cudaErrorInvalidValue;
+  const tpulbm::Links lk{links, static_cast<size_t>(nyl + 2) * (nxl + 2),
+                         link_planes == 2 * kQ};
   const StepConsts k = tpulbm::make_consts(inv_tau, u_in, one_minus_u_in,
                                            eq_in, w, mode, src, lid7, lid8);
   const tpulbm::Shard sh{f, rb, rt, rl, rr, mask, nxl, nyl,
@@ -264,9 +290,9 @@ extern "C" int tpulbm_d2q9_step_rings(
   const tpulbm::ForceTable force{force_table, force_axis};
   err = clean_corners
             ? launch<true>(f, out, nullptr, nx, ny, nxl, r1 - r0, x_shift,
-                           y_shift, k, sh, force, s)
+                           y_shift, k, sh, force, lk, s)
             : launch<false>(f, out, nullptr, nx, ny, nxl, r1 - r0, x_shift,
-                            y_shift, k, sh, force, s);
+                            y_shift, k, sh, force, lk, s);
   return static_cast<int>(err);
 }
 #endif

@@ -61,6 +61,16 @@
 // trapezoid of valid cells is that of an interior block. In the box the
 // y-halo wraps as well.
 //
+// The Bouzidi obstacle (-DTPULBM_BOUZIDI=1): at every substep a window
+// cell whose mask byte carries kLinkBit rewrites its cut links after its
+// edge rules (apply_bouzidi), from its entries of the link table, read
+// from device memory at the cell's global index (a shard: its padded
+// block's), and from its own post-collision values of that substep, which
+// it reads from the buffer before the barrier that overwrites them. The
+// window's halo cells rewrite theirs too, as on one device, so one launch
+// keeps the bits of N launches of the 1-step kernel. tpulbm's q ring and
+// q halo rows have no counterpart.
+//
 // The force profile (-DTPULBM_FORCE=1): the block stages the entries of
 // its window's columns (a force along x) or rows (along y) once, after the
 // populations in shared memory, each at the coordinate of the cell that
@@ -148,7 +158,8 @@ __global__ void __launch_bounds__(kThreads)
     d2q9_blocked_kernel(const float* __restrict__ f, float* __restrict__ out,
                         const uint8_t* __restrict__ solid, int nx, int ny,
                         int x_shift, int y_shift, StepConsts k,
-                        tpulbm::Shard sh, tpulbm::ForceTable force) {
+                        tpulbm::Shard sh, tpulbm::ForceTable force,
+                        tpulbm::Links links) {
   using W = Window<N>;
   constexpr int TX = W::kTX;
   constexpr int TY = W::kTY;
@@ -174,6 +185,17 @@ __global__ void __launch_bounds__(kThreads)
   auto prof_at = [&](int lx, int ly) {
     return prof + (force.axis == 0 ? lx : ly);
   };
+  // the link table's entry of the window cell at global (gx, gy) whose
+  // mask byte is m (kBouzidi), or null where the cell has no cut link: the
+  // obstacle domain's coordinates need no wrap
+  auto link_at = [&](uint8_t m, int gx, int gy) -> const float* {
+    if (!tpulbm::kBouzidi || !(m & tpulbm::kLinkBit)) return nullptr;
+    if constexpr (tpulbm::kRings) {
+      return links.q + sh.padded(gx - sh.x0, gy - sh.y0);
+    } else {
+      return links.q + static_cast<size_t>(gy) * nx + gx;
+    }
+  };
   if constexpr (tpulbm::kForce) {
     force.stage(prof, flen, force.axis == 0 ? x0 : y0,
                 force.axis == 0 ? nx : ny, tid, kThreads);
@@ -193,7 +215,7 @@ __global__ void __launch_bounds__(kThreads)
         mask[c] = kNotHeld;
         continue;
       }
-      mask[c] = tpulbm::kHasObstacle && sh.solid(bx, by);
+      mask[c] = tpulbm::kHasObstacle ? sh.mask_byte(bx, by) : 0;
       size_t stride;
       const float* src = sh.locate(bx, by, stride);
 #pragma unroll
@@ -205,7 +227,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int i = 0; i < kQ; ++i) v[i] = f[i * plane + cell];
     }
-    tpulbm::collide_cell(v, k, tpulbm::kBounceBack && mask[c] != 0,
+    tpulbm::collide_cell(v, k,
+                         tpulbm::kBounceBack && tpulbm::is_solid(mask[c]),
                          prof_at(lx, ly), flen);
 #pragma unroll
     for (int i = 0; i < kQ; ++i) post[i * W::kCells + c] = v[i];
@@ -243,12 +266,16 @@ __global__ void __launch_bounds__(kThreads)
         return post[i * W::kCells + lc + dy * TX + dx];
       };
       auto solid_at = [&](int dx, int dy) {
-        return mask[lc + dy * TX + dx] != 0;
+        return tpulbm::is_solid(mask[lc + dy * TX + dx]);
       };
-      const bool is_solid = tpulbm::kHasObstacle && mask[lc] != 0;
+      const uint8_t m = tpulbm::kHasObstacle ? mask[lc] : 0;
+      const bool is_solid = tpulbm::is_solid(m);
+      // the rewrite reads this cell's post-collision values of this
+      // substep from the buffer, before the barrier that overwrites it
       tpulbm::pull_d2q9(g[j], gx, gy, nx, ny, k, post_at);
       tpulbm::apply_boundaries<kCorners>(g[j], is_solid, gx, gy, nx, ny, k,
-                                         post_at, solid_at);
+                                         post_at, solid_at,
+                                         link_at(m, gx, gy), links);
       tpulbm::collide_cell(g[j], k, tpulbm::kBounceBack && is_solid,
                            prof_at(lx, ly), flen);
     }
@@ -279,13 +306,14 @@ __global__ void __launch_bounds__(kThreads)
       return post[i * W::kCells + lc + dy * TX + dx];
     };
     auto solid_at = [&](int dx, int dy) {
-      return mask[lc + dy * TX + dx] != 0;
+      return tpulbm::is_solid(mask[lc + dy * TX + dx]);
     };
     float g[kQ];
+    const uint8_t m = tpulbm::kHasObstacle ? mask[lc] : 0;
     tpulbm::pull_d2q9(g, gx, gy, nx, ny, k, post_at);
-    tpulbm::apply_boundaries<kCorners>(
-        g, tpulbm::kHasObstacle && mask[lc] != 0, gx, gy, nx, ny, k, post_at,
-        solid_at);
+    tpulbm::apply_boundaries<kCorners>(g, tpulbm::is_solid(m), gx, gy, nx, ny,
+                                       k, post_at, solid_at,
+                                       link_at(m, gx, gy), links);
     if constexpr (tpulbm::kRings) {
       const size_t cell =
           static_cast<size_t>(gy - sh.y0) * sh.nxl + (gx - sh.x0);
@@ -304,7 +332,8 @@ template <int N, bool kCorners>
 cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
                    int ny, int tiles_x, int tiles_y, int x_shift, int y_shift,
                    const StepConsts& k, const tpulbm::Shard& sh,
-                   const tpulbm::ForceTable& force, cudaStream_t stream) {
+                   const tpulbm::ForceTable& force,
+                   const tpulbm::Links& links, cudaStream_t stream) {
   constexpr size_t smem = Window<N>::kSmemBytes;
   if constexpr (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -315,7 +344,7 @@ cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
   const dim3 grid((tiles_x + x_shift + kBX - 1) / kBX,
                   (tiles_y + y_shift + kBY - 1) / kBY);
   d2q9_blocked_kernel<N, kCorners><<<grid, kThreads, smem, stream>>>(
-      f, out, solid, nx, ny, x_shift, y_shift, k, sh, force);
+      f, out, solid, nx, ny, x_shift, y_shift, k, sh, force, links);
   return cudaGetLastError();
 }
 
@@ -324,15 +353,17 @@ cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
 cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
                    int ny, int tiles_x, int tiles_y, int n_sub, bool corners,
                    const StepConsts& k, const tpulbm::Shard& sh,
-                   const tpulbm::ForceTable& force, cudaStream_t stream) {
+                   const tpulbm::ForceTable& force,
+                   const tpulbm::Links& links, cudaStream_t stream) {
   const int y_shift = tpulbm::tile_row_shift(
       tiles_y, kBY, corners || tpulbm::kDomain == tpulbm::kCavity);
   const int x_shift = tpulbm::tile_col_shift(tiles_x, kBX);
 #define TPULBM_LAUNCH(N)                                                    \
   (corners ? launch<N, true>(f, out, solid, nx, ny, tiles_x, tiles_y,       \
-                             x_shift, y_shift, k, sh, force, stream)        \
+                             x_shift, y_shift, k, sh, force, links, stream) \
            : launch<N, false>(f, out, solid, nx, ny, tiles_x, tiles_y,      \
-                              x_shift, y_shift, k, sh, force, stream))
+                              x_shift, y_shift, k, sh, force, links,        \
+                              stream))
   switch (n_sub) {
     case 2: return TPULBM_LAUNCH(2);
     case 3: return TPULBM_LAUNCH(3);
@@ -350,7 +381,9 @@ cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
 // would not report it); it neither synchronizes nor allocates. The clean
 // corners belong to the obstacle domain; elsewhere the launcher takes
 // clean_corners = 0. force_axis and force_table: the force profile
-// (tpulbm::ForceTable), read by the kForce build only.
+// (tpulbm::ForceTable), read by the kForce build only; links and
+// link_planes: the Bouzidi link table, 9 or 18 planes (tpulbm::Links),
+// read by the kBouzidi build only (elsewhere null and 0).
 #if !TPULBM_RINGS
 extern "C" int tpulbm_d2q9_step_blocked(const float* f, float* out,
                                         const uint8_t* solid, int nx, int ny,
@@ -360,14 +393,18 @@ extern "C" int tpulbm_d2q9_step_blocked(const float* f, float* out,
                                         int clean_corners, const float* mode,
                                         const float* src, float lid7,
                                         float lid8, int force_axis,
-                                        const float* force_table, int device,
-                                        void* stream) {
+                                        const float* force_table,
+                                        const float* links, int link_planes,
+                                        int device, void* stream) {
+  if (!tpulbm::links_fit(links, link_planes, kQ)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const StepConsts k = tpulbm::make_consts(inv_tau, u_in, one_minus_u_in,
                                            eq_in, w, mode, src, lid7, lid8);
   err = launch(f, out, solid, nx, ny, nx, ny, n_sub, clean_corners != 0, k,
                tpulbm::Shard{}, tpulbm::ForceTable{force_table, force_axis},
+               tpulbm::Links{links, static_cast<size_t>(nx) * ny,
+                             link_planes == 2 * kQ},
                static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }
@@ -375,7 +412,8 @@ extern "C" int tpulbm_d2q9_step_blocked(const float* f, float* out,
 // n_sub steps of the shard (nxl x nyl at global x0, y0 of the nx x ny
 // grid) from f and its rings (depth n_sub; hx 0 or n_sub, as tpulbm::Shard
 // describes them) into rows [r0, r1) of out; the other rows of out are left
-// as they are. mask is the shard's solid mask padded by n_sub cells.
+// as they are. mask is the shard's solid mask padded by n_sub cells, and
+// links its cut of the link table padded the same way.
 extern "C" int tpulbm_d2q9_step_blocked_rings(
     const float* f, float* out, const uint8_t* mask, const float* rb,
     const float* rt, const float* rl, const float* rr, int nx, int ny,
@@ -383,7 +421,8 @@ extern "C" int tpulbm_d2q9_step_blocked_rings(
     float inv_tau, float u_in, float one_minus_u_in, const float* eq_in,
     const float* w, int clean_corners, const float* mode, const float* src,
     float lid7, float lid8, int force_axis, const float* force_table,
-    int device, void* stream) {
+    const float* links, int link_planes, int device, void* stream) {
+  if (!tpulbm::links_fit(links, link_planes, kQ)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (r0 < 0 || r1 > nyl || r0 >= r1) return cudaErrorInvalidValue;
@@ -394,6 +433,10 @@ extern "C" int tpulbm_d2q9_step_blocked_rings(
   err = launch(f, out, nullptr, nx, ny, nxl, r1 - r0, n_sub,
                clean_corners != 0, k, sh,
                tpulbm::ForceTable{force_table, force_axis},
+               tpulbm::Links{links,
+                             static_cast<size_t>(nyl + 2 * n_sub) *
+                                 (nxl + 2 * n_sub),
+                             link_planes == 2 * kQ},
                static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }

@@ -57,6 +57,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// The Bouzidi obstacle (-DTPULBM_BOUZIDI=1, tpulbm's `bz` mode of
+// step_pallas3d.py:844-857): a cell whose mask byte carries kLinkBit
+// rewrites its cut links after its boundary sequence (apply_bouzidi in
+// d3q19_common.cuh) from its entries of the link table, read at its own
+// index, and its own post-collision values in the ring's plane z.
+
 #include "d3q19_common.cuh"
 
 namespace {
@@ -82,7 +88,8 @@ __device__ __forceinline__ int ring_index(int i, int ly, int lx) {
 __global__ void __launch_bounds__(kBX * kBY)
     d3q19_step_kernel(const float* __restrict__ f, float* __restrict__ out,
                       const uint8_t* __restrict__ solid, int nx, int ny,
-                      int nz, const __grid_constant__ Consts k) {
+                      int nz, const __grid_constant__ Consts k,
+                      tpulbm::Links links) {
   extern __shared__ float ring[];  // 3 collided planes (tile + halo)
 
   const int tx = threadIdx.x;
@@ -116,8 +123,8 @@ __global__ void __launch_bounds__(kBX * kBY)
       float v[kQ];
 #pragma unroll
       for (int i = 0; i < kQ; ++i) v[i] = f[i * pop + cell];
-      tpulbm3d::collide_cell(v, k,
-                             tpulbm3d::kBounceBack && solid[cell] != 0);
+      tpulbm3d::collide_cell(
+          v, k, tpulbm3d::kBounceBack && tpulbm3d::is_solid(solid[cell]));
 #pragma unroll
       for (int i = 0; i < kQ; ++i) r[ring_index(i, ly, lx)] = v[i];
     }
@@ -141,12 +148,21 @@ __global__ void __launch_bounds__(kBX * kBY)
                           static_cast<size_t>(y) * nx + x;
       float g[kQ];
       tpulbm3d::step_cell(
-          g, [&](int ox) { return solid[cell + ox] != 0; }, x, y, z, nx, ny,
-          nz, k, [&](auto i, int ox, int oy, int oz) {
+          g, [&](int ox) { return tpulbm3d::is_solid(solid[cell + ox]); }, x,
+          y, z, nx, ny, nz, k, [&](auto i, int ox, int oy, int oz) {
             const float* r = oz < 0 ? rm : oz > 0 ? rp : r0;
             return r[ring_index(decltype(i)::value, ty + 1 + oy,
                                 tx + 1 + ox)];
           });
+      if constexpr (tpulbm3d::kBouzidi) {
+        if (solid[cell] & tpulbm::kLinkBit) {
+          tpulbm3d::apply_bouzidi(g, links.q + cell, links.plane,
+                                  links.moving != 0, [&](auto i) {
+                                    return r0[ring_index(decltype(i)::value,
+                                                         ty + 1, tx + 1)];
+                                  });
+        }
+      }
 #pragma unroll
       for (int i = 0; i < kQ; ++i) out[i * pop + cell] = g[i];
     }
@@ -164,11 +180,15 @@ __global__ void __launch_bounds__(kBX * kBY)
 // Launches one step on `stream` and returns cudaGetLastError() (or the
 // error of raising the kernel's shared-memory limit): it neither
 // synchronizes nor allocates.
+// links and link_planes: the Bouzidi link table, 19 or 38 planes
+// (tpulbm::Links), read by the kBouzidi build only (elsewhere null and 0).
 extern "C" int tpulbm_d3q19_step(const float* f, float* out,
                                  const uint8_t* solid, int nx, int ny, int nz,
                                  float inv_tau, const float* eq_in,
                                  const float* w, const float* mode,
-                                 const float* src, int device, void* stream) {
+                                 const float* src, const float* links,
+                                 int link_planes, int device, void* stream) {
+  if (!tpulbm::links_fit(links, link_planes, kQ)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(d3q19_step_kernel,
@@ -180,8 +200,10 @@ extern "C" int tpulbm_d3q19_step(const float* f, float* out,
   const dim3 grid((nx + kBX - 1) / kBX, (ny + kBY - 1) / kBY,
                   (nz + kZChunk - 1) / kZChunk);
   d3q19_step_kernel<<<grid, block, kRingBytes,
-                      static_cast<cudaStream_t>(stream)>>>(f, out, solid, nx,
-                                                           ny, nz, k);
+                      static_cast<cudaStream_t>(stream)>>>(
+      f, out, solid, nx, ny, nz, k,
+      tpulbm::Links{links, static_cast<size_t>(nx) * ny * nz,
+                    link_planes == 2 * kQ});
   return static_cast<int>(cudaGetLastError());
 }
 

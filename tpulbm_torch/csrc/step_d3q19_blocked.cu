@@ -56,6 +56,15 @@
 // duct's rules do not depend on x), so the trapezoid of valid cells is that
 // of an interior block.
 //
+// The Bouzidi obstacle (-DTPULBM_BOUZIDI=1): every stage rewrites the cut
+// links of its cells whose mask byte carries kLinkBit (apply_bouzidi), from
+// the link table at the cell's global index and the cell's own
+// post-collision values of that substep in the previous stage's ring.
+// Those of class 0 (cz = -1) are pulled from the plane above a march step
+// before the cell itself is computed, so under kBouzidi class 0 keeps two
+// slots (43 floats a cell instead of 38; 226,948 B at N=3, 134,512 B at
+// N=2, still one block an SM).
+//
 // Bits. Collision, pull and boundary code come from d3q19_common.cuh,
 // shared with step_d3q19.cu, and both libraries are built with -fmad=false:
 // one launch gives the same bits as N launches of the 1-step kernel.
@@ -84,18 +93,26 @@ __host__ __device__ constexpr int cz_of(int i) {
   return 0;
 }
 
-// A ring keeps population class c = cz + 1 in c + 1 slots of class_size(c)
-// planes each (a plane: one population over the ring's cells): class 0
-// (pulled from z+1) one slot, class 1 (from z) two, class 2 (from z-1)
-// three, the slot of z-plane q being (q + 6) % (c + 1).
+// A ring keeps population class c = cz + 1 in class_slots(c) slots of
+// class_size(c) planes each (a plane: one population over the ring's
+// cells): class 0 (pulled from z+1) one slot, class 1 (from z) two, class 2
+// (from z-1) three, the slot of z-plane q being (q + 6) % class_slots(c).
+// The Bouzidi rewrite also reads a cell's own post-collision populations,
+// those of class 0 included, a plane after they were pulled: under
+// kBouzidi class 0 keeps two slots.
 __host__ __device__ constexpr int class_size(int c) { return c == 1 ? 9 : 5; }
+__host__ __device__ constexpr int class_slots(int c) {
+  return c + 1 + (tpulbm3d::kBouzidi && c == 0 ? 1 : 0);
+}
 __host__ __device__ constexpr int class_base(int c) {
   return c == 0   ? 0
-         : c == 1 ? class_size(0)
-                  : class_size(0) + 2 * class_size(1);
+         : c == 1 ? class_slots(0) * class_size(0)
+                  : class_slots(0) * class_size(0) +
+                        class_slots(1) * class_size(1);
 }
-constexpr int kRingFloats =
-    class_size(0) + 2 * class_size(1) + 3 * class_size(2);
+constexpr int kRingFloats = class_slots(0) * class_size(0) +
+                            class_slots(1) * class_size(1) +
+                            class_slots(2) * class_size(2);
 
 // i's position among the populations of its class
 __host__ __device__ constexpr int rank_in_class(int i) {
@@ -117,12 +134,12 @@ constexpr bool ring_planes_distinct() {
     for (int a = 0; a < kQ; ++a) {
       const int c = cz_of(a) + 1;
       const int pa = class_base(c) + rank_in_class(a) +
-                     (q % (c + 1)) * class_size(c);
+                     (q % class_slots(c)) * class_size(c);
       if (pa < 0 || pa >= kRingFloats) return false;
       for (int b = 0; b < a; ++b) {
         const int cb = cz_of(b) + 1;
         if (pa == class_base(cb) + rank_in_class(b) +
-                      (q % (cb + 1)) * class_size(cb)) {
+                      (q % class_slots(cb)) * class_size(cb)) {
           return false;
         }
       }
@@ -130,25 +147,36 @@ constexpr bool ring_planes_distinct() {
   }
   return true;
 }
-static_assert(kRingFloats == 38, "5 + 2 * 9 + 3 * 5 floats a cell");
+static_assert(tpulbm3d::kBouzidi || kRingFloats == 38,
+              "5 + 2 * 9 + 3 * 5 floats a cell");
+static_assert(!tpulbm3d::kBouzidi || kRingFloats == 43,
+              "2 * 5 + 2 * 9 + 3 * 5 floats a cell under kBouzidi");
 static_assert(ring_planes_distinct(), "ring planes overlap");
 
-// The offsets, in floats, of the class-1 and class-2 slots that hold
-// z-plane q (q >= -1) in a ring of C cells; class 0 has one slot.
+// The offsets, in floats, of the class-0, class-1 and class-2 slots that
+// hold z-plane q (q >= -1) in a ring of C cells.
 struct Slots {
-  int c1, c2;
+  int c0, c1, c2;
 };
 template <int C>
 __device__ __forceinline__ Slots slots_of(int q) {
-  return {((q + 6) % 2) * class_size(1) * C,
-          ((q + 6) % 3) * class_size(2) * C};
+  return {((q + 6) % class_slots(0)) * class_size(0) * C,
+          ((q + 6) % class_slots(1)) * class_size(1) * C,
+          ((q + 6) % class_slots(2)) * class_size(2) * C};
+}
+
+// The slots a pull of plane p reads: class 0 of plane p+1, class 1 of p,
+// class 2 of p-1.
+template <int C>
+__device__ __forceinline__ Slots pull_slots(int p) {
+  return {slots_of<C>(p + 1).c0, slots_of<C>(p).c1, slots_of<C>(p - 1).c2};
 }
 
 // The float offset of population I of the z-plane whose slots are s.
 template <int I, int C>
 __device__ __forceinline__ int ring_at(const Slots& s) {
   constexpr int c = RingPop<I>::kClass;
-  return RingPop<I>::kFirst * C + (c == 0 ? 0 : c == 1 ? s.c1 : s.c2);
+  return RingPop<I>::kFirst * C + (c == 0 ? s.c0 : c == 1 ? s.c1 : s.c2);
 }
 
 template <int N>
@@ -213,7 +241,9 @@ struct March {
 // stepped and collided into stage K's ring; then the barrier.
 template <int N, int K>
 __device__ __forceinline__ void inner_stages(float* smem, const March& g,
-                                             const Consts& k, int m) {
+                                             const Consts& k,
+                                             const tpulbm::Links& links,
+                                             int m) {
   if constexpr (K < N) {
     using T = Tile<N>;
     constexpr int W = T::width(K);
@@ -230,7 +260,8 @@ __device__ __forceinline__ void inner_stages(float* smem, const March& g,
     const int lo = g.z0 - (N - K) > 0 ? g.z0 - (N - K) : 0;
     const int hi = g.z1 + (N - K) < g.nz ? g.z1 + (N - K) : g.nz;
     if (p >= lo && p < hi) {
-      const Slots rd = {slots_of<Cs>(p).c1, slots_of<Cs>(p - 1).c2};
+      const Slots rd = pull_slots<Cs>(p);
+      const Slots own = slots_of<Cs>(p);
       const Slots wr = slots_of<C>(p);
       // each thread steps J cells: every pull before any store, so that
       // the loads of all J cells are in flight together
@@ -249,13 +280,28 @@ __device__ __forceinline__ void inner_stages(float* smem, const March& g,
         if (in[j]) {
           const int at = (ly + 1) * Ws + lx + 1;     // this cell in stage K-1
           const int at0 = (ly + K) * W0 + lx + K;    // and in stage 0
-          if constexpr (tpulbm3d::kBounceBack) solid[j] = mask[at0] != 0;
+          if constexpr (tpulbm3d::kBounceBack)
+            solid[j] = tpulbm3d::is_solid(mask[at0]);
           tpulbm3d::step_cell(
-              v[j], [&](int ox) { return mask[at0 + ox] != 0; }, x, y, p,
-              g.nx, g.ny, g.nz, k, [&](auto i, int ox, int oy, int oz) {
+              v[j], [&](int ox) { return tpulbm3d::is_solid(mask[at0 + ox]); },
+              x, y, p, g.nx, g.ny, g.nz, k,
+              [&](auto i, int ox, int oy, int oz) {
                 return src[ring_at<decltype(i)::value, Cs>(rd) + at +
                            oy * Ws + ox];
               });
+          if constexpr (tpulbm3d::kBouzidi) {
+            // this substep's own post-collision values, in stage K-1's
+            // ring, which stage K does not write
+            if (mask[at0] & tpulbm::kLinkBit) {
+              const size_t cell =
+                  (static_cast<size_t>(p) * g.ny + y) * g.nx + x;
+              tpulbm3d::apply_bouzidi(
+                  v[j], links.q + cell, links.plane, links.moving != 0,
+                  [&](auto i) {
+                    return src[ring_at<decltype(i)::value, Cs>(own) + at];
+                  });
+            }
+          }
         }
       }
 #pragma unroll
@@ -267,7 +313,7 @@ __device__ __forceinline__ void inner_stages(float* smem, const March& g,
       }
     }
     __syncthreads();
-    inner_stages<N, K + 1>(smem, g, k, m);
+    inner_stages<N, K + 1>(smem, g, k, links, m);
   }
 }
 
@@ -275,7 +321,8 @@ template <int N>
 __global__ void __launch_bounds__(kBX * kBY)
     d3q19_blocked_kernel(const float* __restrict__ f, float* __restrict__ out,
                          const uint8_t* __restrict__ solid, int nx, int ny,
-                         int nz, const __grid_constant__ Consts k) {
+                         int nz, const __grid_constant__ Consts k,
+                         tpulbm::Links links) {
   using T = Tile<N>;
   extern __shared__ float smem[];  // the rings of stages 0 .. N-1, the mask
 
@@ -336,29 +383,39 @@ __global__ void __launch_bounds__(kBX * kBY)
         if (in[j]) {
           tpulbm3d::collide_cell(
               v[j], k,
-              tpulbm3d::kBounceBack && mask_m[tid + j * T::kThreads] != 0);
+              tpulbm3d::kBounceBack &&
+                  tpulbm3d::is_solid(mask_m[tid + j * T::kThreads]));
           store_ring<C0>(smem, wr, tid + j * T::kThreads, v[j]);
         }
       }
     }
     __syncthreads();
-    inner_stages<N, 1>(smem, g, k, m);
+    inner_stages<N, 1>(smem, g, k, links, m);
     // stage N: plane m - N of the tile, stored
     const int p = m - N;
     if (active && p >= g.z0 && p < g.z1) {
       const size_t cell = static_cast<size_t>(p) * plane +
                           static_cast<size_t>(y) * nx + x;
-      const Slots rd = {slots_of<C_last>(p).c1, slots_of<C_last>(p - 1).c2};
+      const Slots rd = pull_slots<C_last>(p);
       const uint8_t* mask_p = mask + (p % T::kMaskSlots) * C0;
       const int at = (ty + 1) * W_last + tx + 1;
       const int at0 = (ty + N) * W0 + tx + N;
       float v[kQ];
       tpulbm3d::step_cell(
-          v, [&](int ox) { return mask_p[at0 + ox] != 0; }, x, y, p, nx, ny,
-          nz, k, [&](auto i, int ox, int oy, int oz) {
+          v, [&](int ox) { return tpulbm3d::is_solid(mask_p[at0 + ox]); }, x,
+          y, p, nx, ny, nz, k, [&](auto i, int ox, int oy, int oz) {
             return last[ring_at<decltype(i)::value, C_last>(rd) + at +
                         oy * W_last + ox];
           });
+      if constexpr (tpulbm3d::kBouzidi) {
+        if (mask_p[at0] & tpulbm::kLinkBit) {
+          const Slots own = slots_of<C_last>(p);
+          tpulbm3d::apply_bouzidi(
+              v, links.q + cell, links.plane, links.moving != 0, [&](auto i) {
+                return last[ring_at<decltype(i)::value, C_last>(own) + at];
+              });
+        }
+      }
 #pragma unroll
       for (int i = 0; i < kQ; ++i) out[i * pop + cell] = v[i];
     }
@@ -367,7 +424,8 @@ __global__ void __launch_bounds__(kBX * kBY)
 
 template <int N>
 cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
-                   int ny, int nz, const Consts& k, cudaStream_t stream) {
+                   int ny, int nz, const Consts& k,
+                   const tpulbm::Links& links, cudaStream_t stream) {
   constexpr size_t smem = Tile<N>::kSmemBytes;
   if constexpr (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -378,7 +436,7 @@ cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
   const dim3 grid((nx + kBX - 1) / kBX, (ny + kBY - 1) / kBY,
                   (nz + kZChunk - 1) / kZChunk);
   d3q19_blocked_kernel<N><<<grid, Tile<N>::kThreads, smem, stream>>>(
-      f, out, solid, nx, ny, nz, k);
+      f, out, solid, nx, ny, nz, k, links);
   return cudaGetLastError();
 }
 
@@ -387,20 +445,26 @@ cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
 // Plain C interface, loaded with ctypes (tpulbm_torch/ops/step_cuda.py).
 // Launches n_sub steps on `stream` and returns cudaGetLastError() (a refused
 // launch never runs and a later synchronize would not report it); it
-// neither synchronizes nor allocates.
+// neither synchronizes nor allocates. links and link_planes: the Bouzidi
+// link table, 19 or 38 planes (tpulbm::Links), read by the kBouzidi build
+// only (elsewhere null and 0).
 extern "C" int tpulbm_d3q19_step_blocked(const float* f, float* out,
                                          const uint8_t* solid, int nx, int ny,
                                          int nz, int n_sub, float inv_tau,
                                          const float* eq_in, const float* w,
                                          const float* mode, const float* src,
+                                         const float* links, int link_planes,
                                          int device, void* stream) {
+  if (!tpulbm::links_fit(links, link_planes, kQ)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Consts k = tpulbm3d::make_consts(inv_tau, eq_in, w, mode, src);
+  const tpulbm::Links lk{links, static_cast<size_t>(nx) * ny * nz,
+                         link_planes == 2 * kQ};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_sub) {
-    case 2: err = launch<2>(f, out, solid, nx, ny, nz, k, s); break;
-    case 3: err = launch<3>(f, out, solid, nx, ny, nz, k, s); break;
+    case 2: err = launch<2>(f, out, solid, nx, ny, nz, k, lk, s); break;
+    case 3: err = launch<3>(f, out, solid, nx, ny, nz, k, lk, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

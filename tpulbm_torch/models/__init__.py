@@ -3,16 +3,18 @@ collision operator (BGK, TRT, MRT, regularized, KBC, Smagorinsky, power
 law) with either Zou-He corner rule, the body-forced Poiseuille channel
 and the lid-driven cavity under the same operators, the 3-D D3Q19 sphere
 in a duct and the 3-D Poiseuille duct under each of those but KBC, the
-equilibrium or the bounce-back obstacle and a uniform body force on any of
-them, the 2-D thermal problems (Rayleigh-Bénard and the side-heated
-cavity, BGK or the Smagorinsky closure), the Shan-Chen multiphase
+equilibrium, the bounce-back or the Bouzidi curved-wall obstacle (the
+cylinder also spinning) and a uniform body force on any of them, the
+2-D thermal problems (Rayleigh-Bénard and the side-heated cavity, BGK or
+the Smagorinsky closure), the Shan-Chen multiphase
 channel (droplet or band, BGK) and the fully periodic 2-D boxes
 (Taylor-Green, the shear layer and Kolmogorov under every D2Q9
 collision, the passive scalar under the thermal step's); every other
 configuration raises
 NotImplementedError naming the ROADMAP item (Queue 1) that will port it,
 and the combinations tpulbm itself refuses (KBC in 3-D, a 3-D cavity)
-raise its ValueError."""
+raise its ValueError, as does a Bouzidi obstacle without an analytic
+surface (ops/bouzidi.link_q)."""
 from ..config import check_collision
 from .base import Problem
 from . import (cavity, cylinder, cylinder3d, multiphase, periodic2d,
@@ -66,9 +68,6 @@ def check_slice(params) -> None:
             raise _not_ported(f"a 3-D problem on mesh_shape="
                               f"{params.mesh_shape}",
                               "Queue 1 item 19 (several devices: 3-D meshes)")
-    if params.obstacle_bc == "bouzidi":
-        raise _not_ported("obstacle_bc='bouzidi'",
-                          "Queue 1 item 14 (Bouzidi curved walls)")
 
 
 def make_problem(params) -> Problem:

@@ -3,7 +3,8 @@
 Port of tpulbm/models/base.py for the slices the port covers (uniform
 equilibrium start, optional solid mask; the boundary layouts of the 2-D
 cylinder, the body-forced channel, the lid-driven cavity, the 3-D sphere
-in a duct and the 3-D duct; the thermal double-population problems; the
+in a duct and the 3-D duct, with the obstacle's analytic surface and wall
+velocity for the Bouzidi rule; the thermal double-population problems; the
 Shan-Chen multiphase channel's rho-map start; the fully periodic 2-D boxes'
 equilibrium at an analytic (rho, u) field, the passive scalar's analytic
 T field and Kolmogorov's force profile). The initial state and the ghost
@@ -127,10 +128,18 @@ class Problem:
     # a force varying along one axis (Kolmogorov), added after the
     # collision and the uniform force's source
     force_profile: ForceProfile | None = None
-    # "equilibrium" (solids pinned to rest equilibrium) or "bounce_back"
+    # "equilibrium" (solids pinned to rest equilibrium), "bounce_back"
     # (solids skip the collision and store their streamed populations
-    # reversed)
+    # reversed) or "bouzidi" (curved-wall interpolation on the cut links,
+    # ops/bouzidi.py, then the equilibrium pin)
     obstacle_bc: str = "equilibrium"
+    # analytic signed distance to the obstacle surface (positive in fluid),
+    # pts (..., D) in (x, y[, z]) order -> (...,), a NumPy callable; the
+    # "bouzidi" rule needs it (ops/bouzidi.py), the others ignore it
+    obstacle_sdf: object = None
+    # the wall velocity of a MOVING obstacle (the spinning cylinder):
+    # pts (..., D) -> u (..., D), NumPy; "bouzidi" only
+    obstacle_velocity: object = None
     # "bgk" | "trt" | "mrt" | "regularized" | "kbc" (physics.collide_*)
     collision: str = "bgk"
     clean_corners: bool = False       # Zou-He corner closure (2-D; opt-in)

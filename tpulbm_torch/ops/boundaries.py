@@ -2,8 +2,9 @@
 
 Port of tpulbm/ops/boundaries.py for the BC stacks of the 2-D cylinder,
 the body-forced channel, the lid-driven cavity, the 3-D sphere in a duct
-and the 3-D duct, and the thermal scalar's Dirichlet wall. Every BC is a
-`torch.where` over coordinate masks on a mutable list of Q planes, applied
+and the 3-D duct, the Bouzidi curved wall (ops/bouzidi.py) and the
+thermal scalar's Dirichlet wall. Every BC is a `torch.where` over
+coordinate masks on a mutable list of Q planes, applied
 in the reference order (y walls with the moving lid, z walls, x walls with
 the cavity corners, inlet, outlet, the optional clean Zou-He corners,
 obstacle), so the read-after-write chains at edge and corner cells carry
@@ -247,7 +248,9 @@ def apply_all(problem: Problem, planes: list, coords: dict) -> list:
 
     `coords` holds broadcastable global-coordinate tensors 'yy' and 'xx'
     (and 'zz' in 3-D), the extents 'ny' and 'nx' (and 'nz'), and 'solid'
-    (bool mask or None)."""
+    (bool mask or None); under the Bouzidi obstacle also 'f_post' (the
+    post-collision planes) and 'bz_q' (the link table of the block,
+    ops/bouzidi.py)."""
     lat = problem.lattice
     solid = coords.get("solid")
     yy, xx = coords["yy"], coords["xx"]
@@ -279,6 +282,15 @@ def apply_all(problem: Problem, planes: list, coords: dict) -> list:
         apply_zero_gradient_outlet(lat, planes, xx == nx - 1, solid)
     if problem.clean_corners and lat.D == 2:
         apply_zou_he_corners(planes, yy, xx, ny, nx, solid)
-    apply_obstacle(lat, planes, solid, problem.obstacle_bc,
-                   physics.rest_equilibrium(lat, problem.dtype))
+    rest = physics.rest_equilibrium(lat, problem.dtype)
+    if problem.obstacle_bc == "bouzidi" and solid is not None:
+        # the curved-wall rewrite of the cut links (the post-collision
+        # planes and the link table the step put in coords), then the
+        # rest-equilibrium pin of the solid cells
+        from . import bouzidi
+        bouzidi.apply_bouzidi(lat, planes, coords["f_post"], coords["bz_q"],
+                              active=bouzidi.active_directions(problem))
+        apply_obstacle(lat, planes, solid, "equilibrium", rest)
+    else:
+        apply_obstacle(lat, planes, solid, problem.obstacle_bc, rest)
     return planes

@@ -1,6 +1,7 @@
 """Momentum-exchange force on the obstacle.
 
-Port of tpulbm/ops/forces.py for the voxel obstacle:
+Port of tpulbm/ops/forces.py: the cut-link form of the Bouzidi obstacle
+(bouzidi_momentum_exchange) and, for the voxel obstacle,
 
     F = Σ_i 2 c_i Σ_x f_post_i(x) · fluid(x) · solid(x + c_i)
 
@@ -71,6 +72,59 @@ def momentum_exchange(problem: Problem, f_post: torch.Tensor,
     return torch.stack(comps).to(dtype or f_post.dtype)
 
 
+def bouzidi_momentum_exchange(problem: Problem, f_post: torch.Tensor,
+                              table: torch.Tensor, inner=None,
+                              dtype: torch.dtype | None = None
+                              ) -> torch.Tensor:
+    """Force vector (D,) on a Bouzidi obstacle: tpulbm's
+    bouzidi_momentum_exchange_fn (forces.py:83-126), the momentum exchange
+    over the cut links F = Σ_links c_i (f̂_i + f_j^new), where f_j^new is
+    the population the closure writes (ops/bouzidi.py; at q = 1/2 it is
+    f̂_i, the voxel form 2 c_i f̂_i). Each link's term is computed in
+    f_post's dtype, as tpulbm computes it, and summed in float64, as
+    momentum_exchange sums (so a mesh's partial sums add up to one
+    device's). The q < 1/2 term reads f̂_i at the upstream node x_f + c_j,
+    a roll of f_post: on a shard, f_post and `table` are its block padded
+    by one cell of its neighbours' post-collision populations and table,
+    and `inner` (slices of the spatial axes) the block itself, over which
+    the links are summed. The vector comes back in `dtype` (default
+    f_post's)."""
+    lat = problem.lattice
+    opp = lat.opposite
+    dt = f_post.dtype
+    moving = table.shape[0] == 2 * lat.Q
+    dims = tuple(range(f_post.dim() - 1))
+    comps = [torch.zeros((), dtype=torch.float64, device=f_post.device)
+             for _ in range(lat.D)]
+    for j in range(1, lat.Q):
+        i = int(opp[j])
+        qj = table[j].to(dt)
+        has = qj >= 0.0
+        ltm = qj < 0.5
+        inv2q = 1.0 / (2.0 * torch.clamp_min(qj, 0.5))
+        a = torch.where(ltm, 2.0 * qj, inv2q)
+        b = torch.where(ltm, 1.0 - 2.0 * qj, 0.0)
+        cc = torch.where(ltm, 0.0, 1.0 - inv2q)
+        fi = f_post[i]
+        # the upstream node x_f + c_j; where b > 0 link_q made sure it is
+        # fluid in the domain, so a wrapped value is multiplied by 0
+        shifts = tuple(-int(v) for v in lat.c[j])[::-1]
+        fup = torch.roll(fi, shifts, dims)
+        fj_new = a * fi + b * fup + cc * f_post[j]
+        if moving:
+            tw = table[lat.Q + j].to(dt)
+            fj_new = fj_new + torch.where(ltm, 6.0 * tw, (6.0 * inv2q) * tw)
+        flux = torch.where(has, fi + fj_new, 0.0)
+        if inner is not None:
+            flux = flux[inner]
+        total = torch.sum(flux, dtype=torch.float64)
+        for d in range(lat.D):
+            cid = int(lat.c[i, d])
+            if cid:
+                comps[d] = comps[d] + cid * total
+    return torch.stack(comps).to(dtype or dt)
+
+
 def force_coefficients(problem: Problem,
                        force: np.ndarray) -> tuple[float, float]:
     """C_D, C_L from force[0] and force[1]. 2-D: the reference's
@@ -88,13 +142,28 @@ def force_coefficients(problem: Problem,
 
 
 def forces_fn(problem: Problem, device, solid=None, masks=None,
-              dtype=None):
+              dtype=None, table=None, inner=None):
     """f -> force vector (D,) on `device`: collide (solid cells skip it
     under the bounce-back obstacle, as in the step), then momentum exchange
-    (the reference's call point: post-collision, pre-streaming). The link
-    masks are built once here, not at every call. On a mesh, `solid` and
-    `masks` are a shard's cut of the global ones and `dtype` float64, the
-    partial sums a mesh adds up (parallel/sharded_step.Diagnostics)."""
+    (the reference's call point: post-collision, pre-streaming); under the
+    Bouzidi obstacle the cut-link form (bouzidi_momentum_exchange) on the
+    link table, `table` or the whole grid's. The link masks are built once
+    here, not at every call. On a mesh, `solid` and `masks` are a shard's
+    cut of the global ones and `dtype` float64, the partial sums a mesh
+    adds up (parallel/sharded_step.Diagnostics); under the Bouzidi
+    obstacle f is the shard's block padded by one cell, `table` its cut of
+    the link table and `inner` the block."""
+    if problem.obstacle_bc == "bouzidi":
+        if table is None:
+            from .bouzidi import device_table
+            table = device_table(problem, device)
+
+        def fn_bz(f: torch.Tensor) -> torch.Tensor:
+            f_post = step_torch.collide_block(problem, f)
+            return bouzidi_momentum_exchange(problem, f_post, table, inner,
+                                             dtype=dtype)
+
+        return fn_bz
     if solid is None:
         solid = torch.as_tensor(problem.solid, device=device)
     if masks is None:

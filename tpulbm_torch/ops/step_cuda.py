@@ -7,9 +7,9 @@ Ports of tpulbm/ops/step_pallas.py (D2Q9):
 Both hold every collision of tpulbm's D2Q9 kernels (COLLISION_MODES), the
 clean Zou-He corners, the body-force source, the force profile (tpulbm's
 force_fn along one axis: a table of its source per coordinate), the
-bounce-back obstacle and four domains (DOMAINS: the cylinder, the periodic
-channel, the lid-driven cavity, the periodic box); the mode's
-coefficients are computed here on the host, as tpulbm's
+bounce-back and the Bouzidi obstacles and four domains (DOMAINS: the
+cylinder, the periodic channel, the lid-driven cavity, the periodic box);
+the mode's coefficients are computed here on the host, as tpulbm's
 _physics_cfg_fields computes them.
 Port of tpulbm/ops/step_pallas3d.py (D3Q19):
 * make_local_step_pallas3d and make_local_step_pallas3d_tiled at n_sub=1
@@ -17,14 +17,19 @@ Port of tpulbm/ops/step_pallas3d.py (D3Q19):
 * make_local_step_pallas3d_tiled at n_sub 2 and 3 (temporal blocking, N
   steps per launch): csrc/step_d3q19_blocked.cu.
 Both hold every collision of tpulbm's 3-D kernels (COLLISION_MODES_3D: all
-but KBC, which tpulbm runs in 2-D only), the source, the bounce-back
-obstacle and two domains (DOMAINS_3D: the sphere in a duct, the periodic
-duct); the mode's coefficients are computed here as tpulbm's 3-D builders
-compute them.
+but KBC, which tpulbm runs in 2-D only), the source, the bounce-back and
+the Bouzidi obstacles and two domains (DOMAINS_3D: the sphere in a duct,
+the periodic duct); the mode's coefficients are computed here as tpulbm's
+3-D builders compute them.
 A library is built for one collision, domain, source, force profile and
 obstacle rule (build_defines; the cylinder's BGK library with the
 equilibrium obstacle and no force takes no define and is the one every
-earlier build ran), at its first use.
+earlier build ran), at its first use. The Bouzidi build (BOUZIDI,
+tpulbm's `bz` mode) takes the link table (ops/bouzidi.link_tables, 9 or
+18 planes in 2-D, 19 or 38 in 3-D; a spinning wall's scalars in the
+second half) as an operand and reads it only at the cells whose mask
+byte carries LINK_BIT (kernel_mask): the cut-link rewrite is cell-local,
+every term of it sits at the boundary cell.
 Both D2Q9 sources also build with rings (-DTPULBM_RINGS=1), for one shard
 of a mesh (parallel/sharded_step.py): collide_stream_rings steps a shard's
 block from the rings its neighbours sent, over a range of its rows. That
@@ -130,6 +135,12 @@ SOURCE = 4
 BOUNCE_BACK = 8
 RINGS = 16      # a D2Q9 library built for one shard of a mesh
 FORCE = 32      # the force profile's table (D2Q9)
+BOUZIDI = 64    # the Bouzidi obstacle: the link table (ops/bouzidi.py)
+# the bits of a cell's byte in the uint8 mask the kernels read
+# (collision_modes.cuh's kSolidBit, kLinkBit): solid, and under the
+# Bouzidi obstacle at least one cut link
+SOLID_BIT = 1
+LINK_BIT = 4
 MRT_RANK_3D = 10           # d3q19_common.cuh kMrtRank: the ten ghost moments
 _Q3 = 19
 # floats of d3q19_common.cuh's ModeConsts: TRT, MRT's U and V, regularized
@@ -221,7 +232,7 @@ def kernel_domain(problem: Problem) -> int:
 
 def variant_defines(variant: int) -> tuple[str, ...]:
     """nvcc's defines for a library's domain (variant & DOMAIN_BITS),
-    SOURCE, FORCE, BOUNCE_BACK and RINGS; () for 0."""
+    SOURCE, FORCE, BOUNCE_BACK, BOUZIDI and RINGS; () for 0."""
     defines = []
     if variant & DOMAIN_BITS:
         defines.append(f"-DTPULBM_DOMAIN={variant & DOMAIN_BITS}")
@@ -231,6 +242,8 @@ def variant_defines(variant: int) -> tuple[str, ...]:
         defines.append("-DTPULBM_FORCE=1")
     if variant & BOUNCE_BACK:
         defines.append("-DTPULBM_BOUNCE_BACK=1")
+    if variant & BOUZIDI:
+        defines.append("-DTPULBM_BOUZIDI=1")
     if variant & RINGS:
         defines.append("-DTPULBM_RINGS=1")
     return tuple(defines)
@@ -270,8 +283,8 @@ class StepConstants:
     @property
     def library(self) -> str:
         """The library's name in the launch counts: the collision, then the
-        domain, "source", "force" and "bounce_back" where the build has
-        them, as "mrt+channel+source" or "bgk+box+force"."""
+        domain, "source", "force", "bounce_back" and "bouzidi" where the
+        build has them, as "mrt+channel+source" or "bgk+bouzidi"."""
         domains = DOMAINS if len(self.w) == 9 else DOMAINS_3D
         parts = [self.mode]
         if self.variant & DOMAIN_BITS:
@@ -282,6 +295,8 @@ class StepConstants:
             parts.append("force")
         if self.variant & BOUNCE_BACK:
             parts.append("bounce_back")
+        if self.variant & BOUZIDI:
+            parts.append("bouzidi")
         return "+".join(parts)
 
     @functools.cached_property
@@ -336,10 +351,12 @@ class StepConstants:
         lat = problem.lattice
         domain = kernel_domain(problem)
         bounce = domain == 0 and problem.obstacle_bc == "bounce_back"
+        bouzidi = domain == 0 and problem.obstacle_bc == "bouzidi"
         force = problem.body_force
         prof = problem.force_profile
         variant = (domain | (SOURCE if force else 0)
                    | (BOUNCE_BACK if bounce else 0)
+                   | (BOUZIDI if bouzidi else 0)
                    | (FORCE if prof is not None else 0))
         force_axis, force_table = -1, ()
         if prof is not None:
@@ -442,15 +459,16 @@ def mode_defines(mode: str) -> tuple[str, ...]:
 def _library(mode: str = "bgk", variant: int = 0) -> ctypes.CDLL:
     return _bind("step_d2q9.cu", "tpulbm_d2q9_step",
                  [_PTR, _PTR, _PTR, _I32, _I32, _F32, _F32, _F32, _PTR, _PTR,
-                  _I32, _PTR, _PTR, _F32, _F32, _I32, _PTR, _I32, _PTR],
-                 mode, MODE_FLOATS, variant)
+                  _I32, _PTR, _PTR, _F32, _F32, _I32, _PTR, _PTR, _I32, _I32,
+                  _PTR], mode, MODE_FLOATS, variant)
 
 
 @functools.cache
 def _library_3d(mode: str = "bgk", variant: int = 0) -> ctypes.CDLL:
     lib = _bind("step_d3q19.cu", "tpulbm_d3q19_step",
                 [_PTR, _PTR, _PTR, _I32, _I32, _I32, _F32, _PTR, _PTR, _PTR,
-                 _PTR, _I32, _PTR], mode, MODE_FLOATS_3D, variant)
+                 _PTR, _PTR, _I32, _I32, _PTR], mode, MODE_FLOATS_3D,
+                variant)
     lib.tpulbm_d3q19_smem_bytes.argtypes = []
     lib.tpulbm_d3q19_smem_bytes.restype = _I32
     return lib
@@ -460,7 +478,8 @@ def _library_3d(mode: str = "bgk", variant: int = 0) -> ctypes.CDLL:
 def _blocked_library_3d(mode: str = "bgk", variant: int = 0) -> ctypes.CDLL:
     lib = _bind("step_d3q19_blocked.cu", "tpulbm_d3q19_step_blocked",
                 [_PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _F32, _PTR, _PTR,
-                 _PTR, _PTR, _I32, _PTR], mode, MODE_FLOATS_3D, variant)
+                 _PTR, _PTR, _PTR, _I32, _I32, _PTR], mode, MODE_FLOATS_3D,
+                variant)
     lib.tpulbm_d3q19_blocked_smem_bytes.argtypes = [_I32]
     lib.tpulbm_d3q19_blocked_smem_bytes.restype = _I32
     return lib
@@ -470,14 +489,14 @@ def _blocked_library_3d(mode: str = "bgk", variant: int = 0) -> ctypes.CDLL:
 def _blocked_library(mode: str = "bgk", variant: int = 0) -> ctypes.CDLL:
     return _bind("step_d2q9_blocked.cu", "tpulbm_d2q9_step_blocked",
                  [_PTR, _PTR, _PTR, _I32, _I32, _I32, _F32, _F32, _F32, _PTR,
-                  _PTR, _I32, _PTR, _PTR, _F32, _F32, _I32, _PTR, _I32,
-                  _PTR], mode, MODE_FLOATS, variant)
+                  _PTR, _I32, _PTR, _PTR, _F32, _F32, _I32, _PTR, _PTR, _I32,
+                  _I32, _PTR], mode, MODE_FLOATS, variant)
 
 
 _RINGS_ARGS = [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32,
                _I32, _I32, _I32, _I32, _I32, _I32]
 _CONSTS_ARGS = [_F32, _F32, _F32, _PTR, _PTR, _I32, _PTR, _PTR, _F32, _F32,
-                _I32, _PTR, _I32, _PTR]
+                _I32, _PTR, _PTR, _I32, _I32, _PTR]
 
 
 @functools.cache
@@ -495,6 +514,30 @@ def _rings_blocked_library(mode: str = "bgk",
                  variant | RINGS)
 
 
+def link_args(consts: StepConstants, links: torch.Tensor | None,
+              shape: tuple, f: torch.Tensor) -> tuple[int | None, int]:
+    """(the link table's device pointer or None, its planes) as the
+    launchers take them. Raises unless a Bouzidi library gets a contiguous
+    float32 table of Q or 2Q planes of `shape` on f's device (the whole
+    grid, or a shard's block padded as its mask) and any other library
+    none."""
+    q = len(consts.w)
+    if bool(consts.variant & BOUZIDI) != (links is not None):
+        raise ValueError(f"library {consts.library} and "
+                         + ("no link table" if links is None else
+                            f"a link table {tuple(links.shape)}"))
+    if links is None:
+        return None, 0
+    if (links.dtype != torch.float32 or not links.is_contiguous()
+            or links.device != f.device or links.shape[0] not in (q, 2 * q)
+            or tuple(links.shape[1:]) != tuple(shape)):
+        raise ValueError(f"the link table must be a contiguous float32 "
+                         f"({q} or {2 * q}, *{tuple(shape)}) on {f.device}, "
+                         f"got {links.dtype} {tuple(links.shape)} on "
+                         f"{links.device}")
+    return links.data_ptr(), links.shape[0]
+
+
 def _check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: "
@@ -506,9 +549,11 @@ def _floats(values: tuple) -> ctypes.Array:
 
 
 def collide_stream(f: torch.Tensor, out: torch.Tensor, solid: torch.Tensor,
-                   consts: StepConstants,
-                   plain=None) -> torch.Tensor:
-    """One timestep from f into out; returns out.
+                   consts: StepConstants, plain=None,
+                   links: torch.Tensor | None = None) -> torch.Tensor:
+    """One timestep from f into out; returns out. solid is the uint8
+    kernel_mask, links the Bouzidi library's link table (None for the
+    others).
 
     On a CUDA tensor: launches the kernel on the current stream (no
     synchronization) and raises if the launch is refused. On a CPU tensor:
@@ -524,7 +569,7 @@ def collide_stream(f: torch.Tensor, out: torch.Tensor, solid: torch.Tensor,
     rc = lib.tpulbm_d2q9_step(
         f.data_ptr(), out.data_ptr(), solid.data_ptr(), nx, ny,
         *consts.d2q9_args, *consts.force_args(f.device, (ny, nx)),
-        f.device.index, stream)
+        *link_args(consts, links, (ny, nx), f), f.device.index, stream)
     _check_launch(lib, rc, f"D2Q9 kernel ({consts.library})")
     _count(collide_stream, consts.library)
     return out
@@ -612,7 +657,9 @@ def check_depth(n_sub: int) -> None:
 
 def collide_stream_blocked(f: torch.Tensor, out: torch.Tensor,
                            solid: torch.Tensor, consts: StepConstants,
-                           n_sub: int, plain=None) -> torch.Tensor:
+                           n_sub: int, plain=None,
+                           links: torch.Tensor | None = None
+                           ) -> torch.Tensor:
     """n_sub timesteps from f into out in one launch; returns out.
 
     On a CUDA tensor: launches the N-step kernel on the current stream (no
@@ -632,7 +679,7 @@ def collide_stream_blocked(f: torch.Tensor, out: torch.Tensor,
     rc = lib.tpulbm_d2q9_step_blocked(
         f.data_ptr(), out.data_ptr(), solid.data_ptr(), nx, ny, n_sub,
         *consts.d2q9_args, *consts.force_args(f.device, (ny, nx)),
-        f.device.index, stream)
+        *link_args(consts, links, (ny, nx), f), f.device.index, stream)
     _check_launch(lib, rc, f"D2Q9 {n_sub}-step kernel ({consts.library})")
     _count(collide_stream_blocked, consts.library, n_sub)
     return out
@@ -647,8 +694,11 @@ class Shard:
     (iy, ix) in the mesh, the global (y, x) `origin` of its block of
     `local_shape` (nyl, nxl) in the global `grid` (ny, nx), the `depth` of
     its rings, whether it takes x rings (`x_rings`: the mesh cuts x, or
-    TPULBM_FORCE_TILED; else its block spans every column) and `mask`, its
-    uint8 solid mask padded by `depth` on every side (halo.pad_mask)."""
+    TPULBM_FORCE_TILED; else its block spans every column), `mask`, its
+    uint8 kernel mask padded by `depth` on every side (halo.pad_mask, with
+    the link bits under the Bouzidi obstacle) and `links`, the Bouzidi
+    library's cut of the link table padded the same way
+    (bouzidi.table_block; None for the others)."""
     index: tuple[int, int]
     origin: tuple[int, int]
     local_shape: tuple[int, int]
@@ -656,6 +706,7 @@ class Shard:
     depth: int
     x_rings: bool
     mask: torch.Tensor
+    links: torch.Tensor | None = None
 
 
 def _check_ring(name: str, t, shape: tuple, f: torch.Tensor) -> None:
@@ -755,16 +806,16 @@ def collide_stream_rings(f: torch.Tensor, out: torch.Tensor, rings: tuple,
     stream = torch.cuda.current_stream(f.device).cuda_stream
     ptrs = (f.data_ptr(), out.data_ptr(), shard.mask.data_ptr(), _ptr(rb),
             _ptr(rt), _ptr(rl), _ptr(rr))
+    tail = (*consts.d2q9_args, *consts.force_args(f.device, (ny, nx)),
+            *link_args(consts, shard.links, tuple(shard.mask.shape), f),
+            f.device.index, stream)
     if n_sub == 1:
         lib = _rings_library(consts.mode, consts.variant)
-        rc = lib.tpulbm_d2q9_step_rings(*ptrs, *geometry, *consts.d2q9_args,
-                                        *consts.force_args(f.device, (ny, nx)),
-                                        f.device.index, stream)
+        rc = lib.tpulbm_d2q9_step_rings(*ptrs, *geometry, *tail)
     else:
         lib = _rings_blocked_library(consts.mode, consts.variant)
-        rc = lib.tpulbm_d2q9_step_blocked_rings(
-            *ptrs, *geometry, n_sub, *consts.d2q9_args,
-            *consts.force_args(f.device, (ny, nx)), f.device.index, stream)
+        rc = lib.tpulbm_d2q9_step_blocked_rings(*ptrs, *geometry, n_sub,
+                                                *tail)
     _check_launch(lib, rc, f"D2Q9 {n_sub}-step ring kernel "
                            f"({consts.library}, shard {shard.index})")
     _count(collide_stream_rings, consts.library, n_sub, shard.index)
@@ -776,7 +827,8 @@ _zero_counts(collide_stream_rings, COLLISION_MODES, RINGS_DEPTHS)
 
 def collide_stream_3d(f: torch.Tensor, out: torch.Tensor,
                       solid: torch.Tensor, consts: StepConstants,
-                      plain=None) -> torch.Tensor:
+                      plain=None,
+                      links: torch.Tensor | None = None) -> torch.Tensor:
     """One D3Q19 timestep from f into out; returns out.
 
     On a CUDA tensor: launches the kernel on the current stream (no
@@ -792,7 +844,8 @@ def collide_stream_3d(f: torch.Tensor, out: torch.Tensor,
     stream = torch.cuda.current_stream(f.device).cuda_stream
     rc = lib.tpulbm_d3q19_step(
         f.data_ptr(), out.data_ptr(), solid.data_ptr(), nx, ny, nz,
-        *consts.d3q19_args, f.device.index, stream)
+        *consts.d3q19_args, *link_args(consts, links, (nz, ny, nx), f),
+        f.device.index, stream)
     _check_launch(lib, rc, f"D3Q19 kernel ({consts.library})")
     _count(collide_stream_3d, consts.library)
     return out
@@ -812,7 +865,9 @@ def check_depth_3d(n_sub: int) -> None:
 
 def collide_stream_3d_blocked(f: torch.Tensor, out: torch.Tensor,
                               solid: torch.Tensor, consts: StepConstants,
-                              n_sub: int, plain=None) -> torch.Tensor:
+                              n_sub: int, plain=None,
+                              links: torch.Tensor | None = None
+                              ) -> torch.Tensor:
     """n_sub D3Q19 timesteps from f into out in one launch; returns out.
 
     On a CUDA tensor: launches the N-step kernel on the current stream (no
@@ -831,7 +886,8 @@ def collide_stream_3d_blocked(f: torch.Tensor, out: torch.Tensor,
     stream = torch.cuda.current_stream(f.device).cuda_stream
     rc = lib.tpulbm_d3q19_step_blocked(
         f.data_ptr(), out.data_ptr(), solid.data_ptr(), nx, ny, nz, n_sub,
-        *consts.d3q19_args, f.device.index, stream)
+        *consts.d3q19_args, *link_args(consts, links, (nz, ny, nx), f),
+        f.device.index, stream)
     _check_launch(lib, rc, f"D3Q19 {n_sub}-step kernel ({consts.library})")
     _count(collide_stream_3d_blocked, consts.library, n_sub)
     return out
@@ -859,8 +915,9 @@ def reset_launch_counts() -> None:
 
 def kernel_constants(problem: Problem, q: int = 9) -> StepConstants:
     """The constants of `problem`'s kernel library; raises for what the
-    kernels do not cover: they run the equilibrium and the bounce-back
-    obstacles, the D2Q9 kernels every collision and the force profile,
+    kernels do not cover: they run the equilibrium, the bounce-back and
+    the Bouzidi obstacles (the last in the obstacle domain), the D2Q9
+    kernels every collision and the force profile,
     the D3Q19 kernels every collision but KBC, as tpulbm's, in the domains
     of DOMAINS and DOMAINS_3D."""
     if problem.lattice.Q != q or problem.thermal is not None \
@@ -874,7 +931,7 @@ def kernel_constants(problem: Problem, q: int = 9) -> StepConstants:
             f"the {'D2Q9' if q == 9 else 'D3Q19'} kernels take {takes}, "
             f"not problem {problem.params.problem!r} on "
             f"{problem.lattice.name}")
-    if problem.obstacle_bc not in ("equilibrium", "bounce_back"):
+    if problem.obstacle_bc not in ("equilibrium", "bounce_back", "bouzidi"):
         raise NotImplementedError(f"the kernels do not hold obstacle_bc="
                                   f"{problem.obstacle_bc!r}")
     if q == 19 and problem.force_profile is not None:
@@ -889,30 +946,52 @@ def kernel_constants(problem: Problem, q: int = 9) -> StepConstants:
     return consts
 
 
+def kernel_mask(problem: Problem, solid=None, table=None) -> np.ndarray:
+    """The uint8 mask the kernels read: SOLID_BIT on the solid cells of
+    `solid` (default the problem's; zeros without an obstacle), and under
+    the Bouzidi obstacle LINK_BIT on the cells with a cut link in `table`
+    (default the whole grid's link table; a shard's padded cut)."""
+    if solid is None:
+        solid = (np.zeros(problem.spatial_shape, bool)
+                 if problem.solid is None else problem.solid)
+    mask = np.asarray(solid).astype(np.uint8) * SOLID_BIT
+    if problem.obstacle_bc == "bouzidi" and problem.solid is not None:
+        from . import bouzidi
+        if table is None:
+            table = bouzidi.link_tables(problem)
+        mask |= bouzidi.link_cells(table, problem.lattice.Q).astype(
+            np.uint8) * LINK_BIT
+    return mask
+
+
 def _kernel_operands(problem: Problem, device, q: int = 9):
-    """(device, constants, solid mask, plain step or None) for a wrapper of
-    `problem` on `device` with a q-population kernel (kernel_constants). A
-    problem without an obstacle takes a zero mask, which those domains'
-    kernels do not read."""
+    """(device, constants, kernel mask, plain step or None, link table or
+    None) for a wrapper of `problem` on `device` with a q-population
+    kernel (kernel_constants). A problem without an obstacle takes a zero
+    mask, which those domains' kernels do not read; the link table is the
+    Bouzidi library's (ops/bouzidi.device_table: on the device once a
+    Problem)."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     consts = kernel_constants(problem, q)
-    solid = (torch.zeros(problem.spatial_shape, dtype=torch.uint8,
-                         device=device) if problem.solid is None else
-             torch.as_tensor(problem.solid, device=device).to(torch.uint8))
+    solid = torch.as_tensor(kernel_mask(problem), device=device)
+    links = None
+    if consts.variant & BOUZIDI:
+        from .bouzidi import device_table
+        links = device_table(problem, device)
     plain = (step_torch.make_step_rolled(problem, device)
              if device.type == "cpu" else None)
-    return device, consts, solid, plain
+    return device, consts, solid, plain, links
 
 
 def make_local_step_cuda(problem: Problem, device):
     """step(f, out) -> out: one timestep of `problem` through the kernel
     (CUDA) or its plain version (CPU), on states living on `device`."""
-    _, consts, solid, plain = _kernel_operands(problem, device)
+    _, consts, solid, plain, links = _kernel_operands(problem, device)
 
     def step(f: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-        return collide_stream(f, out, solid, consts, plain)
+        return collide_stream(f, out, solid, consts, plain, links)
 
     return step
 
@@ -923,10 +1002,11 @@ def make_local_step_cuda_blocked(problem: Problem, device, n_sub: int):
     make_local_step_pallasN (n_sub 3, 4) and make_local_step_pallas2
     (n_sub 2); other depths raise NotImplementedError."""
     check_depth(n_sub)
-    _, consts, solid, plain = _kernel_operands(problem, device)
+    _, consts, solid, plain, links = _kernel_operands(problem, device)
 
     def step(f: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-        return collide_stream_blocked(f, out, solid, consts, n_sub, plain)
+        return collide_stream_blocked(f, out, solid, consts, n_sub, plain,
+                                      links)
 
     return step
 
@@ -938,10 +1018,10 @@ def make_local_step_cuda_3d(problem: Problem, device):
     make_local_step_pallas3d_tiled at n_sub=1, for the sphere in a duct
     (y and z walls, equilibrium inlet, zero-gradient outlet) and the
     periodic duct."""
-    _, consts, solid, plain = _kernel_operands_3d(problem, device)
+    _, consts, solid, plain, links = _kernel_operands_3d(problem, device)
 
     def step(f: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-        return collide_stream_3d(f, out, solid, consts, plain)
+        return collide_stream_3d(f, out, solid, consts, plain, links)
 
     return step
 
@@ -953,10 +1033,11 @@ def make_local_step_cuda_3d_blocked(problem: Problem, device, n_sub: int):
     sphere in a duct and the periodic duct; other depths raise
     NotImplementedError."""
     check_depth_3d(n_sub)
-    _, consts, solid, plain = _kernel_operands_3d(problem, device)
+    _, consts, solid, plain, links = _kernel_operands_3d(problem, device)
 
     def step(f: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-        return collide_stream_3d_blocked(f, out, solid, consts, n_sub, plain)
+        return collide_stream_3d_blocked(f, out, solid, consts, n_sub, plain,
+                                         links)
 
     return step
 

@@ -21,11 +21,13 @@ from . import step_torch
 
 def make_step_padded(problem: Problem, origin: tuple[int, int],
                      padded_shape: tuple[int, int],
-                     solid_pad: torch.Tensor | None, device):
+                     solid_pad: torch.Tensor | None, device, table=None):
     """step(fpad) -> fpad': one step of the padded block (Q, *padded_shape)
     whose cell [0, 0] is the global cell `origin` (y, x):
     step_torch.make_step_rolled on the block's global coordinates.
     solid_pad: the block's bool solid mask, or None without an obstacle.
+    Under the Bouzidi obstacle the block reads its cut of the link table,
+    rings included: `table`, default bouzidi.table_block's.
     The cells of a ring `k` cells deep come out right where the input is
     right `k + 1` cells deep (the plain step of a shard: tpulbm's
     make_local_step_padded writes only the centre, with a 1-cell ring)."""
@@ -35,6 +37,11 @@ def make_step_padded(problem: Problem, origin: tuple[int, int],
     cd = {"yy": (y0 + torch.arange(nyp, device=device)).reshape(nyp, 1),
           "xx": (x0 + torch.arange(nxp, device=device)).reshape(1, nxp),
           "ny": p.ny, "nx": p.nx, "solid": solid_pad}
+    if problem.obstacle_bc == "bouzidi" and solid_pad is not None:
+        if table is None:
+            from .bouzidi import table_block
+            table = table_block(problem, origin, padded_shape)
+        cd["bz_q"] = torch.as_tensor(table, device=device)
     return step_torch.make_step_rolled(problem, device, cd)
 
 
@@ -63,17 +70,19 @@ def assemble(f: torch.Tensor, rb: torch.Tensor, rt: torch.Tensor,
 
 def make_ring_step(problem: Problem, origin: tuple[int, int],
                    local_shape: tuple[int, int], depth: int,
-                   solid_pad: torch.Tensor | None, device):
+                   solid_pad: torch.Tensor | None, device, table=None):
     """step(f, rb, rt, rl, rr) -> f': `depth` steps of the shard whose
     block (Q, *local_shape) starts at the global cell `origin` (y, x), from
     its rings `depth` cells deep (rl, rr None where the block spans every
-    column); solid_pad is its solid mask padded by `depth`, or None. The
-    plain version of the ring kernels (ops/step_cuda.py)."""
+    column); solid_pad is its solid mask padded by `depth`, or None, and
+    `table` its padded cut of the Bouzidi link table (default
+    bouzidi.table_block's). The plain version of the ring kernels
+    (ops/step_cuda.py)."""
     nyl, nxl = local_shape
     y0, x0 = origin
     one = make_step_padded(problem, (y0 - depth, x0 - depth),
                            (nyl + 2 * depth, nxl + 2 * depth), solid_pad,
-                           device)
+                           device, table)
     eq_ring = problem.ghost_ring_values()
 
     def step(f, rb, rt, rl=None, rr=None) -> torch.Tensor:

@@ -2,11 +2,12 @@
 plain version.
 
 Port of tpulbm/ops/step_jax.py::make_step_rolled with _collide_block's
-collisions, the uniform body force, the force profile (_add_force_field)
-and the bounce-back obstacle, in 2-D (D2Q9) and 3-D (D3Q19). Unpadded
-state (Q, *spatial); streaming is a per-population `torch.roll` (pull
-scheme) followed by the ghost sanitize at the non-periodic edges (x is
-left to wrap under periodic_x, y under periodic_y), then the BC stack.
+collisions, the uniform body force, the force profile (_add_force_field),
+the bounce-back and the Bouzidi obstacles, in 2-D (D2Q9) and 3-D
+(D3Q19). Unpadded state (Q, *spatial); streaming is a per-population
+`torch.roll` (pull scheme) followed by the ghost sanitize at the
+non-periodic edges (x is left to wrap under periodic_x, y under
+periodic_y), then the BC stack.
 Runs in f32 and f64.
 
 Step order parity with the reference loop: collision -> streaming ->
@@ -127,9 +128,10 @@ def make_step_rolled(problem: Problem, device, cd: dict | None = None
 
     cd: the coordinate dict of a block other than the whole grid (as
     `coords` gives it, its 'yy' and 'xx' the block's global coordinates;
-    ops/step_rings_torch.py's padded shard), so every edge rule keys on
-    the domain's own edges; the roll then wraps the block's own edge,
-    which leaves its outermost cells wrong.
+    ops/step_rings_torch.py's padded shard, with its cut of the Bouzidi
+    link table as 'bz_q'), so every edge rule keys on the domain's own
+    edges; the roll then wraps the block's own edge, which leaves its
+    outermost cells wrong.
     """
     lat = problem.lattice
     c = lat.c
@@ -164,9 +166,19 @@ def make_step_rolled(problem: Problem, device, cd: dict | None = None
     dims = tuple(range(ndim))
     dtype = torch.float64 if problem.dtype == np.float64 else torch.float32
     source = force_source(problem, cd, dtype, device)
+    bouzidi = problem.obstacle_bc == "bouzidi" and cd["solid"] is not None
+    if bouzidi:
+        # tpulbm's float32 table, read in the state's dtype
+        table = cd.get("bz_q")
+        if table is None:
+            from .bouzidi import device_table
+            table = device_table(problem, device)
+        cd = {**cd, "bz_q": table.to(dtype)}
 
     def step(f: torch.Tensor) -> torch.Tensor:
         f_post = collide_block(problem, f, cd["solid"], source)
+        if bouzidi:
+            cd["f_post"] = list(f_post)
         planes = []
         for i, (shifts, only_x, y_out, eq_i) in enumerate(plan):
             plane = torch.roll(f_post[i], shifts, dims)

@@ -1,9 +1,10 @@
 """The chunked time stepper on a mesh of shards.
 
 Port of tpulbm/parallel/sharded_step.py, the generic 2-D part: the D2Q9
-single-phase problems (the cylinder with either obstacle rule and corner
-rule, the periodic channel, the cavity, the periodic boxes with or without
-Kolmogorov's force profile) under every collision the D2Q9 kernels hold.
+single-phase problems (the cylinder with any obstacle rule, the Bouzidi
+curved wall included, and either corner rule, the periodic channel, the
+cavity, the periodic boxes with or without Kolmogorov's force profile)
+under every collision the D2Q9 kernels hold.
 Under a periodic y the ring rows wrap (tpulbm's ring_kw) and no shard owns
 a physical y edge. A sharded state is the (my, mx) grid of local blocks
 (Q, nyl, nxl), shard (iy, ix) on mesh.device(iy, ix) (parallel/mesh.py);
@@ -38,6 +39,7 @@ import torch
 
 from .. import physics, stepper
 from ..models.base import Problem
+from ..ops import bouzidi as bouzidi_mod
 from ..ops import diagnostics
 from ..ops import forces as forces_mod
 from ..ops import step_cuda, step_rings_torch
@@ -152,8 +154,14 @@ def plan(problem: Problem, mesh: Mesh, chunk_len: int) -> tuple[str, int]:
     (:228-393): "overlap" (TPULBM_HALO_OVERLAP on a mesh that does not cut
     x), "rows" (a mesh that does not cut x), "tiled" (one that does, or
     TPULBM_FORCE_TILED), at the blocking depth N (1 for no blocking).
+    Under the Bouzidi obstacle "tiled" runs at depth 1 only (tpulbm's
+    make_local_step_tiled returns None for it at N > 1,
+    step_pallas_tiled.py:137-142) and the overlap mode only at N > 1 (its
+    1-step ranged kernel excludes it, sharded_step.py:326-327): without a
+    depth that divides the chunk it takes "rows".
     Raises ValueError where no depth fits the shards."""
     local = mesh.local_shape(problem.spatial_shape)
+    bouzidi = problem.obstacle_bc == "bouzidi" and problem.solid is not None
     x_sharded = mesh.shape[1] != 1 or bool(os.environ.get(
         "TPULBM_FORCE_TILED"))
     forced = os.environ.get("TPULBM_SUBSTEPS")
@@ -176,10 +184,11 @@ def plan(problem: Problem, mesh: Mesh, chunk_len: int) -> tuple[str, int]:
                     return "overlap", n
         # tpulbm builds its 1-step ranged kernel without force_fn
         # (step_pallas.py:1276-1277) and takes the full-width kernels
-        if local[0] >= 3 * 2 and problem.force_profile is None:
+        if (local[0] >= 3 * 2 and problem.force_profile is None
+                and not bouzidi):
             return "overlap", 1
     mode = "tiled" if x_sharded else "rows"
-    if not no_fused:
+    if not no_fused and not (bouzidi and mode == "tiled"):
         for n in candidates:
             if n != 1 and chunk_len % n == 0 and _fits(local, n):
                 return mode, n
@@ -269,6 +278,42 @@ def _plain_chunk(problem: Problem, mesh: Mesh, chunk_len: int):
     return chunk
 
 
+def kernel_shards(problem: Problem, mesh: Mesh, depth: int, x_rings: bool,
+                  masks: Grid | None = None) -> Grid:
+    """The grid of step_cuda.Shard the ring kernels take at `depth`: each
+    shard's place and its kernel mask padded by `depth` (`masks`, the
+    bool halo.pad_mask grid, built here if not given), with, under the
+    Bouzidi obstacle, the link bits and its cut of the link table padded
+    the same way (bouzidi.table_block)."""
+    local = mesh.local_shape(problem.spatial_shape)
+    if masks is None:
+        masks = halo.pad_mask(_solid_grid(problem, mesh),
+                              periodic_x=problem.periodic_x,
+                              periodic_y=problem.periodic_y, depth=depth)
+    bouzidi = problem.obstacle_bc == "bouzidi" and problem.solid is not None
+    out = []
+    for iy in range(mesh.shape[0]):
+        row = []
+        for ix in range(mesh.shape[1]):
+            dev = mesh.device(iy, ix)
+            o = origin(mesh, local, iy, ix)
+            mask, links = masks[iy][ix].to(torch.uint8).contiguous(), None
+            if bouzidi:
+                table = bouzidi_mod.table_block(
+                    problem, (o[0] - depth, o[1] - depth),
+                    tuple(mask.shape))
+                mask = torch.as_tensor(step_cuda.kernel_mask(
+                    problem, mask.cpu().numpy().astype(bool), table),
+                    device=dev)
+                links = torch.as_tensor(table, device=dev)
+            row.append(step_cuda.Shard(
+                index=(iy, ix), origin=o, local_shape=local,
+                grid=problem.spatial_shape, depth=depth, x_rings=x_rings,
+                mask=mask, links=links))
+        out.append(row)
+    return out
+
+
 def _kernel_chunk(problem: Problem, mesh: Mesh, chunk_len: int):
     mode, depth = plan(problem, mesh, chunk_len)
     local = mesh.local_shape(problem.spatial_shape)
@@ -283,21 +328,12 @@ def _kernel_chunk(problem: Problem, mesh: Mesh, chunk_len: int):
     masks = halo.pad_mask(_solid_grid(problem, mesh),
                           periodic_x=problem.periodic_x,
                           periodic_y=problem.periodic_y, depth=depth)
-    shards_geo, plains = [], []
-    for iy in range(mesh.shape[0]):
-        geo_row, plain_row = [], []
-        for ix in range(mesh.shape[1]):
-            dev = mesh.device(iy, ix)
-            o = origin(mesh, local, iy, ix)
-            geo_row.append(step_cuda.Shard(
-                index=(iy, ix), origin=o, local_shape=local,
-                grid=problem.spatial_shape, depth=depth, x_rings=x_rings,
-                mask=masks[iy][ix].to(torch.uint8).contiguous()))
-            plain_row.append(step_rings_torch.make_ring_step(
-                problem, o, local, depth, masks[iy][ix] if has_solid
-                else None, dev) if dev.type == "cpu" else None)
-        shards_geo.append(geo_row)
-        plains.append(plain_row)
+    shards_geo = kernel_shards(problem, mesh, depth, x_rings, masks)
+    plains = [[step_rings_torch.make_ring_step(
+        problem, origin(mesh, local, iy, ix), local, depth,
+        masks[iy][ix] if has_solid else None, mesh.device(iy, ix))
+        if mesh.device(iy, ix).type == "cpu" else None
+        for ix in range(mesh.shape[1])] for iy in range(mesh.shape[0])]
     cells = mesh.shards()
     edge = depth + 1
     sides = _streams([mesh.device(iy, ix) for iy, ix in cells])
@@ -370,7 +406,11 @@ class Diagnostics:
     stability an all, the mass a sum; the fields gathered. The momentum
     exchange's link masks are built once from the global solid mask and
     cut per shard, so a link across a shard edge counts where its fluid
-    cell lies, with no ring. On a (1,1) mesh every result is the
+    cell lies, with no ring. The Bouzidi obstacle's force reads f̂_i at the
+    upstream node of a link, which may lie on a neighbour: each shard's
+    force takes its block with a one-cell ring (halo.pad_block) and its
+    cut of the link table padded the same way, and sums the links of its
+    own cells. On a (1,1) mesh every result is the
     one-device function's, bit for bit; the Nusselt number needs the
     whole thermal state, which only a (1,1) mesh holds
     (check_mesh_problem)."""
@@ -380,15 +420,28 @@ class Diagnostics:
         self.device = mesh.device(0, 0)
         solids = (None if problem.solid is None
                   else shard_mask(mesh, problem.solid))
-        if solids is not None and mesh.size > 1:
+        # the Bouzidi force on a mesh of several shards reads padded blocks
+        self._padded = (solids is not None and mesh.size > 1
+                        and problem.obstacle_bc == "bouzidi")
+        if solids is not None and mesh.size > 1 and not self._padded:
             cut = [(i, split(mesh, m)) for i, m in forces_mod.shifted_masks(
                 problem, torch.as_tensor(problem.solid))]
+        local = (mesh.local_shape(problem.spatial_shape) if self._padded
+                 else None)
         self._fns = {}
         for iy, ix in mesh.shards():
             dev = mesh.device(iy, ix)
             solid = None if solids is None else solids[iy][ix]
             force = None
-            if solid is not None:
+            if self._padded:
+                y0, x0 = origin(mesh, local, iy, ix)
+                table = torch.as_tensor(bouzidi_mod.table_block(
+                    problem, (y0 - 1, x0 - 1),
+                    (local[0] + 2, local[1] + 2)), device=dev)
+                force = forces_mod.forces_fn(
+                    problem, dev, dtype=torch.float64, table=table,
+                    inner=(slice(1, -1), slice(1, -1)))
+            elif solid is not None:
                 links = (None if mesh.size == 1
                          else [(i, g[iy][ix]) for i, g in cut])
                 force = forces_mod.forces_fn(problem, dev, solid, links,
@@ -412,6 +465,11 @@ class Diagnostics:
         ref = shards[0][0]
         if self.problem.solid is None:
             return ref.new_zeros(self.problem.lattice.D)
+        if self._padded:
+            shards = halo.pad_block(
+                shards, eq_ring=self.problem.ghost_ring_values(), depth=1,
+                periodic_x=self.problem.periodic_x,
+                periodic_y=self.problem.periodic_y)
         parts = self._on_first(self._per_shard(0, shards))
         total = parts[0]
         for part in parts[1:]:
