@@ -292,7 +292,33 @@ printing its own line; any failure exits non-zero:
 45. timing of each Bouzidi library (plain, 1-step, the main path's
    depths) and of one shard's ring launch on (2,1) at N=4 and (1,2) at
    depth 1, with the bound counting the link table's bytes at the cells
-   that have a cut link.
+   that have a cut link;
+46. the fully periodic 3-D boxes, 3-D Kolmogorov's force along z and the
+   D3Q27 set (-DTPULBM_DOMAIN=3, -DTPULBM_FORCE=1, -DTPULBM_Q=27, built in
+   phase 2): periodic3d-256 (bench.py's --periodic --nz 256 row),
+   kolmogorov3d-128 (the preset) and sphere-256-d3q27 in full (from the
+   initial state, after 100 kernel steps and from the perturbed state),
+   the box with the force under every D3Q19 collision and D3Q27 under
+   every collision but MRT (the box, the sphere, bounce-back, the duct)
+   at 64^3 from the initial and the perturbed state: one 1-step kernel
+   step against the plain step, where the sphere's library, the box's
+   without the force, D3Q19's on the first 19 planes and BGK's (against
+   a closure) must miss by SEPARATION tolerances; N = 2, 3 bitwise
+   against N 1-step launches; 280 steps;
+47. the three cells through the Runner, 2240 steps every 140: exactly
+   735 N=3, 17 N=2 and 1 one-step launches of the cell's library and
+   none of another kernel; the boxes' mass after the float32 weights'
+   term; kolmogorov3d-128 with statistics from step 1120 and two probes,
+   its stats_fields.npz and probes.csv against the same run on the plain
+   path;
+48. 2-D Kolmogorov at 2048x512 with statistics and probes on a 2x2 mesh
+   of shards on the card: stats_fields.npz, probes.csv and
+   velocity_field.csv bit for bit one device's;
+49. tpulbm's 3-D gates in f32: the z shear wave's viscous decay (second
+   order in nz), the 3-D Taylor-Green energy and mass, 3-D Kolmogorov's
+   spin-up from rest;
+50. timing of every library of phase 46 (plain, 1-step, N = 2, 3) at its
+   cell's shape, with the bound.
 
 Run directories go to build/chip_smoke/ (git-ignored; the final CSVs have
 a million rows). The last two lines are a JSON line per kernel and the
@@ -320,7 +346,9 @@ libraries (d2q9_collide_stream[_nN][<op>+bouzidi], the spinning
 cylinder's d2q9_collide_stream[_n4]_spinning[bgk+bouzidi]), phase 43's
 280-step runs for their ring builds (d2q9_rings_rows_n4[bgk+bouzidi], counting
 the overlap mode's ranged launches, and d2q9_rings_tiled[bgk+bouzidi])
-and phase 44 for the sphere's (d3q19_collide_stream[_nN][<op>+bouzidi]).
+and phase 44 for the sphere's (d3q19_collide_stream[_nN][<op>+bouzidi]),
+phase 47 for the 3-D boxes' and D3Q27's (d3q19_collide_stream[_nN]
+[bgk+box], [bgk+box+force], [bgk+d3q27]; their 64^3 builds 0).
 A kernel's
 `bound_ms` is the
 least time the card could take for one step of its work at the shape it
@@ -410,6 +438,14 @@ MODE_FLOPS_3D = {"trt": 382, "mrt": 1006, "regularized": 526,
 for _mode, _flops in MODE_FLOPS_3D.items():
     STEP_BYTES[f"d3q19_{_mode}"] = STEP_BYTES["d3q19"]
     STEP_FLOPS[f"d3q19_{_mode}"] = _flops
+# D3Q27: 27 populations a cell read and written, and D3Q19's
+# operation counts scaled by 27/19 (every term of them is a population's;
+# bytes bound every D3Q27 build at either count)
+STEP_BYTES["d3q27"] = 27 * 4 * 2 + 1
+STEP_FLOPS["d3q27"] = round(STEP_FLOPS["d3q19"] * 27 / 19)
+for _mode, _flops in MODE_FLOPS_3D.items():
+    STEP_BYTES[f"d3q27_{_mode}"] = STEP_BYTES["d3q27"]
+    STEP_FLOPS[f"d3q27_{_mode}"] = round(_flops * 27 / 19)
 # the sphere's operators at bench.py's d3q19 row: TRT (magic 3/16), MRT
 # (D3Q19's default ghost rates, rank 10), regularized, Smagorinsky 0.17,
 # the power law at n 0.7 (k = nu)
@@ -593,6 +629,15 @@ def n_step_tol(n: int) -> dict:
     rounding difference (1/rho multiplied in the kernel, divided in the
     plain step), so the one-step tolerance scaled by N."""
     return dict(rtol=n * ONE_STEP_TOL["rtol"], atol=n * ONE_STEP_TOL["atol"])
+
+
+def same_npz(a: Path, b: Path) -> bool:
+    """Whether two .npz files hold the same arrays, bit for bit (their zip
+    entries carry the time they were written)."""
+    with np.load(a) as x, np.load(b) as y:
+        return sorted(x.files) == sorted(y.files) and all(
+            x[k].dtype == y[k].dtype and x[k].tobytes() == y[k].tobytes()
+            for k in x.files)
 
 
 def same_files(a: Path, b: Path, names) -> bool:
@@ -1860,7 +1905,7 @@ def duct_params(n=SPHERE_N, **kw):
 def duct_at(params, n: int):
     """The duct of `params`' collision at n^3 (its force for u_max 0.05)."""
     return duct_params(n, **{k: getattr(params, k) for k in (
-        "collision", "power_law_n", "smagorinsky")})
+        "collision", "power_law_n", "smagorinsky", "lattice3d")})
 
 
 def obstacle_params(three_d: bool, **kw):
@@ -1907,9 +1952,9 @@ class Cell:
         # the obstacle domain's library of the same collision, with the
         # equilibrium obstacle and no source: the build every earlier slice
         # ran, which the new edge code must be seen to change
-        base = dataclasses.replace(self.consts, variant=0, src=(),
-                                   lid=(0.0, 0.0), force_table=(),
-                                   force_axis=-1)
+        base = dataclasses.replace(
+            self.consts, variant=self.consts.variant & step_cuda.D3Q27,
+            src=(), lid=(0.0, 0.0), force_table=(), force_axis=-1)
         self.solid = (torch.zeros(self.problem.spatial_shape,
                                   dtype=torch.uint8, device=dev)
                       if self.problem.solid is None else
@@ -1930,7 +1975,8 @@ class Cell:
         it, an upper bound) and one add a population for the source and
         one for the force profile."""
         from tpulbm_torch.ops import step_cuda
-        lat = "d3q19" if self.three_d else "d2q9"
+        lat = (("d3q27" if self.problem.lattice.Q == 27 else "d3q19")
+               if self.three_d else "d2q9")
         mode = self.consts.mode
         q, v = self.problem.lattice.Q, self.consts.variant
         mask = not v & step_cuda.DOMAIN_BITS
@@ -1971,18 +2017,20 @@ def force_check(cell: Cell, f: torch.Tensor, axis: str) -> tuple[float,
                                                                   float]:
     """The force profile on the card: the cell's problem with Kolmogorov's
     profile at F0 = SOURCE_CHECK_FORCE along `axis` (y: F_x = F0 cos(κy),
-    x: F_y = F0 cos(κx), tpulbm's tests/test_kolmogorov.py:239), one step
+    x: F_y = F0 cos(κx), tpulbm's tests/test_kolmogorov.py:239; z, 3-D:
+    F_x = F0 cos(κz)), one step
     of the cell's 1-step library from f against the plain step, and one of
     the same domain's library built without the profile, which must miss
     the plain step by more than SEPARATION tolerances. Returns (the
     library's error, the separation)."""
     from tpulbm_torch.models.base import ForceProfile
     from tpulbm_torch.ops import step_cuda, step_torch
-    ny, nx = cell.problem.spatial_shape
-    k = 2.0 * np.pi * cell.params.kolmogorov_n / (ny if axis == "y" else nx)
+    n = cell.problem.spatial_shape[::-1]["xyz".index(axis)]
+    k = 2.0 * np.pi * cell.params.kolmogorov_n / n
     f0 = SOURCE_CHECK_FORCE
     fn = ((lambda c: (f0 * torch.cos(k * c), 0.0)) if axis == "y"
-          else (lambda c: (0.0, f0 * torch.cos(k * c))))
+          else (lambda c: (0.0, f0 * torch.cos(k * c)))
+          if axis == "x" else (lambda c: (f0 * torch.cos(k * c), 0.0, 0.0)))
     big = dataclasses.replace(cell.problem,
                               force_profile=ForceProfile(axis, fn))
     consts = step_cuda.StepConstants.of(big)
@@ -2012,7 +2060,7 @@ def cell_parity(cell: Cell, full: bool, advanced: bool = True) -> float:
     with `full`, 280 kernel steps against 280 plain steps (3-D at
     DRIFT_N_3D^3); without `advanced`, no advanced state. Returns the
     larger one-step error."""
-    from tpulbm_torch.ops.step_cuda import FORCE, SOURCE
+    from tpulbm_torch.ops.step_cuda import D3Q27, FORCE, SOURCE
     s1 = cell.steps[1]
     fp = perturbed(cell.problem, cell.f0)
     states = [("perturbed", fp)]
@@ -2030,7 +2078,13 @@ def cell_parity(cell: Cell, full: bool, advanced: bool = True) -> float:
         torch.cuda.synchronize()
         held.append(close_or_relative(got, want, cell.tol, cell.relative))
         errs.append(float((got - want).abs().max()))
-        if name == "perturbed" and cell.consts.variant & ~(SOURCE | FORCE):
+        if name == "perturbed" and cell.consts.variant & D3Q27:
+            sep = d3q19_separation(cell, f, want)
+            seps.append(f"the D3Q19 {cell.consts.mode} library on its 19 "
+                        f"planes misses the plain D3Q27 step's by {sep:.0f}x "
+                        "the tolerance")
+        if name == "perturbed" and cell.consts.variant & ~(SOURCE | FORCE
+                                                           | D3Q27):
             # a domain or obstacle rule beyond the cylinder's
             sep = separation(cell.label, cell.base(f, torch.empty_like(f)),
                              want, cell.tol)
@@ -2045,7 +2099,7 @@ def cell_parity(cell: Cell, full: bool, advanced: bool = True) -> float:
                         f"library without the source {sep:.0f}x the "
                         f"tolerance off")
         if name == "perturbed" and cell.consts.variant & FORCE:
-            for axis in ("y", "x"):
+            for axis in (("z",) if cell.three_d else ("y", "x")):
                 err_f, sep = force_check(cell, f, axis)
                 errs.append(err_f)
                 seps.append(f"the force profile along {axis} at F0 = "
@@ -2069,7 +2123,7 @@ def cell_parity(cell: Cell, full: bool, advanced: bool = True) -> float:
             from tpulbm_torch.convert import state_from_numpy
             from tpulbm_torch.models import make_problem
             from tpulbm_torch.ops import step_cuda, step_torch
-            n = DRIFT_N_3D
+            n = min(DRIFT_N_3D, cell.params.nx)
             small = make_problem(
                 duct_at(cell.params, n) if cell.params.problem == "poiseuille"
                 else cell.params.replace(nx=n, ny=n, nz=n))
@@ -2086,7 +2140,7 @@ def cell_parity(cell: Cell, full: bool, advanced: bool = True) -> float:
         require(np.isfinite(err_280) and err_280 < DRIFT_280_BOUND,
                 f"{cell.label}: 280-step drift {err_280} beyond "
                 f"{DRIFT_280_BOUND}")
-        drift = (f"; 280 steps{f' at {DRIFT_N_3D}^3' if cell.three_d else ''}"
+        drift = (f"; 280 steps{f' at {n}^3' if cell.three_d else ''}"
                  f" {err_280:.3e} (bound {DRIFT_280_BOUND})")
         del sk, sp
     shape = "x".join(str(v) for v in cell.problem.spatial_shape[::-1])
@@ -2928,8 +2982,8 @@ def box_mass(problem, dev, steps: int = 2240) -> str:
     if problem.thermal is not None:
         sums.append((float(torch.sum(f[q:], dtype=torch.float64)),
                      float(torch.sum(f0[q:], dtype=torch.float64))))
-    text = [box_mass_gate("flow", *sums[0], steps, MP_WEIGHT_EXCESS,
-                          problem.params.tau)]
+    text = [box_mass_gate("flow", *sums[0], steps,
+                          weight_excess(problem.lattice), problem.params.tau)]
     if problem.thermal is not None:
         text.append(box_mass_gate("scalar", *sums[1], steps,
                                   D2Q5_WEIGHT_EXCESS, problem.thermal.tau_g))
@@ -3800,6 +3854,396 @@ def bouzidi_phases(dev, card: str) -> list[dict]:
     return entries
 
 
+# ---- phases 46-50: the 3-D boxes, 3-D Kolmogorov forcing and D3Q27
+
+# bench.py's --periodic --nz row: the 3-D Taylor-Green box at 256^3 (tau
+# 0.8, u0 0.04; bench.py:87-101)
+PERIODIC3D_N = 256
+# the 3-D builds off the three cells' paths (the box's other collisions,
+# D3Q27's others, its bounce-back sphere, duct and Taylor-Green box) are
+# held at this edge: the parity checks, 280 steps and timing
+PARITY_N_3D = 64
+# the Kolmogorov Runner's statistics window (from the middle of its 2240
+# steps: 8 samples) and its two probes
+KOL3D_STATS_FROM = 1120
+KOL3D_PROBES = ((0.5, 0.5, 0.25), (0.25, 0.75, 0.5))
+# the kernel Runner's statistics against the plain path's after 2240
+# steps: each sample's populations drift at most DRIFT_280_BOUND in 280
+# steps, linearly at worst, so the means within 8 times it and the
+# stresses (products of two velocities near u0 = 0.05) within 2 u0 times
+# that
+KOL3D_MEAN_TOL = 8 * DRIFT_280_BOUND
+KOL3D_STRESS_TOL = 2 * 0.05 * KOL3D_MEAN_TOL
+# tpulbm's 3-D gates (tests/test_periodic.py:220-270,
+# tests/test_kolmogorov.py:288-310)
+ZWAVE_GATE = 0.02
+
+
+def weight_excess(lat) -> float:
+    """What the lattice's float32 weights sum to, less 1: D2Q9 2^-27, D3Q19
+    2^-26, D3Q27 2^-27 (a closed box's f32 mass grows by it over tau a
+    step)."""
+    return float(lat.w.astype(np.float32).astype(np.float64).sum() - 1.0)
+
+
+def box3d_params(name: str, n: int = PERIODIC3D_N, **kw):
+    """The 3-D boxes: Taylor-Green at bench.py's --periodic --nz row (256^3
+    by default), Kolmogorov at the preset kolmogorov3d (128^3, n 2, u0
+    0.05, Re 20), each at n^3 with SimulationParams `kw`, f32, no VTK."""
+    from tpulbm_torch.config import PRESETS, SimulationParams
+    if name == "kolmogorov":
+        base = PRESETS["kolmogorov3d"].replace(nx=n, ny=n, nz=n,
+                                               precision="f32",
+                                               enable_vtk=False)
+        return base.replace(**kw)
+    return SimulationParams(problem="taylor-green", nx=n, ny=n, nz=n,
+                            tau=0.8, inlet_velocity=0.04, periodic_x=True,
+                            cylinder_radius=0.0, precision="f32",
+                            enable_vtk=False, **kw)
+
+
+def box3d_builds():
+    """(source, mode, variant) of the libraries phases 46-50 run: both 3-D
+    sources for the box with the z force under every D3Q19 collision, the
+    D3Q27 box with the force, the D3Q27 sphere (each under every collision
+    but MRT), the box without the force (BGK, both sets), the D3Q27
+    bounce-back sphere and duct; the box's 1-step libraries without the
+    force under each collision and the D3Q27 duct's without its source, for
+    the separation checks."""
+    from tpulbm_torch.ops import step_cuda
+    from tpulbm_torch.ops.step_cuda import BOUNCE_BACK, D3Q27, FORCE, SOURCE
+    box = step_cuda.DOMAINS_3D.index("box")
+    duct = step_cuda.DOMAINS_3D.index("duct")
+    d3 = ("step_d3q19.cu", "step_d3q19_blocked.cu")
+    modes = step_cuda.COLLISION_MODES_3D
+    no_mrt = [m for m in modes if m != "mrt"]
+    builds = [(src, mode, box | FORCE) for mode in modes for src in d3]
+    builds += [(src, mode, box | FORCE | D3Q27) for mode in no_mrt
+               for src in d3]
+    builds += [(src, mode, D3Q27) for mode in no_mrt for src in d3]
+    builds += [(src, "bgk", v) for v in (box, box | D3Q27,
+                                         D3Q27 | BOUNCE_BACK,
+                                         duct | SOURCE | D3Q27)
+               for src in d3]
+    builds += [(d3[0], mode, box) for mode in modes if mode != "bgk"]
+    builds += [(d3[0], mode, box | D3Q27) for mode in no_mrt
+               if mode != "bgk"]
+    builds += [(d3[0], "bgk", duct | D3Q27)]
+    return builds
+
+
+def d3q19_separation(cell: Cell, f: torch.Tensor,
+                     want: torch.Tensor) -> float:
+    """D3Q27's corners on the card: the D3Q19 library of the cell's
+    collision and rules, run on the first 19 planes of the D3Q27 state f,
+    must miss the first 19 planes of the plain D3Q27 step `want` by more
+    than SEPARATION tolerances."""
+    from tpulbm_torch.models import make_problem
+    from tpulbm_torch.ops import step_cuda
+    consts = step_cuda.StepConstants.of(make_problem(
+        cell.params.replace(lattice3d="d3q19")))
+    f19 = f[:19].contiguous()
+    got = cell.launch(f19, torch.empty_like(f19), cell.solid, consts)
+    torch.cuda.synchronize()
+    return separation(f"{cell.label}, D3Q19's {consts.library}", got,
+                      want[:19], cell.tol)
+
+
+def mode_separation(cell: Cell) -> str:
+    """A collision beyond BGK acts on the card: from the perturbed state the
+    same domain's BGK library must miss the collision's plain step by more
+    than SEPARATION tolerances (near rest every closure rounds to BGK)."""
+    from tpulbm_torch.ops import step_cuda
+    if cell.consts.mode == "bgk":
+        return ""
+    fp = perturbed(cell.problem, cell.f0)
+    bgk = dataclasses.replace(cell.consts, mode="bgk",
+                              modes=(0.0,) * len(cell.consts.modes))
+    got = cell.launch(fp, torch.empty_like(fp), cell.solid, bgk)
+    sep = separation(f"{cell.label}, {bgk.library}", got, cell.pstep(fp),
+                     cell.tol)
+    return (f"; {bgk.library} {sep:.0f}x the tolerance off the "
+            f"{cell.consts.mode} plain step")
+
+
+def box3d_cells():
+    """(label, params, main) of phase 46's cells: the three cells of the
+    slice's path at full width (main), then the other builds at
+    PARITY_N_3D^3."""
+    from tpulbm_torch.config import SimulationParams
+    n = PARITY_N_3D
+    cells = [("periodic3d-256 bgk", box3d_params("taylor-green"), True),
+             ("kolmogorov3d-128 bgk", box3d_params("kolmogorov", 128), True),
+             ("sphere-256-d3q27 bgk", obstacle_params(True,
+                                                      lattice3d="d3q27"),
+              True)]
+    for op, kw in OPERATORS_3D.items():
+        cells.append((f"kolmogorov3d-{n} {op}",
+                      box3d_params("kolmogorov", n, **kw), False))
+    for op, kw in {"bgk": {}, **OPERATORS_3D}.items():
+        if op == "mrt":
+            continue
+        cells.append((f"kolmogorov3d-{n}-d3q27 {op}",
+                      box3d_params("kolmogorov", n, lattice3d="d3q27", **kw),
+                      False))
+        if op != "bgk":
+            cells.append((f"sphere-{n}-d3q27 {op}", SimulationParams(
+                problem="cylinder3d", nx=n, ny=n, nz=n, inlet_velocity=0.05,
+                precision="f32", enable_vtk=False, lattice3d="d3q27", **kw),
+                False))
+    cells += [
+        (f"taylor-green3d-{n}-d3q27 bgk",
+         box3d_params("taylor-green", n, lattice3d="d3q27"), False),
+        (f"sphere-{n}-d3q27 bounce-back", SimulationParams(
+            problem="cylinder3d", nx=n, ny=n, nz=n, inlet_velocity=0.05,
+            precision="f32", enable_vtk=False, lattice3d="d3q27",
+            obstacle_bc="bounce_back"), False),
+        (f"duct-{n}-d3q27 bgk", duct_params(n, lattice3d="d3q27"), False)]
+    return cells
+
+
+def box3d_fields_mass(label: str, problem, run_dir: Path) -> str:
+    """The closed box's mass in the Runner's fields3d.npz (the state at
+    t = 2239) against the initial state's, through box_mass_gate with the
+    lattice's float32 weights' term."""
+    with np.load(run_dir / "fields3d.npz") as fields:
+        m = float(np.sum(fields["rho"], dtype=np.float64))
+    f0 = problem.initial_state()
+    m0 = float(np.sum(f0, dtype=np.float64))
+    return box_mass_gate(label, m, m0, 2239, weight_excess(problem.lattice),
+                         problem.params.tau)
+
+
+def kolmogorov3d_main_path(dev, cell: Cell, run_dir: Path) -> dict:
+    """Phase 47 on the Kolmogorov cell: the Runner at 128^3 for 2240 steps
+    every 140 with statistics from KOL3D_STATS_FROM and two probes, counted
+    (exactly LAUNCHES_3D[2240] of the cell's library and none of another
+    kernel), then the same run on the plain path (backend "jax", the plain
+    step on the card): stats_fields.npz and probes.csv against it."""
+    from tpulbm_torch.ops import step_cuda
+    params = cell.params.replace(
+        num_timesteps=2240, output_frequency=140, output_dir=str(run_dir),
+        stats_from=KOL3D_STATS_FROM, probe_points=KOL3D_PROBES)
+    result, counts, wall = run_counted(params, dev)
+    n3, lib = LAUNCHES_3D[2240], cell.library
+    by_lib = (step_cuda.collide_stream_3d.launches_by_library,
+              step_cuda.collide_stream_3d_blocked.launches_by_library)
+    require(counts == {**only("3d3", n3[3]), "3d2": n3[2], "3d": n3[1]}
+            and by_lib == ({lib: n3[1]}, {lib: {2: n3[2], 3: n3[3]}}),
+            f"{cell.label}: launch counts {counts} {by_lib}")
+    plain_dir = run_dir.parent / (run_dir.name + "_plain")
+    t0 = time.perf_counter()
+    from tpulbm_torch.runner import Runner
+    require(Runner(params.replace(backend="jax", output_dir=str(plain_dir)),
+                   device=dev, verbose=False).run().success,
+            "the plain path's Kolmogorov run failed")
+    plain_wall = time.perf_counter() - t0
+    errs = {}
+    with np.load(run_dir / "stats_fields.npz") as got, \
+            np.load(plain_dir / "stats_fields.npz") as want:
+        require(sorted(got.files) == sorted(want.files) and (
+            int(got["n_samples"]), int(got["first_step"]),
+            int(got["sample_interval"])) == (8, KOL3D_STATS_FROM, 140),
+            f"stats_fields.npz {got.files} {int(got['n_samples'])}")
+        for k in got.files:
+            if got[k].ndim:
+                require(bool(np.isfinite(got[k]).all()), f"{k} not finite")
+                errs[k] = float(np.abs(got[k].astype(np.float64)
+                                       - want[k]).max())
+    worst_mean = max(v for k, v in errs.items() if k.startswith("mean"))
+    worst_re = max(v for k, v in errs.items() if k.startswith("re_"))
+    require(worst_mean < KOL3D_MEAN_TOL and worst_re < KOL3D_STRESS_TOL,
+            f"kernel statistics off the plain path's: {errs}")
+    probes = [np.loadtxt(d / "probes.csv", delimiter=",", skiprows=1)
+              for d in (run_dir, plain_dir)]
+    require(probes[0].shape == (16, 9) and bool(np.isfinite(probes[0]).all())
+            and np.array_equal(probes[0][:, 0], probes[1][:, 0]),
+            f"probes.csv {probes[0].shape}")
+    perr = float(np.abs(probes[0][:, 1:] - probes[1][:, 1:]).max())
+    require(perr < KOL3D_MEAN_TOL, f"probes off the plain path's by {perr}")
+    with np.load(run_dir / "stats_fields.npz") as got:
+        re_xz = float(np.abs(got["re_uxuz"]).max())
+        mean_ux = float(np.abs(got["mean_ux"]).max())
+    print(f"box3d main path {cell.label}: 2240 steps every 140, launches "
+          f"{counts['3d3']} N=3 + {counts['3d2']} N=2 + {counts['3d']} "
+          f"1-step of {lib} and 0 others, {result.host_fetches} host "
+          f"fetches in the loop, {wall:.2f} s wall, runner "
+          f"{result.mlups:.1f} MLUPS; stats_fields.npz 8 samples from "
+          f"{KOL3D_STATS_FROM} (max |mean ux| {mean_ux:.6f}, max |<ux'uz'>| "
+          f"{re_xz:.3e}) against the plain path's ({plain_wall:.2f} s): "
+          f"means {worst_mean:.3e} (gate {KOL3D_MEAN_TOL:.0e}), stresses "
+          f"{worst_re:.3e} (gate {KOL3D_STRESS_TOL:.0e}), probes {perr:.3e}; "
+          + box3d_fields_mass("flow", cell.problem, run_dir))
+    return {1: counts["3d"], 2: counts["3d2"], 3: counts["3d3"]}
+
+
+def kolmogorov2d_mesh_stats(dev) -> None:
+    """Phase 48: the 2-D Kolmogorov box at bench.py's row (2048x512) with
+    statistics from step 1120 and two probes, 2240 steps every 140, on one
+    device and on a 2x2 mesh of shards on the card: stats_fields.npz and
+    probes.csv byte-identical (the shards' states are the one device's,
+    and the sums cell-local)."""
+    from tpulbm_torch.runner import Runner
+    t0 = time.perf_counter()
+    params = box_params("kolmogorov", num_timesteps=2240,
+                        output_frequency=140, stats_from=1120,
+                        probe_points=((0.5, 0.25), (0.125, 0.875)))
+    one, mesh = OUT_DIR / "kolmogorov_stats", OUT_DIR / "kolmogorov_stats_2x2"
+    run_counted(params.replace(output_dir=str(one)), dev)
+    require(Runner(params.replace(output_dir=str(mesh), mesh_shape=(2, 2)),
+                   device=dev, devices=[dev] * 4,
+                   verbose=False).run().success, "the 2x2 run failed")
+    require(same_files(one, mesh, ["probes.csv", "velocity_field.csv"])
+            and same_npz(one / "stats_fields.npz", mesh / "stats_fields.npz"),
+            "the 2x2 mesh's statistics differ from one device's")
+    with np.load(one / "stats_fields.npz") as st:
+        n = int(st["n_samples"])
+        require(n == 8 and all(bool(np.isfinite(st[k]).all())
+                               for k in st.files), f"{n} samples")
+    print(f"kolmogorov 2048x512 statistics (8 samples from 1120) and probes "
+          f"on a 2x2 mesh of shards on the card: stats_fields.npz, "
+          f"probes.csv, velocity_field.csv byte-identical to one device "
+          f"({time.perf_counter() - t0:.2f} s for phase 48)")
+
+
+def box3d_gates(dev) -> None:
+    """Phase 49: tpulbm's 3-D physics gates through the kernels in f32: the
+    z shear wave's decay within 2% of exp(-nu k^2 t) at nz 32 (1200
+    steps) and second-order between nz 16 and 32 (tests/test_periodic.py:
+    220-250, 8x8 columns, tau 0.8, amplitude 0.01); the 3-D Taylor-Green
+    vortex's energy falling over 4 x 40 steps and its mass within the
+    float32 weights' term (:253-270, 32x16x16); 3-D Kolmogorov's spin-up
+    from rest within 2% of the linear solution after 400 steps
+    (tests/test_kolmogorov.py:288-310, 16x8x32, n 1, u0 0.01)."""
+    from tpulbm_torch import physics
+    from tpulbm_torch.convert import state_from_numpy
+    from tpulbm_torch.models import make_problem
+    from tpulbm_torch.models.periodic2d import kolmogorov3d_kappa
+    from tpulbm_torch.stepper import make_chunk_fn
+
+    t0 = time.perf_counter()
+
+    def start(problem):
+        return state_from_numpy(problem.initial_state(), problem, dev)
+
+    def advance(problem, f, steps):
+        out = make_chunk_fn(problem, dev, steps)(f)
+        torch.cuda.synchronize()
+        require(bool(physics.is_stable(out)),
+                f"gate {problem.params.problem} unstable")
+        return out
+
+    def zwave_err(nz, steps):
+        params = box3d_params("taylor-green", 8).replace(nz=nz)
+        pr = make_problem(params)
+        z = np.arange(nz)[:, None, None] * (2.0 * np.pi / nz)
+        ux = 0.01 * np.sin(z) * np.ones((nz, 8, 8))
+        pr = dataclasses.replace(pr, init_fields=(
+            np.ones((nz, 8, 8)), np.stack([ux, 0 * ux, 0 * ux])))
+        f = advance(pr, start(pr), steps)
+        _, u = physics.moments(pr.lattice, f.double())
+        amp = float(u[0].abs().max())
+        want = 0.01 * np.exp(-params.nu() * (2.0 * np.pi / nz) ** 2 * steps)
+        return abs(amp / want - 1.0)
+
+    e16, e32 = zwave_err(16, 300), zwave_err(32, 1200)
+    require(e32 < ZWAVE_GATE and 3.0 < e16 / e32 < 5.5,
+            f"z shear wave: {e16}, {e32}")
+    pr = make_problem(box3d_params("taylor-green", 16).replace(nx=32))
+    f = start(pr)
+    m0 = float(torch.sum(f, dtype=torch.float64))
+
+    def energy(f):
+        rho, u = physics.moments(pr.lattice, f.double())
+        return float(torch.sum(rho * (u * u).sum(0)))
+
+    e = [energy(f)]
+    for _ in range(4):
+        f = advance(pr, f, 40)
+        e.append(energy(f))
+    require(all(b < a for a, b in zip(e, e[1:])), f"TG energy {e}")
+    mass = box_mass_gate("taylor-green3d", float(torch.sum(
+        f, dtype=torch.float64)), m0, 160, weight_excess(pr.lattice),
+        pr.params.tau)
+    params = box3d_params("kolmogorov", 8).replace(
+        nx=16, nz=32, kolmogorov_n=1, inlet_velocity=0.01, tau=0.8)
+    pr = make_problem(params)
+    rest = (np.ones((32, 8, 16)), np.zeros((3, 32, 8, 16)))
+    pr = dataclasses.replace(pr, init_fields=rest)
+    _, u = physics.moments(pr.lattice, advance(pr, start(pr), 400).double())
+    kappa = kolmogorov3d_kappa(params)
+    z = np.arange(32, dtype=np.float64)[:, None, None]
+    a = 2.0 * float(np.mean(u[0].cpu().numpy() * np.cos(kappa * z)))
+    a_exp = 0.01 * (1.0 - np.exp(-params.nu() * kappa * kappa * 400))
+    require(abs(a / a_exp - 1.0) < 0.02, f"3-D spin-up {a}, {a_exp}")
+    print(f"box3d gates f32: z shear wave decay off exp(-nu k^2 t) by "
+          f"{e16:.3e} (nz 16, 300 steps), {e32:.3e} (nz 32, 1200 steps; "
+          f"gate {ZWAVE_GATE}), ratio {e16 / e32:.2f} (gate 3-5.5, second "
+          f"order); Taylor-Green 32x16x16 energy {e[0]:.6e} -> "
+          f"{e[-1]:.6e}, falling at every 40 steps, {mass}; Kolmogorov "
+          f"16x8x32 spin-up from rest after 400 steps "
+          f"{100 * (a / a_exp - 1.0):+.3f}% of the linear solution (gate "
+          f"2%) ({time.perf_counter() - t0:.2f} s)")
+
+
+def box3d_phases(dev, card: str) -> list[dict]:
+    """Phases 46-50: the fully periodic 3-D boxes, 3-D Kolmogorov's force
+    along z and the D3Q27 velocity set through the two 3-D kernels
+    (box3d_builds). 46: every build one step against the plain step from
+    the initial and the perturbed state (and the three cells of the
+    slice's path from an advanced state too, at full width), the other
+    domain's, the D3Q19 set's, the forceless and the BGK library > 
+    SEPARATION tolerances off, N-step bitwise against N 1-step launches,
+    280 steps; 47: the three cells through the Runner (periodic3d-256,
+    kolmogorov3d-128 with statistics and probes against the plain path's,
+    sphere-256-d3q27), exactly 735 N=3, 17 N=2, 1 1-step launches each;
+    48: the 2-D Kolmogorov statistics on a 2x2 mesh; 49: tpulbm's 3-D
+    gates; 50: timing. Returns the kernels' JSON entries."""
+    t_all = time.perf_counter()
+    t0 = time.perf_counter()
+    main, others = {}, []
+    for label, params, full in box3d_cells():
+        cell = Cell(dev, label, params)
+        err = cell_parity(cell, True, advanced=full)
+        extra = mode_separation(cell)
+        if extra:
+            print(f"box3d separation {label}{extra}")
+        if full:
+            main[label] = (cell, err)
+        else:
+            others.append((cell, err))
+        torch.cuda.empty_cache()
+    print(f"box3d parity (phase 46): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    launches = {}
+    for label, (cell, err) in main.items():
+        run_dir = OUT_DIR / ("box3d_" + label.split()[0])
+        if label.startswith("kolmogorov"):
+            launches[label] = kolmogorov3d_main_path(dev, cell, run_dir)
+        else:
+            launches[label] = cell_main_path(dev, cell, run_dir, steps=2240)
+            if cell.problem.solid is None:
+                print(f"box3d mass {label} at t = 2239: "
+                      + box3d_fields_mass("flow", cell.problem, run_dir))
+    print(f"box3d main paths (phase 47): {time.perf_counter() - t0:.2f} s")
+    kolmogorov2d_mesh_stats(dev)
+    box3d_gates(dev)
+    t0 = time.perf_counter()
+    entries = []
+    for cell, err in [*main.values(), *others]:
+        depths = (1, *DEPTHS_3D)
+        ms, b = cell_timing(cell, card, depths)
+        runs = launches.get(cell.label, dict.fromkeys(depths, 0))
+        entries += cell_entries(cell, runs, err, ms, b)
+        del cell
+        torch.cuda.empty_cache()
+    main.clear()
+    others.clear()
+    print(f"box3d timing (phase 50): {time.perf_counter() - t0:.2f} s; "
+          f"box3d phases {time.perf_counter() - t_all:.2f} s")
+    return entries
+
+
 def step_cuda_chunk(problem, dev, steps: int):
     """The one-device kernel chunk of `steps` steps (stepper.make_chunk_fn)
     under the current environment."""
@@ -3808,6 +4252,7 @@ def step_cuda_chunk(problem, dev, steps: int):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     # phase 1: the card
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -3840,8 +4285,9 @@ def main() -> int:
     modes += [("step_thermal.cu", "smagorinsky")]
     # and the domain, source and obstacle builds of phases 25-29, the ring
     # builds of phases 30-34, the box's of phases 35-40, the Bouzidi ones
-    # of phases 41-45
-    builds = new_builds() + mesh_builds() + box_builds() + bz_builds()
+    # of phases 41-45, the 3-D box's and D3Q27's of phases 46-50
+    builds = (new_builds() + mesh_builds() + box_builds() + bz_builds()
+              + box3d_builds())
     with ThreadPoolExecutor(len(sources) + len(modes) + len(builds)) as pool:
         lib_jobs = [pool.submit(cuda_build.load, src) for src in sources]
         mode_jobs = [pool.submit(cuda_build.load, src,
@@ -4039,6 +4485,8 @@ def main() -> int:
     kernels.extend(mesh_phases(dev, card))
     kernels.extend(box_phases(dev, card))
     kernels.extend(bouzidi_phases(dev, card))
+    kernels.extend(box3d_phases(dev, card))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.2f} s in all")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -98,7 +98,9 @@ def test_velocity_table_in_the_kernel_source_is_d3q19():
     for kernel in ("step_d3q19.cu", "step_d3q19_blocked.cu"):
         assert '#include "d3q19_common.cuh"' in \
             (cuda_build.SOURCE_DIR / kernel).read_text()
+    # the TPULBM_D3Q19 block (D3Q27's rows follow in TPULBM_D3Q27)
     src = (cuda_build.SOURCE_DIR / "d3q19_common.cuh").read_text()
+    src = src.split("#define TPULBM_D3Q19(X)", 1)[1].split("\n\n", 1)[0]
     rows = re.findall(r"^\s*X\((\d+), (-?\d), (-?\d), (-?\d), (\d+)\)", src,
                       flags=re.M)
     table = np.array(rows, dtype=int)

@@ -266,7 +266,7 @@ def test_blocked_kernel_3d_refuses(cuda):
     lib = step_cuda._blocked_library_3d()
     rc = lib.tpulbm_d3q19_step_blocked(
         f.data_ptr(), out.data_ptr(), solid.data_ptr(), 32, 16, 8, 4,
-        *consts.d3q19_args, None, 0, 0,
+        *consts.d3q19_args, None, None, 0, 0,
         torch.cuda.current_stream(cuda).cuda_stream)
     assert rc != 0
     with pytest.raises(RuntimeError, match="launch failed"):
@@ -780,3 +780,98 @@ def test_bouzidi_ring_kernels_equal_one_device(cuda, monkeypatch, shape,
     from tpulbm_torch.ops import forces
     assert torch.equal(diag.force(sharded_step.split(mesh, want)),
                        forces.forces_fn(problem, cuda)(want))
+
+
+# the 3-D boxes, the z force and D3Q27 (ROADMAP Queue 1 item 16): every
+# build one step against the plain step from a perturbed state and its
+# N-step launch bitwise against N 1-step launches, on grids smaller than a
+# tile, ragged ones and nz below the N-step kernel's 64-plane march (down
+# to nz = N + 1, where the box's extended sweep wraps most)
+BOX3D_CASES = {
+    "tg": ("taylor-green", {}),
+    "kolmogorov": ("kolmogorov", {}),
+    "kolmogorov-trt": ("kolmogorov", dict(collision="trt")),
+    "kolmogorov-mrt": ("kolmogorov", dict(collision="mrt")),
+    "kolmogorov-regularized": ("kolmogorov",
+                               dict(collision="regularized")),
+    "kolmogorov-les": ("kolmogorov", dict(smagorinsky=0.17)),
+    "kolmogorov-power-law": ("kolmogorov", dict(power_law_n=0.7,
+                                                power_law_k=0.02)),
+    "tg-d3q27": ("taylor-green", dict(lattice3d="d3q27")),
+    "kolmogorov-d3q27": ("kolmogorov", dict(lattice3d="d3q27")),
+    "kolmogorov-d3q27-trt": ("kolmogorov", dict(lattice3d="d3q27",
+                                                collision="trt")),
+    "kolmogorov-d3q27-power-law": ("kolmogorov", dict(
+        lattice3d="d3q27", power_law_n=0.7, power_law_k=0.02)),
+    "sphere-d3q27": ("cylinder3d", dict(lattice3d="d3q27")),
+    "sphere-d3q27-trt-bounce-back": ("cylinder3d", dict(
+        lattice3d="d3q27", collision="trt", obstacle_bc="bounce_back")),
+    "sphere-d3q27-regularized": ("cylinder3d", dict(
+        lattice3d="d3q27", collision="regularized")),
+    "sphere-d3q27-les": ("cylinder3d", dict(lattice3d="d3q27",
+                                            smagorinsky=0.17)),
+    "duct-d3q27": ("poiseuille", dict(lattice3d="d3q27",
+                                      body_force=(1e-4, 0.0, 1e-5))),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BOX3D_CASES))
+@pytest.mark.parametrize("nx,ny,nz", [(7, 5, 4), (40, 9, 8), (70, 17, 67)])
+def test_box3d_and_d3q27_kernels_match_plain_and_each_other(cuda, case, nx,
+                                                            ny, nz):
+    name, kw = BOX3D_CASES[case]
+    box = name in ("taylor-green", "kolmogorov")
+    params = SimulationParams(
+        problem=name, nx=nx, ny=ny, nz=nz, tau=0.8 if box else 0.6,
+        inlet_velocity=0.05, kolmogorov_n=1, periodic_x=box or
+        name == "poiseuille", cylinder_radius=0.0 if box else 0.2,
+        **kw)
+    problem = make_problem(params)
+    noisy = (_noisy if problem.solid is None else _perturbed_state)
+    f = state_from_numpy(noisy(problem, nx + nz), problem, cuda)
+    k1 = step_cuda.make_local_step_cuda_3d(problem, cuda)
+    consts = step_cuda.kernel_constants(problem, 19)
+    step_cuda.reset_launch_counts()
+    got = k1(f, torch.empty_like(f))
+    assert step_cuda.collide_stream_3d.launches_by_library == {
+        consts.library: 1}
+    want = step_torch.make_step_rolled(problem, cuda)(f)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **(
+        dict(rtol=1e-4, atol=1e-7) if "power" in case else ONE_STEP_TOL))
+    for n_sub in step_cuda.BLOCKED_DEPTHS_3D:
+        kn = step_cuda.make_local_step_cuda_3d_blocked(problem, cuda, n_sub)
+        gotn = kn(f, torch.empty_like(f))
+        wantn = f.clone()
+        for _ in range(n_sub):
+            wantn = k1(wantn, torch.empty_like(wantn))
+        torch.cuda.synchronize()
+        assert torch.equal(gotn, wantn), (n_sub, float(
+            (gotn - wantn).abs().max()))
+
+
+def test_z_force_acts_in_the_kernel(cuda):
+    # at F0 = 1e-2 the source is far above the tolerance: the box's library
+    # without the z profile must miss the plain step by > 100 tolerances
+    import dataclasses
+    problem = make_problem(SimulationParams(
+        problem="kolmogorov", nx=40, ny=9, nz=16, tau=0.8, kolmogorov_n=2,
+        inlet_velocity=0.05, periodic_x=True, cylinder_radius=0.0))
+    from tpulbm_torch.models.base import ForceProfile
+    k = 2.0 * np.pi * 2 / 16
+    big = dataclasses.replace(problem, force_profile=ForceProfile(
+        "z", lambda z: (1e-2 * torch.cos(k * z), 0.0, 0.0)))
+    f = state_from_numpy(_noisy(big, 3), big, cuda)
+    consts = step_cuda.kernel_constants(big, 19)
+    solid = torch.zeros(big.spatial_shape, dtype=torch.uint8, device=cuda)
+    got = step_cuda.collide_stream_3d(f, torch.empty_like(f), solid, consts)
+    want = step_torch.make_step_rolled(big, cuda)(f)
+    bare = dataclasses.replace(consts, force_table=(), force_axis=-1,
+                               variant=consts.variant & ~step_cuda.FORCE)
+    without = step_cuda.collide_stream_3d(f, torch.empty_like(f), solid,
+                                          bare)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **ONE_STEP_TOL)
+    miss = float(((without - want).abs()
+                  / (1e-7 + 5e-6 * want.abs())).max())
+    assert miss > 100, miss

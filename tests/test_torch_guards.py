@@ -122,8 +122,14 @@ def test_runner_refuses_cuda_without_a_card(tmp_path):
 @pytest.mark.parametrize("override", [dict(precision="f64"),
                                       dict(mesh_shape=(2, 1),
                                            problem="cylinder3d", nz=16),
-                                      dict(stats_from=0),
-                                      dict(probe_points=((0.5, 0.5),))])
+                                      dict(mesh_shape=(2, 1),
+                                           problem="kolmogorov", nz=16,
+                                           cylinder_radius=0.0,
+                                           stats_from=0),
+                                      dict(problem="cylinder3d", nz=16,
+                                           lattice3d="d3q27",
+                                           obstacle_bc="bouzidi",
+                                           probe_points=((0.5, 0.5, 0.5),))])
 def test_runner_refuses_unported_options(tmp_path, override):
     params = SimulationParams(nx=64, ny=32, num_timesteps=20,
                               output_dir=str(tmp_path), **override)

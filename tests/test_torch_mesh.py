@@ -471,7 +471,7 @@ def test_mesh_defaults_to_the_cards_and_the_cpu_only_when_asked():
     (dict(problem="rayleigh-benard"), "item 19"),
     (dict(problem="multiphase", shan_chen_g=-5.0, tau=1.0,
           inlet_velocity=0.0), "item 19"),
-    (dict(problem="kolmogorov", nz=8), "item 16"),
+    (dict(problem="kolmogorov", nz=8), "item 19"),
 ], ids=["3d", "thermal", "multiphase", "periodic-box"])
 def test_unported_problems_on_a_mesh_name_their_item(tmp_path, override,
                                                      item):

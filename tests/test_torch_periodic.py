@@ -150,9 +150,13 @@ def test_force_source_matches_tpulbm(x_force):
                                np.asarray(want), rtol=1e-14, atol=1e-20)
 
 
+# the 3-D boxes run on one device (tests/test_torch_3d_periodic.py); on a
+# mesh they raise naming item 19
 @pytest.mark.parametrize("preset,override,error,match", [
-    ("kolmogorov3d", {}, NotImplementedError, "item 16"),
-    ("taylor-green", dict(nz=16), NotImplementedError, "item 16"),
+    ("kolmogorov3d", dict(mesh_shape=(2, 1)), NotImplementedError,
+     "item 19"),
+    ("taylor-green", dict(nz=16, mesh_shape=(1, 2)), NotImplementedError,
+     "item 19"),
     ("shear-layer", dict(nz=16), ValueError, "2-D only"),
     ("taylor-green", dict(problem="passive-scalar", thermal_tau=0.6, nz=16),
      ValueError, "2-D only")])
@@ -163,16 +167,24 @@ def test_3d_boxes_raise(preset, override, error, match):
 
 
 def test_force_profile_refuses_what_the_kernels_do_not_hold():
-    with pytest.raises(NotImplementedError, match="item 16"):
-        ForceProfile("z", lambda z: (z, 0.0, 0.0))
+    # a profile along one axis: x or y in 2-D (the D2Q9 kernels' table),
+    # z in 3-D (3-D Kolmogorov, the 3-D kernels' table)
+    with pytest.raises(NotImplementedError, match="one axis"):
+        ForceProfile("w", lambda w: (w, 0.0, 0.0))
     with pytest.raises(NotImplementedError, match="one axis"):
         ForceProfile("xy", lambda c: (c, c))
     duct = make_problem(PRESETS["poiseuille"].replace(nx=8, ny=9, nz=7,
                                                       precision="f32"))
     forced = dataclasses.replace(duct, force_profile=ForceProfile(
         "y", lambda y: (0.0 * y, 0.0)))
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(NotImplementedError, match="along 'y'"):
         step_cuda.kernel_constants(forced, q=19)
+    box = make_problem(PRESETS["taylor-green"].replace(nx=8, ny=8,
+                                                       precision="f32"))
+    along_z = dataclasses.replace(box, force_profile=ForceProfile(
+        "z", lambda z: (0.0 * z, 0.0)))
+    with pytest.raises(NotImplementedError, match="along 'z'"):
+        step_cuda.kernel_constants(along_z)
 
 
 # ---- the plain steps --------------------------------------------------------
@@ -643,7 +655,13 @@ def test_cli_runs_the_periodic_problems_on_the_cpu(tmp_path, capsys, argv,
 
 
 def test_cli_kolmogorov_preset_keeps_the_statistics_refusal(tmp_path):
+    # the preset's statistics, once refused (item 15), now run: the CLI
+    # with a cut depth writes stats_fields.npz from stats_from on
     from tpulbm_torch.__main__ import main
-    with pytest.raises(NotImplementedError, match="item 15"):
-        main(["--cpu", "--preset", "kolmogorov", "--nx", "32", "--ny", "16",
-              "--output-dir", str(tmp_path)])
+    assert main(["--cpu", "--preset", "kolmogorov", "--nx", "32", "--ny",
+                 "16", "--num-timesteps", "400", "--output-frequency", "100",
+                 "--stats-from", "200", "--output-dir", str(tmp_path)]) == 0
+    with np.load(tmp_path / "stats_fields.npz") as st:
+        assert (int(st["n_samples"]), int(st["first_step"]),
+                int(st["sample_interval"])) == (2, 200, 100)
+        assert np.isfinite(st["re_uxuy"]).all()

@@ -12,7 +12,11 @@
         --cylinder-x 0.5 --cylinder-y 0.5 --num-timesteps 2240 \\
         --output-frequency 140 --no-vtk
     python -m tpulbm_torch --preset taylor-green --no-vtk
-    python -m tpulbm_torch --preset kolmogorov --stats-from -1 --no-vtk
+    python -m tpulbm_torch --preset kolmogorov --probe '0.5,0.25' --no-vtk
+    python -m tpulbm_torch --preset kolmogorov3d --num-timesteps 2240 \
+        --output-frequency 140 --stats-from 1120
+    python -m tpulbm_torch --problem cylinder3d --nx 256 --ny 256 --nz 256 \
+        --inlet-velocity 0.05 --lattice3d d3q27 --no-vtk
     python -m tpulbm_torch --problem passive-scalar --thermal-tau 0.6 \\
         --tau 0.8 --inlet-velocity 0.04 --cylinder-radius 0 --no-vtk
 

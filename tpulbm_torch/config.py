@@ -426,15 +426,21 @@ def params_from_args(args: argparse.Namespace) -> SimulationParams:
 
 
 def check_collision(params: SimulationParams) -> None:
-    """Reject the collision combinations tpulbm refuses: KBC in 3-D; a
-    thermal problem (a thermal_tau, or a thermal problem name) under
-    anything but BGK, with or without the Smagorinsky closure; the closure
+    """Reject the collision combinations tpulbm refuses: KBC in 3-D; MRT
+    on D3Q27; a thermal problem (a thermal_tau, or a thermal problem name)
+    under anything but BGK, with or without the Smagorinsky closure; the
+    closure
     or the power law off BGK, or both at once; the power law with a
     thermal scalar; multiphase under anything but plain BGK.
     validate_params and the problem builders (models.check_slice) both
     call it."""
     thermal = bool(params.thermal_tau) or params.problem in (
         "rayleigh-benard", "heated-cavity")
+    if params.is_3d and params.lattice3d == "d3q27" \
+            and params.collision == "mrt":
+        raise ValueError(
+            "MRT is implemented for D2Q9/D3Q19 only (physics._mrt_basis); "
+            "use bgk or trt with lattice3d='d3q27'")
     if params.collision == "kbc" and params.is_3d:
         raise ValueError(
             "the KBC entropic operator is implemented for D2Q9 (2-D) "
@@ -531,10 +537,6 @@ def validate_params(params: SimulationParams) -> None:
     if params.lattice3d not in ("d3q19", "d3q27"):
         raise ValueError(
             f"lattice3d must be 'd3q19' or 'd3q27', got {params.lattice3d!r}")
-    if params.lattice3d == "d3q27" and params.collision == "mrt":
-        raise ValueError(
-            "MRT is implemented for D2Q9/D3Q19 only (physics._mrt_basis); "
-            "use bgk or trt with lattice3d='d3q27'")
     if params.stats_from < -1:
         raise ValueError(
             f"stats_from must be -1 (off) or a start timestep >= 0, got "

@@ -2,8 +2,9 @@
 
 Both packages hold the populations as (Q, *spatial) arrays in the same
 direction order and layout ((9, ny, nx) for D2Q9: the cylinder, the
-channel, the cavity, the periodic boxes; (19, nz, ny, nx) for D3Q19: the
-sphere and the duct; and (14, ny, nx) for the thermal problems and the
+channel, the cavity, the periodic boxes; (19, nz, ny, nx) for D3Q19 and
+(27, nz, ny, nx) for D3Q27: the sphere, the duct and the 3-D boxes; and
+(14, ny, nx) for the thermal problems and the
 passive scalar: the 9 D2Q9 planes stacked over the 5 D2Q5 planes), so a
 tpulbm state moves over unchanged. The params carry all the physics: the
 port's Problem, Kolmogorov's force profile included, is built from them
@@ -20,13 +21,14 @@ import numpy as np
 import torch
 
 from .config import SimulationParams
-from .lattice import D2Q5, D2Q9, D3Q19
+from .lattice import D2Q5, D2Q9, D3Q19, D3Q27
 from .models import make_problem
 from .models.base import Problem
 from .utils import checkpoint
 
 # planes of a state -> number of spatial axes, for the states the port holds
-_SPATIAL_DIMS = {D2Q9.Q: D2Q9.D, D3Q19.Q: D3Q19.D, D2Q9.Q + D2Q5.Q: 2}
+_SPATIAL_DIMS = {D2Q9.Q: D2Q9.D, D3Q19.Q: D3Q19.D, D3Q27.Q: D3Q27.D,
+                 D2Q9.Q + D2Q5.Q: 2}
 
 
 def state_from_numpy(f: np.ndarray, problem: Problem, device) -> torch.Tensor:
@@ -57,11 +59,11 @@ def state_from_numpy_block(block: np.ndarray, problem: Problem,
 
 
 def state_to_numpy(f: torch.Tensor) -> np.ndarray:
-    """A port state f32/f64 tensor, (9, ny, nx), (19, nz, ny, nx) or the
-    thermal (14, ny, nx), as a host NumPy array."""
+    """A port state f32/f64 tensor, (9, ny, nx), (19 or 27, nz, ny, nx) or
+    the thermal (14, ny, nx), as a host NumPy array."""
     if f.dim() == 0 or f.dim() != 1 + _SPATIAL_DIMS.get(f.shape[0], -1):
-        raise ValueError(f"state must be (9, ny, nx), (19, nz, ny, nx) or "
-                         f"(14, ny, nx), got {tuple(f.shape)}")
+        raise ValueError(f"state must be (9, ny, nx), (19 or 27, nz, ny, "
+                         f"nx) or (14, ny, nx), got {tuple(f.shape)}")
     if f.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"state dtype must be float32 or float64, "
                         f"got {f.dtype}")

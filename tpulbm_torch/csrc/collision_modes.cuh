@@ -13,11 +13,12 @@
 //   3-D sphere: y and z walls, equilibrium inlet, zero-gradient outlet),
 //   1 the channel (periodic x, y walls; in 3-D the duct, y and z walls),
 //   2 the cavity (x and y walls, the moving lid, the corner closure; 2-D),
-//   3 the periodic box (periodic x and y, no walls; 2-D);
+//   3 the periodic box (periodic x and y, no walls; in 3-D z as well);
 // * -DTPULBM_SOURCE=1: the body force's source added after every
 //   collision;
 // * -DTPULBM_FORCE=1: the force profile's source, a table of S_i per
-//   coordinate along one axis (Kolmogorov's), added after that (2-D);
+//   coordinate along one axis (Kolmogorov's: y in 2-D, z in 3-D), added
+//   after that;
 // * -DTPULBM_BOUNCE_BACK=1: the bounce-back obstacle (solid cells skip the
 //   collision and store their pulled populations reversed) instead of the
 //   equilibrium pin; the obstacle domain only.
@@ -27,6 +28,8 @@
 // * -DTPULBM_RINGS=1: the D2Q9 kernels step one shard of a mesh, whose
 //   cells outside its block come from the rings its neighbours sent
 //   (d2q9_common.cuh's Shard), over a range of its rows.
+// * -DTPULBM_Q=27: the 3-D kernels step the D3Q27 velocity set instead of
+//   D3Q19 (d3q19_common.cuh; TPULBM_Q is 19 when it is unset).
 // A library built with none of them is the one every earlier build ran.
 
 #pragma once
@@ -51,6 +54,9 @@
 #endif
 #ifndef TPULBM_BOUZIDI
 #define TPULBM_BOUZIDI 0
+#endif
+#ifndef TPULBM_Q
+#define TPULBM_Q 19
 #endif
 
 #include <stddef.h>
@@ -77,12 +83,13 @@ enum Domain : int {
   kObstacle = 0,  // inlet, outlet and a voxel obstacle
   kChannel = 1,   // periodic x, no obstacle
   kCavity = 2,    // closed box with a moving lid, no obstacle
-  kBox = 3,       // periodic x and y, no walls, no obstacle
+  kBox = 3,       // periodic x and y (and z in 3-D), no walls, no obstacle
 };
 constexpr int kDomain = TPULBM_DOMAIN;
 static_assert(kDomain >= kObstacle && kDomain <= kBox, "unknown domain");
 constexpr bool kPeriodicX = kDomain == kChannel || kDomain == kBox;
 constexpr bool kPeriodicY = kDomain == kBox;
+constexpr bool kPeriodicZ = kDomain == kBox;  // read by the 3-D kernels
 constexpr bool kHasObstacle = kDomain == kObstacle;
 constexpr bool kSource = TPULBM_SOURCE != 0;
 constexpr bool kForce = TPULBM_FORCE != 0;
@@ -91,6 +98,8 @@ static_assert(!kBounceBack || kHasObstacle,
               "the bounce-back obstacle needs the obstacle domain");
 constexpr bool kRings = TPULBM_RINGS != 0;
 constexpr bool kBouzidi = TPULBM_BOUZIDI != 0;
+static_assert(TPULBM_Q == 19 || TPULBM_Q == 27, "a 3-D set: 19 or 27");
+constexpr bool kD3Q27 = TPULBM_Q == 27;
 static_assert(!kBouzidi || (kHasObstacle && !kBounceBack),
               "the Bouzidi obstacle needs the obstacle domain, and is not "
               "the bounce-back one");
@@ -162,10 +171,12 @@ __device__ __forceinline__ float power_law_inv_tau(float gfac, float nm1,
 extern "C" int tpulbm_collision_mode() { return tpulbm::kMode; }
 
 // The rest of the build: the domain, then 4 with the source, 8 with the
-// bounce-back obstacle, 16 with the rings, 32 with the force profile and
-// 64 with the Bouzidi obstacle; ops/step_cuda.py checks it too.
+// bounce-back obstacle, 16 with the rings, 32 with the force profile, 64
+// with the Bouzidi obstacle and 128 on D3Q27; ops/step_cuda.py checks it
+// too.
 extern "C" int tpulbm_build_variant() {
   return tpulbm::kDomain | (tpulbm::kSource ? 4 : 0) |
          (tpulbm::kBounceBack ? 8 : 0) | (tpulbm::kRings ? 16 : 0) |
-         (tpulbm::kForce ? 32 : 0) | (tpulbm::kBouzidi ? 64 : 0);
+         (tpulbm::kForce ? 32 : 0) | (tpulbm::kBouzidi ? 64 : 0) |
+         (tpulbm::kD3Q27 ? 128 : 0);
 }

@@ -30,6 +30,7 @@
 namespace tpulbm {
 
 constexpr int kQ = 9;
+static_assert(!kD3Q27, "TPULBM_Q picks a 3-D velocity set");
 
 // MRT's rank-r correction, zero-padded to the largest D2Q9 rank (e, eps,
 // qx, qy: the non-conserved, non-shear moments)

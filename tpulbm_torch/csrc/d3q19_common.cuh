@@ -1,8 +1,10 @@
-// The per-cell parts of a D3Q19 timestep that the port's 3-D kernels share,
-// float32: the collisions with the body force's source, the pull with the
-// reference's ghost rule (or a periodic x), and the boundary sequences of
-// the sphere in a duct (the obstacle domain) and of the periodic duct (the
-// channel domain). step_d3q19.cu (one step per launch) and
+// The per-cell parts of a D3Q19 or D3Q27 timestep that the port's 3-D
+// kernels share, float32: the collisions with the body force's source and
+// the force profile's (a table per z), the pull with the reference's ghost
+// rule (or a periodic x, or every axis periodic), and the boundary
+// sequences of the sphere in a duct (the obstacle domain), of the periodic
+// duct (the channel domain) and of the fully periodic box (the box domain:
+// no ghost, no wall). step_d3q19.cu (one step per launch) and
 // step_d3q19_blocked.cu (N steps per launch) both build on these
 // functions, so that N launches of the first and one launch of the second
 // run the same operations in the same order and give the same bits, under
@@ -21,7 +23,10 @@
 //
 // The collision is fixed when a library is built (collision_modes.cuh):
 // BGK, TRT, MRT, regularized, Smagorinsky or the power law (tpulbm has no
-// 3-D KBC); so are the domain, the source and the obstacle rule.
+// 3-D KBC, and no MRT on D3Q27); so are the domain, the source, the force
+// profile, the obstacle rule and the velocity set (-DTPULBM_Q=27 for
+// D3Q27; D3Q19 by default). Every loop over the populations is the
+// X-macro TPULBM_LAT3D of the build's set.
 
 #pragma once
 
@@ -54,6 +59,26 @@
   X(17, 0, 1, -1, 18)   \
   X(18, 0, -1, 1, 17)
 
+// The D3Q27 velocity set in tpulbm.lattice.D3Q27's order: D3Q19's 19 rows,
+// then the eight corners. tests/test_torch_d3q27.py parses this table.
+#define TPULBM_D3Q27(X) \
+  TPULBM_D3Q19(X)       \
+  X(19, 1, 1, 1, 20)    \
+  X(20, -1, -1, -1, 19) \
+  X(21, 1, 1, -1, 22)   \
+  X(22, -1, -1, 1, 21)  \
+  X(23, 1, -1, 1, 24)   \
+  X(24, -1, 1, -1, 23)  \
+  X(25, 1, -1, -1, 26)  \
+  X(26, -1, 1, 1, 25)
+
+// The build's set, which every per-population loop below expands.
+#if TPULBM_Q == 27
+#define TPULBM_LAT3D(X) TPULBM_D3Q27(X)
+#else
+#define TPULBM_LAT3D(X) TPULBM_D3Q19(X)
+#endif
+
 // +v, -v or nothing, by the sign of a velocity component (a literal)
 #define TPULBM_SIGNED_ADD(acc, c, v) \
   if ((c) > 0) {                     \
@@ -64,19 +89,23 @@
 
 namespace tpulbm3d {
 
-constexpr int kQ = 19;
+constexpr int kQ = tpulbm::kD3Q27 ? 27 : 19;
 using tpulbm::is_solid;
 using tpulbm::kBounceBack;
 using tpulbm::kBouzidi;
 using tpulbm::kHasObstacle;
 using tpulbm::kMode;
 using tpulbm::kPeriodicX;
+using tpulbm::kPeriodicY;
+using tpulbm::kPeriodicZ;
 static_assert(kMode != tpulbm::kKBC, "tpulbm's KBC operator is 2-D only");
+static_assert(!(tpulbm::kD3Q27 && kMode == tpulbm::kMRT),
+              "tpulbm has no MRT basis for D3Q27");
+static_assert(!(tpulbm::kD3Q27 && kBouzidi),
+              "the Bouzidi obstacle is ported on D3Q19 only");
 static_assert(tpulbm::kDomain != tpulbm::kCavity, "the cavity is 2-D");
-static_assert(tpulbm::kDomain != tpulbm::kBox && !tpulbm::kForce,
-              "the 3-D periodic box and force profile are not ported");
 
-// MRT's rank-r correction, zero-padded to the largest D3Q19 rank: only the
+// MRT's rank-r correction (D3Q19), zero-padded to the largest rank: only the
 // ten ghost moments (e, eps, qx, qy, qz, pixx, piww, mx, my, mz) can relax
 // at another rate than 1/tau
 constexpr int kMrtRank = 10;
@@ -130,12 +159,12 @@ inline Consts make_consts(float inv_tau, const float* eq_in, const float* w,
   return k;
 }
 
-// Density and velocity of one cell's 19 populations.
+// Density and velocity of one cell's populations.
 struct Moments {
   float rho, inv_rho, ux, uy, uz;
 };
 
-__device__ __forceinline__ Moments moments_d3q19(const float* f) {
+__device__ __forceinline__ Moments moments3d(const float* f) {
   float rho = f[0];
 #pragma unroll
   for (int i = 1; i < kQ; ++i) rho = rho + f[i];
@@ -144,7 +173,7 @@ __device__ __forceinline__ Moments moments_d3q19(const float* f) {
   TPULBM_SIGNED_ADD(mx, cx, f[i])       \
   TPULBM_SIGNED_ADD(my, cy, f[i])       \
   TPULBM_SIGNED_ADD(mz, cz, f[i])
-  TPULBM_D3Q19(TPULBM_MOMENT)
+  TPULBM_LAT3D(TPULBM_MOMENT)
 #undef TPULBM_MOMENT
   const float inv_rho = 1.0f / rho;
   return {rho, inv_rho, mx * inv_rho, my * inv_rho, mz * inv_rho};
@@ -161,9 +190,9 @@ __device__ __forceinline__ float base_of(const Moments& m) {
   TPULBM_SIGNED_ADD(cu, cy, m.uy)    \
   TPULBM_SIGNED_ADD(cu, cz, m.uz)
 
-// BGK relaxation of one cell's 19 populations, in place.
+// BGK relaxation of one cell's populations, in place.
 __device__ __forceinline__ void collide_bgk(float* f, const Consts& k) {
-  const Moments m = moments_d3q19(f);
+  const Moments m = moments3d(f);
   const float rho = m.rho;
   const float base = base_of(m);
   f[0] = f[0] - k.inv_tau * (f[0] - k.w[0] * rho * base);
@@ -174,7 +203,7 @@ __device__ __forceinline__ void collide_bgk(float* f, const Consts& k) {
         k.w[i] * rho * (base + 3.0f * cu + 4.5f * cu * cu);          \
     f[i] = f[i] - k.inv_tau * (f[i] - feq);                          \
   }
-  TPULBM_D3Q19(TPULBM_RELAX)
+  TPULBM_LAT3D(TPULBM_RELAX)
 #undef TPULBM_RELAX
 }
 
@@ -189,7 +218,7 @@ __device__ __forceinline__ void deviations(const float* f, const Moments& m,
     TPULBM_CU(cu, cx, cy, cz, m)                                          \
     dev[i] = f[i] - w[i] * m.rho * (base + 3.0f * cu + 4.5f * cu * cu);   \
   }
-  TPULBM_D3Q19(TPULBM_DEV)
+  TPULBM_LAT3D(TPULBM_DEV)
 #undef TPULBM_DEV
 }
 
@@ -208,7 +237,7 @@ __device__ __forceinline__ Stress stress(const float* d) {
   TPULBM_SIGNED_ADD(p.yy, (cy) * (cy), d[i]) \
   TPULBM_SIGNED_ADD(p.yz, (cy) * (cz), d[i]) \
   TPULBM_SIGNED_ADD(p.zz, (cz) * (cz), d[i])
-  TPULBM_D3Q19(TPULBM_PI)
+  TPULBM_LAT3D(TPULBM_PI)
 #undef TPULBM_PI
   return p;
 }
@@ -224,7 +253,7 @@ __device__ __forceinline__ float stress_norm(const Stress& p) {
 // TRT in the Pallas kernel's closed form: feq_i ± feq_opp(i) is
 // 2 w rho (base + 4.5 cu²) and 6 w rho cu.
 __device__ __forceinline__ void collide_trt(float* f, const Consts& k) {
-  const Moments m = moments_d3q19(f);
+  const Moments m = moments3d(f);
   const float rho = m.rho;
   const float base = base_of(m);
   float out[kQ];
@@ -237,7 +266,7 @@ __device__ __forceinline__ void collide_trt(float* f, const Consts& k) {
     const float odd = (f[i] - f[o]) - 6.0f * wr * cu;                       \
     out[i] = f[i] - k.m.trt_hp * even - k.m.trt_hm * odd;                   \
   }
-  TPULBM_D3Q19(TPULBM_TRT)
+  TPULBM_LAT3D(TPULBM_TRT)
 #undef TPULBM_TRT
 #pragma unroll
   for (int i = 0; i < kQ; ++i) f[i] = out[i];
@@ -248,7 +277,7 @@ __device__ __forceinline__ void collide_trt(float* f, const Consts& k) {
 // as it is.
 __device__ __forceinline__ void collide_mrt(float* f, const Consts& k) {
   float dev[kQ];
-  deviations(f, moments_d3q19(f), k.w, dev);
+  deviations(f, moments3d(f), k.w, dev);
   float t[kMrtRank];
 #pragma unroll
   for (int r = 0; r < kMrtRank; ++r) {
@@ -270,7 +299,7 @@ __device__ __forceinline__ void collide_mrt(float* f, const Consts& k) {
 __device__ __forceinline__ void collide_regularized(float* f,
                                                     const Consts& k) {
   float dev[kQ];
-  deviations(f, moments_d3q19(f), k.w, dev);
+  deviations(f, moments3d(f), k.w, dev);
   const Stress p = stress(dev);
 #pragma unroll
   for (int i = 0; i < kQ; ++i) {
@@ -284,7 +313,7 @@ __device__ __forceinline__ void collide_regularized(float* f,
 // BGK at the per-cell Smagorinsky rate (tpulbm::smagorinsky_inv_tau).
 __device__ __forceinline__ void collide_smagorinsky(float* f,
                                                     const Consts& k) {
-  const Moments m = moments_d3q19(f);
+  const Moments m = moments3d(f);
   float dev[kQ];
   deviations(f, m, k.w, dev);
   const float inv_t =
@@ -297,7 +326,7 @@ __device__ __forceinline__ void collide_smagorinsky(float* f,
 
 // BGK at the per-cell power-law rate (tpulbm::power_law_inv_tau).
 __device__ __forceinline__ void collide_power_law(float* f, const Consts& k) {
-  const Moments m = moments_d3q19(f);
+  const Moments m = moments3d(f);
   float dev[kQ];
   deviations(f, m, k.w, dev);
   const float inv_t = tpulbm::power_law_inv_tau(
@@ -327,9 +356,15 @@ __device__ __forceinline__ void collide(float* f, const Consts& k) {
 
 // One cell's collision with what the build adds to it, in place: nothing
 // on a solid cell under the bounce-back obstacle (it keeps its
-// populations), else the collision and, with kSource, the source.
+// populations), else the collision, with kSource the source and with
+// kForce the force profile's source at the cell, prof[i * stride] for
+// population i: the column of the (Q, nz) table at the plane of the cell
+// that owns it (z mod nz), so that every halo or widened-tile cell adds
+// the source its owner adds.
 __device__ __forceinline__ void collide_cell(float* f, const Consts& k,
-                                             bool solid) {
+                                             bool solid,
+                                             const float* prof = nullptr,
+                                             int stride = 0) {
   if constexpr (kBounceBack) {
     if (solid) return;
   }
@@ -338,31 +373,37 @@ __device__ __forceinline__ void collide_cell(float* f, const Consts& k,
 #pragma unroll
     for (int i = 0; i < kQ; ++i) f[i] = f[i] + k.src[i];
   }
+  if constexpr (tpulbm::kForce) {
+#pragma unroll
+    for (int i = 0; i < kQ; ++i) f[i] = f[i] + prof[i * stride];
+  }
 }
 
 // Pull g_i(x, y, z) = f_post_i((x, y, z) - c_i) with the reference's ghost
 // rule: a source across a y or z edge gives the frozen equilibrium, one
-// across only an x edge gives zero (in the duct the x axis wraps, and the
-// caller's post returns the wrapped neighbour), and an in-domain source
-// gives post(Pop<i>(), ox, oy, oz), the collided value the caller keeps at
-// offset (ox, oy, oz) = -c_i from (x, y, z).
+// across only an x edge gives zero (in the duct the x axis wraps, in the
+// box every axis, and the caller's post returns the wrapped neighbour), and
+// an in-domain source gives post(Pop<i>(), ox, oy, oz), the collided value
+// the caller keeps at offset (ox, oy, oz) = -c_i from (x, y, z).
 template <class Post>
-__device__ __forceinline__ void pull_d3q19(float* g, int x, int y, int z,
-                                           int nx, int ny, int nz,
-                                           const Consts& k, const Post& post) {
-  if ((kPeriodicX || (x > 0 && x < nx - 1)) && y > 0 && y < ny - 1 &&
-      z > 0 && z < nz - 1) {
+__device__ __forceinline__ void pull3d(float* g, int x, int y, int z, int nx,
+                                       int ny, int nz, const Consts& k,
+                                       const Post& post) {
+  if ((kPeriodicX || (x > 0 && x < nx - 1)) &&
+      (kPeriodicY || (y > 0 && y < ny - 1)) &&
+      (kPeriodicZ || (z > 0 && z < nz - 1))) {
     // every source lies in the domain: the same values, no edge tests
 #define TPULBM_PULL_IN(i, cx, cy, cz, o) \
   g[i] = post(Pop<i>(), -(cx), -(cy), -(cz));
-    TPULBM_D3Q19(TPULBM_PULL_IN)
+    TPULBM_LAT3D(TPULBM_PULL_IN)
 #undef TPULBM_PULL_IN
     return;
   }
 #define TPULBM_PULL(i, cx, cy, cz, o)                                      \
   {                                                                        \
     const int sx = x - (cx), sy = y - (cy), sz = z - (cz);                 \
-    if (sy < 0 || sy >= ny || sz < 0 || sz >= nz) {                        \
+    if ((!kPeriodicY && (sy < 0 || sy >= ny)) ||                           \
+        (!kPeriodicZ && (sz < 0 || sz >= nz))) {                           \
       g[i] = k.eq_in[i];                                                   \
     } else if (!kPeriodicX && (sx < 0 || sx >= nx)) {                      \
       g[i] = 0.0f;                                                         \
@@ -370,7 +411,7 @@ __device__ __forceinline__ void pull_d3q19(float* g, int x, int y, int z,
       g[i] = post(Pop<i>(), -(cx), -(cy), -(cz));                          \
     }                                                                      \
   }
-  TPULBM_D3Q19(TPULBM_PULL)
+  TPULBM_LAT3D(TPULBM_PULL)
 #undef TPULBM_PULL
 }
 
@@ -378,7 +419,7 @@ __device__ __forceinline__ void pull_d3q19(float* g, int x, int y, int z,
 // post-stream populations of a fluid cell at (x, y, z), in place:
 // bounce-back y walls (bottom, then top), z walls (bottom, then top), each
 // reading what the one before wrote, then (the obstacle domain) the
-// equilibrium inlet at x = 0.
+// equilibrium inlet at x = 0. The box has neither.
 __device__ __forceinline__ void walls_and_inlet(float* g, int x, int y, int z,
                                                 int ny, int nz,
                                                 const Consts& k) {
@@ -388,10 +429,14 @@ __device__ __forceinline__ void walls_and_inlet(float* g, int x, int y, int z,
 #define TPULBM_WALL_Y1(i, cx, cy, cz, o) TPULBM_WALL(i, cx, cy, cz, o, cy, -1)
 #define TPULBM_WALL_Z0(i, cx, cy, cz, o) TPULBM_WALL(i, cx, cy, cz, o, cz, 1)
 #define TPULBM_WALL_Z1(i, cx, cy, cz, o) TPULBM_WALL(i, cx, cy, cz, o, cz, -1)
-  if (y == 0) { TPULBM_D3Q19(TPULBM_WALL_Y0) }
-  if (y == ny - 1) { TPULBM_D3Q19(TPULBM_WALL_Y1) }
-  if (z == 0) { TPULBM_D3Q19(TPULBM_WALL_Z0) }
-  if (z == nz - 1) { TPULBM_D3Q19(TPULBM_WALL_Z1) }
+  if constexpr (!kPeriodicY) {
+    if (y == 0) { TPULBM_LAT3D(TPULBM_WALL_Y0) }
+    if (y == ny - 1) { TPULBM_LAT3D(TPULBM_WALL_Y1) }
+  }
+  if constexpr (!kPeriodicZ) {
+    if (z == 0) { TPULBM_LAT3D(TPULBM_WALL_Z0) }
+    if (z == nz - 1) { TPULBM_LAT3D(TPULBM_WALL_Z1) }
+  }
 #undef TPULBM_WALL_Y0
 #undef TPULBM_WALL_Y1
 #undef TPULBM_WALL_Z0
@@ -406,7 +451,8 @@ __device__ __forceinline__ void walls_and_inlet(float* g, int x, int y, int z,
 // One cell's populations after a whole step (tpulbm's stored state:
 // post-BC, pre-collision) at (x, y, z); solid_at(ox) tells whether the cell
 // at offset ox along x is solid (read in the obstacle domain only). In the
-// duct a cell pulls, then the walls apply. In the obstacle domain a solid
+// duct a cell pulls, then the walls apply; in the box it only pulls. In the
+// obstacle domain a solid
 // cell is pinned to rest equilibrium (the equilibrium obstacle) or stores
 // its pulled populations reversed (the bounce-back obstacle); a fluid cell
 // pulls, then the walls and the inlet apply. The zero-gradient outlet is
@@ -422,16 +468,16 @@ __device__ __forceinline__ void step_cell(float* g, const Solid& solid_at,
                                           int nz, const Consts& k,
                                           const Post& post) {
   if constexpr (!kHasObstacle) {
-    pull_d3q19(g, x, y, z, nx, ny, nz, k, post);
+    pull3d(g, x, y, z, nx, ny, nz, k, post);
     walls_and_inlet(g, x, y, z, ny, nz, k);
     return;
   }
   if (solid_at(0)) {
     if constexpr (kBounceBack) {
       float r[kQ];
-      pull_d3q19(r, x, y, z, nx, ny, nz, k, post);
+      pull3d(r, x, y, z, nx, ny, nz, k, post);
 #define TPULBM_REVERSE(i, cx, cy, cz, o) g[i] = r[o];
-      TPULBM_D3Q19(TPULBM_REVERSE)
+      TPULBM_LAT3D(TPULBM_REVERSE)
 #undef TPULBM_REVERSE
     } else {
 #pragma unroll
@@ -441,7 +487,7 @@ __device__ __forceinline__ void step_cell(float* g, const Solid& solid_at,
   }
   const int dx = (x == nx - 1 && nx > 1) ? 1 : 0;
   const int xs = x - dx;
-  pull_d3q19(g, xs, y, z, nx, ny, nz, k,
+  pull3d(g, xs, y, z, nx, ny, nz, k,
              [&](auto i, int ox, int oy, int oz) {
                return post(i, ox - dx, oy, oz);
              });
@@ -479,7 +525,7 @@ __device__ __forceinline__ void apply_bouzidi(float* g, const float* q,
       g[j] = v;                                                           \
     }                                                                     \
   }
-  TPULBM_D3Q19(TPULBM_BZ)
+  TPULBM_LAT3D(TPULBM_BZ)
 #undef TPULBM_BZ
 }
 

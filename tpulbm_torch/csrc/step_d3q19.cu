@@ -1,21 +1,27 @@
-// One fused D3Q19 timestep on an NVIDIA Hopper GPU (sm_90a), float32:
-// collide (+ body-force source) -> pull-stream -> ghost sanitize -> y
-// walls -> z walls, then for the flow past a sphere in a duct (problem
-// "cylinder3d", the obstacle domain) -> equilibrium inlet -> zero-gradient
-// outlet -> obstacle (pin or bounce-back); the Poiseuille duct (problem
-// "poiseuille" with nz > 0, the channel domain) has a periodic x instead.
+// One fused D3Q19 or D3Q27 timestep on an NVIDIA Hopper GPU (sm_90a),
+// float32: collide (+ body-force source, + the force profile's source along
+// z) -> pull-stream -> ghost sanitize -> y walls -> z walls, then for the
+// flow past a sphere in a duct (problem "cylinder3d", the obstacle domain)
+// -> equilibrium inlet -> zero-gradient outlet -> obstacle (pin or
+// bounce-back); the Poiseuille duct (problem "poiseuille" with nz > 0, the
+// channel domain) has a periodic x instead, and the fully periodic box
+// (problems "taylor-green" and "kolmogorov" with nz > 0, the box domain)
+// wraps x, y and z and has no ghost and no wall.
 //
 // Replaces tpulbm/ops/step_pallas3d.py::make_local_step_pallas3d (:370, the
 // full-plane 1-step Pallas TPU kernel) and ::make_local_step_pallas3d_tiled
 // (:745) at n_sub=1 (its y-tiled 1-step form), with their src and
-// bounce_back modes and the tiled builder's periodic x (the duct), under
-// each collision of _collide_planes_core (BGK, TRT, MRT, regularized,
-// Smagorinsky, power law): one library per collision, domain, source and
-// obstacle rule (collision_modes.cuh). Both compute one step of
+// bounce_back modes, the tiled builder's periodic x (the duct), their
+// fully periodic boxes (the wrapped z ring planes zb/zt, :380-404, :447)
+// and force_fn (:81-139: here a table of the source per z), on either
+// velocity set, under each collision of _collide_planes_core (BGK, TRT,
+// MRT, regularized, Smagorinsky, power law; no MRT on D3Q27): one library
+// per collision, domain, source, force profile, obstacle rule and lattice
+// (collision_modes.cuh). Both compute one step of
 // tpulbm/ops/step_jax.py::make_step_rolled; so does this kernel, cell by
 // cell. Its plain version is tpulbm_torch/ops/step_torch.py.
 //
-// Layout: f is SoA (19, nz, ny, nx) float32 with x fastest, one plane per
+// Layout: f is SoA (Q, nz, ny, nx) float32 with x fastest, one plane per
 // population; the stored state is tpulbm's (post-BC, pre-collision), so
 // diagnostics and checkpoints read it unchanged. Population-plane offsets
 // are 64-bit: at 512x512x448, 19 x cells is above 2^31.
@@ -24,14 +30,14 @@
 // populations of every cell once and reads a 1-byte mask, 153 B per cell,
 // against about 260 floating-point operations per cell under BGK (MRT,
 // the heaviest, about 1,000); at 256^3 that is 2.57 GB per step, 0.766 ms
-// at 3.35 TB/s. So each population should cross device memory once each
-// way.
+// at 3.35 TB/s (D3Q27: 217 B, 1.09 ms). So each population should cross
+// device memory once each way.
 //
 // Design: a block owns a 32 x kBY (x, y) column of cells and marches
 // along z over kZChunk planes. A ring of three collided planes (z-1, z,
 // z+1), each with a one-cell x/y halo, lives in dynamic shared memory:
 // every step of the march loads and collides one new plane (tile + halo,
-// each cell once), then every thread pulls its 19 populations for plane z
+// each cell once), then every thread pulls its Q populations for plane z
 // from the ring and applies the boundary sequence in registers before the
 // single store. Halo cells are re-read by the neighbouring blocks (mostly
 // from L2) and collided there again: (34 x (kBY+2)) / (32 x kBY) loads
@@ -47,7 +53,16 @@
 // holds nx-1 and no extra halo column is needed; the ragged tile is the
 // leftmost one, masked. In the duct the halo columns x = -1 and x = nx are
 // loaded from x = nx-1 and x = 0, so the pull wraps with no test of its
-// own.
+// own; in the box the halo rows y = -1, y = ny and the planes z = -1,
+// z = nz are loaded from y = ny-1, 0 and z = nz-1, 0 the same way (tpulbm's
+// wrapped ring planes zb/zt), so the ring holds the wrapped neighbours and
+// the pull reads them like any other.
+//
+// The force profile (-DTPULBM_FORCE=1, 3-D Kolmogorov's F_x(z)): `force` is
+// the (Q, nz) table of its source S_i(z) = 3 w_i (c_i . F(z)) on the card;
+// every cell of plane z, halo cells included, adds column z mod nz after
+// its collision (collide_cell), so the N-step kernel, which adds the same
+// column at every substep, gives the same bits.
 //
 // The collision, the pull and the boundary sequence live in
 // d3q19_common.cuh, shared with the N-step kernel (step_d3q19_blocked.cu);
@@ -71,8 +86,9 @@ using tpulbm3d::Consts;
 using tpulbm3d::kQ;
 
 // Tile height and z-march length: the fastest of the tilings timed on an
-// H100 at 256^3 (PERF.md). 32x4 keeps the ring at 46,512 B, so four blocks
-// share an SM and overlap their load and pull phases.
+// H100 at 256^3 (PERF.md). 32x4 keeps the ring at 46,512 B (D3Q27:
+// 66,096 B), so four blocks (D3Q27: three) share an SM and overlap their
+// load and pull phases.
 constexpr int kBX = 32;                // tile width: one warp per row
 constexpr int kBY = 4;                 // tile height
 constexpr int kZChunk = 64;            // z-planes a block marches over
@@ -87,7 +103,8 @@ __device__ __forceinline__ int ring_index(int i, int ly, int lx) {
 
 __global__ void __launch_bounds__(kBX * kBY)
     d3q19_step_kernel(const float* __restrict__ f, float* __restrict__ out,
-                      const uint8_t* __restrict__ solid, int nx, int ny,
+                      const uint8_t* __restrict__ solid,
+                      const float* __restrict__ force, int nx, int ny,
                       int nz, const __grid_constant__ Consts k,
                       tpulbm::Links links) {
   extern __shared__ float ring[];  // 3 collided planes (tile + halo)
@@ -104,19 +121,29 @@ __global__ void __launch_bounds__(kBX * kBY)
 
   // Load and collide plane z (tile and in-domain halo) into ring slot r.
   // Out-of-domain cells and planes are never read: the ghost rule
-  // replaces them.
+  // replaces them; periodic axes load the wrapped cell instead.
   auto load = [&](int z, float* r) {
-    if (z < 0 || z >= nz) return;
+    if constexpr (tpulbm3d::kPeriodicZ) {
+      z = z < 0 ? nz - 1 : z >= nz ? 0 : z;
+    } else {
+      if (z < 0 || z >= nz) return;
+    }
     for (int t = tid; t < kTX * kTY; t += kBX * kBY) {
       const int ly = t / kTX;
       const int lx = t - ly * kTX;
       int gx = x0 + lx - 1;
-      const int gy = y0 + ly - 1;
+      int gy = y0 + ly - 1;
       if constexpr (tpulbm3d::kPeriodicX) {
-        if (gx < -1 || gx > nx || gy < 0 || gy >= ny) continue;
+        if (gx < -1 || gx > nx) continue;
         gx = gx < 0 ? nx - 1 : gx >= nx ? 0 : gx;
       } else {
-        if (gx < 0 || gx >= nx || gy < 0 || gy >= ny) continue;
+        if (gx < 0 || gx >= nx) continue;
+      }
+      if constexpr (tpulbm3d::kPeriodicY) {
+        if (gy < -1 || gy > ny) continue;
+        gy = gy < 0 ? ny - 1 : gy >= ny ? 0 : gy;
+      } else {
+        if (gy < 0 || gy >= ny) continue;
       }
       const size_t cell = static_cast<size_t>(z) * plane +
                           static_cast<size_t>(gy) * nx + gx;
@@ -124,7 +151,8 @@ __global__ void __launch_bounds__(kBX * kBY)
 #pragma unroll
       for (int i = 0; i < kQ; ++i) v[i] = f[i * pop + cell];
       tpulbm3d::collide_cell(
-          v, k, tpulbm3d::kBounceBack && tpulbm3d::is_solid(solid[cell]));
+          v, k, tpulbm3d::kBounceBack && tpulbm3d::is_solid(solid[cell]),
+          force + z, nz);
 #pragma unroll
       for (int i = 0; i < kQ; ++i) r[ring_index(i, ly, lx)] = v[i];
     }
@@ -182,13 +210,18 @@ __global__ void __launch_bounds__(kBX * kBY)
 // synchronizes nor allocates.
 // links and link_planes: the Bouzidi link table, 19 or 38 planes
 // (tpulbm::Links), read by the kBouzidi build only (elsewhere null and 0).
+// force: the force profile's (Q, nz) table on the card, read by the kForce
+// build only (elsewhere null). The host arrays eq_in, w and src hold Q
+// floats.
 extern "C" int tpulbm_d3q19_step(const float* f, float* out,
                                  const uint8_t* solid, int nx, int ny, int nz,
                                  float inv_tau, const float* eq_in,
                                  const float* w, const float* mode,
-                                 const float* src, const float* links,
-                                 int link_planes, int device, void* stream) {
+                                 const float* src, const float* force,
+                                 const float* links, int link_planes,
+                                 int device, void* stream) {
   if (!tpulbm::links_fit(links, link_planes, kQ)) return cudaErrorInvalidValue;
+  if ((force != nullptr) != tpulbm::kForce) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(d3q19_step_kernel,
@@ -201,7 +234,7 @@ extern "C" int tpulbm_d3q19_step(const float* f, float* out,
                   (nz + kZChunk - 1) / kZChunk);
   d3q19_step_kernel<<<grid, block, kRingBytes,
                       static_cast<cudaStream_t>(stream)>>>(
-      f, out, solid, nx, ny, nz, k,
+      f, out, solid, force, nx, ny, nz, k,
       tpulbm::Links{links, static_cast<size_t>(nx) * ny * nz,
                     link_planes == 2 * kQ});
   return static_cast<int>(cudaGetLastError());
@@ -213,6 +246,9 @@ extern "C" int tpulbm_d3q19_smem_bytes() { return kRingBytes; }
 // The floats of the library's mode coefficients, which the caller's array
 // must hold (its mode: collision_modes.cuh's tpulbm_collision_mode).
 extern "C" int tpulbm_mode_floats() { return tpulbm3d::kModeFloats; }
+
+// The populations of the library's velocity set (19 or 27).
+extern "C" int tpulbm_lattice_q() { return kQ; }
 
 extern "C" const char* tpulbm_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -1,22 +1,27 @@
-// N fused D3Q19 timesteps per launch (temporal blocking) on an NVIDIA Hopper
-// GPU (sm_90a), float32, N = 2 or 3. Each substep is the 1-step kernel's
-// sequence (step_d3q19.cu): collide (+ source) -> pull-stream with the
-// ghost rule -> y walls -> z walls, then for the sphere in a duct ->
-// equilibrium inlet -> zero-gradient outlet -> obstacle (pin or
-// bounce-back); the Poiseuille duct has a periodic x instead.
+// N fused D3Q19 or D3Q27 timesteps per launch (temporal blocking) on an
+// NVIDIA Hopper GPU (sm_90a), float32, N = 2 or 3. Each substep is the
+// 1-step kernel's sequence (step_d3q19.cu): collide (+ source, + the force
+// profile's source along z) -> pull-stream with the ghost rule -> y walls
+// -> z walls, then for the sphere in a duct -> equilibrium inlet ->
+// zero-gradient outlet -> obstacle (pin or bounce-back); the Poiseuille
+// duct has a periodic x instead, the fully periodic box wraps every axis
+// and has no ghost and no wall.
 //
 // Replaces tpulbm/ops/step_pallas3d.py::make_local_step_pallas3d_tiled
 // (:745) at n_sub = 2 and 3, the y-tiled z-plane cascade that tpulbm's
 // one-device 3-D dispatch runs by default (parallel/sharded_step.py:175-198),
-// with its src, bounce_back and periodic-x modes, under each collision of
-// its _collide_planes_core (one library per collision, domain, source and
-// obstacle rule, as step_d3q19.cu). Its plain version is N applications of
-// tpulbm_torch/ops/step_torch.py's step.
+// with its src, bounce_back and periodic-x modes, its fully periodic boxes
+// (the extended sweep over wrapped planes, :802-830, :1003, :1018) and
+// force_fn, on either velocity set, under each collision of its
+// _collide_planes_core (one library per collision, domain, source, force
+// profile, obstacle rule and lattice, as step_d3q19.cu). Its plain version
+// is N applications of tpulbm_torch/ops/step_torch.py's step.
 //
 // What bounds it: a launch moves the 153 B per cell of one step through
 // device memory (read and write 19 f32, read the 1-byte mask) and advances
 // N steps, so device-memory traffic falls to 153/N B per cell and step:
-// 0.383 ms (N=2) and 0.255 ms (N=3) per step at 256^3 over 3.35 TB/s.
+// 0.383 ms (N=2) and 0.255 ms (N=3) per step at 256^3 over 3.35 TB/s
+// (D3Q27: 217/N B, 0.543 and 0.362 ms).
 // Against it stand shared memory and redundant work: every substep but the
 // last collides a tile widened by the substeps still to come.
 //
@@ -38,13 +43,18 @@
 // as long as a pull still needs it: those with cz = -1 are pulled from
 // plane z+1 in the march step that writes them (one plane), cz = 0 from
 // plane z one step later (two planes), cz = +1 from plane z-1 two steps
-// later (three planes): 5 + 2*9 + 3*5 = 38 floats a cell instead of 3*19.
+// later (three planes): 5 + 2*9 + 3*5 = 38 floats a cell instead of 3*19
+// (D3Q27, whose classes hold 9 populations each: 9 + 2*9 + 3*9 = 54
+// instead of 3*27).
 // The mask of the last N+2 z-planes over stage 0's cells is kept beside
 // the rings, so no stage after the first reads device memory for it. Of the
 // tilings timed on an H100 at 256^3 (tile heights 2, 4, 8 with z-marches
 // of 32, 64, 128; utils/tile_sweep.py, PERF.md), 32 x 8 over 64 planes was
 // the fastest at both depths: 119,072 B at N=2 and 200,868 B at N=3, one
-// block of 256 threads per SM.
+// block of 256 threads per SM. D3Q27 keeps 32 x 8 at N=2 (168,480 B); at
+// N=3 its 54 floats a cell over 32 x 8 would take 284,324 B, above the
+// 232,448 B a block may have, so N=3 takes 32 x 4 (190,252 B, 128
+// threads).
 //
 // The zero-gradient outlet reads x = nx-2 (step_cell in d3q19_common.cuh),
 // which needs x = nx-3 .. nx-1 of the ring at every stage. The x tiles are
@@ -55,6 +65,17 @@
 // x mod nx, loaded from there and stepped like every other cell (the
 // duct's rules do not depend on x), so the trapezoid of valid cells is that
 // of an interior block.
+// In the box the y-halo wraps the same way, and the z march is tpulbm's
+// extended sweep: stage k computes the planes [z0 - (N-k), z1 + (N-k)) with
+// no clamp at the domain's z edges, a plane p outside [0, nz) being plane
+// p mod nz, loaded from there (the N planes before and after the block's
+// chunk: tpulbm's 2N refetched planes). The ring slots follow the
+// unwrapped index p, so the sweep holds for an nz smaller than the
+// 64-plane chunk, down to nz = 1.
+//
+// The force profile (-DTPULBM_FORCE=1): each substep adds the source column
+// of the table at the plane of the cell that owns it (p mod nz), as the
+// 1-step kernel does, so one launch gives the bits of N launches.
 //
 // The Bouzidi obstacle (-DTPULBM_BOUZIDI=1): every stage rewrites the cut
 // links of its cells whose mask byte carries kLinkBit (apply_bouzidi), from
@@ -81,6 +102,7 @@ using tpulbm3d::kQ;
 
 constexpr int kBX = 32;          // tile width: one warp per row
 constexpr int kBY = 8;           // tile height
+constexpr int kBY27N3 = 4;       // tile height of D3Q27 at N = 3
 constexpr int kZChunk = 64;      // output z-planes a block marches over
 constexpr size_t kMaxBlockSmem = 232448;  // what a block may take on sm_90
 
@@ -88,7 +110,7 @@ constexpr size_t kMaxBlockSmem = 232448;  // what a block may take on sm_90
 __host__ __device__ constexpr int cz_of(int i) {
 #define TPULBM_CZ_CASE(i_, cx, cy, cz, o) \
   if (i == (i_)) return (cz);
-  TPULBM_D3Q19(TPULBM_CZ_CASE)
+  TPULBM_LAT3D(TPULBM_CZ_CASE)
 #undef TPULBM_CZ_CASE
   return 0;
 }
@@ -99,8 +121,13 @@ __host__ __device__ constexpr int cz_of(int i) {
 // (from z-1) three, the slot of z-plane q being (q + 6) % class_slots(c).
 // The Bouzidi rewrite also reads a cell's own post-collision populations,
 // those of class 0 included, a plane after they were pulled: under
-// kBouzidi class 0 keeps two slots.
-__host__ __device__ constexpr int class_size(int c) { return c == 1 ? 9 : 5; }
+// kBouzidi class 0 keeps two slots. class_size counts the set's
+// populations with cz = c - 1: 5, 9, 5 on D3Q19, 9, 9, 9 on D3Q27.
+__host__ __device__ constexpr int class_size(int c) {
+  int n = 0;
+  for (int i = 0; i < kQ; ++i) n += cz_of(i) + 1 == c ? 1 : 0;
+  return n;
+}
 __host__ __device__ constexpr int class_slots(int c) {
   return c + 1 + (tpulbm3d::kBouzidi && c == 0 ? 1 : 0);
 }
@@ -147,10 +174,12 @@ constexpr bool ring_planes_distinct() {
   }
   return true;
 }
-static_assert(tpulbm3d::kBouzidi || kRingFloats == 38,
+static_assert(kQ != 19 || tpulbm3d::kBouzidi || kRingFloats == 38,
               "5 + 2 * 9 + 3 * 5 floats a cell");
-static_assert(!tpulbm3d::kBouzidi || kRingFloats == 43,
+static_assert(kQ != 19 || !tpulbm3d::kBouzidi || kRingFloats == 43,
               "2 * 5 + 2 * 9 + 3 * 5 floats a cell under kBouzidi");
+static_assert(kQ != 27 || kRingFloats == 54,
+              "9 + 2 * 9 + 3 * 9 floats a cell on D3Q27");
 static_assert(ring_planes_distinct(), "ring planes overlap");
 
 // The offsets, in floats, of the class-0, class-1 and class-2 slots that
@@ -182,13 +211,16 @@ __device__ __forceinline__ int ring_at(const Slots& s) {
 template <int N>
 struct Tile {
   static_assert(N >= 2, "one step per launch is step_d3q19.cu");
-  static constexpr int kThreads = kBX * kBY;
+  // the output tile's height: kBY, but kBY27N3 where D3Q27's rings at N = 3
+  // would not fit a block's shared memory
+  static constexpr int kTileY = kQ == 27 && N == 3 ? kBY27N3 : kBY;
+  static constexpr int kThreads = kBX * kTileY;
   // stage k < N covers the tile widened by N - k cells
   __host__ __device__ static constexpr int width(int k) {
     return kBX + 2 * (N - k);
   }
   __host__ __device__ static constexpr int height(int k) {
-    return kBY + 2 * (N - k);
+    return kTileY + 2 * (N - k);
   }
   __host__ __device__ static constexpr int cells(int k) {
     return width(k) * height(k);
@@ -212,21 +244,34 @@ template <int C>
 __device__ __forceinline__ void store_ring(float* ring, const Slots& s, int at,
                                            const float* v) {
 #define TPULBM_STORE(i, cx, cy, cz, o) ring[ring_at<i, C>(s) + at] = v[i];
-  TPULBM_D3Q19(TPULBM_STORE)
+  TPULBM_LAT3D(TPULBM_STORE)
 #undef TPULBM_STORE
 }
 
 // Whether a widened tile's cell at global (x, y) is stepped: a cell of the
 // domain, or in the duct any cell of a domain row, x then taken mod nx (the
-// cell it holds).
-__device__ __forceinline__ bool tile_cell(int& x, int y, int nx, int ny) {
+// cell it holds), or in the box any cell, x taken mod nx and y mod ny.
+__device__ __forceinline__ bool tile_cell(int& x, int& y, int nx, int ny) {
   if constexpr (tpulbm3d::kPeriodicX) {
     x %= nx;
     if (x < 0) x += nx;
-    return y >= 0 && y < ny;
-  } else {
-    return x >= 0 && x < nx && y >= 0 && y < ny;
   }
+  if constexpr (tpulbm3d::kPeriodicY) {
+    y %= ny;
+    if (y < 0) y += ny;
+  }
+  return (tpulbm3d::kPeriodicX || (x >= 0 && x < nx)) &&
+         (tpulbm3d::kPeriodicY || (y >= 0 && y < ny));
+}
+
+// The plane of the domain that z-plane p of the march holds: p itself, or
+// in the box p mod nz (the extended sweep's planes outside [0, nz)).
+__device__ __forceinline__ int plane_of(int p, int nz) {
+  if constexpr (tpulbm3d::kPeriodicZ) {
+    p %= nz;
+    if (p < 0) p += nz;
+  }
+  return p;
 }
 
 // What every stage of a block shares, beside the constants (read where
@@ -234,6 +279,7 @@ __device__ __forceinline__ bool tile_cell(int& x, int y, int nx, int ny) {
 struct March {
   int nx, ny, nz;
   int x0, y0, z0, z1;  // the output tile's origin, its z-planes [z0, z1)
+  const float* force;  // the force profile's (Q, nz) table (kForce)
 };
 
 // Stage K (0 < K < N) at march step m: plane m - K of the state after K
@@ -254,11 +300,16 @@ __device__ __forceinline__ void inner_stages(float* smem, const March& g,
     const float* src = smem + T::ring_offset(K - 1);
     float* dst = smem + T::ring_offset(K);
     const int p = m - K;
+    // the mask slots hold z-planes of the domain (the box reads no mask)
     const uint8_t* mask = reinterpret_cast<const uint8_t*>(
                               smem + T::kMaskOffset) +
-                          (p % T::kMaskSlots) * T::cells(0);
-    const int lo = g.z0 - (N - K) > 0 ? g.z0 - (N - K) : 0;
-    const int hi = g.z1 + (N - K) < g.nz ? g.z1 + (N - K) : g.nz;
+                          (p >= 0 ? p % T::kMaskSlots : 0) * T::cells(0);
+    // the box sweeps past the z edges (the extended sweep)
+    const int lo = tpulbm3d::kPeriodicZ || g.z0 - (N - K) > 0
+                       ? g.z0 - (N - K) : 0;
+    const int hi = tpulbm3d::kPeriodicZ || g.z1 + (N - K) < g.nz
+                       ? g.z1 + (N - K) : g.nz;
+    const int pz = plane_of(p, g.nz);
     if (p >= lo && p < hi) {
       const Slots rd = pull_slots<Cs>(p);
       const Slots own = slots_of<Cs>(p);
@@ -274,7 +325,7 @@ __device__ __forceinline__ void inner_stages(float* smem, const March& g,
         const int ly = t / W;
         const int lx = t - ly * W;
         int x = g.x0 - (N - K) + lx;
-        const int y = g.y0 - (N - K) + ly;
+        int y = g.y0 - (N - K) + ly;
         in[j] = t < C && tile_cell(x, y, g.nx, g.ny);
         solid[j] = false;
         if (in[j]) {
@@ -307,7 +358,7 @@ __device__ __forceinline__ void inner_stages(float* smem, const March& g,
 #pragma unroll
       for (int j = 0; j < J; ++j) {
         if (in[j]) {
-          tpulbm3d::collide_cell(v[j], k, solid[j]);
+          tpulbm3d::collide_cell(v[j], k, solid[j], g.force + pz, g.nz);
           store_ring<C>(dst, wr, threadIdx.x + j * T::kThreads, v[j]);
         }
       }
@@ -318,9 +369,10 @@ __device__ __forceinline__ void inner_stages(float* smem, const March& g,
 }
 
 template <int N>
-__global__ void __launch_bounds__(kBX * kBY)
+__global__ void __launch_bounds__(Tile<N>::kThreads)
     d3q19_blocked_kernel(const float* __restrict__ f, float* __restrict__ out,
-                         const uint8_t* __restrict__ solid, int nx, int ny,
+                         const uint8_t* __restrict__ solid,
+                         const float* __restrict__ force, int nx, int ny,
                          int nz, const __grid_constant__ Consts k,
                          tpulbm::Links links) {
   using T = Tile<N>;
@@ -331,9 +383,10 @@ __global__ void __launch_bounds__(kBX * kBY)
   g.ny = ny;
   g.nz = nz;
   g.x0 = nx - kBX * (static_cast<int>(blockIdx.x) + 1);  // right-aligned
-  g.y0 = static_cast<int>(blockIdx.y) * kBY;
+  g.y0 = static_cast<int>(blockIdx.y) * T::kTileY;
   g.z0 = static_cast<int>(blockIdx.z) * kZChunk;
   g.z1 = g.z0 + kZChunk < nz ? g.z0 + kZChunk : nz;
+  g.force = force;
   const size_t plane = static_cast<size_t>(nx) * ny;
   const size_t pop = plane * nz;  // cells per population plane
   const int tid = threadIdx.x;
@@ -355,11 +408,12 @@ __global__ void __launch_bounds__(kBX * kBY)
   const float* last = smem + T::ring_offset(N - 1);
 
   for (int m = g.z0 - N; m < g.z1 + N; ++m) {
-    // stage 0: load plane m over the tile widened by N, keep its mask,
-    // collide and keep the populations
-    if (m >= 0 && m < nz) {
+    // stage 0: load plane m (in the box plane m mod nz) over the tile
+    // widened by N, keep its mask, collide and keep the populations
+    if (tpulbm3d::kPeriodicZ || (m >= 0 && m < nz)) {
+      const int mz = plane_of(m, nz);
       const Slots wr = slots_of<C0>(m);
-      uint8_t* mask_m = mask + (m % T::kMaskSlots) * C0;
+      uint8_t* mask_m = mask + (m >= 0 ? m % T::kMaskSlots : 0) * C0;
       float v[J][kQ];
       bool in[J];
 #pragma unroll
@@ -368,10 +422,10 @@ __global__ void __launch_bounds__(kBX * kBY)
         const int ly = t / W0;
         const int lx = t - ly * W0;
         int gx = g.x0 - N + lx;
-        const int gy = g.y0 - N + ly;
+        int gy = g.y0 - N + ly;
         in[j] = t < C0 && tile_cell(gx, gy, nx, ny);
         if (in[j]) {
-          const size_t cell = static_cast<size_t>(m) * plane +
+          const size_t cell = static_cast<size_t>(mz) * plane +
                               static_cast<size_t>(gy) * nx + gx;
           if constexpr (tpulbm3d::kHasObstacle) mask_m[t] = solid[cell];
 #pragma unroll
@@ -384,7 +438,8 @@ __global__ void __launch_bounds__(kBX * kBY)
           tpulbm3d::collide_cell(
               v[j], k,
               tpulbm3d::kBounceBack &&
-                  tpulbm3d::is_solid(mask_m[tid + j * T::kThreads]));
+                  tpulbm3d::is_solid(mask_m[tid + j * T::kThreads]),
+              force + mz, nz);
           store_ring<C0>(smem, wr, tid + j * T::kThreads, v[j]);
         }
       }
@@ -423,9 +478,10 @@ __global__ void __launch_bounds__(kBX * kBY)
 }
 
 template <int N>
-cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
-                   int ny, int nz, const Consts& k,
-                   const tpulbm::Links& links, cudaStream_t stream) {
+cudaError_t launch(const float* f, float* out, const uint8_t* solid,
+                   const float* force, int nx, int ny, int nz,
+                   const Consts& k, const tpulbm::Links& links,
+                   cudaStream_t stream) {
   constexpr size_t smem = Tile<N>::kSmemBytes;
   if constexpr (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -433,10 +489,11 @@ cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid((nx + kBX - 1) / kBX, (ny + kBY - 1) / kBY,
+  constexpr int by = Tile<N>::kTileY;
+  const dim3 grid((nx + kBX - 1) / kBX, (ny + by - 1) / by,
                   (nz + kZChunk - 1) / kZChunk);
   d3q19_blocked_kernel<N><<<grid, Tile<N>::kThreads, smem, stream>>>(
-      f, out, solid, nx, ny, nz, k, links);
+      f, out, solid, force, nx, ny, nz, k, links);
   return cudaGetLastError();
 }
 
@@ -447,15 +504,18 @@ cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
 // launch never runs and a later synchronize would not report it); it
 // neither synchronizes nor allocates. links and link_planes: the Bouzidi
 // link table, 19 or 38 planes (tpulbm::Links), read by the kBouzidi build
-// only (elsewhere null and 0).
+// only (elsewhere null and 0); force: the force profile's (Q, nz) table on
+// the card, read by the kForce build only (elsewhere null).
 extern "C" int tpulbm_d3q19_step_blocked(const float* f, float* out,
                                          const uint8_t* solid, int nx, int ny,
                                          int nz, int n_sub, float inv_tau,
                                          const float* eq_in, const float* w,
                                          const float* mode, const float* src,
+                                         const float* force,
                                          const float* links, int link_planes,
                                          int device, void* stream) {
   if (!tpulbm::links_fit(links, link_planes, kQ)) return cudaErrorInvalidValue;
+  if ((force != nullptr) != tpulbm::kForce) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Consts k = tpulbm3d::make_consts(inv_tau, eq_in, w, mode, src);
@@ -463,8 +523,12 @@ extern "C" int tpulbm_d3q19_step_blocked(const float* f, float* out,
                          link_planes == 2 * kQ};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_sub) {
-    case 2: err = launch<2>(f, out, solid, nx, ny, nz, k, lk, s); break;
-    case 3: err = launch<3>(f, out, solid, nx, ny, nz, k, lk, s); break;
+    case 2:
+      err = launch<2>(f, out, solid, force, nx, ny, nz, k, lk, s);
+      break;
+    case 3:
+      err = launch<3>(f, out, solid, force, nx, ny, nz, k, lk, s);
+      break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
@@ -483,6 +547,9 @@ extern "C" int tpulbm_d3q19_blocked_smem_bytes(int n_sub) {
 // The floats of the library's mode coefficients, which the caller's array
 // must hold (its mode: collision_modes.cuh's tpulbm_collision_mode).
 extern "C" int tpulbm_mode_floats() { return tpulbm3d::kModeFloats; }
+
+// The populations of the library's velocity set (19 or 27).
+extern "C" int tpulbm_lattice_q() { return kQ; }
 
 extern "C" const char* tpulbm_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

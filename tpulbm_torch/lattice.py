@@ -1,5 +1,5 @@
 """Lattice descriptors: the port's copy of tpulbm/lattice.py (D2Q9, D2Q5,
-D3Q19), plus tensor views.
+D3Q19, D3Q27), plus tensor views.
 
 The direction order is tpulbm's (and its reference's), so every piece of
 boundary-condition algebra carries over index for index:
@@ -7,6 +7,8 @@ boundary-condition algebra carries over index for index:
     D2Q9:  0:( 0, 0)  1:( 1, 0)  2:( 0, 1)  3:(-1, 0)  4:( 0,-1)
            5:( 1, 1)  6:(-1, 1)  7:(-1,-1)  8:( 1,-1)
     D2Q5:  the first five D2Q9 directions (the thermal scalar's lattice)
+    D3Q19: rest, the six axes, the twelve face diagonals
+    D3Q27: D3Q19's 19 index for index, then the eight corners
 
 Constants live as NumPy arrays; the kernels take them as arguments.
 """
@@ -18,7 +20,7 @@ from functools import cached_property
 import numpy as np
 import torch
 
-__all__ = ["D2Q5", "D2Q9", "D3Q19", "Lattice", "lattice_tensors"]
+__all__ = ["D2Q5", "D2Q9", "D3Q19", "D3Q27", "Lattice", "lattice_tensors"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +101,20 @@ D3Q19 = Lattice(
     D=3,
     velocities=((0, 0, 0),) + _D3Q19_AXIS + _D3Q19_DIAG,
     weights=(1.0 / 3.0,) + (1.0 / 18.0,) * 6 + (1.0 / 36.0,) * 12,
+)
+
+# D3Q27: the fourth-order isotropic set, D3Q19's directions index for
+# index (so its boundary algebra carries over), then the 8 corners
+_D3Q27_CORNER = (
+    (1, 1, 1), (-1, -1, -1), (1, 1, -1), (-1, -1, 1),
+    (1, -1, 1), (-1, 1, -1), (1, -1, -1), (-1, 1, 1),
+)
+D3Q27 = Lattice(
+    name="D3Q27",
+    D=3,
+    velocities=((0, 0, 0),) + _D3Q19_AXIS + _D3Q19_DIAG + _D3Q27_CORNER,
+    weights=(8.0 / 27.0,) + (2.0 / 27.0,) * 6 + (1.0 / 54.0,) * 12
+    + (1.0 / 216.0,) * 8,
 )
 
 

@@ -1,15 +1,18 @@
 """Problem builders. The port covers the 2-D D2Q9 cylinder under every
 collision operator (BGK, TRT, MRT, regularized, KBC, Smagorinsky, power
 law) with either Zou-He corner rule, the body-forced Poiseuille channel
-and the lid-driven cavity under the same operators, the 3-D D3Q19 sphere
-in a duct and the 3-D Poiseuille duct under each of those but KBC, the
+and the lid-driven cavity under the same operators, the 3-D sphere in a
+duct and the 3-D Poiseuille duct on D3Q19 or D3Q27 under each of those
+but KBC (and MRT on D3Q27, which tpulbm refuses), the
 equilibrium, the bounce-back or the Bouzidi curved-wall obstacle (the
-cylinder also spinning) and a uniform body force on any of them, the
+cylinder also spinning; Bouzidi on D3Q19 only) and a uniform body force
+on any of them, the
 2-D thermal problems (Rayleigh-Bénard and the side-heated cavity, BGK or
 the Smagorinsky closure), the Shan-Chen multiphase
-channel (droplet or band, BGK) and the fully periodic 2-D boxes
+channel (droplet or band, BGK), the fully periodic 2-D boxes
 (Taylor-Green, the shear layer and Kolmogorov under every D2Q9
-collision, the passive scalar under the thermal step's); every other
+collision, the passive scalar under the thermal step's) and the 3-D
+boxes (Taylor-Green and Kolmogorov on D3Q19 or D3Q27); every other
 configuration raises
 NotImplementedError naming the ROADMAP item (Queue 1) that will port it,
 and the combinations tpulbm itself refuses (KBC in 3-D, a 3-D cavity)
@@ -46,9 +49,9 @@ def check_slice(params) -> None:
     three_d = "Queue 1 item 16 (3-D)"
     if params.problem == "cylinder" and params.is_3d:
         raise _not_ported("a 3-D cylinder (nz > 0)", three_d)
-    if (params.problem in ("cylinder3d", "poiseuille") and params.is_3d
-            and params.lattice3d != "d3q19"):
-        raise _not_ported(f"lattice3d={params.lattice3d!r}", three_d)
+    if (params.is_3d and params.lattice3d == "d3q27"
+            and params.obstacle_bc == "bouzidi"):
+        raise _not_ported("the Bouzidi obstacle on D3Q27", three_d)
     if params.problem in periodic2d.PROBLEMS:
         periodic2d.check_2d(params)
     # the cylinders, the channel, the cavity and the duct run every

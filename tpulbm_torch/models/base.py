@@ -55,37 +55,34 @@ class ThermalConfig:
         return (self.tau_g - 0.5) / 3.0
 
 
-_AXES = ("x", "y")
+_AXES = ("x", "y", "z")
 
 
 @dataclasses.dataclass(frozen=True)
 class ForceProfile:
     """A body force that varies along one axis: the port's form of tpulbm's
     Problem.force_fn, which a CUDA kernel cannot trace. `fn` maps the
-    global coordinates along `axis` ("x" or "y"), a 1-D tensor in the
-    state's dtype, to the force's components (Fx, Fy), each a tensor of
-    that shape or a float. Each cell, halo and window cells included,
+    global coordinates along `axis` ("x" or "y" in 2-D, "z" in 3-D:
+    Kolmogorov's F_x(y), 3-D Kolmogorov's F_x(z)), a 1-D tensor in the
+    state's dtype, to the force's components (Fx, Fy[, Fz]), each a tensor
+    of that shape or a float. Each cell, halo and window cells included,
     takes the force at the coordinate of the cell that owns it (taken
     mod the extent), so a shard or an N-step launch adds the bits one
     device adds. Every force_fn of tpulbm depends on one coordinate;
-    a force of several raises, and a force along z is 3-D (item 16)."""
+    a force of several raises."""
     axis: str
     fn: Callable
 
     def __post_init__(self):
-        if self.axis == "z":
-            raise NotImplementedError(
-                "a force along z (3-D Kolmogorov) is not ported to "
-                "tpulbm_torch yet (ROADMAP Queue 1 item 16, 3-D)")
         if self.axis not in _AXES:
             raise NotImplementedError(
                 f"a force varying along {self.axis!r}: the port's forces "
-                "vary along one axis, 'x' or 'y' (the kernels read one "
+                "vary along one axis, 'x', 'y' or 'z' (the kernels read one "
                 "table per coordinate)")
 
     @property
     def index(self) -> int:
-        """The axis as the kernels number it: 0 for x, 1 for y."""
+        """The axis as the kernels number it: 0 for x, 1 for y, 2 for z."""
         return _AXES.index(self.axis)
 
     def table(self, lattice: Lattice, n: int, dtype: torch.dtype,
@@ -124,6 +121,7 @@ class Problem:
     closed_box: bool = False          # no open BCs: the Runner pins the mass
     periodic_x: bool = False
     periodic_y: bool = False          # fully periodic box (walls_y off)
+    periodic_z: bool = False          # the 3-D box: z wraps (walls_z off)
     body_force: tuple[float, ...] = ()  # uniform force, added after collision
     # a force varying along one axis (Kolmogorov), added after the
     # collision and the uniform force's source

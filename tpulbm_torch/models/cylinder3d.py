@@ -1,11 +1,10 @@
-"""3-D flow past a sphere in a duct (D3Q19).
+"""3-D flow past a sphere in a duct (D3Q19, or D3Q27 with lattice3d).
 
 Equilibrium inlet at x = 0, zero-gradient outlet at x = nx-1, bounce-back
 walls in y and z, a voxel sphere, under any collision tpulbm runs in 3-D
 (BGK, TRT, MRT, regularized, Smagorinsky, power law), with the
 equilibrium, the bounce-back or the Bouzidi obstacle and an optional
-uniform body force. Port of tpulbm/models/cylinder3d.py for the D3Q19
-lattice.
+uniform body force. Port of tpulbm/models/cylinder3d.py.
 """
 from __future__ import annotations
 
@@ -13,7 +12,7 @@ import numpy as np
 
 from ..config import SimulationParams
 from ..geometry import sphere_mask
-from ..lattice import D3Q19
+from ..lattice import D3Q19, D3Q27
 from .base import Problem
 
 
@@ -36,7 +35,7 @@ def make_problem(params: SimulationParams) -> Problem:
         raise ValueError("cylinder3d requires nz > 0")
     return Problem(
         params=params,
-        lattice=D3Q19,
+        lattice=D3Q27 if params.lattice3d == "d3q27" else D3Q19,
         solid=sphere_mask(params),
         obstacle_sdf=_sphere_sdf(params),
         init_rho=1.0,

@@ -1,15 +1,17 @@
-"""Fully periodic 2-D boxes: the decaying Taylor-Green vortex, Minion and
-Brown's double shear layer, forced Kolmogorov flow and the passive scalar.
+"""Fully periodic boxes: the decaying Taylor-Green vortex, Minion and
+Brown's double shear layer, forced Kolmogorov flow and the passive scalar
+in 2-D; the 3-D Taylor-Green vortex and 3-D Kolmogorov flow (nz > 0).
 
-Port of tpulbm/models/periodic2d.py, the 2-D branch. Each starts from the
-equilibrium at an analytic (rho, u) field (Problem.init_fields) and runs
-with periodic x and y and no walls: the kernels' box domain wraps both
-axes. Kolmogorov's force F_x(y) = F0·cos(κy), κ = 2π·n/ny, is a
-ForceProfile along y, evaluated per coordinate (no stored field). The
-passive scalar is the D2Q5 thermal scalar with buoyancy 0 and no y walls,
-stirred by a decaying Taylor-Green flow (inlet_velocity > 0) or at rest.
-The 3-D boxes (nz > 0) raise NotImplementedError naming ROADMAP Queue 1
-item 16; the other problems are 2-D only, as in tpulbm.
+Port of tpulbm/models/periodic2d.py. Each starts from the equilibrium at
+an analytic (rho, u) field (Problem.init_fields) and runs with every axis
+periodic and no walls: the kernels' box domain wraps them all.
+Kolmogorov's force F_x(y) = F0·cos(κy), κ = 2π·n/ny, is a ForceProfile
+along y, evaluated per coordinate (no stored field); in 3-D it is
+F_x(z) = F0·cos(κz), κ = 2π·n/nz, a ForceProfile along z, on D3Q19 or
+D3Q27 (lattice3d). The passive scalar is the D2Q5 thermal scalar with
+buoyancy 0 and no y walls, stirred by a decaying Taylor-Green flow
+(inlet_velocity > 0) or at rest. The shear layer and the passive scalar
+are 2-D only, as in tpulbm.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import numpy as np
 import torch
 
 from ..config import SimulationParams
-from ..lattice import D2Q5, D2Q9
+from ..lattice import D2Q5, D2Q9, D3Q19, D3Q27
 from .base import ForceProfile, Problem, ThermalConfig
 
 
@@ -100,24 +102,94 @@ def passive_scalar_T0(params: SimulationParams):
             ) * np.ones((params.ny, 1))
 
 
+def kolmogorov3d_kappa(params: SimulationParams) -> float:
+    """3-D forcing wavenumber κ = 2π·n/nz (the force varies along z)."""
+    return 2.0 * np.pi * params.kolmogorov_n / params.nz
+
+
+def kolmogorov3d_force(params: SimulationParams) -> ForceProfile:
+    """3-D Kolmogorov's F = (F0·cos(κz), 0, 0), F0 = u0·ν·κ² as in 2-D, as
+    a profile along z."""
+    kappa = kolmogorov3d_kappa(params)
+    u0 = params.inlet_velocity or 0.04
+    f0 = u0 * params.nu() * kappa * kappa
+    return ForceProfile("z",
+                        lambda z: (f0 * torch.cos(kappa * z), 0.0, 0.0))
+
+
+def kolmogorov3d_fields(params: SimulationParams, perturb: float = 0.01):
+    """Initial (rho, u): the laminar u_x(z) = u0·cos(κz) plus small
+    deterministic transverse seeds along the other two axes."""
+    nx, ny, nz = params.nx, params.ny, params.nz
+    u0 = params.inlet_velocity or 0.04
+    kappa = kolmogorov3d_kappa(params)
+    z = np.arange(nz, dtype=np.float64)[:, None, None]
+    y = np.arange(ny, dtype=np.float64)[None, :, None]
+    x = np.arange(nx, dtype=np.float64)[None, None, :]
+    ux = u0 * np.cos(kappa * z) * np.ones((1, ny, nx))
+    uy = perturb * u0 * np.sin(2.0 * np.pi * x / nx) * np.ones((nz, ny, 1))
+    uz = perturb * u0 * np.sin(2.0 * np.pi * y / ny) * np.ones((nz, 1, nx))
+    return np.ones((nz, ny, nx)), np.stack([ux, uy, uz])
+
+
+def taylor_green_3d_fields(params: SimulationParams):
+    """The 3-D Taylor-Green vortex, one period per axis:
+    u = u0 (sin x cos y cos z, -cos x sin y cos z, 0) with its pressure."""
+    nx, ny, nz = params.nx, params.ny, params.nz
+    u0 = params.inlet_velocity or 0.04
+    kx, ky, kz = (2 * np.pi / nx, 2 * np.pi / ny, 2 * np.pi / nz)
+    z = np.arange(nz, dtype=np.float64)[:, None, None] * kz
+    y = np.arange(ny, dtype=np.float64)[None, :, None] * ky
+    x = np.arange(nx, dtype=np.float64)[None, None, :] * kx
+    ux = u0 * np.sin(x) * np.cos(y) * np.cos(z)
+    uy = -u0 * np.cos(x) * np.sin(y) * np.cos(z)
+    uz = np.zeros_like(ux)
+    p = (u0 * u0 / 16.0) * (np.cos(2 * x) + np.cos(2 * y)) \
+        * (np.cos(2 * z) + 2.0)
+    rho = 1.0 + 3.0 * p
+    return rho, np.stack([ux, uy, uz])
+
+
 PROBLEMS = ("taylor-green", "shear-layer", "kolmogorov", "passive-scalar")
 
 
 def check_2d(params: SimulationParams) -> None:
-    """Raise for nz > 0: NotImplementedError naming ROADMAP item 16 for
-    the 3-D Taylor-Green and Kolmogorov boxes, tpulbm's ValueError for the
-    problems it runs in 2-D only."""
-    if not params.is_3d:
-        return
-    if params.problem not in ("taylor-green", "kolmogorov"):
+    """tpulbm's ValueError for the problems it runs in 2-D only (nz > 0
+    takes the 3-D boxes: Taylor-Green and Kolmogorov)."""
+    if params.is_3d and params.problem not in ("taylor-green",
+                                               "kolmogorov"):
         raise ValueError(f"{params.problem} is 2-D only")
-    raise NotImplementedError(
-        f"the 3-D periodic box (problem={params.problem!r}, nz > 0) is not "
-        "ported to tpulbm_torch yet (ROADMAP Queue 1 item 16, 3-D)")
+
+
+def _make_problem_3d(params: SimulationParams) -> Problem:
+    """tpulbm's 3-D branch (periodic2d.py:195-215): periodic x, y and z,
+    no walls, D3Q19 or D3Q27."""
+    lat = D3Q27 if params.lattice3d == "d3q27" else D3Q19
+    if params.problem == "kolmogorov":
+        fields, force = kolmogorov3d_fields(params), kolmogorov3d_force(params)
+    else:
+        fields, force = taylor_green_3d_fields(params), None
+    return Problem(
+        params=params, lattice=lat, solid=None,
+        init_rho=1.0, init_u=(0.0, 0.0, 0.0),
+        walls_y=False, walls_z=False,
+        periodic_x=True, periodic_y=True, periodic_z=True,
+        body_force=tuple(params.body_force),
+        force_profile=force,
+        obstacle_bc=params.obstacle_bc,
+        collision=params.collision,
+        smagorinsky=params.smagorinsky,
+        power_law=params.power_law() or (),
+        trt_magic=params.trt_magic,
+        mrt_rates=params.mrt_rates,
+        init_fields=fields,
+    )
 
 
 def make_problem(params: SimulationParams) -> Problem:
     check_2d(params)
+    if params.is_3d:
+        return _make_problem_3d(params)
     force = None
     thermal = init_T = None
     if params.problem == "taylor-green":

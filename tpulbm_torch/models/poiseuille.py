@@ -1,6 +1,6 @@
 """Poiseuille flow driven by a uniform body force: periodic in x, no-slip
 walls in y (2-D channel, D2Q9) or in y and z (3-D rectangular duct,
-D3Q19), under any collision tpulbm runs there.
+D3Q19 or, with lattice3d, D3Q27), under any collision tpulbm runs there.
 
 Port of tpulbm/models/poiseuille.py, with its analytic profiles: the
 parabola, the power-law channel profile and the duct's Fourier series,
@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..config import SimulationParams
-from ..lattice import D2Q9, D3Q19
+from ..lattice import D2Q9, D3Q19, D3Q27
 from .base import Problem
 
 # the force when the parameters set none (tpulbm's default)
@@ -25,7 +25,8 @@ def make_problem(params: SimulationParams) -> Problem:
         force = force + (0.0,) * (3 - len(force))
     return Problem(
         params=params,
-        lattice=D3Q19 if d3 else D2Q9,
+        lattice=((D3Q27 if params.lattice3d == "d3q27" else D3Q19)
+                 if d3 else D2Q9),
         solid=None,
         init_rho=1.0,
         init_u=(0.0,) * (3 if d3 else 2),

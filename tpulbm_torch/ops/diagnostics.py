@@ -1,10 +1,11 @@
-"""On-device diagnostics: macroscopic fields, stability, max velocity, and
-the thermal problems' temperature and Nusselt number (the passive
-scalar's variance).
+"""On-device diagnostics: macroscopic fields, stability, max velocity, the
+thermal problems' temperature and Nusselt number (the passive scalar's
+variance), Reynolds-statistics samples and point probes.
 
-Port of tpulbm/ops/diagnostics.py (fields_fn, stability_fn,
-max_velocity_fn; max |u| takes the bare moments for every problem, as in
-tpulbm). Each *_fn returns a function of the state tensor whose
+Port of tpulbm/ops/diagnostics.py (fields_fn, stats_sample_fn,
+stats_pair_names, stability_fn, max_velocity_fn, probe_cells, probes_fn;
+max |u| takes the bare moments for every problem, as in tpulbm). Each
+*_fn returns a function of the state tensor whose
 result stays on the device until the caller fetches it. The moments are
 taken of f[:lattice.Q]: a thermal state stacks its 5 temperature planes
 under the 9 flow planes, and they must not enter rho.
@@ -43,6 +44,76 @@ def fields_fn(problem: Problem, device, solid=None):
             rho = torch.where(solid, 1.0, rho)
             u = torch.where(solid[None], 0.0, u)
         return rho, u
+
+    return fn
+
+
+def stats_sample_fn(problem: Problem, device, solid=None):
+    """f -> (rho, u, uu): one Reynolds-statistics sample, the fields of
+    fields_fn and the products u_i u_j packed as the upper triangle, row by
+    row (2-D [uu, uv, vv]; 3-D [uu, uv, uw, vv, vw, ww]). The Runner sums
+    them on the device once per output interval (parallel/sharded_step.py's
+    Stats), so a time average costs no extra host round trip."""
+    base = fields_fn(problem, device, solid)
+    d = problem.lattice.D
+    pairs = [(i, j) for i in range(d) for j in range(i, d)]
+
+    def fn(f: torch.Tensor):
+        rho, u = base(f)
+        return rho, u, torch.stack([u[i] * u[j] for i, j in pairs])
+
+    return fn
+
+
+def stats_pair_names(d: int) -> list[str]:
+    """The labels of stats_sample_fn's packed products: "uxux", "uxuy", ..."""
+    ax = "xyz"[:d]
+    return [f"u{ax[i]}u{ax[j]}" for i in range(d) for j in range(i, d)]
+
+
+def probe_cells(problem: Problem) -> tuple:
+    """The ([z,] y, x) cell of each of params.probe_points, given as domain
+    fractions in (x, y[, z]) order (as cylinder_x and cylinder_y): the
+    fraction times the extent, floored, at most the last cell. Raises
+    ValueError for a point of the wrong dimension or outside [0, 1]."""
+    p = problem.params
+    cells = []
+    for pt in p.probe_points:
+        if len(pt) != (3 if p.is_3d else 2):
+            raise ValueError(f"probe point {pt} has wrong dimensionality")
+        if any(not (0.0 <= v <= 1.0) for v in pt):
+            raise ValueError(f"probe point {pt} must be domain fractions "
+                             f"in [0, 1]")
+        x = min(int(pt[0] * p.nx), p.nx - 1)
+        y = min(int(pt[1] * p.ny), p.ny - 1)
+        cells.append((min(int(pt[2] * p.nz), p.nz - 1), y, x) if p.is_3d
+                     else (y, x))
+    return tuple(cells)
+
+
+def probe_values(problem: Problem, col: torch.Tensor) -> torch.Tensor:
+    """[rho, u..., (T)] of one cell's populations `col` (state_q,): the
+    bare moments, the temperature appended for a thermal state."""
+    lat = problem.lattice
+    fcol = col[:lat.Q]
+    rho = torch.sum(fcol)
+    c = torch.as_tensor(lat.c.astype("float64"), dtype=fcol.dtype,
+                        device=fcol.device)
+    parts = [rho[None], (c.T @ fcol) / rho]
+    if problem.thermal is not None:
+        parts.append(torch.sum(col[lat.Q:])[None])
+    return torch.cat(parts)
+
+
+def probes_fn(problem: Problem):
+    """f -> (n_probes, 1 + D [+ 1]) of [rho, u..., (T)] at the probe cells
+    (probe_cells): single-cell indexing, left on the device to ride the
+    diagnostics' round trip to the host (probes.csv)."""
+    cells = probe_cells(problem)
+
+    def fn(f: torch.Tensor) -> torch.Tensor:
+        return torch.stack([probe_values(problem, f[(slice(None),) + idx])
+                            for idx in cells])
 
     return fn
 

@@ -11,18 +11,21 @@ bounce-back and the Bouzidi obstacles and four domains (DOMAINS: the
 cylinder, the periodic channel, the lid-driven cavity, the periodic box);
 the mode's coefficients are computed here on the host, as tpulbm's
 _physics_cfg_fields computes them.
-Port of tpulbm/ops/step_pallas3d.py (D3Q19):
+Port of tpulbm/ops/step_pallas3d.py (D3Q19 and D3Q27):
 * make_local_step_pallas3d and make_local_step_pallas3d_tiled at n_sub=1
   (one step per launch): csrc/step_d3q19.cu;
 * make_local_step_pallas3d_tiled at n_sub 2 and 3 (temporal blocking, N
   steps per launch): csrc/step_d3q19_blocked.cu.
 Both hold every collision of tpulbm's 3-D kernels (COLLISION_MODES_3D: all
-but KBC, which tpulbm runs in 2-D only), the source, the bounce-back and
-the Bouzidi obstacles and two domains (DOMAINS_3D: the sphere in a duct,
-the periodic duct); the mode's coefficients are computed here as tpulbm's
-3-D builders compute them.
-A library is built for one collision, domain, source, force profile and
-obstacle rule (build_defines; the cylinder's BGK library with the
+but KBC, which tpulbm runs in 2-D only; MRT on D3Q19 only, as tpulbm's
+basis), the source, the force profile along z (3-D Kolmogorov), the
+bounce-back obstacle, the Bouzidi obstacle (D3Q19) and three domains
+(DOMAINS_3D: the sphere in a duct, the periodic duct, the fully periodic
+box), on either velocity set (D3Q27: -DTPULBM_Q=27); the mode's
+coefficients are computed here as tpulbm's 3-D builders compute them.
+A library is built for one collision, domain, source, force profile,
+obstacle rule and 3-D velocity set (build_defines; the cylinder's BGK
+library with the
 equilibrium obstacle and no force takes no define and is the one every
 earlier build ran), at its first use. The Bouzidi build (BOUZIDI,
 tpulbm's `bz` mode) takes the link table (ops/bouzidi.link_tables, 9 or
@@ -104,7 +107,8 @@ def rings_replaces(mode: str, depth: int) -> str:
 
 RINGS_DEPTHS = (1,) + BLOCKED_DEPTHS
 # populations per cell -> the state's rank and layout, per kernel lattice
-_STATE_LAYOUT = {9: (3, "(9, ny, nx)"), 19: (4, "(19, nz, ny, nx)")}
+_STATE_LAYOUT = {9: (3, "(9, ny, nx)"), 19: (4, "(19, nz, ny, nx)"),
+                 27: (4, "(27, nz, ny, nx)")}
 # the collisions of the D2Q9 kernels, in the order of d2q9_common.cuh's
 # tpulbm::Collision; step_torch.collision_mode names a problem's
 COLLISION_MODES = ("bgk", "trt", "mrt", "regularized", "kbc", "smagorinsky",
@@ -121,31 +125,39 @@ COLLISION_MODES_3D = tuple(m for m in COLLISION_MODES if m != "kbc")
 # the Poiseuille channel (periodic x, y walls), the lid-driven cavity and
 # the periodic box (periodic x and y: Taylor-Green, the shear layer,
 # Kolmogorov); 3-D the sphere in a duct (equilibrium inlet, zero-gradient
-# outlet, y and z walls, a voxel obstacle) and the Poiseuille duct
-# (periodic x)
+# outlet, y and z walls, a voxel obstacle), the Poiseuille duct (periodic
+# x) and the periodic box (periodic x, y and z: the 3-D Taylor-Green vortex
+# and Kolmogorov flow); index 2, the cavity, is 2-D only
 DOMAINS = ("cylinder", "channel", "cavity", "box")
-DOMAINS_3D = ("sphere", "duct")
+DOMAINS_3D = ("sphere", "duct", None, "box")
 # the bits of a library's variant (collision_modes.cuh's
 # tpulbm_build_variant): the domain's index in DOMAINS or DOMAINS_3D, the
-# body-force source, the bounce-back obstacle and the force profile; 0 is
-# the cylinder's (or the sphere's) library with the equilibrium obstacle
-# and no force
+# body-force source, the bounce-back obstacle, the force profile and the
+# 3-D velocity set; 0 is the cylinder's (or the D3Q19 sphere's) library
+# with the equilibrium obstacle and no force
 DOMAIN_BITS = 3
 SOURCE = 4
 BOUNCE_BACK = 8
 RINGS = 16      # a D2Q9 library built for one shard of a mesh
-FORCE = 32      # the force profile's table (D2Q9)
+FORCE = 32      # the force profile's table (along x or y in 2-D, z in 3-D)
 BOUZIDI = 64    # the Bouzidi obstacle: the link table (ops/bouzidi.py)
+D3Q27 = 128     # a 3-D library of the D3Q27 velocity set (else D3Q19)
 # the bits of a cell's byte in the uint8 mask the kernels read
 # (collision_modes.cuh's kSolidBit, kLinkBit): solid, and under the
 # Bouzidi obstacle at least one cut link
 SOLID_BIT = 1
 LINK_BIT = 4
 MRT_RANK_3D = 10           # d3q19_common.cuh kMrtRank: the ten ghost moments
-_Q3 = 19
-# floats of d3q19_common.cuh's ModeConsts: TRT, MRT's U and V, regularized
-# (1 - 1/tau and the six Pi_ab weights a population), Smagorinsky, power law
-MODE_FLOATS_3D = 2 + 2 * _Q3 * MRT_RANK_3D + (1 + 6 * _Q3) + 3 + 4
+
+
+def mode_floats_3d(q: int) -> int:
+    """The floats of d3q19_common.cuh's ModeConsts for a q-population set:
+    TRT, MRT's U and V (zeros on D3Q27), regularized (1 - 1/tau and the six
+    Pi_ab weights a population), Smagorinsky, power law."""
+    return 2 + 2 * q * MRT_RANK_3D + (1 + 6 * q) + 3 + 4
+
+
+MODE_FLOATS_3D = mode_floats_3d(19)
 
 
 def mode_floats(problem: Problem) -> tuple[float, ...]:
@@ -204,15 +216,17 @@ def mode_floats(problem: Problem) -> tuple[float, ...]:
 
 def kernel_domain(problem: Problem) -> int:
     """The kernels' domain for `problem`'s boundary layout, an index of
-    DOMAINS (D2Q9) or DOMAINS_3D (D3Q19); raises NotImplementedError for a
-    layout no kernel holds."""
+    DOMAINS (D2Q9) or DOMAINS_3D (D3Q19, D3Q27); raises
+    NotImplementedError for a layout no kernel holds."""
     p = problem
     d3 = p.lattice.D == 3
-    walls = p.walls_y and (p.walls_z or not d3) and not p.periodic_y
+    walls = (p.walls_y and (p.walls_z or not d3) and not p.periodic_y
+             and not p.periodic_z)
     inlet, outlet = ((p.inlet_equilibrium, p.outlet_zero_grad) if d3
                      else (p.inlet_zou_he, p.outlet_zou_he))
     obstacle = p.solid is not None and bool(np.any(p.solid))
-    if (not d3 and p.periodic_x and p.periodic_y and not p.walls_y
+    if (p.periodic_x and p.periodic_y and p.periodic_z == d3
+            and not (p.walls_y or p.walls_z)
             and not (inlet or outlet or obstacle or p.walls_x or p.lid_u
                      or p.clean_corners)):
         return 3
@@ -227,12 +241,12 @@ def kernel_domain(problem: Problem) -> int:
     raise NotImplementedError(
         f"no kernel holds the boundary layout of problem "
         f"{p.params.problem!r} (the kernels' domains: {DOMAINS} in 2-D, "
-        f"{DOMAINS_3D} in 3-D)")
+        f"{[d for d in DOMAINS_3D if d]} in 3-D)")
 
 
 def variant_defines(variant: int) -> tuple[str, ...]:
     """nvcc's defines for a library's domain (variant & DOMAIN_BITS),
-    SOURCE, FORCE, BOUNCE_BACK, BOUZIDI and RINGS; () for 0."""
+    SOURCE, FORCE, BOUNCE_BACK, BOUZIDI, RINGS and D3Q27; () for 0."""
     defines = []
     if variant & DOMAIN_BITS:
         defines.append(f"-DTPULBM_DOMAIN={variant & DOMAIN_BITS}")
@@ -246,6 +260,8 @@ def variant_defines(variant: int) -> tuple[str, ...]:
         defines.append("-DTPULBM_BOUZIDI=1")
     if variant & RINGS:
         defines.append("-DTPULBM_RINGS=1")
+    if variant & D3Q27:
+        defines.append("-DTPULBM_Q=27")
     return tuple(defines)
 
 
@@ -262,11 +278,11 @@ class StepConstants:
     (variant_defines); `modes` are the collision's coefficients
     (mode_floats), `src` the body force's source per direction (zeros
     without one), `lid` the moving lid's 6 w_i (c_i·u_lid) for i = 7, 8
-    (the cavity), `force_axis` the force profile's axis (0 x, 1 y; -1
-    without one) and `force_table` its (9, n) source per coordinate
+    (the cavity), `force_axis` the force profile's axis (0 x, 1 y, 2 z;
+    -1 without one) and `force_table` its (Q, n) source per coordinate
     (ForceProfile.table in float32, row by row), which a launch reads from
-    a copy on the state's device. The D3Q19 kernels read inv_tau, eq_in,
-    w, modes and src."""
+    a copy on the state's device. The 3-D kernels read inv_tau, eq_in, w,
+    modes, src and the force table along z."""
     inv_tau: float
     u_in: float
     eq_in: tuple[float, ...]   # frozen ghost equilibrium per direction
@@ -283,8 +299,9 @@ class StepConstants:
     @property
     def library(self) -> str:
         """The library's name in the launch counts: the collision, then the
-        domain, "source", "force", "bounce_back" and "bouzidi" where the
-        build has them, as "mrt+channel+source" or "bgk+bouzidi"."""
+        domain, "source", "force", "bounce_back", "bouzidi" and "d3q27"
+        where the build has them, as "mrt+channel+source", "bgk+bouzidi" or
+        "trt+box+force+d3q27"."""
         domains = DOMAINS if len(self.w) == 9 else DOMAINS_3D
         parts = [self.mode]
         if self.variant & DOMAIN_BITS:
@@ -297,6 +314,8 @@ class StepConstants:
             parts.append("bounce_back")
         if self.variant & BOUZIDI:
             parts.append("bouzidi")
+        if self.variant & D3Q27:
+            parts.append("d3q27")
         return "+".join(parts)
 
     @functools.cached_property
@@ -306,19 +325,21 @@ class StepConstants:
     def force_args(self, device: torch.device,
                    grid: tuple[int, int]) -> tuple[int, int | None]:
         """(force_axis, the table's device pointer or None) as the D2Q9
-        launchers take them for a launch on the global `grid` (ny, nx);
-        the table is copied to `device` once and kept. Raises unless a
-        library built with the profile gets a table of the grid's extent
-        along its axis, and one built without it none."""
+        launchers take them for a launch on the global `grid` (ny, nx), the
+        3-D launchers the pointer alone for (nz, ny, nx); the table is
+        copied to `device` once and kept. Raises unless a library built
+        with the profile gets a table of the grid's extent along its axis,
+        and one built without it none."""
         if bool(self.variant & FORCE) != bool(self.force_table):
             raise ValueError(f"library {self.library} and a force table of "
                              f"{len(self.force_table)} floats")
         if not self.force_table:
             return self.force_axis, None
         n = grid[::-1][self.force_axis]
-        if len(self.force_table) != _Q * n:
+        q = len(self.w)
+        if len(self.force_table) != q * n:
             raise ValueError(f"the force table holds {len(self.force_table)}"
-                             f" floats, not 9 x {n} for the grid {grid}")
+                             f" floats, not {q} x {n} for the grid {grid}")
         table = self._force_tables.get(device)
         if table is None:
             table = torch.tensor(self.force_table, dtype=torch.float32,
@@ -342,7 +363,7 @@ class StepConstants:
     @functools.cached_property
     def d3q19_args(self) -> tuple:
         """inv_tau, eq_in, w, the mode coefficients and the source as the
-        D3Q19 launchers take them, built once."""
+        3-D launchers take them, built once."""
         return (self.inv_tau, _floats(self.eq_in), _floats(self.w),
                 _floats(self.modes), self._src())
 
@@ -357,7 +378,8 @@ class StepConstants:
         variant = (domain | (SOURCE if force else 0)
                    | (BOUNCE_BACK if bounce else 0)
                    | (BOUZIDI if bouzidi else 0)
-                   | (FORCE if prof is not None else 0))
+                   | (FORCE if prof is not None else 0)
+                   | (D3Q27 if lat.Q == 27 else 0))
         force_axis, force_table = -1, ()
         if prof is not None:
             n = problem.spatial_shape[::-1][prof.index]
@@ -387,7 +409,8 @@ class StepConstants:
 def check_inputs(f: torch.Tensor, out: torch.Tensor,
                  solid: torch.Tensor | None, q: int = 9) -> None:
     """Raise unless f and out are distinct contiguous float32 states of a
-    q-population lattice, (9, ny, nx) or (19, nz, ny, nx), and solid (None
+    q-population lattice, (9, ny, nx) or (19 or 27, nz, ny, nx), and solid
+    (None
     for a shard, whose padded mask check_shard checks) a contiguous uint8
     mask of their spatial shape, all on one device."""
     rank, layout = _STATE_LAYOUT[q]
@@ -463,12 +486,24 @@ def _library(mode: str = "bgk", variant: int = 0) -> ctypes.CDLL:
                   _PTR], mode, MODE_FLOATS, variant)
 
 
+def _bind_3d(source: str, fn: str, argtypes: list, mode: str,
+             variant: int) -> ctypes.CDLL:
+    """_bind for a 3-D source, which also raises unless the library holds
+    the velocity set its variant names (tpulbm_lattice_q)."""
+    q = 27 if variant & D3Q27 else 19
+    lib = _bind(source, fn, argtypes, mode, mode_floats_3d(q), variant)
+    lib.tpulbm_lattice_q.restype = _I32
+    if lib.tpulbm_lattice_q() != q:
+        raise RuntimeError(f"{source} built for D3Q{q} holds D3Q"
+                           f"{lib.tpulbm_lattice_q()}")
+    return lib
+
+
 @functools.cache
 def _library_3d(mode: str = "bgk", variant: int = 0) -> ctypes.CDLL:
-    lib = _bind("step_d3q19.cu", "tpulbm_d3q19_step",
-                [_PTR, _PTR, _PTR, _I32, _I32, _I32, _F32, _PTR, _PTR, _PTR,
-                 _PTR, _PTR, _I32, _I32, _PTR], mode, MODE_FLOATS_3D,
-                variant)
+    lib = _bind_3d("step_d3q19.cu", "tpulbm_d3q19_step",
+                   [_PTR, _PTR, _PTR, _I32, _I32, _I32, _F32, _PTR, _PTR,
+                    _PTR, _PTR, _PTR, _PTR, _I32, _I32, _PTR], mode, variant)
     lib.tpulbm_d3q19_smem_bytes.argtypes = []
     lib.tpulbm_d3q19_smem_bytes.restype = _I32
     return lib
@@ -476,10 +511,10 @@ def _library_3d(mode: str = "bgk", variant: int = 0) -> ctypes.CDLL:
 
 @functools.cache
 def _blocked_library_3d(mode: str = "bgk", variant: int = 0) -> ctypes.CDLL:
-    lib = _bind("step_d3q19_blocked.cu", "tpulbm_d3q19_step_blocked",
-                [_PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _F32, _PTR, _PTR,
-                 _PTR, _PTR, _PTR, _I32, _I32, _PTR], mode, MODE_FLOATS_3D,
-                variant)
+    lib = _bind_3d("step_d3q19_blocked.cu", "tpulbm_d3q19_step_blocked",
+                   [_PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _F32, _PTR,
+                    _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _PTR], mode,
+                   variant)
     lib.tpulbm_d3q19_blocked_smem_bytes.argtypes = [_I32]
     lib.tpulbm_d3q19_blocked_smem_bytes.restype = _I32
     return lib
@@ -829,12 +864,12 @@ def collide_stream_3d(f: torch.Tensor, out: torch.Tensor,
                       solid: torch.Tensor, consts: StepConstants,
                       plain=None,
                       links: torch.Tensor | None = None) -> torch.Tensor:
-    """One D3Q19 timestep from f into out; returns out.
+    """One D3Q19 or D3Q27 timestep from f into out; returns out.
 
     On a CUDA tensor: launches the kernel on the current stream (no
     synchronization) and raises if the launch is refused. On a CPU tensor:
     runs `plain` (the plain version's step for the same problem)."""
-    check_inputs(f, out, solid, q=19)
+    check_inputs(f, out, solid, q=len(consts.w))
     if f.device.type == "cpu":
         if plain is None:
             raise ValueError("a CPU tensor needs the plain step")
@@ -844,9 +879,9 @@ def collide_stream_3d(f: torch.Tensor, out: torch.Tensor,
     stream = torch.cuda.current_stream(f.device).cuda_stream
     rc = lib.tpulbm_d3q19_step(
         f.data_ptr(), out.data_ptr(), solid.data_ptr(), nx, ny, nz,
-        *consts.d3q19_args, *link_args(consts, links, (nz, ny, nx), f),
-        f.device.index, stream)
-    _check_launch(lib, rc, f"D3Q19 kernel ({consts.library})")
+        *consts.d3q19_args, consts.force_args(f.device, (nz, ny, nx))[1],
+        *link_args(consts, links, (nz, ny, nx), f), f.device.index, stream)
+    _check_launch(lib, rc, f"3-D kernel ({consts.library})")
     _count(collide_stream_3d, consts.library)
     return out
 
@@ -868,13 +903,14 @@ def collide_stream_3d_blocked(f: torch.Tensor, out: torch.Tensor,
                               n_sub: int, plain=None,
                               links: torch.Tensor | None = None
                               ) -> torch.Tensor:
-    """n_sub D3Q19 timesteps from f into out in one launch; returns out.
+    """n_sub D3Q19 or D3Q27 timesteps from f into out in one launch;
+    returns out.
 
     On a CUDA tensor: launches the N-step kernel on the current stream (no
     synchronization) and raises if the launch is refused. On a CPU tensor:
     runs `plain` (the plain version's step) n_sub times."""
     check_depth_3d(n_sub)
-    check_inputs(f, out, solid, q=19)
+    check_inputs(f, out, solid, q=len(consts.w))
     if f.device.type == "cpu":
         if plain is None:
             raise ValueError("a CPU tensor needs the plain step")
@@ -886,9 +922,9 @@ def collide_stream_3d_blocked(f: torch.Tensor, out: torch.Tensor,
     stream = torch.cuda.current_stream(f.device).cuda_stream
     rc = lib.tpulbm_d3q19_step_blocked(
         f.data_ptr(), out.data_ptr(), solid.data_ptr(), nx, ny, nz, n_sub,
-        *consts.d3q19_args, *link_args(consts, links, (nz, ny, nx), f),
-        f.device.index, stream)
-    _check_launch(lib, rc, f"D3Q19 {n_sub}-step kernel ({consts.library})")
+        *consts.d3q19_args, consts.force_args(f.device, (nz, ny, nx))[1],
+        *link_args(consts, links, (nz, ny, nx), f), f.device.index, stream)
+    _check_launch(lib, rc, f"3-D {n_sub}-step kernel ({consts.library})")
     _count(collide_stream_3d_blocked, consts.library, n_sub)
     return out
 
@@ -916,28 +952,40 @@ def reset_launch_counts() -> None:
 def kernel_constants(problem: Problem, q: int = 9) -> StepConstants:
     """The constants of `problem`'s kernel library; raises for what the
     kernels do not cover: they run the equilibrium, the bounce-back and
-    the Bouzidi obstacles (the last in the obstacle domain), the D2Q9
-    kernels every collision and the force profile,
-    the D3Q19 kernels every collision but KBC, as tpulbm's, in the domains
-    of DOMAINS and DOMAINS_3D."""
-    if problem.lattice.Q != q or problem.thermal is not None \
-            or problem.shan_chen:
+    the Bouzidi obstacles (the last in the obstacle domain, on D2Q9 and
+    D3Q19), the D2Q9 kernels every collision and the force profile along
+    x or y, the 3-D kernels (q 19: D3Q19 or D3Q27) every collision but KBC
+    (and MRT on D3Q27), as tpulbm's, and the force profile along z, in the
+    domains of DOMAINS and DOMAINS_3D."""
+    q3 = q != 9
+    if ((problem.lattice.Q not in (19, 27) if q3
+         else problem.lattice.Q != 9)
+            or problem.thermal is not None or problem.shan_chen):
         takes = ("problems 'cylinder', 'poiseuille', 'cavity', "
                  "'taylor-green', 'shear-layer' and 'kolmogorov' in 2-D"
-                 if q == 9 else "the sphere in a duct (problem "
-                 "'cylinder3d') and the Poiseuille duct (problem "
-                 "'poiseuille', nz > 0)")
+                 if not q3 else "the sphere in a duct (problem "
+                 "'cylinder3d'), the Poiseuille duct (problem 'poiseuille') "
+                 "and the boxes (problems 'taylor-green' and 'kolmogorov') "
+                 "with nz > 0")
         raise NotImplementedError(
-            f"the {'D2Q9' if q == 9 else 'D3Q19'} kernels take {takes}, "
+            f"the {'3-D' if q3 else 'D2Q9'} kernels take {takes}, "
             f"not problem {problem.params.problem!r} on "
             f"{problem.lattice.name}")
     if problem.obstacle_bc not in ("equilibrium", "bounce_back", "bouzidi"):
         raise NotImplementedError(f"the kernels do not hold obstacle_bc="
                                   f"{problem.obstacle_bc!r}")
-    if q == 19 and problem.force_profile is not None:
+    if (problem.lattice.Q == 27 and problem.obstacle_bc == "bouzidi"
+            and problem.solid is not None):
         raise NotImplementedError(
-            "a force profile in the D3Q19 kernels (3-D Kolmogorov) is not "
-            "ported to tpulbm_torch yet (ROADMAP Queue 1 item 16, 3-D)")
+            "the Bouzidi obstacle on D3Q27 is not ported to tpulbm_torch "
+            "yet (ROADMAP Queue 1 item 16, 3-D)")
+    prof = problem.force_profile
+    if prof is not None and (prof.axis == "z") != q3:
+        raise NotImplementedError(
+            f"a force profile along {prof.axis!r} in the "
+            f"{'3-D' if q3 else 'D2Q9'} kernels: they read a table per "
+            f"{'z' if q3 else 'x or y'} (3-D Kolmogorov's force varies "
+            "along z)")
     consts = StepConstants.of(problem)
     if (q == 9 and DOMAINS[consts.variant & DOMAIN_BITS] == "cavity"
             and min(problem.spatial_shape) < 3):
@@ -1012,12 +1060,13 @@ def make_local_step_cuda_blocked(problem: Problem, device, n_sub: int):
 
 
 def make_local_step_cuda_3d(problem: Problem, device):
-    """step(f, out) -> out: one D3Q19 timestep of `problem` through the
-    kernel (CUDA) or its plain version (CPU), on (19, nz, ny, nx) states
-    living on `device`. The counterpart of make_local_step_pallas3d and of
-    make_local_step_pallas3d_tiled at n_sub=1, for the sphere in a duct
-    (y and z walls, equilibrium inlet, zero-gradient outlet) and the
-    periodic duct."""
+    """step(f, out) -> out: one D3Q19 or D3Q27 timestep of `problem`
+    through the kernel (CUDA) or its plain version (CPU), on
+    (Q, nz, ny, nx) states living on `device`. The counterpart of
+    make_local_step_pallas3d and of make_local_step_pallas3d_tiled at
+    n_sub=1, for the sphere in a duct (y and z walls, equilibrium inlet,
+    zero-gradient outlet), the periodic duct and the periodic box (with
+    3-D Kolmogorov's force)."""
     _, consts, solid, plain, links = _kernel_operands_3d(problem, device)
 
     def step(f: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
@@ -1027,11 +1076,11 @@ def make_local_step_cuda_3d(problem: Problem, device):
 
 
 def make_local_step_cuda_3d_blocked(problem: Problem, device, n_sub: int):
-    """step(f, out) -> out: n_sub D3Q19 timesteps of `problem` in one
-    launch of the N-step kernel (CUDA) or n_sub plain steps (CPU). The
+    """step(f, out) -> out: n_sub D3Q19 or D3Q27 timesteps of `problem` in
+    one launch of the N-step kernel (CUDA) or n_sub plain steps (CPU). The
     counterpart of make_local_step_pallas3d_tiled at n_sub 2 and 3, for the
-    sphere in a duct and the periodic duct; other depths raise
-    NotImplementedError."""
+    sphere in a duct, the periodic duct and the periodic box; other depths
+    raise NotImplementedError."""
     check_depth_3d(n_sub)
     _, consts, solid, plain, links = _kernel_operands_3d(problem, device)
 

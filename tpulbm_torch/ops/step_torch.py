@@ -4,10 +4,10 @@ plain version.
 Port of tpulbm/ops/step_jax.py::make_step_rolled with _collide_block's
 collisions, the uniform body force, the force profile (_add_force_field),
 the bounce-back and the Bouzidi obstacles, in 2-D (D2Q9) and 3-D
-(D3Q19). Unpadded state (Q, *spatial); streaming is a per-population
-`torch.roll` (pull scheme) followed by the ghost sanitize at the
-non-periodic edges (x is left to wrap under periodic_x, y under
-periodic_y), then the BC stack.
+(D3Q19, D3Q27). Unpadded state (Q, *spatial); streaming is a
+per-population `torch.roll` (pull scheme) followed by the ghost sanitize
+at the non-periodic edges (x is left to wrap under periodic_x, y under
+periodic_y, z under periodic_z), then the BC stack.
 Runs in f32 and f64.
 
 Step order parity with the reference loop: collision -> streaming ->
@@ -90,7 +90,7 @@ def force_source(problem: Problem, cd: dict, dtype: torch.dtype,
     prof = problem.force_profile
     if prof is None:
         return None
-    name = ("xx", "yy")[prof.index]
+    name = ("xx", "yy", "zz")[prof.index]
     n = cd["n" + name[0]]
     table = prof.table(problem.lattice, n, dtype, device)
     coord = cd[name]
@@ -124,7 +124,8 @@ def make_step_rolled(problem: Problem, device, cd: dict | None = None
     buffers); pulls whose source leaves the y range, or the z range in 3-D,
     read the frozen initial equilibrium, and so do the corner ghosts (a
     diagonal pull at a wall that crosses a corner). Under periodic_x the x
-    pulls wrap.
+    pulls wrap, under periodic_y the y pulls, under periodic_z the z
+    pulls.
 
     cd: the coordinate dict of a block other than the whole grid (as
     `coords` gives it, its 'yy' and 'xx' the block's global coordinates;
@@ -155,7 +156,7 @@ def make_step_rolled(problem: Problem, device, cd: dict | None = None
                  else leaves(xx, cd["nx"], int(c[i, 0])))
         y_out = (None if problem.periodic_y
                  else leaves(yy, cd["ny"], int(c[i, 1])))
-        if ndim == 3:
+        if ndim == 3 and not problem.periodic_z:
             y_out = either(y_out, leaves(cd["zz"], cd["nz"], int(c[i, 2])))
         only_x = None
         if x_out is not None:

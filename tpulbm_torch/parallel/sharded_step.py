@@ -56,9 +56,9 @@ def check_mesh_problem(problem: Problem, mesh: Mesh) -> None:
         return
     if problem.lattice.D == 3:
         raise NotImplementedError(
-            f"a 3-D problem on mesh {mesh.shape} is not ported to "
-            "tpulbm_torch yet (ROADMAP Queue 1 item 19, several devices: 3-D "
-            "meshes)")
+            f"a 3-D problem (the 3-D boxes and their z force among them) on "
+            f"mesh {mesh.shape} is not ported to tpulbm_torch yet (ROADMAP "
+            "Queue 1 item 19, several devices: 3-D meshes)")
     if problem.thermal is not None or problem.shan_chen:
         raise NotImplementedError(
             f"the {'thermal' if problem.thermal else 'multiphase'} step on "
@@ -410,9 +410,10 @@ class Diagnostics:
     upstream node of a link, which may lie on a neighbour: each shard's
     force takes its block with a one-cell ring (halo.pad_block) and its
     cut of the link table padded the same way, and sums the links of its
-    own cells. On a (1,1) mesh every result is the
-    one-device function's, bit for bit; the Nusselt number needs the
-    whole thermal state, which only a (1,1) mesh holds
+    own cells. A probe reads its cell on the shard that owns it; a
+    statistics sample is cell-local, one per shard. On a (1,1) mesh every
+    result is the one-device function's, bit for bit; the Nusselt number
+    needs the whole thermal state, which only a (1,1) mesh holds
     (check_mesh_problem)."""
 
     def __init__(self, problem: Problem, mesh: Mesh):
@@ -448,7 +449,14 @@ class Diagnostics:
                                              dtype=torch.float64)
             self._fns[iy, ix] = (
                 force, diagnostics.max_velocity_fn(problem, dev, solid),
-                diagnostics.fields_fn(problem, dev, solid))
+                diagnostics.fields_fn(problem, dev, solid),
+                diagnostics.stats_sample_fn(problem, dev, solid))
+        # each probe's shard and its cell there
+        nyl, nxl = mesh.local_shape(problem.spatial_shape[-2:])
+        self._probes = [((y // nyl, x // nxl),
+                         idx[:-2] + (y % nyl, x % nxl))
+                        for idx in diagnostics.probe_cells(problem)
+                        for y, x in [idx[-2:]]]
         thermal = problem.thermal is not None
         self._nusselt = diagnostics.nusselt_fn(problem) if thermal else None
         self._temp = diagnostics.temperature_fn(problem) if thermal else None
@@ -496,14 +504,32 @@ class Diagnostics:
         (f,), = shards
         return self._nusselt(f)
 
+    def probes(self, shards: Grid) -> torch.Tensor:
+        """(n_probes, 1 + D [+ 1]) of [rho, u..., (T)] at the probe cells
+        (diagnostics.probe_cells), each from the shard that owns it, on the
+        first device."""
+        return torch.stack([
+            diagnostics.probe_values(
+                self.problem, shards[iy][ix][(slice(None),) + local]
+            ).to(self.device)
+            for (iy, ix), local in self._probes])
+
+    def stats_samples(self, shards: Grid) -> list:
+        """One Reynolds-statistics sample (rho, u, uu) per shard, row by
+        row (diagnostics.stats_sample_fn on each shard's block)."""
+        return self._per_shard(3, shards)
+
     def sample(self, shards: Grid) -> torch.Tensor:
-        """[fx, fy, max |u|, stable] (and Nu for a thermal problem) as one
-        tensor on the first device: one host fetch."""
+        """[fx, fy, max |u|, stable] (then Nu for a thermal problem and the
+        probes' values, row by row) as one tensor on the first device: one
+        host fetch."""
         force = self.force(shards)[:2]
         parts = [force, self.max_velocity(shards)[None],
                  self.stable(shards)[None].to(force.dtype)]
         if self._nusselt is not None:
             parts.append(self.nusselt(shards)[None])
+        if self._probes:
+            parts.append(self.probes(shards).reshape(-1).to(force.dtype))
         return torch.cat(parts)
 
     def fields(self, shards: Grid):
@@ -526,20 +552,24 @@ class Diagnostics:
 def make_super_chunk_fn(problem: Problem, mesh: Mesh, interval_len: int,
                         n_intervals: int, backend: str = "pallas",
                         with_fields: bool = False):
-    """fn(shards) -> (shards', diags): stepper.make_super_chunk_fn on a
-    mesh (that function itself where the chunk is the one-device one).
-    diags is ONE flat tensor on the first shard's device, in
-    stepper.super_layout's layout; fn.unpack splits it into forces (K, 2),
-    max_vel (K,), stable (K,) and, with with_fields, rho (K, ny, nx) and
-    u (K, 2, ny, nx), each taken at an interval's starting state."""
+    """fn(shards, sample=None) -> (shards', diags):
+    stepper.make_super_chunk_fn on a mesh (that function itself where the
+    chunk is the one-device one). diags is ONE flat tensor on the first
+    shard's device, in stepper.super_layout's layout; fn.unpack splits it
+    into forces (K, 2), max_vel (K,), stable (K,), with probe points
+    probes (K, n_probes, 1 + D) and, with with_fields, rho (K, ny, nx) and
+    u (K, 2, ny, nx), each taken at an interval's starting state.
+    sample(j, shards), if given, sees the starting state of interval j
+    (the Runner's statistics: Stats.sampler)."""
     chunk = make_chunk_fn(problem, mesh, interval_len, backend=backend)
     if chunk.mode == "one-device":
         one = stepper.make_super_chunk_fn(
             problem, mesh.device(0, 0), interval_len, n_intervals,
             backend=backend, with_fields=with_fields)
 
-        def fn_one(shards: Grid):
-            f, flat = one(shards[0][0])
+        def fn_one(shards: Grid, sample=None):
+            f, flat = one(shards[0][0], None if sample is None else
+                          (lambda j, f: sample(j, [[f]])))
             return [[f]], flat
 
         fn_one.unpack = one.unpack
@@ -547,14 +577,18 @@ def make_super_chunk_fn(problem: Problem, mesh: Mesh, interval_len: int,
     diag = Diagnostics(problem, mesh)
     size, unpack = stepper.super_layout(problem, n_intervals, with_fields)
 
-    def fn(shards: Grid):
+    def fn(shards: Grid, sample=None):
         flat = torch.empty(size, dtype=shards[0][0].dtype,
                            device=diag.device)
         views = unpack(flat)
         for j in range(n_intervals):
+            if sample is not None:
+                sample(j, shards)
             views["forces"][j] = diag.force(shards)[:2]
             views["max_vel"][j] = diag.max_velocity(shards)
             views["stable"][j] = diag.stable(shards)
+            if "probes" in views:
+                views["probes"][j] = diag.probes(shards)
             if with_fields:
                 views["rho"][j], views["u"][j] = diag.fields(shards)
             shards = chunk(shards)
@@ -562,3 +596,90 @@ def make_super_chunk_fn(problem: Problem, mesh: Mesh, interval_len: int,
 
     fn.unpack = unpack
     return fn
+
+
+class Stats:
+    """The Reynolds-statistics accumulators of a run (tpulbm's
+    (count, s_rho, s_u, s_uu)): `count` a 0-d tensor in the state's dtype
+    on the first shard's device, the sums s_rho (*block), s_u
+    (D, *block), s_uu (D(D+1)/2, *block) a grid of blocks, each on its
+    shard's device, so a sample is cell-local and a mesh sums the bits one
+    device sums. `first` is the first sampled step (None before any).
+
+    tpulbm adds w·x with a weight w of 0 or 1 (0 for the intervals of a
+    window before stats_from); s + 1·x is s + x and s + 0·x is s, so
+    add() adds x and a skipped interval adds nothing."""
+
+    NAMES = ("s_rho", "s_u", "s_uu")
+
+    def __init__(self, diag: Diagnostics, dtype: torch.dtype,
+                 saved: dict | None = None):
+        self.diag = diag
+        problem, mesh = diag.problem, diag.mesh
+        d = problem.lattice.D
+        shape = problem.spatial_shape
+        local = shape[:-2] + mesh.local_shape(shape[-2:])
+        self.first = None
+        if saved is None:
+            self.count = torch.zeros((), dtype=dtype, device=diag.device)
+            self.sums = {name: [[torch.zeros(lead + local, dtype=dtype,
+                                             device=mesh.device(iy, ix))
+                                 for ix in range(mesh.shape[1])]
+                                for iy in range(mesh.shape[0])]
+                         for name, lead in zip(self.NAMES, (
+                             (), (d,), (d * (d + 1) // 2,)))}
+            return
+        self.count = torch.tensor(float(np.asarray(saved["count"])),
+                                  dtype=dtype, device=diag.device)
+        first = int(np.asarray(saved.get("first", -1)))
+        self.first = None if first < 0 else first
+        # a single .npz holds global arrays, a per-shard directory a grid
+        self.sums = {name: [[torch.as_tensor(b).to(mesh.device(iy, ix),
+                                                   dtype=dtype)
+                             for ix, b in enumerate(row)]
+                            for iy, row in enumerate(saved[name])]
+                     if isinstance(saved[name], list)
+                     else split(mesh, saved[name], dtype=dtype)
+                     for name in self.NAMES}
+
+    def add(self, shards: Grid) -> None:
+        """One sample of the state `shards`."""
+        blocks = self.diag.stats_samples(shards)
+        mx = self.diag.mesh.shape[1]
+        for k, sample in enumerate(blocks):
+            iy, ix = divmod(k, mx)
+            for name, x in zip(self.NAMES, sample):
+                grid = self.sums[name]
+                grid[iy][ix] = grid[iy][ix] + x
+        self.count = self.count + 1.0
+
+    def sampler(self, t: int, freq: int, skip: int):
+        """sample(j, shards) for a super-chunk window that starts at step
+        t: a sample at each interval j >= skip, its first step noted."""
+        def sample(j: int, shards: Grid) -> None:
+            if j >= skip:
+                if self.first is None:
+                    self.first = t + j * freq
+                self.add(shards)
+        return sample
+
+    def means(self):
+        """(mean rho, mean u, Reynolds stresses <u_i u_j> - <u_i><u_j> in
+        stats_sample_fn's packing), computed on each shard's device and
+        gathered on the first: tpulbm's _write_stats arithmetic."""
+        d = self.diag.problem.lattice.D
+        pairs = [(i, j) for i in range(d) for j in range(i, d)]
+        out = ([], [], [])
+        for s_rho, s_u, s_uu in zip(*(
+                [b for row in self.sums[name] for b in row]
+                for name in self.NAMES)):
+            cnt = self.count.to(s_rho.device)
+            mu = s_u / cnt
+            out[0].append(s_rho / cnt)
+            out[1].append(mu)
+            out[2].append(s_uu / cnt - torch.stack(
+                [mu[i] * mu[j] for i, j in pairs]))
+        mx = self.diag.mesh.shape[1]
+        return tuple(gather([parts[i:i + mx]
+                             for i in range(0, len(parts), mx)],
+                            self.diag.device) for parts in out)

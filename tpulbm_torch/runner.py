@@ -1,6 +1,7 @@
 """Run orchestration: banners, chunked time stepping, force and Nusselt
-(or scalar variance) recording, diagnostics, VTK frames, the stability
-abort and the final artifacts, on one device or on a mesh of shards.
+(or scalar variance) recording, point probes, Reynolds statistics,
+diagnostics, VTK frames, the stability abort and the final artifacts, on
+one device or on a mesh of shards.
 
 Port of tpulbm/runner.py. Cadence parity with the
 reference loop: forces (problems with an obstacle) and the Nusselt number
@@ -10,12 +11,18 @@ and VTK frames happen at those t > 0. These diagnostics stay on the device
 until the host fetches them: _SUPER_K output intervals per fetch on the
 fast path (parallel/sharded_step.make_super_chunk_fn, stepper's on one
 device), one per interval on the tail.
+Probes (params.probe_points) ride the same fetch (probes.csv). Reynolds
+statistics (params.stats_from >= 0) are summed on the device, one sample
+per output interval from stats_from on, inside the super-chunk as
+tpulbm's fn_stats sums them (parallel/sharded_step.Stats), and written
+once at the end (stats_fields.npz).
 NaN/Inf persist under LBM arithmetic, so a check per interval aborts as
 surely as one per step. Checkpoints are tpulbm's single-.npz format,
-written at chunk boundaries and resumed by run(resume=True); a mesh of
-several shards (params.mesh_shape, parallel/) writes tpulbm's per-shard
-directories and resumes either kind, and its artifacts are gathered to the
-host once per write, the counterpart of tpulbm's rank-0 I/O.
+written at chunk boundaries and resumed by run(resume=True), the
+statistics' accumulators with them; a mesh of several shards
+(params.mesh_shape, parallel/) writes tpulbm's per-shard directories and
+resumes either kind, and its artifacts are gathered to the host once per
+write, the counterpart of tpulbm's rank-0 I/O.
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ from .geometry import solid_cell_count
 from .models import make_problem
 from .models.base import Problem
 from .models.rayleigh_benard import effective_height
+from .ops import diagnostics
 from .ops import forces as forces_mod
 from .parallel import sharded_step
 from .parallel.mesh import Mesh, make_mesh, visible_devices
@@ -61,10 +69,6 @@ def check_runner_slice(params: SimulationParams) -> None:
         raise NotImplementedError(
             "the CUDA kernel (--backend pallas) runs float32 only, as "
             "tpulbm's Pallas kernels do; use --backend jax for f64")
-    if params.stats_from >= 0 or params.probe_points:
-        raise NotImplementedError(
-            "statistics and probes are not ported to tpulbm_torch yet "
-            "(ROADMAP Queue 1 item 15)")
 
 
 def runner_mesh(params: SimulationParams, device="cuda",
@@ -213,37 +217,95 @@ class Runner:
         while len(self._io_futures) > self._max_pending:
             self._io_futures.pop(0).result()
 
-    def _save_ckpt(self, ckpt_dir: str, t: int, f) -> None:
+    def _save_ckpt(self, ckpt_dir: str, t: int, f, stats=None) -> None:
         """tpulbm's checkpoint: one .npz of the state on one device, a
-        per-shard directory on a mesh of several (tpulbm/runner.py:228-241)."""
+        per-shard directory on a mesh of several (tpulbm/runner.py:226-254),
+        the statistics' accumulators beside the state."""
+        first = -1 if stats is None or stats.first is None else stats.first
         if self.mesh.size > 1:
+            sums = scalars = None
+            if stats is not None:
+                sums = {name: [[self._fetch(b) for b in row] for row in grid]
+                        for name, grid in stats.sums.items()}
+                scalars = {"count": float(self._fetch(stats.count)),
+                           "first": first}
             ckpt.save_sharded(ckpt_dir, t, [[self._fetch(b) for b in row]
-                                            for row in f], self.params)
+                                            for row in f], self.params,
+                              stats=sums, stats_scalars=scalars)
         else:
-            ckpt.save(ckpt_dir, t, self._fetch(f[0][0]), self.params)
+            host = None
+            if stats is not None:
+                host = {"count": self._fetch(stats.count),
+                        "first": np.int64(first),
+                        **{name: self._fetch(grid[0][0])
+                           for name, grid in stats.sums.items()}}
+            ckpt.save(ckpt_dir, t, self._fetch(f[0][0]), self.params,
+                      stats=host)
 
     def _resume_point(self):
-        """(start step, state or None) from the newest checkpoint in the
-        run's checkpoint directory (tpulbm/runner.py:264-337): a single
-        .npz (a host state, sharded on a mesh) or a per-shard directory
-        (host blocks, read on a mesh whose blocks line up with the saved
-        ones, as tpulbm reads it)."""
+        """(start step, state or None, statistics or None) from the newest
+        checkpoint in the run's checkpoint directory
+        (tpulbm/runner.py:264-373): a single .npz (a host state, sharded on
+        a mesh) or a per-shard directory (host blocks, read on a mesh whose
+        blocks line up with the saved ones, as tpulbm reads it), each with
+        the statistics' accumulators it holds."""
         p = self.params
         latest = ckpt.latest(os.path.join(p.output_dir, p.checkpoint_dir))
         if latest is None:
-            return 0, None
+            return 0, None, None
         try:
             if os.path.isdir(latest):
-                start_step, f0 = ckpt.load_sharded(latest, self.mesh.shape,
-                                                   p)
+                start_step, f0, stats = ckpt.load_sharded(
+                    latest, self.mesh.shape, p, extras=True)
             else:
-                start_step, f0 = ckpt.load(latest, p)
+                start_step, f0, stats = ckpt.load(latest, p, extras=True)
         except (OSError, KeyError, ValueError) as e:
             raise RuntimeError(f"checkpoint load failed ({type(e).__name__}: "
                                f"{e})") from e
         if self.verbose:
             print(f"  Resuming from {latest} at step {start_step}")
-        return start_step, f0
+        return start_step, f0, stats
+
+    def _stats(self, start_step: int, saved: dict | None):
+        """The statistics' accumulators of a run with stats_from >= 0 (None
+        otherwise): those of the checkpoint resumed from, where it holds
+        them, else zeros (tpulbm/runner.py:341-373)."""
+        p = self.params
+        if p.stats_from < 0:
+            return None
+        dtype = torch.float64 if self.problem.dtype == np.float64 \
+            else torch.float32
+        if saved is not None and "s_rho" in saved:
+            stats = sharded_step.Stats(self._diagnostics, dtype, saved)
+            if self.verbose:
+                print(f"  Resuming statistics accumulation "
+                      f"({int(float(np.asarray(saved['count'])))} samples "
+                      f"so far)")
+            return stats
+        if start_step > p.stats_from and self.verbose:
+            print(f"  NOTE: resuming at step {start_step} with no saved "
+                  f"statistics accumulators (pre-statistics checkpoint); "
+                  f"accumulation starts fresh here")
+        return sharded_step.Stats(self._diagnostics, dtype)
+
+    def _write_stats(self, stats) -> None:
+        """stats_fields.npz: the means and stresses computed on the device
+        from the sums, fetched once (tpulbm/runner.py:605-634)."""
+        p = self.params
+        n = float(self._fetch(stats.count))
+        if n < 1:
+            if self.verbose:
+                print("Reynolds statistics: no samples taken "
+                      "(stats_from past the sampled window); skipping")
+            return
+        mrho, mu, re = (self._fetch(x) for x in stats.means())
+        path = io_mod.write_stats_fields(
+            mrho, mu, re, diagnostics.stats_pair_names(
+                self.problem.lattice.D), int(n),
+            stats.first if stats.first is not None else -1,
+            p.output_frequency, p.output_dir)
+        if self.verbose:
+            print(f"Reynolds statistics: {int(n)} samples -> {path}")
 
     def _initial(self, f0):
         """The run's device state, the mesh's grid of blocks, from a host
@@ -271,10 +333,12 @@ class Runner:
         self._print_banner()
         t0_wall = time.perf_counter()
         self._host_fetches = 0
-        start_step, f0 = (self._resume_point()
-                          if resume and p.checkpoint_every else (0, None))
+        start_step, f0, stats_saved = (self._resume_point()
+                                       if resume and p.checkpoint_every
+                                       else (0, None, None))
         f = self._initial(f0)
-        force_writer = forces_path = nu_writer = None
+        stats = self._stats(start_step, stats_saved)
+        force_writer = forces_path = nu_writer = probe_writer = None
         if problem.solid is not None:
             forces_path = os.path.join(p.output_dir, "forces.csv")
             force_writer = io_mod.ForceWriter(
@@ -288,6 +352,13 @@ class Runner:
                 os.path.join(p.output_dir, "nusselt.csv" if problem.walls_y
                              else "scalar_variance.csv"),
                 append=start_step > 0, resume_step=start_step, **trace)
+        probe_slot = 4 + (problem.thermal is not None)
+        n_probes = len(p.probe_points)
+        if n_probes:
+            probe_writer = io_mod.ProbeWriter(
+                os.path.join(p.output_dir, "probes.csv"), n_probes=n_probes,
+                ndim=problem.lattice.D, thermal=problem.thermal is not None,
+                append=start_step > 0, resume_step=start_step)
         meter = ThroughputMeter(p.num_cells, self.device)
         if self.verbose:
             print("Starting LBM simulation...")
@@ -319,7 +390,14 @@ class Runner:
                                   >= p.vtk_start_step)
                     if t % freq == 0 and t + _SUPER_K * freq <= t_fields:
                         fn = self._super_fn(vtk_window)
-                        f, flat = fn(f)
+                        sample = None
+                        if stats is not None:
+                            # skip the window's intervals before
+                            # stats_from (tpulbm's j_skip)
+                            skip = min(max(0, -((t - p.stats_from) // freq)),
+                                       _SUPER_K)
+                            sample = stats.sampler(t, freq, skip)
+                        f, flat = fn(f, sample)
                         f = self._renorm(f)
                         d = fn.unpack(self._fetch(flat))
                         aborted = False
@@ -334,6 +412,8 @@ class Runner:
                             if nu_writer is not None:
                                 nu_writer.record(tj,
                                                  float(d["nusselt"][j]))
+                            if probe_writer is not None:
+                                probe_writer.record(tj, d["probes"][j])
                             if tj > 0 and self.verbose:
                                 print(f"Timestep {tj}: "
                                       f"max_vel={float(d['max_vel'][j]):.6f}")
@@ -354,12 +434,16 @@ class Runner:
                         chunks_done += _SUPER_K
                         if (p.checkpoint_every and
                                 chunks_done - last_ckpt >= p.checkpoint_every):
-                            self._save_ckpt(ckpt_dir, t, f)
+                            self._save_ckpt(ckpt_dir, t, f, stats)
                             last_ckpt = chunks_done
                         continue
 
                     # the tail: one diagnostics fetch per output interval
                     if t % freq == 0:
+                        if stats is not None and t >= p.stats_from:
+                            stats.add(f)
+                            if stats.first is None:
+                                stats.first = t
                         dv = self._diag(f)
                         fx, fy, mv, stable = dv[:4]
                         if force_writer is not None:
@@ -369,6 +453,9 @@ class Runner:
                                                 cl)
                         if nu_writer is not None:
                             nu_writer.record(t, float(dv[4]))
+                        if probe_writer is not None:
+                            probe_writer.record(t, dv[probe_slot:].reshape(
+                                n_probes, -1))
                         if t > 0:
                             if self.verbose:
                                 print(f"Timestep {t}: max_vel={float(mv):.6f}")
@@ -391,7 +478,7 @@ class Runner:
                     chunks_done += 1
                     if (p.checkpoint_every and
                             chunks_done - last_ckpt >= p.checkpoint_every):
-                        self._save_ckpt(ckpt_dir, t, f)
+                        self._save_ckpt(ckpt_dir, t, f, stats)
                         last_ckpt = chunks_done
 
                 # final fence + stability check of the end state
@@ -399,7 +486,7 @@ class Runner:
                     print(f"Simulation unstable at timestep {t}")
                     success = False
         finally:
-            for writer in (force_writer, nu_writer):
+            for writer in (force_writer, nu_writer, probe_writer):
                 if writer is not None:
                     writer.close()
             try:
@@ -408,6 +495,8 @@ class Runner:
                 self._io_pool.shutdown()
                 self._io_pool = None
         fetches = self._host_fetches
+        if success and stats is not None:
+            self._write_stats(stats)
 
         stats = self.write_final_results(f, fields_prev) if success else None
         wall = time.perf_counter() - t0_wall

@@ -170,18 +170,22 @@ def make_chunk_fn(problem: Problem, device, chunk_len: int,
 def make_super_chunk_fn(problem: Problem, device, interval_len: int,
                         n_intervals: int, backend: str = "pallas",
                         with_fields: bool = False):
-    """fn(f) -> (f', diags): n_intervals chunks of interval_len steps with
-    the per-interval diagnostics left on the device, so a caller fetches
-    n_intervals output intervals with one device-to-host copy.
+    """fn(f, sample=None) -> (f', diags): n_intervals chunks of
+    interval_len steps with the per-interval diagnostics left on the
+    device, so a caller fetches n_intervals output intervals with one
+    device-to-host copy.
 
     diags is ONE flat device tensor in f's dtype; fn.unpack(diags) splits it
     (or a host copy of it) into forces (K, 2) (fx and fy, what forces.csv
     records; zeros without an obstacle), max_vel (K,), stable (K,) (1 or 0),
-    for thermal problems nusselt (K,), and, with with_fields, rho
-    (K, *spatial), u (K, D, *spatial) and, thermal, temp (K, *spatial):
-    each taken at an interval's starting state, the reference's output
-    cadence. Port of sharded_step.make_super_chunk_fn without with_stats;
-    the Nusselt number rides the same round trip as there.
+    for thermal problems nusselt (K,), with params.probe_points probes
+    (K, n_probes, 1 + D [+ 1]) and, with with_fields, rho (K, *spatial),
+    u (K, D, *spatial) and, thermal, temp (K, *spatial): each taken at an
+    interval's starting state, the reference's output cadence.
+    sample(j, f), if given, sees the starting state of interval j before
+    it is stepped (the Runner's Reynolds statistics, tpulbm's fn_stats).
+    Port of sharded_step.make_super_chunk_fn; the Nusselt number and the
+    probes ride the same round trip as there.
     """
     chunk = make_chunk_fn(problem, device, interval_len, backend=backend)
     force = (forces_mod.forces_fn(problem, device)
@@ -193,13 +197,17 @@ def make_super_chunk_fn(problem: Problem, device, interval_len: int,
     nusselt = diagnostics.nusselt_fn(problem) if thermal else None
     temp = (diagnostics.temperature_fn(problem)
             if thermal and with_fields else None)
+    probes = (diagnostics.probes_fn(problem)
+              if problem.params.probe_points else None)
     size, unpack = super_layout(problem, n_intervals, with_fields)
     k = n_intervals
 
-    def fn(f: torch.Tensor):
+    def fn(f: torch.Tensor, sample=None):
         flat = torch.empty(size, dtype=f.dtype, device=f.device)
         views = unpack(flat)
         for j in range(k):
+            if sample is not None:
+                sample(j, f)
             if force is None:
                 views["forces"][j] = 0.0
             else:
@@ -208,6 +216,8 @@ def make_super_chunk_fn(problem: Problem, device, interval_len: int,
             views["stable"][j] = stable(f)
             if nusselt is not None:
                 views["nusselt"][j] = nusselt(f)
+            if probes is not None:
+                views["probes"][j] = probes(f)
             if fields is not None:
                 views["rho"][j], views["u"][j] = fields(f)
             if temp is not None:
@@ -222,13 +232,16 @@ def make_super_chunk_fn(problem: Problem, device, interval_len: int,
 def super_layout(problem: Problem, k: int, with_fields: bool):
     """(size, unpack) of a super-chunk's flat diagnostics tensor for k
     intervals: per interval fx, fy, max |u|, stable (and Nu for a thermal
-    problem), then, with with_fields, rho, u (and temp) of every
-    interval; unpack(flat) gives the views by name."""
+    problem, then each probe's values), then, with with_fields, rho, u
+    (and temp) of every interval; unpack(flat) gives the views by name."""
     spatial = tuple(problem.spatial_shape)
     dims = problem.lattice.D
     cells = math.prod(spatial)
     thermal = problem.thermal is not None
-    per = 5 if thermal else 4            # fx, fy, max |u|, stable[, Nu]
+    n_probes = len(problem.params.probe_points)
+    width = 1 + dims + (1 if thermal else 0)   # rho, u[, T] a probe
+    base = 5 if thermal else 4           # fx, fy, max |u|, stable[, Nu]
+    per = base + n_probes * width
     n_scalar = per * k
     n_fields = (1 + dims + (1 if thermal else 0)) * k * cells
     size = n_scalar + (n_fields if with_fields else 0)
@@ -239,6 +252,8 @@ def super_layout(problem: Problem, k: int, with_fields: bool):
                "stable": scalars[:, 3]}
         if thermal:
             out["nusselt"] = scalars[:, 4]
+        if n_probes:
+            out["probes"] = scalars[:, base:].reshape(k, n_probes, width)
         if with_fields:
             at = n_scalar
             out["rho"] = flat[at:at + k * cells].reshape((k,) + spatial)

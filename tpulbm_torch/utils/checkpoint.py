@@ -10,6 +10,12 @@ holds proc_00000.npz, one array per shard under "shard_0_<y0>_<x0>" (the
 offsets of its block on each axis), and manifest.json, written last, whose
 presence publishes the checkpoint. One process drives every shard, so it
 writes the one file tpulbm's process 0 writes for a one-host run.
+Both formats carry a run's Reynolds-statistics accumulators, as tpulbm's
+do: the single .npz under stats_count, stats_first, stats_s_rho,
+stats_s_u and stats_s_uu; the directory each sum's blocks under
+"<name>|<shard key>" beside the state's, their layout under the
+manifest's "stats" and the count and first step under its
+"stats_scalars".
 """
 from __future__ import annotations
 
@@ -41,14 +47,18 @@ _RUNTIME_FIELDS = frozenset({
 
 
 def save(ckpt_dir: str, step: int, f: np.ndarray,
-         params: SimulationParams, keep: int = 3) -> str:
-    """Write ckpt_<step>.npz atomically and keep the newest `keep`."""
+         params: SimulationParams, keep: int = 3,
+         stats: dict | None = None) -> str:
+    """Write ckpt_<step>.npz atomically and keep the newest `keep`.
+    stats: the statistics accumulators as host arrays (count, first,
+    s_rho, s_u, s_uu), stored under stats_* keys."""
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"ckpt_{step:09d}.npz")
     tmp = path + ".tmp"
+    extra = {f"stats_{k}": np.asarray(v) for k, v in (stats or {}).items()}
     with open(tmp, "wb") as fh:
         np.savez(fh, f=np.asarray(f), step=np.int64(step),
-                 params_json=np.bytes_(params.to_json().encode()))
+                 params_json=np.bytes_(params.to_json().encode()), **extra)
     os.replace(tmp, path)  # atomic publish
     for old in sorted(glob.glob(os.path.join(ckpt_dir, "ckpt_*.npz")))[:-keep]:
         os.remove(old)
@@ -80,16 +90,21 @@ def _check_params(path: str, saved: SimulationParams,
                 f"{saved_d[field]!r}, run has {run_d[field]!r}")
 
 
-def load(path: str, params: SimulationParams | None = None):
-    """(step, f) from a single-.npz checkpoint; with `params`, raises
-    ValueError if it was written with other physics."""
+def load(path: str, params: SimulationParams | None = None,
+         extras: bool = False):
+    """(step, f) from a single-.npz checkpoint, or (step, f, stats) with
+    `extras` (the statistics accumulators by name, without the stats_
+    prefix, or None); with `params`, raises ValueError if it was written
+    with other physics."""
     with np.load(path) as data:
         f = data["f"]
         step = int(data["step"])
         saved = SimulationParams.from_json(bytes(data["params_json"]).decode())
+        stats = {k[len("stats_"):]: data[k] for k in data.files
+                 if k.startswith("stats_")} or None
     if params is not None:
         _check_params(path, saved, params)
-    return step, f
+    return (step, f, stats) if extras else (step, f)
 
 
 def _shard_key(offsets) -> str:
@@ -97,23 +112,46 @@ def _shard_key(offsets) -> str:
     return "shard_" + "_".join(str(int(o)) for o in offsets)
 
 
+def _block_keys(grid: list) -> dict:
+    """{shard key: host block} of a grid of blocks (..., nyl, nxl), each
+    keyed by its offsets on every axis (0 on the leading ones)."""
+    out = {}
+    for iy, row in enumerate(grid):
+        for ix, block in enumerate(row):
+            block = np.asarray(block)
+            nyl, nxl = block.shape[-2:]
+            out[_shard_key((0,) * (block.ndim - 2)
+                           + (iy * nyl, ix * nxl))] = block
+    return out
+
+
+def _global_shape(grid: list) -> list:
+    lead = list(np.shape(grid[0][0])[:-2])
+    return lead + [sum(np.shape(r[0])[-2] for r in grid),
+                   sum(np.shape(b)[-1] for b in grid[0])]
+
+
 def save_sharded(ckpt_dir: str, step: int, shards: list,
-                 params: SimulationParams, keep: int = 3) -> str:
+                 params: SimulationParams, keep: int = 3,
+                 stats: dict | None = None,
+                 stats_scalars: dict | None = None) -> str:
     """Write ckpt_<step>/ from a sharded state: `shards` the (my, mx) grid
     of host blocks (Q, nyl, nxl), shard (iy, ix) at rows iy*nyl and columns
-    ix*nxl; keep the newest `keep` checkpoints of either kind."""
+    ix*nxl; keep the newest `keep` checkpoints of either kind. stats: the
+    statistics sums by name, each a grid of host blocks; stats_scalars:
+    their count and first sampled step."""
     path = os.path.join(ckpt_dir, f"ckpt_{step:09d}")
     os.makedirs(path, exist_ok=True)
     fname = "proc_00000.npz"
-    arrays = {}
-    for iy, row in enumerate(shards):
-        for ix, block in enumerate(row):
-            block = np.asarray(block)
-            q, nyl, nxl = block.shape
-            arrays[_shard_key((0, iy * nyl, ix * nxl))] = block
-    q = shards[0][0].shape[0]
-    shape = [q, sum(np.shape(r[0])[1] for r in shards),
-             sum(np.shape(b)[2] for b in shards[0])]
+    arrays = _block_keys(shards)
+    stats_meta = {}
+    for name, grid in (stats or {}).items():
+        blocks = _block_keys(grid)
+        arrays.update({f"{name}|{key}": b for key, b in blocks.items()})
+        stats_meta[name] = {"global_shape": _global_shape(grid),
+                            "dtype": str(np.asarray(grid[0][0]).dtype),
+                            "files": dict.fromkeys(blocks, fname)}
+    shape = _global_shape(shards)
     fpath = os.path.join(path, fname)
     tmp = fpath + ".tmp"
     with open(tmp, "wb") as fh:
@@ -122,7 +160,12 @@ def save_sharded(ckpt_dir: str, step: int, shards: list,
     manifest = {"step": int(step), "params": params.to_dict(),
                 "global_shape": shape,
                 "dtype": str(np.asarray(shards[0][0]).dtype),
-                "files": {key: fname for key in arrays}}
+                "files": dict.fromkeys(_block_keys(shards), fname)}
+    if stats_meta:
+        manifest["stats"] = stats_meta
+    if stats_scalars:
+        manifest["stats_scalars"] = {k: float(v)
+                                     for k, v in stats_scalars.items()}
     mtmp = os.path.join(path, "manifest.json.tmp0")
     with open(mtmp, "w") as fh:
         json.dump(manifest, fh, indent=1)
@@ -148,45 +191,66 @@ def check_manifest(path: str, params: SimulationParams | None = None) -> int:
     return int(manifest["step"])
 
 
+def _load_grid(path: str, shape: list, files: dict, mesh_shape, opened,
+               prefix: str = "") -> list:
+    """The grid of host blocks of one array of global `shape` saved per
+    shard (tpulbm's files map: shard key -> file), cut for `mesh_shape`."""
+    *lead, ny, nx = shape
+    my, mx = mesh_shape
+    if ny % my or nx % mx:
+        raise ValueError(f"grid {nx}x{ny} not divisible by mesh {mesh_shape}")
+    nyl, nxl = ny // my, nx // mx
+    want = tuple(lead) + (nyl, nxl)
+    grid = []
+    for iy in range(my):
+        row = []
+        for ix in range(mx):
+            key = _shard_key((0,) * len(lead) + (iy * nyl, ix * nxl))
+            if key not in files:
+                raise ValueError(
+                    f"checkpoint {path} has no shard at offsets {key!r} "
+                    f"— it was saved with an incompatible mesh (saved "
+                    f"files: {sorted(files)[:4]}…)")
+            fname = files[key]
+            if fname not in opened:
+                opened[fname] = np.load(os.path.join(path, fname))
+            block = opened[fname][prefix + key]
+            if block.shape != want:
+                raise ValueError(f"shard {key} of {path} is {block.shape}, "
+                                 f"not {want}: it was saved with an "
+                                 "incompatible mesh")
+            row.append(block)
+        grid.append(row)
+    return grid
+
+
 def load_sharded(path: str, mesh_shape: tuple[int, int],
-                 params: SimulationParams | None = None):
+                 params: SimulationParams | None = None,
+                 extras: bool = False):
     """(step, grid of host blocks) from a per-shard checkpoint directory,
     cut for a (my, mx) mesh: the blocks must line up with the saved ones
     (tpulbm's rule), else ValueError. With `params`, raises ValueError if
-    it was written with other physics."""
+    it was written with other physics. With `extras`, (step, grid, stats):
+    the statistics sums by name, each a grid of host blocks, and the
+    scalars count and first, or None."""
     with open(os.path.join(path, "manifest.json")) as fh:
         manifest = json.load(fh)
     if params is not None:
         _check_params(path, SimulationParams.from_dict(manifest["params"]),
                       params)
-    q, ny, nx = manifest["global_shape"][-3:]
-    my, mx = mesh_shape
-    if ny % my or nx % mx:
-        raise ValueError(f"grid {nx}x{ny} not divisible by mesh {mesh_shape}")
-    nyl, nxl = ny // my, nx // mx
-    files = manifest["files"]
-    grid, opened = [], {}
+    opened = {}
     try:
-        for iy in range(my):
-            row = []
-            for ix in range(mx):
-                key = _shard_key((0, iy * nyl, ix * nxl))
-                if key not in files:
-                    raise ValueError(
-                        f"checkpoint {path} has no shard at offsets {key!r} "
-                        f"— it was saved with an incompatible mesh (saved "
-                        f"files: {sorted(files)[:4]}…)")
-                fname = files[key]
-                if fname not in opened:
-                    opened[fname] = np.load(os.path.join(path, fname))
-                block = opened[fname][key]
-                if block.shape != (q, nyl, nxl):
-                    raise ValueError(f"shard {key} of {path} is "
-                                     f"{block.shape}, not {(q, nyl, nxl)}: "
-                                     "it was saved with an incompatible mesh")
-                row.append(block)
-            grid.append(row)
+        grid = _load_grid(path, manifest["global_shape"], manifest["files"],
+                          mesh_shape, opened)
+        stats = None
+        if extras and "stats" in manifest:
+            stats = {name: _load_grid(path, meta["global_shape"],
+                                      meta["files"], mesh_shape, opened,
+                                      prefix=f"{name}|")
+                     for name, meta in manifest["stats"].items()}
+            stats.update(manifest.get("stats_scalars", {}))
     finally:
         for data in opened.values():
             data.close()
-    return int(manifest["step"]), grid
+    step = int(manifest["step"])
+    return (step, grid, stats) if extras else (step, grid)

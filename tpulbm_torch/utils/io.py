@@ -1,12 +1,11 @@
 """Artifact writers: the port's copy of tpulbm/utils/io.py, so both packages
-write byte-identical forces.csv, nusselt.csv, velocity_field.csv,
-temperature_field.csv, simulation_params.csv and VTK frames.
+write byte-identical forces.csv, nusselt.csv, probes.csv,
+velocity_field.csv, temperature_field.csv, simulation_params.csv and VTK
+frames, and stats_fields.npz under the same keys.
 
 VTK frames and velocity_field.csv go through the native writer
 (utils/native.py, built from csrc/fastio.cpp) where g++ is at hand, else
-through NumPy with the same bytes. tpulbm's probes.csv and
-stats_fields.npz writers are not copied: probes and statistics are not
-ported (ROADMAP Queue 1 item 15).
+through NumPy with the same bytes.
 """
 from __future__ import annotations
 
@@ -17,8 +16,9 @@ import numpy as np
 from ..config import SimulationParams
 from .native import get_native_io
 
-__all__ = ["ForceWriter", "NusseltWriter", "calculate_time_averaged_drag",
-           "write_simulation_params", "write_temperature_field",
+__all__ = ["ForceWriter", "NusseltWriter", "ProbeWriter",
+           "calculate_time_averaged_drag", "write_simulation_params",
+           "write_stats_fields", "write_temperature_field",
            "write_velocity_field", "write_vtk_timestep"]
 
 
@@ -61,6 +61,36 @@ class ForceWriter:
     def record(self, timestep: int, fx: float, fy: float,
                cd: float, cl: float) -> None:
         self._fh.write(f"{timestep},{fx:.8f},{fy:.8f},{cd:.8f},{cl:.8f}\n")
+        if timestep % 10000 == 0:
+            self._fh.flush()
+
+    def close(self) -> None:
+        self._fh.close()
+
+
+class ProbeWriter:
+    """Streaming probes.csv writer: per output interval, rho and u (and T
+    for a thermal problem) at each probe point (params.probe_points;
+    ops/diagnostics.probes_fn); the same resume contract as ForceWriter."""
+
+    def __init__(self, path: str, n_probes: int, ndim: int,
+                 thermal: bool = False, append: bool = False,
+                 resume_step: int | None = None):
+        comps = ("ux", "uy", "uz")[:ndim]
+        cols = ["timestep"]
+        for k in range(n_probes):
+            cols.append(f"p{k}_rho")
+            cols.extend(f"p{k}_{c}" for c in comps)
+            if thermal:
+                cols.append(f"p{k}_T")
+        self.path = path
+        self._fh = _open_series(path, ",".join(cols) + "\n", append,
+                                resume_step)
+
+    def record(self, timestep: int, values) -> None:
+        """values: (n_probes, 1 + D [+ 1]) of [rho, u..., (T)]."""
+        flat = ",".join(f"{float(v):.8f}" for row in values for v in row)
+        self._fh.write(f"{timestep},{flat}\n")
         if timestep % 10000 == 0:
             self._fh.flush()
 
@@ -227,6 +257,26 @@ def write_temperature_field(T: np.ndarray, params: SimulationParams,
         for y in range(ny):
             row = T[y]
             fh.writelines(f"{x},{y},{row[x]:.8f}\n" for x in range(nx))
+    return path
+
+
+def write_stats_fields(mean_rho: np.ndarray, mean_u: np.ndarray,
+                       reynolds_stress: np.ndarray, pair_names: list[str],
+                       n_samples: int, first_step: int, interval: int,
+                       out_dir: str = ".") -> str:
+    """stats_fields.npz: the time-mean fields, the Reynolds stresses
+    <u_i'u_j'> = <u_i u_j> - <u_i><u_j> (upper triangle, keys such as
+    're_uxuy') and the sampling record (sample count, first sampled step,
+    sampling interval), under tpulbm's keys."""
+    path = os.path.join(out_dir, "stats_fields.npz")
+    out = {"mean_rho": mean_rho, "n_samples": np.int64(n_samples),
+           "first_step": np.int64(first_step),
+           "sample_interval": np.int64(interval)}
+    for i, a in enumerate("xyz"[:mean_u.shape[0]]):
+        out[f"mean_u{a}"] = mean_u[i]
+    for k, name in enumerate(pair_names):
+        out[f"re_{name}"] = reynolds_stress[k]
+    np.savez(path, **out)
     return path
 
 
