@@ -285,8 +285,8 @@ printing its own line; any failure exits non-zero:
 44. the sphere at 256^3 (bench.py's bouzidi3d row: radius 0.23, x = y =
    0.5) under each D3Q19 collision: parity from the perturbed state with
    N=3 bitwise (BGK in full: from the initial state, after 100 kernel
-   steps, N = 2, 3, 280 steps at 128^3, the Runner's 735 N=3, 17 N=2 and
-   1 one-step launches; the others a 280-step Runner, the depth cut);
+   steps, N = 2, 3, 280 steps at 128^3; every operator's Runner cut to
+   280 steps, 91 N=3, 3 N=2 and 1 one-step launches, BGK's too);
    tpulbm's Magnus gate through the kernels (200x50, 4000 steps: the lift
    flips with the spin, the drag symmetric);
 45. timing of each Bouzidi library (plain, 1-step, the main path's
@@ -305,12 +305,13 @@ printing its own line; any failure exits non-zero:
    without the force, D3Q19's on the first 19 planes and BGK's (against
    a closure) must miss by SEPARATION tolerances; N = 2, 3 bitwise
    against N 1-step launches; 280 steps;
-47. the three cells through the Runner, 2240 steps every 140: exactly
-   735 N=3, 17 N=2 and 1 one-step launches of the cell's library and
-   none of another kernel; the boxes' mass after the float32 weights'
-   term; kolmogorov3d-128 with statistics from step 1120 and two probes,
-   its stats_fields.npz and probes.csv against the same run on the plain
-   path;
+47. the three cells through the Runner, 2240 steps every 140
+   (periodic3d-256 and the D3Q27 sphere cut to 280 steps: 91 N=3,
+   3 N=2 and 1 one-step launches): exactly 735 N=3, 17 N=2 and 1
+   one-step launches of the cell's library and none of another kernel;
+   the boxes' mass after the float32 weights' term; kolmogorov3d-128
+   with statistics from step 1120 and two probes, its stats_fields.npz
+   and probes.csv against the same run on the plain path;
 48. 2-D Kolmogorov at 2048x512 with statistics and probes on a 2x2 mesh
    of shards on the card: stats_fields.npz, probes.csv and
    velocity_field.csv bit for bit one device's;
@@ -318,7 +319,38 @@ printing its own line; any failure exits non-zero:
    order in nz), the 3-D Taylor-Green energy and mass, 3-D Kolmogorov's
    spin-up from rest;
 50. timing of every library of phase 46 (plain, 1-step, N = 2, 3) at its
-   cell's shape, with the bound.
+   cell's shape, with the bound;
+51. the 3-D meshes (-DTPULBM_RINGS=1 of both D3Q19 sources, built in
+   phase 2 for every library of mesh3d_cases(); ptxas printed): at 64^3,
+   the sphere, the bounce-back sphere under TRT, the Bouzidi sphere, the
+   duct, the box, the box with the z force, D3Q27's sphere and box and
+   one other collision a domain, one launch a shard on (2,2), (4,1) and
+   (1,4) at depths 1-3 (the Bouzidi sphere at depth 1 on the x-cut
+   meshes, tpulbm's dispatch; depths 1 and 3, each source's build, on
+   (4,1) and (1,4)) from the initial and the perturbed state:
+   each shard within the N-step tolerance of its plain ring step, every
+   mesh bitwise one device, equilibrium rings SEPARATION tolerances off;
+   N-step ring launches bitwise N 1-step ones; MRT, regularized, LES and
+   the power law one case each on (2,2) at N=3;
+52. the main path: sphere-256 (bench.py's d3q19 row) on a 2x2 mesh of
+   256x128x128 shards on the card through the Runner, 2240 steps every
+   140: exactly 735 N=3, 17 N=2 and 1 one-step ring launch a shard, none
+   of another kernel, the final state bitwise one device's, forces.csv
+   and fields3d.npz's arrays the same bytes; 280-step chunks on (4,1),
+   (1,4) and tpulbm's 4x2 bitwise one device;
+53. the Bouzidi sphere at 256^3 (bench.py's bouzidi3d row), 280 steps on
+   (2,1) (blocked), (1,2) and (2,2) (depth 1), and spinning on (2,2):
+   bitwise one device, the cut-link force within rtol 1e-4 / atol 5e-6;
+54. through the Runner against one device, 280 steps every 140:
+   periodic3d-256 on (2,2), kolmogorov3d-128 on (2,2) with statistics
+   from step 140 and two probes (stats_fields.npz and probes.csv the
+   same bytes), the D3Q27 sphere at 128^3 on (2,2), the duct at 128^3 on
+   (1,2): counted, the final state bitwise;
+55. timing in turns: the four shards' ring launches of sphere-256 on 2x2
+   summed against the one-device kernel at N = 1, 2, 3, one shard's
+   launch against its bound (the kernel's bytes a cell and the rings')
+   and its plain ring step; (4,1) at N=3; the Bouzidi sphere on (2,1) at
+   N=3 and (2,2) at depth 1. Each phase prints its seconds.
 
 Run directories go to build/chip_smoke/ (git-ignored; the final CSVs have
 a million rows). The last two lines are a JSON line per kernel and the
@@ -348,7 +380,9 @@ cylinder's d2q9_collide_stream[_n4]_spinning[bgk+bouzidi]), phase 43's
 the overlap mode's ranged launches, and d2q9_rings_tiled[bgk+bouzidi])
 and phase 44 for the sphere's (d3q19_collide_stream[_nN][<op>+bouzidi]),
 phase 47 for the 3-D boxes' and D3Q27's (d3q19_collide_stream[_nN]
-[bgk+box], [bgk+box+force], [bgk+d3q27]; their 64^3 builds 0).
+[bgk+box], [bgk+box+force], [bgk+d3q27]; their 64^3 builds 0), phase
+52's main path for the 3-D ring builds (d3q19_rings_tiled[_nN][bgk], the
+four shards' launches; the others timed in phase 55 with 0).
 A kernel's
 `bound_ms` is the
 least time the card could take for one step of its work at the shape it
@@ -588,6 +622,17 @@ def ptxas_summary(log: str) -> str:
     return "; ".join(out) or log.strip()[-300:]
 
 
+def initial_state(problem, dev) -> torch.Tensor:
+    """The problem's initial state on `dev`, built there where it needs no
+    host array (sharded_step.shard_initial_state on one shard, as the
+    Runner builds it): the bits of state_from_numpy(problem.initial_state(),
+    ...) without a 1.27 GB host array and its copy at 256^3."""
+    from tpulbm_torch.parallel import sharded_step
+    from tpulbm_torch.parallel.mesh import make_mesh
+    mesh = make_mesh((1, 1), devices=[dev])
+    return sharded_step.shard_initial_state(problem, mesh)[0][0][0]
+
+
 def perturbed(problem, f: torch.Tensor) -> torch.Tensor:
     """f times seeded uniform noise in [0.9, 1.1), drawn on f's device,
     with the solid cells (if any) back at rest equilibrium."""
@@ -631,13 +676,14 @@ def n_step_tol(n: int) -> dict:
     return dict(rtol=n * ONE_STEP_TOL["rtol"], atol=n * ONE_STEP_TOL["atol"])
 
 
-def same_npz(a: Path, b: Path) -> bool:
+def same_npz(a: Path, b: Path, skip=()) -> bool:
     """Whether two .npz files hold the same arrays, bit for bit (their zip
-    entries carry the time they were written)."""
+    entries carry the time they were written), those named in `skip` (the
+    params of fields3d.npz: a run's output directory and mesh) apart."""
     with np.load(a) as x, np.load(b) as y:
         return sorted(x.files) == sorted(y.files) and all(
             x[k].dtype == y[k].dtype and x[k].tobytes() == y[k].tobytes()
-            for k in x.files)
+            for k in x.files if k not in skip)
 
 
 def same_files(a: Path, b: Path, names) -> bool:
@@ -755,7 +801,6 @@ def sphere_phases(dev, card: str) -> list[dict]:
     each other, the 3-D main path through the Runner, and timing. Returns
     the kernels' JSON entries."""
     from tpulbm_torch.config import SimulationParams
-    from tpulbm_torch.convert import state_from_numpy
     from tpulbm_torch.models import make_problem
     from tpulbm_torch.ops import step_cuda, step_torch
     from tpulbm_torch.stepper import make_chunk_fn
@@ -768,7 +813,7 @@ def sphere_phases(dev, card: str) -> list[dict]:
     problem = make_problem(params)
     kstep = step_cuda.make_local_step_cuda_3d(problem, dev)
     pstep = step_torch.make_step_rolled(problem, dev)
-    f0 = state_from_numpy(problem.initial_state(), problem, dev)
+    f0 = initial_state(problem, dev)
     f100 = plain_chunk(pstep, f0.clone(), 100)
 
     def one_step_err(f: torch.Tensor) -> float:
@@ -833,7 +878,17 @@ def sphere_phases(dev, card: str) -> list[dict]:
     run_dir = OUT_DIR / f"sphere{n}"
     main_params = params.replace(num_timesteps=2240, output_frequency=140,
                                  output_dir=str(run_dir))
-    result, counts, wall = run_counted(main_params, dev)
+    runner = CapturingRunner(main_params, device=dev, verbose=False)
+    reset_counts()
+    t0 = time.perf_counter()
+    result = runner.run()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    require(result.success, f"run in {run_dir} failed")
+    # the one-device run that phase 52's 2x2 mesh is held to
+    ONE_DEVICE_RUNS["sphere256"] = (run_dir, runner.final_state[0][0],
+                                    result.mlups)
+    del runner
     require(counts == {**only("3d3", 735), "3d2": 17, "3d": 1},
             f"launch counts {counts}, not 735 N=3, 17 N=2, 1 one-step "
             "D3Q19 and 0 others")
@@ -941,14 +996,13 @@ def thermal_parity(dev, name: str, nx: int, ny: int, **kw):
     step against one plain step from the initial state and after 500 plain
     steps, then 280 steps of each. Returns (the larger one-step error, the
     kernel and plain steps and the initial state)."""
-    from tpulbm_torch.convert import state_from_numpy
     from tpulbm_torch.models import make_problem
     from tpulbm_torch.ops import step_thermal, step_thermal_cuda
 
     problem = make_problem(thermal_params(name, nx, ny, **kw))
     kstep = step_thermal_cuda.make_local_step_thermal_cuda(problem, dev)
     pstep = step_thermal.make_step_thermal(problem, dev)
-    s0 = state_from_numpy(problem.initial_state(), problem, dev)
+    s0 = initial_state(problem, dev)
     errs = []
     for s in (s0, plain_chunk(pstep, s0.clone(), 500)):
         got = kstep(s, torch.empty_like(s))
@@ -1082,14 +1136,13 @@ def mp_parity(dev, label: str, params):
     step from the initial state and after 500 plain steps. Returns (the
     larger error, the problem, the kernel and plain steps, the initial
     state)."""
-    from tpulbm_torch.convert import state_from_numpy
     from tpulbm_torch.models import make_problem
     from tpulbm_torch.ops import step_multiphase, step_multiphase_cuda
 
     problem = make_problem(params)
     kstep = step_multiphase_cuda.make_local_step_multiphase_cuda(problem, dev)
     pstep = step_multiphase.make_step_multiphase(problem, dev)
-    f0 = state_from_numpy(problem.initial_state(), problem, dev)
+    f0 = initial_state(problem, dev)
     errs = []
     for f in (f0, plain_chunk(pstep, f0.clone(), 500)):
         got = kstep(f, torch.empty_like(f))
@@ -1107,12 +1160,11 @@ def mp_run(dev, params, steps: int) -> tuple[np.ndarray, float, int]:
     """`steps` steps of a multiphase problem from its initial state through
     the kernel, as the Runner's chunks make them. Returns (rho summed in
     float64, relative mass drift, kernel launches)."""
-    from tpulbm_torch.convert import state_from_numpy
     from tpulbm_torch.models import make_problem
     from tpulbm_torch.stepper import make_chunk_fn
 
     problem = make_problem(params)
-    f = state_from_numpy(problem.initial_state(), problem, dev)
+    f = initial_state(problem, dev)
     mass0 = float(f.double().sum())
     reset_counts()
     f = make_chunk_fn(problem, dev, steps, backend="pallas")(f)
@@ -1317,7 +1369,6 @@ def operator_parity(dev, op: str):
     params, the collision mode, the kernel steps by depth, the plain step,
     the initial state, the errors against the plain step by depth)."""
     from tpulbm_torch.config import PRESETS
-    from tpulbm_torch.convert import state_from_numpy
     from tpulbm_torch.models import make_problem
     from tpulbm_torch.ops import step_cuda, step_torch
 
@@ -1330,7 +1381,7 @@ def operator_parity(dev, op: str):
     for n in DEPTHS:
         steps[n] = step_cuda.make_local_step_cuda_blocked(problem, dev, n)
     pstep = step_torch.make_step_rolled(problem, dev)
-    f0 = state_from_numpy(problem.initial_state(), problem, dev)
+    f0 = initial_state(problem, dev)
     f500 = plain_chunk(pstep, f0.clone(), 500)
     errs, held = [], []
     for f in (f0, f500):
@@ -1444,14 +1495,13 @@ def operator_gates(dev) -> None:
     through the kernels (the N=4 kernel, chunk lengths divide by 4)."""
     from tpulbm_torch import physics
     from tpulbm_torch.config import SimulationParams
-    from tpulbm_torch.convert import state_from_numpy
     from tpulbm_torch.models import make_problem
     from tpulbm_torch.stepper import make_chunk_fn
 
     def run(steps: int, **kw) -> torch.Tensor:
         problem = make_problem(SimulationParams(nx=256, ny=64,
                                                 precision="f32", **kw))
-        f = state_from_numpy(problem.initial_state(), problem, dev)
+        f = initial_state(problem, dev)
         chunk = make_chunk_fn(problem, dev, steps)
         require(chunk.plan == [(4, steps // 4)], f"gate plan {chunk.plan}")
         f = chunk(f)
@@ -1548,7 +1598,6 @@ def sphere_operator_parity(dev, op: str):
     the collision mode, the kernel steps by depth, the initial state, the
     larger one-step error)."""
     from tpulbm_torch.config import SimulationParams
-    from tpulbm_torch.convert import state_from_numpy
     from tpulbm_torch.models import make_problem
     from tpulbm_torch.ops import step_cuda, step_torch
     from tpulbm_torch.stepper import make_chunk_fn
@@ -1569,7 +1618,7 @@ def sphere_operator_parity(dev, op: str):
     pstep = step_torch.make_step_rolled(problem, dev)
     bgk = step_cuda.make_local_step_cuda_3d(make_problem(params.replace(
         collision="bgk", smagorinsky=0.0, power_law_n=1.0)), dev)
-    f0 = state_from_numpy(problem.initial_state(), problem, dev)
+    f0 = initial_state(problem, dev)
     f100 = kernel_chunk(steps[1], f0.clone(), 100)
     fp = perturbed(problem, f0)
     errs = []
@@ -1592,7 +1641,7 @@ def sphere_operator_parity(dev, op: str):
     del f100, fp, got, want
     # 280 steps at 128^3
     _, small = build(DRIFT_N_3D)
-    s0 = state_from_numpy(small.initial_state(), small, dev)
+    s0 = initial_state(small, dev)
     sk = kernel_chunk(step_cuda.make_local_step_cuda_3d(small, dev),
                       s0.clone(), 280)
     sp = plain_chunk(step_torch.make_step_rolled(small, dev), s0, 280)
@@ -1606,7 +1655,7 @@ def sphere_operator_parity(dev, op: str):
     gp = SimulationParams(problem="cylinder3d", inlet_velocity=0.05,
                           precision="f32", **OPERATORS_3D[op], **grid)
     gate = make_problem(gp)
-    g0 = state_from_numpy(gate.initial_state(), gate, dev)
+    g0 = initial_state(gate, dev)
     kchunk = make_chunk_fn(gate, dev, n_gate, backend="pallas")
     got = kchunk(g0.clone())
     want = make_chunk_fn(gate, dev, n_gate, backend="jax")(g0)
@@ -1726,7 +1775,6 @@ def thermal_les_phases(dev, card: str) -> dict:
     thermal kernel, the
     Runner (exactly 2240 launches of the LES build), and timing. Returns
     the kernel's JSON entry."""
-    from tpulbm_torch.convert import state_from_numpy
     from tpulbm_torch.models import make_problem
     from tpulbm_torch.ops import step_cuda, step_thermal_cuda
     from tpulbm_torch.stepper import make_chunk_fn
@@ -1760,7 +1808,7 @@ def thermal_les_phases(dev, card: str) -> dict:
     gate = make_problem(thermal_params("rayleigh-benard", 32, 32,
                                        smagorinsky=THERMAL_CS).replace(
                                            rayleigh=5000.0))
-    g0 = state_from_numpy(gate.initial_state(), gate, dev)
+    g0 = initial_state(gate, dev)
     got = make_chunk_fn(gate, dev, 12, backend="pallas")(g0.clone())
     want = make_chunk_fn(gate, dev, 12, backend="jax")(g0)
     torch.cuda.synchronize()
@@ -1924,7 +1972,6 @@ class Cell:
     plain step, the constants and the separation library's step."""
 
     def __init__(self, dev, label: str, params, problem=None):
-        from tpulbm_torch.convert import state_from_numpy
         from tpulbm_torch.models import make_problem
         from tpulbm_torch.ops import step_cuda, step_torch
 
@@ -1965,8 +2012,7 @@ class Cell:
         self.tol = (CAVITY_TOL if params.problem == "cavity" else
                     PLAW_TOL if mode == "power_law" else ONE_STEP_TOL)
         self.relative = mode == "kbc"
-        self.f0 = state_from_numpy(self.problem.initial_state(), self.problem,
-                                   dev)
+        self.f0 = initial_state(self.problem, dev)
 
     def bound(self, steps_per_launch: int) -> dict:
         """bound() of one step of the cell's library: the populations read
@@ -2120,14 +2166,13 @@ def cell_parity(cell: Cell, full: bool, advanced: bool = True) -> float:
     drift = ""
     if full:
         if cell.three_d:
-            from tpulbm_torch.convert import state_from_numpy
             from tpulbm_torch.models import make_problem
             from tpulbm_torch.ops import step_cuda, step_torch
             n = min(DRIFT_N_3D, cell.params.nx)
             small = make_problem(
                 duct_at(cell.params, n) if cell.params.problem == "poiseuille"
                 else cell.params.replace(nx=n, ny=n, nz=n))
-            s0 = state_from_numpy(small.initial_state(), small, cell.f0.device)
+            s0 = initial_state(small, cell.f0.device)
             sk = kernel_chunk(step_cuda.make_local_step_cuda_3d(
                 small, cell.f0.device), s0.clone(), 280)
             sp = plain_chunk(step_torch.make_step_rolled(
@@ -2293,14 +2338,13 @@ def domain_gates(dev) -> None:
     Fourier series (tests/test_duct3d.py:33-51: 8x17x17, 6000 steps, RMSE
     < 2% of u_max)."""
     from tpulbm_torch import physics
-    from tpulbm_torch.convert import state_from_numpy
     from tpulbm_torch.models import make_problem
     from tpulbm_torch.models import poiseuille
     from tpulbm_torch.stepper import make_chunk_fn
 
     def run(params, steps):
         problem = make_problem(params)
-        f = state_from_numpy(problem.initial_state(), problem, dev)
+        f = initial_state(problem, dev)
         f = make_chunk_fn(problem, dev, steps)(f)
         torch.cuda.synchronize()
         require(bool(physics.is_stable(f)), f"gate {params.problem} unstable")
@@ -2486,7 +2530,8 @@ def with_env(env: dict, fn):
 
 class MeshCase:
     """One mesh of a problem on the card: its shards' geometry at a depth
-    (x rings or not), their kernel launches and their plain ring steps."""
+    (x rings or not), their kernel launches (the D2Q9 ring builds, or the
+    D3Q19 ones for a 3-D problem) and their plain ring steps."""
 
     def __init__(self, problem, shape, dev, depth: int, x_rings: bool):
         from tpulbm_torch.ops import step_cuda, step_rings_torch
@@ -2494,8 +2539,10 @@ class MeshCase:
         self.problem, self.shape, self.depth = problem, shape, depth
         self.x_rings = x_rings
         self.mesh = card_mesh(shape, dev)
-        self.local = self.mesh.local_shape(problem.spatial_shape)
-        self.consts = step_cuda.kernel_constants(problem)
+        self.local = sharded_step.block_shape(problem, self.mesh)
+        self.three_d = problem.lattice.D == 3
+        self.consts = step_cuda.kernel_constants(problem,
+                                                 19 if self.three_d else 9)
         solid = (np.zeros(problem.spatial_shape, bool)
                  if problem.solid is None else problem.solid)
         masks = halo.pad_mask(sharded_step.shard_mask(self.mesh, solid),
@@ -2525,6 +2572,9 @@ class MeshCase:
 
     def launch(self, block, out, rings, idx, rows=None):
         from tpulbm_torch.ops import step_cuda
+        if self.three_d:
+            return step_cuda.collide_stream_rings_3d(
+                block, out, rings, self.shards[idx], self.consts, self.depth)
         return step_cuda.collide_stream_rings(
             block, out, rings, self.shards[idx], self.consts, self.depth,
             rows=rows)
@@ -2532,7 +2582,7 @@ class MeshCase:
     def step_all(self, blocks, rings=None, ranged: bool = False):
         """One launch of every shard (three ranged ones with `ranged`)."""
         rings = self.rings(blocks) if rings is None else rings
-        nyl, e = self.local[0], self.depth + 1
+        nyl, e = self.local[-2], self.depth + 1
         outs = []
         for iy, row in enumerate(blocks):
             orow = []
@@ -2557,14 +2607,17 @@ def gather(blocks) -> torch.Tensor:
 
 
 def ring_parity(problem, f, shape, dev, depth, x_rings, one_device,
-                ranged=False, sep_check=False) -> tuple[float, str]:
-    """Phase 31 on one mesh, depth and state: every shard's launch against
-    its plain ring step (the N-step tolerance), the gathered result bitwise
-    against the one-device kernel's; with sep_check, rings of the frozen
-    equilibrium on the shard edges must miss the plain step by SEPARATION
-    tolerances. Returns (max error, separation text)."""
+                ranged=False, sep_check=False,
+                case=None) -> tuple[float, float | None]:
+    """Phase 31 (and 37, 43, 51) on one mesh, depth and state: every
+    shard's launch against its plain ring step (the N-step tolerance), the
+    gathered result bitwise against the one-device kernel's; with
+    sep_check, rings of the frozen equilibrium on the shard edges must
+    miss the plain step by SEPARATION tolerances. Returns (max error, the
+    separation in tolerances or None; sep_text words it). `case`: the
+    MeshCase of the mesh and depth, built here if not given."""
     from tpulbm_torch.parallel import halo
-    case = MeshCase(problem, shape, dev, depth, x_rings)
+    case = case or MeshCase(problem, shape, dev, depth, x_rings)
     blocks = case.split(f)
     rings = case.rings(blocks)
     got = case.step_all(blocks, rings, ranged=ranged)
@@ -2581,7 +2634,7 @@ def ring_parity(problem, f, shape, dev, depth, x_rings, one_device,
     require(torch.equal(whole, one),
             f"mesh {shape} N={depth}: {float((whole - one).abs().max())} off "
             "the one-device kernel")
-    text = ""
+    sep = None
     if sep_check:
         eq = problem.ghost_ring_values()
         flat = [[tuple(None if r is None else halo._eq_block(eq, r, r.shape)
@@ -2596,10 +2649,15 @@ def ring_parity(problem, f, shape, dev, depth, x_rings, one_device,
                                              * want.abs())).max()))
         require(sep > SEPARATION, f"mesh {shape} N={depth}: equilibrium "
                 f"rings only {sep:.1f}x the tolerance off")
-        text = f", equilibrium rings {sep:.0f}x the tolerance off"
     del case, blocks, rings, got, whole
     torch.cuda.empty_cache()
-    return err, text
+    return err, sep
+
+
+def sep_text(sep: float | None) -> str:
+    """ring_parity's separation as its line's closing words."""
+    return ("" if sep is None else
+            f", equilibrium rings {sep:.0f}x the tolerance off")
 
 
 def mesh_plan_launches(problem, mesh, lengths) -> dict:
@@ -2637,7 +2695,6 @@ def mesh_phases(dev, card: str) -> list[dict]:
     """Phases 30-34: the ring builds on the card. Returns their kernels'
     JSON entries."""
     from tpulbm_torch.config import PRESETS
-    from tpulbm_torch.convert import state_from_numpy
     from tpulbm_torch.models import make_problem
     from tpulbm_torch.ops import step_cuda
     from tpulbm_torch.parallel import sharded_step
@@ -2655,7 +2712,7 @@ def mesh_phases(dev, card: str) -> list[dict]:
     t0 = time.perf_counter()
     params = PRESETS["re200"].replace(precision="f32", enable_vtk=False)
     problem = make_problem(params)
-    f0 = state_from_numpy(problem.initial_state(), problem, dev)
+    f0 = initial_state(problem, dev)
     fp = perturbed(problem, f0)
     one = {1: step_cuda.make_local_step_cuda(problem, dev)}
     for n in DEPTHS:
@@ -2690,7 +2747,7 @@ def mesh_phases(dev, card: str) -> list[dict]:
                       f"shard within {err:.3e} of its plain ring step "
                       f"(rtol {n_step_tol(depth)['rtol']:.0e}, atol "
                       f"{n_step_tol(depth)['atol']:.0e}), the mesh bitwise "
-                      f"equal to one device{sep}")
+                      f"equal to one device{sep_text(sep)}")
     for depth in (1, 4):
         for name, f in (("initial", f0), ("perturbed", fp)):
             err, sep = ring_parity(
@@ -2699,7 +2756,7 @@ def mesh_phases(dev, card: str) -> list[dict]:
                 ranged=True, sep_check=name == "perturbed")
             print(f"mesh (4, 1) ranged N={depth} (interior, bottom, top) "
                   f"from the {name} state: within {err:.3e} of the plain "
-                  f"ring step, bitwise equal to one device{sep}")
+                  f"ring step, bitwise equal to one device{sep_text(sep)}")
     print(f"mesh parity: {time.perf_counter() - t0:.2f} s")
 
     # phase 32: 280 steps (and 40-42 at the other depths) on each mesh and
@@ -2814,7 +2871,7 @@ def mesh_phases(dev, card: str) -> list[dict]:
         print(f"timing (1,1) re200 N={depth} on {card}: today's build "
               f"{ms['today']:.5f} ms/step, the ring build {ms['rings']:.5f} "
               f"({100 * (ms['rings'] / ms['today'] - 1):+.2f}%)")
-    f8 = state_from_numpy(problem8.initial_state(), problem8, dev)
+    f8 = initial_state(problem8, dev)
     fp8 = perturbed(problem8, f8)
     entries = []
     timed = [("tiled", (2, 2), 1), ("tiled", (2, 2), 2), ("tiled", (2, 2), 3),
@@ -2969,9 +3026,8 @@ def box_mass(problem, dev, steps: int = 2240) -> str:
     """The mass gates after `steps` steps of the kernels' chunk (the Runner's
     depth, 140 steps a chunk) from the initial state: the flow's and, with
     a scalar, the scalar's (box_mass_gate)."""
-    from tpulbm_torch.convert import state_from_numpy
     from tpulbm_torch.stepper import make_chunk_fn
-    f0 = state_from_numpy(problem.initial_state(), problem, dev)
+    f0 = initial_state(problem, dev)
     chunk = make_chunk_fn(problem, dev, 140)
     f = f0.clone()
     for _ in range(steps // 140):
@@ -3023,7 +3079,8 @@ def box_mesh(dev, problem, f0) -> dict:
                 sep_check=True)
             print(f"box mesh {label} {shape} N={depth} from the perturbed "
                   f"state: every shard within {err:.3e} of its plain ring "
-                  f"step, the mesh bitwise equal to one device{sep}")
+                  f"step, the mesh bitwise equal to one device"
+                  f"{sep_text(sep)}")
         mesh = card_mesh(shape, dev)
         chunk = sharded_step.make_chunk_fn(problem, mesh, 280)
         want = step_cuda_chunk(problem, dev, 280)(fp.clone())
@@ -3120,7 +3177,6 @@ def scalar_phases(dev, card: str) -> dict:
     2240 thermal launches, a finite scalar_variance.csv in tpulbm's layout
     and no nusselt.csv, the flow's and the scalar's mass after the float32
     weights' terms; timing. Returns the kernel's JSON entry."""
-    from tpulbm_torch.convert import state_from_numpy
     from tpulbm_torch.models import make_problem
     from tpulbm_torch.ops import step_thermal, step_thermal_cuda
     errs = []
@@ -3129,7 +3185,7 @@ def scalar_phases(dev, card: str) -> dict:
                                           inlet_velocity=u0))
         kstep = step_thermal_cuda.make_local_step_thermal_cuda(problem, dev)
         pstep = step_thermal.make_step_thermal(problem, dev)
-        s0 = state_from_numpy(problem.initial_state(), problem, dev)
+        s0 = initial_state(problem, dev)
         states = [("initial", s0),
                   ("500 plain steps", plain_chunk(pstep, s0.clone(), 500)),
                   ("perturbed", perturbed(problem, s0))]
@@ -3179,7 +3235,7 @@ def scalar_phases(dev, card: str) -> dict:
           f" no nusselt.csv; {mass}")
     kstep = step_thermal_cuda.make_local_step_thermal_cuda(problem, dev)
     pstep = step_thermal.make_step_thermal(problem, dev)
-    s0 = state_from_numpy(problem.initial_state(), problem, dev)
+    s0 = initial_state(problem, dev)
     runs = {"plain": (lambda f, n: plain_chunk(pstep, f, n), 200),
             "kernel": (lambda f, n: kernel_chunk(kstep, f, n), 2400)}
     times = {k: [] for k in runs}
@@ -3215,7 +3271,6 @@ def box_gates(dev) -> None:
     (tests/test_passive_scalar.py:41-111); the shear-layer preset (128^2,
     Re 30,000, regularized, 12,000 steps) finite through the Runner."""
     from tpulbm_torch import physics
-    from tpulbm_torch.convert import state_from_numpy
     from tpulbm_torch.lattice import D2Q9
     from tpulbm_torch.models import make_problem
     from tpulbm_torch.models.periodic2d import kolmogorov_kappa
@@ -3226,7 +3281,7 @@ def box_gates(dev) -> None:
     t0 = time.perf_counter()
 
     def start(problem):
-        return state_from_numpy(problem.initial_state(), problem, dev)
+        return initial_state(problem, dev)
 
     def advance(problem, f, steps):
         out = make_chunk_fn(problem, dev, steps)(f)
@@ -3554,14 +3609,15 @@ def bz_mesh_phase(dev, f0, problem) -> dict:
                                           ((1, 2), 1, True, False),
                                           ((2, 2), 1, True, False),
                                           ((4, 1), 4, False, True)):
-        err, text = ring_parity(problem, fp, shape, dev, depth, x_rings,
-                                lambda f, d=depth: one[d](
-                                    f, torch.empty_like(f)),
-                                ranged=ranged, sep_check=shape == (2, 1))
+        err, sep = ring_parity(problem, fp, shape, dev, depth, x_rings,
+                               lambda f, d=depth: one[d](
+                                   f, torch.empty_like(f)),
+                               ranged=ranged, sep_check=shape == (2, 1))
         errs.append(err)
         print(f"bouzidi mesh parity {shape} N={depth}"
               f"{' overlap' if ranged else ''}: every shard within "
-              f"{err:.3e} of its plain ring step, bitwise one device{text}")
+              f"{err:.3e} of its plain ring step, bitwise one device"
+              f"{sep_text(sep)}")
     # the table's rings: -1 past the block, the link bits cleared there
     case = MeshCase(problem, (2, 1), dev, 4, False)
     blocks = case.split(fp)
@@ -3705,7 +3761,6 @@ def bz_magnus(dev) -> None:
     steps, make_chunk_fn): the lift nonzero, flipping with the spin,
     antisymmetric within 20%, the drag symmetric within 10%."""
     from tpulbm_torch.config import SimulationParams
-    from tpulbm_torch.convert import state_from_numpy
     from tpulbm_torch.models import make_problem
     from tpulbm_torch.ops import forces
     from tpulbm_torch.stepper import make_chunk_fn
@@ -3713,7 +3768,7 @@ def bz_magnus(dev) -> None:
     def run(omega):
         problem = make_problem(SimulationParams(**MAGNUS,
                                                 cylinder_omega=omega))
-        f = state_from_numpy(problem.initial_state(), problem, dev)
+        f = initial_state(problem, dev)
         f = make_chunk_fn(problem, dev, 4000)(f)
         force = forces.forces_fn(problem, dev)(f)
         torch.cuda.synchronize()
@@ -3836,13 +3891,18 @@ def bouzidi_phases(dev, card: str) -> list[dict]:
             problem = make_problem(bz_params(True, op))
             object.__setattr__(problem, "_bouzidi_tables",
                                bouzidi.link_tables(sphere))
+            # and its copy on the card (1.27 GB), not a second upload
+            bouzidi.device_table(sphere, dev)
+            object.__setattr__(problem, "_bouzidi_device_tables",
+                               sphere._bouzidi_device_tables)
         cell = BzCell(dev, "bouzidi sphere " + op, bz_params(True, op),
                       problem=problem)
         full = op == "bgk"
         err = cell_parity(cell, full)
         run_dir = OUT_DIR / ("bouzidi_sphere_" + op)
-        launches = cell_main_path(dev, cell, run_dir,
-                                  steps=2240 if full else CUT_3D_STEPS)
+        # every operator's Runner cut to CUT_3D_STEPS, BGK's too since the
+        # 3-D mesh phases (51-55) joined the budget
+        launches = cell_main_path(dev, cell, run_dir, steps=CUT_3D_STEPS)
         shutil.rmtree(run_dir)
         ms, b = cell_timing(cell, card)
         entries += bz_entries(cell, launches, err, ms, b)
@@ -4002,15 +4062,16 @@ def box3d_cells():
     return cells
 
 
-def box3d_fields_mass(label: str, problem, run_dir: Path) -> str:
+def box3d_fields_mass(label: str, problem, run_dir: Path,
+                      t: int = 2239) -> str:
     """The closed box's mass in the Runner's fields3d.npz (the state at
-    t = 2239) against the initial state's, through box_mass_gate with the
-    lattice's float32 weights' term."""
+    step t, the last but one) against the initial state's, through
+    box_mass_gate with the lattice's float32 weights' term."""
     with np.load(run_dir / "fields3d.npz") as fields:
         m = float(np.sum(fields["rho"], dtype=np.float64))
     f0 = problem.initial_state()
     m0 = float(np.sum(f0, dtype=np.float64))
-    return box_mass_gate(label, m, m0, 2239, weight_excess(problem.lattice),
+    return box_mass_gate(label, m, m0, t, weight_excess(problem.lattice),
                          problem.params.tau)
 
 
@@ -4116,7 +4177,6 @@ def box3d_gates(dev) -> None:
     from rest within 2% of the linear solution after 400 steps
     (tests/test_kolmogorov.py:288-310, 16x8x32, n 1, u0 0.01)."""
     from tpulbm_torch import physics
-    from tpulbm_torch.convert import state_from_numpy
     from tpulbm_torch.models import make_problem
     from tpulbm_torch.models.periodic2d import kolmogorov3d_kappa
     from tpulbm_torch.stepper import make_chunk_fn
@@ -4124,7 +4184,7 @@ def box3d_gates(dev) -> None:
     t0 = time.perf_counter()
 
     def start(problem):
-        return state_from_numpy(problem.initial_state(), problem, dev)
+        return initial_state(problem, dev)
 
     def advance(problem, f, steps):
         out = make_chunk_fn(problem, dev, steps)(f)
@@ -4221,10 +4281,14 @@ def box3d_phases(dev, card: str) -> list[dict]:
         if label.startswith("kolmogorov"):
             launches[label] = kolmogorov3d_main_path(dev, cell, run_dir)
         else:
-            launches[label] = cell_main_path(dev, cell, run_dir, steps=2240)
+            # cut to CUT_3D_STEPS since the 3-D mesh phases (51-55) joined
+            # the budget
+            launches[label] = cell_main_path(dev, cell, run_dir,
+                                             steps=CUT_3D_STEPS)
             if cell.problem.solid is None:
-                print(f"box3d mass {label} at t = 2239: "
-                      + box3d_fields_mass("flow", cell.problem, run_dir))
+                print(f"box3d mass {label} at t = {CUT_3D_STEPS - 1}: "
+                      + box3d_fields_mass("flow", cell.problem, run_dir,
+                                          CUT_3D_STEPS - 1))
     print(f"box3d main paths (phase 47): {time.perf_counter() - t0:.2f} s")
     kolmogorov2d_mesh_stats(dev)
     box3d_gates(dev)
@@ -4241,6 +4305,455 @@ def box3d_phases(dev, card: str) -> list[dict]:
     others.clear()
     print(f"box3d timing (phase 50): {time.perf_counter() - t0:.2f} s; "
           f"box3d phases {time.perf_counter() - t_all:.2f} s")
+    return entries
+
+
+# ---- phases 51-55: the 3-D problems on a mesh of shards (the ring builds
+# of both D3Q19 kernels)
+
+# the meshes of phase 51 and tpulbm's 4x2 (its dryrun_multichip's
+# sphere-3d-tiled family); the main path's mesh: sphere-256 (bench.py's
+# d3q19 row, BASELINE config 5) on 2x2, four 256x128x128 shards on the card
+MESH3D_SHAPES = ((2, 2), (4, 1), (1, 4))
+MESH3D_N = 64
+# every 3-D collision but BGK, each passing one parity case on (2,2)
+MESH3D_OTHER_OPS = ("mrt", "regularized", "les", "power_law")
+
+
+def mesh3d_cases():
+    """(label, params, x-cut depths) of phase 51 at 64^3: the sphere, the
+    bounce-back sphere under TRT, the Bouzidi sphere (depth 1 on x-cut
+    meshes, as tpulbm), the duct, the box, the box with the z force, D3Q27
+    on the sphere and the box, and one other collision a domain."""
+    n = MESH3D_N
+    sphere = obstacle_params(True).replace(nx=n, ny=n, nz=n)
+    bz = bz_params(True).replace(nx=n, ny=n, nz=n)
+    return [
+        ("sphere", sphere, (1, 2, 3)),
+        ("sphere bounce-back trt", sphere.replace(
+            obstacle_bc="bounce_back", collision="trt"), (1, 2, 3)),
+        ("sphere bouzidi", bz, (1,)),
+        ("sphere trt", sphere.replace(collision="trt"), (1, 2, 3)),
+        ("duct", duct_params(n), (1, 2, 3)),
+        ("duct mrt", duct_params(n, collision="mrt"), (1, 2, 3)),
+        ("box", box3d_params("taylor-green", n), (1, 2, 3)),
+        ("box z force", box3d_params("kolmogorov", n), (1, 2, 3)),
+        ("box z force regularized", box3d_params(
+            "kolmogorov", n, collision="regularized"), (1, 2, 3)),
+        ("sphere d3q27", sphere.replace(lattice3d="d3q27"), (1, 2, 3)),
+        ("box d3q27", box3d_params("taylor-green", n, lattice3d="d3q27"),
+         (1, 2, 3)),
+    ] + [(f"sphere {op}", sphere.replace(**OPERATORS_3D[op]), ())
+         for op in MESH3D_OTHER_OPS]
+
+
+def mesh3d_builds():
+    """(source, mode, variant) of the ring libraries phases 51-55 run: both
+    D3Q19 sources built with -DTPULBM_RINGS=1 for each library of
+    mesh3d_cases() (the spinning sphere shares the Bouzidi one)."""
+    from tpulbm_torch.models import make_problem
+    from tpulbm_torch.ops import step_cuda
+    out = []
+    for _, params, _ in mesh3d_cases():
+        c = step_cuda.kernel_constants(make_problem(params), 19)
+        for src in ("step_d3q19.cu", "step_d3q19_blocked.cu"):
+            b = (src, c.mode, c.variant | step_cuda.RINGS)
+            if b not in out:
+                out.append(b)
+    return out
+
+
+def ring3d_counts() -> dict:
+    """The 3-D ring wrapper's launches per (library, depth, shard)."""
+    from tpulbm_torch.ops import step_cuda
+    return step_cuda.launches_by_shard(step_cuda.collide_stream_rings_3d)
+
+
+def spinning_sphere(problem):
+    """The sphere spinning about z at a surface speed equal to the inlet
+    speed: its Bouzidi rule's moving-wall scalars, built by hand (tpulbm
+    spins only the 2-D cylinder)."""
+    p = problem.params
+    c = np.array([p.get_cylinder_x(), p.get_cylinder_y(), p.nz // 2],
+                 np.float64)
+    omega = p.inlet_velocity / float(p.get_cylinder_radius_cells())
+
+    def uw(pts):
+        d = pts - c
+        return np.stack([-omega * d[..., 1], omega * d[..., 0],
+                         np.zeros_like(d[..., 0])], axis=-1)
+
+    return dataclasses.replace(problem, obstacle_velocity=uw)
+
+
+def one_device_step(problem, dev, depth: int):
+    """The one-device 3-D kernel's step at `depth` (1, 2 or 3)."""
+    from tpulbm_torch.ops import step_cuda
+    if depth == 1:
+        return step_cuda.make_local_step_cuda_3d(problem, dev)
+    return step_cuda.make_local_step_cuda_3d_blocked(problem, dev, depth)
+
+
+def mesh3d_parity(dev) -> dict:
+    """Phase 51: every new ring build at 64^3. Returns {label: max error}."""
+    from tpulbm_torch.models import make_problem
+    errs = {}
+    for label, params, depths in mesh3d_cases():
+        problem = make_problem(params)
+        f0 = initial_state(problem, dev)
+        fp = perturbed(problem, f0)
+        one = {d: one_device_step(problem, dev, d) for d in (1, 2, 3)}
+        def one_device(g, d):
+            return one[d](g, torch.empty_like(g))
+
+        if not depths:
+            # the remaining collisions: one case on (2,2) at depth 3
+            err, sep = ring_parity(problem, fp, (2, 2), dev, 3, True,
+                                   lambda g: one_device(g, 3),
+                                   sep_check=True)
+            errs[label] = err
+            print(f"mesh3d parity {label} (2, 2) N=3 from the perturbed state:"
+                  f" every shard within {err:.3e} of its plain ring step, "
+                  f"bitwise one device, equilibrium rings {sep:.0f}x off")
+            continue
+        err, seps = 0.0, []
+        for shape in MESH3D_SHAPES:
+            # Bouzidi: every depth on a mesh that keeps x whole, depth 1 on
+            # one that cuts it (tpulbm's dispatch)
+            # the case's depths on (2,2); elsewhere 1 and 3, each
+            # source's build (the Bouzidi sphere at depth 1 where the mesh
+            # cuts x, tpulbm's dispatch)
+            here = ((1, 3) if shape[1] == 1 else depths if shape == (2, 2)
+                    else tuple(d for d in (1, 3) if d in depths))
+            for depth in here:
+                case = MeshCase(problem, shape, dev, depth, shape[1] != 1)
+                for name, f in (("initial", f0), ("perturbed", fp)):
+                    e, sep = ring_parity(problem, f, shape, dev, depth,
+                                         shape[1] != 1,
+                                         lambda g, d=depth: one_device(g, d),
+                                         sep_check=name == "perturbed",
+                                         case=case)
+                    err = max(err, e)
+                    if sep is not None:
+                        seps.append(sep)
+        # N-step ring launches bitwise N 1-step ring launches on (2,2)
+        d3 = max(d for d in depths) if depths else 1
+        if d3 > 1:
+            deep = MeshCase(problem, (2, 2), dev, d3, True)
+            shallow = MeshCase(problem, (2, 2), dev, 1, True)
+            got = gather(deep.step_all(deep.split(fp)))
+            blocks = shallow.split(fp)
+            for _ in range(d3):
+                blocks = shallow.step_all(blocks)
+            want = gather(blocks)
+            torch.cuda.synchronize()
+            require(torch.equal(got, want), f"{label}: an N={d3} ring launch "
+                    f"{float((got - want).abs().max())} off {d3} 1-step ones")
+            del deep, shallow, got, want, blocks
+        errs[label] = err
+        print(f"mesh3d parity {label} at {MESH3D_N}^3 on {MESH3D_SHAPES}, "
+              f"depths {depths} on (2, 2) and 1, 3 on the others (the "
+              f"Bouzidi sphere: 1 where x is cut), from the initial and "
+              f"the perturbed state: every shard within {err:.3e} of its "
+              f"plain ring step (the N-step tolerance), every mesh bitwise "
+              f"one device; equilibrium rings {min(seps):.0f}x the tolerance"
+              f" off at least; N-step ring launches bitwise N 1-step ones")
+        del one, f0, fp
+        torch.cuda.empty_cache()
+    return errs
+
+
+# one-device runs kept for a later phase: label -> (run directory, final
+# state, runner MLUPS)
+ONE_DEVICE_RUNS: dict = {}
+
+
+class CapturingRunner:
+    """A Runner that keeps its final state (the grid of blocks) for a
+    bitwise comparison."""
+
+    def __new__(cls, *args, **kw):
+        from tpulbm_torch.runner import Runner
+
+        class _Runner(Runner):
+            def write_final_results(self, f, fields_prev=None):
+                self.final_state = f
+                return super().write_final_results(f, fields_prev)
+
+        return _Runner(*args, **kw)
+
+
+def mesh3d_runner_pair(dev, params, shape, label: str, files) -> dict:
+    """The Runner on `shape` (every shard on the card) against the
+    one-device Runner (ONE_DEVICE_RUNS[label] where an earlier phase ran
+    it): counted, the gathered final state bitwise, `files` the same bytes
+    (.npz files: their arrays). Returns the counts per (library, depth,
+    shard)."""
+    from tpulbm_torch.parallel import sharded_step
+    d_mesh = OUT_DIR / f"mesh3d_{label}_{shape[0]}x{shape[1]}"
+    if label in ONE_DEVICE_RUNS:
+        d_one, ref, mlups1 = ONE_DEVICE_RUNS.pop(label)
+    else:
+        d_one = OUT_DIR / f"mesh3d_{label}_1x1"
+        one = CapturingRunner(params.replace(output_dir=str(d_one)),
+                              device=dev, verbose=False)
+        r1 = one.run()
+        require(r1.success, f"{label}: the one-device run failed")
+        ref, mlups1 = one.final_state[0][0], r1.mlups
+        del one
+    runner = CapturingRunner(params.replace(mesh_shape=shape,
+                                            output_dir=str(d_mesh)),
+                             devices=[dev] * (shape[0] * shape[1]),
+                             verbose=False)
+    reset_counts()
+    t0 = time.perf_counter()
+    result = runner.run()
+    wall = time.perf_counter() - t0
+    counts, others = ring3d_counts(), read_counts()
+    require(result.success, f"{label} {shape}: the run failed")
+    require(others == only(1, 0) and not ring_counts(),
+            f"{label}: other kernels launched {others}")
+    whole = sharded_step.gather(runner.final_state)
+    torch.cuda.synchronize()
+    require(torch.equal(whole, ref), f"{label} {shape}: the final state "
+            f"{float((whole - ref).abs().max())} off one device's")
+    for name in files:
+        same = (same_npz(d_mesh / name, d_one / name, skip=("params",)) if
+                name.endswith(".npz") else same_files(d_mesh, d_one, [name]))
+        require(same, f"{label} {shape}: {name} differs from one device's")
+    print(f"mesh3d runner {label} on {shape}, {params.num_timesteps} steps "
+          f"every {params.output_frequency}: ring launches per shard "
+          + ", ".join(f"N={d} {idx}: {n}" for (_, d, idx), n in
+                      sorted(counts.items()))
+          + f", 0 of another kernel; final state bitwise one device's, "
+          f"{', '.join(files)} the same bytes; {wall:.2f} s wall, runner "
+          f"{result.mlups:.1f} MLUPS (one device {mlups1:.1f}), "
+          f"{result.host_fetches} host fetches")
+    del runner, whole, ref
+    torch.cuda.empty_cache()
+    return counts
+
+
+def mesh3d_chunks(dev, problem, shapes, steps: int) -> None:
+    """`steps`-step chunks on each mesh of `shapes`, bitwise one device."""
+    from tpulbm_torch.parallel import sharded_step
+    f0 = perturbed(problem, initial_state(problem, dev))
+    want = step_cuda_chunk(problem, dev, steps)(f0.clone())
+    for shape in shapes:
+        mesh = card_mesh(shape, dev)
+        chunk = sharded_step.make_chunk_fn(problem, mesh, steps)
+        got = sharded_step.gather(chunk(sharded_step.split(mesh, f0)))
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"{steps} steps on {shape}: "
+                f"{float((got - want).abs().max())} off one device")
+        print(f"mesh3d {problem.params.problem} {problem.spatial_shape} "
+              f"{steps} steps on {shape} ({chunk.mode}, plan {chunk.plan}) "
+              f"from the perturbed state: bitwise one device")
+        del got
+    del f0, want
+    torch.cuda.empty_cache()
+
+
+def bz3d_mesh_forces(dev, problem, shapes, steps: int) -> None:
+    """Phase 53: the Bouzidi sphere's `steps` steps on each mesh bitwise
+    one device, its force (the cut-link momentum exchange with a one-cell
+    ring per shard) within FORCES_TOL of one device's."""
+    from tpulbm_torch.parallel import sharded_step
+    f0 = initial_state(problem, dev)
+    want = step_cuda_chunk(problem, dev, steps)(f0.clone())
+    one = sharded_step.Diagnostics(problem, card_mesh((1, 1), dev))
+    force_one = one.force([[want]]).cpu().numpy()
+    for shape in shapes:
+        mesh = card_mesh(shape, dev)
+        chunk = sharded_step.make_chunk_fn(problem, mesh, steps)
+        reset_counts()
+        blocks = chunk(sharded_step.split(mesh, f0))
+        counts = ring3d_counts()
+        got = sharded_step.gather(blocks)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"bouzidi {steps} steps on {shape}: "
+                f"{float((got - want).abs().max())} off one device")
+        force = sharded_step.Diagnostics(problem, mesh).force(
+            blocks).cpu().numpy()
+        np.testing.assert_allclose(force, force_one, **FORCES_TOL)
+        spin = problem.obstacle_velocity is not None
+        print(f"mesh3d bouzidi{' spinning' if spin else ''} sphere "
+              f"{problem.spatial_shape} {steps} steps on {shape} "
+              f"({chunk.mode}, plan {chunk.plan}, "
+              f"{sum(counts.values())} ring launches): bitwise one device; "
+              f"force {force.tolist()} against {force_one.tolist()} "
+              f"(max diff {float(np.abs(force - force_one).max()):.3e}, "
+              f"rtol 1e-4 / atol 5e-6)")
+        del blocks, got
+    del f0, want
+    torch.cuda.empty_cache()
+
+
+def mesh3d_timing(dev, card: str, problem, shape, depth: int,
+                  launches: int) -> dict:
+    """Phase 55 for one ring build: every shard's launch from the perturbed
+    state against its plain ring step (the line's max_abs_err), then, in
+    turns, the one-device kernel at the same depth, the four shards' ring
+    launches summed and one shard's plain ring step, ms per step; the
+    bound per shard: the kernel's bytes a cell plus the rings'."""
+    from tpulbm_torch.ops import step_cuda
+    f0 = initial_state(problem, dev)
+    fp = perturbed(problem, f0)
+    case = MeshCase(problem, shape, dev, depth, shape[1] != 1)
+    pblocks = case.split(fp)
+    prings = case.rings(pblocks)
+    got = case.step_all(pblocks, prings)
+    tol, err = n_step_tol(depth), 0.0
+    for (iy, ix), plain in case.plains.items():
+        want = plain(pblocks[iy][ix], *prings[iy][ix])
+        torch.testing.assert_close(got[iy][ix], want, **tol)
+        err = max(err, float((got[iy][ix] - want).abs().max()))
+    del pblocks, prings, got, want
+    blocks = case.split(f0)
+    rings = case.rings(blocks)
+    outs = [[torch.empty_like(b) for b in row] for row in blocks]
+    one = one_device_step(problem, dev, depth)
+    spare = torch.empty_like(f0)
+    plain = case.plains[0, 0]
+
+    def timed(fn, reps):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / reps / depth
+
+    def all_shards():
+        for iy, ix in case.mesh.shards():
+            case.launch(blocks[iy][ix], outs[iy][ix], rings[iy][ix], (iy, ix))
+
+    runs = {"one": (lambda: one(f0, spare), 60),
+            "rings": (all_shards, 60),
+            "shard": (lambda: case.launch(blocks[0][0], outs[0][0],
+                                          rings[0][0], (0, 0)), 120),
+            "plain": (lambda: plain(blocks[0][0], *rings[0][0]), 2)}
+    times = {k: [] for k in runs}
+    for which in list(runs) + list(runs)[::-1]:
+        times[which].append(timed(*runs[which]))
+    ms = {k: min(v) for k, v in times.items()}
+    nzl, nyl, nxl = case.local
+    q = problem.lattice.Q
+    hx = depth if case.x_rings else 0
+    cells = nzl * nyl * nxl
+    step_bytes = q * 4 * 2 + (1 if problem.solid is not None else 0)
+    ring_bytes = 2 * q * 4 * nzl * (depth * (nxl + 2 * hx) + hx * nyl)
+    bnd = bound_of(step_bytes, STEP_FLOPS["d3q19"] * q // 19, cells, depth)
+    bnd["bound_ms"] += 1e3 * ring_bytes / depth / HBM_BYTES_PER_S
+    lib = case.consts.library
+    print(f"timing mesh3d {lib} {problem.spatial_shape} on {shape} "
+          f"({'x rings' if case.x_rings else 'ring rows'}) N={depth} on "
+          f"{card}: the {case.mesh.size} shards' ring "
+          f"launches {ms['rings']:.5f} ms/step summed against the one-device"
+          f" kernel's {ms['one']:.5f} "
+          f"({100 * (ms['rings'] / ms['one'] - 1):+.2f}%); one "
+          f"{nzl}x{nyl}x{nxl} shard {ms['shard']:.5f} ms/step "
+          f"({100 * bnd['bound_ms'] / ms['shard']:.1f}% of its "
+          f"{bnd['bound_ms']:.5f} ms bound), its plain ring step "
+          f"{ms['plain']:.5f}; every shard within {err:.3e} of its plain "
+          f"ring step from the perturbed state")
+    kind = "tiled" if case.x_rings else "rows"
+    entry = {"name": f"d3q19_rings_{kind}" + (f"_n{depth}" if depth > 1
+                                              else "") + f"[{lib}]",
+             "route": "cuda",
+             "source": (step_cuda.SOURCE_3D if depth == 1
+                        else step_cuda.SOURCE_3D_BLOCKED),
+             "replaces": step_cuda.REPLACES_3D_RINGS,
+             "launches": launches, "max_abs_err": err, "ms": ms["shard"],
+             "plain_ms": ms["plain"], **bnd}
+    del case, blocks, rings, outs, spare, f0, fp
+    torch.cuda.empty_cache()
+    return entry, ms
+
+
+def mesh3d_phases(dev, card: str) -> list[dict]:
+    """Phases 51-55: the 3-D problems on a mesh of shards through the ring
+    builds of both D3Q19 kernels (mesh3d_builds). Returns their kernels'
+    JSON entries."""
+    from tpulbm_torch.models import make_problem
+    from tpulbm_torch.utils import cuda_build
+    from tpulbm_torch.ops import step_cuda
+
+    t_all = time.perf_counter()
+    for src, mode, variant in mesh3d_builds():
+        lib = cuda_build.load(src, step_cuda.build_defines(mode, variant))
+        print(f"build: {src} {step_cuda.build_defines(mode, variant)} (a 3-D "
+              f"ring build) in {lib.build_seconds:.2f} s "
+              f"({ptxas_summary(lib.log)})")
+
+    # phase 51: parity of every new build at 64^3
+    t0 = time.perf_counter()
+    errs = mesh3d_parity(dev)
+    print(f"mesh3d parity (phase 51): {time.perf_counter() - t0:.2f} s")
+
+    # phase 52: the main path, sphere-256 on 2x2 through the Runner
+    t0 = time.perf_counter()
+    sphere = obstacle_params(True)
+    main_params = sphere.replace(num_timesteps=2240, output_frequency=140)
+    # held to phase 7's one-device run of the same parameters
+    counts = mesh3d_runner_pair(dev, main_params, (2, 2), "sphere256",
+                                ["forces.csv", "fields3d.npz"])
+    lib = step_cuda.kernel_constants(make_problem(sphere), 19).library
+    want = {(lib, d, idx): n for d, n in LAUNCHES_3D[2240].items()
+            for idx in card_mesh((2, 2), dev).shards()}
+    require(counts == want, f"sphere-256 2x2 launches {counts}, not {want}")
+    main_launches = {d: sum(n for (_, dd, _), n in counts.items() if dd == d)
+                     for d in (1, 2, 3)}
+    mesh3d_chunks(dev, make_problem(sphere), ((4, 1), (1, 4), (4, 2)),
+                  CUT_3D_STEPS)
+    print(f"mesh3d main path (phase 52): {time.perf_counter() - t0:.2f} s")
+
+    # phase 53: the Bouzidi sphere at 256^3, 280 steps
+    t0 = time.perf_counter()
+    bz = make_problem(bz_params(True))
+    bz3d_mesh_forces(dev, bz, ((2, 1), (1, 2), (2, 2)), CUT_3D_STEPS)
+    bz3d_mesh_forces(dev, spinning_sphere(bz), ((2, 2),), CUT_3D_STEPS)
+    print(f"mesh3d bouzidi (phase 53): {time.perf_counter() - t0:.2f} s")
+
+    # phase 54: the boxes and D3Q27 through the Runner
+    t0 = time.perf_counter()
+    cut = dict(num_timesteps=CUT_3D_STEPS, output_frequency=140)
+    mesh3d_runner_pair(dev, box3d_params("taylor-green").replace(**cut),
+                       (2, 2), "periodic3d256", ["fields3d.npz"])
+    kol = box3d_params("kolmogorov", 128).replace(
+        stats_from=140, probe_points=((0.25, 0.5, 0.5), (0.75, 0.25, 0.6)),
+        **cut)
+    mesh3d_runner_pair(dev, kol, (2, 2), "kolmogorov3d128",
+                       ["fields3d.npz", "stats_fields.npz", "probes.csv"])
+    mesh3d_runner_pair(dev, obstacle_params(True, lattice3d="d3q27").replace(
+        nx=128, ny=128, nz=128, **cut), (2, 2), "sphere128d3q27",
+        ["forces.csv", "fields3d.npz"])
+    mesh3d_runner_pair(dev, duct_params(128).replace(**cut), (1, 2),
+                       "duct128", ["fields3d.npz"])
+    print(f"mesh3d boxes and D3Q27 (phase 54): "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # phase 55: timing in turns against the one-device kernels
+    t0 = time.perf_counter()
+    entries = []
+    problem = make_problem(sphere)
+    for depth in (1, 2, 3):
+        entry, _ = mesh3d_timing(dev, card, problem, (2, 2), depth,
+                                 main_launches[depth])
+        entry["max_abs_err"] = max(entry["max_abs_err"], errs["sphere"])
+        entries.append(entry)
+    entry, _ = mesh3d_timing(dev, card, problem, (4, 1), 3, 0)
+    entries.append(entry)
+    for depth, shape in ((3, (2, 1)), (1, (2, 2))):
+        entry, _ = mesh3d_timing(dev, card, bz, shape, depth, 0)
+        entries.append(entry)
+    print(f"mesh3d timing (phase 55): {time.perf_counter() - t0:.2f} s; "
+          f"mesh3d phases 51-55 {time.perf_counter() - t_all:.2f} s")
     return entries
 
 
@@ -4264,7 +4777,6 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
 
     from tpulbm_torch.config import PRESETS
-    from tpulbm_torch.convert import state_from_numpy
     from tpulbm_torch.models import make_problem
     from tpulbm_torch.ops import step_cuda, step_torch
     from tpulbm_torch.runner import Runner
@@ -4285,20 +4797,25 @@ def main() -> int:
     modes += [("step_thermal.cu", "smagorinsky")]
     # and the domain, source and obstacle builds of phases 25-29, the ring
     # builds of phases 30-34, the box's of phases 35-40, the Bouzidi ones
-    # of phases 41-45, the 3-D box's and D3Q27's of phases 46-50
+    # of phases 41-45, the 3-D box's and D3Q27's of phases 46-50, the 3-D
+    # ring builds of phases 51-55
     builds = (new_builds() + mesh_builds() + box_builds() + bz_builds()
-              + box3d_builds())
-    with ThreadPoolExecutor(len(sources) + len(modes) + len(builds)) as pool:
-        lib_jobs = [pool.submit(cuda_build.load, src) for src in sources]
-        mode_jobs = [pool.submit(cuda_build.load, src,
-                                 step_cuda.mode_defines(mode))
-                     for src, mode in modes]
-        build_jobs = [pool.submit(cuda_build.load, src,
-                                  step_cuda.build_defines(mode, variant))
-                      for src, mode, variant in builds]
-        libs = [job.result() for job in lib_jobs]
-        mode_libs = [job.result() for job in mode_jobs]
-        build_libs = [job.result() for job in build_jobs]
+              + box3d_builds() + mesh3d_builds())
+    jobs = ([(src, ()) for src in sources]
+            + [(src, step_cuda.mode_defines(mode)) for src, mode in modes]
+            + [(src, step_cuda.build_defines(mode, variant))
+               for src, mode, variant in builds])
+    # twice as many nvcc processes as cores, the N-step sources (the
+    # longest builds) first: every core busy to the end, without the
+    # contention of all ~210 at once
+    order = sorted(range(len(jobs)),
+                   key=lambda i: "_blocked" not in jobs[i][0])
+    with ThreadPoolExecutor(2 * (os.cpu_count() or 8)) as pool:
+        futures = {i: pool.submit(cuda_build.load, *jobs[i]) for i in order}
+        done = [futures[i].result() for i in range(len(jobs))]
+    libs = done[:len(sources)]
+    mode_libs = done[len(sources):len(sources) + len(modes)]
+    build_libs = done[len(sources) + len(modes):]
     print(f"build: {len(sources)} sources, {len(modes)} collision-mode "
           f"builds (D2Q9, D3Q19, thermal) and {len(builds)} domain, source, "
           f"obstacle and ring builds in {time.perf_counter() - t0:.2f} s")
@@ -4325,7 +4842,7 @@ def main() -> int:
     problem = make_problem(params)
     kstep = step_cuda.make_local_step_cuda(problem, dev)
     pstep = step_torch.make_step_rolled(problem, dev)
-    f0 = state_from_numpy(problem.initial_state(), problem, dev)
+    f0 = initial_state(problem, dev)
 
     def one_step_err(f: torch.Tensor) -> float:
         got = kstep(f, torch.empty_like(f))
@@ -4486,6 +5003,7 @@ def main() -> int:
     kernels.extend(box_phases(dev, card))
     kernels.extend(bouzidi_phases(dev, card))
     kernels.extend(box3d_phases(dev, card))
+    kernels.extend(mesh3d_phases(dev, card))
     print(f"chip_smoke: {time.perf_counter() - t_start:.2f} s in all")
     print(card)
     print(json.dumps({"kernels": kernels}))

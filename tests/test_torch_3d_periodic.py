@@ -23,7 +23,8 @@ Kolmogorov flow, ROADMAP Queue 1 item 16) against tpulbm, on the CPU.
 * the Runner's fields3d.npz, stats_fields.npz and probes.csv against
   tpulbm's Runner at the artifact tolerance, f32; the CLI's
   `--preset kolmogorov3d` and `--preset kolmogorov` at a cut depth; the
-  3-D box on a mesh raises naming ROADMAP item 19.
+  3-D box runs on a mesh, the thermal box there raises naming ROADMAP
+  item 19.
 
 The float32 weights sum to 1 + 2^-26 on D3Q19 and 1 + 2^-27 on D3Q27: a
 closed box's f32 mass grows by that term times 1/tau a step (the card's
@@ -440,9 +441,16 @@ def test_cli_runs_the_presets_on_the_cpu(tmp_path, argv, files):
 
 
 def test_box_on_a_mesh_raises_naming_item_19(tmp_path):
+    # the 3-D box runs on a mesh (tests/test_torch_mesh3d.py); the thermal
+    # box, the passive scalar, still raises naming item 19 there
     params = PRESETS["kolmogorov3d"].replace(
         nx=16, ny=16, nz=16, mesh_shape=(2, 1), output_dir=str(tmp_path))
+    runner = Runner(params, device="cpu")
+    assert runner.mesh.shape == (2, 1)
+    scalar = PRESETS["taylor-green"].replace(
+        problem="passive-scalar", thermal_tau=0.6, mesh_shape=(2, 1),
+        output_dir=str(tmp_path))
     with pytest.raises(NotImplementedError, match="item 19"):
-        Runner(params, device="cpu")
+        Runner(scalar, device="cpu")
     assert PRESETS["kolmogorov3d"].to_json() == \
         __import__("tpulbm.config").config.PRESETS["kolmogorov3d"].to_json()

@@ -2,7 +2,8 @@
 against N launches of the 1-step kernels, on the card: D2Q9 (under every
 collision, with either Zou-He corner rule), D3Q19 (one step and N steps,
 under every collision tpulbm runs in 3-D), the thermal D2Q9 + D2Q5 kernel
-(BGK and the Smagorinsky closure) and the Shan-Chen multiphase kernel. These
+(BGK and the Smagorinsky closure), the Shan-Chen multiphase kernel and the
+ring builds on meshes of shards (2-D and 3-D). These
 tests need an NVIDIA GPU with nvcc and skip elsewhere; run them on the
 card with
 
@@ -875,3 +876,51 @@ def test_z_force_acts_in_the_kernel(cuda):
     miss = float(((without - want).abs()
                   / (1e-7 + 5e-6 * want.abs())).max())
     assert miss > 100, miss
+
+
+# the ring builds of both D3Q19 kernels (-DTPULBM_RINGS=1) on 3-D meshes,
+# every shard on the card: a 12-step chunk (tpulbm's depth-3 split, or
+# depth 1 for the Bouzidi sphere on an x-cut mesh and under
+# TPULBM_NO_FUSED2) bitwise equal to the one-device chunk from a ±10%
+# perturbed state, every launch counted per library, depth and shard
+RING3D_CASES = {
+    "sphere": dict(problem="cylinder3d", nx=48, ny=24, nz=12, tau=0.6,
+                   inlet_velocity=0.05, cylinder_x=0.5, cylinder_y=0.5,
+                   cylinder_radius=0.3),
+    "duct": dict(problem="poiseuille", nx=48, ny=24, nz=12, tau=0.8,
+                 inlet_velocity=0.0, body_force=(1e-4, 0.0, 0.0)),
+    "box": dict(problem="kolmogorov", nx=48, ny=24, nz=12, tau=0.8,
+                inlet_velocity=0.05, cylinder_radius=0.0),
+}
+RING3D_CASES.update({
+    "bounce_back_trt": dict(RING3D_CASES["sphere"],
+                            obstacle_bc="bounce_back", collision="trt"),
+    "bouzidi": dict(RING3D_CASES["sphere"], obstacle_bc="bouzidi"),
+    "sphere_d3q27": dict(RING3D_CASES["sphere"], lattice3d="d3q27"),
+    "box_d3q27": dict(RING3D_CASES["box"], lattice3d="d3q27")})
+
+
+@pytest.mark.parametrize("case", sorted(RING3D_CASES))
+@pytest.mark.parametrize("shape,env", [((2, 2), {}), ((4, 1), {}),
+                                       ((1, 4), {}),
+                                       ((2, 1), {"TPULBM_NO_FUSED2": "1"})])
+def test_ring_kernels_3d_equal_one_device(cuda, monkeypatch, case, shape,
+                                          env):
+    from tpulbm_torch.parallel import sharded_step
+    from tpulbm_torch.parallel.mesh import make_mesh
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    problem = make_problem(SimulationParams(precision="f32",
+                                            **RING3D_CASES[case]))
+    f = state_from_numpy(_noisy(problem, 5), problem, cuda)
+    mesh = make_mesh(shape, devices=[cuda] * (shape[0] * shape[1]))
+    chunk = sharded_step.make_chunk_fn(problem, mesh, 12)
+    want = make_chunk_fn(problem, cuda, 12)(f.clone())
+    step_cuda.reset_launch_counts()
+    got = sharded_step.gather(chunk(sharded_step.split(mesh, f)))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), float((got - want).abs().max())
+    lib = step_cuda.kernel_constants(problem, 19).library
+    assert step_cuda.launches_by_shard(step_cuda.collide_stream_rings_3d) \
+        == {(lib, d, idx): n for d, n in chunk.plan for idx in mesh.shards()}
+    assert step_cuda.launches(step_cuda.collide_stream_3d) == 0

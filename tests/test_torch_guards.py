@@ -119,12 +119,15 @@ def test_runner_refuses_cuda_without_a_card(tmp_path):
         Runner(params, device="cuda")
 
 
+# the 3-D meshes run (tests/test_torch_mesh3d.py); thermal and multiphase
+# meshes still raise
 @pytest.mark.parametrize("override", [dict(precision="f64"),
                                       dict(mesh_shape=(2, 1),
-                                           problem="cylinder3d", nz=16),
+                                           problem="rayleigh-benard"),
                                       dict(mesh_shape=(2, 1),
-                                           problem="kolmogorov", nz=16,
-                                           cylinder_radius=0.0,
+                                           problem="multiphase",
+                                           shan_chen_g=-5.0, tau=1.0,
+                                           inlet_velocity=0.0,
                                            stats_from=0),
                                       dict(problem="cylinder3d", nz=16,
                                            lattice3d="d3q27",

@@ -31,20 +31,25 @@ def test_problem_arrays_match_tpulbm_bytewise(preset, precision):
 
 
 # the periodic boxes run in 2-D (tests/test_torch_periodic.py) and 3-D
-# (tests/test_torch_3d_periodic.py); what stays refused: the 3-D boxes on a
-# mesh and the passive scalar on a mesh (item 19), and tpulbm's own
+# (tests/test_torch_3d_periodic.py), the 3-D boxes on a mesh too
+# (tests/test_torch_mesh3d.py: error None, the Problem builds); what stays
+# refused: the passive scalar on a mesh (item 19), and tpulbm's own
 # ValueError for a 3-D shear layer
 @pytest.mark.parametrize("problem,override,error,item", [
-    ("kolmogorov", dict(nz=8, mesh_shape=(2, 1)), NotImplementedError,
-     "item 19"),
+    ("kolmogorov", dict(nz=8, mesh_shape=(2, 1)), None, None),
     ("passive-scalar", dict(thermal_tau=0.6, mesh_shape=(2, 1)),
      NotImplementedError, "item 19"),
     ("taylor-green", dict(nz=8, lattice3d="d3q27", mesh_shape=(1, 2)),
-     NotImplementedError, "item 19"),
+     None, None),
     ("shear-layer", dict(nz=8), ValueError, "2-D only")])
 def test_unported_problems_name_their_roadmap_item(problem, override, error,
                                                    item):
     params = PRESETS["cylinder-small"].replace(problem=problem, **override)
+    if error is None:
+        mine, ref = port_problem(params), jax_problem(params)
+        assert mine.lattice.Q == ref.lattice.Q and mine.lattice.D == 3
+        assert mine.params.mesh_shape == override["mesh_shape"]
+        return
     if error is ValueError:
         with pytest.raises(error, match=item):
             jax_problem(params)
@@ -63,13 +68,14 @@ def test_cylinder3d_without_nz_raises_tpulbm_error():
 _SPHERE = dict(problem="cylinder3d", nz=8)
 
 
-# D3Q27 runs (tests/test_torch_d3q27.py) but for the Bouzidi obstacle, and
-# on one device only
+# D3Q27 runs (tests/test_torch_d3q27.py), on a mesh too
+# (tests/test_torch_mesh3d.py), but for the Bouzidi obstacle, on one device
+# and on a mesh
 @pytest.mark.parametrize("override,item", [
     (dict(nz=16), "item 16"),
     (dict(_SPHERE, lattice3d="d3q27", obstacle_bc="bouzidi"), "item 16"),
-    (dict(problem="poiseuille", nz=8, lattice3d="d3q27", mesh_shape=(2, 1)),
-     "item 19")])
+    (dict(_SPHERE, lattice3d="d3q27", obstacle_bc="bouzidi",
+          mesh_shape=(2, 1)), "item 16")])
 def test_unported_options_name_their_roadmap_item(override, item):
     with pytest.raises(NotImplementedError, match=re.escape(item)):
         port_problem(PRESETS["cylinder-small"].replace(**override))

@@ -150,18 +150,21 @@ def test_force_source_matches_tpulbm(x_force):
                                np.asarray(want), rtol=1e-14, atol=1e-20)
 
 
-# the 3-D boxes run on one device (tests/test_torch_3d_periodic.py); on a
-# mesh they raise naming item 19
+# the 3-D boxes run on one device (tests/test_torch_3d_periodic.py) and on
+# a mesh (tests/test_torch_mesh3d.py: error None, the Problem builds);
+# tpulbm's 2-D-only problems raise its ValueError in 3-D
 @pytest.mark.parametrize("preset,override,error,match", [
-    ("kolmogorov3d", dict(mesh_shape=(2, 1)), NotImplementedError,
-     "item 19"),
-    ("taylor-green", dict(nz=16, mesh_shape=(1, 2)), NotImplementedError,
-     "item 19"),
+    ("kolmogorov3d", dict(mesh_shape=(2, 1)), None, None),
+    ("taylor-green", dict(nz=16, mesh_shape=(1, 2)), None, None),
     ("shear-layer", dict(nz=16), ValueError, "2-D only"),
     ("taylor-green", dict(problem="passive-scalar", thermal_tau=0.6, nz=16),
      ValueError, "2-D only")])
 def test_3d_boxes_raise(preset, override, error, match):
     params = PRESETS[preset].replace(**override)
+    if error is None:
+        problem = make_problem(params)
+        assert problem.lattice.D == 3 and problem.periodic_z
+        return
     with pytest.raises(error, match=match):
         make_problem(params)
 

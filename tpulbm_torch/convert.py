@@ -12,7 +12,9 @@ port's Problem, Kolmogorov's force profile included, is built from them
 A tpulbm single-device checkpoint (tpulbm's checkpoint.save: one .npz with
 `f`, `step` and the params JSON) can be continued in the port, and one the
 port writes in tpulbm. A sharded state (a mesh of several shards) is the
-(my, mx) grid of local blocks in tpulbm's shard order, row by row:
+(my, mx) grid of local blocks in tpulbm's shard order, row by row, each
+(Q, [nz,] nyl, nxl) (the mesh cuts y and x, as tpulbm's P(None, [None,]
+"y", "x")):
 split_state and gather_state carry a global state into and out of one.
 """
 from __future__ import annotations
@@ -46,12 +48,17 @@ def state_from_numpy(f: np.ndarray, problem: Problem, device) -> torch.Tensor:
 
 def state_from_numpy_block(block: np.ndarray, problem: Problem,
                            device) -> torch.Tensor:
-    """One shard's host block (state_q, nyl, nxl) as a contiguous tensor on
-    `device`; raises unless its planes and dtype are the problem's."""
+    """One shard's host block (state_q, [nz,] nyl, nxl) as a contiguous
+    tensor on `device`; raises unless its planes, its z extent and its
+    dtype are the problem's."""
     block = np.asarray(block)
-    if block.ndim != 3 or block.shape[0] != problem.state_q:
+    lead = tuple(problem.spatial_shape[:-2])
+    if (block.ndim != 3 + len(lead) or block.shape[0] != problem.state_q
+            or tuple(block.shape[1:-2]) != lead):
         raise ValueError(f"block shape {block.shape} is not a "
-                         f"({problem.state_q}, nyl, nxl) block")
+                         f"({problem.state_q}, "
+                         + "".join(f"{n}, " for n in lead)
+                         + "nyl, nxl) block")
     if block.dtype != np.dtype(problem.dtype):
         raise TypeError(f"block dtype {block.dtype} != problem's "
                         f"{np.dtype(problem.dtype)}")
@@ -79,7 +86,7 @@ def load_tpulbm_checkpoint(path: str, params: SimulationParams,
 
 
 def split_state(f: np.ndarray, problem: Problem, mesh) -> list:
-    """A tpulbm global state (state_q, ny, nx) as the sharded state of
+    """A tpulbm global state (state_q, [nz,] ny, nx) as the sharded state of
     `mesh` (parallel/mesh.Mesh): block (iy, ix) a contiguous tensor on
     mesh.device(iy, ix); raises unless its shape and dtype are the
     problem's."""
@@ -88,7 +95,7 @@ def split_state(f: np.ndarray, problem: Problem, mesh) -> list:
 
 
 def gather_state(shards: list) -> np.ndarray:
-    """The global host state (Q, ny, nx) of a sharded state."""
+    """The global host state (Q, [nz,] ny, nx) of a sharded state."""
     return np.concatenate([np.concatenate([state_to_numpy(b) for b in row],
                                           axis=-1) for row in shards],
                           axis=-2)

@@ -26,7 +26,9 @@
 // 3-D KBC, and no MRT on D3Q27); so are the domain, the source, the force
 // profile, the obstacle rule and the velocity set (-DTPULBM_Q=27 for
 // D3Q27; D3Q19 by default). Every loop over the populations is the
-// X-macro TPULBM_LAT3D of the build's set.
+// X-macro TPULBM_LAT3D of the build's set. Built with -DTPULBM_RINGS=1
+// both kernels step one shard of a mesh (Shard below) instead of the
+// whole grid.
 
 #pragma once
 
@@ -528,5 +530,111 @@ __device__ __forceinline__ void apply_bouzidi(float* g, const float* q,
   TPULBM_LAT3D(TPULBM_BZ)
 #undef TPULBM_BZ
 }
+
+// One shard of a 3-D mesh (the rings builds, kRings): the block of rows
+// [y0, y0 + nyl) and columns [x0, x0 + nxl) of the global nx x ny grid, at
+// every one of its nz planes (z is never cut: f is (Q, nz, nyl, nxl)), and
+// the rings its neighbours sent, each `depth` cells deep and nz planes
+// tall: rb and rt the rows below and above the block, (Q, nz, depth,
+// nxl + 2 hx), extended across the x rings so that they carry the diagonal
+// neighbours' corners (tpulbm's ring_rows_ext_3d); rl and rr the columns
+// left and right of it, (Q, nz, nyl, hx). hx is depth where the mesh cuts x
+// and 0 where the block spans every column: there the duct's and the box's
+// x wraps inside the block, as on one device. y never wraps inside the
+// block: in the box the rows around it come from rb and rt, which carry the
+// wrapped neighbours' rows, and on a cut x the wrapped columns come from rl
+// and rr. mask is the kernel mask of the block and its rings, (nz, nyl +
+// 2 depth, nxl + 2 depth), a byte per cell (kSolidBit, and kLinkBit under
+// kBouzidi, whose link table the launch reads padded the same way).
+//
+// The kernels keep working in global coordinates: a window cell at global
+// (gx, gy, z) is stepped where it is a cell of the domain, exactly as on
+// one device, so the ghost rule, the walls, the inlet, the outlet, the
+// obstacle and the force act only at the domain's own edges and cells;
+// find() says whether the window cell's populations are held, in the
+// block or in a ring, and locate() points at them there. A cell beyond
+// the rings is never loaded: no cell that the launch writes depends on it.
+struct Shard {
+  const float* f;
+  const float* rb;
+  const float* rt;
+  const float* rl;
+  const float* rr;
+  const uint8_t* mask;
+  int nxl, nyl, nz, x0, y0, hx, depth;
+
+  // Whether the window cell at global (gx, gy) is a cell of the domain that
+  // the block or its rings hold (in the box every row and column is); if
+  // so (lx, ly) are its coordinates in the block (negative or past nxl,
+  // nyl in a ring) and gx is taken mod nx in the duct and the box.
+  __device__ __forceinline__ bool find(int& gx, int gy, int nx, int ny,
+                                       int& lx, int& ly) const {
+    if (!kPeriodicY && (gy < 0 || gy >= ny)) return false;
+    ly = gy - y0;
+    if (ly < -depth || ly >= nyl + depth) return false;
+    if (!kPeriodicX && (gx < 0 || gx >= nx)) return false;
+    if (hx == 0) {
+      if constexpr (kPeriodicX) {
+        gx %= nx;
+        if (gx < 0) gx += nx;
+      }
+      lx = gx - x0;
+      return true;
+    }
+    lx = gx - x0;
+    if (lx < -hx || lx >= nxl + hx) return false;
+    if constexpr (kPeriodicX) {
+      gx %= nx;
+      if (gx < 0) gx += nx;
+    }
+    return true;
+  }
+
+  // Population 0 at plane z of the cell at block coordinates (lx, ly) that
+  // find() returned, in the block or the ring that holds it; population i
+  // lies i * stride floats further.
+  __device__ __forceinline__ const float* locate(int lx, int ly, int z,
+                                                 size_t& stride) const {
+    const size_t wr = static_cast<size_t>(nxl) + 2 * hx;
+    const size_t zc = static_cast<size_t>(z);
+    if (ly < 0) {
+      stride = static_cast<size_t>(nz) * depth * wr;
+      return rb + (zc * depth + depth + ly) * wr + lx + hx;
+    }
+    if (ly >= nyl) {
+      stride = static_cast<size_t>(nz) * depth * wr;
+      return rt + (zc * depth + ly - nyl) * wr + lx + hx;
+    }
+    if (lx < 0) {
+      stride = static_cast<size_t>(nz) * nyl * hx;
+      return rl + (zc * nyl + ly) * hx + hx + lx;
+    }
+    if (lx >= nxl) {
+      stride = static_cast<size_t>(nz) * nyl * hx;
+      return rr + (zc * nyl + ly) * hx + lx - nxl;
+    }
+    stride = static_cast<size_t>(nz) * nyl * nxl;
+    return f + (zc * nyl + ly) * nxl + lx;
+  }
+
+  // The index of the cell at block coordinates (lx, ly) and plane z in the
+  // mask and in the link table (both padded by depth rows and columns).
+  __device__ __forceinline__ size_t padded(int lx, int ly, int z) const {
+    return (static_cast<size_t>(z) * (nyl + 2 * depth) + ly + depth) *
+               (nxl + 2 * depth) +
+           lx + depth;
+  }
+
+  // The index of the cell at block coordinates (lx, ly) and plane z in the
+  // block (and in out).
+  __device__ __forceinline__ size_t cell(int lx, int ly, int z) const {
+    return (static_cast<size_t>(z) * nyl + ly) * nxl + lx;
+  }
+
+  // Whether the launch writes the cell at block coordinates (lx, ly).
+  __device__ __forceinline__ bool writes(int lx, int ly) const {
+    return lx >= 0 && lx < nxl && ly >= 0 && ly < nyl;
+  }
+};
 
 }  // namespace tpulbm3d

@@ -64,6 +64,16 @@
 // its collision (collide_cell), so the N-step kernel, which adds the same
 // column at every substep, gives the same bits.
 //
+// Built with -DTPULBM_RINGS=1 the kernel steps one shard of a mesh
+// (tpulbm3d::Shard): make_local_step_pallas3d_tiled at n_sub=1 with its
+// ring inputs rb/rt and, on a mesh that cuts x (x_halo), rl/rr. The tiles
+// cover the shard's block, right-aligned to its last column, so the shard
+// that holds x = nx-1 holds the outlet's neighbourhood; the tile and halo
+// cells are loaded through find() and locate() from the block or its
+// rings, and every cell keeps its global coordinates, so the shard's
+// cells take the bits one device gives them. Its plain version is
+// tpulbm_torch/ops/step_rings_torch.py.
+//
 // The collision, the pull and the boundary sequence live in
 // d3q19_common.cuh, shared with the N-step kernel (step_d3q19_blocked.cu);
 // both libraries are built with -fmad=false, so one launch of that kernel
@@ -106,14 +116,19 @@ __global__ void __launch_bounds__(kBX * kBY)
                       const uint8_t* __restrict__ solid,
                       const float* __restrict__ force, int nx, int ny,
                       int nz, const __grid_constant__ Consts k,
-                      tpulbm::Links links) {
+                      tpulbm::Links links,
+                      const __grid_constant__ tpulbm3d::Shard sh) {
   extern __shared__ float ring[];  // 3 collided planes (tile + halo)
 
   const int tx = threadIdx.x;
   const int ty = threadIdx.y;
   const int tid = ty * kBX + tx;
-  const int x0 = nx - kBX * (static_cast<int>(blockIdx.x) + 1);  // right-aligned
-  const int y0 = static_cast<int>(blockIdx.y) * kBY;
+  // the tile's global origin, right-aligned to the last column of the grid
+  // (of the shard's block in a rings build)
+  const int x0 = (tpulbm::kRings ? sh.x0 + sh.nxl : nx) -
+                 kBX * (static_cast<int>(blockIdx.x) + 1);
+  const int y0 = (tpulbm::kRings ? sh.y0 : 0) +
+                 static_cast<int>(blockIdx.y) * kBY;
   const int z0 = static_cast<int>(blockIdx.z) * kZChunk;
   const int z1 = z0 + kZChunk < nz ? z0 + kZChunk : nz;
   const size_t plane = static_cast<size_t>(nx) * ny;
@@ -133,6 +148,23 @@ __global__ void __launch_bounds__(kBX * kBY)
       const int lx = t - ly * kTX;
       int gx = x0 + lx - 1;
       int gy = y0 + ly - 1;
+      if constexpr (tpulbm::kRings) {
+        int bx, by;
+        if (!sh.find(gx, gy, nx, ny, bx, by)) continue;
+        size_t stride;
+        const float* src = sh.locate(bx, by, z, stride);
+        float v[kQ];
+#pragma unroll
+        for (int i = 0; i < kQ; ++i) v[i] = src[i * stride];
+        tpulbm3d::collide_cell(
+            v, k,
+            tpulbm3d::kBounceBack &&
+                tpulbm3d::is_solid(sh.mask[sh.padded(bx, by, z)]),
+            force + z, nz);
+#pragma unroll
+        for (int i = 0; i < kQ; ++i) r[ring_index(i, ly, lx)] = v[i];
+        continue;
+      }
       if constexpr (tpulbm3d::kPeriodicX) {
         if (gx < -1 || gx > nx) continue;
         gx = gx < 0 ? nx - 1 : gx >= nx ? 0 : gx;
@@ -166,12 +198,41 @@ __global__ void __launch_bounds__(kBX * kBY)
 
   const int x = x0 + tx;
   const int y = y0 + ty;
-  const bool active = x >= 0 && y < ny;
+  const bool active = tpulbm::kRings ? sh.writes(x - sh.x0, y - sh.y0)
+                                     : x >= 0 && y < ny;
 
   for (int z = z0; z < z1; ++z) {
     load(z + 1, rp);
     __syncthreads();
-    if (active) {
+    if (tpulbm::kRings && active) {
+      const int bx = x - sh.x0;
+      const int by = y - sh.y0;
+      float g[kQ];
+      tpulbm3d::step_cell(
+          g,
+          [&](int ox) {
+            return tpulbm3d::is_solid(sh.mask[sh.padded(bx + ox, by, z)]);
+          },
+          x, y, z, nx, ny, nz, k, [&](auto i, int ox, int oy, int oz) {
+            const float* r = oz < 0 ? rm : oz > 0 ? rp : r0;
+            return r[ring_index(decltype(i)::value, ty + 1 + oy,
+                                tx + 1 + ox)];
+          });
+      if constexpr (tpulbm3d::kBouzidi) {
+        const size_t at = sh.padded(bx, by, z);
+        if (sh.mask[at] & tpulbm::kLinkBit) {
+          tpulbm3d::apply_bouzidi(g, links.q + at, links.plane,
+                                  links.moving != 0, [&](auto i) {
+                                    return r0[ring_index(decltype(i)::value,
+                                                         ty + 1, tx + 1)];
+                                  });
+        }
+      }
+      const size_t cell = sh.cell(bx, by, z);
+      const size_t block = static_cast<size_t>(sh.nz) * sh.nyl * sh.nxl;
+#pragma unroll
+      for (int i = 0; i < kQ; ++i) out[i * block + cell] = g[i];
+    } else if (!tpulbm::kRings && active) {
       const size_t cell = static_cast<size_t>(z) * plane +
                           static_cast<size_t>(y) * nx + x;
       float g[kQ];
@@ -205,14 +266,15 @@ __global__ void __launch_bounds__(kBX * kBY)
 }  // namespace
 
 // Plain C interface, loaded with ctypes (tpulbm_torch/ops/step_cuda.py).
-// Launches one step on `stream` and returns cudaGetLastError() (or the
-// error of raising the kernel's shared-memory limit): it neither
-// synchronizes nor allocates.
+// Each launcher launches one step on `stream` and returns
+// cudaGetLastError() (or the error of raising the kernel's shared-memory
+// limit): it neither synchronizes nor allocates.
 // links and link_planes: the Bouzidi link table, 19 or 38 planes
 // (tpulbm::Links), read by the kBouzidi build only (elsewhere null and 0).
 // force: the force profile's (Q, nz) table on the card, read by the kForce
 // build only (elsewhere null). The host arrays eq_in, w and src hold Q
 // floats.
+#if !TPULBM_RINGS
 extern "C" int tpulbm_d3q19_step(const float* f, float* out,
                                  const uint8_t* solid, int nx, int ny, int nz,
                                  float inv_tau, const float* eq_in,
@@ -236,9 +298,47 @@ extern "C" int tpulbm_d3q19_step(const float* f, float* out,
                       static_cast<cudaStream_t>(stream)>>>(
       f, out, solid, force, nx, ny, nz, k,
       tpulbm::Links{links, static_cast<size_t>(nx) * ny * nz,
-                    link_planes == 2 * kQ});
+                    link_planes == 2 * kQ},
+      tpulbm3d::Shard{});
   return static_cast<int>(cudaGetLastError());
 }
+#else
+// One step of the shard (nxl x nyl at global x0, y0 of the nx x ny grid,
+// every one of the nz planes) from f and its rings (depth 1; hx 0 or 1, as
+// tpulbm3d::Shard describes them) into out. mask is the shard's kernel mask
+// padded by one row and column, and links its cut of the link table padded
+// the same way.
+extern "C" int tpulbm_d3q19_step_rings(
+    const float* f, float* out, const uint8_t* mask, const float* rb,
+    const float* rt, const float* rl, const float* rr, int nx, int ny,
+    int nz, int nxl, int nyl, int x0, int y0, int hx, float inv_tau,
+    const float* eq_in, const float* w, const float* mode, const float* src,
+    const float* force, const float* links, int link_planes, int device,
+    void* stream) {
+  if (!tpulbm::links_fit(links, link_planes, kQ)) return cudaErrorInvalidValue;
+  if ((force != nullptr) != tpulbm::kForce) return cudaErrorInvalidValue;
+  if (nxl < 1 || nyl < 1 || (hx != 0 && hx != 1)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(d3q19_step_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kRingBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Consts k = tpulbm3d::make_consts(inv_tau, eq_in, w, mode, src);
+  const tpulbm3d::Shard sh{f, rb, rt, rl, rr, mask, nxl, nyl, nz,
+                           x0, y0, hx, 1};
+  const dim3 block(kBX, kBY);
+  const dim3 grid((nxl + kBX - 1) / kBX, (nyl + kBY - 1) / kBY,
+                  (nz + kZChunk - 1) / kZChunk);
+  d3q19_step_kernel<<<grid, block, kRingBytes,
+                      static_cast<cudaStream_t>(stream)>>>(
+      f, out, nullptr, force, nx, ny, nz, k,
+      tpulbm::Links{links, static_cast<size_t>(nz) * (nyl + 2) * (nxl + 2),
+                    link_planes == 2 * kQ},
+      sh);
+  return static_cast<int>(cudaGetLastError());
+}
+#endif
 
 // The dynamic shared memory a block of the kernel takes, in bytes.
 extern "C" int tpulbm_d3q19_smem_bytes() { return kRingBytes; }

@@ -86,6 +86,18 @@
 // slots (43 floats a cell instead of 38; 226,948 B at N=3, 134,512 B at
 // N=2, still one block an SM).
 //
+// Built with -DTPULBM_RINGS=1 the kernel steps one shard of a mesh
+// (tpulbm3d::Shard): make_local_step_pallas3d_tiled at n_sub 2, 3 with its
+// ring inputs, N rows deep, and on a mesh that cuts x its N columns deep
+// x rings (x_halo). The output tiles cover the shard's block, right-aligned
+// to its last column; every stage's widened tile takes its cells from the
+// block or the rings (find(), locate()), so no cell wraps inside the block
+// on a cut axis: the duct's wrapped x columns and the box's wrapped rows
+// come from the rings. A stage computes only the window cells the block
+// and its rings hold; the trapezoid keeps the rest out of every cell the
+// launch writes. Under kBouzidi (on a mesh that keeps x whole, as tpulbm's
+// dispatch runs it) the cut links read the shard's padded link table.
+//
 // Bits. Collision, pull and boundary code come from d3q19_common.cuh,
 // shared with step_d3q19.cu, and both libraries are built with -fmad=false:
 // one launch gives the same bits as N launches of the 1-step kernel.
@@ -289,6 +301,7 @@ template <int N, int K>
 __device__ __forceinline__ void inner_stages(float* smem, const March& g,
                                              const Consts& k,
                                              const tpulbm::Links& links,
+                                             const tpulbm3d::Shard& sh,
                                              int m) {
   if constexpr (K < N) {
     using T = Tile<N>;
@@ -326,7 +339,12 @@ __device__ __forceinline__ void inner_stages(float* smem, const March& g,
         const int lx = t - ly * W;
         int x = g.x0 - (N - K) + lx;
         int y = g.y0 - (N - K) + ly;
-        in[j] = t < C && tile_cell(x, y, g.nx, g.ny);
+        int bx = 0, by = 0;  // the cell in the shard's block (kRings)
+        if constexpr (tpulbm::kRings) {
+          in[j] = t < C && sh.find(x, y, g.nx, g.ny, bx, by);
+        } else {
+          in[j] = t < C && tile_cell(x, y, g.nx, g.ny);
+        }
         solid[j] = false;
         if (in[j]) {
           const int at = (ly + 1) * Ws + lx + 1;     // this cell in stage K-1
@@ -345,7 +363,9 @@ __device__ __forceinline__ void inner_stages(float* smem, const March& g,
             // ring, which stage K does not write
             if (mask[at0] & tpulbm::kLinkBit) {
               const size_t cell =
-                  (static_cast<size_t>(p) * g.ny + y) * g.nx + x;
+                  tpulbm::kRings
+                      ? sh.padded(bx, by, pz)
+                      : (static_cast<size_t>(p) * g.ny + y) * g.nx + x;
               tpulbm3d::apply_bouzidi(
                   v[j], links.q + cell, links.plane, links.moving != 0,
                   [&](auto i) {
@@ -364,7 +384,7 @@ __device__ __forceinline__ void inner_stages(float* smem, const March& g,
       }
     }
     __syncthreads();
-    inner_stages<N, K + 1>(smem, g, k, links, m);
+    inner_stages<N, K + 1>(smem, g, k, links, sh, m);
   }
 }
 
@@ -374,7 +394,8 @@ __global__ void __launch_bounds__(Tile<N>::kThreads)
                          const uint8_t* __restrict__ solid,
                          const float* __restrict__ force, int nx, int ny,
                          int nz, const __grid_constant__ Consts k,
-                         tpulbm::Links links) {
+                         tpulbm::Links links,
+                         const __grid_constant__ tpulbm3d::Shard sh) {
   using T = Tile<N>;
   extern __shared__ float smem[];  // the rings of stages 0 .. N-1, the mask
 
@@ -382,8 +403,11 @@ __global__ void __launch_bounds__(Tile<N>::kThreads)
   g.nx = nx;
   g.ny = ny;
   g.nz = nz;
-  g.x0 = nx - kBX * (static_cast<int>(blockIdx.x) + 1);  // right-aligned
-  g.y0 = static_cast<int>(blockIdx.y) * T::kTileY;
+  // right-aligned to the last column of the grid (of the shard's block)
+  g.x0 = (tpulbm::kRings ? sh.x0 + sh.nxl : nx) -
+         kBX * (static_cast<int>(blockIdx.x) + 1);
+  g.y0 = (tpulbm::kRings ? sh.y0 : 0) +
+         static_cast<int>(blockIdx.y) * T::kTileY;
   g.z0 = static_cast<int>(blockIdx.z) * kZChunk;
   g.z1 = g.z0 + kZChunk < nz ? g.z0 + kZChunk : nz;
   g.force = force;
@@ -397,7 +421,8 @@ __global__ void __launch_bounds__(Tile<N>::kThreads)
   const int ty = tid / kBX;
   const int x = g.x0 + tx;
   const int y = g.y0 + ty;
-  const bool active = x >= 0 && y < ny;
+  const bool active = tpulbm::kRings ? sh.writes(x - sh.x0, y - sh.y0)
+                                     : x >= 0 && y < ny;
   constexpr int W0 = T::width(0);
   constexpr int C0 = T::cells(0);
   constexpr int W_last = T::width(N - 1);
@@ -423,13 +448,26 @@ __global__ void __launch_bounds__(Tile<N>::kThreads)
         const int lx = t - ly * W0;
         int gx = g.x0 - N + lx;
         int gy = g.y0 - N + ly;
-        in[j] = t < C0 && tile_cell(gx, gy, nx, ny);
-        if (in[j]) {
-          const size_t cell = static_cast<size_t>(mz) * plane +
-                              static_cast<size_t>(gy) * nx + gx;
-          if constexpr (tpulbm3d::kHasObstacle) mask_m[t] = solid[cell];
+        if constexpr (tpulbm::kRings) {
+          int bx, by;
+          in[j] = t < C0 && sh.find(gx, gy, nx, ny, bx, by);
+          if (in[j]) {
+            if constexpr (tpulbm3d::kHasObstacle)
+              mask_m[t] = sh.mask[sh.padded(bx, by, mz)];
+            size_t stride;
+            const float* src = sh.locate(bx, by, mz, stride);
 #pragma unroll
-          for (int i = 0; i < kQ; ++i) v[j][i] = f[i * pop + cell];
+            for (int i = 0; i < kQ; ++i) v[j][i] = src[i * stride];
+          }
+        } else {
+          in[j] = t < C0 && tile_cell(gx, gy, nx, ny);
+          if (in[j]) {
+            const size_t cell = static_cast<size_t>(mz) * plane +
+                                static_cast<size_t>(gy) * nx + gx;
+            if constexpr (tpulbm3d::kHasObstacle) mask_m[t] = solid[cell];
+#pragma unroll
+            for (int i = 0; i < kQ; ++i) v[j][i] = f[i * pop + cell];
+          }
         }
       }
 #pragma unroll
@@ -445,12 +483,14 @@ __global__ void __launch_bounds__(Tile<N>::kThreads)
       }
     }
     __syncthreads();
-    inner_stages<N, 1>(smem, g, k, links, m);
+    inner_stages<N, 1>(smem, g, k, links, sh, m);
     // stage N: plane m - N of the tile, stored
     const int p = m - N;
     if (active && p >= g.z0 && p < g.z1) {
-      const size_t cell = static_cast<size_t>(p) * plane +
-                          static_cast<size_t>(y) * nx + x;
+      const size_t cell =
+          tpulbm::kRings ? sh.cell(x - sh.x0, y - sh.y0, p)
+                         : static_cast<size_t>(p) * plane +
+                               static_cast<size_t>(y) * nx + x;
       const Slots rd = pull_slots<C_last>(p);
       const uint8_t* mask_p = mask + (p % T::kMaskSlots) * C0;
       const int at = (ty + 1) * W_last + tx + 1;
@@ -465,23 +505,29 @@ __global__ void __launch_bounds__(Tile<N>::kThreads)
       if constexpr (tpulbm3d::kBouzidi) {
         if (mask_p[at0] & tpulbm::kLinkBit) {
           const Slots own = slots_of<C_last>(p);
+          const size_t link =
+              tpulbm::kRings ? sh.padded(x - sh.x0, y - sh.y0, p) : cell;
           tpulbm3d::apply_bouzidi(
-              v, links.q + cell, links.plane, links.moving != 0, [&](auto i) {
+              v, links.q + link, links.plane, links.moving != 0, [&](auto i) {
                 return last[ring_at<decltype(i)::value, C_last>(own) + at];
               });
         }
       }
+      const size_t out_pop =
+          tpulbm::kRings ? static_cast<size_t>(nz) * sh.nyl * sh.nxl : pop;
 #pragma unroll
-      for (int i = 0; i < kQ; ++i) out[i * pop + cell] = v[i];
+      for (int i = 0; i < kQ; ++i) out[i * out_pop + cell] = v[i];
     }
   }
 }
 
+// A launch of depth N over tiles of `cols` x `rows` cells (the grid, or a
+// shard's block: sh).
 template <int N>
 cudaError_t launch(const float* f, float* out, const uint8_t* solid,
-                   const float* force, int nx, int ny, int nz,
-                   const Consts& k, const tpulbm::Links& links,
-                   cudaStream_t stream) {
+                   const float* force, int nx, int ny, int nz, int cols,
+                   int rows, const Consts& k, const tpulbm::Links& links,
+                   const tpulbm3d::Shard& sh, cudaStream_t stream) {
   constexpr size_t smem = Tile<N>::kSmemBytes;
   if constexpr (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -490,10 +536,10 @@ cudaError_t launch(const float* f, float* out, const uint8_t* solid,
     if (err != cudaSuccess) return err;
   }
   constexpr int by = Tile<N>::kTileY;
-  const dim3 grid((nx + kBX - 1) / kBX, (ny + by - 1) / by,
+  const dim3 grid((cols + kBX - 1) / kBX, (rows + by - 1) / by,
                   (nz + kZChunk - 1) / kZChunk);
   d3q19_blocked_kernel<N><<<grid, Tile<N>::kThreads, smem, stream>>>(
-      f, out, solid, force, nx, ny, nz, k, links);
+      f, out, solid, force, nx, ny, nz, k, links, sh);
   return cudaGetLastError();
 }
 
@@ -506,6 +552,7 @@ cudaError_t launch(const float* f, float* out, const uint8_t* solid,
 // link table, 19 or 38 planes (tpulbm::Links), read by the kBouzidi build
 // only (elsewhere null and 0); force: the force profile's (Q, nz) table on
 // the card, read by the kForce build only (elsewhere null).
+#if !TPULBM_RINGS
 extern "C" int tpulbm_d3q19_step_blocked(const float* f, float* out,
                                          const uint8_t* solid, int nx, int ny,
                                          int nz, int n_sub, float inv_tau,
@@ -521,18 +568,62 @@ extern "C" int tpulbm_d3q19_step_blocked(const float* f, float* out,
   const Consts k = tpulbm3d::make_consts(inv_tau, eq_in, w, mode, src);
   const tpulbm::Links lk{links, static_cast<size_t>(nx) * ny * nz,
                          link_planes == 2 * kQ};
+  const tpulbm3d::Shard none{};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_sub) {
     case 2:
-      err = launch<2>(f, out, solid, force, nx, ny, nz, k, lk, s);
+      err = launch<2>(f, out, solid, force, nx, ny, nz, nx, ny, k, lk, none,
+                      s);
       break;
     case 3:
-      err = launch<3>(f, out, solid, force, nx, ny, nz, k, lk, s);
+      err = launch<3>(f, out, solid, force, nx, ny, nz, nx, ny, k, lk, none,
+                      s);
       break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }
+#else
+// n_sub steps of the shard (nxl x nyl at global x0, y0 of the nx x ny
+// grid, every one of the nz planes) from f and its rings (n_sub deep; hx 0
+// or n_sub, as tpulbm3d::Shard describes them) into out. mask is the
+// shard's kernel mask padded by n_sub rows and columns, and links its cut
+// of the link table padded the same way.
+extern "C" int tpulbm_d3q19_step_blocked_rings(
+    const float* f, float* out, const uint8_t* mask, const float* rb,
+    const float* rt, const float* rl, const float* rr, int nx, int ny,
+    int nz, int nxl, int nyl, int x0, int y0, int hx, int n_sub,
+    float inv_tau, const float* eq_in, const float* w, const float* mode,
+    const float* src, const float* force, const float* links,
+    int link_planes, int device, void* stream) {
+  if (!tpulbm::links_fit(links, link_planes, kQ)) return cudaErrorInvalidValue;
+  if ((force != nullptr) != tpulbm::kForce) return cudaErrorInvalidValue;
+  if (nxl < 1 || nyl < 1 || (hx != 0 && hx != n_sub))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Consts k = tpulbm3d::make_consts(inv_tau, eq_in, w, mode, src);
+  const tpulbm::Links lk{
+      links,
+      static_cast<size_t>(nz) * (nyl + 2 * n_sub) * (nxl + 2 * n_sub),
+      link_planes == 2 * kQ};
+  const tpulbm3d::Shard sh{f, rb, rt, rl, rr, mask, nxl, nyl, nz,
+                           x0, y0, hx, n_sub};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (n_sub) {
+    case 2:
+      err = launch<2>(f, out, nullptr, force, nx, ny, nz, nxl, nyl, k, lk,
+                      sh, s);
+      break;
+    case 3:
+      err = launch<3>(f, out, nullptr, force, nx, ny, nz, nxl, nyl, k, lk,
+                      sh, s);
+      break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+#endif
 
 // Dynamic shared memory one block of depth n_sub takes, in bytes (-1 for
 // a depth the library does not hold).

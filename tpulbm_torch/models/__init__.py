@@ -12,7 +12,8 @@ the Smagorinsky closure), the Shan-Chen multiphase
 channel (droplet or band, BGK), the fully periodic 2-D boxes
 (Taylor-Green, the shear layer and Kolmogorov under every D2Q9
 collision, the passive scalar under the thermal step's) and the 3-D
-boxes (Taylor-Green and Kolmogorov on D3Q19 or D3Q27); every other
+boxes (Taylor-Green and Kolmogorov on D3Q19 or D3Q27), the 2-D and 3-D
+single-phase problems also on a mesh of shards; every other
 configuration raises
 NotImplementedError naming the ROADMAP item (Queue 1) that will port it,
 and the combinations tpulbm itself refuses (KBC in 3-D, a 3-D cavity)
@@ -67,10 +68,6 @@ def check_slice(params) -> None:
                               f"{params.mesh_shape}",
                               "Queue 1 item 19 (several devices: thermal "
                               "x_halo, multiphase rings)")
-        if params.is_3d:
-            raise _not_ported(f"a 3-D problem on mesh_shape="
-                              f"{params.mesh_shape}",
-                              "Queue 1 item 19 (several devices: 3-D meshes)")
 
 
 def make_problem(params) -> Problem:

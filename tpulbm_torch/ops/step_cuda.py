@@ -41,6 +41,12 @@ make_local_step_pallas_ranged and make_local_step_tiled at depth 1; that
 of step_d2q9_blocked.cu make_local_step_pallasN (ranged too) and
 make_local_step_pallas2 with their ring inputs and make_local_step_tiled
 at depths 2-4. Its plain version is ops/step_rings_torch.py.
+Both D3Q19 sources build with rings too (-DTPULBM_RINGS=1): through
+collide_stream_rings_3d they step one shard of a 3-D mesh, the whole
+block (z is never cut), from its ring rows and, on a mesh that cuts x,
+its ring columns: make_local_step_pallas3d_tiled with its ring inputs and
+x_halo, at n_sub 1 (step_d3q19.cu) and 2, 3 (step_d3q19_blocked.cu), with
+the same plain version.
 The thermal and multiphase kernels' wrappers are ops/step_thermal_cuda.py
 and ops/step_multiphase_cuda.py, on the same build and binding helpers.
 Each kernel is built with nvcc at first use and called through ctypes on
@@ -106,6 +112,10 @@ def rings_replaces(mode: str, depth: int) -> str:
 
 
 RINGS_DEPTHS = (1,) + BLOCKED_DEPTHS
+RINGS_DEPTHS_3D = (1,) + BLOCKED_DEPTHS_3D
+# the Pallas function the 3-D ring builds replace, at every depth
+REPLACES_3D_RINGS = ("tpulbm/ops/step_pallas3d.py:745 "
+                     "(make_local_step_pallas3d_tiled, ring inputs, x_halo)")
 # populations per cell -> the state's rank and layout, per kernel lattice
 _STATE_LAYOUT = {9: (3, "(9, ny, nx)"), 19: (4, "(19, nz, ny, nx)"),
                  27: (4, "(27, nz, ny, nx)")}
@@ -499,6 +509,26 @@ def _bind_3d(source: str, fn: str, argtypes: list, mode: str,
     return lib
 
 
+_RINGS_ARGS_3D = [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32,
+                  _I32, _I32, _I32, _I32, _I32]
+_CONSTS_ARGS_3D = [_F32, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _PTR]
+
+
+@functools.cache
+def _rings_library_3d(mode: str = "bgk", variant: int = 0) -> ctypes.CDLL:
+    return _bind_3d("step_d3q19.cu", "tpulbm_d3q19_step_rings",
+                    _RINGS_ARGS_3D + _CONSTS_ARGS_3D, mode, variant | RINGS)
+
+
+@functools.cache
+def _rings_blocked_library_3d(mode: str = "bgk",
+                              variant: int = 0) -> ctypes.CDLL:
+    return _bind_3d("step_d3q19_blocked.cu",
+                    "tpulbm_d3q19_step_blocked_rings",
+                    _RINGS_ARGS_3D + [_I32] + _CONSTS_ARGS_3D, mode,
+                    variant | RINGS)
+
+
 @functools.cache
 def _library_3d(mode: str = "bgk", variant: int = 0) -> ctypes.CDLL:
     lib = _bind_3d("step_d3q19.cu", "tpulbm_d3q19_step",
@@ -727,17 +757,18 @@ _zero_counts(collide_stream_blocked, COLLISION_MODES, BLOCKED_DEPTHS)
 class Shard:
     """One shard of a mesh as the ring kernels take it: its place `index`
     (iy, ix) in the mesh, the global (y, x) `origin` of its block of
-    `local_shape` (nyl, nxl) in the global `grid` (ny, nx), the `depth` of
-    its rings, whether it takes x rings (`x_rings`: the mesh cuts x, or
-    TPULBM_FORCE_TILED; else its block spans every column), `mask`, its
-    uint8 kernel mask padded by `depth` on every side (halo.pad_mask, with
-    the link bits under the Bouzidi obstacle) and `links`, the Bouzidi
-    library's cut of the link table padded the same way
-    (bouzidi.table_block; None for the others)."""
+    `local_shape` ([nz,] nyl, nxl) in the global `grid` ([nz,] ny, nx; a
+    3-D block holds every z plane), the `depth` of its rings, whether it
+    takes x rings (`x_rings`: the mesh cuts x, or TPULBM_FORCE_TILED, in
+    3-D TPULBM_FORCE_XHALO; else its block spans every column), `mask`,
+    its uint8 kernel mask padded by `depth` rows and columns on every side
+    (halo.pad_mask, with the link bits under the Bouzidi obstacle) and
+    `links`, the Bouzidi library's cut of the link table padded the same
+    way (bouzidi.table_block; None for the others)."""
     index: tuple[int, int]
     origin: tuple[int, int]
-    local_shape: tuple[int, int]
-    grid: tuple[int, int]
+    local_shape: tuple[int, ...]
+    grid: tuple[int, ...]
     depth: int
     x_rings: bool
     mask: torch.Tensor
@@ -757,43 +788,53 @@ def _check_ring(name: str, t, shape: tuple, f: torch.Tensor) -> None:
 def check_shard(f: torch.Tensor, out: torch.Tensor, rings: tuple,
                 shard: Shard, n_sub: int, rows: tuple[int, int]) -> None:
     """Raise unless f, out, the rings (rb, rt, rl, rr), the shard and the
-    row range fit together: the checks before any pointer is passed."""
-    nyl, nxl = shard.local_shape
-    ny, nx = shard.grid
+    row range fit together: the checks before any pointer is passed. A
+    2-D shard's rings are (9, depth, nxl + 2 hx) and (9, nyl, hx), a 3-D
+    one's (Q, nz, depth, nxl + 2 hx) and (Q, nz, nyl, hx)."""
+    nyl, nxl = shard.local_shape[-2:]
+    ny, nx = shard.grid[-2:]
+    lead = tuple(shard.local_shape[:-2])
     depth = shard.depth
-    check_inputs(f, out, None)
-    if tuple(f.shape[1:]) != (nyl, nxl):
+    q = f.shape[0] if f.dim() else 0
+    if lead and q not in (19, 27):
+        raise ValueError(f"a 3-D shard's state is (19 or 27, nz, nyl, nxl), "
+                         f"got {tuple(f.shape)}")
+    check_inputs(f, out, None, q=q if lead else 9)
+    if tuple(f.shape[1:]) != tuple(shard.local_shape) or \
+            tuple(shard.grid[:-2]) != lead:
         raise ValueError(f"state {tuple(f.shape)} is not the shard's block "
-                         f"{shard.local_shape}")
-    if n_sub != depth or depth not in RINGS_DEPTHS:
+                         f"{shard.local_shape} of {shard.grid}")
+    depths = RINGS_DEPTHS_3D if lead else RINGS_DEPTHS
+    if n_sub != depth or depth not in depths:
         raise ValueError(f"depth {n_sub} with rings {depth} deep (the ring "
-                         f"kernels hold depths {RINGS_DEPTHS})")
+                         f"kernels hold depths {depths})")
     if min(nyl, nxl) < max(depth, 3):
         raise ValueError(f"a shard needs at least max({depth}, 3) rows and "
                          f"columns, got {shard.local_shape}")
     r0, r1 = rows
-    if not 0 <= r0 < r1 <= nyl:
-        raise ValueError(f"row range {rows} outside [0, {nyl})")
+    if not 0 <= r0 < r1 <= nyl or (lead and (r0, r1) != (0, nyl)):
+        raise ValueError(f"row range {rows} outside [0, {nyl})"
+                         + (" (a 3-D launch writes every row)" if lead
+                            else ""))
     hx = depth if shard.x_rings else 0
     if not shard.x_rings and (shard.origin[1] != 0 or nxl != nx):
         raise ValueError("a shard without x rings must span every column")
     mask = shard.mask
+    padded = lead + (nyl + 2 * depth, nxl + 2 * depth)
     if (mask.dtype != torch.uint8 or not mask.is_contiguous()
-            or tuple(mask.shape) != (nyl + 2 * depth, nxl + 2 * depth)
-            or mask.device != f.device):
-        raise ValueError(f"shard mask must be contiguous uint8 "
-                         f"{(nyl + 2 * depth, nxl + 2 * depth)} on "
+            or tuple(mask.shape) != padded or mask.device != f.device):
+        raise ValueError(f"shard mask must be contiguous uint8 {padded} on "
                          f"{f.device}")
     rb, rt, rl, rr = rings
     width = nxl + 2 * hx
     # a launch reads rows [r0 - depth - 1, r1 + depth + 1) (csrc's Shard)
     if rb is not None or r0 <= depth:
-        _check_ring("rb", rb, (9, depth, width), f)
+        _check_ring("rb", rb, (q,) + lead + (depth, width), f)
     if rt is not None or r1 >= nyl - depth:
-        _check_ring("rt", rt, (9, depth, width), f)
+        _check_ring("rt", rt, (q,) + lead + (depth, width), f)
     if shard.x_rings:
-        _check_ring("rl", rl, (9, nyl, depth), f)
-        _check_ring("rr", rr, (9, nyl, depth), f)
+        _check_ring("rl", rl, (q,) + lead + (nyl, depth), f)
+        _check_ring("rr", rr, (q,) + lead + (nyl, depth), f)
     elif rl is not None or rr is not None:
         raise ValueError("x rings given to a shard that spans every column")
     if not (0 <= shard.origin[0] <= ny - nyl
@@ -858,6 +899,56 @@ def collide_stream_rings(f: torch.Tensor, out: torch.Tensor, rings: tuple,
 
 
 _zero_counts(collide_stream_rings, COLLISION_MODES, RINGS_DEPTHS)
+
+
+def collide_stream_rings_3d(f: torch.Tensor, out: torch.Tensor,
+                            rings: tuple, shard: Shard,
+                            consts: StepConstants, n_sub: int,
+                            plain=None) -> torch.Tensor:
+    """n_sub D3Q19 or D3Q27 timesteps of one shard of a 3-D mesh from its
+    block f (Q, nz, nyl, nxl) and its rings (rb, rt, rl, rr; shard.depth =
+    n_sub cells deep, rl and rr None where the block spans every column)
+    into out; returns out.
+
+    On a CUDA tensor: launches the ring build of the 1-step D3Q19 kernel
+    (n_sub 1) or of the N-step one (2, 3) on the current stream (no
+    synchronization) and raises if the launch is refused. On a CPU tensor:
+    runs `plain` (step_rings_torch.make_ring_step for the shard)."""
+    nyl = shard.local_shape[-2]
+    check_shard(f, out, rings, shard, n_sub, (0, nyl))
+    if len(consts.w) != f.shape[0]:
+        raise ValueError(f"library {consts.library} of Q = {len(consts.w)} "
+                         f"and a state of {f.shape[0]} populations")
+    rb, rt, rl, rr = rings
+    if f.device.type == "cpu":
+        if plain is None:
+            raise ValueError("a CPU tensor needs the plain step")
+        return out.copy_(plain(f, rb, rt, rl, rr))
+    nz, ny, nx = shard.grid
+    y0, x0 = shard.origin
+    nxl = shard.local_shape[-1]
+    hx = n_sub if shard.x_rings else 0
+    geometry = (nx, ny, nz, nxl, nyl, x0, y0, hx)
+    stream = torch.cuda.current_stream(f.device).cuda_stream
+    ptrs = (f.data_ptr(), out.data_ptr(), shard.mask.data_ptr(), _ptr(rb),
+            _ptr(rt), _ptr(rl), _ptr(rr))
+    tail = (*consts.d3q19_args, consts.force_args(f.device, (nz, ny, nx))[1],
+            *link_args(consts, shard.links, tuple(shard.mask.shape), f),
+            f.device.index, stream)
+    if n_sub == 1:
+        lib = _rings_library_3d(consts.mode, consts.variant)
+        rc = lib.tpulbm_d3q19_step_rings(*ptrs, *geometry, *tail)
+    else:
+        lib = _rings_blocked_library_3d(consts.mode, consts.variant)
+        rc = lib.tpulbm_d3q19_step_blocked_rings(*ptrs, *geometry, n_sub,
+                                                 *tail)
+    _check_launch(lib, rc, f"3-D {n_sub}-step ring kernel "
+                           f"({consts.library}, shard {shard.index})")
+    _count(collide_stream_rings_3d, consts.library, n_sub, shard.index)
+    return out
+
+
+_zero_counts(collide_stream_rings_3d, COLLISION_MODES_3D, RINGS_DEPTHS_3D)
 
 
 def collide_stream_3d(f: torch.Tensor, out: torch.Tensor,
@@ -941,6 +1032,8 @@ def reset_launch_counts() -> None:
     _zero_counts(collide_stream, COLLISION_MODES)
     _zero_counts(collide_stream_blocked, COLLISION_MODES, BLOCKED_DEPTHS)
     _zero_counts(collide_stream_rings, COLLISION_MODES, RINGS_DEPTHS)
+    _zero_counts(collide_stream_rings_3d, COLLISION_MODES_3D,
+                 RINGS_DEPTHS_3D)
     _zero_counts(collide_stream_3d, COLLISION_MODES_3D)
     _zero_counts(collide_stream_3d_blocked, COLLISION_MODES_3D,
                  BLOCKED_DEPTHS_3D)
@@ -998,7 +1091,19 @@ def kernel_mask(problem: Problem, solid=None, table=None) -> np.ndarray:
     """The uint8 mask the kernels read: SOLID_BIT on the solid cells of
     `solid` (default the problem's; zeros without an obstacle), and under
     the Bouzidi obstacle LINK_BIT on the cells with a cut link in `table`
-    (default the whole grid's link table; a shard's padded cut)."""
+    (default the whole grid's link table; a shard's padded cut). The whole
+    grid's mask is memoized on the Problem, as its link table is: every
+    wrapper of a run reads it, and at 256³ its link bits scan the table."""
+    if solid is None and table is None:
+        cached = getattr(problem, "_kernel_mask", None)
+        if cached is None:
+            cached = _kernel_mask(problem, None, None)
+            object.__setattr__(problem, "_kernel_mask", cached)  # frozen
+        return cached
+    return _kernel_mask(problem, solid, table)
+
+
+def _kernel_mask(problem: Problem, solid, table) -> np.ndarray:
     if solid is None:
         solid = (np.zeros(problem.spatial_shape, bool)
                  if problem.solid is None else problem.solid)

@@ -1,9 +1,13 @@
 """Halo ("ghost ring") exchange between the shards of a mesh.
 
-Port of tpulbm/parallel/halo.py, the 2-D parts. A sharded state is the
-(my, mx) grid of local blocks (Q, nyl, nxl), shard (iy, ix) on
-mesh.device(iy, ix) (parallel/mesh.py). tpulbm's `lax.ppermute` becomes a
-slice of the neighbour's edge copied to this shard's device: between two
+Port of tpulbm/parallel/halo.py. A sharded state is the (my, mx) grid of
+local blocks, (Q, nyl, nxl) in 2-D and (Q, nz, nyl, nxl) in 3-D (z is
+never cut), shard (iy, ix) on mesh.device(iy, ix) (parallel/mesh.py).
+Every ring is rank-generic, as tpulbm's (ring_rows_3d and its kin are
+aliases there): rows and columns are the last two axes, and a leading z
+axis rides along, so a 3-D ring row holds all nz planes. tpulbm's
+`lax.ppermute` becomes a slice of the neighbour's edge copied to this
+shard's device: between two
 cards PyTorch's copy orders itself after the producing kernel on the
 source card's current stream and before later work on the destination
 card's current stream (it records and waits on events on both), so the
@@ -184,39 +188,42 @@ def pad_block(shards: Grid, *, eq_ring: np.ndarray, depth: int,
 
 
 def make_padded(f_local: torch.Tensor, eq_ring: np.ndarray) -> torch.Tensor:
-    """A padded local block (Q, nyl + 2, nxl + 2): the ring pre-filled
-    with the frozen ghost equilibrium and the centre f_local."""
-    q, nyl, nxl = f_local.shape
-    fpad = _eq_block(eq_ring, f_local, (q, nyl + 2, nxl + 2)).clone()
-    fpad[:, 1:-1, 1:-1] = f_local
+    """A padded local block (Q, [nz,] nyl + 2, nxl + 2): the ring of rows
+    and columns pre-filled with the frozen ghost equilibrium and the centre
+    f_local (a 3-D block keeps its nz planes: z is never cut, and the
+    plain step wraps or edges it as on one device)."""
+    shape = f_local.shape
+    fpad = _eq_block(eq_ring, f_local,
+                     shape[:-2] + (shape[-2] + 2, shape[-1] + 2)).clone()
+    fpad[..., 1:-1, 1:-1] = f_local
     return fpad
 
 
-def refresh_ring_2d(fpads: Grid, *, eq_ring: np.ndarray,
-                    periodic_x: bool, periodic_y: bool = False) -> Grid:
+def refresh_ring(fpads: Grid, *, eq_ring: np.ndarray, periodic_x: bool,
+                 periodic_y: bool = False) -> Grid:
     """Refresh, in place, the 1-wide ring of every padded local block
-    (Q, nyl + 2, nxl + 2) of the grid: x columns first, then the rows
-    across the full padded width (the corners carry the diagonal
-    neighbours' data); returns the grid."""
-    centers = [[fp[:, 1:-1, 1:-1] for fp in row] for row in fpads]
+    (make_padded) of the grid: x columns first, then the rows across the
+    full padded width (the corners carry the diagonal neighbours' data);
+    returns the grid."""
+    centers = [[fp[..., 1:-1, 1:-1] for fp in row] for row in fpads]
     rings = exchange(centers, eq_ring=eq_ring, depth=1,
                      periodic_x=periodic_x, x_rings=True,
                      periodic_y=periodic_y)
     for row, ring_row in zip(fpads, rings):
         for fp, (rb, rt, rl, rr) in zip(row, ring_row):
-            fp[:, 1:-1, 0:1] = rl
-            fp[:, 1:-1, -1:] = rr
-            fp[:, 0:1, :] = rb
-            fp[:, -1:, :] = rt
+            fp[..., 1:-1, 0:1] = rl
+            fp[..., 1:-1, -1:] = rr
+            fp[..., 0:1, :] = rb
+            fp[..., -1:, :] = rt
     return fpads
 
 
 def pad_mask(solids: Grid, *, periodic_x: bool, depth: int = 1,
              periodic_y: bool = False) -> Grid:
-    """Every shard's bool solid mask padded by `depth` with its
-    neighbours' mask values (fluid, False, past physical edges): the
-    bounce-back obstacle needs it, as a shard skips the collision on halo
-    cells its neighbour holds solid."""
+    """Every shard's bool solid mask, (nyl, nxl) or (nz, nyl, nxl), padded
+    by `depth` rows and columns with its neighbours' mask values (fluid,
+    False, past physical edges): the bounce-back obstacle needs it, as a
+    shard skips the collision on halo cells its neighbour holds solid."""
     planes = [[s.to(torch.float32)[None] for s in row] for row in solids]
     padded = pad_block(planes, eq_ring=np.zeros(1, np.float32), depth=depth,
                        periodic_x=periodic_x, periodic_y=periodic_y)

@@ -1,19 +1,24 @@
 """The chunked time stepper on a mesh of shards.
 
-Port of tpulbm/parallel/sharded_step.py, the generic 2-D part: the D2Q9
-single-phase problems (the cylinder with any obstacle rule, the Bouzidi
+Port of tpulbm/parallel/sharded_step.py, the generic single-phase part:
+in 2-D the D2Q9 problems (the cylinder with any obstacle rule, the Bouzidi
 curved wall included, and either corner rule, the periodic channel, the
 cavity, the periodic boxes with or without Kolmogorov's force profile)
-under every collision the D2Q9 kernels hold.
+under every collision the D2Q9 kernels hold; in 3-D (D3Q19 or D3Q27) the
+sphere in a duct with any obstacle rule (Bouzidi on D3Q19), the
+body-forced duct and the fully periodic boxes with 3-D Kolmogorov's z
+force, under every collision the 3-D kernels hold.
 Under a periodic y the ring rows wrap (tpulbm's ring_kw) and no shard owns
-a physical y edge. A sharded state is the (my, mx) grid of local blocks
-(Q, nyl, nxl), shard (iy, ix) on mesh.device(iy, ix) (parallel/mesh.py);
-one process drives every shard, as `shard_map` does. Each launch's rings
-come from parallel/halo.py and each shard steps through the ring builds of
-the D2Q9 kernels (ops/step_cuda.collide_stream_rings) or, for a CPU
-tensor, their plain version (ops/step_rings_torch.py).
+a physical y edge. A sharded state is the (my, mx) grid of local blocks,
+(Q, nyl, nxl) in 2-D and (Q, nz, nyl, nxl) in 3-D (the mesh cuts y and x,
+z stays whole: tpulbm's P(None, None, "y", "x")), shard (iy, ix) on
+mesh.device(iy, ix) (parallel/mesh.py); one process drives every shard,
+as `shard_map` does. Each launch's rings come from parallel/halo.py and
+each shard steps through the ring builds of the kernels
+(ops/step_cuda.collide_stream_rings, in 3-D collide_stream_rings_3d) or,
+for a CPU tensor, their plain version (ops/step_rings_torch.py).
 
-The dispatch is tpulbm's (:228-393):
+The 2-D dispatch is tpulbm's (:228-393):
 * TPULBM_HALO_OVERLAP on a mesh that does not cut x: each N steps as an
   interior launch that reads no ring plus two edge launches that read the
   exchanged rings (the ranged N-step kernel, tpulbm's body_pallas_overlapN,
@@ -25,9 +30,16 @@ The dispatch is tpulbm's (:228-393):
 * a mesh that cuts x, or TPULBM_FORCE_TILED: the x rings too (the x-tiled
   kernel, body_pallas_tiled, row 5) at the first N of 4, 3, 2 that divides
   the chunk, else depth 1.
+The 3-D dispatch is tpulbm's too (:147-227, body_pallas3d_tiled
+:447-536): the depth-3 split of the chunk, else the depth-2 split
+(stepper.blocking_split), each segment at its own depth through the ring
+builds of both D3Q19 kernels (row 7, make_local_step_pallas3d_tiled), with
+x rings on a mesh that cuts x (or TPULBM_FORCE_XHALO), else [(1, n)]
+(plan_3d).
 TPULBM_SUBSTEPS forces a depth and TPULBM_NO_FUSED2 turns blocking off, as
 in tpulbm. A (1,1) mesh without TPULBM_FORCE_TILED or TPULBM_HALO_OVERLAP
-runs the one-device stepper (stepper.make_chunk_fn) unchanged.
+(in 3-D TPULBM_FORCE_XHALO) runs the one-device stepper
+(stepper.make_chunk_fn) unchanged.
 """
 from __future__ import annotations
 
@@ -54,11 +66,6 @@ def check_mesh_problem(problem: Problem, mesh: Mesh) -> None:
     a mesh of more than one shard, naming its ROADMAP item."""
     if mesh.size == 1:
         return
-    if problem.lattice.D == 3:
-        raise NotImplementedError(
-            f"a 3-D problem (the 3-D boxes and their z force among them) on "
-            f"mesh {mesh.shape} is not ported to tpulbm_torch yet (ROADMAP "
-            "Queue 1 item 19, several devices: 3-D meshes)")
     if problem.thermal is not None or problem.shan_chen:
         raise NotImplementedError(
             f"the {'thermal' if problem.thermal else 'multiphase'} step on "
@@ -66,10 +73,18 @@ def check_mesh_problem(problem: Problem, mesh: Mesh) -> None:
             "Queue 1 item 19, several devices)")
 
 
-def origin(mesh: Mesh, local_shape: tuple[int, int], iy: int,
+def origin(mesh: Mesh, local_shape: tuple[int, ...], iy: int,
            ix: int) -> tuple[int, int]:
-    """Global (y, x) of shard (iy, ix)'s first cell."""
-    return iy * local_shape[0], ix * local_shape[1]
+    """Global (y, x) of shard (iy, ix)'s first cell; local_shape is the
+    block's ([nz,] nyl, nxl)."""
+    return iy * local_shape[-2], ix * local_shape[-1]
+
+
+def block_shape(problem: Problem, mesh: Mesh) -> tuple[int, ...]:
+    """A shard's block of the spatial grid, ([nz,] nyl, nxl): the mesh cuts
+    the last two axes."""
+    shape = tuple(problem.spatial_shape)
+    return shape[:-2] + mesh.local_shape(shape[-2:])
 
 
 def split(mesh: Mesh, x, dtype=None) -> Grid:
@@ -108,11 +123,14 @@ def shard_initial_state(problem: Problem, mesh: Mesh):
     """The sharded initial state, each block built on its own device (the
     uniform equilibrium and the solid cells' rest equilibrium, as
     problem.initial_state() has them), and the sharded solid mask or None:
-    only the mask crosses from the host. A start at an analytic field
-    (init_fields: the periodic boxes) is built on the host and cut."""
-    if problem.init_fields is not None:
+    only the mask crosses from the host (tpulbm's fresh start,
+    runner.py:326-333). A start at an analytic field (init_fields: the
+    periodic boxes), a density map (multiphase) or a thermal profile is
+    built on the host and cut."""
+    if (problem.init_fields is not None or problem.init_rho_map is not None
+            or problem.thermal is not None):
         return split(mesh, problem.initial_state()), None
-    local = mesh.local_shape(problem.spatial_shape)
+    local = block_shape(problem, mesh)
     q = problem.lattice.Q
     feq = problem.ghost_ring_values()[:q]
     rest = physics.rest_equilibrium(problem.lattice, problem.dtype)
@@ -124,11 +142,13 @@ def shard_initial_state(problem: Problem, mesh: Mesh):
         row = []
         for ix in range(mesh.shape[1]):
             dev = mesh.device(iy, ix)
+            ones = (1,) * len(local)
             f = torch.as_tensor(feq, dtype=dtype, device=dev).reshape(
-                q, 1, 1).expand((q,) + local).contiguous()
+                (q,) + ones).expand((q,) + local).contiguous()
             if solid is not None:
                 r = torch.as_tensor(rest, dtype=dtype, device=dev)
-                f = torch.where(solid[iy][ix][None], r.reshape(q, 1, 1), f)
+                f = torch.where(solid[iy][ix][None], r.reshape((q,) + ones),
+                                f)
             row.append(f)
         shards.append(row)
     return shards, solid
@@ -140,13 +160,15 @@ def _solid_grid(problem: Problem, mesh: Mesh) -> Grid:
     return shard_mask(mesh, solid)
 
 
-def _fits(local_shape: tuple[int, int], depth: int) -> bool:
-    """Whether a shard of local_shape takes rings `depth` deep. Replaces
-    tpulbm's TPU layout conditions (the VMEM fit, 128-lane widths and the
-    slab counts n_ty >= N + 1) with the port's own: a neighbour must hold
-    the `depth` rows or columns a ring carries, and a corner rule reads
-    two cells inward."""
-    return min(local_shape) >= max(depth, 3)
+def _fits(local_shape: tuple[int, ...], depth: int) -> bool:
+    """Whether a shard of local_shape ([nz,] nyl, nxl) takes rings `depth`
+    deep. Replaces tpulbm's TPU layout conditions (the VMEM fit, 128-lane
+    widths, the slab counts n_ty >= N + 1, in 3-D H = 8 halo rows and
+    tile_height >= 4 halo_height) with the port's own: a neighbour must
+    hold the `depth` rows or columns a ring carries, a 2-D corner rule
+    reads two cells inward, and the 3-D zero-gradient outlet reads x =
+    nx-3 .. nx-1, which the shard at the right edge must hold."""
+    return min(local_shape[-2:]) >= max(depth, 3)
 
 
 def plan(problem: Problem, mesh: Mesh, chunk_len: int) -> tuple[str, int]:
@@ -195,6 +217,35 @@ def plan(problem: Problem, mesh: Mesh, chunk_len: int) -> tuple[str, int]:
     return mode, 1
 
 
+def plan_3d(problem: Problem, mesh: Mesh,
+            chunk_len: int) -> tuple[str, list]:
+    """(mode, [(depth, iters), ...]) of a 3-D kernel chunk on `mesh`,
+    tpulbm's dispatch (sharded_step.py:175-227): "tiled" with x rings (a
+    mesh that cuts x, or TPULBM_FORCE_XHALO: tpulbm's x_sharded3d,
+    :163-164), else "rows", and the segments of the first of the
+    depth-3 and depth-2 splits (stepper.plan_3d, TPULBM_SUBSTEPS and
+    TPULBM_NO_FUSED2 as there) whose every depth fits the shards (_fits),
+    else [(1, chunk_len)]. Under the Bouzidi obstacle with x rings every
+    chunk runs at depth 1 (tpulbm's tiled builder declines it at n_sub > 1
+    in x_halo mode, step_pallas3d.py:845-851). Where tpulbm leaves its
+    kernels for its jax tier for a TPU-only reason (the box with x rings
+    at depth 1: its zc scratch has no x-piece DMAs, :823-830) the port
+    runs its ring build at depth 1. Raises ValueError where no depth fits
+    the shards."""
+    local = block_shape(problem, mesh)
+    if not _fits(local, 1):
+        raise ValueError(f"shards of {local} cells are too small for the "
+                         "ring kernels (at least 3 rows and columns)")
+    x_rings = mesh.shape[1] != 1 or bool(os.environ.get(
+        "TPULBM_FORCE_XHALO"))
+    bouzidi = problem.obstacle_bc == "bouzidi" and problem.solid is not None
+    segments = stepper.plan_3d(
+        chunk_len, local[0],
+        lambda depth: _fits(local, depth) and not (
+            bouzidi and x_rings and depth > 1))
+    return ("tiled" if x_rings else "rows"), segments or [(1, chunk_len)]
+
+
 def _streams(devices):
     """{device: side stream} for the CUDA devices among `devices` (none on
     the CPU)."""
@@ -208,7 +259,7 @@ def make_chunk_fn(problem: Problem, mesh: Mesh, chunk_len: int,
     backend="pallas": the ring builds of the D2Q9 kernels (their plain
     version on CPU shards) as `plan` dispatches; backend="jax": the plain
     tier, tpulbm's body_jax: each step refreshes every padded block's
-    1-wide ring (halo.refresh_ring_2d) and steps it
+    1-wide ring of rows and columns (halo.refresh_ring) and steps it
     (step_rings_torch.make_step_padded). fn.mode is the plan's mode
     ("overlap", "rows", "tiled", "plain" or "one-device"), fn.substeps the
     depth N (tpulbm's pallas_substeps; 1 for the plain tier) and fn.plan
@@ -220,11 +271,13 @@ def make_chunk_fn(problem: Problem, mesh: Mesh, chunk_len: int,
     check_mesh_problem(problem, mesh)
     if backend not in ("pallas", "jax"):
         raise ValueError(f"unknown backend {backend!r}")
-    forced_path = (os.environ.get("TPULBM_FORCE_TILED")
-                   or os.environ.get("TPULBM_HALO_OVERLAP"))
+    three_d = problem.lattice.D == 3
+    forced_path = (os.environ.get("TPULBM_FORCE_XHALO") if three_d else
+                   (os.environ.get("TPULBM_FORCE_TILED")
+                    or os.environ.get("TPULBM_HALO_OVERLAP")))
     if mesh.size == 1 and (backend == "jax" or not forced_path
-                           or problem.lattice.D != 2 or problem.thermal
-                           is not None or problem.shan_chen):
+                           or problem.thermal is not None
+                           or problem.shan_chen):
         one = stepper.make_chunk_fn(problem, mesh.device(0, 0), chunk_len,
                                     backend=backend)
 
@@ -242,11 +295,13 @@ def make_chunk_fn(problem: Problem, mesh: Mesh, chunk_len: int,
         raise NotImplementedError(
             "the CUDA kernel runs float32 only, as tpulbm's Pallas kernels "
             "do; use backend='jax' for f64")
+    if three_d:
+        return _kernel_chunk_3d(problem, mesh, chunk_len)
     return _kernel_chunk(problem, mesh, chunk_len)
 
 
 def _plain_chunk(problem: Problem, mesh: Mesh, chunk_len: int):
-    local = mesh.local_shape(problem.spatial_shape)
+    local = block_shape(problem, mesh)
     eq_ring = problem.ghost_ring_values()
     has_solid = problem.solid is not None
     pads = (halo.pad_mask(_solid_grid(problem, mesh),
@@ -255,7 +310,7 @@ def _plain_chunk(problem: Problem, mesh: Mesh, chunk_len: int):
             if has_solid else None)
     steps = [[step_rings_torch.make_step_padded(
         problem, tuple(o - 1 for o in origin(mesh, local, iy, ix)),
-        (local[0] + 2, local[1] + 2), pads[iy][ix] if has_solid else None,
+        (local[-2] + 2, local[-1] + 2), pads[iy][ix] if has_solid else None,
         mesh.device(iy, ix))
         for ix in range(mesh.shape[1])] for iy in range(mesh.shape[0])]
 
@@ -263,12 +318,12 @@ def _plain_chunk(problem: Problem, mesh: Mesh, chunk_len: int):
         fpads = [[halo.make_padded(f, eq_ring) for f in row]
                  for row in shards]
         for _ in range(chunk_len):
-            halo.refresh_ring_2d(fpads, eq_ring=eq_ring,
-                                 periodic_x=problem.periodic_x,
-                                 periodic_y=problem.periodic_y)
+            halo.refresh_ring(fpads, eq_ring=eq_ring,
+                              periodic_x=problem.periodic_x,
+                              periodic_y=problem.periodic_y)
             fpads = [[step(fp) for step, fp in zip(srow, frow)]
                      for srow, frow in zip(steps, fpads)]
-        return [[fp[:, 1:-1, 1:-1].contiguous() for fp in row]
+        return [[fp[..., 1:-1, 1:-1].contiguous() for fp in row]
                 for row in fpads]
 
     chunk.mode = "plain"
@@ -281,11 +336,13 @@ def _plain_chunk(problem: Problem, mesh: Mesh, chunk_len: int):
 def kernel_shards(problem: Problem, mesh: Mesh, depth: int, x_rings: bool,
                   masks: Grid | None = None) -> Grid:
     """The grid of step_cuda.Shard the ring kernels take at `depth`: each
-    shard's place and its kernel mask padded by `depth` (`masks`, the
-    bool halo.pad_mask grid, built here if not given), with, under the
-    Bouzidi obstacle, the link bits and its cut of the link table padded
-    the same way (bouzidi.table_block)."""
-    local = mesh.local_shape(problem.spatial_shape)
+    shard's place and its kernel mask padded by `depth` rows and columns
+    (`masks`, the bool halo.pad_mask grid, built here if not given), with,
+    under the Bouzidi obstacle, the link bits and its cut of the link
+    table padded the same way (bouzidi.table_block): the padded cut, taken
+    once, in place of tpulbm's exchanged q ring rows."""
+    local = block_shape(problem, mesh)
+    lead = (0,) * (len(local) - 2)
     if masks is None:
         masks = halo.pad_mask(_solid_grid(problem, mesh),
                               periodic_x=problem.periodic_x,
@@ -300,7 +357,7 @@ def kernel_shards(problem: Problem, mesh: Mesh, depth: int, x_rings: bool,
             mask, links = masks[iy][ix].to(torch.uint8).contiguous(), None
             if bouzidi:
                 table = bouzidi_mod.table_block(
-                    problem, (o[0] - depth, o[1] - depth),
+                    problem, lead + (o[0] - depth, o[1] - depth),
                     tuple(mask.shape))
                 mask = torch.as_tensor(step_cuda.kernel_mask(
                     problem, mask.cpu().numpy().astype(bool), table),
@@ -308,8 +365,8 @@ def kernel_shards(problem: Problem, mesh: Mesh, depth: int, x_rings: bool,
                 links = torch.as_tensor(table, device=dev)
             row.append(step_cuda.Shard(
                 index=(iy, ix), origin=o, local_shape=local,
-                grid=problem.spatial_shape, depth=depth, x_rings=x_rings,
-                mask=mask, links=links))
+                grid=tuple(problem.spatial_shape), depth=depth,
+                x_rings=x_rings, mask=mask, links=links))
         out.append(row)
     return out
 
@@ -398,6 +455,55 @@ def _kernel_chunk(problem: Problem, mesh: Mesh, chunk_len: int):
     return chunk
 
 
+def _kernel_chunk_3d(problem: Problem, mesh: Mesh, chunk_len: int):
+    mode, segments = plan_3d(problem, mesh, chunk_len)
+    x_rings = mode == "tiled"
+    local = block_shape(problem, mesh)
+    eq_ring = problem.ghost_ring_values()
+    # the library of the collision, domain, source, force profile, obstacle
+    # rule and velocity set, as on one device; its ring builds serve every
+    # shard
+    consts = step_cuda.kernel_constants(problem, q=19)
+    has_solid = problem.solid is not None
+    cells = mesh.shards()
+    # each segment its own depth: its rings, padded masks and link tables
+    # (tpulbm's run_segment, :467-532)
+    runs = []
+    for depth, iters in segments:
+        masks = halo.pad_mask(_solid_grid(problem, mesh),
+                              periodic_x=problem.periodic_x,
+                              periodic_y=problem.periodic_y, depth=depth)
+        geo = kernel_shards(problem, mesh, depth, x_rings, masks)
+        plains = {(iy, ix): step_rings_torch.make_ring_step(
+            problem, origin(mesh, local, iy, ix), local, depth,
+            masks[iy][ix] if has_solid else None, mesh.device(iy, ix))
+            for iy, ix in cells if mesh.device(iy, ix).type == "cpu"}
+        runs.append((depth, iters, geo, plains))
+
+    def chunk(shards: Grid) -> Grid:
+        spare = [[torch.empty_like(f) for f in row] for row in shards]
+        cur = shards
+        for depth, iters, geo, plains in runs:
+            for _ in range(iters):
+                rings = halo.exchange(cur, eq_ring=eq_ring, depth=depth,
+                                      periodic_x=problem.periodic_x,
+                                      periodic_y=problem.periodic_y,
+                                      x_rings=x_rings)
+                for iy, ix in cells:
+                    step_cuda.collide_stream_rings_3d(
+                        cur[iy][ix], spare[iy][ix], rings[iy][ix],
+                        geo[iy][ix], consts, depth,
+                        plain=plains.get((iy, ix)))
+                cur, spare = spare, cur
+        return cur
+
+    chunk.mode = mode
+    chunk.substeps = segments[0][0]
+    chunk.plan = list(segments)
+    chunk.pallas3d_depths = [depth for depth, _ in segments]
+    return chunk
+
+
 class Diagnostics:
     """The per-interval diagnostics of a sharded state: the one-device
     functions (ops/diagnostics.py, ops/forces.forces_fn) on each shard
@@ -427,8 +533,9 @@ class Diagnostics:
         if solids is not None and mesh.size > 1 and not self._padded:
             cut = [(i, split(mesh, m)) for i, m in forces_mod.shifted_masks(
                 problem, torch.as_tensor(problem.solid))]
-        local = (mesh.local_shape(problem.spatial_shape) if self._padded
-                 else None)
+        local = block_shape(problem, mesh)
+        lead = (0,) * (len(local) - 2)
+        inner = (slice(None),) * len(lead) + (slice(1, -1), slice(1, -1))
         self._fns = {}
         for iy, ix in mesh.shards():
             dev = mesh.device(iy, ix)
@@ -437,11 +544,11 @@ class Diagnostics:
             if self._padded:
                 y0, x0 = origin(mesh, local, iy, ix)
                 table = torch.as_tensor(bouzidi_mod.table_block(
-                    problem, (y0 - 1, x0 - 1),
-                    (local[0] + 2, local[1] + 2)), device=dev)
+                    problem, lead + (y0 - 1, x0 - 1),
+                    local[:-2] + (local[-2] + 2, local[-1] + 2)), device=dev)
                 force = forces_mod.forces_fn(
                     problem, dev, dtype=torch.float64, table=table,
-                    inner=(slice(1, -1), slice(1, -1)))
+                    inner=inner)
             elif solid is not None:
                 links = (None if mesh.size == 1
                          else [(i, g[iy][ix]) for i, g in cut])

@@ -310,18 +310,16 @@ class Runner:
     def _initial(self, f0):
         """The run's device state, the mesh's grid of blocks, from a host
         state (a global array, or a grid of host blocks from a per-shard
-        checkpoint), or the initial state where f0 is None (on a mesh of
-        several shards built on each shard's device)."""
+        checkpoint), or the initial state where f0 is None, built on each
+        shard's device (sharded_step.shard_initial_state)."""
         problem = self.problem
         if isinstance(f0, list):
             return [[state_from_numpy_block(b, problem,
                                             self.mesh.device(iy, ix))
                      for ix, b in enumerate(row)]
                     for iy, row in enumerate(f0)]
-        if f0 is None and self.mesh.size > 1:
-            return sharded_step.shard_initial_state(problem, self.mesh)[0]
         if f0 is None:
-            f0 = problem.initial_state()
+            return sharded_step.shard_initial_state(problem, self.mesh)[0]
         return split_state(f0, problem, self.mesh)
 
     def run(self, resume: bool = True) -> RunResult:

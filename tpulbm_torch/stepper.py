@@ -52,7 +52,7 @@ def blocking_split(chunk_len: int, n_sub: int):
     return [(n_sub, chunk_len // n_sub)] if chunk_len % n_sub == 0 else None
 
 
-def plan_3d(chunk_len: int, nz: int):
+def plan_3d(chunk_len: int, nz: int, fits=None):
     """tpulbm's one-device 3-D plan (sharded_step.py:145-227): the blocked
     segments [(depth, iters), ...] of a D3Q19 chunk, or None where tpulbm
     takes its full-plane 1-step kernel. TPULBM_NO_FUSED2 turns blocking off;
@@ -60,10 +60,11 @@ def plan_3d(chunk_len: int, nz: int):
     and one that does not gives None; otherwise the first of the depth-3
     and depth-2 splits whose depths all pass. A depth passes where the
     tiled builder's device-independent condition nz >= depth + 1 (:860)
-    holds. tpulbm's TPU-only conditions have no counterpart: the VMEM tile
-    search, depth <= halo height, nx % 128, and tile_height >= 4 *
-    halo_height (:190-192). A forced depth above 3 raises
-    NotImplementedError: the N-step kernel holds depths 2 and 3."""
+    holds, and fits(depth) where given (a mesh's shards,
+    parallel/sharded_step.plan_3d). tpulbm's TPU-only conditions have no
+    counterpart: the VMEM tile search, depth <= halo height, nx % 128, and
+    tile_height >= 4 * halo_height (:190-192). A forced depth above 3
+    raises NotImplementedError: the N-step kernel holds depths 2 and 3."""
     if os.environ.get("TPULBM_NO_FUSED2"):
         return None
     forced = os.environ.get("TPULBM_SUBSTEPS")
@@ -77,7 +78,8 @@ def plan_3d(chunk_len: int, nz: int):
         splits = [s for s in (blocking_split(chunk_len, n) for n in (3, 2))
                   if s is not None]
     for split in splits:
-        if all(nz >= depth + 1 for depth, _ in split):
+        if all(nz >= depth + 1 and (fits is None or fits(depth))
+               for depth, _ in split):
             return split
     return None
 
