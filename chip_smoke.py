@@ -350,7 +350,37 @@ printing its own line; any failure exits non-zero:
    summed against the one-device kernel at N = 1, 2, 3, one shard's
    launch against its bound (the kernel's bytes a cell and the rings')
    and its plain ring step; (4,1) at N=3; the Bouzidi sphere on (2,1) at
-   N=3 and (2,2) at depth 1. Each phase prints its seconds.
+   N=3 and (2,2) at depth 1. Each phase prints its seconds;
+56. the thermal problems and multiphase on meshes of shards on the card
+   through the ring builds of csrc/step_thermal.cu (BGK and the
+   Smagorinsky closure) and csrc/step_multiphase.cu (-DTPULBM_RINGS=1,
+   built in phase 2): one launch a shard from the perturbed state within
+   the one-step tolerance of its plain ring step, every mesh bitwise one
+   device's kernel step, rings of the frozen equilibrium SEPARATION
+   tolerances off: rb-2048x512 on (2,2), (4,1), (1,4), its LES on (2,2),
+   the heated cavity 96^2 and the passive scalar 2048x512 on (2,2), the
+   droplet 2048x512 on (4,1) and (2,2);
+57. the thermal main path: rb-2048x512 (bench.py's thermal row) on a 2x2
+   mesh through the Runner, 2240 steps every 140, held to phase 10's
+   one-device run: 2240 ring launches a shard and none of another kernel,
+   the final state bitwise, temperature_field.csv and velocity_field.csv
+   the same bytes, nusselt.csv within rtol 1e-4 / atol 5e-6;
+58. 280 steps of rb on (4,1) and (1,4), its LES and the heated cavity on
+   (2,2), bitwise one device; the passive scalar 2048x512 on (2,2)
+   through the Runner (280 steps): scalar_variance.csv within the same
+   tolerance, its fields the same bytes;
+59. multiphase: the droplet 2048x512 on tpulbm's dryrun layout (4,1)
+   through the Runner, 2240 steps, held to phase 14's one-device run
+   (velocity_field.csv, the physical velocity of padded blocks, the same
+   bytes); the band on (2,2), 280 steps bitwise and its physical velocity
+   bitwise one device's;
+60. timing in turns, the card's time (launches enqueued behind a
+   torch.cuda._sleep, as a shard's launch is shorter than the host's
+   issue): the one-device kernel, the shards' ring launches summed and
+   one shard's launch, beside the same launches as the host issues them
+   and one shard's plain ring step, for rb on (2,2) and (4,1), its LES on
+   (2,2), the droplet on (4,1) and (2,2); and row 4's box build (the
+   overlap mode's three ranged launches of Taylor-Green on (4,1)).
 
 Run directories go to build/chip_smoke/ (git-ignored; the final CSVs have
 a million rows). The last two lines are a JSON line per kernel and the
@@ -382,7 +412,12 @@ and phase 44 for the sphere's (d3q19_collide_stream[_nN][<op>+bouzidi]),
 phase 47 for the 3-D boxes' and D3Q27's (d3q19_collide_stream[_nN]
 [bgk+box], [bgk+box+force], [bgk+d3q27]; their 64^3 builds 0), phase
 52's main path for the 3-D ring builds (d3q19_rings_tiled[_nN][bgk], the
-four shards' launches; the others timed in phase 55 with 0).
+four shards' launches; the others timed in phase 55 with 0), phases 57
+and 59 for the thermal and multiphase ring builds
+(thermal_rings_tiled[bgk], multiphase_rings_rows[bgk]: the four shards'
+launches of the main paths; thermal_rings_rows[bgk],
+thermal_rings_tiled[smagorinsky] and multiphase_rings_tiled[bgk] from
+phases 58-59's 280-step runs; `ms` one shard's launch, the card's time).
 A kernel's
 `bound_ms` is the
 least time the card could take for one step of its work at the shape it
@@ -690,18 +725,24 @@ def same_files(a: Path, b: Path, names) -> bool:
     return all(filecmp.cmp(a / n, b / n, shallow=False) for n in names)
 
 
-def run_counted(params, dev):
+def run_counted(params, dev, keep: str | None = None):
     """One Runner run with every launch count set to 0 just before it;
-    returns (result, counts read just after, wall seconds)."""
+    returns (result, counts read just after, wall seconds). With `keep`,
+    its directory, final state and runner MLUPS are kept in
+    ONE_DEVICE_RUNS[keep] for a later phase's mesh run."""
     from tpulbm_torch.runner import Runner
 
-    runner = Runner(params, device=dev, verbose=False)
+    runner = (CapturingRunner if keep else Runner)(params, device=dev,
+                                                    verbose=False)
     reset_counts()
     t0 = time.perf_counter()
     result = runner.run()
     wall = time.perf_counter() - t0
     counts = read_counts()
     require(result.success, f"run in {params.output_dir} failed")
+    if keep:
+        ONE_DEVICE_RUNS[keep] = (Path(params.output_dir),
+                                 runner.final_state[0][0], result.mlups)
     return result, counts, wall
 
 
@@ -1056,7 +1097,8 @@ def thermal_phases(dev, card: str) -> dict:
     run_dir = OUT_DIR / "rayleigh_benard_2048x512"
     params = thermal_params("rayleigh-benard", nx, ny, num_timesteps=2240,
                             output_frequency=140, output_dir=str(run_dir))
-    result, counts, wall = run_counted(params, dev)
+    # held to by phase 57's 2x2 mesh
+    result, counts, wall = run_counted(params, dev, keep="rb2048")
     require(counts == only("thermal", 2240),
             f"launch counts {counts}, not 2240 thermal and 0 others")
     nu = final_nusselt(run_dir, list(range(0, 2240, 140)))
@@ -1267,7 +1309,8 @@ def multiphase_phases(dev, card: str) -> dict:
     run_dir = OUT_DIR / "multiphase_2048x512"
     params = mp_params(nx, ny, num_timesteps=2240, output_frequency=140,
                        output_dir=str(run_dir))
-    result, counts, wall = run_counted(params, dev)
+    # held to by phase 59's (4,1) mesh
+    result, counts, wall = run_counted(params, dev, keep="mp2048")
     require(counts == only("multiphase", 2240),
             f"launch counts {counts}, not 2240 multiphase and 0 others")
     require(not (run_dir / "forces.csv").exists(),
@@ -4757,6 +4800,507 @@ def mesh3d_phases(dev, card: str) -> list[dict]:
     return entries
 
 
+# ---- phases 56-60: the thermal problems and multiphase on a mesh -------
+
+# a ring cell's bytes, read once a launch: the thermal state's 14 planes
+# and multiphase's 9
+COUPLED_RING_BYTES = {"thermal": 14 * 4, "multiphase": 9 * 4}
+COUPLED_STEPS = 280
+# calls a turn in phase 60's timing, and the cycles the card sleeps while
+# the host enqueues them (about 0.1 s at the H100's 1.98 GHz boost clock,
+# more than the host takes to issue 800 launches)
+COUPLED_REPS = {"one": 200, "rings": 200, "shard": 400, "issued": 200,
+                "plain": 20}
+COUPLED_SLEEP_CYCLES = 200_000_000
+
+
+def coupled_builds():
+    """The ring builds of the thermal source (BGK and the Smagorinsky
+    closure) and of the multiphase source: (source, mode, variant)."""
+    from tpulbm_torch.ops import step_cuda
+    return ([("step_thermal.cu", mode, step_cuda.RINGS)
+             for mode in ("bgk", "smagorinsky")]
+            + [("step_multiphase.cu", "bgk", step_cuda.RINGS)])
+
+
+def coupled_counts() -> dict:
+    """The thermal and multiphase ring wrappers' launches per (kernel,
+    library, depth, shard)."""
+    from tpulbm_torch.ops import (step_cuda, step_multiphase_cuda,
+                                  step_thermal_cuda)
+    out = {}
+    for kind, wrapper in (
+            ("thermal", step_thermal_cuda.collide_stream_thermal_rings),
+            ("multiphase",
+             step_multiphase_cuda.collide_stream_multiphase_rings)):
+        for key, n in step_cuda.launches_by_shard(wrapper).items():
+            out[(kind,) + key] = n
+    return out
+
+
+class CoupledCase:
+    """A thermal or multiphase problem on a mesh of `shape` shards on the
+    card: each shard's geometry, the ring wrapper and its constants, each
+    shard's plain ring step and the one-device kernel step."""
+
+    def __init__(self, problem, shape, dev):
+        from tpulbm_torch.ops import (step_cuda, step_multiphase,
+                                      step_multiphase_cuda, step_thermal,
+                                      step_thermal_cuda)
+        from tpulbm_torch.parallel import sharded_step
+        self.problem = problem
+        self.kind = "thermal" if problem.thermal is not None else "multiphase"
+        thermal = self.kind == "thermal"
+        self.depth = 1 if thermal else step_multiphase_cuda.DEPTH
+        self.mesh = card_mesh(shape, dev)
+        self.local = sharded_step.block_shape(problem, self.mesh)
+        self.x_rings = shape[1] != 1
+        if thermal:
+            self.consts = step_thermal_cuda.ThermalConstants.of(problem)
+            self.wrapper = step_thermal_cuda.collide_stream_thermal_rings
+            self.one = step_thermal_cuda.make_local_step_thermal_cuda(
+                problem, dev)
+            make_plain = step_thermal.make_ring_step_thermal
+        else:
+            self.consts = step_multiphase_cuda.MultiphaseConstants.of(problem)
+            self.wrapper = \
+                step_multiphase_cuda.collide_stream_multiphase_rings
+            self.one = step_multiphase_cuda.make_local_step_multiphase_cuda(
+                problem, dev)
+            make_plain = step_multiphase.make_ring_step_multiphase
+        self.geo = {cell: step_cuda.Shard(
+            index=cell, origin=sharded_step.origin(self.mesh, self.local,
+                                                   *cell),
+            local_shape=self.local, grid=tuple(problem.spatial_shape),
+            depth=self.depth, x_rings=self.x_rings)
+            for cell in self.mesh.shards()}
+        self.plains = {cell: make_plain(problem, g.origin, self.local, dev)
+                       for cell, g in self.geo.items()}
+
+    def split(self, f):
+        from tpulbm_torch.parallel import sharded_step
+        return sharded_step.split(self.mesh, f)
+
+    def rings(self, blocks):
+        from tpulbm_torch.parallel import halo
+        p = self.problem
+        return halo.exchange(blocks, eq_ring=p.ghost_ring_values(),
+                             depth=self.depth, periodic_x=p.periodic_x,
+                             periodic_y=p.periodic_y, x_rings=self.x_rings)
+
+    def eq_rings(self, rings):
+        """Every ring replaced by the frozen ghost equilibrium."""
+        eq = torch.as_tensor(self.problem.ghost_ring_values(),
+                             dtype=torch.float32)
+        return [[tuple(None if r is None else
+                       eq.to(r.device).reshape(-1, 1, 1).expand(r.shape)
+                       .contiguous() for r in rs) for rs in row]
+                for row in rings]
+
+    def launch(self, block, out, rings, cell):
+        self.wrapper(block, out, rings, self.geo[cell], self.consts)
+
+    def step_all(self, blocks, rings):
+        outs = [[torch.empty_like(b) for b in row] for row in blocks]
+        for iy, ix in self.mesh.shards():
+            self.launch(blocks[iy][ix], outs[iy][ix], rings[iy][ix],
+                        (iy, ix))
+        return outs
+
+
+def coupled_parity(dev, label: str, problem, shapes) -> float:
+    """Phase 56 for one problem: from the perturbed state, on each mesh of
+    `shapes`, every shard's ring launch within the one-step tolerance of
+    its plain ring step, the mesh bitwise one device's kernel step, and
+    the launches fed equilibrium rings SEPARATION tolerances off. Returns
+    the largest error against the plain ring step."""
+    from tpulbm_torch.parallel import sharded_step
+    fp = perturbed(problem, initial_state(problem, dev))
+    err = 0.0
+    for shape in shapes:
+        case = CoupledCase(problem, shape, dev)
+        want = case.one(fp, torch.empty_like(fp))
+        blocks = case.split(fp)
+        rings = case.rings(blocks)
+        outs = case.step_all(blocks, rings)
+        got = sharded_step.gather(outs)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"{label} on {shape}: "
+                f"{float((got - want).abs().max())} off one device")
+        eq_outs = case.step_all(blocks, case.eq_rings(rings))
+        seps = []
+        for iy, ix in case.mesh.shards():
+            plain = case.plains[iy, ix](blocks[iy][ix], *rings[iy][ix])
+            torch.testing.assert_close(outs[iy][ix], plain, **ONE_STEP_TOL)
+            err = max(err, float((outs[iy][ix] - plain).abs().max()))
+            seps.append(separation(f"{label} on {shape}, shard {(iy, ix)}",
+                                   eq_outs[iy][ix], plain, ONE_STEP_TOL))
+        print(f"coupled parity {label} {problem.spatial_shape} on {shape} "
+              f"({'x rings' if case.x_rings else 'ring rows'}, rings "
+              f"{case.depth} deep) from the perturbed state: bitwise one "
+              f"device; each shard within {err:.3e} of its plain ring step "
+              f"(rtol 5e-6, atol 1e-7); equilibrium rings "
+              f"{min(seps):.0f}-{max(seps):.0f}x the tolerance off")
+        del case, blocks, rings, outs, eq_outs, got, want
+    del fp
+    torch.cuda.empty_cache()
+    return err
+
+
+def coupled_chunks(dev, label: str, problem, shapes, steps: int) -> dict:
+    """`steps` steps from the perturbed state on each mesh of `shapes`
+    through sharded_step.make_chunk_fn, counted and bitwise the one-device
+    kernel's; for multiphase also the gathered physical velocity
+    (sharded_step.Diagnostics.fields, padded blocks) bitwise one
+    device's. Returns the ring launches on each mesh, summed over its
+    shards."""
+    from tpulbm_torch.parallel import sharded_step
+    f0 = perturbed(problem, initial_state(problem, dev))
+    want = step_cuda_chunk(problem, dev, steps)(f0.clone())
+    one_fields = sharded_step.Diagnostics(
+        problem, card_mesh((1, 1), dev)).fields([[want]])
+    counts = {}
+    for shape in shapes:
+        mesh = card_mesh(shape, dev)
+        chunk = sharded_step.make_chunk_fn(problem, mesh, steps)
+        reset_counts()
+        blocks = chunk(sharded_step.split(mesh, f0))
+        counts[shape] = sum(coupled_counts().values())
+        require(counts[shape] == steps * mesh.size,
+                f"{label} on {shape}: {counts[shape]} ring launches, not "
+                f"{steps} a shard")
+        got = sharded_step.gather(blocks)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"{label} {steps} steps on {shape}: "
+                f"{float((got - want).abs().max())} off one device")
+        text = ""
+        if problem.shan_chen:
+            rho, u = sharded_step.Diagnostics(problem, mesh).fields(blocks)
+            require(torch.equal(rho, one_fields[0])
+                    and torch.equal(u, one_fields[1]),
+                    f"{label} on {shape}: the physical velocity "
+                    f"{float((u - one_fields[1]).abs().max())} off one "
+                    "device's")
+            text = "; the physical velocity bitwise one device's"
+        print(f"coupled {label} {problem.spatial_shape} {steps} steps on "
+              f"{shape} ({chunk.mode}) from the perturbed state: bitwise "
+              f"one device{text}; {counts[shape]} ring launches")
+        del blocks, got
+    del f0, want, one_fields
+    torch.cuda.empty_cache()
+    return counts
+
+
+def coupled_runner_pair(dev, params, shape, label: str, same, close):
+    """The Runner on `shape` (every shard on the card) against the
+    one-device Runner (ONE_DEVICE_RUNS[label] where an earlier phase ran
+    it): exactly num_timesteps ring launches a shard and none of another
+    kernel, the gathered final state bitwise, the files `same` the same
+    bytes, the traces `close` within FORCES_TOL. Returns the counts per
+    (kernel, library, depth, shard)."""
+    from tpulbm_torch.parallel import sharded_step
+    d_mesh = OUT_DIR / f"coupled_{label}_{shape[0]}x{shape[1]}"
+    if label in ONE_DEVICE_RUNS:
+        d_one, ref, mlups1 = ONE_DEVICE_RUNS.pop(label)
+    else:
+        d_one = OUT_DIR / f"coupled_{label}_1x1"
+        one = CapturingRunner(params.replace(output_dir=str(d_one)),
+                              device=dev, verbose=False)
+        r1 = one.run()
+        require(r1.success, f"{label}: the one-device run failed")
+        ref, mlups1 = one.final_state[0][0], r1.mlups
+        del one
+    runner = CapturingRunner(params.replace(mesh_shape=shape,
+                                            output_dir=str(d_mesh)),
+                             devices=[dev] * (shape[0] * shape[1]),
+                             verbose=False)
+    reset_counts()
+    t0 = time.perf_counter()
+    result = runner.run()
+    wall = time.perf_counter() - t0
+    counts, others = coupled_counts(), read_counts()
+    require(result.success, f"{label} {shape}: the run failed")
+    require(others == only(1, 0) and not ring_counts()
+            and not ring3d_counts(), f"{label}: other kernels launched "
+            f"{others}")
+    shards = card_mesh(shape, dev).shards()
+    require(sorted(k[-1] for k in counts) == sorted(shards)
+            and set(counts.values()) == {params.num_timesteps},
+            f"{label} {shape}: ring launches {counts}, not "
+            f"{params.num_timesteps} a shard")
+    whole = sharded_step.gather(runner.final_state)
+    torch.cuda.synchronize()
+    require(torch.equal(whole, ref), f"{label} {shape}: the final state "
+            f"{float((whole - ref).abs().max())} off one device's")
+    require(same_files(d_mesh, d_one, same),
+            f"{label} {shape}: {same} differ from one device's")
+    diffs = []
+    for name in close:
+        a, b = (np.loadtxt(d / name, delimiter=",", skiprows=1, ndmin=2)
+                for d in (d_mesh, d_one))
+        require(a.shape == b.shape and np.array_equal(a[:, 0], b[:, 0]),
+                f"{label}: {name} rows differ")
+        np.testing.assert_allclose(a, b, **FORCES_TOL)
+        diffs.append(f"{name} max diff {float(np.abs(a - b).max()):.3e}")
+    print(f"coupled runner {label} {params.nx}x{params.ny} on {shape}, "
+          f"{params.num_timesteps} steps every {params.output_frequency}: "
+          f"{params.num_timesteps} ring launches a shard, 0 of another "
+          f"kernel; final state bitwise one device's, {', '.join(same)} "
+          f"the same bytes; {'; '.join(diffs) or 'no trace'} (rtol 1e-4, "
+          f"atol 5e-6); {wall:.2f} s wall, runner {result.mlups:.1f} MLUPS "
+          f"(one device {mlups1:.1f}), {result.host_fetches} host fetches")
+    del runner, whole, ref
+    torch.cuda.empty_cache()
+    return counts
+
+
+def device_ms(fn, reps: int) -> float:
+    """The card's time per call of `fn`, ms: `reps` calls enqueued behind
+    a torch.cuda._sleep of COUPLED_SLEEP_CYCLES, so the card runs them back
+    to back however slowly the host issues them (a shard's launch lasts
+    less than the host takes to issue one); raises if the host took longer
+    to enqueue them than the card slept."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    s, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    s.record()
+    torch.cuda._sleep(COUPLED_SLEEP_CYCLES)
+    a.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    b.record()
+    torch.cuda.synchronize()
+    require(host_ms < s.elapsed_time(a), f"the host took {host_ms:.3f} ms "
+            f"to enqueue {reps} calls, the card slept "
+            f"{s.elapsed_time(a):.3f} ms")
+    return a.elapsed_time(b) / reps
+
+
+def host_paced_ms(fn, reps: int) -> float:
+    """Time per call of `fn`, ms, as the host issues them (CUDA events
+    around `reps` calls after a warm-up): the rate a Runner can step."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def coupled_timing(dev, card: str, problem, shape, launches: int,
+                   err: float) -> dict:
+    """Phase 60 for one ring build and mesh, in turns: the card's time
+    (device_ms) of the one-device kernel, of the shards' ring launches
+    summed and of one shard's launch; the shards' launches as the host
+    issues them and one shard's plain ring step (host_paced_ms), ms per
+    step; one shard's bound with its rings' bytes (each ring cell read
+    once). Returns the kernels line's entry."""
+    from tpulbm_torch.ops import step_multiphase_cuda, step_thermal_cuda
+    case = CoupledCase(problem, shape, dev)
+    f0 = initial_state(problem, dev)
+    blocks = case.split(f0)
+    rings = case.rings(blocks)
+    outs = [[torch.empty_like(b) for b in row] for row in blocks]
+    spare = torch.empty_like(f0)
+    plain = case.plains[0, 0]
+
+    def all_shards():
+        for iy, ix in case.mesh.shards():
+            case.launch(blocks[iy][ix], outs[iy][ix], rings[iy][ix], (iy, ix))
+
+    runs = {"one": (device_ms, lambda: case.one(f0, spare)),
+            "rings": (device_ms, all_shards),
+            "shard": (device_ms, lambda: case.launch(
+                blocks[0][0], outs[0][0], rings[0][0], (0, 0))),
+            "issued": (host_paced_ms, all_shards),
+            "plain": (host_paced_ms, lambda: plain(blocks[0][0],
+                                                   *rings[0][0]))}
+    times = {k: [] for k in runs}
+    for which in list(runs) + list(runs)[::-1]:
+        timer, fn = runs[which]
+        times[which].append(timer(fn, COUPLED_REPS[which]))
+    ms = {k: min(v) for k, v in times.items()}
+    nyl, nxl = case.local
+    hx = case.depth if case.x_rings else 0
+    ring_bytes = COUPLED_RING_BYTES[case.kind] * (
+        2 * case.depth * (nxl + 2 * hx) + 2 * hx * nyl)
+    bnd = bound(case.kind, nyl * nxl)
+    bnd["bound_ms"] += 1e3 * ring_bytes / HBM_BYTES_PER_S
+    mode = getattr(case.consts, "mode", "bgk")
+    print(f"timing coupled {case.kind}[{mode}] {problem.spatial_shape} on "
+          f"{shape} ({'x rings' if case.x_rings else 'ring rows'}) on "
+          f"{card}, the card's time: the {case.mesh.size} shards' ring "
+          f"launches {ms['rings']:.5f} ms/step summed against the "
+          f"one-device kernel's {ms['one']:.5f} "
+          f"({100 * (ms['rings'] / ms['one'] - 1):+.2f}%; runs "
+          f"{[round(v, 6) for v in times['rings']]} and "
+          f"{[round(v, 6) for v in times['one']]}); one {nyl}x{nxl} shard "
+          f"{ms['shard']:.5f} ms ({100 * bnd['bound_ms'] / ms['shard']:.1f}%"
+          f" of its {bnd['bound_ms']:.5f} ms bound with {ring_bytes} ring "
+          f"bytes); as the host issues them, the shards' launches "
+          f"{ms['issued']:.5f} ms/step; one shard's plain ring step "
+          f"{ms['plain']:.5f} ms")
+    kind = "tiled" if case.x_rings else "rows"
+    mod = step_thermal_cuda if case.kind == "thermal" else \
+        step_multiphase_cuda
+    entry = {"name": f"{case.kind}_rings_{kind}[{mode}]", "route": "cuda",
+             "source": mod.SOURCE, "replaces": mod.RINGS_REPLACES,
+             "launches": launches, "max_abs_err": err, "ms": ms["shard"],
+             "plain_ms": ms["plain"], **bnd}
+    del case, blocks, rings, outs, spare, f0
+    torch.cuda.empty_cache()
+    return entry
+
+
+def box_ranged_timing(dev, card: str) -> None:
+    """Row 4's box build (tpulbm's ranged 1-step kernel under a periodic
+    y): the overlap mode's three ranged launches a shard of Taylor-Green
+    2048x512 on (4,1), every shard held against its plain ring step from
+    the perturbed state, then one shard's three launches and its plain
+    ring step timed in turns, ms per step, beside their bound."""
+    from tpulbm_torch.models import make_problem
+    problem = make_problem(box_params("taylor-green"))
+    case = MeshCase(problem, (4, 1), dev, 1, False)
+    fp = perturbed(problem, initial_state(problem, dev))
+    pblocks = case.split(fp)
+    prings = case.rings(pblocks)
+    got = case.step_all(pblocks, prings, ranged=True)
+    err = 0.0
+    for (iy, ix), plain in case.plains.items():
+        want = plain(pblocks[iy][ix], *prings[iy][ix])
+        torch.testing.assert_close(got[iy][ix], want, **ONE_STEP_TOL)
+        err = max(err, float((got[iy][ix] - want).abs().max()))
+    blocks = case.split(initial_state(problem, dev))
+    b, r = blocks[0][0], case.rings(blocks)[0][0]
+    nyl, nxl = case.local
+
+    def three(g, o):
+        case.launch(g, o, (None,) * 4, (0, 0), rows=(2, nyl - 2))
+        case.launch(g, o, r, (0, 0), rows=(0, 2))
+        return case.launch(g, o, r, (0, 0), rows=(nyl - 2, nyl))
+
+    plain = case.plains[0, 0]
+    out = torch.empty_like(b)
+    runs_ = {"plain": (host_paced_ms, lambda: plain(b, *r), 4),
+             "kernel": (device_ms, lambda: three(b, out), 200),
+             "issued": (host_paced_ms, lambda: three(b, out), 200)}
+    times = {k: [] for k in runs_}
+    for which in list(runs_) + list(runs_)[::-1]:
+        timer, fn, reps = runs_[which]
+        times[which].append(timer(fn, reps))
+    ms = {k: min(v) for k, v in times.items()}
+    bnd = bound_of(9 * 4 * 2, STEP_FLOPS["d2q9"], nyl * nxl)
+    bnd["bound_ms"] += 1e3 * RING_BYTES * 2 * nxl / HBM_BYTES_PER_S
+    print(f"timing box ranged (row 4, Taylor-Green {problem.spatial_shape} "
+          f"on (4, 1), a {nyl}x{nxl} shard's three launches) on {card}: "
+          f"the card's time {ms['kernel']:.5f} ms/step "
+          f"({100 * bnd['bound_ms'] / ms['kernel']:.1f}% of its "
+          f"{bnd['bound_ms']:.5f} ms bound), as the host issues them "
+          f"{ms['issued']:.5f}, plain ring step {ms['plain']:.5f} ms/step; "
+          f"every shard within {err:.3e} of its plain ring step from the "
+          f"perturbed state")
+    del case, fp, pblocks, prings, got, blocks, b, r, out
+    torch.cuda.empty_cache()
+
+
+def coupled_mesh_phases(dev, card: str) -> list[dict]:
+    """Phases 56-60: the thermal problems and Shan-Chen multiphase on a
+    mesh of shards through the ring builds of the thermal and multiphase
+    kernels (coupled_builds). Returns their kernels' JSON entries."""
+    from tpulbm_torch.models import make_problem
+    from tpulbm_torch.ops import step_cuda
+    from tpulbm_torch.utils import cuda_build
+
+    t_all = time.perf_counter()
+    for src, mode, variant in coupled_builds():
+        lib = cuda_build.load(src, step_cuda.build_defines(mode, variant))
+        print(f"build: {src} {step_cuda.build_defines(mode, variant)} (a "
+              f"ring build) in {lib.build_seconds:.2f} s "
+              f"({ptxas_summary(lib.log)})")
+    rb = thermal_params("rayleigh-benard", THERMAL_NX, THERMAL_NY)
+    les = rb.replace(smagorinsky=THERMAL_CS)
+    cavity = thermal_params("heated-cavity", 96, 96)
+    scalar = box_params("passive-scalar")
+    drop = mp_params(MP_NX, MP_NY)
+    band = mp_params(MP_NX, MP_NY, cylinder_radius=0.0)
+
+    # phase 56: parity of every new build from the perturbed state
+    t0 = time.perf_counter()
+    errs = {"rb": coupled_parity(dev, "rb", make_problem(rb),
+                                 ((2, 2), (4, 1), (1, 4))),
+            "les": coupled_parity(dev, "rb-les", make_problem(les),
+                                  ((2, 2),)),
+            "mp": coupled_parity(dev, "mp-droplet", make_problem(drop),
+                                 ((4, 1), (2, 2)))}
+    errs["rb"] = max(errs["rb"], coupled_parity(
+        dev, "heated-cavity", make_problem(cavity), ((2, 2),)),
+        coupled_parity(dev, "passive-scalar", make_problem(scalar),
+                       ((2, 2),)))
+    print(f"coupled parity (phase 56): {time.perf_counter() - t0:.2f} s")
+
+    # phase 57: the thermal main path, rb-2048x512 on 2x2 through the
+    # Runner, held to phase 10's one-device run
+    t0 = time.perf_counter()
+    main = coupled_runner_pair(
+        dev, rb.replace(num_timesteps=2240, output_frequency=140), (2, 2),
+        "rb2048", ["temperature_field.csv", "velocity_field.csv"],
+        ["nusselt.csv"])
+    print(f"coupled thermal main path (phase 57): "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # phase 58: the smaller thermal meshes
+    t0 = time.perf_counter()
+    cut = dict(num_timesteps=COUPLED_STEPS, output_frequency=140)
+    rows = coupled_chunks(dev, "rb", make_problem(rb), ((4, 1), (1, 4)),
+                          COUPLED_STEPS)
+    les_counts = coupled_chunks(dev, "rb-les", make_problem(les), ((2, 2),),
+                                COUPLED_STEPS)
+    coupled_chunks(dev, "heated-cavity", make_problem(cavity), ((2, 2),),
+                   COUPLED_STEPS)
+    coupled_runner_pair(dev, scalar.replace(**cut), (2, 2), "scalar2048",
+                        ["temperature_field.csv", "velocity_field.csv"],
+                        ["scalar_variance.csv"])
+    print(f"coupled thermal meshes (phase 58): "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # phase 59: multiphase, the droplet on tpulbm's dryrun layout (4,1)
+    # through the Runner against phase 14's one-device run; the band on 2x2
+    t0 = time.perf_counter()
+    mp_main = coupled_runner_pair(
+        dev, drop.replace(num_timesteps=2240, output_frequency=140), (4, 1),
+        "mp2048", ["velocity_field.csv"], [])
+    band_counts = coupled_chunks(dev, "mp-band", make_problem(band),
+                                 ((2, 2),), COUPLED_STEPS)
+    print(f"coupled multiphase (phase 59): {time.perf_counter() - t0:.2f} s")
+
+    # phase 60: timing in turns against the one-device kernels
+    t0 = time.perf_counter()
+
+    entries = [
+        coupled_timing(dev, card, make_problem(rb), (2, 2),
+                       sum(main.values()), errs["rb"]),
+        coupled_timing(dev, card, make_problem(rb), (4, 1), rows[4, 1],
+                       errs["rb"]),
+        coupled_timing(dev, card, make_problem(les), (2, 2),
+                       les_counts[2, 2], errs["les"]),
+        coupled_timing(dev, card, make_problem(drop), (4, 1),
+                       sum(mp_main.values()), errs["mp"]),
+        coupled_timing(dev, card, make_problem(drop), (2, 2),
+                       band_counts[2, 2], errs["mp"])]
+    box_ranged_timing(dev, card)
+    print(f"coupled timing (phase 60): {time.perf_counter() - t0:.2f} s; "
+          f"coupled phases 56-60 {time.perf_counter() - t_all:.2f} s")
+    return entries
+
+
 def step_cuda_chunk(problem, dev, steps: int):
     """The one-device kernel chunk of `steps` steps (stepper.make_chunk_fn)
     under the current environment."""
@@ -4798,9 +5342,10 @@ def main() -> int:
     # and the domain, source and obstacle builds of phases 25-29, the ring
     # builds of phases 30-34, the box's of phases 35-40, the Bouzidi ones
     # of phases 41-45, the 3-D box's and D3Q27's of phases 46-50, the 3-D
-    # ring builds of phases 51-55
+    # ring builds of phases 51-55, the thermal and multiphase ring builds
+    # of phases 56-60
     builds = (new_builds() + mesh_builds() + box_builds() + bz_builds()
-              + box3d_builds() + mesh3d_builds())
+              + box3d_builds() + mesh3d_builds() + coupled_builds())
     jobs = ([(src, ()) for src in sources]
             + [(src, step_cuda.mode_defines(mode)) for src, mode in modes]
             + [(src, step_cuda.build_defines(mode, variant))
@@ -5004,6 +5549,7 @@ def main() -> int:
     kernels.extend(bouzidi_phases(dev, card))
     kernels.extend(box3d_phases(dev, card))
     kernels.extend(mesh3d_phases(dev, card))
+    kernels.extend(coupled_mesh_phases(dev, card))
     print(f"chip_smoke: {time.perf_counter() - t_start:.2f} s in all")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -440,9 +440,10 @@ def test_cli_runs_the_presets_on_the_cpu(tmp_path, argv, files):
                 assert np.isfinite(data["ux"]).all()
 
 
-def test_box_on_a_mesh_raises_naming_item_19(tmp_path):
-    # the 3-D box runs on a mesh (tests/test_torch_mesh3d.py); the thermal
-    # box, the passive scalar, still raises naming item 19 there
+def test_box_and_scalar_on_a_mesh(tmp_path):
+    # the 3-D box runs on a mesh (tests/test_torch_mesh3d.py), and so does
+    # the thermal box, the passive scalar, since its ring build
+    # (tests/test_torch_mesh_thermal.py)
     params = PRESETS["kolmogorov3d"].replace(
         nx=16, ny=16, nz=16, mesh_shape=(2, 1), output_dir=str(tmp_path))
     runner = Runner(params, device="cpu")
@@ -450,7 +451,6 @@ def test_box_on_a_mesh_raises_naming_item_19(tmp_path):
     scalar = PRESETS["taylor-green"].replace(
         problem="passive-scalar", thermal_tau=0.6, mesh_shape=(2, 1),
         output_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 19"):
-        Runner(scalar, device="cpu")
+    assert Runner(scalar, device="cpu").mesh.shape == (2, 1)
     assert PRESETS["kolmogorov3d"].to_json() == \
         __import__("tpulbm.config").config.PRESETS["kolmogorov3d"].to_json()

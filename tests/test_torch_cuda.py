@@ -924,3 +924,85 @@ def test_ring_kernels_3d_equal_one_device(cuda, monkeypatch, case, shape,
     assert step_cuda.launches_by_shard(step_cuda.collide_stream_rings_3d) \
         == {(lib, d, idx): n for d, n in chunk.plan for idx in mesh.shards()}
     assert step_cuda.launches(step_cuda.collide_stream_3d) == 0
+
+
+# the ring builds of the thermal kernel (BGK and the Smagorinsky closure)
+# and of the multiphase kernel on meshes, every shard on the card: a
+# 12-step chunk bitwise equal to the one-device chunk from a ±10%
+# perturbed state, 12 launches counted per shard; one launch per shard
+# within the one-step tolerance of its plain ring step, and rings of the
+# frozen equilibrium in place of the neighbours' data far off it
+COUPLED_CASES = {
+    "rb": _thermal_params("rayleigh-benard", 100, 72),
+    "rb_les": _thermal_params("rayleigh-benard", 100, 72).replace(
+        smagorinsky=0.17),
+    "cavity": _thermal_params("heated-cavity", 96, 96),
+    "scalar": SimulationParams(problem="passive-scalar", nx=100, ny=72,
+                               tau=0.8, thermal_tau=0.6, inlet_velocity=0.04,
+                               cylinder_radius=0.0),
+    "droplet": _multiphase_params(100, 72),
+    "band": _multiphase_params(96, 64, cylinder_radius=0.0,
+                               mp_wall_rho=1.6),
+}
+
+
+@pytest.mark.parametrize("case", sorted(COUPLED_CASES))
+@pytest.mark.parametrize("shape,env", [((2, 2), {}), ((4, 1), {}),
+                                       ((1, 2), {}),
+                                       ((1, 1), {"TPULBM_FORCE_XHALO": "1"})])
+def test_coupled_ring_kernels_equal_one_device(cuda, monkeypatch, case,
+                                               shape, env):
+    from tpulbm_torch.parallel import halo, sharded_step
+    from tpulbm_torch.parallel.mesh import make_mesh
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    problem = make_problem(COUPLED_CASES[case].replace(precision="f32"))
+    thermal = problem.thermal is not None
+    f = state_from_numpy(_noisy(problem, 9), problem, cuda)
+    mesh = make_mesh(shape, devices=[cuda] * (shape[0] * shape[1]))
+    chunk = sharded_step.make_chunk_fn(problem, mesh, 12)
+    if thermal and env:
+        # tpulbm's thermal kernel takes x rings where the mesh cuts x only
+        assert chunk.mode == "one-device"
+        return
+    assert chunk.mode == ("tiled" if shape[1] > 1 or env else "rows")
+    want = make_chunk_fn(problem, cuda, 12)(f.clone())
+    step_cuda.reset_launch_counts()
+    got = sharded_step.gather(chunk(sharded_step.split(mesh, f)))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), float((got - want).abs().max())
+    wrapper, depth = ((step_thermal_cuda.collide_stream_thermal_rings, 1)
+                      if thermal else
+                      (step_multiphase_cuda.collide_stream_multiphase_rings,
+                       step_multiphase_cuda.DEPTH))
+    mode = step_torch.collision_mode(problem)
+    assert step_cuda.launches_by_shard(wrapper) == {
+        (mode, depth, idx): 12 for idx in mesh.shards()}
+    # one launch per shard against its plain ring step
+    blocks = sharded_step.split(mesh, f)
+    rings = halo.exchange(blocks, eq_ring=problem.ghost_ring_values(),
+                          depth=depth, periodic_x=problem.periodic_x,
+                          periodic_y=problem.periodic_y,
+                          x_rings=chunk.mode == "tiled")
+    local = sharded_step.block_shape(problem, mesh)
+    consts = (step_thermal_cuda.ThermalConstants if thermal
+              else step_multiphase_cuda.MultiphaseConstants).of(problem)
+    make_plain = (step_thermal.make_ring_step_thermal if thermal
+                  else step_multiphase.make_ring_step_multiphase)
+    eq = torch.as_tensor(problem.ghost_ring_values(), dtype=torch.float32,
+                         device=cuda).reshape(-1, 1, 1)
+    for iy, ix in mesh.shards():
+        shard = step_cuda.Shard(
+            index=(iy, ix), origin=sharded_step.origin(mesh, local, iy, ix),
+            local_shape=local, grid=problem.spatial_shape, depth=depth,
+            x_rings=chunk.mode == "tiled")
+        out = wrapper(blocks[iy][ix], torch.empty_like(blocks[iy][ix]),
+                      rings[iy][ix], shard, consts)
+        plain = make_plain(problem, shard.origin, local, cuda)(
+            blocks[iy][ix], *rings[iy][ix])
+        torch.testing.assert_close(out, plain, **ONE_STEP_TOL)
+        eq_rings = tuple(None if r is None else eq.expand(r.shape)
+                         .contiguous() for r in rings[iy][ix])
+        off = wrapper(blocks[iy][ix], torch.empty_like(blocks[iy][ix]),
+                      eq_rings, shard, consts)
+        assert float((off - plain).abs().max()) > 1e-4

@@ -119,16 +119,11 @@ def test_runner_refuses_cuda_without_a_card(tmp_path):
         Runner(params, device="cuda")
 
 
-# the 3-D meshes run (tests/test_torch_mesh3d.py); thermal and multiphase
-# meshes still raise
+# the 3-D meshes run (tests/test_torch_mesh3d.py), and the thermal and
+# multiphase meshes (tests/test_torch_mesh_thermal.py,
+# test_torch_mesh_multiphase.py: test_runner_takes_thermal_and_
+# multiphase_meshes below)
 @pytest.mark.parametrize("override", [dict(precision="f64"),
-                                      dict(mesh_shape=(2, 1),
-                                           problem="rayleigh-benard"),
-                                      dict(mesh_shape=(2, 1),
-                                           problem="multiphase",
-                                           shan_chen_g=-5.0, tau=1.0,
-                                           inlet_velocity=0.0,
-                                           stats_from=0),
                                       dict(problem="cylinder3d", nz=16,
                                            lattice3d="d3q27",
                                            obstacle_bc="bouzidi",
@@ -140,6 +135,17 @@ def test_runner_refuses_unported_options(tmp_path, override):
                        match="float32" if "precision" in override
                        else "ROADMAP"):
         Runner(params, device="cpu")
+
+
+# refused until this slice's ring builds: the Runner builds their meshes
+@pytest.mark.parametrize("override", [
+    dict(mesh_shape=(2, 1), problem="rayleigh-benard", thermal_tau=0.6),
+    dict(mesh_shape=(2, 1), problem="multiphase", shan_chen_g=-5.0, tau=1.0,
+         inlet_velocity=0.0, stats_from=0)], ids=["thermal", "multiphase"])
+def test_runner_takes_thermal_and_multiphase_meshes(tmp_path, override):
+    params = SimulationParams(nx=64, ny=32, num_timesteps=20,
+                              output_dir=str(tmp_path), **override)
+    assert Runner(params, device="cpu").mesh.shape == (2, 1)
 
 
 @pytest.mark.parametrize("no_resume", [True, False])

@@ -466,15 +466,19 @@ def test_mesh_defaults_to_the_cards_and_the_cpu_only_when_asked():
         jax_choose(8, 2048, 512)
 
 
-# the 3-D problems run on a mesh (tests/test_torch_mesh3d.py: item None,
-# the Runner builds its mesh); thermal and multiphase meshes still raise
+# the 3-D problems (tests/test_torch_mesh3d.py), the thermal problems
+# (tests/test_torch_mesh_thermal.py) and multiphase
+# (tests/test_torch_mesh_multiphase.py) run on a mesh: item None, the
+# Runner builds its mesh; the Bouzidi obstacle on D3Q27 still raises
 @pytest.mark.parametrize("override,item", [
     (dict(problem="cylinder3d", nz=16), None),
-    (dict(problem="rayleigh-benard"), "item 19"),
+    (dict(problem="rayleigh-benard", thermal_tau=0.6), None),
     (dict(problem="multiphase", shan_chen_g=-5.0, tau=1.0,
-          inlet_velocity=0.0), "item 19"),
+          inlet_velocity=0.0), None),
     (dict(problem="kolmogorov", nz=8), None),
-], ids=["3d", "thermal", "multiphase", "periodic-box"])
+    (dict(problem="cylinder3d", nz=8, lattice3d="d3q27",
+          obstacle_bc="bouzidi"), "item 16"),
+], ids=["3d", "thermal", "multiphase", "periodic-box", "bouzidi-d3q27"])
 def test_unported_problems_on_a_mesh_name_their_item(tmp_path, override,
                                                      item):
     from tpulbm_torch.runner import Runner

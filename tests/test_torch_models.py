@@ -32,13 +32,14 @@ def test_problem_arrays_match_tpulbm_bytewise(preset, precision):
 
 # the periodic boxes run in 2-D (tests/test_torch_periodic.py) and 3-D
 # (tests/test_torch_3d_periodic.py), the 3-D boxes on a mesh too
-# (tests/test_torch_mesh3d.py: error None, the Problem builds); what stays
-# refused: the passive scalar on a mesh (item 19), and tpulbm's own
-# ValueError for a 3-D shear layer
+# (tests/test_torch_mesh3d.py), the passive scalar on a mesh since its
+# ring build (tests/test_torch_mesh_thermal.py): error None, the Problem
+# builds; what stays refused: tpulbm's own ValueError for a 3-D shear
+# layer
 @pytest.mark.parametrize("problem,override,error,item", [
     ("kolmogorov", dict(nz=8, mesh_shape=(2, 1)), None, None),
-    ("passive-scalar", dict(thermal_tau=0.6, mesh_shape=(2, 1)),
-     NotImplementedError, "item 19"),
+    ("passive-scalar", dict(thermal_tau=0.6, mesh_shape=(2, 1)), None,
+     None),
     ("taylor-green", dict(nz=8, lattice3d="d3q27", mesh_shape=(1, 2)),
      None, None),
     ("shear-layer", dict(nz=8), ValueError, "2-D only")])
@@ -47,7 +48,8 @@ def test_unported_problems_name_their_roadmap_item(problem, override, error,
     params = PRESETS["cylinder-small"].replace(problem=problem, **override)
     if error is None:
         mine, ref = port_problem(params), jax_problem(params)
-        assert mine.lattice.Q == ref.lattice.Q and mine.lattice.D == 3
+        assert (mine.lattice.Q, mine.lattice.D, mine.state_q) == \
+            (ref.lattice.Q, ref.lattice.D, ref.state_q)
         assert mine.params.mesh_shape == override["mesh_shape"]
         return
     if error is ValueError:

@@ -91,10 +91,14 @@ def test_problem_arrays_match_tpulbm_bytewise(radius, wall_rho, precision):
         assert got.tobytes() == want.tobytes()
 
 
+# multiphase on a mesh, refused until its ring build: the Problem builds,
+# tpulbm's (tests/test_torch_mesh_multiphase.py runs it)
 @pytest.mark.parametrize("mesh", [(2, 1), (1, 2)])
-def test_multiphase_mesh_names_item_19(mesh):
-    with pytest.raises(NotImplementedError, match="item 19"):
-        port_problem(_params(mesh_shape=mesh))
+def test_multiphase_mesh_builds_tpulbms_problem(mesh):
+    params = _params(mesh_shape=mesh)
+    mine, ref = port_problem(params), jax_problem(params)
+    assert mine.params.mesh_shape == mesh
+    assert mine.init_rho_map.tobytes() == ref.init_rho_map.tobytes()
 
 
 def test_multiphase_needs_g_as_tpulbm_does():

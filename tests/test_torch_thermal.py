@@ -92,13 +92,17 @@ def test_problem_arrays_match_tpulbm_bytewise(preset, grid, precision):
         assert got.tobytes() == want.tobytes()
 
 
-@pytest.mark.parametrize("override,item", [
-    (dict(problem="passive-scalar", mesh_shape=(2, 1)), "item 19"),
-    (dict(mesh_shape=(2, 1)), "item 19")],
-    ids=["passive-scalar", "thermal-mesh"])
-def test_unported_thermal_options_name_their_roadmap_item(override, item):
-    with pytest.raises(NotImplementedError, match=item):
-        port_problem(_params(**override))
+# the thermal problems on a mesh, refused until their ring builds: the
+# Problem builds, tpulbm's (tests/test_torch_mesh_thermal.py runs them)
+@pytest.mark.parametrize("override", [
+    dict(problem="passive-scalar", mesh_shape=(2, 1)),
+    dict(mesh_shape=(2, 1))], ids=["passive-scalar", "thermal-mesh"])
+def test_thermal_mesh_options_build_tpulbms_problem(override):
+    params = _params(**override)
+    mine, ref = port_problem(params), jax_problem(params)
+    assert mine.params.mesh_shape == (2, 1)
+    assert (mine.walls_y, mine.periodic_x, mine.periodic_y, mine.state_q) \
+        == (ref.walls_y, ref.periodic_x, ref.periodic_y, ref.state_q)
 
 
 # the LES closure of the thermal step, once refused: the Problem carries

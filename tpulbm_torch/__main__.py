@@ -21,8 +21,8 @@
         --tau 0.8 --inlet-velocity 0.04 --cylinder-radius 0 --no-vtk
 
 Runs on the first CUDA device; --cpu runs the plain PyTorch version on the
-host instead (debugging). --mesh NYxNX runs the single-phase 2-D and 3-D
-flows on a mesh of shards, one per visible card (--mesh auto chooses the
+host instead (debugging). --mesh NYxNX runs every problem on a mesh of
+shards, one per visible card (--mesh auto chooses the
 shape for torch.cuda.device_count() cards, (n, 1) for a 3-D problem as
 tpulbm's main.py); with --cpu the shards run on the host,
 --cpu-devices N of them for --mesh auto. Flags of main.py that the port
@@ -32,6 +32,11 @@ does not cover yet raise NotImplementedError.
     python -m tpulbm_torch --preset cylinder-small --cpu --mesh 2x2
     python -m tpulbm_torch --preset kolmogorov3d --cpu --cpu-devices 4 \
         --mesh auto --num-timesteps 280
+    python -m tpulbm_torch --preset rayleigh-benard --nx 2048 --ny 512 \
+        --mesh 2x2 --no-vtk
+    python -m tpulbm_torch --problem multiphase --shan-chen-g -5 --nx 2048 \
+        --ny 512 --tau 1.0 --inlet-velocity 0 --cylinder-radius 0.15 \
+        --cylinder-x 0.5 --cylinder-y 0.5 --mesh 4x1 --no-vtk
 """
 from __future__ import annotations
 

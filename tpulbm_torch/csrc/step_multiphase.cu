@@ -7,7 +7,8 @@
 //
 // Replaces tpulbm/ops/step_multiphase_pallas.py::make_local_step_multiphase_pallas
 // (:121, the fused 1-step Shan-Chen Pallas TPU kernel) on one full-width
-// device, without its x_halo mode. Both compute one step of
+// device and, built with -DTPULBM_RINGS=1, on a shard of a mesh with its
+// depth-2 ring rows and its x_halo columns (below). Both compute one step of
 // tpulbm/ops/step_multiphase.py::make_step_multiphase; so does this kernel,
 // cell by cell. Its plain version is tpulbm_torch/ops/step_multiphase.py.
 //
@@ -53,6 +54,19 @@
 // the port's one-step tolerance, rtol 5e-6 / atol 1e-7, not bitwise (on an
 // H100 80GB HBM3 at 700 W: 1.1e-8 from the initial droplet, at most 2.4e-7
 // after 500 plain steps, 2048x512 to 7x3).
+//
+// Built with -DTPULBM_RINGS=1 the kernel steps one shard of a mesh
+// (tpulbm_multiphase_step_rings): the shard's block and the pre-collision
+// rings its neighbours sent, two cells deep (tpulbm::Shard, depth 2): rb
+// and rt the rows below and above, rl and rr the columns beside it where
+// the mesh cuts x (tpulbm's x_halo mode, :135-145: ψ's stencil consumes
+// one ring column and the pull the other). The tile keeps global
+// coordinates: a window cell in the domain is loaded from the block or the
+// ring that holds it (Shard::locate; where the block spans every column, x
+// wraps inside it), rows beyond a y wall hold the wall's ψ, and the walls
+// act at the global rows y = 0 and ny-1 only. So a shard's cells get the
+// bits of the one-device build. The rings add 2 (2 (nxl + 2 hx) + hx nyl)
+// x 36 B a launch to the 72 B a cell.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -104,7 +118,7 @@ __device__ __forceinline__ float psi_of(float rho, const MultiphaseConsts& k) {
 __global__ void __launch_bounds__(kBX * kBY)
     multiphase_step_kernel(const float* __restrict__ f,
                            float* __restrict__ out, int nx, int ny,
-                           MultiphaseConsts k) {
+                           MultiphaseConsts k, tpulbm::Shard sh) {
   // populations of the tile and ring: pre-collision, then (on the tile and
   // its 1-cell ring) post-collision in place
   __shared__ float pop[kQ][kLY][kLX];
@@ -113,12 +127,15 @@ __global__ void __launch_bounds__(kBX * kBY)
   const int tx = threadIdx.x;
   const int ty = threadIdx.y;
   const int tid = ty * kBX + tx;
-  const int x0 = blockIdx.x * kBX;
-  const int y0 = blockIdx.y * kBY;
+  // global coordinates of the tile's first cell
+  const int x0 = (tpulbm::kRings ? sh.x0 : 0) + blockIdx.x * kBX;
+  const int y0 = (tpulbm::kRings ? sh.y0 : 0) + blockIdx.y * kBY;
   const size_t plane = static_cast<size_t>(nx) * ny;
 
   // Load the tile and its 2-cell ring; ψ of every loaded cell, the wall's
-  // ψ on rows outside the domain (whose populations are never read).
+  // ψ on rows outside the domain (whose populations are never read). A
+  // shard's window cells beyond its rings feed no cell of the block and
+  // are skipped.
   for (int t = tid; t < kLX * kLY; t += kBX * kBY) {
     const int ly = t / kLX;
     const int lx = t - ly * kLX;
@@ -127,12 +144,26 @@ __global__ void __launch_bounds__(kBX * kBY)
       psi[ly][lx] = k.wall_psi;
       continue;
     }
-    const size_t cell =
-        static_cast<size_t>(gy) * nx + wrap(x0 + lx - kRing, nx);
+    const float* src;
+    size_t stride;
+    if constexpr (tpulbm::kRings) {
+      int bx = x0 + lx - kRing - sh.x0;
+      const int by = gy - sh.y0;
+      if (by < -kRing || by >= sh.nyl + kRing) continue;
+      if (sh.hx == 0) {
+        bx = wrap(bx, sh.nxl);
+      } else if (bx < -kRing || bx >= sh.nxl + kRing) {
+        continue;
+      }
+      src = sh.locate(bx, by, stride);
+    } else {
+      src = f + static_cast<size_t>(gy) * nx + wrap(x0 + lx - kRing, nx);
+      stride = plane;
+    }
     float rho = 0.0f;
 #pragma unroll
     for (int i = 0; i < kQ; ++i) {
-      const float v = f[i * plane + cell];
+      const float v = src[i * stride];
       pop[i][ly][lx] = v;
       rho = i == 0 ? v : rho + v;
     }
@@ -185,7 +216,11 @@ __global__ void __launch_bounds__(kBX * kBY)
 
   const int x = x0 + tx;
   const int y = y0 + ty;
-  if (x >= nx || y >= ny) return;
+  if constexpr (tpulbm::kRings) {
+    if (x - sh.x0 >= sh.nxl || y - sh.y0 >= sh.nyl) return;
+  } else {
+    if (x >= nx || y >= ny) return;
+  }
   const int ly = ty + kRing;
   const int lx = tx + kRing;
 
@@ -201,24 +236,20 @@ __global__ void __launch_bounds__(kBX * kBY)
   TPULBM_MP_DIRS(TPULBM_PULL)
 #undef TPULBM_PULL
 
-  const size_t cell = static_cast<size_t>(y) * nx + x;
+  if constexpr (tpulbm::kRings) {
+    const size_t cell =
+        static_cast<size_t>(y - sh.y0) * sh.nxl + (x - sh.x0);
+    const size_t block = static_cast<size_t>(sh.nxl) * sh.nyl;
 #pragma unroll
-  for (int i = 0; i < kQ; ++i) out[i * plane + cell] = g[i];
+    for (int i = 0; i < kQ; ++i) out[i * block + cell] = g[i];
+  } else {
+    const size_t cell = static_cast<size_t>(y) * nx + x;
+#pragma unroll
+    for (int i = 0; i < kQ; ++i) out[i * plane + cell] = g[i];
+  }
 }
 
-}  // namespace
-
-// Plain C interface, loaded with ctypes
-// (tpulbm_torch/ops/step_multiphase_cuda.py). Launches one step of the
-// (9, ny, nx) state `f` into `out` on `stream` and returns
-// cudaGetLastError(): it neither synchronizes nor allocates.
-// scalars = {1/tau, tau, -g, rho0, wall ψ}; w = the 9 lattice weights.
-extern "C" int tpulbm_multiphase_step(const float* f, float* out, int nx,
-                                      int ny, const float* scalars,
-                                      const float* w, int device,
-                                      void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+MultiphaseConsts make_consts(const float* scalars, const float* w) {
   MultiphaseConsts k;
   k.inv_tau = scalars[0];
   k.tau = scalars[1];
@@ -226,13 +257,57 @@ extern "C" int tpulbm_multiphase_step(const float* f, float* out, int nx,
   k.rho0 = scalars[3];
   k.wall_psi = scalars[4];
   for (int i = 0; i < kQ; ++i) k.w[i] = w[i];
+  return k;
+}
+
+}  // namespace
+
+// Plain C interface, loaded with ctypes
+// (tpulbm_torch/ops/step_multiphase_cuda.py). Each launcher launches one
+// step on `stream` and returns cudaGetLastError(): it neither
+// synchronizes nor allocates. scalars = {1/tau, tau, -g, rho0, wall ψ};
+// w = the 9 lattice weights.
+#if !TPULBM_RINGS
+// One step of the (9, ny, nx) state `f` into `out`.
+extern "C" int tpulbm_multiphase_step(const float* f, float* out, int nx,
+                                      int ny, const float* scalars,
+                                      const float* w, int device,
+                                      void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const MultiphaseConsts k = make_consts(scalars, w);
   const dim3 block(kBX, kBY);
   const dim3 grid((nx + kBX - 1) / kBX, (ny + kBY - 1) / kBY);
+  const tpulbm::Shard none{};
   multiphase_step_kernel<<<grid, block, 0,
                            static_cast<cudaStream_t>(stream)>>>(f, out, nx,
-                                                                ny, k);
+                                                                ny, k, none);
   return static_cast<int>(cudaGetLastError());
 }
+#else
+// One step of the shard (nxl x nyl at global x0, y0 of the nx x ny grid)
+// from its (9, nyl, nxl) block `f` and its pre-collision rings two cells
+// deep (rb and rt (9, 2, nxl + 2 hx), rl and rr (9, nyl, hx); hx 2 where
+// the mesh cuts x, 0 where the block spans every column) into `out`.
+extern "C" int tpulbm_multiphase_step_rings(
+    const float* f, float* out, const float* rb, const float* rt,
+    const float* rl, const float* rr, int nx, int ny, int nxl, int nyl,
+    int x0, int y0, int hx, const float* scalars, const float* w,
+    int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (hx != 0 && hx != kRing) return cudaErrorInvalidValue;
+  const MultiphaseConsts k = make_consts(scalars, w);
+  const tpulbm::Shard sh{f, rb, rt, rl, rr, nullptr, nxl, nyl,
+                         x0, y0, hx, kRing, 0, nyl};
+  const dim3 block(kBX, kBY);
+  const dim3 grid((nxl + kBX - 1) / kBX, (nyl + kBY - 1) / kBY);
+  multiphase_step_kernel<<<grid, block, 0,
+                           static_cast<cudaStream_t>(stream)>>>(f, out, nx,
+                                                                ny, k, sh);
+  return static_cast<int>(cudaGetLastError());
+}
+#endif
 
 extern "C" const char* tpulbm_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

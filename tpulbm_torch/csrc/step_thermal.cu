@@ -49,6 +49,20 @@
 // products of tpulbm's float64 constants (3 w_i, w_i T_wall,
 // (w_i + w_opp) T_wall) are rounded once on the host, and the library is
 // built with -fmad=false so no multiply and add share one rounding.
+//
+// Built with -DTPULBM_RINGS=1 the kernel steps one shard of a mesh
+// (tpulbm_thermal_step_rings): the shard's block and the one-cell rings its
+// neighbours sent (tpulbm::Shard, depth 1), the counterpart of the Pallas
+// kernel's ring inputs rb/rt, its physical-edge flags and its x_halo
+// columns rl/rr (step_thermal_pallas.py:147-175, 251-258). The tile keeps
+// global coordinates: a window cell is loaded from the block or from the
+// ring that holds it (Shard::locate; where the block spans every column,
+// x wraps inside it), and the walls act at the global rows y = 0 and
+// ny-1 and, with walls_x, the global columns x = 0 and nx-1 only, never
+// at a shard's own edge (the Pallas kernel's flags[0:4]). The passive
+// scalar's y wraps through its rings. So a shard's cells get the bits of
+// the one-device build. The rings add 2 (nxl + 2 hx + hx nyl) x 56 B a
+// launch to the 112 B a cell.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -132,14 +146,14 @@ __device__ __forceinline__ void collide_thermal(float* v,
   if (k.buoyancy != 0.0f) {
     // f_i += 3 w_i c_i,axis * buoyancy (T - t_ref), c_i,axis = +-1 or 0
     const float fy = k.buoyancy * (T - k.t_ref);
-#define TPULBM_SOURCE(i, cx, cy, o)                         \
+#define TPULBM_BUOYANCY(i, cx, cy, o)                        \
   if ((i) < kQf) {                                          \
     const int c = k.baxis == 0 ? (cx) : (cy);               \
     if (c > 0) v[i] = v[i] + k.w3[i] * fy;                  \
     if (c < 0) v[i] = v[i] + -k.w3[i] * fy;                 \
   }
-    TPULBM_THERMAL_PLANES(TPULBM_SOURCE)
-#undef TPULBM_SOURCE
+    TPULBM_THERMAL_PLANES(TPULBM_BUOYANCY)
+#undef TPULBM_BUOYANCY
   }
   // g: BGK toward w_i T (1 + 3 c_i.u), c.u as exact +-adds
   const float cu[kQg] = {0.0f, m.ux, m.uy, -m.ux, -m.uy};
@@ -154,25 +168,43 @@ __device__ __forceinline__ void collide_thermal(float* v,
 
 __global__ void __launch_bounds__(kBX * kBY)
     thermal_step_kernel(const float* __restrict__ s, float* __restrict__ out,
-                        int nx, int ny, ThermalConsts k) {
+                        int nx, int ny, ThermalConsts k, tpulbm::Shard sh) {
   __shared__ float post[kQs][kTY][kTX];  // post-collision tile + halo
 
   const int tx = threadIdx.x;
   const int ty = threadIdx.y;
-  const int x0 = blockIdx.x * kBX;
-  const int y0 = blockIdx.y * kBY;
+  // global coordinates of the tile's first cell
+  const int x0 = (tpulbm::kRings ? sh.x0 : 0) + blockIdx.x * kBX;
+  const int y0 = (tpulbm::kRings ? sh.y0 : 0) + blockIdx.y * kBY;
   const size_t plane = static_cast<size_t>(nx) * ny;
 
-  // Load and collide the tile and its halo, at wrapped coordinates.
+  // Load and collide the tile and its halo, at wrapped coordinates (a
+  // shard: from the block or its rings; window cells beyond the rings feed
+  // no cell of the block and are skipped).
   for (int t = ty * kBX + tx; t < kTX * kTY; t += kBX * kBY) {
     const int ly = t / kTX;
     const int lx = t - ly * kTX;
-    const int gx = wrap(x0 + lx - 1, nx);
-    const int gy = wrap(y0 + ly - 1, ny);
-    const size_t cell = static_cast<size_t>(gy) * nx + gx;
     float v[kQs];
+    if constexpr (tpulbm::kRings) {
+      int bx = x0 + lx - 1 - sh.x0;
+      const int by = y0 + ly - 1 - sh.y0;
+      if (by < -1 || by > sh.nyl) continue;
+      if (sh.hx == 0) {
+        bx = wrap(bx, sh.nxl);
+      } else if (bx < -1 || bx > sh.nxl) {
+        continue;
+      }
+      size_t stride;
+      const float* src = sh.locate(bx, by, stride);
 #pragma unroll
-    for (int i = 0; i < kQs; ++i) v[i] = s[i * plane + cell];
+      for (int i = 0; i < kQs; ++i) v[i] = src[i * stride];
+    } else {
+      const int gx = wrap(x0 + lx - 1, nx);
+      const int gy = wrap(y0 + ly - 1, ny);
+      const size_t cell = static_cast<size_t>(gy) * nx + gx;
+#pragma unroll
+      for (int i = 0; i < kQs; ++i) v[i] = s[i * plane + cell];
+    }
     collide_thermal(v, k);
 #pragma unroll
     for (int i = 0; i < kQs; ++i) post[i][ly][lx] = v[i];
@@ -181,7 +213,11 @@ __global__ void __launch_bounds__(kBX * kBY)
 
   const int x = x0 + tx;
   const int y = y0 + ty;
-  if (x >= nx || y >= ny) return;
+  if constexpr (tpulbm::kRings) {
+    if (x - sh.x0 >= sh.nxl || y - sh.y0 >= sh.nyl) return;
+  } else {
+    if (x >= nx || y >= ny) return;
+  }
 
   // pull g_i(x, y) = post_i((x, y) - c_i), or the wall's ghost constant
   float g[kQs];
@@ -226,30 +262,26 @@ __global__ void __launch_bounds__(kBX * kBY)
   }
 #undef G
 
-  const size_t cell = static_cast<size_t>(y) * nx + x;
+  if constexpr (tpulbm::kRings) {
+    const size_t cell =
+        static_cast<size_t>(y - sh.y0) * sh.nxl + (x - sh.x0);
+    const size_t block = static_cast<size_t>(sh.nxl) * sh.nyl;
 #pragma unroll
-  for (int i = 0; i < kQs; ++i) out[i * plane + cell] = g[i];
+    for (int i = 0; i < kQs; ++i) out[i * block + cell] = g[i];
+  } else {
+    const size_t cell = static_cast<size_t>(y) * nx + x;
+#pragma unroll
+    for (int i = 0; i < kQs; ++i) out[i * plane + cell] = g[i];
+  }
 }
 
-}  // namespace
-
-// Plain C interface, loaded with ctypes (tpulbm_torch/ops/step_thermal_cuda.py).
-// Launches one step of the (14, ny, nx) state `s` into `out` on `stream` and
-// returns cudaGetLastError(): it neither synchronizes nor allocates.
-// scalars = {1/tau, 1/tau_g, buoyancy, t_ref, tau0, tau0², 18 Cs²} (the
-// last three read by the LES build only); w (14), w3 (9),
-// ghost_bottom (14), ghost_top (14), wall_bottom (5), wall_top (5) as in
-// ThermalConsts.
-extern "C" int tpulbm_thermal_step(const float* s, float* out, int nx, int ny,
-                                   const float* scalars, const float* w,
-                                   const float* w3, const float* ghost_bottom,
-                                   const float* ghost_top,
-                                   const float* wall_bottom,
-                                   const float* wall_top, int baxis,
-                                   int is_bottom, int is_top, int walls_x,
-                                   int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+// The constants of a launch, from the launcher's arrays (as in
+// ThermalConsts).
+ThermalConsts make_consts(const float* scalars, const float* w,
+                          const float* w3, const float* ghost_bottom,
+                          const float* ghost_top, const float* wall_bottom,
+                          const float* wall_top, int baxis, int is_bottom,
+                          int is_top, int walls_x) {
   ThermalConsts k;
   k.inv_tau = scalars[0];
   k.inv_tau_g = scalars[1];
@@ -272,12 +304,69 @@ extern "C" int tpulbm_thermal_step(const float* s, float* out, int nx, int ny,
   k.is_bottom = is_bottom;
   k.is_top = is_top;
   k.walls_x = walls_x;
+  return k;
+}
+
+}  // namespace
+
+// Plain C interface, loaded with ctypes (tpulbm_torch/ops/step_thermal_cuda.py).
+// Each launcher launches one step on `stream` and returns
+// cudaGetLastError(): it neither synchronizes nor allocates.
+// scalars = {1/tau, 1/tau_g, buoyancy, t_ref, tau0, tau0², 18 Cs²} (the
+// last three read by the LES build only); w (14), w3 (9),
+// ghost_bottom (14), ghost_top (14), wall_bottom (5), wall_top (5) as in
+// ThermalConsts.
+#if !TPULBM_RINGS
+// One step of the (14, ny, nx) state `s` into `out`.
+extern "C" int tpulbm_thermal_step(const float* s, float* out, int nx, int ny,
+                                   const float* scalars, const float* w,
+                                   const float* w3, const float* ghost_bottom,
+                                   const float* ghost_top,
+                                   const float* wall_bottom,
+                                   const float* wall_top, int baxis,
+                                   int is_bottom, int is_top, int walls_x,
+                                   int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const ThermalConsts k =
+      make_consts(scalars, w, w3, ghost_bottom, ghost_top, wall_bottom,
+                  wall_top, baxis, is_bottom, is_top, walls_x);
   const dim3 block(kBX, kBY);
   const dim3 grid((nx + kBX - 1) / kBX, (ny + kBY - 1) / kBY);
+  const tpulbm::Shard none{};
   thermal_step_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      s, out, nx, ny, k);
+      s, out, nx, ny, k, none);
   return static_cast<int>(cudaGetLastError());
 }
+#else
+// One step of the shard (nxl x nyl at global x0, y0 of the nx x ny grid)
+// from its (14, nyl, nxl) block `s` and its one-cell rings (rb and rt
+// (14, 1, nxl + 2 hx), rl and rr (14, nyl, hx); hx 1 where the mesh cuts
+// x, 0 where the block spans every column) into `out`. walls_y: the
+// global rows y = 0 and ny-1 are walls (the Pallas kernel's flags[0:2] on
+// the edge shards), walls_x: the global columns x = 0 and nx-1 (flags[2:4]).
+extern "C" int tpulbm_thermal_step_rings(
+    const float* s, float* out, const float* rb, const float* rt,
+    const float* rl, const float* rr, int nx, int ny, int nxl, int nyl,
+    int x0, int y0, int hx, const float* scalars, const float* w,
+    const float* w3, const float* ghost_bottom, const float* ghost_top,
+    const float* wall_bottom, const float* wall_top, int baxis, int walls_y,
+    int walls_x, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (hx != 0 && hx != 1) return cudaErrorInvalidValue;
+  const ThermalConsts k =
+      make_consts(scalars, w, w3, ghost_bottom, ghost_top, wall_bottom,
+                  wall_top, baxis, walls_y, walls_y, walls_x);
+  const tpulbm::Shard sh{s, rb, rt, rl, rr, nullptr, nxl, nyl,
+                         x0, y0, hx, 1, 0, nyl};
+  const dim3 block(kBX, kBY);
+  const dim3 grid((nxl + kBX - 1) / kBX, (nyl + kBY - 1) / kBY);
+  thermal_step_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      s, out, nx, ny, k, sh);
+  return static_cast<int>(cudaGetLastError());
+}
+#endif
 
 extern "C" const char* tpulbm_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

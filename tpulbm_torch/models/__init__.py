@@ -12,8 +12,8 @@ the Smagorinsky closure), the Shan-Chen multiphase
 channel (droplet or band, BGK), the fully periodic 2-D boxes
 (Taylor-Green, the shear layer and Kolmogorov under every D2Q9
 collision, the passive scalar under the thermal step's) and the 3-D
-boxes (Taylor-Green and Kolmogorov on D3Q19 or D3Q27), the 2-D and 3-D
-single-phase problems also on a mesh of shards; every other
+boxes (Taylor-Green and Kolmogorov on D3Q19 or D3Q27), every one of them
+also on a mesh of shards; every other
 configuration raises
 NotImplementedError naming the ROADMAP item (Queue 1) that will port it,
 and the combinations tpulbm itself refuses (KBC in 3-D, a 3-D cavity)
@@ -34,7 +34,6 @@ _BUILDERS = {"cylinder": cylinder.make_problem,
              "heated-cavity": rayleigh_benard.make_problem,
              "multiphase": multiphase.make_problem,
              **dict.fromkeys(periodic2d.PROBLEMS, periodic2d.make_problem)}
-_THERMAL = ("rayleigh-benard", "heated-cavity", "passive-scalar")
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -60,14 +59,6 @@ def check_slice(params) -> None:
     # the Smagorinsky closure, multiphase BGK: the rest raise tpulbm's own
     # errors
     check_collision(params)
-    if tuple(params.mesh_shape) != (1, 1):
-        if params.problem in _THERMAL + ("multiphase",):
-            kind = ("multiphase" if params.problem == "multiphase"
-                    else "thermal")
-            raise _not_ported(f"the {kind} step on mesh_shape="
-                              f"{params.mesh_shape}",
-                              "Queue 1 item 19 (several devices: thermal "
-                              "x_halo, multiphase rings)")
 
 
 def make_problem(params) -> Problem:

@@ -1,6 +1,7 @@
 """On-device diagnostics: macroscopic fields, stability, max velocity, the
 thermal problems' temperature and Nusselt number (the passive scalar's
-variance), Reynolds-statistics samples and point probes.
+variance; on a mesh from per-shard partial sums), Reynolds-statistics
+samples and point probes.
 
 Port of tpulbm/ops/diagnostics.py (fields_fn, stats_sample_fn,
 stats_pair_names, stability_fn, max_velocity_fn, probe_cells, probes_fn;
@@ -12,10 +13,13 @@ under the 9 flow planes, and they must not enter rho.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .. import physics
 from ..models.base import Problem
+from ..models.rayleigh_benard import effective_height
 from . import step_multiphase, step_thermal
 
 
@@ -27,16 +31,22 @@ def _solid(problem: Problem, device, solid=None):
     return torch.as_tensor(problem.solid, device=device)
 
 
-def fields_fn(problem: Problem, device, solid=None):
+def fields_fn(problem: Problem, device, solid=None, padded_y0=None):
     """f -> (rho, u) with the reference's solid-cell overrides: rho = 1 and
     u = 0 at solid cells (of `solid`, a shard's mask, where given). For Shan-Chen multiphase, u is the
     half-step-corrected u + F/(2rho) (step_multiphase.physical_velocity):
-    bare moments would be off by F/(2rho) at every interface cell."""
+    bare moments would be off by F/(2rho) at every interface cell. Its
+    force reads the neighbours' ψ, so on a mesh f is a shard's block padded
+    by a one-cell ring (halo.pad_block) whose centre starts at the global
+    row `padded_y0` (step_multiphase.physical_velocity_padded)."""
     lat = problem.lattice
     solid = _solid(problem, device, solid)
 
     def fn(f: torch.Tensor):
-        if problem.shan_chen:
+        if problem.shan_chen and padded_y0 is not None:
+            rho, u = step_multiphase.physical_velocity_padded(problem, f,
+                                                              padded_y0)
+        elif problem.shan_chen:
             rho, u = step_multiphase.physical_velocity(problem, f)
         else:
             rho, u = physics.moments(lat, f[:lat.Q])
@@ -48,13 +58,14 @@ def fields_fn(problem: Problem, device, solid=None):
     return fn
 
 
-def stats_sample_fn(problem: Problem, device, solid=None):
+def stats_sample_fn(problem: Problem, device, solid=None, padded_y0=None):
     """f -> (rho, u, uu): one Reynolds-statistics sample, the fields of
     fields_fn and the products u_i u_j packed as the upper triangle, row by
     row (2-D [uu, uv, vv]; 3-D [uu, uv, uw, vv, vw, ww]). The Runner sums
     them on the device once per output interval (parallel/sharded_step.py's
-    Stats), so a time average costs no extra host round trip."""
-    base = fields_fn(problem, device, solid)
+    Stats), so a time average costs no extra host round trip. padded_y0
+    as in fields_fn."""
+    base = fields_fn(problem, device, solid, padded_y0)
     d = problem.lattice.D
     pairs = [(i, j) for i in range(d) for j in range(i, d)]
 
@@ -153,3 +164,38 @@ def nusselt_fn(problem: Problem):
     def fn(s: torch.Tensor) -> torch.Tensor:
         return trace(problem, s)
     return fn
+
+
+def thermal_trace_of_blocks(problem: Problem, blocks: list,
+                            device) -> torch.Tensor:
+    """nusselt_fn's value (0-d, in the blocks' dtype, on `device`) of a
+    thermal state cut into `blocks` (a mesh's shards, row by row): each
+    mean over the grid taken as float64 partial sums per block, reduced on
+    `device`. The Nusselt number sums u_y T; the variance sums T for the
+    mean first, then (T - <T>)²."""
+    cells = math.prod(problem.spatial_shape)
+    dtype = blocks[0].dtype
+
+    def total(parts):
+        out = None
+        for part in parts:
+            part = part.to(device)
+            out = part if out is None else out + part
+        return out
+
+    if problem.walls_y:
+        lat, th = problem.lattice, problem.thermal
+        flux = []
+        for s in blocks:
+            _, u = physics.moments(lat, s[:lat.Q])
+            flux.append(torch.sum(u[1] * step_thermal.temperature(problem, s),
+                                  dtype=torch.float64))
+        adv = total(flux) / cells
+        dt_wall = th.t_bottom - th.t_top
+        return (1.0 + adv * effective_height(problem.params)
+                / (th.alpha * dt_wall)).to(dtype)
+    temps = [step_thermal.temperature(problem, s) for s in blocks]
+    mean = total(torch.sum(t, dtype=torch.float64) for t in temps) / cells
+    var = total(torch.sum((t.double() - mean.to(t.device)) ** 2)
+                for t in temps) / cells
+    return var.to(dtype)

@@ -117,8 +117,8 @@ RINGS_DEPTHS_3D = (1,) + BLOCKED_DEPTHS_3D
 REPLACES_3D_RINGS = ("tpulbm/ops/step_pallas3d.py:745 "
                      "(make_local_step_pallas3d_tiled, ring inputs, x_halo)")
 # populations per cell -> the state's rank and layout, per kernel lattice
-_STATE_LAYOUT = {9: (3, "(9, ny, nx)"), 19: (4, "(19, nz, ny, nx)"),
-                 27: (4, "(27, nz, ny, nx)")}
+_STATE_LAYOUT = {9: (3, "(9, ny, nx)"), 14: (3, "(14, ny, nx)"),
+                 19: (4, "(19, nz, ny, nx)"), 27: (4, "(27, nz, ny, nx)")}
 # the collisions of the D2Q9 kernels, in the order of d2q9_common.cuh's
 # tpulbm::Collision; step_torch.collision_mode names a problem's
 COLLISION_MODES = ("bgk", "trt", "mrt", "regularized", "kbc", "smagorinsky",
@@ -764,14 +764,15 @@ class Shard:
     its uint8 kernel mask padded by `depth` rows and columns on every side
     (halo.pad_mask, with the link bits under the Bouzidi obstacle) and
     `links`, the Bouzidi library's cut of the link table padded the same
-    way (bouzidi.table_block; None for the others)."""
+    way (bouzidi.table_block; None for the others). The thermal and
+    multiphase kernels take no mask (None)."""
     index: tuple[int, int]
     origin: tuple[int, int]
     local_shape: tuple[int, ...]
     grid: tuple[int, ...]
     depth: int
     x_rings: bool
-    mask: torch.Tensor
+    mask: torch.Tensor | None = None
     links: torch.Tensor | None = None
 
 
@@ -786,11 +787,16 @@ def _check_ring(name: str, t, shape: tuple, f: torch.Tensor) -> None:
 
 
 def check_shard(f: torch.Tensor, out: torch.Tensor, rings: tuple,
-                shard: Shard, n_sub: int, rows: tuple[int, int]) -> None:
+                shard: Shard, n_sub: int, rows: tuple[int, int],
+                q2d: int = 9, depths: dict | None = None) -> None:
     """Raise unless f, out, the rings (rb, rt, rl, rr), the shard and the
     row range fit together: the checks before any pointer is passed. A
-    2-D shard's rings are (9, depth, nxl + 2 hx) and (9, nyl, hx), a 3-D
-    one's (Q, nz, depth, nxl + 2 hx) and (Q, nz, nyl, hx)."""
+    2-D shard's rings are (q2d, depth, nxl + 2 hx) and (q2d, nyl, hx), a
+    3-D one's (Q, nz, depth, nxl + 2 hx) and (Q, nz, nyl, hx). `depths`
+    maps each ring depth the kernel takes to the steps a launch makes
+    from it (default: n_sub steps from rings n_sub deep); a kernel that
+    takes no mask (the thermal and multiphase ones, q2d 14 and 9 with
+    `depths` given) gets a shard without one."""
     nyl, nxl = shard.local_shape[-2:]
     ny, nx = shard.grid[-2:]
     lead = tuple(shard.local_shape[:-2])
@@ -799,15 +805,21 @@ def check_shard(f: torch.Tensor, out: torch.Tensor, rings: tuple,
     if lead and q not in (19, 27):
         raise ValueError(f"a 3-D shard's state is (19 or 27, nz, nyl, nxl), "
                          f"got {tuple(f.shape)}")
-    check_inputs(f, out, None, q=q if lead else 9)
+    check_inputs(f, out, None, q=q if lead else q2d)
     if tuple(f.shape[1:]) != tuple(shard.local_shape) or \
             tuple(shard.grid[:-2]) != lead:
         raise ValueError(f"state {tuple(f.shape)} is not the shard's block "
                          f"{shard.local_shape} of {shard.grid}")
-    depths = RINGS_DEPTHS_3D if lead else RINGS_DEPTHS
-    if n_sub != depth or depth not in depths:
-        raise ValueError(f"depth {n_sub} with rings {depth} deep (the ring "
-                         f"kernels hold depths {depths})")
+    masked = depths is None
+    if masked:
+        held = RINGS_DEPTHS_3D if lead else RINGS_DEPTHS
+        if n_sub != depth or depth not in held:
+            raise ValueError(f"depth {n_sub} with rings {depth} deep (the "
+                             f"ring kernels hold depths {held})")
+    elif depths.get(depth) != n_sub:
+        raise ValueError(f"{n_sub} steps with rings {depth} deep (this ring "
+                         f"kernel takes rings {tuple(depths)} deep for "
+                         f"{tuple(depths.values())} steps)")
     if min(nyl, nxl) < max(depth, 3):
         raise ValueError(f"a shard needs at least max({depth}, 3) rows and "
                          f"columns, got {shard.local_shape}")
@@ -821,8 +833,12 @@ def check_shard(f: torch.Tensor, out: torch.Tensor, rings: tuple,
         raise ValueError("a shard without x rings must span every column")
     mask = shard.mask
     padded = lead + (nyl + 2 * depth, nxl + 2 * depth)
-    if (mask.dtype != torch.uint8 or not mask.is_contiguous()
-            or tuple(mask.shape) != padded or mask.device != f.device):
+    if not masked:
+        if mask is not None:
+            raise ValueError("this kernel takes no shard mask")
+    elif (mask is None or mask.dtype != torch.uint8
+          or not mask.is_contiguous() or tuple(mask.shape) != padded
+          or mask.device != f.device):
         raise ValueError(f"shard mask must be contiguous uint8 {padded} on "
                          f"{f.device}")
     rb, rt, rl, rr = rings
@@ -1026,8 +1042,8 @@ _zero_counts(collide_stream_3d_blocked, COLLISION_MODES_3D,
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0, the thermal and multiphase
-    kernels' (ops/step_thermal_cuda.py, ops/step_multiphase_cuda.py)
-    included."""
+    kernels' and their ring builds' (ops/step_thermal_cuda.py,
+    ops/step_multiphase_cuda.py) included."""
     from . import step_multiphase_cuda, step_thermal_cuda
     _zero_counts(collide_stream, COLLISION_MODES)
     _zero_counts(collide_stream_blocked, COLLISION_MODES, BLOCKED_DEPTHS)
@@ -1039,7 +1055,11 @@ def reset_launch_counts() -> None:
                  BLOCKED_DEPTHS_3D)
     _zero_counts(step_thermal_cuda.collide_stream_thermal,
                  step_thermal_cuda.MODES)
+    _zero_counts(step_thermal_cuda.collide_stream_thermal_rings,
+                 step_thermal_cuda.MODES, (1,))
     step_multiphase_cuda.collide_stream_multiphase.launches = 0
+    _zero_counts(step_multiphase_cuda.collide_stream_multiphase_rings,
+                 ("bgk",), (step_multiphase_cuda.DEPTH,))
 
 
 def kernel_constants(problem: Problem, q: int = 9) -> StepConstants:

@@ -1,8 +1,11 @@
 """The fused Shan-Chen multiphase step as a hand-written CUDA kernel.
 
 Port of tpulbm/ops/step_multiphase_pallas.py::make_local_step_multiphase_pallas
-(one step per launch, one full-width device, no x_halo):
-csrc/step_multiphase.cu. The kernel is built with nvcc at first use and
+(one step per launch): csrc/step_multiphase.cu on one full-width device,
+and its ring build (-DTPULBM_RINGS=1, collide_stream_multiphase_rings) on a
+shard of a mesh: the block and its pre-collision rings two cells deep, the
+Pallas kernel's depth-2 rb/rt and x_halo rl/rr. The kernel is built with
+nvcc at first use and
 called through ctypes on PyTorch's current stream. Its plain version is
 ops/step_multiphase.py::make_step_multiphase.
 
@@ -23,7 +26,12 @@ from . import step_cuda, step_multiphase
 
 SOURCE = "tpulbm_torch/csrc/step_multiphase.cu"
 REPLACES = "tpulbm/ops/step_multiphase_pallas.py:121"  # make_local_step_multiphase_pallas
+# the ring build: the same function's depth-2 ring rows and x_halo
+RINGS_REPLACES = ("tpulbm/ops/step_multiphase_pallas.py:121 "
+                  "(make_local_step_multiphase_pallas, depth-2 rb/rt, "
+                  "x_halo)")
 Q = 9
+DEPTH = 2   # the rings' depth: ψ's stencil reads one cell, the pull one
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,18 +115,83 @@ def collide_stream_multiphase(f: torch.Tensor, out: torch.Tensor,
 collide_stream_multiphase.launches = 0
 
 
-def make_local_step_multiphase_cuda(problem: Problem, device):
-    """step(f, out) -> out: one Shan-Chen timestep of a multiphase problem
-    (the x-periodic channel, BGK) through the kernel (CUDA) or its plain
-    version (CPU), on (9, ny, nx) states living on `device`. The
-    counterpart of make_local_step_multiphase_pallas on one full-width
-    device."""
+@functools.cache
+def _rings_library() -> ctypes.CDLL:
+    return step_cuda._bind("step_multiphase.cu",
+                           "tpulbm_multiphase_step_rings",
+                           [_PTR] * 6 + [_I32] * 7 + [_PTR, _PTR, _I32,
+                                                      _PTR],
+                           variant=step_cuda.RINGS)
+
+
+def ring_args(f: torch.Tensor, out: torch.Tensor, rings: tuple,
+              shard: step_cuda.Shard, consts: MultiphaseConstants,
+              device: int, stream: int) -> tuple:
+    """The arguments of tpulbm_multiphase_step_rings for one shard's
+    launch (the pointers of f, out and the rings, the geometry, the
+    constants)."""
+    rb, rt, rl, rr = rings
+    ny, nx = shard.grid
+    nyl, nxl = shard.local_shape
+    y0, x0 = shard.origin
+    return (f.data_ptr(), out.data_ptr(), rb.data_ptr(), rt.data_ptr(),
+            step_cuda._ptr(rl), step_cuda._ptr(rr), nx, ny, nxl, nyl, x0, y0,
+            DEPTH if shard.x_rings else 0, *consts.arrays, device, stream)
+
+
+def collide_stream_multiphase_rings(f: torch.Tensor, out: torch.Tensor,
+                                    rings: tuple, shard: step_cuda.Shard,
+                                    consts: MultiphaseConstants,
+                                    plain=None) -> torch.Tensor:
+    """One Shan-Chen timestep of one shard of a mesh from its block f
+    (9, nyl, nxl) and its pre-collision rings (rb, rt, rl, rr), DEPTH
+    cells deep (rl and rr None where the block spans every column), into
+    out; returns out. The walls act at the domain's own rows only.
+
+    On a CUDA tensor: launches the ring build on the current stream (no
+    synchronization) and raises if the launch is refused. On a CPU tensor:
+    runs `plain` (step_multiphase.make_ring_step_multiphase for the
+    shard)."""
+    nyl = shard.local_shape[0]
+    step_cuda.check_shard(f, out, rings, shard, 1, (0, nyl), q2d=Q,
+                          depths={DEPTH: 1})
+    rb, rt, rl, rr = rings
+    if f.device.type == "cpu":
+        if plain is None:
+            raise ValueError("a CPU tensor needs the plain step")
+        return out.copy_(plain(f, rb, rt, rl, rr))
+    lib = _rings_library()
+    stream = torch.cuda.current_stream(f.device).cuda_stream
+    rc = lib.tpulbm_multiphase_step_rings(*ring_args(
+        f, out, rings, shard, consts, f.device.index, stream))
+    step_cuda._check_launch(lib, rc, f"multiphase ring kernel (shard "
+                                     f"{shard.index})")
+    step_cuda._count(collide_stream_multiphase_rings, "bgk", DEPTH,
+                     shard.index)
+    return out
+
+
+step_cuda._zero_counts(collide_stream_multiphase_rings, ("bgk",), (DEPTH,))
+
+
+def check_problem(problem: Problem) -> None:
+    """Raise NotImplementedError unless the multiphase kernel covers
+    `problem`: the D2Q9 Shan-Chen channel under BGK."""
     if not problem.shan_chen or problem.lattice.Q != Q:
         raise NotImplementedError("the multiphase kernel covers the D2Q9 "
                                   "Shan-Chen problem only")
     if problem.collision != "bgk":
         raise NotImplementedError("the multiphase kernel covers BGK only")
     step_multiphase.check_geometry(problem)
+
+
+def make_local_step_multiphase_cuda(problem: Problem, device):
+    """step(f, out) -> out: one Shan-Chen timestep of a multiphase problem
+    (the x-periodic channel, BGK) through the kernel (CUDA) or its plain
+    version (CPU), on (9, ny, nx) states living on `device`. The
+    counterpart of make_local_step_multiphase_pallas on one full-width
+    device."""
+    check_problem(problem)
     device = torch.device(device)
     consts = MultiphaseConstants.of(problem)
     plain = (step_multiphase.make_step_multiphase(problem, device)

@@ -23,6 +23,13 @@ system on the stacked state s = [f (9 planes); g (5 planes)], (14, ny, nx):
 Without y walls (the passive scalar: walls_y off, periodic_y) every pull
 wraps and steps 4's ghost rows and 5's wall rules are skipped. Runs in f32
 and f64; every expression keeps tpulbm's operation order.
+
+On a mesh of shards (parallel/): make_step_padded_thermal, tpulbm's
+make_local_step_padded_thermal, steps a shard's block padded by a
+one-cell ring (the plain tier), and make_ring_step_thermal, the plain
+version of the kernel's ring build, steps a block from its rings. A
+reduction over the grid (nusselt_sums, variance_sums) is summed from
+per-shard float64 partials there.
 """
 from __future__ import annotations
 
@@ -160,6 +167,99 @@ def make_step_thermal(problem: Problem,
         boundaries.apply_thermal_wall(lg, g_planes, yy == ny - 1, 1, -1,
                                       th.t_top, None)
         return torch.stack(f_planes + g_planes)
+
+    return step
+
+
+def make_step_padded_thermal(problem: Problem, origin: tuple[int, int],
+                             local_shape: tuple[int, int], device):
+    """step(spad) -> spad': one thermal step of the shard whose block
+    (14, *local_shape) starts at the global cell `origin` (y, x), on its
+    block padded by a one-cell ring (14, nyl + 2, nxl + 2), which holds its
+    neighbours' pre-collision populations (halo.refresh_ring). Port of
+    tpulbm's make_local_step_padded_thermal: the whole padded block
+    collides, a physical y edge's ring row becomes its frozen ghost row,
+    the centre pulls from the padded block, and the walls act where the
+    shard holds a physical edge (its origin says which): with x walls the
+    bounce at the global edge columns, then the f bounce-back and the g
+    anti-bounce-back at the global wall rows. The ring of the result keeps
+    the post-collision values; only the centre is the next state."""
+    lat, lg, th = _thermal_parts(problem)
+    check_geometry(problem)
+    Qf, Qs = lat.Q, problem.state_q
+    nyl, nxl = local_shape
+    y0, x0 = origin
+    p = problem.params
+    c_all = np.concatenate([lat.c, lg.c], axis=0)
+    opp_all = np.concatenate([lat.opposite, Qf + lg.opposite])
+    bottom, top = ghost_rows(problem)
+    is_bottom = problem.walls_y and y0 == 0
+    is_top = problem.walls_y and y0 + nyl == p.ny
+    is_left = problem.walls_x and x0 == 0
+    is_right = problem.walls_x and x0 + nxl == p.nx
+    rows = torch.arange(nyl, device=device)[:, None]
+    cols = torch.arange(nxl, device=device)[None, :]
+    bot, top_row = rows == 0, rows == nyl - 1
+    left, right = cols == 0, cols == nxl - 1
+    center = (slice(1, -1), slice(1, -1))
+
+    def step(spad: torch.Tensor) -> torch.Tensor:
+        s_post = collide_thermal(problem, spad)
+        if is_bottom:
+            s_post[:, 0, :] = torch.as_tensor(
+                bottom, dtype=spad.dtype, device=spad.device)[:, None]
+        if is_top:
+            s_post[:, -1, :] = torch.as_tensor(
+                top, dtype=spad.dtype, device=spad.device)[:, None]
+        planes = []
+        for i in range(Qs):
+            cix, ciy = int(c_all[i, 0]), int(c_all[i, 1])
+            planes.append(s_post[i, 1 - ciy:1 - ciy + nyl,
+                                 1 - cix:1 - cix + nxl])
+        for i in range(Qf):
+            ciy = int(lat.c[i, 1])
+            if ciy > 0 and is_bottom:
+                planes[i] = torch.where(bot, s_post[int(lat.opposite[i])]
+                                        [center], planes[i])
+            elif ciy < 0 and is_top:
+                planes[i] = torch.where(top_row, s_post[int(lat.opposite[i])]
+                                        [center], planes[i])
+        for i in range(Qs):
+            cix = int(c_all[i, 0])
+            if cix > 0 and is_left:
+                planes[i] = torch.where(left, s_post[int(opp_all[i])]
+                                        [center], planes[i])
+            elif cix < 0 and is_right:
+                planes[i] = torch.where(right, s_post[int(opp_all[i])]
+                                        [center], planes[i])
+        g_planes = planes[Qf:]
+        if is_bottom:
+            boundaries.apply_thermal_wall(lg, g_planes, bot, 1, +1,
+                                          th.t_bottom, None)
+        if is_top:
+            boundaries.apply_thermal_wall(lg, g_planes, top_row, 1, -1,
+                                          th.t_top, None)
+        out = spad.clone()
+        out[:, 1:-1, 1:-1] = torch.stack(planes[:Qf] + g_planes)
+        return out
+
+    return step
+
+
+def make_ring_step_thermal(problem: Problem, origin: tuple[int, int],
+                           local_shape: tuple[int, int], device):
+    """step(s, rb, rt, rl=None, rr=None) -> s': one thermal step of the
+    shard whose block (14, *local_shape) starts at the global cell `origin`
+    (y, x), from its one-cell rings (halo.exchange at depth 1; rl and rr
+    None where the block spans every column): the plain version of the
+    thermal kernel's ring build (ops/step_thermal_cuda.py)."""
+    from .step_rings_torch import assemble
+    one = make_step_padded_thermal(problem, origin, local_shape, device)
+    eq_ring = problem.ghost_ring_values()
+
+    def step(s, rb, rt, rl=None, rr=None) -> torch.Tensor:
+        spad = assemble(s, rb, rt, rl, rr, 1, problem.periodic_x, eq_ring)
+        return one(spad)[:, 1:-1, 1:-1].contiguous()
 
     return step
 

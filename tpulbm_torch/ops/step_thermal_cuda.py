@@ -1,9 +1,11 @@
 """The fused thermal collide-stream step as a hand-written CUDA kernel.
 
 Port of tpulbm/ops/step_thermal_pallas.py::make_local_step_thermal_pallas
-(one step per launch, one full-width device): csrc/step_thermal.cu, built
+(one step per launch): csrc/step_thermal.cu, built
 once for BGK and once for its Smagorinsky LES branch (MODES,
--DTPULBM_COLLISION=5). Rayleigh-Bénard and the heated cavity pass the wall
+-DTPULBM_COLLISION=5), and each of those once more for a shard of a mesh
+(-DTPULBM_RINGS=1, collide_stream_thermal_rings: the block and its
+one-cell rings, the Pallas kernel's rb/rt, flags and x_halo rl/rr). Rayleigh-Bénard and the heated cavity pass the wall
 flags on; the periodic passive scalar (no y walls, buoyancy 0) passes them
 off, and the kernel, which loads its tile at wrapped coordinates, wraps y
 too, as the Pallas kernel does with flags[0:2] off. The kernel is built
@@ -28,6 +30,9 @@ from . import step_cuda, step_thermal, step_torch
 
 SOURCE = "tpulbm_torch/csrc/step_thermal.cu"
 REPLACES = "tpulbm/ops/step_thermal_pallas.py:147"  # make_local_step_thermal_pallas
+# the ring build: the same function's ring rows, edge flags and x_halo
+RINGS_REPLACES = ("tpulbm/ops/step_thermal_pallas.py:147 "
+                  "(make_local_step_thermal_pallas, rb/rt, flags, x_halo)")
 Q_STATE = 14   # 9 D2Q9 planes, then 5 D2Q5 planes
 # the collisions of the thermal kernel, as tpulbm's: BGK and the
 # Smagorinsky closure (step_cuda.COLLISION_MODES names their defines)
@@ -147,6 +152,64 @@ def collide_stream_thermal(s: torch.Tensor, out: torch.Tensor,
 
 
 step_cuda._zero_counts(collide_stream_thermal, MODES)
+
+
+@functools.cache
+def _rings_library(mode: str = "bgk") -> ctypes.CDLL:
+    """The thermal ring build for `mode`; raises unless it holds it."""
+    return step_cuda._bind("step_thermal.cu", "tpulbm_thermal_step_rings",
+                           [_PTR] * 6 + [_I32] * 7 + [_PTR] * 7
+                           + [_I32] * 4 + [_PTR], mode,
+                           variant=step_cuda.RINGS)
+
+
+def ring_args(s: torch.Tensor, out: torch.Tensor, rings: tuple,
+              shard: step_cuda.Shard, consts: ThermalConstants, device: int,
+              stream: int) -> tuple:
+    """The arguments of tpulbm_thermal_step_rings for one shard's launch
+    (the pointers of s, out and the rings, the geometry, the constants)."""
+    rb, rt, rl, rr = rings
+    ny, nx = shard.grid
+    nyl, nxl = shard.local_shape
+    y0, x0 = shard.origin
+    return (s.data_ptr(), out.data_ptr(), rb.data_ptr(), rt.data_ptr(),
+            step_cuda._ptr(rl), step_cuda._ptr(rr), nx, ny, nxl, nyl, x0, y0,
+            1 if shard.x_rings else 0, *consts.arrays, consts.baxis,
+            int(consts.walls_y), int(consts.walls_x), device, stream)
+
+
+def collide_stream_thermal_rings(s: torch.Tensor, out: torch.Tensor,
+                                 rings: tuple, shard: step_cuda.Shard,
+                                 consts: ThermalConstants,
+                                 plain=None) -> torch.Tensor:
+    """One thermal timestep of one shard of a mesh from its block s
+    (14, nyl, nxl) and its rings (rb, rt, rl, rr), one cell deep
+    (shard.depth 1; rl and rr None where the block spans every column),
+    into out; returns out. The walls act at the domain's own edges only.
+
+    On a CUDA tensor: launches the ring build on the current stream (no
+    synchronization) and raises if the launch is refused. On a CPU tensor:
+    runs `plain` (step_thermal.make_ring_step_thermal for the shard)."""
+    nyl = shard.local_shape[0]
+    step_cuda.check_shard(s, out, rings, shard, 1, (0, nyl), q2d=Q_STATE,
+                          depths={1: 1})
+    rb, rt, rl, rr = rings
+    if s.device.type == "cpu":
+        if plain is None:
+            raise ValueError("a CPU tensor needs the plain step")
+        return out.copy_(plain(s, rb, rt, rl, rr))
+    lib = _rings_library(consts.mode)
+    stream = torch.cuda.current_stream(s.device).cuda_stream
+    rc = lib.tpulbm_thermal_step_rings(*ring_args(
+        s, out, rings, shard, consts, s.device.index, stream))
+    step_cuda._check_launch(lib, rc, f"thermal ring kernel ({consts.mode}, "
+                                     f"shard {shard.index})")
+    step_cuda._count(collide_stream_thermal_rings, consts.mode, 1,
+                     shard.index)
+    return out
+
+
+step_cuda._zero_counts(collide_stream_thermal_rings, MODES, (1,))
 
 
 def make_local_step_thermal_cuda(problem: Problem, device):

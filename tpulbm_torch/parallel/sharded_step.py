@@ -7,7 +7,9 @@ cavity, the periodic boxes with or without Kolmogorov's force profile)
 under every collision the D2Q9 kernels hold; in 3-D (D3Q19 or D3Q27) the
 sphere in a duct with any obstacle rule (Bouzidi on D3Q19), the
 body-forced duct and the fully periodic boxes with 3-D Kolmogorov's z
-force, under every collision the 3-D kernels hold.
+force, under every collision the 3-D kernels hold; the thermal problems
+(Rayleigh-Bénard, the side-heated cavity, the periodic passive scalar,
+under BGK or the Smagorinsky closure) and Shan-Chen multiphase.
 Under a periodic y the ring rows wrap (tpulbm's ring_kw) and no shard owns
 a physical y edge. A sharded state is the (my, mx) grid of local blocks,
 (Q, nyl, nxl) in 2-D and (Q, nz, nyl, nxl) in 3-D (the mesh cuts y and x,
@@ -37,9 +39,14 @@ builds of both D3Q19 kernels (row 7, make_local_step_pallas3d_tiled), with
 x rings on a mesh that cuts x (or TPULBM_FORCE_XHALO), else [(1, n)]
 (plan_3d).
 TPULBM_SUBSTEPS forces a depth and TPULBM_NO_FUSED2 turns blocking off, as
-in tpulbm. A (1,1) mesh without TPULBM_FORCE_TILED or TPULBM_HALO_OVERLAP
-(in 3-D TPULBM_FORCE_XHALO) runs the one-device stepper
-(stepper.make_chunk_fn) unchanged.
+in tpulbm. The thermal problems and multiphase step once a launch, as
+tpulbm's body_thermal_pallas and body_multiphase_pallas (:921-1010): the
+ring builds of the thermal kernel (rings one cell deep) and of the
+multiphase kernel (pre-collision rings two cells deep), with x rings on a
+mesh that cuts x (multiphase also under TPULBM_FORCE_XHALO).
+A (1,1) mesh without TPULBM_FORCE_TILED or TPULBM_HALO_OVERLAP
+(in 3-D and for multiphase TPULBM_FORCE_XHALO; a thermal problem always)
+runs the one-device stepper (stepper.make_chunk_fn) unchanged.
 """
 from __future__ import annotations
 
@@ -54,23 +61,12 @@ from ..models.base import Problem
 from ..ops import bouzidi as bouzidi_mod
 from ..ops import diagnostics
 from ..ops import forces as forces_mod
-from ..ops import step_cuda, step_rings_torch
+from ..ops import (step_cuda, step_multiphase, step_multiphase_cuda,
+                   step_rings_torch, step_thermal, step_thermal_cuda)
 from . import halo
 from .mesh import Mesh
 
 Grid = halo.Grid
-
-
-def check_mesh_problem(problem: Problem, mesh: Mesh) -> None:
-    """Raise NotImplementedError for a problem this slice does not run on
-    a mesh of more than one shard, naming its ROADMAP item."""
-    if mesh.size == 1:
-        return
-    if problem.thermal is not None or problem.shan_chen:
-        raise NotImplementedError(
-            f"the {'thermal' if problem.thermal else 'multiphase'} step on "
-            f"mesh {mesh.shape} is not ported to tpulbm_torch yet (ROADMAP "
-            "Queue 1 item 19, several devices)")
 
 
 def origin(mesh: Mesh, local_shape: tuple[int, ...], iy: int,
@@ -256,11 +252,13 @@ def make_chunk_fn(problem: Problem, mesh: Mesh, chunk_len: int,
                   backend: str = "pallas"):
     """fn(shards) -> shards advanced by chunk_len steps.
 
-    backend="pallas": the ring builds of the D2Q9 kernels (their plain
+    backend="pallas": the ring builds of the kernels (their plain
     version on CPU shards) as `plan` dispatches; backend="jax": the plain
     tier, tpulbm's body_jax: each step refreshes every padded block's
     1-wide ring of rows and columns (halo.refresh_ring) and steps it
-    (step_rings_torch.make_step_padded). fn.mode is the plan's mode
+    (step_rings_torch.make_step_padded; the thermal step's
+    make_step_padded_thermal; for multiphase a refresh before each of
+    make_local_steps_multiphase's two halves). fn.mode is the plan's mode
     ("overlap", "rows", "tiled", "plain" or "one-device"), fn.substeps the
     depth N (tpulbm's pallas_substeps; 1 for the plain tier) and fn.plan
     [(N, launches per shard)], each shard's launches at each call (three
@@ -268,16 +266,21 @@ def make_chunk_fn(problem: Problem, mesh: Mesh, chunk_len: int,
     storage is reused as ping-pong buffers."""
     if chunk_len < 1:
         raise ValueError(f"chunk_len must be >= 1, got {chunk_len}")
-    check_mesh_problem(problem, mesh)
     if backend not in ("pallas", "jax"):
         raise ValueError(f"unknown backend {backend!r}")
     three_d = problem.lattice.D == 3
-    forced_path = (os.environ.get("TPULBM_FORCE_XHALO") if three_d else
-                   (os.environ.get("TPULBM_FORCE_TILED")
-                    or os.environ.get("TPULBM_HALO_OVERLAP")))
-    if mesh.size == 1 and (backend == "jax" or not forced_path
-                           or problem.thermal is not None
-                           or problem.shan_chen):
+    thermal = problem.thermal is not None
+    # the switches that send one shard through the ring kernels, as
+    # tpulbm's (its thermal kernel takes x rings only where the mesh cuts
+    # x; multiphase's mp_xh reads TPULBM_FORCE_XHALO)
+    if thermal:
+        forced_path = None
+    elif three_d or problem.shan_chen:
+        forced_path = os.environ.get("TPULBM_FORCE_XHALO")
+    else:
+        forced_path = (os.environ.get("TPULBM_FORCE_TILED")
+                       or os.environ.get("TPULBM_HALO_OVERLAP"))
+    if mesh.size == 1 and (backend == "jax" or not forced_path):
         one = stepper.make_chunk_fn(problem, mesh.device(0, 0), chunk_len,
                                     backend=backend)
 
@@ -297,6 +300,8 @@ def make_chunk_fn(problem: Problem, mesh: Mesh, chunk_len: int,
             "do; use backend='jax' for f64")
     if three_d:
         return _kernel_chunk_3d(problem, mesh, chunk_len)
+    if thermal or problem.shan_chen:
+        return _kernel_chunk_coupled(problem, mesh, chunk_len)
     return _kernel_chunk(problem, mesh, chunk_len)
 
 
@@ -308,21 +313,37 @@ def _plain_chunk(problem: Problem, mesh: Mesh, chunk_len: int):
                           periodic_x=problem.periodic_x,
                           periodic_y=problem.periodic_y)
             if has_solid else None)
-    steps = [[step_rings_torch.make_step_padded(
-        problem, tuple(o - 1 for o in origin(mesh, local, iy, ix)),
-        (local[-2] + 2, local[-1] + 2), pads[iy][ix] if has_solid else None,
-        mesh.device(iy, ix))
-        for ix in range(mesh.shape[1])] for iy in range(mesh.shape[0])]
+
+    def halves(iy: int, ix: int) -> tuple:
+        """The padded steps of shard (iy, ix) that make one step, each
+        after a ring refresh: tpulbm's body_jax refreshes once a step, and
+        twice for multiphase, whose collision reads the neighbours' ψ and
+        whose pull their post-collision edges."""
+        o, dev = origin(mesh, local, iy, ix), mesh.device(iy, ix)
+        if problem.thermal is not None:
+            return (step_thermal.make_step_padded_thermal(problem, o, local,
+                                                          dev),)
+        if problem.shan_chen:
+            return step_multiphase.make_local_steps_multiphase(problem, o,
+                                                               local)
+        return (step_rings_torch.make_step_padded(
+            problem, tuple(v - 1 for v in o),
+            (local[-2] + 2, local[-1] + 2),
+            pads[iy][ix] if has_solid else None, dev),)
+
+    steps = [[halves(iy, ix) for ix in range(mesh.shape[1])]
+             for iy in range(mesh.shape[0])]
 
     def chunk(shards: Grid) -> Grid:
         fpads = [[halo.make_padded(f, eq_ring) for f in row]
                  for row in shards]
         for _ in range(chunk_len):
-            halo.refresh_ring(fpads, eq_ring=eq_ring,
-                              periodic_x=problem.periodic_x,
-                              periodic_y=problem.periodic_y)
-            fpads = [[step(fp) for step, fp in zip(srow, frow)]
-                     for srow, frow in zip(steps, fpads)]
+            for k in range(len(steps[0][0])):
+                halo.refresh_ring(fpads, eq_ring=eq_ring,
+                                  periodic_x=problem.periodic_x,
+                                  periodic_y=problem.periodic_y)
+                fpads = [[srow[ix][k](fp) for ix, fp in enumerate(frow)]
+                         for srow, frow in zip(steps, fpads)]
         return [[fp[..., 1:-1, 1:-1].contiguous() for fp in row]
                 for row in fpads]
 
@@ -455,6 +476,65 @@ def _kernel_chunk(problem: Problem, mesh: Mesh, chunk_len: int):
     return chunk
 
 
+def _kernel_chunk_coupled(problem: Problem, mesh: Mesh, chunk_len: int):
+    """The thermal problems and Shan-Chen multiphase on a mesh, tpulbm's
+    body_thermal_pallas and body_multiphase_pallas (:921-1010): one launch
+    a step and shard of the ring build of the thermal kernel (rings one
+    cell deep) or of the multiphase kernel (pre-collision rings two cells
+    deep: ψ's stencil reads one, the pull the other), with x rings where
+    the mesh cuts x (for multiphase also under TPULBM_FORCE_XHALO, tpulbm's
+    mp_xh). Where tpulbm warns and takes its jax tier (a ValueError of its
+    builder), the port raises."""
+    thermal = problem.thermal is not None
+    depth = 1 if thermal else step_multiphase_cuda.DEPTH
+    local = block_shape(problem, mesh)
+    if not _fits(local, depth):
+        raise ValueError(f"shards of {local} cells are too small for the "
+                         f"ring kernels (at least {max(depth, 3)} rows and "
+                         "columns)")
+    x_rings = mesh.shape[1] != 1 or (
+        not thermal and bool(os.environ.get("TPULBM_FORCE_XHALO")))
+    eq_ring = problem.ghost_ring_values()
+    if thermal:
+        step_thermal.check_geometry(problem)
+        consts = step_thermal_cuda.ThermalConstants.of(problem)
+        launch = step_thermal_cuda.collide_stream_thermal_rings
+        make_plain = step_thermal.make_ring_step_thermal
+    else:
+        step_multiphase_cuda.check_problem(problem)
+        consts = step_multiphase_cuda.MultiphaseConstants.of(problem)
+        launch = step_multiphase_cuda.collide_stream_multiphase_rings
+        make_plain = step_multiphase.make_ring_step_multiphase
+    cells = mesh.shards()
+    geo = {(iy, ix): step_cuda.Shard(
+        index=(iy, ix), origin=origin(mesh, local, iy, ix),
+        local_shape=local, grid=tuple(problem.spatial_shape), depth=depth,
+        x_rings=x_rings) for iy, ix in cells}
+    plains = {cell: make_plain(problem, geo[cell].origin, local,
+                               mesh.device(*cell))
+              for cell in cells if mesh.device(*cell).type == "cpu"}
+
+    def chunk(shards: Grid) -> Grid:
+        spare = [[torch.empty_like(f) for f in row] for row in shards]
+        cur = shards
+        for _ in range(chunk_len):
+            rings = halo.exchange(cur, eq_ring=eq_ring, depth=depth,
+                                  periodic_x=problem.periodic_x,
+                                  periodic_y=problem.periodic_y,
+                                  x_rings=x_rings)
+            for iy, ix in cells:
+                launch(cur[iy][ix], spare[iy][ix], rings[iy][ix],
+                       geo[iy, ix], consts, plain=plains.get((iy, ix)))
+            cur, spare = spare, cur
+        return cur
+
+    chunk.mode = "tiled" if x_rings else "rows"
+    chunk.substeps = 1
+    chunk.plan = [(1, chunk_len)]
+    chunk.pallas3d_depths = None
+    return chunk
+
+
 def _kernel_chunk_3d(problem: Problem, mesh: Mesh, chunk_len: int):
     mode, segments = plan_3d(problem, mesh, chunk_len)
     x_rings = mode == "tiled"
@@ -517,10 +597,13 @@ class Diagnostics:
     force takes its block with a one-cell ring (halo.pad_block) and its
     cut of the link table padded the same way, and sums the links of its
     own cells. A probe reads its cell on the shard that owns it; a
-    statistics sample is cell-local, one per shard. On a (1,1) mesh every
-    result is the one-device function's, bit for bit; the Nusselt number
-    needs the whole thermal state, which only a (1,1) mesh holds
-    (check_mesh_problem)."""
+    statistics sample is cell-local, one per shard, but the Shan-Chen
+    physical velocity (its fields and samples) reads the neighbours' ψ:
+    each shard's takes its block with a one-cell ring. The thermal trace
+    (the Nusselt number, the scalar variance) is a mean over the grid,
+    summed from float64 partials per shard
+    (diagnostics.thermal_trace_of_blocks). On a (1,1) mesh every result is
+    the one-device function's, bit for bit."""
 
     def __init__(self, problem: Problem, mesh: Mesh):
         self.problem, self.mesh = problem, mesh
@@ -535,6 +618,8 @@ class Diagnostics:
                 problem, torch.as_tensor(problem.solid))]
         local = block_shape(problem, mesh)
         lead = (0,) * (len(local) - 2)
+        # the Shan-Chen fields read the neighbours' ψ: padded blocks
+        self._mp_padded = bool(problem.shan_chen) and mesh.size > 1
         inner = (slice(None),) * len(lead) + (slice(1, -1), slice(1, -1))
         self._fns = {}
         for iy, ix in mesh.shards():
@@ -554,10 +639,12 @@ class Diagnostics:
                          else [(i, g[iy][ix]) for i, g in cut])
                 force = forces_mod.forces_fn(problem, dev, solid, links,
                                              dtype=torch.float64)
+            y0 = (origin(mesh, local, iy, ix)[0] if self._mp_padded
+                  else None)
             self._fns[iy, ix] = (
                 force, diagnostics.max_velocity_fn(problem, dev, solid),
-                diagnostics.fields_fn(problem, dev, solid),
-                diagnostics.stats_sample_fn(problem, dev, solid))
+                diagnostics.fields_fn(problem, dev, solid, y0),
+                diagnostics.stats_sample_fn(problem, dev, solid, y0))
         # each probe's shard and its cell there
         nyl, nxl = mesh.local_shape(problem.spatial_shape[-2:])
         self._probes = [((y // nyl, x // nxl),
@@ -608,8 +695,20 @@ class Diagnostics:
         return total
 
     def nusselt(self, shards: Grid) -> torch.Tensor:
-        (f,), = shards
-        return self._nusselt(f)
+        """The thermal trace (0-d): the Nusselt number between y walls, the
+        passive scalar's variance."""
+        if self.mesh.size == 1:
+            return self._nusselt(shards[0][0])
+        return diagnostics.thermal_trace_of_blocks(
+            self.problem, [f for row in shards for f in row], self.device)
+
+    def _field_blocks(self, shards: Grid) -> Grid:
+        """The blocks the fields functions take: with a one-cell ring for
+        the Shan-Chen physical velocity on a mesh."""
+        if not self._mp_padded:
+            return shards
+        return halo.pad_block(shards, eq_ring=self.problem.ghost_ring_values(),
+                              depth=1, periodic_x=self.problem.periodic_x)
 
     def probes(self, shards: Grid) -> torch.Tensor:
         """(n_probes, 1 + D [+ 1]) of [rho, u..., (T)] at the probe cells
@@ -624,7 +723,7 @@ class Diagnostics:
     def stats_samples(self, shards: Grid) -> list:
         """One Reynolds-statistics sample (rho, u, uu) per shard, row by
         row (diagnostics.stats_sample_fn on each shard's block)."""
-        return self._per_shard(3, shards)
+        return self._per_shard(3, self._field_blocks(shards))
 
     def sample(self, shards: Grid) -> torch.Tensor:
         """[fx, fy, max |u|, stable] (then Nu for a thermal problem and the
@@ -642,7 +741,7 @@ class Diagnostics:
     def fields(self, shards: Grid):
         """(rho, u) of the global grid on the first device, with the
         reference's solid-cell overrides (diagnostics.fields_fn)."""
-        per = self._per_shard(2, shards)
+        per = self._per_shard(2, self._field_blocks(shards))
         mx = len(shards[0])
         rows = [per[i:i + mx] for i in range(0, len(per), mx)]
         return (gather([[r for r, _ in row] for row in rows], self.device),
@@ -694,10 +793,14 @@ def make_super_chunk_fn(problem: Problem, mesh: Mesh, interval_len: int,
             views["forces"][j] = diag.force(shards)[:2]
             views["max_vel"][j] = diag.max_velocity(shards)
             views["stable"][j] = diag.stable(shards)
+            if "nusselt" in views:
+                views["nusselt"][j] = diag.nusselt(shards)
             if "probes" in views:
                 views["probes"][j] = diag.probes(shards)
             if with_fields:
                 views["rho"][j], views["u"][j] = diag.fields(shards)
+                if "temp" in views:
+                    views["temp"][j] = diag.temperature(shards)
             shards = chunk(shards)
         return shards, flat
 

@@ -102,7 +102,6 @@ class Runner:
         self.verbose = verbose
         self.problem: Problem = make_problem(params)
         self.mesh = runner_mesh(params, device, devices)
-        sharded_step.check_mesh_problem(self.problem, self.mesh)
         # the state is the mesh's grid of blocks, one block on (1,1), where
         # the sharded stepper and diagnostics are the one-device ones
         self.device = self.mesh.device(0, 0)
