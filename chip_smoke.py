@@ -11,10 +11,14 @@ printing its own line; any failure exits non-zero:
    step_d2q9_blocked.cu, step_d3q19.cu, step_d3q19_blocked.cu,
    step_thermal.cu and step_multiphase.cu, the two D2Q9 sources once more
    for each other collision mode (TRT, MRT, regularized, KBC, Smagorinsky,
-   power law), the two D3Q19 sources for each but KBC, and the thermal
-   source for the Smagorinsky closure, all at once (timed; ptxas's
-   registers, shared memory and spills for each instantiation, and the
-   dynamic shared memory the N-step and D3Q19 kernels ask for);
+   power law), the two D3Q19 sources for each but KBC, the thermal source
+   for the Smagorinsky closure and every domain, source, obstacle and ring
+   build of the later phases, in a pool beside the phases (Builds: in the
+   order the phases first need them, on every core but the one this
+   process keeps; a phase waits for a library still building); ptxas's
+   registers, shared memory and spills for each instantiation are printed
+   once all are built, the dynamic shared memory the N-step and D3Q19
+   kernels ask for here;
 3. kernels against plain at 2048x512 (re200): one step of the 1-step
    kernel from the initial state and from a state the plain step advanced
    500 steps, at rtol 5e-6 / atol 1e-7; 280 steps of each (max error
@@ -57,7 +61,7 @@ printing its own line; any failure exits non-zero:
    printed; forces.csv and fields3d.npz within the artifact tolerance
    (tests/test_torch_3d.py's) of the same run with blocking off
    (TPULBM_NO_FUSED2: 2240 one-step launches);
-8. timing at 256^3, in turns: the plain 3-D step (30 steps a turn), the
+8. timing at 256^3, in turns: the plain 3-D step (2 steps a turn), the
    1-step D3Q19 kernel and the N = 2, 3 kernels (500-501 steps a turn),
    ms/step, MLUPS, GB/s and the share of each kernel's bound. The 3-D
    tensors are freed at the end;
@@ -304,7 +308,7 @@ printing its own line; any failure exits non-zero:
    step against the plain step, where the sphere's library, the box's
    without the force, D3Q19's on the first 19 planes and BGK's (against
    a closure) must miss by SEPARATION tolerances; N = 2, 3 bitwise
-   against N 1-step launches; 280 steps;
+   against N 1-step launches; 280 steps, every cell's at 64^3;
 47. the three cells through the Runner, 2240 steps every 140
    (periodic3d-256 and the D3Q27 sphere cut to 280 steps: 91 N=3,
    3 N=2 and 1 one-step launches): exactly 735 N=3, 17 N=2 and 1
@@ -380,7 +384,49 @@ printing its own line; any failure exits non-zero:
    one shard's launch, beside the same launches as the host issues them
    and one shard's plain ring step, for rb on (2,2) and (4,1), its LES on
    (2,2), the droplet on (4,1) and (2,2); and row 4's box build (the
-   overlap mode's three ranged launches of Taylor-Green on (4,1)).
+   overlap mode's three ranged launches of Taylor-Green on (4,1));
+61. the Bouzidi sphere on D3Q27 (-DTPULBM_Q=27 -DTPULBM_BOUZIDI=1 of both
+   D3Q19 sources under BGK, TRT, regularized, Smagorinsky and the power
+   law, built in phase 2) at 256^3 (bench.py's bouzidi3d row on D3Q27):
+   its cut links counted; one 1-step kernel step against the plain step
+   from the initial state, after 100 kernel steps and from the perturbed
+   state, where the equilibrium obstacle's library and D3Q19's on the
+   first 19 planes must miss by SEPARATION tolerances; N = 2, 3 bitwise;
+   280 steps at 64^3; the build fed a staircase table (every cut link
+   at q = 1/2) SEPARATION tolerances off; the Runner for 280 steps
+   every 140 (91 N=3, 3 N=2, 1 1-step launches); a 128^3 Runner's
+   forces.csv against the plain path's; the other collisions and the
+   spinning sphere at 64^3, each with a counted 280-step run;
+62. the D3Q27 Bouzidi sphere at 128^3 on meshes (the ring builds): one
+   launch a shard on (2,1) at N = 3 and 2, (2,2) at depth 1 and, spinning,
+   (2,1) at N = 3, against the plain ring step and bitwise one device,
+   equilibrium rings off; 280 steps on (2,1), (2,2) (and spinning on
+   (2,1)) bitwise one device with the force per shard; a (2,1) Runner's
+   forces.csv against phase 61's one-device run;
+63. the solid-slab channel (-DTPULBM_DOMAIN=1 -DTPULBM_SLAB=1: periodic
+   x, no y walls, the walls solid rows at fractional q) at 2048x512
+   (tpulbm's _channel_problem geometry, qb 0.25, qt 0.75, tau 0.8, F for
+   a peak speed 0.05) under Bouzidi: its cut links counted; one step
+   against the plain step from the initial and the perturbed state (the
+   obstacle domain's library off, the source's check), N = 2, 3, 4
+   bitwise, 280 steps, the staircase table off; the stepper for 2240
+   steps in the Runner's chunks (525 N=4 + 140 1-step launches); the
+   bounce-back and equilibrium builds, the moving top wall (Couette, no
+   source) and the other collisions at 256x64, each with a counted
+   280-step run;
+64. tpulbm's slab gates through the kernels in f32: the fractional walls
+   (24x8, 6000 steps, both wall pairs; tpulbm's bounds); the staircase
+   contrast and Couette (20x8, 8000 steps), whose f64 bounds f32 cannot
+   reach, held to the f32 plain step's own result on the same run;
+65. the slab on (2,1) at N=4, (1,2) and (2,2) at depth 1: one launch a
+   shard against the plain ring step, bitwise one device, equilibrium
+   rings off; 280 steps on each counted and bitwise one device, the force
+   per shard;
+66. timing: the D3Q27 Bouzidi kernels at 1-step, N = 2, 3 against the same
+   sphere's library without the rewrite in the same turns, the slab's
+   1-step and N=4 against the walled channel's build, their ring builds,
+   the other builds against their plain steps; bounds with the link
+   table's bytes.
 
 Run directories go to build/chip_smoke/ (git-ignored; the final CSVs have
 a million rows). The last two lines are a JSON line per kernel and the
@@ -417,7 +463,17 @@ and 59 for the thermal and multiphase ring builds
 (thermal_rings_tiled[bgk], multiphase_rings_rows[bgk]: the four shards'
 launches of the main paths; thermal_rings_rows[bgk],
 thermal_rings_tiled[smagorinsky] and multiphase_rings_tiled[bgk] from
-phases 58-59's 280-step runs; `ms` one shard's launch, the card's time).
+phases 58-59's 280-step runs; `ms` one shard's launch, the card's time),
+phase 61 for the D3Q27 Bouzidi libraries
+(d3q19_collide_stream[_nN][<op>+bouzidi+d3q27], the spinning sphere's
+..._spinning[bgk+bouzidi+d3q27]; the 64^3 ones from their counted runs),
+phase 62's (2,1) Runner for their ring builds
+(d3q19_rings_rows_nN[bgk+bouzidi+d3q27]; the (2,2) depth-1 build 0),
+phase 63 for the slab's (d2q9_collide_stream[_nN][<op>+channel+slab
++source+bouzidi], ...[bgk+channel+slab+source+bounce_back],
+...[bgk+channel+slab+source], the moving wall's ..._moving[bgk+channel
++slab+bouzidi]; N=2 and N=3 0) and phase 65's runs for their ring builds
+(d2q9_rings_rows_n4[...], d2q9_rings_tiled[...]).
 A kernel's
 `bound_ms` is the
 least time the card could take for one step of its work at the shape it
@@ -438,7 +494,8 @@ import shutil
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
+import multiprocessing
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -455,6 +512,15 @@ FIELDS_TOL = dict(rtol=1e-5, atol=5e-6)
 # 280 steps of f32 rounding differences (1/rho multiplied vs divided, sum
 # order) from an impulsive start: a divergence bound, not a parity gate
 DRIFT_280_BOUND = 1e-4
+# the plain step's turns in the timing phases (its time is the reference a
+# kernel's is read against, not a gate): 2-D and thermal 40 steps a turn,
+# 3-D 2, after PLAIN_WARM steps
+PLAIN_2D_STEPS = 40
+PLAIN_3D_STEPS = 2
+PLAIN_WARM = 1
+# a 3-D kernel's turns in cell_timing (75 steps, at least 75 ms a turn at
+# 256^3), after 10 warm-up steps
+KERNEL_3D_STEPS = 75
 # the re200 N=4 BGK kernel's time before the ring builds (PERF.md §6,
 # row 2: the last call of PR 9) on an NVIDIA H100 80GB HBM3 at 700 W: the
 # cylinder's libraries keep it
@@ -547,6 +613,10 @@ DRIFT_N_3D = 128
 # 1 and 140, 139, 1
 CUT_3D_STEPS = 280
 LAUNCHES_3D = {2240: {3: 735, 2: 17, 1: 1}, 280: {3: 91, 2: 3, 1: 1}}
+# a 2-D run's N=4 launches at 2240 and 280 steps in the Runner's chunks
+# (140 x 15, 139, 1 and 140, 139, 1: the last interval's 139 + 1 steps
+# 1-step launches)
+LAUNCHES_2D = {2240: 525, 280: 35}
 # tpulbm's power-law gate (tests/test_power_law.py's _PLAW_RTOL: a Newton
 # solve on expf and logf) and KBC's (tests/test_kbc.py: max|d|/max|f|),
 # the latter used only where the one-step tolerance does not hold
@@ -979,8 +1049,9 @@ def sphere_phases(dev, card: str) -> list[dict]:
           f"{field_diff:.3e} (rtol 1e-5, atol 5e-6)")
 
     # phase 8: timing in turns; the plain step is host-bound (~350
-    # launches a step), so 30 steps a turn; ms per step (a launch is N)
-    runs = {"plain": (lambda f, m: plain_chunk(pstep, f, m), 30),
+    # launches a step), so PLAIN_3D_STEPS steps a turn; ms per step (a
+    # launch is N)
+    runs = {"plain": (lambda f, m: plain_chunk(pstep, f, m), PLAIN_3D_STEPS),
             1: (lambda f, m: kernel_chunk(kstep, f, m), 500)}
     for d in DEPTHS_3D:
         runs[d] = (lambda f, m, d=d: kernel_chunk(bsteps[d], f, m // d),
@@ -989,7 +1060,8 @@ def sphere_phases(dev, card: str) -> list[dict]:
     times = {k: [] for k in order}
     for which in order + order[::-1]:
         run, steps = runs[which]
-        times[which].append(ms_per_step(run, f0, steps))
+        times[which].append(ms_per_step(run, f0, steps, PLAIN_WARM
+                                        if which == "plain" else 20))
     ms = {k: min(v) for k, v in times.items()}
     cells = n ** 3
     b = {d: bound("d3q19", cells, d) for d in (1, *DEPTHS_3D)}
@@ -1138,12 +1210,14 @@ def thermal_phases(dev, card: str) -> dict:
 
     # phase 12: timing in turns; the plain step is host-bound, so fewer
     # steps a turn
-    runs = {"plain": (lambda f, n: plain_chunk(pstep, f, n), 200),
+    runs = {"plain": (lambda f, n: plain_chunk(pstep, f, n),
+                      PLAIN_2D_STEPS),
             "kernel": (lambda f, n: kernel_chunk(kstep, f, n), 2400)}
     times = {k: [] for k in runs}
     for which in ["plain", "kernel", "kernel", "plain"]:
         run, steps = runs[which]
-        times[which].append(ms_per_step(run, s0, steps))
+        times[which].append(ms_per_step(run, s0, steps, PLAIN_WARM
+                                        if which == "plain" else 20))
     ms = {k: min(v) for k, v in times.items()}
     cells = nx * ny
     bw = cells * STEP_BYTES["thermal"] / (ms["kernel"] * 1e-3)
@@ -1361,12 +1435,14 @@ def multiphase_phases(dev, card: str) -> dict:
           f"{time.perf_counter() - t0:.2f} s")
 
     # phase 16: timing in turns; the plain step is host-bound
-    runs = {"plain": (lambda f, n: plain_chunk(pstep, f, n), 200),
+    runs = {"plain": (lambda f, n: plain_chunk(pstep, f, n),
+                      PLAIN_2D_STEPS),
             "kernel": (lambda f, n: kernel_chunk(kstep, f, n), 2400)}
     times = {k: [] for k in runs}
     for which in ["plain", "kernel", "kernel", "plain"]:
         run, steps = runs[which]
-        times[which].append(ms_per_step(run, f0, steps))
+        times[which].append(ms_per_step(run, f0, steps, PLAIN_WARM
+                                        if which == "plain" else 20))
     ms = {k: min(v) for k, v in times.items()}
     cells = nx * ny
     b = bound("multiphase", cells)
@@ -1587,7 +1663,8 @@ def operator_phases(dev, card: str) -> list[dict]:
         print(f"operator runner {op} 64x32, kernel vs plain: forces max abs "
               f"diff {err_tiny:.3e} (rtol 1e-4, atol 5e-6)")
         # phase 20: timing in turns, ms per step (one launch is N steps)
-        runs = {"plain": (lambda f, n: plain_chunk(pstep, f, n), 100)}
+        runs = {"plain": (lambda f, n: plain_chunk(pstep, f, n),
+                          PLAIN_2D_STEPS)}
         for n in (1, *DEPTHS):
             runs[n] = (lambda f, m, n=n: kernel_chunk(steps[n], f, m // n),
                        2400)
@@ -1595,7 +1672,8 @@ def operator_phases(dev, card: str) -> list[dict]:
         times = {k: [] for k in order}
         for which in order + order[::-1]:
             run, n = runs[which]
-            times[which].append(ms_per_step(run, f0, n))
+            times[which].append(ms_per_step(run, f0, n, PLAIN_WARM
+                                            if which == "plain" else 20))
         ms = {k: min(v) for k, v in times.items()}
         cells = params.nx * params.ny
         kind = f"d2q9_{mode}"
@@ -1769,7 +1847,8 @@ def sphere_operator_phases(dev, card: str) -> list[dict]:
         # steps); the plain step (host-bound, 100-400 ms a step) 4 steps a
         # turn after 2
         pstep = step_torch.make_step_rolled(make_problem(params), dev)
-        runs = {"plain": (lambda f, m: plain_chunk(pstep, f, m), 4, 2)}
+        runs = {"plain": (lambda f, m: plain_chunk(pstep, f, m),
+                          PLAIN_3D_STEPS, PLAIN_WARM)}
         for n in (1, *DEPTHS_3D):
             runs[n] = (lambda f, m, n=n: kernel_chunk(steps[n], f, m // n),
                        150, 20)
@@ -1876,12 +1955,14 @@ def thermal_les_phases(dev, card: str) -> dict:
           f"the LES build, {result.host_fetches} host fetches in the loop, "
           f"{wall:.2f} s wall, runner {result.mlups:.1f} MLUPS, final Nu "
           f"{result.stats['nusselt']:.6f}")
-    runs = {"plain": (lambda f, n: plain_chunk(pstep, f, n), 200),
+    runs = {"plain": (lambda f, n: plain_chunk(pstep, f, n),
+                      PLAIN_2D_STEPS),
             "kernel": (lambda f, n: kernel_chunk(kstep, f, n), 2400)}
     times = {k: [] for k in runs}
     for which in ["plain", "kernel", "kernel", "plain"]:
         run, steps = runs[which]
-        times[which].append(ms_per_step(run, s0, steps))
+        times[which].append(ms_per_step(run, s0, steps, PLAIN_WARM
+                                        if which == "plain" else 20))
     ms = {k: min(v) for k, v in times.items()}
     cells = nx * ny
     b = bound("thermal_smagorinsky", cells)
@@ -2014,13 +2095,17 @@ class Cell:
     """One new domain's problem on the card: its kernel steps by depth, the
     plain step, the constants and the separation library's step."""
 
-    def __init__(self, dev, label: str, params, problem=None):
+    def __init__(self, dev, label: str, params, problem=None, remake=None):
         from tpulbm_torch.models import make_problem
         from tpulbm_torch.ops import step_cuda, step_torch
 
         self.label, self.params = label, params
-        # `problem`: one that params alone do not give (a force along x)
+        # `problem`: one that params alone do not give (a force along x,
+        # the slab); remake(**kw): the cell's problem with SimulationParams
+        # fields `kw` changed (default: make_problem of params with them)
         self.problem = make_problem(params) if problem is None else problem
+        self.remake = remake or (lambda **kw: make_problem(
+            params.replace(**kw)))
         self.three_d = self.problem.lattice.D == 3
         self.consts = step_cuda.StepConstants.of(self.problem)
         self.library = self.consts.library
@@ -2083,10 +2168,9 @@ def source_check(cell: Cell, f: torch.Tensor) -> tuple[float, float]:
     (at the cell's tolerance), and one of the same domain's library built
     without the source, which must miss the plain step by more than
     SEPARATION tolerances. Returns (the library's error, the separation)."""
-    from tpulbm_torch.models import make_problem
-    from tpulbm_torch.ops import step_cuda, step_torch
+    from tpulbm_torch.ops import bouzidi, step_cuda, step_torch
     force = (SOURCE_CHECK_FORCE,) + (0.0,) * (cell.problem.lattice.D - 1)
-    big = make_problem(cell.params.replace(body_force=force))
+    big = cell.remake(body_force=force)
     consts = step_cuda.StepConstants.of(big)
     require(consts.library == cell.library, f"{cell.label}: the check's "
             f"library {consts.library}, not {cell.library}")
@@ -2094,7 +2178,12 @@ def source_check(cell: Cell, f: torch.Tensor) -> tuple[float, float]:
                                variant=consts.variant & ~step_cuda.SOURCE)
     got = cell.make1(big, f.device)(f, torch.empty_like(f))
     want = step_torch.make_step_rolled(big, f.device)(f)
-    without = cell.launch(f, torch.empty_like(f), cell.solid, bare)
+    mask, links = cell.solid, None
+    if bare.variant & step_cuda.BOUZIDI:
+        # the Bouzidi build reads the link bits and the table
+        mask = torch.as_tensor(step_cuda.kernel_mask(big), device=f.device)
+        links = bouzidi.device_table(big, f.device)
+    without = cell.launch(f, torch.empty_like(f), mask, bare, None, links)
     torch.cuda.synchronize()
     close_or_relative(got, want, cell.tol, cell.relative)
     sep = separation(f"{cell.label}, {bare.library} at F {SOURCE_CHECK_FORCE}",
@@ -2137,7 +2226,9 @@ def force_check(cell: Cell, f: torch.Tensor, axis: str) -> tuple[float,
     return float((got - want).abs().max()), sep
 
 
-def cell_parity(cell: Cell, full: bool, advanced: bool = True) -> float:
+def cell_parity(cell: Cell, full: bool, advanced: bool = True,
+                check_source: bool = True, drift_n: int = DRIFT_N_3D,
+                drift: bool = True) -> float:
     """Phase 25 (2-D) or 27 (3-D) on one cell: one 1-step kernel step
     against one plain step from the perturbed state (and, `full`, from the
     initial state and an advanced one: 500 plain steps in 2-D, 100 kernel
@@ -2147,8 +2238,9 @@ def cell_parity(cell: Cell, full: bool, advanced: bool = True) -> float:
     must show (source_check) if the cell's library has one;
     the N-step kernels bitwise against N 1-step launches from each state;
     with `full`, 280 kernel steps against 280 plain steps (3-D at
-    DRIFT_N_3D^3); without `advanced`, no advanced state. Returns the
-    larger one-step error."""
+    drift_n^3); without `advanced`, no advanced state; without
+    `check_source`, no source check; without `drift`, no 280 steps.
+    Returns the larger one-step error."""
     from tpulbm_torch.ops.step_cuda import D3Q27, FORCE, SOURCE
     s1 = cell.steps[1]
     fp = perturbed(cell.problem, cell.f0)
@@ -2180,7 +2272,8 @@ def cell_parity(cell: Cell, full: bool, advanced: bool = True) -> float:
             seps.append(f"the obstacle domain's {cell.consts.mode} library "
                         f"misses the plain step on the perturbed state by "
                         f"{sep:.0f}x the tolerance")
-        if name == "perturbed" and cell.consts.variant & SOURCE:
+        if (name == "perturbed" and cell.consts.variant & SOURCE
+                and check_source):
             err_src, sep = source_check(cell, f)
             errs.append(err_src)
             seps.append(f"at F = {SOURCE_CHECK_FORCE} from the perturbed "
@@ -2206,12 +2299,12 @@ def cell_parity(cell: Cell, full: bool, advanced: bool = True) -> float:
                     "launches")
     del states, got, want, gotn, wantn, fp
     torch.cuda.empty_cache()
-    drift = ""
-    if full:
+    drift_text = ""
+    if full and drift:
         if cell.three_d:
             from tpulbm_torch.models import make_problem
             from tpulbm_torch.ops import step_cuda, step_torch
-            n = min(DRIFT_N_3D, cell.params.nx)
+            n = min(drift_n, cell.params.nx)
             small = make_problem(
                 duct_at(cell.params, n) if cell.params.problem == "poiseuille"
                 else cell.params.replace(nx=n, ny=n, nz=n))
@@ -2228,8 +2321,8 @@ def cell_parity(cell: Cell, full: bool, advanced: bool = True) -> float:
         require(np.isfinite(err_280) and err_280 < DRIFT_280_BOUND,
                 f"{cell.label}: 280-step drift {err_280} beyond "
                 f"{DRIFT_280_BOUND}")
-        drift = (f"; 280 steps{f' at {n}^3' if cell.three_d else ''}"
-                 f" {err_280:.3e} (bound {DRIFT_280_BOUND})")
+        drift_text = (f"; 280 steps{f' at {n}^3' if cell.three_d else ''}"
+                      f" {err_280:.3e} (bound {DRIFT_280_BOUND})")
         del sk, sp
     shape = "x".join(str(v) for v in cell.problem.spatial_shape[::-1])
     print(f"domain parity {cell.label} [{cell.library}] {shape}: 1 step max "
@@ -2239,22 +2332,21 @@ def cell_parity(cell: Cell, full: bool, advanced: bool = True) -> float:
           + f" (gate > {SEPARATION}x); N="
           + "/".join(str(d) for d in (cell.depths[1:] if full
                                       else cell.depths[-1:]))
-          + " bitwise against N 1-step launches" + drift)
+          + " bitwise against N 1-step launches" + drift_text)
     torch.cuda.empty_cache()
     return max(errs)
 
 
 def cell_main_path(dev, cell: Cell, run_dir: Path, mass: bool = False,
                    steps: int = 2240) -> dict:
-    """Phase 26 (2-D) or 28 (3-D) on one cell: the Runner for 2240 steps
-    (3-D: `steps`, 2240 or CUT_3D_STEPS) every 140, no VTK, counted:
-    exactly the one-device plan's launches (2-D 525 N=4 and 140 1-step,
-    3-D LAUNCHES_3D), every one from the cell's own library, and none of
-    another kernel; a finite field; with `mass` (the closed cavity) a final
-    checkpoint whose total mass lies within CAVITY_MASS_TOL of the start.
-    Returns the launches by depth."""
+    """Phase 26 (2-D) or 28 (3-D) on one cell: the Runner for `steps`
+    steps (2240, or CUT_3D_STEPS where a phase's depth was cut) every 140,
+    no VTK, counted: exactly the one-device plan's launches (2-D
+    LAUNCHES_2D, 3-D LAUNCHES_3D), every one from the cell's own library,
+    and none of another kernel; a finite field; with `mass` (the closed
+    cavity) a final checkpoint whose total mass lies within
+    CAVITY_MASS_TOL of the start. Returns the launches by depth."""
     from tpulbm_torch.ops import step_cuda
-    steps = steps if cell.three_d else 2240
     params = cell.params.replace(
         num_timesteps=steps, output_frequency=140, output_dir=str(run_dir),
         checkpoint_every=17 if mass else 0)
@@ -2268,10 +2360,11 @@ def cell_main_path(dev, cell: Cell, run_dir: Path, mass: bool = False,
         ok = by_lib == ({lib: n3[1]}, {lib: {2: n3[2], 3: n3[3]}})
         launches = {1: counts["3d"], 2: counts["3d2"], 3: counts["3d3"]}
     else:
-        want = {**only(4, 525), 1: 140}
+        n4 = LAUNCHES_2D[steps]
+        want = {**only(4, n4), 1: 140}
         by_lib = (step_cuda.collide_stream.launches_by_library,
                   step_cuda.collide_stream_blocked.launches_by_library)
-        ok = by_lib == ({lib: 140}, {lib: {2: 0, 3: 0, 4: 525}})
+        ok = by_lib == ({lib: 140}, {lib: {2: 0, 3: 0, 4: n4}})
         launches = {1: counts[1], 4: counts[4]}
     require(counts == want and ok,
             f"{cell.label}: launch counts {counts} {by_lib}, not {want} all "
@@ -2315,18 +2408,26 @@ def cell_main_path(dev, cell: Cell, run_dir: Path, mass: bool = False,
     return launches
 
 
-def cell_timing(cell: Cell, card: str, depths=None) -> dict:
+def cell_timing(cell: Cell, card: str, depths=None,
+                others: dict | None = None) -> dict:
     """Phase 29 on one cell: the plain step, the 1-step kernel and the
     N-step kernels in turns, ms per step (an N-step launch counts N), the
-    lower of two turns; MLUPS and the share of each kernel's bound."""
+    lower of two turns; MLUPS and the share of each kernel's bound.
+    `others` {label: (step, n_sub)}: more kernels timed in the same turns
+    on the cell's state (another library, for a comparison), their ms
+    under their labels."""
     depths = depths or cell.depths
     big = cell.three_d
     runs = {"plain": (lambda f, m: plain_chunk(cell.pstep, f, m),
-                      4 if big else 100, 2 if big else 20)}
+                      PLAIN_3D_STEPS if big else PLAIN_2D_STEPS, PLAIN_WARM)}
     for d in depths:
         runs[d] = (lambda f, m, d=d: kernel_chunk(cell.steps[d], f, m // d),
-                   150 if big else 2400, 20)
-    order = ["plain", *depths]
+                   KERNEL_3D_STEPS if big else 2400, 10 if big else 20)
+    for label, (step, d) in (others or {}).items():
+        runs[label] = (lambda f, m, step=step, d=d: kernel_chunk(
+            step, f, m // d), KERNEL_3D_STEPS if big else 2400,
+            10 if big else 20)
+    order = ["plain", *depths, *(others or {})]
     times = {k: [] for k in order}
     for which in order + order[::-1]:
         run, m, warm = runs[which]
@@ -3279,12 +3380,14 @@ def scalar_phases(dev, card: str) -> dict:
     kstep = step_thermal_cuda.make_local_step_thermal_cuda(problem, dev)
     pstep = step_thermal.make_step_thermal(problem, dev)
     s0 = initial_state(problem, dev)
-    runs = {"plain": (lambda f, n: plain_chunk(pstep, f, n), 200),
+    runs = {"plain": (lambda f, n: plain_chunk(pstep, f, n),
+                      PLAIN_2D_STEPS),
             "kernel": (lambda f, n: kernel_chunk(kstep, f, n), 2400)}
     times = {k: [] for k in runs}
     for which in ["plain", "kernel", "kernel", "plain"]:
         run, steps = runs[which]
-        times[which].append(ms_per_step(run, s0, steps))
+        times[which].append(ms_per_step(run, s0, steps, PLAIN_WARM
+                                        if which == "plain" else 20))
     ms = {k: min(v) for k, v in times.items()}
     cells = BOX_NX * BOX_NY
     b = bound("thermal", cells)
@@ -3618,7 +3721,8 @@ class BzCell(Cell):
     """A Bouzidi cell: Cell, whose bound counts the link table's bytes."""
 
     def bound(self, steps_per_launch: int) -> dict:
-        lat = "d3q19" if self.three_d else "d2q9"
+        lat = (("d3q27" if self.problem.lattice.Q == 27 else "d3q19")
+               if self.three_d else "d2q9")
         mode = self.consts.mode
         flops = STEP_FLOPS[lat if mode == "bgk" else f"{lat}_{mode}"]
         q = self.problem.lattice.Q
@@ -4046,7 +4150,16 @@ def d3q19_separation(cell: Cell, f: torch.Tensor,
     consts = step_cuda.StepConstants.of(make_problem(
         cell.params.replace(lattice3d="d3q19")))
     f19 = f[:19].contiguous()
-    got = cell.launch(f19, torch.empty_like(f19), cell.solid, consts)
+    links = None
+    if consts.variant & step_cuda.BOUZIDI:
+        # D3Q19's link table: D3Q27's first 19 planes (and the first 19 of
+        # its wall block), the same directions in the same order
+        from tpulbm_torch.ops import bouzidi
+        table = bouzidi.device_table(cell.problem, f.device)
+        links = torch.cat([table[:19]] + ([table[27:46]]
+                                          if table.shape[0] == 54 else []))
+    got = cell.launch(f19, torch.empty_like(f19), cell.solid, consts,
+                      None, links)
     torch.cuda.synchronize()
     return separation(f"{cell.label}, D3Q19's {consts.library}", got,
                       want[:19], cell.tol)
@@ -4307,7 +4420,9 @@ def box3d_phases(dev, card: str) -> list[dict]:
     main, others = {}, []
     for label, params, full in box3d_cells():
         cell = Cell(dev, label, params)
-        err = cell_parity(cell, True, advanced=full)
+        # every drift at PARITY_N_3D^3: the full-width cells' plain 280
+        # steps at DRIFT_N_3D^3 cut to make room for phases 61-66
+        err = cell_parity(cell, True, advanced=full, drift_n=PARITY_N_3D)
         extra = mode_separation(cell)
         if extra:
             print(f"box3d separation {label}{extra}")
@@ -5301,6 +5416,825 @@ def coupled_mesh_phases(dev, card: str) -> list[dict]:
     return entries
 
 
+# ---- phases 61-66: the Bouzidi remainder: the D3Q27 Bouzidi sphere and
+# the solid-slab channel, through Bouzidi builds of both D3Q19 and both
+# D2Q9 sources (remainder_builds)
+
+# the D3Q27 Bouzidi sphere's collisions (tpulbm has no MRT on D3Q27)
+BZ27_OPS = {op: kw for op, kw in BZ_OPS_3D.items() if op != "mrt"}
+# the D3Q27 Bouzidi sphere's meshes and Runners (phases 61-62) at
+# BZ27_MID_N^3, its other collisions and its spinning wall at
+# BZ27_SMALL_N^3
+BZ27_MID_N = 128
+BZ27_SMALL_N = 64
+# the slab: tpulbm's _channel_problem geometry (tests/test_bouzidi.py:
+# 68-91) at 2048x512, tau 0.8, a body force for a peak speed SLAB_U_MAX
+# between the walls at y = 2 - qb and ny - 3 + qt; its other builds at
+# SLAB_SMALL
+SLAB_NX, SLAB_NY = 2048, 512
+SLAB_SMALL = dict(nx=256, ny=64)
+SLAB_TAU = 0.8
+SLAB_U_MAX = 0.05
+# tpulbm's slab gates (tests/test_bouzidi.py:112-130, 462-470): the
+# fractional walls at 24x8 (6000 steps, F 2e-6), Couette at 20x8 (8000
+# steps, the top wall at U 0.05), held there at 1e-6 of U in f64
+SLAB_GATE = dict(nx=8, ny=24, force=2e-6, steps=6000)
+COUETTE_GATE = dict(nx=8, ny=20, u=0.05, steps=8000)
+COUETTE_TOL = 1e-6
+
+
+def remainder_builds():
+    """(source, mode, variant) of the libraries phases 61-66 run: both D3Q19
+    sources with -DTPULBM_Q=27 -DTPULBM_BOUZIDI=1 under each D3Q27
+    collision and their BGK ring builds; both D2Q9 sources for the slab
+    (-DTPULBM_DOMAIN=1 -DTPULBM_SLAB=1): Bouzidi with the source under
+    every D2Q9 collision, under BGK also without it (the moving wall),
+    bounce-back and the equilibrium pin with it, and the Bouzidi ring
+    builds."""
+    from tpulbm_torch.ops import step_cuda as sc
+    d2 = ("step_d2q9.cu", "step_d2q9_blocked.cu")
+    d3 = ("step_d3q19.cu", "step_d3q19_blocked.cu")
+    bz27 = sc.BOUZIDI | sc.D3Q27
+    slab = sc.DOMAINS.index("channel") | sc.SLAB
+    builds = [(src, mode, bz27) for mode in sc.COLLISION_MODES_3D
+              if mode != "mrt" for src in d3]
+    builds += [(src, "bgk", bz27 | sc.RINGS) for src in d3]
+    builds += [(src, mode, slab | sc.SOURCE | sc.BOUZIDI)
+               for mode in sc.COLLISION_MODES for src in d2]
+    builds += [(src, "bgk", slab | v) for v in (
+        sc.BOUZIDI, sc.SOURCE | sc.BOUNCE_BACK, sc.SOURCE) for src in d2]
+    builds += [(src, "bgk", slab | sc.SOURCE | sc.BOUZIDI | sc.RINGS)
+               for src in d2]
+    return builds
+
+
+def bz27_params(n: int = SPHERE_N, op: str = "bgk"):
+    """bench.py's bouzidi3d row (the sphere at radius 0.23) on D3Q27 at
+    n^3 under collision `op`."""
+    return bz_params(True, op).replace(lattice3d="d3q27", nx=n, ny=n, nz=n)
+
+
+def slab_problem(nx: int = SLAB_NX, ny: int = SLAB_NY, qb: float = 0.25,
+                 qt: float = 0.75, bc: str = "bouzidi", force=None,
+                 moving: float = 0.0, **kw):
+    """tpulbm's solid-slab channel (tests/test_bouzidi.py:68-91, 416-459)
+    on the port, as its gates build it: periodic x, no y walls, solid rows
+    0-1 and ny-2..ny-1, the walls at y = 2 - qb and ny - 3 + qt, under the
+    obstacle rule `bc`. `force`: the body force along x (default: a peak
+    speed of SLAB_U_MAX between the walls; 0 for none); `moving`: the top
+    wall's speed (Couette); kw: SimulationParams fields (a collision). The
+    collision's fields come from the channel's builder."""
+    from tpulbm_torch.config import SimulationParams
+    from tpulbm_torch.models import make_problem
+    tau = kw.pop("tau", SLAB_TAU)
+    y0, y1 = 2.0 - qb, (ny - 3.0) + qt
+    if force is None:
+        force = 8.0 * (tau - 0.5) / 3.0 * SLAB_U_MAX / (y1 - y0) ** 2
+    params = SimulationParams(problem="poiseuille", nx=nx, ny=ny, tau=tau,
+                              periodic_x=True, inlet_velocity=0.0,
+                              precision="f32", enable_vtk=False,
+                              obstacle_bc=bc, body_force=(force, 0.0), **kw)
+    solid = np.zeros((ny, nx), bool)
+    solid[:2] = True
+    solid[-2:] = True
+
+    def sdf(p):
+        return np.minimum(p[..., 1] - y0, y1 - p[..., 1])
+
+    def uw(p):
+        return np.stack([np.where(p[..., 1] > 0.5 * ny, moving, 0.0),
+                         np.zeros_like(p[..., 0])], axis=-1)
+
+    return dataclasses.replace(
+        make_problem(params), solid=solid, obstacle_sdf=sdf,
+        obstacle_velocity=uw if moving else None, init_u=(0.0, 0.0),
+        walls_y=False, periodic_x=True, obstacle_bc=bc,
+        body_force=(force, 0.0) if force else ())
+
+
+class SlabCell(BzCell):
+    """A slab cell: BzCell on slab_problem(**slab_kw), its source check
+    on the slab too."""
+
+    def __init__(self, dev, label: str, **slab_kw):
+        problem = slab_problem(**slab_kw)
+        super().__init__(dev, label, problem.params, problem=problem,
+                         remake=lambda body_force, **_: slab_problem(
+                             **{**slab_kw, "force": body_force[0]}))
+
+    def bound(self, steps_per_launch: int) -> dict:
+        """The populations read and written once and the mask byte a cell,
+        the link table's bytes under the Bouzidi rule; the collision's
+        operations and one add a population for the source."""
+        from tpulbm_torch.ops import step_cuda
+        mode = self.consts.mode
+        flops = STEP_FLOPS["d2q9" if mode == "bgk" else f"d2q9_{mode}"]
+        bz = self.problem.obstacle_bc == "bouzidi"
+        return bound_of(9 * 4 * 2 + 1 + (bz_link_bytes(self.problem)
+                                         if bz else 0),
+                        flops + (9 if self.consts.variant & step_cuda.SOURCE
+                                 else 0),
+                        int(np.prod(self.problem.spatial_shape)),
+                        steps_per_launch)
+
+
+def link_count(problem) -> tuple[int, int]:
+    """(cells with a cut link, cut links) of the problem's link table;
+    raises where there is none (the table would not be read)."""
+    from tpulbm_torch.ops import bouzidi
+    table = bouzidi.link_tables(problem)
+    q = problem.lattice.Q
+    cells = int(bouzidi.link_cells(table, q).sum())
+    links = int((table[:q] >= 0).sum())
+    require(cells > 0, f"{problem.params.problem}: no cell has a cut link")
+    return cells, links
+
+
+def staircase_miss(cell: Cell) -> float:
+    """A Bouzidi build fed a table whose every cut link sits at q = 1/2
+    (tpulbm's staircase) misses the plain step of the true table by more
+    than SEPARATION tolerances: one launch of the 1-step library from the
+    perturbed state. Returns by how many."""
+    from tpulbm_torch.ops import bouzidi, step_cuda
+    fp = perturbed(cell.problem, cell.f0)
+    table = bouzidi.device_table(cell.problem, fp.device)
+    q = cell.problem.lattice.Q
+    stair = table.clone()
+    stair[:q] = torch.where(table[:q] >= 0, 0.5, table[:q])
+    mask = torch.as_tensor(step_cuda.kernel_mask(cell.problem),
+                           device=fp.device)
+    got = cell.launch(fp, torch.empty_like(fp), mask, cell.consts, None,
+                      stair)
+    sep = separation(f"{cell.label}, every cut link at q = 1/2", got,
+                     cell.pstep(fp), cell.tol)
+    print(f"staircase {cell.label} [{cell.library}]: the build fed every cut "
+          f"link at q = 1/2 misses the plain step of the true table by "
+          f"{sep:.0f}x the tolerance (gate > {SEPARATION}x)")
+    del fp, stair, got
+    torch.cuda.empty_cache()
+    return sep
+
+
+def counted_run(cell: Cell, steps: int = CUT_3D_STEPS) -> dict:
+    """The Runner's chunks (140, then 139 and 1) of `steps` steps through
+    the stepper, counted: exactly the one-device plan's launches of the
+    cell's own library (2-D LAUNCHES_2D, 3-D LAUNCHES_3D), none of another
+    kernel. Returns the launches by depth."""
+    from tpulbm_torch.ops import step_cuda
+    from tpulbm_torch.stepper import make_chunk_fn
+    chunks = [make_chunk_fn(cell.problem, cell.f0.device, n)
+              for n in [140] * (steps // 140 - 1) + [139, 1]]
+    f = cell.f0.clone()
+    reset_counts()
+    for chunk in chunks:
+        f = chunk(f)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    require(bool(torch.isfinite(f).all()), f"{cell.label}: not finite")
+    lib = cell.library
+    if cell.three_d:
+        n3 = LAUNCHES_3D[steps]
+        want = {**only("3d3", n3[3]), "3d2": n3[2], "3d": n3[1]}
+        ok = (step_cuda.collide_stream_3d.launches_by_library,
+              step_cuda.collide_stream_3d_blocked.launches_by_library) == (
+            {lib: n3[1]}, {lib: {2: n3[2], 3: n3[3]}})
+        launches = {1: counts["3d"], 2: counts["3d2"], 3: counts["3d3"]}
+    else:
+        want = {**only(4, LAUNCHES_2D[steps]), 1: 140}
+        ok = (step_cuda.collide_stream.launches_by_library,
+              step_cuda.collide_stream_blocked.launches_by_library) == (
+            {lib: 140}, {lib: {2: 0, 3: 0, 4: LAUNCHES_2D[steps]}})
+        launches = {1: counts[1], 4: counts[4]}
+    require(counts == want and ok, f"{cell.label}: launch counts {counts}, "
+            f"not {want} all of {lib}")
+    print(f"remainder run {cell.label}: {steps} steps in the Runner's "
+          f"chunks, launches "
+          + " + ".join(f"{n} {'1-step' if d == 1 else f'N={d}'}"
+                       for d, n in sorted(launches.items(), reverse=True))
+          + f" of {lib} and 0 others")
+    return launches
+
+
+def renamed(entries: list, tag: str) -> list:
+    """Entries of a library run under another wall (spinning, moving):
+    their names tagged, as phase 41's spinning cylinder's."""
+    for e in entries:
+        e["name"] = e["name"].replace("[", f"_{tag}[", 1)
+    return entries
+
+
+def forces_close(got: np.ndarray, want: np.ndarray) -> bool:
+    """Two runs' forces.csv rows (fx, fy) within FORCES_TOL, its rtol taken
+    of each row's largest component: the symmetric sphere's lift is
+    rounding noise (1e-5 against a drag of 1e2 at 128^3), which an atol
+    fixed for small obstacles cannot hold."""
+    g, w = got[:, 1:3], want[:, 1:3]
+    scale = np.abs(w).max(axis=1, keepdims=True)
+    return bool((np.abs(g - w) <= FORCES_TOL["atol"]
+                 + FORCES_TOL["rtol"] * scale).all())
+
+
+def runner_forces(dev, label: str, params, backend: str = "pallas",
+                  devices=None) -> np.ndarray:
+    """The Runner's forces.csv rows for `params` through `backend` (on
+    `devices`, one a shard of params.mesh_shape, or on dev), the run's
+    directory removed after."""
+    from tpulbm_torch.runner import Runner
+    d = OUT_DIR / label
+    p = params.replace(output_dir=str(d), enable_vtk=False, backend=backend)
+    runner = (Runner(p, devices=devices, verbose=False) if devices
+              else Runner(p, device=dev, verbose=False))
+    require(runner.run().success, f"{label} run failed")
+    rows = check_forces(d, list(range(0, p.num_timesteps,
+                                      p.output_frequency)))
+    shutil.rmtree(d)
+    return rows
+
+
+def bz27_timing(cell: Cell, card: str) -> tuple[dict, dict]:
+    """Phase 66's D3Q27 part: cell_timing of the Bouzidi sphere with the
+    same sphere's library without the rewrite (the equilibrium obstacle,
+    PERF.md §6 rows 6-7) in the same turns, at each depth."""
+    from tpulbm_torch.ops import step_cuda
+    base = dataclasses.replace(
+        cell.consts, variant=cell.consts.variant & ~step_cuda.BOUZIDI)
+    others = {"eq1": (lambda f, o: step_cuda.collide_stream_3d(
+        f, o, cell.solid, base), 1)}
+    for d in DEPTHS_3D:
+        others[f"eq{d}"] = (lambda f, o, d=d:
+                            step_cuda.collide_stream_3d_blocked(
+                                f, o, cell.solid, base, d), d)
+    ms, b = cell_timing(cell, card, others=others)
+    print(f"timing bouzidi d3q27 sphere {cell.problem.spatial_shape} on "
+          f"{card}: " + "; ".join(
+              f"{'1-step' if d == 1 else f'N={d}'} {ms[d]:.5f} ms/step "
+              f"against {ms[f'eq{d}']:.5f} without the rewrite "
+              f"({base.library}, {100 * (ms[d] / ms[f'eq{d}'] - 1):+.1f}%)"
+              for d in (1, *DEPTHS_3D)))
+    return ms, b
+
+
+def bz27_phases(dev, card: str) -> list[dict]:
+    """Phases 61-62: the D3Q27 Bouzidi sphere. 61: at 256^3
+    (bouzidi3d-256-d3q27) the link table's cut links counted, one step
+    against the plain step from the initial, an advanced and the
+    perturbed state (the equilibrium obstacle's and D3Q19's libraries
+    SEPARATION tolerances off), N = 2, 3 bitwise, 280 steps at
+    PARITY_N_3D^3 within DRIFT_280_BOUND, the staircase table off, the Runner
+    (CUT_3D_STEPS: 91 N=3 + 3 N=2 + 1 1-step launches), forces.csv of a
+    BZ27_MID_N^3 Runner against the plain path's; the other collisions and
+    the spinning sphere at BZ27_SMALL_N^3; 62: the meshes at
+    BZ27_MID_N^3, (2,1) at N = 3 and 2, (2,2) at depth 1, spinning on
+    (2,1), a (2,1) Runner's forces.csv against one device's; timing (66).
+    Returns the kernels' JSON entries."""
+    from tpulbm_torch.models import make_problem
+    from tpulbm_torch.ops import bouzidi
+    t_all = t0 = time.perf_counter()
+    params = bz27_params()
+    sphere = make_problem(params)
+    cells, links = link_count(sphere)
+    corners = int((bouzidi.link_tables(sphere)[19:27] >= 0).sum())
+    print(f"bouzidi d3q27 link table of the sphere at "
+          f"{sphere.spatial_shape}: {cells} cells "
+          f"with a cut link ({links} links, {corners} along the corner "
+          f"directions), built on the host in "
+          f"{time.perf_counter() - t0:.2f} s")
+    cell = BzCell(dev, "bouzidi sphere d3q27 bgk", params, problem=sphere)
+    # its drift at PARITY_N_3D^3, as phase 46's
+    err = cell_parity(cell, True, drift_n=PARITY_N_3D)
+    staircase_miss(cell)
+    run_dir = OUT_DIR / "bouzidi_sphere_d3q27"
+    launches = cell_main_path(dev, cell, run_dir, steps=CUT_3D_STEPS)
+    shutil.rmtree(run_dir)
+    mid = bz27_params(BZ27_MID_N).replace(num_timesteps=70,
+                                          output_frequency=35)
+    kernel = runner_forces(dev, "bz27_mid_kernel", mid)
+    plain = runner_forces(dev, "bz27_mid_plain", mid, backend="jax")
+    require(forces_close(kernel, plain), f"bouzidi d3q27 Runner: forces "
+            f"{kernel[:, 1:3].tolist()} against {plain[:, 1:3].tolist()}")
+    print(f"bouzidi d3q27 Runner {BZ27_MID_N}^3, 70 steps every 35: "
+          f"forces.csv (fx, fy) {kernel[:, 1:3].tolist()} against the plain "
+          f"path's {plain[:, 1:3].tolist()} (max diff "
+          f"{float(np.abs(kernel[:, 1:3] - plain[:, 1:3]).max()):.3e}, rtol "
+          "1e-4 of the row's largest / atol 5e-6)")
+    ms, b = bz27_timing(cell, card)
+    entries = bz_entries(cell, launches, err, ms, b)
+    del cell
+    torch.cuda.empty_cache()
+    print(f"bouzidi d3q27 phase 61 ({SPHERE_N}^3): "
+          f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    for op in [*[o for o in BZ27_OPS if o != "bgk"], "spinning"]:
+        small = bz27_params(BZ27_SMALL_N, "bgk" if op == "spinning" else op)
+        problem = make_problem(small)
+        if op == "spinning":
+            problem = spinning_sphere(problem)
+        cell = BzCell(dev, f"bouzidi sphere d3q27 {op}", small,
+                      problem=problem)
+        link_count(problem)
+        # the drift is the 256^3 cell's; here parity and N-step bits
+        err = cell_parity(cell, True, advanced=False, drift=False)
+        launches = counted_run(cell)
+        ms, b = cell_timing(cell, card)
+        new = bz_entries(cell, launches, err, ms, b)
+        entries += renamed(new, "spinning") if op == "spinning" else new
+        del cell
+        torch.cuda.empty_cache()
+    print(f"bouzidi d3q27 phase 61 ({BZ27_SMALL_N}^3): "
+          f"{time.perf_counter() - t0:.2f} s")
+    entries += bz27_mesh_phase(dev, card, kernel)
+    print(f"bouzidi d3q27 phases 61-62: {time.perf_counter() - t_all:.2f} s")
+    return entries
+
+
+def bz27_mesh_phase(dev, card: str, one_rows: np.ndarray) -> list[dict]:
+    """Phase 62: the D3Q27 Bouzidi sphere at BZ27_MID_N^3 on meshes of
+    shards on the card. From the perturbed state every shard's ring
+    launch against its plain ring step and the gathered result bitwise one
+    device, equilibrium rings off, on (2,1) at N = 3 and 2 (ring rows, the
+    link table's rings), (2,2) at depth 1 (x rings: tpulbm's depth for
+    it), spinning on (2,1) at N = 3; 280-step chunks bitwise one device,
+    each with its force; a (2,1) Runner's forces.csv against phase 61's
+    one-device run (`one_rows`); the ring builds timed (phase 66).
+    Returns their entries."""
+    from tpulbm_torch.models import make_problem
+    t0 = time.perf_counter()
+    problem = make_problem(bz27_params(BZ27_MID_N))
+    spin = spinning_sphere(problem)
+    for prob, cases in ((problem, (((2, 1), 3, False), ((2, 1), 2, False),
+                                   ((2, 2), 1, True))),
+                        (spin, (((2, 1), 3, False),))):
+        fp = perturbed(prob, initial_state(prob, dev))
+        one = {d: one_device_step(prob, dev, d) for d in (1, 2, 3)}
+        for shape, depth, x_rings in cases:
+            err, sep = ring_parity(prob, fp, shape, dev, depth, x_rings,
+                                   lambda g, d=depth: one[d](
+                                       g, torch.empty_like(g)),
+                                   sep_check=True)
+            print(f"bouzidi d3q27 mesh parity "
+                  f"{'spinning ' if prob is spin else ''}{shape} N={depth}:"
+                  f" every shard within {err:.3e} of its plain ring step, "
+                  f"bitwise one device{sep_text(sep)}")
+        del fp, one
+    bz3d_mesh_forces(dev, problem, ((2, 1), (2, 2)), CUT_3D_STEPS)
+    bz3d_mesh_forces(dev, spin, ((2, 1),), CUT_3D_STEPS)
+    mid = bz27_params(BZ27_MID_N).replace(num_timesteps=70,
+                                          output_frequency=35,
+                                          mesh_shape=(2, 1))
+    reset_counts()
+    mesh_rows = runner_forces(dev, "bz27_mesh_2x1", mid, devices=[dev] * 2)
+    counts = ring3d_counts()
+    require(forces_close(mesh_rows, one_rows), f"bouzidi d3q27 (2,1) "
+            f"Runner: forces {mesh_rows[:, 1:3].tolist()} against "
+            f"{one_rows[:, 1:3].tolist()}")
+    print(f"bouzidi d3q27 mesh Runner (2,1) {BZ27_MID_N}^3, 70 steps every "
+          f"35: {sum(counts.values())} ring launches, forces.csv within "
+          f"{float(np.abs(mesh_rows[:, 1:3] - one_rows[:, 1:3]).max()):.3e}"
+          " of one device's (rtol 1e-4 / atol 5e-6)")
+    by_depth = {d: sum(n for (_, dd, _), n in counts.items() if dd == d)
+                for d in (1, 2, 3)}
+    entries = []
+    for shape, depth in (((2, 1), 3), ((2, 2), 1)):
+        entry, _ = mesh3d_timing(dev, card, problem, shape, depth,
+                                 by_depth[depth])
+        # the bound counts the shard's cut of the link table
+        entry["bound_ms"] += (1e3 * bz_link_bytes(problem)
+                              * np.prod(problem.spatial_shape)
+                              / np.prod(shape) / depth / HBM_BYTES_PER_S)
+        entries.append(entry)
+    print(f"bouzidi d3q27 phase 62: {time.perf_counter() - t0:.2f} s")
+    return entries
+
+
+def slab_main_path(dev, cell: Cell) -> dict:
+    """Phase 63's main path: the slab through the stepper for 2240 steps
+    in the Runner's chunks (a super-chunk of 15 intervals of 140 with its
+    diagnostics on the card, then 139 and 1), counted: exactly 525 N=4 +
+    140 1-step launches of the cell's library and none of another kernel;
+    finite forces and a stable run. Returns the launches by depth."""
+    from tpulbm_torch import physics
+    from tpulbm_torch.ops import step_cuda
+    from tpulbm_torch.stepper import make_chunk_fn, make_super_chunk_fn
+    problem = cell.problem
+    sup = make_super_chunk_fn(problem, dev, 140, 15)
+    tail = [make_chunk_fn(problem, dev, n) for n in (139, 1)]
+    f = initial_state(problem, dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    f, flat = sup(f)
+    for chunk in tail:
+        f = chunk(f)
+    diags = sup.unpack(flat.cpu())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    lib = cell.library
+    ok = (step_cuda.collide_stream.launches_by_library,
+          step_cuda.collide_stream_blocked.launches_by_library) == (
+        {lib: 140}, {lib: {2: 0, 3: 0, 4: 525}})
+    require(counts == {**only(4, 525), 1: 140} and ok,
+            f"slab main path: launch counts {counts}, not 525 N=4 + 140 "
+            f"1-step of {lib}")
+    forces = diags["forces"].double().numpy()
+    require(bool(np.isfinite(forces).all()
+                 and diags["stable"].bool().all()), "slab run unstable")
+    _, u = physics.moments(problem.lattice, f)
+    ux = u[0].mean(dim=1).double().cpu().numpy()
+    cells = int(np.prod(problem.spatial_shape))
+    print(f"slab main path {SLAB_NX}x{SLAB_NY} f32 (qb 0.25, qt 0.75, F "
+          f"{problem.body_force[0]:.4e}): 2240 steps through the stepper, "
+          f"launches 525 N=4 + 140 1-step of {lib} and 0 others, "
+          f"{wall:.2f} s wall ({cells * 2240 / wall / 1e6:.1f} MLUPS), the "
+          f"walls' force per interval finite ({forces[-1].tolist()} at "
+          f"t = 1960), peak mean ux {ux.max():.4e} after 2240 steps from "
+          "rest")
+    return {1: counts[1], 4: counts[4]}
+
+
+def slab_gates(dev, refs: dict | None = None) -> None:
+    """Phase 64: tpulbm's slab gates through the kernels in f32
+    (make_chunk_fn): the fractional walls (24x8, 6000 steps) at (0.25,
+    0.75) and (0.9, 0.1): the profile's relative RMSE against the
+    parabola < 0.01 and its roots within 0.05 of the true walls; the
+    staircase contrast at (0.25, 0.75): bounce-back's root at the
+    half-way plane within 0.1, Bouzidi's at the true wall within 0.05,
+    bounce-back's RMSE over Bouzidi's (tpulbm: > 5 in f64; f32 rounding
+    raises Bouzidi's RMSE from 0.002 to 0.0075, so in f32 the ratio is
+    held within 10% of the f32 plain step's on the same run); Couette
+    (20x8, 8000 steps, the top wall at U): the profile's error against
+    the line, held by tpulbm at COUETTE_TOL of U in f64, in f32 (~4e-5 of
+    U) within twice the f32 plain step's own error on the same run, the
+    fitted walls within 1e-3 or twice the plain step's miss. `refs`: the
+    plain references (gate_references, plain_profile) as futures, else
+    computed here."""
+    from tpulbm_torch import physics
+    from tpulbm_torch.stepper import make_chunk_fn
+    t0 = time.perf_counter()
+
+    def profile(problem, steps):
+        f = initial_state(problem, dev)
+        f = make_chunk_fn(problem, dev, steps)(f)
+        _, u = physics.moments(problem.lattice, f.double())
+        return u[0][:, 0].cpu().numpy()
+
+    def reference(kw, steps):
+        fut = (refs or {}).get((tuple(sorted(kw.items())), steps))
+        return fut.result() if fut is not None else plain_profile(kw, steps)
+
+    g = SLAB_GATE
+    yy = np.arange(g["ny"], dtype=np.float64)
+    nu = (SLAB_TAU - 0.5) / 3.0
+    fl = slice(2, g["ny"] - 2)
+
+    def parabola(ux, y0, y1):
+        ana = np.where((yy > y0) & (yy < y1),
+                       g["force"] / (2 * nu) * (yy - y0) * (y1 - yy), 0.0)
+        rel = float(np.sqrt(np.mean((ux[fl] - ana[fl]) ** 2)) / ana.max())
+        return rel, np.sort(np.roots(np.polyfit(yy[4:-4], ux[4:-4], 2)))
+
+    rmse = {}
+    for qb, qt, bc in ((0.25, 0.75, "bouzidi"), (0.9, 0.1, "bouzidi"),
+                       (0.25, 0.75, "bounce_back")):
+        problem = slab_problem(g["nx"], g["ny"], qb, qt, bc, g["force"])
+        y0, y1 = 2.0 - qb, (g["ny"] - 3.0) + qt
+        rel, roots = parabola(profile(problem, g["steps"]), y0, y1)
+        plain = ""
+        if qb == 0.25:
+            rmse[bc] = (rel, roots, parabola(reference(dict(
+                nx=g["nx"], ny=g["ny"], bc=bc, force=g["force"]),
+                g["steps"]), y0, y1)[0])
+            plain = f" (the f32 plain step's {rmse[bc][2]:.3e})"
+        if bc == "bouzidi":
+            require(rel < 0.01 and abs(roots[0] - y0) < 0.05
+                    and abs(roots[1] - y1) < 0.05,
+                    f"fractional wall ({qb}, {qt}): RMSE {rel}, roots "
+                    f"{roots} against {y0}, {y1}")
+        print(f"slab gate {bc} ({qb}, {qt}) {g['ny']}x{g['nx']} f32, "
+              f"{g['steps']} steps through the kernels: relative RMSE "
+              f"{rel:.3e} against the parabola{plain}, roots "
+              f"{roots.tolist()} against the walls {y0}, {y1}")
+    (rel_b, roots_b, plain_b), (rel_s, roots_s, plain_s) = (
+        rmse["bouzidi"], rmse["bounce_back"])
+    ratio, ratio_p = rel_s / rel_b, plain_s / plain_b
+    require(abs(ratio / ratio_p - 1.0) < 0.1 and abs(roots_s[0] - 1.5) < 0.1
+            and abs(roots_b[0] - 1.75) < 0.05,
+            f"staircase contrast: RMSE ratio {ratio} (the f32 plain step's "
+            f"{ratio_p}), roots {roots_s[0]} and {roots_b[0]}")
+    print(f"slab gate staircase: bounce-back's RMSE {ratio:.2f}x Bouzidi's "
+          f"through the kernels, {ratio_p:.2f}x on the f32 plain step (gate "
+          f"within 10% of it; tpulbm's > 5x is f64's), its wall at "
+          f"{roots_s[0]:.4f} (the half-way plane 1.5), Bouzidi's at "
+          f"{roots_b[0]:.4f} (1.75)")
+    c = COUETTE_GATE
+    yy_c = np.arange(c["ny"], dtype=np.float64)
+    fl_c = slice(2, c["ny"] - 2)
+    for qb, qt in ((0.25, 0.75), (0.9, 0.1)):
+        problem = slab_problem(c["nx"], c["ny"], qb, qt, force=0.0,
+                               moving=c["u"])
+        y0, y1 = 2.0 - qb, (c["ny"] - 3.0) + qt
+
+        def couette(ux):
+            err = float(np.max(np.abs(ux[fl_c] - c["u"] * (yy_c[fl_c] - y0)
+                                      / (y1 - y0))) / c["u"])
+            co = np.polyfit(yy_c[fl_c], ux[fl_c], 1)
+            miss = max(abs(-co[1] / co[0] - y0),
+                       abs((c["u"] - co[1]) / co[0] - y1))
+            return err, miss
+
+        err_k, miss_k = couette(profile(problem, c["steps"]))
+        err_p, miss_p = couette(reference(dict(
+            nx=c["nx"], ny=c["ny"], qb=qb, qt=qt, force=0.0, moving=c["u"]),
+            c["steps"]))
+        require(err_k < max(COUETTE_TOL, 2 * err_p)
+                and miss_k < max(1e-3, 2 * miss_p),
+                f"Couette ({qb}, {qt}): kernel error {err_k} and wall miss "
+                f"{miss_k}, the f32 plain step's {err_p} and {miss_p}")
+        print(f"slab gate Couette ({qb}, {qt}) {c['ny']}x{c['nx']} f32, "
+              f"{c['steps']} steps: the kernels' profile {err_k:.3e} of U "
+              f"from the line (tpulbm's f64 bound {COUETTE_TOL}; the f32 "
+              f"plain step's on the same run {err_p:.3e}, gate < "
+              f"max({COUETTE_TOL}, 2x it)), the fitted walls within "
+              f"{miss_k:.3e} (plain {miss_p:.3e}, gate < max(1e-3, 2x it))")
+    print(f"slab gates (phase 64): {time.perf_counter() - t0:.2f} s")
+
+
+def slab_mesh_phase(dev, card: str, cell: Cell) -> dict:
+    """Phase 65: the slab (2048x512, Bouzidi) on meshes of shards on the
+    card. From the perturbed state every shard's ring launch against its
+    plain ring step and the gathered result bitwise one device,
+    equilibrium rings off, on (2,1) at N=4 (rows), (1,2) and (2,2) at
+    depth 1 (tiled: tpulbm's depth for Bouzidi); 280-step chunks on each,
+    counted from the chunk plan and bitwise one device, the walls' force
+    per shard against one device's. Returns the ring launches by depth
+    and the largest ring error."""
+    from tpulbm_torch.parallel import sharded_step
+    t0 = time.perf_counter()
+    problem = cell.problem
+    fp = perturbed(problem, cell.f0)
+    errs = []
+    for shape, depth, x_rings in (((2, 1), 4, False), ((1, 2), 1, True),
+                                  ((2, 2), 1, True)):
+        err, sep = ring_parity(problem, fp, shape, dev, depth, x_rings,
+                               lambda g, d=depth: cell.steps[d](
+                                   g, torch.empty_like(g)),
+                               sep_check=True)
+        errs.append(err)
+        print(f"slab mesh parity {shape} N={depth}: every shard within "
+              f"{err:.3e} of its plain ring step, bitwise one device"
+              f"{sep_text(sep)}")
+    want = step_cuda_chunk(problem, dev, 280)(fp.clone())
+    force_one = sharded_step.Diagnostics(problem, card_mesh((1, 1), dev)) \
+        .force([[want]]).cpu().numpy()
+    launches = {}
+    for shape in ((2, 1), (1, 2), (2, 2)):
+        mesh = card_mesh(shape, dev)
+        chunk = sharded_step.make_chunk_fn(problem, mesh, 280)
+        reset_counts()
+        blocks = chunk(sharded_step.split(mesh, fp))
+        counts = ring_counts()
+        got = gather(blocks)
+        torch.cuda.synchronize()
+        plan = mesh_plan_launches(problem, mesh, [280])
+        require(torch.equal(got, want) and counts == plan
+                and chunk.substeps == (1 if shape[1] > 1 else 4),
+                f"slab mesh {shape}: {chunk.mode} N={chunk.substeps}, "
+                f"{float((got - want).abs().max())} off one device, "
+                f"launches {counts} not {plan}")
+        force = sharded_step.Diagnostics(problem, mesh).force(
+            blocks).cpu().numpy()
+        np.testing.assert_allclose(force, force_one, **FORCES_TOL)
+        launches[chunk.substeps] = (launches.get(chunk.substeps, 0)
+                                    + sum(counts.values()))
+        print(f"slab mesh {shape} 280 steps: {chunk.mode} at N="
+              f"{chunk.substeps}, {sum(counts.values())} ring launches, "
+              f"bitwise one device, force within "
+              f"{float(np.abs(force - force_one).max()):.3e} of one "
+              "device's")
+        del blocks, got
+    del fp, want
+    torch.cuda.empty_cache()
+    print(f"slab mesh phase 65: {time.perf_counter() - t0:.2f} s")
+    return {"launches": launches, "err": max(errs)}
+
+
+def slab_phases(dev, card: str, refs: dict | None = None) -> list[dict]:
+    """Phases 63-66: the solid-slab channel. 63: slab-2048x512 under
+    Bouzidi (qb 0.25, qt 0.75): its cut links counted, one step against
+    the plain step from the initial and the perturbed state (the obstacle
+    domain's library SEPARATION tolerances off, the source at
+    SOURCE_CHECK_FORCE against the build without it), N = 2, 3, 4
+    bitwise, 280 steps, the staircase table off, the main path
+    (slab_main_path); the bounce-back and equilibrium builds, the moving
+    top wall (no source) and the other collisions at SLAB_SMALL, each with
+    a counted 280-step run; 64: tpulbm's gates (slab_gates); 65: the
+    meshes (slab_mesh_phase); 66: timing against the walled channel's
+    build. Returns the kernels' JSON entries."""
+    from tpulbm_torch.models import make_problem
+    from tpulbm_torch.ops import step_cuda
+    t_all = t0 = time.perf_counter()
+    cell = SlabCell(dev, "slab bouzidi bgk")
+    cells, links = link_count(cell.problem)
+    require(cells == 2 * SLAB_NX, f"slab: {cells} link cells, not "
+            f"{2 * SLAB_NX}")
+    print(f"slab {SLAB_NX}x{SLAB_NY}: {cells} cells with a cut link "
+          f"({links} links)")
+    err = cell_parity(cell, True, advanced=False)
+    staircase_miss(cell)
+    launches = slab_main_path(dev, cell)
+    # the walled channel's build at the same size and force, in the same
+    # turns (PERF.md §6 rows 1-2)
+    channel = make_problem(channel_params(
+        nx=SLAB_NX, ny=SLAB_NY,
+        body_force=(cell.problem.body_force[0], 0.0)))
+    others = {"channel1": (step_cuda.make_local_step_cuda(channel, dev), 1),
+              "channel4": (step_cuda.make_local_step_cuda_blocked(
+                  channel, dev, 4), 4)}
+    ms, b = cell_timing(cell, card, others=others)
+    print(f"timing slab {SLAB_NX}x{SLAB_NY} on {card}: 1-step "
+          f"{ms[1]:.5f} ms/step against the channel build's "
+          f"{ms['channel1']:.5f} ({100 * (ms[1] / ms['channel1'] - 1):+.1f}%"
+          f"), N=4 {ms[4]:.5f} against {ms['channel4']:.5f} "
+          f"({100 * (ms[4] / ms['channel4'] - 1):+.1f}%)")
+    entries = bz_entries(cell, {**launches, 2: 0, 3: 0}, err, ms, b)
+    print(f"slab phase 63 ({SLAB_NX}x{SLAB_NY}): "
+          f"{time.perf_counter() - t0:.2f} s")
+    mesh = slab_mesh_phase(dev, card, cell)
+    ring_t = bz_ring_timing(cell.problem, dev, card, cell.f0)
+    lib = cell.library
+    for r in ring_t:
+        entries.append({
+            "name": f"d2q9_rings_{r['mode']}"
+                    + ("" if r["depth"] == 1 else f"_n{r['depth']}")
+                    + f"[{lib}]",
+            "route": "cuda",
+            "source": (step_cuda.KERNEL_SOURCE if r["depth"] == 1
+                       else step_cuda.BLOCKED_SOURCE),
+            "replaces": step_cuda.rings_replaces(r["mode"], r["depth"]),
+            "launches": mesh["launches"].get(r["depth"], 0),
+            "max_abs_err": max(r["err"], mesh["err"]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None})
+    del cell
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    small = [("bounce_back", dict(bc="bounce_back")),
+             ("equilibrium", dict(bc="equilibrium")),
+             ("couette", dict(qb=0.9, qt=0.1, force=0.0,
+                              moving=SLAB_U_MAX))]
+    small += [(op, BZ_OPS[op]) for op in BZ_OPS if op != "bgk"]
+    for label, kw in small:
+        c = SlabCell(dev, f"slab {label}", **SLAB_SMALL, **kw)
+        if c.problem.obstacle_bc == "bouzidi":
+            link_count(c.problem)
+        e = cell_parity(c, True, advanced=False, check_source=False,
+                        drift=False)
+        runs = counted_run(c)
+        ms, b = cell_timing(c, card)
+        new = (bz_entries if c.problem.obstacle_bc == "bouzidi"
+               else cell_entries)(c, {**runs, 2: 0, 3: 0}, e, ms, b)
+        entries += renamed(new, "moving") if label == "couette" else new
+        del c
+    torch.cuda.empty_cache()
+    print(f"slab phase 63 ({SLAB_SMALL['nx']}x{SLAB_SMALL['ny']}): "
+          f"{time.perf_counter() - t0:.2f} s")
+    slab_gates(dev, refs)
+    print(f"slab phases 63-66: {time.perf_counter() - t_all:.2f} s")
+    return entries
+
+
+def remainder_phases(dev, card: str, refs: dict | None = None) -> list[dict]:
+    """Phases 61-66, the Bouzidi remainder (remainder_builds, built in
+    phase 2, or here at first use); `refs` as slab_gates takes them.
+    Returns the kernels' JSON entries."""
+    from tpulbm_torch.ops import step_cuda
+    from tpulbm_torch.utils import cuda_build
+    t0 = time.perf_counter()
+    for src, mode, variant in remainder_builds():
+        lib = cuda_build.load(src, step_cuda.build_defines(mode, variant))
+        print(f"build: {src} {step_cuda.build_defines(mode, variant)} in "
+              f"{lib.build_seconds:.2f} s ({ptxas_summary(lib.log)})")
+    bz27 = step_cuda.BOUZIDI | step_cuda.D3Q27
+    smem = {n: step_cuda._blocked_library_3d("bgk", bz27)
+            .tpulbm_d3q19_blocked_smem_bytes(n) for n in DEPTHS_3D}
+    smem1 = step_cuda._library_3d("bgk", bz27).tpulbm_d3q19_smem_bytes()
+    print(f"build: the D3Q27 Bouzidi N-step kernel's dynamic shared memory "
+          f"per block {smem} B (a block may take 232,448 B); its 1-step "
+          f"kernel's {smem1} B")
+    entries = bz27_phases(dev, card) + slab_phases(dev, card, refs)
+    print(f"remainder phases 61-66: {time.perf_counter() - t0:.2f} s")
+    return entries
+
+
+def gate_references():
+    """(slab_problem keywords, steps) of phase 64's f32 plain-step
+    references: the staircase pair and both Couette channels."""
+    g, c = SLAB_GATE, COUETTE_GATE
+    return ([(dict(nx=g["nx"], ny=g["ny"], bc=bc, force=g["force"]),
+              g["steps"]) for bc in ("bouzidi", "bounce_back")]
+            + [(dict(nx=c["nx"], ny=c["ny"], qb=qb, qt=qt, force=0.0,
+                     moving=c["u"]), c["steps"])
+               for qb, qt in ((0.25, 0.75), (0.9, 0.1))])
+
+
+def plain_profile(kw: dict, steps: int) -> np.ndarray:
+    """ux along y (x = 0) of slab_problem(**kw) after `steps` f32 plain
+    steps on the host: phase 64's reference, computed in a process of its
+    own beside the phases (at 24x8 the plain step is bound by its ~150
+    operations' dispatch on any device)."""
+    from tpulbm_torch import physics
+    from tpulbm_torch.stepper import make_chunk_fn
+    problem = slab_problem(**kw)
+    f = torch.from_numpy(problem.initial_state())
+    f = make_chunk_fn(problem, "cpu", steps, backend="jax")(f)
+    _, u = physics.moments(problem.lattice, f.double())
+    return u[0][:, 0].numpy()
+
+
+def phase_builds(step_cuda) -> list:
+    """Every library the phases run as cuda_build.load's (source, defines),
+    in the order the phases first need them, the N-step sources (the
+    longest builds) first within a phase group: the six sources, the
+    collision-mode builds of phases 17-24, then the builds of phases
+    25-29, 30-34, 35-40, 41-45, 46-50, 51-55, 56-60 and 61-66."""
+    sources = ["step_d2q9.cu", "step_d2q9_blocked.cu", "step_d3q19.cu",
+               "step_d3q19_blocked.cu", "step_thermal.cu",
+               "step_multiphase.cu"]
+    modes = [(src, step_cuda.mode_defines(mode))
+             for mode in step_cuda.COLLISION_MODES[1:]
+             for src in ("step_d2q9.cu", "step_d2q9_blocked.cu")]
+    modes += [(src, step_cuda.mode_defines(mode))
+              for mode in step_cuda.COLLISION_MODES_3D[1:]
+              for src in ("step_d3q19.cu", "step_d3q19_blocked.cu")]
+    modes += [("step_thermal.cu", step_cuda.mode_defines("smagorinsky"))]
+    groups = [[(src, ()) for src in sources], modes]
+    for builds in (new_builds, mesh_builds, box_builds, bz_builds,
+                   box3d_builds, mesh3d_builds, coupled_builds,
+                   remainder_builds):
+        groups.append([(src, step_cuda.build_defines(mode, variant))
+                       for src, mode, variant in builds()])
+    jobs = []
+    for group in groups:
+        for job in sorted(group, key=lambda j: "_blocked" not in j[0]):
+            if job not in jobs:
+                jobs.append(job)
+    return jobs
+
+
+class Builds:
+    """Phase 2: every library of phase_builds() compiled by nvcc in a pool
+    of threads beside the phases, one nvcc each, twice as many as the cores
+    but the first, which this process keeps for its own launches (the
+    threads, and the nvcc they start, run on the others); cuda_build.load
+    waits for a library still in the pool instead of building it a second
+    time. report() prints every build once all are done."""
+
+    def __init__(self, jobs: list):
+        from tpulbm_torch.utils import cuda_build
+        self.t0 = time.perf_counter()
+        self.last = 0.0
+        cpus = sorted(os.sched_getaffinity(0))
+        spare = set(cpus[1:]) or set(cpus)
+        self.workers = 2 * len(spare)
+        self.pool = ThreadPoolExecutor(
+            self.workers, initializer=os.sched_setaffinity,
+            initargs=(0, spare))
+        self.load = cuda_build.load
+        self.futures = {}
+        for job in jobs:
+            fut = self.pool.submit(self.load, *job)
+            fut.add_done_callback(self._done)
+            self.futures[job] = fut
+        cuda_build.load = self._wait
+
+    def _done(self, _fut) -> None:
+        self.last = time.perf_counter() - self.t0
+
+    def _wait(self, source: str, defines: tuple = ()):
+        fut = self.futures.get((source, tuple(defines)))
+        return fut.result() if fut is not None else self.load(source,
+                                                              defines)
+
+    def close(self, cancel: bool = False) -> None:
+        """Stop the pool (its builds not yet started dropped with
+        `cancel`) and give cuda_build back its own load."""
+        from tpulbm_torch.utils import cuda_build
+        self.pool.shutdown(wait=True, cancel_futures=cancel)
+        cuda_build.load = self.load
+
+    def report(self, step_cuda) -> None:
+        libs = {job: fut.result() for job, fut in self.futures.items()}
+        print(f"build: {len(libs)} libraries (6 sources, their collision "
+              f"modes, the domain, source, obstacle and ring builds), "
+              f"{self.workers} nvcc at a time beside the phases, the last "
+              f"done {self.last:.2f} s after the pool started; "
+              f"{sum(lib.build_seconds for lib in libs.values()):.2f} s of "
+              "nvcc in all")
+        for (src, defines), lib in libs.items():
+            print(f"build: {src} {defines} in {lib.build_seconds:.2f} s "
+                  f"({ptxas_summary(lib.log)})")
+
+
 def step_cuda_chunk(problem, dev, steps: int):
     """The one-device kernel chunk of `steps` steps (stepper.make_chunk_fn)
     under the current environment."""
@@ -5320,59 +6254,45 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 
+    from tpulbm_torch.ops import step_cuda
+
+    shutil.rmtree(OUT_DIR, ignore_errors=True)   # runs start from t = 0
+
+    # phase 2: build from the checkout's sources: every library the phases
+    # run, in a pool beside them (Builds); phase 64's f32 plain-step
+    # references in two host processes of their own
+    builds = Builds(phase_builds(step_cuda))
+    refs_pool = ProcessPoolExecutor(
+        2, mp_context=multiprocessing.get_context("spawn"),
+        initializer=torch.set_num_threads, initargs=(1,))
+    refs = {(tuple(sorted(kw.items())), n): refs_pool.submit(
+        plain_profile, kw, n) for kw, n in gate_references()}
+    print(f"build: {len(builds.futures)} libraries in a pool of "
+          f"{builds.workers} nvcc beside the phases")
+    try:
+        kernels = run_phases(dev, card, t_start, refs)
+        builds.report(step_cuda)
+    finally:
+        builds.close(cancel=True)
+        refs_pool.shutdown(wait=True, cancel_futures=True)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.2f} s in all")
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def run_phases(dev, card: str, t_start: float, refs: dict) -> list[dict]:
+    """Phases 2 (its shared-memory report) to 66; returns the kernels' JSON
+    entries. `refs`: phase 64's plain references (gate_references) as
+    futures."""
     from tpulbm_torch.config import PRESETS
     from tpulbm_torch.models import make_problem
     from tpulbm_torch.ops import step_cuda, step_torch
     from tpulbm_torch.runner import Runner
-    from tpulbm_torch.utils import cuda_build
 
-    shutil.rmtree(OUT_DIR, ignore_errors=True)   # runs start from t = 0
-
-    # phase 2: build from the checkout's sources, one nvcc per source and
-    # D2Q9 collision mode, all started together
-    t0 = time.perf_counter()
-    sources = ["step_d2q9.cu", "step_d2q9_blocked.cu", "step_d3q19.cu",
-               "step_d3q19_blocked.cu", "step_thermal.cu",
-               "step_multiphase.cu"]
-    modes = [(src, mode) for mode in step_cuda.COLLISION_MODES[1:]
-             for src in ("step_d2q9.cu", "step_d2q9_blocked.cu")]
-    modes += [(src, mode) for mode in step_cuda.COLLISION_MODES_3D[1:]
-              for src in ("step_d3q19.cu", "step_d3q19_blocked.cu")]
-    modes += [("step_thermal.cu", "smagorinsky")]
-    # and the domain, source and obstacle builds of phases 25-29, the ring
-    # builds of phases 30-34, the box's of phases 35-40, the Bouzidi ones
-    # of phases 41-45, the 3-D box's and D3Q27's of phases 46-50, the 3-D
-    # ring builds of phases 51-55, the thermal and multiphase ring builds
-    # of phases 56-60
-    builds = (new_builds() + mesh_builds() + box_builds() + bz_builds()
-              + box3d_builds() + mesh3d_builds() + coupled_builds())
-    jobs = ([(src, ()) for src in sources]
-            + [(src, step_cuda.mode_defines(mode)) for src, mode in modes]
-            + [(src, step_cuda.build_defines(mode, variant))
-               for src, mode, variant in builds])
-    # twice as many nvcc processes as cores, the N-step sources (the
-    # longest builds) first: every core busy to the end, without the
-    # contention of all ~210 at once
-    order = sorted(range(len(jobs)),
-                   key=lambda i: "_blocked" not in jobs[i][0])
-    with ThreadPoolExecutor(2 * (os.cpu_count() or 8)) as pool:
-        futures = {i: pool.submit(cuda_build.load, *jobs[i]) for i in order}
-        done = [futures[i].result() for i in range(len(jobs))]
-    libs = done[:len(sources)]
-    mode_libs = done[len(sources):len(sources) + len(modes)]
-    build_libs = done[len(sources) + len(modes):]
-    print(f"build: {len(sources)} sources, {len(modes)} collision-mode "
-          f"builds (D2Q9, D3Q19, thermal) and {len(builds)} domain, source, "
-          f"obstacle and ring builds in {time.perf_counter() - t0:.2f} s")
-    for lib in libs:
-        print(f"build: {lib.path.name} in {lib.build_seconds:.2f} s "
-              f"({ptxas_summary(lib.log)})")
-    for (src, mode), lib in zip(modes, mode_libs):
-        print(f"build: {src} [{mode}] in {lib.build_seconds:.2f} s "
-              f"({ptxas_summary(lib.log)})")
-    for (src, mode, variant), lib in zip(builds, build_libs):
-        print(f"build: {src} {step_cuda.build_defines(mode, variant)} in "
-              f"{lib.build_seconds:.2f} s ({ptxas_summary(lib.log)})")
     smem = {n: step_cuda._blocked_library().tpulbm_d2q9_blocked_smem_bytes(n)
             for n in DEPTHS}
     print(f"build: N-step kernel dynamic shared memory per block {smem} B")
@@ -5503,7 +6423,7 @@ def main() -> int:
           f"byte-identical to the 1-step-only run")
 
     # phase 5: timing, in turns; ms per step (one launch is N steps)
-    n_kernel, n_plain = 2400, 500
+    n_kernel, n_plain = 2400, PLAIN_2D_STEPS
     runs = {"plain": lambda f, n: plain_chunk(pstep, f, n),
             1: lambda f, n: kernel_chunk(kstep, f, n)}
     for n in DEPTHS:
@@ -5512,7 +6432,8 @@ def main() -> int:
     times = {k: [] for k in order}
     for which in order + order[::-1]:
         steps = n_plain if which == "plain" else n_kernel
-        times[which].append(ms_per_step(runs[which], f0, steps))
+        times[which].append(ms_per_step(runs[which], f0, steps, PLAIN_WARM
+                                        if which == "plain" else 20))
     ms = {k: min(v) for k, v in times.items()}
     cells = params.nx * params.ny
     print(f"timing at {params.nx}x{params.ny} on {card}, ms/step (MLUPS): "
@@ -5537,26 +6458,22 @@ def main() -> int:
             "launches": (main_counts if n == 4 else counts23)[n],
             "max_abs_err": err_plain[n], "ms": ms[n],
             "plain_ms": ms["plain"], **bound("d2q9", cells, n)})
-    kernels.extend(sphere_phases(dev, card))
-    kernels.append(thermal_phases(dev, card))
-    kernels.append(multiphase_phases(dev, card))
-    kernels.extend(operator_phases(dev, card))
-    kernels.extend(sphere_operator_phases(dev, card))
-    kernels.append(thermal_les_phases(dev, card))
-    kernels.extend(domain_phases(dev, card))
-    kernels.extend(mesh_phases(dev, card))
-    kernels.extend(box_phases(dev, card))
-    kernels.extend(bouzidi_phases(dev, card))
-    kernels.extend(box3d_phases(dev, card))
-    kernels.extend(mesh3d_phases(dev, card))
-    kernels.extend(coupled_mesh_phases(dev, card))
-    print(f"chip_smoke: {time.perf_counter() - t_start:.2f} s in all")
-    print(card)
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    groups = [("6-8", sphere_phases), ("9-12", thermal_phases),
+              ("13-16", multiphase_phases), ("17-20", operator_phases),
+              ("21-23", sphere_operator_phases), ("24", thermal_les_phases),
+              ("25-29", domain_phases), ("30-34", mesh_phases),
+              ("35-40", box_phases), ("41-45", bouzidi_phases),
+              ("46-50", box3d_phases), ("51-55", mesh3d_phases),
+              ("56-60", coupled_mesh_phases),
+              ("61-66", lambda d, c: remainder_phases(d, c, refs))]
+    print(f"chip_smoke: {time.perf_counter() - t_start:.2f} s after phases "
+          "1-5")
+    for names, phases in groups:
+        new = phases(dev, card)
+        kernels.extend(new if isinstance(new, list) else [new])
+        print(f"chip_smoke: {time.perf_counter() - t_start:.2f} s after "
+              f"phases {names}")
+    return kernels
 
 
 if __name__ == "__main__":

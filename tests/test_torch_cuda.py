@@ -1006,3 +1006,135 @@ def test_coupled_ring_kernels_equal_one_device(cuda, monkeypatch, case,
         off = wrapper(blocks[iy][ix], torch.empty_like(blocks[iy][ix]),
                       eq_rings, shard, consts)
         assert float((off - plain).abs().max()) > 1e-4
+
+
+# ---- the Bouzidi remainder: the D3Q27 Bouzidi sphere and the slab ----------
+
+def _bz27_problem(nx=40, ny=24, nz=24, spin=False, **kw):
+    problem = _bz_problem(nx, ny, nz, lattice3d="d3q27", **kw)
+    if spin:   # the sphere spinning about z at the inlet speed
+        import dataclasses
+        p = problem.params
+        c = np.array([p.get_cylinder_x(), p.get_cylinder_y(), nz // 2])
+        om = 0.05 / float(p.get_cylinder_radius_cells())
+        problem = dataclasses.replace(
+            problem, obstacle_velocity=lambda q: np.stack(
+                [-om * (q[..., 1] - c[1]), om * (q[..., 0] - c[0]),
+                 np.zeros_like(q[..., 0])], axis=-1))
+    return problem
+
+
+@pytest.mark.parametrize("spin", [False, True], ids=["still", "spinning"])
+@pytest.mark.parametrize("op", ["bgk", "trt", "regularized", "les",
+                                "power_law"])
+def test_bouzidi_d3q27_kernels_match_plain_and_each_other(cuda, op, spin):
+    if spin and op != "bgk":
+        pytest.skip("the spinning sphere runs under BGK")
+    problem = _bz27_problem(spin=spin, **OPERATORS_3D[op][0])
+    consts = step_cuda.kernel_constants(problem, 19)
+    assert consts.library.endswith("+bouzidi+d3q27")
+    f = state_from_numpy(_perturbed_state(problem, 4), problem, cuda)
+    one = step_cuda.make_local_step_cuda_3d(problem, cuda)
+    got = one(f, torch.empty_like(f))
+    want = step_torch.make_step_rolled(problem, cuda)(f)
+    tol = dict(rtol=1e-4, atol=1e-7) if op == "power_law" else ONE_STEP_TOL
+    torch.testing.assert_close(got, want, **tol)
+    for n in step_cuda.BLOCKED_DEPTHS_3D:
+        g = f.clone()
+        for _ in range(n):
+            g = one(g, torch.empty_like(g))
+        got_n = step_cuda.make_local_step_cuda_3d_blocked(problem, cuda, n)(
+            f, torch.empty_like(f))
+        assert torch.equal(got_n, g), n
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (1, 2), (2, 2)])
+def test_bouzidi_d3q27_ring_kernels_equal_one_device(cuda, monkeypatch,
+                                                     shape):
+    from tpulbm_torch.parallel import sharded_step
+    from tpulbm_torch.parallel.mesh import make_mesh
+    for k in ("TPULBM_SUBSTEPS", "TPULBM_NO_FUSED2", "TPULBM_FORCE_XHALO"):
+        monkeypatch.delenv(k, raising=False)
+    problem = _bz27_problem(48, 32, 16)
+    f = state_from_numpy(_perturbed_state(problem, 6), problem, cuda)
+    mesh = make_mesh(shape, devices=[cuda] * (shape[0] * shape[1]))
+    chunk = sharded_step.make_chunk_fn(problem, mesh, 5)
+    assert chunk.pallas3d_depths == ([1] if shape[1] > 1 else [3, 2])
+    got = sharded_step.gather(chunk(sharded_step.split(mesh, f)))
+    want = make_chunk_fn(problem, cuda, 5)(f.clone())
+    assert torch.equal(got, want)
+
+
+def _slab_problem(nx, ny, bc="bouzidi", qb=0.25, qt=0.75, force=2e-6,
+                  moving=0.0, **kw):
+    """tpulbm's solid-slab channel (tests/test_bouzidi.py:68-91) built as
+    its gates build it, the collision's fields from the channel's
+    builder."""
+    import dataclasses
+    base = make_problem(SimulationParams(
+        problem="poiseuille", nx=nx, ny=ny, tau=0.8, periodic_x=True,
+        inlet_velocity=0.0, obstacle_bc=bc, body_force=(force, 0.0), **kw))
+    solid = np.zeros((ny, nx), bool)
+    solid[:2] = solid[-2:] = True
+    y0, y1 = 2.0 - qb, ny - 3.0 + qt
+    return dataclasses.replace(
+        base, solid=solid, init_u=(0.0, 0.0), walls_y=False, obstacle_bc=bc,
+        obstacle_sdf=lambda p: np.minimum(p[..., 1] - y0, y1 - p[..., 1]),
+        obstacle_velocity=(lambda p: np.stack(
+            [np.where(p[..., 1] > ny / 2, moving, 0.0),
+             np.zeros_like(p[..., 0])], axis=-1)) if moving else None,
+        body_force=(force, 0.0) if force else ())
+
+
+SLAB_CASES = {
+    "bouzidi": {}, "bouzidi-far": dict(qb=0.9, qt=0.1),
+    "couette": dict(qb=0.9, qt=0.1, force=0.0, moving=0.05),
+    "bounce-back": dict(bc="bounce_back"),
+    "equilibrium": dict(bc="equilibrium"),
+    "trt": dict(collision="trt"), "kbc": dict(collision="kbc"),
+    "power-law": dict(power_law_n=0.7),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SLAB_CASES))
+@pytest.mark.parametrize("nx,ny", [(100, 37), (17, 24), (2048, 512)])
+def test_slab_kernels_match_plain_and_each_other(cuda, case, nx, ny):
+    problem = _slab_problem(nx, ny, **SLAB_CASES[case])
+    consts = step_cuda.kernel_constants(problem)
+    assert "+channel+slab" in consts.library
+    f = state_from_numpy(_perturbed_state(problem, 5), problem, cuda)
+    one = step_cuda.make_local_step_cuda(problem, cuda)
+    got = one(f, torch.empty_like(f))
+    want = step_torch.make_step_rolled(problem, cuda)(f)
+    if case == "kbc":
+        assert float((got - want).abs().max() / want.abs().max()) < 3e-5
+    else:
+        tol = (dict(rtol=1e-4, atol=1e-7) if case == "power-law"
+               else ONE_STEP_TOL)
+        torch.testing.assert_close(got, want, **tol)
+    for n in step_cuda.BLOCKED_DEPTHS:
+        g = f.clone()
+        for _ in range(n):
+            g = one(g, torch.empty_like(g))
+        got_n = step_cuda.make_local_step_cuda_blocked(problem, cuda, n)(
+            f, torch.empty_like(f))
+        assert torch.equal(got_n, g), n
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (1, 2), (2, 2)])
+@pytest.mark.parametrize("case", ["bouzidi", "couette", "bounce-back"])
+def test_slab_ring_kernels_equal_one_device(cuda, monkeypatch, case, shape):
+    from tpulbm_torch.parallel import sharded_step
+    from tpulbm_torch.parallel.mesh import make_mesh
+    for k in ("TPULBM_HALO_OVERLAP", "TPULBM_SUBSTEPS", "TPULBM_NO_FUSED2",
+              "TPULBM_FORCE_TILED"):
+        monkeypatch.delenv(k, raising=False)
+    problem = _slab_problem(100, 64, **SLAB_CASES[case])
+    f = state_from_numpy(_perturbed_state(problem, 7), problem, cuda)
+    mesh = make_mesh(shape, devices=[cuda] * (shape[0] * shape[1]))
+    chunk = sharded_step.make_chunk_fn(problem, mesh, 24)
+    got = sharded_step.gather(chunk(sharded_step.split(mesh, f)))
+    want = make_chunk_fn(problem, cuda, 24)(f.clone())
+    assert torch.equal(got, want)
+    bz = problem.obstacle_bc == "bouzidi"
+    assert chunk.substeps == (1 if shape[1] > 1 and bz else 4)

@@ -9,8 +9,8 @@ tpulbm's `--lattice3d d3q27`.
   1e-12: the sphere under BGK and TRT with bounce-back and under the
   other closures, the duct, the box under each 3-D collision but MRT;
 * MRT on D3Q27 raises tpulbm's ValueError (and _mrt_basis its
-  AssertionError); the Bouzidi obstacle on D3Q27 raises naming ROADMAP
-  item 16;
+  AssertionError); the Bouzidi obstacle on D3Q27 builds tpulbm's Problem
+  and its own library (tests/test_torch_bouzidi_d3q27.py holds it);
 * the kernel module (its CPU path, the plain step) against tpulbm's 3-D
   Pallas kernels in interpret mode from a ±10% perturbed state, f32 at
   rtol 5e-6 / atol 1e-7: the sphere through the cascade at N = 3 and 2
@@ -167,14 +167,17 @@ def test_mrt_on_d3q27_raises_tpulbms_error():
         physics._mrt_basis(D3Q27)
 
 
-def test_bouzidi_on_d3q27_raises_naming_item_16():
+def test_bouzidi_on_d3q27_builds_tpulbms_problem_and_library():
+    # once refused (item 16): the Problem is tpulbm's and the kernels take
+    # it through the D3Q27 Bouzidi library (tests/test_torch_bouzidi_d3q27.py)
     params = _params("sphere", obstacle_bc="bouzidi")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        port_problem(params)
-    mine = dataclasses.replace(port_problem(_params("sphere", "f32")),
-                               obstacle_bc="bouzidi")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        step_cuda.kernel_constants(mine, 19)
+    mine, ref = port_problem(params), jax_problem(params)
+    assert mine.solid.tobytes() == ref.solid.tobytes()
+    assert mine.obstacle_bc == ref.obstacle_bc == "bouzidi"
+    consts = step_cuda.kernel_constants(port_problem(
+        _params("sphere", "f32", obstacle_bc="bouzidi")), 19)
+    assert consts.library == "bgk+bouzidi+d3q27"
+    assert consts.variant == step_cuda.BOUZIDI | step_cuda.D3Q27
 
 
 # ---- the kernel module against tpulbm's Pallas kernels ------------------

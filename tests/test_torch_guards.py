@@ -122,7 +122,8 @@ def test_runner_refuses_cuda_without_a_card(tmp_path):
 # the 3-D meshes run (tests/test_torch_mesh3d.py), and the thermal and
 # multiphase meshes (tests/test_torch_mesh_thermal.py,
 # test_torch_mesh_multiphase.py: test_runner_takes_thermal_and_
-# multiphase_meshes below)
+# multiphase_meshes below); the D3Q27 Bouzidi sphere, once refused, runs
+# (tests/test_torch_bouzidi_d3q27.py): its case checks the Runner builds
 @pytest.mark.parametrize("override", [dict(precision="f64"),
                                       dict(problem="cylinder3d", nz=16,
                                            lattice3d="d3q27",
@@ -131,9 +132,12 @@ def test_runner_refuses_cuda_without_a_card(tmp_path):
 def test_runner_refuses_unported_options(tmp_path, override):
     params = SimulationParams(nx=64, ny=32, num_timesteps=20,
                               output_dir=str(tmp_path), **override)
-    with pytest.raises(NotImplementedError,
-                       match="float32" if "precision" in override
-                       else "ROADMAP"):
+    if "precision" not in override:
+        runner = Runner(params, device="cpu")
+        assert runner.problem.lattice.Q == 27
+        assert runner.problem.obstacle_bc == "bouzidi"
+        return
+    with pytest.raises(NotImplementedError, match="float32"):
         Runner(params, device="cpu")
 
 

@@ -71,16 +71,29 @@ _SPHERE = dict(problem="cylinder3d", nz=8)
 
 
 # D3Q27 runs (tests/test_torch_d3q27.py), on a mesh too
-# (tests/test_torch_mesh3d.py), but for the Bouzidi obstacle, on one device
-# and on a mesh
-@pytest.mark.parametrize("override,item", [
-    (dict(nz=16), "item 16"),
-    (dict(_SPHERE, lattice3d="d3q27", obstacle_bc="bouzidi"), "item 16"),
+# (tests/test_torch_mesh3d.py), the Bouzidi obstacle included (error None:
+# the Problem is tpulbm's); the 2-D cylinder on a 3-D grid raises a
+# ValueError naming cylinder3d, where tpulbm's step fails on the mismatched
+# mask (an IndexError)
+@pytest.mark.parametrize("override,error", [
+    (dict(nz=16), "cylinder3d"),
+    (dict(_SPHERE, lattice3d="d3q27", obstacle_bc="bouzidi"), None),
     (dict(_SPHERE, lattice3d="d3q27", obstacle_bc="bouzidi",
-          mesh_shape=(2, 1)), "item 16")])
-def test_unported_options_name_their_roadmap_item(override, item):
-    with pytest.raises(NotImplementedError, match=re.escape(item)):
-        port_problem(PRESETS["cylinder-small"].replace(**override))
+          mesh_shape=(2, 1)), None)])
+def test_unported_options_name_their_roadmap_item(override, error):
+    params = PRESETS["cylinder-small"].replace(**override)
+    if error is None:
+        mine, ref = port_problem(params), jax_problem(params)
+        assert mine.lattice.Q == ref.lattice.Q == 27
+        assert mine.obstacle_bc == ref.obstacle_bc == "bouzidi"
+        assert mine.solid.tobytes() == ref.solid.tobytes()
+        return
+    with pytest.raises(ValueError, match=re.escape(error)):
+        port_problem(params)
+    from tpulbm.ops.step_jax import make_step_rolled
+    ref = jax_problem(params)
+    with pytest.raises(IndexError):
+        make_step_rolled(ref)(ref.initial_state())
 
 
 # the Bouzidi obstacle, once refused with item 14: the Problem carries

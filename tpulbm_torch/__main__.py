@@ -17,6 +17,9 @@
         --output-frequency 140 --stats-from 1120
     python -m tpulbm_torch --problem cylinder3d --nx 256 --ny 256 --nz 256 \
         --inlet-velocity 0.05 --lattice3d d3q27 --no-vtk
+    python -m tpulbm_torch --problem cylinder3d --nx 256 --ny 256 --nz 256 \
+        --inlet-velocity 0.05 --cylinder-radius 0.23 --lattice3d d3q27 \
+        --obstacle-bc bouzidi --no-vtk
     python -m tpulbm_torch --problem passive-scalar --thermal-tau 0.6 \\
         --tau 0.8 --inlet-velocity 0.04 --cylinder-radius 0 --no-vtk
 
@@ -37,6 +40,9 @@ does not cover yet raise NotImplementedError.
     python -m tpulbm_torch --problem multiphase --shan-chen-g -5 --nx 2048 \
         --ny 512 --tau 1.0 --inlet-velocity 0 --cylinder-radius 0.15 \
         --cylinder-x 0.5 --cylinder-y 0.5 --mesh 4x1 --no-vtk
+    python -m tpulbm_torch --problem cylinder3d --nx 128 --ny 128 --nz 128 \
+        --inlet-velocity 0.05 --cylinder-radius 0.23 --lattice3d d3q27 \
+        --obstacle-bc bouzidi --mesh 2x1 --no-vtk
 """
 from __future__ import annotations
 

@@ -30,6 +30,11 @@
 //   (d2q9_common.cuh's Shard), over a range of its rows.
 // * -DTPULBM_Q=27: the 3-D kernels step the D3Q27 velocity set instead of
 //   D3Q19 (d3q19_common.cuh; TPULBM_Q is 19 when it is unset).
+// * -DTPULBM_SLAB=1: the channel domain without its y walls (2-D): the y
+//   edges take the frozen-equilibrium ghosts and the solid mask carries
+//   the walls, solid slabs under the equilibrium, the bounce-back or the
+//   Bouzidi obstacle rule (tpulbm's fractional-wall, staircase and Couette
+//   channels: walls_y off, periodic_x, a solid mask).
 // A library built with none of them is the one every earlier build ran.
 
 #pragma once
@@ -58,6 +63,9 @@
 #ifndef TPULBM_Q
 #define TPULBM_Q 19
 #endif
+#ifndef TPULBM_SLAB
+#define TPULBM_SLAB 0
+#endif
 
 #include <stddef.h>
 #include <stdint.h>
@@ -81,7 +89,7 @@ static_assert(kMode >= kBGK && kMode <= kPowerLaw, "unknown collision mode");
 // The domains, in the order ops/step_cuda.py's DOMAINS lists them.
 enum Domain : int {
   kObstacle = 0,  // inlet, outlet and a voxel obstacle
-  kChannel = 1,   // periodic x, no obstacle
+  kChannel = 1,   // periodic x, no obstacle (kSlab: no y walls, a mask)
   kCavity = 2,    // closed box with a moving lid, no obstacle
   kBox = 3,       // periodic x and y (and z in 3-D), no walls, no obstacle
 };
@@ -90,19 +98,25 @@ static_assert(kDomain >= kObstacle && kDomain <= kBox, "unknown domain");
 constexpr bool kPeriodicX = kDomain == kChannel || kDomain == kBox;
 constexpr bool kPeriodicY = kDomain == kBox;
 constexpr bool kPeriodicZ = kDomain == kBox;  // read by the 3-D kernels
-constexpr bool kHasObstacle = kDomain == kObstacle;
+// the slab: the channel whose y walls are solid rows of the mask
+constexpr bool kSlab = TPULBM_SLAB != 0;
+static_assert(!kSlab || kDomain == kChannel,
+              "the slab is the channel domain without its y walls");
+// a solid mask and an obstacle rule: the obstacle domain and the slab
+constexpr bool kHasObstacle = kDomain == kObstacle || kSlab;
 constexpr bool kSource = TPULBM_SOURCE != 0;
 constexpr bool kForce = TPULBM_FORCE != 0;
 constexpr bool kBounceBack = TPULBM_BOUNCE_BACK != 0;
 static_assert(!kBounceBack || kHasObstacle,
-              "the bounce-back obstacle needs the obstacle domain");
+              "the bounce-back obstacle needs the obstacle domain or the "
+              "slab");
 constexpr bool kRings = TPULBM_RINGS != 0;
 constexpr bool kBouzidi = TPULBM_BOUZIDI != 0;
 static_assert(TPULBM_Q == 19 || TPULBM_Q == 27, "a 3-D set: 19 or 27");
 constexpr bool kD3Q27 = TPULBM_Q == 27;
 static_assert(!kBouzidi || (kHasObstacle && !kBounceBack),
-              "the Bouzidi obstacle needs the obstacle domain, and is not "
-              "the bounce-back one");
+              "the Bouzidi obstacle needs the obstacle domain or the slab, "
+              "and is not the bounce-back one");
 
 // The bits of a cell's byte in the uint8 mask the kernels read: solid, and
 // (kBouzidi) at least one cut link, so that a kernel reads the link table
@@ -172,11 +186,11 @@ extern "C" int tpulbm_collision_mode() { return tpulbm::kMode; }
 
 // The rest of the build: the domain, then 4 with the source, 8 with the
 // bounce-back obstacle, 16 with the rings, 32 with the force profile, 64
-// with the Bouzidi obstacle and 128 on D3Q27; ops/step_cuda.py checks it
-// too.
+// with the Bouzidi obstacle, 128 on D3Q27 and 256 for the slab;
+// ops/step_cuda.py checks it too.
 extern "C" int tpulbm_build_variant() {
   return tpulbm::kDomain | (tpulbm::kSource ? 4 : 0) |
          (tpulbm::kBounceBack ? 8 : 0) | (tpulbm::kRings ? 16 : 0) |
          (tpulbm::kForce ? 32 : 0) | (tpulbm::kBouzidi ? 64 : 0) |
-         (tpulbm::kD3Q27 ? 128 : 0);
+         (tpulbm::kD3Q27 ? 128 : 0) | (tpulbm::kSlab ? 256 : 0);
 }

@@ -580,11 +580,14 @@ __device__ __forceinline__ void apply_bouzidi(float* g, const float* q,
 // populations reversed), else the edge rules, then (kCorners) the clean
 // corners, then (kBouzidi) the rewrite of the cell's cut links, where
 // `link` (the cell's entry of the link table's plane 0) is not null. The
-// channel: the y walls. The cavity: its walls, then the corner closure.
-// The box: nothing. post and solid_at as for apply_corner; solid is false
-// outside the obstacle domain. The kernels are built with and without the
-// clean corners, so that a run without them carries no trace of their
-// code.
+// channel: the y walls; the slab (kSlab, the channel without them) the
+// obstacle domain's sequence with no edge rule: its y edges are the pull's
+// frozen-equilibrium ghosts (tpulbm's walls_y off) and its walls solid
+// rows. The cavity: its walls, then the corner closure. The box: nothing.
+// post and solid_at as for apply_corner; solid is false outside the
+// obstacle domain and the slab. The obstacle domain's kernels are built
+// with and without the clean corners (kCornerRule), so that a run without
+// them carries no trace of their code.
 template <bool kCorners, class Post, class SolidAt>
 __device__ __forceinline__ void apply_boundaries(
     float* g, bool solid, int x, int y, int nx, int ny, const StepConsts& k,
@@ -592,7 +595,7 @@ __device__ __forceinline__ void apply_boundaries(
     const Links& links = Links{}) {
   if constexpr (kDomain == kBox) {
     return;
-  } else if constexpr (kDomain == kChannel) {
+  } else if constexpr (kDomain == kChannel && !kSlab) {
     walls_y(g, y, ny);
   } else if constexpr (kDomain == kCavity) {
     cavity_walls(g, x, y, nx, ny, k);
@@ -614,10 +617,12 @@ __device__ __forceinline__ void apply_boundaries(
       }
       return;
     }
-    apply_edges(g, x, y, nx, ny, k);
-    if constexpr (kCorners) {
-      if ((x == 0 || x == nx - 1) && (y == 0 || y == ny - 1))
-        apply_corner(g, x, y, nx, ny, k, post, solid_at);
+    if constexpr (!kSlab) {
+      apply_edges(g, x, y, nx, ny, k);
+      if constexpr (kCorners) {
+        if ((x == 0 || x == nx - 1) && (y == 0 || y == ny - 1))
+          apply_corner(g, x, y, nx, ny, k, post, solid_at);
+      }
     }
     if constexpr (kBouzidi) {
       if (link != nullptr)
@@ -735,6 +740,13 @@ struct Shard {
     return lx >= 0 && lx < nxl && ly >= r0 && ly < r1;
   }
 };
+
+// Whether the library's domain has a clean-corner rule: the obstacle
+// domain's inlet and outlet corners. Only its kernels are instantiated
+// with kCorners true; every other domain's boundary sequence ignores
+// kCorners, so a launcher there takes the kCorners-false kernel whatever
+// clean_corners says (the same bits, half the build).
+constexpr bool kCornerRule = kDomain == kObstacle && !kSlab;
 
 // Rows the tiling of a kernel with kBY-row tiles starts below y = 0: one
 // when a corner rule reads two rows inward (the clean corners at the inlet,

@@ -103,8 +103,7 @@ using tpulbm::kPeriodicZ;
 static_assert(kMode != tpulbm::kKBC, "tpulbm's KBC operator is 2-D only");
 static_assert(!(tpulbm::kD3Q27 && kMode == tpulbm::kMRT),
               "tpulbm has no MRT basis for D3Q27");
-static_assert(!(tpulbm::kD3Q27 && kBouzidi),
-              "the Bouzidi obstacle is ported on D3Q19 only");
+static_assert(!tpulbm::kSlab, "the slab is a 2-D channel");
 static_assert(tpulbm::kDomain != tpulbm::kCavity, "the cavity is 2-D");
 
 // MRT's rank-r correction (D3Q19), zero-padded to the largest rank: only the

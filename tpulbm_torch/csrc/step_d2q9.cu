@@ -2,13 +2,16 @@
 // collide (+ body-force source) -> pull-stream -> ghost sanitize -> the
 // domain's boundary sequence. The obstacle domain (the cylinder): y walls
 // -> Zou-He inlet -> Zou-He outlet -> clean Zou-He corners (optional) ->
-// obstacle (pin or bounce-back). The channel: periodic x, y walls. The
-// cavity: bottom wall -> moving lid -> side walls -> corner closure. The
-// box: periodic x and y, no walls.
+// obstacle (pin or bounce-back). The channel: periodic x, y walls; the
+// slab (-DTPULBM_SLAB=1): periodic x, the frozen-equilibrium ghosts at the
+// y edges and the walls solid rows of the mask under the obstacle rule
+// (pin, bounce-back or Bouzidi). The cavity: bottom wall -> moving lid ->
+// side walls -> corner closure. The box: periodic x and y, no walls.
 //
 // Replaces tpulbm/ops/step_pallas.py::make_local_step_pallas (the fused
 // 1-step Pallas TPU kernel) with its src, force_fn, periodic_x, periodic
-// y, walls_x, lid_u and bounce_back modes, under each of its collisions
+// y, walls_x, lid_u, bounce_back and bz modes and its walls_y off with a
+// solid mask (the slab), under each of its collisions
 // (BGK, TRT, MRT, regularized, KBC, Smagorinsky, power law) and with
 // either corner rule: one library per collision, domain, source, force
 // profile and obstacle rule (collision_modes.cuh, d2q9_common.cuh). Its
@@ -249,9 +252,10 @@ extern "C" int tpulbm_d2q9_step(const float* f, float* out,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const tpulbm::Shard none{};
   const tpulbm::ForceTable force{force_table, force_axis};
-  err = clean_corners
-            ? launch<true>(f, out, solid, nx, ny, nx, ny, x_shift, y_shift, k,
-                           none, force, lk, s)
+  err = clean_corners && tpulbm::kCornerRule
+            ? launch<tpulbm::kCornerRule>(f, out, solid, nx, ny, nx, ny,
+                                          x_shift, y_shift, k, none, force,
+                                          lk, s)
             : launch<false>(f, out, solid, nx, ny, nx, ny, x_shift, y_shift,
                             k, none, force, lk, s);
   return static_cast<int>(err);
@@ -288,9 +292,10 @@ extern "C" int tpulbm_d2q9_step_rings(
   const int x_shift = tpulbm::tile_col_shift(nxl, kBX);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const tpulbm::ForceTable force{force_table, force_axis};
-  err = clean_corners
-            ? launch<true>(f, out, nullptr, nx, ny, nxl, r1 - r0, x_shift,
-                           y_shift, k, sh, force, lk, s)
+  err = clean_corners && tpulbm::kCornerRule
+            ? launch<tpulbm::kCornerRule>(f, out, nullptr, nx, ny, nxl,
+                                          r1 - r0, x_shift, y_shift, k, sh,
+                                          force, lk, s)
             : launch<false>(f, out, nullptr, nx, ny, nxl, r1 - r0, x_shift,
                             y_shift, k, sh, force, lk, s);
   return static_cast<int>(err);

@@ -3,13 +3,14 @@
 // sequence (step_d2q9.cu): collide (+ source, + force profile) ->
 // pull-stream -> ghost rule -> the domain's boundary sequence (the
 // cylinder's walls, Zou-He inlet and outlet, clean corners and obstacle;
-// the channel's periodic x and walls; the cavity's walls, lid and corners;
-// the box's periodic x and y).
+// the channel's periodic x and walls, or the slab's periodic x and mask;
+// the cavity's walls, lid and corners; the box's periodic x and y).
 //
 // Replaces tpulbm/ops/step_pallas.py::make_local_step_pallasN (the N-step
 // Pallas cascade, N = 3 and 4) and ::make_local_step_pallas2 (its 2-step
-// form) with their src, force_fn, periodic_x, periodic y, walls_x, lid_u
-// and bounce_back modes, under each of their collisions and with either
+// form) with their src, force_fn, periodic_x, periodic y, walls_x, lid_u,
+// bounce_back and bz modes and walls_y off with a solid mask (the slab),
+// under each of their collisions and with either
 // corner rule (one library per collision, domain, source, force profile
 // and obstacle rule; d2q9_common.cuh). Its plain version is N applications
 // of tpulbm_torch/ops/step_torch.py's step.
@@ -187,10 +188,13 @@ __global__ void __launch_bounds__(kThreads)
   };
   // the link table's entry of the window cell at global (gx, gy) whose
   // mask byte is m (kBouzidi), or null where the cell has no cut link: the
-  // obstacle domain's coordinates need no wrap
+  // obstacle domain's coordinates need no wrap, the slab's x wraps where
+  // the block holds every column (find()), and elsewhere the caller has
+  // wrapped it (window_cell)
   auto link_at = [&](uint8_t m, int gx, int gy) -> const float* {
     if (!tpulbm::kBouzidi || !(m & tpulbm::kLinkBit)) return nullptr;
     if constexpr (tpulbm::kRings) {
+      if (tpulbm::kPeriodicX && sh.hx == 0) gx = ((gx % nx) + nx) % nx;
       return links.q + sh.padded(gx - sh.x0, gy - sh.y0);
     } else {
       return links.q + static_cast<size_t>(gy) * nx + gx;
@@ -358,12 +362,13 @@ cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
   const int y_shift = tpulbm::tile_row_shift(
       tiles_y, kBY, corners || tpulbm::kDomain == tpulbm::kCavity);
   const int x_shift = tpulbm::tile_col_shift(tiles_x, kBX);
-#define TPULBM_LAUNCH(N)                                                    \
-  (corners ? launch<N, true>(f, out, solid, nx, ny, tiles_x, tiles_y,       \
-                             x_shift, y_shift, k, sh, force, links, stream) \
-           : launch<N, false>(f, out, solid, nx, ny, tiles_x, tiles_y,      \
-                              x_shift, y_shift, k, sh, force, links,        \
-                              stream))
+#define TPULBM_LAUNCH(N)                                                   \
+  (corners && tpulbm::kCornerRule                                          \
+       ? launch<N, tpulbm::kCornerRule>(f, out, solid, nx, ny, tiles_x,    \
+                                        tiles_y, x_shift, y_shift, k, sh,  \
+                                        force, links, stream)              \
+       : launch<N, false>(f, out, solid, nx, ny, tiles_x, tiles_y, x_shift, \
+                          y_shift, k, sh, force, links, stream))
   switch (n_sub) {
     case 2: return TPULBM_LAUNCH(2);
     case 3: return TPULBM_LAUNCH(3);

@@ -83,10 +83,11 @@
 #include <stdint.h>
 
 // The Bouzidi obstacle (-DTPULBM_BOUZIDI=1, tpulbm's `bz` mode of
-// step_pallas3d.py:844-857): a cell whose mask byte carries kLinkBit
-// rewrites its cut links after its boundary sequence (apply_bouzidi in
-// d3q19_common.cuh) from its entries of the link table, read at its own
-// index, and its own post-collision values in the ring's plane z.
+// step_pallas3d.py:844-857, on either velocity set): a cell whose mask
+// byte carries kLinkBit rewrites its cut links after its boundary sequence
+// (apply_bouzidi in d3q19_common.cuh) from its entries of the link table
+// (Q planes, 2Q for a moving wall), read at its own index, and its own
+// post-collision values in the ring's plane z.
 
 #include "d3q19_common.cuh"
 

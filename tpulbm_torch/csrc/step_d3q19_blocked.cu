@@ -84,7 +84,10 @@
 // Those of class 0 (cz = -1) are pulled from the plane above a march step
 // before the cell itself is computed, so under kBouzidi class 0 keeps two
 // slots (43 floats a cell instead of 38; 226,948 B at N=3, 134,512 B at
-// N=2, still one block an SM).
+// N=2, still one block an SM). On D3Q27 that is 63 floats instead of 54:
+// the N=3 tile, 32 x 4, takes 221,644 B and N=2's, 32 x 8, 196,272 B, both
+// within a block's 232,448 B, so the Bouzidi build keeps the tiles of the
+// build without it.
 //
 // Built with -DTPULBM_RINGS=1 the kernel steps one shard of a mesh
 // (tpulbm3d::Shard): make_local_step_pallas3d_tiled at n_sub 2, 3 with its
@@ -190,8 +193,10 @@ static_assert(kQ != 19 || tpulbm3d::kBouzidi || kRingFloats == 38,
               "5 + 2 * 9 + 3 * 5 floats a cell");
 static_assert(kQ != 19 || !tpulbm3d::kBouzidi || kRingFloats == 43,
               "2 * 5 + 2 * 9 + 3 * 5 floats a cell under kBouzidi");
-static_assert(kQ != 27 || kRingFloats == 54,
+static_assert(kQ != 27 || tpulbm3d::kBouzidi || kRingFloats == 54,
               "9 + 2 * 9 + 3 * 9 floats a cell on D3Q27");
+static_assert(kQ != 27 || !tpulbm3d::kBouzidi || kRingFloats == 63,
+              "2 * 9 + 2 * 9 + 3 * 9 floats a cell on D3Q27 under kBouzidi");
 static_assert(ring_planes_distinct(), "ring planes overlap");
 
 // The offsets, in floats, of the class-0, class-1 and class-2 slots that

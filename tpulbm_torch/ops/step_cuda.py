@@ -8,7 +8,9 @@ Both hold every collision of tpulbm's D2Q9 kernels (COLLISION_MODES), the
 clean Zou-He corners, the body-force source, the force profile (tpulbm's
 force_fn along one axis: a table of its source per coordinate), the
 bounce-back and the Bouzidi obstacles and four domains (DOMAINS: the
-cylinder, the periodic channel, the lid-driven cavity, the periodic box);
+cylinder, the periodic channel, the lid-driven cavity, the periodic box),
+the channel also without its y walls, its walls solid slabs of the mask
+(SLAB);
 the mode's coefficients are computed here on the host, as tpulbm's
 _physics_cfg_fields computes them.
 Port of tpulbm/ops/step_pallas3d.py (D3Q19 and D3Q27):
@@ -19,7 +21,7 @@ Port of tpulbm/ops/step_pallas3d.py (D3Q19 and D3Q27):
 Both hold every collision of tpulbm's 3-D kernels (COLLISION_MODES_3D: all
 but KBC, which tpulbm runs in 2-D only; MRT on D3Q19 only, as tpulbm's
 basis), the source, the force profile along z (3-D Kolmogorov), the
-bounce-back obstacle, the Bouzidi obstacle (D3Q19) and three domains
+bounce-back obstacle, the Bouzidi obstacle and three domains
 (DOMAINS_3D: the sphere in a duct, the periodic duct, the fully periodic
 box), on either velocity set (D3Q27: -DTPULBM_Q=27); the mode's
 coefficients are computed here as tpulbm's 3-D builders compute them.
@@ -29,10 +31,10 @@ library with the
 equilibrium obstacle and no force takes no define and is the one every
 earlier build ran), at its first use. The Bouzidi build (BOUZIDI,
 tpulbm's `bz` mode) takes the link table (ops/bouzidi.link_tables, 9 or
-18 planes in 2-D, 19 or 38 in 3-D; a spinning wall's scalars in the
-second half) as an operand and reads it only at the cells whose mask
-byte carries LINK_BIT (kernel_mask): the cut-link rewrite is cell-local,
-every term of it sits at the boundary cell.
+18 planes in 2-D, 19 or 38 on D3Q19, 27 or 54 on D3Q27; a moving wall's
+scalars in the second half) as an operand and reads it only at the cells
+whose mask byte carries LINK_BIT (kernel_mask): the cut-link rewrite is
+cell-local, every term of it sits at the boundary cell.
 Both D2Q9 sources also build with rings (-DTPULBM_RINGS=1), for one shard
 of a mesh (parallel/sharded_step.py): collide_stream_rings steps a shard's
 block from the rings its neighbours sent, over a range of its rows. That
@@ -152,6 +154,8 @@ RINGS = 16      # a D2Q9 library built for one shard of a mesh
 FORCE = 32      # the force profile's table (along x or y in 2-D, z in 3-D)
 BOUZIDI = 64    # the Bouzidi obstacle: the link table (ops/bouzidi.py)
 D3Q27 = 128     # a 3-D library of the D3Q27 velocity set (else D3Q19)
+SLAB = 256      # the channel without y walls, its walls solid slabs of the
+                # mask under the obstacle rule (2-D)
 # the bits of a cell's byte in the uint8 mask the kernels read
 # (collision_modes.cuh's kSolidBit, kLinkBit): solid, and under the
 # Bouzidi obstacle at least one cut link
@@ -226,8 +230,9 @@ def mode_floats(problem: Problem) -> tuple[float, ...]:
 
 def kernel_domain(problem: Problem) -> int:
     """The kernels' domain for `problem`'s boundary layout, an index of
-    DOMAINS (D2Q9) or DOMAINS_3D (D3Q19, D3Q27); raises
-    NotImplementedError for a layout no kernel holds."""
+    DOMAINS (D2Q9) or DOMAINS_3D (D3Q19, D3Q27): the channel also for the
+    slab (is_slab); raises NotImplementedError for a layout no kernel
+    holds."""
     p = problem
     d3 = p.lattice.D == 3
     walls = (p.walls_y and (p.walls_z or not d3) and not p.periodic_y
@@ -248,18 +253,34 @@ def kernel_domain(problem: Problem) -> int:
             return 1
         if not d3 and p.walls_x and not p.periodic_x:
             return 2
+    if is_slab(p):
+        return 1
     raise NotImplementedError(
         f"no kernel holds the boundary layout of problem "
         f"{p.params.problem!r} (the kernels' domains: {DOMAINS} in 2-D, "
         f"{[d for d in DOMAINS_3D if d]} in 3-D)")
 
 
+def is_slab(p: Problem) -> bool:
+    """Whether `p` is the slab: a 2-D channel, periodic along x, with no y
+    walls, no inlet, outlet, x walls or lid, whose walls are solid cells
+    of its mask (tpulbm's fractional-wall, staircase and Couette
+    channels, tests/test_bouzidi.py:68-91, 416-459)."""
+    return (p.lattice.D == 2 and p.periodic_x and not p.periodic_y
+            and not (p.walls_y or p.walls_x or p.lid_u or p.inlet_zou_he
+                     or p.outlet_zou_he or p.clean_corners)
+            and p.solid is not None and bool(np.any(p.solid)))
+
+
 def variant_defines(variant: int) -> tuple[str, ...]:
     """nvcc's defines for a library's domain (variant & DOMAIN_BITS),
-    SOURCE, FORCE, BOUNCE_BACK, BOUZIDI, RINGS and D3Q27; () for 0."""
+    SLAB, SOURCE, FORCE, BOUNCE_BACK, BOUZIDI, RINGS and D3Q27; () for
+    0."""
     defines = []
     if variant & DOMAIN_BITS:
         defines.append(f"-DTPULBM_DOMAIN={variant & DOMAIN_BITS}")
+    if variant & SLAB:
+        defines.append("-DTPULBM_SLAB=1")
     if variant & SOURCE:
         defines.append("-DTPULBM_SOURCE=1")
     if variant & FORCE:
@@ -309,13 +330,16 @@ class StepConstants:
     @property
     def library(self) -> str:
         """The library's name in the launch counts: the collision, then the
-        domain, "source", "force", "bounce_back", "bouzidi" and "d3q27"
-        where the build has them, as "mrt+channel+source", "bgk+bouzidi" or
-        "trt+box+force+d3q27"."""
+        domain, "slab", "source", "force", "bounce_back", "bouzidi" and
+        "d3q27" where the build has them, as "mrt+channel+source",
+        "bgk+bouzidi", "trt+box+force+d3q27" or
+        "bgk+channel+slab+source+bouzidi"."""
         domains = DOMAINS if len(self.w) == 9 else DOMAINS_3D
         parts = [self.mode]
         if self.variant & DOMAIN_BITS:
             parts.append(domains[self.variant & DOMAIN_BITS])
+        if self.variant & SLAB:
+            parts.append("slab")
         if self.variant & SOURCE:
             parts.append("source")
         if self.variant & FORCE:
@@ -381,11 +405,14 @@ class StepConstants:
     def of(cls, problem: Problem) -> "StepConstants":
         lat = problem.lattice
         domain = kernel_domain(problem)
-        bounce = domain == 0 and problem.obstacle_bc == "bounce_back"
-        bouzidi = domain == 0 and problem.obstacle_bc == "bouzidi"
+        slab = domain == 1 and is_slab(problem)
+        # the obstacle rule acts in the obstacle domain and the slab
+        rule = domain == 0 or slab
+        bounce = rule and problem.obstacle_bc == "bounce_back"
+        bouzidi = rule and problem.obstacle_bc == "bouzidi"
         force = problem.body_force
         prof = problem.force_profile
-        variant = (domain | (SOURCE if force else 0)
+        variant = (domain | (SLAB if slab else 0) | (SOURCE if force else 0)
                    | (BOUNCE_BACK if bounce else 0)
                    | (BOUZIDI if bouzidi else 0)
                    | (FORCE if prof is not None else 0)
@@ -613,6 +640,47 @@ def _floats(values: tuple) -> ctypes.Array:
     return (ctypes.c_float * len(values))(*values)
 
 
+def launch_args(f: torch.Tensor, out: torch.Tensor, solid: torch.Tensor,
+                consts: "StepConstants", n_sub: int,
+                links: torch.Tensor | None, stream=None) -> tuple:
+    """The arguments of a one-device launcher (tpulbm_d2q9_step and
+    tpulbm_d3q19_step at n_sub 1, their _blocked forms at n_sub > 1) for a
+    launch from f into out on `stream` of f's device."""
+    shape = tuple(f.shape[1:])
+    if f.dim() == 3:
+        tail = (*consts.d2q9_args, *consts.force_args(f.device, shape))
+    else:
+        tail = (*consts.d3q19_args, consts.force_args(f.device, shape)[1])
+    return (f.data_ptr(), out.data_ptr(), solid.data_ptr(), *shape[::-1],
+            *(() if n_sub == 1 else (n_sub,)), *tail,
+            *link_args(consts, links, shape, f), f.device.index or 0, stream)
+
+
+def ring_launch_args(f: torch.Tensor, out: torch.Tensor, rings: tuple,
+                     shard: "Shard", consts: "StepConstants", n_sub: int,
+                     rows: tuple[int, int] = (0, 0), stream=None) -> tuple:
+    """The arguments of a ring launcher (tpulbm_d2q9_step_rings and
+    tpulbm_d3q19_step_rings at n_sub 1, their _blocked forms at n_sub > 1)
+    for a launch of `shard` from f and its rings into the rows [r0, r1) of
+    out (2-D; a 3-D launch writes the whole block) on `stream`."""
+    rb, rt, rl, rr = rings
+    y0, x0 = shard.origin
+    nyl, nxl = shard.local_shape[-2:]
+    hx = n_sub if shard.x_rings else 0
+    grid = tuple(shard.grid)
+    if f.dim() == 3:
+        geometry = (*grid[::-1], nxl, nyl, x0, y0, hx, *rows)
+        tail = (*consts.d2q9_args, *consts.force_args(f.device, grid))
+    else:
+        geometry = (*grid[::-1], nxl, nyl, x0, y0, hx)
+        tail = (*consts.d3q19_args, consts.force_args(f.device, grid)[1])
+    return (f.data_ptr(), out.data_ptr(), shard.mask.data_ptr(), _ptr(rb),
+            _ptr(rt), _ptr(rl), _ptr(rr), *geometry,
+            *(() if n_sub == 1 else (n_sub,)), *tail,
+            *link_args(consts, shard.links, tuple(shard.mask.shape), f),
+            f.device.index or 0, stream)
+
+
 def collide_stream(f: torch.Tensor, out: torch.Tensor, solid: torch.Tensor,
                    consts: StepConstants, plain=None,
                    links: torch.Tensor | None = None) -> torch.Tensor:
@@ -629,12 +697,9 @@ def collide_stream(f: torch.Tensor, out: torch.Tensor, solid: torch.Tensor,
             raise ValueError("a CPU tensor needs the plain step")
         return out.copy_(plain(f))
     lib = _library(consts.mode, consts.variant)
-    ny, nx = f.shape[1:]
     stream = torch.cuda.current_stream(f.device).cuda_stream
-    rc = lib.tpulbm_d2q9_step(
-        f.data_ptr(), out.data_ptr(), solid.data_ptr(), nx, ny,
-        *consts.d2q9_args, *consts.force_args(f.device, (ny, nx)),
-        *link_args(consts, links, (ny, nx), f), f.device.index, stream)
+    rc = lib.tpulbm_d2q9_step(*launch_args(f, out, solid, consts, 1, links,
+                                           stream))
     _check_launch(lib, rc, f"D2Q9 kernel ({consts.library})")
     _count(collide_stream, consts.library)
     return out
@@ -739,12 +804,9 @@ def collide_stream_blocked(f: torch.Tensor, out: torch.Tensor,
             f = plain(f)
         return out.copy_(f)
     lib = _blocked_library(consts.mode, consts.variant)
-    ny, nx = f.shape[1:]
     stream = torch.cuda.current_stream(f.device).cuda_stream
-    rc = lib.tpulbm_d2q9_step_blocked(
-        f.data_ptr(), out.data_ptr(), solid.data_ptr(), nx, ny, n_sub,
-        *consts.d2q9_args, *consts.force_args(f.device, (ny, nx)),
-        *link_args(consts, links, (ny, nx), f), f.device.index, stream)
+    rc = lib.tpulbm_d2q9_step_blocked(*launch_args(
+        f, out, solid, consts, n_sub, links, stream))
     _check_launch(lib, rc, f"D2Q9 {n_sub}-step kernel ({consts.library})")
     _count(collide_stream_blocked, consts.library, n_sub)
     return out
@@ -890,24 +952,14 @@ def collide_stream_rings(f: torch.Tensor, out: torch.Tensor, rings: tuple,
                     blank if rt is None else rt, rl, rr)
         out[:, r0:r1] = new[:, r0:r1]
         return out
-    ny, nx = shard.grid
-    y0, x0 = shard.origin
-    nxl = shard.local_shape[1]
-    hx = n_sub if shard.x_rings else 0
-    geometry = (nx, ny, nxl, nyl, x0, y0, hx, r0, r1)
     stream = torch.cuda.current_stream(f.device).cuda_stream
-    ptrs = (f.data_ptr(), out.data_ptr(), shard.mask.data_ptr(), _ptr(rb),
-            _ptr(rt), _ptr(rl), _ptr(rr))
-    tail = (*consts.d2q9_args, *consts.force_args(f.device, (ny, nx)),
-            *link_args(consts, shard.links, tuple(shard.mask.shape), f),
-            f.device.index, stream)
+    args = ring_launch_args(f, out, rings, shard, consts, n_sub, rows, stream)
     if n_sub == 1:
         lib = _rings_library(consts.mode, consts.variant)
-        rc = lib.tpulbm_d2q9_step_rings(*ptrs, *geometry, *tail)
+        rc = lib.tpulbm_d2q9_step_rings(*args)
     else:
         lib = _rings_blocked_library(consts.mode, consts.variant)
-        rc = lib.tpulbm_d2q9_step_blocked_rings(*ptrs, *geometry, n_sub,
-                                                *tail)
+        rc = lib.tpulbm_d2q9_step_blocked_rings(*args)
     _check_launch(lib, rc, f"D2Q9 {n_sub}-step ring kernel "
                            f"({consts.library}, shard {shard.index})")
     _count(collide_stream_rings, consts.library, n_sub, shard.index)
@@ -940,24 +992,15 @@ def collide_stream_rings_3d(f: torch.Tensor, out: torch.Tensor,
         if plain is None:
             raise ValueError("a CPU tensor needs the plain step")
         return out.copy_(plain(f, rb, rt, rl, rr))
-    nz, ny, nx = shard.grid
-    y0, x0 = shard.origin
-    nxl = shard.local_shape[-1]
-    hx = n_sub if shard.x_rings else 0
-    geometry = (nx, ny, nz, nxl, nyl, x0, y0, hx)
     stream = torch.cuda.current_stream(f.device).cuda_stream
-    ptrs = (f.data_ptr(), out.data_ptr(), shard.mask.data_ptr(), _ptr(rb),
-            _ptr(rt), _ptr(rl), _ptr(rr))
-    tail = (*consts.d3q19_args, consts.force_args(f.device, (nz, ny, nx))[1],
-            *link_args(consts, shard.links, tuple(shard.mask.shape), f),
-            f.device.index, stream)
+    args = ring_launch_args(f, out, rings, shard, consts, n_sub,
+                            stream=stream)
     if n_sub == 1:
         lib = _rings_library_3d(consts.mode, consts.variant)
-        rc = lib.tpulbm_d3q19_step_rings(*ptrs, *geometry, *tail)
+        rc = lib.tpulbm_d3q19_step_rings(*args)
     else:
         lib = _rings_blocked_library_3d(consts.mode, consts.variant)
-        rc = lib.tpulbm_d3q19_step_blocked_rings(*ptrs, *geometry, n_sub,
-                                                 *tail)
+        rc = lib.tpulbm_d3q19_step_blocked_rings(*args)
     _check_launch(lib, rc, f"3-D {n_sub}-step ring kernel "
                            f"({consts.library}, shard {shard.index})")
     _count(collide_stream_rings_3d, consts.library, n_sub, shard.index)
@@ -982,12 +1025,9 @@ def collide_stream_3d(f: torch.Tensor, out: torch.Tensor,
             raise ValueError("a CPU tensor needs the plain step")
         return out.copy_(plain(f))
     lib = _library_3d(consts.mode, consts.variant)
-    nz, ny, nx = f.shape[1:]
     stream = torch.cuda.current_stream(f.device).cuda_stream
-    rc = lib.tpulbm_d3q19_step(
-        f.data_ptr(), out.data_ptr(), solid.data_ptr(), nx, ny, nz,
-        *consts.d3q19_args, consts.force_args(f.device, (nz, ny, nx))[1],
-        *link_args(consts, links, (nz, ny, nx), f), f.device.index, stream)
+    rc = lib.tpulbm_d3q19_step(*launch_args(f, out, solid, consts, 1, links,
+                                            stream))
     _check_launch(lib, rc, f"3-D kernel ({consts.library})")
     _count(collide_stream_3d, consts.library)
     return out
@@ -1025,12 +1065,9 @@ def collide_stream_3d_blocked(f: torch.Tensor, out: torch.Tensor,
             f = plain(f)
         return out.copy_(f)
     lib = _blocked_library_3d(consts.mode, consts.variant)
-    nz, ny, nx = f.shape[1:]
     stream = torch.cuda.current_stream(f.device).cuda_stream
-    rc = lib.tpulbm_d3q19_step_blocked(
-        f.data_ptr(), out.data_ptr(), solid.data_ptr(), nx, ny, nz, n_sub,
-        *consts.d3q19_args, consts.force_args(f.device, (nz, ny, nx))[1],
-        *link_args(consts, links, (nz, ny, nx), f), f.device.index, stream)
+    rc = lib.tpulbm_d3q19_step_blocked(*launch_args(
+        f, out, solid, consts, n_sub, links, stream))
     _check_launch(lib, rc, f"3-D {n_sub}-step kernel ({consts.library})")
     _count(collide_stream_3d_blocked, consts.library, n_sub)
     return out
@@ -1065,8 +1102,8 @@ def reset_launch_counts() -> None:
 def kernel_constants(problem: Problem, q: int = 9) -> StepConstants:
     """The constants of `problem`'s kernel library; raises for what the
     kernels do not cover: they run the equilibrium, the bounce-back and
-    the Bouzidi obstacles (the last in the obstacle domain, on D2Q9 and
-    D3Q19), the D2Q9 kernels every collision and the force profile along
+    the Bouzidi obstacles (in the obstacle domain and, 2-D, the slab),
+    the D2Q9 kernels every collision and the force profile along
     x or y, the 3-D kernels (q 19: D3Q19 or D3Q27) every collision but KBC
     (and MRT on D3Q27), as tpulbm's, and the force profile along z, in the
     domains of DOMAINS and DOMAINS_3D."""
@@ -1087,11 +1124,6 @@ def kernel_constants(problem: Problem, q: int = 9) -> StepConstants:
     if problem.obstacle_bc not in ("equilibrium", "bounce_back", "bouzidi"):
         raise NotImplementedError(f"the kernels do not hold obstacle_bc="
                                   f"{problem.obstacle_bc!r}")
-    if (problem.lattice.Q == 27 and problem.obstacle_bc == "bouzidi"
-            and problem.solid is not None):
-        raise NotImplementedError(
-            "the Bouzidi obstacle on D3Q27 is not ported to tpulbm_torch "
-            "yet (ROADMAP Queue 1 item 16, 3-D)")
     prof = problem.force_profile
     if prof is not None and (prof.axis == "z") != q3:
         raise NotImplementedError(

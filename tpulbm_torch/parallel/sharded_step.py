@@ -2,10 +2,11 @@
 
 Port of tpulbm/parallel/sharded_step.py, the generic single-phase part:
 in 2-D the D2Q9 problems (the cylinder with any obstacle rule, the Bouzidi
-curved wall included, and either corner rule, the periodic channel, the
+curved wall included, and either corner rule, the periodic channel and
+the solid-slab channel under any obstacle rule, the
 cavity, the periodic boxes with or without Kolmogorov's force profile)
 under every collision the D2Q9 kernels hold; in 3-D (D3Q19 or D3Q27) the
-sphere in a duct with any obstacle rule (Bouzidi on D3Q19), the
+sphere in a duct with any obstacle rule, the
 body-forced duct and the fully periodic boxes with 3-D Kolmogorov's z
 force, under every collision the 3-D kernels hold; the thermal problems
 (Rayleigh-Bénard, the side-heated cavity, the periodic passive scalar,
