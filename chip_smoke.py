@@ -110,10 +110,10 @@ printing its own line; any failure exits non-zero:
    ladder's flags (OPERATORS: TRT with the clean Zou-He corners, MRT with
    e=1.857, regularized, KBC, Smagorinsky 0.17, power law n 0.7), each
    through its own build of the D2Q9 kernels: one 1-step kernel step
-   against one plain step from the initial state and after 500 plain
+   against one plain step from the initial state and after 100 plain
    steps, at rtol 5e-6 / atol 1e-7 (the power law at rtol 1e-4, tpulbm's
    _PLAW_RTOL; KBC, where that fails, at max|d|/max|f| < 3e-5, tpulbm's
-   KBC gate, and the line says which held); 280 kernel steps against 280
+   KBC gate, and the line says which held); 140 kernel steps against 140
    plain steps (bounded by 1e-4); the N-step kernel at N = 2, 3, 4
    bitwise against N 1-step launches from both states;
 18. each operator's main path: the Runner at 2048x512 f32, 2240 steps
@@ -137,7 +137,7 @@ printing its own line; any failure exits non-zero:
    1-step kernel step against one plain step from the initial state and
    from the state its 1-step kernel advanced 100 steps (the power law at
    rtol 1e-4); N = 2, 3 bitwise against N 1-step launches from both
-   states; 280 kernel steps against 280 plain steps at 128^3 (bounded by
+   states; 280 kernel steps against 280 plain steps at 64^3 (bounded by
    1e-4); tpulbm's own 3-D gate of the operator (GATES_3D), the kernels
    against the plain step;
 22. each operator's 3-D main path: the Runner at 256^3 f32, its depth
@@ -160,8 +160,9 @@ printing its own line; any failure exits non-zero:
    each D2Q9 collision, the lid-driven cavity at 1024^2 (Re 1000, U 0.1,
    tau 0.8069), the re200 cylinder with the bounce-back obstacle and with
    the channel's force: one 1-step kernel step against one plain step
-   from the initial state, after 500 plain steps and from the seeded
-   perturbed state (rtol 5e-6 / atol 1e-7; the cavity 2e-5 / 5e-7,
+   from the initial state, after 100 plain steps and from
+   the seeded perturbed state (rtol 5e-6 / atol 1e-7; the cavity
+   2e-5 / 5e-7,
    tpulbm's cavity gate; the power law rtol 1e-4). On the perturbed state
    the cylinder's library of the same collision (the obstacle domain, the
    equilibrium obstacle, no source) must miss the plain step by more than
@@ -170,8 +171,9 @@ printing its own line; any failure exits non-zero:
    (SOURCE_CHECK_FORCE) must meet the plain step and the same domain's
    library built without the source must miss it by SEPARATION
    tolerances. N = 2, 3, 4 bitwise against N 1-step launches from each
-   state; 280 steps within 1e-4. The channel's TRT, regularized, KBC and
-   Smagorinsky builds from the perturbed state at N = 4 only;
+   state; 140 steps within 1e-4. The channel's TRT,
+   regularized, KBC and Smagorinsky builds from the perturbed state at
+   N = 4 only;
 26. their main paths: the Runner, 2240 steps every 140, no VTK: exactly
    525 N=4 and 140 1-step launches of the cell's own library and none of
    another kernel, a finite 1M-row field (forces.csv only with the
@@ -181,7 +183,7 @@ printing its own line; any failure exits non-zero:
 27. the duct at 256^3 (tau 0.8, F for u_max 0.05 by analytic_profile_duct)
    under each D3Q19 collision, the sphere at 256^3 with the bounce-back
    obstacle and with the channel's force: phase 25's checks (100 kernel
-   steps for the advanced state, N = 2, 3; 280 steps at 128^3; the duct's
+   steps for the advanced state, N = 2, 3; 280 steps at 64^3; the duct's
    other collisions from the perturbed state only);
 28. their main paths at 256^3, cut to 280 steps every 140: exactly 91
    N=3, 3 N=2 and 1 one-step launches of the cell's own library, then
@@ -289,7 +291,7 @@ printing its own line; any failure exits non-zero:
 44. the sphere at 256^3 (bench.py's bouzidi3d row: radius 0.23, x = y =
    0.5) under each D3Q19 collision: parity from the perturbed state with
    N=3 bitwise (BGK in full: from the initial state, after 100 kernel
-   steps, N = 2, 3, 280 steps at 128^3; every operator's Runner cut to
+   steps, N = 2, 3, 280 steps at 64^3; every operator's Runner cut to
    280 steps, 91 N=3, 3 N=2 and 1 one-step launches, BGK's too);
    tpulbm's Magnus gate through the kernels (200x50, 4000 steps: the lift
    flips with the spin, the drag symmetric);
@@ -426,7 +428,39 @@ printing its own line; any failure exits non-zero:
    sphere's library without the rewrite in the same turns, the slab's
    1-step and N=4 against the walled channel's build, their ring builds,
    the other builds against their plain steps; bounds with the link
-   table's bytes.
+   table's bytes;
+67. the deep build of the N-step D2Q9 kernel (-DTPULBM_DEEP=1, N = 5-8,
+   the depths only TPULBM_SUBSTEPS asks for) at re200 2048x512: N = 5-8
+   from the initial and the perturbed state bitwise against N 1-step
+   launches and within N one-step tolerances of N plain steps; 840 steps
+   (the least multiple of 5-8) at each depth bitwise against 840 1-step
+   launches; the Runner for 841 steps every 840 under TPULBM_SUBSTEPS=n
+   for each n (840/n N-step launches and 1 1-step launch), forces.csv and
+   velocity_field.csv byte-identical to the run with blocking off; TRT
+   with the clean corners at N=8 and the 1024^2 cavity at N = 5-8 bitwise;
+   (2,1) "rows" and (4,1) overlap at N=8 on the card: one launch a shard
+   against the plain ring step and bitwise one device, 840-step chunks
+   bitwise one device;
+68. timing at 2048x512 in turns: the plain step, the 1-step kernel, N=4
+   and N = 5-8;
+69. the deep build of the N-step D3Q19 kernel (N = 4-8) on the sphere at
+   256^3 (D3Q19), and at 128^3 on D3Q27 and D3Q27 under the Bouzidi
+   obstacle (N=8: the rings in a scratch buffer in device memory): N =
+   4-8 bitwise against N 1-step launches from the perturbed state, N=8
+   within 8 one-step tolerances of 8 plain steps; (2,1) at 128^3 (N=6 on
+   D3Q19, 8 on D3Q27) one launch a shard against the plain ring step and
+   bitwise one device, an 840-step chunk bitwise one device; the Runner at
+   128^3 (D3Q19) for 841 steps every 840 under TPULBM_SUBSTEPS=n for each
+   n (on D3Q27 at 64^3 and n = 8), forces.csv and fields3d.npz equal to
+   the run with blocking off;
+70. timing in turns: the 1-step kernel and N = 4-8 (256^3 D3Q19 with the
+   plain step, 128^3 D3Q27);
+71. the D3Q19 phase lab (csrc/kernel_lab_d3q19.cu, utils/kernel_lab.py):
+   each of dma, collide, stream, bcs and full against the plain lab at
+   64^3 for 1 and 3 chained iterations (rtol 5e-6, atol 1e-7);
+72. the lab at 256^3: its JSON lines, each variant's ms and its share of
+   the 0.76123 ms byte bound, `full` beside the 1-step D3Q19 duct kernel
+   in the same turns, the plain lab's times and dma's one PyTorch copy.
 
 Run directories go to build/chip_smoke/ (git-ignored; the final CSVs have
 a million rows). The last two lines are a JSON line per kernel and the
@@ -472,8 +506,12 @@ phase 62's (2,1) Runner for their ring builds
 phase 63 for the slab's (d2q9_collide_stream[_nN][<op>+channel+slab
 +source+bouzidi], ...[bgk+channel+slab+source+bounce_back],
 ...[bgk+channel+slab+source], the moving wall's ..._moving[bgk+channel
-+slab+bouzidi]; N=2 and N=3 0) and phase 65's runs for their ring builds
-(d2q9_rings_rows_n4[...], d2q9_rings_tiled[...]).
++slab+bouzidi]; N=2 and N=3 0), phase 65's runs for their ring builds
+(d2q9_rings_rows_n4[...], d2q9_rings_tiled[...]), phase 67's Runners for
+the deep 2-D depths (d2q9_collide_stream_n5 .. _n8), phase 69's for the
+deep 3-D ones (d3q19_collide_stream_n4 .. _n8, and [d3q27],
+[bouzidi+d3q27]) and phase 72's run for the lab
+(kernel_lab_d3q19[<variant>], whose `library_ms` for dma is one copy_).
 A kernel's
 `bound_ms` is the
 least time the card could take for one step of its work at the shape it
@@ -602,9 +640,18 @@ GATES_3D = {
     "les": (dict(nx=128, ny=16, nz=16, tau=0.55), 4),
     "power_law": (dict(nx=128, ny=16, nz=16, tau=0.55, power_law_k=0.02), 4),
 }
-# the 280-step drift of the 3-D operators runs at 128^3: the plain MRT and
-# power-law steps are too slow at 256^3 for the script's time
-DRIFT_N_3D = 128
+# the 280-step drift of the 3-D operators runs at 64^3: the plain MRT and
+# power-law steps are too slow at 256^3 for the script's time, and at
+# 128^3 their 280 steps took about a minute of it (cut to make room for
+# phases 67-72)
+DRIFT_N_3D = 64
+# the plain steps that advance the 2-D operators' and cells' second state
+# (phases 17, 25, 41), few enough to leave room for phases 67-72 (the
+# plain 2-D step is host-bound and slows while nvcc builds beside it)
+ADVANCED_PLAIN_STEPS = 100
+# the 2-D operators' and cells' drift against the plain step (phases 17,
+# 25, 35, 41, 63), as short for the same reason
+DRIFT_2D_STEPS = 140
 # The 3-D Runners of phases 22, 28 and 44 (the Bouzidi sphere's other
 # collisions): their depth cut to 280 steps every 140 to keep the script
 # near half its time limit, the 3-D main path (phase 7) and the Bouzidi
@@ -824,15 +871,14 @@ def reset_counts() -> None:
 def read_counts() -> dict:
     """Every kernel's launch count: 1 (D2Q9 1-step), 2-4 (N-step), "3d"
     (D3Q19 1-step), "3d2" and "3d3" (D3Q19 N-step), "thermal",
-    "multiphase"."""
+    "multiphase"; and a deep depth's (5-8, "3d4" to "3d8") once launched."""
     from tpulbm_torch.ops import (step_cuda, step_multiphase_cuda,
                                   step_thermal_cuda)
     return {1: step_cuda.launches(step_cuda.collide_stream),
             **step_cuda.launches(step_cuda.collide_stream_blocked),
             "3d": step_cuda.launches(step_cuda.collide_stream_3d),
-            **{f"3d{n}": step_cuda.launches(
-                step_cuda.collide_stream_3d_blocked)[n]
-               for n in DEPTHS_3D},
+            **{f"3d{n}": count for n, count in step_cuda.launches(
+                step_cuda.collide_stream_3d_blocked).items()},
             "thermal": step_cuda.launches(
                 step_thermal_cuda.collide_stream_thermal),
             "multiphase":
@@ -1481,12 +1527,13 @@ def close_or_relative(got: torch.Tensor, want: torch.Tensor, tol: dict,
 
 def operator_parity(dev, op: str):
     """Phase 17 for one operator at 2048x512: one 1-step kernel step
-    against one plain step from the initial state and after 500 plain
-    steps; 280 kernel steps against 280 plain steps; the N-step kernel at
-    N = 2, 3, 4 bitwise against N 1-step launches and within N times the
-    one-step tolerance of N plain steps, from both states. Returns (the
-    params, the collision mode, the kernel steps by depth, the plain step,
-    the initial state, the errors against the plain step by depth)."""
+    against one plain step from the initial state and after
+    ADVANCED_PLAIN_STEPS plain steps; DRIFT_2D_STEPS kernel steps against
+    as many plain steps; the N-step kernel at N = 2, 3, 4 bitwise against
+    N 1-step launches and within N times the one-step tolerance of N plain
+    steps, from both states. Returns (the params, the collision mode, the
+    kernel steps by depth, the plain step, the initial state, the errors
+    against the plain step by depth)."""
     from tpulbm_torch.config import PRESETS
     from tpulbm_torch.models import make_problem
     from tpulbm_torch.ops import step_cuda, step_torch
@@ -1501,25 +1548,27 @@ def operator_parity(dev, op: str):
         steps[n] = step_cuda.make_local_step_cuda_blocked(problem, dev, n)
     pstep = step_torch.make_step_rolled(problem, dev)
     f0 = initial_state(problem, dev)
-    f500 = plain_chunk(pstep, f0.clone(), 500)
+    fadv = plain_chunk(pstep, f0.clone(), ADVANCED_PLAIN_STEPS)
     errs, held = [], []
-    for f in (f0, f500):
+    for f in (f0, fadv):
         got = steps[1](f, torch.empty_like(f))
         want = pstep(f)
         torch.cuda.synchronize()
         held.append(close_or_relative(got, want, tol, relative))
         errs.append(float((got - want).abs().max()))
-    fk = kernel_chunk(steps[1], f0.clone(), 280)
-    fp = plain_chunk(pstep, f0.clone(), 280)
+    fk = kernel_chunk(steps[1], f0.clone(), DRIFT_2D_STEPS)
+    fp = plain_chunk(pstep, f0.clone(), DRIFT_2D_STEPS)
     torch.cuda.synchronize()
     err_280 = float((fk - fp).abs().max())
     require(np.isfinite(err_280) and err_280 < DRIFT_280_BOUND,
-            f"{op}: 280-step drift {err_280} beyond {DRIFT_280_BOUND}")
+            f"{op}: {DRIFT_2D_STEPS}-step drift {err_280} beyond "
+            f"{DRIFT_280_BOUND}")
     del fk, fp
     err_n = {}
     for n in DEPTHS:
         errs_n = []
-        for name, f in (("initial", f0), ("500 plain steps", f500)):
+        for name, f in (("initial", f0),
+                        (f"{ADVANCED_PLAIN_STEPS} plain steps", fadv)):
             got = steps[n](f, torch.empty_like(f))
             want = kernel_chunk(steps[1], f.clone(), n)
             want_plain = plain_chunk(pstep, f.clone(), n)
@@ -1537,7 +1586,8 @@ def operator_parity(dev, op: str):
     print(f"operator parity {op} ({mode}, "
           f"{OPERATORS[op]}) at {params.nx}x{params.ny}: 1 step max abs err "
           f"{errs[0]:.3e} from the initial state ({held[0]} held), "
-          f"{errs[1]:.3e} after 500 plain steps ({held[1]} held); 280 steps "
+          f"{errs[1]:.3e} after {ADVANCED_PLAIN_STEPS} plain steps "
+          f"({held[1]} held); {DRIFT_2D_STEPS} steps "
           f"{err_280:.3e} (bound {DRIFT_280_BOUND}); N=2/3/4 bitwise against "
           f"N 1-step launches from both states, against N plain steps "
           + "/".join(f"{err_n[n]:.3e}" for n in DEPTHS))
@@ -1713,9 +1763,9 @@ def sphere_operator_parity(dev, op: str):
     power law at tpulbm's rtol 1e-4), with the BGK library's step at least
     SEPARATION tolerances off on the last; the N = 2, 3 kernels bitwise
     against N 1-step launches from all three; 280 kernel steps against 280
-    plain steps at
-    128^3 (bounded by 1e-4); tpulbm's own 3-D gate of the operator, the
-    kernels (the chunk's plan) against the plain step. Returns (the params,
+    plain steps at DRIFT_N_3D^3 (bounded by 1e-4); tpulbm's own 3-D gate
+    of the operator, the kernels (the chunk's plan) against the plain
+    step. Returns (the params,
     the collision mode, the kernel steps by depth, the initial state, the
     larger one-step error)."""
     from tpulbm_torch.config import SimulationParams
@@ -1760,7 +1810,7 @@ def sphere_operator_parity(dev, op: str):
                     f"3-D {op} N={d}: {float((got - want).abs().max())} off "
                     f"{d} 1-step launches")
     del f100, fp, got, want
-    # 280 steps at 128^3
+    # 280 steps at DRIFT_N_3D^3
     _, small = build(DRIFT_N_3D)
     s0 = initial_state(small, dev)
     sk = kernel_chunk(step_cuda.make_local_step_cuda_3d(small, dev),
@@ -2231,15 +2281,16 @@ def cell_parity(cell: Cell, full: bool, advanced: bool = True,
                 drift: bool = True) -> float:
     """Phase 25 (2-D) or 27 (3-D) on one cell: one 1-step kernel step
     against one plain step from the perturbed state (and, `full`, from the
-    initial state and an advanced one: 500 plain steps in 2-D, 100 kernel
+    initial state and an advanced one: ADVANCED_PLAIN_STEPS plain steps
+    in 2-D, 100 kernel
     steps in 3-D), where the obstacle domain's library of the same
     collision must miss the plain step by more than SEPARATION tolerances
     if the cell's domain or obstacle rule differs from it, and the source
     must show (source_check) if the cell's library has one;
     the N-step kernels bitwise against N 1-step launches from each state;
-    with `full`, 280 kernel steps against 280 plain steps (3-D at
-    drift_n^3); without `advanced`, no advanced state; without
-    `check_source`, no source check; without `drift`, no 280 steps.
+    with `full`, kernel steps against as many plain steps (3-D 280 at
+    drift_n^3, 2-D DRIFT_2D_STEPS); without `advanced`, no advanced state;
+    without `check_source`, no source check; without `drift`, no drift.
     Returns the larger one-step error."""
     from tpulbm_torch.ops.step_cuda import D3Q27, FORCE, SOURCE
     s1 = cell.steps[1]
@@ -2247,7 +2298,8 @@ def cell_parity(cell: Cell, full: bool, advanced: bool = True,
     states = [("perturbed", fp)]
     if full and advanced:
         adv = (kernel_chunk(s1, cell.f0.clone(), 100) if cell.three_d
-               else plain_chunk(cell.pstep, cell.f0.clone(), 500))
+               else plain_chunk(cell.pstep, cell.f0.clone(),
+                                ADVANCED_PLAIN_STEPS))
         states = [("initial", cell.f0), ("advanced", adv)] + states
     elif full:
         states = [("initial", cell.f0)] + states
@@ -2314,14 +2366,15 @@ def cell_parity(cell: Cell, full: bool, advanced: bool = True,
             sp = plain_chunk(step_torch.make_step_rolled(
                 small, cell.f0.device), s0, 280)
         else:
-            sk = kernel_chunk(s1, cell.f0.clone(), 280)
-            sp = plain_chunk(cell.pstep, cell.f0.clone(), 280)
+            sk = kernel_chunk(s1, cell.f0.clone(), DRIFT_2D_STEPS)
+            sp = plain_chunk(cell.pstep, cell.f0.clone(), DRIFT_2D_STEPS)
         torch.cuda.synchronize()
         err_280 = float((sk - sp).abs().max())
         require(np.isfinite(err_280) and err_280 < DRIFT_280_BOUND,
                 f"{cell.label}: 280-step drift {err_280} beyond "
                 f"{DRIFT_280_BOUND}")
-        drift_text = (f"; 280 steps{f' at {n}^3' if cell.three_d else ''}"
+        drift_text = (f"; {280 if cell.three_d else DRIFT_2D_STEPS} steps"
+                      f"{f' at {n}^3' if cell.three_d else ''}"
                       f" {err_280:.3e} (bound {DRIFT_280_BOUND})")
         del sk, sp
     shape = "x".join(str(v) for v in cell.problem.spatial_shape[::-1])
@@ -6126,6 +6179,425 @@ def remainder_phases(dev, card: str, refs: dict | None = None) -> list[dict]:
     return entries
 
 
+# ---- phases 67-72: the deep forced depths and the phase lab ------------
+
+# the deep builds' depths (TPULBM_SUBSTEPS only), the chunk that all of
+# them divide (840 = lcm(5, 6, 7, 8), and 4 divides it too) and the cube
+# edge of the 3-D cells off the main width
+DEEP_2D = (5, 6, 7, 8)
+DEEP_3D = (4, 5, 6, 7, 8)
+DEEP_CHUNK = 840
+DEEP_N = 128
+DEEP_SMALL_N = 64
+# the lab's cube edges: its check against the plain lab, and its timing
+LAB_CHECK_N = 64
+LAB_N = 256
+
+
+def deep_builds():
+    """(source, mode, variant) of the libraries phases 67-71 run: the deep
+    builds (-DTPULBM_DEEP=1) of the N-step D2Q9 source for the BGK
+    cylinder, TRT (the clean corners), the cavity and the cylinder's ring
+    build; of the N-step D3Q19 source for the sphere on D3Q19, D3Q27 and
+    D3Q27 under the Bouzidi obstacle, each also with rings; and the lab."""
+    from tpulbm_torch.ops import step_cuda as sc
+    d2, d3 = "step_d2q9_blocked.cu", "step_d3q19_blocked.cu"
+    cavity = sc.DOMAINS.index("cavity")
+    builds = [(d2, "bgk", sc.DEEP), (d2, "trt", sc.DEEP),
+              (d2, "bgk", cavity | sc.DEEP), (d2, "bgk", sc.RINGS | sc.DEEP)]
+    for v in (0, sc.D3Q27, sc.D3Q27 | sc.BOUZIDI):
+        builds += [(d3, "bgk", v | sc.DEEP),
+                   (d3, "bgk", v | sc.RINGS | sc.DEEP)]
+    return builds
+
+
+def deep_runner(dev, params, n_sub, label: str, files) -> dict:
+    """The Runner over one DEEP_CHUNK-step interval and the last step with
+    TPULBM_SUBSTEPS=n_sub, counted, its `files` the same bytes as the run
+    with blocking off (TPULBM_NO_FUSED2; fields3d.npz: the same arrays).
+    Returns its launch counts."""
+    base = OUT_DIR / f"deep_{label}"
+    p = params.replace(num_timesteps=DEEP_CHUNK + 1,
+                       output_frequency=DEEP_CHUNK)
+    _, counts, _ = with_env(
+        {"TPULBM_SUBSTEPS": str(n_sub)},
+        lambda: run_counted(p.replace(output_dir=str(base / f"n{n_sub}")),
+                            dev))
+    off = base / "off"
+    if not off.exists():
+        with_env({"TPULBM_NO_FUSED2": "1"}, lambda: run_counted(
+            p.replace(output_dir=str(off)), dev))
+    for name in files:
+        a, b = base / f"n{n_sub}" / name, off / name
+        same = (same_npz(a, b, skip=("params",)) if name.endswith(".npz")
+                else filecmp.cmp(a, b, shallow=False))
+        require(same, f"deep {label} N={n_sub}: {name} differs from the run "
+                "with blocking off")
+    return counts
+
+
+def deep_mesh_chunk(dev, problem, shape, env: dict, f, one, mode: str,
+                    depth: int) -> None:
+    """DEEP_CHUNK steps of `problem` on `shape` (every shard on the card)
+    under `env` from f: the plan is (mode, depth) and the gathered state
+    equals the one-device chunk's `one`, bit for bit."""
+    from tpulbm_torch.parallel import sharded_step
+    mesh = card_mesh(shape, dev)
+    fn = with_env(env, lambda: sharded_step.make_chunk_fn(problem, mesh,
+                                                          DEEP_CHUNK))
+    plan = fn.plan if problem.lattice.D == 3 else None
+    require(fn.mode == mode and fn.substeps == depth,
+            f"{shape} under {env}: plan {fn.mode} N={fn.substeps} {plan}, "
+            f"not {mode} N={depth}")
+    got = gather(fn(sharded_step.split(mesh, f.clone())))
+    torch.cuda.synchronize()
+    require(torch.equal(got, one), f"{shape} {mode} N={depth}: "
+            f"{float((got - one).abs().max())} off one device")
+
+
+def deep_bitwise(label: str, one, deep: dict, states: dict, plain=None,
+                 tol_n=None) -> float:
+    """Each deep launch bitwise against N launches of the 1-step kernel
+    `one` from every state; against N plain steps within N one-step
+    tolerances where `plain` is given. Returns the largest error against
+    plain (0.0 without it)."""
+    err = 0.0
+    for n, step in deep.items():
+        for name, f in states.items():
+            got = step(f, torch.empty_like(f))
+            want = kernel_chunk(one, f.clone(), n)
+            torch.cuda.synchronize()
+            require(torch.equal(got, want), f"{label} N={n} from {name}: "
+                    f"{float((got - want).abs().max())} off {n} 1-step "
+                    "launches")
+            if plain is not None:
+                ref = plain_chunk(plain, f.clone(), n)
+                torch.testing.assert_close(got, ref, **n_step_tol(n))
+                err = max(err, float((got - ref).abs().max()))
+            del got, want
+    return err
+
+
+def events_ms(launch, n: int, warm: int) -> float:
+    """ms per call of `launch` (no arguments; it enqueues work on the
+    current stream) over n calls between two CUDA events, after `warm`."""
+    for _ in range(warm):
+        launch()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0.record()
+    for _ in range(n):
+        launch()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / n
+
+
+def deep_timing(runs: dict, f, order) -> dict:
+    """ms/step of each of `runs` ({key: (run, steps, warm)}) in turns,
+    forward then back; the lower of the two."""
+    times = {k: [] for k in order}
+    for which in list(order) + list(order)[::-1]:
+        run, steps, warm = runs[which]
+        times[which].append(ms_per_step(run, f, steps, warm))
+    return {k: min(v) for k, v in times.items()}
+
+
+def deep2d_phases(dev, card: str) -> list[dict]:
+    """Phases 67-68: the deep build of the N-step D2Q9 kernel (N = 5-8,
+    TPULBM_SUBSTEPS only) at re200 2048x512: bitwise against N 1-step
+    launches, the Runner, TRT with clean corners, the cavity, the "rows"
+    and overlap meshes on the card, timing. Returns the kernels' JSON
+    entries."""
+    from tpulbm_torch.models import make_problem
+    from tpulbm_torch.ops import step_cuda, step_torch
+    t0 = time.perf_counter()
+    params = obstacle_params(False)
+    problem = make_problem(params)
+    kstep = step_cuda.make_local_step_cuda(problem, dev)
+    pstep = step_torch.make_step_rolled(problem, dev)
+    deep = {n: step_cuda.make_local_step_cuda_blocked(problem, dev, n)
+            for n in (4, *DEEP_2D)}
+    smem = {n: step_cuda._blocked_library("bgk", step_cuda.DEEP)
+            .tpulbm_d2q9_blocked_smem_bytes(n) for n in DEEP_2D}
+    print(f"deep 2-D: the deep build's dynamic shared memory per block "
+          f"{smem} B")
+    f0 = initial_state(problem, dev)
+    fp = perturbed(problem, f0)
+    err = deep_bitwise("deep re200", kstep,
+                       {n: deep[n] for n in DEEP_2D},
+                       {"initial": f0, "perturbed": fp}, pstep)
+    fk = kernel_chunk(kstep, f0.clone(), DEEP_CHUNK)
+    for n in DEEP_2D:
+        got = kernel_chunk(deep[n], f0.clone(), DEEP_CHUNK // n)
+        torch.cuda.synchronize()
+        require(torch.equal(got, fk), f"{DEEP_CHUNK // n} N={n} launches "
+                f"off {DEEP_CHUNK} 1-step launches")
+    print(f"deep 2-D parity at {params.nx}x{params.ny}: N = 5-8 bitwise "
+          f"against N 1-step launches from the initial and the perturbed "
+          f"state, within N one-step tolerances of N plain steps (max abs "
+          f"err {err:.3e}); {DEEP_CHUNK} steps at each depth bitwise "
+          f"against {DEEP_CHUNK} 1-step launches")
+    counts = {}
+    for n in DEEP_2D:
+        counts[n] = deep_runner(dev, params, n, "re200",
+                                ["forces.csv", "velocity_field.csv"])
+        require(counts[n] == {**only(1, 1), n: DEEP_CHUNK // n},
+                f"re200 TPULBM_SUBSTEPS={n}: launch counts {counts[n]}")
+    print(f"deep 2-D main path: the Runner at re200, {DEEP_CHUNK + 1} "
+          f"steps every {DEEP_CHUNK} under TPULBM_SUBSTEPS=5..8: "
+          + ", ".join(f"{counts[n][n]} N={n} + 1 1-step" for n in DEEP_2D)
+          + "; forces.csv and velocity_field.csv byte-identical to the run "
+          "with blocking off")
+    # the clean corners (TRT) and the cavity's corners at every deep depth
+    for label, cp in (("trt clean corners", params.replace(
+            **OPERATORS["trt"])), ("cavity", cavity_params())):
+        cprob = make_problem(cp)
+        one = step_cuda.make_local_step_cuda(cprob, dev)
+        depths = (8,) if label.startswith("trt") else DEEP_2D
+        c0 = initial_state(cprob, dev)
+        deep_bitwise(label, one, {n: step_cuda.make_local_step_cuda_blocked(
+            cprob, dev, n) for n in depths},
+            {"initial": c0, "perturbed": perturbed(cprob, c0)})
+        print(f"deep 2-D {label} {cp.nx}x{cp.ny}: N = {depths} bitwise "
+              "against N 1-step launches from the initial and the "
+              "perturbed state")
+        del c0
+    # "rows" on (2, 1) and the overlap mode on (4, 1) at N = 8
+    one = lambda f: deep[8](f, torch.empty_like(f))  # noqa: E731
+    e_rows, _ = ring_parity(problem, fp, (2, 1), dev, 8, False, one)
+    e_over, _ = ring_parity(problem, fp, (4, 1), dev, 8, False, one,
+                            ranged=True)
+    one_chunk = kernel_chunk(deep[8], fp.clone(), DEEP_CHUNK // 8)
+    deep_mesh_chunk(dev, problem, (2, 1), {"TPULBM_SUBSTEPS": "8"}, fp,
+                    one_chunk, "rows", 8)
+    deep_mesh_chunk(dev, problem, (4, 1), {"TPULBM_SUBSTEPS": "8",
+                                           "TPULBM_HALO_OVERLAP": "1"},
+                    fp, one_chunk, "overlap", 8)
+    print(f"deep 2-D meshes at N=8 on the card: (2,1) rows and (4,1) "
+          f"overlap, one launch a shard from the perturbed state against "
+          f"the plain ring step ({e_rows:.3e}, {e_over:.3e}) and bitwise "
+          f"one device; {DEEP_CHUNK}-step chunks bitwise one device")
+    # timing in turns: the plain step, the 1-step kernel, N = 4-8
+    steps = 2 * DEEP_CHUNK
+    runs = {"plain": (lambda f, m: plain_chunk(pstep, f, m), PLAIN_2D_STEPS,
+                      PLAIN_WARM),
+            1: (lambda f, m: kernel_chunk(kstep, f, m), steps, 20)}
+    for n in (4, *DEEP_2D):
+        runs[n] = (lambda f, m, n=n: kernel_chunk(deep[n], f, m // n), steps,
+                   n * 5)
+    ms = deep_timing(runs, f0, ["plain", 1, 4, *DEEP_2D])
+    cells = params.nx * params.ny
+    b = {n: bound("d2q9", cells, n) for n in (4, *DEEP_2D)}
+    print(f"deep 2-D timing at {params.nx}x{params.ny} on {card}, ms/step: "
+          f"plain {ms['plain']:.5f}; 1-step {ms[1]:.5f}; "
+          + "; ".join(f"N={n} {ms[n]:.5f} ("
+                      f"{100 * b[n]['bound_ms'] / ms[n]:.1f}% of its bound "
+                      f"{b[n]['bound_ms']:.5f} ms)" for n in (4, *DEEP_2D)))
+    print(f"deep 2-D phases 67-68: {time.perf_counter() - t0:.2f} s")
+    del f0, fp, fk, one_chunk
+    torch.cuda.empty_cache()
+    return [{"name": f"d2q9_collide_stream_n{n}", "route": "cuda",
+             "source": step_cuda.BLOCKED_SOURCE,
+             "replaces": step_cuda.BLOCKED_REPLACES[n],
+             "launches": counts[n][n], "max_abs_err": err, "ms": ms[n],
+             "plain_ms": ms["plain"], **b[n]} for n in DEEP_2D]
+
+
+def deep3d_phases(dev, card: str) -> list[dict]:
+    """Phases 69-70: the deep build of the N-step D3Q19 kernel (N = 4-8,
+    TPULBM_SUBSTEPS only): the sphere at 256^3 on D3Q19, bitwise against N
+    1-step launches from the perturbed state and timed; D3Q27 and D3Q27
+    under the Bouzidi obstacle at 128^3 (N=8: the scratch build); the
+    (2, 1) mesh on the card; the Runner. Returns the kernels' JSON
+    entries."""
+    from tpulbm_torch.models import make_problem
+    from tpulbm_torch.ops import step_cuda, step_torch
+    t0 = time.perf_counter()
+    entries = []
+    cases = [("d3q19", obstacle_params(True)),
+             ("d3q27", obstacle_params(True, lattice3d="d3q27").replace(
+                 nx=DEEP_N, ny=DEEP_N, nz=DEEP_N)),
+             ("bouzidi+d3q27", bz27_params(DEEP_N))]
+    for tag, params in cases:
+        problem = make_problem(params)
+        consts = step_cuda.kernel_constants(problem, 19)
+        lib = step_cuda._blocked_library_3d(
+            consts.mode, consts.variant | step_cuda.DEEP)
+        tiles = {n: divmod(lib.tpulbm_d3q19_blocked_tile(n), 256)
+                 for n in DEEP_3D}
+        smem = {n: lib.tpulbm_d3q19_blocked_smem_bytes(n) for n in DEEP_3D}
+        scratch = {n: lib.tpulbm_d3q19_blocked_scratch_bytes(n, dev.index or 0)
+                   for n in DEEP_3D}
+        kstep = step_cuda.make_local_step_cuda_3d(problem, dev)
+        pstep = step_torch.make_step_rolled(problem, dev)
+        deep = {n: step_cuda.make_local_step_cuda_3d_blocked(problem, dev, n)
+                for n in DEEP_3D}
+        f0 = initial_state(problem, dev)
+        fp = perturbed(problem, f0)
+        deep_bitwise(f"deep {tag}", kstep, deep, {"perturbed": fp})
+        n3 = params.nx
+        print(f"deep 3-D {tag} sphere {n3}^3: N = 4-8 bitwise against N "
+              f"1-step launches from the perturbed state; tiles (x, y) "
+              f"{tiles}, shared memory {smem} B, scratch {scratch} B")
+        # the plain step's N steps (once, N = 8) and the mesh: (2, 1)
+        err = 0.0
+        ref = plain_chunk(pstep, fp.clone(), 8)
+        got = deep[8](fp, torch.empty_like(fp))
+        torch.testing.assert_close(got, ref, **n_step_tol(8))
+        err = float((got - ref).abs().max())
+        del ref, got
+        mesh_n = 6 if tag == "d3q19" else 8
+        small = problem if n3 <= DEEP_N else make_problem(params.replace(
+            nx=DEEP_N, ny=DEEP_N, nz=DEEP_N))
+        s0 = perturbed(small, initial_state(small, dev))
+        sdeep = step_cuda.make_local_step_cuda_3d_blocked(small, dev, mesh_n)
+        e_ring, _ = ring_parity(small, s0, (2, 1), dev, mesh_n, False,
+                                lambda f: sdeep(f, torch.empty_like(f)))
+        one_chunk = kernel_chunk(sdeep, s0.clone(), DEEP_CHUNK // mesh_n)
+        deep_mesh_chunk(dev, small, (2, 1), {"TPULBM_SUBSTEPS": str(mesh_n)},
+                        s0, one_chunk, "rows", mesh_n)
+        print(f"deep 3-D {tag}: N=8 against 8 plain steps {err:.3e} (rtol "
+              f"{n_step_tol(8)['rtol']:.0e}); (2,1) at {DEEP_N}^3 N={mesh_n}: "
+              f"one launch a shard against the plain ring step "
+              f"({e_ring:.3e}) and bitwise one device, a {DEEP_CHUNK}-step "
+              "chunk bitwise one device")
+        del s0, one_chunk, sdeep
+        # the Runner at DEEP_N^3 at every depth; off D3Q19 at
+        # DEEP_SMALL_N^3 and N=8, the scratch build (the others' launches 0)
+        rn = DEEP_N if tag == "d3q19" else DEEP_SMALL_N
+        rparams = params.replace(nx=rn, ny=rn, nz=rn)
+        counts = dict.fromkeys(DEEP_3D, 0)
+        for n in (DEEP_3D if tag == "d3q19" else (8,)):
+            got_n = deep_runner(dev, rparams, n, tag,
+                                ["forces.csv", "fields3d.npz"])
+            require(got_n == {**only("3d", 1), f"3d{n}": DEEP_CHUNK // n},
+                    f"{tag} Runner TPULBM_SUBSTEPS={n}: counts {got_n}")
+            counts[n] = got_n[f"3d{n}"]
+        print(f"deep 3-D {tag} main path: the Runner at {rn}^3, "
+              f"{DEEP_CHUNK + 1} steps every {DEEP_CHUNK}: "
+              + ", ".join(f"{counts[n]} N={n}" for n in DEEP_3D if counts[n])
+              + " + 1 one-step launches; forces.csv and fields3d.npz equal "
+              "to the run with blocking off")
+        # timing in turns: the 1-step kernel and N = 4-8 (a few launches)
+        runs = {1: (lambda f, m: kernel_chunk(kstep, f, m), 40, 4)}
+        if tag == "d3q19":
+            runs["plain"] = (lambda f, m: plain_chunk(pstep, f, m),
+                             PLAIN_3D_STEPS, PLAIN_WARM)
+        for n in DEEP_3D:
+            runs[n] = (lambda f, m, n=n: kernel_chunk(deep[n], f, m // n),
+                       4 * n, n)
+        order = [k for k in ("plain", 1, *DEEP_3D) if k in runs]
+        ms = deep_timing(runs, f0, order)
+        cells = n3 ** 3
+        lat = "d3q19" if tag == "d3q19" else "d3q27"
+        b = {n: bound(lat, cells, n) for n in (1, *DEEP_3D)}
+        plain_ms = ms.get("plain")
+        if plain_ms is None:
+            plain_ms = ms_per_step(lambda f, m: plain_chunk(pstep, f, m), f0,
+                                   PLAIN_3D_STEPS, PLAIN_WARM)
+        print(f"deep 3-D {tag} timing at {n3}^3 on {card}, ms/step: plain "
+              f"{plain_ms:.5f}; 1-step {ms[1]:.5f}; "
+              + "; ".join(f"N={n} {ms[n]:.5f} ("
+                          f"{100 * b[n]['bound_ms'] / ms[n]:.1f}% of its "
+                          f"bound {b[n]['bound_ms']:.5f} ms)"
+                          for n in DEEP_3D))
+        suffix = "" if tag == "d3q19" else f"[{tag}]"
+        entries += [{"name": f"d3q19_collide_stream_n{n}{suffix}",
+                     "route": "cuda", "source": step_cuda.SOURCE_3D_BLOCKED,
+                     "replaces": step_cuda.REPLACES_3D_DEEP,
+                     "launches": counts[n], "max_abs_err": err, "ms": ms[n],
+                     "plain_ms": plain_ms, **b[n]} for n in DEEP_3D]
+        del f0, fp, deep, kstep, pstep
+        torch.cuda.empty_cache()
+    print(f"deep 3-D phases 69-70: {time.perf_counter() - t0:.2f} s")
+    return entries
+
+
+def lab_phases(dev, card: str) -> list[dict]:
+    """Phases 71-72: the D3Q19 phase lab (utils/kernel_lab.py): each
+    variant's kernel against the plain lab at 64^3 for 1 and 3 chained
+    iterations; at 256^3 its JSON lines, each variant's ms and share of
+    the byte bound, `full` beside the 1-step D3Q19 duct kernel in the
+    same turns. Returns the lab's JSON entries."""
+    from tpulbm_torch.models import make_problem
+    from tpulbm_torch.ops import step_cuda
+    from tpulbm_torch.utils import kernel_lab as lab
+    t0 = time.perf_counter()
+    f = lab.lab_input(LAB_CHECK_N, dev)
+    errs = {}
+    for name in lab.VARIANTS:
+        errs[name] = 0.0
+        for iters in (1, 3):
+            got = lab.chained(f, name, iters)
+            want = f.clone()
+            for _ in range(iters):
+                want = lab.plain_lab(want, name)
+            torch.testing.assert_close(got, want, **lab.TOL)
+            errs[name] = max(errs[name], float((got - want).abs().max()))
+    print(f"lab parity at {LAB_CHECK_N}^3: every variant's kernel against "
+          f"the plain lab for 1 and 3 chained iterations (rtol 5e-6, atol "
+          f"1e-7): max abs err {errs}")
+    del f
+    for name in lab.VARIANTS:
+        lab.lab_step.launches[name] = 0
+    rows = lab.run(LAB_N, 30, 3, list(lab.VARIANTS), dev)
+    launches = dict(lab.lab_step.launches)
+    for row in rows:
+        print(json.dumps(row))
+    print(f"lab at {LAB_N}^3 on {card}: " + "; ".join(
+        f"{r['variant']} {r['ms']:.5f} ms ({100 * r['bound_share']:.1f}% of "
+        f"the {r['bound_ms']:.5f} ms byte bound)" for r in rows))
+    # `full` beside the 1-step D3Q19 duct kernel, in the same turns
+    f = lab.lab_input(LAB_N, dev)
+    duct = make_problem(duct_params(LAB_N))
+    dstep = step_cuda.make_local_step_cuda_3d(duct, dev)
+    d0 = initial_state(duct, dev)
+    pair = {"full": (f.clone(), f.clone()), "duct": (d0, torch.empty_like(d0))}
+
+    def launch(which: str) -> None:
+        a, b = pair[which]
+        if which == "full":
+            lab.lab_step(a, b, "full")
+        else:
+            dstep(a, b)
+        pair[which] = (b, a)
+
+    times = {k: [] for k in pair}
+    for which in ["full", "duct", "duct", "full"]:
+        times[which].append(events_ms(lambda: launch(which), 30, 3))
+    ms = {k: min(v) for k, v in times.items()}
+    print(f"lab full {ms['full']:.5f} ms beside the 1-step D3Q19 duct kernel "
+          f"(bgk+duct+source) {ms['duct']:.5f} ms at {LAB_N}^3 in the same "
+          f"turns (runs {times})")
+    # the plain lab's time and, for dma, one PyTorch copy of the rows
+    plain_ms = {}
+    for name in lab.VARIANTS:
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        lab.plain_lab(f, name)
+        torch.cuda.synchronize()
+        plain_ms[name] = (time.perf_counter() - a) * 1e3
+    dst = f.clone()
+    rows_of = slice(lab.H, lab.H + LAB_N)
+    copy_ms = events_ms(lambda: dst[:, :, rows_of].copy_(f[:, :, rows_of]),
+                        30, 3)
+    print(f"lab plain version ms {plain_ms}; dma's library call (one "
+          f"copy_ of the rows) {copy_ms:.5f} ms")
+    print(f"lab phases 71-72: {time.perf_counter() - t0:.2f} s")
+    del f, d0, dst
+    torch.cuda.empty_cache()
+    return [{"name": f"kernel_lab_d3q19[{r['variant']}]", "route": "cuda",
+             "source": lab.SOURCE, "replaces": lab.REPLACES,
+             "launches": launches[r["variant"]],
+             "max_abs_err": max(errs[r["variant"]], r["max_abs_err"]),
+             "ms": r["ms"], "plain_ms": plain_ms[r["variant"]],
+             "bound_ms": r["bound_ms"], "bound_by": "bytes",
+             "library_ms": copy_ms if r["variant"] == "dma" else None}
+            for r in rows]
+
+
 def gate_references():
     """(slab_problem keywords, steps) of phase 64's f32 plain-step
     references: the staircase pair and both Couette channels."""
@@ -6156,7 +6628,8 @@ def phase_builds(step_cuda) -> list:
     in the order the phases first need them, the N-step sources (the
     longest builds) first within a phase group: the six sources, the
     collision-mode builds of phases 17-24, then the builds of phases
-    25-29, 30-34, 35-40, 41-45, 46-50, 51-55, 56-60 and 61-66."""
+    25-29, 30-34, 35-40, 41-45, 46-50, 51-55, 56-60, 61-66, 67-70 (the
+    deep builds) and 71-72 (the lab)."""
     sources = ["step_d2q9.cu", "step_d2q9_blocked.cu", "step_d3q19.cu",
                "step_d3q19_blocked.cu", "step_thermal.cu",
                "step_multiphase.cu"]
@@ -6170,9 +6643,10 @@ def phase_builds(step_cuda) -> list:
     groups = [[(src, ()) for src in sources], modes]
     for builds in (new_builds, mesh_builds, box_builds, bz_builds,
                    box3d_builds, mesh3d_builds, coupled_builds,
-                   remainder_builds):
+                   remainder_builds, deep_builds):
         groups.append([(src, step_cuda.build_defines(mode, variant))
                        for src, mode, variant in builds()])
+    groups.append([("kernel_lab_d3q19.cu", ())])
     jobs = []
     for group in groups:
         for job in sorted(group, key=lambda j: "_blocked" not in j[0]):
@@ -6197,8 +6671,7 @@ class Builds:
         spare = set(cpus[1:]) or set(cpus)
         self.workers = 2 * len(spare)
         self.pool = ThreadPoolExecutor(
-            self.workers, initializer=os.sched_setaffinity,
-            initargs=(0, spare))
+            self.workers, initializer=self._worker, initargs=(spare,))
         self.load = cuda_build.load
         self.futures = {}
         for job in jobs:
@@ -6206,6 +6679,14 @@ class Builds:
             fut.add_done_callback(self._done)
             self.futures[job] = fut
         cuda_build.load = self._wait
+
+    @staticmethod
+    def _worker(cores: set) -> None:
+        """A pool thread: on the spare cores, at the lowest priority, which
+        the nvcc it starts inherit (Linux keeps both per thread), so that
+        the phases' host work wins a core it shares with a build."""
+        os.sched_setaffinity(0, cores)
+        os.nice(19)
 
     def _done(self, _fut) -> None:
         self.last = time.perf_counter() - self.t0
@@ -6224,8 +6705,8 @@ class Builds:
 
     def report(self, step_cuda) -> None:
         libs = {job: fut.result() for job, fut in self.futures.items()}
-        print(f"build: {len(libs)} libraries (6 sources, their collision "
-              f"modes, the domain, source, obstacle and ring builds), "
+        print(f"build: {len(libs)} libraries (7 sources, their collision "
+              f"modes, the domain, source, obstacle, ring and deep builds), "
               f"{self.workers} nvcc at a time beside the phases, the last "
               f"done {self.last:.2f} s after the pool started; "
               f"{sum(lib.build_seconds for lib in libs.values()):.2f} s of "
@@ -6465,7 +6946,9 @@ def run_phases(dev, card: str, t_start: float, refs: dict) -> list[dict]:
               ("35-40", box_phases), ("41-45", bouzidi_phases),
               ("46-50", box3d_phases), ("51-55", mesh3d_phases),
               ("56-60", coupled_mesh_phases),
-              ("61-66", lambda d, c: remainder_phases(d, c, refs))]
+              ("61-66", lambda d, c: remainder_phases(d, c, refs)),
+              ("67-68", deep2d_phases), ("69-70", deep3d_phases),
+              ("71-72", lab_phases)]
     print(f"chip_smoke: {time.perf_counter() - t_start:.2f} s after phases "
           "1-5")
     for names, phases in groups:

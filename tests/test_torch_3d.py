@@ -349,12 +349,27 @@ def test_3d_chunks_run_one_step_per_launch(monkeypatch, env, chunk_len):
     assert calls == [d for d, n in plan for _ in range(n)]
 
 
-@pytest.mark.parametrize("forced", ["4", "5", "8"])
+@pytest.mark.parametrize("forced", ["4", "5", "8", "9"])
 def test_3d_blocking_depth_is_refused(monkeypatch, forced):
+    # depths 4-8 run where they divide the chunk (the deep build on the
+    # card, N plain steps here); one above tpulbm's halo height of 8 gets
+    # no plan, as tpulbm's TPU dispatch, and the chunk runs the 1-step
+    # kernel
     monkeypatch.setenv("TPULBM_SUBSTEPS", forced)
-    problem = port_problem(_params(precision="f32"))
-    with pytest.raises(NotImplementedError, match="Queue 2 item 12"):
-        stepper.make_chunk_fn(problem, "cpu", 12)
+    problem = port_problem(_params(nx=8, ny=6, nz=10, precision="f32"))
+    n = int(forced)
+    chunk_len = 2 * n
+    chunk = stepper.make_chunk_fn(problem, "cpu", chunk_len)
+    held = n <= step_cuda.MAX_DEPTH
+    assert chunk.plan == ([(n, 2)] if held else [(1, chunk_len)])
+    assert chunk.pallas3d_depths == ([n] if held else None)
+    f = state_from_numpy(problem.initial_state(), problem, "cpu")
+    want = f.clone()
+    plain = make_step_rolled(problem, "cpu")
+    for _ in range(chunk_len):
+        want = plain(want)
+    assert torch.equal(chunk(f), want)
+    assert stepper.make_chunk_fn(problem, "cpu", 7).plan == [(1, 7)]
 
 
 def test_3d_kernel_backend_refuses_f64():

@@ -171,8 +171,18 @@ def test_3d_blocked_wrapper_guards_and_counts():
     assert step_cuda.launches(wrapper) == {2: 0, 3: 1}
     step_cuda.reset_launch_counts()
     assert step_cuda.launches(wrapper) == {2: 0, 3: 0}
-    for n_sub in (1, 4, 8):
-        with pytest.raises(NotImplementedError, match="Queue 2 item 12"):
+    # the deep build's depths run (N plain steps on the CPU, uncounted);
+    # 1 is the 1-step kernel's and 9 above tpulbm's halo height
+    for n_sub in (4, 8):
+        step = step_cuda.make_local_step_cuda_3d_blocked(problem, "cpu",
+                                                         n_sub)
+        want = f
+        for _ in range(n_sub):
+            want = plain(want)
+        assert torch.equal(step(f, torch.empty_like(f)), want)
+    assert step_cuda.launches(wrapper) == {2: 0, 3: 0}
+    for n_sub in (1, 9):
+        with pytest.raises(NotImplementedError, match="2 to 8"):
             step_cuda.make_local_step_cuda_3d_blocked(problem, "cpu", n_sub)
     with pytest.raises(NotImplementedError, match="cylinder3d"):
         step_cuda.make_local_step_cuda_3d_blocked(

@@ -83,10 +83,22 @@ def test_depth_choice_matches_tpulbm(monkeypatch, env, chunk_len):
 
 
 def test_depth_above_four_is_refused(monkeypatch):
+    # depths 5-8 run (the deep build on the card, N plain steps here); the
+    # port refuses a forced depth above its cap of 8
     monkeypatch.setenv("TPULBM_SUBSTEPS", "5")
     problem = port_problem(_params())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        stepper.make_chunk_fn(problem, "cpu", 10)
+    chunk = stepper.make_chunk_fn(problem, "cpu", 10)
+    assert chunk.substeps == 5 and chunk.plan == [(5, 2)]
+    f = state_from_numpy(problem.initial_state(), problem, "cpu")
+    want = f.clone()
+    plain = step_torch.make_step_rolled(problem, "cpu")
+    for _ in range(10):
+        want = plain(want)
+    assert torch.equal(chunk(f), want)
+    assert stepper.make_chunk_fn(problem, "cpu", 7).substeps == 1
+    monkeypatch.setenv("TPULBM_SUBSTEPS", "9")
+    with pytest.raises(NotImplementedError, match="2 to 8, its cap"):
+        stepper.make_chunk_fn(problem, "cpu", 18)
     assert stepper.make_chunk_fn(problem, "cpu", 7).substeps == 1
 
 
@@ -167,7 +179,7 @@ def _blocked_args(ny=6, nx=10):
     ("f64", TypeError), ("solid_bool", TypeError), ("q8", ValueError),
     ("out_shape", ValueError), ("solid_shape", ValueError),
     ("noncontig", ValueError), ("alias", ValueError), ("meta", ValueError),
-    ("depth1", NotImplementedError), ("depth5", NotImplementedError)])
+    ("depth1", NotImplementedError), ("depth9", NotImplementedError)])
 def test_blocked_wrapper_rejects_bad_inputs(bad, exc):
     f, out, solid, consts, plain = _blocked_args()
     n_sub = 4
@@ -193,7 +205,8 @@ def test_blocked_wrapper_rejects_bad_inputs(bad, exc):
         step_cuda.collide_stream_blocked(f, out, solid, consts, n_sub, plain)
 
 
-@pytest.mark.parametrize("n_sub", step_cuda.BLOCKED_DEPTHS)
+@pytest.mark.parametrize("n_sub", step_cuda.BLOCKED_DEPTHS
+                         + step_cuda.DEEP_DEPTHS)
 def test_blocked_wrapper_counts_only_kernel_launches(n_sub):
     # a CPU tensor runs n_sub plain steps; no kernel launch is counted
     problem = port_problem(_params(nx=40, ny=20))

@@ -2,8 +2,9 @@
 against N launches of the 1-step kernels, on the card: D2Q9 (under every
 collision, with either Zou-He corner rule), D3Q19 (one step and N steps,
 under every collision tpulbm runs in 3-D), the thermal D2Q9 + D2Q5 kernel
-(BGK and the Smagorinsky closure), the Shan-Chen multiphase kernel and the
-ring builds on meshes of shards (2-D and 3-D). These
+(BGK and the Smagorinsky closure), the Shan-Chen multiphase kernel, the
+ring builds on meshes of shards (2-D and 3-D), the deep builds of the
+N-step kernels (2-D N = 5-8, 3-D N = 4-8) and the D3Q19 phase lab. These
 tests need an NVIDIA GPU with nvcc and skip elsewhere; run them on the
 card with
 
@@ -267,7 +268,7 @@ def test_blocked_kernel_3d_refuses(cuda):
     lib = step_cuda._blocked_library_3d()
     rc = lib.tpulbm_d3q19_step_blocked(
         f.data_ptr(), out.data_ptr(), solid.data_ptr(), 32, 16, 8, 4,
-        *consts.d3q19_args, None, None, 0, 0,
+        *consts.d3q19_args, None, None, 0, None, 0, 0,
         torch.cuda.current_stream(cuda).cuda_stream)
     assert rc != 0
     with pytest.raises(RuntimeError, match="launch failed"):
@@ -1138,3 +1139,61 @@ def test_slab_ring_kernels_equal_one_device(cuda, monkeypatch, case, shape):
     assert torch.equal(got, want)
     bz = problem.obstacle_bc == "bouzidi"
     assert chunk.substeps == (1 if shape[1] > 1 and bz else 4)
+
+
+# The deep builds (-DTPULBM_DEEP=1, the depths only TPULBM_SUBSTEPS asks
+# for): 2-D N = 5-8 on ragged grids, one smaller than the 32x16 tile and
+# the clean corners on 33 rows (the shifted tiling); 3-D N = 4-8 on a
+# ragged sphere, D3Q27 at 8 with its rings in the scratch buffer; each
+# bitwise N launches of the 1-step kernel, counted at its depth
+@pytest.mark.parametrize("n_sub", step_cuda.DEEP_DEPTHS)
+@pytest.mark.parametrize("kw", [
+    dict(nx=100, ny=37), dict(nx=20, ny=11),
+    dict(nx=64, ny=33, collision="trt", zou_he_corners="clean")])
+def test_deep_kernel_equals_n_one_step_launches(cuda, kw, n_sub):
+    problem = make_problem(SimulationParams(tau=0.55, inlet_velocity=0.05,
+                                            **kw))
+    f = state_from_numpy(_perturbed_state(problem, kw["nx"]), problem, cuda)
+    bstep = step_cuda.make_local_step_cuda_blocked(problem, cuda, n_sub)
+    kstep = step_cuda.make_local_step_cuda(problem, cuda)
+    before = step_cuda.launches(step_cuda.collide_stream_blocked)
+    got = bstep(f, torch.empty_like(f))
+    after = step_cuda.launches(step_cuda.collide_stream_blocked)
+    assert after[n_sub] == before.get(n_sub, 0) + 1
+    want = f.clone()
+    for _ in range(n_sub):
+        want = kstep(want, torch.empty_like(want))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("n_sub", step_cuda.DEEP_DEPTHS_3D)
+@pytest.mark.parametrize("lattice", ["d3q19", "d3q27"])
+def test_deep_kernel_3d_equals_n_one_step_launches(cuda, lattice, n_sub):
+    problem = make_problem(SimulationParams(
+        problem="cylinder3d", nx=40, ny=21, nz=12, tau=0.6,
+        inlet_velocity=0.05, lattice3d=lattice))
+    f = state_from_numpy(_perturbed_state(problem, n_sub), problem, cuda)
+    bstep = step_cuda.make_local_step_cuda_3d_blocked(problem, cuda, n_sub)
+    kstep = step_cuda.make_local_step_cuda_3d(problem, cuda)
+    got = bstep(f, torch.empty_like(f))
+    want = f.clone()
+    for _ in range(n_sub):
+        want = kstep(want, torch.empty_like(want))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+def test_lab_kernel_matches_plain_lab(cuda):
+    from tpulbm_torch.utils import kernel_lab as lab
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    f = torch.rand((19, 70, 13 + 2 * lab.H, 40), generator=gen,
+                   device=cuda) * 0.06 + 0.02
+    for variant in lab.VARIANTS:
+        before = lab.lab_step.launches[variant]
+        got = lab.chained(f, variant, 3)
+        assert lab.lab_step.launches[variant] == before + 3
+        want = f.clone()
+        for _ in range(3):
+            want = lab.plain_lab(want, variant)
+        torch.testing.assert_close(got, want, **lab.TOL)

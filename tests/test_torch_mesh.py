@@ -356,10 +356,16 @@ def test_plan_on_a_mesh_that_keeps_x_whole(monkeypatch, env, want):
 
 
 def test_forced_depth_without_a_kernel_raises(monkeypatch):
+    # depth 5 on a mesh that cuts x would run tpulbm's x-tiled kernel,
+    # which asserts n_sub <= 4; above 8, the port's cap, no kernel holds it
     _setenv(monkeypatch, {"TPULBM_SUBSTEPS": "5"})
     problem = port_problem(SimulationParams(nx=64, ny=32))
-    with pytest.raises(NotImplementedError, match="Queue 2 item 10"):
+    with pytest.raises(ValueError, match=r"step_pallas_tiled\.py:133"):
         sharded_step.plan(problem, cpu_mesh((2, 2)), 10)
+    assert sharded_step.plan(problem, cpu_mesh((2, 1)), 10) == ("rows", 5)
+    _setenv(monkeypatch, {"TPULBM_SUBSTEPS": "9"})
+    with pytest.raises(NotImplementedError, match="its cap"):
+        sharded_step.plan(problem, cpu_mesh((2, 1)), 18)
 
 
 def _shard(nyl=8, nxl=8, depth=2, x_rings=True, origin=(8, 8)):

@@ -268,8 +268,22 @@ def test_checkpoint_resumes_in_the_other_package(tmp_path, direction):
 
 # FAKE_RUNTIME with what the N-step and 3-D kernels also use: dynamic
 # shared memory (the launch's size in bytes, NaN-filled per block),
-# __grid_constant__ and cudaFuncSetAttribute
+# __grid_constant__, cudaFuncSetAttribute, and for the deep 3-D build's
+# scratch kernel gridDim and the occupancy queries (a card of 2 SMs, one
+# block each)
 HOST_RUNTIME = FAKE_RUNTIME.replace(
+    "inline thread_local dim3 threadIdx, blockIdx;",
+    "inline thread_local dim3 threadIdx, blockIdx, gridDim;").replace(
+    "blockIdx = dim3(bx, by, bz);",
+    "blockIdx = dim3(bx, by, bz);\n            gridDim = grid;").replace(
+    "inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }\n",
+    "inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }\n"
+    "enum { cudaDevAttrMultiProcessorCount = 16 };\n"
+    "inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) "
+    "{ *v = 2; return cudaSuccess; }\n"
+    "template <class K> inline cudaError_t "
+    "cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) "
+    "{ *n = 1; return cudaSuccess; }\n").replace(
     "#define __shared__ static\n",
     "#define __shared__ static\n#define __grid_constant__\n"
     "#include <math.h>\n"
@@ -286,6 +300,8 @@ HOST_RUNTIME = FAKE_RUNTIME.replace(
 _LAUNCH = re.compile(r"(\w+(?:<[^<>]*>)?)<<<(.*?)>>>\((.*?)\);", re.S)
 _DYNAMIC = re.compile(r"extern __shared__ float (\w+)\[\];")
 assert "fake_dyn_smem = reinterpret_cast" in HOST_RUNTIME
+assert "gridDim = grid" in HOST_RUNTIME
+assert "cudaOccupancyMaxActiveBlocksPerMultiprocessor" in HOST_RUNTIME
 
 
 def host_source(src: str) -> str:

@@ -35,6 +35,9 @@
 //   the walls, solid slabs under the equilibrium, the bounce-back or the
 //   Bouzidi obstacle rule (tpulbm's fractional-wall, staircase and Couette
 //   channels: walls_y off, periodic_x, a solid mask).
+// * -DTPULBM_DEEP=1: the N-step kernels hold the deep forced depths
+//   instead of the default ones (2-D: 5-8 instead of 2-4; 3-D: 4-8
+//   instead of 2-3), so the default libraries keep their instantiations.
 // A library built with none of them is the one every earlier build ran.
 
 #pragma once
@@ -65,6 +68,9 @@
 #endif
 #ifndef TPULBM_SLAB
 #define TPULBM_SLAB 0
+#endif
+#ifndef TPULBM_DEEP
+#define TPULBM_DEEP 0
 #endif
 
 #include <stddef.h>
@@ -114,6 +120,7 @@ constexpr bool kRings = TPULBM_RINGS != 0;
 constexpr bool kBouzidi = TPULBM_BOUZIDI != 0;
 static_assert(TPULBM_Q == 19 || TPULBM_Q == 27, "a 3-D set: 19 or 27");
 constexpr bool kD3Q27 = TPULBM_Q == 27;
+constexpr bool kDeep = TPULBM_DEEP != 0;
 static_assert(!kBouzidi || (kHasObstacle && !kBounceBack),
               "the Bouzidi obstacle needs the obstacle domain or the slab, "
               "and is not the bounce-back one");
@@ -186,11 +193,12 @@ extern "C" int tpulbm_collision_mode() { return tpulbm::kMode; }
 
 // The rest of the build: the domain, then 4 with the source, 8 with the
 // bounce-back obstacle, 16 with the rings, 32 with the force profile, 64
-// with the Bouzidi obstacle, 128 on D3Q27 and 256 for the slab;
-// ops/step_cuda.py checks it too.
+// with the Bouzidi obstacle, 128 on D3Q27, 256 for the slab and 512 for the
+// deep depths; ops/step_cuda.py checks it too.
 extern "C" int tpulbm_build_variant() {
   return tpulbm::kDomain | (tpulbm::kSource ? 4 : 0) |
          (tpulbm::kBounceBack ? 8 : 0) | (tpulbm::kRings ? 16 : 0) |
          (tpulbm::kForce ? 32 : 0) | (tpulbm::kBouzidi ? 64 : 0) |
-         (tpulbm::kD3Q27 ? 128 : 0) | (tpulbm::kSlab ? 256 : 0);
+         (tpulbm::kD3Q27 ? 128 : 0) | (tpulbm::kSlab ? 256 : 0) |
+         (tpulbm::kDeep ? 512 : 0);
 }

@@ -1,5 +1,7 @@
 // N fused D2Q9 timesteps per launch (temporal blocking) on an NVIDIA Hopper
-// GPU (sm_90a), float32, N = 2, 3 or 4. Each substep is the 1-step kernel's
+// GPU (sm_90a), float32, N = 2, 3 or 4, and in the deep build
+// (-DTPULBM_DEEP=1) N = 5-8, the depths only TPULBM_SUBSTEPS asks for.
+// Each substep is the 1-step kernel's
 // sequence (step_d2q9.cu): collide (+ source, + force profile) ->
 // pull-stream -> ghost rule -> the domain's boundary sequence (the
 // cylinder's walls, Zou-He inlet and outlet, clean corners and obstacle;
@@ -7,13 +9,13 @@
 // the cavity's walls, lid and corners; the box's periodic x and y).
 //
 // Replaces tpulbm/ops/step_pallas.py::make_local_step_pallasN (the N-step
-// Pallas cascade, N = 3 and 4) and ::make_local_step_pallas2 (its 2-step
-// form) with their src, force_fn, periodic_x, periodic y, walls_x, lid_u,
-// bounce_back and bz modes and walls_y off with a solid mask (the slab),
-// under each of their collisions and with either
-// corner rule (one library per collision, domain, source, force profile
-// and obstacle rule; d2q9_common.cuh). Its plain version is N applications
-// of tpulbm_torch/ops/step_torch.py's step.
+// Pallas cascade, N = 3 and 4; the deep build N = 5-8) and
+// ::make_local_step_pallas2 (its 2-step form) with their src, force_fn,
+// periodic_x, periodic y, walls_x, lid_u, bounce_back and bz modes and
+// walls_y off with a solid mask (the slab), under each of their collisions
+// and with either corner rule (one library per collision, domain, source,
+// force profile and obstacle rule; d2q9_common.cuh). Its plain version is
+// N applications of tpulbm_torch/ops/step_torch.py's step.
 //
 // What bounds it: one launch moves the 73 B per cell of one step through
 // device memory (read and write 9 f32, read the 1-byte solid mask) and
@@ -22,7 +24,8 @@
 // block loads its BX x BY output tile plus an N-cell halo and computes a
 // region that shrinks by one cell a side per substep, so the first
 // substep collides (BX+2N)(BY+2N)/(BX*BY) times the tile's cells: 1.88x
-// for the 32x16 tile at N=4 (2.5x for 32x8, 1.69x for 64x16).
+// for the 32x16 tile at N=4 (2.5x for 32x8, 1.69x for 64x16), 3.0x at
+// N=8.
 //
 // Design. The block (256 threads) loads the window's populations and solid
 // mask from device memory once, collides every in-domain cell, and keeps
@@ -39,7 +42,11 @@
 // an H100 at N=3 and 4 (32x8, 64x8, 32x16, 64x16, 128x8, 64x4); its window
 // takes 35,520 B of dynamic shared memory at N=4 (34,560 B of populations
 // and the mask), and a larger one above 48 KB asks for it with
-// cudaFuncSetAttribute.
+// cudaFuncSetAttribute. The deep build keeps the 32x16 tile: its windows
+// take 40,404, 45,584, 51,060 and 56,832 B at N = 5-8 (above 48 KB from
+// N=7 on), and a thread holds up to 6 cells at substep 1 (N=8). Its
+// depths live in a library of their own so that the default libraries
+// keep their instantiations and build times.
 //
 // Every boundary condition but the clean corners' inlet rule and the
 // cavity's corners is cell-local, so the TPU kernel's slab ring, DMA
@@ -54,7 +61,8 @@
 // first row (column): its sources then sit at depth N-2, one cell short.
 // The tiling then starts one row lower (one column further left;
 // tpulbm::tile_row_shift, tile_col_shift), which leaves every cell's bits
-// as they are.
+// as they are. Nothing in this argument depends on N beyond N < kBX, so it
+// holds for the deep build's depths too.
 //
 // In the channel the window's x-halo wraps: a window cell at gx < 0 or
 // gx >= nx holds cell gx mod nx, loaded from there and stepped like every
@@ -370,9 +378,16 @@ cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
        : launch<N, false>(f, out, solid, nx, ny, tiles_x, tiles_y, x_shift, \
                           y_shift, k, sh, force, links, stream))
   switch (n_sub) {
+#if TPULBM_DEEP
+    case 5: return TPULBM_LAUNCH(5);
+    case 6: return TPULBM_LAUNCH(6);
+    case 7: return TPULBM_LAUNCH(7);
+    case 8: return TPULBM_LAUNCH(8);
+#else
     case 2: return TPULBM_LAUNCH(2);
     case 3: return TPULBM_LAUNCH(3);
     case 4: return TPULBM_LAUNCH(4);
+#endif
     default: return cudaErrorInvalidValue;
   }
 #undef TPULBM_LAUNCH
@@ -451,9 +466,16 @@ extern "C" int tpulbm_d2q9_step_blocked_rings(
 // a depth the library does not hold).
 extern "C" int tpulbm_d2q9_blocked_smem_bytes(int n_sub) {
   switch (n_sub) {
+#if TPULBM_DEEP
+    case 5: return static_cast<int>(Window<5>::kSmemBytes);
+    case 6: return static_cast<int>(Window<6>::kSmemBytes);
+    case 7: return static_cast<int>(Window<7>::kSmemBytes);
+    case 8: return static_cast<int>(Window<8>::kSmemBytes);
+#else
     case 2: return static_cast<int>(Window<2>::kSmemBytes);
     case 3: return static_cast<int>(Window<3>::kSmemBytes);
     case 4: return static_cast<int>(Window<4>::kSmemBytes);
+#endif
     default: return -1;
   }
 }

@@ -56,6 +56,22 @@
 // 232,448 B a block may have, so N=3 takes 32 x 4 (190,252 B, 128
 // threads).
 //
+// The deep build (N = 4-8). Stage k's ring over the tile widened by N-k no
+// longer fits one block's shared memory at 32 x 8, so each depth takes the
+// largest tile that fits (deep_tile: the largest area, then the widest, of
+// widths 4-32 and heights 1-8; per lattice and Bouzidi, as kBY27N3 above):
+// D3Q19 32x4, 16x4, 8x8, 8x4, 4x2 at N = 4-8 (Bouzidi 16x8, 16x4, 16x2,
+// 8x2, 4x2), D3Q27 32x2, 8x8, 8x4, 4x2 at N = 4-7 (Bouzidi 16x4, 8x4, 8x2,
+// 4x1). A block has 256 threads whatever its tile: the stages walk their
+// cells 256 at a time and the last stage uses the tile's threads. At N=8
+// D3Q27 fits no tile, not even 4x1 (260,928 B). That depth keeps its stage
+// rings in a scratch buffer in device memory that the caller allocates,
+// one slice per resident block, and its blocks walk the tiles (8 x 8) in a
+// persistent loop; the z-march, the barriers and the bits are those of the
+// shared-memory builds, and the mask stays in shared memory. Redundant
+// work grows with N: at N=8 a D3Q19 4x2 tile's stages collide 164 cells
+// for each of its 8 (20x a step's cells), the 8x8 scratch tile's 39.
+//
 // The zero-gradient outlet reads x = nx-2 (step_cell in d3q19_common.cuh),
 // which needs x = nx-3 .. nx-1 of the ring at every stage. The x tiles are
 // right-aligned as in the 1-step kernel, so the block that holds nx-1
@@ -120,6 +136,11 @@ constexpr int kBY = 8;           // tile height
 constexpr int kBY27N3 = 4;       // tile height of D3Q27 at N = 3
 constexpr int kZChunk = 64;      // output z-planes a block marches over
 constexpr size_t kMaxBlockSmem = 232448;  // what a block may take on sm_90
+constexpr int kDeepThreads = 256;  // threads of a deep build's block
+constexpr int kScratchTile = 8;    // the scratch build's tile: 8 x 8
+// added to a z-plane before its ring slot is taken (slots_of): q >= -4 at
+// N <= 3, q >= -9 at N <= 8
+constexpr int kSlotBias = tpulbm::kDeep ? 12 : 6;
 
 // cz of population i, from the table
 __host__ __device__ constexpr int cz_of(int i) {
@@ -133,7 +154,10 @@ __host__ __device__ constexpr int cz_of(int i) {
 // A ring keeps population class c = cz + 1 in class_slots(c) slots of
 // class_size(c) planes each (a plane: one population over the ring's
 // cells): class 0 (pulled from z+1) one slot, class 1 (from z) two, class 2
-// (from z-1) three, the slot of z-plane q being (q + 6) % class_slots(c).
+// (from z-1) three, the slot of z-plane q being (q + kSlotBias) %
+// class_slots(c), the bias a multiple of 6 that keeps q + kSlotBias >= 0
+// for every plane a march reads (the box's extended sweep starts N planes
+// below its chunk, and a pull reads one plane further).
 // The Bouzidi rewrite also reads a cell's own post-collision populations,
 // those of class 0 included, a plane after they were pulled: under
 // kBouzidi class 0 keeps two slots. class_size counts the set's
@@ -200,15 +224,15 @@ static_assert(kQ != 27 || !tpulbm3d::kBouzidi || kRingFloats == 63,
 static_assert(ring_planes_distinct(), "ring planes overlap");
 
 // The offsets, in floats, of the class-0, class-1 and class-2 slots that
-// hold z-plane q (q >= -1) in a ring of C cells.
+// hold z-plane q (q >= -kSlotBias) in a ring of C cells.
 struct Slots {
   int c0, c1, c2;
 };
 template <int C>
 __device__ __forceinline__ Slots slots_of(int q) {
-  return {((q + 6) % class_slots(0)) * class_size(0) * C,
-          ((q + 6) % class_slots(1)) * class_size(1) * C,
-          ((q + 6) % class_slots(2)) * class_size(2) * C};
+  return {((q + kSlotBias) % class_slots(0)) * class_size(0) * C,
+          ((q + kSlotBias) % class_slots(1)) * class_size(1) * C,
+          ((q + kSlotBias) % class_slots(2)) * class_size(2) * C};
 }
 
 // The slots a pull of plane p reads: class 0 of plane p+1, class 1 of p,
@@ -225,16 +249,67 @@ __device__ __forceinline__ int ring_at(const Slots& s) {
   return RingPop<I>::kFirst * C + (c == 0 ? s.c0 : c == 1 ? s.c1 : s.c2);
 }
 
+// A tile's width and height.
+struct TileShape {
+  int x, y;
+};
+
+// The bytes of the stage rings (kRingFloats a cell over the tile widened by
+// N - k at stage k < N) and of the N + 2 mask planes over stage 0's cells,
+// for an x by y tile at depth n.
+__host__ __device__ constexpr size_t ring_bytes(int n, int x, int y) {
+  size_t cells = 0;
+  for (int d = 1; d <= n; ++d) {
+    cells += static_cast<size_t>(x + 2 * d) * (y + 2 * d);
+  }
+  return sizeof(float) * kRingFloats * cells;
+}
+__host__ __device__ constexpr size_t mask_bytes(int n, int x, int y) {
+  return static_cast<size_t>(n + 2) * (x + 2 * n) * (y + 2 * n);
+}
+
+// The deep build's tile at depth n: of widths 32, 16, 8, 4 and heights 8,
+// 4, 2, 1, the largest area whose rings and mask fit a block's shared
+// memory, the widest of those; {0, 0} where none fits.
+__host__ __device__ constexpr TileShape deep_tile(int n) {
+  for (int area = 256; area >= 4; area /= 2) {
+    for (int x = 32; x >= 4; x /= 2) {
+      const int y = area / x;
+      if (y >= 1 && y <= 8 &&
+          ring_bytes(n, x, y) + mask_bytes(n, x, y) <= kMaxBlockSmem) {
+        return {x, y};
+      }
+    }
+  }
+  return {0, 0};
+}
+static_assert(kQ != 19 || tpulbm3d::kBouzidi ||
+                  (deep_tile(4).x == 32 && deep_tile(4).y == 4 &&
+                   deep_tile(8).x == 4 && deep_tile(8).y == 2),
+              "D3Q19's deep tiles");
+static_assert(kQ != 27 || (deep_tile(8).x == 0 && deep_tile(7).x == 4),
+              "D3Q27 at N=8 fits no tile");
+
 template <int N>
 struct Tile {
   static_assert(N >= 2, "one step per launch is step_d3q19.cu");
-  // the output tile's height: kBY, but kBY27N3 where D3Q27's rings at N = 3
-  // would not fit a block's shared memory
-  static constexpr int kTileY = kQ == 27 && N == 3 ? kBY27N3 : kBY;
-  static constexpr int kThreads = kBX * kTileY;
+  // the deep depth's rings in device memory: no tile fits shared memory
+  static constexpr bool kScratch = tpulbm::kDeep && deep_tile(N).x == 0;
+  // the output tile: 32 x kBY, but 32 x kBY27N3 where D3Q27's rings at
+  // N = 3 would not fit a block's shared memory; in the deep build
+  // deep_tile, or kScratchTile square where none fits
+  static constexpr int kTileX = !tpulbm::kDeep ? kBX
+                                : kScratch     ? kScratchTile
+                                               : deep_tile(N).x;
+  static constexpr int kTileY =
+      !tpulbm::kDeep ? (kQ == 27 && N == 3 ? kBY27N3 : kBY)
+      : kScratch     ? kScratchTile
+                     : deep_tile(N).y;
+  static constexpr int kTileCells = kTileX * kTileY;
+  static constexpr int kThreads = tpulbm::kDeep ? kDeepThreads : kTileCells;
   // stage k < N covers the tile widened by N - k cells
   __host__ __device__ static constexpr int width(int k) {
-    return kBX + 2 * (N - k);
+    return kTileX + 2 * (N - k);
   }
   __host__ __device__ static constexpr int height(int k) {
     return kTileY + 2 * (N - k);
@@ -250,8 +325,11 @@ struct Tile {
   // no barrier, writes plane m+1)
   static constexpr int kMaskSlots = N + 2;
   static constexpr int kMaskOffset = ring_offset(N);
+  // the rings in shared memory before the mask, or (kScratch) in a slice
+  // of kMaskOffset floats of the scratch buffer, the mask alone in shared
+  // memory
   static constexpr size_t kSmemBytes =
-      sizeof(float) * kMaskOffset + kMaskSlots * cells(0);
+      sizeof(float) * (kScratch ? 0 : kMaskOffset) + kMaskSlots * cells(0);
   static_assert(kSmemBytes <= kMaxBlockSmem, "rings exceed a block's 227 KB");
 };
 
@@ -303,8 +381,9 @@ struct March {
 // substeps over the tile widened by N - K, pulled from stage K-1's ring,
 // stepped and collided into stage K's ring; then the barrier.
 template <int N, int K>
-__device__ __forceinline__ void inner_stages(float* smem, const March& g,
-                                             const Consts& k,
+__device__ __forceinline__ void inner_stages(float* smem,
+                                             const uint8_t* masks,
+                                             const March& g, const Consts& k,
                                              const tpulbm::Links& links,
                                              const tpulbm3d::Shard& sh,
                                              int m) {
@@ -319,9 +398,8 @@ __device__ __forceinline__ void inner_stages(float* smem, const March& g,
     float* dst = smem + T::ring_offset(K);
     const int p = m - K;
     // the mask slots hold z-planes of the domain (the box reads no mask)
-    const uint8_t* mask = reinterpret_cast<const uint8_t*>(
-                              smem + T::kMaskOffset) +
-                          (p >= 0 ? p % T::kMaskSlots : 0) * T::cells(0);
+    const uint8_t* mask =
+        masks + (p >= 0 ? p % T::kMaskSlots : 0) * T::cells(0);
     // the box sweeps past the z edges (the extended sweep)
     const int lo = tpulbm3d::kPeriodicZ || g.z0 - (N - K) > 0
                        ? g.z0 - (N - K) : 0;
@@ -389,45 +467,45 @@ __device__ __forceinline__ void inner_stages(float* smem, const March& g,
       }
     }
     __syncthreads();
-    inner_stages<N, K + 1>(smem, g, k, links, sh, m);
+    inner_stages<N, K + 1>(smem, masks, g, k, links, sh, m);
   }
 }
 
+// One block's z-march over the output tile (tx0, ty0) of z-chunk tz: the
+// stage rings in `rings` (shared memory, or the block's slice of the
+// scratch buffer), the mask planes in `mask` (shared memory).
 template <int N>
-__global__ void __launch_bounds__(Tile<N>::kThreads)
-    d3q19_blocked_kernel(const float* __restrict__ f, float* __restrict__ out,
-                         const uint8_t* __restrict__ solid,
-                         const float* __restrict__ force, int nx, int ny,
-                         int nz, const __grid_constant__ Consts k,
-                         tpulbm::Links links,
-                         const __grid_constant__ tpulbm3d::Shard sh) {
+__device__ __forceinline__ void march(
+    const float* __restrict__ f, float* __restrict__ out,
+    const uint8_t* __restrict__ solid, const float* __restrict__ force,
+    int nx, int ny, int nz, const Consts& k, const tpulbm::Links& links,
+    const tpulbm3d::Shard& sh, int tx0, int ty0, int tz, float* rings,
+    uint8_t* mask) {
   using T = Tile<N>;
-  extern __shared__ float smem[];  // the rings of stages 0 .. N-1, the mask
 
   March g;
   g.nx = nx;
   g.ny = ny;
   g.nz = nz;
   // right-aligned to the last column of the grid (of the shard's block)
-  g.x0 = (tpulbm::kRings ? sh.x0 + sh.nxl : nx) -
-         kBX * (static_cast<int>(blockIdx.x) + 1);
-  g.y0 = (tpulbm::kRings ? sh.y0 : 0) +
-         static_cast<int>(blockIdx.y) * T::kTileY;
-  g.z0 = static_cast<int>(blockIdx.z) * kZChunk;
+  g.x0 = (tpulbm::kRings ? sh.x0 + sh.nxl : nx) - T::kTileX * (tx0 + 1);
+  g.y0 = (tpulbm::kRings ? sh.y0 : 0) + ty0 * T::kTileY;
+  g.z0 = tz * kZChunk;
   g.z1 = g.z0 + kZChunk < nz ? g.z0 + kZChunk : nz;
   g.force = force;
   const size_t plane = static_cast<size_t>(nx) * ny;
   const size_t pop = plane * nz;  // cells per population plane
   const int tid = threadIdx.x;
-  uint8_t* mask = reinterpret_cast<uint8_t*>(smem + T::kMaskOffset);
 
-  // the output cell of this thread
-  const int tx = tid % kBX;
-  const int ty = tid / kBX;
+  // the output cell of this thread (a deep build's block has more threads
+  // than its tile has cells)
+  const int tx = tid % T::kTileX;
+  const int ty = tid / T::kTileX;
   const int x = g.x0 + tx;
   const int y = g.y0 + ty;
-  const bool active = tpulbm::kRings ? sh.writes(x - sh.x0, y - sh.y0)
-                                     : x >= 0 && y < ny;
+  const bool active =
+      (T::kThreads == T::kTileCells || tid < T::kTileCells) &&
+      (tpulbm::kRings ? sh.writes(x - sh.x0, y - sh.y0) : x >= 0 && y < ny);
   constexpr int W0 = T::width(0);
   constexpr int C0 = T::cells(0);
   constexpr int W_last = T::width(N - 1);
@@ -435,7 +513,7 @@ __global__ void __launch_bounds__(Tile<N>::kThreads)
   // stage 0's cells of each thread: all their loads are issued before any
   // is used, so a thread keeps J cells' loads in flight
   constexpr int J = (C0 + T::kThreads - 1) / T::kThreads;
-  const float* last = smem + T::ring_offset(N - 1);
+  const float* last = rings + T::ring_offset(N - 1);
 
   for (int m = g.z0 - N; m < g.z1 + N; ++m) {
     // stage 0: load plane m (in the box plane m mod nz) over the tile
@@ -483,12 +561,12 @@ __global__ void __launch_bounds__(Tile<N>::kThreads)
               tpulbm3d::kBounceBack &&
                   tpulbm3d::is_solid(mask_m[tid + j * T::kThreads]),
               force + mz, nz);
-          store_ring<C0>(smem, wr, tid + j * T::kThreads, v[j]);
+          store_ring<C0>(rings, wr, tid + j * T::kThreads, v[j]);
         }
       }
     }
     __syncthreads();
-    inner_stages<N, 1>(smem, g, k, links, sh, m);
+    inner_stages<N, 1>(rings, mask, g, k, links, sh, m);
     // stage N: plane m - N of the tile, stored
     const int p = m - N;
     if (active && p >= g.z0 && p < g.z1) {
@@ -526,27 +604,113 @@ __global__ void __launch_bounds__(Tile<N>::kThreads)
   }
 }
 
+// The tiles of a launch over `cols` x `rows` cells (the grid, or a shard's
+// block) and nz planes, along x, y and z.
+template <int N>
+__host__ __device__ dim3 tiles_of(int cols, int rows, int nz) {
+  return dim3((cols + Tile<N>::kTileX - 1) / Tile<N>::kTileX,
+              (rows + Tile<N>::kTileY - 1) / Tile<N>::kTileY,
+              (nz + kZChunk - 1) / kZChunk);
+}
+
+// One block per tile, its rings in shared memory; or (kScratch) as many
+// blocks as the scratch buffer has slices, each walking the tiles
+// blockIdx.x, blockIdx.x + gridDim.x, ... with its rings in its slice.
+template <int N>
+__global__ void __launch_bounds__(Tile<N>::kThreads)
+    d3q19_blocked_kernel(const float* __restrict__ f, float* __restrict__ out,
+                         const uint8_t* __restrict__ solid,
+                         const float* __restrict__ force, int nx, int ny,
+                         int nz, const __grid_constant__ Consts k,
+                         tpulbm::Links links,
+                         const __grid_constant__ tpulbm3d::Shard sh,
+                         float* scratch) {
+  using T = Tile<N>;
+  extern __shared__ float smem[];  // the rings of stages 0 .. N-1, the mask
+  if constexpr (T::kScratch) {
+    float* rings = scratch + static_cast<size_t>(blockIdx.x) * T::kMaskOffset;
+    uint8_t* mask = reinterpret_cast<uint8_t*>(smem);
+    const dim3 n = tiles_of<N>(tpulbm::kRings ? sh.nxl : nx,
+                               tpulbm::kRings ? sh.nyl : ny, nz);
+    const int n_x = static_cast<int>(n.x);
+    const int n_xy = n_x * static_cast<int>(n.y);
+    const int tiles = n_xy * static_cast<int>(n.z);
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      march<N>(f, out, solid, force, nx, ny, nz, k, links, sh, t % n_x,
+               t % n_xy / n_x, t / n_xy, rings, mask);
+      __syncthreads();  // the next tile's stage 0 reuses the mask slots
+    }
+  } else {
+    march<N>(f, out, solid, force, nx, ny, nz, k, links, sh,
+             static_cast<int>(blockIdx.x), static_cast<int>(blockIdx.y),
+             static_cast<int>(blockIdx.z), smem,
+             reinterpret_cast<uint8_t*>(smem + T::kMaskOffset));
+  }
+}
+
+// The bytes of scratch a launch of depth N needs: none where its rings fit
+// shared memory, else one slice for each block the card keeps resident.
+// -1 if the runtime refuses the query.
+template <int N>
+long long scratch_bytes(int device) {
+  using T = Tile<N>;
+  if constexpr (!T::kScratch) {
+    return 0;
+  } else {
+    int sms = 0, per_sm = 0;
+    if (cudaSetDevice(device) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                               device) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, d3q19_blocked_kernel<N>, T::kThreads, T::kSmemBytes) !=
+            cudaSuccess) {
+      return -1;
+    }
+    return static_cast<long long>(sms) * per_sm * sizeof(float) *
+           T::kMaskOffset;
+  }
+}
+
 // A launch of depth N over tiles of `cols` x `rows` cells (the grid, or a
-// shard's block: sh).
+// shard's block: sh); `scratch` holds scratch_bytes<N>() bytes (or more),
+// null where it needs none.
 template <int N>
 cudaError_t launch(const float* f, float* out, const uint8_t* solid,
                    const float* force, int nx, int ny, int nz, int cols,
                    int rows, const Consts& k, const tpulbm::Links& links,
-                   const tpulbm3d::Shard& sh, cudaStream_t stream) {
-  constexpr size_t smem = Tile<N>::kSmemBytes;
+                   const tpulbm3d::Shard& sh, float* scratch,
+                   long long scratch_size, cudaStream_t stream) {
+  using T = Tile<N>;
+  constexpr size_t smem = T::kSmemBytes;
   if constexpr (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         d3q19_blocked_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  constexpr int by = Tile<N>::kTileY;
-  const dim3 grid((cols + kBX - 1) / kBX, (rows + by - 1) / by,
-                  (nz + kZChunk - 1) / kZChunk);
-  d3q19_blocked_kernel<N><<<grid, Tile<N>::kThreads, smem, stream>>>(
-      f, out, solid, force, nx, ny, nz, k, links, sh);
+  dim3 grid = tiles_of<N>(cols, rows, nz);
+  if constexpr (T::kScratch) {
+    const long long slices =
+        scratch == nullptr
+            ? 0
+            : scratch_size / static_cast<long long>(sizeof(float) *
+                                                    T::kMaskOffset);
+    const long long tiles = static_cast<long long>(grid.x) * grid.y * grid.z;
+    if (slices < 1) return cudaErrorInvalidValue;
+    grid = dim3(static_cast<unsigned>(slices < tiles ? slices : tiles));
+  }
+  d3q19_blocked_kernel<N><<<grid, T::kThreads, smem, stream>>>(
+      f, out, solid, force, nx, ny, nz, k, links, sh, scratch);
   return cudaGetLastError();
 }
+
+// The depths the library holds, as X(N) for each: 2 and 3, or in the deep
+// build 4-8.
+#if TPULBM_DEEP
+#define TPULBM_DEPTHS(X) X(4) X(5) X(6) X(7) X(8)
+#else
+#define TPULBM_DEPTHS(X) X(2) X(3)
+#endif
 
 }  // namespace
 
@@ -556,16 +720,17 @@ cudaError_t launch(const float* f, float* out, const uint8_t* solid,
 // neither synchronizes nor allocates. links and link_planes: the Bouzidi
 // link table, 19 or 38 planes (tpulbm::Links), read by the kBouzidi build
 // only (elsewhere null and 0); force: the force profile's (Q, nz) table on
-// the card, read by the kForce build only (elsewhere null).
+// the card, read by the kForce build only (elsewhere null); scratch and
+// scratch_size: a buffer on the card of at least
+// tpulbm_d3q19_blocked_scratch_bytes(n_sub) bytes (null and 0 where that is
+// 0).
 #if !TPULBM_RINGS
-extern "C" int tpulbm_d3q19_step_blocked(const float* f, float* out,
-                                         const uint8_t* solid, int nx, int ny,
-                                         int nz, int n_sub, float inv_tau,
-                                         const float* eq_in, const float* w,
-                                         const float* mode, const float* src,
-                                         const float* force,
-                                         const float* links, int link_planes,
-                                         int device, void* stream) {
+extern "C" int tpulbm_d3q19_step_blocked(
+    const float* f, float* out, const uint8_t* solid, int nx, int ny, int nz,
+    int n_sub, float inv_tau, const float* eq_in, const float* w,
+    const float* mode, const float* src, const float* force,
+    const float* links, int link_planes, float* scratch,
+    long long scratch_size, int device, void* stream) {
   if (!tpulbm::links_fit(links, link_planes, kQ)) return cudaErrorInvalidValue;
   if ((force != nullptr) != tpulbm::kForce) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -576,14 +741,13 @@ extern "C" int tpulbm_d3q19_step_blocked(const float* f, float* out,
   const tpulbm3d::Shard none{};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_sub) {
-    case 2:
-      err = launch<2>(f, out, solid, force, nx, ny, nz, nx, ny, k, lk, none,
-                      s);
-      break;
-    case 3:
-      err = launch<3>(f, out, solid, force, nx, ny, nz, nx, ny, k, lk, none,
-                      s);
-      break;
+#define TPULBM_CASE(N)                                                     \
+  case N:                                                                  \
+    err = launch<N>(f, out, solid, force, nx, ny, nz, nx, ny, k, lk, none, \
+                    scratch, scratch_size, s);                             \
+    break;
+    TPULBM_DEPTHS(TPULBM_CASE)
+#undef TPULBM_CASE
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
@@ -600,7 +764,8 @@ extern "C" int tpulbm_d3q19_step_blocked_rings(
     int nz, int nxl, int nyl, int x0, int y0, int hx, int n_sub,
     float inv_tau, const float* eq_in, const float* w, const float* mode,
     const float* src, const float* force, const float* links,
-    int link_planes, int device, void* stream) {
+    int link_planes, float* scratch, long long scratch_size, int device,
+    void* stream) {
   if (!tpulbm::links_fit(links, link_planes, kQ)) return cudaErrorInvalidValue;
   if ((force != nullptr) != tpulbm::kForce) return cudaErrorInvalidValue;
   if (nxl < 1 || nyl < 1 || (hx != 0 && hx != n_sub))
@@ -616,14 +781,13 @@ extern "C" int tpulbm_d3q19_step_blocked_rings(
                            x0, y0, hx, n_sub};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_sub) {
-    case 2:
-      err = launch<2>(f, out, nullptr, force, nx, ny, nz, nxl, nyl, k, lk,
-                      sh, s);
-      break;
-    case 3:
-      err = launch<3>(f, out, nullptr, force, nx, ny, nz, nxl, nyl, k, lk,
-                      sh, s);
-      break;
+#define TPULBM_CASE(N)                                                    \
+  case N:                                                                 \
+    err = launch<N>(f, out, nullptr, force, nx, ny, nz, nxl, nyl, k, lk, \
+                    sh, scratch, scratch_size, s);                        \
+    break;
+    TPULBM_DEPTHS(TPULBM_CASE)
+#undef TPULBM_CASE
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
@@ -634,8 +798,37 @@ extern "C" int tpulbm_d3q19_step_blocked_rings(
 // a depth the library does not hold).
 extern "C" int tpulbm_d3q19_blocked_smem_bytes(int n_sub) {
   switch (n_sub) {
-    case 2: return static_cast<int>(Tile<2>::kSmemBytes);
-    case 3: return static_cast<int>(Tile<3>::kSmemBytes);
+#define TPULBM_CASE(N) \
+  case N: return static_cast<int>(Tile<N>::kSmemBytes);
+    TPULBM_DEPTHS(TPULBM_CASE)
+#undef TPULBM_CASE
+    default: return -1;
+  }
+}
+
+// The scratch a launch of depth n_sub on `device` needs, in bytes: 0 where
+// its rings fit shared memory (every depth but D3Q27's 8), else one slice
+// for each block the card keeps resident (-1 for a depth the library does
+// not hold, or a query the runtime refuses).
+extern "C" long long tpulbm_d3q19_blocked_scratch_bytes(int n_sub,
+                                                        int device) {
+  switch (n_sub) {
+#define TPULBM_CASE(N) \
+  case N: return scratch_bytes<N>(device);
+    TPULBM_DEPTHS(TPULBM_CASE)
+#undef TPULBM_CASE
+    default: return -1;
+  }
+}
+
+// The output tile of depth n_sub, x * 256 + y (-1 for a depth the library
+// does not hold).
+extern "C" int tpulbm_d3q19_blocked_tile(int n_sub) {
+  switch (n_sub) {
+#define TPULBM_CASE(N) \
+  case N: return Tile<N>::kTileX * 256 + Tile<N>::kTileY;
+    TPULBM_DEPTHS(TPULBM_CASE)
+#undef TPULBM_CASE
     default: return -1;
   }
 }

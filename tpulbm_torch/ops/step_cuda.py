@@ -3,7 +3,8 @@
 Ports of tpulbm/ops/step_pallas.py (D2Q9):
 * make_local_step_pallas (one step per launch): csrc/step_d2q9.cu;
 * make_local_step_pallasN (N = 3, 4) and make_local_step_pallas2 (N = 2),
-  temporal blocking, N steps per launch: csrc/step_d2q9_blocked.cu.
+  temporal blocking, N steps per launch: csrc/step_d2q9_blocked.cu; the
+  depths 5-8 that only TPULBM_SUBSTEPS asks for in its deep build (DEEP).
 Both hold every collision of tpulbm's D2Q9 kernels (COLLISION_MODES), the
 clean Zou-He corners, the body-force source, the force profile (tpulbm's
 force_fn along one axis: a table of its source per coordinate), the
@@ -17,7 +18,8 @@ Port of tpulbm/ops/step_pallas3d.py (D3Q19 and D3Q27):
 * make_local_step_pallas3d and make_local_step_pallas3d_tiled at n_sub=1
   (one step per launch): csrc/step_d3q19.cu;
 * make_local_step_pallas3d_tiled at n_sub 2 and 3 (temporal blocking, N
-  steps per launch): csrc/step_d3q19_blocked.cu.
+  steps per launch): csrc/step_d3q19_blocked.cu; n_sub 4-8 in its deep
+  build (DEEP), D3Q27 at 8 with its rings in a scratch buffer.
 Both hold every collision of tpulbm's 3-D kernels (COLLISION_MODES_3D: all
 but KBC, which tpulbm runs in 2-D only; MRT on D3Q19 only, as tpulbm's
 basis), the source, the force profile along z (3-D Kolmogorov), the
@@ -77,20 +79,31 @@ from . import step_torch
 KERNEL_SOURCE = "tpulbm_torch/csrc/step_d2q9.cu"
 REPLACES = "tpulbm/ops/step_pallas.py:1093"   # make_local_step_pallas
 BLOCKED_SOURCE = "tpulbm_torch/csrc/step_d2q9_blocked.cu"
+# the N-step kernels' depths: the default libraries', and the deep build's
+# (DEEP), which only TPULBM_SUBSTEPS asks for; MAX_DEPTH is the port's cap
+# in 2-D (tpulbm's TPU build takes deeper ones while VMEM holds them) and
+# tpulbm's halo height H in 3-D, above which its dispatch plans no depth
+BLOCKED_DEPTHS = (2, 3, 4)
+DEEP_DEPTHS = (5, 6, 7, 8)
+MAX_DEPTH = 8
+# the deepest x-tiled depth: tpulbm's make_local_step_tiled asserts
+# 1 <= n_sub <= 4
+TILED_MAX_DEPTH = 4
+TILED_ASSERT = "tpulbm/ops/step_pallas_tiled.py:133"
 # depth -> the Pallas function it replaces
 BLOCKED_REPLACES = {
     2: "tpulbm/ops/step_pallas.py:1442",      # make_local_step_pallas2
-    3: "tpulbm/ops/step_pallas.py:1679",      # make_local_step_pallasN
-    4: "tpulbm/ops/step_pallas.py:1679",
-}
-BLOCKED_DEPTHS = tuple(BLOCKED_REPLACES)
+    **{n: "tpulbm/ops/step_pallas.py:1679"    # make_local_step_pallasN
+       for n in BLOCKED_DEPTHS[1:] + DEEP_DEPTHS}}
 SOURCE_3D = "tpulbm_torch/csrc/step_d3q19.cu"
 REPLACES_3D = ("tpulbm/ops/step_pallas3d.py:370 (make_local_step_pallas3d), "
                "tpulbm/ops/step_pallas3d.py:745 at n_sub=1 "
                "(make_local_step_pallas3d_tiled)")
 SOURCE_3D_BLOCKED = "tpulbm_torch/csrc/step_d3q19_blocked.cu"
 REPLACES_3D_BLOCKED = "tpulbm/ops/step_pallas3d.py:745 at n_sub 2, 3"
+REPLACES_3D_DEEP = "tpulbm/ops/step_pallas3d.py:745 at n_sub 4-8"
 BLOCKED_DEPTHS_3D = (2, 3)
+DEEP_DEPTHS_3D = (4, 5, 6, 7, 8)
 # the Pallas functions the ring builds replace, by the chunk's mode
 # (parallel/sharded_step.plan) and depth
 _RINGS_REPLACES = {
@@ -102,7 +115,8 @@ _RINGS_REPLACES = {
     ("overlap", 2): "tpulbm/ops/step_pallas.py:1679",  # pallasN ranged=True
     ("overlap", 3): "tpulbm/ops/step_pallas.py:1679",
     ("overlap", 4): "tpulbm/ops/step_pallas.py:1679",
-}
+    **{(mode, n): "tpulbm/ops/step_pallas.py:1679"
+       for mode in ("rows", "overlap") for n in DEEP_DEPTHS}}
 
 
 def rings_replaces(mode: str, depth: int) -> str:
@@ -156,6 +170,8 @@ BOUZIDI = 64    # the Bouzidi obstacle: the link table (ops/bouzidi.py)
 D3Q27 = 128     # a 3-D library of the D3Q27 velocity set (else D3Q19)
 SLAB = 256      # the channel without y walls, its walls solid slabs of the
                 # mask under the obstacle rule (2-D)
+DEEP = 512      # an N-step library of the deep depths (DEEP_DEPTHS,
+                # DEEP_DEPTHS_3D) instead of the default ones
 # the bits of a cell's byte in the uint8 mask the kernels read
 # (collision_modes.cuh's kSolidBit, kLinkBit): solid, and under the
 # Bouzidi obstacle at least one cut link
@@ -274,8 +290,8 @@ def is_slab(p: Problem) -> bool:
 
 def variant_defines(variant: int) -> tuple[str, ...]:
     """nvcc's defines for a library's domain (variant & DOMAIN_BITS),
-    SLAB, SOURCE, FORCE, BOUNCE_BACK, BOUZIDI, RINGS and D3Q27; () for
-    0."""
+    SLAB, SOURCE, FORCE, BOUNCE_BACK, BOUZIDI, RINGS, D3Q27 and DEEP; ()
+    for 0."""
     defines = []
     if variant & DOMAIN_BITS:
         defines.append(f"-DTPULBM_DOMAIN={variant & DOMAIN_BITS}")
@@ -293,7 +309,15 @@ def variant_defines(variant: int) -> tuple[str, ...]:
         defines.append("-DTPULBM_RINGS=1")
     if variant & D3Q27:
         defines.append("-DTPULBM_Q=27")
+    if variant & DEEP:
+        defines.append("-DTPULBM_DEEP=1")
     return tuple(defines)
+
+
+def deep_bit(n_sub: int, three_d: bool = False) -> int:
+    """DEEP for a depth that the deep build of the 2-D (or 3-D) N-step
+    kernel holds, else 0."""
+    return DEEP if n_sub in (DEEP_DEPTHS_3D if three_d else DEEP_DEPTHS) else 0
 
 
 def build_defines(mode: str, variant: int = 0) -> tuple[str, ...]:
@@ -547,13 +571,27 @@ def _rings_library_3d(mode: str = "bgk", variant: int = 0) -> ctypes.CDLL:
                     _RINGS_ARGS_3D + _CONSTS_ARGS_3D, mode, variant | RINGS)
 
 
+_SCRATCH_ARGS = [_PTR, ctypes.c_longlong]
+
+
+def _bind_scratch(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The N-step 3-D library with its queries typed."""
+    lib.tpulbm_d3q19_blocked_smem_bytes.argtypes = [_I32]
+    lib.tpulbm_d3q19_blocked_smem_bytes.restype = _I32
+    lib.tpulbm_d3q19_blocked_scratch_bytes.argtypes = [_I32, _I32]
+    lib.tpulbm_d3q19_blocked_scratch_bytes.restype = ctypes.c_longlong
+    lib.tpulbm_d3q19_blocked_tile.argtypes = [_I32]
+    lib.tpulbm_d3q19_blocked_tile.restype = _I32
+    return lib
+
+
 @functools.cache
 def _rings_blocked_library_3d(mode: str = "bgk",
                               variant: int = 0) -> ctypes.CDLL:
-    return _bind_3d("step_d3q19_blocked.cu",
-                    "tpulbm_d3q19_step_blocked_rings",
-                    _RINGS_ARGS_3D + [_I32] + _CONSTS_ARGS_3D, mode,
-                    variant | RINGS)
+    return _bind_scratch(_bind_3d(
+        "step_d3q19_blocked.cu", "tpulbm_d3q19_step_blocked_rings",
+        _RINGS_ARGS_3D + [_I32] + _CONSTS_ARGS_3D[:-2] + _SCRATCH_ARGS
+        + _CONSTS_ARGS_3D[-2:], mode, variant | RINGS))
 
 
 @functools.cache
@@ -568,13 +606,11 @@ def _library_3d(mode: str = "bgk", variant: int = 0) -> ctypes.CDLL:
 
 @functools.cache
 def _blocked_library_3d(mode: str = "bgk", variant: int = 0) -> ctypes.CDLL:
-    lib = _bind_3d("step_d3q19_blocked.cu", "tpulbm_d3q19_step_blocked",
-                   [_PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _F32, _PTR,
-                    _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _PTR], mode,
-                   variant)
-    lib.tpulbm_d3q19_blocked_smem_bytes.argtypes = [_I32]
-    lib.tpulbm_d3q19_blocked_smem_bytes.restype = _I32
-    return lib
+    return _bind_scratch(_bind_3d(
+        "step_d3q19_blocked.cu", "tpulbm_d3q19_step_blocked",
+        [_PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _F32, _PTR, _PTR, _PTR,
+         _PTR, _PTR, _PTR, _I32] + _SCRATCH_ARGS + [_I32, _PTR], mode,
+        variant))
 
 
 @functools.cache
@@ -640,12 +676,24 @@ def _floats(values: tuple) -> ctypes.Array:
     return (ctypes.c_float * len(values))(*values)
 
 
+def _scratch_args(f: torch.Tensor, n_sub: int, scratch) -> tuple:
+    """The N-step 3-D launchers' scratch buffer and its bytes (None, 0
+    without one); nothing for the other launchers."""
+    if f.dim() == 3 or n_sub == 1:
+        return ()
+    return (None, 0) if scratch is None else (scratch.data_ptr(),
+                                              scratch.numel())
+
+
 def launch_args(f: torch.Tensor, out: torch.Tensor, solid: torch.Tensor,
                 consts: "StepConstants", n_sub: int,
-                links: torch.Tensor | None, stream=None) -> tuple:
+                links: torch.Tensor | None, stream=None,
+                scratch: torch.Tensor | None = None) -> tuple:
     """The arguments of a one-device launcher (tpulbm_d2q9_step and
     tpulbm_d3q19_step at n_sub 1, their _blocked forms at n_sub > 1) for a
-    launch from f into out on `stream` of f's device."""
+    launch from f into out on `stream` of f's device; `scratch`, a uint8
+    buffer on the device, is the N-step 3-D kernel's where it needs one
+    (scratch_for)."""
     shape = tuple(f.shape[1:])
     if f.dim() == 3:
         tail = (*consts.d2q9_args, *consts.force_args(f.device, shape))
@@ -653,16 +701,19 @@ def launch_args(f: torch.Tensor, out: torch.Tensor, solid: torch.Tensor,
         tail = (*consts.d3q19_args, consts.force_args(f.device, shape)[1])
     return (f.data_ptr(), out.data_ptr(), solid.data_ptr(), *shape[::-1],
             *(() if n_sub == 1 else (n_sub,)), *tail,
-            *link_args(consts, links, shape, f), f.device.index or 0, stream)
+            *link_args(consts, links, shape, f),
+            *_scratch_args(f, n_sub, scratch), f.device.index or 0, stream)
 
 
 def ring_launch_args(f: torch.Tensor, out: torch.Tensor, rings: tuple,
                      shard: "Shard", consts: "StepConstants", n_sub: int,
-                     rows: tuple[int, int] = (0, 0), stream=None) -> tuple:
+                     rows: tuple[int, int] = (0, 0), stream=None,
+                     scratch: torch.Tensor | None = None) -> tuple:
     """The arguments of a ring launcher (tpulbm_d2q9_step_rings and
     tpulbm_d3q19_step_rings at n_sub 1, their _blocked forms at n_sub > 1)
     for a launch of `shard` from f and its rings into the rows [r0, r1) of
-    out (2-D; a 3-D launch writes the whole block) on `stream`."""
+    out (2-D; a 3-D launch writes the whole block) on `stream`, with the
+    N-step 3-D kernel's `scratch` as in launch_args."""
     rb, rt, rl, rr = rings
     y0, x0 = shard.origin
     nyl, nxl = shard.local_shape[-2:]
@@ -678,7 +729,7 @@ def ring_launch_args(f: torch.Tensor, out: torch.Tensor, rings: tuple,
             _ptr(rt), _ptr(rl), _ptr(rr), *geometry,
             *(() if n_sub == 1 else (n_sub,)), *tail,
             *link_args(consts, shard.links, tuple(shard.mask.shape), f),
-            f.device.index or 0, stream)
+            *_scratch_args(f, n_sub, scratch), f.device.index or 0, stream)
 
 
 def collide_stream(f: torch.Tensor, out: torch.Tensor, solid: torch.Tensor,
@@ -720,17 +771,21 @@ def _zero_counts(wrapper, modes: tuple, depths: tuple | None = None) -> None:
 def _count(wrapper, library: str, n_sub: int | None = None,
            shard: tuple[int, int] | None = None) -> None:
     """Count one launch of `wrapper`'s kernel from `library`, at depth
-    n_sub for an N-step wrapper, on `shard` for the ring wrapper."""
+    n_sub for an N-step wrapper, on `shard` for the ring wrapper. A deep
+    depth (DEEP_DEPTHS, DEEP_DEPTHS_3D) gets its count at its first
+    launch, so the counts of a run that launched none keep the default
+    depths alone."""
     by_library = wrapper.launches_by_library
     if n_sub is None:
         by_library[library] = by_library.get(library, 0) + 1
     elif shard is None:
-        by_library.setdefault(library, dict.fromkeys(wrapper.depths, 0))
-        by_library[library][n_sub] += 1
+        per_depth = by_library.setdefault(library,
+                                          dict.fromkeys(wrapper.depths, 0))
+        per_depth[n_sub] = per_depth.get(n_sub, 0) + 1
     else:
-        per_depth = by_library.setdefault(
-            library, {d: {} for d in wrapper.depths})[n_sub]
-        per_depth[shard] = per_depth.get(shard, 0) + 1
+        per_shard = by_library.setdefault(
+            library, {d: {} for d in wrapper.depths}).setdefault(n_sub, {})
+        per_shard[shard] = per_shard.get(shard, 0) + 1
 
 
 def _total(n) -> int:
@@ -738,11 +793,20 @@ def _total(n) -> int:
     return sum(n.values()) if isinstance(n, dict) else n
 
 
+def _depths(wrapper) -> tuple | None:
+    """An N-step wrapper's default depths, then the deep ones it has
+    launched; None for a 1-step wrapper."""
+    if wrapper.depths is None:
+        return None
+    deep = {d for n in wrapper.launches_by_library.values() for d in n}
+    return wrapper.depths + tuple(sorted(deep - set(wrapper.depths)))
+
+
 def launches_by_mode(wrapper) -> dict:
     """`wrapper`'s launches per collision mode it holds (0 where none), each
     summed over the mode's libraries (and shards); per depth for an N-step
-    wrapper."""
-    depths = wrapper.depths
+    wrapper (its default depths, and a deep one once launched)."""
+    depths = _depths(wrapper)
     out = {mode: 0 if depths is None else dict.fromkeys(depths, 0)
            for mode in wrapper.modes}
     for library, n in wrapper.launches_by_library.items():
@@ -751,17 +815,18 @@ def launches_by_mode(wrapper) -> dict:
             out[mode] += n
         else:
             for d in depths:
-                out[mode][d] += _total(n[d])
+                out[mode][d] += _total(n.get(d, 0))
     return out
 
 
 def launches(wrapper):
     """`wrapper`'s launches summed over its libraries; per depth for an
-    N-step wrapper."""
+    N-step wrapper (its default depths, and a deep one once launched)."""
     by_mode = launches_by_mode(wrapper).values()
-    if wrapper.depths is None:
+    depths = _depths(wrapper)
+    if depths is None:
         return sum(by_mode)
-    return {d: sum(n[d] for n in by_mode) for d in wrapper.depths}
+    return {d: sum(n[d] for n in by_mode) for d in depths}
 
 
 def launches_by_shard(wrapper) -> dict:
@@ -777,12 +842,15 @@ _zero_counts(collide_stream, COLLISION_MODES)
 
 
 def check_depth(n_sub: int) -> None:
-    """Raise NotImplementedError for a blocking depth with no kernel."""
-    if n_sub not in BLOCKED_DEPTHS:
+    """Raise NotImplementedError for a blocking depth with no kernel: the
+    port holds 2-D depths 2 to MAX_DEPTH (tpulbm's TPU build takes deeper
+    ones while VMEM holds them)."""
+    if n_sub not in BLOCKED_DEPTHS + DEEP_DEPTHS:
         raise NotImplementedError(
-            f"temporal blocking at depth {n_sub} is not ported; the N-step "
-            f"kernel holds depths {BLOCKED_DEPTHS} (ROADMAP Queue 2 item 10, "
-            "deeper blocking)")
+            f"temporal blocking at depth {n_sub}: the port's N-step kernel "
+            f"holds depths 2 to {MAX_DEPTH}, its cap (tpulbm's TPU build "
+            "takes deeper ones while VMEM holds them; ROADMAP Queue 3, "
+            "different by design)")
 
 
 def collide_stream_blocked(f: torch.Tensor, out: torch.Tensor,
@@ -803,7 +871,7 @@ def collide_stream_blocked(f: torch.Tensor, out: torch.Tensor,
         for _ in range(n_sub):
             f = plain(f)
         return out.copy_(f)
-    lib = _blocked_library(consts.mode, consts.variant)
+    lib = _blocked_library(consts.mode, consts.variant | deep_bit(n_sub))
     stream = torch.cuda.current_stream(f.device).cuda_stream
     rc = lib.tpulbm_d2q9_step_blocked(*launch_args(
         f, out, solid, consts, n_sub, links, stream))
@@ -874,10 +942,15 @@ def check_shard(f: torch.Tensor, out: torch.Tensor, rings: tuple,
                          f"{shard.local_shape} of {shard.grid}")
     masked = depths is None
     if masked:
-        held = RINGS_DEPTHS_3D if lead else RINGS_DEPTHS
+        held = (RINGS_DEPTHS_3D + DEEP_DEPTHS_3D if lead
+                else RINGS_DEPTHS + DEEP_DEPTHS)
         if n_sub != depth or depth not in held:
             raise ValueError(f"depth {n_sub} with rings {depth} deep (the "
                              f"ring kernels hold depths {held})")
+        if not lead and shard.x_rings and depth > TILED_MAX_DEPTH:
+            raise ValueError(
+                f"x rings at depth {depth}: tpulbm's x-tiled kernel takes "
+                f"depths up to {TILED_MAX_DEPTH} ({TILED_ASSERT})")
     elif depths.get(depth) != n_sub:
         raise ValueError(f"{n_sub} steps with rings {depth} deep (this ring "
                          f"kernel takes rings {tuple(depths)} deep for "
@@ -958,7 +1031,8 @@ def collide_stream_rings(f: torch.Tensor, out: torch.Tensor, rings: tuple,
         lib = _rings_library(consts.mode, consts.variant)
         rc = lib.tpulbm_d2q9_step_rings(*args)
     else:
-        lib = _rings_blocked_library(consts.mode, consts.variant)
+        lib = _rings_blocked_library(consts.mode,
+                                     consts.variant | deep_bit(n_sub))
         rc = lib.tpulbm_d2q9_step_blocked_rings(*args)
     _check_launch(lib, rc, f"D2Q9 {n_sub}-step ring kernel "
                            f"({consts.library}, shard {shard.index})")
@@ -993,14 +1067,17 @@ def collide_stream_rings_3d(f: torch.Tensor, out: torch.Tensor,
             raise ValueError("a CPU tensor needs the plain step")
         return out.copy_(plain(f, rb, rt, rl, rr))
     stream = torch.cuda.current_stream(f.device).cuda_stream
-    args = ring_launch_args(f, out, rings, shard, consts, n_sub,
-                            stream=stream)
     if n_sub == 1:
         lib = _rings_library_3d(consts.mode, consts.variant)
-        rc = lib.tpulbm_d3q19_step_rings(*args)
+        rc = lib.tpulbm_d3q19_step_rings(*ring_launch_args(
+            f, out, rings, shard, consts, n_sub, stream=stream))
     else:
-        lib = _rings_blocked_library_3d(consts.mode, consts.variant)
-        rc = lib.tpulbm_d3q19_step_blocked_rings(*args)
+        lib = _rings_blocked_library_3d(consts.mode, consts.variant
+                                        | deep_bit(n_sub, three_d=True))
+        scratch = scratch_for(lib, n_sub, f.device)  # held past the launch
+        rc = lib.tpulbm_d3q19_step_blocked_rings(*ring_launch_args(
+            f, out, rings, shard, consts, n_sub, stream=stream,
+            scratch=scratch))
     _check_launch(lib, rc, f"3-D {n_sub}-step ring kernel "
                            f"({consts.library}, shard {shard.index})")
     _count(collide_stream_rings_3d, consts.library, n_sub, shard.index)
@@ -1037,12 +1114,28 @@ _zero_counts(collide_stream_3d, COLLISION_MODES_3D)
 
 
 def check_depth_3d(n_sub: int) -> None:
-    """Raise NotImplementedError for a 3-D blocking depth with no kernel."""
-    if n_sub not in BLOCKED_DEPTHS_3D:
+    """Raise NotImplementedError for a 3-D blocking depth with no kernel:
+    2 to MAX_DEPTH, tpulbm's halo height, above which its dispatch (and
+    stepper.plan_3d) plans the 1-step kernel instead."""
+    if n_sub not in BLOCKED_DEPTHS_3D + DEEP_DEPTHS_3D:
         raise NotImplementedError(
-            f"3-D temporal blocking at depth {n_sub} is not ported; the "
-            f"N-step D3Q19 kernel holds depths {BLOCKED_DEPTHS_3D} (ROADMAP "
-            "Queue 2 item 12, 3-D deeper blocking)")
+            f"3-D temporal blocking at depth {n_sub}: the N-step kernel "
+            f"holds depths 2 to {MAX_DEPTH}, tpulbm's halo height (its "
+            "dispatch plans no deeper one)")
+
+
+def scratch_for(lib: ctypes.CDLL, n_sub: int, device: torch.device):
+    """The scratch buffer an N-step 3-D launch of `lib` at n_sub needs on
+    `device` (its stage rings where no tile fits shared memory: D3Q27 at
+    8), a uint8 tensor from PyTorch's allocator, or None. The caller holds
+    it until the launch is enqueued (its pointer alone does not keep it);
+    freed then, its memory goes only to later work on the stream."""
+    nbytes = lib.tpulbm_d3q19_blocked_scratch_bytes(n_sub, device.index or 0)
+    if nbytes < 0:
+        raise RuntimeError(f"the N-step 3-D kernel's scratch query failed "
+                           f"at depth {n_sub}")
+    return (torch.empty(nbytes, dtype=torch.uint8, device=device)
+            if nbytes else None)
 
 
 def collide_stream_3d_blocked(f: torch.Tensor, out: torch.Tensor,
@@ -1064,10 +1157,12 @@ def collide_stream_3d_blocked(f: torch.Tensor, out: torch.Tensor,
         for _ in range(n_sub):
             f = plain(f)
         return out.copy_(f)
-    lib = _blocked_library_3d(consts.mode, consts.variant)
+    lib = _blocked_library_3d(consts.mode,
+                              consts.variant | deep_bit(n_sub, three_d=True))
     stream = torch.cuda.current_stream(f.device).cuda_stream
+    scratch = scratch_for(lib, n_sub, f.device)  # held past the launch
     rc = lib.tpulbm_d3q19_step_blocked(*launch_args(
-        f, out, solid, consts, n_sub, links, stream))
+        f, out, solid, consts, n_sub, links, stream, scratch))
     _check_launch(lib, rc, f"3-D {n_sub}-step kernel ({consts.library})")
     _count(collide_stream_3d_blocked, consts.library, n_sub)
     return out
@@ -1204,8 +1299,9 @@ def make_local_step_cuda(problem: Problem, device):
 def make_local_step_cuda_blocked(problem: Problem, device, n_sub: int):
     """step(f, out) -> out: n_sub timesteps of `problem` in one launch of
     the N-step kernel (CUDA) or n_sub plain steps (CPU). The counterpart of
-    make_local_step_pallasN (n_sub 3, 4) and make_local_step_pallas2
-    (n_sub 2); other depths raise NotImplementedError."""
+    make_local_step_pallasN (n_sub 3-8; 5-8 in the deep build) and
+    make_local_step_pallas2 (n_sub 2); other depths raise
+    NotImplementedError."""
     check_depth(n_sub)
     _, consts, solid, plain, links = _kernel_operands(problem, device)
 
@@ -1235,9 +1331,9 @@ def make_local_step_cuda_3d(problem: Problem, device):
 def make_local_step_cuda_3d_blocked(problem: Problem, device, n_sub: int):
     """step(f, out) -> out: n_sub D3Q19 or D3Q27 timesteps of `problem` in
     one launch of the N-step kernel (CUDA) or n_sub plain steps (CPU). The
-    counterpart of make_local_step_pallas3d_tiled at n_sub 2 and 3, for the
-    sphere in a duct, the periodic duct and the periodic box; other depths
-    raise NotImplementedError."""
+    counterpart of make_local_step_pallas3d_tiled at n_sub 2-8 (4-8 in the
+    deep build), for the sphere in a duct, the periodic duct and the
+    periodic box; other depths raise NotImplementedError."""
     check_depth_3d(n_sub)
     _, consts, solid, plain, links = _kernel_operands_3d(problem, device)
 

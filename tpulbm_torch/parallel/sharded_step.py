@@ -178,6 +178,12 @@ def plan(problem: Problem, mesh: Mesh, chunk_len: int) -> tuple[str, int]:
     step_pallas_tiled.py:137-142) and the overlap mode only at N > 1 (its
     1-step ranged kernel excludes it, sharded_step.py:326-327): without a
     depth that divides the chunk it takes "rows".
+    A forced depth of 5-8 runs "rows" and the overlap mode (the deep build
+    of the N-step kernel); where it divides the chunk but would go to
+    tpulbm's x-tiled builder (a mesh that cuts x, TPULBM_FORCE_TILED, or
+    shards too small for the N-step kernel) it raises ValueError, as that
+    builder asserts n_sub <= 4 (step_pallas_tiled.py:133). A forced depth
+    above 8 raises NotImplementedError (step_cuda.check_depth).
     Raises ValueError where no depth fits the shards."""
     local = mesh.local_shape(problem.spatial_shape)
     bouzidi = problem.obstacle_bc == "bouzidi" and problem.solid is not None
@@ -207,6 +213,14 @@ def plan(problem: Problem, mesh: Mesh, chunk_len: int) -> tuple[str, int]:
                 and not bouzidi):
             return "overlap", 1
     mode = "tiled" if x_sharded else "rows"
+    if not no_fused:
+        for n in candidates:
+            if (n > step_cuda.TILED_MAX_DEPTH and chunk_len % n == 0
+                    and (x_sharded or not _fits(local, n))):
+                raise ValueError(
+                    f"depth {n} would run tpulbm's x-tiled kernel, which "
+                    f"takes depths up to {step_cuda.TILED_MAX_DEPTH} "
+                    f"({step_cuda.TILED_ASSERT}: assert 1 <= n_sub <= 4)")
     if not no_fused and not (bouzidi and mode == "tiled"):
         for n in candidates:
             if n != 1 and chunk_len % n == 0 and _fits(local, n):

@@ -22,9 +22,12 @@ from .ops import (diagnostics, forces as forces_mod, step_cuda,
 def choose_substeps(chunk_len: int) -> int:
     """The temporal-blocking depth of a kernel chunk: sharded_step.py's
     choice (:336-375) for one device. TPULBM_NO_FUSED2 turns blocking off
-    and TPULBM_SUBSTEPS forces a depth, as in tpulbm; otherwise the first
-    of 4, 3, 2 that divides chunk_len, else 1 (the 1-step kernel). tpulbm's
-    TPU-only conditions (slab count, VMEM fit) have no counterpart."""
+    and TPULBM_SUBSTEPS forces a depth, as in tpulbm (one that does not
+    divide chunk_len gives 1; 5-8 run the deep build of the N-step kernel,
+    and the kernel wrapper refuses a depth above 8, the port's cap);
+    otherwise the first of 4, 3, 2 that divides chunk_len, else 1 (the
+    1-step kernel). tpulbm's TPU-only conditions (slab count, VMEM fit)
+    have no counterpart."""
     if os.environ.get("TPULBM_NO_FUSED2"):
         return 1
     forced = os.environ.get("TPULBM_SUBSTEPS")
@@ -59,21 +62,21 @@ def plan_3d(chunk_len: int, nz: int, fits=None):
     TPULBM_SUBSTEPS=n > 1 that divides chunk_len gives [(n, chunk_len//n)]
     and one that does not gives None; otherwise the first of the depth-3
     and depth-2 splits whose depths all pass. A depth passes where the
-    tiled builder's device-independent condition nz >= depth + 1 (:860)
-    holds, and fits(depth) where given (a mesh's shards,
-    parallel/sharded_step.plan_3d). tpulbm's TPU-only conditions have no
-    counterpart: the VMEM tile search, depth <= halo height, nx % 128, and
-    tile_height >= 4 * halo_height (:190-192). A forced depth above 3
-    raises NotImplementedError: the N-step kernel holds depths 2 and 3."""
+    tiled builder's conditions n_sub <= H = 8 and nz >= depth + 1 (:860)
+    hold, and fits(depth) where given (a mesh's shards,
+    parallel/sharded_step.plan_3d): a forced depth above 8 gives None, as
+    on the TPU (tpulbm's interpret mode widens H to the depth instead).
+    tpulbm's other TPU-only conditions have no counterpart: the VMEM tile
+    search, nx % 128, and tile_height >= 4 * halo_height (:190-192).
+    Depths 4-8 run the deep build of the N-step kernel."""
     if os.environ.get("TPULBM_NO_FUSED2"):
         return None
     forced = os.environ.get("TPULBM_SUBSTEPS")
     if forced:
         n = int(forced)
-        if n > 1:
-            step_cuda.check_depth_3d(n)
         splits = ([blocking_split(chunk_len, n)]
-                  if n > 1 and chunk_len % n == 0 else [])
+                  if 1 < n <= step_cuda.MAX_DEPTH and chunk_len % n == 0
+                  else [])
     else:
         splits = [s for s in (blocking_split(chunk_len, n) for n in (3, 2))
                   if s is not None]
@@ -92,7 +95,7 @@ def make_chunk_fn(problem: Problem, device, chunk_len: int,
     tensors). 2-D: chunk_len // N launches of the N-step kernel at the
     depth N of choose_substeps, or chunk_len launches of the 1-step kernel
     at N=1. 3-D: tpulbm's plan (plan_3d), each segment's launches in order:
-    the N-step D3Q19 kernel at depths 2 and 3, the 1-step D3Q19 kernel at
+    the N-step D3Q19 kernel at depths 2-8, the 1-step D3Q19 kernel at
     depth 1 and for the whole chunk where there is no plan.
     Thermal: chunk_len launches of the thermal kernel, one step each, as
     tpulbm's body_thermal_pallas scans its 1-step kernel

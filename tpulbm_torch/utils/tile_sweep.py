@@ -56,7 +56,7 @@ def _build(variant: tuple[int, int], text: str):
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.tpulbm_d3q19_step_blocked.argtypes = [
         ptr, ptr, ptr, i32, i32, i32, i32, f32, ptr, ptr, ptr, ptr, ptr, ptr,
-        i32, i32, ptr]
+        i32, ptr, ctypes.c_longlong, i32, ptr]
     lib.tpulbm_d3q19_step_blocked.restype = i32
     lib.tpulbm_d3q19_blocked_smem_bytes.argtypes = [i32]
     lib.tpulbm_cuda_error_string.argtypes = [i32]
@@ -100,7 +100,7 @@ def main(argv=None) -> int:
         def step(f, out):
             rc = lib.tpulbm_d3q19_step_blocked(
                 f.data_ptr(), out.data_ptr(), solid.data_ptr(), n, n, n,
-                depth, *consts.d3q19_args, None, None, 0, 0,
+                depth, *consts.d3q19_args, None, None, 0, None, 0, 0,
                 torch.cuda.current_stream(dev).cuda_stream)
             step_cuda._check_launch(lib, rc, f"tile sweep N={depth}")
             return out
