@@ -6777,11 +6777,17 @@ def run_phases(dev, card: str, t_start: float, refs: dict) -> list[dict]:
     smem = {n: step_cuda._blocked_library().tpulbm_d2q9_blocked_smem_bytes(n)
             for n in DEPTHS}
     print(f"build: N-step kernel dynamic shared memory per block {smem} B")
-    smem3 = {n: step_cuda._blocked_library_3d()
-             .tpulbm_d3q19_blocked_smem_bytes(n) for n in DEPTHS_3D}
+    lib3 = step_cuda._blocked_library_3d()
+    smem3 = {n: lib3.tpulbm_d3q19_blocked_smem_bytes(n) for n in DEPTHS_3D}
+    shape3 = {n: (divmod(lib3.tpulbm_d3q19_blocked_tile(n), 256),
+                  divmod(lib3.tpulbm_d3q19_blocked_cluster(n), 256),
+                  lib3.tpulbm_d3q19_blocked_threads(n),
+                  lib3.tpulbm_d3q19_blocked_active_clusters(
+                      n, dev.index or 0)) for n in DEPTHS_3D}
     print(f"build: D3Q19 kernel dynamic shared memory per block "
           f"{step_cuda._library_3d().tpulbm_d3q19_smem_bytes()} B, N-step "
-          f"D3Q19 kernel {smem3} B")
+          f"D3Q19 kernel {smem3} B; its (tile, cluster, threads, resident "
+          f"clusters) {shape3}")
 
     # phase 3: the kernels against plain at the main path's shape
     params = PRESETS["re200"].replace(precision="f32", enable_vtk=False)

@@ -208,15 +208,31 @@ def test_blocked_kernel_source_ring_layout():
     assert n == {-1: 5, 0: 9, 1: 5}
     floats = n[-1] + 2 * n[0] + 3 * n[1]
     assert f"kRingFloats == {floats}" in src
-    # the shared memory the source states for its tile heights
-    by = int(re.search(r"constexpr int kBY = (\d+);", src).group(1))
-    for depth in (2, 3):
-        cells = [(32 + 2 * (depth - k)) * (by + 2 * (depth - k))
+    # the shared memory the source states for its tiles: of heights kBY,
+    # kBY / 2, ... the first whose rings (over the region a block of its
+    # cluster computes at stage k, plus the one-cell frame on the sides that
+    # face the cluster), mask planes and, in a cluster, transaction barriers
+    # fit a block
+    knob = {k: int(re.search(rf"#define TPULBM_{k} (\d+)", src).group(1))
+            for k in ("TILE_Y", "CLUSTER_X", "CLUSTER_Y")}
+    cx, cy = knob["CLUSTER_X"], knob["CLUSTER_Y"]
+
+    def smem(depth, by):
+        def reach(blocks, d):
+            return 2 * d if blocks == 1 else d
+        cells = [(32 + reach(cx, depth - k) + (cx > 1))
+                 * (by + reach(cy, depth - k) + (cy > 1))
                  for k in range(depth)]
-        # the rings, then a byte of mask a cell of stage 0 for N+2 planes
-        smem = 4 * floats * sum(cells) + (depth + 2) * cells[0]
-        assert f"{smem:,} B" in src, (depth, smem)
-        assert smem <= 232448
+        size = 4 * floats * sum(cells) + (depth + 2) * (
+            (32 + reach(cx, depth)) * (by + reach(cy, depth)))
+        return -(-size // 8) * 8 + 8 * depth if cx * cy > 1 else size
+
+    for depth in (2, 3):
+        by = knob["TILE_Y"]
+        while smem(depth, by) > 232448:
+            by //= 2
+        assert f"32 x {by} at N={depth} ({smem(depth, by):,} B" in src, \
+            (depth, by, smem(depth, by))
 
 
 @pytest.mark.parametrize("name,group", [

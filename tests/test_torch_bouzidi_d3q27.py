@@ -17,7 +17,7 @@ tpulbm, on the CPU.
   checkpoints both ways against tpulbm's Runner; the CLI (tpulbm's
   ValueError for --cylinder-omega on the sphere, as tpulbm's);
 * both D3Q19 sources built with -DTPULBM_Q=27 -DTPULBM_BOUZIDI=1 for the
-  host with g++ (tests/test_torch_slab.py's HOST_RUNTIME): one step
+  host with g++ (tests/test_torch_mesh_thermal.py's FAKE_RUNTIME): one step
   against the plain step from a ±10% perturbed state under each
   collision, N = 2, 3 bitwise against N 1-step launches, the N = 3 tile
   within a block's shared memory, the ring builds bitwise one device on
@@ -49,7 +49,7 @@ from test_torch_compat import port_params, port_problem
 from test_torch_mesh import cpu_mesh, perturbed
 from test_torch_slab import (F32_TOL, SEPARATION, host_build,  # noqa: F401
                              host_kernels, host_ring_launch, host_step,
-                             separation)
+                             prebuild, separation)
 
 F64_TOL = dict(rtol=1e-12, atol=1e-15)
 PLAW_TOL = dict(rtol=1e-4, atol=1e-7)
@@ -246,34 +246,53 @@ def _same_artifacts(a, b):
     np.testing.assert_allclose(rows[0][:, 1:3], rows[1][:, 1:3], **ART)
 
 
+def _run(pkg, params, **kw):
+    if pkg == "port":
+        return Runner(port_params(params.replace(backend="pallas")),
+                      device="cpu", verbose=False).run(**kw)
+    return JaxRunner(params, verbose=False).run(**kw)
+
+
+@pytest.fixture(scope="module")
+def straight(tmp_path_factory):
+    """straight(pkg) -> the directory of the module's one 40-step run of
+    _runner_params by `pkg` ("port", one device, or "tpulbm"), which the
+    Runner and checkpoint tests share."""
+    runs = {}
+
+    def get(pkg):
+        if pkg not in runs:
+            out = tmp_path_factory.mktemp(f"straight_{pkg}")
+            result = _run(pkg, _runner_params(out))
+            assert result.success and result.final_step == 40
+            runs[pkg] = out
+        return runs[pkg]
+
+    return get
+
+
 @pytest.mark.parametrize("mesh_shape", [(1, 1), (2, 1)])
-def test_runner_artifacts_match_tpulbm(tmp_path, mesh_shape):
-    ref = _runner_params(tmp_path / "ref")
-    assert JaxRunner(ref, verbose=False).run().success
-    got = port_params(ref.replace(backend="pallas", mesh_shape=mesh_shape,
-                                  output_dir=str(tmp_path / "port")))
-    result = Runner(got, device="cpu", verbose=False).run()
-    assert result.success and result.final_step == 40
-    _same_artifacts(tmp_path / "port", tmp_path / "ref")
+def test_runner_artifacts_match_tpulbm(tmp_path, straight, mesh_shape):
+    if mesh_shape == (1, 1):
+        port = straight("port")
+    else:
+        port = tmp_path / "port"
+        result = _run("port", _runner_params(port, mesh_shape=mesh_shape))
+        assert result.success and result.final_step == 40
+    _same_artifacts(port, straight("tpulbm"))
 
 
 @pytest.mark.parametrize("direction", ["port_to_tpulbm", "tpulbm_to_port"])
-def test_checkpoint_resumes_in_the_other_package(tmp_path, direction):
-    def run(cls, params, **kw):
-        if cls is Runner:
-            return Runner(port_params(params.replace(backend="pallas")),
-                          device="cpu", verbose=False).run(**kw)
-        return JaxRunner(params, verbose=False).run(**kw)
-
-    writer, reader = ((Runner, JaxRunner) if direction == "port_to_tpulbm"
-                      else (JaxRunner, Runner))
-    run(reader, _runner_params(tmp_path / "straight"))
+def test_checkpoint_resumes_in_the_other_package(tmp_path, straight,
+                                                 direction):
+    writer, reader = (("port", "tpulbm") if direction == "port_to_tpulbm"
+                      else ("tpulbm", "port"))
     half = _runner_params(tmp_path / "moved", checkpoint_every=1).replace(
         num_timesteps=20)
-    run(writer, half)
-    result = run(reader, half.replace(num_timesteps=40), resume=True)
+    _run(writer, half)
+    result = _run(reader, half.replace(num_timesteps=40), resume=True)
     assert result.success and result.final_step == 40
-    _same_artifacts(tmp_path / "moved", tmp_path / "straight")
+    _same_artifacts(tmp_path / "moved", straight(reader))
 
 
 @pytest.mark.parametrize("extra", [[], ["--mesh", "2x1"]],
@@ -308,6 +327,25 @@ def test_cli_refuses_a_spinning_sphere_as_tpulbm():
 
 # ---- the kernels on the host ------------------------------------------------
 
+@pytest.fixture(scope="module", autouse=True)
+def _libraries(host_build):
+    """The module's host libraries, built in the background while its first
+    tests run: both D3Q19 sources per collision, the ring builds, the
+    equilibrium obstacle's D3Q27 library."""
+    libs = [(src, step_cuda.build_defines("bgk", step_cuda.D3Q27))
+            for src in ("step_d3q19.cu",)]
+    for case in [*sorted(OPERATORS), "spinning"]:
+        c = step_cuda.kernel_constants(pair(case, "f32")[0], 19)
+        rings = (0, step_cuda.RINGS) if case in ("bgk", "spinning") else (0,)
+        for src in ("step_d3q19.cu", "step_d3q19_blocked.cu"):
+            for r in rings:
+                libs.append((src, step_cuda.build_defines(
+                    c.mode, c.variant | r)))
+    pool = prebuild(host_build, libs)
+    yield
+    pool.shutdown(cancel_futures=True)
+
+
 @pytest.mark.parametrize("case", [*sorted(OPERATORS), "spinning"])
 def test_host_kernels_match_plain_and_each_other(host_kernels, case):
     mine, _ = pair(case, "f32")
@@ -327,11 +365,15 @@ def test_host_kernels_match_plain_and_each_other(host_kernels, case):
         table = bouzidi.device_table(mine, "cpu")
         stair = torch.where(table >= 0, torch.full_like(table, 0.5), table)
         assert separation(host_step(mine, f, links=stair), want) > SEPARATION
-        smem = step_cuda._blocked_library_3d(
-            consts.mode, consts.variant).tpulbm_d3q19_blocked_smem_bytes
-        # 63 floats a cell: 32 x 8 at N = 2, 32 x 4 at N = 3, within the
-        # 232,448 B a block may take
-        assert (smem(2), smem(3)) == (196272, 221644)
+        lib = step_cuda._blocked_library_3d(consts.mode, consts.variant)
+        # 63 floats a cell, blocks in 1 x 2 clusters: 32 x 8 at N = 2, 32 x
+        # 4 at N = 3, within the 232,448 B a block may take
+        assert [lib.tpulbm_d3q19_blocked_smem_bytes(n) for n in (2, 3)] == \
+            [186928, 192880]
+        assert [divmod(lib.tpulbm_d3q19_blocked_tile(n), 256)
+                for n in (2, 3)] == [(32, 8), (32, 4)]
+        assert [divmod(lib.tpulbm_d3q19_blocked_cluster(n), 256)
+                for n in (2, 3)] == [(1, 2), (1, 2)]
     for n in step_cuda.BLOCKED_DEPTHS_3D:
         g = f
         for _ in range(n):

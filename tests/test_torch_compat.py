@@ -12,6 +12,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import tpulbm.config as jcfg
 from tpulbm import geometry as jgeom
@@ -23,6 +24,15 @@ from tpulbm_torch import geometry, lattice
 from tpulbm_torch.models import make_problem
 from tpulbm_torch.utils import checkpoint as ckpt
 from tpulbm_torch.utils import io as io_mod
+
+# One PyTorch thread in each test process. The tier-1 run spreads the test
+# files over six pytest-xdist workers on the host's cores, and every worker
+# collects (imports) every test module, this one among them; at PyTorch's
+# default each worker would start an intra-op pool as wide as the host, and
+# six such pools spinning over eight cores starve one another (measured on
+# an 8-core host: eight of the port's CPU-heavy test files took 286 s at
+# the default and 104 s at one thread a worker, the same tests passing).
+torch.set_num_threads(1)
 
 
 def port_params(params) -> cfg.SimulationParams:

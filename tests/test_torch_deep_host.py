@@ -18,6 +18,8 @@ state.
   N=8 (the overlap mode's three ranges), 3-D (2, 1) on D3Q27 at N=8 and
   (2, 2) with x rings at N=5.
 """
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -27,7 +29,7 @@ from tpulbm_torch.models import make_problem
 from tpulbm_torch.ops import bouzidi, step_cuda
 from tpulbm_torch.parallel import halo, sharded_step
 from test_torch_mesh import cpu_mesh, perturbed
-from test_torch_slab import host_build, host_kernels  # noqa: F401
+from test_torch_slab import host_build, host_kernels, prebuild  # noqa: F401
 
 CASES_2D = {
     "trt_corners": dict(problem="cylinder", nx=70, ny=33, tau=0.6,
@@ -52,6 +54,35 @@ CASES_3D = {
 
 def _problem(kw):
     return make_problem(SimulationParams(precision="f32", **kw))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _libraries(host_build):
+    """The module's host libraries, built in the background while its first
+    tests run."""
+    d2, d3 = ("step_d2q9.cu", "step_d2q9_blocked.cu"), ("step_d3q19.cu",
+                                                         "step_d3q19_blocked.cu")
+    libs = []
+
+    def add(sources, kw, q, variants, extra=()):
+        c = step_cuda.kernel_constants(_problem(kw), q)
+        libs.append((sources[0], step_cuda.build_defines(c.mode, c.variant)))
+        for v in variants:
+            libs.append((sources[1], step_cuda.build_defines(
+                c.mode, c.variant | v) + extra))
+
+    for kw in CASES_2D.values():
+        add(d2, kw, 9, [step_cuda.DEEP])
+    for kw in CASES_3D.values():
+        add(d3, kw, 19, [step_cuda.DEEP])
+    for case, cluster in CLUSTERED:
+        add(d3, CLUSTER_CASES[case], 19,
+            [0, step_cuda.RINGS] if case == "rings" else [0],
+            (f"-DTPULBM_CLUSTER_X={cluster[0]}",
+             f"-DTPULBM_CLUSTER_Y={cluster[1]}"))
+    pool = prebuild(host_build, libs)
+    yield
+    pool.shutdown(cancel_futures=True)
 
 
 def _launch(problem, f, n_sub):
@@ -170,6 +201,65 @@ def test_deep_ring_builds_equal_one_device(host_kernels, kw, shape, depth,
     f = torch.from_numpy(perturbed(problem))
     got = _ring_launch(problem, f, shape, depth, ranged)
     assert torch.equal(got, _launch(problem, f, depth))
+
+
+# The default N-step 3-D build (N = 2, 3) under its thread-block cluster
+# (1 x 2) and others (-DTPULBM_CLUSTER_X, _Y; 1 x 1 a lone block): ragged
+# grids of two x tiles (the left one ragged) and one or two y tiles, padded
+# to whole clusters; every shape on the sphere, one on each other build.
+CLUSTER_CASES = {
+    "sphere": dict(SPHERE, nx=40),
+    "sphere_d3q27": dict(SPHERE, nx=40, lattice3d="d3q27"),
+    "bouzidi": dict(SPHERE, nx=40, obstacle_bc="bouzidi"),
+    "box": dict(problem="taylor-green", nx=40, ny=14, nz=5, tau=0.6),
+    "duct": dict(problem="poiseuille", nx=40, ny=14, nz=9, tau=0.8,
+                 inlet_velocity=0.0, body_force=(1e-4, 0.0, 1e-5)),
+    "rings": dict(SPHERE, nx=40, ny=16),
+}
+
+
+def _with_cluster(monkeypatch, host_build, cluster):
+    """Bind step_cuda's libraries to host builds whose N-step 3-D source
+    takes the cluster `cluster` (blocks along x, y)."""
+    extra = (f"-DTPULBM_CLUSTER_X={cluster[0]}",
+             f"-DTPULBM_CLUSTER_Y={cluster[1]}")
+
+    def load(source, defines=()):
+        if source == "step_d3q19_blocked.cu":
+            defines = (*defines, *extra)
+        return types.SimpleNamespace(lib=host_build(source, defines))
+
+    monkeypatch.setattr(step_cuda.cuda_build, "load", load)
+
+
+CLUSTERED = [("sphere", (1, 1)), ("sphere", (1, 2)), ("sphere", (2, 2)),
+             ("sphere", (2, 4)), ("sphere_d3q27", (2, 4)), ("bouzidi", (2, 2)),
+             ("box", (2, 4)), ("duct", (2, 2)), ("rings", (2, 2))]
+
+
+@pytest.mark.parametrize(
+    "case,cluster", CLUSTERED,
+    ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else v)
+def test_clustered_3d_launch_is_n_1step_launches(host_kernels, monkeypatch,
+                                                 case, cluster):
+    _with_cluster(monkeypatch, host_kernels, cluster)
+    problem = _problem(CLUSTER_CASES[case])
+    consts = step_cuda.kernel_constants(problem, 19)
+    lib = step_cuda._blocked_library_3d(consts.mode, consts.variant)
+    assert [divmod(lib.tpulbm_d3q19_blocked_cluster(n), 256)
+            for n in (2, 3)] == [cluster] * 2
+    assert lib.tpulbm_d3q19_blocked_threads(3) == 512
+    if case == "bouzidi":
+        table = bouzidi.device_table(problem, "cpu")
+        assert int((table[:19] >= 0).sum()) > 0
+    f = torch.from_numpy(perturbed(problem))
+    for n in step_cuda.BLOCKED_DEPTHS_3D:
+        want = _launch(problem, f, n)
+        if case == "rings":   # the ring build on (2, 1) against one device
+            got = _ring_launch(problem, f, (2, 1), n)
+        else:                 # one launch against n 1-step launches
+            got = _one_step_launches(problem, f, n)
+        assert torch.equal(got, want), (n, float((got - want).abs().max()))
 
 
 def test_the_default_builds_refuse_the_deep_depths(host_kernels):

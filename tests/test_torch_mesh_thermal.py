@@ -31,7 +31,6 @@ import ctypes
 import re
 import shutil
 import subprocess
-from pathlib import Path
 
 import jax
 import numpy as np
@@ -313,17 +312,35 @@ def test_thermal_ring_wrapper_counts_only_kernel_launches():
 # ---- the CUDA sources on the host ----------------------------------------
 
 # A small CUDA runtime for the host: __shared__ arrays are statics (the
-# blocks run one after another), each CUDA thread is a std::thread, and
-# __syncthreads() a std::barrier; `kernel<<<grid, block, smem, stream>>>(
-# args);` becomes fake_launch(grid, block, smem, stream, [&] { kernel(args);
-# }) (host_source).
+# blocks of a launch without a cluster run one after another), each CUDA
+# thread is a fiber (ucontext: its own stack, switched on one host thread),
+# and __syncthreads() a barrier at which a fiber yields until every thread
+# of its block has arrived; the fibers run in turns whose order reverses
+# from one turn to the next, so a read that a missing barrier leaves
+# unordered meets the write on one side or the other; a barrier that some
+# thread never reaches aborts the process with a message. `kernel<<<grid,
+# block, smem, stream>>>(args);` becomes fake_launch(grid, block, smem,
+# stream, [&] { kernel(args); }) (host_source). Dynamic shared memory is a
+# NaN-filled buffer per block. A thread-block cluster (cudaLaunchKernelEx
+# with cudaLaunchAttributeClusterDimension) runs its blocks' threads
+# together: cluster_group::sync() is a barrier over all of them and
+# map_shared_rank() points into the dynamic shared memory of the block of
+# that rank (x fastest). An asynchronous copy (__pipeline_memcpy_async) is a
+# synchronous copy whose wait completes at once. The deep 3-D build's
+# scratch kernel reads gridDim and the occupancy queries (a card of 2 SMs,
+# one block or cluster each).
 FAKE_RUNTIME = r"""
 #pragma once
-#include <barrier>
+#include <ucontext.h>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
-#include <thread>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <functional>
+#include <math.h>
+#include <memory>
 #include <vector>
 #define __global__
 #define __device__
@@ -331,74 +348,328 @@ FAKE_RUNTIME = r"""
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __shared__ static
+#define __grid_constant__
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
-inline thread_local dim3 threadIdx, blockIdx;
-inline std::barrier<>* fake_barrier = nullptr;
-inline void __syncthreads() { fake_barrier->arrive_and_wait(); }
+// A barrier of `count` fibers: the last to arrive opens it (gen + 1).
+struct FakeBarrier {
+  unsigned count = 0, arrived = 0;
+  unsigned long gen = 0;
+};
+struct FakeFiber {
+  ucontext_t ctx;
+  std::unique_ptr<char[]> stack;
+  dim3 thread, block;
+  FakeBarrier* bar;
+  unsigned char* smem;
+  bool done;
+  unsigned long arrived;  // the cluster barrier's gen at its split arrive
+};
+// the running fiber's thread and block, its block barrier and cluster
+// barrier, its block's dynamic shared memory and that of each block of its
+// cluster by rank (set at every switch)
+inline thread_local dim3 threadIdx, blockIdx, gridDim;
+inline thread_local FakeBarrier* fake_barrier = nullptr;
+inline thread_local FakeBarrier* fake_cluster_barrier = nullptr;
+inline thread_local unsigned char* fake_dyn_smem = nullptr;
+inline thread_local unsigned char* const* fake_cluster_smem = nullptr;
+inline thread_local ucontext_t fake_main;
+inline thread_local FakeFiber* fake_current = nullptr;
+inline thread_local const std::function<void()>* fake_body = nullptr;
+inline thread_local unsigned long fake_progress = 0;
+inline void fake_wait(FakeBarrier* b) {
+  const unsigned long gen = b->gen;
+  ++fake_progress;
+  if (++b->arrived == b->count) {
+    b->arrived = 0;
+    ++b->gen;
+    return;
+  }
+  while (b->gen == gen) swapcontext(&fake_current->ctx, &fake_main);
+}
+inline void __syncthreads() { fake_wait(fake_barrier); }
+inline void fake_yield() { swapcontext(&fake_current->ctx, &fake_main); }
+// the cluster barrier split in two: arrive, then wait for the others
+inline void fake_cluster_arrive() {
+  FakeBarrier* b = fake_cluster_barrier;
+  fake_current->arrived = b->gen;
+  ++fake_progress;
+  if (++b->arrived == b->count) {
+    b->arrived = 0;
+    ++b->gen;
+  }
+}
+inline void fake_cluster_wait() {
+  while (fake_cluster_barrier->gen == fake_current->arrived) fake_yield();
+}
+inline void fake_fiber_entry() {
+  (*fake_body)();
+  fake_current->done = true;
+  ++fake_progress;
+}
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaDevAttrMultiProcessorCount = 16 };
+enum {
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+  cudaFuncAttributeNonPortableClusterSizeAllowed = 9
+};
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  union {
+    struct {
+      unsigned x, y, z;
+    } clusterDim;
+  } val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
 inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "host"; }
-template <class S, class F>
-void fake_launch(dim3 grid, dim3 block, int, S, F body) {
+inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) {
+  *v = 2;
+  return cudaSuccess;
+}
+template <class K>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    int* n, K, int, size_t) {
+  *n = 1;
+  return cudaSuccess;
+}
+template <class K>
+inline cudaError_t cudaOccupancyMaxActiveClusters(int* n, K,
+                                                  const cudaLaunchConfig_t*) {
+  *n = 2;
+  return cudaSuccess;
+}
+template <class K>
+inline int cudaFuncSetAttribute(K, int, int) { return 0; }
+inline void fake_launch_clusters(dim3 grid, dim3 block, size_t smem,
+                                 dim3 cluster,
+                                 const std::function<void()>& body) {
+  constexpr size_t kStack = 256 * 1024;
   const unsigned n = block.x * block.y * block.z;
-  for (unsigned bz = 0; bz < grid.z; ++bz)
-    for (unsigned by = 0; by < grid.y; ++by)
-      for (unsigned bx = 0; bx < grid.x; ++bx) {
-        std::barrier<> bar(n);
-        fake_barrier = &bar;
-        std::vector<std::thread> threads;
-        for (unsigned t = 0; t < n; ++t)
-          threads.emplace_back([=] {
-            threadIdx = dim3(t % block.x, t / block.x % block.y,
-                             t / (block.x * block.y));
-            blockIdx = dim3(bx, by, bz);
-            body();
-          });
-        for (auto& th : threads) th.join();
+  const unsigned nb = cluster.x * cluster.y * cluster.z;
+  std::vector<FakeFiber> fibers(n * nb);
+  for (auto& f : fibers) f.stack.reset(new char[kStack]);
+  std::vector<std::vector<float>> dyn(nb);
+  std::vector<unsigned char*> bases(nb);
+  std::vector<FakeBarrier> bars(nb);
+  FakeBarrier whole;
+  fake_body = &body;
+  for (unsigned cz = 0; cz < grid.z; cz += cluster.z)
+    for (unsigned cy = 0; cy < grid.y; cy += cluster.y)
+      for (unsigned cx = 0; cx < grid.x; cx += cluster.x) {
+        whole = FakeBarrier{n * nb};
+        for (unsigned r = 0; r < nb; ++r) {
+          dyn[r].assign(smem / sizeof(float) + 1, NAN);
+          bases[r] = reinterpret_cast<unsigned char*>(dyn[r].data());
+          bars[r] = FakeBarrier{n};
+          for (unsigned t = 0; t < n; ++t) {
+            FakeFiber& f = fibers[r * n + t];
+            f.thread = dim3(t % block.x, t / block.x % block.y,
+                            t / (block.x * block.y));
+            f.block = dim3(cx + r % cluster.x, cy + r / cluster.x % cluster.y,
+                           cz + r / (cluster.x * cluster.y));
+            f.bar = &bars[r];
+            f.smem = bases[r];
+            f.done = false;
+            getcontext(&f.ctx);
+            f.ctx.uc_stack.ss_sp = f.stack.get();
+            f.ctx.uc_stack.ss_size = kStack;
+            f.ctx.uc_link = &fake_main;
+            makecontext(&f.ctx, fake_fiber_entry, 0);
+          }
+        }
+        gridDim = grid;
+        fake_cluster_barrier = &whole;
+        fake_cluster_smem = bases.data();
+        for (unsigned turn = 0, left = n * nb; left > 0; ++turn) {
+          const unsigned long before = fake_progress;
+          left = 0;
+          for (unsigned k = 0; k < n * nb; ++k) {
+            FakeFiber& f = fibers[turn % 2 ? n * nb - 1 - k : k];
+            if (f.done) continue;
+            threadIdx = f.thread;
+            blockIdx = f.block;
+            fake_barrier = f.bar;
+            fake_dyn_smem = f.smem;
+            fake_current = &f;
+            swapcontext(&fake_main, &f.ctx);
+            left += f.done ? 0 : 1;
+          }
+          if (left > 0 && fake_progress == before) {
+            fprintf(stderr, "fake CUDA runtime: a barrier that some thread "
+                            "never reaches\n");
+            abort();
+          }
+        }
       }
 }
+template <class S, class F>
+void fake_launch(dim3 grid, dim3 block, size_t smem, S, F body) {
+  fake_launch_clusters(grid, block, smem, dim3(1, 1, 1), body);
+}
+template <class... E, class... A>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* c,
+                               void (*kernel)(E...), A&&... args) {
+  dim3 cluster(1, 1, 1);
+  for (unsigned i = 0; i < c->numAttrs; ++i)
+    if (c->attrs[i].id == cudaLaunchAttributeClusterDimension)
+      cluster = dim3(c->attrs[i].val.clusterDim.x,
+                     c->attrs[i].val.clusterDim.y,
+                     c->attrs[i].val.clusterDim.z);
+  // the runtime refuses a grid of partial clusters
+  if (c->gridDim.x % cluster.x || c->gridDim.y % cluster.y ||
+      c->gridDim.z % cluster.z)
+    return cudaErrorInvalidValue;
+  fake_launch_clusters(c->gridDim, c->blockDim, c->dynamicSmemBytes, cluster,
+                       [&] { kernel(args...); });
+  return cudaSuccess;
+}
 """
-_LAUNCH = re.compile(r"(\w+)<<<(.*?)>>>\((.*?)\);", re.S)
+# the headers FAKE_RUNTIME stands for, by name
+FAKE_HEADERS = {
+    "cooperative_groups.h": r"""
+#pragma once
+#include "cuda_runtime.h"
+namespace cooperative_groups {
+struct cluster_group {
+  void sync() const { fake_wait(fake_cluster_barrier); }
+  template <class T>
+  T* map_shared_rank(T* p, unsigned rank) const {
+    return reinterpret_cast<T*>(
+        fake_cluster_smem[rank] +
+        (reinterpret_cast<unsigned char*>(p) - fake_dyn_smem));
+  }
+};
+inline cluster_group this_cluster() { return {}; }
+}  // namespace cooperative_groups
+""",
+    # transaction barriers as two words in their 8 bytes: the completed
+    # phases (x 2) plus 1 while armed, and the bytes still expected
+    "hopper_async.cuh": r"""
+#pragma once
+#include <stdint.h>
+#include "cuda_runtime.h"
+namespace tpulbm_async {
+inline int32_t* fake_words(const uint64_t* bar) {
+  return reinterpret_cast<int32_t*>(const_cast<uint64_t*>(bar));
+}
+inline void fake_settle(int32_t* w) {
+  if ((w[0] & 1) && w[1] == 0) w[0] += 1;  // armed and complete: next phase
+}
+inline void barrier_init(uint64_t* bar) {
+  fake_words(bar)[0] = 0;
+  fake_words(bar)[1] = 0;
+}
+inline void barrier_init_fence() {}
+inline void arm_bytes(uint64_t* bar, uint32_t bytes) {
+  int32_t* w = fake_words(bar);
+  w[0] |= 1;
+  w[1] += static_cast<int32_t>(bytes);
+  fake_settle(w);
+}
+inline void wait_phase(uint64_t* bar, uint32_t parity) {
+  while (((fake_words(bar)[0] >> 1) & 1) == static_cast<int32_t>(parity))
+    fake_yield();
+}
+template <class T>
+inline T* fake_remote(const T* p, uint32_t rank) {
+  return reinterpret_cast<T*>(
+      fake_cluster_smem[rank] +
+      (reinterpret_cast<const unsigned char*>(p) - fake_dyn_smem));
+}
+inline void store_remote(const float* at, const uint64_t* bar, uint32_t rank,
+                         float v) {
+  *fake_remote(at, rank) = v;
+  int32_t* w = fake_words(fake_remote(bar, rank));
+  w[1] -= 4;
+  fake_settle(w);
+}
+inline void cluster_arrive_relaxed() { fake_cluster_arrive(); }
+inline void cluster_wait() { fake_cluster_wait(); }
+}  // namespace tpulbm_async
+""",
+    "cuda_pipeline.h": r"""
+#pragma once
+#include <cstring>
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n,
+                                    size_t = 0) {
+  std::memcpy(dst, src, n);
+}
+inline void __pipeline_commit() {}
+inline void __pipeline_wait_prior(size_t) {}
+""",
+}
+_LAUNCH = re.compile(r"(\w+(?:<[^<>]*>)?)<<<(.*?)>>>\((.*?)\);", re.S)
+_DYNAMIC = re.compile(r"extern __shared__ float (\w+)\[\];")
+GXX_FLAGS = ("-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC")
 
 
 def host_source(src: str) -> str:
-    """A .cu source with its launches rewritten for FAKE_RUNTIME."""
+    """A .cu source with its launches and its dynamic shared memory
+    rewritten for FAKE_RUNTIME."""
+    src = _DYNAMIC.sub(r"float* \1 = reinterpret_cast<float*>(fake_dyn_smem);",
+                       src)
     return _LAUNCH.sub(lambda m: f"fake_launch({m.group(2)}, [&] {{ "
                        f"{m.group(1)}({m.group(3)}); }});", src)
 
 
-@pytest.fixture(scope="module")
-def host_cuda(tmp_path_factory):
-    """build(source, defines) -> the ctypes library of a csrc/ kernel
-    source built for the host with g++ against FAKE_RUNTIME."""
+def host_library(text: str, defines: tuple = (),
+                 runtime: str = FAKE_RUNTIME) -> ctypes.CDLL:
+    """`text` (a csrc/ source rewritten for the host) built with g++ against
+    `runtime` and FAKE_HEADERS, once a session: the library lies under
+    cuda_build.build_dir()/host, named by a hash of the runtime, the
+    source, every csrc/ header, the defines and the flags, and a file lock
+    keeps the test workers from building it twice."""
+    import fcntl
+    import hashlib
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernels' sources for the host")
-    tmp = tmp_path_factory.mktemp("host_cuda")
-    (tmp / "cuda_runtime.h").write_text(FAKE_RUNTIME)
-    libs = {}
+    h = hashlib.sha256()
+    for part in (runtime, *FAKE_HEADERS.values(), text,
+                 *(p.read_text() for p in
+                   sorted(cuda_build.SOURCE_DIR.glob("*.cuh"))),
+                 *defines, *GXX_FLAGS):
+        h.update(part.encode() + b"\0")
+    out = cuda_build.build_dir() / "host" / h.hexdigest()[:24]
+    so = out / "kernel.so"
+    out.mkdir(parents=True, exist_ok=True)
+    with open(out / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not so.exists():
+            (out / "cuda_runtime.h").write_text(runtime)
+            for name, header in FAKE_HEADERS.items():
+                (out / name).write_text(header)
+            cpp = out / "kernel.cpp"
+            cpp.write_text(text)
+            part = out / "kernel.so.part"
+            subprocess.run([gxx, *GXX_FLAGS, *defines, "-I", str(out), "-I",
+                            str(cuda_build.SOURCE_DIR), str(cpp), "-o",
+                            str(part)], check=True, capture_output=True)
+            part.rename(so)
+    return ctypes.CDLL(str(so))
 
+
+@pytest.fixture(scope="module")
+def host_cuda():
+    """build(source, defines) -> the ctypes library of a csrc/ kernel
+    source built for the host with g++ against FAKE_RUNTIME."""
     def build(source: str, defines: tuple = ()) -> ctypes.CDLL:
-        key = (source, tuple(defines))
-        if key not in libs:
-            tag = "".join("_" + d.rsplit("=", 1)[-1] for d in defines)
-            cpp = tmp / f"{Path(source).stem}{tag}.cpp"
-            cpp.write_text(host_source(
-                (cuda_build.SOURCE_DIR / source).read_text()))
-            so = cpp.with_suffix(".so")
-            subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off",
-                            "-shared", "-fPIC", "-pthread", *defines, "-I",
-                            str(tmp), "-I", str(cuda_build.SOURCE_DIR),
-                            str(cpp), "-o", str(so)], check=True,
-                           capture_output=True)
-            libs[key] = ctypes.CDLL(str(so))
-        return libs[key]
+        return host_library(host_source(
+            (cuda_build.SOURCE_DIR / source).read_text()), tuple(defines))
 
     return build
 

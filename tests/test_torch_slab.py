@@ -17,7 +17,8 @@ bounce-back and the Bouzidi obstacle rules, the top wall still or moving.
   is cut) and the mesh chunk against one device;
 * the cut-link force against tpulbm's; checkpoints both ways;
 * both D2Q9 sources built with g++ for the host against a fake CUDA
-  runtime (HOST_RUNTIME; the 3-D tests reuse it): the slab's builds one
+  runtime (test_torch_mesh_thermal.py's FAKE_RUNTIME; the 3-D tests reuse
+  it): the slab's builds one
   step against the plain step from a ±10% perturbed state, N = 2-4
   bitwise against N 1-step launches, the ring builds bitwise one device
   on (2,1) at N = 4, (1,2) and (2,2) at depth 1, a staircase table (every
@@ -25,11 +26,7 @@ bounce-back and the Bouzidi obstacle rules, the top wall still or moving.
 """
 import ctypes
 import dataclasses
-import re
-import shutil
-import subprocess
 import types
-from pathlib import Path
 
 import jax
 import numpy as np
@@ -51,7 +48,7 @@ from tpulbm_torch.utils import cuda_build
 from test_torch_bouzidi import (_fractional_channel, _noisy,
                                 make_step_rolled_pair)
 from test_torch_mesh import cpu_mesh
-from test_torch_mesh_thermal import FAKE_RUNTIME
+from test_torch_mesh_thermal import host_library, host_source
 
 F64_TOL = dict(rtol=1e-12, atol=0.0)
 F32_TOL = dict(rtol=5e-6, atol=1e-7)
@@ -266,81 +263,28 @@ def test_checkpoint_resumes_in_the_other_package(tmp_path, direction):
 
 # ---- the kernels on the host ------------------------------------------------
 
-# FAKE_RUNTIME with what the N-step and 3-D kernels also use: dynamic
-# shared memory (the launch's size in bytes, NaN-filled per block),
-# __grid_constant__, cudaFuncSetAttribute, and for the deep 3-D build's
-# scratch kernel gridDim and the occupancy queries (a card of 2 SMs, one
-# block each)
-HOST_RUNTIME = FAKE_RUNTIME.replace(
-    "inline thread_local dim3 threadIdx, blockIdx;",
-    "inline thread_local dim3 threadIdx, blockIdx, gridDim;").replace(
-    "blockIdx = dim3(bx, by, bz);",
-    "blockIdx = dim3(bx, by, bz);\n            gridDim = grid;").replace(
-    "inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }\n",
-    "inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }\n"
-    "enum { cudaDevAttrMultiProcessorCount = 16 };\n"
-    "inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) "
-    "{ *v = 2; return cudaSuccess; }\n"
-    "template <class K> inline cudaError_t "
-    "cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) "
-    "{ *n = 1; return cudaSuccess; }\n").replace(
-    "#define __shared__ static\n",
-    "#define __shared__ static\n#define __grid_constant__\n"
-    "#include <math.h>\n"
-    "inline unsigned char* fake_dyn_smem = nullptr;\n"
-    "enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };\n"
-    "template <class K> inline int cudaFuncSetAttribute(K, int, int) "
-    "{ return 0; }\n").replace(
-    "void fake_launch(dim3 grid, dim3 block, int, S, F body) {\n"
-    "  const unsigned n = block.x * block.y * block.z;\n",
-    "void fake_launch(dim3 grid, dim3 block, size_t smem, S, F body) {\n"
-    "  const unsigned n = block.x * block.y * block.z;\n"
-    "  std::vector<float> dyn(smem / sizeof(float) + 1, NAN);\n"
-    "  fake_dyn_smem = reinterpret_cast<unsigned char*>(dyn.data());\n")
-_LAUNCH = re.compile(r"(\w+(?:<[^<>]*>)?)<<<(.*?)>>>\((.*?)\);", re.S)
-_DYNAMIC = re.compile(r"extern __shared__ float (\w+)\[\];")
-assert "fake_dyn_smem = reinterpret_cast" in HOST_RUNTIME
-assert "gridDim = grid" in HOST_RUNTIME
-assert "cudaOccupancyMaxActiveBlocksPerMultiprocessor" in HOST_RUNTIME
-
-
-def host_source(src: str) -> str:
-    """A .cu source with its launches and its dynamic shared memory
-    rewritten for HOST_RUNTIME."""
-    src = _DYNAMIC.sub(r"float* \1 = reinterpret_cast<float*>(fake_dyn_smem);",
-                       src)
-    return _LAUNCH.sub(lambda m: f"fake_launch({m.group(2)}, [&] {{ "
-                       f"{m.group(1)}({m.group(3)}); }});", src)
-
-
 @pytest.fixture(scope="module")
-def host_build(tmp_path_factory):
+def host_build():
     """build(source, defines) -> the ctypes library of a csrc/ kernel
-    source built for the host with g++ against HOST_RUNTIME."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to build the kernels' sources for the host")
-    tmp = tmp_path_factory.mktemp("host_kernels")
-    (tmp / "cuda_runtime.h").write_text(HOST_RUNTIME)
-    libs = {}
-
+    source built for the host with g++ against the fake CUDA runtime
+    (tests/test_torch_mesh_thermal.py: FAKE_RUNTIME, once a session)."""
     def build(source: str, defines: tuple = ()) -> ctypes.CDLL:
-        key = (source, tuple(defines))
-        if key not in libs:
-            tag = "".join("_" + d[2:].replace("=", "") for d in defines)
-            cpp = tmp / f"{Path(source).stem}{tag}.cpp"
-            cpp.write_text(host_source(
-                (cuda_build.SOURCE_DIR / source).read_text()))
-            so = cpp.with_suffix(".so")
-            subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off",
-                            "-shared", "-fPIC", "-pthread", *defines, "-I",
-                            str(tmp), "-I", str(cuda_build.SOURCE_DIR),
-                            str(cpp), "-o", str(so)], check=True,
-                           capture_output=True)
-            libs[key] = ctypes.CDLL(str(so))
-        return libs[key]
+        return host_library(host_source(
+            (cuda_build.SOURCE_DIR / source).read_text()), tuple(defines))
 
     return build
+
+
+def prebuild(build, libraries):
+    """Start building `libraries` ((source, defines) pairs, as step_cuda
+    asks cuda_build.load for them) three at a time in the background; a
+    test that needs one waits on its build's lock. Returns the pool, to be
+    shut down when the module's tests are done."""
+    from concurrent.futures import ThreadPoolExecutor
+    pool = ThreadPoolExecutor(3)
+    for source, defines in dict.fromkeys(libraries):
+        pool.submit(build, source, defines)
+    return pool
 
 
 _LIBRARIES = ("_library", "_blocked_library", "_rings_library",

@@ -582,6 +582,12 @@ def _bind_scratch(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tpulbm_d3q19_blocked_scratch_bytes.restype = ctypes.c_longlong
     lib.tpulbm_d3q19_blocked_tile.argtypes = [_I32]
     lib.tpulbm_d3q19_blocked_tile.restype = _I32
+    lib.tpulbm_d3q19_blocked_cluster.argtypes = [_I32]
+    lib.tpulbm_d3q19_blocked_cluster.restype = _I32
+    lib.tpulbm_d3q19_blocked_threads.argtypes = [_I32]
+    lib.tpulbm_d3q19_blocked_threads.restype = _I32
+    lib.tpulbm_d3q19_blocked_active_clusters.argtypes = [_I32, _I32]
+    lib.tpulbm_d3q19_blocked_active_clusters.restype = _I32
     return lib
 
 

@@ -1,15 +1,18 @@
-"""Time the cylinder's BGK kernels of one checkout, for comparing two
-commits on the same card.
+"""Time the cylinder's and the sphere's kernels of one checkout, for
+comparing two commits on the same card.
 
     python3 tpulbm_torch/utils/ab_kernels.py CHECKOUT LABEL
 
 Run it as a file, not with -m: it imports tpulbm_torch from CHECKOUT (the
-root of an unpacked commit), builds that checkout's four D2Q9 and D3Q19
-sources there, and prints one JSON line: LABEL and the ms per step of
-re200 at 2048x512 (the 1-step and N=4 kernels) and of the sphere at 256^3
-(the 1-step and N=3 kernels), CUDA events, the lower of three turns after
-a warm-up. Alternate the commits (parent, change, change, parent), one
-process each, in one call.
+root of an unpacked commit), builds that checkout's D2Q9 and D3Q19
+sources there (each library the timings launch, all at once), and prints
+one JSON line: LABEL and the ms per step of re200 at 2048x512 (the 1-step
+and N=4 kernels), of the sphere at 256^3 (BGK: the 1-step and N=3
+kernels; MRT: the 1-step and N=3; D3Q27: the 1-step, N=2 and N=3) and of
+one shard of the sphere at 256^3 on a 2x2 mesh (the N=3 ring build, shard
+(0, 0), its rings exchanged once), CUDA events, the lower of three turns
+after a warm-up. Alternate the commits (parent, change, change, parent),
+one process each, in one call.
 """
 import json
 import sys
@@ -49,30 +52,63 @@ def main(checkout: str, label: str) -> None:
     from tpulbm_torch.convert import state_from_numpy
     from tpulbm_torch.models import make_problem
     from tpulbm_torch.ops import step_cuda
+    from tpulbm_torch.parallel import halo, mesh, sharded_step
     from tpulbm_torch.utils import cuda_build
 
     if not step_cuda.__file__.startswith(checkout):
         raise RuntimeError(f"imported {step_cuda.__file__}, not {checkout}")
-    with ThreadPoolExecutor(4) as pool:
-        list(pool.map(cuda_build.load, ["step_d2q9.cu", "step_d2q9_blocked.cu",
-                                        "step_d3q19.cu",
-                                        "step_d3q19_blocked.cu"]))
     dev = torch.device("cuda", 0)
+
+    def sphere(**kw):
+        return make_problem(SimulationParams(
+            problem="cylinder3d", nx=256, ny=256, nz=256,
+            inlet_velocity=0.05, precision="f32", **kw))
+
+    re200 = make_problem(PRESETS["re200"].replace(precision="f32"))
+    bgk, mrt = sphere(), sphere(collision="mrt")
+    d3q27 = sphere(lattice3d="d3q27")
+    builds = [("step_d2q9.cu", ()), ("step_d2q9_blocked.cu", ())]
+    for p in (bgk, mrt, d3q27):
+        c = step_cuda.StepConstants.of(p)
+        for src in ("step_d3q19.cu", "step_d3q19_blocked.cu"):
+            builds.append((src, step_cuda.build_defines(c.mode, c.variant)))
+    builds.append(("step_d3q19_blocked.cu",
+                   step_cuda.build_defines("bgk", step_cuda.RINGS)))
+    with ThreadPoolExecutor(len(builds)) as pool:
+        list(pool.map(lambda b: cuda_build.load(*b), builds))
     out = {"label": label}
-    p = make_problem(PRESETS["re200"].replace(precision="f32"))
-    f = state_from_numpy(p.initial_state(), p, dev)
-    out["re200_1step"] = ms_per_step(step_cuda.make_local_step_cuda(p, dev),
-                                     f, 2400, 1)
+    f = state_from_numpy(re200.initial_state(), re200, dev)
+    out["re200_1step"] = ms_per_step(
+        step_cuda.make_local_step_cuda(re200, dev), f, 2400, 1)
     out["re200_n4"] = ms_per_step(
-        step_cuda.make_local_step_cuda_blocked(p, dev, 4), f, 2400, 4)
-    p = make_problem(SimulationParams(problem="cylinder3d", nx=256, ny=256,
-                                      nz=256, inlet_velocity=0.05,
-                                      precision="f32"))
-    f = state_from_numpy(p.initial_state(), p, dev)
-    out["sphere_1step"] = ms_per_step(
-        step_cuda.make_local_step_cuda_3d(p, dev), f, 150, 1)
-    out["sphere_n3"] = ms_per_step(
-        step_cuda.make_local_step_cuda_3d_blocked(p, dev, 3), f, 150, 3)
+        step_cuda.make_local_step_cuda_blocked(re200, dev, 4), f, 2400, 4)
+    for name, p, depths in (("sphere", bgk, (3,)), ("sphere_mrt", mrt, (3,)),
+                            ("sphere_d3q27", d3q27, (2, 3))):
+        f = state_from_numpy(p.initial_state(), p, dev)
+        out[f"{name}_1step"] = ms_per_step(
+            step_cuda.make_local_step_cuda_3d(p, dev), f, 150, 1)
+        for n in depths:
+            out[f"{name}_n{n}"] = ms_per_step(
+                step_cuda.make_local_step_cuda_3d_blocked(p, dev, n), f, 150,
+                n)
+    # one shard of the 2x2 mesh, every shard on the one card
+    m = mesh.make_mesh((2, 2), devices=[dev] * 4)
+    blocks = sharded_step.split(
+        m, state_from_numpy(bgk.initial_state(), bgk, dev))
+    masks = halo.pad_mask(sharded_step._solid_grid(bgk, m),
+                          periodic_x=bgk.periodic_x,
+                          periodic_y=bgk.periodic_y, depth=3)
+    geo = sharded_step.kernel_shards(bgk, m, 3, True, masks)
+    rings = halo.exchange(blocks, eq_ring=bgk.ghost_ring_values(), depth=3,
+                          periodic_x=bgk.periodic_x,
+                          periodic_y=bgk.periodic_y, x_rings=True)
+    consts = step_cuda.kernel_constants(bgk, q=19)
+    b, r, g = blocks[0][0], rings[0][0], geo[0][0]
+    spare = torch.empty_like(b)
+    out["sphere_2x2_shard_n3"] = ms_per_step(
+        lambda f, o: step_cuda.collide_stream_rings_3d(b, spare, r, g,
+                                                       consts, 3),
+        b, 150, 3)
     print(json.dumps(out))
 
 
