@@ -42,7 +42,8 @@ printing its own line; any failure exits non-zero:
    same bytes as the same run with blocking off (TPULBM_NO_FUSED2);
 5. timing at 2048x512, CUDA events, in turns: the plain step, the 1-step
    kernel and the N = 2, 3, 4 kernels, per step, and the N=4 time against
-   the 0.01940 ms/step it took before the domains (RE200_N4_BEFORE_MS);
+   the 0.01929 ms/step of the N-step kernel before its row march
+   (RE200_N4_BEFORE_MS);
 6. D3Q19 parity at 256^3 (bench.py's d3q19 row: the sphere in a duct,
    tau 0.6, U = 0.05): one kernel step against the plain 3-D step from the
    initial state and from a state the plain step advanced 100 steps, at
@@ -559,10 +560,10 @@ PLAIN_WARM = 1
 # a 3-D kernel's turns in cell_timing (75 steps, at least 75 ms a turn at
 # 256^3), after 10 warm-up steps
 KERNEL_3D_STEPS = 75
-# the re200 N=4 BGK kernel's time before the ring builds (PERF.md §6,
-# row 2: the last call of PR 9) on an NVIDIA H100 80GB HBM3 at 700 W: the
-# cylinder's libraries keep it
-RE200_N4_BEFORE_MS = 0.01895
+# the re200 N=4 BGK kernel's time before the row march (the trapezoid of
+# 32 x 16 tiles; PERF.md §6, row 2: utils/ab_kernels.py's parent turns) on
+# an NVIDIA H100 80GB HBM3 at 700 W
+RE200_N4_BEFORE_MS = 0.01929
 # the 3-D cell's edge (bench.py's d3q19 row) and the bytes one D3Q19 step
 # must move: 19 f32 values per cell read and written once, plus the 1-byte
 # solid mask
@@ -6320,7 +6321,7 @@ def deep2d_phases(dev, card: str) -> list[dict]:
     deep = {n: step_cuda.make_local_step_cuda_blocked(problem, dev, n)
             for n in (4, *DEEP_2D)}
     smem = {n: step_cuda._blocked_library("bgk", step_cuda.DEEP)
-            .tpulbm_d2q9_blocked_smem_bytes(n) for n in DEEP_2D}
+            .tpulbm_d2q9_blocked_smem_bytes(n, 0) for n in DEEP_2D}
     print(f"deep 2-D: the deep build's dynamic shared memory per block "
           f"{smem} B")
     f0 = initial_state(problem, dev)
@@ -6774,9 +6775,19 @@ def run_phases(dev, card: str, t_start: float, refs: dict) -> list[dict]:
     from tpulbm_torch.ops import step_cuda, step_torch
     from tpulbm_torch.runner import Runner
 
-    smem = {n: step_cuda._blocked_library().tpulbm_d2q9_blocked_smem_bytes(n)
-            for n in DEPTHS}
-    print(f"build: N-step kernel dynamic shared memory per block {smem} B")
+    lib2 = step_cuda._blocked_library()
+    smem = {n: (lib2.tpulbm_d2q9_blocked_smem_bytes(n, 0),
+                lib2.tpulbm_d2q9_blocked_smem_bytes(n, 1)) for n in DEPTHS}
+    grids = {n: divmod(lib2.tpulbm_d2q9_blocked_grid(n, 2048, 512, 0,
+                                                     dev.index or 0), 65536)
+             for n in DEPTHS}
+    print(f"build: N-step D2Q9 kernel (the row march): widened rows of "
+          f"{lib2.tpulbm_d2q9_blocked_width()} columns, batches of "
+          f"{lib2.tpulbm_d2q9_blocked_rows()} rows, "
+          f"{ {n: lib2.tpulbm_d2q9_blocked_threads(n) for n in DEPTHS} } "
+          f"threads; dynamic shared "
+          f"memory per block (without, with the clean corners) {smem} B; "
+          f"(strips, segments) at 2048x512 {grids}")
     lib3 = step_cuda._blocked_library_3d()
     smem3 = {n: lib3.tpulbm_d3q19_blocked_smem_bytes(n) for n in DEPTHS_3D}
     shape3 = {n: (divmod(lib3.tpulbm_d3q19_blocked_tile(n), 256),
@@ -6929,7 +6940,7 @@ def run_phases(dev, card: str, t_start: float, refs: dict) -> list[dict]:
                       f"{[round(v, 6) for v in times[k]]})" for k in order))
     print(f"timing: the cylinder's BGK N=4 kernel {ms[4]:.5f} ms/step, "
           f"{100 * (ms[4] / RE200_N4_BEFORE_MS - 1):+.2f}% against "
-          f"{RE200_N4_BEFORE_MS} ms/step before the ring builds (PERF.md "
+          f"{RE200_N4_BEFORE_MS} ms/step before the row march (PERF.md "
           "§6, row 2; NVIDIA H100 80GB HBM3, 700.00 W)")
 
     kernels = [{

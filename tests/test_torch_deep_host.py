@@ -268,10 +268,12 @@ def test_the_default_builds_refuse_the_deep_depths(host_kernels):
     lib = step_cuda._blocked_library(consts.mode, consts.variant)
     deep = step_cuda._blocked_library(consts.mode,
                                       consts.variant | step_cuda.DEEP)
-    assert [lib.tpulbm_d2q9_blocked_smem_bytes(n) for n in range(2, 9)] == \
-        [26640, 30932, 35520, -1, -1, -1, -1]
-    assert [deep.tpulbm_d2q9_blocked_smem_bytes(n) for n in range(2, 9)] == \
-        [-1, -1, -1, 40404, 45584, 51060, 56832]
+    # the march's rings, 96 columns wide: (8 + 4 (N - 1)) rows x 36 B
+    assert [lib.tpulbm_d2q9_blocked_smem_bytes(n, 0) for n in range(2, 9)] \
+        == [41472, 55296, 69120, -1, -1, -1, -1]
+    assert [deep.tpulbm_d2q9_blocked_smem_bytes(n, 0)
+            for n in range(2, 9)] == [-1, -1, -1, 82944, 96768, 110592,
+                                      124416]
     f = torch.from_numpy(perturbed(problem))
     out = torch.empty_like(f)
     mask = torch.as_tensor(step_cuda.kernel_mask(problem))

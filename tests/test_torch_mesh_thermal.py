@@ -597,6 +597,7 @@ inline void store_remote(const float* at, const uint64_t* bar, uint32_t rank,
   w[1] -= 4;
   fake_settle(w);
 }
+inline void prefetch_l1(const void*) {}
 inline void cluster_arrive_relaxed() { fake_cluster_arrive(); }
 inline void cluster_wait() { fake_cluster_wait(); }
 }  // namespace tpulbm_async

@@ -329,8 +329,9 @@ __device__ __forceinline__ void collide_cell(float* f, const StepConsts& k,
 // S_i(c) = 3 w_i (c_i . F(c)) at the coordinates c = 0 .. n-1 along `axis`
 // (0 x, n = nx; 1 y, n = ny), computed on the host as the plain version
 // computes it. A kernel stages the entries of its window's rows (axis 1)
-// or columns (axis 0) in shared memory once per block: `stage` fills
-// dst[i * len + t] with the entry of window position t at global
+// or columns (axis 0) in shared memory once per block (the N-step march:
+// its widened columns once, a y profile's rows as they enter): `stage`
+// fills dst[i * len + t] with the entry of window position t at global
 // coordinate start + t, taken mod n, so every window, halo or ring cell
 // adds the source of the cell that owns it and N launches of one step
 // give the bits of one N-step launch.
@@ -656,6 +657,33 @@ __device__ __forceinline__ void apply_boundaries(
 // beyond the rings, is never loaded: no cell that the launch writes depends
 // on it, and a ranged launch whose rows keep depth + 1 rows clear of an
 // edge of the block reads no ring there.
+// The populations of one row of cells (a grid row, a shard's block row or
+// one of its ring rows): population i of column c lies at at(c, s) + i * s.
+// Where the row is a block row with x rings, columns c < 0 lie in the left
+// ring and c >= split in the right one (left and right not null).
+struct RowSource {
+  const float* mid;
+  const float* left;
+  const float* right;
+  size_t stride, side_stride;
+  int split;
+
+  __device__ __forceinline__ const float* at(int c, size_t& s) const {
+    if (left != nullptr) {
+      if (c < 0) {
+        s = side_stride;
+        return left + c;
+      }
+      if (c >= split) {
+        s = side_stride;
+        return right + c;
+      }
+    }
+    s = stride;
+    return mid + c;
+  }
+};
+
 struct Shard {
   const float* f;
   const float* rb;
@@ -739,6 +767,47 @@ struct Shard {
   __device__ __forceinline__ bool writes(int lx, int ly) const {
     return lx >= 0 && lx < nxl && ly >= r0 && ly < r1;
   }
+
+  // find() split in two for a kernel that walks rows (the N-step march):
+  // whether the launch reads row gy (global), and if so its block row ly;
+  // then whether it reads column gx of such a row, and if so its block
+  // column lx (gx taken mod nx first where the block spans every column of
+  // the channel or the box). row() && column() is find().
+  __device__ __forceinline__ bool row(int gy, int ny, int& ly) const {
+    if (!kPeriodicY && (gy < 0 || gy >= ny)) return false;
+    ly = gy - y0;
+    return !(ly < r0 - depth - 1 || ly < -depth || ly >= r1 + depth + 1 ||
+             ly >= nyl + depth);
+  }
+  __device__ __forceinline__ bool column(int gx, int nx, int& lx) const {
+    if (!kPeriodicX && (gx < 0 || gx >= nx)) return false;
+    if (hx == 0) {
+      if constexpr (kPeriodicX) {
+        gx %= nx;
+        if (gx < 0) gx += nx;
+      }
+      lx = gx - x0;
+      return true;
+    }
+    lx = gx - x0;
+    return lx >= -hx && lx < nxl + hx;
+  }
+
+  // Where the populations of block row ly (one that row() returned) lie,
+  // once for the row (locate() for each of its columns).
+  __device__ __forceinline__ RowSource row_source(int ly) const {
+    const size_t wr = static_cast<size_t>(nxl) + 2 * hx;
+    if (ly < 0) return {rb + (depth + ly) * wr + hx, nullptr, nullptr,
+                        depth * wr, 0, 0};
+    if (ly >= nyl) return {rt + (ly - nyl) * wr + hx, nullptr, nullptr,
+                           depth * wr, 0, 0};
+    const size_t row = static_cast<size_t>(ly);
+    return {f + row * nxl,
+            hx > 0 ? rl + row * hx + hx : nullptr,
+            hx > 0 ? rr + row * hx - nxl : nullptr,
+            static_cast<size_t>(nyl) * nxl, static_cast<size_t>(nyl) * hx,
+            nxl};
+  }
 };
 
 // Whether the library's domain has a clean-corner rule: the obstacle
@@ -752,13 +821,16 @@ constexpr bool kCornerRule = kDomain == kObstacle && !kSlab;
 // when a corner rule reads two rows inward (the clean corners at the inlet,
 // the cavity's corners) and the top corner would sit on a tile's first row,
 // where that read would reach past the rows the tile holds; else zero.
-// Any offset gives the same bits.
+// Any offset gives the same bits. Only step_d2q9.cu's tiles use it: the
+// N-step march (step_d2q9_blocked.cu) keeps 2 rows in each segment
+// instead.
 inline int tile_row_shift(int ny, int kBY, bool corners) {
   return corners && ny > 1 && (ny - 1) % kBY == 0 ? 1 : 0;
 }
 
 // Columns the tiling starts left of x = 0, for the same reason: one in the
-// cavity when its right corners would sit on a tile's first column. Other
+// cavity when its right corners would sit on a tile's first column (of
+// step_d2q9.cu's tiles, or of the N-step march's strips). Other
 // domains' tiles start at x = 0 (kColShift false), so their kernels carry
 // neither the shift nor the test for x < 0 it brings.
 constexpr bool kColShift = kDomain == kCavity;

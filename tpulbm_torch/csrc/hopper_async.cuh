@@ -1,5 +1,6 @@
 // Hopper's asynchronous transactions between the blocks of a thread-block
-// cluster, as csrc/step_d3q19_blocked.cu uses them: a transaction barrier
+// cluster, as csrc/step_d3q19_blocked.cu uses them (and an L1 prefetch,
+// csrc/step_d2q9_blocked.cu's): a transaction barrier
 // (mbarrier) in shared memory that counts the bytes other blocks store into
 // this block's shared memory (st.async ... mbarrier::complete_tx), and the
 // cluster's execution barrier without memory ordering
@@ -84,6 +85,12 @@ __device__ __forceinline__ void store_remote(const float* at,
       "[%2];" ::"r"(remote_at),
       "r"(__float_as_uint(v)), "r"(remote_bar)
       : "memory");
+}
+
+// Asks for the line that holds `p` in the SM's L1 (prefetch.global.L1),
+// without waiting for it.
+__device__ __forceinline__ void prefetch_l1(const void* p) {
+  asm volatile("prefetch.global.L1 [%0];" ::"l"(p));
 }
 
 // The cluster's execution barrier, no memory ordering: every thread of

@@ -20,71 +20,109 @@
 // What bounds it: one launch moves the 73 B per cell of one step through
 // device memory (read and write 9 f32, read the 1-byte solid mask) and
 // advances N steps, so device-memory traffic falls to 73/N B per cell per
-// step. Against it stand shared-memory traffic and redundant halo work: a
-// block loads its BX x BY output tile plus an N-cell halo and computes a
-// region that shrinks by one cell a side per substep, so the first
-// substep collides (BX+2N)(BY+2N)/(BX*BY) times the tile's cells: 1.88x
-// for the 32x16 tile at N=4 (2.5x for 32x8, 1.69x for 64x16), 3.0x at
-// N=8.
+// step: 0.0228 ms a launch at 2048x512 over 3.35 TB/s, 0.00571 ms a step
+// at N=4. Against it stand the work a block repeats at the edges of what
+// it owns and the barriers that order its stages.
 //
-// Design. The block (256 threads) loads the window's populations and solid
-// mask from device memory once, collides every in-domain cell, and keeps
-// the post-collision values in ONE shared buffer of 9 planes x
-// (BX+2N)(BY+2N) f32. Substep s (1 <= s < N) computes the cells at depth
-// >= s into the window: each thread pulls its cells from the buffer into
-// registers, applies the boundary sequence at the cell's global
-// coordinates, and collides; after a barrier it writes them back, and a
-// second barrier publishes them to the next substep. Substep N computes
-// the tile alone and stores it. A pull from y outside the domain (corners
-// included) reads the frozen equilibrium eq_in and one from x outside reads
-// zero at every substep, exactly the 1-step kernel's rule; out-of-domain
-// cells are never computed. 32x16 was the fastest tile of those timed on
-// an H100 at N=3 and 4 (32x8, 64x8, 32x16, 64x16, 128x8, 64x4); its window
-// takes 35,520 B of dynamic shared memory at N=4 (34,560 B of populations
-// and the mask), and a larger one above 48 KB asks for it with
-// cudaFuncSetAttribute. The deep build keeps the 32x16 tile: its windows
-// take 40,404, 45,584, 51,060 and 56,832 B at N = 5-8 (above 48 KB from
-// N=7 on), and a thread holds up to 6 cells at substep 1 (N=8). Its
-// depths live in a library of their own so that the default libraries
-// keep their instantiations and build times.
+// Design: a row march (wavefront temporal blocking), the TPU kernel's own
+// shape (make_local_step_pallasN marches y with 3-slot rings per stage). A
+// block owns a strip of kBX = kW0 - 2N output columns and a segment
+// [y0, y1) of rows and marches up the segment kR rows (a batch) per march
+// step. Stage s (0 <= s < N) holds the state after s substeps, collided,
+// over stage 0's widened row of kW0 columns (the strip and N columns a
+// side; stage s computes columns s .. kW0-1-s of it) and over the rows
+// [y0 - (N - s), y1 + (N - s)), in a ring of rows in shared memory. Stage
+// 0 collides the raw rows in place; stage s (1 <= s < N) pulls its rows
+// from stage s-1's ring, applies the boundary sequence at the cell's global
+// coordinates and collides them into its own ring; stage N pulls the
+// strip's own columns, applies the boundary sequence and stores them to
+// `out`. Stage s works on batch m - kLag s at march step m, so every row it
+// reads was written at an earlier march step: all stages of a step run at
+// once and ONE barrier ends the step. A thread is one stage's cell of a
+// column and a row of the batch: (N + 1) kW0 kR threads, each stage whole
+// warps where kW0 is a multiple of 32, so no warp mixes stages; a thread
+// carries one cell's 9 populations and the collision's temporaries. One
+// code path serves every stage (the stage a run-time value), so the
+// collision and the pull are compiled once, not once a stage: the stages'
+// warps run at once, and N + 1 inlined copies of a heavy collision would
+// crowd the instruction cache. Threads whose cell lies outside the
+// interior (an edge a cell away) run the pull and the boundary sequence at
+// the cell's coordinates; the others run them at the constant coordinates
+// (1, 1) of a 3 x 3 grid, where every edge test folds away and the same
+// operations remain.
 //
-// Every boundary condition but the clean corners' inlet rule and the
-// cavity's corners is cell-local, so the TPU kernel's slab ring, DMA
-// semaphores, ring inputs rb/rt/mrb/mrt and slab-skip flags have no
-// counterpart here. A corner recomputes the pull of its inward neighbour
-// (one row inward at the inlet, diagonally inward in the cavity) from the
-// buffer, so it reads sources two rows (and columns) inward. The left
-// column and the bottom row sit N cells into the only window that holds
-// them, and the top row and the right column at least N cells in, so
-// those sources hold the previous substep's values wherever a corner is
-// computed, except at substep N when a top (right) corner is the tile's
-// first row (column): its sources then sit at depth N-2, one cell short.
-// The tiling then starts one row lower (one column further left;
-// tpulbm::tile_row_shift, tile_col_shift), which leaves every cell's bits
-// as they are. Nothing in this argument depends on N beyond N < kBX, so it
-// holds for the deep build's depths too.
+// Work: a segment of S rows collides sum_s (kW0 - 2s)(S + 2(N-s)) cells
+// for its N kBX S cell-steps: at N=4, kW0 = 96 and the 46.5 rows of
+// 2048x512's 11 segments 1.17 a cell and step (the trapezoid of 32 x 16
+// tiles this design replaced: 1.53). Device memory is read once a launch
+// for each cell of the segment's widened rows (kW0 (S + 2N) / (kBX S):
+// 1.28, the strip's neighbours' columns mostly from L2). The wrapper asks
+// for as many segments as fill the card once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor x the SMs, over the
+// strips), at least 2N rows each, rows split as evenly as they go.
 //
-// In the channel the window's x-halo wraps: a window cell at gx < 0 or
-// gx >= nx holds cell gx mod nx, loaded from there and stepped like every
-// other window cell (the channel's rules do not depend on x), so the
-// trapezoid of valid cells is that of an interior block. In the box the
-// y-halo wraps as well.
+// Rings. Stage s at batch b reads stage s-1's batches b - kReach .. b +
+// kReach, while stage s-1 writes batch b + kLag: a ring of 2 kReach + 2
+// batches, kLag = kReach + 1. Stage 0 collides batch m in place while the
+// raw rows of batch m+1 arrive: 2 kReach + 3 batches. kReach is 1, or 2
+// where a corner rule reads two rows inward (below) and a batch is one row.
+// Every ring is rounded up to a power of two rows, so that a ring row is a
+// mask. At N=4, kW0 = 96, kR = 1 the rings take (8 + 3 x 4) x 96 x 36 B =
+// 69,120 B, the solid mask's rows 1,536 B more: two blocks of 480 threads
+// an SM (ptxas's 64 registers bind first). The shared memory grows
+// linearly in N (the deep build's N=8: 124,416 B); above 48 KB the launcher
+// asks for it with cudaFuncSetAttribute.
 //
-// The Bouzidi obstacle (-DTPULBM_BOUZIDI=1): at every substep a window
-// cell whose mask byte carries kLinkBit rewrites its cut links after its
-// edge rules (apply_bouzidi), from its entries of the link table, read
-// from device memory at the cell's global index (a shard: its padded
-// block's), and from its own post-collision values of that substep, which
-// it reads from the buffer before the barrier that overwrites them. The
-// window's halo cells rewrite theirs too, as on one device, so one launch
-// keeps the bits of N launches of the 1-step kernel. tpulbm's q ring and
-// q halo rows have no counterpart.
+// Stage 0 is fed a batch ahead by stage N's threads, one cell each of
+// their column and row: at the start of march step m each issues
+// asynchronous copies (cp.async, __pipeline_memcpy_async, 4 B: a strip's
+// widened row starts N columns left of an aligned column, and ragged grids
+// align nothing) of its cell of batch m+1's populations into stage 0's
+// ring slots (the y-axis force profile's rows into theirs) and loads the
+// cell's mask byte into a register; after its stage it stores the mask
+// byte into the mask's ring of rows and waits for its copies
+// (__pipeline_wait_prior) before the step's barrier. Copies two to four
+// batches ahead timed no faster on an H100 (PERF.md §6). The source of a
+// row is found once a row (tpulbm::RowSource: the grid row, or a shard's
+// block row with its x rings, or one of its ring rows), so no cell of the
+// rings build goes through Shard::find and locate.
 //
-// The force profile (-DTPULBM_FORCE=1): the block stages the entries of
-// its window's columns (a force along x) or rows (along y) once, after the
-// populations in shared memory, each at the coordinate of the cell that
-// owns it (tpulbm::ForceTable), and every collision of every substep adds
-// them: a window cell adds what the cell it holds adds on one device, so
+// A pull from y outside the domain (corners included) reads the frozen
+// equilibrium eq_in and one from x outside reads zero at every stage,
+// exactly the 1-step kernel's rule; cells outside the domain are never
+// computed or read. In the channel and the slab a strip's widened columns
+// wrap (a cell at gx < 0 or gx >= nx holds cell gx mod nx, loaded from
+// there and stepped like every other cell: the channel's rules do not
+// depend on x); in the box the segment's widened rows wrap as well.
+//
+// The corners. The clean Zou-He corners' inlet rule and the cavity's
+// corners read sources two rows (and, in the cavity, two columns) inward:
+// a corner recomputes the pull of its inward neighbour. A stage's ring
+// then holds those rows where a corner is computed (kReach above), and
+// each stage's rows and columns reach one further than the next stage's,
+// so they hold every source wherever a stage computes a corner, except
+// when the corner is the first row (column) of a segment (strip) of one
+// row (column) at the domain's edge. Segments where a corner rule acts
+// therefore keep at least 2 rows, and in the cavity the strips start one
+// column left of x = 0 where the last would hold one column
+// (tpulbm::tile_col_shift); tile_row_shift has no user here. Any strip
+// and segment give the same bits.
+//
+// The Bouzidi obstacle (-DTPULBM_BOUZIDI=1): at every stage a cell whose
+// mask byte carries kLinkBit rewrites its cut links after its edge rules
+// (apply_bouzidi), from its entries of the link table, read from device
+// memory at the cell's global index (a shard: its padded block's), and from
+// its own post-collision values of that substep, which lie in the previous
+// stage's ring and stay there until that row's slot is reused kLag steps
+// later. The widened cells rewrite theirs too, as on one device, so one
+// launch keeps the bits of N launches of the 1-step kernel. tpulbm's q ring
+// and q halo rows have no counterpart.
+//
+// The force profile (-DTPULBM_FORCE=1): along x the block stages the
+// entries of its widened columns once, after the rings in shared memory;
+// along y each row's entries arrive with its populations into a ring of
+// rows beside the mask's; each at the coordinate of the cell that owns it
+// (tpulbm::ForceTable), and every collision of every stage adds them, so
 // one launch keeps the bits of N 1-step launches.
 //
 // Bits. Collision, pull and boundary code come from d2q9_common.cuh, shared
@@ -97,286 +135,531 @@
 // block's rows: it replaces make_local_step_pallasN (ranged=True too) and
 // make_local_step_pallas2 with their ring inputs, and make_local_step_tiled
 // at N = 2-4 (the x rings, the extended ring rows carrying the diagonal
-// neighbours' corners). The window keeps global coordinates and loads a
-// cell outside the block from its ring; a window cell the launch does not
-// hold (outside the domain or beyond the rings) is marked kNotHeld in the
-// mask and never stepped, so the trapezoid and the bits are the
-// one-device build's. The rings add 2 N (nxl + 2 hx + hx nyl) x 36 B a
-// launch to the 73/N B a cell and step.
+// neighbours' corners). The segments cover the launch's rows [r0, r1), the
+// strips the block's columns; cells keep global coordinates and a row's
+// populations come from the block or a ring (Shard::row, column,
+// row_source); a cell the launch does not hold (outside the domain or
+// beyond the rings) is never stepped, so the bits are the one-device
+// build's. The rings add 2 N (nxl + 2 hx + hx nyl) x 36 B a launch to the
+// 73/N B a cell and step.
+//
+// Knobs (utils/tile_sweep.py --lattice d2q9 builds the source with other
+// values): -DTPULBM_WIDTH (kW0), -DTPULBM_ROWS (kR), -DTPULBM_SEGMENT (rows
+// a segment, 0: the launcher's choice) and -DTPULBM_MIN_BLOCKS (blocks an SM asked of ptxas, 0: none); the libraries
+// the port loads use the defaults below.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "d2q9_common.cuh"
+#include "hopper_async.cuh"
+
+#ifndef TPULBM_WIDTH
+#define TPULBM_WIDTH 96
+#endif
+#ifndef TPULBM_ROWS
+#define TPULBM_ROWS 1
+#endif
+#ifndef TPULBM_SEGMENT
+#define TPULBM_SEGMENT 0
+#endif
+// ptxas is asked for two blocks an SM where MRT's registers would leave
+// one (its default build); elsewhere for nothing
+#ifndef TPULBM_MIN_BLOCKS
+#if TPULBM_COLLISION == 2 && !TPULBM_DEEP
+#define TPULBM_MIN_BLOCKS 2
+#else
+#define TPULBM_MIN_BLOCKS 0
+#endif
+#endif
 
 namespace {
 
 using tpulbm::kQ;
 using tpulbm::StepConsts;
 
-constexpr int kThreads = 256;
-constexpr int kBX = 32;  // output tile of one block (cells along x)
-constexpr int kBY = 16;  // and rows
+constexpr int kW0 = TPULBM_WIDTH;         // stage 0's widened row
+constexpr int kR = TPULBM_ROWS;           // rows of a batch
+constexpr int kSegment = TPULBM_SEGMENT;  // rows of a segment, 0: chosen
+constexpr size_t kMaxBlockSmem = 232448;  // what a block may take on sm_90
+static_assert(kR >= 1 && kSegment >= 0, "rows a batch and a segment");
 
-// The window a block holds: its tile plus an N-cell halo on every side.
-template <int N>
-struct Window {
-  static constexpr int kTX = kBX + 2 * N;
-  static constexpr int kTY = kBY + 2 * N;
-  static constexpr int kCells = kTX * kTY;
-  // the force profile's entries (kForce): one per window column or row
-  static constexpr int kProf = tpulbm::kForce ? kQ * (kTX > kTY ? kTX : kTY)
-                                              : 0;
-  // 9 post-collision planes, the force profile's entries, then the solid
-  // mask (one byte per cell)
+// The least power of two >= n: ring sizes, so that a ring row is a mask.
+__host__ __device__ constexpr int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p *= 2;
+  return p;
+}
+
+// The march of depth N: its strip, rings, batches and shared memory.
+template <int N, bool kCorners>
+struct March {
+  static_assert(N >= 2, "one step per launch is step_d2q9.cu");
+  static constexpr int kN = N;
+  static constexpr bool kCornerKernel = kCorners;
+  // the strip's output columns: the widened row less N a side
+  static constexpr int kBX = kW0 - 2 * N;
+  static_assert(kBX >= 3, "a cavity strip keeps 2 columns after its shift");
+  // a thread a stage, a column of the widened row and a row of the batch,
+  // in whole warps
+  static constexpr int kThreads = ((N + 1) * kW0 * kR + 31) / 32 * 32;
+  static_assert(kThreads <= 1024, "at most 1024 threads");
+  // a corner rule reads two rows inward: the clean corners, the cavity's
+  static constexpr bool kCornerRows =
+      kCorners || tpulbm::kDomain == tpulbm::kCavity;
+  // batches a stage reads on either side of its own, and the march steps
+  // between one stage and the next
+  static constexpr int kReach = kCornerRows && kR == 1 ? 2 : 1;
+  static constexpr int kLag = kReach + 1;
+  // rows of the ring of stage 0 (the batches stage 1 reads, the one stage
+  // 0 collides and the one the copies bring) and of stages 1 .. N-1, each
+  // kW0 wide; powers of two
+  static constexpr int kRows0 = pow2_at_least((2 * kReach + 3) * kR);
+  static constexpr int kRows = pow2_at_least((2 * kReach + 2) * kR);
+  // rows of the mask's ring (and the y-axis force profile's): the batches
+  // stage N reads at step m up to the one the copies bring
+  static constexpr int kMaskRows = pow2_at_least(
+      (kLag * N + kReach + 2) * kR);
+  __host__ __device__ static constexpr int ring_rows(int s) {
+    return s == 0 ? kRows0 : kRows;
+  }
+  // the floats before stage s's ring: [kQ][ring_rows(s)][kW0] each
+  __host__ __device__ static constexpr int ring_offset(int s) {
+    return s == 0 ? 0 : kQ * kW0 * (kRows0 + (s - 1) * kRows);
+  }
+  // after the rings: the force profile's entries (kForce) of the widened
+  // columns or of the ring of rows, then the mask's ring of rows
+  static constexpr int kProf =
+      tpulbm::kForce ? kQ * (kW0 > kMaskRows ? kW0 : kMaskRows) : 0;
+  static constexpr size_t kMaskBytes =
+      tpulbm::kHasObstacle ? static_cast<size_t>(kMaskRows) * kW0 : 0;
   static constexpr size_t kSmemBytes =
-      sizeof(float) * (kQ * kCells + kProf) + kCells;
-  // cells of the largest region a thread holds in registers (substep 1)
-  static constexpr int kPerThread =
-      ((kTX - 2) * (kTY - 2) + kThreads - 1) / kThreads;
+      sizeof(float) * (ring_offset(N) + kProf) + kMaskBytes;
+  static_assert(kSmemBytes <= kMaxBlockSmem, "rings exceed a block's 227 KB");
 };
 
-// The mask byte of a window cell the rings builds do not hold (find():
-// outside the domain or beyond the rings); a held cell's byte is its solid
-// flag, 0 or 1.
-constexpr uint8_t kNotHeld = 2;
+// Where a block finds the cells it steps: on one device the grid, a cell
+// outside it wrapped where an axis is periodic; in the rings build the
+// shard's block and rings (tpulbm::Shard). A row index and a column index
+// name a cell: one device, the wrapped global row and column; the rings
+// build, the block row and column.
+struct Cells {
+  const float* f;
+  const uint8_t* solid;
+  int nx, ny;
+  tpulbm::Shard sh;
 
-// Whether the window cell at global (gx, gy) is stepped: a cell of the
-// domain, or in the channel any cell of a domain row, gx then taken mod nx
-// (the cell it holds), or in the box any cell, gx and gy taken mod nx and
-// ny.
-__device__ __forceinline__ bool window_cell(int& gx, int& gy, int nx,
-                                            int ny) {
-  if constexpr (tpulbm::kPeriodicY) {
-    gx %= nx;
-    if (gx < 0) gx += nx;
-    gy %= ny;
-    if (gy < 0) gy += ny;
-    return true;
-  } else if constexpr (tpulbm::kPeriodicX) {
-    gx %= nx;
-    if (gx < 0) gx += nx;
-    return gy >= 0 && gy < ny;
-  } else {
-    return !(gx < 0 || gx >= nx || gy < 0 || gy >= ny);
+  // Whether the block steps the cells of row gy (global, unwrapped); if so
+  // `row` is its index.
+  __device__ __forceinline__ bool row(int gy, int& row) const {
+    if constexpr (tpulbm::kRings) {
+      return sh.row(gy, ny, row);
+    } else {
+      if constexpr (tpulbm::kPeriodicY) {
+        gy %= ny;
+        if (gy < 0) gy += ny;
+      }
+      row = gy;
+      return tpulbm::kPeriodicY || (gy >= 0 && gy < ny);
+    }
+  }
+  // Whether it steps column gx of such a row; if so `col` is its index.
+  __device__ __forceinline__ bool column(int gx, int& col) const {
+    if constexpr (tpulbm::kRings) {
+      return sh.column(gx, nx, col);
+    } else {
+      if constexpr (tpulbm::kPeriodicX) {
+        gx %= nx;
+        if (gx < 0) gx += nx;
+      }
+      col = gx;
+      return tpulbm::kPeriodicX || (gx >= 0 && gx < nx);
+    }
+  }
+  __device__ __forceinline__ tpulbm::RowSource source(int row) const {
+    if constexpr (tpulbm::kRings) {
+      return sh.row_source(row);
+    } else {
+      return {f + static_cast<size_t>(row) * nx, nullptr, nullptr,
+              static_cast<size_t>(nx) * ny, 0, 0};
+    }
+  }
+  // the cell's mask byte (the obstacle domain and the slab)
+  __device__ __forceinline__ uint8_t mask_byte(int row, int col) const {
+    if constexpr (tpulbm::kRings) {
+      return sh.mask_byte(col, row);
+    } else {
+      return solid[static_cast<size_t>(row) * nx + col];
+    }
+  }
+  // the cell's entry in the link table's plane 0 (kBouzidi)
+  __device__ __forceinline__ size_t link_index(int row, int col) const {
+    if constexpr (tpulbm::kRings) {
+      return sh.padded(col, row);
+    } else {
+      return static_cast<size_t>(row) * nx + col;
+    }
+  }
+};
+
+// What a thread keeps through the march: the block's places, its stage s
+// and its own column c of the widened row (global gx; col its index where
+// the block steps it) and row j of a batch.
+template <int N, bool kCorners>
+struct Thread {
+  using M = March<N, kCorners>;
+  Cells cells;
+  float* rings;    // the stages' rings, one after another
+  float* prof;     // the force profile's entries (kForce)
+  uint8_t* mask;   // the mask's ring of rows [kMaskRows][kW0]
+  int y0, y1;      // the segment's output rows [y0, y1), global
+  int qbase;       // y0 - N: batch 0's first row
+  int axis;        // the force profile's axis (kForce)
+  int s, c, j, gx, col;
+  bool held;       // the block steps this column
+  bool out;        // it is one of the strip's output columns
+  bool inner;      // no rule reads its x (an x edge is a column away)
+
+  // ring row of row q in a ring of `rows` rows, a power of two
+  __device__ __forceinline__ int ring_row(int q, int rows) const {
+    return (q - qbase) & (rows - 1);
+  }
+  // row q of batch b
+  __device__ __forceinline__ int row_of(int b) const {
+    return qbase + b * kR + j;
+  }
+  // the force profile's entry of population 0 at this column and row q,
+  // and the floats between populations
+  __device__ __forceinline__ const float* prof_at(int q) const {
+    return axis == 0 ? prof + c : prof + ring_row(q, M::kMaskRows);
+  }
+  __device__ __forceinline__ int prof_stride() const {
+    return axis == 0 ? kW0 : M::kMaskRows;
+  }
+  __device__ __forceinline__ uint8_t* mask_row(int q) const {
+    return mask + ring_row(q, M::kMaskRows) * kW0;
+  }
+};
+
+// The copies of batch b into stage 0's ring (and the y-axis force
+// profile's rows into theirs): one cp.async of 4 B a population, one group
+// a thread, and the cell's mask byte into `pending`; stage 0 collides the
+// cell in place at the march step after.
+template <int N, bool kCorners>
+__device__ __forceinline__ void prefetch(const Thread<N, kCorners>& th,
+                                         const tpulbm::ForceTable& force,
+                                         uint8_t& pending, int b) {
+  using M = March<N, kCorners>;
+  const int q = th.row_of(b);
+  int row;
+  if (th.held && q < th.y1 + N && th.cells.row(q, row)) {
+    size_t stride;
+    const float* src = th.cells.source(row).at(th.col, stride);
+    float* dst = th.rings + th.ring_row(q, M::kRows0) * kW0 + th.c;
+#pragma unroll
+    for (int i = 0; i < kQ; ++i)
+      __pipeline_memcpy_async(dst + i * M::kRows0 * kW0, src + i * stride,
+                              sizeof(float));
+    if constexpr (tpulbm::kHasObstacle)
+      pending = th.cells.mask_byte(row, th.col);
+  }
+  if constexpr (tpulbm::kForce) {
+    const int t = th.j * kW0 + th.c;
+    if (force.axis == 1 && t < kQ * kR) {
+      const int i = t / kR;
+      const int qi = th.qbase + b * kR + t % kR;
+      int y = qi % th.cells.ny;
+      if (y < 0) y += th.cells.ny;
+      __pipeline_memcpy_async(th.prof + i * M::kMaskRows +
+                                  th.ring_row(qi, M::kMaskRows),
+                              force.table + i * th.cells.ny + y,
+                              sizeof(float));
+    }
+  }
+  __pipeline_commit();
+}
+
+// The mask byte `pending` of batch b into the mask's ring of rows.
+// Under kBouzidi a cell of batch b with a cut link also asks for its
+// entries of the link table in L1 (prefetch.global.L1), kLag or more march
+// steps before a stage reads them: a warp that waited on device memory
+// there would hold its block's barrier.
+template <int N, bool kCorners>
+__device__ __forceinline__ void keep_mask(const Thread<N, kCorners>& th,
+                                          const tpulbm::Links& links,
+                                          uint8_t pending, int b) {
+  if constexpr (tpulbm::kHasObstacle) {
+    const int q = th.row_of(b);
+    int row;
+    if (th.held && q < th.y1 + N) {
+      th.mask_row(q)[th.c] = pending;
+      if (tpulbm::kBouzidi && (pending & tpulbm::kLinkBit) &&
+          th.cells.row(q, row)) {
+        const float* at = links.q + th.cells.link_index(row, th.col);
+        const int planes = links.moving ? 2 * kQ : kQ;
+        for (int j = 1; j < planes; ++j)
+          tpulbm_async::prefetch_l1(at + j * links.plane);
+      }
+    }
   }
 }
 
+// The thread's cell at march step m: stage s = th.s works on batch
+// m - kLag s. Stage 0 takes the raw populations the copies brought into
+// its ring; stage s > 0 pulls them from stage s-1's ring and runs the
+// boundary sequence (a cell whose rules read neither its x nor its y,
+// no edge a cell away, runs the same pull and boundary sequence at the
+// constant coordinates (1, 1) of a 3 x 3 grid, where they fold to the
+// operations they do there). Stage s < N collides the cell into its ring
+// (stage 0 in place), stage N stores it to `out`. One code path serves
+// every stage, the stage a run-time value: the collision is compiled
+// once, not once a stage.
 template <int N, bool kCorners>
-__global__ void __launch_bounds__(kThreads)
-    d2q9_blocked_kernel(const float* __restrict__ f, float* __restrict__ out,
-                        const uint8_t* __restrict__ solid, int nx, int ny,
-                        int x_shift, int y_shift, StepConsts k,
-                        tpulbm::Shard sh, tpulbm::ForceTable force,
-                        tpulbm::Links links) {
-  using W = Window<N>;
-  constexpr int TX = W::kTX;
-  constexpr int TY = W::kTY;
-  extern __shared__ float smem[];
-  float* post = smem;  // [kQ][TY][TX]
-  float* prof = smem + kQ * W::kCells;  // [kQ][TX or TY] (kForce)
-  uint8_t* mask =
-      reinterpret_cast<uint8_t*>(smem + kQ * W::kCells + W::kProf);
-
-  const int tid = threadIdx.x;
-  // global coordinates of window (0, 0)
-  int x0, y0;
-  if constexpr (tpulbm::kRings) {
-    x0 = sh.x0 + blockIdx.x * kBX - N - (tpulbm::kColShift ? x_shift : 0);
-    y0 = sh.y0 + sh.r0 + blockIdx.y * kBY - N - y_shift;
+__device__ __forceinline__ void step_cell(const Thread<N, kCorners>& th,
+                                          float* __restrict__ out,
+                                          const StepConsts& k,
+                                          const tpulbm::Links& links, int m) {
+  using M = March<N, kCorners>;
+  const int s = th.s;
+  const int q = th.row_of(m - M::kLag * s);
+  const int d = s == N ? 0 : N - s;  // the stage's rows beyond the segment
+  int row;
+  if (!th.held || (s == N ? !th.out : (th.c < s || th.c >= kW0 - s)) ||
+      q < th.y0 - d || q >= th.y1 + d || !th.cells.row(q, row))
+    return;
+  const uint8_t mb = tpulbm::kHasObstacle ? th.mask_row(q)[th.c] : 0;
+  const bool is_solid = tpulbm::is_solid(mb);
+  const int nx = th.cells.nx, ny = th.cells.ny;
+  float g[kQ];
+  if (s == 0) {
+    const float* at = th.rings + th.ring_row(q, M::kRows0) * kW0 + th.c;
+#pragma unroll
+    for (int i = 0; i < kQ; ++i) g[i] = at[i * M::kRows0 * kW0];
   } else {
-    x0 = blockIdx.x * kBX - N - (tpulbm::kColShift ? x_shift : 0);
-    y0 = blockIdx.y * kBY - N - y_shift;
-  }
-  const size_t plane = static_cast<size_t>(nx) * ny;
-  const int flen = force.axis == 0 ? TX : TY;
-  // the force profile's entry of the window cell (lx, ly), population 0
-  auto prof_at = [&](int lx, int ly) {
-    return prof + (force.axis == 0 ? lx : ly);
-  };
-  // the link table's entry of the window cell at global (gx, gy) whose
-  // mask byte is m (kBouzidi), or null where the cell has no cut link: the
-  // obstacle domain's coordinates need no wrap, the slab's x wraps where
-  // the block holds every column (find()), and elsewhere the caller has
-  // wrapped it (window_cell)
-  auto link_at = [&](uint8_t m, int gx, int gy) -> const float* {
-    if (!tpulbm::kBouzidi || !(m & tpulbm::kLinkBit)) return nullptr;
-    if constexpr (tpulbm::kRings) {
-      if (tpulbm::kPeriodicX && sh.hx == 0) gx = ((gx % nx) + nx) % nx;
-      return links.q + sh.padded(gx - sh.x0, gy - sh.y0);
-    } else {
-      return links.q + static_cast<size_t>(gy) * nx + gx;
-    }
-  };
-  if constexpr (tpulbm::kForce) {
-    force.stage(prof, flen, force.axis == 0 ? x0 : y0,
-                force.axis == 0 ? nx : ny, tid, kThreads);
-    __syncthreads();
-  }
-
-  // Load the window's in-domain cells once and collide them.
-  for (int c = tid; c < W::kCells; c += kThreads) {
-    const int ly = c / TX;
-    const int lx = c - ly * TX;
-    int gx = x0 + lx;
-    int gy = y0 + ly;
-    float v[kQ];
-    if constexpr (tpulbm::kRings) {
-      int bx, by;
-      if (!sh.find(gx, gy, nx, ny, bx, by)) {
-        mask[c] = kNotHeld;
-        continue;
-      }
-      mask[c] = tpulbm::kHasObstacle ? sh.mask_byte(bx, by) : 0;
-      size_t stride;
-      const float* src = sh.locate(bx, by, stride);
-#pragma unroll
-      for (int i = 0; i < kQ; ++i) v[i] = src[i * stride];
-    } else {
-      if (!window_cell(gx, gy, nx, ny)) continue;
-      const size_t cell = static_cast<size_t>(gy) * nx + gx;
-      if constexpr (tpulbm::kHasObstacle) mask[c] = solid[cell];
-#pragma unroll
-      for (int i = 0; i < kQ; ++i) v[i] = f[i * plane + cell];
-    }
-    tpulbm::collide_cell(v, k,
-                         tpulbm::kBounceBack && tpulbm::is_solid(mask[c]),
-                         prof_at(lx, ly), flen);
-#pragma unroll
-    for (int i = 0; i < kQ; ++i) post[i * W::kCells + c] = v[i];
-  }
-  __syncthreads();
-
-  // Substeps 1 .. N-1: the cells at depth >= s into the window, stepped
-  // and collided in registers, then written back in place.
-#pragma unroll
-  for (int s = 1; s < N; ++s) {
-    const int w = TX - 2 * s;
-    const int cells = w * (TY - 2 * s);
-    float g[W::kPerThread][kQ];
-    int at[W::kPerThread];  // window index of each held cell, -1 if none
-#pragma unroll
-    for (int j = 0; j < W::kPerThread; ++j) {
-      const int c = tid + j * kThreads;
-      at[j] = -1;
-      if (c >= cells) continue;
-      const int ly = s + c / w;
-      const int lx = s + c % w;
-      int gx = x0 + lx;
-      int gy = y0 + ly;
-      if constexpr (tpulbm::kRings) {
-        // a held cell's x and y need no wrap here: in the channel and the
-        // box, the domains that wrap, no rule reads them (the force
-        // profile's entry was staged at the owner's coordinate)
-        if (mask[ly * TX + lx] == kNotHeld) continue;
-      } else {
-        if (!window_cell(gx, gy, nx, ny)) continue;
-      }
-      const int lc = ly * TX + lx;
-      at[j] = lc;
-      auto post_at = [&](int i, int dx, int dy) {
-        return post[i * W::kCells + lc + dy * TX + dx];
-      };
-      auto solid_at = [&](int dx, int dy) {
-        return tpulbm::is_solid(mask[lc + dy * TX + dx]);
-      };
-      const uint8_t m = tpulbm::kHasObstacle ? mask[lc] : 0;
-      const bool is_solid = tpulbm::is_solid(m);
-      // the rewrite reads this cell's post-collision values of this
-      // substep from the buffer, before the barrier that overwrites it
-      tpulbm::pull_d2q9(g[j], gx, gy, nx, ny, k, post_at);
-      tpulbm::apply_boundaries<kCorners>(g[j], is_solid, gx, gy, nx, ny, k,
-                                         post_at, solid_at,
-                                         link_at(m, gx, gy), links);
-      tpulbm::collide_cell(g[j], k, tpulbm::kBounceBack && is_solid,
-                           prof_at(lx, ly), flen);
-    }
-    __syncthreads();  // every pull of this substep has read the old values
-#pragma unroll
-    for (int j = 0; j < W::kPerThread; ++j) {
-      if (at[j] < 0) continue;
-#pragma unroll
-      for (int i = 0; i < kQ; ++i) post[i * W::kCells + at[j]] = g[j][i];
-    }
-    __syncthreads();
-  }
-
-  // Substep N: the tile alone, stored to device memory.
-  for (int c = tid; c < kBX * kBY; c += kThreads) {
-    const int ly = N + c / kBX;
-    const int lx = N + c % kBX;
-    const int gx = x0 + lx;
-    const int gy = y0 + ly;
-    if constexpr (tpulbm::kRings) {
-      if (!sh.writes(gx - sh.x0, gy - sh.y0)) continue;
-    } else {
-      if ((tpulbm::kColShift && gx < 0) || gx >= nx || gy < 0 || gy >= ny)
-        continue;
-    }
-    const int lc = ly * TX + lx;
+    const int zp = s == 1 ? M::kRows0 : M::kRows;  // stage s-1's ring rows
+    const float* src = th.rings + M::ring_offset(s - 1) + th.c;
+    const int rm = th.ring_row(q - 1, zp) * kW0;
+    const int r0 = th.ring_row(q, zp) * kW0;
+    const int rp = th.ring_row(q + 1, zp) * kW0;
     auto post_at = [&](int i, int dx, int dy) {
-      return post[i * W::kCells + lc + dy * TX + dx];
+      const int r = dy == 0    ? r0
+                    : dy == -1 ? rm
+                    : dy == 1  ? rp
+                               : th.ring_row(q + dy, zp) * kW0;
+      return src[i * zp * kW0 + r + dx];
     };
     auto solid_at = [&](int dx, int dy) {
-      return tpulbm::is_solid(mask[lc + dy * TX + dx]);
+      if constexpr (tpulbm::kHasObstacle) {
+        return tpulbm::is_solid(th.mask_row(q + dy)[th.c + dx]);
+      } else {
+        return false;
+      }
     };
-    float g[kQ];
-    const uint8_t m = tpulbm::kHasObstacle ? mask[lc] : 0;
-    tpulbm::pull_d2q9(g, gx, gy, nx, ny, k, post_at);
-    tpulbm::apply_boundaries<kCorners>(g, tpulbm::is_solid(m), gx, gy, nx, ny,
-                                       k, post_at, solid_at,
-                                       link_at(m, gx, gy), links);
-    if constexpr (tpulbm::kRings) {
-      const size_t cell =
-          static_cast<size_t>(gy - sh.y0) * sh.nxl + (gx - sh.x0);
-      const size_t block = static_cast<size_t>(sh.nxl) * sh.nyl;
-#pragma unroll
-      for (int i = 0; i < kQ; ++i) out[i * block + cell] = g[i];
+    const float* link = tpulbm::kBouzidi && (mb & tpulbm::kLinkBit)
+                            ? links.q + th.cells.link_index(row, th.col)
+                            : nullptr;
+    if (th.inner && (tpulbm::kPeriodicY || (q >= 1 && q < ny - 1))) {
+      tpulbm::pull_d2q9(g, 1, 1, 3, 3, k, post_at);
+      tpulbm::apply_boundaries<kCorners>(g, is_solid, 1, 1, 3, 3, k, post_at,
+                                         solid_at, link, links);
     } else {
-      const size_t cell = static_cast<size_t>(gy) * nx + gx;
-#pragma unroll
-      for (int i = 0; i < kQ; ++i) out[i * plane + cell] = g[i];
+      tpulbm::pull_d2q9(g, th.gx, q, nx, ny, k, post_at);
+      tpulbm::apply_boundaries<kCorners>(g, is_solid, th.gx, q, nx, ny, k,
+                                         post_at, solid_at, link, links);
     }
+  }
+  if (s < N) {
+    tpulbm::collide_cell(g, k, tpulbm::kBounceBack && is_solid,
+                         th.prof_at(q), th.prof_stride());
+    const int z = s == 0 ? M::kRows0 : M::kRows;
+    float* dst = th.rings + M::ring_offset(s) + th.ring_row(q, z) * kW0 +
+                 th.c;
+#pragma unroll
+    for (int i = 0; i < kQ; ++i) dst[i * z * kW0] = g[i];
+  } else if constexpr (tpulbm::kRings) {
+    const tpulbm::Shard& sh = th.cells.sh;
+    const size_t block = static_cast<size_t>(sh.nxl) * sh.nyl;
+    const size_t cell = static_cast<size_t>(row) * sh.nxl + th.col;
+#pragma unroll
+    for (int i = 0; i < kQ; ++i) out[i * block + cell] = g[i];
+  } else {
+    const size_t plane = static_cast<size_t>(nx) * ny;
+    const size_t cell = static_cast<size_t>(row) * nx + th.col;
+#pragma unroll
+    for (int i = 0; i < kQ; ++i) out[i * plane + cell] = g[i];
   }
 }
 
 template <int N, bool kCorners>
-cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
-                   int ny, int tiles_x, int tiles_y, int x_shift, int y_shift,
-                   const StepConsts& k, const tpulbm::Shard& sh,
-                   const tpulbm::ForceTable& force,
-                   const tpulbm::Links& links, cudaStream_t stream) {
-  constexpr size_t smem = Window<N>::kSmemBytes;
+__global__ void
+#if TPULBM_MIN_BLOCKS
+__launch_bounds__(March<N, kCorners>::kThreads, TPULBM_MIN_BLOCKS)
+#else
+__launch_bounds__(March<N, kCorners>::kThreads)
+#endif
+    d2q9_blocked_kernel(const float* __restrict__ f, float* __restrict__ out,
+                        const uint8_t* __restrict__ solid, int nx, int ny,
+                        int x_shift, int rows_lo, int rows, int segments,
+                        StepConsts k, tpulbm::Shard sh,
+                        tpulbm::ForceTable force, tpulbm::Links links) {
+  using M = March<N, kCorners>;
+  extern __shared__ float smem[];
+  Thread<N, kCorners> th;
+  th.cells = Cells{f, solid, nx, ny, sh};
+  th.rings = smem;
+  th.prof = smem + M::ring_offset(N);
+  th.mask = reinterpret_cast<uint8_t*>(th.prof + M::kProf);
+  th.axis = force.axis;
+  // the strip: kBX columns from the block's (the shard's) first, shifted;
+  // this thread's column of its widened row
+  const int gx_lo = tpulbm::kRings ? sh.x0 : 0;
+  const int gx_hi = tpulbm::kRings ? sh.x0 + sh.nxl : nx;
+  const int x0 = gx_lo + static_cast<int>(blockIdx.x) * M::kBX - x_shift;
+  const int t = static_cast<int>(threadIdx.x);
+  th.s = t / (kW0 * kR);
+  th.j = t / kW0 % kR;
+  th.c = t % kW0;
+  th.gx = x0 - N + th.c;
+  th.held = th.s <= N && th.cells.column(th.gx, th.col);
+  th.out = th.c >= N && th.c < kW0 - N && th.gx >= gx_lo && th.gx < gx_hi;
+  th.inner = tpulbm::kPeriodicX || (th.gx >= 1 && th.gx < nx - 1);
+  // the segment: its share of the rows [rows_lo, rows_lo + rows)
+  const int ylo = (tpulbm::kRings ? sh.y0 : 0) + rows_lo;
+  const int seg = static_cast<int>(blockIdx.y);
+  th.y0 = ylo + static_cast<int>(static_cast<long long>(seg) * rows /
+                                 segments);
+  th.y1 = ylo + static_cast<int>(static_cast<long long>(seg + 1) * rows /
+                                 segments);
+  th.qbase = th.y0 - N;
+  if constexpr (tpulbm::kForce) {
+    if (force.axis == 0)
+      force.stage(th.prof, kW0, x0 - N, nx, threadIdx.x, M::kThreads);
+  }
+  // batches: stage 0 loads 0 .. last0, stage N stores its last at step
+  // steps - 1
+  const int last0 = (th.y1 + N - 1 - th.qbase) / kR;
+  const int steps = (th.y1 - 1 - th.qbase) / kR + M::kLag * N + 1;
+  // stage N's threads feed stage 0 a batch ahead, the cells of their
+  // columns and rows: at step m the copies of batch m + 1 leave, their
+  // mask bytes into `pending`, and are waited for after the stages
+  const bool feeds = th.s == N;
+  uint8_t pending = 0;
+  if (feeds) {
+    prefetch(th, force, pending, 0);
+    keep_mask(th, links, pending, 0);
+    __pipeline_wait_prior(0);
+  }
+  __syncthreads();
+  for (int m = 0; m < steps; ++m) {
+    if (feeds) prefetch(th, force, pending, m + 1);
+    if (th.s <= N) step_cell(th, out, k, links, m);
+    if (feeds) {
+      keep_mask(th, links, pending, m + 1);
+      __pipeline_wait_prior(0);
+    }
+    __syncthreads();
+  }
+}
+
+// The blocks of the march of depth N the card holds at once (its SMs
+// times the blocks one SM holds), after the kernel's shared-memory
+// attribute is set: both once per device.
+template <int N, bool kCorners>
+cudaError_t prepare(int device, int& resident) {
+  static int cache[64];
+  const bool cached = device >= 0 && device < 64;
+  if (cached && cache[device] > 0) {
+    resident = cache[device];
+    return cudaSuccess;
+  }
+  constexpr size_t smem = March<N, kCorners>::kSmemBytes;
   if constexpr (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         d2q9_blocked_kernel<N, kCorners>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid((tiles_x + x_shift + kBX - 1) / kBX,
-                  (tiles_y + y_shift + kBY - 1) / kBY);
-  d2q9_blocked_kernel<N, kCorners><<<grid, kThreads, smem, stream>>>(
-      f, out, solid, nx, ny, x_shift, y_shift, k, sh, force, links);
+  int sms = 0, per = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                             device) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per, d2q9_blocked_kernel<N, kCorners>,
+          March<N, kCorners>::kThreads, smem) != cudaSuccess ||
+      sms * per <= 0) {
+    resident = 1;
+    return cudaSuccess;
+  }
+  resident = sms * per;
+  if (cached) cache[device] = resident;
+  return cudaSuccess;
+}
+
+// The segments of `rows` rows for `strips` strips: -DTPULBM_SEGMENT's
+// length, else as many as fill the card's resident blocks once, each of at
+// least 2N rows; rows split evenly, at least 2 a segment where a corner
+// rule acts.
+int segments_for(int rows, int strips, int resident, int n, bool corners) {
+  int k;
+  if (kSegment > 0) {
+    k = (rows + kSegment - 1) / kSegment;
+  } else {
+    k = resident / strips;
+    const int most = rows / (2 * n);
+    if (k > most) k = most;
+  }
+  if (corners && k > rows / 2) k = rows / 2;
+  return k > 1 ? k : 1;
+}
+
+// The strips of a launch over `cols` columns (shifted one column left in
+// the cavity where the last would hold one, tpulbm::tile_col_shift).
+template <int N, bool kCorners>
+int strips_for(int cols, int& x_shift) {
+  constexpr int kBX = March<N, kCorners>::kBX;
+  x_shift = tpulbm::tile_col_shift(cols, kBX);
+  return (cols + x_shift + kBX - 1) / kBX;
+}
+
+template <int N, bool kCorners>
+cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
+                   int ny, int cols, int rows_lo, int rows,
+                   const StepConsts& k, const tpulbm::Shard& sh,
+                   const tpulbm::ForceTable& force,
+                   const tpulbm::Links& links, int device,
+                   cudaStream_t stream) {
+  using M = March<N, kCorners>;
+  int resident, x_shift;
+  const cudaError_t err = prepare<N, kCorners>(device, resident);
+  if (err != cudaSuccess) return err;
+  const int strips = strips_for<N, kCorners>(cols, x_shift);
+  const int segments =
+      segments_for(rows, strips, resident, N, M::kCornerRows);
+  const dim3 grid(strips, segments);
+  constexpr size_t smem = M::kSmemBytes;
+  constexpr int threads = M::kThreads;
+  d2q9_blocked_kernel<N, kCorners><<<grid, threads, smem, stream>>>(
+      f, out, solid, nx, ny, x_shift, rows_lo, rows, segments, k, sh, force,
+      links);
   return cudaGetLastError();
 }
 
-// n_sub steps over the tiles_x x tiles_y cells the launch writes, the
-// tiling shifted as tpulbm::tile_row_shift and tile_col_shift say for them.
+// n_sub steps over the cols x rows cells from row rows_lo the launch
+// writes (one device: the grid; a shard: its block's columns and the rows
+// [r0, r1)).
 cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
-                   int ny, int tiles_x, int tiles_y, int n_sub, bool corners,
-                   const StepConsts& k, const tpulbm::Shard& sh,
+                   int ny, int cols, int rows_lo, int rows, int n_sub,
+                   bool corners, const StepConsts& k, const tpulbm::Shard& sh,
                    const tpulbm::ForceTable& force,
-                   const tpulbm::Links& links, cudaStream_t stream) {
-  const int y_shift = tpulbm::tile_row_shift(
-      tiles_y, kBY, corners || tpulbm::kDomain == tpulbm::kCavity);
-  const int x_shift = tpulbm::tile_col_shift(tiles_x, kBX);
-#define TPULBM_LAUNCH(N)                                                   \
-  (corners && tpulbm::kCornerRule                                          \
-       ? launch<N, tpulbm::kCornerRule>(f, out, solid, nx, ny, tiles_x,    \
-                                        tiles_y, x_shift, y_shift, k, sh,  \
-                                        force, links, stream)              \
-       : launch<N, false>(f, out, solid, nx, ny, tiles_x, tiles_y, x_shift, \
-                          y_shift, k, sh, force, links, stream))
+                   const tpulbm::Links& links, int device,
+                   cudaStream_t stream) {
+#define TPULBM_LAUNCH(N)                                                    \
+  (corners && tpulbm::kCornerRule                                           \
+       ? launch<N, tpulbm::kCornerRule>(f, out, solid, nx, ny, cols,        \
+                                        rows_lo, rows, k, sh, force, links, \
+                                        device, stream)                     \
+       : launch<N, false>(f, out, solid, nx, ny, cols, rows_lo, rows, k,    \
+                          sh, force, links, device, stream))
   switch (n_sub) {
 #if TPULBM_DEEP
     case 5: return TPULBM_LAUNCH(5);
@@ -391,6 +674,31 @@ cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
     default: return cudaErrorInvalidValue;
   }
 #undef TPULBM_LAUNCH
+}
+
+// A query of the march of depth n_sub with the clean corners (corners)
+// or without: q(March<N, kCorners>) for a depth the library holds, else
+// -1.
+template <class Q>
+int for_depth(int n_sub, bool corners, Q q) {
+#define TPULBM_QUERY(N)                              \
+  return corners && tpulbm::kCornerRule              \
+             ? q(March<N, tpulbm::kCornerRule>{})    \
+             : q(March<N, false>{})
+  switch (n_sub) {
+#if TPULBM_DEEP
+    case 5: TPULBM_QUERY(5);
+    case 6: TPULBM_QUERY(6);
+    case 7: TPULBM_QUERY(7);
+    case 8: TPULBM_QUERY(8);
+#else
+    case 2: TPULBM_QUERY(2);
+    case 3: TPULBM_QUERY(3);
+    case 4: TPULBM_QUERY(4);
+#endif
+    default: return -1;
+  }
+#undef TPULBM_QUERY
 }
 
 }  // namespace
@@ -421,11 +729,11 @@ extern "C" int tpulbm_d2q9_step_blocked(const float* f, float* out,
   if (err != cudaSuccess) return static_cast<int>(err);
   const StepConsts k = tpulbm::make_consts(inv_tau, u_in, one_minus_u_in,
                                            eq_in, w, mode, src, lid7, lid8);
-  err = launch(f, out, solid, nx, ny, nx, ny, n_sub, clean_corners != 0, k,
-               tpulbm::Shard{}, tpulbm::ForceTable{force_table, force_axis},
+  err = launch(f, out, solid, nx, ny, nx, 0, ny, n_sub, clean_corners != 0,
+               k, tpulbm::Shard{}, tpulbm::ForceTable{force_table, force_axis},
                tpulbm::Links{links, static_cast<size_t>(nx) * ny,
                              link_planes == 2 * kQ},
-               static_cast<cudaStream_t>(stream));
+               device, static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }
 #else
@@ -450,34 +758,49 @@ extern "C" int tpulbm_d2q9_step_blocked_rings(
                                            eq_in, w, mode, src, lid7, lid8);
   const tpulbm::Shard sh{f, rb, rt, rl, rr, mask, nxl, nyl,
                          x0, y0, hx, n_sub, r0, r1};
-  err = launch(f, out, nullptr, nx, ny, nxl, r1 - r0, n_sub,
+  err = launch(f, out, nullptr, nx, ny, nxl, r0, r1 - r0, n_sub,
                clean_corners != 0, k, sh,
                tpulbm::ForceTable{force_table, force_axis},
                tpulbm::Links{links,
                              static_cast<size_t>(nyl + 2 * n_sub) *
                                  (nxl + 2 * n_sub),
                              link_planes == 2 * kQ},
-               static_cast<cudaStream_t>(stream));
+               device, static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }
 #endif
 
-// Dynamic shared memory one block of depth n_sub takes, in bytes (-1 for
-// a depth the library does not hold).
-extern "C" int tpulbm_d2q9_blocked_smem_bytes(int n_sub) {
-  switch (n_sub) {
-#if TPULBM_DEEP
-    case 5: return static_cast<int>(Window<5>::kSmemBytes);
-    case 6: return static_cast<int>(Window<6>::kSmemBytes);
-    case 7: return static_cast<int>(Window<7>::kSmemBytes);
-    case 8: return static_cast<int>(Window<8>::kSmemBytes);
-#else
-    case 2: return static_cast<int>(Window<2>::kSmemBytes);
-    case 3: return static_cast<int>(Window<3>::kSmemBytes);
-    case 4: return static_cast<int>(Window<4>::kSmemBytes);
-#endif
-    default: return -1;
-  }
+// Dynamic shared memory one block of depth n_sub takes, with the clean
+// corners (corners = 1) or without, in bytes (-1 for a depth the library
+// does not hold).
+extern "C" int tpulbm_d2q9_blocked_smem_bytes(int n_sub, int corners) {
+  return for_depth(n_sub, corners != 0,
+                   [](auto m) {
+                     return static_cast<int>(decltype(m)::kSmemBytes);
+                   });
+}
+
+// The launch shape: stage 0's widened row (the strip of depth n_sub is
+// n_sub columns narrower a side), the rows of a batch, the threads of a
+// block; and the strips x segments a launch of depth n_sub over cols x
+// rows cells on `device` takes (strips * 65536 + segments; -1 for a depth
+// the library does not hold).
+extern "C" int tpulbm_d2q9_blocked_width() { return kW0; }
+extern "C" int tpulbm_d2q9_blocked_rows() { return kR; }
+extern "C" int tpulbm_d2q9_blocked_threads(int n_sub) {
+  return for_depth(n_sub, false, [](auto m) { return decltype(m)::kThreads; });
+}
+extern "C" int tpulbm_d2q9_blocked_grid(int n_sub, int cols, int rows,
+                                        int corners, int device) {
+  return for_depth(n_sub, corners != 0, [&](auto m) {
+    using M = decltype(m);
+    int resident, x_shift;
+    if (prepare<M::kN, M::kCornerKernel>(device, resident) != cudaSuccess)
+      return -1;
+    const int strips = strips_for<M::kN, M::kCornerKernel>(cols, x_shift);
+    return strips * 65536 +
+           segments_for(rows, strips, resident, M::kN, M::kCornerRows);
+  });
 }
 
 // The floats of the library's mode coefficients, which the caller's array

@@ -619,12 +619,29 @@ def _blocked_library_3d(mode: str = "bgk", variant: int = 0) -> ctypes.CDLL:
         variant))
 
 
+def _bind_march(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The N-step D2Q9 library with its queries of the march typed:
+    tpulbm_d2q9_blocked_smem_bytes(n_sub, corners), _width(), _rows(),
+    _threads(n_sub) and _grid(n_sub, cols, rows, corners, device)."""
+    lib.tpulbm_d2q9_blocked_smem_bytes.argtypes = [_I32, _I32]
+    lib.tpulbm_d2q9_blocked_smem_bytes.restype = _I32
+    for name in ("width", "rows"):
+        getattr(lib, f"tpulbm_d2q9_blocked_{name}").argtypes = []
+        getattr(lib, f"tpulbm_d2q9_blocked_{name}").restype = _I32
+    lib.tpulbm_d2q9_blocked_threads.argtypes = [_I32]
+    lib.tpulbm_d2q9_blocked_threads.restype = _I32
+    lib.tpulbm_d2q9_blocked_grid.argtypes = [_I32] * 5
+    lib.tpulbm_d2q9_blocked_grid.restype = _I32
+    return lib
+
+
 @functools.cache
 def _blocked_library(mode: str = "bgk", variant: int = 0) -> ctypes.CDLL:
-    return _bind("step_d2q9_blocked.cu", "tpulbm_d2q9_step_blocked",
-                 [_PTR, _PTR, _PTR, _I32, _I32, _I32, _F32, _F32, _F32, _PTR,
-                  _PTR, _I32, _PTR, _PTR, _F32, _F32, _I32, _PTR, _PTR, _I32,
-                  _I32, _PTR], mode, MODE_FLOATS, variant)
+    return _bind_march(_bind(
+        "step_d2q9_blocked.cu", "tpulbm_d2q9_step_blocked",
+        [_PTR, _PTR, _PTR, _I32, _I32, _I32, _F32, _F32, _F32, _PTR, _PTR,
+         _I32, _PTR, _PTR, _F32, _F32, _I32, _PTR, _PTR, _I32, _I32, _PTR],
+        mode, MODE_FLOATS, variant))
 
 
 _RINGS_ARGS = [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32,
@@ -643,9 +660,10 @@ def _rings_library(mode: str = "bgk", variant: int = 0) -> ctypes.CDLL:
 @functools.cache
 def _rings_blocked_library(mode: str = "bgk",
                            variant: int = 0) -> ctypes.CDLL:
-    return _bind("step_d2q9_blocked.cu", "tpulbm_d2q9_step_blocked_rings",
-                 _RINGS_ARGS + [_I32] + _CONSTS_ARGS, mode, MODE_FLOATS,
-                 variant | RINGS)
+    return _bind_march(_bind(
+        "step_d2q9_blocked.cu", "tpulbm_d2q9_step_blocked_rings",
+        _RINGS_ARGS + [_I32] + _CONSTS_ARGS, mode, MODE_FLOATS,
+        variant | RINGS))
 
 
 def link_args(consts: StepConstants, links: torch.Tensor | None,

@@ -7,12 +7,17 @@ Run it as a file, not with -m: it imports tpulbm_torch from CHECKOUT (the
 root of an unpacked commit), builds that checkout's D2Q9 and D3Q19
 sources there (each library the timings launch, all at once), and prints
 one JSON line: LABEL and the ms per step of re200 at 2048x512 (the 1-step
-and N=4 kernels), of the sphere at 256^3 (BGK: the 1-step and N=3
-kernels; MRT: the 1-step and N=3; D3Q27: the 1-step, N=2 and N=3) and of
-one shard of the sphere at 256^3 on a 2x2 mesh (the N=3 ring build, shard
-(0, 0), its rings exchanged once), CUDA events, the lower of three turns
-after a warm-up. Alternate the commits (parent, change, change, parent),
-one process each, in one call.
+and the N = 2, 3, 4 kernels; N=4 under every other collision, the
+Bouzidi cylinder and the Bouzidi slab), of one shard of scale-8m
+(4096x2048) on a 2x2 mesh (the N=4 ring build with x rings, shard (0, 0),
+its rings exchanged once), of the sphere at 256^3 (BGK: the 1-step and
+N=3 kernels; MRT: the 1-step and N=3; D3Q27: the 1-step, N=2 and N=3) and
+of one shard of the sphere at 256^3 on a 2x2 mesh (the N=3 ring build,
+shard (0, 0), its rings exchanged once), CUDA events, the lower of three
+turns after a warm-up; and the scale-8m shard and re200's N=4 again on
+the card's clock (`_device`: the launches enqueued behind a sleep of the
+card, which the host cannot hold back). Alternate the commits (parent,
+change, change, parent), one process each, in one call.
 """
 import json
 import sys
@@ -45,6 +50,59 @@ def ms_per_step(step, f, steps: int, per: int) -> float:
     return best
 
 
+def device_ms(step, f, launches: int, per: int) -> float:
+    """ms per step on the card's clock: `launches` launches of `step` (each
+    `per` steps) enqueued behind a sleep of the card, so that they run back
+    to back however slowly the host issues them; raises if the host took
+    longer to enqueue them than the card slept."""
+    import time
+
+    import torch
+    spare = torch.empty_like(f)
+    for _ in range(3):
+        step(f, spare)
+    torch.cuda.synchronize()
+    s, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    s.record()
+    torch.cuda._sleep(200_000_000)
+    a.record()
+    t0 = time.perf_counter()
+    for _ in range(launches):
+        step(f, spare)
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    b.record()
+    torch.cuda.synchronize()
+    if host_ms >= s.elapsed_time(a):
+        raise RuntimeError(f"the host took {host_ms:.3f} ms to enqueue "
+                           f"{launches} launches, the card slept "
+                           f"{s.elapsed_time(a):.3f} ms")
+    return a.elapsed_time(b) / (launches * per)
+
+
+def slab(make_problem):
+    """The Bouzidi slab at 2048x512 (tpulbm's solid-slab channel: periodic
+    x, no y walls, solid rows 0-1 and 510-511, walls at y = 1.75 and
+    509.75, a body force for a peak speed of 0.05 at tau 0.8)."""
+    import dataclasses
+
+    import numpy as np
+    from tpulbm_torch.config import SimulationParams
+    nx, ny, tau = 2048, 512, 0.8
+    y0, y1 = 1.75, ny - 2.25
+    force = 8.0 * (tau - 0.5) / 3.0 * 0.05 / (y1 - y0) ** 2
+    params = SimulationParams(problem="poiseuille", nx=nx, ny=ny, tau=tau,
+                              periodic_x=True, inlet_velocity=0.0,
+                              precision="f32", enable_vtk=False,
+                              obstacle_bc="bouzidi", body_force=(force, 0.0))
+    solid = np.zeros((ny, nx), bool)
+    solid[:2] = solid[-2:] = True
+    return dataclasses.replace(
+        make_problem(params), solid=solid, init_u=(0.0, 0.0), walls_y=False,
+        obstacle_sdf=lambda p: np.minimum(p[..., 1] - y0, y1 - p[..., 1]),
+        obstacle_velocity=None, periodic_x=True, obstacle_bc="bouzidi",
+        body_force=(force, 0.0))
+
+
 def main(checkout: str, label: str) -> None:
     sys.path.insert(0, checkout)
     import torch
@@ -64,10 +122,25 @@ def main(checkout: str, label: str) -> None:
             problem="cylinder3d", nx=256, ny=256, nz=256,
             inlet_velocity=0.05, precision="f32", **kw))
 
-    re200 = make_problem(PRESETS["re200"].replace(precision="f32"))
+    base = PRESETS["re200"].replace(precision="f32")
+    re200 = make_problem(base)
+    operators = {op: make_problem(base.replace(**kw)) for op, kw in (
+        ("trt", dict(collision="trt")), ("mrt", dict(collision="mrt")),
+        ("regularized", dict(collision="regularized")),
+        ("kbc", dict(collision="kbc")), ("les", dict(smagorinsky=0.17)),
+        ("power_law", dict(power_law_n=0.7)),
+        ("bouzidi", dict(obstacle_bc="bouzidi")))}
+    operators["slab"] = slab(make_problem)
+    scale = make_problem(PRESETS["scale-8m"].replace(precision="f32"))
     bgk, mrt = sphere(), sphere(collision="mrt")
     d3q27 = sphere(lattice3d="d3q27")
-    builds = [("step_d2q9.cu", ()), ("step_d2q9_blocked.cu", ())]
+    builds = [("step_d2q9.cu", ()), ("step_d2q9_blocked.cu", ()),
+              ("step_d2q9_blocked.cu",
+               step_cuda.build_defines("bgk", step_cuda.RINGS))]
+    for p in operators.values():
+        c = step_cuda.StepConstants.of(p)
+        builds.append(("step_d2q9_blocked.cu",
+                       step_cuda.build_defines(c.mode, c.variant)))
     for p in (bgk, mrt, d3q27):
         c = step_cuda.StepConstants.of(p)
         for src in ("step_d3q19.cu", "step_d3q19_blocked.cu"):
@@ -80,8 +153,39 @@ def main(checkout: str, label: str) -> None:
     f = state_from_numpy(re200.initial_state(), re200, dev)
     out["re200_1step"] = ms_per_step(
         step_cuda.make_local_step_cuda(re200, dev), f, 2400, 1)
-    out["re200_n4"] = ms_per_step(
-        step_cuda.make_local_step_cuda_blocked(re200, dev, 4), f, 2400, 4)
+    for n in (2, 3, 4):
+        out[f"re200_n{n}"] = ms_per_step(
+            step_cuda.make_local_step_cuda_blocked(re200, dev, n), f, 2400,
+            n)
+    for op, p in operators.items():
+        out[f"re200_{op}_n4"] = ms_per_step(
+            step_cuda.make_local_step_cuda_blocked(p, dev, 4),
+            state_from_numpy(p.initial_state(), p, dev), 2400, 4)
+    # one shard of scale-8m on the 2x2 mesh (x rings), every shard on the
+    # one card
+    m = mesh.make_mesh((2, 2), devices=[dev] * 4)
+    blocks = sharded_step.split(
+        m, state_from_numpy(scale.initial_state(), scale, dev))
+    geo = sharded_step.kernel_shards(scale, m, 4, True)
+    rings = halo.exchange(blocks, eq_ring=scale.ghost_ring_values(),
+                          depth=4, periodic_x=scale.periodic_x,
+                          periodic_y=scale.periodic_y, x_rings=True)
+    consts = step_cuda.kernel_constants(scale)
+    b, r, g = blocks[0][0], rings[0][0], geo[0][0]
+    spare = torch.empty_like(b)
+    out["scale8m_2x2_shard_n4"] = ms_per_step(
+        lambda f, o: step_cuda.collide_stream_rings(b, spare, r, g, consts,
+                                                    4),
+        b, 2400, 4)
+    # the same on the card's clock (the host issues a shard's launch more
+    # slowly than the card runs it) and re200's N=4 beside it
+    out["scale8m_2x2_shard_n4_device"] = device_ms(
+        lambda f, o: step_cuda.collide_stream_rings(b, spare, r, g, consts,
+                                                    4),
+        b, 200, 4)
+    out["re200_n4_device"] = device_ms(
+        step_cuda.make_local_step_cuda_blocked(re200, dev, 4),
+        state_from_numpy(re200.initial_state(), re200, dev), 200, 4)
     for name, p, depths in (("sphere", bgk, (3,)), ("sphere_mrt", mrt, (3,)),
                             ("sphere_d3q27", d3q27, (2, 3))):
         f = state_from_numpy(p.initial_state(), p, dev)
