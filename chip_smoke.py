@@ -21,7 +21,8 @@ printing its own line; any failure exits non-zero:
    kernels ask for here;
 3. kernels against plain at 2048x512 (re200): one step of the 1-step
    kernel from the initial state and from a state the plain step advanced
-   500 steps, at rtol 5e-6 / atol 1e-7; 280 steps of each (max error
+   100 steps (ADVANCED_PLAIN_STEPS), at rtol 5e-6 / atol 1e-7; 280 steps
+   of each (max error
    printed and bounded); the N-step kernel at N = 2, 3, 4 from the same
    two states against N launches of the 1-step kernel (bitwise) and
    against N plain steps (N times the one-step tolerance); 280 steps as
@@ -47,8 +48,8 @@ printing its own line; any failure exits non-zero:
 6. D3Q19 parity at 256^3 (bench.py's d3q19 row: the sphere in a duct,
    tau 0.6, U = 0.05): one kernel step against the plain 3-D step from the
    initial state and from a state the plain step advanced 100 steps, at
-   rtol 5e-6 / atol 1e-7; 280 kernel steps against 280 plain steps (max
-   error bounded by 1e-4);
+   rtol 5e-6 / atol 1e-7; 140 kernel steps against 140 plain steps at
+   64^3 (DRIFT_N_3D; max error bounded by 1e-4);
 6b. the N-step D3Q19 kernel at 256^3, N = 2 and 3, from the same two
    states: bitwise against N launches of the 1-step kernel and against N
    plain steps at N times the one-step tolerance; 280 steps as tpulbm's
@@ -70,7 +71,7 @@ printing its own line; any failure exits non-zero:
    thermal row (Rayleigh-Benard, Ra 1e4, tau 0.55, thermal_tau 0.5704,
    2048x512, periodic x), the heated cavity at 96x96 and both problems at
    a ragged 100x70: one kernel step against one plain thermal step from
-   the initial state and from a state the plain step advanced 500 steps,
+   the initial state and from a state the plain step advanced 100 steps,
    at rtol 5e-6 / atol 1e-7, and 280 kernel steps against 280 plain steps
    (max error bounded by 1e-4);
 10. the thermal main path: the Runner on that 2048x512 problem in f32,
@@ -88,7 +89,7 @@ printing its own line; any failure exits non-zero:
    droplet of radius 0.15 ny, g -5, tau 1.0, 2048x512, periodic x), the
    64x32 band with a wetting wall (wall rho 1.6) and droplets at a ragged
    7x3 and 100x70: one kernel step against one plain step from the
-   initial state and after 500 plain steps, at rtol 5e-6 / atol 1e-7;
+   initial state and after 100 plain steps, at rtol 5e-6 / atol 1e-7;
    280 steps at 2048x512 (max error bounded by 1e-4);
 14. the multiphase main path: the Runner on that droplet in f32, 2240
    steps at output_frequency 140, no VTK: exactly 2240 launches of the
@@ -138,7 +139,7 @@ printing its own line; any failure exits non-zero:
    1-step kernel step against one plain step from the initial state and
    from the state its 1-step kernel advanced 100 steps (the power law at
    rtol 1e-4); N = 2, 3 bitwise against N 1-step launches from both
-   states; 280 kernel steps against 280 plain steps at 64^3 (bounded by
+   states; 140 kernel steps against 140 plain steps at 64^3 (bounded by
    1e-4); tpulbm's own 3-D gate of the operator (GATES_3D), the kernels
    against the plain step;
 22. each operator's 3-D main path: the Runner at 256^3 f32, its depth
@@ -184,7 +185,7 @@ printing its own line; any failure exits non-zero:
 27. the duct at 256^3 (tau 0.8, F for u_max 0.05 by analytic_profile_duct)
    under each D3Q19 collision, the sphere at 256^3 with the bounce-back
    obstacle and with the channel's force: phase 25's checks (100 kernel
-   steps for the advanced state, N = 2, 3; 280 steps at 64^3; the duct's
+   steps for the advanced state, N = 2, 3; 140 steps at 64^3; the duct's
    other collisions from the perturbed state only);
 28. their main paths at 256^3, cut to 280 steps every 140: exactly 91
    N=3, 3 N=2 and 1 one-step launches of the cell's own library, then
@@ -233,7 +234,7 @@ printing its own line; any failure exits non-zero:
    --kolmogorov row: n 4, tau 0.8, u0 0.05, F0 = 1.2e-5) under BGK and
    MRT and with its force turned along x: one 1-step kernel step against
    the plain step from the perturbed state (BGK also from the initial
-   state, after 500 plain steps, and 280 steps), where the cylinder's
+   state, after 100 plain steps, and 140 steps), where the cylinder's
    library of the same collision must miss by SEPARATION tolerances; the
    force profile at F0 = 1e-2 (SOURCE_CHECK_FORCE) along y and along x
    against the plain step, the box's library without the profile
@@ -273,10 +274,10 @@ printing its own line; any failure exits non-zero:
    obstacle_bc="bouzidi" (bench.py's bouzidi row) under each D2Q9
    collision with the ladder's flags, and spinning under BGK (surface
    speed = the inlet speed): one 1-step kernel step against the plain
-   step from the initial state, after 500 plain steps (BGK) and from the
+   step from the initial state, after 100 plain steps (BGK) and from the
    perturbed state, where the library without the rewrite (the
    equilibrium obstacle's) must miss by SEPARATION tolerances; N = 2, 3,
-   4 bitwise against N 1-step launches; 280 steps;
+   4 bitwise against N 1-step launches; 140 steps;
 42. their Runners, 2240 steps every 140: exactly 525 N=4 and 140 1-step
    launches of the library (bgk+bouzidi, ...); BGK's 311-step run every
    150 (100 N=3, 5 N=2, 1 1-step); a 64x32 Runner through the kernels
@@ -292,7 +293,7 @@ printing its own line; any failure exits non-zero:
 44. the sphere at 256^3 (bench.py's bouzidi3d row: radius 0.23, x = y =
    0.5) under each D3Q19 collision: parity from the perturbed state with
    N=3 bitwise (BGK in full: from the initial state, after 100 kernel
-   steps, N = 2, 3, 280 steps at 64^3; every operator's Runner cut to
+   steps, N = 2, 3, 140 steps at 64^3; every operator's Runner cut to
    280 steps, 91 N=3, 3 N=2 and 1 one-step launches, BGK's too);
    tpulbm's Magnus gate through the kernels (200x50, 4000 steps: the lift
    flips with the spin, the drag symmetric);
@@ -395,7 +396,7 @@ printing its own line; any failure exits non-zero:
    from the initial state, after 100 kernel steps and from the perturbed
    state, where the equilibrium obstacle's library and D3Q19's on the
    first 19 planes must miss by SEPARATION tolerances; N = 2, 3 bitwise;
-   280 steps at 64^3; the build fed a staircase table (every cut link
+   140 steps at 64^3; the build fed a staircase table (every cut link
    at q = 1/2) SEPARATION tolerances off; the Runner for 280 steps
    every 140 (91 N=3, 3 N=2, 1 1-step launches); a 128^3 Runner's
    forces.csv against the plain path's; the other collisions and the
@@ -552,11 +553,15 @@ FIELDS_TOL = dict(rtol=1e-5, atol=5e-6)
 # order) from an impulsive start: a divergence bound, not a parity gate
 DRIFT_280_BOUND = 1e-4
 # the plain step's turns in the timing phases (its time is the reference a
-# kernel's is read against, not a gate): 2-D and thermal 40 steps a turn,
-# 3-D 2, after PLAIN_WARM steps
-PLAIN_2D_STEPS = 40
+# kernel's is read against, not a gate): 2-D and thermal 20 steps a turn,
+# 3-D 2, after PLAIN_WARM steps; few, since the plain step is host-bound
+# and the script must end well inside its time limit on a slow host
+PLAIN_2D_STEPS = 20
 PLAIN_3D_STEPS = 2
 PLAIN_WARM = 1
+# a 2-D kernel's turns (D2Q9, thermal, multiphase, their ring builds): 1200
+# steps, at least 20 ms a turn at 2048x512, long enough for CUDA events
+KERNEL_2D_STEPS = 1200
 # a 3-D kernel's turns in cell_timing (75 steps, at least 75 ms a turn at
 # 256^3), after 10 warm-up steps
 KERNEL_3D_STEPS = 75
@@ -653,6 +658,10 @@ ADVANCED_PLAIN_STEPS = 100
 # the 2-D operators' and cells' drift against the plain step (phases 17,
 # 25, 35, 41, 63), as short for the same reason
 DRIFT_2D_STEPS = 140
+# the 3-D drifts at DRIFT_N_3D^3 (phases 6, 21, 27, 44, 46, 61): 140 steps,
+# as the 2-D ones, for the same reason (the plain 3-D step is host-bound
+# there, 3-14 ms a step)
+DRIFT_3D_STEPS = 140
 # The 3-D Runners of phases 22, 28 and 44 (the Bouzidi sphere's other
 # collisions): their depth cut to 280 steps every 140 to keep the script
 # near half its time limit, the 3-D main path (phase 7) and the Bouzidi
@@ -843,6 +852,16 @@ def same_files(a: Path, b: Path, names) -> bool:
     return all(filecmp.cmp(a / n, b / n, shallow=False) for n in names)
 
 
+def finite_csv(path: Path, rows: int) -> bool:
+    """Whether a field CSV holds its header and `rows` rows of finite
+    numbers, read as text: below the header only digits, signs, points,
+    commas and newlines (a nan or an inf would bring letters)."""
+    text = path.read_bytes()
+    body = text[text.find(b"\n") + 1:]
+    return (text.count(b"\n") == rows + 1
+            and not body.translate(None, b"0123456789-.,\n"))
+
+
 def run_counted(params, dev, keep: str | None = None):
     """One Runner run with every launch count set to 0 just before it;
     returns (result, counts read just after, wall seconds). With `keep`,
@@ -986,15 +1005,24 @@ def sphere_phases(dev, card: str) -> list[dict]:
     print(f"3-D parity 1 step at {n}^3: max abs err {err_init:.3e} from the "
           f"initial state, {err_100:.3e} after 100 plain steps (rtol 5e-6, "
           f"atol 1e-7)")
-    fk = kernel_chunk(kstep, f0.clone(), 280)
-    fp = plain_chunk(pstep, f0.clone(), 280)
+    # the drift at DRIFT_N_3D^3, as every other 3-D cell's: the plain step
+    # takes ~40 ms at 256^3
+    small = make_problem(params.replace(nx=DRIFT_N_3D, ny=DRIFT_N_3D,
+                                        nz=DRIFT_N_3D))
+    s0 = initial_state(small, dev)
+    sk = kernel_chunk(step_cuda.make_local_step_cuda_3d(small, dev),
+                      s0.clone(), DRIFT_3D_STEPS)
+    sp = plain_chunk(step_torch.make_step_rolled(small, dev), s0,
+                     DRIFT_3D_STEPS)
     torch.cuda.synchronize()
-    err_280 = float((fk - fp).abs().max())
+    err_280 = float((sk - sp).abs().max())
     require(np.isfinite(err_280) and err_280 < DRIFT_280_BOUND,
-            f"3-D 280-step drift {err_280} beyond {DRIFT_280_BOUND}")
-    print(f"3-D parity 280 steps: max abs err {err_280:.3e} "
-          f"(bound {DRIFT_280_BOUND})")
-    del fp
+            f"3-D {DRIFT_3D_STEPS}-step drift {err_280} beyond "
+            f"{DRIFT_280_BOUND}")
+    print(f"3-D parity {DRIFT_3D_STEPS} steps at {DRIFT_N_3D}^3: max abs "
+          f"err {err_280:.3e} (bound {DRIFT_280_BOUND})")
+    del small, s0, sk, sp
+    fk = kernel_chunk(kstep, f0.clone(), 280)
 
     # phase 6b: the N-step kernel against N 1-step launches and N plain
     # steps, then 280 steps as tpulbm's plan against 280 1-step launches
@@ -1153,9 +1181,10 @@ def thermal_params(problem: str, nx: int, ny: int, **kw):
 
 def thermal_parity(dev, name: str, nx: int, ny: int, **kw):
     """Phase 9 (24 with the closure's Cs in kw) on one grid: one kernel
-    step against one plain step from the initial state and after 500 plain
-    steps, then 280 steps of each. Returns (the larger one-step error, the
-    kernel and plain steps and the initial state)."""
+    step against one plain step from the initial state and after
+    ADVANCED_PLAIN_STEPS plain steps, then 280 steps of each. Returns (the
+    larger one-step error, the kernel and plain steps and the initial
+    state)."""
     from tpulbm_torch.models import make_problem
     from tpulbm_torch.ops import step_thermal, step_thermal_cuda
 
@@ -1164,7 +1193,7 @@ def thermal_parity(dev, name: str, nx: int, ny: int, **kw):
     pstep = step_thermal.make_step_thermal(problem, dev)
     s0 = initial_state(problem, dev)
     errs = []
-    for s in (s0, plain_chunk(pstep, s0.clone(), 500)):
+    for s in (s0, plain_chunk(pstep, s0.clone(), ADVANCED_PLAIN_STEPS)):
         got = kstep(s, torch.empty_like(s))
         want = pstep(s)
         torch.cuda.synchronize()
@@ -1179,8 +1208,9 @@ def thermal_parity(dev, name: str, nx: int, ny: int, **kw):
             f"{DRIFT_280_BOUND}")
     print(f"thermal parity {name} {nx}x{ny}{f' {kw}' if kw else ''}: 1 step "
           f"max abs err "
-          f"{errs[0]:.3e} from the initial state, {errs[1]:.3e} after 500 "
-          f"plain steps (rtol 5e-6, atol 1e-7); 280 steps {err_280:.3e} "
+          f"{errs[0]:.3e} from the initial state, {errs[1]:.3e} after "
+          f"{ADVANCED_PLAIN_STEPS} plain steps (rtol 5e-6, atol 1e-7); 280 "
+          f"steps {err_280:.3e} "
           f"(bound {DRIFT_280_BOUND})")
     return max(errs), kstep, pstep, s0
 
@@ -1259,7 +1289,8 @@ def thermal_phases(dev, card: str) -> dict:
     # steps a turn
     runs = {"plain": (lambda f, n: plain_chunk(pstep, f, n),
                       PLAIN_2D_STEPS),
-            "kernel": (lambda f, n: kernel_chunk(kstep, f, n), 2400)}
+            "kernel": (lambda f, n: kernel_chunk(kstep, f, n),
+                       KERNEL_2D_STEPS)}
     times = {k: [] for k in runs}
     for which in ["plain", "kernel", "kernel", "plain"]:
         run, steps = runs[which]
@@ -1296,7 +1327,8 @@ def mp_params(nx: int, ny: int, **kw):
 
 def mp_parity(dev, label: str, params):
     """Phase 13 on one grid: one kernel step against one plain multiphase
-    step from the initial state and after 500 plain steps. Returns (the
+    step from the initial state and after ADVANCED_PLAIN_STEPS plain
+    steps. Returns (the
     larger error, the problem, the kernel and plain steps, the initial
     state)."""
     from tpulbm_torch.models import make_problem
@@ -1307,7 +1339,7 @@ def mp_parity(dev, label: str, params):
     pstep = step_multiphase.make_step_multiphase(problem, dev)
     f0 = initial_state(problem, dev)
     errs = []
-    for f in (f0, plain_chunk(pstep, f0.clone(), 500)):
+    for f in (f0, plain_chunk(pstep, f0.clone(), ADVANCED_PLAIN_STEPS)):
         got = kstep(f, torch.empty_like(f))
         want = pstep(f)
         torch.cuda.synchronize()
@@ -1315,7 +1347,7 @@ def mp_parity(dev, label: str, params):
         errs.append(float((got - want).abs().max()))
     print(f"multiphase parity {label} {params.nx}x{params.ny}: 1 step max "
           f"abs err {errs[0]:.3e} from the initial state, {errs[1]:.3e} "
-          f"after 500 plain steps (rtol 5e-6, atol 1e-7)")
+          f"after {ADVANCED_PLAIN_STEPS} plain steps (rtol 5e-6, atol 1e-7)")
     return max(errs), problem, kstep, pstep, f0
 
 
@@ -1484,7 +1516,8 @@ def multiphase_phases(dev, card: str) -> dict:
     # phase 16: timing in turns; the plain step is host-bound
     runs = {"plain": (lambda f, n: plain_chunk(pstep, f, n),
                       PLAIN_2D_STEPS),
-            "kernel": (lambda f, n: kernel_chunk(kstep, f, n), 2400)}
+            "kernel": (lambda f, n: kernel_chunk(kstep, f, n),
+                       KERNEL_2D_STEPS)}
     times = {k: [] for k in runs}
     for which in ["plain", "kernel", "kernel", "plain"]:
         run, steps = runs[which]
@@ -1618,9 +1651,7 @@ def operator_main_path(dev, op: str, params, mode: str) -> dict:
             "N=4, 140 1-step and 0 others")
     forces = check_forces(run_dir, list(range(0, 2240, 140)))
     # the 1M-row field, checked as text: every row there and no nan or inf
-    text = (run_dir / "velocity_field.csv").read_bytes().lower()
-    require(text.count(b"\n") == params.nx * params.ny + 1
-            and b"nan" not in text and b"inf" not in text,
+    require(finite_csv(run_dir / "velocity_field.csv", params.nx * params.ny),
             f"{op}: velocity_field.csv not a finite {params.nx * params.ny}"
             "-row field")
     print(f"operator main path {op}: re200 {params.nx}x{params.ny} f32, 2240 "
@@ -1718,7 +1749,7 @@ def operator_phases(dev, card: str) -> list[dict]:
                           PLAIN_2D_STEPS)}
         for n in (1, *DEPTHS):
             runs[n] = (lambda f, m, n=n: kernel_chunk(steps[n], f, m // n),
-                       2400)
+                       KERNEL_2D_STEPS)
         order = ["plain", 1, *DEPTHS]
         times = {k: [] for k in order}
         for which in order + order[::-1]:
@@ -1811,16 +1842,18 @@ def sphere_operator_parity(dev, op: str):
                     f"3-D {op} N={d}: {float((got - want).abs().max())} off "
                     f"{d} 1-step launches")
     del f100, fp, got, want
-    # 280 steps at DRIFT_N_3D^3
+    # DRIFT_3D_STEPS steps at DRIFT_N_3D^3
     _, small = build(DRIFT_N_3D)
     s0 = initial_state(small, dev)
     sk = kernel_chunk(step_cuda.make_local_step_cuda_3d(small, dev),
-                      s0.clone(), 280)
-    sp = plain_chunk(step_torch.make_step_rolled(small, dev), s0, 280)
+                      s0.clone(), DRIFT_3D_STEPS)
+    sp = plain_chunk(step_torch.make_step_rolled(small, dev), s0,
+                     DRIFT_3D_STEPS)
     torch.cuda.synchronize()
     err_280 = float((sk - sp).abs().max())
     require(np.isfinite(err_280) and err_280 < DRIFT_280_BOUND,
-            f"3-D {op}: 280-step drift {err_280} beyond {DRIFT_280_BOUND}")
+            f"3-D {op}: {DRIFT_3D_STEPS}-step drift {err_280} beyond "
+            f"{DRIFT_280_BOUND}")
     del s0, sk, sp
     # tpulbm's gate grid
     grid, n_gate = GATES_3D[op]
@@ -1840,8 +1873,9 @@ def sphere_operator_parity(dev, op: str):
           f"the perturbed state (rtol {tol['rtol']:.0e}, atol "
           f"{tol['atol']:.0e}), where the BGK library misses the plain step "
           f"by {sep:.0f}x the tolerance (gate > {SEPARATION}x); N=2/3 "
-          f"bitwise against N 1-step launches from all three; 280 steps at "
-          f"{DRIFT_N_3D}^3 {err_280:.3e} (bound {DRIFT_280_BOUND}); tpulbm's "
+          f"bitwise against N 1-step launches from all three; "
+          f"{DRIFT_3D_STEPS} steps at {DRIFT_N_3D}^3 {err_280:.3e} (bound "
+          f"{DRIFT_280_BOUND}); tpulbm's "
           f"gate {gp.nx}x{gp.ny}x{gp.nz} tau {gp.tau}, {n_gate} steps as "
           f"{kchunk.plan}: {err_gate:.3e}")
     return params, mode, steps, f0, max(errs)
@@ -2008,7 +2042,8 @@ def thermal_les_phases(dev, card: str) -> dict:
           f"{result.stats['nusselt']:.6f}")
     runs = {"plain": (lambda f, n: plain_chunk(pstep, f, n),
                       PLAIN_2D_STEPS),
-            "kernel": (lambda f, n: kernel_chunk(kstep, f, n), 2400)}
+            "kernel": (lambda f, n: kernel_chunk(kstep, f, n),
+                       KERNEL_2D_STEPS)}
     times = {k: [] for k in runs}
     for which in ["plain", "kernel", "kernel", "plain"]:
         run, steps = runs[which]
@@ -2289,9 +2324,10 @@ def cell_parity(cell: Cell, full: bool, advanced: bool = True,
     if the cell's domain or obstacle rule differs from it, and the source
     must show (source_check) if the cell's library has one;
     the N-step kernels bitwise against N 1-step launches from each state;
-    with `full`, kernel steps against as many plain steps (3-D 280 at
-    drift_n^3, 2-D DRIFT_2D_STEPS); without `advanced`, no advanced state;
-    without `check_source`, no source check; without `drift`, no drift.
+    with `full`, kernel steps against as many plain steps (3-D
+    DRIFT_3D_STEPS at drift_n^3, 2-D DRIFT_2D_STEPS); without `advanced`,
+    no advanced state; without `check_source`, no source check; without
+    `drift`, no drift.
     Returns the larger one-step error."""
     from tpulbm_torch.ops.step_cuda import D3Q27, FORCE, SOURCE
     s1 = cell.steps[1]
@@ -2363,18 +2399,18 @@ def cell_parity(cell: Cell, full: bool, advanced: bool = True,
                 else cell.params.replace(nx=n, ny=n, nz=n))
             s0 = initial_state(small, cell.f0.device)
             sk = kernel_chunk(step_cuda.make_local_step_cuda_3d(
-                small, cell.f0.device), s0.clone(), 280)
+                small, cell.f0.device), s0.clone(), DRIFT_3D_STEPS)
             sp = plain_chunk(step_torch.make_step_rolled(
-                small, cell.f0.device), s0, 280)
+                small, cell.f0.device), s0, DRIFT_3D_STEPS)
         else:
             sk = kernel_chunk(s1, cell.f0.clone(), DRIFT_2D_STEPS)
             sp = plain_chunk(cell.pstep, cell.f0.clone(), DRIFT_2D_STEPS)
         torch.cuda.synchronize()
         err_280 = float((sk - sp).abs().max())
         require(np.isfinite(err_280) and err_280 < DRIFT_280_BOUND,
-                f"{cell.label}: 280-step drift {err_280} beyond "
-                f"{DRIFT_280_BOUND}")
-        drift_text = (f"; {280 if cell.three_d else DRIFT_2D_STEPS} steps"
+                f"{cell.label}: drift {err_280} beyond {DRIFT_280_BOUND}")
+        n_drift = DRIFT_3D_STEPS if cell.three_d else DRIFT_2D_STEPS
+        drift_text = (f"; {n_drift} steps"
                       f"{f' at {n}^3' if cell.three_d else ''}"
                       f" {err_280:.3e} (bound {DRIFT_280_BOUND})")
         del sk, sp
@@ -2429,9 +2465,8 @@ def cell_main_path(dev, cell: Cell, run_dir: Path, mass: bool = False,
                         for k in ("rho", "ux", "uy", "uz")),
                     f"{cell.label}: fields3d.npz not finite")
     else:
-        text = (run_dir / "velocity_field.csv").read_bytes().lower()
-        require(text.count(b"\n") == params.nx * params.ny + 1
-                and b"nan" not in text and b"inf" not in text,
+        require(finite_csv(run_dir / "velocity_field.csv",
+                           params.nx * params.ny),
                 f"{cell.label}: velocity_field.csv not a finite field")
     extra = ""
     if cell.problem.solid is not None:
@@ -2476,10 +2511,11 @@ def cell_timing(cell: Cell, card: str, depths=None,
                       PLAIN_3D_STEPS if big else PLAIN_2D_STEPS, PLAIN_WARM)}
     for d in depths:
         runs[d] = (lambda f, m, d=d: kernel_chunk(cell.steps[d], f, m // d),
-                   KERNEL_3D_STEPS if big else 2400, 10 if big else 20)
+                   KERNEL_3D_STEPS if big else KERNEL_2D_STEPS,
+                   10 if big else 20)
     for label, (step, d) in (others or {}).items():
         runs[label] = (lambda f, m, step=step, d=d: kernel_chunk(
-            step, f, m // d), KERNEL_3D_STEPS if big else 2400,
+            step, f, m // d), KERNEL_3D_STEPS if big else KERNEL_2D_STEPS,
             10 if big else 20)
     order = ["plain", *depths, *(others or {})]
     times = {k: [] for k in order}
@@ -3064,7 +3100,8 @@ def mesh_phases(dev, card: str) -> list[dict]:
                      f, m // case.depth)}
         times = {k: [] for k in order}
         for which in order + order[::-1]:
-            times[which].append(ms_per_step(runs_[which], f0, 2400))
+            times[which].append(ms_per_step(runs_[which], f0,
+                                                KERNEL_2D_STEPS))
         ms = {k: min(v) for k, v in times.items()}
         print(f"timing (1,1) re200 N={depth} on {card}: today's build "
               f"{ms['today']:.5f} ms/step, the ring build {ms['rings']:.5f} "
@@ -3370,7 +3407,8 @@ def box_ring_timing(problem, dev, card: str, depth: int, fp):
 def scalar_phases(dev, card: str) -> dict:
     """Phase 38: the passive scalar through the thermal kernel (wall flags
     off): one step against the plain thermal step at 2048x512 from the
-    initial state, after 500 plain steps and from the perturbed state, at
+    initial state, after ADVANCED_PLAIN_STEPS plain steps and from the
+    perturbed state, at
     rest and stirred; 280 steps; the Runner, 2240 steps every 140: exactly
     2240 thermal launches, a finite scalar_variance.csv in tpulbm's layout
     and no nusselt.csv, the flow's and the scalar's mass after the float32
@@ -3385,7 +3423,8 @@ def scalar_phases(dev, card: str) -> dict:
         pstep = step_thermal.make_step_thermal(problem, dev)
         s0 = initial_state(problem, dev)
         states = [("initial", s0),
-                  ("500 plain steps", plain_chunk(pstep, s0.clone(), 500)),
+                  (f"{ADVANCED_PLAIN_STEPS} plain steps",
+                   plain_chunk(pstep, s0.clone(), ADVANCED_PLAIN_STEPS)),
                   ("perturbed", perturbed(problem, s0))]
         line = []
         for name, s in states:
@@ -3436,7 +3475,8 @@ def scalar_phases(dev, card: str) -> dict:
     s0 = initial_state(problem, dev)
     runs = {"plain": (lambda f, n: plain_chunk(pstep, f, n),
                       PLAIN_2D_STEPS),
-            "kernel": (lambda f, n: kernel_chunk(kstep, f, n), 2400)}
+            "kernel": (lambda f, n: kernel_chunk(kstep, f, n),
+                       KERNEL_2D_STEPS)}
     times = {k: [] for k in runs}
     for which in ["plain", "kernel", "kernel", "plain"]:
         run, steps = runs[which]
@@ -3582,9 +3622,7 @@ def box_gates(dev) -> None:
     preset = PRESETS["shear-layer"]
     d = OUT_DIR / "shear_layer_preset"
     res, c, w = run_counted(preset.replace(output_dir=str(d)), dev)
-    text = (d / "velocity_field.csv").read_bytes().lower()
-    require(text.count(b"\n") == preset.nx * preset.ny + 1
-            and b"nan" not in text and b"inf" not in text,
+    require(finite_csv(d / "velocity_field.csv", preset.nx * preset.ny),
             "shear-layer preset: velocity_field.csv not finite")
     print(f"box gate shear-layer preset 128^2 (Re 30,000, regularized), "
           f"{preset.num_timesteps} steps: {c[4]} N=4 launches, finite "
@@ -3941,7 +3979,8 @@ def bz_ring_timing(problem, dev, card: str, f0) -> list[dict]:
 
         times = {"k": [], "p": []}
         for which in ("k", "p", "p", "k"):
-            run, m = (kern, 2400) if which == "k" else (pl, 20 * depth)
+            run, m = ((kern, KERNEL_2D_STEPS) if which == "k"
+                      else (pl, 20 * depth))
             times[which].append(ms_per_step(run, b0, m, 8))
         ms, pms = min(times["k"]), min(times["p"])
         cells = int(np.prod(case.local))
@@ -4272,14 +4311,16 @@ def box3d_cells():
     return cells
 
 
-def box3d_fields_mass(label: str, problem, run_dir: Path,
+def box3d_fields_mass(label: str, cell: Cell, run_dir: Path,
                       t: int = 2239) -> str:
     """The closed box's mass in the Runner's fields3d.npz (the state at
-    step t, the last but one) against the initial state's, through
-    box_mass_gate with the lattice's float32 weights' term."""
+    step t, the last but one) against the initial state's (built on the
+    cell's card: the host array's bits), through box_mass_gate with the
+    lattice's float32 weights' term."""
+    problem = cell.problem
     with np.load(run_dir / "fields3d.npz") as fields:
         m = float(np.sum(fields["rho"], dtype=np.float64))
-    f0 = problem.initial_state()
+    f0 = initial_state(problem, cell.f0.device).cpu().numpy()
     m0 = float(np.sum(f0, dtype=np.float64))
     return box_mass_gate(label, m, m0, t, weight_excess(problem.lattice),
                          problem.params.tau)
@@ -4344,7 +4385,7 @@ def kolmogorov3d_main_path(dev, cell: Cell, run_dir: Path) -> dict:
           f"{re_xz:.3e}) against the plain path's ({plain_wall:.2f} s): "
           f"means {worst_mean:.3e} (gate {KOL3D_MEAN_TOL:.0e}), stresses "
           f"{worst_re:.3e} (gate {KOL3D_STRESS_TOL:.0e}), probes {perr:.3e}; "
-          + box3d_fields_mass("flow", cell.problem, run_dir))
+          + box3d_fields_mass("flow", cell, run_dir))
     return {1: counts["3d"], 2: counts["3d2"], 3: counts["3d3"]}
 
 
@@ -4499,7 +4540,7 @@ def box3d_phases(dev, card: str) -> list[dict]:
                                              steps=CUT_3D_STEPS)
             if cell.problem.solid is None:
                 print(f"box3d mass {label} at t = {CUT_3D_STEPS - 1}: "
-                      + box3d_fields_mass("flow", cell.problem, run_dir,
+                      + box3d_fields_mass("flow", cell, run_dir,
                                           CUT_3D_STEPS - 1))
     print(f"box3d main paths (phase 47): {time.perf_counter() - t0:.2f} s")
     kolmogorov2d_mesh_stats(dev)
@@ -6714,7 +6755,22 @@ class Builds:
               "nvcc in all")
         for (src, defines), lib in libs.items():
             print(f"build: {src} {defines} in {lib.build_seconds:.2f} s "
-                  f"({ptxas_summary(lib.log)})")
+                  f"({ptxas_summary(lib.log)}){zmarch_shape(src, lib.lib)}")
+
+
+def zmarch_shape(src: str, lib) -> str:
+    """The launch shape of a 1-step D3Q19 library (step_d3q19.cu's
+    z-march): its tile, threads, the planes its pull trails the
+    collisions, its shared memory, the blocks the card keeps resident and
+    its march at 256^3; nothing for another source."""
+    if src != "step_d3q19.cu":
+        return ""
+    tx, ty = divmod(lib.tpulbm_d3q19_tile(), 256)
+    return (f"; z-march {tx}x{ty} tiles, {lib.tpulbm_d3q19_threads()} "
+            f"threads, the pull {lib.tpulbm_d3q19_lag()} planes behind, "
+            f"{lib.tpulbm_d3q19_smem_bytes()} B, "
+            f"{lib.tpulbm_d3q19_resident(0)} resident blocks, marches of "
+            f"{lib.tpulbm_d3q19_grid(256, 256, 256, 0)} planes at 256^3")
 
 
 def step_cuda_chunk(problem, dev, steps: int):
@@ -6815,10 +6871,11 @@ def run_phases(dev, card: str, t_start: float, refs: dict) -> list[dict]:
         return float((got - want).abs().max())
 
     err_init = one_step_err(f0)
-    f500 = plain_chunk(pstep, f0.clone(), 500)
+    f500 = plain_chunk(pstep, f0.clone(), ADVANCED_PLAIN_STEPS)
     err_500 = one_step_err(f500)
     print(f"parity 1 step at {params.nx}x{params.ny}: max abs err "
-          f"{err_init:.3e} from the initial state, {err_500:.3e} after 500 "
+          f"{err_init:.3e} from the initial state, {err_500:.3e} after "
+          f"{ADVANCED_PLAIN_STEPS} "
           f"plain steps (rtol 5e-6, atol 1e-7)")
     fk = kernel_chunk(kstep, f0.clone(), 280)
     fp = plain_chunk(pstep, f0.clone(), 280)
@@ -6834,7 +6891,8 @@ def run_phases(dev, card: str, t_start: float, refs: dict) -> list[dict]:
     err_plain = {}
     for n in DEPTHS:
         errs = []
-        for name, f in (("initial", f0), ("500 plain steps", f500)):
+        for name, f in (("initial", f0),
+                        (f"{ADVANCED_PLAIN_STEPS} plain steps", f500)):
             got = bsteps[n](f, torch.empty_like(f))
             want = kernel_chunk(kstep, f.clone(), n)
             want_plain = plain_chunk(pstep, f.clone(), n)
@@ -6921,7 +6979,7 @@ def run_phases(dev, card: str, t_start: float, refs: dict) -> list[dict]:
           f"byte-identical to the 1-step-only run")
 
     # phase 5: timing, in turns; ms per step (one launch is N steps)
-    n_kernel, n_plain = 2400, PLAIN_2D_STEPS
+    n_kernel, n_plain = KERNEL_2D_STEPS, PLAIN_2D_STEPS
     runs = {"plain": lambda f, n: plain_chunk(pstep, f, n),
             1: lambda f, n: kernel_chunk(kstep, f, n)}
     for n in DEPTHS:

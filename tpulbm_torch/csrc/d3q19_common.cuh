@@ -530,6 +530,39 @@ __device__ __forceinline__ void apply_bouzidi(float* g, const float* q,
 #undef TPULBM_BZ
 }
 
+// The populations of one row of cells at plane 0 (a shard's block row or
+// one of its ring rows): population i of column c at plane z lies at
+// at(c, s, zs) + z * zs + i * s. Where the row is a block row with x
+// rings, columns c < 0 lie in the left ring and c >= split in the right
+// one (left and right not null). Every stride fits 32 bits: a buffer holds
+// fewer than 2^31 cells.
+struct RowSource {
+  const float* mid;
+  const float* left;
+  const float* right;
+  unsigned stride, plane, side_stride, side_plane;
+  int split;
+
+  __device__ __forceinline__ const float* at(int c, unsigned& s,
+                                             unsigned& zs) const {
+    if (left != nullptr) {
+      if (c < 0) {
+        s = side_stride;
+        zs = side_plane;
+        return left + c;
+      }
+      if (c >= split) {
+        s = side_stride;
+        zs = side_plane;
+        return right + c;
+      }
+    }
+    s = stride;
+    zs = plane;
+    return mid + c;
+  }
+};
+
 // One shard of a 3-D mesh (the rings builds, kRings): the block of rows
 // [y0, y0 + nyl) and columns [x0, x0 + nxl) of the global nx x ny grid, at
 // every one of its nz planes (z is never cut: f is (Q, nz, nyl, nxl)), and
@@ -633,6 +666,52 @@ struct Shard {
   // Whether the launch writes the cell at block coordinates (lx, ly).
   __device__ __forceinline__ bool writes(int lx, int ly) const {
     return lx >= 0 && lx < nxl && ly >= 0 && ly < nyl;
+  }
+
+  // find() split in two for a kernel that finds a window row's source once
+  // (the 1-step kernel's z-march): whether the block or its rings hold row
+  // gy (global), and if so its block row ly; then whether they hold column
+  // gx of such a row, and if so its block column lx (gx taken mod nx first
+  // where the block spans every column of the duct or the box). row() &&
+  // column() is find().
+  __device__ __forceinline__ bool row(int gy, int ny, int& ly) const {
+    if (!kPeriodicY && (gy < 0 || gy >= ny)) return false;
+    ly = gy - y0;
+    return ly >= -depth && ly < nyl + depth;
+  }
+  __device__ __forceinline__ bool column(int gx, int nx, int& lx) const {
+    if (!kPeriodicX && (gx < 0 || gx >= nx)) return false;
+    if (hx == 0) {
+      if constexpr (kPeriodicX) {
+        gx %= nx;
+        if (gx < 0) gx += nx;
+      }
+      lx = gx - x0;
+      return true;
+    }
+    lx = gx - x0;
+    return lx >= -hx && lx < nxl + hx;
+  }
+
+  // Where the populations of block row ly (one that row() returned) lie at
+  // plane 0, once for the row: locate() for each of its columns, with the
+  // stride from one plane to the next.
+  __device__ __forceinline__ RowSource row_source(int ly) const {
+    const unsigned wr = static_cast<unsigned>(nxl + 2 * hx);
+    const unsigned ring_plane = static_cast<unsigned>(depth) * wr;
+    const unsigned ring_pop = static_cast<unsigned>(nz) * ring_plane;
+    if (ly < 0) return {rb + (depth + ly) * wr + hx, nullptr, nullptr,
+                        ring_pop, ring_plane, 0, 0, 0};
+    if (ly >= nyl) return {rt + (ly - nyl) * wr + hx, nullptr, nullptr,
+                           ring_pop, ring_plane, 0, 0, 0};
+    const unsigned block_plane = static_cast<unsigned>(nyl) * nxl;
+    const unsigned side_plane = static_cast<unsigned>(nyl) * hx;
+    const size_t row = static_cast<size_t>(ly);
+    return {f + row * nxl,
+            hx > 0 ? rl + row * hx + hx : nullptr,
+            hx > 0 ? rr + row * hx - nxl : nullptr,
+            static_cast<unsigned>(nz) * block_plane, block_plane,
+            static_cast<unsigned>(nz) * side_plane, side_plane, nxl};
   }
 };
 

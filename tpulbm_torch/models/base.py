@@ -226,33 +226,44 @@ class Problem:
         return np.concatenate([f, g], axis=0)
 
     def _state_from_fields(self) -> np.ndarray:
-        """tpulbm's init_fields start (base.py:154-190), in float64 and
-        rounded once: f_i = w_i rho (1 + 3 c·u + 4.5 (c·u)² - 1.5 u²), and
-        under it the scalar g_i = w_i T (1 + 3 c_i·u). One population at a
-        time, each element's operations in tpulbm's order, on PyTorch's
-        CPU threads: the whole (Q, *spatial) float64 temporaries in NumPy
-        took seconds at 256³."""
+        """fields_state on the host, as a NumPy array."""
+        return self.fields_state("cpu").numpy()
+
+    def fields_state(self, device):
+        """tpulbm's init_fields start (base.py:154-190) as a tensor on
+        `device`, in float64 and rounded once: f_i = w_i rho (1 + 3 c·u +
+        4.5 (c·u)² - 1.5 u²), and under it the scalar g_i = w_i T (1 + 3
+        c_i·u). One population at a time, each element's operations in
+        tpulbm's order (u² and c·u summed component by component), each an
+        elementwise float64 operation rounded once on any device, so the
+        card's state has the host's bits: the whole (Q, *spatial) float64
+        temporaries in NumPy took seconds at 256³, PyTorch's CPU threads
+        still seconds there."""
         import torch
-        rho0, u0 = (torch.from_numpy(np.asarray(a, np.float64))
+        rho0, u0 = (torch.from_numpy(np.asarray(a, np.float64)).to(device)
                     for a in self.init_fields)
-        u2 = torch.sum(u0 * u0, dim=0)
+        u2 = u0[0] * u0[0]
+        for a in range(1, u0.shape[0]):
+            u2 = u2 + u0[a] * u0[a]
         rows = [(float(self.lattice.w[i]), self.lattice.c[i], rho0,
                  lambda cu: 1.0 + 3.0 * cu + 4.5 * cu * cu - 1.5 * u2)
                 for i in range(self.lattice.Q)]
         if self.thermal is not None:
             lg = self.thermal.lattice
             T = (torch.full(self.spatial_shape, self.thermal.t_ref,
-                            dtype=torch.float64)
+                            dtype=torch.float64, device=u0.device)
                  if self.init_T is None
-                 else torch.from_numpy(np.asarray(self.init_T, np.float64)))
+                 else torch.from_numpy(np.asarray(self.init_T, np.float64))
+                 .to(device))
             rows += [(float(lg.w[j]), lg.c[j], T, lambda cu: 1.0 + 3.0 * cu)
                      for j in range(lg.Q)]
-        out = np.empty((len(rows),) + tuple(u2.shape), self.dtype)
         dt = torch.float64 if self.dtype == np.float64 else torch.float32
+        out = torch.empty((len(rows),) + tuple(u2.shape), dtype=dt,
+                          device=u0.device)
         for k, (w, c, scale, bracket) in enumerate(rows):
             # c·u as tpulbm's tensordot sums it: component by component
             cu = float(c[0]) * u0[0]
             for a in range(1, len(c)):
                 cu = cu + float(c[a]) * u0[a]
-            out[k] = (w * scale * bracket(cu)).to(dt).numpy()
+            out[k] = (w * scale * bracket(cu)).to(dt)
         return out

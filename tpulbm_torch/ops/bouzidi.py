@@ -173,10 +173,17 @@ def device_table(problem: Problem, device) -> torch.Tensor:
 
 def active_directions(problem: Problem) -> tuple:
     """Whether direction j has any cut link anywhere in the domain, from
-    the memoized table: the select skips link-free directions."""
+    the memoized table: the select skips link-free directions. Memoized
+    on the Problem beside the table it was read from (the plain step asks
+    every step, and at 256³ the scan reads the whole 1.27 GB table)."""
     table = link_tables(problem)
-    return tuple(bool((table[j] >= 0).any())
-                 for j in range(problem.lattice.Q))
+    cached = getattr(problem, "_bouzidi_active", None)
+    if cached is not None and cached[0] is table:
+        return cached[1]
+    active = tuple(bool((table[j] >= 0).any())
+                   for j in range(problem.lattice.Q))
+    object.__setattr__(problem, "_bouzidi_active", (table, active))
+    return active
 
 
 def table_block(problem: Problem, origin: tuple[int, ...],

@@ -565,10 +565,26 @@ _RINGS_ARGS_3D = [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32,
 _CONSTS_ARGS_3D = [_F32, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _PTR]
 
 
+def _bind_zmarch(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The 1-step D3Q19 library with its queries of the z-march typed:
+    tpulbm_d3q19_smem_bytes(), _tile() (x * 256 + y), _threads(), _lag(),
+    _resident(device) and _grid(cols, rows, nz, device) (the march's
+    planes)."""
+    for name in ("smem_bytes", "tile", "threads", "lag"):
+        getattr(lib, f"tpulbm_d3q19_{name}").argtypes = []
+        getattr(lib, f"tpulbm_d3q19_{name}").restype = _I32
+    lib.tpulbm_d3q19_resident.argtypes = [_I32]
+    lib.tpulbm_d3q19_resident.restype = _I32
+    lib.tpulbm_d3q19_grid.argtypes = [_I32] * 4
+    lib.tpulbm_d3q19_grid.restype = _I32
+    return lib
+
+
 @functools.cache
 def _rings_library_3d(mode: str = "bgk", variant: int = 0) -> ctypes.CDLL:
-    return _bind_3d("step_d3q19.cu", "tpulbm_d3q19_step_rings",
-                    _RINGS_ARGS_3D + _CONSTS_ARGS_3D, mode, variant | RINGS)
+    return _bind_zmarch(_bind_3d(
+        "step_d3q19.cu", "tpulbm_d3q19_step_rings",
+        _RINGS_ARGS_3D + _CONSTS_ARGS_3D, mode, variant | RINGS))
 
 
 _SCRATCH_ARGS = [_PTR, ctypes.c_longlong]
@@ -602,12 +618,10 @@ def _rings_blocked_library_3d(mode: str = "bgk",
 
 @functools.cache
 def _library_3d(mode: str = "bgk", variant: int = 0) -> ctypes.CDLL:
-    lib = _bind_3d("step_d3q19.cu", "tpulbm_d3q19_step",
-                   [_PTR, _PTR, _PTR, _I32, _I32, _I32, _F32, _PTR, _PTR,
-                    _PTR, _PTR, _PTR, _PTR, _I32, _I32, _PTR], mode, variant)
-    lib.tpulbm_d3q19_smem_bytes.argtypes = []
-    lib.tpulbm_d3q19_smem_bytes.restype = _I32
-    return lib
+    return _bind_zmarch(_bind_3d(
+        "step_d3q19.cu", "tpulbm_d3q19_step",
+        [_PTR, _PTR, _PTR, _I32, _I32, _I32, _F32, _PTR, _PTR, _PTR, _PTR,
+         _PTR, _PTR, _I32, _I32, _PTR], mode, variant))
 
 
 @functools.cache

@@ -122,10 +122,11 @@ def shard_initial_state(problem: Problem, mesh: Mesh):
     problem.initial_state() has them), and the sharded solid mask or None:
     only the mask crosses from the host (tpulbm's fresh start,
     runner.py:326-333). A start at an analytic field (init_fields: the
-    periodic boxes), a density map (multiphase) or a thermal profile is
-    built on the host and cut."""
-    if (problem.init_fields is not None or problem.init_rho_map is not None
-            or problem.thermal is not None):
+    periodic boxes) is built on the first shard's device and cut, one at
+    a density map (multiphase) or a thermal profile on the host."""
+    if problem.init_fields is not None:
+        return split(mesh, problem.fields_state(mesh.device(0, 0))), None
+    if problem.init_rho_map is not None or problem.thermal is not None:
         return split(mesh, problem.initial_state()), None
     local = block_shape(problem, mesh)
     q = problem.lattice.Q

@@ -1,7 +1,7 @@
 """Time the cylinder's and the sphere's kernels of one checkout, for
 comparing two commits on the same card.
 
-    python3 tpulbm_torch/utils/ab_kernels.py CHECKOUT LABEL
+    python3 tpulbm_torch/utils/ab_kernels.py CHECKOUT LABEL [GROUP]
 
 Run it as a file, not with -m: it imports tpulbm_torch from CHECKOUT (the
 root of an unpacked commit), builds that checkout's D2Q9 and D3Q19
@@ -16,8 +16,15 @@ of one shard of the sphere at 256^3 on a 2x2 mesh (the N=3 ring build,
 shard (0, 0), its rings exchanged once), CUDA events, the lower of three
 turns after a warm-up; and the scale-8m shard and re200's N=4 again on
 the card's clock (`_device`: the launches enqueued behind a sleep of the
-card, which the host cannot hold back). Alternate the commits (parent,
-change, change, parent), one process each, in one call.
+card, which the host cannot hold back); then the 1-step D3Q19 kernel's
+cells (ONE_STEP: every build of PERF.md's row 6 and row 7's depth-1
+entries, the 64^3 and 128^3 boxes among them, and one shard of the
+sphere, of the Bouzidi sphere at 256^3 and of the D3Q27 Bouzidi sphere at
+128^3 on a 2x2 mesh, with x rings, beside the four shards summed and the
+one-device kernel in the same turns). GROUP one_step times those cells
+only.
+Alternate the commits (parent, change, change, parent), one process each,
+in one call.
 """
 import json
 import sys
@@ -103,7 +110,167 @@ def slab(make_problem):
         body_force=(force, 0.0))
 
 
-def main(checkout: str, label: str) -> None:
+# the 1-step D3Q19 kernel's cells: name -> (SimulationParams keywords, a
+# mesh shape for one shard's depth-1 ring build or None); "spin" the
+# Bouzidi sphere spinning about z, "kolmogorov3d" the preset's box
+_SPHERE = dict(problem="cylinder3d", nx=256, ny=256, nz=256,
+               inlet_velocity=0.05)
+_BZ = dict(_SPHERE, cylinder_radius=0.23, obstacle_bc="bouzidi")
+_OPS = {"bgk": {}, "trt": dict(collision="trt"),
+        "mrt": dict(collision="mrt"),
+        "regularized": dict(collision="regularized"),
+        "les": dict(smagorinsky=0.17), "power_law": dict(power_law_n=0.7)}
+
+
+def _cube(kw: dict, n: int) -> dict:
+    return dict(kw, nx=n, ny=n, nz=n)
+
+
+_DUCT = dict(problem="poiseuille", nx=256, ny=256, nz=256, tau=0.8,
+             periodic_x=True, inlet_velocity=0.0,
+             body_force=(1e-6, 0.0, 0.0))
+_TG = dict(problem="taylor-green", nx=256, ny=256, nz=256, tau=0.8,
+           inlet_velocity=0.04, periodic_x=True, cylinder_radius=0.0)
+_KOL = dict(problem="kolmogorov3d")
+ONE_STEP = {
+    **{f"sphere_{op}": (dict(_SPHERE, **kw), None) for op, kw in _OPS.items()},
+    "sphere_source": (dict(_SPHERE, body_force=(1e-6, 0.0, 0.0)), None),
+    "sphere_bounce_back": (dict(_SPHERE, obstacle_bc="bounce_back"), None),
+    **{f"duct_{op}": (dict(_DUCT, **kw), None) for op, kw in _OPS.items()},
+    "box_256": (_TG, None),
+    "kolmogorov3d_128": (_KOL, None),
+    "sphere_d3q27": (dict(_SPHERE, lattice3d="d3q27"), None),
+    **{f"box_force_64_{op}": (dict(_cube(_KOL, 64), **kw), None)
+       for op, kw in _OPS.items() if op != "bgk"},
+    **{f"box_force_64_d3q27_{op}": (dict(_cube(_KOL, 64), lattice3d="d3q27",
+                                         **kw), None)
+       for op, kw in _OPS.items() if op != "mrt"},
+    **{f"sphere_64_d3q27_{op}": (dict(_cube(_SPHERE, 64), lattice3d="d3q27",
+                                      **kw), None)
+       for op, kw in _OPS.items() if op not in ("bgk", "mrt")},
+    "box_64_d3q27": (dict(_cube(_TG, 64), lattice3d="d3q27"), None),
+    "sphere_64_d3q27_bounce_back": (dict(
+        _cube(_SPHERE, 64), lattice3d="d3q27", obstacle_bc="bounce_back"),
+        None),
+    "duct_64_d3q27": (dict(_cube(_DUCT, 64), lattice3d="d3q27"), None),
+    **{f"bouzidi_{op}": (dict(_BZ, **kw), None) for op, kw in _OPS.items()},
+    "bouzidi_d3q27": (dict(_BZ, lattice3d="d3q27"), None),
+    **{f"bouzidi_64_d3q27_{op}": (dict(_cube(_BZ, 64), lattice3d="d3q27",
+                                       **kw), None)
+       for op, kw in _OPS.items() if op not in ("bgk", "mrt")},
+    "bouzidi_64_d3q27_spin": (dict(_cube(_BZ, 64), lattice3d="d3q27"),
+                              None),
+    "sphere_2x2_shard": (_SPHERE, (2, 2)),
+    "bouzidi_2x2_shard": (_BZ, (2, 2)),
+    "bouzidi_d3q27_128_2x2_shard": (dict(_cube(_BZ, 128), lattice3d="d3q27"),
+                                    (2, 2)),
+}
+
+
+def _one_step_problem(name: str, n=None):
+    """The problem of ONE_STEP's cell `name` (at n^3 where given: the
+    libraries' defines do not depend on the size)."""
+    import dataclasses
+
+    import numpy as np
+    from tpulbm_torch.config import PRESETS, SimulationParams
+    from tpulbm_torch.models import make_problem
+    kw = dict(ONE_STEP[name][0])
+    if n is not None:
+        kw.update(nx=n, ny=n, nz=n)
+    if kw.get("problem") == "kolmogorov3d":
+        kw.pop("problem")
+        params = PRESETS["kolmogorov3d"].replace(**kw)
+    else:
+        params = SimulationParams(**kw)
+    problem = make_problem(params.replace(precision="f32", enable_vtk=False))
+    if name.endswith("_spin"):   # the sphere spinning about z
+        p = problem.params
+        c = np.array([p.get_cylinder_x(), p.get_cylinder_y(), p.nz // 2])
+        omega = p.inlet_velocity / float(p.get_cylinder_radius_cells())
+
+        def uw(pts):
+            d = pts - c
+            return np.stack([-omega * d[..., 1], omega * d[..., 0],
+                             np.zeros_like(d[..., 0])], axis=-1)
+        problem = dataclasses.replace(problem, obstacle_velocity=uw)
+    return problem
+
+
+def one_step_builds() -> list:
+    """(source, defines) of every library ONE_STEP's cells launch."""
+    from tpulbm_torch.ops import step_cuda
+    builds = []
+    for name, (_, shape) in ONE_STEP.items():
+        c = step_cuda.StepConstants.of(_one_step_problem(name, 16))
+        builds.append(("step_d3q19.cu", step_cuda.build_defines(
+            c.mode, c.variant)))
+        if shape is not None:
+            builds.append(("step_d3q19.cu", step_cuda.build_defines(
+                c.mode, c.variant | step_cuda.RINGS)))
+    return list(dict.fromkeys(builds))
+
+
+def time_one_step(dev, out: dict) -> None:
+    """ms per step of every ONE_STEP cell into `out`: the one-device
+    kernel, or one shard's depth-1 ring build with the four shards summed
+    (`_summed`) and the one-device kernel (`_one`) in the same turns."""
+    import torch
+    from tpulbm_torch.convert import state_from_numpy
+    from tpulbm_torch.ops import step_cuda
+    from tpulbm_torch.ops import bouzidi
+    from tpulbm_torch.parallel import halo, mesh, sharded_step
+    tables = {}   # a geometry's Bouzidi link table, shared by its operators
+    for name, (kw, shape) in ONE_STEP.items():
+        p = _one_step_problem(name)
+        if p.obstacle_bc == "bouzidi":
+            key = (repr(sorted((k, v) for k, v in kw.items()
+                               if k not in ("collision", "smagorinsky",
+                                            "power_law_n"))),
+                   name.endswith("_spin"))
+            if key not in tables:
+                tables[key] = bouzidi.link_tables(p)
+            object.__setattr__(p, "_bouzidi_tables", tables[key])
+        f = state_from_numpy(p.initial_state(), p, dev)
+        cells = f[0].numel()
+        steps = min(1200, max(150, 150 * 256 ** 3 // cells))
+        one = step_cuda.make_local_step_cuda_3d(p, dev)
+        if shape is None:
+            out[name] = ms_per_step(one, f, steps, 1)
+        else:
+            m = mesh.make_mesh(shape, devices=[dev] * 4)
+            masks = halo.pad_mask(sharded_step._solid_grid(p, m),
+                                  periodic_x=p.periodic_x,
+                                  periodic_y=p.periodic_y, depth=1)
+            geo = sharded_step.kernel_shards(p, m, 1, True, masks)
+            blocks = sharded_step.split(m, f)
+            rings = halo.exchange(blocks, eq_ring=p.ghost_ring_values(),
+                                  depth=1, periodic_x=p.periodic_x,
+                                  periodic_y=p.periodic_y, x_rings=True)
+            consts = step_cuda.kernel_constants(p, q=19)
+            outs = [[torch.empty_like(b) for b in row] for row in blocks]
+
+            def shard(f, o):
+                return step_cuda.collide_stream_rings_3d(
+                    blocks[0][0], outs[0][0], rings[0][0], geo[0][0],
+                    consts, 1)
+
+            def summed(f, o):
+                for iy, ix in m.shards():
+                    step_cuda.collide_stream_rings_3d(
+                        blocks[iy][ix], outs[iy][ix], rings[iy][ix],
+                        geo[iy][ix], consts, 1)
+                return o
+
+            out[name] = ms_per_step(shard, f, 4 * steps, 1)
+            out[f"{name}_summed"] = ms_per_step(summed, f, steps, 1)
+            out[f"{name}_one"] = ms_per_step(one, f, steps, 1)
+            del blocks, rings, outs, geo
+        del f, one
+        torch.cuda.empty_cache()
+
+
+def main(checkout: str, label: str, group: str = "all") -> None:
     sys.path.insert(0, checkout)
     import torch
     from tpulbm_torch.config import PRESETS, SimulationParams
@@ -116,6 +283,13 @@ def main(checkout: str, label: str) -> None:
     if not step_cuda.__file__.startswith(checkout):
         raise RuntimeError(f"imported {step_cuda.__file__}, not {checkout}")
     dev = torch.device("cuda", 0)
+    if group == "one_step":
+        with ThreadPoolExecutor(16) as pool:
+            list(pool.map(lambda b: cuda_build.load(*b), one_step_builds()))
+        out = {"label": label}
+        time_one_step(dev, out)
+        print(json.dumps(out))
+        return
 
     def sphere(**kw):
         return make_problem(SimulationParams(
@@ -213,8 +387,11 @@ def main(checkout: str, label: str) -> None:
         lambda f, o: step_cuda.collide_stream_rings_3d(b, spare, r, g,
                                                        consts, 3),
         b, 150, 3)
+    with ThreadPoolExecutor(16) as pool:
+        list(pool.map(lambda b: cuda_build.load(*b), one_step_builds()))
+    time_one_step(dev, out)
     print(json.dumps(out))
 
 
 if __name__ == "__main__":
-    main(*sys.argv[1:3])
+    main(*sys.argv[1:4])

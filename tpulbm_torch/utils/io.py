@@ -250,7 +250,11 @@ def write_temperature_field(T: np.ndarray, params: SimulationParams,
     """Per-cell temperature CSV for thermal problems (x,y,temperature, in
     velocity_field.csv's cell order)."""
     path = os.path.join(out_dir, "temperature_field.csv")
-    T = np.asarray(T, dtype=np.float64)
+    T = np.ascontiguousarray(T, dtype=np.float64)
+    native = get_native_io()
+    if native is not None:
+        native.write_temperature_field(path, T)
+        return path
     ny, nx = T.shape
     with open(path, "w") as fh:
         fh.write("x,y,temperature\n")

@@ -15,9 +15,10 @@ of chained iterations stay defined (tpulbm's hold garbage; its centre
 rows are the same).
 
 On the card each variant runs its CUDA kernel (csrc/kernel_lab_d3q19.cu,
-the 1-step D3Q19 kernel's z-march geometry), is first held against its
-plain version (plain_lab) on the same input at rtol 5e-6 / atol 1e-7,
-and is timed with CUDA events around `iters` chained launches
+the geometry of the 1-step D3Q19 kernel before its redesign: 32 x 4
+tiles, 64-plane marches, a ring of three collided planes), is first held
+against its plain version (plain_lab) on the same input at rtol 5e-6 /
+atol 1e-7, and is timed with CUDA events around `iters` chained launches
 (ping-pong), the best of `repeats`. With --cpu the plain version runs on
 the host (a rehearsal: its times are the host's). One JSON line per
 variant with tpulbm's keys (variant, size, ty: the CUDA tile's height,

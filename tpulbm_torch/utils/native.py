@@ -1,11 +1,11 @@
 """ctypes loader (and builder at first use) for the native ASCII writer.
 
 csrc/fastio.cpp (the port's copy of tpulbm's native/fastio.cpp) formats
-VTK frames and velocity_field.csv. It is built with g++ into
-cuda_build.build_dir(), next to the kernels, named by a hash of the
-source. Without g++, without the source or a writable build directory, or
-with TPULBM_NO_NATIVE=1, the writers in utils/io.py take their NumPy path,
-which writes the same bytes.
+VTK frames, velocity_field.csv and temperature_field.csv. It is built
+with g++ into cuda_build.build_dir(), next to the kernels, named by a
+hash of the source. Without g++, without the source or a writable build
+directory, or with TPULBM_NO_NATIVE=1, the writers in utils/io.py take
+their NumPy path, which writes the same bytes.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ import numpy as np
 from .cuda_build import SOURCE_DIR, build_dir
 
 _SOURCE = SOURCE_DIR / "fastio.cpp"
-_GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+_GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 
 
 class NativeIO:
@@ -37,6 +37,9 @@ class NativeIO:
         lib.fastio_write_velocity_field.argtypes = [
             ctypes.c_char_p, dptr, dptr, dptr, ctypes.c_int64, ctypes.c_int64]
         lib.fastio_write_velocity_field.restype = ctypes.c_int
+        lib.fastio_write_temperature_field.argtypes = [
+            ctypes.c_char_p, dptr, ctypes.c_int64, ctypes.c_int64]
+        lib.fastio_write_temperature_field.restype = ctypes.c_int
 
     def write_vtk(self, path: str, header: str, ux, uy, rho) -> None:
         rc = self._lib.fastio_write_vtk(
@@ -54,6 +57,13 @@ class NativeIO:
         ny, nx = ux.shape
         rc = self._lib.fastio_write_velocity_field(
             path.encode(), ux, uy, rho, ny, nx)
+        if rc != 0:
+            raise OSError(f"native CSV write failed: {path}")
+
+    def write_temperature_field(self, path: str, temp) -> None:
+        ny, nx = temp.shape
+        rc = self._lib.fastio_write_temperature_field(path.encode(), temp,
+                                                      ny, nx)
         if rc != 0:
             raise OSError(f"native CSV write failed: {path}")
 

@@ -3,6 +3,7 @@
     python -m tpulbm_torch.utils.tile_sweep [--n 256] [--collision bgk]
         [--lattice d3q19] [--json PATH]
     python -m tpulbm_torch.utils.tile_sweep --lattice d2q9 [--collision bgk]
+    python -m tpulbm_torch.utils.tile_sweep --one-step [--cases sphere,mrt]
 
 D3Q19 and D3Q27: builds csrc/step_d3q19_blocked.cu under other values of
 its knobs (the thread-block cluster -DTPULBM_CLUSTER_X/_Y, the block's
@@ -19,6 +20,19 @@ narrower a side; the rows a march step -DTPULBM_ROWS, a thread a stage,
 column and row; the segment -DTPULBM_SEGMENT, 0 the launcher's choice;
 the blocks an SM asked of ptxas -DTPULBM_MIN_BLOCKS, 0 none), checks each at N = 2, 3, 4 bitwise against N 1-step
 launches on re200 at 2048x512 and times them the same way.
+--one-step: builds csrc/step_d3q19.cu's z-march under other values of its
+knobs (the tile height -DTPULBM_TILE_Y, the threads -DTPULBM_THREADS, the
+march -DTPULBM_ZCHUNK, 0 the launcher's choice, the planes the pull
+trails -DTPULBM_LAG)
+for each of its cases (ONE_STEP_CASES: the sphere at 256^3 under BGK,
+MRT, TRT, the power law and on D3Q27, one shard of the Bouzidi sphere at
+256^3 on 2x2 with x rings, the 64^3 box with the z force under TRT),
+each source of --sources under every knob set; holds the default build
+to the plain step (one device) or the plain ring step (the shard) from a
+seeded +-10% perturbed state, one N=2 and one N=3 launch of the N-step
+kernel bitwise to 2 and 3 of its launches (one device) or its four
+shards bitwise to one device (the shard), and every other variant bitwise
+to the default build, and times them in turns.
 Prints the card (`nvidia-smi` name and power limit), one line per variant
 (ms per step, the shape, shared memory, resident blocks or clusters,
 ptxas's registers and spills) and one JSON line; needs a CUDA card and
@@ -43,8 +57,42 @@ from . import cuda_build
 
 SOURCE = "step_d3q19_blocked.cu"
 KNOBS = ("TILE_Y", "CLUSTER_X", "CLUSTER_Y", "THREADS", "ZCHUNK")
+DEFAULT = (16, 1, 2, 512, 64)
+# (tile height, cluster x, cluster y, threads, z-march): the defaults first
+VARIANTS = [DEFAULT,
+            (16, 1, 1, 512, 64), (8, 1, 1, 512, 64),     # lone blocks
+            (8, 1, 1, 256, 64),
+            (8, 1, 2, 512, 64), (8, 1, 2, 384, 64), (8, 1, 2, 256, 64),
+            (16, 1, 2, 384, 64), (16, 1, 4, 512, 64), (8, 2, 1, 512, 64),
+            (8, 2, 2, 512, 64), (8, 2, 4, 512, 64), (4, 2, 2, 256, 64),
+            (16, 1, 2, 512, 32), (16, 1, 2, 512, 128)]
 SOURCE_2D = "step_d2q9_blocked.cu"
 KNOBS_2D = ("WIDTH", "ROWS", "SEGMENT", "MIN_BLOCKS")
+SOURCE_1 = "step_d3q19.cu"
+KNOBS_1 = ("TILE_Y", "THREADS", "ZCHUNK", "LAG")
+# (tile height, threads, march planes, planes the pull trails; -1 the
+# source's default): the defaults first
+VARIANTS_1 = [(-1, -1, -1, -1),
+              (-1, -1, -1, 1), (-1, -1, -1, 2), (4, -1, -1, -1),
+              (-1, -1, 8, -1), (-1, -1, 32, -1), (16, 512, -1, -1)]
+# name -> (SimulationParams keywords, mesh shape or None)
+ONE_STEP_CASES = {
+    "sphere": (dict(problem="cylinder3d", nx=256, ny=256, nz=256,
+                    inlet_velocity=0.05), None),
+    "mrt": (dict(problem="cylinder3d", nx=256, ny=256, nz=256,
+                 inlet_velocity=0.05, collision="mrt"), None),
+    "trt": (dict(problem="cylinder3d", nx=256, ny=256, nz=256,
+                 inlet_velocity=0.05, collision="trt"), None),
+    "power_law": (dict(problem="cylinder3d", nx=256, ny=256, nz=256,
+                       inlet_velocity=0.05, power_law_n=0.7), None),
+    "d3q27": (dict(problem="cylinder3d", nx=256, ny=256, nz=256,
+                   inlet_velocity=0.05, lattice3d="d3q27"), None),
+    "bouzidi_2x2": (dict(problem="cylinder3d", nx=256, ny=256, nz=256,
+                         inlet_velocity=0.05, cylinder_radius=0.23,
+                         obstacle_bc="bouzidi"), (2, 2)),
+    "box64_trt": (dict(preset="kolmogorov3d", nx=64, ny=64, nz=64,
+                       collision="trt"), None),
+}
 # (stage 0's widened row, rows a march step, segment rows, blocks an SM
 # asked of ptxas, -1 the source's default): the defaults first
 VARIANTS_2D = [(96, 1, 0, -1),
@@ -127,7 +175,18 @@ def main(argv=None) -> int:
     ap.add_argument("--variants",
                     help="d2q9: the variants to build, as "
                          "'width,rows,segment,min_blocks;...' (default "
-                         "VARIANTS_2D)")
+                         "VARIANTS_2D); --one-step: as 'tile_y,threads,"
+                         "zchunk,lag;...' (default VARIANTS_1)")
+    ap.add_argument("--one-step", action="store_true",
+                    help="the 1-step D3Q19 kernel's z-march (csrc/"
+                         "step_d3q19.cu) over ONE_STEP_CASES")
+    ap.add_argument("--cases", help="--one-step: the cases to run, "
+                                    "comma-separated (default all)")
+    ap.add_argument("--sources",
+                    help="--one-step: the sources to build, comma-separated "
+                         "names in csrc/ or paths (default step_d3q19.cu), "
+                         "each under every variant; the first source's "
+                         "first variant is the default build")
     ap.add_argument("--json", help="also write the JSON line to this file")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -138,6 +197,8 @@ def main(argv=None) -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card)
     dev = torch.device("cuda", 0)
+    if args.one_step:
+        return sweep_one_step(args, card, dev)
     if args.lattice == "d2q9":
         return sweep_2d(args, card, dev)
     n = args.n
@@ -324,6 +385,245 @@ def sweep_2d(args, card: str, dev) -> int:
     if not all(r[f"bitwise_n{d}"] for r in rows for d in depths):
         print("tile_sweep: a variant is not bitwise equal to N 1-step "
               "launches")
+        return 1
+    return 0
+
+
+def _build_one_step(source, variant, defines):
+    path = cuda_build.SOURCE_DIR / source   # a name in csrc/, or a path
+    name = (f"tile_sweep_1_{path.stem}_" + "_".join(map(str, variant)) + "_"
+            + "_".join(d.lstrip("-D").replace("=", "") for d in defines))
+    out = cuda_build.build_dir() / "tile_sweep" / f"{name}.so"
+    try:
+        cuda_build.compile_library(path, out,
+                                   defines + knob_defines(variant, KNOBS_1))
+    except RuntimeError as err:   # e.g. a window that exceeds 227 KB
+        return None, str(err).splitlines()[-1][:300]
+    lib = step_cuda._bind_zmarch(ctypes.CDLL(str(out)))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    name = ("tpulbm_d3q19_step_rings" if "-DTPULBM_RINGS=1" in defines
+            else "tpulbm_d3q19_step")
+    getattr(lib, name).argtypes = (
+        step_cuda._RINGS_ARGS_3D + step_cuda._CONSTS_ARGS_3D
+        if "-DTPULBM_RINGS=1" in defines else
+        [ptr, ptr, ptr, i32, i32, i32, f32, ptr, ptr, ptr, ptr, ptr, ptr,
+         i32, i32, ptr])
+    getattr(lib, name).restype = i32
+    lib.tpulbm_cuda_error_string.argtypes = [i32]
+    lib.tpulbm_cuda_error_string.restype = ctypes.c_char_p
+    return lib, ptxas_lines(out.with_suffix(".log").read_text())
+
+
+def ptxas_lines(log: str) -> str:
+    """ptxas's report of a library's kernel: its stack frame, spills,
+    registers and shared memory."""
+    return "; ".join(ln.split("ptxas info    :")[-1].strip()
+                     for ln in log.splitlines()
+                     if "stack frame" in ln or "Used" in ln)
+
+
+def _one_step_case(name, dev):
+    """(problem, the launcher of a variant's library -> step(f, out), the
+    default step the N-step kernel and one device are held to, the plain
+    step, the state, the cells and the bound's bytes a step, the grid's
+    cols, rows and planes) of a --one-step case."""
+    from ..config import PRESETS
+    from ..ops import bouzidi, step_rings_torch, step_torch
+    from ..parallel import halo, mesh, sharded_step
+    kw, shape = ONE_STEP_CASES[name]
+    kw = dict(kw)
+    preset = kw.pop("preset", None)
+    params = (PRESETS[preset].replace(**kw) if preset
+              else SimulationParams(**kw))
+    problem = make_problem(params.replace(precision="f32",
+                                          enable_vtk=False))
+    f0 = state_from_numpy(problem.initial_state(), problem, dev)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    fp = f0 * (1 + 0.2 * (torch.rand(f0.shape, generator=gen, device=dev)
+                          - 0.5))
+    consts = step_cuda.kernel_constants(problem, 19)
+    q = problem.lattice.Q
+    stream = lambda: torch.cuda.current_stream(dev).cuda_stream  # noqa: E731
+    if shape is None:
+        solid = torch.as_tensor(step_cuda.kernel_mask(problem), device=dev)
+        links = (bouzidi.device_table(problem, dev)
+                 if consts.variant & step_cuda.BOUZIDI else None)
+
+        def launcher(lib):
+            def step(f, out):
+                rc = lib.tpulbm_d3q19_step(*step_cuda.launch_args(
+                    f, out, solid, consts, 1, links, stream()))
+                step_cuda._check_launch(lib, rc, f"one-step sweep {name}")
+                return out
+            return step
+        plain = step_torch.make_step_rolled(problem, dev)
+        nz, ny, nx = problem.spatial_shape
+        return dict(problem=problem, launcher=launcher, plain=plain, f=fp,
+                    cells=nz * ny * nx, grid=(nx, ny, nz),
+                    nbytes=(8 * q + (0 if problem.solid is None else 1))
+                    * nz * ny * nx + _link_bytes(solid, q))
+    m = mesh.make_mesh(shape, devices=[dev] * (shape[0] * shape[1]))
+    local = sharded_step.block_shape(problem, m)
+    masks = halo.pad_mask(sharded_step.shard_mask(m, problem.solid),
+                          periodic_x=problem.periodic_x,
+                          periodic_y=problem.periodic_y, depth=1)
+    geo = sharded_step.kernel_shards(problem, m, 1, True, masks)
+    blocks = sharded_step.split(m, fp)
+    rings = halo.exchange(blocks, eq_ring=problem.ghost_ring_values(),
+                          depth=1, periodic_x=problem.periodic_x,
+                          periodic_y=problem.periodic_y, x_rings=True)
+    o = sharded_step.origin(m, local, 0, 0)
+    ring_plain = step_rings_torch.make_ring_step(problem, o, local, 1,
+                                                 masks[0][0], dev)
+
+    def launcher(lib, shard=(0, 0)):
+        iy, ix = shard
+        b, r, g = blocks[iy][ix], rings[iy][ix], geo[iy][ix]
+
+        def step(f, out):
+            rc = lib.tpulbm_d3q19_step_rings(*step_cuda.ring_launch_args(
+                b, out, r, g, consts, 1, stream=stream()))
+            step_cuda._check_launch(lib, rc, f"one-step sweep {name}")
+            return out
+        return step
+
+    def gathered(lib):
+        outs = [[torch.empty_like(b) for b in row] for row in blocks]
+        for iy, ix in m.shards():
+            launcher(lib, (iy, ix))(None, outs[iy][ix])
+        return sharded_step.gather(outs)
+
+    nzl, nyl, nxl = local
+    mask = geo[0][0].mask[:, 1:-1, 1:-1]
+    return dict(problem=problem, launcher=launcher, gathered=gathered,
+                plain=lambda f: ring_plain(blocks[0][0], *rings[0][0]),
+                f=blocks[0][0], whole=fp, cells=nzl * nyl * nxl,
+                grid=(nxl, nyl, nzl),
+                nbytes=(8 * q + 1) * nzl * nyl * nxl
+                + 2 * q * 4 * nzl * (nxl + 2 + nyl) + _link_bytes(mask, q))
+
+
+def _link_bytes(mask, q: int) -> int:
+    """The link table's bytes a step reads: (Q - 1) floats at each cell of
+    the kernel mask that carries LINK_BIT."""
+    return int((mask & step_cuda.LINK_BIT).ne(0).sum()) * (q - 1) * 4
+
+
+def sweep_one_step(args, card: str, dev) -> int:
+    """The 1-step D3Q19 kernel's variants (VARIANTS_1) over
+    ONE_STEP_CASES."""
+    names = args.cases.split(",") if args.cases else list(ONE_STEP_CASES)
+    knobs = ([tuple(int(x) for x in v.split(",")) for v in
+              args.variants.split(";")] if args.variants
+             else VARIANTS_1[:1] if args.only_default else VARIANTS_1)
+    sources = args.sources.split(",") if args.sources else [SOURCE_1]
+    # every source under every knob set; the first is the default build
+    variants = [(src, v) for src in sources for v in knobs]
+    jobs, loads = [], []
+    for name in names:
+        kw, shape = ONE_STEP_CASES[name]
+        kw = dict(kw)
+        preset = kw.pop("preset", None)
+        from ..config import PRESETS
+        params = (PRESETS[preset].replace(**kw) if preset
+                  else SimulationParams(**kw))
+        c = step_cuda.StepConstants.of(make_problem(params.replace(
+            precision="f32", enable_vtk=False)))
+        defines = step_cuda.build_defines(
+            c.mode, c.variant | (step_cuda.RINGS if shape else 0))
+        jobs += [(name, sv, defines) for sv in variants]
+        # the port's own libraries the default build is held to
+        plain = step_cuda.build_defines(c.mode, c.variant)
+        loads += [("step_d3q19.cu", plain)] + (
+            [] if shape else [("step_d3q19_blocked.cu", plain)])
+    with ThreadPoolExecutor(len(jobs) + len(loads)) as pool:
+        for job in dict.fromkeys(loads):
+            pool.submit(cuda_build.load, *job)
+        built = list(pool.map(
+            lambda j: _build_one_step(j[1][0], j[1][1], j[2]), jobs))
+    libs = {(j[0], j[1]): b for j, b in zip(jobs, built)}
+    result, ok = {"card": card, "cases": {}}, True
+    for name in names:
+        case = _one_step_case(name, dev)
+        problem, f = case["problem"], case["f"]
+        default = libs[name, variants[0]][0]
+        base = case["launcher"](default)(f, torch.empty_like(f))
+        want = case["plain"](f)
+        torch.cuda.synchronize()
+        tol = (dict(rtol=1e-4, atol=1e-7) if problem.params.power_law_n
+               else dict(rtol=5e-6, atol=1e-7))
+        err = float((base - want).abs().max())
+        plain_ok = bool(torch.allclose(base, want, **tol))
+        if "gathered" in case:   # the four shards against one device
+            one = step_cuda.make_local_step_cuda_3d(problem, dev)
+            whole = case["whole"]
+            anchor = {1: bool(torch.equal(
+                case["gathered"](default),
+                one(whole, torch.empty_like(whole))))}
+        else:
+            anchor = {}
+            for n in (2, 3):
+                g = step_cuda.make_local_step_cuda_3d_blocked(problem, dev, n)
+                got = case["launcher"](default)
+                h = f
+                for _ in range(n):
+                    h = got(h, torch.empty_like(h))
+                anchor[n] = bool(torch.equal(g(f, torch.empty_like(f)), h))
+        rows = []
+        for v in variants:
+            lib, regs = libs[name, v]
+            if lib is None:
+                print(f"  {v}: not built: {regs}")
+                continue
+            nx, ny, nz = case["grid"]
+            out = case["launcher"](lib)(f, torch.empty_like(f))
+            torch.cuda.synchronize()
+            march = lib.tpulbm_d3q19_grid(nx, ny, nz, 0)
+            tx, ty = divmod(lib.tpulbm_d3q19_tile(), 256)
+            rows.append(dict(
+                source=v[0],
+                variant=dict(zip(("tile_y", "threads", "zchunk", "lag"),
+                                 v[1])),
+                tile=(tx, ty), threads=lib.tpulbm_d3q19_threads(),
+                lag=lib.tpulbm_d3q19_lag(),
+                smem=lib.tpulbm_d3q19_smem_bytes(),
+                resident=lib.tpulbm_d3q19_resident(0), march=march,
+                blocks=-(-nx // tx) * -(-ny // ty) * -(-nz // march),
+                bitwise=bool(torch.equal(out, base)), ptxas=regs, ms=[],
+                lib=lib))
+        order = list(range(len(rows)))
+        for turn in (order, order[::-1]):
+            for i in turn:
+                rows[i]["ms"].append(_ms_per_step(
+                    case["launcher"](rows[i]["lib"]), f, 1, 200))
+        for r in rows:
+            del r["lib"]
+        bound = 1e3 * case["nbytes"] / 3.35e12
+        print(f"{name} ({card}): the default within {err:.3e} of the plain "
+              f"step ({'ok' if plain_ok else 'NOT within tolerance'}); "
+              f"bitwise {anchor}; bound {bound:.5f} ms")
+        for r in rows:
+            print(f"  {r['source']} {r['variant']}: {min(r['ms']):.5f} "
+                  f"ms/step {r['ms']} "
+                  f"({100 * bound / min(r['ms']):.1f}% of the bound); tile "
+                  f"{r['tile']} threads {r['threads']} lag {r['lag']} march "
+                  f"{r['march']} blocks {r['blocks']} smem {r['smem']} "
+                  f"resident {r['resident']}; bitwise {r['bitwise']}; "
+                  f"ptxas {r['ptxas']}")
+        ok = ok and plain_ok and all(anchor.values()) and all(
+            r["bitwise"] for r in rows)
+        result["cases"][name] = dict(max_abs_err=err, plain_ok=plain_ok,
+                                     anchor=anchor, bound_ms=bound,
+                                     variants=rows)
+        del case
+        torch.cuda.empty_cache()
+    line = json.dumps(result)
+    print(line)
+    if args.json:
+        with open(args.json, "w") as fh:
+            fh.write(line + "\n")
+    if not ok:
+        print("tile_sweep: a variant or the default is not right")
         return 1
     return 0
 
