@@ -929,17 +929,46 @@ def plain_chunk(step, f: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def ms_per_step(run, f: torch.Tensor, n: int, warm: int = 20) -> float:
+    """ms per step of run(g, n) (n steps from a copy of f) between two
+    CUDA events, after `warm` steps. The events follow a sleep of the card
+    (TIMING_SLEEP_CYCLES), during which the host enqueues ahead, so that a
+    host slower than the card (the nvcc pool beside the phases, 30-60 µs a
+    launch) does not set the time of a run of short launches; a run the
+    launch queue cannot hold may still wait on the host."""
     run(f.clone(), warm)                     # warm-up
     g = f.clone()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(TIMING_SLEEP_CYCLES)
     t0.record()
     g = run(g, n)
     t1.record()
     torch.cuda.synchronize()
     require(bool(torch.isfinite(g).all()), "timed run went non-finite")
     return t0.elapsed_time(t1) / n
+
+
+def ring_times(launch, out: torch.Tensor, depth: int, plain=None) -> dict:
+    """A shard's ring launch in turns (kernel, issued, plain, plain,
+    issued, kernel), ms per step, the lower of two: `kernel` on the card's
+    clock (device_ms: `launch()`, `depth` steps into `out`, enqueued behind
+    a sleep of the card, since a shard's launch can be shorter than the
+    host takes to issue it), `issued` as the host issues them
+    (host_paced_ms, the rate a Runner can step) and, given, `plain()`, the
+    plain ring step of the same `depth` steps (host_paced_ms). Raises if
+    the timed launches left `out` non-finite."""
+    runs = {"kernel": (device_ms, launch, RING_REPS),
+            "issued": (host_paced_ms, launch, RING_REPS)}
+    if plain is not None:
+        runs["plain"] = (host_paced_ms, plain, 4)
+    times = {k: [] for k in runs}
+    for which in list(runs) + list(runs)[::-1]:
+        timer, fn, reps = runs[which]
+        times[which].append(timer(fn, reps))
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(out).all()), "timed launches went non-finite")
+    return {k: min(v) / depth for k, v in times.items()}
 
 
 def tiny_runner_agreement(dev, label: str = "", fields_rtol: float = 1e-5,
@@ -3088,20 +3117,22 @@ def mesh_phases(dev, card: str) -> list[dict]:
           f"and velocity_field.csv (max diff {dv:.3e}) of the one-device "
           f"run ({time.perf_counter() - t0:.2f} s)")
 
-    # phase 34: timing, CUDA events, in turns
+    # phase 34: timing on the card's clock (device_ms), in turns
     t0 = time.perf_counter()
     order = ["today", "rings"]
+    spare = torch.empty_like(f0)
     for depth in (1, *DEPTHS):
         case = MeshCase(problem, (1, 1), dev, depth, False)
         rings = case.rings(case.split(f0))
-        runs_ = {"today": lambda f, m, d=depth: kernel_chunk(one[d], f, m // d),
-                 "rings": lambda f, m, case=case, rings=rings: kernel_chunk(
-                     lambda g, o: case.launch(g, o, rings[0][0], (0, 0)),
-                     f, m // case.depth)}
+        runs_ = {"today": lambda d=depth: one[d](f0, spare),
+                 "rings": lambda case=case, rings=rings: case.launch(
+                     f0, spare, rings[0][0], (0, 0))}
         times = {k: [] for k in order}
         for which in order + order[::-1]:
-            times[which].append(ms_per_step(runs_[which], f0,
-                                                KERNEL_2D_STEPS))
+            times[which].append(device_ms(runs_[which], RING_REPS) / depth)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(spare).all()),
+                "timed launches went non-finite")
         ms = {k: min(v) for k, v in times.items()}
         print(f"timing (1,1) re200 N={depth} on {card}: today's build "
               f"{ms['today']:.5f} ms/step, the ring build {ms['rings']:.5f} "
@@ -3143,17 +3174,9 @@ def mesh_phases(dev, card: str) -> list[dict]:
             return case.launch(g, o, r, (0, 0))
 
         plain = case.plains[0, 0]
-        runs_ = {"plain": lambda g, m, plain=plain, r=r: [
-                     plain(g, *r) for _ in range(m // depth)][-1],
-                 "kernel": lambda g, m, depth=depth, fn=launch_one:
-                     kernel_chunk(fn, g, m // depth)}
-        times = {"plain": [], "kernel": []}
-        for which in ("plain", "kernel", "kernel", "plain"):
-            m = 4 * depth if which == "plain" else 1200
-            times[which].append(ms_per_step(runs_[which], b, m,
-                                            warm=depth if which == "plain"
-                                            else 20))
-        ms = {k: min(v) for k, v in times.items()}
+        out = torch.empty_like(b)
+        ms = ring_times(lambda fn=launch_one, out=out: fn(b, out), out, depth,
+                        lambda plain=plain, r=r: plain(b, *r))
         cells = nyl * nxl
         hx = depth if kind == "tiled" else 0
         ring_bytes = RING_BYTES * 2 * depth * (nxl + 2 * hx) + \
@@ -3164,10 +3187,11 @@ def mesh_phases(dev, card: str) -> list[dict]:
               f"{err:.3e} of its plain ring step from the perturbed state "
               f"(rtol {tol['rtol']:.0e}, atol {tol['atol']:.0e})")
         print(f"timing scale-8m shard {nyl}x{nxl} ({kind}, mesh {shape}) "
-              f"N={depth} on {card}: kernel {ms['kernel']:.5f} ms/step "
-              f"({cells / ms['kernel'] / 1e3:.1f} MLUPS, "
+              f"N={depth} on {card}: kernel {ms['kernel']:.5f} ms/step on "
+              f"the card's clock ({cells / ms['kernel'] / 1e3:.1f} MLUPS, "
               f"{100 * bnd['bound_ms'] / ms['kernel']:.1f}% of its "
-              f"{bnd['bound_ms']:.5f} ms bound), plain ring step "
+              f"{bnd['bound_ms']:.5f} ms bound), {ms['issued']:.5f} as the "
+              f"host issues its launches, plain ring step "
               f"{ms['plain']:.5f} ms/step")
         n_launch = launches.get((kind, depth))
         if kind == "tiled" and depth in main_launches:
@@ -3182,8 +3206,9 @@ def mesh_phases(dev, card: str) -> list[dict]:
                 "replaces": step_cuda.rings_replaces(kind, depth),
                 "launches": n_launch, "max_abs_err": err,
                 "ms": ms["kernel"], "plain_ms": ms["plain"], **bnd})
-        del case, blocks, rings, b, r
+        del case, blocks, rings, b, r, out
         torch.cuda.empty_cache()
+    del spare
     print(f"mesh timing: {time.perf_counter() - t0:.2f} s; mesh phases "
           f"{time.perf_counter() - t_all:.2f} s")
     return entries
@@ -3377,17 +3402,9 @@ def box_ring_timing(problem, dev, card: str, depth: int, fp):
         err = max(err, float((got[iy][ix] - want).abs().max()))
     b, r = blocks[0][0], rings[0][0]
     plain = case.plains[0, 0]
-    runs_ = {"plain": lambda g, m: [plain(g, *r) for _ in range(m // depth)
-                                    ][-1],
-             "kernel": lambda g, m: kernel_chunk(
-                 lambda x, o: case.launch(x, o, r, (0, 0)), g, m // depth)}
-    times = {"plain": [], "kernel": []}
-    for which in ("plain", "kernel", "kernel", "plain"):
-        m = 4 * depth if which == "plain" else 1200
-        times[which].append(ms_per_step(runs_[which], b, m,
-                                        warm=depth if which == "plain"
-                                        else 20))
-    ms = {k: min(v) for k, v in times.items()}
+    out = torch.empty_like(b)
+    ms = ring_times(lambda: case.launch(b, out, r, (0, 0)), out, depth,
+                    lambda: plain(b, *r))
     nyl, nxl = case.local
     ring_bytes = RING_BYTES * 2 * depth * (nxl + 2 * depth) + \
         RING_BYTES * 2 * nyl * depth
@@ -3396,9 +3413,10 @@ def box_ring_timing(problem, dev, card: str, depth: int, fp):
     bnd["bound_ms"] += 1e3 * ring_bytes / depth / HBM_BYTES_PER_S
     print(f"timing box shard {nyl}x{nxl} ({problem.params.problem}, 2x2, "
           f"x rings) N={depth} on {card}: kernel {ms['kernel']:.5f} ms/step "
-          f"({nyl * nxl / ms['kernel'] / 1e3:.1f} MLUPS, "
-          f"{100 * bnd['bound_ms'] / ms['kernel']:.1f}% of its "
-          f"{bnd['bound_ms']:.5f} ms bound), plain ring step "
+          f"on the card's clock ({nyl * nxl / ms['kernel'] / 1e3:.1f} "
+          f"MLUPS, {100 * bnd['bound_ms'] / ms['kernel']:.1f}% of its "
+          f"{bnd['bound_ms']:.5f} ms bound), {ms['issued']:.5f} as the host "
+          f"issues its launches, plain ring step "
           f"{ms['plain']:.5f} ms/step; every shard within {err:.3e} of its "
           "plain ring step from the perturbed state")
     return err, ms, bnd
@@ -3968,31 +3986,23 @@ def bz_ring_timing(problem, dev, card: str, f0) -> list[dict]:
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
 
-        def kern(f, m, case=case, rings=rings):
-            return kernel_chunk(lambda g, o: case.launch(
-                g, o, rings[0][0], (0, 0)), f, m // depth)
-
-        def pl(f, m, plain=plain, rings=rings):
-            for _ in range(m // depth):
-                f = plain(f, *rings[0][0])
-            return f
-
-        times = {"k": [], "p": []}
-        for which in ("k", "p", "p", "k"):
-            run, m = ((kern, KERNEL_2D_STEPS) if which == "k"
-                      else (pl, 20 * depth))
-            times[which].append(ms_per_step(run, b0, m, 8))
-        ms, pms = min(times["k"]), min(times["p"])
+        out0 = torch.empty_like(b0)
+        t = ring_times(lambda case=case, rings=rings, out0=out0: case.launch(
+            b0, out0, rings[0][0], (0, 0)), out0, depth,
+            lambda plain=plain, rings=rings: plain(b0, *rings[0][0]))
+        ms, pms = t["kernel"], t["plain"]
         cells = int(np.prod(case.local))
         b = bound_of(9 * 4 * 2 + 1 + bz_link_bytes(problem), 115, cells,
                      depth)
         mode = "rows" if not x_rings else "tiled"
         print(f"bouzidi ring timing {shape} N={depth} ({mode}) shard (0,0) "
-              f"on {card}: {ms:.5f} ms/step (plain {pms:.5f}), "
-              f"{100 * b['bound_ms'] / ms:.1f}% of {b['bound_ms']:.5f}")
+              f"on {card}: {ms:.5f} ms/step on the card's clock, "
+              f"{t['issued']:.5f} as the host issues its launches (plain "
+              f"{pms:.5f}), {100 * b['bound_ms'] / ms:.1f}% of "
+              f"{b['bound_ms']:.5f}")
         out.append({"mode": mode, "depth": depth, "ms": ms, "plain_ms": pms,
                     "err": err, **b})
-        del case, blocks, rings
+        del case, blocks, rings, out0
     return out
 
 
@@ -5022,6 +5032,11 @@ COUPLED_STEPS = 280
 COUPLED_REPS = {"one": 200, "rings": 200, "shard": 400, "issued": 200,
                 "plain": 20}
 COUPLED_SLEEP_CYCLES = 200_000_000
+# the ring launches a turn of ring_times enqueues behind that sleep
+RING_REPS = 200
+# the card's sleep before a timed run of ms_per_step (about 50 ms): the
+# host's lead over 1,200 launches of a 2-D kernel
+TIMING_SLEEP_CYCLES = 100_000_000
 
 
 def coupled_builds():
@@ -6755,14 +6770,37 @@ class Builds:
               "nvcc in all")
         for (src, defines), lib in libs.items():
             print(f"build: {src} {defines} in {lib.build_seconds:.2f} s "
-                  f"({ptxas_summary(lib.log)}){zmarch_shape(src, lib.lib)}")
+                  f"({ptxas_summary(lib.log)}){march_shape(src, lib.lib)}")
 
 
-def zmarch_shape(src: str, lib) -> str:
-    """The launch shape of a 1-step D3Q19 library (step_d3q19.cu's
-    z-march): its tile, threads, the planes its pull trails the
-    collisions, its shared memory, the blocks the card keeps resident and
-    its march at 256^3; nothing for another source."""
+def march_shape(src: str, lib) -> str:
+    """The launch shape of a 1-step library: the D2Q9 and Shan-Chen row
+    marches' widened row, batch rows, threads, shared memory and (strips,
+    segments) at 2048x512 and on a 2048x128 shard (4x1); step_d3q19.cu's
+    z-march tile, threads, the planes its pull trails the collisions, its
+    shared memory, the blocks the card keeps resident and its march at
+    256^3; nothing for another source."""
+    if src == "step_d2q9.cu":
+        return (f"; row march {lib.tpulbm_d2q9_width()}-column widened "
+                f"rows, batches of {lib.tpulbm_d2q9_rows()}, "
+                f"{lib.tpulbm_d2q9_threads()} threads, "
+                f"{lib.tpulbm_d2q9_smem_bytes(0)} B "
+                f"({lib.tpulbm_d2q9_smem_bytes(1)} with the clean corners),"
+                f" (strips, segments) "
+                f"{divmod(lib.tpulbm_d2q9_grid(2048, 512, 0, 0), 65536)} at "
+                f"2048x512, "
+                f"{divmod(lib.tpulbm_d2q9_grid(2048, 128, 0, 0), 65536)} at "
+                "2048x128")
+    if src == "step_multiphase.cu":
+        return (f"; row march {lib.tpulbm_multiphase_width()}-column "
+                f"widened rows, batches of {lib.tpulbm_multiphase_rows()}, "
+                f"{lib.tpulbm_multiphase_threads()} threads, "
+                f"{lib.tpulbm_multiphase_smem_bytes()} B, (strips, "
+                f"segments) "
+                f"{divmod(lib.tpulbm_multiphase_grid(2048, 512, 0), 65536)}"
+                f" at 2048x512, "
+                f"{divmod(lib.tpulbm_multiphase_grid(2048, 128, 0), 65536)}"
+                " at 2048x128")
     if src != "step_d3q19.cu":
         return ""
     tx, ty = divmod(lib.tpulbm_d3q19_tile(), 256)

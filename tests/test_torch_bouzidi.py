@@ -434,7 +434,8 @@ def test_link_table_is_checked_before_a_launch():
 
 def test_the_kernels_read_the_table_where_the_mask_says():
     # the sources: each kernel tests the link bit before it reads the table
-    for name in ("step_d2q9.cu", "step_d2q9_blocked.cu", "step_d3q19.cu",
+    # (both D2Q9 sources run the march of d2q9_march.cuh)
+    for name in ("d2q9_march.cuh", "step_d3q19.cu",
                  "step_d3q19_blocked.cu"):
         text = (cuda_build.SOURCE_DIR / name).read_text()
         assert "kLinkBit" in text and "links.q" in text, name

@@ -529,7 +529,10 @@ def test_profile_counts_the_host_runtime_calls(tmp_path):
     runtime call's host time and count, beside the device groups."""
     import json
     from tpulbm_torch.utils.profile_run import device_breakdown
-    events = [("kernel", "d2q9_blocked_kernel", 0, 50),
+    events = [("kernel", "void (anonymous namespace)::d2q9_march_kernel<4, "
+               "false>(float const*)", 0, 50),
+              ("kernel", "_ZN12_GLOBAL__N_117d2q9_march_kernelILi1ELb0EEEvPKf",
+               50, 20),
               ("cuda_runtime", "cudaMemcpyAsync", 10, 30),
               ("cuda_runtime", "cudaMemcpyAsync", 60, 10),
               ("cuda_runtime", "cudaLaunchKernel", 0, 5),
@@ -544,4 +547,5 @@ def test_profile_counts_the_host_runtime_calls(tmp_path):
         "cudaMemcpyAsync": {"ms": 0.04, "count": 2},
         "cudaLaunchKernel": {"ms": 0.005, "count": 1},
         "cuLaunchKernel": {"ms": 0.004, "count": 1}}
-    assert out["groups"] == {"d2q9 N-step": {"ms": 0.05, "count": 1}}
+    assert out["groups"] == {"d2q9 N-step": {"ms": 0.05, "count": 1},
+                             "d2q9 1-step": {"ms": 0.02, "count": 1}}

@@ -270,15 +270,28 @@ def host_multiphase_step(build, problem, f):
     return out
 
 
+# the row march's knobs (tests/test_torch_mp_march_host.py): the default
+# build, and a widened row of 9 columns (strips of 5) with 1-row batches,
+# segments of 4 rows and the copies 3 batches ahead
+MARCH_KNOBS = {"default": (),
+               "narrow": ("-DTPULBM_WIDTH=9", "-DTPULBM_ROWS=1",
+                          "-DTPULBM_SEGMENT=4", "-DTPULBM_AHEAD=3")}
+
+
+@pytest.mark.parametrize("knobs", sorted(MARCH_KNOBS))
 @pytest.mark.parametrize("case", sorted(CASES))
 @pytest.mark.parametrize("mesh_shape,x_rings", [
     ((1, 1), True), ((5, 1), False), ((2, 2), True), ((1, 4), True)])
 def test_host_ring_build_equals_the_one_device_build(host_cuda, case,
-                                                     mesh_shape, x_rings):
+                                                     mesh_shape, x_rings,
+                                                     knobs):
+    def build(source, defines=()):
+        return host_cuda(source, (*defines, *MARCH_KNOBS[knobs]))
+
     problem = port_problem(params(case, precision="f32", nx=100, ny=70))
     f = torch.from_numpy(perturbed(problem))
-    want = host_multiphase_step(host_cuda, problem, f)
-    got, plain_err, eq_off = host_ring_steps(host_cuda, problem, f,
+    want = host_multiphase_step(build, problem, f)
+    got, plain_err, eq_off = host_ring_steps(build, problem, f,
                                              mesh_shape, x_rings)
     assert torch.equal(got, want), float((got - want).abs().max())
     assert plain_err <= 1e-7

@@ -618,11 +618,26 @@ _DYNAMIC = re.compile(r"extern __shared__ float (\w+)\[\];")
 GXX_FLAGS = ("-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC")
 
 
+_HEADER = re.compile(r'^#include "(\w+\.cuh)"\n', re.M)
+
+
+def _inline_kernel_headers(src: str) -> str:
+    """`src` with each csrc/ header that launches a kernel or declares
+    dynamic shared memory (the D2Q9 march, d2q9_march.cuh) pasted in place
+    of its #include, so that host_source rewrites it too."""
+    def paste(m):
+        text = (cuda_build.SOURCE_DIR / m.group(1)).read_text()
+        if "<<<" not in text and "extern __shared__" not in text:
+            return m.group(0)
+        return text.replace("#pragma once\n", "")
+    return _HEADER.sub(paste, src)
+
+
 def host_source(src: str) -> str:
-    """A .cu source with its launches and its dynamic shared memory
-    rewritten for FAKE_RUNTIME."""
+    """A .cu source (with the kernel headers it includes) with its
+    launches and its dynamic shared memory rewritten for FAKE_RUNTIME."""
     src = _DYNAMIC.sub(r"float* \1 = reinterpret_cast<float*>(fake_dyn_smem);",
-                       src)
+                       _inline_kernel_headers(src))
     return _LAUNCH.sub(lambda m: f"fake_launch({m.group(2)}, [&] {{ "
                        f"{m.group(1)}({m.group(3)}); }});", src)
 

@@ -2,10 +2,11 @@
 // shares, float32: moments and the collisions with the body force's
 // source and the force profile's, the pull with the reference's ghost rule
 // (or a periodic x, or periodic x and y), and the boundary sequence of
-// each domain. step_d2q9.cu (one step per launch)
-// and step_d2q9_blocked.cu (N steps per launch) both build on these
-// functions, so that N launches of the first and one launch of the second
-// run the same operations in the same order and give the same bits; the
+// each domain. The D2Q9 row march (d2q9_march.cuh), which step_d2q9.cu
+// runs at one step per launch and step_d2q9_blocked.cu at N, builds on
+// these functions, so that N launches of the first and one launch of the
+// second run the same operations in the same order and give the same bits;
+// the
 // thermal and multiphase kernels (step_thermal.cu, step_multiphase.cu)
 // reuse the moments and the BGK and Smagorinsky relaxations.
 //
@@ -547,32 +548,41 @@ __device__ __forceinline__ void cavity_corner(float* g, int x, int y, int nx,
 //   q_j >= 1/2: g_j = inv2q f̂_i + (1 - inv2q) f̂_j  (+ (6 inv2q) tw_j),
 // inv2q = 1 / (2 max(q_j, 1/2)), i = opp(j), g_i as it stood on entry (a
 // copy, so a cell cut along both j and opp(j) reads the values of before
-// the rewrite).
-template <class Post>
-__device__ __forceinline__ void apply_bouzidi(float* g, const float* q,
-                                              size_t plane, bool moving,
-                                              const Post& post) {
+// the rewrite). apply_bouzidi_at takes the entries from q_at(j) (q_j, and
+// the wall's scalar at kQ + j), so that a kernel may hold them in
+// registers.
+template <class QAt, class Post>
+__device__ __forceinline__ void apply_bouzidi_at(float* g, const QAt& q_at,
+                                                 bool moving,
+                                                 const Post& post) {
   constexpr int opp[kQ] = {0, 3, 4, 1, 2, 7, 8, 5, 6};
   float snap[kQ];
 #pragma unroll
   for (int i = 0; i < kQ; ++i) snap[i] = g[i];
 #pragma unroll
   for (int j = 1; j < kQ; ++j) {
-    const float qj = q[j * plane];
+    const float qj = q_at(j);
     if (!(qj >= 0.0f)) continue;
     const int i = opp[j];
     const float fi = post(i, 0, 0);
     float v;
     if (qj < 0.5f) {
       v = 2.0f * qj * fi + (1.0f - 2.0f * qj) * snap[i];
-      if (moving) v = v + 6.0f * q[(kQ + j) * plane];
+      if (moving) v = v + 6.0f * q_at(kQ + j);
     } else {
       const float inv2q = 1.0f / (2.0f * fmaxf(qj, 0.5f));
       v = inv2q * fi + (1.0f - inv2q) * post(j, 0, 0);
-      if (moving) v = v + (6.0f * inv2q) * q[(kQ + j) * plane];
+      if (moving) v = v + (6.0f * inv2q) * q_at(kQ + j);
     }
     g[j] = v;
   }
+}
+template <class Post>
+__device__ __forceinline__ void apply_bouzidi(float* g, const float* q,
+                                              size_t plane, bool moving,
+                                              const Post& post) {
+  apply_bouzidi_at(
+      g, [&](int j) { return q[j * plane]; }, moving, post);
 }
 
 // The boundary sequence of the library's domain on one cell's post-stream
@@ -650,9 +660,10 @@ __device__ __forceinline__ void apply_boundaries(
 // The kernels keep working in global coordinates: a window cell at global
 // (gx, gy) is stepped where it is a cell of the domain, exactly as on one
 // device, so the ghost rule, the walls, the inlet, the outlet and the
-// corners act only at the domain's own edges; find() says where the
-// window cell's populations live, in the block or in a ring, and locate()
-// points at them there. A cell more than depth + 1 rows from the rows the
+// corners act only at the domain's own edges; row() and column() say
+// whether the launch reads a cell and where it lies in the block, and
+// row_source() (locate() for one cell) points at its populations, in the
+// block or in a ring. A cell more than depth + 1 rows from the rows the
 // launch writes (a corner rule reads one row further than a pull), or
 // beyond the rings, is never loaded: no cell that the launch writes depends
 // on it, and a ranged launch whose rows keep depth + 1 rows clear of an
@@ -693,37 +704,8 @@ struct Shard {
   const uint8_t* mask;
   int nxl, nyl, x0, y0, hx, depth, r0, r1;
 
-  // Whether the window cell at global (gx, gy) is a cell of the domain
-  // that this launch reads (in the box every row is); if so (lx, ly) are
-  // its coordinates in the block (negative or past nxl, nyl in a ring)
-  // and gx is taken mod nx in the channel and the box.
-  __device__ __forceinline__ bool find(int& gx, int gy, int nx, int ny,
-                                       int& lx, int& ly) const {
-    if (!kPeriodicY && (gy < 0 || gy >= ny)) return false;
-    ly = gy - y0;
-    if (ly < r0 - depth - 1 || ly < -depth || ly >= r1 + depth + 1 ||
-        ly >= nyl + depth)
-      return false;
-    if (!kPeriodicX && (gx < 0 || gx >= nx)) return false;
-    if (hx == 0) {
-      if constexpr (kPeriodicX) {
-        gx %= nx;
-        if (gx < 0) gx += nx;
-      }
-      lx = gx - x0;
-      return true;
-    }
-    lx = gx - x0;
-    if (lx < -hx || lx >= nxl + hx) return false;
-    if constexpr (kPeriodicX) {
-      gx %= nx;
-      if (gx < 0) gx += nx;
-    }
-    return true;
-  }
-
-  // Population 0 of the cell at block coordinates (lx, ly) that find()
-  // returned, in the block or the ring that holds it; population i lies
+  // Population 0 of the cell at block coordinates (lx, ly) that the launch
+  // reads, in the block or the ring that holds it; population i lies
   // i * stride floats further.
   __device__ __forceinline__ const float* locate(int lx, int ly,
                                                  size_t& stride) const {
@@ -754,25 +736,15 @@ struct Shard {
     return static_cast<size_t>(ly + depth) * (nxl + 2 * depth) + lx + depth;
   }
 
-  // The mask byte and the solid flag of the cell at block coordinates
-  // (lx, ly).
+  // The mask byte of the cell at block coordinates (lx, ly).
   __device__ __forceinline__ uint8_t mask_byte(int lx, int ly) const {
     return mask[padded(lx, ly)];
   }
-  __device__ __forceinline__ bool solid(int lx, int ly) const {
-    return is_solid(mask_byte(lx, ly));
-  }
 
-  // Whether the launch writes the cell at block coordinates (lx, ly).
-  __device__ __forceinline__ bool writes(int lx, int ly) const {
-    return lx >= 0 && lx < nxl && ly >= r0 && ly < r1;
-  }
-
-  // find() split in two for a kernel that walks rows (the N-step march):
-  // whether the launch reads row gy (global), and if so its block row ly;
+  // Whether the launch reads row gy (global), and if so its block row ly;
   // then whether it reads column gx of such a row, and if so its block
   // column lx (gx taken mod nx first where the block spans every column of
-  // the channel or the box). row() && column() is find().
+  // the channel or the box; in the box y never wraps inside the block).
   __device__ __forceinline__ bool row(int gy, int ny, int& ly) const {
     if (!kPeriodicY && (gy < 0 || gy >= ny)) return false;
     ly = gy - y0;
@@ -817,22 +789,11 @@ struct Shard {
 // clean_corners says (the same bits, half the build).
 constexpr bool kCornerRule = kDomain == kObstacle && !kSlab;
 
-// Rows the tiling of a kernel with kBY-row tiles starts below y = 0: one
-// when a corner rule reads two rows inward (the clean corners at the inlet,
-// the cavity's corners) and the top corner would sit on a tile's first row,
-// where that read would reach past the rows the tile holds; else zero.
-// Any offset gives the same bits. Only step_d2q9.cu's tiles use it: the
-// N-step march (step_d2q9_blocked.cu) keeps 2 rows in each segment
-// instead.
-inline int tile_row_shift(int ny, int kBY, bool corners) {
-  return corners && ny > 1 && (ny - 1) % kBY == 0 ? 1 : 0;
-}
-
-// Columns the tiling starts left of x = 0, for the same reason: one in the
-// cavity when its right corners would sit on a tile's first column (of
-// step_d2q9.cu's tiles, or of the N-step march's strips). Other
-// domains' tiles start at x = 0 (kColShift false), so their kernels carry
-// neither the shift nor the test for x < 0 it brings.
+// Columns the D2Q9 march's strips start left of x = 0: one in the cavity
+// when its right corners would sit on a strip's first column, where the
+// corner rule's read two columns inward would reach past the columns the
+// strip holds (its segments keep two rows for the same reason). Other
+// domains' strips start at x = 0 (kColShift false).
 constexpr bool kColShift = kDomain == kCavity;
 inline int tile_col_shift(int nx, int kBX) {
   return kColShift && nx > 1 && (nx - 1) % kBX == 0 ? 1 : 0;

@@ -17,208 +17,91 @@
 // profile and obstacle rule (collision_modes.cuh, d2q9_common.cuh). Its
 // plain version is tpulbm_torch/ops/step_torch.py.
 //
-// Layout: f is SoA (9, ny, nx) float32 with x fastest, one plane per
-// population. One thread owns one cell, x fastest, so each plane is read
-// and written with coalesced accesses. Any nx and ny run: the ragged
-// blocks at the right and top edges are masked, no padding is needed.
-//
 // What bounds it: device-memory traffic for BGK. A step has to read and
 // write the 9 populations of every cell once, 72 B per cell (plus 1 B of
-// solid mask), against about 115 floating-point operations per cell under
-// BGK and up to a few hundred under KBC or the power law's Newton solve.
-// The kernel is written to touch each population once in device memory: a
-// block loads its tile and a one-cell halo, collides every loaded cell once
-// in registers, keeps the post-collision values in shared memory for the
-// pull, and applies every boundary condition in registers before the single
-// store. The halo cells are re-read by the neighbouring blocks (mostly from
-// L2) and collided there again.
+// solid mask): 0.0228 ms at 2048x512 over 3.35 TB/s, against about 115
+// floating-point operations per cell under BGK and up to a few hundred
+// under KBC or the power law's Newton solve.
 //
-// Every boundary condition but two reads only the post-stream values of
-// its own cell, so the TPU kernel's slab ring, lane padding and VMEM sizing
-// have no counterpart here. The exceptions are the clean corners' inlet
-// rule, which needs the density of the node one row inward after its own
-// pull and inlet, and the cavity's corners, which need that of the
-// diagonally inward node after its pull: the corner thread recomputes that
-// pull from the shared tile, which holds the two rows (and columns) it
-// reaches when the tiling starts one row lower (one column further left)
-// wherever a top (right) corner would sit on a tile's first row (column)
-// (tpulbm::tile_row_shift, tile_col_shift). In the channel the tile's halo
-// columns at x = -1 and x = nx are loaded from x = nx-1 and x = 0, so the
-// pull wraps with no test of its own; in the box the halo rows at y = -1
-// and y = ny too, from y = ny-1 and y = 0.
+// Design: the D2Q9 row march of d2q9_march.cuh at depth 1, the design the
+// N-step kernel (step_d2q9_blocked.cu) runs at N = 2-8. A block owns a
+// strip of kW0 - 2 output columns and marches up a segment of rows: stage
+// 0's threads collide a widened row (the strip and a column a side) in
+// place in a ring of rows in shared memory while stage 1's threads pull
+// the row two batches behind it, apply the boundary sequence and store it,
+// and feed stage 0 by asynchronous copies kAhead batches ahead; one
+// barrier a march step. Against the 32x8 tiles this replaced (34x10 cells
+// loaded and collided for 32x8 outputs: 1.33 a cell), a segment of S rows
+// loads and collides (kW0 / (kW0 - 2)) (S + 2) / S cells a cell, and the
+// launcher sizes the segments to fill the card once: 16.5 rows at
+// 2048x512, but 3-4 on a shard of 128-256 rows, where the march is slower
+// than the tiles were (PERF.md §6). A row's source is found once
+// (tpulbm::RowSource), in the rings build too. The clean corners' inlet
+// rule and the cavity's corners read two rows inward: their segments keep
+// two rows, and the cavity's strips shift a column where the last would
+// hold one (tpulbm::tile_col_shift).
 //
 // The Bouzidi obstacle (-DTPULBM_BOUZIDI=1, tpulbm's `bz` mode: its
 // _bz_rewrite, step_pallas.py:769-792): every term of the cut-link rewrite
-// sits at the boundary cell (its own post-collision values, in the shared
-// tile, and its pulled values), so after the edge rules a cell whose mask
+// sits at the boundary cell (its own post-collision values, in stage 0's
+// ring, and its pulled values), so after the edge rules a cell whose mask
 // byte carries kLinkBit reads its entries of the link table from device
-// memory at its own index and rewrites its cut links (apply_bouzidi in
-// d2q9_common.cuh); the TPU kernel's q-table slab DMA has no counterpart.
+// memory at its own index, a march step ahead into registers, and rewrites
+// its cut links (apply_bouzidi in d2q9_common.cuh); the TPU kernel's
+// q-table slab DMA has no counterpart.
 // A step reads the table only at those cells: 32 B each (64 B spinning),
 // a few hundred cells around a cylinder.
 //
 // The force profile (-DTPULBM_FORCE=1, Kolmogorov's cos(ky) along y or a
-// force along x): a block stages its tile's and halo's entries of the
-// (9, n) table once in shared memory (tpulbm::ForceTable), at the
-// coordinate of the cell that owns each, and every collision adds them.
-// The table is n x 36 B, read from L2 by every block: no force field
-// travels through device memory.
+// force along x): a block stages its widened columns' entries of the
+// (9, n) table once in shared memory, or each row's with its populations
+// (tpulbm::ForceTable), and every collision adds them.
 //
-// The collision, the pull's ghost rule and the boundary sequence live in
-// d2q9_common.cuh, shared with the N-step kernel (step_d2q9_blocked.cu).
+// Bits: the collision, the pull's ghost rule and the boundary sequence
+// live in d2q9_common.cuh, shared with the N-step kernel, and both
+// libraries are built with -fmad=false, so one N-step launch gives the
+// bits of N launches of this kernel.
 //
 // Built with -DTPULBM_RINGS=1 the kernel steps one shard of a mesh
 // (tpulbm_d2q9_step_rings): the block and the one-cell rings its
 // neighbours sent (tpulbm::Shard), into a range of the block's rows. That
 // build replaces make_local_step_pallas with its ring inputs (rb, rt, the
 // mask rings, the physical-edge flags), make_local_step_pallas_ranged (the
-// row range) and make_local_step_tiled at depth 1 (the x rings). The tile
-// keeps global coordinates, so every rule acts only at the domain's own
-// edges, and a tile cell outside the block is loaded from its ring; the
-// bits are those of the one-device build. The rings add 2 (nxl + 2 hx +
-// hx nyl) x 36 B a launch to the 73 B a cell.
+// row range) and make_local_step_tiled at depth 1 (the x rings). Cells keep
+// global coordinates, so every rule acts only at the domain's own edges;
+// the bits are those of the one-device build. The rings add 2 (nxl + 2 hx
+// + hx nyl) x 36 B a launch to the 73 B a cell.
+//
+// Knobs (utils/tile_sweep.py --lattice d2q9 --one-step builds the source
+// with other values): -DTPULBM_WIDTH (kW0), -DTPULBM_ROWS (rows a batch),
+// -DTPULBM_SEGMENT (rows a segment, 0: the launcher's choice),
+// -DTPULBM_MIN_BLOCKS (blocks an SM asked of ptxas, 0: none),
+// -DTPULBM_AHEAD (batches the copies run ahead: a march step at N = 1 is
+// short, and one batch's copies in flight bound it) and
+// -DTPULBM_LINK_AHEAD (1: a Bouzidi cell's link entries loaded into
+// registers a march step before it is stepped); the libraries the port
+// loads use the defaults below.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#ifndef TPULBM_WIDTH
+#define TPULBM_WIDTH 128
+#endif
+#ifndef TPULBM_ROWS
+#define TPULBM_ROWS 1
+#endif
+#ifndef TPULBM_SEGMENT
+#define TPULBM_SEGMENT 0
+#endif
+#ifndef TPULBM_MIN_BLOCKS
+#define TPULBM_MIN_BLOCKS 0
+#endif
+#ifndef TPULBM_AHEAD
+#define TPULBM_AHEAD 2
+#endif
+#ifndef TPULBM_LINK_AHEAD
+#define TPULBM_LINK_AHEAD 1
+#endif
 
-#include "d2q9_common.cuh"
-
-namespace {
-
-using tpulbm::kQ;
-using tpulbm::StepConsts;
-
-constexpr int kBX = 32;  // block width (cells along x): one warp per row
-constexpr int kBY = 8;   // block height (rows)
-constexpr int kTX = kBX + 2;
-constexpr int kTY = kBY + 2;
-
-template <bool kCorners>
-__global__ void __launch_bounds__(kBX * kBY)
-    d2q9_step_kernel(const float* __restrict__ f, float* __restrict__ out,
-                     const uint8_t* __restrict__ solid, int nx, int ny,
-                     int x_shift, int y_shift, StepConsts k,
-                     tpulbm::Shard sh, tpulbm::ForceTable force,
-                     tpulbm::Links links) {
-  __shared__ float post[kQ][kTY][kTX];  // post-collision tile + halo
-  // the force profile's entries of the tile's columns or rows (kForce)
-  __shared__ float prof[tpulbm::kForce ? kQ * kTX : 1];
-
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  int x0, y0;  // global coordinates of the tile's first cell
-  if constexpr (tpulbm::kRings) {
-    x0 = sh.x0 + blockIdx.x * kBX - (tpulbm::kColShift ? x_shift : 0);
-    y0 = sh.y0 + sh.r0 + blockIdx.y * kBY - y_shift;
-  } else {
-    x0 = blockIdx.x * kBX - (tpulbm::kColShift ? x_shift : 0);
-    y0 = blockIdx.y * kBY - y_shift;
-  }
-  const size_t plane = static_cast<size_t>(nx) * ny;
-  const int flen = force.axis == 0 ? kTX : kTY;
-  if constexpr (tpulbm::kForce) {
-    force.stage(prof, flen, (force.axis == 0 ? x0 : y0) - 1,
-                force.axis == 0 ? nx : ny, ty * kBX + tx, kBX * kBY);
-    __syncthreads();
-  }
-
-  // Load and collide the tile and its in-domain halo (in the channel the
-  // halo columns x = -1 and x = nx wrap, in the box the rows y = -1 and
-  // y = ny too). Halo cells outside the domain are never read below: the
-  // ghost rules replace them.
-  for (int t = ty * kBX + tx; t < kTX * kTY; t += kBX * kBY) {
-    const int ly = t / kTX;
-    const int lx = t - ly * kTX;
-    int gx = x0 + lx - 1;
-    int gy = y0 + ly - 1;
-    float v[kQ];
-    bool skip;  // solid under the bounce-back obstacle: no collision
-    if constexpr (tpulbm::kRings) {
-      int bx, by;
-      if (!sh.find(gx, gy, nx, ny, bx, by)) continue;
-      size_t stride;
-      const float* src = sh.locate(bx, by, stride);
-#pragma unroll
-      for (int i = 0; i < kQ; ++i) v[i] = src[i * stride];
-      skip = tpulbm::kBounceBack && sh.solid(bx, by);
-    } else {
-      if constexpr (tpulbm::kPeriodicY) {
-        if (gx < -1 || gx > nx || gy < -1 || gy > ny) continue;
-        gx = gx < 0 ? nx - 1 : gx >= nx ? 0 : gx;
-        gy = gy < 0 ? ny - 1 : gy >= ny ? 0 : gy;
-      } else if constexpr (tpulbm::kPeriodicX) {
-        if (gx < -1 || gx > nx || gy < 0 || gy >= ny) continue;
-        gx = gx < 0 ? nx - 1 : gx >= nx ? 0 : gx;
-      } else {
-        if (gx < 0 || gx >= nx || gy < 0 || gy >= ny) continue;
-      }
-      const size_t cell = static_cast<size_t>(gy) * nx + gx;
-#pragma unroll
-      for (int i = 0; i < kQ; ++i) v[i] = f[i * plane + cell];
-      skip = tpulbm::kBounceBack && tpulbm::is_solid(solid[cell]);
-    }
-    tpulbm::collide_cell(v, k, skip, prof + (force.axis == 0 ? lx : ly),
-                         flen);
-#pragma unroll
-    for (int i = 0; i < kQ; ++i) post[i][ly][lx] = v[i];
-  }
-  __syncthreads();
-
-  const int x = x0 + tx;
-  const int y = y0 + ty;
-  // post-collision value of population i at (x+dx, y+dy)
-  auto post_at = [&](int i, int dx, int dy) {
-    return post[i][ty + 1 + dy][tx + 1 + dx];
-  };
-  float g[kQ];
-  if constexpr (tpulbm::kRings) {
-    const int bx = x - sh.x0;
-    const int by = y - sh.y0;
-    if (!sh.writes(bx, by)) return;
-    auto solid_at = [&](int dx, int dy) { return sh.solid(bx + dx, by + dy); };
-    tpulbm::pull_d2q9(g, x, y, nx, ny, k, post_at);
-    const uint8_t m = tpulbm::kHasObstacle ? sh.mask_byte(bx, by) : 0;
-    const float* link = tpulbm::kBouzidi && (m & tpulbm::kLinkBit)
-                            ? links.q + sh.padded(bx, by)
-                            : nullptr;
-    tpulbm::apply_boundaries<kCorners>(g, tpulbm::is_solid(m), x, y, nx, ny,
-                                       k, post_at, solid_at, link, links);
-    const size_t cell = static_cast<size_t>(by) * sh.nxl + bx;
-    const size_t block = static_cast<size_t>(sh.nxl) * sh.nyl;
-#pragma unroll
-    for (int i = 0; i < kQ; ++i) out[i * block + cell] = g[i];
-  } else {
-    if ((tpulbm::kColShift && x < 0) || x >= nx || y < 0 || y >= ny) return;
-    auto solid_at = [&](int dx, int dy) {
-      return tpulbm::is_solid(solid[static_cast<size_t>(y + dy) * nx + x + dx]);
-    };
-    tpulbm::pull_d2q9(g, x, y, nx, ny, k, post_at);
-    const size_t cell = static_cast<size_t>(y) * nx + x;
-    const uint8_t m = tpulbm::kHasObstacle ? solid[cell] : 0;
-    const float* link =
-        tpulbm::kBouzidi && (m & tpulbm::kLinkBit) ? links.q + cell : nullptr;
-    tpulbm::apply_boundaries<kCorners>(g, tpulbm::is_solid(m), x, y, nx, ny,
-                                       k, post_at, solid_at, link, links);
-#pragma unroll
-    for (int i = 0; i < kQ; ++i) out[i * plane + cell] = g[i];
-  }
-}
-
-template <bool kCorners>
-cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
-                   int ny, int tiles_x, int tiles_y, int x_shift, int y_shift,
-                   const StepConsts& k, const tpulbm::Shard& sh,
-                   const tpulbm::ForceTable& force,
-                   const tpulbm::Links& links, cudaStream_t stream) {
-  const dim3 block(kBX, kBY);
-  const dim3 grid((tiles_x + x_shift + kBX - 1) / kBX,
-                  (tiles_y + y_shift + kBY - 1) / kBY);
-  d2q9_step_kernel<kCorners><<<grid, block, 0, stream>>>(
-      f, out, solid, nx, ny, x_shift, y_shift, k, sh, force, links);
-  return cudaGetLastError();
-}
-
-}  // namespace
+#include "d2q9_march.cuh"
 
 // Plain C interface, loaded with ctypes (tpulbm_torch/ops/step_cuda.py).
 // Each launcher launches one step on `stream` and returns
@@ -242,22 +125,14 @@ extern "C" int tpulbm_d2q9_step(const float* f, float* out,
   if (!tpulbm::links_fit(links, link_planes, kQ)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const tpulbm::Links lk{links, static_cast<size_t>(nx) * ny,
-                         link_planes == 2 * kQ};
   const StepConsts k = tpulbm::make_consts(inv_tau, u_in, one_minus_u_in,
                                            eq_in, w, mode, src, lid7, lid8);
-  const int y_shift = tpulbm::tile_row_shift(
-      ny, kBY, clean_corners != 0 || tpulbm::kDomain == tpulbm::kCavity);
-  const int x_shift = tpulbm::tile_col_shift(nx, kBX);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const tpulbm::Shard none{};
-  const tpulbm::ForceTable force{force_table, force_axis};
-  err = clean_corners && tpulbm::kCornerRule
-            ? launch<tpulbm::kCornerRule>(f, out, solid, nx, ny, nx, ny,
-                                          x_shift, y_shift, k, none, force,
-                                          lk, s)
-            : launch<false>(f, out, solid, nx, ny, nx, ny, x_shift, y_shift,
-                            k, none, force, lk, s);
+  err = launch_depth<1>(
+      f, out, solid, nx, ny, nx, 0, ny, clean_corners != 0, k,
+      tpulbm::Shard{}, tpulbm::ForceTable{force_table, force_axis},
+      tpulbm::Links{links, static_cast<size_t>(nx) * ny,
+                    link_planes == 2 * kQ},
+      device, static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }
 #else
@@ -278,29 +153,35 @@ extern "C" int tpulbm_d2q9_step_rings(
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (r0 < 0 || r1 > nyl || r0 >= r1) return cudaErrorInvalidValue;
-  const tpulbm::Links lk{links, static_cast<size_t>(nyl + 2) * (nxl + 2),
-                         link_planes == 2 * kQ};
   const StepConsts k = tpulbm::make_consts(inv_tau, u_in, one_minus_u_in,
                                            eq_in, w, mode, src, lid7, lid8);
   const tpulbm::Shard sh{f, rb, rt, rl, rr, mask, nxl, nyl,
                          x0, y0, hx, 1, r0, r1};
-  // the tiling's shifts, counted in the rows and columns this launch
-  // writes: a top corner must not sit on a tile's first row (a right one
-  // on its first column), wherever the block lies in the grid
-  const int y_shift = tpulbm::tile_row_shift(
-      r1 - r0, kBY, clean_corners != 0 || tpulbm::kDomain == tpulbm::kCavity);
-  const int x_shift = tpulbm::tile_col_shift(nxl, kBX);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const tpulbm::ForceTable force{force_table, force_axis};
-  err = clean_corners && tpulbm::kCornerRule
-            ? launch<tpulbm::kCornerRule>(f, out, nullptr, nx, ny, nxl,
-                                          r1 - r0, x_shift, y_shift, k, sh,
-                                          force, lk, s)
-            : launch<false>(f, out, nullptr, nx, ny, nxl, r1 - r0, x_shift,
-                            y_shift, k, sh, force, lk, s);
+  err = launch_depth<1>(
+      f, out, nullptr, nx, ny, nxl, r0, r1 - r0, clean_corners != 0, k, sh,
+      tpulbm::ForceTable{force_table, force_axis},
+      tpulbm::Links{links, static_cast<size_t>(nyl + 2) * (nxl + 2),
+                    link_planes == 2 * kQ},
+      device, static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }
 #endif
+
+// The launch shape: the dynamic shared memory of a block with the clean
+// corners (corners = 1) or without, in bytes; the widened row (the strip
+// is a column narrower a side), the rows of a batch, the threads of a
+// block; and the strips x segments of a launch over cols x rows cells on
+// `device` (strips * 65536 + segments).
+extern "C" int tpulbm_d2q9_smem_bytes(int corners) {
+  return smem_bytes<1>(corners != 0);
+}
+extern "C" int tpulbm_d2q9_width() { return kW0; }
+extern "C" int tpulbm_d2q9_rows() { return kR; }
+extern "C" int tpulbm_d2q9_threads() { return threads<1>(); }
+extern "C" int tpulbm_d2q9_grid(int cols, int rows, int corners,
+                                int device) {
+  return grid<1>(cols, rows, corners != 0, device);
+}
 
 // The floats of the library's mode coefficients, which the caller's array
 // must hold (its mode: collision_modes.cuh's tpulbm_collision_mode).

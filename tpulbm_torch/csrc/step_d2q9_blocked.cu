@@ -24,106 +24,12 @@
 // at N=4. Against it stand the work a block repeats at the edges of what
 // it owns and the barriers that order its stages.
 //
-// Design: a row march (wavefront temporal blocking), the TPU kernel's own
-// shape (make_local_step_pallasN marches y with 3-slot rings per stage). A
-// block owns a strip of kBX = kW0 - 2N output columns and a segment
-// [y0, y1) of rows and marches up the segment kR rows (a batch) per march
-// step. Stage s (0 <= s < N) holds the state after s substeps, collided,
-// over stage 0's widened row of kW0 columns (the strip and N columns a
-// side; stage s computes columns s .. kW0-1-s of it) and over the rows
-// [y0 - (N - s), y1 + (N - s)), in a ring of rows in shared memory. Stage
-// 0 collides the raw rows in place; stage s (1 <= s < N) pulls its rows
-// from stage s-1's ring, applies the boundary sequence at the cell's global
-// coordinates and collides them into its own ring; stage N pulls the
-// strip's own columns, applies the boundary sequence and stores them to
-// `out`. Stage s works on batch m - kLag s at march step m, so every row it
-// reads was written at an earlier march step: all stages of a step run at
-// once and ONE barrier ends the step. A thread is one stage's cell of a
-// column and a row of the batch: (N + 1) kW0 kR threads, each stage whole
-// warps where kW0 is a multiple of 32, so no warp mixes stages; a thread
-// carries one cell's 9 populations and the collision's temporaries. One
-// code path serves every stage (the stage a run-time value), so the
-// collision and the pull are compiled once, not once a stage: the stages'
-// warps run at once, and N + 1 inlined copies of a heavy collision would
-// crowd the instruction cache. Threads whose cell lies outside the
-// interior (an edge a cell away) run the pull and the boundary sequence at
-// the cell's coordinates; the others run them at the constant coordinates
-// (1, 1) of a 3 x 3 grid, where every edge test folds away and the same
-// operations remain.
-//
-// Work: a segment of S rows collides sum_s (kW0 - 2s)(S + 2(N-s)) cells
-// for its N kBX S cell-steps: at N=4, kW0 = 96 and the 46.5 rows of
-// 2048x512's 11 segments 1.17 a cell and step (the trapezoid of 32 x 16
-// tiles this design replaced: 1.53). Device memory is read once a launch
-// for each cell of the segment's widened rows (kW0 (S + 2N) / (kBX S):
-// 1.28, the strip's neighbours' columns mostly from L2). The wrapper asks
-// for as many segments as fill the card once
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor x the SMs, over the
-// strips), at least 2N rows each, rows split as evenly as they go.
-//
-// Rings. Stage s at batch b reads stage s-1's batches b - kReach .. b +
-// kReach, while stage s-1 writes batch b + kLag: a ring of 2 kReach + 2
-// batches, kLag = kReach + 1. Stage 0 collides batch m in place while the
-// raw rows of batch m+1 arrive: 2 kReach + 3 batches. kReach is 1, or 2
-// where a corner rule reads two rows inward (below) and a batch is one row.
-// Every ring is rounded up to a power of two rows, so that a ring row is a
-// mask. At N=4, kW0 = 96, kR = 1 the rings take (8 + 3 x 4) x 96 x 36 B =
-// 69,120 B, the solid mask's rows 1,536 B more: two blocks of 480 threads
-// an SM (ptxas's 64 registers bind first). The shared memory grows
-// linearly in N (the deep build's N=8: 124,416 B); above 48 KB the launcher
-// asks for it with cudaFuncSetAttribute.
-//
-// Stage 0 is fed a batch ahead by stage N's threads, one cell each of
-// their column and row: at the start of march step m each issues
-// asynchronous copies (cp.async, __pipeline_memcpy_async, 4 B: a strip's
-// widened row starts N columns left of an aligned column, and ragged grids
-// align nothing) of its cell of batch m+1's populations into stage 0's
-// ring slots (the y-axis force profile's rows into theirs) and loads the
-// cell's mask byte into a register; after its stage it stores the mask
-// byte into the mask's ring of rows and waits for its copies
-// (__pipeline_wait_prior) before the step's barrier. Copies two to four
-// batches ahead timed no faster on an H100 (PERF.md §6). The source of a
-// row is found once a row (tpulbm::RowSource: the grid row, or a shard's
-// block row with its x rings, or one of its ring rows), so no cell of the
-// rings build goes through Shard::find and locate.
-//
-// A pull from y outside the domain (corners included) reads the frozen
-// equilibrium eq_in and one from x outside reads zero at every stage,
-// exactly the 1-step kernel's rule; cells outside the domain are never
-// computed or read. In the channel and the slab a strip's widened columns
-// wrap (a cell at gx < 0 or gx >= nx holds cell gx mod nx, loaded from
-// there and stepped like every other cell: the channel's rules do not
-// depend on x); in the box the segment's widened rows wrap as well.
-//
-// The corners. The clean Zou-He corners' inlet rule and the cavity's
-// corners read sources two rows (and, in the cavity, two columns) inward:
-// a corner recomputes the pull of its inward neighbour. A stage's ring
-// then holds those rows where a corner is computed (kReach above), and
-// each stage's rows and columns reach one further than the next stage's,
-// so they hold every source wherever a stage computes a corner, except
-// when the corner is the first row (column) of a segment (strip) of one
-// row (column) at the domain's edge. Segments where a corner rule acts
-// therefore keep at least 2 rows, and in the cavity the strips start one
-// column left of x = 0 where the last would hold one column
-// (tpulbm::tile_col_shift); tile_row_shift has no user here. Any strip
-// and segment give the same bits.
-//
-// The Bouzidi obstacle (-DTPULBM_BOUZIDI=1): at every stage a cell whose
-// mask byte carries kLinkBit rewrites its cut links after its edge rules
-// (apply_bouzidi), from its entries of the link table, read from device
-// memory at the cell's global index (a shard: its padded block's), and from
-// its own post-collision values of that substep, which lie in the previous
-// stage's ring and stay there until that row's slot is reused kLag steps
-// later. The widened cells rewrite theirs too, as on one device, so one
-// launch keeps the bits of N launches of the 1-step kernel. tpulbm's q ring
-// and q halo rows have no counterpart.
-//
-// The force profile (-DTPULBM_FORCE=1): along x the block stages the
-// entries of its widened columns once, after the rings in shared memory;
-// along y each row's entries arrive with its populations into a ring of
-// rows beside the mask's; each at the coordinate of the cell that owns it
-// (tpulbm::ForceTable), and every collision of every stage adds them, so
-// one launch keeps the bits of N 1-step launches.
+// Design: the D2Q9 row march of d2q9_march.cuh at depth N (its comment
+// has the strips, segments, stages, rings, asynchronous copies, corners,
+// Bouzidi links, force profile and ring builds); step_d2q9.cu runs the
+// same march at N = 1. At N = 4, kW0 = 96, kR = 1 the rings and the mask's
+// rows take 70,656 B: two blocks of 480 threads an SM (ptxas's 64
+// registers bind first).
 //
 // Bits. Collision, pull and boundary code come from d2q9_common.cuh, shared
 // with step_d2q9.cu, and both libraries are built with -fmad=false: one
@@ -135,25 +41,13 @@
 // block's rows: it replaces make_local_step_pallasN (ranged=True too) and
 // make_local_step_pallas2 with their ring inputs, and make_local_step_tiled
 // at N = 2-4 (the x rings, the extended ring rows carrying the diagonal
-// neighbours' corners). The segments cover the launch's rows [r0, r1), the
-// strips the block's columns; cells keep global coordinates and a row's
-// populations come from the block or a ring (Shard::row, column,
-// row_source); a cell the launch does not hold (outside the domain or
-// beyond the rings) is never stepped, so the bits are the one-device
-// build's. The rings add 2 N (nxl + 2 hx + hx nyl) x 36 B a launch to the
-// 73/N B a cell and step.
+// neighbours' corners).
 //
 // Knobs (utils/tile_sweep.py --lattice d2q9 builds the source with other
 // values): -DTPULBM_WIDTH (kW0), -DTPULBM_ROWS (kR), -DTPULBM_SEGMENT (rows
-// a segment, 0: the launcher's choice) and -DTPULBM_MIN_BLOCKS (blocks an SM asked of ptxas, 0: none); the libraries
-// the port loads use the defaults below.
-
-#include <cuda_pipeline.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include "d2q9_common.cuh"
-#include "hopper_async.cuh"
+// a segment, 0: the launcher's choice), -DTPULBM_MIN_BLOCKS (blocks an
+// SM asked of ptxas, 0: none) and -DTPULBM_AHEAD (batches the copies run
+// ahead); the libraries the port loads use the defaults below.
 
 #ifndef TPULBM_WIDTH
 #define TPULBM_WIDTH 96
@@ -173,476 +67,18 @@
 #define TPULBM_MIN_BLOCKS 0
 #endif
 #endif
+#ifndef TPULBM_AHEAD
+#define TPULBM_AHEAD 1
+#endif
+#ifndef TPULBM_LINK_AHEAD
+#define TPULBM_LINK_AHEAD 0
+#endif
+
+#include <type_traits>
+
+#include "d2q9_march.cuh"
 
 namespace {
-
-using tpulbm::kQ;
-using tpulbm::StepConsts;
-
-constexpr int kW0 = TPULBM_WIDTH;         // stage 0's widened row
-constexpr int kR = TPULBM_ROWS;           // rows of a batch
-constexpr int kSegment = TPULBM_SEGMENT;  // rows of a segment, 0: chosen
-constexpr size_t kMaxBlockSmem = 232448;  // what a block may take on sm_90
-static_assert(kR >= 1 && kSegment >= 0, "rows a batch and a segment");
-
-// The least power of two >= n: ring sizes, so that a ring row is a mask.
-__host__ __device__ constexpr int pow2_at_least(int n) {
-  int p = 1;
-  while (p < n) p *= 2;
-  return p;
-}
-
-// The march of depth N: its strip, rings, batches and shared memory.
-template <int N, bool kCorners>
-struct March {
-  static_assert(N >= 2, "one step per launch is step_d2q9.cu");
-  static constexpr int kN = N;
-  static constexpr bool kCornerKernel = kCorners;
-  // the strip's output columns: the widened row less N a side
-  static constexpr int kBX = kW0 - 2 * N;
-  static_assert(kBX >= 3, "a cavity strip keeps 2 columns after its shift");
-  // a thread a stage, a column of the widened row and a row of the batch,
-  // in whole warps
-  static constexpr int kThreads = ((N + 1) * kW0 * kR + 31) / 32 * 32;
-  static_assert(kThreads <= 1024, "at most 1024 threads");
-  // a corner rule reads two rows inward: the clean corners, the cavity's
-  static constexpr bool kCornerRows =
-      kCorners || tpulbm::kDomain == tpulbm::kCavity;
-  // batches a stage reads on either side of its own, and the march steps
-  // between one stage and the next
-  static constexpr int kReach = kCornerRows && kR == 1 ? 2 : 1;
-  static constexpr int kLag = kReach + 1;
-  // rows of the ring of stage 0 (the batches stage 1 reads, the one stage
-  // 0 collides and the one the copies bring) and of stages 1 .. N-1, each
-  // kW0 wide; powers of two
-  static constexpr int kRows0 = pow2_at_least((2 * kReach + 3) * kR);
-  static constexpr int kRows = pow2_at_least((2 * kReach + 2) * kR);
-  // rows of the mask's ring (and the y-axis force profile's): the batches
-  // stage N reads at step m up to the one the copies bring
-  static constexpr int kMaskRows = pow2_at_least(
-      (kLag * N + kReach + 2) * kR);
-  __host__ __device__ static constexpr int ring_rows(int s) {
-    return s == 0 ? kRows0 : kRows;
-  }
-  // the floats before stage s's ring: [kQ][ring_rows(s)][kW0] each
-  __host__ __device__ static constexpr int ring_offset(int s) {
-    return s == 0 ? 0 : kQ * kW0 * (kRows0 + (s - 1) * kRows);
-  }
-  // after the rings: the force profile's entries (kForce) of the widened
-  // columns or of the ring of rows, then the mask's ring of rows
-  static constexpr int kProf =
-      tpulbm::kForce ? kQ * (kW0 > kMaskRows ? kW0 : kMaskRows) : 0;
-  static constexpr size_t kMaskBytes =
-      tpulbm::kHasObstacle ? static_cast<size_t>(kMaskRows) * kW0 : 0;
-  static constexpr size_t kSmemBytes =
-      sizeof(float) * (ring_offset(N) + kProf) + kMaskBytes;
-  static_assert(kSmemBytes <= kMaxBlockSmem, "rings exceed a block's 227 KB");
-};
-
-// Where a block finds the cells it steps: on one device the grid, a cell
-// outside it wrapped where an axis is periodic; in the rings build the
-// shard's block and rings (tpulbm::Shard). A row index and a column index
-// name a cell: one device, the wrapped global row and column; the rings
-// build, the block row and column.
-struct Cells {
-  const float* f;
-  const uint8_t* solid;
-  int nx, ny;
-  tpulbm::Shard sh;
-
-  // Whether the block steps the cells of row gy (global, unwrapped); if so
-  // `row` is its index.
-  __device__ __forceinline__ bool row(int gy, int& row) const {
-    if constexpr (tpulbm::kRings) {
-      return sh.row(gy, ny, row);
-    } else {
-      if constexpr (tpulbm::kPeriodicY) {
-        gy %= ny;
-        if (gy < 0) gy += ny;
-      }
-      row = gy;
-      return tpulbm::kPeriodicY || (gy >= 0 && gy < ny);
-    }
-  }
-  // Whether it steps column gx of such a row; if so `col` is its index.
-  __device__ __forceinline__ bool column(int gx, int& col) const {
-    if constexpr (tpulbm::kRings) {
-      return sh.column(gx, nx, col);
-    } else {
-      if constexpr (tpulbm::kPeriodicX) {
-        gx %= nx;
-        if (gx < 0) gx += nx;
-      }
-      col = gx;
-      return tpulbm::kPeriodicX || (gx >= 0 && gx < nx);
-    }
-  }
-  __device__ __forceinline__ tpulbm::RowSource source(int row) const {
-    if constexpr (tpulbm::kRings) {
-      return sh.row_source(row);
-    } else {
-      return {f + static_cast<size_t>(row) * nx, nullptr, nullptr,
-              static_cast<size_t>(nx) * ny, 0, 0};
-    }
-  }
-  // the cell's mask byte (the obstacle domain and the slab)
-  __device__ __forceinline__ uint8_t mask_byte(int row, int col) const {
-    if constexpr (tpulbm::kRings) {
-      return sh.mask_byte(col, row);
-    } else {
-      return solid[static_cast<size_t>(row) * nx + col];
-    }
-  }
-  // the cell's entry in the link table's plane 0 (kBouzidi)
-  __device__ __forceinline__ size_t link_index(int row, int col) const {
-    if constexpr (tpulbm::kRings) {
-      return sh.padded(col, row);
-    } else {
-      return static_cast<size_t>(row) * nx + col;
-    }
-  }
-};
-
-// What a thread keeps through the march: the block's places, its stage s
-// and its own column c of the widened row (global gx; col its index where
-// the block steps it) and row j of a batch.
-template <int N, bool kCorners>
-struct Thread {
-  using M = March<N, kCorners>;
-  Cells cells;
-  float* rings;    // the stages' rings, one after another
-  float* prof;     // the force profile's entries (kForce)
-  uint8_t* mask;   // the mask's ring of rows [kMaskRows][kW0]
-  int y0, y1;      // the segment's output rows [y0, y1), global
-  int qbase;       // y0 - N: batch 0's first row
-  int axis;        // the force profile's axis (kForce)
-  int s, c, j, gx, col;
-  bool held;       // the block steps this column
-  bool out;        // it is one of the strip's output columns
-  bool inner;      // no rule reads its x (an x edge is a column away)
-
-  // ring row of row q in a ring of `rows` rows, a power of two
-  __device__ __forceinline__ int ring_row(int q, int rows) const {
-    return (q - qbase) & (rows - 1);
-  }
-  // row q of batch b
-  __device__ __forceinline__ int row_of(int b) const {
-    return qbase + b * kR + j;
-  }
-  // the force profile's entry of population 0 at this column and row q,
-  // and the floats between populations
-  __device__ __forceinline__ const float* prof_at(int q) const {
-    return axis == 0 ? prof + c : prof + ring_row(q, M::kMaskRows);
-  }
-  __device__ __forceinline__ int prof_stride() const {
-    return axis == 0 ? kW0 : M::kMaskRows;
-  }
-  __device__ __forceinline__ uint8_t* mask_row(int q) const {
-    return mask + ring_row(q, M::kMaskRows) * kW0;
-  }
-};
-
-// The copies of batch b into stage 0's ring (and the y-axis force
-// profile's rows into theirs): one cp.async of 4 B a population, one group
-// a thread, and the cell's mask byte into `pending`; stage 0 collides the
-// cell in place at the march step after.
-template <int N, bool kCorners>
-__device__ __forceinline__ void prefetch(const Thread<N, kCorners>& th,
-                                         const tpulbm::ForceTable& force,
-                                         uint8_t& pending, int b) {
-  using M = March<N, kCorners>;
-  const int q = th.row_of(b);
-  int row;
-  if (th.held && q < th.y1 + N && th.cells.row(q, row)) {
-    size_t stride;
-    const float* src = th.cells.source(row).at(th.col, stride);
-    float* dst = th.rings + th.ring_row(q, M::kRows0) * kW0 + th.c;
-#pragma unroll
-    for (int i = 0; i < kQ; ++i)
-      __pipeline_memcpy_async(dst + i * M::kRows0 * kW0, src + i * stride,
-                              sizeof(float));
-    if constexpr (tpulbm::kHasObstacle)
-      pending = th.cells.mask_byte(row, th.col);
-  }
-  if constexpr (tpulbm::kForce) {
-    const int t = th.j * kW0 + th.c;
-    if (force.axis == 1 && t < kQ * kR) {
-      const int i = t / kR;
-      const int qi = th.qbase + b * kR + t % kR;
-      int y = qi % th.cells.ny;
-      if (y < 0) y += th.cells.ny;
-      __pipeline_memcpy_async(th.prof + i * M::kMaskRows +
-                                  th.ring_row(qi, M::kMaskRows),
-                              force.table + i * th.cells.ny + y,
-                              sizeof(float));
-    }
-  }
-  __pipeline_commit();
-}
-
-// The mask byte `pending` of batch b into the mask's ring of rows.
-// Under kBouzidi a cell of batch b with a cut link also asks for its
-// entries of the link table in L1 (prefetch.global.L1), kLag or more march
-// steps before a stage reads them: a warp that waited on device memory
-// there would hold its block's barrier.
-template <int N, bool kCorners>
-__device__ __forceinline__ void keep_mask(const Thread<N, kCorners>& th,
-                                          const tpulbm::Links& links,
-                                          uint8_t pending, int b) {
-  if constexpr (tpulbm::kHasObstacle) {
-    const int q = th.row_of(b);
-    int row;
-    if (th.held && q < th.y1 + N) {
-      th.mask_row(q)[th.c] = pending;
-      if (tpulbm::kBouzidi && (pending & tpulbm::kLinkBit) &&
-          th.cells.row(q, row)) {
-        const float* at = links.q + th.cells.link_index(row, th.col);
-        const int planes = links.moving ? 2 * kQ : kQ;
-        for (int j = 1; j < planes; ++j)
-          tpulbm_async::prefetch_l1(at + j * links.plane);
-      }
-    }
-  }
-}
-
-// The thread's cell at march step m: stage s = th.s works on batch
-// m - kLag s. Stage 0 takes the raw populations the copies brought into
-// its ring; stage s > 0 pulls them from stage s-1's ring and runs the
-// boundary sequence (a cell whose rules read neither its x nor its y,
-// no edge a cell away, runs the same pull and boundary sequence at the
-// constant coordinates (1, 1) of a 3 x 3 grid, where they fold to the
-// operations they do there). Stage s < N collides the cell into its ring
-// (stage 0 in place), stage N stores it to `out`. One code path serves
-// every stage, the stage a run-time value: the collision is compiled
-// once, not once a stage.
-template <int N, bool kCorners>
-__device__ __forceinline__ void step_cell(const Thread<N, kCorners>& th,
-                                          float* __restrict__ out,
-                                          const StepConsts& k,
-                                          const tpulbm::Links& links, int m) {
-  using M = March<N, kCorners>;
-  const int s = th.s;
-  const int q = th.row_of(m - M::kLag * s);
-  const int d = s == N ? 0 : N - s;  // the stage's rows beyond the segment
-  int row;
-  if (!th.held || (s == N ? !th.out : (th.c < s || th.c >= kW0 - s)) ||
-      q < th.y0 - d || q >= th.y1 + d || !th.cells.row(q, row))
-    return;
-  const uint8_t mb = tpulbm::kHasObstacle ? th.mask_row(q)[th.c] : 0;
-  const bool is_solid = tpulbm::is_solid(mb);
-  const int nx = th.cells.nx, ny = th.cells.ny;
-  float g[kQ];
-  if (s == 0) {
-    const float* at = th.rings + th.ring_row(q, M::kRows0) * kW0 + th.c;
-#pragma unroll
-    for (int i = 0; i < kQ; ++i) g[i] = at[i * M::kRows0 * kW0];
-  } else {
-    const int zp = s == 1 ? M::kRows0 : M::kRows;  // stage s-1's ring rows
-    const float* src = th.rings + M::ring_offset(s - 1) + th.c;
-    const int rm = th.ring_row(q - 1, zp) * kW0;
-    const int r0 = th.ring_row(q, zp) * kW0;
-    const int rp = th.ring_row(q + 1, zp) * kW0;
-    auto post_at = [&](int i, int dx, int dy) {
-      const int r = dy == 0    ? r0
-                    : dy == -1 ? rm
-                    : dy == 1  ? rp
-                               : th.ring_row(q + dy, zp) * kW0;
-      return src[i * zp * kW0 + r + dx];
-    };
-    auto solid_at = [&](int dx, int dy) {
-      if constexpr (tpulbm::kHasObstacle) {
-        return tpulbm::is_solid(th.mask_row(q + dy)[th.c + dx]);
-      } else {
-        return false;
-      }
-    };
-    const float* link = tpulbm::kBouzidi && (mb & tpulbm::kLinkBit)
-                            ? links.q + th.cells.link_index(row, th.col)
-                            : nullptr;
-    if (th.inner && (tpulbm::kPeriodicY || (q >= 1 && q < ny - 1))) {
-      tpulbm::pull_d2q9(g, 1, 1, 3, 3, k, post_at);
-      tpulbm::apply_boundaries<kCorners>(g, is_solid, 1, 1, 3, 3, k, post_at,
-                                         solid_at, link, links);
-    } else {
-      tpulbm::pull_d2q9(g, th.gx, q, nx, ny, k, post_at);
-      tpulbm::apply_boundaries<kCorners>(g, is_solid, th.gx, q, nx, ny, k,
-                                         post_at, solid_at, link, links);
-    }
-  }
-  if (s < N) {
-    tpulbm::collide_cell(g, k, tpulbm::kBounceBack && is_solid,
-                         th.prof_at(q), th.prof_stride());
-    const int z = s == 0 ? M::kRows0 : M::kRows;
-    float* dst = th.rings + M::ring_offset(s) + th.ring_row(q, z) * kW0 +
-                 th.c;
-#pragma unroll
-    for (int i = 0; i < kQ; ++i) dst[i * z * kW0] = g[i];
-  } else if constexpr (tpulbm::kRings) {
-    const tpulbm::Shard& sh = th.cells.sh;
-    const size_t block = static_cast<size_t>(sh.nxl) * sh.nyl;
-    const size_t cell = static_cast<size_t>(row) * sh.nxl + th.col;
-#pragma unroll
-    for (int i = 0; i < kQ; ++i) out[i * block + cell] = g[i];
-  } else {
-    const size_t plane = static_cast<size_t>(nx) * ny;
-    const size_t cell = static_cast<size_t>(row) * nx + th.col;
-#pragma unroll
-    for (int i = 0; i < kQ; ++i) out[i * plane + cell] = g[i];
-  }
-}
-
-template <int N, bool kCorners>
-__global__ void
-#if TPULBM_MIN_BLOCKS
-__launch_bounds__(March<N, kCorners>::kThreads, TPULBM_MIN_BLOCKS)
-#else
-__launch_bounds__(March<N, kCorners>::kThreads)
-#endif
-    d2q9_blocked_kernel(const float* __restrict__ f, float* __restrict__ out,
-                        const uint8_t* __restrict__ solid, int nx, int ny,
-                        int x_shift, int rows_lo, int rows, int segments,
-                        StepConsts k, tpulbm::Shard sh,
-                        tpulbm::ForceTable force, tpulbm::Links links) {
-  using M = March<N, kCorners>;
-  extern __shared__ float smem[];
-  Thread<N, kCorners> th;
-  th.cells = Cells{f, solid, nx, ny, sh};
-  th.rings = smem;
-  th.prof = smem + M::ring_offset(N);
-  th.mask = reinterpret_cast<uint8_t*>(th.prof + M::kProf);
-  th.axis = force.axis;
-  // the strip: kBX columns from the block's (the shard's) first, shifted;
-  // this thread's column of its widened row
-  const int gx_lo = tpulbm::kRings ? sh.x0 : 0;
-  const int gx_hi = tpulbm::kRings ? sh.x0 + sh.nxl : nx;
-  const int x0 = gx_lo + static_cast<int>(blockIdx.x) * M::kBX - x_shift;
-  const int t = static_cast<int>(threadIdx.x);
-  th.s = t / (kW0 * kR);
-  th.j = t / kW0 % kR;
-  th.c = t % kW0;
-  th.gx = x0 - N + th.c;
-  th.held = th.s <= N && th.cells.column(th.gx, th.col);
-  th.out = th.c >= N && th.c < kW0 - N && th.gx >= gx_lo && th.gx < gx_hi;
-  th.inner = tpulbm::kPeriodicX || (th.gx >= 1 && th.gx < nx - 1);
-  // the segment: its share of the rows [rows_lo, rows_lo + rows)
-  const int ylo = (tpulbm::kRings ? sh.y0 : 0) + rows_lo;
-  const int seg = static_cast<int>(blockIdx.y);
-  th.y0 = ylo + static_cast<int>(static_cast<long long>(seg) * rows /
-                                 segments);
-  th.y1 = ylo + static_cast<int>(static_cast<long long>(seg + 1) * rows /
-                                 segments);
-  th.qbase = th.y0 - N;
-  if constexpr (tpulbm::kForce) {
-    if (force.axis == 0)
-      force.stage(th.prof, kW0, x0 - N, nx, threadIdx.x, M::kThreads);
-  }
-  // batches: stage 0 loads 0 .. last0, stage N stores its last at step
-  // steps - 1
-  const int last0 = (th.y1 + N - 1 - th.qbase) / kR;
-  const int steps = (th.y1 - 1 - th.qbase) / kR + M::kLag * N + 1;
-  // stage N's threads feed stage 0 a batch ahead, the cells of their
-  // columns and rows: at step m the copies of batch m + 1 leave, their
-  // mask bytes into `pending`, and are waited for after the stages
-  const bool feeds = th.s == N;
-  uint8_t pending = 0;
-  if (feeds) {
-    prefetch(th, force, pending, 0);
-    keep_mask(th, links, pending, 0);
-    __pipeline_wait_prior(0);
-  }
-  __syncthreads();
-  for (int m = 0; m < steps; ++m) {
-    if (feeds) prefetch(th, force, pending, m + 1);
-    if (th.s <= N) step_cell(th, out, k, links, m);
-    if (feeds) {
-      keep_mask(th, links, pending, m + 1);
-      __pipeline_wait_prior(0);
-    }
-    __syncthreads();
-  }
-}
-
-// The blocks of the march of depth N the card holds at once (its SMs
-// times the blocks one SM holds), after the kernel's shared-memory
-// attribute is set: both once per device.
-template <int N, bool kCorners>
-cudaError_t prepare(int device, int& resident) {
-  static int cache[64];
-  const bool cached = device >= 0 && device < 64;
-  if (cached && cache[device] > 0) {
-    resident = cache[device];
-    return cudaSuccess;
-  }
-  constexpr size_t smem = March<N, kCorners>::kSmemBytes;
-  if constexpr (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        d2q9_blocked_kernel<N, kCorners>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  int sms = 0, per = 0;
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                             device) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per, d2q9_blocked_kernel<N, kCorners>,
-          March<N, kCorners>::kThreads, smem) != cudaSuccess ||
-      sms * per <= 0) {
-    resident = 1;
-    return cudaSuccess;
-  }
-  resident = sms * per;
-  if (cached) cache[device] = resident;
-  return cudaSuccess;
-}
-
-// The segments of `rows` rows for `strips` strips: -DTPULBM_SEGMENT's
-// length, else as many as fill the card's resident blocks once, each of at
-// least 2N rows; rows split evenly, at least 2 a segment where a corner
-// rule acts.
-int segments_for(int rows, int strips, int resident, int n, bool corners) {
-  int k;
-  if (kSegment > 0) {
-    k = (rows + kSegment - 1) / kSegment;
-  } else {
-    k = resident / strips;
-    const int most = rows / (2 * n);
-    if (k > most) k = most;
-  }
-  if (corners && k > rows / 2) k = rows / 2;
-  return k > 1 ? k : 1;
-}
-
-// The strips of a launch over `cols` columns (shifted one column left in
-// the cavity where the last would hold one, tpulbm::tile_col_shift).
-template <int N, bool kCorners>
-int strips_for(int cols, int& x_shift) {
-  constexpr int kBX = March<N, kCorners>::kBX;
-  x_shift = tpulbm::tile_col_shift(cols, kBX);
-  return (cols + x_shift + kBX - 1) / kBX;
-}
-
-template <int N, bool kCorners>
-cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
-                   int ny, int cols, int rows_lo, int rows,
-                   const StepConsts& k, const tpulbm::Shard& sh,
-                   const tpulbm::ForceTable& force,
-                   const tpulbm::Links& links, int device,
-                   cudaStream_t stream) {
-  using M = March<N, kCorners>;
-  int resident, x_shift;
-  const cudaError_t err = prepare<N, kCorners>(device, resident);
-  if (err != cudaSuccess) return err;
-  const int strips = strips_for<N, kCorners>(cols, x_shift);
-  const int segments =
-      segments_for(rows, strips, resident, N, M::kCornerRows);
-  const dim3 grid(strips, segments);
-  constexpr size_t smem = M::kSmemBytes;
-  constexpr int threads = M::kThreads;
-  d2q9_blocked_kernel<N, kCorners><<<grid, threads, smem, stream>>>(
-      f, out, solid, nx, ny, x_shift, rows_lo, rows, segments, k, sh, force,
-      links);
-  return cudaGetLastError();
-}
 
 // n_sub steps over the cols x rows cells from row rows_lo the launch
 // writes (one device: the grid; a shard: its block's columns and the rows
@@ -653,13 +89,9 @@ cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
                    const tpulbm::ForceTable& force,
                    const tpulbm::Links& links, int device,
                    cudaStream_t stream) {
-#define TPULBM_LAUNCH(N)                                                    \
-  (corners && tpulbm::kCornerRule                                           \
-       ? launch<N, tpulbm::kCornerRule>(f, out, solid, nx, ny, cols,        \
-                                        rows_lo, rows, k, sh, force, links, \
-                                        device, stream)                     \
-       : launch<N, false>(f, out, solid, nx, ny, cols, rows_lo, rows, k,    \
-                          sh, force, links, device, stream))
+#define TPULBM_LAUNCH(N)                                                   \
+  launch_depth<N>(f, out, solid, nx, ny, cols, rows_lo, rows, corners, k, \
+                  sh, force, links, device, stream)
   switch (n_sub) {
 #if TPULBM_DEEP
     case 5: return TPULBM_LAUNCH(5);
@@ -676,32 +108,28 @@ cudaError_t launch(const float* f, float* out, const uint8_t* solid, int nx,
 #undef TPULBM_LAUNCH
 }
 
-// A query of the march of depth n_sub with the clean corners (corners)
-// or without: q(March<N, kCorners>) for a depth the library holds, else
-// -1.
+// q(Depth<N>{}) for a depth n_sub the library holds, else -1.
+template <int N>
+using Depth = std::integral_constant<int, N>;
 template <class Q>
-int for_depth(int n_sub, bool corners, Q q) {
-#define TPULBM_QUERY(N)                              \
-  return corners && tpulbm::kCornerRule              \
-             ? q(March<N, tpulbm::kCornerRule>{})    \
-             : q(March<N, false>{})
+int for_depth(int n_sub, Q q) {
   switch (n_sub) {
 #if TPULBM_DEEP
-    case 5: TPULBM_QUERY(5);
-    case 6: TPULBM_QUERY(6);
-    case 7: TPULBM_QUERY(7);
-    case 8: TPULBM_QUERY(8);
+    case 5: return q(Depth<5>{});
+    case 6: return q(Depth<6>{});
+    case 7: return q(Depth<7>{});
+    case 8: return q(Depth<8>{});
 #else
-    case 2: TPULBM_QUERY(2);
-    case 3: TPULBM_QUERY(3);
-    case 4: TPULBM_QUERY(4);
+    case 2: return q(Depth<2>{});
+    case 3: return q(Depth<3>{});
+    case 4: return q(Depth<4>{});
 #endif
     default: return -1;
   }
-#undef TPULBM_QUERY
 }
 
 }  // namespace
+
 
 // Plain C interface, loaded with ctypes (tpulbm_torch/ops/step_cuda.py).
 // Each launcher launches n_sub steps on `stream` and returns
@@ -774,10 +202,9 @@ extern "C" int tpulbm_d2q9_step_blocked_rings(
 // corners (corners = 1) or without, in bytes (-1 for a depth the library
 // does not hold).
 extern "C" int tpulbm_d2q9_blocked_smem_bytes(int n_sub, int corners) {
-  return for_depth(n_sub, corners != 0,
-                   [](auto m) {
-                     return static_cast<int>(decltype(m)::kSmemBytes);
-                   });
+  return for_depth(n_sub, [&](auto n) {
+    return smem_bytes<decltype(n)::value>(corners != 0);
+  });
 }
 
 // The launch shape: stage 0's widened row (the strip of depth n_sub is
@@ -788,18 +215,12 @@ extern "C" int tpulbm_d2q9_blocked_smem_bytes(int n_sub, int corners) {
 extern "C" int tpulbm_d2q9_blocked_width() { return kW0; }
 extern "C" int tpulbm_d2q9_blocked_rows() { return kR; }
 extern "C" int tpulbm_d2q9_blocked_threads(int n_sub) {
-  return for_depth(n_sub, false, [](auto m) { return decltype(m)::kThreads; });
+  return for_depth(n_sub, [](auto n) { return threads<decltype(n)::value>(); });
 }
 extern "C" int tpulbm_d2q9_blocked_grid(int n_sub, int cols, int rows,
                                         int corners, int device) {
-  return for_depth(n_sub, corners != 0, [&](auto m) {
-    using M = decltype(m);
-    int resident, x_shift;
-    if (prepare<M::kN, M::kCornerKernel>(device, resident) != cudaSuccess)
-      return -1;
-    const int strips = strips_for<M::kN, M::kCornerKernel>(cols, x_shift);
-    return strips * 65536 +
-           segments_for(rows, strips, resident, M::kN, M::kCornerRows);
+  return for_depth(n_sub, [&](auto n) {
+    return grid<decltype(n)::value>(cols, rows, corners != 0, device);
   });
 }
 

@@ -5,8 +5,10 @@ Ports of tpulbm/ops/step_pallas.py (D2Q9):
 * make_local_step_pallasN (N = 3, 4) and make_local_step_pallas2 (N = 2),
   temporal blocking, N steps per launch: csrc/step_d2q9_blocked.cu; the
   depths 5-8 that only TPULBM_SUBSTEPS asks for in its deep build (DEEP).
-Both hold every collision of tpulbm's D2Q9 kernels (COLLISION_MODES), the
-clean Zou-He corners, the body-force source, the force profile (tpulbm's
+Both sources run one design, the row march of csrc/d2q9_march.cuh (at
+N = 1 in the first). Both hold every collision of tpulbm's D2Q9 kernels
+(COLLISION_MODES), the clean Zou-He corners, the body-force source, the
+force profile (tpulbm's
 force_fn along one axis: a table of its source per coordinate), the
 bounce-back and the Bouzidi obstacles and four domains (DOMAINS: the
 cylinder, the periodic channel, the lid-driven cavity, the periodic box),
@@ -539,12 +541,28 @@ def mode_defines(mode: str) -> tuple[str, ...]:
     return (f"-DTPULBM_COLLISION={index}",) if index else ()
 
 
+def _bind_march1(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The 1-step D2Q9 library with its queries of the row march at depth
+    1 typed: tpulbm_d2q9_smem_bytes(corners), _width(), _rows(),
+    _threads() and _grid(cols, rows, corners, device) (strips * 65536 +
+    segments)."""
+    lib.tpulbm_d2q9_smem_bytes.argtypes = [_I32]
+    lib.tpulbm_d2q9_smem_bytes.restype = _I32
+    for name in ("width", "rows", "threads"):
+        getattr(lib, f"tpulbm_d2q9_{name}").argtypes = []
+        getattr(lib, f"tpulbm_d2q9_{name}").restype = _I32
+    lib.tpulbm_d2q9_grid.argtypes = [_I32] * 4
+    lib.tpulbm_d2q9_grid.restype = _I32
+    return lib
+
+
 @functools.cache
 def _library(mode: str = "bgk", variant: int = 0) -> ctypes.CDLL:
-    return _bind("step_d2q9.cu", "tpulbm_d2q9_step",
-                 [_PTR, _PTR, _PTR, _I32, _I32, _F32, _F32, _F32, _PTR, _PTR,
-                  _I32, _PTR, _PTR, _F32, _F32, _I32, _PTR, _PTR, _I32, _I32,
-                  _PTR], mode, MODE_FLOATS, variant)
+    return _bind_march1(_bind(
+        "step_d2q9.cu", "tpulbm_d2q9_step",
+        [_PTR, _PTR, _PTR, _I32, _I32, _F32, _F32, _F32, _PTR, _PTR, _I32,
+         _PTR, _PTR, _F32, _F32, _I32, _PTR, _PTR, _I32, _I32, _PTR], mode,
+        MODE_FLOATS, variant))
 
 
 def _bind_3d(source: str, fn: str, argtypes: list, mode: str,
@@ -666,9 +684,9 @@ _CONSTS_ARGS = [_F32, _F32, _F32, _PTR, _PTR, _I32, _PTR, _PTR, _F32, _F32,
 
 @functools.cache
 def _rings_library(mode: str = "bgk", variant: int = 0) -> ctypes.CDLL:
-    return _bind("step_d2q9.cu", "tpulbm_d2q9_step_rings",
-                 _RINGS_ARGS + _CONSTS_ARGS, mode, MODE_FLOATS,
-                 variant | RINGS)
+    return _bind_march1(_bind("step_d2q9.cu", "tpulbm_d2q9_step_rings",
+                              _RINGS_ARGS + _CONSTS_ARGS, mode, MODE_FLOATS,
+                              variant | RINGS))
 
 
 @functools.cache

@@ -1,12 +1,12 @@
 """The fused Shan-Chen multiphase step as a hand-written CUDA kernel.
 
 Port of tpulbm/ops/step_multiphase_pallas.py::make_local_step_multiphase_pallas
-(one step per launch): csrc/step_multiphase.cu on one full-width device,
-and its ring build (-DTPULBM_RINGS=1, collide_stream_multiphase_rings) on a
-shard of a mesh: the block and its pre-collision rings two cells deep, the
-Pallas kernel's depth-2 rb/rt and x_halo rl/rr. The kernel is built with
-nvcc at first use and
-called through ctypes on PyTorch's current stream. Its plain version is
+(one step per launch): csrc/step_multiphase.cu (a row march down column
+strips) on one full-width device, and its ring build (-DTPULBM_RINGS=1,
+collide_stream_multiphase_rings) on a shard of a mesh: the block and its
+pre-collision rings two cells deep, the Pallas kernel's depth-2 rb/rt and
+x_halo rl/rr. The kernel is built with nvcc at first use and called
+through ctypes on PyTorch's current stream. Its plain version is
 ops/step_multiphase.py::make_step_multiphase.
 
 Dispatch follows the tensor: for a CPU tensor the wrapper runs the plain
@@ -82,10 +82,23 @@ def check_inputs(f: torch.Tensor, out: torch.Tensor) -> None:
 _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
 
 
+def _bind_march(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """A multiphase library with its queries of the row march typed:
+    tpulbm_multiphase_width(), _rows(), _threads(), _smem_bytes() and
+    _grid(cols, rows, device) (strips * 65536 + segments)."""
+    for name in ("width", "rows", "threads", "smem_bytes"):
+        getattr(lib, f"tpulbm_multiphase_{name}").argtypes = []
+        getattr(lib, f"tpulbm_multiphase_{name}").restype = _I32
+    lib.tpulbm_multiphase_grid.argtypes = [_I32] * 3
+    lib.tpulbm_multiphase_grid.restype = _I32
+    return lib
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
-    return step_cuda._bind("step_multiphase.cu", "tpulbm_multiphase_step",
-                           [_PTR, _PTR, _I32, _I32, _PTR, _PTR, _I32, _PTR])
+    return _bind_march(step_cuda._bind(
+        "step_multiphase.cu", "tpulbm_multiphase_step",
+        [_PTR, _PTR, _I32, _I32, _PTR, _PTR, _I32, _PTR]))
 
 
 def collide_stream_multiphase(f: torch.Tensor, out: torch.Tensor,
@@ -117,11 +130,10 @@ collide_stream_multiphase.launches = 0
 
 @functools.cache
 def _rings_library() -> ctypes.CDLL:
-    return step_cuda._bind("step_multiphase.cu",
-                           "tpulbm_multiphase_step_rings",
-                           [_PTR] * 6 + [_I32] * 7 + [_PTR, _PTR, _I32,
-                                                      _PTR],
-                           variant=step_cuda.RINGS)
+    return _bind_march(step_cuda._bind(
+        "step_multiphase.cu", "tpulbm_multiphase_step_rings",
+        [_PTR] * 6 + [_I32] * 7 + [_PTR, _PTR, _I32, _PTR],
+        variant=step_cuda.RINGS))
 
 
 def ring_args(f: torch.Tensor, out: torch.Tensor, rings: tuple,

@@ -22,10 +22,18 @@ entries, the 64^3 and 128^3 boxes among them, and one shard of the
 sphere, of the Bouzidi sphere at 256^3 and of the D3Q27 Bouzidi sphere at
 128^3 on a 2x2 mesh, with x rings, beside the four shards summed and the
 one-device kernel in the same turns). GROUP one_step times those cells
-only.
+only. GROUP march times the D2Q9 1-step and Shan-Chen cells (MARCH: every
+build of PERF.md's row 1, row 4's ranged launches, row 5's depth-1 shards
+and row 9, with re200's N = 2-4 beside them) on the card's clock
+(`device_ms`), a shard's launches also as the host issues them
+(`_issued`), the four multiphase shards summed (`_summed`) beside one
+device; and for every cell a hash of the state after MARCH_LAUNCHES
+launches from a seeded +-10% perturbed state (`hash`), which is equal
+across two commits whose kernels give the same bits.
 Alternate the commits (parent, change, change, parent), one process each,
 in one call.
 """
+import hashlib
 import json
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -84,30 +92,6 @@ def device_ms(step, f, launches: int, per: int) -> float:
                            f"{launches} launches, the card slept "
                            f"{s.elapsed_time(a):.3f} ms")
     return a.elapsed_time(b) / (launches * per)
-
-
-def slab(make_problem):
-    """The Bouzidi slab at 2048x512 (tpulbm's solid-slab channel: periodic
-    x, no y walls, solid rows 0-1 and 510-511, walls at y = 1.75 and
-    509.75, a body force for a peak speed of 0.05 at tau 0.8)."""
-    import dataclasses
-
-    import numpy as np
-    from tpulbm_torch.config import SimulationParams
-    nx, ny, tau = 2048, 512, 0.8
-    y0, y1 = 1.75, ny - 2.25
-    force = 8.0 * (tau - 0.5) / 3.0 * 0.05 / (y1 - y0) ** 2
-    params = SimulationParams(problem="poiseuille", nx=nx, ny=ny, tau=tau,
-                              periodic_x=True, inlet_velocity=0.0,
-                              precision="f32", enable_vtk=False,
-                              obstacle_bc="bouzidi", body_force=(force, 0.0))
-    solid = np.zeros((ny, nx), bool)
-    solid[:2] = solid[-2:] = True
-    return dataclasses.replace(
-        make_problem(params), solid=solid, init_u=(0.0, 0.0), walls_y=False,
-        obstacle_sdf=lambda p: np.minimum(p[..., 1] - y0, y1 - p[..., 1]),
-        obstacle_velocity=None, periodic_x=True, obstacle_bc="bouzidi",
-        body_force=(force, 0.0))
 
 
 # the 1-step D3Q19 kernel's cells: name -> (SimulationParams keywords, a
@@ -270,6 +254,298 @@ def time_one_step(dev, out: dict) -> None:
         torch.cuda.empty_cache()
 
 
+# the march group's cells: name -> (problem keywords, which _march_problem
+# turns into a problem; mesh shape or None; layout: "one" one device,
+# "rows" ring rows, "tiled" x rings, "overlap" the overlap mode's three
+# ranged launches, "n2".."n4" the N-step kernel on one device)
+_RE200 = dict(preset="re200")
+_OPS2 = {"bgk": {}, "trt": dict(collision="trt", zou_he_corners="clean"),
+         "mrt": dict(collision="mrt", mrt_rates=(("e", 1.857),)),
+         "regularized": dict(collision="regularized"),
+         "kbc": dict(collision="kbc"), "les": dict(smagorinsky=0.17),
+         "power_law": dict(power_law_n=0.7)}
+_CHANNEL = dict(problem="poiseuille", nx=2048, ny=512, tau=0.8,
+                inlet_velocity=0.0, body_force=(1.53e-7, 0.0))
+_BOX = dict(nx=2048, ny=512, tau=0.8, kolmogorov_n=4, periodic_x=True,
+            cylinder_radius=0.0)
+_MP = dict(problem="multiphase", nx=2048, ny=512, tau=1.0, shan_chen_g=-5.0,
+           inlet_velocity=0.0, cylinder_radius=0.15, cylinder_x=0.5,
+           cylinder_y=0.5)
+MARCH = {
+    **{f"re200_{op}": (dict(_RE200, **kw), None, "one")
+       for op, kw in _OPS2.items()},
+    **{f"re200_n{n}": (_RE200, None, f"n{n}") for n in (2, 3, 4)},
+    **{f"channel_{op}": (dict(_CHANNEL, **kw), None, "one")
+       for op, kw in _OPS2.items() if op != "trt"},
+    "channel_trt": (dict(_CHANNEL, collision="trt"), None, "one"),
+    "cavity_1024": (dict(problem="cavity", nx=1024, ny=1024,
+                         inlet_velocity=0.1, cylinder_radius=0.0,
+                         cavity_re=1000.0), None, "one"),
+    "cylinder_bounce_back": (dict(_RE200, obstacle_bc="bounce_back"), None,
+                             "one"),
+    "cylinder_source": (dict(_RE200, body_force=(1.53e-7, 0.0)), None,
+                        "one"),
+    **{f"bouzidi_{op}": (dict(_RE200, obstacle_bc="bouzidi", **kw), None,
+                         "one") for op, kw in _OPS2.items()},
+    "bouzidi_spin": (dict(_RE200, obstacle_bc="bouzidi", spin=True), None,
+                     "one"),
+    "slab_2048": (dict(slab="bouzidi"), None, "one"),
+    **{f"slab_256_{op}": (dict(slab="bouzidi", nx=256, ny=64, **kw), None,
+                          "one") for op, kw in _OPS2.items()
+       if op not in ("bgk", "trt")},
+    "slab_256_trt": (dict(slab="bouzidi", nx=256, ny=64, collision="trt"),
+                     None, "one"),
+    "slab_256_bounce_back": (dict(slab="bounce_back", nx=256, ny=64), None,
+                             "one"),
+    "slab_256_pin": (dict(slab="equilibrium", nx=256, ny=64), None, "one"),
+    "slab_256_couette": (dict(slab="bouzidi", nx=256, ny=64, force=0.0,
+                              moving=0.05), None, "one"),
+    "scale8m_4x1_rows": (dict(preset="scale-8m"), (4, 1), "rows"),
+    "scale8m_4x1_overlap": (dict(preset="scale-8m"), (4, 1), "overlap"),
+    "tg_4x1_overlap": (dict(_BOX, problem="taylor-green",
+                            inlet_velocity=0.04), (4, 1), "overlap"),
+    "scale8m_2x2_tiled": (dict(preset="scale-8m"), (2, 2), "tiled"),
+    "tg_2x2_tiled": (dict(_BOX, problem="taylor-green", inlet_velocity=0.04),
+                     (2, 2), "tiled"),
+    "kolmogorov_2x2_tiled": (dict(_BOX, problem="kolmogorov",
+                                  inlet_velocity=0.05), (2, 2), "tiled"),
+    "bouzidi_1x2_tiled": (dict(_RE200, obstacle_bc="bouzidi"), (1, 2),
+                          "tiled"),
+    "slab_1x2_tiled": (dict(slab="bouzidi"), (1, 2), "tiled"),
+    "mp_droplet": (_MP, None, "one"),
+    "mp_droplet_4x1": (_MP, (4, 1), "rows"),
+    "mp_droplet_2x2": (_MP, (2, 2), "tiled"),
+}
+MARCH_LAUNCHES = 10   # launches before a cell's hash
+MARCH_REPS = 200      # calls a card's-clock turn enqueues
+
+
+def _march_problem(kw: dict):
+    """The problem of a MARCH cell's keywords, f32, no VTK: a preset, the
+    cavity at its Reynolds number, the slab (tpulbm's solid-slab channel as
+    chip_smoke.slab_problem builds it, obstacle rule `slab`), the spinning
+    Bouzidi cylinder (`spin`), or plain SimulationParams."""
+    import dataclasses
+
+    import numpy as np
+    from tpulbm_torch.config import PRESETS, SimulationParams
+    from tpulbm_torch.models import make_problem
+    kw = dict(kw)
+    preset, spin = kw.pop("preset", None), kw.pop("spin", False)
+    bc = kw.pop("slab", None)
+    if bc is not None:
+        nx, ny = kw.pop("nx", 2048), kw.pop("ny", 512)
+        tau, moving = 0.8, kw.pop("moving", 0.0)
+        y0, y1 = 1.75, ny - 2.25
+        force = kw.pop("force", 8.0 * (tau - 0.5) / 3.0 * 0.05
+                       / (y1 - y0) ** 2)
+        params = SimulationParams(
+            problem="poiseuille", nx=nx, ny=ny, tau=tau, periodic_x=True,
+            inlet_velocity=0.0, precision="f32", enable_vtk=False,
+            obstacle_bc=bc, body_force=(force, 0.0), **kw)
+        solid = np.zeros((ny, nx), bool)
+        solid[:2] = solid[-2:] = True
+
+        def uw(p):
+            return np.stack([np.where(p[..., 1] > 0.5 * ny, moving, 0.0),
+                             np.zeros_like(p[..., 0])], axis=-1)
+        return dataclasses.replace(
+            make_problem(params), solid=solid, init_u=(0.0, 0.0),
+            walls_y=False, periodic_x=True, obstacle_bc=bc,
+            obstacle_sdf=lambda p: np.minimum(p[..., 1] - y0,
+                                              y1 - p[..., 1]),
+            obstacle_velocity=uw if moving else None,
+            body_force=(force, 0.0) if force else ())
+    if kw.pop("cavity_re", None):
+        from tpulbm_torch.models.cavity import tau_for_cavity_reynolds
+        kw["tau"] = tau_for_cavity_reynolds(1000.0, kw["inlet_velocity"],
+                                            kw["nx"])
+    params = (PRESETS[preset].replace(**kw) if preset
+              else SimulationParams(**kw))
+    params = params.replace(precision="f32", enable_vtk=False)
+    if spin:
+        params = params.replace(cylinder_omega=params.inlet_velocity / float(
+            params.get_cylinder_radius_cells()))
+    return make_problem(params)
+
+
+def march_builds(problems: dict) -> list:
+    """(source, defines) of every library the march cells launch."""
+    from tpulbm_torch.ops import step_cuda
+    builds = [("step_multiphase.cu", ()),
+              ("step_multiphase.cu", step_cuda.build_defines(
+                  "bgk", step_cuda.RINGS))]
+    for name, (_, shape, layout) in MARCH.items():
+        p = problems[name]
+        if p.shan_chen:
+            continue
+        c = step_cuda.StepConstants.of(p)
+        if layout.startswith("n"):
+            builds.append(("step_d2q9_blocked.cu", step_cuda.build_defines(
+                c.mode, c.variant)))
+            continue
+        builds.append(("step_d2q9.cu", step_cuda.build_defines(
+            c.mode, c.variant | (step_cuda.RINGS if shape else 0))))
+    return list(dict.fromkeys(builds))
+
+
+def _hash(t) -> str:
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def _perturbed(problem, f):
+    """f times seeded noise in [0.9, 1.1), the solid cells at rest
+    (chip_smoke.perturbed's state)."""
+    import torch
+    gen = torch.Generator(device=f.device).manual_seed(7)
+    out = f * (0.9 + 0.2 * torch.rand(f.shape, generator=gen,
+                                      device=f.device, dtype=f.dtype))
+    if problem.solid is not None:
+        solid = torch.as_tensor(problem.solid, device=f.device)
+        w = torch.as_tensor(problem.lattice.w, dtype=f.dtype,
+                            device=f.device)
+        out = torch.where(solid, w.view(-1, 1, 1), out)
+    return out
+
+
+def _march_shards(problem, shape, dev, depth, x_rings):
+    """(launch(block, out, rings, (iy, ix), rows=None), split, rings) of a
+    D2Q9 or Shan-Chen problem's shards on `shape`, every shard on `dev`."""
+    import numpy as np
+    import torch  # noqa: F401
+    from tpulbm_torch.ops import step_cuda
+    from tpulbm_torch.parallel import halo, mesh, sharded_step
+    m = mesh.make_mesh(shape, devices=[dev] * (shape[0] * shape[1]))
+    local = sharded_step.block_shape(problem, m)
+    if problem.shan_chen:
+        from tpulbm_torch.ops import step_multiphase_cuda as mp
+        consts = mp.MultiphaseConstants.of(problem)
+        geo = {c: step_cuda.Shard(
+            index=c, origin=sharded_step.origin(m, local, *c),
+            local_shape=local, grid=tuple(problem.spatial_shape),
+            depth=mp.DEPTH, x_rings=x_rings) for c in m.shards()}
+
+        def launch(b, o, r, c, rows=None):
+            return mp.collide_stream_multiphase_rings(b, o, r, geo[c], consts)
+    else:
+        consts = step_cuda.kernel_constants(problem)
+        solid = (np.zeros(problem.spatial_shape, bool)
+                 if problem.solid is None else problem.solid)
+        masks = halo.pad_mask(sharded_step.shard_mask(m, solid),
+                              periodic_x=problem.periodic_x,
+                              periodic_y=problem.periodic_y, depth=depth)
+        grid = sharded_step.kernel_shards(problem, m, depth, x_rings, masks)
+
+        def launch(b, o, r, c, rows=None):
+            return step_cuda.collide_stream_rings(
+                b, o, r, grid[c[0]][c[1]], consts, depth, rows=rows)
+
+    def rings(blocks):
+        return halo.exchange(blocks, eq_ring=problem.ghost_ring_values(),
+                             depth=depth, periodic_x=problem.periodic_x,
+                             periodic_y=problem.periodic_y, x_rings=x_rings)
+    return launch, (lambda f: sharded_step.split(m, f)), rings, m, local
+
+
+def time_march(dev, out: dict) -> None:
+    """Every MARCH cell into `out`: ms per step on the card's clock, a
+    shard's launches as the host issues them (`_issued`), the multiphase
+    shards summed (`_summed`), and each cell's state hash (`_hash`)."""
+    import torch
+    from tpulbm_torch.ops import step_cuda, step_multiphase_cuda
+    from tpulbm_torch.parallel import sharded_step  # noqa: F401
+    problems = {name: _march_problem(kw) for name, (kw, _, _) in
+                MARCH.items()}
+    with ThreadPoolExecutor(16) as pool:
+        list(pool.map(lambda b: cuda_build_load(*b), march_builds(problems)))
+    for name, (kw, shape, layout) in MARCH.items():
+        p = problems[name]
+        f0 = _initial(p, dev)
+        fp = _perturbed(p, f0)
+        if p.shan_chen:
+            one = step_multiphase_cuda.make_local_step_multiphase_cuda(p,
+                                                                       dev)
+        elif layout.startswith("n"):
+            one = step_cuda.make_local_step_cuda_blocked(p, dev,
+                                                         int(layout[1:]))
+        else:
+            one = step_cuda.make_local_step_cuda(p, dev)
+        per = int(layout[1:]) if layout.startswith("n") else 1
+        if shape is None:
+            g, spare = fp.clone(), torch.empty_like(fp)
+            for _ in range(MARCH_LAUNCHES):
+                g, spare = one(g, spare), g
+            out[f"{name}_hash"] = _hash(g)
+            out[name] = min(device_ms(one, f0, MARCH_REPS, per)
+                            for _ in range(3))
+            del g, spare
+        else:
+            depth = 2 if p.shan_chen else 1
+            launch, split, rings, m, local = _march_shards(
+                p, shape, dev, depth, layout == "tiled" or shape[1] != 1)
+            nyl = local[-2]
+
+            def step_of(blocks, rs, c):
+                def step(b, o):
+                    if layout == "overlap":
+                        launch(b, o, (None,) * 4, c, rows=(2, nyl - 2))
+                        launch(b, o, rs[c[0]][c[1]], c, rows=(0, 2))
+                        return launch(b, o, rs[c[0]][c[1]], c,
+                                      rows=(nyl - 2, nyl))
+                    return launch(b, o, rs[c[0]][c[1]], c)
+                return step
+            pblocks = split(fp)
+            prings = rings(pblocks)
+            outs = []
+            for c in m.shards():
+                step = step_of(pblocks, prings, c)
+                g = pblocks[c[0]][c[1]].clone()
+                spare = torch.empty_like(g)
+                for _ in range(MARCH_LAUNCHES):
+                    g, spare = step(g, spare), g
+                outs.append(_hash(g))
+            out[f"{name}_hash"] = hashlib.sha256(
+                "".join(outs).encode()).hexdigest()[:16]
+            blocks = split(f0)
+            rs = rings(blocks)
+            shard = step_of(blocks, rs, (0, 0))
+            b = blocks[0][0]
+            out[name] = min(device_ms(shard, b, MARCH_REPS, 1)
+                            for _ in range(3))
+            out[f"{name}_issued"] = ms_per_step(shard, b, MARCH_REPS, 1)
+            if p.shan_chen:
+                outs_ = [[torch.empty_like(x) for x in row]
+                         for row in blocks]
+
+                def summed(f, o):
+                    for iy, ix in m.shards():
+                        launch(blocks[iy][ix], outs_[iy][ix], rs[iy][ix],
+                               (iy, ix))
+                    return o
+                out[f"{name}_summed"] = min(
+                    device_ms(summed, f0, MARCH_REPS, 1) for _ in range(3))
+                out[f"{name}_one"] = min(
+                    device_ms(one, f0, MARCH_REPS, 1) for _ in range(3))
+                del outs_
+            del pblocks, prings, blocks, rs
+        del f0, fp, one
+        torch.cuda.empty_cache()
+
+
+def _initial(problem, dev):
+    """The problem's initial state on `dev`, built there
+    (sharded_step.shard_initial_state on one shard, as the Runner builds
+    it)."""
+    from tpulbm_torch.parallel import mesh, sharded_step
+    m = mesh.make_mesh((1, 1), devices=[dev])
+    return sharded_step.shard_initial_state(problem, m)[0][0][0]
+
+
+def cuda_build_load(source, defines):
+    from tpulbm_torch.utils import cuda_build
+    return cuda_build.load(source, defines)
+
+
 def main(checkout: str, label: str, group: str = "all") -> None:
     sys.path.insert(0, checkout)
     import torch
@@ -283,6 +559,11 @@ def main(checkout: str, label: str, group: str = "all") -> None:
     if not step_cuda.__file__.startswith(checkout):
         raise RuntimeError(f"imported {step_cuda.__file__}, not {checkout}")
     dev = torch.device("cuda", 0)
+    if group == "march":
+        out = {"label": label}
+        time_march(dev, out)
+        print(json.dumps(out))
+        return
     if group == "one_step":
         with ThreadPoolExecutor(16) as pool:
             list(pool.map(lambda b: cuda_build.load(*b), one_step_builds()))
@@ -304,7 +585,7 @@ def main(checkout: str, label: str, group: str = "all") -> None:
         ("kbc", dict(collision="kbc")), ("les", dict(smagorinsky=0.17)),
         ("power_law", dict(power_law_n=0.7)),
         ("bouzidi", dict(obstacle_bc="bouzidi")))}
-    operators["slab"] = slab(make_problem)
+    operators["slab"] = _march_problem(MARCH["slab_2048"][0])
     scale = make_problem(PRESETS["scale-8m"].replace(precision="f32"))
     bgk, mrt = sphere(), sphere(collision="mrt")
     d3q27 = sphere(lattice3d="d3q27")

@@ -34,10 +34,12 @@ import tempfile
 import torch
 
 # the port's kernels, by a part of their mangled names
-PORT_KERNELS = {"thermal_step_kernel": "thermal", "d2q9_step_kernel":
-                "d2q9 1-step", "d2q9_blocked_kernel": "d2q9 N-step",
+PORT_KERNELS = {"thermal_step_kernel": "thermal",
+                # mangled (ILi1E) or demangled (<1,) template depth: the
+                # D2Q9 march at one step, then at N
+                r"d2q9_march_kernel(ILi1E|<1,)": "d2q9 1-step",
+                "d2q9_march_kernel": "d2q9 N-step",
                 "d3q19_step_kernel": "d3q19",
-                # mangled (ILi2E) or demangled (<2>) template depth
                 r"d3q19_blocked_kernel(ILi2E|<2>)": "d3q19 N=2",
                 r"d3q19_blocked_kernel(ILi3E|<3>)": "d3q19 N=3",
                 "multiphase_step_kernel": "multiphase"}

@@ -4,6 +4,9 @@
         [--lattice d3q19] [--json PATH]
     python -m tpulbm_torch.utils.tile_sweep --lattice d2q9 [--collision bgk]
     python -m tpulbm_torch.utils.tile_sweep --one-step [--cases sphere,mrt]
+    python -m tpulbm_torch.utils.tile_sweep --lattice d2q9 --one-step
+        [--cases re200,kbc]
+    python -m tpulbm_torch.utils.tile_sweep --multiphase
 
 D3Q19 and D3Q27: builds csrc/step_d3q19_blocked.cu under other values of
 its knobs (the thread-block cluster -DTPULBM_CLUSTER_X/_Y, the block's
@@ -33,6 +36,23 @@ seeded +-10% perturbed state, one N=2 and one N=3 launch of the N-step
 kernel bitwise to 2 and 3 of its launches (one device) or its four
 shards bitwise to one device (the shard), and every other variant bitwise
 to the default build, and times them in turns.
+--lattice d2q9 --one-step: builds csrc/step_d2q9.cu's row march at N = 1
+under other values of its knobs (KNOBS_2D, VARIANTS_1_2D) for each of its
+cases (ONE_STEP_2D_CASES: re200 at 2048x512 under BGK, KBC, the power law
+and the Bouzidi cylinder, one shard of scale-8m on 2x2 with x rings and
+its ranged launches on 4x1); holds the default build to the plain step
+(one device) or the plain ring step (a shard: scale-8m's, Taylor-Green's
+on 2x2 and the Bouzidi cylinder's on 1x2) from a seeded +-10%
+perturbed state, one N=2 launch of the N-step kernel bitwise to 2 of its
+launches (one device) or the shards bitwise to one device, every other
+variant bitwise to the default build, and times them in turns on the
+card's clock (`device_ms`).
+--multiphase: builds csrc/step_multiphase.cu's row march under other
+values of the same knobs (VARIANTS_MP) on the droplet at 2048x512 (one
+device) and one shard of it on 4x1 and on 2x2 (x rings); holds the
+default to the plain multiphase step or the plain ring step, the shards
+bitwise to one device, every variant bitwise to the default, and times
+them the same way.
 Prints the card (`nvidia-smi` name and power limit), one line per variant
 (ms per step, the shape, shared memory, resident blocks or clusters,
 ptxas's registers and spills) and one JSON line; needs a CUDA card and
@@ -54,6 +74,7 @@ from ..convert import state_from_numpy
 from ..models import make_problem
 from ..ops import step_cuda
 from . import cuda_build
+from .ab_kernels import device_ms
 
 SOURCE = "step_d3q19_blocked.cu"
 KNOBS = ("TILE_Y", "CLUSTER_X", "CLUSTER_Y", "THREADS", "ZCHUNK")
@@ -93,6 +114,38 @@ ONE_STEP_CASES = {
     "box64_trt": (dict(preset="kolmogorov3d", nx=64, ny=64, nz=64,
                        collision="trt"), None),
 }
+# --lattice d2q9 --one-step and --multiphase: (the widened row, rows a
+# march step, segment rows, blocks an SM asked of ptxas; -1 the source's
+# default), the defaults first
+# and the batches the copies run ahead, and (D2Q9) the Bouzidi link
+# entries loaded a step ahead (KNOBS_MARCH)
+KNOBS_MARCH = ("WIDTH", "ROWS", "SEGMENT", "MIN_BLOCKS", "AHEAD",
+               "LINK_AHEAD")
+VARIANTS_1_2D = [(-1, -1, -1, -1, -1), (-1, -1, -1, -1, 1),
+                 (-1, -1, -1, -1, 3), (-1, -1, -1, -1, 4),
+                 (96, -1, -1, -1, -1), (64, -1, -1, -1, -1),
+                 (256, -1, -1, -1, -1), (-1, 2, -1, -1, -1),
+                 (-1, -1, -1, 4, -1), (96, -1, -1, -1, 4)]
+VARIANTS_MP = [(-1, -1, -1, -1, -1), (-1, -1, -1, -1, 1),
+               (-1, -1, -1, -1, 3), (-1, -1, -1, -1, 6),
+               (64, -1, -1, -1, -1), (96, -1, -1, -1, -1),
+               (-1, 2, -1, -1, -1), (-1, -1, -1, 3, -1),
+               (-1, -1, 8, -1, -1), (96, -1, -1, 3, -1)]
+# name -> (SimulationParams keywords, mesh shape or None, ranged)
+ONE_STEP_2D_CASES = {
+    "re200": (dict(preset="re200"), None, False),
+    "kbc": (dict(preset="re200", collision="kbc"), None, False),
+    "power_law": (dict(preset="re200", power_law_n=0.7), None, False),
+    "bouzidi": (dict(preset="re200", obstacle_bc="bouzidi"), None, False),
+    "scale8m_2x2": (dict(preset="scale-8m"), (2, 2), False),
+    "scale8m_4x1_overlap": (dict(preset="scale-8m"), (4, 1), True),
+    "tg_2x2": (dict(problem="taylor-green", nx=2048, ny=512, tau=0.8,
+                    inlet_velocity=0.04, periodic_x=True,
+                    cylinder_radius=0.0), (2, 2), False),
+    "bouzidi_1x2": (dict(preset="re200", obstacle_bc="bouzidi"), (1, 2),
+                    False),
+}
+MP_CASES = {"droplet": None, "droplet_4x1": (4, 1), "droplet_2x2": (2, 2)}
 # (stage 0's widened row, rows a march step, segment rows, blocks an SM
 # asked of ptxas, -1 the source's default): the defaults first
 VARIANTS_2D = [(96, 1, 0, -1),
@@ -173,13 +226,21 @@ def main(argv=None) -> int:
                     help="d2q9: the cylinder's obstacle rule (equilibrium, "
                          "bounce_back or bouzidi)")
     ap.add_argument("--variants",
-                    help="d2q9: the variants to build, as "
-                         "'width,rows,segment,min_blocks;...' (default "
-                         "VARIANTS_2D); --one-step: as 'tile_y,threads,"
-                         "zchunk,lag;...' (default VARIANTS_1)")
+                    help="d2q9 and --multiphase: the variants to build, as "
+                         "'width,rows,segment,min_blocks[,ahead[,link_"
+                         "ahead]];...' "
+                         "(default VARIANTS_2D, VARIANTS_1_2D, VARIANTS_MP);"
+                         " "
+                         "--one-step: as 'tile_y,threads,zchunk,lag;...' "
+                         "(default VARIANTS_1)")
     ap.add_argument("--one-step", action="store_true",
                     help="the 1-step D3Q19 kernel's z-march (csrc/"
-                         "step_d3q19.cu) over ONE_STEP_CASES")
+                         "step_d3q19.cu) over ONE_STEP_CASES; with "
+                         "--lattice d2q9 the 1-step D2Q9 row march "
+                         "(csrc/step_d2q9.cu) over ONE_STEP_2D_CASES")
+    ap.add_argument("--multiphase", action="store_true",
+                    help="the Shan-Chen row march (csrc/step_multiphase.cu)"
+                         " over MP_CASES")
     ap.add_argument("--cases", help="--one-step: the cases to run, "
                                     "comma-separated (default all)")
     ap.add_argument("--sources",
@@ -197,6 +258,10 @@ def main(argv=None) -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card)
     dev = torch.device("cuda", 0)
+    if args.multiphase:
+        return sweep_march_2d(args, card, dev, multiphase=True)
+    if args.one_step and args.lattice == "d2q9":
+        return sweep_march_2d(args, card, dev, multiphase=False)
     if args.one_step:
         return sweep_one_step(args, card, dev)
     if args.lattice == "d2q9":
@@ -616,6 +681,305 @@ def sweep_one_step(args, card: str, dev) -> int:
                                      anchor=anchor, bound_ms=bound,
                                      variants=rows)
         del case
+        torch.cuda.empty_cache()
+    line = json.dumps(result)
+    print(line)
+    if args.json:
+        with open(args.json, "w") as fh:
+            fh.write(line + "\n")
+    if not ok:
+        print("tile_sweep: a variant or the default is not right")
+        return 1
+    return 0
+
+
+def _build_march(source, variant, defines, multiphase):
+    """A variant of the 1-step D2Q9 or the Shan-Chen row march: (library,
+    ptxas's report) or (None, the error)."""
+    name = (f"tile_sweep_{'mp' if multiphase else 'd2q9_1'}_"
+            + "_".join(map(str, variant)) + "_"
+            + "_".join(d.lstrip("-D").replace("=", "") for d in defines))
+    out = cuda_build.build_dir() / "tile_sweep" / f"{name}.so"
+    try:
+        if not out.exists():   # cases of one build share it
+            cuda_build.compile_library(
+                cuda_build.SOURCE_DIR / source, out,
+                defines + knob_defines(variant, KNOBS_MARCH))
+    except RuntimeError as err:   # e.g. rings beyond 227 KB
+        return None, str(err).splitlines()[-1][:300]
+    lib = ctypes.CDLL(str(out))
+    rings = "-DTPULBM_RINGS=1" in defines
+    if multiphase:
+        from ..ops import step_multiphase_cuda
+        lib = step_multiphase_cuda._bind_march(lib)
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        fn = ("tpulbm_multiphase_step_rings" if rings
+              else "tpulbm_multiphase_step")
+        getattr(lib, fn).argtypes = (
+            [ptr] * 6 + [i32] * 7 + [ptr, ptr, i32, ptr] if rings
+            else [ptr, ptr, i32, i32, ptr, ptr, i32, ptr])
+    else:
+        lib = step_cuda._bind_march1(lib)
+        fn = "tpulbm_d2q9_step_rings" if rings else "tpulbm_d2q9_step"
+        getattr(lib, fn).argtypes = (
+            step_cuda._RINGS_ARGS + step_cuda._CONSTS_ARGS if rings else
+            _D2Q9_STEP_ARGS)
+    getattr(lib, fn).restype = ctypes.c_int
+    lib.tpulbm_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.tpulbm_cuda_error_string.restype = ctypes.c_char_p
+    return lib, ptxas_lines(out.with_suffix(".log").read_text())
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_D2Q9_STEP_ARGS = [_P, _P, _P, _I, _I, _F, _F, _F, _P, _P, _I, _P, _P, _F, _F,
+                   _I, _P, _P, _I, _I, _P]
+
+
+def _march_problem(name, multiphase):
+    """(problem, mesh shape or None, ranged) of a --lattice d2q9 --one-step
+    or --multiphase case."""
+    from ..config import PRESETS
+    if multiphase:
+        params = SimulationParams(
+            problem="multiphase", nx=2048, ny=512, tau=1.0,
+            shan_chen_g=-5.0, inlet_velocity=0.0, cylinder_radius=0.15,
+            cylinder_x=0.5, cylinder_y=0.5)
+        shape, ranged = MP_CASES[name], False
+    else:
+        kw, shape, ranged = ONE_STEP_2D_CASES[name]
+        kw = dict(kw)
+        preset = kw.pop("preset", None)
+        params = (PRESETS[preset].replace(**kw) if preset
+                  else SimulationParams(**kw))
+    return (make_problem(params.replace(precision="f32", enable_vtk=False)),
+            shape, ranged)
+
+
+def _march_defines(name, multiphase) -> tuple:
+    """nvcc's defines of a case's library (its ring build on a mesh)."""
+    problem, shape, _ = _march_problem(name, multiphase)
+    rings = ("-DTPULBM_RINGS=1",) if shape else ()
+    if multiphase:
+        return rings
+    c = step_cuda.StepConstants.of(problem)
+    return step_cuda.build_defines(c.mode, c.variant) + rings
+
+
+def _march_case(name, dev, multiphase):
+    """A --lattice d2q9 --one-step or --multiphase case: (problem,
+    launcher(lib) -> step(f, out) for shard (0, 0) or one device, the
+    default's reference (the plain step or plain ring step of the state),
+    anchor(lib) -> bool (N=2 bitwise 2 launches, or the shards bitwise one
+    device), the state, its grid (cols, rows), the bound's bytes, the
+    defines)."""
+    import numpy as np
+    from ..ops import bouzidi, step_multiphase, step_multiphase_cuda
+    from ..ops import step_rings_torch, step_torch
+    from ..parallel import halo, mesh, sharded_step
+    problem, shape, ranged = _march_problem(name, multiphase)
+    f0 = state_from_numpy(problem.initial_state(), problem, dev)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    fp = f0 * (0.9 + 0.2 * torch.rand(f0.shape, generator=gen, device=dev))
+    if problem.solid is not None:
+        solid = torch.as_tensor(problem.solid, device=dev)
+        w = torch.as_tensor(problem.lattice.w, dtype=fp.dtype, device=dev)
+        fp = torch.where(solid, w.view(-1, 1, 1), fp)
+    stream = lambda: torch.cuda.current_stream(dev).cuda_stream  # noqa: E731
+    defines = _march_defines(name, multiphase)
+    if multiphase:
+        consts = step_multiphase_cuda.MultiphaseConstants.of(problem)
+        one_port = step_multiphase_cuda.make_local_step_multiphase_cuda(
+            problem, dev)
+    else:
+        consts = step_cuda.kernel_constants(problem, 9)
+        one_port = step_cuda.make_local_step_cuda(problem, dev)
+    ny, nx = problem.spatial_shape
+    if shape is None:
+        if multiphase:
+            def launcher(lib):
+                def step(f, out):
+                    rc = lib.tpulbm_multiphase_step(
+                        f.data_ptr(), out.data_ptr(), nx, ny,
+                        *consts.arrays, dev.index or 0, stream())
+                    step_cuda._check_launch(lib, rc, f"sweep {name}")
+                    return out
+                return step
+            plain = step_multiphase.make_step_multiphase(problem, dev)
+            anchor = lambda lib: True   # noqa: E731 (no N-step kernel)
+            nbytes = 72 * nx * ny
+        else:
+            solid = torch.as_tensor(step_cuda.kernel_mask(problem),
+                                    device=dev)
+            links = (bouzidi.device_table(problem, dev)
+                     if consts.variant & step_cuda.BOUZIDI else None)
+
+            def launcher(lib):
+                def step(f, out):
+                    rc = lib.tpulbm_d2q9_step(*step_cuda.launch_args(
+                        f, out, solid, consts, 1, links, stream()))
+                    step_cuda._check_launch(lib, rc, f"sweep {name}")
+                    return out
+                return step
+            plain = step_torch.make_step_rolled(problem, dev)
+            blocked = step_cuda.make_local_step_cuda_blocked(problem, dev, 2)
+
+            def anchor(lib):
+                one = launcher(lib)
+                h = one(one(fp, torch.empty_like(fp)), torch.empty_like(fp))
+                return bool(torch.equal(blocked(fp, torch.empty_like(fp)),
+                                        h))
+            nbytes = 73 * nx * ny + (
+                0 if links is None else
+                int((solid & step_cuda.LINK_BIT).ne(0).sum()) * 32)
+        return dict(problem=problem, launcher=launcher,
+                    want=plain(fp), anchor=anchor, f=fp, grid=(nx, ny),
+                    nbytes=nbytes, defines=defines)
+    m = mesh.make_mesh(shape, devices=[dev] * (shape[0] * shape[1]))
+    local = sharded_step.block_shape(problem, m)
+    nyl, nxl = local
+    x_rings = shape[1] != 1
+    depth = step_multiphase_cuda.DEPTH if multiphase else 1
+    blocks = sharded_step.split(m, fp)
+    rings = halo.exchange(blocks, eq_ring=problem.ghost_ring_values(),
+                          depth=depth, periodic_x=problem.periodic_x,
+                          periodic_y=problem.periodic_y, x_rings=x_rings)
+    if multiphase:
+        geo = {c: step_cuda.Shard(
+            index=c, origin=sharded_step.origin(m, local, *c),
+            local_shape=local, grid=tuple(problem.spatial_shape),
+            depth=depth, x_rings=x_rings) for c in m.shards()}
+
+        def launch(lib, b, out, r, c, rows=None):
+            rc = lib.tpulbm_multiphase_step_rings(
+                *step_multiphase_cuda.ring_args(b, out, r, geo[c], consts,
+                                                dev.index or 0, stream()))
+            step_cuda._check_launch(lib, rc, f"sweep {name}")
+            return out
+        ring_plain = step_multiphase.make_ring_step_multiphase(
+            problem, geo[0, 0].origin, local, dev)
+    else:
+        solid = (np.zeros(problem.spatial_shape, bool)
+                 if problem.solid is None else problem.solid)
+        masks = halo.pad_mask(sharded_step.shard_mask(m, solid),
+                              periodic_x=problem.periodic_x,
+                              periodic_y=problem.periodic_y, depth=1)
+        grid = sharded_step.kernel_shards(problem, m, 1, x_rings, masks)
+
+        def launch(lib, b, out, r, c, rows=None):
+            g = grid[c[0]][c[1]]
+            step_cuda.check_shard(b, out, r, g, 1, rows or (0, nyl))
+            rc = lib.tpulbm_d2q9_step_rings(*step_cuda.ring_launch_args(
+                b, out, r, g, consts, 1, rows or (0, nyl), stream()))
+            step_cuda._check_launch(lib, rc, f"sweep {name}")
+            return out
+        ring_plain = step_rings_torch.make_ring_step(
+            problem, sharded_step.origin(m, local, 0, 0), local, 1,
+            masks[0][0] if problem.solid is not None else None, dev)
+
+    def shard_step(lib, c):
+        b, r = blocks[c[0]][c[1]], rings[c[0]][c[1]]
+
+        def step(f, out):
+            if ranged:
+                launch(lib, b, out, (None,) * 4, c, (2, nyl - 2))
+                launch(lib, b, out, r, c, (0, 2))
+                return launch(lib, b, out, r, c, (nyl - 2, nyl))
+            return launch(lib, b, out, r, c)
+        return step
+
+    def anchor(lib):
+        outs = [[torch.empty_like(b) for b in row] for row in blocks]
+        for c in m.shards():
+            shard_step(lib, c)(None, outs[c[0]][c[1]])
+        return bool(torch.equal(sharded_step.gather(outs),
+                                one_port(fp, torch.empty_like(fp))))
+    hx = depth if x_rings else 0
+    return dict(problem=problem, launcher=lambda lib: shard_step(lib, (0, 0)),
+                want=ring_plain(blocks[0][0], *rings[0][0]), anchor=anchor,
+                f=blocks[0][0], grid=(nxl, nyl),
+                nbytes=(72 if multiphase else 73) * nxl * nyl
+                + 36 * (2 * depth * (nxl + 2 * hx) + 2 * hx * nyl),
+                defines=defines)
+
+
+def sweep_march_2d(args, card: str, dev, multiphase: bool) -> int:
+    """The 1-step D2Q9 row march's variants (VARIANTS_1_2D) over
+    ONE_STEP_2D_CASES, or the Shan-Chen march's (VARIANTS_MP) over
+    MP_CASES."""
+    source = "step_multiphase.cu" if multiphase else "step_d2q9.cu"
+    names = (args.cases.split(",") if args.cases
+             else list(MP_CASES if multiphase else ONE_STEP_2D_CASES))
+    variants = ([tuple(int(x) for x in v.split(",")) for v in
+                 args.variants.split(";")] if args.variants
+                else (VARIANTS_MP if multiphase else VARIANTS_1_2D))
+    if args.only_default:
+        variants = variants[:1]
+    result, ok = {"card": card, "source": source, "cases": {}}, True
+    # every case's variants (and the port's own libraries) at once
+    jobs = list(dict.fromkeys((v, _march_defines(name, multiphase))
+                              for name in names for v in variants))
+    with ThreadPoolExecutor(32) as pool:
+        built_all = dict(zip(jobs, pool.map(
+            lambda j: _build_march(source, j[0], j[1], multiphase), jobs)))
+    for name in names:
+        case = _march_case(name, dev, multiphase)
+        built = [built_all[v, case["defines"]] for v in variants]
+        default = built[0][0]
+        f = case["f"]
+        base = case["launcher"](default)(f, torch.empty_like(f))
+        torch.cuda.synchronize()
+        tol = (dict(rtol=1e-4, atol=1e-7)
+               if case["problem"].params.power_law_n
+               else dict(rtol=5e-6, atol=1e-7))
+        err = float((base - case["want"]).abs().max())
+        plain_ok = bool(torch.allclose(base, case["want"], **tol))
+        anchor = case["anchor"](default)
+        rows, libs = [], []
+        for v, (lib, regs) in zip(variants, built):
+            if lib is None:
+                print(f"  {v}: not built: {regs}")
+                continue
+            out = case["launcher"](lib)(f, torch.empty_like(f))
+            torch.cuda.synchronize()
+            nx, ny = case["grid"]
+            if multiphase:
+                shape = (lib.tpulbm_multiphase_width(),
+                         lib.tpulbm_multiphase_rows(),
+                         lib.tpulbm_multiphase_threads(),
+                         lib.tpulbm_multiphase_smem_bytes(),
+                         divmod(lib.tpulbm_multiphase_grid(nx, ny, 0),
+                                65536))
+            else:
+                shape = (lib.tpulbm_d2q9_width(), lib.tpulbm_d2q9_rows(),
+                         lib.tpulbm_d2q9_threads(),
+                         lib.tpulbm_d2q9_smem_bytes(0),
+                         divmod(lib.tpulbm_d2q9_grid(nx, ny, 0, 0), 65536))
+            rows.append(dict(
+                variant=dict(zip(("width", "rows", "segment", "min_blocks",
+                                  "ahead", "link_ahead"), v)),
+                shape=dict(zip(("width", "rows", "threads", "smem",
+                                "strips_segments"), shape)),
+                bitwise=bool(torch.equal(out, base)), ptxas=regs, ms=[]))
+            libs.append(lib)
+        order = list(range(len(rows)))
+        for turn in (order, order[::-1]):
+            for i in turn:
+                rows[i]["ms"].append(device_ms(case["launcher"](libs[i]), f,
+                                               200, 1))
+        bound = 1e3 * case["nbytes"] / 3.35e12
+        print(f"{name} ({card}): the default within {err:.3e} of the plain "
+              f"step ({'ok' if plain_ok else 'NOT within tolerance'}); "
+              f"anchor bitwise {anchor}; bound {bound:.5f} ms")
+        for r in rows:
+            print(f"  {r['variant']}: {min(r['ms']):.5f} ms/step {r['ms']} "
+                  f"({100 * bound / min(r['ms']):.1f}% of the bound) on the "
+                  f"card's clock; {r['shape']}; bitwise {r['bitwise']}; "
+                  f"ptxas {r['ptxas']}")
+        ok = ok and plain_ok and anchor and all(r["bitwise"] for r in rows)
+        result["cases"][name] = dict(max_abs_err=err, plain_ok=plain_ok,
+                                     anchor=anchor, bound_ms=bound,
+                                     variants=rows)
+        del case, libs
         torch.cuda.empty_cache()
     line = json.dumps(result)
     print(line)
