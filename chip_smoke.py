@@ -462,7 +462,25 @@ printing its own line; any failure exits non-zero:
    64^3 for 1 and 3 chained iterations (rtol 5e-6, atol 1e-7);
 72. the lab at 256^3: its JSON lines, each variant's ms and its share of
    the 0.76123 ms byte bound, `full` beside the 1-step D3Q19 duct kernel
-   in the same turns, the plain lab's times and dma's one PyTorch copy.
+   in the same turns, the plain lab's times and dma's one PyTorch copy;
+73. several processes (parallel/multihost.py), each a child started here
+   with torchrun's variables that loads the libraries this process built
+   (a build in a child raises), over gloo on cuda:0 (NCCL refuses two
+   ranks on one card): re200 2048x512 f32 on (2,1) across 2 processes, 560
+   steps every 140, a checkpoint at 280 and a resume to 560: the gathered
+   state hash equal to the one-process (2,1) run's (run the same way here)
+   and the one-device run's, process 0's forces.csv and velocity_field.csv
+   byte-identical to the one-process run's, process 1 writing none, the
+   launches per shard the one-process run's; each run's wall seconds and
+   a depth-4 ring exchange's ms, beside the card's name and power limit
+   (processes that share the card time-slice it: records, not speeds);
+74. scale-8m (4096x2048) on (2,2) across 4 processes, 280 steps: the state
+   hash and the launches per shard equal to the one-process 2x2 chunk's;
+75. a corrupt checkpoint (process 0's newest manifest garbled): every
+   process exits non-zero with process 0's message;
+76. with two cards or more, phase 73 again over NCCL, a card a process;
+   with one, "multihost nccl: not run (1 card)". Every child is killed
+   past MH_LIMIT seconds and the phase fails.
 
 Run directories go to build/chip_smoke/ (git-ignored; the final CSVs have
 a million rows). The last two lines are a JSON line per kernel and the
@@ -6655,6 +6673,332 @@ def lab_phases(dev, card: str) -> list[dict]:
             for r in rows]
 
 
+# ---- phases 73-76: several processes (parallel/multihost.py) --------------
+
+# The re200 main path at full width on (2,1) across 2 processes (a), in two
+# halves with a checkpoint at MH_HALF; scale-8m on (2,2) across 4 (b).
+# Processes that share the one card time-slice it over gloo (NCCL refuses
+# two ranks on one card), so their wall times are records, not speeds.
+MH_STEPS, MH_HALF, MH_FREQ = 560, 280, 140
+MH_8M_STEPS = 280
+MH_LIMIT = 150          # seconds a spawn may take before it is killed
+MH_EXCHANGES = 20       # timed ring exchanges per process
+MH_CHILD = ("import sys; sys.path.insert(0, sys.argv[3]); import chip_smoke; "
+            "sys.exit(chip_smoke.mh_child(sys.argv[1], sys.argv[2]))")
+
+
+def state_hash(x) -> str:
+    """sha256 of a host array's bytes."""
+    import hashlib
+    return hashlib.sha256(np.ascontiguousarray(x).tobytes()).hexdigest()
+
+
+def mh_params(out_dir: Path, steps: int, **kw):
+    from tpulbm_torch.config import PRESETS
+    return PRESETS["re200"].replace(
+        precision="f32", enable_vtk=False, num_timesteps=steps,
+        output_frequency=MH_FREQ, output_dir=str(out_dir), **kw)
+
+
+def mh_halves(params, **runner_kw):
+    """The run to MH_HALF with a checkpoint every chunk, then resumed from
+    MH_HALF to params.num_timesteps, counted from the first half's start;
+    returns (the resumed Runner, its final state the grid of its mesh,
+    ring launches per (library, depth, shard), wall seconds of both
+    halves)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    first = CapturingRunner(params.replace(num_timesteps=MH_HALF,
+                                           checkpoint_every=1),
+                            verbose=False, **runner_kw)
+    require(first.run().success, "the first half failed")
+    second = CapturingRunner(params.replace(checkpoint_every=1),
+                             verbose=False, **runner_kw)
+    result = second.run(resume=True)
+    wall = time.perf_counter() - t0
+    require(result.success and result.final_step == params.num_timesteps,
+            "the resumed half failed")
+    return second, ring_counts(), wall
+
+
+def exchange_ms(shards, eq_ring, depth: int, x_rings: bool,
+                mesh=None) -> float:
+    """Median wall ms of a ring exchange of `shards` (the grid of `mesh`)
+    at `depth`, each ended by a synchronize (every process runs as
+    many)."""
+    from tpulbm_torch.parallel import halo
+    times = []
+    for _ in range(MH_EXCHANGES):
+        t0 = time.perf_counter()
+        halo.exchange(shards, eq_ring=eq_ring, depth=depth, periodic_x=False,
+                      x_rings=x_rings, mesh=mesh)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def mh_child(task: str, args: str) -> int:
+    """One process of a multihost phase: joins the others through torchrun's
+    variables over args' backend, refuses to build a library (the parent
+    built them), runs `task` and writes its results under args' dir."""
+    from tpulbm_torch.parallel import multihost
+    from tpulbm_torch.utils import cuda_build
+
+    def refuse(src, out, defines=()):
+        raise RuntimeError(f"{src} {defines} would be built anew; the parent "
+                           "builds every library first")
+
+    cuda_build.compile_library = refuse
+    args = json.loads(args)
+    dev = multihost.initialize(backend=args["backend"])
+    rank = multihost.process_index()
+    print(f"multihost: process {rank} of {multihost.process_count()} on "
+          f"{dev} over {multihost.backend()}")
+    try:
+        out = Path(args["dir"])
+        out.mkdir(parents=True, exist_ok=True)
+        result = {"re200": mh_re200, "scale8m": mh_scale8m,
+                  "corrupt": mh_corrupt}[task](out, rank)
+        (out / f"result{rank}.json").write_text(json.dumps(result))
+    finally:
+        multihost.shutdown()
+    return 0
+
+
+def mh_re200(out: Path, rank: int) -> dict:
+    from tpulbm_torch.parallel import multihost
+    params = mh_params(out / f"rank{rank}", MH_STEPS, mesh_shape=(2, 1))
+    runner, counts, wall = mh_halves(params)
+    whole = multihost.fetch_global(runner.final_state, runner.mesh)
+    from tpulbm_torch.models import make_problem
+    ms = exchange_ms(runner.final_state,
+                     make_problem(params).ghost_ring_values(), 4, False,
+                     runner.mesh)
+    return {"hash": state_hash(whole), "wall": wall, "exchange_ms": ms,
+            "counts": [[lib, d, list(idx), n]
+                       for (lib, d, idx), n in counts.items()]}
+
+
+def mh_scale8m(out: Path, rank: int) -> dict:
+    from tpulbm_torch.config import PRESETS
+    from tpulbm_torch.models import make_problem
+    from tpulbm_torch.parallel import multihost, sharded_step
+    from tpulbm_torch.parallel.mesh import make_mesh
+    problem = make_problem(PRESETS["scale-8m"].replace(precision="f32",
+                                                       enable_vtk=False))
+    mesh = make_mesh(MAIN_MESH)
+    shards, _ = sharded_step.shard_initial_state(problem, mesh)
+    chunk = sharded_step.make_chunk_fn(problem, mesh, MH_8M_STEPS)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    shards = chunk(shards)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ring_counts()
+    ms = exchange_ms(shards, problem.ghost_ring_values(), chunk.substeps,
+                     True, mesh)
+    whole = multihost.fetch_global(shards, mesh)
+    return {"hash": state_hash(whole), "wall": wall, "exchange_ms": ms,
+            "mode": chunk.mode, "depth": chunk.substeps,
+            "counts": [[lib, d, list(idx), n]
+                       for (lib, d, idx), n in counts.items()]}
+
+
+def mh_corrupt(out: Path, rank: int) -> dict:
+    """Resume past MH_STEPS from (a)'s directories with process 0's newest
+    manifest garbled: must raise on every process (nothing caught)."""
+    from tpulbm_torch.runner import Runner
+    from tpulbm_torch.utils import checkpoint as ckpt
+    params = mh_params(out / f"rank{rank}", MH_STEPS + MH_FREQ,
+                       mesh_shape=(2, 1), checkpoint_every=1)
+    if rank == 0:
+        latest = Path(ckpt.latest(str(out / "rank0" / "checkpoints")))
+        (latest / "manifest.json").write_text("{ not json")
+    Runner(params, verbose=False).run(resume=True)
+    return {"resumed": True}
+
+
+def mh_spawn(task: str, n: int, args: dict) -> list:
+    """`task` in n processes of chip_smoke.mh_child joined by torchrun's
+    variables on this host; returns [(exit code, output)] by rank. Past
+    MH_LIMIT seconds every child is killed and the phase fails."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = str(Path(__file__).resolve().parent)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MH_CHILD, task, json.dumps(args), root],
+        env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(n),
+                 LOCAL_RANK=str(r), MASTER_ADDR="127.0.0.1",
+                 MASTER_PORT=str(port)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, cwd=root)
+        for r in range(n)]
+    deadline = time.perf_counter() + MH_LIMIT
+    outs = []
+    try:
+        for proc in procs:
+            out, _ = proc.communicate(
+                timeout=max(1.0, deadline - time.perf_counter()))
+            outs.append(out.decode(errors="replace"))
+    except subprocess.TimeoutExpired:
+        for proc in procs:
+            proc.kill()
+        for proc in procs:
+            proc.communicate()
+        require(False, f"multihost {task}: {n} processes passed "
+                f"{MH_LIMIT} s")
+    for r, out in enumerate(outs):
+        for line in out.splitlines():
+            if line.startswith("multihost"):
+                print(f"  [{task} {r}] {line}")
+    return [(p.returncode, out) for p, out in zip(procs, outs)]
+
+
+def mh_results(task: str, n: int, args: dict) -> list:
+    """mh_spawn whose every child must exit 0; their results by rank."""
+    runs = mh_spawn(task, n, args)
+    for r, (rc, out) in enumerate(runs):
+        require(rc == 0, f"multihost {task}: process {r} exited {rc}:\n"
+                f"{out[-3000:]}")
+    return [json.loads((Path(args["dir"]) / f"result{r}.json").read_text())
+            for r in range(n)]
+
+
+def mh_counts(results: list) -> dict:
+    return {(lib, d, tuple(idx)): n for res in results
+            for lib, d, idx, n in res["counts"]}
+
+
+def mh_re200_check(label: str, out: Path, results: list, ref: dict,
+                   card: str) -> None:
+    """(a): the gathered hash, process 0's CSVs (in out/rank0) and every
+    shard's launches against the one-process (2,1) run and the one-device
+    run."""
+    for r, res in enumerate(results):
+        require(res["hash"] == ref["hash"] == ref["one_device"],
+                f"{label}: process {r}'s state hash {res['hash'][:16]} is "
+                f"not the one-process run's {ref['hash'][:16]} / one "
+                f"device's {ref['one_device'][:16]}")
+    counts = mh_counts(results)
+    require(counts == ref["counts"],
+            f"{label}: launches {counts}, one process {ref['counts']}")
+    require(same_files(out / "rank0", ref["dir"],
+                       ["forces.csv", "velocity_field.csv"]),
+            f"{label}: process 0's CSVs differ from the one-process run's")
+    require(sorted(os.listdir(out / "rank1")) == ["checkpoints"],
+            f"{label}: process 1 wrote an artifact")
+    print(f"multihost {label}: re200 2048x512 f32 on (2,1), {MH_STEPS} "
+          f"steps every {MH_FREQ}, checkpoint at {MH_HALF} and resumed: "
+          f"state hash {ref['hash'][:16]} = the one-process run's = one "
+          f"device's; forces.csv and velocity_field.csv byte-identical; "
+          f"launches per shard {sorted(counts.items())} = one process's; "
+          f"wall {[round(r['wall'], 3) for r in results]} s (one process "
+          f"{ref['wall']:.3f} s), ring exchange at depth 4 "
+          f"{[round(r['exchange_ms'], 4) for r in results]} ms (one process "
+          f"{ref['exchange_ms']:.4f} ms) on {card}")
+
+
+def multihost_phases(dev, card: str) -> list:
+    """Phases 73-76: the main paths across processes. Returns no kernel
+    entries (the processes launch the ring builds of phases 30-34)."""
+    from tpulbm_torch.config import PRESETS
+    from tpulbm_torch.models import make_problem
+    from tpulbm_torch.ops import step_cuda
+    from tpulbm_torch.parallel import sharded_step
+    from tpulbm_torch.utils import cuda_build
+
+    t_all = time.perf_counter()
+    # every library the children launch, built here (they refuse to build)
+    for src, mode, variant in mesh_builds():
+        cuda_build.load(src, step_cuda.build_defines(mode, variant))
+    base = OUT_DIR / "multihost"
+    shutil.rmtree(base, ignore_errors=True)
+
+    # phase 73 (a): re200 on (2,1), one process for reference, then two
+    ref_dir = base / "re200" / "one"
+    runner, counts, wall = mh_halves(
+        mh_params(ref_dir, MH_STEPS, mesh_shape=(2, 1)), devices=[dev] * 2)
+    state = runner.final_state
+    del runner
+    problem = make_problem(mh_params(ref_dir, MH_STEPS))
+    ref = {"dir": ref_dir, "counts": counts, "wall": wall,
+           "hash": state_hash(sharded_step.gather(state).cpu().numpy()),
+           "exchange_ms": exchange_ms(state, problem.ghost_ring_values(), 4,
+                                      False)}
+    del state
+    one = CapturingRunner(mh_params(base / "re200" / "one_device",
+                                    MH_STEPS), device=dev, verbose=False)
+    require(one.run().success, "the one-device re200 run failed")
+    ref["one_device"] = state_hash(one.final_state[0][0].cpu().numpy())
+    del one
+    torch.cuda.empty_cache()
+    print("multihost: the processes share cuda:0 over gloo (NCCL refuses "
+          "two ranks on one card): rings and gathers through host memory")
+    mh_re200_check("(a) 2 processes over gloo", base / "re200", mh_results(
+        "re200", 2, {"dir": str(base / "re200"), "backend": "gloo"}), ref,
+        card)
+
+    # phase 74 (b): scale-8m on (2,2), four processes against one
+    p8 = PRESETS["scale-8m"].replace(precision="f32", enable_vtk=False)
+    problem8 = make_problem(p8)
+    mesh8 = card_mesh(MAIN_MESH, dev)
+    shards, _ = sharded_step.shard_initial_state(problem8, mesh8)
+    chunk = sharded_step.make_chunk_fn(problem8, mesh8, MH_8M_STEPS)
+    reset_counts()
+    t0 = time.perf_counter()
+    shards = chunk(shards)
+    torch.cuda.synchronize()
+    wall8 = time.perf_counter() - t0
+    counts8 = ring_counts()
+    ms8 = exchange_ms(shards, problem8.ghost_ring_values(), chunk.substeps,
+                      True)
+    hash8 = state_hash(sharded_step.gather(shards).cpu().numpy())
+    del shards, chunk
+    torch.cuda.empty_cache()
+    res8 = mh_results("scale8m", 4, {"dir": str(base / "scale8m"),
+                                     "backend": "gloo"})
+    for r, res in enumerate(res8):
+        require(res["hash"] == hash8, f"(b): process {r}'s state hash "
+                f"{res['hash'][:16]} is not the one-process 2x2 run's "
+                f"{hash8[:16]}")
+    require(mh_counts(res8) == counts8,
+            f"(b): launches {mh_counts(res8)}, one process {counts8}")
+    print(f"multihost (b) 4 processes over gloo: scale-8m {p8.nx}x{p8.ny} "
+          f"f32 on (2,2), {MH_8M_STEPS} steps ({res8[0]['mode']} at "
+          f"N={res8[0]['depth']}): state hash {hash8[:16]} = the "
+          f"one-process 2x2 chunk's (phase 33's mesh and builds); launches "
+          f"per shard = one process's ({sorted(counts8.items())}); wall "
+          f"{[round(r['wall'], 3) for r in res8]} s (one process "
+          f"{wall8:.3f} s), ring exchange at depth {res8[0]['depth']} "
+          f"{[round(r['exchange_ms'], 4) for r in res8]} ms (one process "
+          f"{ms8:.4f} ms) on {card}")
+
+    # phase 75 (c): a corrupt checkpoint fails every process
+    runs = mh_spawn("corrupt", 2, {"dir": str(base / "re200"),
+                                   "backend": "gloo"})
+    for r, (rc, out) in enumerate(runs):
+        require(rc != 0 and "checkpoint load failed on process 0 "
+                "(JSONDecodeError" in out,
+                f"(c): process {r} exited {rc} without process 0's "
+                f"message:\n{out[-3000:]}")
+    print(f"multihost (c): process 0's manifest garbled: both processes "
+          f"exit {[rc for rc, _ in runs]} with \"checkpoint load failed on "
+          f"process 0 (JSONDecodeError ...)\"")
+
+    # phase 76 (d): NCCL between cards
+    if torch.cuda.device_count() >= 2:
+        mh_re200_check("(d) 2 processes over NCCL", base / "nccl",
+                       mh_results("re200", 2, {"dir": str(base / "nccl"),
+                                               "backend": "nccl"}), ref,
+                       card)
+    else:
+        print("multihost nccl: not run (1 card)")
+    print(f"multihost phases: {time.perf_counter() - t_all:.2f} s")
+    return []
+
+
 def gate_references():
     """(slab_problem keywords, steps) of phase 64's f32 plain-step
     references: the staircase pair and both Couette channels."""
@@ -6861,7 +7205,7 @@ def main() -> int:
 
 
 def run_phases(dev, card: str, t_start: float, refs: dict) -> list[dict]:
-    """Phases 2 (its shared-memory report) to 66; returns the kernels' JSON
+    """Phases 2 (its shared-memory report) to 76; returns the kernels' JSON
     entries. `refs`: phase 64's plain references (gate_references) as
     futures."""
     from tpulbm_torch.config import PRESETS
@@ -7061,7 +7405,7 @@ def run_phases(dev, card: str, t_start: float, refs: dict) -> list[dict]:
               ("56-60", coupled_mesh_phases),
               ("61-66", lambda d, c: remainder_phases(d, c, refs)),
               ("67-68", deep2d_phases), ("69-70", deep3d_phases),
-              ("71-72", lab_phases)]
+              ("71-72", lab_phases), ("73-76", multihost_phases)]
     print(f"chip_smoke: {time.perf_counter() - t_start:.2f} s after phases "
           "1-5")
     for names, phases in groups:

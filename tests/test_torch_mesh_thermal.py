@@ -248,11 +248,25 @@ def test_cli_mesh_runs_a_thermal_preset(tmp_path, capsys):
     assert _csv(tmp_path / "probes.csv").shape[0] == 2
 
 
-def test_several_hosts_stay_refused():
-    # ROADMAP Queue 1 item 19, step 4: one process per host
+def test_several_hosts_stay_refused(tmp_path):
+    # the name is older than the port's several processes: --distributed
+    # was refused until parallel/multihost.py. Now two processes over
+    # gloo run Rayleigh-Benard on (2,1) and process 0 writes the one-process
+    # mesh run's bytes
+    from test_torch_multihost import spawn
     from tpulbm_torch.__main__ import main
-    with pytest.raises(NotImplementedError, match="item 19"):
-        main(["--distributed", "--cpu", "--preset", "rayleigh-benard"])
+    cli = ["--cpu", "--mesh", "2x1", "--preset", "rayleigh-benard", "--nx",
+           "64", "--ny", "32", "--num-timesteps", "40",
+           "--output-frequency", "20", "--no-vtk"]
+    runs = spawn(2, ["-m", "tpulbm_torch", "--distributed", *cli,
+                     "--output-dir", str(tmp_path / "two")])
+    for rank, (rc, out) in enumerate(runs):
+        assert rc == 0, f"rank {rank} exited {rc}:\n{out[-4000:]}"
+    assert main([*cli, "--output-dir", str(tmp_path / "one")]) == 0
+    for name in ("nusselt.csv", "temperature_field.csv",
+                 "velocity_field.csv"):
+        assert (tmp_path / "two" / name).read_bytes() == \
+            (tmp_path / "one" / name).read_bytes(), name
 
 
 # ---- the ring wrapper -----------------------------------------------------

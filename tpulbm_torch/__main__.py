@@ -43,6 +43,17 @@ does not cover yet raise NotImplementedError.
     python -m tpulbm_torch --problem cylinder3d --nx 128 --ny 128 --nz 128 \
         --inlet-velocity 0.05 --cylinder-radius 0.23 --lattice3d d3q27 \
         --obstacle-bc bouzidi --mesh 2x1 --no-vtk
+
+--distributed runs one process of several (parallel/multihost.py):
+torchrun, or RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT set
+by hand, describes them; each drives its run of the mesh's shards, NCCL
+between cards, gloo with --cpu; process 0 prints and writes. --mesh auto
+then divides the grid over the processes.
+
+    torchrun --nproc-per-node 2 -m tpulbm_torch --distributed --cpu \
+        --mesh 2x1 --preset cylinder-small
+    torchrun --nproc-per-node 4 -m tpulbm_torch --distributed \
+        --preset scale-8m --mesh 2x2 --no-vtk
 """
 from __future__ import annotations
 
@@ -68,30 +79,45 @@ def build_parser() -> argparse.ArgumentParser:
                         help="start from t=0 even if --checkpoint-every is "
                              "set and a checkpoint exists")
     parser.add_argument("--distributed", action="store_true",
-                        help="not ported (several hosts)")
+                        help="one of several processes (torchrun's "
+                             "variables): NCCL between cards, gloo with "
+                             "--cpu")
     return parser
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.distributed:
-        raise NotImplementedError(
-            "several hosts are not ported to tpulbm_torch yet (ROADMAP "
-            "Queue 1 item 19, multi-host on torch.distributed)")
     if args.cpu_devices and not args.cpu:
         raise ValueError("--cpu-devices counts host shards; it needs --cpu")
+    if args.cpu_devices and args.distributed:
+        raise ValueError("--cpu-devices counts one process's host shards; "
+                         "--distributed runs a shard a process")
+    from .config import params_from_args
+    from .parallel import multihost
+
+    params = params_from_args(args)
+    if args.distributed:
+        multihost.initialize(cpu=args.cpu)
+    try:
+        return _run(args, params)
+    finally:
+        multihost.shutdown()
+
+
+def _run(args, params) -> int:
     import torch
 
-    from .config import params_from_args
+    from .parallel import multihost
     from .parallel.mesh import choose_decomposition
     from .runner import Runner
     from .utils.profiling import trace
 
-    params = params_from_args(args)
     if args.mesh == "auto":
         # tpulbm's main.py:59-70: the 3-D kernels shard y only, every 2-D
-        # decomposition runs the kernels, so the reference's chooser
-        n_dev = (max(args.cpu_devices, 1) if args.cpu
+        # decomposition runs the kernels, so the reference's chooser; the
+        # world's devices, one a process, across several processes
+        n_dev = (multihost.process_count() if args.distributed
+                 else max(args.cpu_devices, 1) if args.cpu
                  else torch.cuda.device_count())
         if n_dev < 1:
             raise RuntimeError("--mesh auto found no CUDA device (use --cpu "

@@ -167,18 +167,20 @@ def nusselt_fn(problem: Problem):
 
 
 def thermal_trace_of_blocks(problem: Problem, blocks: list,
-                            device) -> torch.Tensor:
+                            device, collect) -> torch.Tensor:
     """nusselt_fn's value (0-d, in the blocks' dtype, on `device`) of a
     thermal state cut into `blocks` (a mesh's shards, row by row): each
     mean over the grid taken as float64 partial sums per block, reduced on
     `device`. The Nusselt number sums u_y T; the variance sums T for the
-    mean first, then (T - <T>)²."""
+    mean first, then (T - <T>)². collect(parts): every shard's partial,
+    row by row, from these blocks' (this process's; the others' gathered:
+    parallel/sharded_step.Diagnostics._on_first)."""
     cells = math.prod(problem.spatial_shape)
     dtype = blocks[0].dtype
 
     def total(parts):
         out = None
-        for part in parts:
+        for part in collect(list(parts)):
             part = part.to(device)
             out = part if out is None else out + part
         return out

@@ -1,2 +1,3 @@
-"""Several devices: the mesh of shards, the halo exchange between them and
-the sharded chunk stepper (port of tpulbm/parallel/, 2-D single-phase)."""
+"""Several devices: the mesh of shards, the halo exchange between them, the
+sharded chunk stepper and several processes on torch.distributed (port of
+tpulbm/parallel/)."""

@@ -16,7 +16,11 @@ a physical y edge. A sharded state is the (my, mx) grid of local blocks,
 (Q, nyl, nxl) in 2-D and (Q, nz, nyl, nxl) in 3-D (the mesh cuts y and x,
 z stays whole: tpulbm's P(None, None, "y", "x")), shard (iy, ix) on
 mesh.device(iy, ix) (parallel/mesh.py); one process drives every shard,
-as `shard_map` does. Each launch's rings come from parallel/halo.py and
+as `shard_map` does, or, across several processes (parallel/multihost.py),
+each its own run of them: a grid then holds None for another process's
+shard, every builder launches this process's shards only, and the
+diagnostics gather the other processes' partials. Each launch's rings
+come from parallel/halo.py and
 each shard steps through the ring builds of the kernels
 (ops/step_cuda.collide_stream_rings, in 3-D collide_stream_rings_3d) or,
 for a CPU tensor, their plain version (ops/step_rings_torch.py).
@@ -64,10 +68,15 @@ from ..ops import diagnostics
 from ..ops import forces as forces_mod
 from ..ops import (step_cuda, step_multiphase, step_multiphase_cuda,
                    step_rings_torch, step_thermal, step_thermal_cuda)
-from . import halo
+from . import halo, multihost
 from .mesh import Mesh
 
 Grid = halo.Grid
+
+
+def _map(grid: Grid, fn) -> Grid:
+    """fn of every block this process holds; None stays None."""
+    return [[None if b is None else fn(b) for b in row] for row in grid]
 
 
 def origin(mesh: Mesh, local_shape: tuple[int, ...], iy: int,
@@ -86,22 +95,30 @@ def block_shape(problem: Problem, mesh: Mesh) -> tuple[int, ...]:
 
 def split(mesh: Mesh, x, dtype=None) -> Grid:
     """A global (..., ny, nx) host array or tensor cut into the mesh's
-    blocks, each a contiguous copy on its shard's device: tpulbm's
-    shard_state placement."""
+    blocks, each a contiguous copy on its shard's device (None for another
+    process's shard): tpulbm's shard_state placement."""
     x = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x)
     nyl, nxl = mesh.local_shape(tuple(x.shape[-2:]))
     # copies, never views: a chunk reuses its input blocks as buffers
     return [[x[..., iy * nyl:(iy + 1) * nyl, ix * nxl:(ix + 1) * nxl]
              .to(mesh.device(iy, ix), dtype=dtype, copy=True).contiguous()
+             if mesh.is_local(iy, ix) else None
              for ix in range(mesh.shape[1])] for iy in range(mesh.shape[0])]
 
 
-def gather(shards: Grid, device=None) -> torch.Tensor:
+def gather(shards: Grid, device=None, mesh: Mesh | None = None
+           ) -> torch.Tensor:
     """The global tensor of a sharded one, on `device` (default: the first
-    shard's); the block itself on a (1,1) mesh."""
-    device = shards[0][0].device if device is None else torch.device(device)
+    block's); the block itself on a (1,1) mesh. A grid of several
+    processes' blocks (None for another's) is fetched through
+    multihost.fetch_global with its `mesh`, which every process calls."""
+    first = next(b for row in shards for b in row if b is not None)
+    device = first.device if device is None else torch.device(device)
     if len(shards) == 1 and len(shards[0]) == 1:
         return shards[0][0].to(device)
+    if any(b is None for row in shards for b in row):
+        return torch.from_numpy(multihost.fetch_global(shards, mesh)).to(
+            device)
     return torch.cat([torch.cat([s.to(device) for s in row], dim=-1)
                       for row in shards], dim=-2)
 
@@ -125,7 +142,7 @@ def shard_initial_state(problem: Problem, mesh: Mesh):
     periodic boxes) is built on the first shard's device and cut, one at
     a density map (multiphase) or a thermal profile on the host."""
     if problem.init_fields is not None:
-        return split(mesh, problem.fields_state(mesh.device(0, 0))), None
+        return split(mesh, problem.fields_state(mesh.home)), None
     if problem.init_rho_map is not None or problem.thermal is not None:
         return split(mesh, problem.initial_state()), None
     local = block_shape(problem, mesh)
@@ -140,6 +157,9 @@ def shard_initial_state(problem: Problem, mesh: Mesh):
         row = []
         for ix in range(mesh.shape[1]):
             dev = mesh.device(iy, ix)
+            if dev is None:
+                row.append(None)
+                continue
             ones = (1,) * len(local)
             f = torch.as_tensor(feq, dtype=dtype, device=dev).reshape(
                 (q,) + ones).expand((q,) + local).contiguous()
@@ -327,7 +347,7 @@ def _plain_chunk(problem: Problem, mesh: Mesh, chunk_len: int):
     has_solid = problem.solid is not None
     pads = (halo.pad_mask(_solid_grid(problem, mesh),
                           periodic_x=problem.periodic_x,
-                          periodic_y=problem.periodic_y)
+                          periodic_y=problem.periodic_y, mesh=mesh)
             if has_solid else None)
 
     def halves(iy: int, ix: int) -> tuple:
@@ -347,21 +367,22 @@ def _plain_chunk(problem: Problem, mesh: Mesh, chunk_len: int):
             (local[-2] + 2, local[-1] + 2),
             pads[iy][ix] if has_solid else None, dev),)
 
-    steps = [[halves(iy, ix) for ix in range(mesh.shape[1])]
-             for iy in range(mesh.shape[0])]
+    steps = [[halves(iy, ix) if mesh.is_local(iy, ix) else None
+              for ix in range(mesh.shape[1])] for iy in range(mesh.shape[0])]
+    n_halves = len(next(h for row in steps for h in row if h is not None))
 
     def chunk(shards: Grid) -> Grid:
-        fpads = [[halo.make_padded(f, eq_ring) for f in row]
-                 for row in shards]
+        fpads = _map(shards, lambda f: halo.make_padded(f, eq_ring))
         for _ in range(chunk_len):
-            for k in range(len(steps[0][0])):
+            for k in range(n_halves):
                 halo.refresh_ring(fpads, eq_ring=eq_ring,
                                   periodic_x=problem.periodic_x,
-                                  periodic_y=problem.periodic_y)
-                fpads = [[srow[ix][k](fp) for ix, fp in enumerate(frow)]
+                                  periodic_y=problem.periodic_y,
+                                  mesh=mesh)
+                fpads = [[None if fp is None else srow[ix][k](fp)
+                          for ix, fp in enumerate(frow)]
                          for srow, frow in zip(steps, fpads)]
-        return [[fp[..., 1:-1, 1:-1].contiguous() for fp in row]
-                for row in fpads]
+        return _map(fpads, lambda fp: fp[..., 1:-1, 1:-1].contiguous())
 
     chunk.mode = "plain"
     chunk.substeps = 1
@@ -383,13 +404,17 @@ def kernel_shards(problem: Problem, mesh: Mesh, depth: int, x_rings: bool,
     if masks is None:
         masks = halo.pad_mask(_solid_grid(problem, mesh),
                               periodic_x=problem.periodic_x,
-                              periodic_y=problem.periodic_y, depth=depth)
+                              periodic_y=problem.periodic_y, depth=depth,
+                              mesh=mesh)
     bouzidi = problem.obstacle_bc == "bouzidi" and problem.solid is not None
     out = []
     for iy in range(mesh.shape[0]):
         row = []
         for ix in range(mesh.shape[1]):
             dev = mesh.device(iy, ix)
+            if dev is None:
+                row.append(None)
+                continue
             o = origin(mesh, local, iy, ix)
             mask, links = masks[iy][ix].to(torch.uint8).contiguous(), None
             if bouzidi:
@@ -421,26 +446,27 @@ def _kernel_chunk(problem: Problem, mesh: Mesh, chunk_len: int):
     has_solid = problem.solid is not None
     masks = halo.pad_mask(_solid_grid(problem, mesh),
                           periodic_x=problem.periodic_x,
-                          periodic_y=problem.periodic_y, depth=depth)
+                          periodic_y=problem.periodic_y, depth=depth,
+                          mesh=mesh)
     shards_geo = kernel_shards(problem, mesh, depth, x_rings, masks)
-    plains = [[step_rings_torch.make_ring_step(
+    cells = mesh.local_shards()
+    plains = {(iy, ix): step_rings_torch.make_ring_step(
         problem, origin(mesh, local, iy, ix), local, depth,
         masks[iy][ix] if has_solid else None, mesh.device(iy, ix))
-        if mesh.device(iy, ix).type == "cpu" else None
-        for ix in range(mesh.shape[1])] for iy in range(mesh.shape[0])]
-    cells = mesh.shards()
+        for iy, ix in cells if mesh.device(iy, ix).type == "cpu"}
     edge = depth + 1
     sides = _streams([mesh.device(iy, ix) for iy, ix in cells])
 
     def exchange(cur: Grid) -> Grid:
         return halo.exchange(cur, eq_ring=eq_ring, depth=depth,
                              periodic_x=problem.periodic_x,
-                             periodic_y=problem.periodic_y, x_rings=x_rings)
+                             periodic_y=problem.periodic_y, x_rings=x_rings,
+                             mesh=mesh)
 
     def launch(cur, out, rings, iy, ix, rows=None):
         step_cuda.collide_stream_rings(
             cur[iy][ix], out[iy][ix], rings, shards_geo[iy][ix], consts,
-            depth, rows=rows, plain=plains[iy][ix])
+            depth, rows=rows, plain=plains.get((iy, ix)))
 
     def whole(cur: Grid, out: Grid) -> None:
         rings = exchange(cur)
@@ -478,7 +504,7 @@ def _kernel_chunk(problem: Problem, mesh: Mesh, chunk_len: int):
         raise AssertionError(f"depth {depth} does not divide {chunk_len}")
 
     def chunk(shards: Grid) -> Grid:
-        spare = [[torch.empty_like(f) for f in row] for row in shards]
+        spare = _map(shards, torch.empty_like)
         cur = shards
         for _ in range(n_launch):
             step(cur, spare)
@@ -521,7 +547,7 @@ def _kernel_chunk_coupled(problem: Problem, mesh: Mesh, chunk_len: int):
         consts = step_multiphase_cuda.MultiphaseConstants.of(problem)
         launch = step_multiphase_cuda.collide_stream_multiphase_rings
         make_plain = step_multiphase.make_ring_step_multiphase
-    cells = mesh.shards()
+    cells = mesh.local_shards()
     geo = {(iy, ix): step_cuda.Shard(
         index=(iy, ix), origin=origin(mesh, local, iy, ix),
         local_shape=local, grid=tuple(problem.spatial_shape), depth=depth,
@@ -531,12 +557,12 @@ def _kernel_chunk_coupled(problem: Problem, mesh: Mesh, chunk_len: int):
               for cell in cells if mesh.device(*cell).type == "cpu"}
 
     def chunk(shards: Grid) -> Grid:
-        spare = [[torch.empty_like(f) for f in row] for row in shards]
+        spare = _map(shards, torch.empty_like)
         cur = shards
         for _ in range(chunk_len):
             rings = halo.exchange(cur, eq_ring=eq_ring, depth=depth,
                                   periodic_x=problem.periodic_x,
-                                  periodic_y=problem.periodic_y,
+                                  periodic_y=problem.periodic_y, mesh=mesh,
                                   x_rings=x_rings)
             for iy, ix in cells:
                 launch(cur[iy][ix], spare[iy][ix], rings[iy][ix],
@@ -561,14 +587,15 @@ def _kernel_chunk_3d(problem: Problem, mesh: Mesh, chunk_len: int):
     # shard
     consts = step_cuda.kernel_constants(problem, q=19)
     has_solid = problem.solid is not None
-    cells = mesh.shards()
+    cells = mesh.local_shards()
     # each segment its own depth: its rings, padded masks and link tables
     # (tpulbm's run_segment, :467-532)
     runs = []
     for depth, iters in segments:
         masks = halo.pad_mask(_solid_grid(problem, mesh),
                               periodic_x=problem.periodic_x,
-                              periodic_y=problem.periodic_y, depth=depth)
+                              periodic_y=problem.periodic_y, depth=depth,
+                              mesh=mesh)
         geo = kernel_shards(problem, mesh, depth, x_rings, masks)
         plains = {(iy, ix): step_rings_torch.make_ring_step(
             problem, origin(mesh, local, iy, ix), local, depth,
@@ -577,13 +604,13 @@ def _kernel_chunk_3d(problem: Problem, mesh: Mesh, chunk_len: int):
         runs.append((depth, iters, geo, plains))
 
     def chunk(shards: Grid) -> Grid:
-        spare = [[torch.empty_like(f) for f in row] for row in shards]
+        spare = _map(shards, torch.empty_like)
         cur = shards
         for depth, iters, geo, plains in runs:
             for _ in range(iters):
                 rings = halo.exchange(cur, eq_ring=eq_ring, depth=depth,
                                       periodic_x=problem.periodic_x,
-                                      periodic_y=problem.periodic_y,
+                                      periodic_y=problem.periodic_y, mesh=mesh,
                                       x_rings=x_rings)
                 for iy, ix in cells:
                     step_cuda.collide_stream_rings_3d(
@@ -619,11 +646,15 @@ class Diagnostics:
     (the Nusselt number, the scalar variance) is a mean over the grid,
     summed from float64 partials per shard
     (diagnostics.thermal_trace_of_blocks). On a (1,1) mesh every result is
-    the one-device function's, bit for bit."""
+    the one-device function's, bit for bit. Across several processes each
+    computes its own shards' partials and all-gathers them in shard order
+    (multihost.all_gather), so every process reduces the partials one
+    process reduces, in the same order: the same bits, on this process's
+    first shard's device."""
 
     def __init__(self, problem: Problem, mesh: Mesh):
         self.problem, self.mesh = problem, mesh
-        self.device = mesh.device(0, 0)
+        self.device = mesh.home
         solids = (None if problem.solid is None
                   else shard_mask(mesh, problem.solid))
         # the Bouzidi force on a mesh of several shards reads padded blocks
@@ -638,7 +669,7 @@ class Diagnostics:
         self._mp_padded = bool(problem.shan_chen) and mesh.size > 1
         inner = (slice(None),) * len(lead) + (slice(1, -1), slice(1, -1))
         self._fns = {}
-        for iy, ix in mesh.shards():
+        for iy, ix in mesh.local_shards():
             dev = mesh.device(iy, ix)
             solid = None if solids is None else solids[iy][ix]
             force = None
@@ -672,22 +703,33 @@ class Diagnostics:
         self._temp = diagnostics.temperature_fn(problem) if thermal else None
 
     def _per_shard(self, which: int, shards: Grid) -> list:
-        return [self._fns[iy, ix][which](f)
-                for iy, row in enumerate(shards) for ix, f in enumerate(row)]
+        """Function `which` of each of this process's shards, row by row."""
+        return [self._fns[iy, ix][which](shards[iy][ix])
+                for iy, ix in self.mesh.local_shards()]
 
     def _on_first(self, parts: list) -> list:
-        return [p.to(self.device) for p in parts]
+        """Every shard's part, row by row, on the first device, from this
+        process's parts (alike in shape and dtype): all-gathered and
+        placed by the mesh's process map."""
+        every = multihost.all_gather(torch.stack(
+            [p.to(self.device) for p in parts]))
+        placed = dict(zip(self.mesh.by_process(),
+                          every.reshape((-1,) + tuple(parts[0].shape))))
+        return [placed[cell] for cell in self.mesh.shards()]
+
+    def _local_blocks(self, shards: Grid) -> list:
+        return [shards[iy][ix] for iy, ix in self.mesh.local_shards()]
 
     def force(self, shards: Grid) -> torch.Tensor:
         """The obstacle's force (D,) (zeros without an obstacle)."""
-        ref = shards[0][0]
+        ref = self._local_blocks(shards)[0]
         if self.problem.solid is None:
             return ref.new_zeros(self.problem.lattice.D)
         if self._padded:
             shards = halo.pad_block(
                 shards, eq_ring=self.problem.ghost_ring_values(), depth=1,
                 periodic_x=self.problem.periodic_x,
-                periodic_y=self.problem.periodic_y)
+                periodic_y=self.problem.periodic_y, mesh=self.mesh)
         parts = self._on_first(self._per_shard(0, shards))
         total = parts[0]
         for part in parts[1:]:
@@ -699,12 +741,13 @@ class Diagnostics:
         return parts[0] if len(parts) == 1 else torch.max(torch.stack(parts))
 
     def stable(self, shards: Grid) -> torch.Tensor:
-        parts = self._on_first([physics.is_stable(f) for row in shards
-                                for f in row])
+        parts = self._on_first([physics.is_stable(f)
+                                for f in self._local_blocks(shards)])
         return parts[0] if len(parts) == 1 else torch.all(torch.stack(parts))
 
     def mass(self, shards: Grid) -> torch.Tensor:
-        parts = self._on_first([torch.sum(f) for row in shards for f in row])
+        parts = self._on_first([torch.sum(f)
+                                for f in self._local_blocks(shards)])
         total = parts[0]
         for part in parts[1:]:
             total = total + part
@@ -716,7 +759,8 @@ class Diagnostics:
         if self.mesh.size == 1:
             return self._nusselt(shards[0][0])
         return diagnostics.thermal_trace_of_blocks(
-            self.problem, [f for row in shards for f in row], self.device)
+            self.problem, self._local_blocks(shards), self.device,
+            self._on_first)
 
     def _field_blocks(self, shards: Grid) -> Grid:
         """The blocks the fields functions take: with a one-cell ring for
@@ -724,17 +768,28 @@ class Diagnostics:
         if not self._mp_padded:
             return shards
         return halo.pad_block(shards, eq_ring=self.problem.ghost_ring_values(),
-                              depth=1, periodic_x=self.problem.periodic_x)
+                              depth=1, periodic_x=self.problem.periodic_x,
+                              mesh=self.mesh)
 
     def probes(self, shards: Grid) -> torch.Tensor:
         """(n_probes, 1 + D [+ 1]) of [rho, u..., (T)] at the probe cells
         (diagnostics.probe_cells), each from the shard that owns it, on the
-        first device."""
-        return torch.stack([
+        first device: each process's rows, zeros for the probes of the
+        other processes' shards, all-gathered, each row taken from its
+        owner's."""
+        mesh = self.mesh
+        ref = self._local_blocks(shards)[0]
+        width = 1 + self.problem.lattice.D + (self.problem.thermal
+                                              is not None)
+        rows = torch.stack([
             diagnostics.probe_values(
                 self.problem, shards[iy][ix][(slice(None),) + local]
-            ).to(self.device)
+            ).to(self.device) if mesh.is_local(iy, ix)
+            else ref.new_zeros(width, device=self.device)
             for (iy, ix), local in self._probes])
+        every = multihost.all_gather(rows)
+        return torch.stack([every[mesh.process(iy, ix), i]
+                            for i, ((iy, ix), _) in enumerate(self._probes)])
 
     def stats_samples(self, shards: Grid) -> list:
         """One Reynolds-statistics sample (rho, u, uu) per shard, row by
@@ -754,21 +809,27 @@ class Diagnostics:
             parts.append(self.probes(shards).reshape(-1).to(force.dtype))
         return torch.cat(parts)
 
+    def _grid(self, parts: list) -> Grid:
+        """This process's per-shard parts (row by row) as a grid, None for
+        the other processes' shards."""
+        it = iter(parts)
+        return [[next(it) if self.mesh.is_local(iy, ix) else None
+                  for ix in range(self.mesh.shape[1])]
+                 for iy in range(self.mesh.shape[0])]
+
     def fields(self, shards: Grid):
         """(rho, u) of the global grid on the first device, with the
-        reference's solid-cell overrides (diagnostics.fields_fn)."""
-        per = self._per_shard(2, self._field_blocks(shards))
-        mx = len(shards[0])
-        rows = [per[i:i + mx] for i in range(0, len(per), mx)]
-        return (gather([[r for r, _ in row] for row in rows], self.device),
-                gather([[u for _, u in row] for row in rows], self.device))
+        reference's solid-cell overrides (diagnostics.fields_fn); across
+        several processes every process receives them whole."""
+        per = self._grid(self._per_shard(2, self._field_blocks(shards)))
+        return (gather(_map(per, lambda p: p[0]), self.device, self.mesh),
+                gather(_map(per, lambda p: p[1]), self.device, self.mesh))
 
     def temperature(self, shards: Grid) -> torch.Tensor | None:
         """The temperature field of a thermal state (None otherwise)."""
         if self._temp is None:
             return None
-        return gather([[self._temp(f) for f in row] for row in shards],
-                      self.device)
+        return gather(_map(shards, self._temp), self.device, self.mesh)
 
 
 def make_super_chunk_fn(problem: Problem, mesh: Mesh, interval_len: int,
@@ -800,7 +861,7 @@ def make_super_chunk_fn(problem: Problem, mesh: Mesh, interval_len: int,
     size, unpack = stepper.super_layout(problem, n_intervals, with_fields)
 
     def fn(shards: Grid, sample=None):
-        flat = torch.empty(size, dtype=shards[0][0].dtype,
+        flat = torch.empty(size, dtype=diag._local_blocks(shards)[0].dtype,
                            device=diag.device)
         views = unpack(flat)
         for j in range(n_intervals):
@@ -850,6 +911,7 @@ class Stats:
             self.count = torch.zeros((), dtype=dtype, device=diag.device)
             self.sums = {name: [[torch.zeros(lead + local, dtype=dtype,
                                              device=mesh.device(iy, ix))
+                                 if mesh.is_local(iy, ix) else None
                                  for ix in range(mesh.shape[1])]
                                 for iy in range(mesh.shape[0])]
                          for name, lead in zip(self.NAMES, (
@@ -860,8 +922,10 @@ class Stats:
         first = int(np.asarray(saved.get("first", -1)))
         self.first = None if first < 0 else first
         # a single .npz holds global arrays, a per-shard directory a grid
+        # (of this process's blocks)
         self.sums = {name: [[torch.as_tensor(b).to(mesh.device(iy, ix),
                                                    dtype=dtype)
+                             if mesh.is_local(iy, ix) else None
                              for ix, b in enumerate(row)]
                             for iy, row in enumerate(saved[name])]
                      if isinstance(saved[name], list)
@@ -871,9 +935,7 @@ class Stats:
     def add(self, shards: Grid) -> None:
         """One sample of the state `shards`."""
         blocks = self.diag.stats_samples(shards)
-        mx = self.diag.mesh.shape[1]
-        for k, sample in enumerate(blocks):
-            iy, ix = divmod(k, mx)
+        for (iy, ix), sample in zip(self.diag.mesh.local_shards(), blocks):
             for name, x in zip(self.NAMES, sample):
                 grid = self.sums[name]
                 grid[iy][ix] = grid[iy][ix] + x
@@ -897,7 +959,7 @@ class Stats:
         pairs = [(i, j) for i in range(d) for j in range(i, d)]
         out = ([], [], [])
         for s_rho, s_u, s_uu in zip(*(
-                [b for row in self.sums[name] for b in row]
+                [b for row in self.sums[name] for b in row if b is not None]
                 for name in self.NAMES)):
             cnt = self.count.to(s_rho.device)
             mu = s_u / cnt
@@ -905,7 +967,5 @@ class Stats:
             out[1].append(mu)
             out[2].append(s_uu / cnt - torch.stack(
                 [mu[i] * mu[j] for i, j in pairs]))
-        mx = self.diag.mesh.shape[1]
-        return tuple(gather([parts[i:i + mx]
-                             for i in range(0, len(parts), mx)],
-                            self.diag.device) for parts in out)
+        return tuple(gather(self.diag._grid(parts), self.diag.device,
+                            self.diag.mesh) for parts in out)

@@ -22,13 +22,19 @@ written at chunk boundaries and resumed by run(resume=True), the
 statistics' accumulators with them; a mesh of several shards
 (params.mesh_shape, parallel/) writes tpulbm's per-shard directories and
 resumes either kind, and its artifacts are gathered to the host once per
-write, the counterpart of tpulbm's rank-0 I/O.
+write, the counterpart of tpulbm's rank-0 I/O. Across several processes
+(parallel/multihost.py) every process runs the loop over its own shards
+and takes part in every gather, and process 0 alone prints and writes
+(tpulbm/runner.py:63-64); on resume process 0 decides and broadcasts
+(step, failed, kind) before any process reads a checkpoint, so a bad
+checkpoint raises on every process.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 import time
+import zipfile
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -42,7 +48,7 @@ from .models.base import Problem
 from .models.rayleigh_benard import effective_height
 from .ops import diagnostics
 from .ops import forces as forces_mod
-from .parallel import sharded_step
+from .parallel import multihost, sharded_step
 from .parallel.mesh import Mesh, make_mesh, visible_devices
 from .utils import checkpoint as ckpt
 from .utils import io as io_mod
@@ -77,8 +83,17 @@ def runner_mesh(params: SimulationParams, device="cuda",
     in row-by-row order, a device may repeat: four shards on one card),
     else over the first my*mx visible cards (an explicit mesh larger than
     the visible cards raises, as tpulbm's make_mesh does), or over the host
-    CPU where `device` asks for it."""
+    CPU where `device` asks for it. Across several processes this
+    process's shards run on `devices` (its own shards'), by default on
+    multihost.local_device()."""
     n = params.mesh_shape[0] * params.mesh_shape[1]
+    if multihost.process_count() > 1:
+        if devices is None and (torch.device(device).type
+                                != multihost.local_device().type):
+            raise ValueError(f"device {device!r} is not this process's "
+                             f"{multihost.local_device()} "
+                             "(multihost.initialize chose it)")
+        return make_mesh(tuple(params.mesh_shape), devices=devices)
     if devices is None:
         device = torch.device(device)
         if device.type == "cpu":
@@ -95,16 +110,20 @@ class Runner:
                  verbose: bool = True, devices=None):
         device = torch.device(device)
         if (devices is None and device.type == "cuda"
+                and multihost.process_count() == 1
                 and not torch.cuda.is_available()):
             raise RuntimeError("device='cuda' but torch finds no CUDA device")
         check_runner_slice(params)
         self.params = params
-        self.verbose = verbose
+        # rank-0 semantics (tpulbm/runner.py:63-64): banners and files come
+        # from process 0 only; the gathers run on every process
+        self.primary = multihost.is_primary()
+        self.verbose = verbose and self.primary
         self.problem: Problem = make_problem(params)
         self.mesh = runner_mesh(params, device, devices)
         # the state is the mesh's grid of blocks, one block on (1,1), where
         # the sharded stepper and diagnostics are the one-device ones
-        self.device = self.mesh.device(0, 0)
+        self.device = self.mesh.home
         self._diagnostics = sharded_step.Diagnostics(self.problem, self.mesh)
         self._chunk_cache: dict[int, object] = {}
         self._super: dict[bool, object] = {}   # with_fields -> super-chunk fn
@@ -138,10 +157,14 @@ class Runner:
                 if self.device.type == "cuda" else "host CPU")
         if self.mesh.size > 1:
             my, mx = self.mesh.shape
-            devs = sorted({str(d) for row in self.mesh.devices for d in row})
-            print(f"  Device mesh: {my}×{mx} ({', '.join(devs)}; {name}), "
-                  f"local block {p.ny // my}×{p.nx // mx}, precision "
-                  f"{p.precision}, backend {p.backend}")
+            devs = sorted({str(d) for row in self.mesh.devices for d in row
+                           if d is not None})
+            world = multihost.process_count()
+            procs = (f", {world} processes over {multihost.backend()}"
+                     if world > 1 else "")
+            print(f"  Device mesh: {my}×{mx} ({', '.join(devs)}; {name}"
+                  f"{procs}), local block {p.ny // my}×{p.nx // mx}, "
+                  f"precision {p.precision}, backend {p.backend}")
         else:
             print(f"  Device: {self.device} ({name}), precision "
                   f"{p.precision}, backend {p.backend}")
@@ -163,7 +186,7 @@ class Runner:
         if self._mass0 is None:
             return f
         scale = self._mass0 / self._diagnostics.mass(f)
-        return [[b * scale.to(b.device) for b in row] for row in f]
+        return sharded_step._map(f, lambda b: b * scale.to(b.device))
 
     def _fetch(self, x: torch.Tensor) -> np.ndarray:
         """One device-to-host copy, counted."""
@@ -224,13 +247,14 @@ class Runner:
         if self.mesh.size > 1:
             sums = scalars = None
             if stats is not None:
-                sums = {name: [[self._fetch(b) for b in row] for row in grid]
+                sums = {name: sharded_step._map(grid, self._fetch)
                         for name, grid in stats.sums.items()}
                 scalars = {"count": float(self._fetch(stats.count)),
                            "first": first}
-            ckpt.save_sharded(ckpt_dir, t, [[self._fetch(b) for b in row]
-                                            for row in f], self.params,
-                              stats=sums, stats_scalars=scalars)
+            # every process writes its own shards (checkpoint.save_sharded)
+            ckpt.save_sharded(ckpt_dir, t, sharded_step._map(f, self._fetch),
+                              self.params, stats=sums, stats_scalars=scalars,
+                              owners=self.mesh.processes)
         else:
             host = None
             if stats is not None:
@@ -247,23 +271,96 @@ class Runner:
         (tpulbm/runner.py:264-373): a single .npz (a host state, sharded on
         a mesh) or a per-shard directory (host blocks, read on a mesh whose
         blocks line up with the saved ones, as tpulbm reads it), each with
-        the statistics' accumulators it holds."""
+        the statistics' accumulators it holds.
+
+        Across several processes process 0 decides and broadcasts (step,
+        failed, kind), kind 0 fresh, 1 a single .npz (its state and
+        statistics broadcast from process 0), 2 a per-shard directory
+        (each process reads its own shards, then all learn whether any
+        read failed), so a bad checkpoint raises on every process."""
         p = self.params
-        latest = ckpt.latest(os.path.join(p.output_dir, p.checkpoint_dir))
-        if latest is None:
-            return 0, None, None
-        try:
-            if os.path.isdir(latest):
-                start_step, f0, stats = ckpt.load_sharded(
-                    latest, self.mesh.shape, p, extras=True)
-            else:
-                start_step, f0, stats = ckpt.load(latest, p, extras=True)
-        except (OSError, KeyError, ValueError) as e:
-            raise RuntimeError(f"checkpoint load failed ({type(e).__name__}: "
-                               f"{e})") from e
-        if self.verbose:
+        ckpt_dir = os.path.join(p.output_dir, p.checkpoint_dir)
+        several = multihost.process_count() > 1
+        start_step, kind, f0, stats, err = 0, 0, None, None, None
+        latest = ckpt.latest(ckpt_dir) if self.primary else None
+        if latest is not None:
+            try:
+                if not os.path.isdir(latest):
+                    start_step, f0, stats = ckpt.load(latest, p, extras=True)
+                    kind = 1
+                elif several:
+                    # the shards are read below, by each process its own
+                    start_step, kind = ckpt.check_manifest(latest, p), 2
+                else:
+                    start_step, f0, stats = ckpt.load_sharded(
+                        latest, self.mesh.shape, p, extras=True)
+                    kind = 2
+            except (OSError, KeyError, ValueError, zipfile.BadZipFile) as e:
+                err = f"{type(e).__name__}: {e}"
+        if several:
+            text = (err or "").encode()
+            start_step, failed, kind, has_stats, n = (
+                int(v) for v in multihost.broadcast_one_to_all(np.array(
+                    [start_step, err is not None, kind, stats is not None,
+                     len(text)], np.int64)))
+            if failed:
+                # process 0's message on every process
+                text = multihost.broadcast_one_to_all(
+                    np.frombuffer(text, np.uint8) if self.primary
+                    else np.zeros(n, np.uint8)).tobytes().decode()
+                raise RuntimeError(f"checkpoint load failed on process 0 "
+                                   f"({text})")
+            if kind == 1:
+                f0, stats = self._broadcast_npz(f0, stats, has_stats)
+            elif kind == 2:
+                f0, stats = self._load_own_shards(ckpt_dir, start_step)
+        elif err is not None:
+            raise RuntimeError(f"checkpoint load failed ({err})")
+        if self.verbose and kind:
             print(f"  Resuming from {latest} at step {start_step}")
         return start_step, f0, stats
+
+    def _broadcast_npz(self, f0, stats, has_stats: bool):
+        """Process 0's single-.npz state and statistics on every process
+        (the others pass placeholders of their shape and dtype)."""
+        problem = self.problem
+        shape = problem.spatial_shape
+        d = problem.lattice.D
+        f0 = multihost.broadcast_one_to_all(
+            f0 if f0 is not None else np.zeros(
+                (problem.state_q,) + tuple(shape), problem.dtype))
+        if not has_stats:
+            return f0, None
+        like = {"count": (), "first": (), "s_rho": (), "s_u": (d,),
+                "s_uu": (d * (d + 1) // 2,)}
+        if stats is None:
+            stats = {k: np.zeros(lead if k in ("count", "first")
+                                 else lead + tuple(shape),
+                                 np.int64 if k == "first" else problem.dtype)
+                     for k, lead in like.items()}
+        return f0, {k: multihost.broadcast_one_to_all(np.asarray(stats[k]))
+                    for k in like}
+
+    def _load_own_shards(self, ckpt_dir: str, step: int):
+        """This process's shards and statistics sums from the per-shard
+        checkpoint of `step` (its physics checked on process 0); raises on
+        every process if any process's read failed."""
+        path = os.path.join(ckpt_dir, f"ckpt_{step:09d}")
+        err, f0, stats = None, None, None
+        try:
+            _, f0, stats = ckpt.load_sharded(
+                path, self.mesh.shape, extras=True,
+                cells=self.mesh.local_shards())
+        except (OSError, KeyError, ValueError, zipfile.BadZipFile) as e:
+            err = f"{type(e).__name__}: {e}"
+        failed = multihost.all_gather(torch.tensor(
+            [err is not None], dtype=torch.int64, device=self.device))
+        bad = [i for i, v in enumerate(failed.reshape(-1).tolist()) if v]
+        if bad:
+            raise RuntimeError(f"checkpoint load failed on process "
+                               f"{', '.join(map(str, bad))}"
+                               + (f" ({err})" if err else ""))
+        return f0, stats
 
     def _stats(self, start_step: int, saved: dict | None):
         """The statistics' accumulators of a run with stats_from >= 0 (None
@@ -298,6 +395,8 @@ class Runner:
                       "(stats_from past the sampled window); skipping")
             return
         mrho, mu, re = (self._fetch(x) for x in stats.means())
+        if not self.primary:
+            return
         path = io_mod.write_stats_fields(
             mrho, mu, re, diagnostics.stats_pair_names(
                 self.problem.lattice.D), int(n),
@@ -315,6 +414,7 @@ class Runner:
         if isinstance(f0, list):
             return [[state_from_numpy_block(b, problem,
                                             self.mesh.device(iy, ix))
+                     if b is not None else None
                      for ix, b in enumerate(row)]
                     for iy, row in enumerate(f0)]
         if f0 is None:
@@ -338,9 +438,11 @@ class Runner:
         force_writer = forces_path = nu_writer = probe_writer = None
         if problem.solid is not None:
             forces_path = os.path.join(p.output_dir, "forces.csv")
-            force_writer = io_mod.ForceWriter(
-                forces_path, append=start_step > 0, resume_step=start_step)
-        if problem.thermal is not None:
+            if self.primary:
+                force_writer = io_mod.ForceWriter(
+                    forces_path, append=start_step > 0,
+                    resume_step=start_step)
+        if problem.thermal is not None and self.primary:
             # between y walls the Nusselt trace; the periodic passive
             # scalar's variance rides its slot (tpulbm/runner.py:385-393)
             trace = ({} if problem.walls_y else
@@ -351,7 +453,7 @@ class Runner:
                 append=start_step > 0, resume_step=start_step, **trace)
         probe_slot = 4 + (problem.thermal is not None)
         n_probes = len(p.probe_points)
-        if n_probes:
+        if n_probes and self.primary:
             probe_writer = io_mod.ProbeWriter(
                 os.path.join(p.output_dir, "probes.csv"), n_probes=n_probes,
                 ndim=problem.lattice.D, thermal=problem.thermal is not None,
@@ -414,14 +516,17 @@ class Runner:
                             if tj > 0 and self.verbose:
                                 print(f"Timestep {tj}: "
                                       f"max_vel={float(d['max_vel'][j]):.6f}")
-                            if vtk_window and tj > 0 and tj >= p.vtk_start_step:
+                            if (vtk_window and tj > 0 and self.primary
+                                    and tj >= p.vtk_start_step):
                                 # copies: a view would pin the whole window
                                 self._submit_frame(
                                     np.array(d["rho"][j]), np.array(d["u"][j]),
                                     tj, np.array(d["temp"][j])
                                     if "temp" in d else None)
                             if not d["stable"][j]:
-                                print(f"Simulation unstable at timestep {tj}")
+                                if self.primary:
+                                    print("Simulation unstable at "
+                                          f"timestep {tj}")
                                 success = False
                                 aborted = True
                                 break
@@ -457,11 +562,14 @@ class Runner:
                             if self.verbose:
                                 print(f"Timestep {t}: max_vel={float(mv):.6f}")
                             if p.enable_vtk and t >= p.vtk_start_step:
+                                # a gather every process takes part in
                                 rho_f, u_f = self._fetch_fields(f)
-                                self._submit_frame(rho_f, u_f, t,
-                                                   self._fetch_temp(f))
+                                temp = self._fetch_temp(f)
+                                if self.primary:
+                                    self._submit_frame(rho_f, u_f, t, temp)
                         if not stable:
-                            print(f"Simulation unstable at timestep {t}")
+                            if self.primary:
+                                print(f"Simulation unstable at timestep {t}")
                             success = False
                             break
 
@@ -480,7 +588,8 @@ class Runner:
 
                 # final fence + stability check of the end state
                 if success and not self._fetch(self._diagnostics.stable(f)):
-                    print(f"Simulation unstable at timestep {t}")
+                    if self.primary:
+                        print(f"Simulation unstable at timestep {t}")
                     success = False
         finally:
             for writer in (force_writer, nu_writer, probe_writer):
@@ -511,12 +620,17 @@ class Runner:
         fields3d.npz and, with VTK on, a final frame. With `fields_prev`
         (the fields one step before the end), interior values come from
         the last collision and the inlet and outlet columns from the final
-        BC application, as in the reference."""
+        BC application, as in the reference. Across several processes
+        every process takes part in the gathers and process 0 alone writes
+        (the others return None)."""
         p = self.params
         problem = self.problem
         if self.verbose:
             print("\nGathering final results...")
         rho, u = self._fetch_fields(f)
+        T = self._fetch_temp(f)
+        if not self.primary:
+            return None
         if fields_prev is not None:
             rho_prev, u_prev = fields_prev
             edge_cols = []
@@ -547,7 +661,6 @@ class Runner:
         stats = None
         if problem.thermal is not None and problem.walls_y:
             th = problem.thermal
-            T = self._fetch_temp(f)
             io_mod.write_temperature_field(T, p, p.output_dir)
             written += ["nusselt.csv", "temperature_field.csv"]
             # Nu from the host fields, as tpulbm computes it: u of the
@@ -558,7 +671,6 @@ class Runner:
             if self.verbose:
                 print(f"Nusselt number = {nu:.4f}")
         elif problem.thermal is not None:
-            T = self._fetch_temp(f)
             io_mod.write_temperature_field(T, p, p.output_dir)
             written += ["scalar_variance.csv", "temperature_field.csv"]
             var = float(np.mean((T - T.mean()) ** 2))
